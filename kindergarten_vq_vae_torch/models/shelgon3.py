@@ -1,0 +1,60 @@
+"""Shelgon3: BERT encoder, VQ codebook bottleneck, BERT-LM-head decoder.
+
+Counterpart of ``kindergarten_vq_vae_tpu/models/shelgon3.py`` l.62-99 and
+l.130-228, VectorQuantizer mode, forward only: the encoder output is
+quantized against the codebook and the decoder cross-attends to ``z_q``.
+CUDA tensors always take the VQ kernel: the JAX package's row threshold
+(``VQ_FUSED_MAX_ROWS``) was interpolated on a TPU and does not carry over.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel
+from kindergarten_vq_vae_torch.ops.vq import VQOutput, vector_quantize
+from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+
+
+class VectorQuantizer(nn.Module):
+    def __init__(self, n_e: int, e_dim: int, beta: float, device=None):
+        super().__init__()
+        self.n_e, self.beta = n_e, beta
+        self.codebook = nn.Parameter(torch.empty((n_e, e_dim), dtype=torch.float32, device=device))
+
+    def forward(self, z: torch.Tensor, reference: bool = False) -> VQOutput:
+        quantize = vector_quantize if reference else vector_quantize_kernel
+        return quantize(z.float().contiguous(), self.codebook, self.beta)
+
+
+class Shelgon3(nn.Module):
+    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, vq_mode: str = "VectorQuantizer",
+                 vq_n_e: int = 9, vq_e_dim: int = 768, vq_beta: float = 0.69, device=None):
+        super().__init__()
+        if vq_mode != "VectorQuantizer":
+            raise NotImplementedError(
+                f"vq_mode={vq_mode!r} is not ported yet (ROADMAP, modules to port: "
+                "item 7, ops/gumbel.py and the GumbelQuantizer)")
+        if enc_cfg.hidden_size != vq_e_dim:
+            raise ValueError("embedding dim of encoder output must match e_dim")
+        self.encoder = BertModel(enc_cfg, device)
+        self.vector_quantizer = VectorQuantizer(vq_n_e, vq_e_dim, vq_beta, device)
+        self.decoder = BertLMHeadModel(dec_cfg, device)
+
+    def forward(self, input_ids, attention_mask, reference: bool = False) -> dict:
+        """The same ids feed encoder and decoder (the reference's forward).
+        ``reference=True`` runs every kernel's plain version instead."""
+        embeds = self.encoder(input_ids, attention_mask, reference=reference)["last_hidden_state"]
+        vq = self.vector_quantizer(embeds, reference)
+        dec = self.decoder(input_ids, attention_mask, encoder_hidden_states=vq.z_q,
+                           reference=reference)
+        return {
+            "logits": dec["logits"],
+            "vq_loss": vq.loss,
+            "perplexity": vq.perplexity,
+            "min_encoding_indices": vq.indices,
+            "z_q": vq.z_q,
+            "encoder_last_hidden_state": embeds,
+            "ema_stats": {"counts": vq.counts, "sum_z": vq.sum_z},
+        }
