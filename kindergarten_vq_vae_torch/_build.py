@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface under ``build/`` (next to this file), and loaded
-with :mod:`ctypes`. Nothing here runs at import: the CPU tests import every
-module of the package on machines without ``nvcc`` or a card. The library is
-rebuilt when a source is newer than it. A failed build raises.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library with a plain C
+interface under ``build/`` (next to this file), loaded with :mod:`ctypes`.
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without ``nvcc`` or a card. The library is rebuilt when
+a source or header is newer than it. A failed build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkvq_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -48,20 +49,45 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    deps = _sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in deps)
 
 
 def build() -> None:
-    """Compile ``csrc/*.cu`` into ``build/libkvq_kernels.so`` (atomically)."""
+    """Compile every ``csrc/*.cu`` at once, one nvcc each, and link them into
+    ``build/libkvq_kernels.so`` (atomically)."""
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            build_log = "".join(logs)
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = "".join(logs) + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{build_log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def lib() -> ctypes.CDLL:

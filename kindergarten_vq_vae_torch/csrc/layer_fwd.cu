@@ -1,92 +1,53 @@
-// Fused post-LN BertLayer forward for Hopper (sm_90a), inference only.
+// Fused post-LN BertLayer forward for Hopper (sm_90a), serving and training.
 //
 // Replaces kindergarten_vq_vae_tpu/ops/layer_pallas.py `_layer_fwd_kernel`
 // (l.489, math in `_layer_fwd_core` l.374): one whole BertLayer per call,
 //
-//     x1 = LN(x  + Wo  @ attn(Wqkv @ x))                  self-attention
-//     x2 = LN(x1 + Wco @ attn(Wq @ x1, Wkv @ enc))         cross-attention (decoder)
-//     y  = LN(xm + W2  @ gelu(W1 @ xm))                    MLP, xm = x2 or x1
+//     x1 = LN(x  + drop(Wo  @ attn(Wqkv @ x)))                  self-attention
+//     x2 = LN(x1 + drop(Wco @ attn(Wq @ x1, Wkv @ enc)))         cross-attention (decoder)
+//     y  = LN(xm + drop(W2  @ gelu(W1 @ xm)))                    MLP, xm = x2 or x1
 //
 // with the TPU kernel's rounding points: bf16 operands, f32 accumulation,
 // f32 bias / LayerNorm parameters; qkv, qc, kvc, ctx, x1, x2 and the GELU
-// output rounded to bf16; residual sums in f32.
+// output rounded to bf16; residual sums in f32. Dropout is the counter-based
+// hash of dropout_hash.cuh: on the attention probabilities after the e / z
+// softmax and before their bf16 rounding, and on each projection output
+// before its residual add. In training mode the call also keeps the
+// backward's residuals (qkv, ctx, ctx2, x1, x2, qc, kvc, the pre-GELU u and
+// the GELU output m in bf16, and each LayerNorm's per-row rsqrt in f32).
 //
-// What bounds it on the H100: at the serving bucket of 256 sentences x 12
-// tokens (3072 rows) the projections are compute-bound GEMMs (K = 768 or
-// 3072, N up to 3072: 43 GF per encoder and 58 GF per decoder layer),
-// while attention (12 x 12 scores per head) and residual + LayerNorm are
-// memory-bound and small. The design therefore spends its effort on the GEMM: a bf16
-// tensor-core GEMM (wmma 16x16x16, f32 accumulate) with a 128x128x32 block
-// tile, a two-stage cp.async pipeline, and the bias / cast / GELU fused into
-// its epilogue so no f32 intermediate of the wide MLP ever reaches memory.
+// What bounds it on the H100: at 2048 sentences x 12 tokens (24576 rows) the
+// projections are compute-bound GEMMs (K = 768 or 3072, N up to 3072), while
+// attention (12 x 12 scores per head) and residual + LayerNorm are
+// memory-bound and small. The design therefore spends its effort on the GEMM:
+// bf16 tensor cores with the bias / cast / GELU fused into the epilogue, so
+// no f32 intermediate of the wide MLP reaches memory.
 // The TPU kernel's block-diagonal packing of sentences (`_attn_fwd_tile`)
 // existed to feed the 128x128 MXU; here one CTA computes one (sentence,
 // head) directly, which gives the same values (off-block scores were -1e9,
 // exp() sent them to exactly 0). One C call launches the layer's whole
 // sequence on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "dropout_hash.cuh"
+#include "layer_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace kvq;
 
 namespace {
 
-// ---------------------------------------------------------------- GEMM
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS_M = 2, WARPS_N = 4;          // 8 warps, 64 x 32 warp tile
-constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int A_LD = BK + 8;   // padded smem rows: 16-byte aligned, conflict-free ldmatrix
-constexpr int B_LD = BN + 8;
-constexpr int STAGES = 2;
-
-enum Epilogue { EPI_F32 = 0, EPI_BF16 = 1, EPI_GELU_ERF = 2, EPI_GELU_TANH = 3 };
-
-// erf(x) ~ tanh(x * p(x^2)): the degree-13 fit of layer_pallas.py _ERF_P
-__device__ __forceinline__ float erf_poly(float z2) {
-  float acc = 1.5896024415e-07f;
-  acc = acc * z2 + -5.9856910908e-06f;
-  acc = acc * z2 + 8.9712590414e-05f;
-  acc = acc * z2 + -6.2571958331e-04f;
-  acc = acc * z2 + -1.8438367938e-04f;
-  acc = acc * z2 + 1.0276548145e-01f;
-  acc = acc * z2 + 1.1283797055e+00f;
-  return acc;
-}
-
-__device__ __forceinline__ float gelu_erf(float u) {
-  const float z = u / 1.41421356237309515f;
-  return 0.5f * u * (1.0f + tanhf(z * erf_poly(z * z)));
-}
-
-__device__ __forceinline__ float gelu_tanh(float u) {
-  const float w = 0.797884560802865355f * (u + 0.044715f * u * u * u);
-  return 0.5f * u * (1.0f + tanhf(w));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the ragged edge
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // C[M, N] = epi(A[M, K] @ B[K, N] + bias[N]); A, B bf16 row-major, bias f32.
-// Requires K % 8 == 0, N % 8 == 0, 16-byte aligned rows (checked by the host).
+// With a GELU epilogue, pre_gelu (may be null) receives bf16(A @ B + bias),
+// the training residual. Requires K % 8 == 0, N % 8 == 0, 16-byte aligned
+// rows (checked by the host). The backward's GEMM (layer_common.cuh) reads
+// transposed operands and has its own epilogues; this kernel stays separate
+// because folding it into that template measured 8% slower on the serving
+// forward on an H100 80GB HBM3 at 700 W (130 registers and a spill there;
+// 128 a thread here with no spills, two CTAs per SM).
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_bias_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
                  const float* __restrict__ bias, void* __restrict__ C, int ldc,
-                 int M, int N, int K, int epi) {
+                 int M, int N, int K, int epi, bf16* __restrict__ pre_gelu) {
+  constexpr int A_LD = BK + 8, B_LD = BN + 8;  // padded smem rows: 16-byte aligned
   __shared__ __align__(128) bf16 As[STAGES][BM * A_LD];
   __shared__ __align__(128) bf16 Bs[STAGES][BK * B_LD];
   __shared__ __align__(128) float Cs[GEMM_THREADS / 32][16 * 16];
@@ -163,6 +124,7 @@ gemm_bias_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B
           } else {
             const float v = epi == EPI_GELU_ERF ? gelu_erf(u) : epi == EPI_GELU_TANH ? gelu_tanh(u) : u;
             static_cast<bf16*>(C)[o] = __float2bfloat16(v);
+            if (pre_gelu != nullptr) pre_gelu[o] = __float2bfloat16(u);
           }
         }
       }
@@ -175,20 +137,15 @@ gemm_bias_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B
 constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128, ATT_THREADS = 128;
 constexpr float NEG_INF = -1e9f;  // finite, as sdpa_pallas.py NEG_INF
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // One CTA per (sentence, head). q rows live at q + (b*s_q + i)*q_ld + h*hd,
 // k / v rows at k|v + (b*s_k + j)*kv_ld + h*hd. key_mask (b, s_k) int32 or
-// null (all keys valid). ctx (b*s_q, nh*hd) bf16.
+// null (all keys valid). ctx (b*s_q, nh*hd) bf16. Head h drops with op id
+// op_base + h.
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, int kv_ld, const int* __restrict__ key_mask,
                  bf16* __restrict__ ctx, int ctx_ld, int nh, int hd, int s_q, int s_k,
-                 int causal, float scale) {
+                 int causal, float scale, DropoutParams drop, int op_base) {
   __shared__ bf16 qs[ATT_MAX_S * ATT_MAX_HD];
   __shared__ bf16 ks[ATT_MAX_S * ATT_MAX_HD];
   __shared__ bf16 vs[ATT_MAX_S * ATT_MAX_HD];
@@ -224,7 +181,7 @@ attention_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ 
   }
   __syncthreads();
 
-  // softmax as e / z in f32; p rounded to bf16 before p @ v
+  // softmax as e / z in f32, times the keep mask; p rounded to bf16 before p @ v
   for (int i = tid; i < s_q; i += ATT_THREADS) {
     float m = ps[i][0];
     for (int j = 1; j < s_k; ++j) m = fmaxf(m, ps[i][j]);
@@ -234,7 +191,12 @@ attention_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ 
       ps[i][j] = e;
       z += e;
     }
-    for (int j = 0; j < s_k; ++j) ps[i][j] = __bfloat162float(__float2bfloat16(ps[i][j] / z));
+    const uint32_t rt = dropout_row_term(b * s_q + i, op_base + h, drop.seed);
+    for (int j = 0; j < s_k; ++j) {
+      float p = ps[i][j] / z;
+      if (drop.on) p *= dropout_keep(rt, j, drop);
+      ps[i][j] = bf16_round(p);
+    }
   }
   __syncthreads();
 
@@ -249,18 +211,22 @@ attention_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ 
 // ------------------------------------------------- residual + LayerNorm
 constexpr int LN_THREADS = 256;
 
-// out = LN(float(x) + a) with flax's fast variance; one warp per row.
+// out = LN(float(x) + drop(a)) with flax's fast variance; one warp per row.
+// inv (M,) f32 receives each row's rsqrt when given.
 __global__ void __launch_bounds__(LN_THREADS)
 residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
-                          bf16* __restrict__ out, int M, int N, float eps) {
+                          bf16* __restrict__ out, float* __restrict__ inv_out, int M, int N,
+                          float eps, DropoutParams drop, uint32_t op) {
   const int row = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * N;
   const float* ar = a + (size_t)row * N;
+  const uint32_t rt = dropout_row_term(row, op, drop.seed);
   float s = 0.0f, s2 = 0.0f;
   for (int c = lane; c < N; c += 32) {
-    const float r = __bfloat162float(xr[c]) + ar[c];
+    const float av = drop.on ? ar[c] * dropout_keep(rt, c, drop) : ar[c];
+    const float r = __bfloat162float(xr[c]) + av;
     s += r;
     s2 += r * r;
   }
@@ -269,36 +235,39 @@ residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ 
   const float mu = s / N;
   const float var = fmaxf(s2 / N - mu * mu, 0.0f);
   const float inv = rsqrtf(var + eps);
+  if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
   bf16* orow = out + (size_t)row * N;
   for (int c = lane; c < N; c += 32) {
-    const float r = __bfloat162float(xr[c]) + ar[c];
+    const float av = drop.on ? ar[c] * dropout_keep(rt, c, drop) : ar[c];
+    const float r = __bfloat162float(xr[c]) + av;
     orow[c] = __float2bfloat16((r - mu) * inv * gamma[c] + beta[c]);
   }
 }
 
-void gemm(const void* A, int lda, const void* B, int ldb, const void* bias, void* C, int ldc,
-          int M, int N, int K, int epi, cudaStream_t st) {
+void gemm_nn(const void* A, int lda, const void* B, int ldb, const void* bias, void* C, int ldc,
+             int M, int N, int K, int epi, cudaStream_t st, void* pre_gelu = nullptr) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_bias_kernel<<<grid, GEMM_THREADS, 0, st>>>(
       static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb,
-      static_cast<const float*>(bias), C, ldc, M, N, K, epi);
+      static_cast<const float*>(bias), C, ldc, M, N, K, epi, static_cast<bf16*>(pre_gelu));
 }
 
 void attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, const int* mask,
                void* ctx, int ctx_ld, int batch, int nh, int hd, int s_q, int s_k, int causal,
-               cudaStream_t st) {
+               DropoutParams drop, int op_base, cudaStream_t st) {
   attention_kernel<<<batch * nh, ATT_THREADS, 0, st>>>(
       static_cast<const bf16*>(q), q_ld, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       kv_ld, mask, static_cast<bf16*>(ctx), ctx_ld, nh, hd, s_q, s_k, causal,
-      1.0f / sqrtf(static_cast<float>(hd)));
+      1.0f / sqrtf(static_cast<float>(hd)), drop, op_base);
 }
 
 void residual_layernorm(const void* x, const void* a, const void* g, const void* be, void* out,
-                        int M, int N, float eps, cudaStream_t st) {
+                        float* inv, int M, int N, float eps, DropoutParams drop, uint32_t op,
+                        cudaStream_t st) {
   const int rows_per_block = LN_THREADS / 32;
   residual_layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block, LN_THREADS, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(g),
-      static_cast<const float*>(be), static_cast<bf16*>(out), M, N, eps);
+      static_cast<const float*>(be), static_cast<bf16*>(out), inv, M, N, eps, drop, op);
 }
 
 }  // namespace
@@ -313,44 +282,57 @@ const char* kvq_error_string(int code) {
 // bf16 or null; smask (batch, s_q) / cmask (batch, s_k) int32 or null.
 // Weights: w* bf16 (in, out); b*, g*, be* f32. Workspace (all written):
 // qkv (M, 3H), ctx (M, H), acc f32 (M, H), x1 (M, H), m (M, F); decoder also
-// qc (M, H), kvc (batch*s_k, 2H), x2 (M, H). out (M, H) bf16.
+// qc (M, H), kvc (batch*s_k, 2H), x2 (M, H). ctx2 (M, H) receives the
+// cross-attention context when given (else it reuses ctx). Training
+// residuals, when given: u (M, F) bf16, invs (3, M) f32 (rows 0 / 1 / 2:
+// the LayerNorm rsqrt after self-attention / cross-attention / MLP).
+// out (M, H) bf16. Dropout: seed is the int32 seed's bits; a zero
+// threshold (rate 0) switches a site off.
 int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const int* cmask,
                        const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                        const void* g1, const void* be1, const void* wq, const void* bq,
                        const void* wkv, const void* bkv, const void* wco, const void* bco,
                        const void* g2, const void* be2, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* g3, const void* be3,
-                       void* qkv, void* ctx, void* acc, void* x1, void* qc, void* kvc, void* x2,
-                       void* m, void* out, int batch, int s_q, int s_k, int num_heads,
-                       int head_dim, int intermediate, int causal, int has_cross, int gelu_exact,
-                       float eps, void* stream) {
+                       void* qkv, void* ctx, void* ctx2, void* acc, void* x1, void* qc, void* kvc,
+                       void* x2, void* m, void* u, void* invs, void* out, int batch, int s_q,
+                       int s_k, int num_heads, int head_dim, int intermediate, int causal,
+                       int has_cross, int gelu_exact, float eps, unsigned seed,
+                       unsigned attn_thresh, float attn_scale, unsigned hid_thresh,
+                       float hid_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = num_heads * head_dim, F = intermediate, M = batch * s_q;
+  const DropoutParams attn_drop{seed, attn_thresh, attn_scale, attn_thresh != 0u};
+  const DropoutParams hid_drop{seed, hid_thresh, hid_scale, hid_thresh != 0u};
+  float* inv = static_cast<float*>(invs);
 
   // self-attention block
-  gemm(x, H, wqkv, 3 * H, bqkv, qkv, 3 * H, M, 3 * H, H, EPI_BF16, st);
+  gemm_nn(x, H, wqkv, 3 * H, bqkv, qkv, 3 * H, M, 3 * H, H, EPI_BF16, st);
   const bf16* qkv_b = static_cast<const bf16*>(qkv);
   attention(qkv_b, 3 * H, qkv_b + H, qkv_b + 2 * H, 3 * H, smask, ctx, H, batch, num_heads,
-            head_dim, s_q, s_q, causal, st);
-  gemm(ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, st);
-  residual_layernorm(x, acc, g1, be1, x1, M, H, eps, st);
+            head_dim, s_q, s_q, causal, attn_drop, 0, st);
+  gemm_nn(ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, st);
+  residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, st);
 
   const void* xm = x1;
   if (has_cross) {
-    gemm(x1, H, wq, H, bq, qc, H, M, H, H, EPI_BF16, st);
-    gemm(enc, H, wkv, 2 * H, bkv, kvc, 2 * H, batch * s_k, 2 * H, H, EPI_BF16, st);
+    void* c2 = ctx2 != nullptr ? ctx2 : ctx;
+    gemm_nn(x1, H, wq, H, bq, qc, H, M, H, H, EPI_BF16, st);
+    gemm_nn(enc, H, wkv, 2 * H, bkv, kvc, 2 * H, batch * s_k, 2 * H, H, EPI_BF16, st);
     const bf16* kvc_b = static_cast<const bf16*>(kvc);
-    attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, ctx, H, batch, num_heads, head_dim, s_q,
-              s_k, 0, st);
-    gemm(ctx, H, wco, H, bco, acc, H, M, H, H, EPI_F32, st);
-    residual_layernorm(x1, acc, g2, be2, x2, M, H, eps, st);
+    attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, c2, H, batch, num_heads, head_dim, s_q,
+              s_k, 0, attn_drop, num_heads + 1, st);
+    gemm_nn(c2, H, wco, H, bco, acc, H, M, H, H, EPI_F32, st);
+    residual_layernorm(x1, acc, g2, be2, x2, inv ? inv + M : nullptr, M, H, eps, hid_drop,
+                       OP_CROSS_OUT, st);
     xm = x2;
   }
 
   // MLP block
-  gemm(xm, H, w1, F, b1, m, F, M, F, H, gelu_exact ? EPI_GELU_ERF : EPI_GELU_TANH, st);
-  gemm(m, F, w2, H, b2, acc, H, M, H, F, EPI_F32, st);
-  residual_layernorm(xm, acc, g3, be3, out, M, H, eps, st);
+  gemm_nn(xm, H, w1, F, b1, m, F, M, F, H, gelu_exact ? EPI_GELU_ERF : EPI_GELU_TANH, st, u);
+  gemm_nn(m, F, w2, H, b2, acc, H, M, H, F, EPI_F32, st);
+  residual_layernorm(xm, acc, g3, be3, out, inv ? inv + 2 * M : nullptr, M, H, eps, hid_drop,
+                     OP_MLP_OUT, st);
   return static_cast<int>(cudaGetLastError());
 }
 

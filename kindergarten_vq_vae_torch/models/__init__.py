@@ -1,7 +1,7 @@
 """Model builders: a run config to a module, and seeded weights.
 
 Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` ``bert_configs``
-/ ``build_model`` / ``init_params`` for the models the serving slice ports.
+/ ``build_model`` / ``init_params`` for the models the port has.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ def bert_configs(cfg: RunConfig) -> tuple[BertConfig, BertConfig]:
     common = dict(
         vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, intermediate_size=cfg.intermediate_size,
+        hidden_dropout=cfg.hidden_dropout, attention_dropout=cfg.attention_dropout,
         tie_word_embeddings=cfg.tie_word_embeddings, gelu_exact=cfg.gelu_exact, dtype=cfg.dtype,
     )
     enc = BertConfig(add_pooler=True, **common)

@@ -6,6 +6,7 @@ last hidden state is the decoder's cross-attention memory.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel
@@ -18,10 +19,13 @@ class Bagon(nn.Module):
         self.decoder = BertLMHeadModel(dec_cfg, device)
 
     def forward(self, encoder_input_ids, encoder_attention_mask, decoder_input_ids,
-                decoder_attention_mask, reference: bool = False) -> dict:
-        enc = self.encoder(encoder_input_ids, encoder_attention_mask, reference=reference)
+                decoder_attention_mask, reference: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> dict:
+        enc = self.encoder(encoder_input_ids, encoder_attention_mask, reference=reference,
+                           deterministic=deterministic, generator=generator)
         dec = self.decoder(decoder_input_ids, decoder_attention_mask,
-                           encoder_hidden_states=enc["last_hidden_state"], reference=reference)
+                           encoder_hidden_states=enc["last_hidden_state"], reference=reference,
+                           deterministic=deterministic, generator=generator)
         return {
             "logits": dec["logits"],
             "encoder_last_hidden_state": enc["last_hidden_state"],

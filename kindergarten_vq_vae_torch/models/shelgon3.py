@@ -1,8 +1,12 @@
 """Shelgon3: BERT encoder, VQ codebook bottleneck, BERT-LM-head decoder.
 
 Counterpart of ``kindergarten_vq_vae_tpu/models/shelgon3.py`` l.62-99 and
-l.130-228, VectorQuantizer mode, forward only: the encoder output is
-quantized against the codebook and the decoder cross-attends to ``z_q``.
+l.130-228, VectorQuantizer mode: the encoder output is quantized against
+the codebook and the decoder cross-attends to ``z_q``; gradients reach the
+encoder and the codebook through the VQ's custom VJP
+(:class:`~kindergarten_vq_vae_torch.ops.vq.VQCore`). ``deterministic`` and
+``is_training`` mean what they mean in the JAX module (``is_training`` only
+steers the Gumbel quantizer there, which the port does not have yet).
 CUDA tensors always take the VQ kernel: the JAX package's row threshold
 (``VQ_FUSED_MAX_ROWS``) was interpolated on a TPU and does not carry over.
 """
@@ -42,13 +46,18 @@ class Shelgon3(nn.Module):
         self.vector_quantizer = VectorQuantizer(vq_n_e, vq_e_dim, vq_beta, device)
         self.decoder = BertLMHeadModel(dec_cfg, device)
 
-    def forward(self, input_ids, attention_mask, reference: bool = False) -> dict:
+    def forward(self, input_ids, attention_mask, reference: bool = False,
+                deterministic: bool = True, is_training: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """The same ids feed encoder and decoder (the reference's forward).
-        ``reference=True`` runs every kernel's plain version instead."""
-        embeds = self.encoder(input_ids, attention_mask, reference=reference)["last_hidden_state"]
+        ``reference=True`` runs every kernel's plain version instead;
+        ``deterministic=False`` turns dropout on, drawn from ``generator``."""
+        del is_training  # steers only the Gumbel quantizer
+        embeds = self.encoder(input_ids, attention_mask, reference=reference,
+                              deterministic=deterministic, generator=generator)["last_hidden_state"]
         vq = self.vector_quantizer(embeds, reference)
         dec = self.decoder(input_ids, attention_mask, encoder_hidden_states=vq.z_q,
-                           reference=reference)
+                           reference=reference, deterministic=deterministic, generator=generator)
         return {
             "logits": dec["logits"],
             "vq_loss": vq.loss,

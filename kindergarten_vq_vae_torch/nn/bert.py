@@ -1,9 +1,18 @@
-"""BERT encoder and BERT-LM-head decoder with cross-attention, inference only.
+"""BERT encoder and BERT-LM-head decoder with cross-attention.
 
 Counterpart of ``kindergarten_vq_vae_tpu/nn/bert.py`` on its fused-trunk
-path (``_fused_trunk`` l.366-466): embeddings + LayerNorm, one
+path (``_fused_trunk`` l.366-466): embeddings + LayerNorm (+ dropout), one
 :func:`~kindergarten_vq_vae_torch.ops.layer.fused_bert_layer` call per layer,
 the pooler, and the MLM head with the tied 2-D vocab matmul.
+
+Training (``deterministic=False``) draws one int32 seed per layer for the
+layers' hash dropout from an explicit :class:`torch.Generator` over the
+int32 range, as ``_fused_trunk`` l.398-408 draws them from the flax RNG;
+``deterministic=True`` gives zero seeds and zero rates. The embedding
+dropout (l.125) is flax-RNG dropout in JAX and cannot be reproduced; the
+port draws its mask from the same generator. Gradients reach the
+embeddings, the MLM head and the tied table through autograd, and the
+layers through :class:`~kindergarten_vq_vae_torch.ops.layer.FusedBertLayer`.
 
 Parameters keep the Flax names and layouts (``Dense.kernel`` is ``(in, out)``,
 ``LayerNorm.scale``), so the state dict of a module here is the Flax param
@@ -24,9 +33,10 @@ from kindergarten_vq_vae_torch.ops.layer import (
     DEC_WEIGHTS,
     ENC_WEIGHTS,
     LayerGeom,
-    bert_layer_reference,
     fused_bert_layer,
 )
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +49,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     is_decoder: bool = False
     add_cross_attention: bool = False
     add_pooler: bool = True
@@ -49,6 +61,13 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
+    divided by it, in x's dtype; the mask is drawn from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _f32(shape, device) -> nn.Parameter:
@@ -101,11 +120,13 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = Embed(cfg.type_vocab_size, cfg.hidden_size, device)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
 
-    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype, rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         seq_len = input_ids.shape[1]
         tok_type = self.token_type_embeddings(torch.zeros_like(input_ids))
         x = self.word_embeddings(input_ids) + self.position_embeddings[None, :seq_len] + tok_type
-        return self.layer_norm(x, dtype)
+        x = self.layer_norm(x, dtype)
+        return dropout(x, rate, generator) if rate > 0.0 else x
 
 
 class _Block(nn.Module):
@@ -162,30 +183,45 @@ class BertModel(nn.Module):
             self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, device)
 
     def forward(self, input_ids, attention_mask=None, encoder_hidden_states=None,
-                encoder_attention_mask=None, reference: bool = False) -> dict:
+                encoder_attention_mask=None, reference: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> dict:
         """``reference=True`` runs the layers' plain version on any device
         (the kernel's comparison baseline); otherwise CUDA tensors go through
-        the layer kernel."""
+        the layer kernels. ``deterministic=False`` turns dropout on and needs
+        ``generator`` (on the inputs' device)."""
         cfg = self.cfg
         dtype = cfg.dtype
-        x = self.embeddings(input_ids, dtype)
+        drop = not deterministic and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0)
+        if drop and generator is None:
+            raise ValueError("dropout (deterministic=False) needs a torch.Generator")
+        hid_rate = cfg.hidden_dropout if drop else 0.0
+        attn_rate = cfg.attention_dropout if drop else 0.0
+        x = self.embeddings(input_ids, dtype, hid_rate, generator)
         has_cross = cfg.add_cross_attention and encoder_hidden_states is not None
         geom = LayerGeom(
             num_heads=cfg.num_heads, head_dim=cfg.head_dim, intermediate=cfg.intermediate_size,
             causal=cfg.is_decoder, has_cross=has_cross, eps=cfg.layer_norm_eps,
-            gelu_exact=cfg.gelu_exact,
+            gelu_exact=cfg.gelu_exact, attn_rate=attn_rate, hid_rate=hid_rate,
         )
-        # the f32 VQ output enters the decoder layers in the compute dtype,
-        # as layer_pallas.py:861 casts it
-        enc = encoder_hidden_states.to(dtype).contiguous() if has_cross else None
+        seeds = [0] * cfg.num_layers
+        if drop:
+            seeds = torch.randint(INT32_MIN, INT32_MAX, (cfg.num_layers,), generator=generator,
+                                  device=generator.device, dtype=torch.int64).tolist()
+        enc = None
+        if has_cross:
+            # the f32 VQ output enters the decoder layers in the compute dtype,
+            # as layer_pallas.py:861 casts it; under autograd each layer casts
+            # it and returns its gradient in the f32 it came in
+            enc = encoder_hidden_states.contiguous()
+            if not (torch.is_grad_enabled() and enc.requires_grad):
+                enc = enc.to(dtype)
         smask = None if attention_mask is None else attention_mask.to(torch.int32).contiguous()
         cmask = None
         if has_cross and encoder_attention_mask is not None:
             cmask = encoder_attention_mask.to(torch.int32).contiguous()
-        layer_fn = bert_layer_reference if reference else fused_bert_layer
         for i in range(cfg.num_layers):
             ws = getattr(self, f"layer_{i}").weights(dtype, has_cross)
-            x = layer_fn(geom, x, enc, smask, cmask, ws)
+            x = fused_bert_layer(geom, x, enc, smask, cmask, ws, seeds[i], reference=reference)
         pooled = torch.tanh(self.pooler(x[:, 0], dtype)) if cfg.add_pooler else None
         return {"last_hidden_state": x, "pooler_output": pooled}
 
@@ -225,9 +261,11 @@ class BertLMHeadModel(nn.Module):
         self.mlm_head = BertMLMHead(cfg, device)
 
     def forward(self, input_ids, attention_mask=None, encoder_hidden_states=None,
-                encoder_attention_mask=None, reference: bool = False) -> dict:
+                encoder_attention_mask=None, reference: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> dict:
         out = self.bert(input_ids, attention_mask, encoder_hidden_states,
-                        encoder_attention_mask, reference=reference)
+                        encoder_attention_mask, reference=reference, deterministic=deterministic,
+                        generator=generator)
         table = self.bert.embeddings.word_embeddings.embedding
         out["logits"] = self.mlm_head(out["last_hidden_state"], table)
         return out

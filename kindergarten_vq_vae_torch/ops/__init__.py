@@ -1,1 +1,2 @@
-"""Layer and VQ forward kernels (csrc/) with their plain PyTorch versions."""
+"""The kernels (csrc/) with their plain PyTorch versions: the layer forward and
+backward, hash dropout, the VQ bottleneck and the streaming cross-entropy."""

@@ -1,11 +1,12 @@
-"""VQ bottleneck forward: the CUDA kernel's wrapper.
+"""VQ bottleneck: the CUDA kernel's wrapper.
 
 Counterpart of ``kindergarten_vq_vae_tpu/ops/vq_pallas.py``
 ``fused_vector_quantize`` (l.187). The kernel (``csrc/vq_fwd.cu``) returns
 the raw ``z_q``, indices, per-code counts and sums, and the sum of
-``(z_q - z)^2``; the loss, perplexity and :class:`VQOutput` are built here
-exactly as ``fused_vector_quantize`` l.211-228 builds them. The plain version
-is :func:`kindergarten_vq_vae_torch.ops.vq.vector_quantize`.
+``(z_q - z)^2``; the loss, perplexity, :class:`VQOutput` and the gradient
+(:class:`~kindergarten_vq_vae_torch.ops.vq.VQCore`, plain PyTorch as in JAX)
+are shared with the plain version
+:func:`kindergarten_vq_vae_torch.ops.vq.vector_quantize`.
 """
 
 from __future__ import annotations
@@ -13,10 +14,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from kindergarten_vq_vae_torch import _build
-from kindergarten_vq_vae_torch.ops.vq import VQOutput, perplexity_of, vector_quantize
+from kindergarten_vq_vae_torch.ops.vq import VQOutput, assemble, vq_raw
 
 MAX_DIM = 1024          # csrc/vq_fwd.cu holds a row in 32 registers per lane
 MAX_SMEM = 232_448      # dynamic shared memory a Hopper block may use
@@ -25,28 +25,26 @@ _VP = ctypes.c_void_p
 
 
 def vector_quantize_kernel(z: torch.Tensor, codebook: torch.Tensor, beta: float) -> VQOutput:
-    """Quantize ``z`` (B, S, D) f32 against ``codebook`` (n_e, D) f32.
+    """Quantize ``z`` (B, S, D) f32 against ``codebook`` (n_e, D) f32;
+    gradients flow to both through the JAX package's custom VJP.
 
-    A CPU tensor goes through the plain :func:`vector_quantize`. A CUDA
-    tensor launches ``csrc/vq_fwd.cu`` on the current stream, or raises; each
-    launch adds one to ``vector_quantize_kernel.launches``."""
-    if torch.is_grad_enabled() and (z.requires_grad or codebook.requires_grad):
-        raise NotImplementedError(
-            "the VQ kernel is forward-only: its backward comes with the training slice "
-            "(ROADMAP, modules to port: item 2, the VQ backward)")
+    A CPU tensor takes the plain raw forward. A CUDA tensor launches
+    ``csrc/vq_fwd.cu`` on the current stream, or raises; each launch adds one
+    to ``vector_quantize_kernel.launches``."""
     if z.device.type == "cpu":
-        return vector_quantize(z, codebook, beta)
+        return assemble(z, codebook, beta, vq_raw)
     if z.device.type != "cuda":
         raise ValueError(f"vector_quantize_kernel runs on CPU or CUDA tensors, got {z.device}")
-    return _launch(z, codebook, beta)
+    return assemble(z, codebook, beta, _launch)
 
 
 vector_quantize_kernel.launches = 0
 
 
-def _launch(z: torch.Tensor, codebook: torch.Tensor, beta: float) -> VQOutput:
-    if z.dim() != 3 or codebook.dim() != 2 or z.shape[-1] != codebook.shape[1]:
-        raise ValueError(f"z (B, S, D) and codebook (n_e, D) expected, got "
+def _launch(z: torch.Tensor, codebook: torch.Tensor):
+    """Raw forward of (rows, D) ``z`` on the card: ``(z_q, indices, counts, sum_z, diff)``."""
+    if z.dim() != 2 or codebook.dim() != 2 or z.shape[-1] != codebook.shape[1]:
+        raise ValueError(f"z (rows, D) and codebook (n_e, D) expected, got "
                          f"{tuple(z.shape)} and {tuple(codebook.shape)}")
     for name, t in (("z", z), ("codebook", codebook)):
         if t.dtype != torch.float32:
@@ -55,8 +53,8 @@ def _launch(z: torch.Tensor, codebook: torch.Tensor, beta: float) -> VQOutput:
             raise ValueError(f"{name} is on {t.device}, expected {z.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    batch, seq_len, d = z.shape
-    n_e, m = codebook.shape[0], batch * seq_len
+    m, d = z.shape
+    n_e = codebook.shape[0]
     lib = _build.lib()
     lib.kvq_vq_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.kvq_vq_smem_bytes.restype = ctypes.c_size_t
@@ -86,16 +84,4 @@ def _launch(z: torch.Tensor, codebook: torch.Tensor, beta: float) -> VQOutput:
                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "kvq_vq_fwd")
     vector_quantize_kernel.launches += 1
-
-    z_flat = z.reshape(m, d)
-    z_q = z_flat + (zq - z_flat)  # the straight-through value, as _fused_vq_core
-    loss = (diff + beta * diff) / z_flat.numel()
-    return VQOutput(
-        loss=loss,
-        z_q=z_q.reshape(z.shape),
-        perplexity=perplexity_of(counts, m),
-        one_hot=F.one_hot(idx, n_e).to(z.dtype),
-        indices=idx.reshape(batch, seq_len, 1),
-        counts=counts,
-        sum_z=sumz,
-    )
+    return zq, idx, counts, sumz, diff

@@ -80,13 +80,20 @@ def test_wrapper_on_cpu_is_the_reference_and_launches_nothing():
 
 
 def test_wrapper_refuses_dropout_and_grad():
+    """Dropout needs a seed and a rate in [0, 1); the backward takes one
+    derivative, not a second."""
     geom, x, enc, smask, cmask, ws = _inputs(False)
     ws = [_t(w) for w in ws]
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         fused_bert_layer(LayerGeom(**{**geom.__dict__, "hid_rate": 0.1}), _t(x), None, None, None, ws)
+    with pytest.raises(ValueError, match="dropout"):
+        fused_bert_layer(LayerGeom(**{**geom.__dict__, "attn_rate": 1.0}), _t(x), None, None, None,
+                         ws, seed=1)
     xg = _t(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fused_bert_layer(geom, xg, None, None, None, ws)
+    (gx,) = torch.autograd.grad(fused_bert_layer(geom, xg, None, None, None, ws).sum(), xg,
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable|does not require grad"):
+        gx.sum().backward()
 
 
 def test_gelu_polynomial_matches_jax():

@@ -1,8 +1,12 @@
 """Plain VQ bottleneck of the PyTorch port vs the JAX package's oracle
 (ops/vq.py) and fused kernel (ops/vq_pallas.py, interpret mode on the CPU).
 Indices and counts must be equal; z_q, sum_z, loss and perplexity agree to
-rtol 1e-5 (f32 on both sides, summation order differs)."""
+rtol 1e-5 (f32 on both sides, summation order differs). The gradient (the
+custom VJP of ``_fused_vq_core``) is held against ``jax.grad`` through
+``fused_vector_quantize``: dz and dcodebook to rtol 1e-5, atol 1e-7, and the
+row of a code no row picks exactly 0."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,5 +76,33 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert vector_quantize_kernel.launches == before
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        vector_quantize_kernel(torch.from_numpy(z).requires_grad_(), torch.from_numpy(e), 0.69)
+    zg, eg = torch.from_numpy(z).requires_grad_(), torch.from_numpy(e).requires_grad_()
+    out = vector_quantize_kernel(zg, eg, 0.69)
+    (out.loss + out.z_q.sum()).backward()
+    assert zg.grad is not None and eg.grad is not None
+    assert vector_quantize_kernel.launches == before
+
+
+@pytest.mark.parametrize("use_kernel_wrapper", [False, True])
+def test_vq_gradient_matches_jax(use_kernel_wrapper):
+    """loss * a + sum(z_q * w): both gradient paths of the loss (the
+    commitment term to z, the codebook term to E) and the straight-through
+    z_q. Code 4 is moved far away so no row picks it."""
+    z, e = _random_case(3, 12, 64, 9, 5)
+    e[4] += 50.0
+    w = np.random.default_rng(6).normal(size=z.shape).astype(np.float32)
+    beta, a = 0.69, 3.0
+
+    def f(z_, e_):
+        out = jax_fused_vq(z_, e_, beta)
+        return out.loss * a + jnp.sum(out.z_q * w)
+
+    dz_want, de_want = jax.grad(f, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(e))
+    zt, et = torch.from_numpy(z).requires_grad_(), torch.from_numpy(e).requires_grad_()
+    quantize = vector_quantize_kernel if use_kernel_wrapper else vector_quantize
+    out = quantize(zt, et, beta)
+    assert 4 not in out.indices
+    (out.loss * a + (out.z_q * torch.from_numpy(w)).sum()).backward()
+    np.testing.assert_allclose(zt.grad.numpy(), np.asarray(dz_want), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(et.grad.numpy(), np.asarray(de_want), rtol=1e-5, atol=1e-7)
+    assert (et.grad[4] == 0).all()
