@@ -11,26 +11,40 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
 3. kernels vs plain, serving: the layer forward and the VQ kernel against
    their plain PyTorch versions on the card at the shapes of a bucket-256
    bert-base forward (256 sentences x 12 tokens), with padded masks, and each
-   one's time beside the plain one's;
+   one's time beside the plain one's, its bound and, for the layer, the time
+   of ``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` on the
+   same weights;
 4. kernels vs plain, training: the layer forward in training mode (dropout
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
    (self and cross) and the two CE kernels at the shapes of the batch-2048
    bert-base training step, and layers whose weights make every keep mask
    visible (self and cross heads, the three hidden sites, forward and
    backward; held to the plain masks);
-5. serving slice: a full-width bert-base Shelgon3-VQ run (12 + 12 layers,
+5. AMSGrad (kernel #14) vs its plain version over the whole bert-base
+   Shelgon3-VQ parameter list: 3 steps with weight decay, a milestone, a
+   frozen subset left out and the gradient-less pooler, held bit for bit;
+   its time beside the plain single-pass version's, the per-leaf update's,
+   its bound and ``torch.optim.Adam(fused=True, amsgrad=True)`` on the same
+   leaves (a same-bytes yardstick only: it maxes the raw second moment);
+6. serving slice: a full-width bert-base Shelgon3-VQ run (12 + 12 layers,
    H 768, vocab 30522, 9 codes, bf16) with seeded weights, written as a
    flat-npy checkpoint and served over HTTP through the kernels; launch
    counts are checked, and one bucket-256 forward of the kernel path and of
    the plain path is held against an f32 forward of the same weights;
-6. serving timing: median bucket-256 forward, kernel path and plain path;
-7. training slice: the same model trained for 8 steps at batch 2048 x 12
+7. serving timing: median bucket-256 forward, kernel path and plain path;
+8. training slice: the same model trained for 8 steps at batch 2048 x 12
    (dropout 0.1 / 0.1, AMSGrad lr 1e-4) on one fixed batch through the
-   kernels: launch counts per step, finite and falling loss, median step
-   time, sentences/s and peak device memory;
-8. gradients at batch 256: the kernel path's and the plain bf16 path's
+   kernels: launch counts per step (kernel #14 once, the plain update never),
+   finite and falling loss, median step time, sentences/s and peak memory;
+9. gradients at batch 256: the kernel path's and the plain bf16 path's
    gradients, each held against an f32 plain step on the same weights,
-   dropout and batch.
+   dropout and batch;
+10. training entry point: a small corpus generated into a temporary
+   directory, then ``python -m kindergarten_vq_vae_torch.cli shelgon3`` (in
+   process) trains the same full-width model at batch 2048 for 2 epochs, runs
+   val and test, writes ``run_conf.json``, one best-val slot and
+   ``history.json``; the launch counts of its train, val and test steps are
+   checked, and the run directory is served through ``Reconstructor``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -86,6 +100,14 @@ TRAIN_REL, CE_NLL_ABS, CE_GRAD_REL = 2e-2, 1e-4, 1e-2
 # it is added to in every row
 VISIBLE_BIAS = 1000.0
 TRAIN_BATCH, GRAD_BATCH, TRAIN_STEPS, VOCAB = 2048, 256, 8, 30522
+# the H100 SXM's published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
+PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# AMSGrad phase: steps, and the ops per element of its formula (5 multiplies,
+# 4 adds, 2 divisions, a square root and a max: 13)
+ADAM_STEPS, ADAM_OPS = 3, 13
+# engine phase: corpus cut (8 verbs and 8 objects per pool: 36,864 clean
+# sentences), train batches per epoch kept by lim_batches_train_pct
+ENGINE_CUT, ENGINE_EPOCHS, ENGINE_TRAIN_PCT = dict(num_verbs=8, num_objects=8), 2, 0.3
 
 
 def _fail(msg: str) -> None:
@@ -133,6 +155,7 @@ def _rel_max(got, want) -> float:
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes under."""
+    from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
     from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd_ids
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
@@ -143,22 +166,57 @@ def _wrappers() -> dict:
 
     return {"layer_fwd": fused_bert_layer, "layer_bwd": layer_backward,
             "attn_bwd": attention_backward, "vq": vector_quantize_kernel, "ce_fwd": ce_fwd_ids,
-            "ce_bwd": ce_bwd}
+            "ce_bwd": ce_bwd, "adam": amsgrad_update}
 
 
 def _counters() -> dict:
     """Every wrapper's launch count; the attention backward's split into self
-    and cross."""
-    counts = {k: fn.launches for k, fn in _wrappers().items()}
-    cross = _wrappers()["attn_bwd"].cross_launches
-    counts.update(attn_bwd_self=counts.pop("attn_bwd") - cross, attn_bwd_cross=cross)
+    and cross, and the layer forwards that kept residuals (training) apart."""
+    w = _wrappers()
+    counts = {k: fn.launches for k, fn in w.items()}
+    cross = w["attn_bwd"].cross_launches
+    counts.update(attn_bwd_self=counts.pop("attn_bwd") - cross, attn_bwd_cross=cross,
+                  layer_fwd_resid=w["layer_fwd"].residual_launches)
     return counts
 
 
 def _reset_counters() -> None:
-    for fn in _wrappers().values():
+    w = _wrappers()
+    for fn in w.values():
         fn.launches = 0
-    _wrappers()["attn_bwd"].cross_launches = 0
+    w["attn_bwd"].cross_launches = 0
+    w["layer_fwd"].residual_launches = 0
+
+
+def _nbytes(*objs) -> int:
+    """Bytes of every tensor among ``objs`` (nested in tuples and lists)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += _nbytes(*o)
+    return total
+
+
+def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time in ms for the work: the larger of its bytes over the
+    card's memory rate and its operations over ``peak``, and which it is."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _layer_flops(b: int, s: int, decoder: bool, H: int = 768, F: int = 3072,
+                 nh: int = 12) -> float:
+    """Matrix-product FLOPs of one post-LN BERT layer forward (self attention,
+    the cross attention of a decoder over ``s`` encoder positions, the MLP)."""
+    M, hd = b * s, H // nh
+    f = 2 * M * H * 3 * H + 2 * M * H * H + 4 * M * H * F + 4 * b * nh * s * s * hd
+    if decoder:
+        f += 2 * M * H * H + 4 * M * H * H + 2 * M * H * H + 4 * b * nh * s * s * hd
+    return f
 
 
 def phase_device() -> tuple[str, str]:
@@ -212,13 +270,16 @@ def phase_kernels() -> dict:
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    res = {"layer": {"max_abs_err": 0.0, "ms": [], "plain_ms": []}, "vq": {}}
+    res = {"layer": {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
+                     "library_ms": []}, "vq": {}}
     with torch.inference_mode():
         for decoder in (False, True):
             geom, x, enc, smask, ws = _layer_case(decoder, g)
             out = fused_bert_layer(geom, x, enc, smask, None, ws)
             torch.cuda.synchronize()
             ref = bert_layer_reference(geom, x, enc, smask, None, ws)
+            lib_fn = _library_layer(decoder, x, enc, smask, ws)
+            lib_err = (lib_fn().float() - ref.float()).abs().max().item()
             err = (out.float() - ref.float()).abs()
             mx, mean = err.max().item(), err.mean().item()
             what = "decoder (causal + cross)" if decoder else "encoder"
@@ -228,10 +289,17 @@ def phase_kernels() -> dict:
                 _fail(f"layer kernel disagrees with its plain version ({what})")
             k_ms, p_ms = _paired_ms(lambda: fused_bert_layer(geom, x, enc, smask, None, ws),
                                     lambda: bert_layer_reference(geom, x, enc, smask, None, ws))
-            print(f"layer {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            lib_ms = _time_ms(lib_fn)
+            bound = _bound(_layer_flops(BUCKET, SEQ, decoder), _nbytes(x, enc, smask, ws, out),
+                           PEAK_BF16)
+            print(f"layer {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), nn.Transformer{'Decoder' if decoder else 'Encoder'}"
+                  f"Layer {lib_ms:.4f} ms (max abs {lib_err:.3e} from the plain version)")
             res["layer"]["max_abs_err"] = max(res["layer"]["max_abs_err"], mx)
             res["layer"]["ms"].append(k_ms)
             res["layer"]["plain_ms"].append(p_ms)
+            res["layer"]["bound"].append(bound)
+            res["layer"]["library_ms"].append(lib_ms)
 
         n_e, d = 9, 768
         z = torch.randn(BUCKET, SEQ, d, device="cuda", generator=g)
@@ -262,9 +330,156 @@ def phase_kernels() -> dict:
             _fail("VQ kernel misses the true assignments far from the origin")
         k_ms, p_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
                                 lambda: vector_quantize(z, e, 0.69))
-        print(f"vq: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        res["vq"] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+        bound = _vq_bound(z, e, vector_quantize_kernel(z, e, 0.69))
+        print(f"vq: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+        res["vq"] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound": [bound]}
+    layer = res["layer"]
+    res["layer"] = {"max_abs_err": layer["max_abs_err"], "ms": statistics.mean(layer["ms"]),
+                    "plain_ms": statistics.mean(layer["plain_ms"]), "bound": layer["bound"],
+                    "library_ms": statistics.mean(layer["library_ms"])}
     return res
+
+
+def _vq_bound(z, e, out) -> tuple[float, str]:
+    """Reads z and the codebook, writes z_q, the codes, the counts and the
+    per-code sums; 3 f32 operations per (row, code, dim) for the distances."""
+    rows, d = z.numel() // z.shape[-1], z.shape[-1]
+    return _bound(3 * rows * e.shape[0] * d,
+                  _nbytes(z, e, out.z_q, out.indices, out.counts, out.sum_z), PEAK_F32)
+
+
+def _library_layer(decoder: bool, x, enc, smask, ws):
+    """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` in eval
+    mode (post-LN, exact GELU, eps 1e-12, bf16) on the weights of a
+    serving-layer case; returns its call. Timed as the library yardstick
+    only: the port never calls it."""
+    import torch
+    from torch import nn
+
+    from kindergarten_vq_vae_torch.ops.layer import DEC_WEIGHTS, ENC_WEIGHTS
+
+    W = dict(zip(DEC_WEIGHTS if decoder else ENC_WEIGHTS, ws))
+    cls = nn.TransformerDecoderLayer if decoder else nn.TransformerEncoderLayer
+    mod = cls(d_model=768, nhead=12, dim_feedforward=3072, dropout=0.0, activation="gelu",
+              layer_norm_eps=1e-12, batch_first=True, norm_first=False, device="cuda",
+              dtype=torch.bfloat16).eval()
+
+    with torch.no_grad():
+        mod.self_attn.in_proj_weight.copy_(W["wqkv"].t())
+        mod.self_attn.in_proj_bias.copy_(W["bqkv"])
+        mod.self_attn.out_proj.weight.copy_(W["wo"].t())
+        mod.self_attn.out_proj.bias.copy_(W["bo"])
+        mod.linear1.weight.copy_(W["w1"].t())
+        mod.linear1.bias.copy_(W["b1"])
+        mod.linear2.weight.copy_(W["w2"].t())
+        mod.linear2.bias.copy_(W["b2"])
+        last = mod.norm3 if decoder else mod.norm2
+        for norm, gname, bname in ((mod.norm1, "g1", "be1"), (last, "g3", "be3")):
+            norm.weight.copy_(W[gname])
+            norm.bias.copy_(W[bname])
+        if decoder:
+            mod.multihead_attn.in_proj_weight.copy_(torch.cat([W["wq"], W["wkv"]], 1).t())
+            mod.multihead_attn.in_proj_bias.copy_(torch.cat([W["bq"], W["bkv"]]))
+            mod.multihead_attn.out_proj.weight.copy_(W["wco"].t())
+            mod.multihead_attn.out_proj.bias.copy_(W["bco"])
+            mod.norm2.weight.copy_(W["g2"])
+            mod.norm2.bias.copy_(W["be2"])
+    pad = smask == 0
+    if not decoder:
+        return lambda: mod(x, src_key_padding_mask=pad)
+    causal = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").triu(1)
+    return lambda: mod(x, enc, tgt_mask=causal, tgt_key_padding_mask=pad, tgt_is_causal=True)
+
+
+def _ulps(a, b) -> int:
+    """Largest distance in units of the last place between two f32 tensors."""
+    import torch
+
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)  # sign-magnitude to a monotone line
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def phase_adam(names: tuple[str, str]) -> dict:
+    """Kernel #14 against its plain version over the bert-base parameter list."""
+    import dataclasses
+
+    import torch
+
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
+    from kindergarten_vq_vae_torch.train.optim import Adam, FusedAdam
+
+    cfg = dataclasses.replace(_train_cfg(), weight_decay=0.01, lr_scheduler="MultiStepLR",
+                              milestones=(2,), gamma=0.5)
+    model = build_model(cfg, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    # a frozen subset (the encoder's embeddings) stays out of the table, as a
+    # model_mode mask leaves it, and must come out untouched (no stray write
+    # past a leaf); the pooler gets no gradient, as in the step
+    leaves = [(n, p) for n, p in named if not n.startswith("encoder.embeddings.")]
+    frozen = {n: p.clone() for n, p in named if n.startswith("encoder.embeddings.")}
+    start = [p.clone() for _, p in leaves]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    grads = [[None if n.startswith("encoder.pooler.")
+              else 1e-3 * torch.randn(p.shape, device="cuda", generator=g) for n, p in leaves]
+             for _ in range(ADAM_STEPS)]
+    pk = [p for _, p in leaves]  # the model's own tensors, updated in place
+    pp = [p.clone() for p in start]
+    opt_k, opt_p = FusedAdam(cfg, "kernel"), FusedAdam(cfg, "plain")
+    st_k, st_p = opt_k.init(pk), opt_p.init(pp)
+    _reset_counters()
+    for step in range(ADAM_STEPS):
+        opt_k.update(pk, grads[step], st_k)
+        opt_p.update(pp, grads[step], st_p)
+    torch.cuda.synchronize()
+    launches = amsgrad_update.launches
+    worst, max_abs = 0, 0.0
+    for what, a, b in (("p", pk, pp), ("mu", st_k.mu, st_p.mu), ("nu", st_k.nu, st_p.nu),
+                       ("nu_max", st_k.nu_max, st_p.nu_max)):
+        for (n, _), x, y in zip(leaves, a, b):
+            if not torch.equal(x, y):
+                worst = max(worst, _ulps(x, y))
+                max_abs = max(max_abs, (x - y).abs().max().item())
+                print(f"  amsgrad {what} {n}: {_ulps(x, y)} ulps apart")
+    # every leaf moved, but a zero leaf without gradient (the pooler's bias:
+    # g + wd * p is 0, so its moments and its step stay 0, as in optax)
+    moved = all(not torch.equal(x, p) for x, p, gr in zip(pk, start, grads[0])
+                if gr is not None or bool(p.any()))
+    n_el = sum(p.numel() for _, p in leaves)
+    print(f"amsgrad ({len(leaves)} leaves, {n_el} elements, {sum(t.numel() for t in frozen.values())}"
+          f" frozen left out, pooler without gradient) x {ADAM_STEPS} steps, wd 0.01, milestone 2: "
+          f"launches {launches}, kernel vs plain max {worst} ulps (tol 0), every leaf moved {moved}")
+    if launches != ADAM_STEPS or worst != 0 or not moved:
+        _fail("the AMSGrad kernel disagrees with its plain version")
+    if any(not torch.equal(p, frozen[n]) for n, p in named if n in frozen):
+        _fail("a frozen leaf moved")
+
+    k_ms, p_ms = _paired_ms(lambda: opt_k.update(pk, grads[0], st_k),
+                            lambda: opt_p.update(pp, grads[0], st_p), 10)
+    per_leaf_ms = _time_ms(lambda: Adam(cfg).update(pp, grads[0], st_p), 10)
+    nbytes = sum(p.numel() * (36 if gr is not None else 32) for p, gr in zip(pk, grads[0]))
+    bound = _bound(ADAM_OPS * n_el, nbytes, PEAK_F32)
+    del st_p, pp
+    torch.cuda.empty_cache()
+    yard = [torch.nn.Parameter(p.clone()) for p in pk]
+    for y, gr in zip(yard, grads[0]):
+        y.grad = gr
+    torch_adam = torch.optim.Adam(yard, lr=cfg.lr, weight_decay=cfg.weight_decay, amsgrad=True,
+                                  fused=True)
+    yard_ms = _time_ms(torch_adam.step, 10)
+    print(f"amsgrad: kernel {k_ms:.4f} ms, plain single-pass {p_ms:.4f} ms, per-leaf update "
+          f"(fused_update='off') {per_leaf_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+          f"{nbytes} B); torch.optim.Adam(fused=True, amsgrad=True) on the same leaves "
+          f"{yard_ms:.4f} ms (same-bytes yardstick only: another function) "
+          f"({names[0]}; nvidia-smi: {names[1]})")
+    del model, named, leaves, start, grads, pk, st_k, yard, torch_adam
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+            "per_leaf_ms": per_leaf_ms, "yardstick_ms": yard_ms}
 
 
 def _sentences(n: int, rng) -> list[str]:
@@ -614,13 +829,16 @@ def phase_train_kernels() -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": []}
+    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": []}
            for k in ("layer_fwd", "layer_bwd", "attn_bwd_self", "attn_bwd_cross")}
 
-    def note(key, err, k_ms, p_ms):
+    def note(key, err, k_ms, p_ms, bound):
         res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
         res[key]["ms"].append(k_ms)
         res[key]["plain_ms"].append(p_ms)
+        res[key]["bound"].append(bound)
+        print(f"{key} {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
 
     rows = TRAIN_BATCH * SEQ
     for decoder in (False, True):
@@ -642,8 +860,9 @@ def phase_train_kernels() -> dict:
             k_ms, p_ms = _paired_ms(
                 lambda: layer_forward(geom, x, enc, smask, None, ws, seed),
                 lambda: layer_forward_reference(geom, x, enc, smask, None, ws, seed), 10)
-            note("layer_fwd", err.max().item(), k_ms, p_ms)
-            print(f"train layer fwd {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            fwd_flops = _layer_flops(TRAIN_BATCH, SEQ, decoder)
+            note("layer_fwd", err.max().item(), k_ms, p_ms,
+                 _bound(fwd_flops, _nbytes(x, enc, smask, ws, out, resid), PEAK_BF16))
 
             gy = (0.1 * torch.randn(x.shape, device="cuda", generator=g)).bfloat16()
             enc_dtype = torch.float32 if decoder else None  # z_q feeds the decoder in f32
@@ -661,8 +880,9 @@ def phase_train_kernels() -> dict:
                 _fail(f"layer backward disagrees with its plain version ({what})")
             k_ms, p_ms = _paired_ms(lambda: layer_backward(*args),
                                     lambda: layer_backward_reference(*args), 10)
-            note("layer_bwd", abs_err, k_ms, p_ms)
-            print(f"train layer bwd {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            # each product of the forward twice (the input's and the weight's gradient)
+            note("layer_bwd", abs_err, k_ms, p_ms,
+                 _bound(2 * fwd_flops, _nbytes(args[:-1], flat_got), PEAK_BF16))
 
             # the attention backward at the shapes the layer backward gives it
             names = residual_names(geom)
@@ -684,9 +904,10 @@ def phase_train_kernels() -> dict:
                 _fail(f"attention backward disagrees with its plain version ({key})")
             k_ms, p_ms = _paired_ms(lambda: attention_backward(*a_args),
                                     lambda: attention_backward_reference(*a_args), 10)
+            # five products per head: scores again, dV, dP, dQ, dK
             note(key, max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)),
-                 k_ms, p_ms)
-            print(f"{key}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                 k_ms, p_ms, _bound(10 * TRAIN_BATCH * 12 * SEQ * SEQ * 64,
+                                    _nbytes(a_args, got), PEAK_BF16))
         del out, resid, out_p, res_p, got, want
 
     _check_keep_masks(seed)
@@ -706,10 +927,12 @@ def phase_train_kernels() -> dict:
             _fail("VQ kernel disagrees with its plain version at the training rows")
         k_ms, p_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
                                 lambda: vector_quantize(z, e, 0.69), 10)
+        bound = _vq_bound(z, e, k)
         res["vq"] = {"max_abs_err": max((getattr(k, f) - getattr(p, f)).abs().max().item()
                                         for f in ("z_q", "sum_z", "loss", "perplexity")),
-                     "ms": [k_ms], "plain_ms": [p_ms]}
-        print(f"vq at the training rows: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                     "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound]}
+        print(f"vq at the training rows: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
     del z, k, p
 
     # streaming CE at the step's logits shape, with ties inside and across blocks
@@ -730,8 +953,12 @@ def phase_train_kernels() -> dict:
             _fail("CE forward kernel disagrees with its plain version")
         k_ms, p_ms = _paired_ms(lambda: ce_fwd_ids(logits, t),
                                 lambda: ce_fwd_ids_reference(logits, t), 10)
-        res["ce_fwd"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms]}
-        print(f"ce fwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        # max, subtract, exp, add per logit
+        bound = _bound(4 * rows * VOCAB, _nbytes(logits, t, nll, ids), PEAK_F32)
+        res["ce_fwd"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms],
+                         "bound": [bound]}
+        print(f"ce fwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
         lse = nll_p + logits.float().gather(1, t.long()[:, None])[:, 0]
         scale = torch.full((rows,), 1.0 / rows, device="cuda")
         got = ce_bwd(logits, t, lse, scale)
@@ -743,13 +970,17 @@ def phase_train_kernels() -> dict:
             _fail("CE backward kernel disagrees with its plain version")
         k_ms, p_ms = _paired_ms(lambda: ce_bwd(logits, t, lse, scale),
                                 lambda: ce_bwd_reference(logits, t, lse, scale), 10)
+        # subtract, exp, one-hot subtract, scale, round per logit
+        bound = _bound(5 * rows * VOCAB, _nbytes(logits, t, lse, scale, got), PEAK_F32)
         res["ce_bwd"] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                         "ms": [k_ms], "plain_ms": [p_ms]}
-        print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                         "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound]}
+        print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
     del logits, got, want
     torch.cuda.empty_cache()
-    return {k: {"max_abs_err": v["max_abs_err"], "ms": sum(v["ms"]) / len(v["ms"]),
-                "plain_ms": sum(v["plain_ms"]) / len(v["plain_ms"])} for k, v in res.items()}
+    return {k: {"max_abs_err": v["max_abs_err"], "ms": statistics.mean(v["ms"]),
+                "plain_ms": statistics.mean(v["plain_ms"]), "bound": v["bound"]}
+            for k, v in res.items()}
 
 
 def _train_cfg():
@@ -772,6 +1003,30 @@ def _train_batch(batch: int) -> dict:
             "n_valid": batch}
 
 
+class _plain_update_refused:
+    """Within the block, the plain versions of the update (the single-pass
+    one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``) raise: on
+    the card the step's update is kernel #14 alone."""
+
+    def __enter__(self):
+        from kindergarten_vq_vae_torch.ops import adam
+        from kindergarten_vq_vae_torch.train import optim
+
+        def refuse(*args, **kwargs):
+            _fail("the plain update ran on the training path")
+
+        self.saved = (optim.adam_update_reference, optim.Adam.update, adam.adam_update_reference)
+        optim.adam_update_reference = adam.adam_update_reference = refuse
+        optim.Adam.update = refuse
+        return self
+
+    def __exit__(self, *exc):
+        from kindergarten_vq_vae_torch.ops import adam
+        from kindergarten_vq_vae_torch.train import optim
+
+        optim.adam_update_reference, optim.Adam.update, adam.adam_update_reference = self.saved
+
+
 def phase_train(names: tuple[str, str]) -> dict:
     """The training slice; returns the kernels' launch counts over its steps."""
     import torch
@@ -787,27 +1042,29 @@ def phase_train(names: tuple[str, str]) -> dict:
     step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
     batch = _train_batch(TRAIN_BATCH)
     n_params = sum(p.numel() for p in model.parameters())
-    # per step: 24 layer forwards and backwards; 24 self- and 12 cross-attention
-    # backwards inside them; one VQ, one CE forward, one CE backward
-    per_step = {"layer_fwd": 24, "layer_bwd": 24, "attn_bwd_self": 24, "attn_bwd_cross": 12,
-                "vq": 1, "ce_fwd": 1, "ce_bwd": 1}
+    # per step: 24 layer forwards (keeping residuals) and backwards; 24 self- and
+    # 12 cross-attention backwards inside them; one VQ, one CE forward, one CE
+    # backward, one AMSGrad update over every leaf
+    per_step = {"layer_fwd": 24, "layer_fwd_resid": 24, "layer_bwd": 24, "attn_bwd_self": 24,
+                "attn_bwd_cross": 12, "vq": 1, "ce_fwd": 1, "ce_bwd": 1, "adam": 1}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
-        before = _counters()
-        t0 = time.perf_counter()
-        state, aux = step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        after = _counters()
-        delta = {k: after[k] - before[k] for k in after}
-        if delta != per_step:
-            _fail(f"train step {i} launched {delta}, expected {per_step}")
-        losses.append({k: float(aux[k]) for k in ("loss_full", "loss_recon", "loss_vq",
-                                                   "metric_perp", "metric_acc")})
-    counts = _counters()
+    with _plain_update_refused():
+        _reset_counters()
+        for i in range(TRAIN_STEPS):
+            before = _counters()
+            t0 = time.perf_counter()
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = _counters()
+            delta = {k: after[k] - before[k] for k in after}
+            if delta != per_step:
+                _fail(f"train step {i} launched {delta}, expected {per_step}")
+            losses.append({k: float(aux[k]) for k in ("loss_full", "loss_recon", "loss_vq",
+                                                       "metric_perp", "metric_acc")})
+        counts = _counters()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
     print(f"train slice: bert-base shelgon3-VQ, {n_params} parameters, batch {TRAIN_BATCH} x "
@@ -877,6 +1134,111 @@ def phase_grads() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_engine(names: tuple[str, str]) -> dict:
+    """The training entry point: the CLI on a generated corpus, its run
+    directory, its launch counts, and the run directory served."""
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch import cli
+    from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name, read_checkpoint
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_engine_") as root:
+        data_dir, runs_dir = os.path.join(root, "data"), os.path.join(root, "runs")
+        t0 = time.perf_counter()
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        n = len(prepare_all(data_dir, max_length=SEQ)["sentences_clean"])
+        t_data = time.perf_counter() - t0
+        # the JAX package's defaults are the full-width bf16 Shelgon3-VQ run
+        # (dropout 0.1 / 0.1, AMSGrad lr 1e-4, fused_update "auto")
+        sets = {"n_epochs": ENGINE_EPOCHS, "batch_size": TRAIN_BATCH, "data_dir": data_dir,
+                "runs_dir": runs_dir, "tokenized_sentence_max_length": SEQ,
+                "lim_batches_train_pct": ENGINE_TRAIN_PCT, "ckpt_every_n_epochs": 0,
+                "ckpt_slots": ("loss_recon:val",), "seed": SEED}
+        argv = ["shelgon3", "--device", "cuda"]
+        for k, v in sets.items():
+            argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
+        n_train, n_val = int(n * 0.6), int(n * 0.2)
+        steps = ENGINE_EPOCHS * int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
+        evals = ENGINE_EPOCHS * -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
+        torch.cuda.empty_cache()
+        with _plain_update_refused():
+            _reset_counters()
+            t0 = time.perf_counter()
+            engine = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counters()
+        want = {"layer_fwd": 24 * (steps + evals), "layer_fwd_resid": 24 * steps,
+                "layer_bwd": 24 * steps, "attn_bwd_self": 24 * steps, "attn_bwd_cross": 12 * steps,
+                "vq": steps + evals, "ce_fwd": steps + evals, "ce_bwd": steps, "adam": steps}
+        print(f"engine: python -m kindergarten_vq_vae_torch.cli {' '.join(argv)}: {wall:.1f} s "
+              f"(corpus of {n} sentences made in {t_data:.1f} s); {steps} train steps, {evals} "
+              f"eval batches; launches {counts} (expected {want})")
+        if counts != want:
+            _fail("the training entry point did not go through the kernels as expected")
+
+        run = engine.run_path
+        with open(os.path.join(run, "run_conf.json")) as f:
+            conf = json.load(f)
+        with open(os.path.join(run, "history.json")) as f:
+            history = json.load(f)
+        slot = os.path.join(run, best_ckpt_name("shelgon3", "loss_recon", "val"))
+        tree = read_checkpoint(slot)
+        files = sorted(os.listdir(run))
+        print(f"engine run directory {os.path.basename(run)}: {files}")
+        if not (conf["model_name"] == "shelgon3" and conf["hidden_size"] == 768
+                and conf["num_layers"] == 12 and conf["vocab_size"] == VOCAB
+                and conf["batch_size"] == TRAIN_BATCH and conf["run_id"] == os.path.basename(run)):
+            _fail(f"run_conf.json does not describe the run: {conf}")
+        if tree["vector_quantizer"]["codebook"].shape != (9, 768):
+            _fail("the best-val slot does not hold the model")
+        if [sorted(h) for h in history] != ([["epoch", "train", "val"]] * ENGINE_EPOCHS
+                                            + [["epoch", "test"]]):
+            _fail(f"history.json has other entries than the run's stages: {history}")
+        stats = [h[stage] for h in history for stage in ("train", "val", "test") if stage in h]
+        keys = ("loss_recon", "loss_vq", "loss_full", "metric_acc", "metric_perp")
+        if not all(math.isfinite(st[k]) for st in stats for k in keys):
+            _fail("the run's stats are not finite")
+        if history[-1]["test"]["n_els"] != n - n_train - n_val:
+            _fail("the test stage did not cover the test split")
+        for h in history:
+            for stage, st in h.items():
+                if stage != "epoch":
+                    print(f"  epoch {h['epoch']} {stage}: loss_recon {st['loss_recon']:.4f} "
+                          f"loss_vq {st['loss_vq']:.4f} acc {st['metric_acc']:.2f}% perp "
+                          f"{st['metric_perp']:.3f}, {st['sentences_per_sec']:.1f} sentences/s "
+                          f"(steady state), stage wall {st['stage_wall_s']:.2f} s over "
+                          f"{st['n_els']} sentences")
+
+        rng = np.random.default_rng(SEED)
+        sentences = [engine.splits["test"].sentences[i] for i in rng.choice(n - n_train - n_val, 5)]
+        del engine
+        torch.cuda.empty_cache()
+        rec = Reconstructor(run, device="cuda")
+        _reset_counters()
+        recon = rec.reconstruct(sentences)
+        codes = rec.codes(sentences)
+        served = _counters()
+        if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
+                or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
+                           for r in recon)
+                or served["layer_fwd"] != 48 or served["layer_fwd_resid"] != 0):
+            _fail(f"serving the trained run failed: {recon} {served}")
+        print(f"engine run served through Reconstructor: {recon[0]}")
+        train = [h["train"] for h in history if "train" in h]
+        print(f"engine: train {statistics.mean(t['sentences_per_sec'] for t in train):.1f} "
+              f"sentences/s (steady state, mean of {len(train)} epochs), stage wall times "
+              f"{[round(st['stage_wall_s'], 3) for st in stats]} s ({names[0]}; nvidia-smi: "
+              f"{names[1]})")
+    del rec
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -888,26 +1250,31 @@ def main() -> None:
     phase_build()
     kern = phase_kernels()
     tk = phase_train_kernels()
+    adam = phase_adam(names)
     sl = phase_slice(names)
     n = phase_train(names)
     phase_grads()
-    layer = kern["layer"]
+    eng = phase_engine(names)
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"
 
     def row(name, source, replaces, launches, m):
+        bound_ms = statistics.mean(b[0] for b in m["bound"])
+        bound_by = {b[1] for b in m["bound"]}
         return {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
                 "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"]}
+                "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
+                "library_ms": m.get("library_ms")}
 
+    # serving rows: per call at bucket 256, the mean of one encoder-geometry and
+    # one decoder-geometry layer, launches from the HTTP run; training rows: at
+    # batch 2048, launches from the training slice's run; amsgrad_update: over
+    # the whole parameter list, launches from the training entry point's run
     table = {"kernels": [
-        # serving forward at bucket 256: per call, mean of one encoder-geometry
-        # and one decoder-geometry layer; launches from the HTTP run
         row("fused_bert_layer", "layer_fwd.cu", "layer_pallas.py:489", sl["launches"]["layer"],
-            {"max_abs_err": layer["max_abs_err"], "ms": sum(layer["ms"]) / len(layer["ms"]),
-             "plain_ms": sum(layer["plain_ms"]) / len(layer["plain_ms"])}),
+            kern["layer"]),
         row("vector_quantize_kernel", "vq_fwd.cu", "vq_pallas.py:41", sl["launches"]["vq"],
             kern["vq"]),
-        # training at batch 2048: launches from the train run
         row("layer_forward (training mode)", "layer_fwd.cu", "layer_pallas.py:489",
             n["layer_fwd"], tk["layer_fwd"]),
         row("layer_backward", "layer_bwd.cu", "layer_pallas.py:552", n["layer_bwd"],
@@ -920,6 +1287,7 @@ def main() -> None:
             tk["vq"]),
         row("ce_fwd_ids", "ce.cu", "ce_pallas.py:63", n["ce_fwd"], tk["ce_fwd"]),
         row("ce_bwd", "ce.cu", "ce_pallas.py:104", n["ce_bwd"], tk["ce_bwd"]),
+        row("amsgrad_update", "adam.cu", "adam_pallas.py:46", eng["adam"], adam),
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,14 @@ class _BaseTokenizer:
     inv_vocab: dict[int, str]
 
     @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def pad_token_id(self) -> int:
+        return self.vocab[PAD]
+
+    @property
     def unk_token_id(self) -> int:
         return self.vocab[UNK]
 
@@ -41,6 +49,10 @@ class _BaseTokenizer:
         if add_special_tokens:
             return [self.cls_token_id] + ids + [self.sep_token_id]
         return ids
+
+    def encode_word(self, word: str) -> list[int]:
+        """Ids of one word, no special tokens."""
+        return self._encode_words([word.lower()])
 
     def encode_batch(self, sentences: list[str], max_length: int, add_special_tokens: bool = True):
         """(ids, mask), both int32 (n, max_length), truncated and zero-padded."""
@@ -65,6 +77,9 @@ class _BaseTokenizer:
             else:
                 toks.append(tok)
         return " ".join(toks)
+
+    def batch_decode(self, batch_ids, skip_special_tokens: bool = True) -> list[str]:
+        return [self.decode(row, skip_special_tokens) for row in batch_ids]
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:

@@ -41,7 +41,7 @@ def build_model(cfg: RunConfig, device=None) -> nn.Module:
         return Bagon(enc, dec, device)
     if cfg.model_name == "shelgon3":
         return Shelgon3(enc, dec, vq_mode=cfg.vq_mode, vq_n_e=cfg.vq_n_e, vq_e_dim=cfg.vq_e_dim,
-                        vq_beta=cfg.vq_beta, device=device)
+                        vq_beta=cfg.vq_beta, vq_ema_update=cfg.vq_ema_update, device=device)
     raise NotImplementedError(
         f"model {cfg.model_name!r} is not ported yet (ROADMAP, modules to port: item 7)")
 

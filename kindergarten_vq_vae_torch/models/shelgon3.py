@@ -22,19 +22,23 @@ from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
 
 class VectorQuantizer(nn.Module):
-    def __init__(self, n_e: int, e_dim: int, beta: float, device=None):
+    def __init__(self, n_e: int, e_dim: int, beta: float, ema_update: bool = False, device=None):
         super().__init__()
-        self.n_e, self.beta = n_e, beta
+        self.n_e, self.beta, self.ema_update = n_e, beta, ema_update
         self.codebook = nn.Parameter(torch.empty((n_e, e_dim), dtype=torch.float32, device=device))
 
     def forward(self, z: torch.Tensor, reference: bool = False) -> VQOutput:
         quantize = vector_quantize if reference else vector_quantize_kernel
-        return quantize(z.float().contiguous(), self.codebook, self.beta)
+        # under the EMA update the codebook takes no gradient (the engine
+        # overwrites it from the batch statistics), as in JAX (l.83-85)
+        codebook = self.codebook.detach() if self.ema_update else self.codebook
+        return quantize(z.float().contiguous(), codebook, self.beta)
 
 
 class Shelgon3(nn.Module):
     def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, vq_mode: str = "VectorQuantizer",
-                 vq_n_e: int = 9, vq_e_dim: int = 768, vq_beta: float = 0.69, device=None):
+                 vq_n_e: int = 9, vq_e_dim: int = 768, vq_beta: float = 0.69,
+                 vq_ema_update: bool = False, device=None):
         super().__init__()
         if vq_mode != "VectorQuantizer":
             raise NotImplementedError(
@@ -43,20 +47,23 @@ class Shelgon3(nn.Module):
         if enc_cfg.hidden_size != vq_e_dim:
             raise ValueError("embedding dim of encoder output must match e_dim")
         self.encoder = BertModel(enc_cfg, device)
-        self.vector_quantizer = VectorQuantizer(vq_n_e, vq_e_dim, vq_beta, device)
+        self.vector_quantizer = VectorQuantizer(vq_n_e, vq_e_dim, vq_beta, vq_ema_update, device)
         self.decoder = BertLMHeadModel(dec_cfg, device)
 
     def forward(self, input_ids, attention_mask, reference: bool = False,
                 deterministic: bool = True, is_training: bool = False,
-                generator: torch.Generator | None = None) -> dict:
-        """The same ids feed encoder and decoder (the reference's forward).
+                generator: torch.Generator | None = None, decoder_input_ids=None) -> dict:
+        """The same ids feed encoder and decoder (the reference's forward),
+        unless ``decoder_input_ids`` (the perturbed ids of the JAX package's
+        opt-in decoder perturbation, l.156-161) feed the decoder.
         ``reference=True`` runs every kernel's plain version instead;
         ``deterministic=False`` turns dropout on, drawn from ``generator``."""
         del is_training  # steers only the Gumbel quantizer
         embeds = self.encoder(input_ids, attention_mask, reference=reference,
                               deterministic=deterministic, generator=generator)["last_hidden_state"]
         vq = self.vector_quantizer(embeds, reference)
-        dec = self.decoder(input_ids, attention_mask, encoder_hidden_states=vq.z_q,
+        dec_ids = input_ids if decoder_input_ids is None else decoder_input_ids
+        dec = self.decoder(dec_ids, attention_mask, encoder_hidden_states=vq.z_q,
                            reference=reference, deterministic=deterministic, generator=generator)
         return {
             "logits": dec["logits"],

@@ -518,6 +518,7 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
         )
     _build.check(code, "kvq_bert_layer_fwd")
     fused_bert_layer.launches += 1
+    fused_bert_layer.residual_launches += int(save)
     if not save:
         return out, None
     res = dict(qkv=qkv, ctx=ctx, x1=x1, qc=qc, kvc=kvc, ctx2=ctx2, x2=x2, u=u, m=m, invs=invs)
@@ -796,7 +797,8 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
     Otherwise a CPU tensor, or ``reference=True``, goes through
     :func:`bert_layer_reference`, and a CUDA tensor launches
     ``csrc/layer_fwd.cu`` (bf16 only) on the current stream, or raises; each
-    forward launch adds one to ``fused_bert_layer.launches``."""
+    forward launch adds one to ``fused_bert_layer.launches``, and each that
+    keeps the residuals also to ``fused_bert_layer.residual_launches``."""
     weights = tuple(weights)
     _check_call(geom, seed)
     if x.device.type not in ("cpu", "cuda"):
@@ -812,3 +814,4 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
 
 
 fused_bert_layer.launches = 0
+fused_bert_layer.residual_launches = 0  # of those, training launches that keep the residuals

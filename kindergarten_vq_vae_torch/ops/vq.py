@@ -13,6 +13,11 @@ gradient paths, ``d1 ~ sum((sg[z_q] - z)^2)`` and ``d2 ~ sum((z_q - sg[z])^2)``,
 so ``dz = g_zq + 2 g_d1 (z - z_q)`` and ``dE = index_add(2 g_d2 (z_q - z))``.
 The raw forward is :func:`vq_raw` here and the CUDA kernel in
 :mod:`kindergarten_vq_vae_torch.ops.vq_kernel`; everything else is shared.
+
+The codebook's training extras of ``ops/vq.py`` follow: the EMA codebook
+update (l.99-128) and dead-code revival (l.171-198), whose random draws
+come from a :class:`torch.Generator` and whose arithmetic given the draws
+is :func:`dead_code_reset_with`.
 """
 
 from __future__ import annotations
@@ -114,3 +119,53 @@ def vector_quantize(z: torch.Tensor, codebook: torch.Tensor, beta: float) -> VQO
     """Quantize ``z`` (B, S, D) against ``codebook`` (n_e, D), both f32, in
     plain PyTorch on any device (the kernel's comparison baseline)."""
     return assemble(z, codebook, beta, vq_raw)
+
+
+class EMAState(NamedTuple):
+    counts: torch.Tensor  # (n_e,) EMA of per-code assignment counts
+    means: torch.Tensor   # (n_e, D) EMA of per-code sums of z
+
+
+def init_ema_state(codebook: torch.Tensor) -> EMAState:
+    """``ops/vq.py:104-106``: unit counts, means at the codebook."""
+    return EMAState(torch.ones(codebook.shape[0], dtype=codebook.dtype, device=codebook.device),
+                    codebook.detach().clone())
+
+
+def ema_codebook_update(codebook: torch.Tensor, state: EMAState, counts: torch.Tensor,
+                        sum_z: torch.Tensor, decay: float = 0.99, eps: float = 1e-5):
+    """``(new_codebook, new_state)``: the EMA codebook update of
+    ``ops/vq.py:109-128`` (VQ-VAE appendix A.1) from one batch's per-code
+    ``counts`` and ``sum_z``, with Laplace smoothing of the counts."""
+    new_counts = decay * state.counts + (1.0 - decay) * counts
+    new_means = decay * state.means + (1.0 - decay) * sum_z
+    n = new_counts.sum()
+    n_e = codebook.shape[0]
+    smoothed = (new_counts + eps) / (n + n_e * eps) * n
+    return new_means / smoothed[:, None], EMAState(new_counts, new_means)
+
+
+def dead_code_reset_with(codebook, dead_steps, counts, z_rows, pick, noise, threshold: int = 100,
+                         noise_scale: float = 1e-3):
+    """The arithmetic of ``ops/vq.py:171-198`` given its random draws:
+    ``pick`` (n_e,) row indices into ``z_rows`` and ``noise`` (n_e, D)
+    standard normals. ``dead_steps`` counts consecutive steps without an
+    assignment; a code past ``threshold`` is re-seeded to ``z_rows[pick] +
+    noise_scale * noise``. Returns ``(new_codebook, new_dead_steps)``."""
+    dead_steps = torch.where(counts > 0, torch.zeros_like(dead_steps), dead_steps + 1)
+    expired = dead_steps >= threshold
+    replacements = z_rows.float()[pick] + noise_scale * noise
+    new_codebook = torch.where(expired[:, None], replacements.to(codebook.dtype), codebook)
+    return new_codebook, torch.where(expired, torch.zeros_like(dead_steps), dead_steps)
+
+
+def dead_code_reset(codebook, dead_steps, counts, z_rows, generator: torch.Generator,
+                    threshold: int = 100, noise_scale: float = 1e-3):
+    """Dead-code revival with ``pick`` and ``noise`` drawn from ``generator``
+    (on the codebook's device)."""
+    n_e = codebook.shape[0]
+    pick = torch.randint(0, z_rows.shape[0], (n_e,), generator=generator, device=codebook.device)
+    noise = torch.randn(codebook.shape, generator=generator, device=codebook.device,
+                        dtype=codebook.dtype)
+    return dead_code_reset_with(codebook, dead_steps, counts, z_rows, pick, noise, threshold,
+                                noise_scale)

@@ -1,8 +1,9 @@
-"""Adam / AMSGrad with L2 weight decay and MultiStepLR, in optax's form.
+"""Adam / AMSGrad with L2 weight decay and MultiStepLR, over the trainable leaves.
 
 Counterpart of ``kindergarten_vq_vae_tpu/train/optim.py`` (``make_optimizer``:
-``add_decayed_weights -> scale_by_amsgrad -> scale_by_learning_rate``) and of
-the single-pass form in ``ops/adam_pallas.py`` l.13-20 / l.92-99:
+``add_decayed_weights -> scale_by_amsgrad -> scale_by_learning_rate``, masked
+by ``multi_transform`` + ``set_to_zero``) and of ``ops/adam_pallas.py``
+(``resolve_fused_update`` l.106-129, ``FusedAdam`` l.132-201):
 
 - L2 is added to the gradient before the moments (torch ``Adam(weight_decay)``,
   not AdamW);
@@ -16,10 +17,20 @@ the single-pass form in ``ops/adam_pallas.py`` l.13-20 / l.92-99:
   own count: the rate is scaled by ``gamma`` for each milestone ``<= count``;
   as in ``make_lr_schedule``, any other ``lr_scheduler`` means a constant rate.
 
-Plain PyTorch, in place, one leaf at a time under ``no_grad``. The AMSGrad
-kernel (TPU kernel #14, ``adam_pallas.py:46``) is not ported yet (ROADMAP).
-A parameter without a gradient is updated with a zero gradient, as optax
+The optimizer holds only the trainable leaves (the freezing mask of
+:mod:`~kindergarten_vq_vae_torch.train.freezing`): a frozen leaf and its
+moments are never touched, as ``set_to_zero`` leaves them. Everything is in
+place. A leaf without a gradient is updated with a zero gradient, as optax
 updates a leaf whose gradient is 0.
+
+``fused_update`` picks the update (:func:`resolve_fused_update`): with
+AMSGrad, ``"auto"`` and ``"on"`` take the single-pass update of
+:mod:`~kindergarten_vq_vae_torch.ops.adam`, which launches kernel #14 on
+CUDA (a divergence: the JAX ``"auto"`` resolves to the optax chain because
+of a TPU-runtime crash that does not bind the port); ``"jnp"`` takes that
+update's plain version on any device; ``"off"``, or Adam without AMSGrad,
+the optax-form update leaf by leaf (:class:`Adam`). On the CPU every mode
+but ``"off"`` runs the plain single-pass version.
 """
 
 from __future__ import annotations
@@ -30,6 +41,12 @@ import numpy as np
 import torch
 
 from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.ops.adam import (
+    AdamScalars,
+    LeafTable,
+    adam_update_reference,
+    amsgrad_update,
+)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -52,40 +69,88 @@ def learning_rate(cfg: RunConfig, count: int) -> np.float32:
     return v
 
 
+def scalars(cfg: RunConfig, count: int) -> AdamScalars:
+    """The update's f32 scalars for the step that takes the count from
+    ``count`` to ``count + 1`` (``FusedAdam.apply`` l.166-176)."""
+    f32 = np.float32
+    c = f32(count + 1)
+    return AdamScalars(
+        lr=float(learning_rate(cfg, count)), wd=float(f32(cfg.weight_decay)), b1=float(f32(B1)),
+        b2=float(f32(B2)), eps=float(f32(EPS)), bc1=float(f32(1.0) - f32(B1) ** c),
+        bc2=float(f32(1.0) - f32(B2) ** c), omb1=float(f32(1.0 - B1)), omb2=float(f32(1.0 - B2)))
+
+
+def resolve_fused_update(cfg: RunConfig, device) -> str | None:
+    """``"kernel"`` (#14 on CUDA), ``"plain"`` (its plain version) or None
+    (the optax-form update)."""
+    if not cfg.amsgrad or cfg.fused_update == "off":
+        return None
+    if cfg.fused_update not in ("auto", "on", "jnp"):
+        raise ValueError(f"fused_update={cfg.fused_update!r}: expected auto, on, off or jnp")
+    if cfg.fused_update == "jnp" or torch.device(device).type == "cpu":
+        return "plain"
+    return "kernel"
+
+
+def _zeros(params):
+    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+
 class Adam:
-    """The optax chain of ``make_optimizer(cfg)`` over a list of parameters."""
+    """The optax chain of ``make_optimizer(cfg)``, leaf by leaf."""
 
     def __init__(self, cfg: RunConfig):
-        if cfg.fused_update == "on":
-            raise NotImplementedError(
-                "fused_update='on' needs the AMSGrad kernel, not ported yet (ROADMAP, TPU "
-                "kernels: #14)")
         self.cfg = cfg
-        self.omb1 = float(np.float32(1.0 - B1))
-        self.omb2 = float(np.float32(1.0 - B2))
 
     def init(self, params) -> AdamState:
-        def zeros():
-            return [torch.zeros_like(p, dtype=torch.float32) for p in params]
-
-        return AdamState(0, zeros(), zeros(), zeros() if self.cfg.amsgrad else None)
+        return AdamState(0, _zeros(params), _zeros(params),
+                         _zeros(params) if self.cfg.amsgrad else None)
 
     @torch.no_grad()
     def update(self, params, grads, state: AdamState) -> None:
         """One step in place: ``params``, ``state``."""
-        count = state.count + 1
-        lr = learning_rate(self.cfg, state.count)
-        bc1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(count))
-        wd = self.cfg.weight_decay
+        s = scalars(self.cfg, state.count)
         for i, (p, g) in enumerate(zip(params, grads)):
             g = torch.zeros_like(p) if g is None else g.float()
-            if wd:
-                g = g + wd * p
-            mu = state.mu[i].mul_(B1).add_(self.omb1 * g)
-            nu = state.nu[i].mul_(B2).add_(self.omb2 * (g * g))
-            nu_hat = nu / bc2
+            if self.cfg.weight_decay:
+                g = g + s.wd * p
+            mu = state.mu[i].mul_(s.b1).add_(s.omb1 * g)
+            nu = state.nu[i].mul_(s.b2).add_(s.omb2 * (g * g))
+            nu_hat = nu / s.bc2
             if state.nu_max is not None:
                 nu_hat = torch.maximum(state.nu_max[i], nu_hat, out=state.nu_max[i])
-            p.add_((mu / bc1) / (torch.sqrt(nu_hat) + EPS) * float(-lr))
-        state.count = count
+            p.add_((mu / s.bc1) / (torch.sqrt(nu_hat) + s.eps) * -s.lr)
+        state.count += 1
+
+
+class FusedAdam:
+    """The single-pass AMSGrad update (``FusedAdam`` of ``adam_pallas.py``):
+    one launch of kernel #14 per step over every leaf (``path="kernel"``), or
+    its plain version leaf by leaf (``path="plain"``)."""
+
+    def __init__(self, cfg: RunConfig, path: str):
+        if path not in ("kernel", "plain"):
+            raise ValueError(f"path={path!r}: expected 'kernel' or 'plain'")
+        self.cfg, self.path = cfg, path
+        self._table: LeafTable | None = None
+
+    def init(self, params) -> AdamState:
+        self._table = None
+        return AdamState(0, _zeros(params), _zeros(params), _zeros(params))
+
+    @torch.no_grad()
+    def update(self, params, grads, state: AdamState) -> None:
+        s = scalars(self.cfg, state.count)
+        if self.path == "plain":
+            for leaf in zip(params, grads, state.mu, state.nu, state.nu_max):
+                adam_update_reference(*leaf, s)
+        else:
+            if self._table is None or self._table.mu is not state.mu:
+                self._table = LeafTable(params, state.mu, state.nu, state.nu_max)
+            amsgrad_update(params, grads, state.mu, state.nu, state.nu_max, s, self._table)
+        state.count += 1
+
+
+def make_optimizer(cfg: RunConfig, device) -> Adam | FusedAdam:
+    path = resolve_fused_update(cfg, device)
+    return Adam(cfg) if path is None else FusedAdam(cfg, path)

@@ -1,29 +1,33 @@
-"""Per-variant loss functions of the training step.
+"""Per-variant loss functions of the train, val and test stages.
 
-Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` (l.219-427):
-``loss_fn(model, batch, generator, deterministic) -> (loss, aux)`` for
-Bagon and Shelgon3 (VectorQuantizer mode), with ``_recon`` choosing the
+Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` (l.149-154,
+l.219-459): ``loss_fn(model, batch, generator, deterministic) -> (loss, aux)``
+for Bagon and Shelgon3 (VectorQuantizer mode), with ``_recon`` choosing the
 streaming CE + argmax (``fused_ce``, the single-device default) or
 ``kl_recon_loss`` + argmax, ``_valid_row`` weighting by ``n_valid``, and the
-JAX package's ``aux`` keys. ``batch`` holds ``input_ids`` / ``attention_mask``
-(B, S) tensors on the model's device and ``n_valid`` (an int).
-
-Input perturbation (``*_perturb_*_pct``) is refused: the JAX package draws
-it from ``jax.random``, and it is not ported yet (ROADMAP, modules to port,
-training slice: ``utils/tensor.py``).
+JAX package's ``aux`` keys. ``batch`` holds ``input_ids`` /
+``attention_mask`` (B, S) tensors on the model's device and ``n_valid`` (an
+int). Each stage perturbs its inputs by its own ``*_perturb_{stage}_pct``,
+drawn from ``generator`` (:mod:`~kindergarten_vq_vae_torch.utils.tensor`):
+Bagon both sides, with the recon target the perturbed decoder ids unless
+``bagon_target_unperturbed``; Shelgon3 only the decoder input, the target
+staying the clean ids. With ``vq_dead_code_threshold > 0`` the Shelgon3 aux
+carries ``z_rows``, the first ``4 * n_e`` encoder outputs, for dead-code
+revival.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
+import numpy as np
 import torch
 
-from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported
 from kindergarten_vq_vae_torch.ops.ce import fused_ce_loss_ids
 from kindergarten_vq_vae_torch.train.losses import kl_recon_loss
 from kindergarten_vq_vae_torch.utils.metrics import padding_tokens_pct, seq_acc
+from kindergarten_vq_vae_torch.utils.tensor import replace_pct_rand_values
 
 # stats that are scalars and get accumulated per epoch, per variant
 STAT_KEYS = {
@@ -31,6 +35,29 @@ STAT_KEYS = {
     "shelgon3": ("loss_recon", "loss_vq", "loss_full", "metric_perp", "metric_acc",
                  "padding_tokens_pct"),
 }
+
+# direction for "best" tracking: min for losses, max for metrics
+BEST_MODES = {
+    "loss_recon": "min",
+    "loss_vq": "min",
+    "loss_full": "min",
+    "metric_acc": "max",
+    "metric_perp": "max",  # perplexity should approach the codebook size
+}
+
+# stats that trigger a best-checkpoint write, per variant
+CKPT_KEYS = {
+    "bagon": ("loss_recon", "metric_acc"),
+    "shelgon3": ("loss_recon", "metric_acc", "loss_vq"),
+}
+
+
+def load_codebook_init(cfg: RunConfig) -> np.ndarray | None:
+    """The codebook's initial values from ``vq_codebook_init_values_path``, or None."""
+    path = cfg.vq_codebook_init_values_path
+    if path is None:
+        return None
+    return np.load(path) if path.endswith(".npy") else np.load(path, allow_pickle=True)
 
 
 def _valid_row(batch) -> torch.Tensor:
@@ -41,16 +68,15 @@ def _valid_row(batch) -> torch.Tensor:
 def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callable:
     """The loss function of a stage ('train' | 'val' | 'test'). ``reference``
     runs every kernel's plain version (the comparison baseline on the card)."""
-    for side in ("encoder", "decoder"):
-        if not math.isclose(getattr(cfg, f"{side}_perturb_{stage}_pct"), 0.0):
-            raise NotImplementedError(
-                f"{side}_perturb_{stage}_pct: input perturbation is not ported yet (ROADMAP, "
-                "modules to port, training slice: utils/tensor.py)")
+    refuse_unported(cfg)
     name = cfg.model_name
     if name not in STAT_KEYS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP, modules to port: item 7)")
+        raise ValueError(f"unknown model_name {name}")
     is_training = stage == "train"
+    vocab = cfg.vocab_size
+    dec_vocab = cfg.decoder_vocab_size or vocab
+    enc_pct = getattr(cfg, f"encoder_perturb_{stage}_pct")
+    dec_pct = getattr(cfg, f"decoder_perturb_{stage}_pct")
 
     def _recon(logits, target_ids, valid):
         if cfg.fused_ce:
@@ -61,12 +87,13 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
         valid = _valid_row(batch)
         dec_src = batch.get("dec_input_ids", batch["input_ids"])
         dec_mask = batch.get("dec_attention_mask", batch["attention_mask"])
-        out = model(batch["input_ids"], batch["attention_mask"], dec_src, dec_mask,
+        enc_ids = replace_pct_rand_values(batch["input_ids"], enc_pct, 0, vocab, generator)
+        dec_ids = replace_pct_rand_values(dec_src, dec_pct, 0, dec_vocab, generator)
+        out = model(enc_ids, batch["attention_mask"], dec_ids, dec_mask,
                     reference=reference, deterministic=deterministic, generator=generator)
-        # unperturbed, the decoder ids are the target either way
-        # (the JAX package's bagon_target_unperturbed picks between two equal tensors)
-        loss_recon, recon_ids = _recon(out["logits"], dec_src, valid)
-        acc, acc_per_sentence = seq_acc(recon_ids, dec_src)
+        target_ids = dec_src if cfg.bagon_target_unperturbed else dec_ids
+        loss_recon, recon_ids = _recon(out["logits"], target_ids, valid)
+        acc, acc_per_sentence = seq_acc(recon_ids, target_ids)
         aux = {
             "loss_recon": loss_recon,
             "loss_full": loss_recon,
@@ -74,15 +101,19 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
             "padding_tokens_pct": padding_tokens_pct(batch["input_ids"]),
             "recon_ids": recon_ids,
             "acc_per_sentence": acc_per_sentence,
-            "target_ids": dec_src,
+            "target_ids": target_ids,
         }
         return loss_recon, aux
 
     def shelgon3_loss(model, batch, generator, deterministic):
         valid = _valid_row(batch)
         ids = batch["input_ids"]
+        dec_input = None
+        if dec_pct:
+            dec_input = replace_pct_rand_values(ids, dec_pct, 0, dec_vocab, generator)
         out = model(ids, batch["attention_mask"], reference=reference,
-                    deterministic=deterministic, is_training=is_training, generator=generator)
+                    deterministic=deterministic, is_training=is_training, generator=generator,
+                    decoder_input_ids=dec_input)
         loss_recon, recon_ids = _recon(out["logits"], ids, valid)
         loss_recon = loss_recon * cfg.loss_recon_rescale_factor * cfg.loss_recon_weight
         loss_vq = out["vq_loss"] * cfg.loss_vq_rescale_factor * cfg.loss_vq_weight
@@ -102,6 +133,9 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
             "ema_counts": out["ema_stats"]["counts"],
             "ema_sum_z": out["ema_stats"]["sum_z"],
         }
+        if cfg.vq_dead_code_threshold > 0:
+            aux["z_rows"] = out["encoder_last_hidden_state"].reshape(-1, cfg.vq_e_dim)[
+                :4 * cfg.vq_n_e].detach()
         return loss_full, aux
 
     return {"bagon": bagon_loss, "shelgon3": shelgon3_loss}[name]

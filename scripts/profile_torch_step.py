@@ -9,9 +9,10 @@ tokens:
 
 - the wall time of a step (host clock around a synchronized step);
 - device time of forward, backward and optimizer update (CUDA events at the
-  step's phase marks);
+  step's phase marks; the update is kernel #14);
 - ``torch.profiler`` device time over ``--steps`` steps, grouped by kernel
-  family and divided by the step count, and the device idle share
+  family and divided by the step count, the ten largest kernels of the
+  catch-all PyTorch family, and the device idle share
   ``1 - kernel time / wall``.
 
 The last line is one JSON object with the numbers. It imports nothing of JAX.
@@ -33,6 +34,7 @@ sys.path.insert(0, ROOT)
 
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
+    ("adam_amsgrad_kernel", "AMSGrad update (kernel #14)"),
     ("gemm_bias_kernel", "layer GEMM, forward (wmma)"),
     ("gemm_kernel<false, true", "layer GEMM, dgrad (wmma)"),
     ("gemm_kernel<true, false, 8>", "layer GEMM, wgrad split-K partials (wmma)"),
@@ -55,11 +57,14 @@ FAMILIES = (
 )
 
 
+OTHER = "torch elementwise / reduction (casts, embeddings, VQ backward)"
+
+
 def family(name: str) -> str:
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
-    return "torch elementwise / reduction (optimizer, casts, embeddings, VQ backward)"
+    return OTHER
 
 
 def main() -> None:
@@ -120,12 +125,15 @@ def main() -> None:
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / args.steps
     by_family, launches = collections.defaultdict(float), collections.Counter()
+    other = collections.defaultdict(float)  # the catch-all family, by kernel name
     for evt in prof.events():
         dev = getattr(evt, "device_type", None)
         if dev is not None and str(dev).endswith("CUDA") and evt.device_time_total > 0:
             fam = family(evt.name)
             by_family[fam] += evt.device_time_total / 1e3 / args.steps
             launches[fam] += 1
+            if fam == OTHER:
+                other[evt.name[:120]] += evt.device_time_total / 1e3 / args.steps
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
@@ -135,6 +143,7 @@ def main() -> None:
         "idle_share": (1.0 - kernels_ms / prof_wall) if kernels_ms else None,
         "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
         "launches_per_step": {k: v / args.steps for k, v in launches.items()},
+        "largest_other_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:10]),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     for k, v in out["by_family_ms"].items():

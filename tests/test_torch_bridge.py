@@ -86,26 +86,37 @@ def test_seeded_init_is_reproducible():
     assert torch.equal(a["encoder.layer_0.mlp.layer_norm.scale"], torch.ones(32))
 
 
+ENTRY_POINT_MODULES = (
+    "cli", "train.engine", "train.run", "train.freezing", "train.optim", "train.step",
+    "ops.adam", "data.generate", "data.prepare", "data.dataset", "utils.consts",
+    "utils.console", "utils.params", "utils.tensor", "ckpt.checkpoint",
+)
+
+
 def test_package_imports_no_jax_and_builds_nothing():
-    """Every module of the port imports without jax/flax/optax, the JAX
-    package, nvcc or triton, and importing builds no kernel."""
+    """Every module of the port (the training entry point's among them)
+    imports without jax/flax/optax, the JAX package, nvcc or triton, and
+    importing builds no kernel; so does ``chip_smoke.py``."""
     code = (
-        "import pkgutil, sys, importlib\n"
+        "import pkgutil, sys, importlib, runpy\n"
         "import kindergarten_vq_vae_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'kindergarten_vq_vae_tpu')]\n"
         "assert not bad, bad\n"
         "from kindergarten_vq_vae_torch import _build\n"
         "assert _build._lib is None\n"
-        "print('ok', len(list(pkgutil.walk_packages(p.__path__))))\n"
+        "print(' '.join(names))\n"
     )
     env = {**os.environ, "PATH": "/usr/bin:/bin"}  # no nvcc on the path
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    walked = set(out.stdout.split())
+    assert {f"kindergarten_vq_vae_torch.{m}" for m in ENTRY_POINT_MODULES} <= walked
 
 
 @pytest.mark.parametrize("override", [

@@ -14,12 +14,14 @@ largest magnitude (kernel and plain share the bf16 rounding points; an f32
 sum in another order flips an occasional bf16 rounding of an intermediate,
 one ulp is 0.4%). CE: ids exact, NLL within 1e-4 absolute (values ~10,
 f32 sums in another order), dlogits within 1e-2 of the largest magnitude
-(one bf16 ulp).
+(one bf16 ulp). AMSGrad (#14): bit for bit, over leaves of ragged lengths,
+a leaf without a gradient, a misaligned leaf and a chunk boundary.
 """
 
 import pytest
 import torch
 
+from kindergarten_vq_vae_torch.ops.adam import AdamScalars, adam_update_reference, amsgrad_update
 from kindergarten_vq_vae_torch.ops.ce import (
     ce_bwd,
     ce_bwd_reference,
@@ -246,3 +248,25 @@ def test_ce_kernels_match_plain(gen):
     odd = x[:, :30521].contiguous()  # odd vocab: the scalar path
     assert torch.equal(ce_fwd_ids(odd, t.clamp(max=30520))[1],
                        ce_fwd_ids_reference(odd, t.clamp(max=30520))[1])
+
+
+def test_amsgrad_kernel_matches_plain_bit_for_bit(gen):
+    sizes = [(65536 + 3,), (30522,), (7, 5), (1,), (128, 768)]
+    leaves = [torch.randn(sz, device="cuda", generator=gen) for sz in sizes]
+    base = torch.randn(4097, device="cuda", generator=gen)
+    leaves.append(base[1:])  # 4-byte aligned only: the scalar path
+    grads = [1e-3 * torch.randn(p.shape, device="cuda", generator=gen) for p in leaves]
+    grads[1] = None
+    s = AdamScalars(*(float(torch.tensor(v, dtype=torch.float32)) for v in (
+        1e-3, 0.01, 0.9, 0.999, 1e-8, 0.1, 0.001, 0.1, 0.001)))
+    k = [[t.clone() for t in leaves]] + [[torch.rand_like(t) for t in leaves] for _ in range(3)]
+    p = [[t.clone() for t in group] for group in k]
+    before = amsgrad_update.launches
+    for _ in range(2):
+        amsgrad_update(*k[:1], grads, *k[1:], s)
+        for leaf in zip(p[0], grads, p[1], p[2], p[3]):
+            adam_update_reference(*leaf, s)
+    torch.cuda.synchronize()
+    assert amsgrad_update.launches == before + 2
+    for a, b in zip(sum(k, []), sum(p, [])):
+        assert torch.equal(a, b)
