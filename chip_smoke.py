@@ -16,10 +16,16 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    same weights;
 4. kernels vs plain, training: the layer forward in training mode (dropout
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
-   (self and cross) and the two CE kernels at the shapes of the batch-2048
-   bert-base training step, and layers whose weights make every keep mask
-   visible (self and cross heads, the three hidden sites, forward and
-   backward; held to the plain masks);
+   (self and cross) and the three CE kernels (#6, #7, #8) at the shapes of
+   the batch-2048 bert-base training step, and layers whose weights make
+   every keep mask visible (self and cross heads, the three hidden sites,
+   forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
+   forward, #8 backward) driven once through its autograd;
+4b. fused head + CE kernels vs plain: #9 and #10, store and flash, at the
+   step's head shapes (24,576 rows x 768 x 30,522, bf16) and at ragged rows
+   with an odd vocabulary; the table gradient's GEMM; each one's time beside
+   the plain one's, its bound and its library yardstick (cuBLAS + PyTorch
+   calls computing the same function, named as printed);
 5. AMSGrad (kernel #14) vs its plain version over the whole bert-base
    Shelgon3-VQ parameter list: 3 steps with weight decay, a milestone, a
    frozen subset left out and the gradient-less pooler, held bit for bit;
@@ -36,15 +42,21 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    (dropout 0.1 / 0.1, AMSGrad lr 1e-4) on one fixed batch through the
    kernels: launch counts per step (kernel #14 once, the plain update never),
    finite and falling loss, median step time, sentences/s and peak memory;
-9. gradients at batch 256: the kernel path's and the plain bf16 path's
-   gradients, each held against an f32 plain step on the same weights,
-   dropout and batch;
+   then 4 steps each with ``fused_head_ce`` "store" and "flash" from the
+   same weights and dropout (#9 and #10 once a step, #7 and #8 never), the
+   first step's loss held to the default path's;
+9. gradients at batch 256: the kernel path's, the plain bf16 path's and the
+   two fused-head kernel paths' gradients, each held against an f32 plain
+   step on the same weights, dropout and batch;
 10. training entry point: a small corpus generated into a temporary
    directory, then ``python -m kindergarten_vq_vae_torch.cli shelgon3`` (in
    process) trains the same full-width model at batch 2048 for 2 epochs, runs
    val and test, writes ``run_conf.json``, one best-val slot and
    ``history.json``; the launch counts of its train, val and test steps are
-   checked, and the run directory is served through ``Reconstructor``.
+   checked, and the run directory is served through ``Reconstructor``; then
+   a 1-epoch run with ``--set fused_head_ce='store'`` the same way (#9 once
+   a step and an eval batch, #10 once a step), served through the logits
+   path.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -95,6 +107,23 @@ PATH_SLACK, CODE_SLACK = 1.25, 0.01
 # (values ~15, f32 sums in another order), dlogits within 1e-2 of the
 # largest (one bf16 ulp).
 TRAIN_REL, CE_NLL_ABS, CE_GRAD_REL = 2e-2, 1e-4, 1e-2
+# fused head + CE (#9, #10) vs plain. The kernel's logits come from the wmma
+# GEMM, the plain ones from cuBLAS: f32 sums in another order, so a bf16 logit
+# may sit one ulp away at each of its two roundings (x @ E^T, then + b), at
+# most 2 ulps at the top of the range. The kernel's NLL / lse / ids are held
+# to the plain CE over its own logits (CE_NLL_ABS, ids exact); against the
+# plain version the NLL moves by at most 2 dl (dl = the largest logit
+# difference: lse and the target logit each by dl), and the ids must agree
+# wherever the plain top-2 logits are more than 2 dl apart, and on at least
+# HEAD_IDS_SHARE of all rows. Flash equals store bit for bit (the same code
+# computes each tile). The backward on the same logits: g within one bf16
+# ulp of its largest (CE_GRAD_REL), dx within TRAIN_REL of its largest,
+# dbias (f32 sums in another order) within HEAD_DBIAS_REL; the table
+# gradient (bf16 products summed in f32 in another order) within
+# HEAD_DTABLE_REL. The first fused-head training step's loss within
+# HEAD_LOSS_REL of the default path's on the same weights and dropout.
+HEAD_IDS_SHARE, HEAD_DBIAS_REL, HEAD_DTABLE_REL, HEAD_LOSS_REL = 0.99, 1e-3, 1e-4, 1e-3
+HEAD_MODES, FUSED_STEPS = ("store", "flash"), 4
 # the bias before each hidden site of the mask-visible layer: large enough
 # that VISIBLE_BIAS / (1 - 0.1) - mean stays above the O(1) LayerNorm input
 # it is added to in every row
@@ -156,7 +185,8 @@ def _rel_max(got, want) -> float:
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes under."""
     from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
-    from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd_ids
+    from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd, ce_fwd_ids
+    from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
         fused_bert_layer,
@@ -165,8 +195,9 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
     return {"layer_fwd": fused_bert_layer, "layer_bwd": layer_backward,
-            "attn_bwd": attention_backward, "vq": vector_quantize_kernel, "ce_fwd": ce_fwd_ids,
-            "ce_bwd": ce_bwd, "adam": amsgrad_update}
+            "attn_bwd": attention_backward, "vq": vector_quantize_kernel,
+            "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
+            "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update}
 
 
 def _counters() -> dict:
@@ -808,12 +839,16 @@ def phase_train_kernels() -> dict:
     """Each training kernel against its plain version at the shapes of the
     batch-2048 bert-base step, and its time beside the plain one's."""
     import torch
+    import torch.nn.functional as F
 
     from kindergarten_vq_vae_torch.ops.ce import (
         ce_bwd,
         ce_bwd_reference,
+        ce_fwd,
         ce_fwd_ids,
         ce_fwd_ids_reference,
+        ce_fwd_reference,
+        fused_ce_loss,
     )
     from kindergarten_vq_vae_torch.ops.dropout import cross_op
     from kindergarten_vq_vae_torch.ops.vq import vector_quantize
@@ -955,10 +990,30 @@ def phase_train_kernels() -> dict:
                                 lambda: ce_fwd_ids_reference(logits, t), 10)
         # max, subtract, exp, add per logit
         bound = _bound(4 * rows * VOCAB, _nbytes(logits, t, nll, ids), PEAK_F32)
-        res["ce_fwd"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms],
-                         "bound": [bound]}
-        print(f"ce fwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        res["ce_fwd_ids"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms],
+                             "bound": [bound]}
+        print(f"ce fwd ids: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})")
+
+        # #6: the NLL alone; one PyTorch call computes the same function
+        nll6 = ce_fwd(logits, t)
+        torch.cuda.synchronize()
+        err6 = (nll6 - ce_fwd_reference(logits, t)).abs().max().item()
+        same = torch.equal(nll6, nll)
+        lib_ce = F.cross_entropy(logits, t.long(), reduction="none")
+        print(f"ce fwd (#6) ({rows},{VOCAB}) bf16: nll max abs {err6:.3e} (tol {CE_NLL_ABS}), "
+              f"equal to #7's {same}; F.cross_entropy max abs "
+              f"{(lib_ce.float() - nll).abs().max().item():.3e} (bf16 out)")
+        if err6 > CE_NLL_ABS or not same:
+            _fail("CE forward kernel #6 disagrees with its plain version")
+        k_ms, p_ms = _paired_ms(lambda: ce_fwd(logits, t), lambda: ce_fwd_reference(logits, t), 10)
+        lib_ms = _time_ms(lambda: F.cross_entropy(logits, t.long(), reduction="none"), 10)
+        bound = _bound(4 * rows * VOCAB, _nbytes(logits, t, nll6), PEAK_F32)
+        res["ce_fwd"] = {"max_abs_err": err6, "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound],
+                         "library_ms": lib_ms,
+                         "library": "F.cross_entropy(reduction='none')"}
+        print(f"ce fwd (#6): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}), F.cross_entropy(reduction='none') {lib_ms:.4f} ms")
         lse = nll_p + logits.float().gather(1, t.long()[:, None])[:, 0]
         scale = torch.full((rows,), 1.0 / rows, device="cuda")
         got = ce_bwd(logits, t, lse, scale)
@@ -976,11 +1031,176 @@ def phase_train_kernels() -> dict:
                          "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound]}
         print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})")
-    del logits, got, want
+    del got, want
+
+    # fused_ce_loss through its autograd: #6 forward, #8 backward (no model path
+    # calls it, in the JAX package or here: this run is its path)
+    x3 = logits.view(TRAIN_BATCH, SEQ, VOCAB).detach().requires_grad_()
+    valid = torch.ones(TRAIN_BATCH, device="cuda")
+    _reset_counters()
+    loss = fused_ce_loss(x3, t.view(TRAIN_BATCH, SEQ), valid)
+    loss.backward()
+    torch.cuda.synchronize()
+    ce_loss_counts = _counters()
+    want_counts = {k: 0 for k in ce_loss_counts}
+    want_counts.update(ce_fwd=1, ce_bwd=1)
+    print(f"fused_ce_loss at ({TRAIN_BATCH},{SEQ},{VOCAB}): loss {loss.item():.4f}, launches "
+          f"{ce_loss_counts}")
+    if ce_loss_counts != want_counts or not _finite(x3.grad):
+        _fail(f"fused_ce_loss did not run #6 and #8 once each: {ce_loss_counts}")
+    del logits, x3, loss
     torch.cuda.empty_cache()
-    return {k: {"max_abs_err": v["max_abs_err"], "ms": statistics.mean(v["ms"]),
-                "plain_ms": statistics.mean(v["plain_ms"]), "bound": v["bound"]}
-            for k, v in res.items()}
+    out = {k: {"max_abs_err": v["max_abs_err"], "ms": statistics.mean(v["ms"]),
+               "plain_ms": statistics.mean(v["plain_ms"]), "bound": v["bound"],
+               "library_ms": v.get("library_ms"), "library": v.get("library")}
+           for k, v in res.items()}
+    out["ce_loss_launches"] = ce_loss_counts
+    return out
+
+
+def _head_case(g, rows: int, vocab: int):
+    """Operands of the fused head + CE at the bert-base width: x ~ N(0, 1) and
+    a 0.05-scale table give logits of std ~1.4, as a trained head's spread."""
+    import torch
+
+    x = torch.randn(rows, 768, device="cuda", generator=g).bfloat16()
+    table = (0.05 * torch.randn(vocab, 768, device="cuda", generator=g)).bfloat16()
+    bias = 0.1 * torch.randn(vocab, device="cuda", generator=g)
+    t = torch.randint(0, vocab, (rows,), device="cuda", generator=g, dtype=torch.int32)
+    return x, table, bias, t
+
+
+def phase_head_kernels(names: tuple[str, str]) -> dict:
+    """#9 and #10 (store and flash) against their plain versions at the step's
+    head shapes and at ragged rows with an odd vocabulary, the table
+    gradient's GEMM, and their times."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd_ids_reference, target_logits
+    from kindergarten_vq_vae_torch.ops.head_ce import (
+        head_ce_bwd,
+        head_ce_bwd_reference,
+        head_ce_fwd,
+        head_ce_fwd_reference,
+        table_grad,
+        table_grad_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    res = {}
+    for case, rows, vocab in (("step", TRAIN_BATCH * SEQ, VOCAB), ("ragged", 1037, VOCAB - 1)):
+        x, table, bias, t = _head_case(g, rows, vocab)
+        scale = torch.rand(rows, device="cuda", generator=g) / rows
+        with torch.no_grad():
+            fwd = {m: head_ce_fwd(x, table, bias, t, m) for m in HEAD_MODES}
+            torch.cuda.synchronize()
+            nll, lse, ids, logits = fwd["store"]
+            flash_same = all(torch.equal(a, b) for a, b in zip(fwd["store"][:3], fwd["flash"][:3]))
+            nll_p, _, ids_p, logits_p = head_ce_fwd_reference(x, table, bias, t, "store")
+            dl = (logits.float() - logits_p.float()).abs().max().item()
+            ulp_top = 2.0 ** (math.floor(math.log2(logits_p.float().abs().max().item())) - 7)
+            nll_own, ids_own = ce_fwd_ids_reference(logits, t)
+            lse_own = nll_own + target_logits(logits, t)
+            own_err = max((nll - nll_own).abs().max().item(), (lse - lse_own).abs().max().item())
+            top2 = logits_p.float().topk(2, dim=1).values
+            clear = top2[:, 0] - top2[:, 1] > 2 * dl
+            ids_clear = torch.equal(ids[clear], ids_p[clear])
+            ids_share = (ids == ids_p).float().mean().item()
+            nll_err = (nll - nll_p).abs().max().item()
+            ids_own_ok = torch.equal(ids, ids_own)
+            del top2, logits_p, nll_own, ids_own
+            print(f"head_ce_fwd {case} ({rows},768)x{vocab} bf16: logits max abs {dl:.3e} "
+                  f"(tol {2 * ulp_top:.3e}: 2 bf16 ulps at the top), nll/lse vs the plain CE over "
+                  f"its own logits {own_err:.3e} (tol {CE_NLL_ABS}), ids equal to it "
+                  f"{ids_own_ok}; vs plain: nll "
+                  f"{nll_err:.3e} (tol 2 dl), ids equal where the top-2 gap > 2 dl "
+                  f"({int(clear.sum())} of {rows} rows) {ids_clear}, in all {ids_share:.5f} "
+                  f"(tol {HEAD_IDS_SHARE}); flash = store bit for bit {flash_same}")
+            if not (dl <= 2 * ulp_top and own_err <= CE_NLL_ABS and nll_err <= 2 * dl + CE_NLL_ABS
+                    and ids_clear and ids_share >= HEAD_IDS_SHARE and flash_same and ids_own_ok):
+                _fail(f"fused head + CE forward disagrees with its plain version ({case})")
+
+            bwd = {m: head_ce_bwd(logits if m == "store" else x, table, bias, t, lse, scale, m)
+                   for m in HEAD_MODES}
+            torch.cuda.synchronize()
+            gk, dxk, dbk = bwd["store"]
+            bflash_same = all(torch.equal(a, b) for a, b in zip(bwd["store"], bwd["flash"]))
+            gp, dxp, dbp = head_ce_bwd_reference(logits, table, bias, t, lse, scale, "store")
+            ld = gk.stride(0)
+            pad_zero = bool((gk.as_strided((rows, ld), (ld, 1))[:, vocab:] == 0).all())
+            errs = {"g": _rel_max(gk, gp), "dx": _rel_max(dxk, dxp), "dbias": _rel_max(dbk, dbp)}
+            bwd_abs = max((a.float() - b.float()).abs().max().item()
+                          for a, b in ((gk, gp), (dxk, dxp), (dbk, dbp)))
+            del gp, dxp
+            dt = table_grad(gk, x)
+            torch.cuda.synchronize()
+            errs["d_table"] = _rel_max(dt, table_grad_reference(gk, x))
+            print(f"head_ce_bwd {case}: rel to the largest, g {errs['g']:.3e} (tol "
+                  f"{CE_GRAD_REL}), dx {errs['dx']:.3e} (tol {TRAIN_REL}), dbias "
+                  f"{errs['dbias']:.3e} (tol {HEAD_DBIAS_REL}), d_table {errs['d_table']:.3e} "
+                  f"(tol {HEAD_DTABLE_REL}); flash = store bit for bit {bflash_same}; g's row "
+                  f"{ld} wide, pad columns 0 {pad_zero}")
+            if not (errs["g"] <= CE_GRAD_REL and errs["dx"] <= TRAIN_REL
+                    and errs["dbias"] <= HEAD_DBIAS_REL and errs["d_table"] <= HEAD_DTABLE_REL
+                    and bflash_same and pad_zero and dbk.dtype == torch.float32
+                    and dt.dtype == torch.float32):
+                _fail(f"fused head + CE backward disagrees with its plain version ({case})")
+            if case != "step":
+                continue
+
+            # times at the step's shapes; bounds: the GEMMs' operations at the bf16
+            # peak against each input read and each output written once
+            flops = 2 * rows * vocab * 768
+            bias_c = bias.bfloat16()
+
+            def lib_fwd():
+                lg = torch.matmul(x, table.t()) + bias_c
+                return F.cross_entropy(lg, t.long(), reduction="none"), lg.argmax(1)
+
+            def lib_bwd():
+                gg = ce_bwd(logits, t, lse, scale)
+                return torch.matmul(gg, table), gg.sum(0, dtype=torch.float32)
+
+            lib_fwd_ms, lib_bwd_ms = _time_ms(lib_fwd, 10), _time_ms(lib_bwd, 10)
+            for m in HEAD_MODES:
+                saved = logits if m == "store" else x
+                k_ms, p_ms = _paired_ms(lambda m=m: head_ce_fwd(x, table, bias, t, m),
+                                        lambda m=m: head_ce_fwd_reference(x, table, bias, t, m), 10)
+                bound = _bound(flops, _nbytes(x, table, bias, t, fwd[m]), PEAK_BF16)
+                res[f"fwd_{m}"] = {
+                    "max_abs_err": max(own_err, nll_err), "ms": k_ms, "plain_ms": p_ms,
+                    "bound": [bound], "library_ms": lib_fwd_ms,
+                    "library": "cuBLAS head GEMM (torch.matmul) + bias + F.cross_entropy + argmax"}
+                print(f"head_ce_fwd {m}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}), cuBLAS head GEMM + F.cross_entropy + "
+                      f"argmax {lib_fwd_ms:.4f} ms")
+                k_ms, p_ms = _paired_ms(
+                    lambda m=m, saved=saved: head_ce_bwd(saved, table, bias, t, lse, scale, m),
+                    lambda m=m, saved=saved: head_ce_bwd_reference(saved, table, bias, t, lse,
+                                                                   scale, m), 10)
+                bound = _bound(flops * (2 if m == "flash" else 1),
+                               _nbytes(saved, table, bias, t, lse, scale, bwd[m]), PEAK_BF16)
+                res[f"bwd_{m}"] = {
+                    "max_abs_err": bwd_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+                    "library_ms": lib_bwd_ms,
+                    "library": "#8 + cuBLAS dgrad GEMM (torch.matmul) + column sum"}
+                print(f"head_ce_bwd {m}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}), #8 + cuBLAS dgrad GEMM + column sum "
+                      f"{lib_bwd_ms:.4f} ms")
+            k_ms, p_ms = _paired_ms(lambda: table_grad(gk, x), lambda: table_grad_reference(gk, x),
+                                    10)
+            wgrad_ms = _time_ms(lambda: torch.matmul(gk.t(), x), 10)
+            bound = _bound(flops, _nbytes(gk, x, dt), PEAK_BF16)
+            res["d_table"] = {"ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+                              "library_ms": wgrad_ms}
+            print(f"d_table (port wmma GEMM, f32 out): {k_ms:.4f} ms, plain (f32 torch.matmul) "
+                  f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), cuBLAS wgrad "
+                  f"torch.matmul(g.T, x) (bf16 out) {wgrad_ms:.4f} ms ({names[0]}; nvidia-smi: "
+                  f"{names[1]})")
+        del fwd, bwd, logits, gk, dxk, dbk, dt, x, table
+        torch.cuda.empty_cache()
+    return res
 
 
 def _train_cfg():
@@ -1027,32 +1247,40 @@ class _plain_update_refused:
         optim.adam_update_reference, optim.Adam.update, adam.adam_update_reference = self.saved
 
 
-def phase_train(names: tuple[str, str]) -> dict:
-    """The training slice; returns the kernels' launch counts over its steps."""
+def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAIN_STEPS) -> dict:
+    """The training slice (``head_ce``: its ``fused_head_ce``); returns the
+    kernels' launch counts over its steps and its losses."""
+    import dataclasses
+
     import torch
 
     from kindergarten_vq_vae_torch.models import build_model, init_weights
     from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
 
-    cfg = _train_cfg()
+    cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce)
+    fused = head_ce in HEAD_MODES
     torch.cuda.empty_cache()
-    model = build_model(cfg, device="cuda")
+    model = build_model(cfg, device="cuda", fused_head=fused)
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
     state = init_train_state(cfg, model)
     step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
     batch = _train_batch(TRAIN_BATCH)
     n_params = sum(p.numel() for p in model.parameters())
     # per step: 24 layer forwards (keeping residuals) and backwards; 24 self- and
-    # 12 cross-attention backwards inside them; one VQ, one CE forward, one CE
-    # backward, one AMSGrad update over every leaf
-    per_step = {"layer_fwd": 24, "layer_fwd_resid": 24, "layer_bwd": 24, "attn_bwd_self": 24,
-                "attn_bwd_cross": 12, "vq": 1, "ce_fwd": 1, "ce_bwd": 1, "adam": 1}
+    # 12 cross-attention backwards inside them; one VQ; the CE forward and
+    # backward (#7, #8) or, with the fused head, #9 and #10; one AMSGrad update
+    # over every leaf
+    per_step = {k: 0 for k in _counters()}
+    per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
+                    attn_bwd_cross=12, vq=1, adam=1)
+    per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1} if fused
+                    else {"ce_fwd_ids": 1, "ce_bwd": 1})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     with _plain_update_refused():
         _reset_counters()
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             before = _counters()
             t0 = time.perf_counter()
             state, aux = step(state, batch)
@@ -1061,33 +1289,34 @@ def phase_train(names: tuple[str, str]) -> dict:
             after = _counters()
             delta = {k: after[k] - before[k] for k in after}
             if delta != per_step:
-                _fail(f"train step {i} launched {delta}, expected {per_step}")
+                _fail(f"train step {i} ({head_ce}) launched {delta}, expected {per_step}")
             losses.append({k: float(aux[k]) for k in ("loss_full", "loss_recon", "loss_vq",
                                                        "metric_perp", "metric_acc")})
         counts = _counters()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
-    print(f"train slice: bert-base shelgon3-VQ, {n_params} parameters, batch {TRAIN_BATCH} x "
-          f"{SEQ}, dropout 0.1/0.1, AMSGrad lr 1e-4, {TRAIN_STEPS} steps; launches per step "
-          f"{per_step}, total {counts}")
+    print(f"train slice (fused_head_ce {head_ce!r}): bert-base shelgon3-VQ, {n_params} parameters, "
+          f"batch {TRAIN_BATCH} x {SEQ}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
+          f"launches per step {per_step}, total {counts}")
     for i, (loss, dt) in enumerate(zip(losses, times)):
         print(f"  step {i}: {json.dumps(loss)} {dt * 1e3:.1f} ms")
     full = [loss["loss_full"] for loss in losses]
     if not all(math.isfinite(v) for v in full) or full[-1] >= full[0]:
         _fail(f"train loss not finite or not falling: {full}")
-    if state.step != TRAIN_STEPS:
+    if state.step != steps:
         _fail(f"train state counted {state.step} steps")
-    print(f"train step: median {med * 1e3:.1f} ms over steps 1-{TRAIN_STEPS - 1}, "
-          f"{TRAIN_BATCH / med:.1f} sentences/s, max_memory_allocated "
+    print(f"train step (fused_head_ce {head_ce!r}): median {med * 1e3:.1f} ms over steps "
+          f"1-{steps - 1}, {TRAIN_BATCH / med:.1f} sentences/s, max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({names[0]}; nvidia-smi: {names[1]})")
     del state, model, step, aux
     torch.cuda.empty_cache()
-    return counts
+    return {"counts": counts, "losses": losses, "median_ms": med * 1e3, "peak_gib": peak / 2**30}
 
 
 def phase_grads() -> None:
-    """Batch-256 gradients of the kernel path and of the plain bf16 path, each
-    against an f32 plain step of the same weights, dropout seeds and batch."""
+    """Batch-256 gradients of the kernel path, of the plain bf16 path and of
+    the fused-head kernel paths (store, flash), each against an f32 plain
+    step (logits path) of the same weights, dropout seeds and batch."""
     import dataclasses
 
     import torch
@@ -1101,19 +1330,25 @@ def phase_grads() -> None:
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
     f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device="cuda")
     f32.load_state_dict(model.state_dict())
+    fused = build_model(cfg, device="cuda", fused_head=True)
+    fused.load_state_dict(model.state_dict())
 
-    def grads(m, reference):
+    def grads(m, reference, head_ce="auto"):
         for p in m.parameters():
             p.grad = None
-        loss, _ = make_loss_fn(cfg, "train", reference=reference)(
+        loss, _ = make_loss_fn(dataclasses.replace(cfg, fused_head_ce=head_ce), "train",
+                               reference=reference)(
             m, batch, torch.Generator(device="cuda").manual_seed(SEED + 2), False)
         loss.backward()
         return {n: p.grad.float() for n, p in m.named_parameters() if p.grad is not None}
 
     ref = grads(f32, True)
     stats = {}
-    for path, reference in (("kernel", False), ("plain", True)):
-        got = grads(model, reference)
+    paths = (("kernel", model, False, "auto"), ("plain", model, True, "auto"),
+             ("kernel, fused head store", fused, False, "store"),
+             ("kernel, fused head flash", fused, False, "flash"))
+    for path, m, reference, head_ce in paths:
+        got = grads(m, reference, head_ce)
         if got.keys() != ref.keys():
             _fail(f"{path} path: gradients reach other leaves than the f32 step")
         num = sum(((got[n] - ref[n]) ** 2).sum().item() for n in ref)
@@ -1126,17 +1361,19 @@ def phase_grads() -> None:
                        "worst_leaf": worst, "finite": finite}
     print(f"gradients at batch {GRAD_BATCH} vs an f32 plain step ({len(ref)} leaves): "
           f"{json.dumps(stats)}")
-    for what in ("global_rel_l2", "worst_leaf_rel_l2"):
-        if not stats["kernel"]["finite"] or (
-                stats["kernel"][what] > PATH_SLACK * stats["plain"][what]):
-            _fail(f"kernel-path gradients are further from f32 than the plain bf16 path ({what})")
-    del model, f32
+    for path in ("kernel", "kernel, fused head store", "kernel, fused head flash"):
+        for what in ("global_rel_l2", "worst_leaf_rel_l2"):
+            if not stats[path]["finite"] or stats[path][what] > PATH_SLACK * stats["plain"][what]:
+                _fail(f"{path} path: gradients further from f32 than the plain bf16 path ({what})")
+    del model, f32, fused
     torch.cuda.empty_cache()
 
 
-def phase_engine(names: tuple[str, str]) -> dict:
-    """The training entry point: the CLI on a generated corpus, its run
-    directory, its launch counts, and the run directory served."""
+def phase_engine(names: tuple[str, str], head_ce: str = "auto",
+                 epochs: int = ENGINE_EPOCHS) -> dict:
+    """The training entry point: the CLI on a generated corpus (``--set
+    fused_head_ce`` when ``head_ce`` is not "auto"), its run directory, its
+    launch counts, and the run directory served (through the logits path)."""
     import numpy as np
     import torch
 
@@ -1154,16 +1391,18 @@ def phase_engine(names: tuple[str, str]) -> dict:
         t_data = time.perf_counter() - t0
         # the JAX package's defaults are the full-width bf16 Shelgon3-VQ run
         # (dropout 0.1 / 0.1, AMSGrad lr 1e-4, fused_update "auto")
-        sets = {"n_epochs": ENGINE_EPOCHS, "batch_size": TRAIN_BATCH, "data_dir": data_dir,
+        sets = {"n_epochs": epochs, "batch_size": TRAIN_BATCH, "data_dir": data_dir,
                 "runs_dir": runs_dir, "tokenized_sentence_max_length": SEQ,
                 "lim_batches_train_pct": ENGINE_TRAIN_PCT, "ckpt_every_n_epochs": 0,
                 "ckpt_slots": ("loss_recon:val",), "seed": SEED}
+        if head_ce != "auto":
+            sets["fused_head_ce"] = head_ce
         argv = ["shelgon3", "--device", "cuda"]
         for k, v in sets.items():
             argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
         n_train, n_val = int(n * 0.6), int(n * 0.2)
-        steps = ENGINE_EPOCHS * int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
-        evals = ENGINE_EPOCHS * -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
+        steps = epochs * int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
+        evals = epochs * -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
         torch.cuda.empty_cache()
         with _plain_update_refused():
             _reset_counters()
@@ -1172,9 +1411,14 @@ def phase_engine(names: tuple[str, str]) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _counters()
-        want = {"layer_fwd": 24 * (steps + evals), "layer_fwd_resid": 24 * steps,
-                "layer_bwd": 24 * steps, "attn_bwd_self": 24 * steps, "attn_bwd_cross": 12 * steps,
-                "vq": steps + evals, "ce_fwd": steps + evals, "ce_bwd": steps, "adam": steps}
+        want = {k: 0 for k in counts}
+        want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps,
+                    layer_bwd=24 * steps, attn_bwd_self=24 * steps, attn_bwd_cross=12 * steps,
+                    vq=steps + evals, adam=steps)
+        if head_ce in HEAD_MODES:
+            want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps)
+        else:
+            want.update(ce_fwd_ids=steps + evals, ce_bwd=steps)
         print(f"engine: python -m kindergarten_vq_vae_torch.cli {' '.join(argv)}: {wall:.1f} s "
               f"(corpus of {n} sentences made in {t_data:.1f} s); {steps} train steps, {evals} "
               f"eval batches; launches {counts} (expected {want})")
@@ -1192,11 +1436,12 @@ def phase_engine(names: tuple[str, str]) -> dict:
         print(f"engine run directory {os.path.basename(run)}: {files}")
         if not (conf["model_name"] == "shelgon3" and conf["hidden_size"] == 768
                 and conf["num_layers"] == 12 and conf["vocab_size"] == VOCAB
-                and conf["batch_size"] == TRAIN_BATCH and conf["run_id"] == os.path.basename(run)):
+                and conf["batch_size"] == TRAIN_BATCH and conf["run_id"] == os.path.basename(run)
+                and conf["fused_head_ce"] == head_ce):
             _fail(f"run_conf.json does not describe the run: {conf}")
         if tree["vector_quantizer"]["codebook"].shape != (9, 768):
             _fail("the best-val slot does not hold the model")
-        if [sorted(h) for h in history] != ([["epoch", "train", "val"]] * ENGINE_EPOCHS
+        if [sorted(h) for h in history] != ([["epoch", "train", "val"]] * epochs
                                             + [["epoch", "test"]]):
             _fail(f"history.json has other entries than the run's stages: {history}")
         stats = [h[stage] for h in history for stage in ("train", "val", "test") if stage in h]
@@ -1223,14 +1468,18 @@ def phase_engine(names: tuple[str, str]) -> dict:
         recon = rec.reconstruct(sentences)
         codes = rec.codes(sentences)
         served = _counters()
+        want_served = {k: 0 for k in served}
+        want_served.update(layer_fwd=48, vq=2)  # two forwards: /reconstruct and /codes
         if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
                 or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
                            for r in recon)
-                or served["layer_fwd"] != 48 or served["layer_fwd_resid"] != 0):
+                or served != want_served or rec.model.decoder.mlm_head.cfg.fused_head):
             _fail(f"serving the trained run failed: {recon} {served}")
-        print(f"engine run served through Reconstructor: {recon[0]}")
+        print(f"engine run (fused_head_ce {head_ce!r}) served through Reconstructor (logits "
+              f"path, launches {served}): {recon[0]}")
         train = [h["train"] for h in history if "train" in h]
-        print(f"engine: train {statistics.mean(t['sentences_per_sec'] for t in train):.1f} "
+        print(f"engine (fused_head_ce {head_ce!r}): train "
+              f"{statistics.mean(t['sentences_per_sec'] for t in train):.1f} "
               f"sentences/s (steady state, mean of {len(train)} epochs), stage wall times "
               f"{[round(st['stage_wall_s'], 3) for st in stats]} s ({names[0]}; nvidia-smi: "
               f"{names[1]})")
@@ -1250,11 +1499,24 @@ def main() -> None:
     phase_build()
     kern = phase_kernels()
     tk = phase_train_kernels()
+    hk = phase_head_kernels(names)
     adam = phase_adam(names)
     sl = phase_slice(names)
-    n = phase_train(names)
+    tr = {"auto": phase_train(names)}
+    for mode in HEAD_MODES:
+        tr[mode] = phase_train(names, mode, FUSED_STEPS)
+        first, want = tr[mode]["losses"][0]["loss_full"], tr["auto"]["losses"][0]["loss_full"]
+        rel = abs(first - want) / abs(want)
+        print(f"fused head {mode}: first-step loss {first:.6f}, default path {want:.6f}, rel "
+              f"{rel:.2e} (tol {HEAD_LOSS_REL}); step {tr[mode]['median_ms']:.1f} ms vs "
+              f"{tr['auto']['median_ms']:.1f} ms, peak {tr[mode]['peak_gib']:.2f} GiB vs "
+              f"{tr['auto']['peak_gib']:.2f} GiB ({names[0]}; nvidia-smi: {names[1]})")
+        if rel > HEAD_LOSS_REL:
+            _fail(f"the fused head ({mode}) changes the first step's loss")
     phase_grads()
     eng = phase_engine(names)
+    eng_store = phase_engine(names, "store", 1)
+    n = tr["auto"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"
 
     def row(name, source, replaces, launches, m):
@@ -1264,11 +1526,12 @@ def main() -> None:
                 "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
-                "library_ms": m.get("library_ms")}
+                "library_ms": m.get("library_ms"), "library": m.get("library")}
 
     # serving rows: per call at bucket 256, the mean of one encoder-geometry and
     # one decoder-geometry layer, launches from the HTTP run; training rows: at
-    # batch 2048, launches from the training slice's run; amsgrad_update: over
+    # batch 2048, launches from the training slice's run (the fused head's from
+    # its own mode's run, #6's from the fused_ce_loss run); amsgrad_update: over
     # the whole parameter list, launches from the training entry point's run
     table = {"kernels": [
         row("fused_bert_layer", "layer_fwd.cu", "layer_pallas.py:489", sl["launches"]["layer"],
@@ -1285,10 +1548,16 @@ def main() -> None:
             n["attn_bwd_cross"], tk["attn_bwd_cross"]),
         row("vector_quantize_kernel (training)", "vq_fwd.cu", "vq_pallas.py:41", n["vq"],
             tk["vq"]),
-        row("ce_fwd_ids", "ce.cu", "ce_pallas.py:63", n["ce_fwd"], tk["ce_fwd"]),
+        row("ce_fwd", "ce.cu", "ce_pallas.py:34", tk["ce_loss_launches"]["ce_fwd"], tk["ce_fwd"]),
+        row("ce_fwd_ids", "ce.cu", "ce_pallas.py:63", n["ce_fwd_ids"], tk["ce_fwd_ids"]),
         row("ce_bwd", "ce.cu", "ce_pallas.py:104", n["ce_bwd"], tk["ce_bwd"]),
+        *[row(f"head_ce_fwd ({m})", "head_ce.cu", "head_ce_pallas.py:67",
+              tr[m]["counts"]["head_ce_fwd"], hk[f"fwd_{m}"]) for m in HEAD_MODES],
+        *[row(f"head_ce_bwd ({m})", "head_ce.cu", "head_ce_pallas.py:179",
+              tr[m]["counts"]["head_ce_bwd"], hk[f"bwd_{m}"]) for m in HEAD_MODES],
         row("amsgrad_update", "adam.cu", "adam_pallas.py:46", eng["adam"], adam),
     ]}
+    print(f"engine launches, default run {eng}, store run {eng_store}")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@ once, and the objects are linked into one shared library with a plain C
 interface under ``build/`` (next to this file), loaded with :mod:`ctypes`.
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc`` or a card. The library is rebuilt when
-a source or header is newer than it. A failed build raises.
+a source or header is newer than it. A failed build raises. The wrappers
+check their tensors with :func:`check_tensor` and call an entry point with
+:func:`launch`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -108,3 +112,29 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().kvq_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_tensor(name, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, 16-byte aligned when bf16 (the GEMMs load 16-byte chunks)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dtype == torch.bfloat16 and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the GEMM loads 16-byte chunks)")
+
+
+def launch(name: str, argtypes: list, *args, device) -> None:
+    """Call the C entry point ``name`` with ``args`` (``argtypes`` their
+    ctypes types) and, last, the current CUDA stream of ``device``; raise on
+    a CUDA error."""
+    fn = getattr(lib(), name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), name)

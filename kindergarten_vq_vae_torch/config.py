@@ -70,7 +70,7 @@ class RunConfig:
     vq_straight_through: bool = False
     vq_use_fused: object = "auto"
     fused_ce: bool = True
-    fused_head_ce: str = "auto"  # "auto" | "off" here; "store" / "flash" are refused
+    fused_head_ce: str = "auto"  # "auto" | "off" | "store" | "flash"; "auto" is off here
     head_ce_block_r: int = 512
     head_ce_block_v: int = 1024
     fused_attn: str = "auto"
@@ -203,8 +203,6 @@ def refuse_unported(cfg: RunConfig) -> None:
          f"vq_mode={cfg.vq_mode!r}", "modules to port: item 7, ops/gumbel.py"),
         ("gpt" in cfg.decoder_model_name,
          "the GPT-2 decoder", "modules to port: item 7, nn/gpt2.py"),
-        (cfg.fused_head_ce in ("store", "flash"),
-         f"fused_head_ce={cfg.fused_head_ce!r}", "TPU kernels: #9 and #10"),
         (bool(cfg.mesh_shape),
          f"mesh_shape={tuple(cfg.mesh_shape)}", "modules to port: item 10, multi-device"),
     )

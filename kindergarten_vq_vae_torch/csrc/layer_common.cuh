@@ -1,7 +1,8 @@
-// Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu):
-// the GELU of the JAX package (`_gelu_fwd` / `_gelu_grad`,
-// ops/layer_pallas.py:214/221), warp reductions, cp.async, and the
-// backward's bf16 tensor-core GEMM with its fused epilogues.
+// Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu)
+// and the fused head + CE kernels (head_ce.cu): the GELU of the JAX package
+// (`_gelu_fwd` / `_gelu_grad`, ops/layer_pallas.py:214/221), warp
+// reductions, cp.async, and the backward's bf16 tensor-core GEMM with its
+// fused epilogues (its mainloop also a device function of its own).
 //
 // The GEMM is wmma 16x16x16 (bf16 operands, f32 accumulate) on a 128x128x32
 // block tile, 8 warps of 64x32, with a two-stage cp.async pipeline: the
@@ -152,37 +153,44 @@ __device__ __forceinline__ void epilogue_store(const GemmEpi& e, int M, int gr, 
   }
 }
 
-// C[M, N] = epi(op(A) @ op(B)) over k in [blockIdx.z * kchunk, +kchunk) ∩ [0, K).
+// Shared-memory operand tiles of the mainloop below, in bf16 elements.
+template <bool A_T, bool B_T>
+struct GemmTiles {
+  static constexpr int A_LD = A_T ? BM + PAD : BK + PAD;
+  static constexpr int A_TILE = A_T ? BK * A_LD : BM * A_LD;
+  static constexpr int B_LD = B_T ? BK + PAD : BN + PAD;
+  static constexpr int B_TILE = B_T ? BN * B_LD : BK * B_LD;
+  static constexpr int ELEMS = STAGES * (A_TILE + B_TILE);
+};
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
+
+// The GEMM's mainloop: acc = op(A)[m0 + BM rows] @ op(B)[n0 + BN columns]
+// over k in [kbeg, kend), each warp its WM x WN tile at (warp / WARPS_N,
+// warp % WARPS_N), through smem (GemmTiles<A_T, B_T>::ELEMS bf16).
 // A_T = false: A (M, K) row-major, element (m, k) at A[m * lda + k].
 // A_T = true:  A stored (K, M) row-major, element (m, k) at A[k * lda + m].
 // B_T = false: B (K, N) row-major;  B_T = true: B stored (N, K) row-major.
 // The contiguous dimension of each operand must be a multiple of 8 and its
-// rows 16-byte aligned (checked by the host). The epilogue is a template
-// argument, so each instantiation carries only its own; only the split-K
-// partial product reads kchunk. Two CTAs per SM: 128 registers a thread.
-template <bool A_T, bool B_T, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, GemmEpi e,
-            int M, int N, int K, int kchunk) {
-  constexpr int A_LD = A_T ? BM + PAD : BK + PAD;
-  constexpr int A_TILE = A_T ? BK * A_LD : BM * A_LD;
-  constexpr int B_LD = B_T ? BK + PAD : BN + PAD;
-  constexpr int B_TILE = B_T ? BN * B_LD : BK * B_LD;
-  static_assert(STAGES * (A_TILE + B_TILE) * 2 >= GEMM_THREADS / 32 * 256 * 4, "epilogue scratch");
-  __shared__ __align__(128) bf16 smem[STAGES * (A_TILE + B_TILE)];
+// rows 16-byte aligned (checked by the host); rows and columns past M, N
+// and kend load as zeros. Returns after a barrier that follows the last read
+// of smem, so the caller may reuse it.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void gemm_mainloop(bf16* smem, AccFrag (&acc)[FM][FN],
+                                              const bf16* __restrict__ A, int lda,
+                                              const bf16* __restrict__ B, int ldb, int M, int N,
+                                              int m0, int n0, int kbeg, int kend) {
+  typedef GemmTiles<A_T, B_T> T;
+  constexpr int A_LD = T::A_LD, A_TILE = T::A_TILE, B_LD = T::B_LD, B_TILE = T::B_TILE;
   bf16* As = smem;
   bf16* Bs = smem + STAGES * A_TILE;
 
   typedef typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type ALayout;
   typedef typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type BLayout;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = EPI == EPI_PARTIAL ? blockIdx.z * kchunk : 0;
-  const int kend = EPI == EPI_PARTIAL ? min(K, kbeg + kchunk) : K;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -256,6 +264,27 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+}
+
+// C[M, N] = epi(op(A) @ op(B)) over k in [blockIdx.z * kchunk, +kchunk) ∩ [0, K),
+// operands as gemm_mainloop. The epilogue is a template argument, so each
+// instantiation carries only its own; only the split-K partial product reads
+// kchunk. Two CTAs per SM: 128 registers a thread.
+template <bool A_T, bool B_T, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, GemmEpi e,
+            int M, int N, int K, int kchunk) {
+  static_assert(GemmTiles<A_T, B_T>::ELEMS * 2 >= GEMM_THREADS / 32 * 256 * 4, "epilogue scratch");
+  __shared__ __align__(128) bf16 smem[GemmTiles<A_T, B_T>::ELEMS];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kbeg = EPI == EPI_PARTIAL ? blockIdx.z * kchunk : 0;
+  const int kend = EPI == EPI_PARTIAL ? min(K, kbeg + kchunk) : K;
+
+  AccFrag acc[FM][FN];
+  gemm_mainloop<A_T, B_T>(smem, acc, A, lda, B, ldb, M, N, m0, n0, kbeg, kend);
 
   // epilogue: one 16x16 fragment at a time through a per-warp f32 scratch
   // that reuses the operand tiles' shared memory

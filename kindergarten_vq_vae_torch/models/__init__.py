@@ -17,8 +17,9 @@ from kindergarten_vq_vae_torch.nn.bert import BertConfig
 __all__ = ["Bagon", "Shelgon3", "bert_configs", "build_model", "init_weights"]
 
 
-def bert_configs(cfg: RunConfig) -> tuple[BertConfig, BertConfig]:
-    """(encoder, decoder) BertConfigs of a run."""
+def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, BertConfig]:
+    """(encoder, decoder) BertConfigs of a run; ``fused_head``: the decoder
+    hands the fused head + CE its inputs instead of logits."""
     if "gpt" in cfg.decoder_model_name:
         raise NotImplementedError(
             "the GPT-2 decoder is not ported yet (ROADMAP, modules to port: item 7, nn/gpt2.py)")
@@ -30,13 +31,17 @@ def bert_configs(cfg: RunConfig) -> tuple[BertConfig, BertConfig]:
     )
     enc = BertConfig(add_pooler=True, **common)
     dec = BertConfig(is_decoder=True, add_cross_attention=True, add_pooler=False,
+                     fused_head=fused_head,
                      **{**common, "vocab_size": cfg.decoder_vocab_size or cfg.vocab_size})
     return enc, dec
 
 
-def build_model(cfg: RunConfig, device=None) -> nn.Module:
-    """The run's model with uninitialised parameters on ``device``."""
-    enc, dec = bert_configs(cfg)
+def build_model(cfg: RunConfig, device=None, fused_head: bool = False) -> nn.Module:
+    """The run's model with uninitialised parameters on ``device``. With
+    ``fused_head`` its output carries the fused head + CE's inputs in place of
+    the logits (the training and eval steps of a ``fused_head_ce`` run);
+    the parameters are the same either way."""
+    enc, dec = bert_configs(cfg, fused_head)
     if cfg.model_name == "bagon":
         return Bagon(enc, dec, device)
     if cfg.model_name == "shelgon3":

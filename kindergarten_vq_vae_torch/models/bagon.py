@@ -11,6 +11,10 @@ from torch import nn
 
 from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel
 
+# decoder-output keys forwarded by every model: the plain logits, or the
+# fused-head triple that ops/head_ce.fused_head_ce_loss consumes
+HEAD_KEYS = ("logits", "mlm_hidden", "head_table", "head_bias")
+
 
 class Bagon(nn.Module):
     def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, device=None):
@@ -27,7 +31,7 @@ class Bagon(nn.Module):
                            encoder_hidden_states=enc["last_hidden_state"], reference=reference,
                            deterministic=deterministic, generator=generator)
         return {
-            "logits": dec["logits"],
+            **{k: dec[k] for k in HEAD_KEYS if k in dec},
             "encoder_last_hidden_state": enc["last_hidden_state"],
             "encoder_pooler_output": enc["pooler_output"],
         }

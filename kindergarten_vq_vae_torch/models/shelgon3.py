@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS
 from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel
 from kindergarten_vq_vae_torch.ops.vq import VQOutput, vector_quantize
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
@@ -66,7 +67,7 @@ class Shelgon3(nn.Module):
         dec = self.decoder(dec_ids, attention_mask, encoder_hidden_states=vq.z_q,
                            reference=reference, deterministic=deterministic, generator=generator)
         return {
-            "logits": dec["logits"],
+            **{k: dec[k] for k in HEAD_KEYS if k in dec},
             "vq_loss": vq.loss,
             "perplexity": vq.perplexity,
             "min_encoding_indices": vq.indices,

@@ -3,7 +3,8 @@
 Counterpart of ``kindergarten_vq_vae_tpu/nn/bert.py`` on its fused-trunk
 path (``_fused_trunk`` l.366-466): embeddings + LayerNorm (+ dropout), one
 :func:`~kindergarten_vq_vae_torch.ops.layer.fused_bert_layer` call per layer,
-the pooler, and the MLM head with the tied 2-D vocab matmul.
+the pooler, and the MLM head with the tied 2-D vocab matmul or, with
+``fused_head`` (l.602-611 and l.659-666), its transform alone.
 
 Training (``deterministic=False``) draws one int32 seed per layer for the
 layers' hash dropout from an explicit :class:`torch.Generator` over the
@@ -56,6 +57,9 @@ class BertConfig:
     add_pooler: bool = True
     tie_word_embeddings: bool = True
     gelu_exact: bool = True
+    # the decoder returns the MLM transform's output, the tied table and the
+    # head bias for the fused head + CE (ops/head_ce.py) instead of logits
+    fused_head: bool = False
     dtype: torch.dtype = torch.float32  # compute dtype; parameters are always f32
 
     @property
@@ -239,11 +243,15 @@ class BertMLMHead(nn.Module):
         if not cfg.tie_word_embeddings:
             self.decoder_kernel = _f32((cfg.hidden_size, cfg.vocab_size), device)
 
-    def forward(self, x: torch.Tensor, word_embedding_table: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, word_embedding_table: torch.Tensor, project: bool = True):
+        """The (B, S, V) logits; with ``project=False`` the transformed hidden
+        states and the f32 bias instead (the fused head + CE projects)."""
         cfg, dtype = self.cfg, self.cfg.dtype
         x = self.transform_dense(x, dtype)
         x = F.gelu(x.float(), approximate="none" if cfg.gelu_exact else "tanh").to(dtype)
         x = self.transform_layer_norm(x, dtype)
+        if not project:
+            return x, self.decoder_bias
         kernel = word_embedding_table.T if cfg.tie_word_embeddings else self.decoder_kernel
         # the vocab projection as one 2-D matmul over all rows
         b, s, h = x.shape
@@ -252,7 +260,10 @@ class BertMLMHead(nn.Module):
 
 
 class BertLMHeadModel(nn.Module):
-    """BertModel (no pooler) + MLM head: the decoder of the encoder-decoder pair."""
+    """BertModel (no pooler) + MLM head: the decoder of the encoder-decoder
+    pair. Its output holds ``logits``, or with ``cfg.fused_head``
+    ``mlm_hidden``, ``head_table`` (the f32 tied table) and ``head_bias``;
+    the parameters are the same either way."""
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
@@ -267,5 +278,12 @@ class BertLMHeadModel(nn.Module):
                         encoder_attention_mask, reference=reference, deterministic=deterministic,
                         generator=generator)
         table = self.bert.embeddings.word_embeddings.embedding
-        out["logits"] = self.mlm_head(out["last_hidden_state"], table)
+        if self.mlm_head.cfg.fused_head:
+            if not self.mlm_head.cfg.tie_word_embeddings:
+                raise ValueError("fused_head needs the tied word table")
+            out["mlm_hidden"], out["head_bias"] = self.mlm_head(out["last_hidden_state"], table,
+                                                                project=False)
+            out["head_table"] = table
+        else:
+            out["logits"] = self.mlm_head(out["last_hidden_state"], table)
         return out

@@ -423,19 +423,6 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_tensor(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if dtype == torch.bfloat16 and t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary (the GEMM loads 16-byte chunks)")
-
-
 def _check_call(geom: LayerGeom, seed) -> None:
     for what, rate in (("attn_rate", geom.attn_rate), ("hid_rate", geom.hid_rate)):
         if not 0.0 <= rate < 1.0:
@@ -454,30 +441,30 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
         raise ValueError(f"x width {H} != num_heads * head_dim = {geom.hidden}")
     if geom.head_dim > MAX_HEAD_DIM or H % 8 or geom.intermediate % 8:
         raise ValueError("the layer kernels need head_dim <= 128 and widths divisible by 8")
-    _check_tensor("x", x, (b, s, H), torch.bfloat16, dev)
+    _build.check_tensor("x", x, (b, s, H), torch.bfloat16, dev)
     names = _names(geom)
     if len(weights) != len(names):
         raise ValueError(f"expected {len(names)} weights ({names}), got {len(weights)}")
     W = dict(zip(names, weights))
     for n, shape in geom.weight_shapes().items():
         # matmul kernels in bf16; biases and LayerNorm parameters stay f32
-        _check_tensor(n, W[n], shape, torch.bfloat16 if n.startswith("w") else torch.float32, dev)
+        _build.check_tensor(n, W[n], shape, torch.bfloat16 if n.startswith("w") else torch.float32, dev)
     sk = s
     if geom.has_cross:
         if enc is None:
             raise ValueError("a decoder layer needs enc")
         sk = enc.shape[1]
-        _check_tensor("enc", enc, (b, sk, H), torch.bfloat16, dev)
+        _build.check_tensor("enc", enc, (b, sk, H), torch.bfloat16, dev)
     elif enc is not None:
         raise ValueError("enc given to a layer without cross-attention")
     if s > MAX_SEQ or sk > MAX_SEQ or s == 0 or b == 0:
         raise ValueError(f"sequence lengths must be in 1..{MAX_SEQ}, got {s} and {sk}")
     if smask is not None:
-        _check_tensor("smask", smask, (b, s), torch.int32, dev)
+        _build.check_tensor("smask", smask, (b, s), torch.int32, dev)
     if cmask is not None:
         if not geom.has_cross:
             raise ValueError("cmask given to a layer without cross-attention")
-        _check_tensor("cmask", cmask, (b, sk), torch.int32, dev)
+        _build.check_tensor("cmask", cmask, (b, sk), torch.int32, dev)
     return sk
 
 
@@ -564,12 +551,12 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
     if H % nh or H // nh > MAX_HEAD_DIM or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
         raise ValueError(f"attention_backward takes head_dim <= {MAX_HEAD_DIM} and "
                          f"sequences of 1..{MAX_SEQ}")
-    _check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), torch.bfloat16, dev)
-    _check_tensor("g_ctx", g_ctx, (b, sq, H), torch.bfloat16, dev)
+    _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), torch.bfloat16, dev)
+    _build.check_tensor("g_ctx", g_ctx, (b, sq, H), torch.bfloat16, dev)
     if cross:
-        _check_tensor("kv", kv, (b, sk, 2 * H), torch.bfloat16, dev)
+        _build.check_tensor("kv", kv, (b, sk, 2 * H), torch.bfloat16, dev)
     if key_mask is not None:
-        _check_tensor("key_mask", key_mask, (b, sk), torch.int32, dev)
+        _build.check_tensor("key_mask", key_mask, (b, sk), torch.int32, dev)
     if cross:
         dq = torch.empty((b, sq, H), dtype=torch.bfloat16, device=dev)
         dkv = torch.empty((b, sk, 2 * H), dtype=torch.bfloat16, device=dev)

@@ -63,6 +63,7 @@ from kindergarten_vq_vae_torch.train.variants import (
     BEST_MODES,
     CKPT_KEYS,
     STAT_KEYS,
+    _resolve_head_ce,
     load_codebook_init,
     make_loss_fn,
 )
@@ -101,7 +102,10 @@ class Engine:
             raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the CUDA kernels take "
                              "bfloat16 only (ROADMAP, Open items)")
 
-        model = build_model(cfg, device=self.device)
+        # the training and eval steps share the model: built for the fused
+        # head + CE when the run asks for it (a served run takes the logits)
+        self._fused_head = _resolve_head_ce(cfg) is not None
+        model = build_model(cfg, device=self.device, fused_head=self._fused_head)
         if params is not None:
             state = params_from_jax(params) if "encoder" in params else params
             model.load_state_dict(state, strict=True)
@@ -388,7 +392,7 @@ class Engine:
             path = os.path.join(self.run_path,
                                 best_ckpt_name(self.model_name, "loss_recon", "val"))
             if os.path.exists(path):
-                model = build_model(self.cfg, device=self.device)
+                model = build_model(self.cfg, device=self.device, fused_head=self._fused_head)
                 load_params(model, path)
         stats = self._run_stage("test", self._iterators()["test"], self.cfg.n_epochs,
                                 self.cfg.decode_dump, model)

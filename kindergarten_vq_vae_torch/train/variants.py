@@ -3,6 +3,7 @@
 Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` (l.149-154,
 l.219-459): ``loss_fn(model, batch, generator, deterministic) -> (loss, aux)``
 for Bagon and Shelgon3 (VectorQuantizer mode), with ``_recon`` choosing the
+fused head + CE + argmax (``fused_head_ce`` "store" / "flash"), the
 streaming CE + argmax (``fused_ce``, the single-device default) or
 ``kl_recon_loss`` + argmax, ``_valid_row`` weighting by ``n_valid``, and the
 JAX package's ``aux`` keys. ``batch`` holds ``input_ids`` /
@@ -25,6 +26,7 @@ import torch
 
 from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported
 from kindergarten_vq_vae_torch.ops.ce import fused_ce_loss_ids
+from kindergarten_vq_vae_torch.ops.head_ce import fused_head_ce_loss
 from kindergarten_vq_vae_torch.train.losses import kl_recon_loss
 from kindergarten_vq_vae_torch.utils.metrics import padding_tokens_pct, seq_acc
 from kindergarten_vq_vae_torch.utils.tensor import replace_pct_rand_values
@@ -65,9 +67,22 @@ def _valid_row(batch) -> torch.Tensor:
     return (torch.arange(b, device=batch["input_ids"].device) < batch["n_valid"]).float()
 
 
+def _resolve_head_ce(cfg: RunConfig) -> str | None:
+    """The fused head + CE mode of the loss path, or None for the logits path
+    (JAX l.70-93). It needs a BERT decoder with tied embeddings; "store" and
+    "flash" are honoured on any device. JAX resolves "auto" to "store" only
+    under a TPU mesh, which the port does not have, so "auto" is None here."""
+    if "gpt" in cfg.decoder_model_name or not cfg.tie_word_embeddings:
+        return None
+    return cfg.fused_head_ce if cfg.fused_head_ce in ("store", "flash") else None
+
+
 def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callable:
     """The loss function of a stage ('train' | 'val' | 'test'). ``reference``
-    runs every kernel's plain version (the comparison baseline on the card)."""
+    runs every kernel's plain version (the comparison baseline on the card).
+    Where :func:`_resolve_head_ce` gives a mode, the model must be built with
+    ``build_model(cfg, fused_head=True)``, as JAX's ``make_loss_fn`` builds
+    its own (l.229-230)."""
     refuse_unported(cfg)
     name = cfg.model_name
     if name not in STAT_KEYS:
@@ -77,8 +92,19 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
     dec_vocab = cfg.decoder_vocab_size or vocab
     enc_pct = getattr(cfg, f"encoder_perturb_{stage}_pct")
     dec_pct = getattr(cfg, f"decoder_perturb_{stage}_pct")
+    head_mode = _resolve_head_ce(cfg)
 
-    def _recon(logits, target_ids, valid):
+    def _recon(out, target_ids, valid):
+        """(loss_recon, recon_ids): the fused head + CE + argmax when its mode
+        is set, else the streaming CE + argmax over the logits, else
+        ``kl_recon_loss`` and an argmax (JAX l.246-261)."""
+        if head_mode is not None:
+            if "mlm_hidden" not in out:
+                raise ValueError(f"fused_head_ce={cfg.fused_head_ce!r} needs a model built with "
+                                 "build_model(cfg, fused_head=True)")
+            return fused_head_ce_loss(out["mlm_hidden"], out["head_table"], out["head_bias"],
+                                      target_ids, valid, mode=head_mode, reference=reference)
+        logits = out["logits"]
         if cfg.fused_ce:
             return fused_ce_loss_ids(logits, target_ids, valid, reference)
         return kl_recon_loss(logits, target_ids, valid), torch.argmax(logits, -1)
@@ -92,7 +118,7 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
         out = model(enc_ids, batch["attention_mask"], dec_ids, dec_mask,
                     reference=reference, deterministic=deterministic, generator=generator)
         target_ids = dec_src if cfg.bagon_target_unperturbed else dec_ids
-        loss_recon, recon_ids = _recon(out["logits"], target_ids, valid)
+        loss_recon, recon_ids = _recon(out, target_ids, valid)
         acc, acc_per_sentence = seq_acc(recon_ids, target_ids)
         aux = {
             "loss_recon": loss_recon,
@@ -114,7 +140,7 @@ def make_loss_fn(cfg: RunConfig, stage: str, reference: bool = False) -> Callabl
         out = model(ids, batch["attention_mask"], reference=reference,
                     deterministic=deterministic, is_training=is_training, generator=generator,
                     decoder_input_ids=dec_input)
-        loss_recon, recon_ids = _recon(out["logits"], ids, valid)
+        loss_recon, recon_ids = _recon(out, ids, valid)
         loss_recon = loss_recon * cfg.loss_recon_rescale_factor * cfg.loss_recon_weight
         loss_vq = out["vq_loss"] * cfg.loss_vq_rescale_factor * cfg.loss_vq_weight
         loss_full = loss_recon + loss_vq

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch port goes, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3]
+    python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
 
 Builds a seeded full-width bert-base Shelgon3-VQ (bf16, dropout 0.1 / 0.1,
-AMSGrad lr 1e-4), warms up, then reports for one batch of ``--batch`` x 12
-tokens:
+AMSGrad lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
+fused head + CE, kernels #9 and #10, in place of the logits path), warms up,
+then reports for one batch of ``--batch`` x 12 tokens:
 
 - the wall time of a step (host clock around a synchronized step);
 - device time of forward, backward and optimizer update (CUDA events at the
@@ -35,18 +36,23 @@ sys.path.insert(0, ROOT)
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("adam_amsgrad_kernel", "AMSGrad update (kernel #14)"),
+    ("head_ce_fwd_kernel", "fused head + CE forward (#9)"),
+    ("head_ce_merge_kernel", "fused head + CE forward (#9)"),
+    ("head_ce_bwd_kernel", "fused head + CE backward (#10: g, dbias partials)"),
+    ("gemm_kernel<false, false", "fused head + CE backward (#10: dx GEMM, wmma)"),
+    ("gemm_kernel<true, false, 0>", "fused head table gradient (wmma GEMM, f32 out)"),
     ("gemm_bias_kernel", "layer GEMM, forward (wmma)"),
     ("gemm_kernel<false, true", "layer GEMM, dgrad (wmma)"),
     ("gemm_kernel<true, false, 8>", "layer GEMM, wgrad split-K partials (wmma)"),
     ("gemm_kernel<true, false", "layer GEMM, wgrad (wmma)"),
-    ("splitk_reduce", "layer GEMM, wgrad split-K sum"),
+    ("splitk_reduce", "split-K sums (layer wgrad; #10's dbias)"),
     ("attention_bwd_kernel", "attention backward"),
     ("attention_kernel", "attention forward"),
     ("residual_layernorm", "residual + LayerNorm forward"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("parts_reduce", "column sums (LN / bias gradients)"),
     ("colsum_kernel", "column sums (LN / bias gradients)"),
-    ("ce_fwd_ids", "CE forward"),
+    ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
     ("vq_", "VQ forward"),
     ("nvjet", "cuBLAS (head, pooler, MLM transform)"),
@@ -71,6 +77,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fused-head-ce", choices=("off", "store", "flash"), default="off")
     args = ap.parse_args()
 
     import numpy as np
@@ -84,8 +91,9 @@ def main() -> None:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16")
-    model = init_weights(build_model(cfg, device="cuda"),
+    cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16",
+                    fused_head_ce=args.fused_head_ce)
+    model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(cfg, model)
     ids = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (args.batch, 12)))
@@ -137,6 +145,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
+        "fused_head_ce": args.fused_head_ce,
         "wall_ms_median": statistics.median(walls),
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
         "profiled_wall_ms": prof_wall, "kernels_ms": kernels_ms,

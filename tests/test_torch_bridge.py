@@ -1,5 +1,6 @@
 """Checkpoint reader, weight bridge and import hygiene of the PyTorch port."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -75,6 +76,26 @@ def test_bridge_round_trip_and_strict_load(model_name):
         np.testing.assert_array_equal(v, want[k])
 
 
+def test_store_mode_run_loads_into_the_fused_head_model():
+    """A ``fused_head_ce="store"`` JAX run has the logits model's parameter
+    tree (JAX ``nn/bert.py:610``), so its weights load strictly into the
+    port's fused-head model, whose decoder then hands out the tied table."""
+    cfg = _tiny_cfg("shelgon3")
+    cfg = RunConfig(model=dataclasses.replace(cfg.model, fused_head_ce="store"), data=cfg.data)
+    tree = jax.tree_util.tree_map(np.asarray, init_params(cfg, jax.random.key(0)))
+    model = build_model(TorchRunConfig.from_flat_dict(cfg.get_config()), fused_head=True)
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    ids = torch.ones((2, 12), dtype=torch.long)
+    out = model(ids, torch.ones_like(ids))
+    assert "logits" not in out and out["mlm_hidden"].shape == (2, 12, 32)
+    assert out["head_table"] is model.decoder.bert.embeddings.word_embeddings.embedding
+    np.testing.assert_array_equal(out["head_table"].detach().numpy(),
+                                  tree["decoder"]["bert"]["embeddings"]["word_embeddings"]
+                                  ["embedding"])
+    np.testing.assert_array_equal(out["head_bias"].detach().numpy(),
+                                  tree["decoder"]["mlm_head"]["decoder_bias"])
+
+
 def test_seeded_init_is_reproducible():
     tcfg = TorchRunConfig(model_name="shelgon3", vocab_size=40, hidden_size=32, num_layers=1,
                           num_heads=2, intermediate_size=64, vq_e_dim=32, vq_n_e=5)
@@ -88,7 +109,7 @@ def test_seeded_init_is_reproducible():
 
 ENTRY_POINT_MODULES = (
     "cli", "train.engine", "train.run", "train.freezing", "train.optim", "train.step",
-    "ops.adam", "data.generate", "data.prepare", "data.dataset", "utils.consts",
+    "ops.adam", "ops.ce", "ops.head_ce", "data.generate", "data.prepare", "data.dataset", "utils.consts",
     "utils.console", "utils.params", "utils.tensor", "ckpt.checkpoint",
 )
 

@@ -16,6 +16,16 @@ one ulp is 0.4%). CE: ids exact, NLL within 1e-4 absolute (values ~10,
 f32 sums in another order), dlogits within 1e-2 of the largest magnitude
 (one bf16 ulp). AMSGrad (#14): bit for bit, over leaves of ragged lengths,
 a leaf without a gradient, a misaligned leaf and a chunk boundary.
+Fused head + CE (#9, #10), both modes, ragged rows and odd vocabularies:
+the kernel's logits within two bf16 ulps at the top of their range of the
+plain version's (cuBLAS sums in another order; one ulp at each of the two
+roundings); its NLL, lse and ids held to the plain CE over its own logits
+(1e-4 absolute, ids exact); against the plain version, NLL within twice the
+largest logit difference dl, and ids equal wherever the plain top-2 logits
+are more than 2 dl apart (99% of rows in all); flash bit for bit equal
+to store; g within one bf16 ulp (1e-2 of the largest), dbias within 1e-3 of
+its largest, dx within 1e-2 of its largest, against the plain backward on
+the same logits; the table gradient within 1e-4 of its largest.
 """
 
 import pytest
@@ -25,10 +35,20 @@ from kindergarten_vq_vae_torch.ops.adam import AdamScalars, adam_update_referenc
 from kindergarten_vq_vae_torch.ops.ce import (
     ce_bwd,
     ce_bwd_reference,
+    ce_fwd,
     ce_fwd_ids,
     ce_fwd_ids_reference,
+    ce_fwd_reference,
 )
 from kindergarten_vq_vae_torch.ops.dropout import attention_keep, cross_op
+from kindergarten_vq_vae_torch.ops.head_ce import (
+    head_ce_bwd,
+    head_ce_bwd_reference,
+    head_ce_fwd,
+    head_ce_fwd_reference,
+    table_grad,
+    table_grad_reference,
+)
 from kindergarten_vq_vae_torch.ops.layer import (
     DEC_WEIGHTS,
     ENC_WEIGHTS,
@@ -248,6 +268,85 @@ def test_ce_kernels_match_plain(gen):
     odd = x[:, :30521].contiguous()  # odd vocab: the scalar path
     assert torch.equal(ce_fwd_ids(odd, t.clamp(max=30520))[1],
                        ce_fwd_ids_reference(odd, t.clamp(max=30520))[1])
+
+
+@pytest.mark.parametrize("vocab", [30522, 30521])
+def test_ce_fwd_kernel_matches_plain(gen, vocab):
+    """#6: the NLL alone, the same value as #7's."""
+    rows = 777
+    x = (3.0 * torch.randn(rows, vocab, device="cuda", generator=gen)).bfloat16()
+    t = torch.randint(0, vocab, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    before = ce_fwd.launches
+    nll = ce_fwd(x, t)
+    torch.cuda.synchronize()
+    assert ce_fwd.launches == before + 1 and nll.dtype == torch.float32
+    assert (nll - ce_fwd_reference(x, t)).abs().max() <= 1e-4
+    assert torch.equal(nll, ce_fwd_ids(x, t)[0])
+
+
+def _head_case(gen, rows, V, H):
+    x = torch.randn(rows, H, device="cuda", generator=gen).bfloat16()
+    table = (0.05 * torch.randn(V, H, device="cuda", generator=gen)).bfloat16()
+    bias = 0.1 * torch.randn(V, device="cuda", generator=gen)
+    t = torch.randint(0, V, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    return x, table, bias, t
+
+
+def _ulp_top(l):
+    """One bf16 ulp at the largest magnitude of l."""
+    return 2.0 ** (torch.floor(torch.log2(l.float().abs().max())).item() - 7)
+
+
+@pytest.mark.parametrize("rows,V,H", [(300, 133, 64), (1000, 30522, 768), (129, 2053, 128)])
+def test_head_ce_kernels_match_plain(gen, rows, V, H):
+    x, table, bias, t = _head_case(gen, rows, V, H)
+    before = head_ce_fwd.launches, head_ce_bwd.launches
+    out = {m: head_ce_fwd(x, table, bias, t, m) for m in ("store", "flash")}
+    torch.cuda.synchronize()
+    nll, lse, ids, logits = out["store"]
+    assert out["flash"][3] is None
+    for a, b in zip(out["store"][:3], out["flash"][:3]):
+        assert torch.equal(a, b)  # flash = store, bit for bit
+    nll_p, lse_p, ids_p, logits_p = head_ce_fwd_reference(x, table, bias, t, "store")
+    dl = (logits.float() - logits_p.float()).abs().max().item()
+    assert dl <= 2 * _ulp_top(logits_p)  # at most one ulp at each of the two roundings
+    nll_own, ids_own = ce_fwd_ids_reference(logits, t)
+    assert torch.equal(ids, ids_own) and (nll - nll_own).abs().max() <= 1e-4
+    assert (lse - (nll_own + logits.float().gather(1, t.long()[:, None])[:, 0])).abs().max() <= 1e-4
+    # lse and the target logit each move by at most dl; an argmax can move
+    # only where the plain top-2 logits are within 2 dl of each other
+    assert (nll - nll_p).abs().max() <= 2 * dl + 1e-4
+    top2 = logits_p.float().topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * dl
+    assert torch.equal(ids[clear], ids_p[clear]) and (ids == ids_p).float().mean() >= 0.99
+
+    scale = torch.rand(rows, device="cuda", generator=gen) / rows
+    g_s, dx_s, db_s = head_ce_bwd(logits, table, bias, t, lse, scale, "store")
+    g_f, dx_f, db_f = head_ce_bwd(x, table, bias, t, lse, scale, "flash")
+    torch.cuda.synchronize()
+    assert (head_ce_fwd.launches, head_ce_bwd.launches) == (before[0] + 2, before[1] + 2)
+    assert g_s.shape == (rows, V) and g_s.stride(0) % 8 == 0 and g_s.dtype == torch.bfloat16
+    assert torch.equal(g_s, g_f) and torch.equal(dx_s, dx_f) and torch.equal(db_s, db_f)
+    assert (g_s.as_strided((rows, g_s.stride(0)), (g_s.stride(0), 1))[:, V:] == 0).all()
+    g_p, dx_p, db_p = head_ce_bwd_reference(logits, table, bias, t, lse, scale, "store")
+    assert _rel_max(g_s, g_p) <= 1e-2 and _rel_max(dx_s, dx_p) <= 1e-2
+    assert db_s.dtype == torch.float32 and _rel_max(db_s, db_p) <= 1e-3
+    dt = table_grad(g_s, x)
+    torch.cuda.synchronize()
+    assert dt.dtype == torch.float32 and dt.shape == (V, H)
+    assert _rel_max(dt, table_grad_reference(g_s, x)) <= 1e-4
+
+
+def test_head_ce_kernels_reject_what_they_do_not_take(gen):
+    x, table, bias, t = _head_case(gen, 64, 133, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        head_ce_fwd(x.float(), table, bias, t, "store")
+    with pytest.raises(TypeError, match="int32"):
+        head_ce_fwd(x, table, bias, t.long(), "flash")
+    with pytest.raises(ValueError, match="mode"):
+        head_ce_fwd(x, table, bias, t, "auto")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        head_ce_fwd(x[:, :60].contiguous(), table[:, :60].contiguous(), bias, t, "store")
 
 
 def test_amsgrad_kernel_matches_plain_bit_for_bit(gen):

@@ -36,6 +36,9 @@ with 6 train and 8 val batches each.
   ``run_conf.json``, ``history.json`` with the test stats, the best slots
   and the decoded sentences; the port's ``Reconstructor`` serves that run
   directory and agrees with the JAX package's ``Reconstructor`` on it.
+- A ``fused_head_ce="store"`` CLI run (in process) has the history of the
+  same run on the logits path at the parity bars above, and its run
+  directory is served through the logits path.
 """
 
 import dataclasses
@@ -56,6 +59,7 @@ from kindergarten_vq_vae_tpu.train.config import RunConfig as JaxRunConfig
 from kindergarten_vq_vae_tpu.train.engine import Engine as JaxEngine
 from kindergarten_vq_vae_tpu.train.engine import _stacked_hists as jax_stacked_hists
 from kindergarten_vq_vae_tpu.train.variants import init_params
+from kindergarten_vq_vae_torch import cli
 from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.data.dataset import DSentences, split_dataset
@@ -191,6 +195,42 @@ def test_cli_run_dir_served_by_reconstructor(corpus, tmp_path):
     for g, w in zip(got, want):
         assert g["codes"] == w["codes"] and g["reconstruction"] == w["reconstruction"]
         assert 0.0 <= g["token_acc"] <= 1.0
+
+
+def test_cli_fused_head_store_run(corpus, tmp_path):
+    """A ``fused_head_ce="store"`` run through the CLI (in process, the plain
+    versions on the CPU) trains, runs val and test and writes a run directory
+    with the history of the same run on the logits path (``"auto"``, from the
+    same seeded weights and batch order) at the parity bars above; its run
+    directory is served through the logits path, as the default run's is."""
+    data_dir, _ = corpus
+    runs = {}
+    for mode in ("auto", "store"):
+        sets = {**TINY, "n_epochs": 1, "export_checkpoint": True, "data_dir": data_dir,
+                "runs_dir": str(tmp_path / mode), "fused_head_ce": mode, "decode_dump": False,
+                "lim_batches_test_pct": 0.1}
+        argv = ["shelgon3", "--device", "cpu"]
+        for k, v in sets.items():
+            argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
+        engine = cli.main(argv)
+        assert engine._fused_head == (mode == "store")
+        runs[mode] = engine.run_path
+    hist = {m: json.loads(open(os.path.join(r, "history.json")).read()) for m, r in runs.items()}
+    assert [sorted(h) for h in hist["store"]] == [["epoch", "train", "val"], ["epoch", "test"]]
+    for got, want in zip(hist["store"], hist["auto"]):
+        for stage in set(got) - {"epoch"}:
+            for k in STATS:
+                np.testing.assert_allclose(got[stage][k], want[stage][k], rtol=REL,
+                                           err_msg=f"{stage} {k}")
+            assert abs(got[stage]["metric_acc"] - want[stage]["metric_acc"]) <= ACC_ABS
+    conf = json.loads(open(os.path.join(runs["store"], "run_conf.json")).read())
+    assert conf["fused_head_ce"] == "store"
+    sentences = ["i eat the apple", "do we eat the apple"]
+    got = Reconstructor(runs["store"], device="cpu")
+    want = Reconstructor(runs["auto"], device="cpu").reconstruct(sentences)
+    assert not got.model.decoder.mlm_head.cfg.fused_head
+    for g, w in zip(got.reconstruct(sentences), want):
+        assert g["codes"] == w["codes"] and g["reconstruction"] == w["reconstruction"]
 
 
 class _FakeWandb:

@@ -27,8 +27,9 @@ each side carrying its own parameters:
 The step's update is the single-pass AMSGrad of ``fused_update="auto"``
 (kernel #14's plain version on the CPU). The optax-form optimizer alone is
 held against the optax chain over 5 steps at rel 1e-6. Bagon runs one step
-under the same criteria. The last test lists what the step still refuses,
-each with its ROADMAP item.
+under the same criteria, and Shelgon3 three more with
+``fused_head_ce="flash"`` (the fused head + CE on both sides). The last test
+lists what the step still refuses, each with its ROADMAP item.
 """
 
 import jax
@@ -58,11 +59,12 @@ OPTIM = OptimConfig(lr=1e-3, weight_decay=0.01, lr_scheduler="MultiStepLR", mile
                     gamma=0.5)
 
 
-def _cfg(model_name):
+def _cfg(model_name, fused_head_ce="auto"):
     return RunConfig(
         model=ModelConfig(model_name=model_name, vocab_size=V, hidden_size=64, num_layers=2,
                           num_heads=4, intermediate_size=128, compute_dtype="float32",
-                          vq_e_dim=64, enc_out_size=64, vq_n_e=9),
+                          vq_e_dim=64, enc_out_size=64, vq_n_e=9, fused_head_ce=fused_head_ce,
+                          head_ce_block_r=64, head_ce_block_v=256),
         data=DataConfig(batch_size=B, tokenized_sentence_max_length=S), optim=OPTIM)
 
 
@@ -87,11 +89,11 @@ def _rel(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
 
 
-def _run(model_name, n_steps):
-    cfg = _cfg(model_name)
+def _run(model_name, n_steps, fused_head_ce="auto"):
+    cfg = _cfg(model_name, fused_head_ce)
     params = init_params(cfg, jax.random.key(0))
     tcfg = TorchRunConfig.from_flat_dict(cfg.get_config())
-    model = build_model(tcfg)
+    model = build_model(tcfg, fused_head=fused_head_ce != "auto")
     model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)),
                           strict=True)
     state = init_train_state(tcfg, model)
@@ -135,6 +137,13 @@ def _run(model_name, n_steps):
 
 def test_shelgon3_train_steps_match_jax():
     _run("shelgon3", 3)
+
+
+def test_shelgon3_fused_head_flash_train_steps_match_jax():
+    """The same three steps with ``fused_head_ce="flash"`` on both sides: the
+    fused head + CE (JAX: Pallas #9/#10 in interpret mode; the port: their
+    plain versions) in place of the logits path."""
+    _run("shelgon3", 3, "flash")
 
 
 def test_bagon_train_step_matches_jax():
@@ -181,7 +190,7 @@ def test_metrics_match_jax():
 
 @pytest.mark.parametrize("override, item", [
     ({"model_name": "shelgon"}, "item 7"), ({"model_name": "shelgon2"}, "item 7"),
-    ({"vq_mode": "GumbelQuantizer"}, "item 7"), ({"fused_head_ce": "store"}, "#9 and #10"),
+    ({"vq_mode": "GumbelQuantizer"}, "item 7"), ({"decoder_model_name": "gpt2"}, "item 7"),
     ({"mesh_shape": (2,)}, "item 10"),
 ])
 def test_step_refuses_what_is_not_ported(override, item):
