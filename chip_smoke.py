@@ -56,7 +56,20 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    checked, and the run directory is served through ``Reconstructor``; then
    a 1-epoch run with ``--set fused_head_ce='store'`` the same way (#9 once
    a step and an eval batch, #10 once a step), served through the logits
-   path.
+   path;
+11. the per-module trunk (``fused_layer="off"``): the SDPA kernels #11 / #12
+   (self-attention from qkv views, causal, padded masks; cross-attention
+   from kv views; dropout 0.1) and #13 against their plain versions at the
+   batch-2048 shapes, #11 at the bucket-256 serving shape, every attention
+   keep bit held to the plain mask, their times beside the plain versions',
+   their byte bounds and ``F.scaled_dot_product_attention``, and
+   ``fused_mha`` once through its autograd; 4 training steps at batch 2048
+   (36 SDPA forwards and backwards a step, no layer kernel, the plain SDPA
+   refused) beside the default route's step, its batch-256 gradients
+   against an f32 per-module step, a ``fused_layer="off"`` run served
+   through ``Reconstructor`` (36 SDPA forwards a forward) and timed beside
+   the fused route, ``output_attentions`` at bucket 8, and a 1-epoch
+   ``--set fused_layer='off'`` CLI run, served.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -185,6 +198,7 @@ def _rel_max(got, want) -> float:
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes under."""
     from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
+    from kindergarten_vq_vae_torch.ops.attention import mha_forward
     from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd, ce_fwd_ids
     from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd
     from kindergarten_vq_vae_torch.ops.layer import (
@@ -192,22 +206,29 @@ def _wrappers() -> dict:
         fused_bert_layer,
         layer_backward,
     )
+    from kindergarten_vq_vae_torch.ops.sdpa import sdpa_backward, sdpa_forward
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
     return {"layer_fwd": fused_bert_layer, "layer_bwd": layer_backward,
             "attn_bwd": attention_backward, "vq": vector_quantize_kernel,
             "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
-            "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update}
+            "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update,
+            "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward}
+
+
+# wrappers whose launches are split into self- and cross-attention
+_SPLIT = ("attn_bwd", "sdpa_fwd", "sdpa_bwd")
 
 
 def _counters() -> dict:
-    """Every wrapper's launch count; the attention backward's split into self
+    """Every wrapper's launch count; the attention kernels' split into self
     and cross, and the layer forwards that kept residuals (training) apart."""
     w = _wrappers()
     counts = {k: fn.launches for k, fn in w.items()}
-    cross = w["attn_bwd"].cross_launches
-    counts.update(attn_bwd_self=counts.pop("attn_bwd") - cross, attn_bwd_cross=cross,
-                  layer_fwd_resid=w["layer_fwd"].residual_launches)
+    for k in _SPLIT:
+        cross = w[k].cross_launches
+        counts.update({f"{k}_self": counts.pop(k) - cross, f"{k}_cross": cross})
+    counts["layer_fwd_resid"] = w["layer_fwd"].residual_launches
     return counts
 
 
@@ -215,7 +236,8 @@ def _reset_counters() -> None:
     w = _wrappers()
     for fn in w.values():
         fn.launches = 0
-    w["attn_bwd"].cross_launches = 0
+    for k in _SPLIT:
+        w[k].cross_launches = 0
     w["layer_fwd"].residual_launches = 0
 
 
@@ -517,7 +539,7 @@ def _sentences(n: int, rng) -> list[str]:
     return [" ".join(rng.choice(WORDS) for _ in range(rng.randint(1, SEQ - 2))) for _ in range(n)]
 
 
-def _write_run(root: str) -> str:
+def _write_run(root: str, fused_layer: str = "auto") -> str:
     import dataclasses
 
     import torch
@@ -533,7 +555,8 @@ def _write_run(root: str) -> str:
     os.makedirs(run)
     cfg = RunConfig(model_name="shelgon3", vocab_size=30522, hidden_size=768, num_layers=12,
                     num_heads=12, intermediate_size=3072, compute_dtype="bfloat16", vq_n_e=9,
-                    vq_e_dim=768, data_dir=data_dir, tokenized_sentence_max_length=SEQ)
+                    vq_e_dim=768, data_dir=data_dir, tokenized_sentence_max_length=SEQ,
+                    fused_layer=fused_layer)
     with open(os.path.join(run, "run_conf.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f)
     WordTokenizer(WORDS).save(os.path.join(data_dir, cfg.tokenizer_file))
@@ -700,6 +723,107 @@ def phase_slice(names: tuple[str, str]) -> dict:
         print(f"bucket-{BUCKET} x seq {SEQ} forward, {path} path: median {med[path]:.3f} ms "
               f"over {len(times[path])} ({names[0]}; nvidia-smi: {names[1]})")
     return {"launches": launches, "forward_ms": med}
+
+
+def _median_forwards(recs: dict, ids, mask, rounds: int = 10) -> dict:
+    """Median bucket forward of each reconstructor's kernel path, in turns."""
+    import torch
+
+    times = {k: [] for k in recs}
+    with torch.inference_mode():
+        for rec in recs.values():
+            for _ in range(2):
+                rec.forward(ids, mask)
+        for i in range(rounds):
+            for k in (list(recs) if i % 2 == 0 else list(recs)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs[k].forward(ids, mask)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_serve_per_module(names: tuple[str, str]) -> dict:
+    """A ``fused_layer="off"`` run of the serving slice's seeded weights served through
+    ``Reconstructor``: 36 SDPA forwards (24 self, 12 cross) and one VQ per
+    forward, no layer launch; one bucket-256 forward held to the f32 forward
+    (``PATH_SLACK``, ``CODE_SLACK``) and timed beside the fused route's. Then
+    ``output_attentions`` on the fused route's model: one bucket-8 forward
+    gives 12 layers of (8, 12, S, S) self- and cross-attention probabilities
+    (rows summing to 1, the causal upper triangle 0) through the einsum route,
+    the encoder's 12 layer launches and no SDPA launch."""
+    import random
+
+    import torch
+
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+
+    rng = random.Random(SEED + 1)
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_smoke_") as root:
+        rec = Reconstructor(_write_run(os.path.join(root, "off"), "off"), device="cuda")
+        rec_fused = Reconstructor(_write_run(os.path.join(root, "auto")), device="cuda")
+    if rec.model.encoder.cfg.fused_layer or rec.model.decoder.bert.cfg.fused_layer:
+        _fail("a fused_layer='off' run was built with the fused trunk")
+    few = _sentences(3, rng)
+    _reset_counters()
+    results = rec.reconstruct(few)
+    codes = rec.codes(few)
+    counts = _counters()
+    want = {k: 0 for k in counts}
+    want.update(sdpa_fwd_self=48, sdpa_fwd_cross=24, vq=2)  # two forwards
+    print(f"serving a fused_layer='off' run: reconstruct(3) + codes(3), launches {counts} "
+          f"(expected {want})")
+    _check_results(results, few, rec)
+    if counts != want or [r["codes"] for r in results] != codes:
+        _fail("the per-module serving path did not go through the SDPA kernels as expected")
+
+    ids_np, mask_np = rec.tokenizer.encode_batch(_sentences(BUCKET, rng), SEQ)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    stats = _compare_paths(rec, ids, mask)
+    print(f"per-module bucket-{BUCKET} forward vs an f32 per-module forward: {json.dumps(stats)}")
+    if not stats["logits_finite"] or stats["logits_shape"] != [BUCKET, SEQ, VOCAB]:
+        _fail("per-module bucket-256 forward: logits not finite or misshapen")
+    for what in ("encoder_mean_abs", "logits_mean_abs"):
+        if stats["kernel"][what] > PATH_SLACK * stats["plain"][what]:
+            _fail(f"per-module kernel path is further from the f32 forward than its plain path "
+                  f"({what})")
+    if stats["kernel"]["code_agreement"] < stats["plain"]["code_agreement"] - CODE_SLACK:
+        _fail("per-module kernel path picks other codes than the f32 forward more often than the "
+              "plain path")
+    if min(stats["kernel"]["recon_id_agreement"], stats["plain"]["recon_id_agreement"]) < 0.999:
+        _fail("per-module reconstruction ids disagree with the f32 forward where its top-2 gap "
+              "is clear")
+    med = _median_forwards({"fused": rec_fused, "per-module": rec}, ids, mask)
+    print(f"bucket-{BUCKET} x seq {SEQ} forward, kernel paths in turns: fused layers "
+          f"{med['fused']:.3f} ms, per-module trunk {med['per-module']:.3f} ms ({names[0]}; "
+          f"nvidia-smi: {names[1]})")
+
+    ids8, mask8 = ids[:8].contiguous(), mask[:8].contiguous()
+    _reset_counters()
+    with torch.inference_mode():
+        out = rec_fused.model(ids8, mask8, output_attentions=True)
+    torch.cuda.synchronize()
+    counts = _counters()
+    want = {k: 0 for k in counts}
+    want.update(layer_fwd=12, vq=1)
+    tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
+    ok = counts == want
+    for key in ("decoder_attentions", "decoder_cross_attentions"):
+        probs = out[key]
+        ok &= len(probs) == 12 and all(p.shape == (8, 12, SEQ, SEQ) for p in probs)
+        ok &= all((p.float().sum(-1) - 1.0).abs().max().item() <= 1e-2 for p in probs)
+        if key == "decoder_attentions":
+            ok &= all(bool((p[..., ~tril] == 0).all()) for p in probs)
+    print(f"output_attentions at bucket 8: {len(out['decoder_attentions'])} self and "
+          f"{len(out['decoder_cross_attentions'])} cross layers of "
+          f"{tuple(out['decoder_attentions'][0].shape)}, launches {counts} (expected {want}); "
+          f"ok {ok}")
+    if not ok:
+        _fail("output_attentions did not return the decoder's probabilities as expected")
+    del rec, rec_fused, out
+    torch.cuda.empty_cache()
+    return {"forward_ms": med}
 
 
 def _finite(t) -> bool:
@@ -1203,6 +1327,204 @@ def phase_head_kernels(names: tuple[str, str]) -> dict:
     return res
 
 
+def _sdpa_case(g, batch: int, cross: bool, masked: bool):
+    """q, k, v at the bert-base width as the per-module trunk hands them
+    over: split views of a packed qkv (self) or of q and a packed kv (cross);
+    a padded key mask or None."""
+    import torch
+
+    H = 768
+    if cross:
+        q = torch.randn(batch, SEQ, H, device="cuda", generator=g).bfloat16()
+        k, v = torch.randn(batch, SEQ, 2 * H, device="cuda", generator=g).bfloat16().split(H, -1)
+    else:
+        q, k, v = torch.randn(batch, SEQ, 3 * H, device="cuda", generator=g).bfloat16().split(H, -1)
+    mask = None
+    if masked:
+        lens = torch.randint(1, SEQ + 1, (batch,), device="cuda", generator=g)
+        mask = (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    return q, k, v, mask
+
+
+def _library_sdpa(q, k, v, mask, causal: bool):
+    """``F.scaled_dot_product_attention`` at rate 0 on the same inputs, with
+    the head transposes: its forward call, and the call of its autograd
+    backward given g (a yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, H = q.shape
+    heads = [t.reshape(b, t.shape[1], 12, H // 12).transpose(1, 2) for t in (q, k, v)]
+    attn = None
+    if mask is not None or causal:
+        attn = torch.ones(b, 1, s, k.shape[1], dtype=torch.bool, device="cuda")
+        if mask is not None:
+            attn = attn & (mask[:, None, None, :] > 0)
+        if causal:
+            attn = attn & torch.ones(s, k.shape[1], dtype=torch.bool, device="cuda").tril()
+
+    def fwd():
+        out = F.scaled_dot_product_attention(*heads, attn_mask=attn)
+        return out.transpose(1, 2).reshape(b, s, H)
+
+    with torch.enable_grad():
+        leaves = [t.detach().contiguous().requires_grad_() for t in heads]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn)
+    gh = torch.randn_like(out)
+
+    def bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    return fwd, bwd
+
+
+def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
+    """#11 and #12 (self from qkv views, causal, padded masks; cross from kv
+    views; dropout 0.1) and #13 against their plain versions at the
+    batch-2048 training shapes, #11 at the bucket-256 serving shape (rate 0),
+    the keep masks exact, and their times beside the plain versions', their
+    byte bounds and ``F.scaled_dot_product_attention``."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
+    from kindergarten_vq_vae_torch.ops.dropout import attention_keep
+    from kindergarten_vq_vae_torch.ops.sdpa import (
+        sdpa_backward,
+        sdpa_backward_reference,
+        sdpa_forward,
+        sdpa_forward_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
+    res = {}
+    products = TRAIN_BATCH * 12 * SEQ * SEQ * 64  # multiply-adds of one S x S x hd product a head
+    lib_name = "F.scaled_dot_product_attention (rate 0, head transposes)"
+    for kind, cross, causal in (("self", False, True), ("cross", True, False)):
+        q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, cross, not cross)
+        gr = torch.randn(TRAIN_BATCH, SEQ, 768, device="cuda", generator=g).bfloat16()
+        args = (q, k, v, mask, seed)
+        kw = dict(num_heads=12, causal=causal, rate=0.1)
+        with torch.no_grad():
+            out = sdpa_forward(*args, cross=cross, **kw)
+            grads = sdpa_backward(*args, gr, cross=cross, **kw)
+            torch.cuda.synchronize()
+            want_f = sdpa_forward_reference(*args, **kw)
+            want_b = sdpa_backward_reference(*args, gr, **kw)
+            f_err, b_err = _rel_max(out, want_f), _leaf_errors(grads, want_b)
+            print(f"sdpa {kind} ({TRAIN_BATCH},{SEQ},768) bf16, {'causal, ' if causal else ''}"
+                  f"{'padded mask' if mask is not None else 'no mask'}, dropout 0.1: forward "
+                  f"max rel "
+                  f"{f_err:.3e}, dq/dk/dv max rel {b_err:.3e} (tol {TRAIN_REL})")
+            if not (_finite(out) and f_err <= TRAIN_REL and b_err <= TRAIN_REL):
+                _fail(f"SDPA kernels disagree with their plain versions ({kind})")
+            lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
+            kf, pf = _paired_ms(lambda: sdpa_forward(*args, cross=cross, **kw),
+                                lambda: sdpa_forward_reference(*args, **kw), 20)
+            kb, pb = _paired_ms(lambda: sdpa_backward(*args, gr, cross=cross, **kw),
+                                lambda: sdpa_backward_reference(*args, gr, **kw), 20)
+            lf = _time_ms(lib_fwd, 20)
+        lb = _time_ms(lib_bwd, 20)
+        bf = _bound(4 * products, _nbytes(q, k, v, mask, out), PEAK_BF16)
+        bb = _bound(10 * products, _nbytes(q, k, v, mask, gr, grads), PEAK_BF16)
+        res[f"fwd_{kind}"] = {"max_abs_err": (out.float() - want_f.float()).abs().max().item(),
+                              "ms": kf, "plain_ms": pf, "bound": [bf], "library_ms": lf,
+                              "library": lib_name}
+        res[f"bwd_{kind}"] = {"max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                                 for a, b in zip(grads, want_b)),
+                              "ms": kb, "plain_ms": pb, "bound": [bb], "library_ms": lb,
+                              "library": "autograd backward of " + lib_name}
+        print(f"sdpa_forward {kind}: kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
+              f"({bf[1]}), {lib_name} {lf:.4f} ms; sdpa_backward {kind}: kernel {kb:.4f} ms, "
+              f"plain {pb:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), its autograd backward "
+              f"{lb:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
+        del q, k, v, gr, out, grads, want_f, want_b, lib_fwd, lib_bwd
+
+    # every keep bit visible: q = k = 0 makes p uniform over the valid keys, v
+    # (and g) the one-hot of the key (query) position in each head, so the
+    # context shows p * keep per (query, key, head) and dv its transpose
+    hd, B = 64, TRAIN_BATCH
+    tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
+    onehot = torch.zeros(B, SEQ, 768, device="cuda")
+    for h in range(12):
+        onehot[:, torch.arange(SEQ), h * hd + torch.arange(SEQ)] = 1.0
+    onehot = onehot.bfloat16()
+    zero = torch.zeros_like(onehot)
+    kept = []
+    with torch.no_grad():
+        for causal in (True, False):
+            ctx = sdpa_forward(zero, zero, onehot, None, seed, 12, causal, 0.1)
+            dv = sdpa_backward(zero, zero, onehot, None, seed, onehot, 12, causal, 0.1)[2]
+            ctx = ctx.view(B, SEQ, 12, hd)[..., :SEQ]
+            dv = dv.view(B, SEQ, 12, hd)[..., :SEQ]
+            for h in range(12):
+                keep = attention_keep(seed, h, B, SEQ, SEQ, 0.1, "cuda") > 0
+                if causal:
+                    keep &= tril
+                if not (torch.equal(ctx[:, :, h] > 0, keep)
+                        and torch.equal(dv[:, :, h].transpose(1, 2) > 0, keep)):
+                    _fail(f"SDPA keep mask of head {h} differs from the plain mask "
+                          f"({'causal' if causal else 'full'})")
+                visible = B * (int(tril.sum()) if causal else SEQ * SEQ)
+                kept.append(keep.sum().item() / visible)
+    print(f"sdpa keep masks equal to the plain masks at batch {B} (heads 0..11, causal and full, "
+          f"forward through ctx and backward through dv); kept shares "
+          f"{min(kept):.4f}..{max(kept):.4f} (rate 0.1)")
+    del onehot, zero
+
+    # #11 at the bucket-256 serving shape, rate 0 (an encoder layer's self-attention)
+    q, k, v, mask = _sdpa_case(g, BUCKET, False, True)
+    with torch.no_grad():
+        out = sdpa_forward(q, k, v, mask, None, 12)
+        torch.cuda.synchronize()
+        err = _rel_max(out, sdpa_forward_reference(q, k, v, mask, None, 12))
+        kf, pf = _paired_ms(lambda: sdpa_forward(q, k, v, mask, None, 12),
+                            lambda: sdpa_forward_reference(q, k, v, mask, None, 12))
+        lf = _time_ms(_library_sdpa(q, k, v, mask, False)[0])
+    bf = _bound(4 * BUCKET * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, out), PEAK_BF16)
+    print(f"sdpa_forward serving ({BUCKET},{SEQ},768), rate 0: max rel {err:.3e} "
+          f"(tol {TRAIN_REL}); "
+          f"kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms ({bf[1]}), {lib_name} "
+          f"{lf:.4f} ms")
+    if err > TRAIN_REL:
+        _fail("SDPA forward kernel disagrees with its plain version at the serving shape")
+    res["fwd_serving"] = {"ms": kf, "plain_ms": pf, "bound": [bf], "library_ms": lf}
+
+    # #13 at the training shapes (no caller in either package: this is its path)
+    q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, False, True)
+    with torch.no_grad():
+        out = mha_forward(q, k, v, mask, 12)
+        torch.cuda.synchronize()
+        want = mha_reference(q, k, v, mask, 12)
+        err = _rel_max(out, want)
+        kf, pf = _paired_ms(lambda: mha_forward(q, k, v, mask, 12),
+                            lambda: mha_reference(q, k, v, mask, 12), 20)
+        lf = _time_ms(_library_sdpa(q, k, v, mask, False)[0], 20)
+    bf = _bound(4 * products, _nbytes(q, k, v, mask, out), PEAK_BF16)
+    print(f"mha_forward (#13) ({TRAIN_BATCH},{SEQ},768) bf16, padded mask: max rel {err:.3e} "
+          f"(tol {TRAIN_REL}); kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
+          f"({bf[1]}), {lib_name} {lf:.4f} ms")
+    if not _finite(out) or err > TRAIN_REL:
+        _fail("MHA kernel #13 disagrees with its plain version")
+    res["mha"] = {"max_abs_err": (out.float() - want.float()).abs().max().item(), "ms": kf,
+                  "plain_ms": pf, "bound": [bf], "library_ms": lf, "library": lib_name}
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    _reset_counters()
+    fused_mha(*leaves, mask, 12).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = _counters()
+    want_counts = {c: 0 for c in counts}
+    want_counts["mha"] = 1
+    print(f"fused_mha through its autograd at ({TRAIN_BATCH},{SEQ},768): launches {counts}")
+    if counts != want_counts or not all(_finite(t.grad) for t in leaves):
+        _fail(f"fused_mha did not run #13 once with finite gradients: {counts}")
+    res["mha_launches"] = counts["mha"]
+    del q, k, v, out, want, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
 def _train_cfg():
     from kindergarten_vq_vae_torch.config import RunConfig
 
@@ -1223,33 +1545,39 @@ def _train_batch(batch: int) -> dict:
             "n_valid": batch}
 
 
-class _plain_update_refused:
+class _plain_refused:
     """Within the block, the plain versions of the update (the single-pass
-    one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``) raise: on
-    the card the step's update is kernel #14 alone."""
+    one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``) and of the
+    SDPA kernels raise: on the card the step's update is kernel #14 alone and
+    the per-module trunk's attention #11 / #12 alone."""
 
-    def __enter__(self):
-        from kindergarten_vq_vae_torch.ops import adam
+    def _targets(self):
+        from kindergarten_vq_vae_torch.ops import adam, sdpa
         from kindergarten_vq_vae_torch.train import optim
 
-        def refuse(*args, **kwargs):
-            _fail("the plain update ran on the training path")
+        return ((optim, "adam_update_reference"), (adam, "adam_update_reference"),
+                (optim.Adam, "update"), (sdpa, "sdpa_forward_reference"),
+                (sdpa, "sdpa_backward_reference"))
 
-        self.saved = (optim.adam_update_reference, optim.Adam.update, adam.adam_update_reference)
-        optim.adam_update_reference = adam.adam_update_reference = refuse
-        optim.Adam.update = refuse
+    def __enter__(self):
+        def refuse(*args, **kwargs):
+            _fail("a plain version ran on a kernel path (the update or the SDPA)")
+
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name in self._targets()]
+        for obj, name, _ in self.saved:
+            setattr(obj, name, refuse)
         return self
 
     def __exit__(self, *exc):
-        from kindergarten_vq_vae_torch.ops import adam
-        from kindergarten_vq_vae_torch.train import optim
-
-        optim.adam_update_reference, optim.Adam.update, adam.adam_update_reference = self.saved
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
 
 
-def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAIN_STEPS) -> dict:
-    """The training slice (``head_ce``: its ``fused_head_ce``); returns the
-    kernels' launch counts over its steps and its losses."""
+def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAIN_STEPS,
+                fused_layer: str = "auto") -> dict:
+    """The training slice (``head_ce``: its ``fused_head_ce``; ``fused_layer``
+    "off": the per-module trunk); returns the kernels' launch counts over its
+    steps and its losses."""
     import dataclasses
 
     import torch
@@ -1257,7 +1585,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     from kindergarten_vq_vae_torch.models import build_model, init_weights
     from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
 
-    cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce)
+    cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce, fused_layer=fused_layer)
     fused = head_ce in HEAD_MODES
     torch.cuda.empty_cache()
     model = build_model(cfg, device="cuda", fused_head=fused)
@@ -1266,19 +1594,24 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
     batch = _train_batch(TRAIN_BATCH)
     n_params = sum(p.numel() for p in model.parameters())
-    # per step: 24 layer forwards (keeping residuals) and backwards; 24 self- and
-    # 12 cross-attention backwards inside them; one VQ; the CE forward and
-    # backward (#7, #8) or, with the fused head, #9 and #10; one AMSGrad update
-    # over every leaf
+    # per step: 24 layer forwards (keeping residuals) and backwards, with 24 self-
+    # and 12 cross-attention backwards inside them, or on the per-module trunk
+    # 24 self- and 12 cross-attention SDPA forwards and backwards; one VQ; the
+    # CE forward and backward (#7, #8) or, with the fused head, #9 and #10; one
+    # AMSGrad update over every leaf
     per_step = {k: 0 for k in _counters()}
-    per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
-                    attn_bwd_cross=12, vq=1, adam=1)
+    per_step.update(vq=1, adam=1)
+    if fused_layer == "off":
+        per_step.update(sdpa_fwd_self=24, sdpa_fwd_cross=12, sdpa_bwd_self=24, sdpa_bwd_cross=12)
+    else:
+        per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
+                        attn_bwd_cross=12)
     per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    with _plain_update_refused():
+    with _plain_refused():
         _reset_counters()
         for i in range(steps):
             before = _counters()
@@ -1289,13 +1622,15 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
             after = _counters()
             delta = {k: after[k] - before[k] for k in after}
             if delta != per_step:
-                _fail(f"train step {i} ({head_ce}) launched {delta}, expected {per_step}")
+                _fail(f"train step {i} ({head_ce}, fused_layer {fused_layer}) launched {delta}, "
+                      f"expected {per_step}")
             losses.append({k: float(aux[k]) for k in ("loss_full", "loss_recon", "loss_vq",
                                                        "metric_perp", "metric_acc")})
         counts = _counters()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
-    print(f"train slice (fused_head_ce {head_ce!r}): bert-base shelgon3-VQ, {n_params} parameters, "
+    what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}"
+    print(f"train slice ({what}): bert-base shelgon3-VQ, {n_params} parameters, "
           f"batch {TRAIN_BATCH} x {SEQ}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
           f"launches per step {per_step}, total {counts}")
     for i, (loss, dt) in enumerate(zip(losses, times)):
@@ -1305,7 +1640,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         _fail(f"train loss not finite or not falling: {full}")
     if state.step != steps:
         _fail(f"train state counted {state.step} steps")
-    print(f"train step (fused_head_ce {head_ce!r}): median {med * 1e3:.1f} ms over steps "
+    print(f"train step ({what}): median {med * 1e3:.1f} ms over steps "
           f"1-{steps - 1}, {TRAIN_BATCH / med:.1f} sentences/s, max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({names[0]}; nvidia-smi: {names[1]})")
     del state, model, step, aux
@@ -1316,7 +1651,10 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
 def phase_grads() -> None:
     """Batch-256 gradients of the kernel path, of the plain bf16 path and of
     the fused-head kernel paths (store, flash), each against an f32 plain
-    step (logits path) of the same weights, dropout seeds and batch."""
+    step (logits path) of the same weights, dropout seeds and batch; then the
+    per-module trunk's (``fused_layer`` "off") kernel path and plain bf16
+    path against an f32 plain per-module step under the same generator seed
+    (its hidden and embedding dropout masks come from the generator)."""
     import dataclasses
 
     import torch
@@ -1328,10 +1666,11 @@ def phase_grads() -> None:
     batch = _train_batch(GRAD_BATCH)
     model = build_model(cfg, device="cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
-    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device="cuda")
-    f32.load_state_dict(model.state_dict())
-    fused = build_model(cfg, device="cuda", fused_head=True)
-    fused.load_state_dict(model.state_dict())
+
+    def copy(fused_head=False, **changes):
+        m = build_model(dataclasses.replace(cfg, **changes), device="cuda", fused_head=fused_head)
+        m.load_state_dict(model.state_dict())
+        return m
 
     def grads(m, reference, head_ce="auto"):
         for p in m.parameters():
@@ -1342,38 +1681,50 @@ def phase_grads() -> None:
         loss.backward()
         return {n: p.grad.float() for n, p in m.named_parameters() if p.grad is not None}
 
-    ref = grads(f32, True)
-    stats = {}
-    paths = (("kernel", model, False, "auto"), ("plain", model, True, "auto"),
+    def compare(ref, paths, plain, kernel_paths):
+        stats = {}
+        for path, m, reference, head_ce in paths:
+            got = grads(m, reference, head_ce)
+            if got.keys() != ref.keys():
+                _fail(f"{path} path: gradients reach other leaves than the f32 step")
+            num = sum(((got[n] - ref[n]) ** 2).sum().item() for n in ref)
+            den = sum((ref[n] ** 2).sum().item() for n in ref)
+            leaf = {n: ((got[n] - ref[n]).norm() / ref[n].norm()).item() for n in ref
+                    if ref[n].norm() > 0}
+            worst = max(leaf, key=leaf.get)
+            finite = all(_finite(v) for v in got.values())
+            stats[path] = {"global_rel_l2": (num / den) ** 0.5, "worst_leaf_rel_l2": leaf[worst],
+                           "worst_leaf": worst, "finite": finite}
+        print(f"gradients at batch {GRAD_BATCH} vs an f32 plain step ({len(ref)} leaves): "
+              f"{json.dumps(stats)}")
+        for path in kernel_paths:
+            for what in ("global_rel_l2", "worst_leaf_rel_l2"):
+                if not stats[path]["finite"] or stats[path][what] > PATH_SLACK * stats[plain][what]:
+                    _fail(f"{path} path: gradients further from f32 than the plain bf16 path "
+                          f"({what})")
+
+    fused = copy(fused_head=True)
+    compare(grads(copy(compute_dtype="float32"), True),
+            (("kernel", model, False, "auto"), ("plain", model, True, "auto"),
              ("kernel, fused head store", fused, False, "store"),
-             ("kernel, fused head flash", fused, False, "flash"))
-    for path, m, reference, head_ce in paths:
-        got = grads(m, reference, head_ce)
-        if got.keys() != ref.keys():
-            _fail(f"{path} path: gradients reach other leaves than the f32 step")
-        num = sum(((got[n] - ref[n]) ** 2).sum().item() for n in ref)
-        den = sum((ref[n] ** 2).sum().item() for n in ref)
-        leaf = {n: ((got[n] - ref[n]).norm() / ref[n].norm()).item() for n in ref
-                if ref[n].norm() > 0}
-        worst = max(leaf, key=leaf.get)
-        finite = all(_finite(v) for v in got.values())
-        stats[path] = {"global_rel_l2": (num / den) ** 0.5, "worst_leaf_rel_l2": leaf[worst],
-                       "worst_leaf": worst, "finite": finite}
-    print(f"gradients at batch {GRAD_BATCH} vs an f32 plain step ({len(ref)} leaves): "
-          f"{json.dumps(stats)}")
-    for path in ("kernel", "kernel, fused head store", "kernel, fused head flash"):
-        for what in ("global_rel_l2", "worst_leaf_rel_l2"):
-            if not stats[path]["finite"] or stats[path][what] > PATH_SLACK * stats["plain"][what]:
-                _fail(f"{path} path: gradients further from f32 than the plain bf16 path ({what})")
-    del model, f32, fused
+             ("kernel, fused head flash", fused, False, "flash")),
+            "plain", ("kernel", "kernel, fused head store", "kernel, fused head flash"))
+    del fused
+    per_module = copy(fused_layer="off")
+    compare(grads(copy(fused_layer="off", compute_dtype="float32"), True),
+            (("per-module kernel", per_module, False, "auto"),
+             ("per-module plain", per_module, True, "auto")),
+            "per-module plain", ("per-module kernel",))
+    del model, per_module
     torch.cuda.empty_cache()
 
 
 def phase_engine(names: tuple[str, str], head_ce: str = "auto",
-                 epochs: int = ENGINE_EPOCHS) -> dict:
+                 epochs: int = ENGINE_EPOCHS, fused_layer: str = "auto") -> dict:
     """The training entry point: the CLI on a generated corpus (``--set
-    fused_head_ce`` when ``head_ce`` is not "auto"), its run directory, its
-    launch counts, and the run directory served (through the logits path)."""
+    fused_head_ce`` when ``head_ce`` is not "auto", ``--set fused_layer``
+    when ``fused_layer`` is not), its run directory, its launch counts, and
+    the run directory served (through the logits path, on the run's trunk)."""
     import numpy as np
     import torch
 
@@ -1397,6 +1748,8 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
                 "ckpt_slots": ("loss_recon:val",), "seed": SEED}
         if head_ce != "auto":
             sets["fused_head_ce"] = head_ce
+        if fused_layer != "auto":
+            sets["fused_layer"] = fused_layer
         argv = ["shelgon3", "--device", "cuda"]
         for k, v in sets.items():
             argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
@@ -1404,7 +1757,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         steps = epochs * int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
         evals = epochs * -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
         torch.cuda.empty_cache()
-        with _plain_update_refused():
+        with _plain_refused():
             _reset_counters()
             t0 = time.perf_counter()
             engine = cli.main(argv)
@@ -1412,9 +1765,14 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
             wall = time.perf_counter() - t0
             counts = _counters()
         want = {k: 0 for k in counts}
-        want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps,
-                    layer_bwd=24 * steps, attn_bwd_self=24 * steps, attn_bwd_cross=12 * steps,
-                    vq=steps + evals, adam=steps)
+        want.update(vq=steps + evals, adam=steps)
+        if fused_layer == "off":
+            want.update(sdpa_fwd_self=24 * (steps + evals), sdpa_fwd_cross=12 * (steps + evals),
+                        sdpa_bwd_self=24 * steps, sdpa_bwd_cross=12 * steps)
+        else:
+            want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps,
+                        layer_bwd=24 * steps, attn_bwd_self=24 * steps,
+                        attn_bwd_cross=12 * steps)
         if head_ce in HEAD_MODES:
             want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps)
         else:
@@ -1437,7 +1795,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         if not (conf["model_name"] == "shelgon3" and conf["hidden_size"] == 768
                 and conf["num_layers"] == 12 and conf["vocab_size"] == VOCAB
                 and conf["batch_size"] == TRAIN_BATCH and conf["run_id"] == os.path.basename(run)
-                and conf["fused_head_ce"] == head_ce):
+                and conf["fused_head_ce"] == head_ce and conf["fused_layer"] == fused_layer):
             _fail(f"run_conf.json does not describe the run: {conf}")
         if tree["vector_quantizer"]["codebook"].shape != (9, 768):
             _fail("the best-val slot does not hold the model")
@@ -1469,16 +1827,19 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         codes = rec.codes(sentences)
         served = _counters()
         want_served = {k: 0 for k in served}
-        want_served.update(layer_fwd=48, vq=2)  # two forwards: /reconstruct and /codes
+        want_served["vq"] = 2  # two forwards: /reconstruct and /codes
+        want_served.update(dict(sdpa_fwd_self=48, sdpa_fwd_cross=24) if fused_layer == "off"
+                           else dict(layer_fwd=48))
         if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
                 or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
                            for r in recon)
                 or served != want_served or rec.model.decoder.mlm_head.cfg.fused_head):
             _fail(f"serving the trained run failed: {recon} {served}")
-        print(f"engine run (fused_head_ce {head_ce!r}) served through Reconstructor (logits "
-              f"path, launches {served}): {recon[0]}")
+        what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}"
+        print(f"engine run ({what}) served through Reconstructor (logits path, launches "
+              f"{served}): {recon[0]}")
         train = [h["train"] for h in history if "train" in h]
-        print(f"engine (fused_head_ce {head_ce!r}): train "
+        print(f"engine ({what}): train "
               f"{statistics.mean(t['sentences_per_sec'] for t in train):.1f} "
               f"sentences/s (steady state, mean of {len(train)} epochs), stage wall times "
               f"{[round(st['stage_wall_s'], 3) for st in stats]} s ({names[0]}; nvidia-smi: "
@@ -1516,7 +1877,19 @@ def main() -> None:
     phase_grads()
     eng = phase_engine(names)
     eng_store = phase_engine(names, "store", 1)
+    sk = phase_sdpa_kernels(names)
+    tr["off"] = phase_train(names, steps=FUSED_STEPS, fused_layer="off")
+    print(f"per-module trunk (fused_layer 'off'): step {tr['off']['median_ms']:.1f} ms "
+          f"({TRAIN_BATCH * 1e3 / tr['off']['median_ms']:.1f} sentences/s) vs "
+          f"{tr['auto']['median_ms']:.1f} ms ({TRAIN_BATCH * 1e3 / tr['auto']['median_ms']:.1f} "
+          f"sentences/s) on the fused layers, peak {tr['off']['peak_gib']:.2f} GiB vs "
+          f"{tr['auto']['peak_gib']:.2f} GiB, first-step loss "
+          f"{tr['off']['losses'][0]['loss_full']:.6f} "
+          f"vs {tr['auto']['losses'][0]['loss_full']:.6f} ({names[0]}; nvidia-smi: {names[1]})")
+    serve_off = phase_serve_per_module(names)
+    eng_off = phase_engine(names, epochs=1, fused_layer="off")
     n = tr["auto"]["counts"]
+    off = tr["off"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"
 
     def row(name, source, replaces, launches, m):
@@ -1531,8 +1904,9 @@ def main() -> None:
     # serving rows: per call at bucket 256, the mean of one encoder-geometry and
     # one decoder-geometry layer, launches from the HTTP run; training rows: at
     # batch 2048, launches from the training slice's run (the fused head's from
-    # its own mode's run, #6's from the fused_ce_loss run); amsgrad_update: over
-    # the whole parameter list, launches from the training entry point's run
+    # its own mode's run, #6's from the fused_ce_loss run, #11 / #12's from the
+    # per-module trunk's run, #13's from its own autograd run); amsgrad_update:
+    # over the whole parameter list, launches from the training entry point's run
     table = {"kernels": [
         row("fused_bert_layer", "layer_fwd.cu", "layer_pallas.py:489", sl["launches"]["layer"],
             kern["layer"]),
@@ -1556,8 +1930,14 @@ def main() -> None:
         *[row(f"head_ce_bwd ({m})", "head_ce.cu", "head_ce_pallas.py:179",
               tr[m]["counts"]["head_ce_bwd"], hk[f"bwd_{m}"]) for m in HEAD_MODES],
         row("amsgrad_update", "adam.cu", "adam_pallas.py:46", eng["adam"], adam),
+        *[row(f"sdpa_forward ({kind})", "sdpa.cu", "sdpa_pallas.py:103", off[f"sdpa_fwd_{kind}"],
+              sk[f"fwd_{kind}"]) for kind in ("self", "cross")],
+        *[row(f"sdpa_backward ({kind})", "sdpa.cu", "sdpa_pallas.py:142", off[f"sdpa_bwd_{kind}"],
+              sk[f"bwd_{kind}"]) for kind in ("self", "cross")],
+        row("mha_forward", "sdpa.cu", "attention_pallas.py:65", sk["mha_launches"], sk["mha"]),
     ]}
-    print(f"engine launches, default run {eng}, store run {eng_store}")
+    print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
+          f"serving forward ms {serve_off['forward_ms']}")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,11 +7,15 @@ dataclass. ``get_config()`` gives the same flat dict (tuples as lists) and
 ``save()`` writes it as ``run_conf.json``, so a file written by either side
 loads in the other; unknown keys are ignored on load.
 
-Fields that choose a TPU implementation rather than a function are read and
-ignored: ``fused_layer``, ``fused_attn``, ``vq_use_fused``, ``remat``,
-``rng_impl`` and the tile sizes (``sdpa_block_b``, ``layer_block_b_*``,
-``layer_attn_chunk*``, ``head_ce_block_*``). On CUDA every layer, the VQ
-and the CE always run as the port's kernels. Fields of variants the port
+``fused_layer`` and ``fused_attn`` choose the trunk's route
+(``models/__init__.py`` ``bert_configs``): "auto" and "on" the whole-layer
+kernels, "off" the per-module layers, whose attention core is the SDPA
+kernels (#11 / #12) unless ``fused_attn`` is "off". Fields that choose a
+TPU implementation rather than a function are read and ignored:
+``vq_use_fused``, ``remat``, ``rng_impl`` and the tile sizes
+(``sdpa_block_b``, ``layer_block_b_*``, ``layer_attn_chunk*``,
+``head_ce_block_*``). On CUDA the layers (on either route), the VQ and the
+CE always run as the port's kernels, in bf16 only. Fields of variants the port
 does not have yet (Shelgon, Shelgon2, the Gumbel quantizer) are carried so
 the schema stays whole; :func:`refuse_unported` raises on them.
 """

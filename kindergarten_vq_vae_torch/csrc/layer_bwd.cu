@@ -25,6 +25,7 @@
 // the H100 run in no order, so every reduction across rows here is a
 // deterministic two-pass sum (per-block partials, then a fixed-order sum).
 
+#include "attention.cuh"
 #include "dropout_hash.cuh"
 #include "layer_common.cuh"
 
@@ -133,116 +134,6 @@ colsum_kernel(const void* __restrict__ src, int src_f32, int ld, int M, int N,
   parts[(size_t)blockIdx.y * N + c] = s;
 }
 
-// ------------------------------------------------- attention backward
-constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128, ATT_THREADS = 128;
-constexpr float NEG_INF = -1e9f;
-
-// One CTA per (sentence, head), recomputing the probabilities from q and k:
-//   p = softmax(q k^T * scale + bias), kappa = keep mask (op_base + h)
-//   dv = bf16(p * kappa)^T g;  dp = (g v^T) * kappa;  t = rowsum(dp * p)
-//   ds = bf16(p * (dp - t) * scale);  dq = ds k;  dk = ds^T q
-// with g the context gradient (bf16), every product accumulated in f32 and
-// dq, dk, dv written in bf16 (as `_attn_bwd_call` returns them).
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bwd_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, int kv_ld, const int* __restrict__ key_mask,
-                     const bf16* __restrict__ g, bf16* __restrict__ dq, int dq_ld,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int dkv_ld, int nh, int hd,
-                     int s_q, int s_k, int causal, float scale, DropoutParams drop, int op_base) {
-  __shared__ bf16 qs[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ bf16 ks[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ bf16 vs[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ bf16 gs[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ float ps[ATT_MAX_S][ATT_MAX_S + 1];
-  __shared__ float dss[ATT_MAX_S][ATT_MAX_S + 1];
-
-  const int b = blockIdx.x / nh, h = blockIdx.x % nh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int H = nh * hd;
-  const uint32_t op = op_base + h;
-
-  for (int e = tid; e < s_q * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e % hd;
-    qs[e] = q[(size_t)(b * s_q + i) * q_ld + h * hd + d];
-    gs[e] = g[(size_t)(b * s_q + i) * H + h * hd + d];
-  }
-  for (int e = tid; e < s_k * hd; e += ATT_THREADS) {
-    const int j = e / hd, d = e % hd;
-    const size_t o = (size_t)(b * s_k + j) * kv_ld + h * hd + d;
-    ks[e] = k[o];
-    vs[e] = v[o];
-  }
-  __syncthreads();
-
-  // scores and g v^T: one warp per (i, j)
-  for (int p = warp; p < s_q * s_k; p += ATT_THREADS / 32) {
-    const int i = p / s_k, j = p % s_k;
-    float s = 0.0f, gv = 0.0f;
-    for (int d = lane; d < hd; d += 32) {
-      s += __bfloat162float(qs[i * hd + d]) * __bfloat162float(ks[j * hd + d]);
-      gv += __bfloat162float(gs[i * hd + d]) * __bfloat162float(vs[j * hd + d]);
-    }
-    s = warp_sum(s);
-    gv = warp_sum(gv);
-    if (lane == 0) {
-      bool ok = key_mask == nullptr || key_mask[b * s_k + j] > 0;
-      if (causal && j > i) ok = false;
-      ps[i][j] = s * scale + (ok ? 0.0f : NEG_INF);
-      dss[i][j] = gv;
-    }
-  }
-  __syncthreads();
-
-  // per query row: softmax, dp, t, ds; ps becomes bf16(p * kappa) for dv
-  for (int i = tid; i < s_q; i += ATT_THREADS) {
-    float m = ps[i][0];
-    for (int j = 1; j < s_k; ++j) m = fmaxf(m, ps[i][j]);
-    float z = 0.0f;
-    for (int j = 0; j < s_k; ++j) {
-      const float e = expf(ps[i][j] - m);
-      ps[i][j] = e;
-      z += e;
-    }
-    const uint32_t rt = dropout_row_term(b * s_q + i, op, drop.seed);
-    float t = 0.0f;
-    for (int j = 0; j < s_k; ++j) {
-      const float p = ps[i][j] / z;
-      const float kap = drop.on ? dropout_keep(rt, j, drop) : 1.0f;
-      const float dp = drop.on ? dss[i][j] * kap : dss[i][j];
-      ps[i][j] = p;
-      dss[i][j] = dp;
-      t += dp * p;
-    }
-    for (int j = 0; j < s_k; ++j) {
-      const float p = ps[i][j];
-      const float kap = drop.on ? dropout_keep(rt, j, drop) : 1.0f;
-      dss[i][j] = bf16_round(p * (dss[i][j] - t) * scale);
-      ps[i][j] = bf16_round(drop.on ? p * kap : p);
-    }
-  }
-  __syncthreads();
-
-  // dq = ds k
-  for (int e = tid; e < s_q * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e % hd;
-    float acc = 0.0f;
-    for (int j = 0; j < s_k; ++j) acc += dss[i][j] * __bfloat162float(ks[j * hd + d]);
-    dq[(size_t)(b * s_q + i) * dq_ld + h * hd + d] = __float2bfloat16(acc);
-  }
-  // dk = ds^T q, dv = pd^T g
-  for (int e = tid; e < s_k * hd; e += ATT_THREADS) {
-    const int j = e / hd, d = e % hd;
-    float ak = 0.0f, av = 0.0f;
-    for (int i = 0; i < s_q; ++i) {
-      ak += dss[i][j] * __bfloat162float(qs[i * hd + d]);
-      av += ps[i][j] * __bfloat162float(gs[i * hd + d]);
-    }
-    const size_t o = (size_t)(b * s_k + j) * dkv_ld + h * hd + d;
-    dk[o] = __float2bfloat16(ak);
-    dv[o] = __float2bfloat16(av);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -314,14 +205,10 @@ int kvq_attention_bwd(const void* q, int q_ld, const void* k, const void* v, int
                       int causal, unsigned seed, unsigned thresh, float scale, int op_base,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s_q > ATT_MAX_S || s_k > ATT_MAX_S || head_dim > ATT_MAX_HD)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
-  attention_bwd_kernel<<<batch * num_heads, ATT_THREADS, 0, st>>>(
-      static_cast<const bf16*>(q), q_ld, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      kv_ld, key_mask, static_cast<const bf16*>(g), static_cast<bf16*>(dq), dq_ld,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), dkv_ld, num_heads, head_dim, s_q, s_k,
-      causal, 1.0f / sqrtf(static_cast<float>(head_dim)), drop, op_base);
+  attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch, num_heads,
+                head_dim, s_q, s_k, causal, drop, op_base, st);
   return static_cast<int>(cudaGetLastError());
 }
 

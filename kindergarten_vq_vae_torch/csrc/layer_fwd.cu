@@ -24,10 +24,11 @@
 // no f32 intermediate of the wide MLP reaches memory.
 // The TPU kernel's block-diagonal packing of sentences (`_attn_fwd_tile`)
 // existed to feed the 128x128 MXU; here one CTA computes one (sentence,
-// head) directly, which gives the same values (off-block scores were -1e9,
-// exp() sent them to exactly 0). One C call launches the layer's whole
-// sequence on the caller's stream and returns cudaGetLastError().
+// head) directly (attention.cuh), which gives the same values (off-block
+// scores were -1e9, exp() sent them to exactly 0). One C call launches the
+// layer's whole sequence on the caller's stream and returns cudaGetLastError().
 
+#include "attention.cuh"
 #include "dropout_hash.cuh"
 #include "layer_common.cuh"
 
@@ -133,81 +134,6 @@ gemm_bias_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B
   }
 }
 
-// ------------------------------------------------------------ attention
-constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128, ATT_THREADS = 128;
-constexpr float NEG_INF = -1e9f;  // finite, as sdpa_pallas.py NEG_INF
-
-// One CTA per (sentence, head). q rows live at q + (b*s_q + i)*q_ld + h*hd,
-// k / v rows at k|v + (b*s_k + j)*kv_ld + h*hd. key_mask (b, s_k) int32 or
-// null (all keys valid). ctx (b*s_q, nh*hd) bf16. Head h drops with op id
-// op_base + h.
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ q, int q_ld, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, int kv_ld, const int* __restrict__ key_mask,
-                 bf16* __restrict__ ctx, int ctx_ld, int nh, int hd, int s_q, int s_k,
-                 int causal, float scale, DropoutParams drop, int op_base) {
-  __shared__ bf16 qs[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ bf16 ks[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ bf16 vs[ATT_MAX_S * ATT_MAX_HD];
-  __shared__ float ps[ATT_MAX_S][ATT_MAX_S + 1];
-
-  const int b = blockIdx.x / nh, h = blockIdx.x % nh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  for (int e = tid; e < s_q * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e % hd;
-    qs[e] = q[(size_t)(b * s_q + i) * q_ld + h * hd + d];
-  }
-  for (int e = tid; e < s_k * hd; e += ATT_THREADS) {
-    const int j = e / hd, d = e % hd;
-    const size_t o = (size_t)(b * s_k + j) * kv_ld + h * hd + d;
-    ks[e] = k[o];
-    vs[e] = v[o];
-  }
-  __syncthreads();
-
-  // scores: one warp per (i, j), lanes across the head dimension
-  for (int p = warp; p < s_q * s_k; p += ATT_THREADS / 32) {
-    const int i = p / s_k, j = p % s_k;
-    float s = 0.0f;
-    for (int d = lane; d < hd; d += 32)
-      s += __bfloat162float(qs[i * hd + d]) * __bfloat162float(ks[j * hd + d]);
-    s = warp_sum(s);
-    if (lane == 0) {
-      bool ok = key_mask == nullptr || key_mask[b * s_k + j] > 0;
-      if (causal && j > i) ok = false;
-      ps[i][j] = s * scale + (ok ? 0.0f : NEG_INF);
-    }
-  }
-  __syncthreads();
-
-  // softmax as e / z in f32, times the keep mask; p rounded to bf16 before p @ v
-  for (int i = tid; i < s_q; i += ATT_THREADS) {
-    float m = ps[i][0];
-    for (int j = 1; j < s_k; ++j) m = fmaxf(m, ps[i][j]);
-    float z = 0.0f;
-    for (int j = 0; j < s_k; ++j) {
-      const float e = expf(ps[i][j] - m);
-      ps[i][j] = e;
-      z += e;
-    }
-    const uint32_t rt = dropout_row_term(b * s_q + i, op_base + h, drop.seed);
-    for (int j = 0; j < s_k; ++j) {
-      float p = ps[i][j] / z;
-      if (drop.on) p *= dropout_keep(rt, j, drop);
-      ps[i][j] = bf16_round(p);
-    }
-  }
-  __syncthreads();
-
-  for (int e = tid; e < s_q * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e % hd;
-    float acc = 0.0f;
-    for (int j = 0; j < s_k; ++j) acc += ps[i][j] * __bfloat162float(vs[j * hd + d]);
-    ctx[(size_t)(b * s_q + i) * ctx_ld + h * hd + d] = __float2bfloat16(acc);
-  }
-}
-
 // ------------------------------------------------- residual + LayerNorm
 constexpr int LN_THREADS = 256;
 
@@ -250,15 +176,6 @@ void gemm_nn(const void* A, int lda, const void* B, int ldb, const void* bias, v
   gemm_bias_kernel<<<grid, GEMM_THREADS, 0, st>>>(
       static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb,
       static_cast<const float*>(bias), C, ldc, M, N, K, epi, static_cast<bf16*>(pre_gelu));
-}
-
-void attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, const int* mask,
-               void* ctx, int ctx_ld, int batch, int nh, int hd, int s_q, int s_k, int causal,
-               DropoutParams drop, int op_base, cudaStream_t st) {
-  attention_kernel<<<batch * nh, ATT_THREADS, 0, st>>>(
-      static_cast<const bf16*>(q), q_ld, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      kv_ld, mask, static_cast<bf16*>(ctx), ctx_ld, nh, hd, s_q, s_k, causal,
-      1.0f / sqrtf(static_cast<float>(hd)), drop, op_base);
 }
 
 void residual_layernorm(const void* x, const void* a, const void* g, const void* be, void* out,

@@ -17,9 +17,24 @@ from kindergarten_vq_vae_torch.nn.bert import BertConfig
 __all__ = ["Bagon", "Shelgon3", "bert_configs", "build_model", "init_weights"]
 
 
+def _route(value: str, name: str) -> bool:
+    """A trunk switch of the run config: "on" and "auto" are True, "off" is
+    False, on every device. A recorded divergence from JAX's
+    ``_resolve_auto_flag`` / ``_resolve_fused_layer`` (``train/variants.py``
+    l.40-63), whose "auto" is off on the CPU because Pallas runs interpreted
+    there: the port's plain versions are no interpreters, so "auto" keeps the
+    fused layer on every device."""
+    if value not in ("auto", "on", "off"):
+        raise ValueError(f"{name} must be 'auto', 'on' or 'off', got {value!r}")
+    return value != "off"
+
+
 def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, BertConfig]:
     """(encoder, decoder) BertConfigs of a run; ``fused_head``: the decoder
-    hands the fused head + CE its inputs instead of logits."""
+    hands the fused head + CE its inputs instead of logits. ``fused_layer``
+    chooses the trunk (the whole-layer kernels or the per-module layers) and
+    ``fused_attn`` the per-module layers' attention core (#11 / #12 or
+    einsum); ``remat`` is read and ignored (ROADMAP)."""
     if "gpt" in cfg.decoder_model_name:
         raise NotImplementedError(
             "the GPT-2 decoder is not ported yet (ROADMAP, modules to port: item 7, nn/gpt2.py)")
@@ -28,6 +43,8 @@ def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, 
         num_heads=cfg.num_heads, intermediate_size=cfg.intermediate_size,
         hidden_dropout=cfg.hidden_dropout, attention_dropout=cfg.attention_dropout,
         tie_word_embeddings=cfg.tie_word_embeddings, gelu_exact=cfg.gelu_exact, dtype=cfg.dtype,
+        fused_layer=_route(cfg.fused_layer, "fused_layer"),
+        fused_sdpa=_route(cfg.fused_attn, "fused_attn"),
     )
     enc = BertConfig(add_pooler=True, **common)
     dec = BertConfig(is_decoder=True, add_cross_attention=True, add_pooler=False,

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS
+from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions
 from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel
 from kindergarten_vq_vae_torch.ops.vq import VQOutput, vector_quantize
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
@@ -53,19 +53,23 @@ class Shelgon3(nn.Module):
 
     def forward(self, input_ids, attention_mask, reference: bool = False,
                 deterministic: bool = True, is_training: bool = False,
-                generator: torch.Generator | None = None, decoder_input_ids=None) -> dict:
+                generator: torch.Generator | None = None, decoder_input_ids=None,
+                output_attentions: bool = False) -> dict:
         """The same ids feed encoder and decoder (the reference's forward),
         unless ``decoder_input_ids`` (the perturbed ids of the JAX package's
         opt-in decoder perturbation, l.156-161) feed the decoder.
         ``reference=True`` runs every kernel's plain version instead;
-        ``deterministic=False`` turns dropout on, drawn from ``generator``."""
+        ``deterministic=False`` turns dropout on, drawn from ``generator``;
+        ``output_attentions`` adds the decoder's ``decoder_attentions`` /
+        ``decoder_cross_attentions`` (l.225-227)."""
         del is_training  # steers only the Gumbel quantizer
         embeds = self.encoder(input_ids, attention_mask, reference=reference,
                               deterministic=deterministic, generator=generator)["last_hidden_state"]
         vq = self.vector_quantizer(embeds, reference)
         dec_ids = input_ids if decoder_input_ids is None else decoder_input_ids
         dec = self.decoder(dec_ids, attention_mask, encoder_hidden_states=vq.z_q,
-                           reference=reference, deterministic=deterministic, generator=generator)
+                           reference=reference, deterministic=deterministic, generator=generator,
+                           output_attentions=output_attentions)
         return {
             **{k: dec[k] for k in HEAD_KEYS if k in dec},
             "vq_loss": vq.loss,
@@ -74,4 +78,5 @@ class Shelgon3(nn.Module):
             "z_q": vq.z_q,
             "encoder_last_hidden_state": embeds,
             "ema_stats": {"counts": vq.counts, "sum_z": vq.sum_z},
+            **decoder_attentions(dec),
         }

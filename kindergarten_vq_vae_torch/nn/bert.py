@@ -1,30 +1,49 @@
 """BERT encoder and BERT-LM-head decoder with cross-attention.
 
-Counterpart of ``kindergarten_vq_vae_tpu/nn/bert.py`` on its fused-trunk
-path (``_fused_trunk`` l.366-466): embeddings + LayerNorm (+ dropout), one
-:func:`~kindergarten_vq_vae_torch.ops.layer.fused_bert_layer` call per layer,
-the pooler, and the MLM head with the tied 2-D vocab matmul or, with
-``fused_head`` (l.602-611 and l.659-666), its transform alone.
+Counterpart of ``kindergarten_vq_vae_tpu/nn/bert.py`` on both of its trunk
+routes. With ``cfg.fused_layer`` (the fused-trunk path, ``_fused_trunk``
+l.366-466): embeddings + LayerNorm (+ dropout), one
+:func:`~kindergarten_vq_vae_torch.ops.layer.fused_bert_layer` call per layer.
+Without it, or when attention probabilities are asked for (l.564-581): the
+per-module layers ``BertSelfAttention`` / ``BertCrossAttention`` / ``BertMlp``
+(l.155-250), whose projections are plain matmuls and whose attention core is
+:func:`~kindergarten_vq_vae_torch.ops.sdpa.fused_sdpa` (kernels #11 / #12)
+when ``cfg.fused_sdpa`` is set and probabilities are not asked for, else the
+einsum route (l.134-140). Then the pooler, and the MLM head with the tied
+2-D vocab matmul or, with ``fused_head`` (l.602-611 and l.659-666), its
+transform alone.
 
-Training (``deterministic=False``) draws one int32 seed per layer for the
-layers' hash dropout from an explicit :class:`torch.Generator` over the
-int32 range, as ``_fused_trunk`` l.398-408 draws them from the flax RNG;
-``deterministic=True`` gives zero seeds and zero rates. The embedding
-dropout (l.125) is flax-RNG dropout in JAX and cannot be reproduced; the
-port draws its mask from the same generator. Gradients reach the
-embeddings, the MLM head and the tied table through autograd, and the
-layers through :class:`~kindergarten_vq_vae_torch.ops.layer.FusedBertLayer`.
+The per-module layers keep the flax modules' rounding points: each
+``Dense`` gives its output in the compute dtype, residual sums are in the
+compute dtype, GELU runs in f32 and is cast back, and on the einsum route
+the scores, their scaling and the bias add are in the compute dtype with
+the softmax in f32.
+
+Training (``deterministic=False``) draws one int32 seed per fused layer, or
+per SDPA attention module, from an explicit :class:`torch.Generator` over
+the int32 range, all of a trunk's seeds in one draw, as ``_fused_trunk``
+l.398-408 and ``_sdpa_seed`` l.143-152 draw them from the flax RNG;
+``deterministic=True`` gives zero seeds and zero rates. The other dropout
+sites (the embeddings l.125, the per-module layers' hidden sites and the
+einsum route's probabilities) are flax-RNG dropout in JAX and cannot be
+reproduced; the port draws their masks from the same generator. Gradients
+reach the embeddings, the MLM head and the tied table through autograd, the
+fused layers through
+:class:`~kindergarten_vq_vae_torch.ops.layer.FusedBertLayer` and the SDPA
+core through :class:`~kindergarten_vq_vae_torch.ops.sdpa.FusedSdpa`.
 
 Parameters keep the Flax names and layouts (``Dense.kernel`` is ``(in, out)``,
-``LayerNorm.scale``), so the state dict of a module here is the Flax param
-tree with '.' for '/'. Parameters are f32; every forward computes in
-``cfg.dtype``, casting matmul kernels to it as the JAX trunk does, while
-biases and LayerNorm parameters stay f32 inside the layers.
+``LayerNorm.scale``), the same tree on both routes, so the state dict of a
+module here is the Flax param tree with '.' for '/'. Parameters are f32;
+every forward computes in ``cfg.dtype``, casting matmul kernels to it as the
+JAX trunk does, while biases and LayerNorm parameters stay f32 inside the
+fused layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +55,10 @@ from kindergarten_vq_vae_torch.ops.layer import (
     LayerGeom,
     fused_bert_layer,
 )
+from kindergarten_vq_vae_torch.ops.sdpa import fused_sdpa
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+NEG_INF = -1e9  # finite mask value, as the JAX package's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +81,11 @@ class BertConfig:
     # the decoder returns the MLM transform's output, the tied table and the
     # head bias for the fused head + CE (ops/head_ce.py) instead of logits
     fused_head: bool = False
+    # the trunk's route: the whole-layer kernels (#1 / #2), or with
+    # fused_layer off the per-module layers, whose attention core is #11 /
+    # #12 with fused_sdpa and the einsum route without it
+    fused_layer: bool = True
+    fused_sdpa: bool = True
     dtype: torch.dtype = torch.float32  # compute dtype; parameters are always f32
 
     @property
@@ -133,6 +159,47 @@ class BertEmbeddings(nn.Module):
         return dropout(x, rate, generator) if rate > 0.0 else x
 
 
+@dataclasses.dataclass(frozen=True)
+class _Run:
+    """What one per-module trunk call hands its modules."""
+
+    cfg: BertConfig
+    attn_rate: float
+    hid_rate: float
+    generator: torch.Generator | None
+    output_attentions: bool
+    reference: bool
+
+    @property
+    def sdpa(self) -> bool:
+        """The attention core is #11 / #12 (JAX l.167, l.209)."""
+        return self.cfg.fused_sdpa and not self.output_attentions
+
+    def hidden_dropout(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.hid_rate, self.generator) if self.hid_rate > 0.0 else x
+
+
+def _attention_probs(q, k, bias, dtype) -> torch.Tensor:
+    """``_attention_probs`` (JAX l.134-140): q, k (B, S, nh, hd) in the
+    compute dtype; the scores, their ``/ sqrt(hd)`` and the bias add in it,
+    the softmax in f32, the probabilities (B, nh, S_q, S_k) cast back."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.new_tensor(math.sqrt(q.shape[-1]))
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    return torch.softmax(scores.float(), dim=-1).to(dtype)
+
+
+def _einsum_attention(q, k, v, bias, run: _Run):
+    """The einsum route: (context (B, S_q, H), probabilities before dropout)."""
+    cfg = run.cfg
+    nh, hd = cfg.num_heads, cfg.head_dim
+    (b, sq, h), sk = q.shape, k.shape[1]
+    probs = _attention_probs(q.reshape(b, sq, nh, hd), k.reshape(b, sk, nh, hd), bias, cfg.dtype)
+    dropped = dropout(probs, run.attn_rate, run.generator) if run.attn_rate > 0.0 else probs
+    ctx = torch.einsum("bhqk,bkhd->bqhd", dropped, v.reshape(b, sk, nh, hd))
+    return ctx.reshape(b, sq, h), probs
+
+
 class _Block(nn.Module):
     """A parameter container: ``_Block(qkv=Dense(...), ...)``."""
 
@@ -142,20 +209,83 @@ class _Block(nn.Module):
             self.add_module(name, child)
 
 
+class BertSelfAttention(_Block):
+    """Fused-QKV self-attention, causal in a decoder (JAX l.155-193)."""
+
+    def forward(self, x, mask, seed: int, run: _Run):
+        cfg, dtype = run.cfg, run.cfg.dtype
+        q, k, v = self.qkv(x, dtype).split(cfg.hidden_size, dim=-1)
+        probs = None
+        if run.sdpa:
+            ctx = fused_sdpa(q, k, v, mask, seed, cfg.num_heads, causal=cfg.is_decoder,
+                             rate=run.attn_rate, reference=run.reference)
+        else:
+            s = x.shape[1]
+            bias = torch.zeros((1, 1, s, s), dtype=dtype, device=x.device)
+            if mask is not None:
+                bias = bias + (1.0 - mask[:, None, None, :].to(dtype)) * NEG_INF
+            if cfg.is_decoder:
+                causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+                bias = bias + torch.where(causal, 0.0, NEG_INF)[None, None].to(dtype)
+            ctx, probs = _einsum_attention(q, k, v, bias, run)
+        out = run.hidden_dropout(self.out(ctx, dtype))
+        return self.layer_norm(x + out, dtype), probs
+
+
+class BertCrossAttention(_Block):
+    """Queries from the decoder states, fused KV from the encoder states (JAX l.196-234)."""
+
+    def forward(self, x, kv_states, mask, seed: int, run: _Run):
+        cfg, dtype = run.cfg, run.cfg.dtype
+        q = self.q(x, dtype)
+        k, v = self.kv(kv_states, dtype).split(cfg.hidden_size, dim=-1)
+        probs = None
+        if run.sdpa:
+            ctx = fused_sdpa(q, k, v, mask, seed, cfg.num_heads, rate=run.attn_rate,
+                             reference=run.reference, cross=True)
+        else:
+            bias = None if mask is None else (1.0 - mask[:, None, None, :].to(dtype)) * NEG_INF
+            ctx, probs = _einsum_attention(q, k, v, bias, run)
+        out = run.hidden_dropout(self.out(ctx, dtype))
+        return self.layer_norm(x + out, dtype), probs
+
+
+class BertMlp(_Block):
+    """Dense + GELU + Dense, residual, LayerNorm (JAX l.237-250)."""
+
+    def forward(self, x, run: _Run):
+        cfg, dtype = run.cfg, run.cfg.dtype
+        y = self.intermediate(x, dtype)
+        y = F.gelu(y.float(), approximate="none" if cfg.gelu_exact else "tanh").to(dtype)
+        y = run.hidden_dropout(self.output(y, dtype))
+        return self.layer_norm(x + y, dtype)
+
+
 class BertLayer(nn.Module):
-    """Parameters of one post-LN layer under the Flax names; the math is in
+    """One post-LN layer under the Flax names: the per-module forward here,
+    or its flat weights for the fused kernels of
     :mod:`kindergarten_vq_vae_torch.ops.layer`."""
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         h, f, eps = cfg.hidden_size, cfg.intermediate_size, cfg.layer_norm_eps
-        self.self_attn = _Block(qkv=Dense(h, 3 * h, device), out=Dense(h, h, device),
-                                layer_norm=LayerNorm(h, eps, device))
+        self.self_attn = BertSelfAttention(qkv=Dense(h, 3 * h, device), out=Dense(h, h, device),
+                                           layer_norm=LayerNorm(h, eps, device))
         if cfg.add_cross_attention:
-            self.cross_attn = _Block(q=Dense(h, h, device), kv=Dense(h, 2 * h, device),
-                                     out=Dense(h, h, device), layer_norm=LayerNorm(h, eps, device))
-        self.mlp = _Block(intermediate=Dense(h, f, device), output=Dense(f, h, device),
-                          layer_norm=LayerNorm(h, eps, device))
+            self.cross_attn = BertCrossAttention(q=Dense(h, h, device), kv=Dense(h, 2 * h, device),
+                                                 out=Dense(h, h, device),
+                                                 layer_norm=LayerNorm(h, eps, device))
+        self.mlp = BertMlp(intermediate=Dense(h, f, device), output=Dense(f, h, device),
+                           layer_norm=LayerNorm(h, eps, device))
+
+    def forward(self, x, enc, smask, cmask, seeds: tuple[int, int], run: _Run):
+        """(x, self-attention probabilities, cross-attention probabilities);
+        the probabilities are None on the SDPA route and without cross-attention."""
+        x, self_probs = self.self_attn(x, smask, seeds[0], run)
+        cross_probs = None
+        if enc is not None:
+            x, cross_probs = self.cross_attn(x, enc, cmask, seeds[1], run)
+        return self.mlp(x, run), self_probs, cross_probs
 
     def weights(self, dtype: torch.dtype, use_cross: bool) -> tuple[torch.Tensor, ...]:
         """Flat weights in ENC_WEIGHTS / DEC_WEIGHTS order, matmul kernels in ``dtype``."""
@@ -170,6 +300,12 @@ class BertLayer(nn.Module):
                mlp.layer_norm.scale, mlp.layer_norm.bias]
         names = DEC_WEIGHTS if use_cross else ENC_WEIGHTS
         return tuple(w.to(dtype) if n.startswith("w") else w for n, w in zip(names, ws))
+
+
+def _seeds(n: int, generator: torch.Generator) -> list[int]:
+    """``n`` int32 seeds in one draw and one host copy."""
+    return torch.randint(INT32_MIN, INT32_MAX, (n,), generator=generator, device=generator.device,
+                         dtype=torch.int64).tolist()
 
 
 class BertModel(nn.Module):
@@ -188,11 +324,15 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, reference: bool = False, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> dict:
-        """``reference=True`` runs the layers' plain version on any device
-        (the kernel's comparison baseline); otherwise CUDA tensors go through
-        the layer kernels. ``deterministic=False`` turns dropout on and needs
-        ``generator`` (on the inputs' device)."""
+                generator: torch.Generator | None = None, output_attentions: bool = False) -> dict:
+        """``reference=True`` runs the kernels' plain versions on any device
+        (the comparison baseline); otherwise CUDA tensors go through the
+        layer kernels or, on the per-module route, the SDPA kernels.
+        ``deterministic=False`` turns dropout on and needs ``generator`` (on
+        the inputs' device). ``output_attentions`` takes the per-module einsum
+        route and adds ``attentions`` / ``cross_attentions``: per layer the
+        (B, nh, S_q, S_k) probabilities before dropout, in the compute dtype
+        (None for cross-attention in an encoder), as JAX l.564-591 does."""
         cfg = self.cfg
         dtype = cfg.dtype
         drop = not deterministic and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0)
@@ -202,32 +342,45 @@ class BertModel(nn.Module):
         attn_rate = cfg.attention_dropout if drop else 0.0
         x = self.embeddings(input_ids, dtype, hid_rate, generator)
         has_cross = cfg.add_cross_attention and encoder_hidden_states is not None
-        geom = LayerGeom(
-            num_heads=cfg.num_heads, head_dim=cfg.head_dim, intermediate=cfg.intermediate_size,
-            causal=cfg.is_decoder, has_cross=has_cross, eps=cfg.layer_norm_eps,
-            gelu_exact=cfg.gelu_exact, attn_rate=attn_rate, hid_rate=hid_rate,
-        )
-        seeds = [0] * cfg.num_layers
-        if drop:
-            seeds = torch.randint(INT32_MIN, INT32_MAX, (cfg.num_layers,), generator=generator,
-                                  device=generator.device, dtype=torch.int64).tolist()
-        enc = None
-        if has_cross:
-            # the f32 VQ output enters the decoder layers in the compute dtype,
-            # as layer_pallas.py:861 casts it; under autograd each layer casts
-            # it and returns its gradient in the f32 it came in
-            enc = encoder_hidden_states.contiguous()
-            if not (torch.is_grad_enabled() and enc.requires_grad):
-                enc = enc.to(dtype)
         smask = None if attention_mask is None else attention_mask.to(torch.int32).contiguous()
         cmask = None
         if has_cross and encoder_attention_mask is not None:
             cmask = encoder_attention_mask.to(torch.int32).contiguous()
-        for i in range(cfg.num_layers):
-            ws = getattr(self, f"layer_{i}").weights(dtype, has_cross)
-            x = fused_bert_layer(geom, x, enc, smask, cmask, ws, seeds[i], reference=reference)
+        layers = [getattr(self, f"layer_{i}") for i in range(cfg.num_layers)]
+        out = {}
+        if cfg.fused_layer and not output_attentions:
+            geom = LayerGeom(
+                num_heads=cfg.num_heads, head_dim=cfg.head_dim, intermediate=cfg.intermediate_size,
+                causal=cfg.is_decoder, has_cross=has_cross, eps=cfg.layer_norm_eps,
+                gelu_exact=cfg.gelu_exact, attn_rate=attn_rate, hid_rate=hid_rate,
+            )
+            seeds = _seeds(cfg.num_layers, generator) if drop else [0] * cfg.num_layers
+            enc = None
+            if has_cross:
+                # the f32 VQ output enters the decoder layers in the compute dtype,
+                # as layer_pallas.py:861 casts it; under autograd each layer casts
+                # it and returns its gradient in the f32 it came in
+                enc = encoder_hidden_states.contiguous()
+                if not (torch.is_grad_enabled() and enc.requires_grad):
+                    enc = enc.to(dtype)
+            for layer, seed in zip(layers, seeds):
+                x = fused_bert_layer(geom, x, enc, smask, cmask, layer.weights(dtype, has_cross),
+                                     seed, reference=reference)
+        else:
+            run = _Run(cfg, attn_rate, hid_rate, generator, output_attentions, reference)
+            n = cfg.num_layers * (2 if has_cross else 1)
+            seeds = _seeds(n, generator) if run.sdpa and attn_rate > 0.0 else [0] * n
+            enc = encoder_hidden_states if has_cross else None
+            self_attns, cross_attns = [], []
+            for i, layer in enumerate(layers):
+                pair = (seeds[2 * i], seeds[2 * i + 1]) if has_cross else (seeds[i], 0)
+                x, sp, cp = layer(x, enc, smask, cmask, pair, run)
+                self_attns.append(sp)
+                cross_attns.append(cp)
+            if output_attentions:
+                out.update(attentions=tuple(self_attns), cross_attentions=tuple(cross_attns))
         pooled = torch.tanh(self.pooler(x[:, 0], dtype)) if cfg.add_pooler else None
-        return {"last_hidden_state": x, "pooler_output": pooled}
+        return {"last_hidden_state": x, "pooler_output": pooled, **out}
 
 
 class BertMLMHead(nn.Module):
@@ -273,10 +426,10 @@ class BertLMHeadModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, reference: bool = False, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, output_attentions: bool = False) -> dict:
         out = self.bert(input_ids, attention_mask, encoder_hidden_states,
                         encoder_attention_mask, reference=reference, deterministic=deterministic,
-                        generator=generator)
+                        generator=generator, output_attentions=output_attentions)
         table = self.bert.embeddings.word_embeddings.embedding
         if self.mlm_head.cfg.fused_head:
             if not self.mlm_head.cfg.tie_word_embeddings:

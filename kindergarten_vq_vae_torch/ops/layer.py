@@ -69,7 +69,7 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "wq", "bq", "wkv", "bkv", "wco", "bco", "g2", "be2",
                "w1", "b1", "w2", "b2", "g3", "be3")
 
-# limits of csrc/layer_fwd.cu's and layer_bwd.cu's attention kernels (ATT_MAX_S, ATT_MAX_HD)
+# limits of the attention kernels of csrc/attention.cuh (ATT_MAX_S, ATT_MAX_HD)
 MAX_SEQ = 32
 MAX_HEAD_DIM = 128
 
@@ -304,14 +304,26 @@ def attention_backward_reference(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, 
     with the contract of ``_attn_bwd_call`` (l.730). Self (``kv`` None):
     qkv (B, S, 3H) -> dqkv (B, S, 3H). Cross: q (B, S, H), kv (B, S_k, 2H) ->
     (dq (B, S, H), dkv (B, S_k, 2H)). Outputs in the compute dtype."""
-    cdtype = qkv_or_q.dtype
     if kv is None:
         H = qkv_or_q.shape[-1] // 3
         q, k, v = qkv_or_q[..., :H], qkv_or_q[..., H:2 * H], qkv_or_q[..., 2 * H:]
     else:
         H = qkv_or_q.shape[-1]
         q, k, v = qkv_or_q, kv[..., :H], kv[..., H:]
-    b, sq, _ = q.shape
+    dq, dk, dv = attention_grads(q, k, v, key_mask, g_ctx, num_heads, causal, seed, op_base, rate)
+    if kv is None:
+        return torch.cat([dq, dk, dv], dim=-1)
+    return dq, torch.cat([dk, dv], dim=-1)
+
+
+def attention_grads(q, k, v, key_mask, g_ctx, num_heads: int, causal: bool, seed=0, op_base=0,
+                    rate=0.0):
+    """dq, dk, dv of :func:`_attention` (``_sdpa_bwd_kernel``'s and
+    ``_attn_bwd_tile``'s function): p recomputed from q and k, the keep mask
+    on dv and dp, ds rounded to q's dtype before dq and dk; each gradient in
+    q's dtype."""
+    cdtype = q.dtype
+    b, sq, H = q.shape
     nh = num_heads
     scale = 1.0 / math.sqrt(H // nh)
     p = _probs(q, k, key_mask, causal, nh)
@@ -327,10 +339,7 @@ def attention_backward_reference(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, 
     ds = (p * (dp - t) * scale).to(cdtype).float()
     dq = _merge(ds @ kh).to(cdtype)
     dk = _merge(ds.transpose(-1, -2) @ qh).to(cdtype)
-    dv = _merge(dv).to(cdtype)
-    if kv is None:
-        return torch.cat([dq, dk, dv], dim=-1)
-    return dq, torch.cat([dk, dv], dim=-1)
+    return dq, dk, _merge(dv).to(cdtype)
 
 
 def layer_backward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, out, gy,

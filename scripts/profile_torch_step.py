@@ -2,10 +2,13 @@
 """Where the time of one training step of the PyTorch port goes, on one CUDA card.
 
     python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
+                                          [--fused-layer auto]
 
 Builds a seeded full-width bert-base Shelgon3-VQ (bf16, dropout 0.1 / 0.1,
 AMSGrad lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
-fused head + CE, kernels #9 and #10, in place of the logits path), warms up,
+fused head + CE, kernels #9 and #10, in place of the logits path;
+``--fused-layer off``: the per-module trunk, cuBLAS projections around the
+SDPA kernels #11 / #12, in place of the fused layers), warms up,
 then reports for one batch of ``--batch`` x 12 tokens:
 
 - the wall time of a step (host clock around a synchronized step);
@@ -46,8 +49,8 @@ FAMILIES = (
     ("gemm_kernel<true, false, 8>", "layer GEMM, wgrad split-K partials (wmma)"),
     ("gemm_kernel<true, false", "layer GEMM, wgrad (wmma)"),
     ("splitk_reduce", "split-K sums (layer wgrad; #10's dbias)"),
-    ("attention_bwd_kernel", "attention backward"),
-    ("attention_kernel", "attention forward"),
+    ("attention_bwd_kernel", "attention backward (in #2, or #12)"),
+    ("attention_kernel", "attention forward (in #1, or #11)"),
     ("residual_layernorm", "residual + LayerNorm forward"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("parts_reduce", "column sums (LN / bias gradients)"),
@@ -55,9 +58,9 @@ FAMILIES = (
     ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
     ("vq_", "VQ forward"),
-    ("nvjet", "cuBLAS (head, pooler, MLM transform)"),
-    ("gemm", "cuBLAS (head, pooler, MLM transform)"),
-    ("cutlass", "cuBLAS (head, pooler, MLM transform)"),
+    ("nvjet", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
+    ("gemm", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
+    ("cutlass", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
     ("Memset", "memset"),
     ("Memcpy", "memcpy"),
 )
@@ -78,6 +81,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fused-head-ce", choices=("off", "store", "flash"), default="off")
+    ap.add_argument("--fused-layer", choices=("auto", "off"), default="auto")
     args = ap.parse_args()
 
     import numpy as np
@@ -92,7 +96,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16",
-                    fused_head_ce=args.fused_head_ce)
+                    fused_head_ce=args.fused_head_ce, fused_layer=args.fused_layer)
     model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(cfg, model)
@@ -145,7 +149,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
-        "fused_head_ce": args.fused_head_ce,
+        "fused_head_ce": args.fused_head_ce, "fused_layer": args.fused_layer,
         "wall_ms_median": statistics.median(walls),
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
         "profiled_wall_ms": prof_wall, "kernels_ms": kernels_ms,

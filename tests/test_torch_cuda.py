@@ -26,12 +26,16 @@ are more than 2 dl apart (99% of rows in all); flash bit for bit equal
 to store; g within one bf16 ulp (1e-2 of the largest), dbias within 1e-3 of
 its largest, dx within 1e-2 of its largest, against the plain backward on
 the same logits; the table gradient within 1e-4 of its largest.
+SDPA (#11 / #12) and MHA (#13): outputs and gradients within 2e-2 of their
+largest magnitude (the attention backward's bar: the same device code), the
+attention keep masks exact.
 """
 
 import pytest
 import torch
 
 from kindergarten_vq_vae_torch.ops.adam import AdamScalars, adam_update_reference, amsgrad_update
+from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
 from kindergarten_vq_vae_torch.ops.ce import (
     ce_bwd,
     ce_bwd_reference,
@@ -62,6 +66,13 @@ from kindergarten_vq_vae_torch.ops.layer import (
     layer_forward,
     layer_forward_reference,
     residual_names,
+)
+from kindergarten_vq_vae_torch.ops.sdpa import (
+    fused_sdpa,
+    sdpa_backward,
+    sdpa_backward_reference,
+    sdpa_forward,
+    sdpa_forward_reference,
 )
 from kindergarten_vq_vae_torch.ops.vq import vector_quantize
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
@@ -369,3 +380,103 @@ def test_amsgrad_kernel_matches_plain_bit_for_bit(gen):
     assert amsgrad_update.launches == before + 2
     for a, b in zip(sum(k, []), sum(p, [])):
         assert torch.equal(a, b)
+
+
+def _views(gen, cross, B, S, SK, H):
+    """q, k, v as the per-module trunk hands them over: split views of a
+    packed qkv (self) or of q and a packed kv (cross)."""
+    if cross:
+        q = torch.randn(B, S, H, device="cuda", generator=gen).bfloat16()
+        k, v = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).bfloat16().split(H, -1)
+        return q, k, v
+    return torch.randn(B, S, 3 * H, device="cuda", generator=gen).bfloat16().split(H, -1)
+
+
+@pytest.mark.parametrize("cross,causal,rate", [
+    (False, True, 0.1), (False, False, 0.0), (True, False, 0.1), (True, False, 0.0),
+])
+def test_sdpa_kernels_match_plain(gen, cross, causal, rate):
+    B, S, SK, H, NH = 37, 12, 9 if cross else 12, 256, 4
+    q, k, v = _views(gen, cross, B, S, SK, H)
+    lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
+    mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    g = torch.randn(B, S, H, device="cuda", generator=gen).bfloat16()
+    before = (sdpa_forward.launches, sdpa_forward.cross_launches, sdpa_backward.launches,
+              sdpa_backward.cross_launches)
+    out = sdpa_forward(q, k, v, mask, -77, NH, causal, rate, cross)
+    grads = sdpa_backward(q, k, v, mask, -77, g, NH, causal, rate, cross)
+    torch.cuda.synchronize()
+    assert (sdpa_forward.launches, sdpa_forward.cross_launches, sdpa_backward.launches,
+            sdpa_backward.cross_launches) == (before[0] + 1, before[1] + int(cross),
+                                              before[2] + 1, before[3] + int(cross))
+    want = sdpa_forward_reference(q, k, v, mask, -77, NH, causal, rate)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, H)
+    assert torch.isfinite(out).all() and _rel_max(out, want) <= 2e-2
+    for a, b in zip(grads, sdpa_backward_reference(q, k, v, mask, -77, g, NH, causal, rate)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape and _rel_max(a, b) <= 2e-2
+
+
+def test_sdpa_autograd_runs_the_kernels(gen):
+    q, k, v = (t.detach().requires_grad_() for t in _views(gen, False, 5, 12, 12, 128))
+    before = sdpa_forward.launches, sdpa_backward.launches
+    fused_sdpa(q, k, v, None, 3, 2, True, 0.1).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (sdpa_forward.launches, sdpa_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_sdpa_keep_masks_are_exact(gen):
+    """q = k = 0 and v the one-hot of the key position: the context's nonzero
+    pattern is p * keep per (query, key, head), and equals the plain mask."""
+    B, S, H, NH = 9, 12, 128, 2
+    hd = H // NH
+    q = torch.zeros(B, S, H, device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros(B, S, H, device="cuda")
+    for h in range(NH):
+        v[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
+    out = sdpa_forward(q, q, v.bfloat16(), None, 123, NH, True, 0.3)
+    ctx = out.view(B, S, NH, hd)[..., :S]
+    tril = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    for h in range(NH):
+        keep = attention_keep(123, h, B, S, S, 0.3, "cuda") > 0
+        assert torch.equal(ctx[:, :, h] > 0, keep & tril)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, True), (True, False), (True, True)])
+def test_mha_kernel_matches_plain(gen, causal, masked):
+    B, S, H, NH = 21, 12, 256, 4
+    q, k, v = (t.detach().requires_grad_() for t in _views(gen, False, B, S, S, H))
+    mask = None
+    if masked:
+        mask = torch.randint(0, 2, (B, S), device="cuda", generator=gen, dtype=torch.int32)
+        mask[:, 0] = 1
+        mask[3] = 0  # a fully masked sentence: uniform over every key
+    before = mha_forward.launches
+    out = fused_mha(q, k, v, mask, NH, causal)
+    g = torch.randn(B, S, H, device="cuda", generator=gen).bfloat16()
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert mha_forward.launches == before + 1
+    with torch.no_grad():
+        want = mha_reference(q, k, v, mask, NH, causal)
+    assert out.dtype == torch.bfloat16 and _rel_max(out, want) <= 2e-2
+    if masked:
+        assert _rel_max(out[3], v[3].float().mean(0).expand(S, H)) <= 2e-2
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    mha_reference(qq, kk, vv, mask, NH, causal).backward(g)
+    for a, b in ((q, qq), (k, kk), (v, vv)):
+        assert torch.equal(a.grad, b.grad)  # the backward is autograd through the plain version
+
+
+def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
+    q = torch.randn(2, 12, 128, device="cuda", generator=gen)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sdpa_forward(q, q, q, None, 0, 2)
+    long = torch.zeros(2, 33, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sequences"):
+        sdpa_forward(long, long, long, None, 0, 2)
+    with pytest.raises(ValueError, match="one sequence length"):
+        mha_forward(q.bfloat16(), long[:, :9], long[:, :9], None, 2)
+    qb, kb, vb = _views(gen, False, 2, 12, 12, 128)
+    with pytest.raises(ValueError, match="strided"):  # k and v at two row strides
+        sdpa_forward(qb, kb, vb.contiguous(), None, 0, 2)

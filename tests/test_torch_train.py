@@ -28,8 +28,13 @@ The step's update is the single-pass AMSGrad of ``fused_update="auto"``
 (kernel #14's plain version on the CPU). The optax-form optimizer alone is
 held against the optax chain over 5 steps at rel 1e-6. Bagon runs one step
 under the same criteria, and Shelgon3 three more with
-``fused_head_ce="flash"`` (the fused head + CE on both sides). The last test
-lists what the step still refuses, each with its ROADMAP item.
+``fused_head_ce="flash"`` (the fused head + CE on both sides). With
+``fused_layer="off"`` on both sides, Shelgon3 three steps and Bagon one run
+through the per-module trunk, once with ``fused_attn="on"`` (JAX: the Pallas
+SDPA kernels in interpret mode; the port: #11 / #12's plain versions) and
+once with ``"off"`` (the einsum route on both sides), under the same
+criteria. The last test lists what the step still refuses, each with its
+ROADMAP item.
 """
 
 import jax
@@ -59,12 +64,13 @@ OPTIM = OptimConfig(lr=1e-3, weight_decay=0.01, lr_scheduler="MultiStepLR", mile
                     gamma=0.5)
 
 
-def _cfg(model_name, fused_head_ce="auto"):
+def _cfg(model_name, fused_head_ce="auto", fused_layer="auto", fused_attn="auto"):
     return RunConfig(
         model=ModelConfig(model_name=model_name, vocab_size=V, hidden_size=64, num_layers=2,
                           num_heads=4, intermediate_size=128, compute_dtype="float32",
                           vq_e_dim=64, enc_out_size=64, vq_n_e=9, fused_head_ce=fused_head_ce,
-                          head_ce_block_r=64, head_ce_block_v=256),
+                          head_ce_block_r=64, head_ce_block_v=256, fused_layer=fused_layer,
+                          fused_attn=fused_attn, sdpa_block_b=4),
         data=DataConfig(batch_size=B, tokenized_sentence_max_length=S), optim=OPTIM)
 
 
@@ -89,8 +95,8 @@ def _rel(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
 
 
-def _run(model_name, n_steps, fused_head_ce="auto"):
-    cfg = _cfg(model_name, fused_head_ce)
+def _run(model_name, n_steps, fused_head_ce="auto", fused_layer="auto", fused_attn="auto"):
+    cfg = _cfg(model_name, fused_head_ce, fused_layer, fused_attn)
     params = init_params(cfg, jax.random.key(0))
     tcfg = TorchRunConfig.from_flat_dict(cfg.get_config())
     model = build_model(tcfg, fused_head=fused_head_ce != "auto")
@@ -148,6 +154,16 @@ def test_shelgon3_fused_head_flash_train_steps_match_jax():
 
 def test_bagon_train_step_matches_jax():
     _run("bagon", 1)
+
+
+@pytest.mark.parametrize("fused_attn", ["on", "off"])
+def test_shelgon3_unfused_train_steps_match_jax(fused_attn):
+    _run("shelgon3", 3, fused_layer="off", fused_attn=fused_attn)
+
+
+@pytest.mark.parametrize("fused_attn", ["on", "off"])
+def test_bagon_unfused_train_step_matches_jax(fused_attn):
+    _run("bagon", 1, fused_layer="off", fused_attn=fused_attn)
 
 
 def test_optimizer_matches_optax_chain():
