@@ -8,6 +8,11 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles ``kindergarten_vq_vae_torch/csrc/*.cu`` into
    ``kindergarten_vq_vae_torch/build/`` (first use);
+2b. the layer GEMM (wgmma + TMA) at every product of the batch-2048 step
+   (forward, data gradient and weight gradient, each with its epilogue) and
+   the forward at the bucket-256 serving rows, against its plain version,
+   with its time, TFLOP/s and share of the bf16 peak beside ``torch.matmul``
+   in bf16 at the same shape; one weight gradient twice, bit for bit;
 3. kernels vs plain, serving: the layer forward and the VQ kernel against
    their plain PyTorch versions on the card at the shapes of a bucket-256
    bert-base forward (256 sentences x 12 tokens), with padded masks, and each
@@ -17,7 +22,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
 4. kernels vs plain, training: the layer forward in training mode (dropout
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
    (self and cross) and the three CE kernels (#6, #7, #8) at the shapes of
-   the batch-2048 bert-base training step, and layers whose weights make
+   the batch-2048 bert-base training step, with ``nn.TransformerEncoderLayer``
+   / ``DecoderLayer`` in train mode (dropout 0) and the autograd backward of
+   ``F.scaled_dot_product_attention`` as yardsticks, and layers whose weights make
    every keep mask visible (self and cross heads, the three hidden sites,
    forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
    forward, #8 backward) driven once through its autograd;
@@ -200,6 +207,7 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
     from kindergarten_vq_vae_torch.ops.attention import mha_forward
     from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd, ce_fwd_ids
+    from kindergarten_vq_vae_torch.ops.gemm import gemm
     from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
@@ -213,7 +221,8 @@ def _wrappers() -> dict:
             "attn_bwd": attention_backward, "vq": vector_quantize_kernel,
             "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
             "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update,
-            "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward}
+            "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward,
+            "gemm": gemm}
 
 
 # wrappers whose launches are split into self- and cross-attention
@@ -222,13 +231,16 @@ _SPLIT = ("attn_bwd", "sdpa_fwd", "sdpa_bwd")
 
 def _counters() -> dict:
     """Every wrapper's launch count; the attention kernels' split into self
-    and cross, and the layer forwards that kept residuals (training) apart."""
+    and cross, the layer forwards that kept residuals (training) apart, and
+    the layer GEMM's launches inside layer forwards (``gemm_in_fwd``, a share
+    of ``gemm``)."""
     w = _wrappers()
     counts = {k: fn.launches for k, fn in w.items()}
     for k in _SPLIT:
         cross = w[k].cross_launches
         counts.update({f"{k}_self": counts.pop(k) - cross, f"{k}_cross": cross})
     counts["layer_fwd_resid"] = w["layer_fwd"].residual_launches
+    counts["gemm_in_fwd"] = w["gemm"].forward_launches
     return counts
 
 
@@ -239,6 +251,19 @@ def _reset_counters() -> None:
     for k in _SPLIT:
         w[k].cross_launches = 0
     w["layer_fwd"].residual_launches = 0
+    w["gemm"].forward_launches = 0
+
+
+def _gemms(forwards: int, backwards: int = 0, encoder_forwards: int = 0) -> dict:
+    """The layer GEMM's launches in that many model forwards (12 encoder and
+    12 decoder layers), backwards and encoder-only forwards, as counted."""
+    from kindergarten_vq_vae_torch.ops.layer import LayerGeom, layer_gemms
+
+    geom = dict(num_heads=12, head_dim=64, intermediate=3072, eps=1e-12, gelu_exact=True)
+    enc = layer_gemms(LayerGeom(causal=False, has_cross=False, **geom))
+    dec = layer_gemms(LayerGeom(causal=True, has_cross=True, **geom))
+    fwd = 12 * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
+    return {"gemm": fwd + 12 * backwards * (enc[1] + dec[1]), "gemm_in_fwd": fwd}
 
 
 def _nbytes(*objs) -> int:
@@ -313,6 +338,140 @@ def _layer_case(decoder: bool, g, batch: int = BUCKET, rate: float = 0.0):
         ws.append((0.02 * r).bfloat16() if n.startswith("w") else 1.0 + 0.1 * r if n.startswith("g")
                   else 0.02 * r)
     return geom, x, enc, smask, ws
+
+
+# the layer's products at the bert-base width: (name, in, out, the forward's
+# epilogue, the data gradient's epilogue); the decoder's wkv runs over the
+# encoder's rows (as many: s_k = 12)
+LAYER_PRODUCTS = (("wqkv", 768, 2304, "bf16", "add_bf16"), ("wo", 768, 768, "f32", "bf16"),
+                  ("w1", 768, 3072, "gelu_erf", "add_f32"), ("w2", 3072, 768, "f32", "dgelu_erf"),
+                  ("wq", 768, 768, "bf16", "add_f32"), ("wco", 768, 768, "f32", "bf16"),
+                  ("wkv", 768, 1536, "bf16", "f32"))
+# the layer GEMM vs its plain version on the card: an f32 output within
+# GEMM_REL of the largest magnitude of the plain version's (f32 sums of up to
+# 3,072 products in another order, tanhf ulps in the GELU epilogues); a bf16
+# output within half a bf16 ulp of the plain version's f32 value before its
+# rounding, plus the same GEMM_REL
+GEMM_REL = 1e-4
+
+
+def _gemm_excess(got, want) -> float:
+    """How far ``got`` lies outside its bar around the f32 value ``want``
+    (GEMM_REL; plus half a bf16 ulp for a bf16 output): <= 0 passes."""
+    import torch
+
+    tol = GEMM_REL * want.abs().max().item() + torch.zeros_like(want)
+    if got.dtype == torch.bfloat16:
+        tol += torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 8)
+    return ((got.float() - want).abs() - tol).max().item()
+
+
+def phase_layer_gemms(names: tuple[str, str]) -> dict:
+    """The layer GEMM (``ops/gemm.py``) at every product of the batch-2048
+    step (24,576 rows: forward NN, data gradient NT, weight gradient TN, each
+    with the step's epilogue) and the forward at the bucket-256 serving rows
+    (3,072): held against ``gemm_reference`` (f32 ``torch.matmul``, TF32 off),
+    timed beside it, its TFLOP/s and share of the bf16 peak, and
+    ``torch.matmul`` in bf16 at the same shape as the yardstick; one weight
+    gradient run twice must give the same bits."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.gemm import (
+        gelu,
+        gelu_grad,
+        gemm,
+        gemm_plan,
+        gemm_reference,
+        sm_count,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [], "library_ms": [],
+               "flops": 0.0} for k in ("fwd", "grad")}
+    sms = sm_count(torch.device("cuda"))
+    for rows in (TRAIN_BATCH * SEQ, BUCKET * SEQ):
+        for name, k_in, k_out, fwd_epi, dgrad_epi in LAYER_PRODUCTS:
+            x = torch.randn(rows, k_in, device="cuda", generator=g).bfloat16()
+            w = (torch.randn(k_in, k_out, device="cuda", generator=g) / k_in ** 0.5).bfloat16()
+            bias = 0.02 * torch.randn(k_out, device="cuda", generator=g)
+            dy = (0.1 * torch.randn(rows, k_out, device="cuda", generator=g)).bfloat16()
+            aux = None
+            if dgrad_epi.startswith("add"):
+                aux = torch.randn(rows, k_in, device="cuda", generator=g)
+            elif dgrad_epi.startswith("dgelu"):
+                aux = (2.0 * torch.randn(rows, k_in, device="cuda", generator=g)).bfloat16()
+            cases = [("fwd", "NN", (x, w), dict(epi=fwd_epi, bias=bias), lambda: x @ w,
+                      (rows, k_out, k_in))]
+            if rows == TRAIN_BATCH * SEQ:
+                cases += [("dgrad", "NT", (dy, w), dict(b_t=True, epi=dgrad_epi, aux=aux),
+                           lambda: dy @ w.t(), (rows, k_in, k_out)),
+                          ("wgrad", "TN", (x, dy), dict(a_t=True, epi="bf16"),
+                           lambda: x.t() @ dy, (k_in, k_out, rows))]
+            for kind, layout, ops, kw, lib, (M, N, K) in cases:
+                two = kw["epi"].startswith(("gelu", "dgelu"))
+                got = gemm(*ops, **kw, out2=two)
+                torch.cuda.synchronize()
+                got = got if two else (got,)
+                acc = gemm_reference(*ops, a_t=kw.get("a_t", False), b_t=kw.get("b_t", False),
+                                     bias=kw.get("bias"))
+                epi = kw["epi"]
+                if epi.startswith("gelu"):
+                    want = (gelu(acc, True), acc)
+                elif epi.startswith("add"):
+                    want = (acc + aux,)
+                elif epi.startswith("dgelu"):
+                    want = (acc * gelu_grad(aux.float(), True),) * 2
+                else:
+                    want = (acc,)
+                excess = max(_gemm_excess(a, b) for a, b in zip(got, want))
+                err = max((a.float() - b).abs().max().item() for a, b in zip(got, want))
+                if not all(_finite(a) for a in got) or excess > 0:
+                    _fail(f"layer GEMM {name} {kind} ({M}, {N}, {K}) {epi} disagrees with its "
+                          f"plain version (excess {excess:.3e})")
+                k_ms, p_ms = _paired_ms(lambda: gemm(*ops, **kw, out2=two),
+                                        lambda: gemm_reference(*ops, **kw, out2=two), 10)
+                lib_ms = _time_ms(lib, 10)
+                flops = 2.0 * M * N * K
+                bound = _bound(flops, _nbytes(ops, kw.get("bias"), kw.get("aux"), got),
+                               PEAK_BF16)
+                plan = gemm_plan(M, N, K, kind == "wgrad", sms, epi)
+                tf = flops / k_ms / 1e9
+                line = (f"layer GEMM {name:4s} {kind:5s} {layout} ({M},{N},{K}) {epi:9s} tile "
+                        f"{plan.tile_n} splits {plan.splits}: {k_ms:.4f} ms, {tf:.1f} TFLOP/s "
+                        f"({tf / (PEAK_BF16 / 1e12):.3f} of peak), torch.matmul bf16 "
+                        f"{lib_ms:.4f} ms ({k_ms / lib_ms:.3f}x), plain {p_ms:.4f} ms, bound "
+                        f"{bound[0]:.4f} ms, max abs {err:.3e}")
+                print(line)
+                if rows == TRAIN_BATCH * SEQ:
+                    r = res["fwd" if kind == "fwd" else "grad"]
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    r["ms"].append(k_ms)
+                    r["plain_ms"].append(p_ms)
+                    r["bound"].append(bound)
+                    r["library_ms"].append(lib_ms)
+                    r["flops"] += flops
+                del got, acc, want
+            if rows == TRAIN_BATCH * SEQ and name == "wo":
+                one = gemm(x, dy, a_t=True, epi="bf16")
+                two_ = gemm(x, dy, a_t=True, epi="bf16")
+                torch.cuda.synchronize()
+                same = torch.equal(one, two_)
+                print(f"layer GEMM weight gradient ({k_in},{k_out}) over {rows} rows, twice: "
+                      f"bit for bit equal {same}")
+                if not same:
+                    _fail("the layer GEMM's weight gradient differs from run to run")
+            del x, w, bias, dy, aux
+    torch.cuda.empty_cache()
+    out = {}
+    for k, r in res.items():
+        out[k] = {"max_abs_err": r["max_abs_err"], "ms": statistics.mean(r["ms"]),
+                  "plain_ms": statistics.mean(r["plain_ms"]), "bound": r["bound"],
+                  "library_ms": statistics.mean(r["library_ms"]),
+                  "library": "torch.matmul, bf16, at each shape"}
+        print(f"layer GEMM {k} at {TRAIN_BATCH * SEQ} rows: {len(r['ms'])} shapes, sum "
+              f"{sum(r['ms']):.3f} ms ({r['flops'] / sum(r['ms']) / 1e9:.1f} TFLOP/s), "
+              f"torch.matmul {sum(r['library_ms']):.3f} ms ({names[0]}; nvidia-smi: {names[1]})")
+    return out
 
 
 def phase_kernels() -> dict:
@@ -402,11 +561,13 @@ def _vq_bound(z, e, out) -> tuple[float, str]:
                   _nbytes(z, e, out.z_q, out.indices, out.counts, out.sum_z), PEAK_F32)
 
 
-def _library_layer(decoder: bool, x, enc, smask, ws):
-    """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` in eval
-    mode (post-LN, exact GELU, eps 1e-12, bf16) on the weights of a
-    serving-layer case; returns its call. Timed as the library yardstick
-    only: the port never calls it."""
+def _library_layer(decoder: bool, x, enc, smask, ws, train: bool = False):
+    """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
+    exact GELU, eps 1e-12, bf16) on the weights of a layer case; returns its
+    call in eval mode, or with ``train`` (dropout 0: it has no hash dropout)
+    its forward under autograd and a call of the autograd backward of one
+    such forward given an output gradient (dx, denc, every weight). Timed as
+    the library yardstick only: the port never calls it."""
     import torch
     from torch import nn
 
@@ -416,7 +577,7 @@ def _library_layer(decoder: bool, x, enc, smask, ws):
     cls = nn.TransformerDecoderLayer if decoder else nn.TransformerEncoderLayer
     mod = cls(d_model=768, nhead=12, dim_feedforward=3072, dropout=0.0, activation="gelu",
               layer_norm_eps=1e-12, batch_first=True, norm_first=False, device="cuda",
-              dtype=torch.bfloat16).eval()
+              dtype=torch.bfloat16).train(train)
 
     with torch.no_grad():
         mod.self_attn.in_proj_weight.copy_(W["wqkv"].t())
@@ -439,10 +600,30 @@ def _library_layer(decoder: bool, x, enc, smask, ws):
             mod.norm2.weight.copy_(W["g2"])
             mod.norm2.bias.copy_(W["be2"])
     pad = smask == 0
-    if not decoder:
-        return lambda: mod(x, src_key_padding_mask=pad)
     causal = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").triu(1)
-    return lambda: mod(x, enc, tgt_mask=causal, tgt_key_padding_mask=pad, tgt_is_causal=True)
+
+    def call(x, enc):
+        if not decoder:
+            return mod(x, src_key_padding_mask=pad)
+        return mod(x, enc, tgt_mask=causal, tgt_key_padding_mask=pad, tgt_is_causal=True)
+
+    if not train:
+        return lambda: call(x, enc)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, enc) if t is not None]
+        out = call(*leaves, *([None] if enc is None else []))
+    gy = torch.randn_like(out)
+    params = list(mod.parameters())
+
+    def fwd():
+        with torch.enable_grad():
+            return call(*leaves, *([None] if enc is None else []))
+
+    def bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, leaves + params, gy, retain_graph=True)
+
+    return fwd, bwd
 
 
 def _ulps(a, b) -> int:
@@ -679,7 +860,7 @@ def phase_slice(names: tuple[str, str]) -> dict:
     # three full forwards (two /reconstruct, one /codes): 24 layers + 1 VQ
     # each; /encode runs the 12 encoder layers once; no training kernel
     want = {k: 0 for k in counts}
-    want.update(layer_fwd=3 * 24 + 12, vq=3)
+    want.update(layer_fwd=3 * 24 + 12, vq=3, **_gemms(3, encoder_forwards=1))
     print(f"slice: HTTP /health /reconstruct(3) /reconstruct(20) /codes(3) /encode(3) ok; "
           f"launches {counts} (expected {want})")
     if counts != want:
@@ -806,7 +987,7 @@ def phase_serve_per_module(names: tuple[str, str]) -> dict:
     torch.cuda.synchronize()
     counts = _counters()
     want = {k: 0 for k in counts}
-    want.update(layer_fwd=12, vq=1)
+    want.update(layer_fwd=12, vq=1, **_gemms(0, encoder_forwards=1))
     tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
     ok = counts == want
     for key in ("decoder_attentions", "decoder_cross_attentions"):
@@ -988,8 +1169,14 @@ def phase_train_kernels() -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": []}
+    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [], "library_ms": []}
            for k in ("layer_fwd", "layer_bwd", "attn_bwd_self", "attn_bwd_cross")}
+    layer_lib = "nn.Transformer{Encoder,Decoder}Layer, train mode, dropout 0 (no hash dropout)"
+    res["layer_fwd"]["library"] = layer_lib + ": forward under autograd"
+    res["layer_bwd"]["library"] = layer_lib + ": its autograd backward"
+    sdpa_lib = ("autograd backward of F.scaled_dot_product_attention (rate 0, head transposes; "
+                "no hash dropout)")
+    res["attn_bwd_self"]["library"] = res["attn_bwd_cross"]["library"] = sdpa_lib
 
     def note(key, err, k_ms, p_ms, bound):
         res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
@@ -1042,6 +1229,12 @@ def phase_train_kernels() -> dict:
             # each product of the forward twice (the input's and the weight's gradient)
             note("layer_bwd", abs_err, k_ms, p_ms,
                  _bound(2 * fwd_flops, _nbytes(args[:-1], flat_got), PEAK_BF16))
+            lib_fwd, lib_bwd = _library_layer(decoder, x, enc, smask, ws, train=True)
+            res["layer_fwd"]["library_ms"].append(_time_ms(lib_fwd, 10))
+            res["layer_bwd"]["library_ms"].append(_time_ms(lib_bwd, 10))
+            print(f"{layer_lib} {what}: forward {res['layer_fwd']['library_ms'][-1]:.4f} ms, "
+                  f"backward {res['layer_bwd']['library_ms'][-1]:.4f} ms")
+            del lib_fwd, lib_bwd
 
             # the attention backward at the shapes the layer backward gives it
             names = residual_names(geom)
@@ -1067,6 +1260,14 @@ def phase_train_kernels() -> dict:
             note(key, max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)),
                  k_ms, p_ms, _bound(10 * TRAIN_BATCH * 12 * SEQ * SEQ * 64,
                                     _nbytes(a_args, got), PEAK_BF16))
+            if decoder:
+                q, (k, v), amask = a_args[0], a_args[1].split(768, -1), None
+            else:
+                (q, k, v), amask = a_args[0].split(768, -1), smask
+            _, lib_bwd = _library_sdpa(q, k, v, amask, False)
+            res[key]["library_ms"].append(_time_ms(lib_bwd, 10))
+            print(f"{key}: {sdpa_lib} {res[key]['library_ms'][-1]:.4f} ms")
+            del lib_bwd
         del out, resid, out_p, res_p, got, want
 
     _check_keep_masks(seed)
@@ -1176,7 +1377,10 @@ def phase_train_kernels() -> dict:
     torch.cuda.empty_cache()
     out = {k: {"max_abs_err": v["max_abs_err"], "ms": statistics.mean(v["ms"]),
                "plain_ms": statistics.mean(v["plain_ms"]), "bound": v["bound"],
-               "library_ms": v.get("library_ms"), "library": v.get("library")}
+               "library_ms": (statistics.mean(v["library_ms"]) if isinstance(v.get("library_ms"),
+                                                                            list)
+                              else v.get("library_ms")),
+               "library": v.get("library")}
            for k, v in res.items()}
     out["ce_loss_launches"] = ce_loss_counts
     return out
@@ -1605,7 +1809,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         per_step.update(sdpa_fwd_self=24, sdpa_fwd_cross=12, sdpa_bwd_self=24, sdpa_bwd_cross=12)
     else:
         per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
-                        attn_bwd_cross=12)
+                        attn_bwd_cross=12, **_gemms(1, 1))
     per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
     torch.cuda.synchronize()
@@ -1772,7 +1976,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         else:
             want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps,
                         layer_bwd=24 * steps, attn_bwd_self=24 * steps,
-                        attn_bwd_cross=12 * steps)
+                        attn_bwd_cross=12 * steps, **_gemms(steps + evals, steps))
         if head_ce in HEAD_MODES:
             want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps)
         else:
@@ -1829,7 +2033,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         want_served = {k: 0 for k in served}
         want_served["vq"] = 2  # two forwards: /reconstruct and /codes
         want_served.update(dict(sdpa_fwd_self=48, sdpa_fwd_cross=24) if fused_layer == "off"
-                           else dict(layer_fwd=48))
+                           else dict(layer_fwd=48, **_gemms(2)))
         if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
                 or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
                            for r in recon)
@@ -1858,6 +2062,7 @@ def main() -> None:
 
     names = phase_device()
     phase_build()
+    lg = phase_layer_gemms(names)
     kern = phase_kernels()
     tk = phase_train_kernels()
     hk = phase_head_kernels(names)
@@ -1902,7 +2107,9 @@ def main() -> None:
                 "library_ms": m.get("library_ms"), "library": m.get("library")}
 
     # serving rows: per call at bucket 256, the mean of one encoder-geometry and
-    # one decoder-geometry layer, launches from the HTTP run; training rows: at
+    # one decoder-geometry layer, launches from the HTTP run; the layer GEMM's
+    # rows: the mean call over the step's products at batch 2048 (forward; data
+    # and weight gradients), launches from the training slice's run; training rows: at
     # batch 2048, launches from the training slice's run (the fused head's from
     # its own mode's run, #6's from the fused_ce_loss run, #11 / #12's from the
     # per-module trunk's run, #13's from its own autograd run); amsgrad_update:
@@ -1935,6 +2142,10 @@ def main() -> None:
         *[row(f"sdpa_backward ({kind})", "sdpa.cu", "sdpa_pallas.py:142", off[f"sdpa_bwd_{kind}"],
               sk[f"bwd_{kind}"]) for kind in ("self", "cross")],
         row("mha_forward", "sdpa.cu", "attention_pallas.py:65", sk["mha_launches"], sk["mha"]),
+        row("layer GEMM, forward products (in layer_forward)", "gemm_sm90.cuh",
+            "layer_pallas.py:489", n["gemm_in_fwd"], lg["fwd"]),
+        row("layer GEMM, gradient products (in layer_backward)", "gemm_sm90.cuh",
+            "layer_pallas.py:552", n["gemm"] - n["gemm_in_fwd"], lg["grad"]),
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

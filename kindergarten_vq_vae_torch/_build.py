@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict[str, object] = {}  # entry points with their signatures set
 build_log = ""  # nvcc's output of the last build in this process (ptxas register/smem report)
 
 
@@ -132,9 +133,16 @@ def check_tensor(name, t, shape, dtype, device) -> None:
 def launch(name: str, argtypes: list, *args, device) -> None:
     """Call the C entry point ``name`` with ``args`` (``argtypes`` their
     ctypes types) and, last, the current CUDA stream of ``device``; raise on
-    a CUDA error."""
-    fn = getattr(lib(), name)
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), name)
+    a CUDA error. The library's runtime launches on the current device."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(lib(), name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        check(fn(*args, stream), name)
+    else:
+        with torch.cuda.device(device):
+            check(fn(*args, stream), name)

@@ -293,8 +293,8 @@ int kvq_head_ce_bwd(const void* x, const void* table, const void* bias, const vo
         nullptr, eb, b, static_cast<const bf16*>(logits), targets, l, sc, rows, vocab, hidden,
         gb, ldg, dp);
   splitk_reduce_kernel<<<(vocab + 255) / 256, 256, 0, st>>>(dp, nr, 1, vocab, dbias, vocab, 0);
-  const GemmEpi e{dx, hidden, nullptr, 0, nullptr, 0, EPI_BF16};
-  launch_gemm<false, false, EPI_BF16>(g, ldg, table, hidden, e, rows, hidden, vocab, vocab, 1, st);
+  const GemmEpi e{dx, hidden};
+  launch_gemm<false, false, EPI_BF16>(g, ldg, table, hidden, e, rows, hidden, vocab, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,8 +304,8 @@ int kvq_head_ce_dtable(const void* g, int ldg, const void* x, int rows, int voca
                        void* out, void* stream) {
   if (hidden % 8 != 0 || ldg % 8 != 0 || ldg < vocab || vocab <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const GemmEpi e{out, hidden, nullptr, 0, nullptr, 0, EPI_F32};
-  launch_gemm<true, false, EPI_F32>(g, ldg, x, hidden, e, vocab, hidden, rows, rows, 1,
+  const GemmEpi e{out, hidden};
+  launch_gemm<true, false, EPI_F32>(g, ldg, x, hidden, e, vocab, hidden, rows,
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,18 +9,20 @@
 //   kvq_ln_bwd          LayerNorm backward (`_ln_bwd` l.175) from the stored
 //                       LN output and rsqrt, times the hidden-dropout mask,
 //                       with the dgamma / dbeta / dbias column sums
-//   kvq_gemm            dgrad (dY @ W^T, with the GELU-gradient or residual
-//                       add fused into the epilogue) and wgrad (X^T @ dY over
-//                       all rows, split-K, f32 sums rounded once to bf16)
+//   kvq_gemm_sm90       (gemm_sm90.cu) dgrad (dY @ W^T, with the GELU-gradient
+//                       or residual add fused into the epilogue) and wgrad
+//                       (X^T @ dY over all rows, split-K, f32 sums rounded
+//                       once to bf16)
 //   kvq_attention_bwd   per-(sentence, head) attention backward with the
 //                       same keep mask on dv and dp as the forward
 //   kvq_colsum          f32 bias-gradient column sums
 //
 // What bounds it on the H100: the dgrad and wgrad GEMMs are twice the
-// forward's FLOPs and compute-bound at 24576 rows; the weight gradients have
-// few output tiles (768 x 768 is 36 tiles of 128 x 128) over a long
-// reduction, so their rows are split into f32 partial products that fill
-// the card and are summed in a fixed order. The TPU kernel carried its
+// forward's FLOPs and compute-bound at 24576 rows (gemm_sm90.cuh says how
+// the GEMM meets that); the weight gradients have few output tiles (768 x
+// 768 is 24 tiles of 128 x 192) over a long reduction, so their rows are
+// split into f32 partial products that fill the card and are summed in a
+// fixed order. The TPU kernel carried its
 // weight-gradient accumulators across a sequential grid in VMEM; blocks on
 // the H100 run in no order, so every reduction across rows here is a
 // deterministic two-pass sum (per-block partials, then a fixed-order sum).
@@ -137,31 +139,6 @@ colsum_kernel(const void* __restrict__ src, int src_f32, int ld, int M, int N,
 }  // namespace
 
 extern "C" {
-
-// C (M, N) = epi(op(A) @ op(B)), for the backward's two layouts. a_t: A is
-// stored (K, M) and read transposed, B (K, N) (the weight gradients X^T dY:
-// epilogue f32 or bf16, no bias); b_t: B is stored (N, K) and read
-// transposed, A (M, K) (the data gradients dY W^T: epilogue f32, bf16, the
-// residual adds or the GELU gradient). C2 / aux may be null where the
-// epilogue does not read them. splits > 1 (weight gradients only) cuts
-// K into that many f32 partial products in ws (splits, M, N), summed in a
-// fixed order. Any other combination returns cudaErrorInvalidValue.
-int kvq_gemm(int a_t, int b_t, const void* A, int lda, const void* B, int ldb, void* C, int ldc,
-             void* C2, int ldc2, const void* aux, int ld_aux, int M, int N, int K, int epi,
-             int splits, void* ws, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GemmEpi e{C, ldc, C2, ldc2, aux, ld_aux, epi};
-  bool ok = false;
-  if (a_t && !b_t && splits > 1)
-    ok = gemm_splitk<true, false>(A, lda, B, ldb, e, M, N, K, splits, static_cast<float*>(ws), st);
-  else if (a_t && !b_t)
-    ok = gemm<true, false, EPI_F32, EPI_BF16>(A, lda, B, ldb, e, M, N, K, st);
-  else if (!a_t && b_t && splits <= 1)
-    ok = gemm<false, true, EPI_F32, EPI_BF16, EPI_ADD_F32, EPI_ADD_BF16, EPI_DGELU_ERF,
-              EPI_DGELU_TANH>(A, lda, B, ldb, e, M, N, K, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // LayerNorm backward of M rows of width N (see ln_bwd_kernel). parts
 // (ceil(M / 32), 3, N) f32 scratch; sums (3, N) f32 receives

@@ -1,15 +1,14 @@
-// Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu)
-// and the fused head + CE kernels (head_ce.cu): the GELU of the JAX package
-// (`_gelu_fwd` / `_gelu_grad`, ops/layer_pallas.py:214/221), warp
-// reductions, cp.async, and the backward's bf16 tensor-core GEMM with its
-// fused epilogues (its mainloop also a device function of its own).
+// Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu),
+// the layer GEMM (gemm_sm90.cuh) and the fused head + CE kernels
+// (head_ce.cu): the GELU of the JAX package (`_gelu_fwd` / `_gelu_grad`,
+// ops/layer_pallas.py:214/221), warp reductions, the epilogue codes, the
+// fixed-order split-K sum, cp.async, and a wmma GEMM.
 //
-// The GEMM is wmma 16x16x16 (bf16 operands, f32 accumulate) on a 128x128x32
-// block tile, 8 warps of 64x32, with a two-stage cp.async pipeline: the
-// forward's GEMM (layer_fwd.cu) with operands read transposed in place, so it
-// serves the data gradients (C = dY W^T) and the weight gradients (C = X^T dY,
-// reduced over all rows, split over the rows into f32 partial sums when the
-// output has few tiles).
+// The wmma GEMM now serves head_ce.cu alone (#9's in-kernel mainloop, #10's
+// dx GEMM and the table gradient); the layer's products moved to the wgmma +
+// TMA GEMM of gemm_sm90.cuh. It is wmma 16x16x16 (bf16 operands, f32
+// accumulate) on a 128x128x32 block tile, 8 warps of 64x32, with a two-stage
+// cp.async pipeline and operands read transposed in place.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,8 +50,19 @@ __device__ __forceinline__ float erf_dpoly(float z2) {
 constexpr float INV_SQRT2 = 0.707106781186547524f;
 constexpr float TANH_C = 0.797884560802865355f;  // sqrt(2 / pi)
 
+// u / sqrt(2) correctly rounded, as the division gives it, but without its
+// slow-path branch (which keeps a GEMM epilogue from running its elements
+// side by side): the product with the rounded reciprocal, then one exact
+// residual step (Markstein: RN(1/c) within half an ulp and q within one ulp
+// give the correctly rounded quotient)
+__device__ __forceinline__ float div_sqrt2(float u) {
+  constexpr float SQRT2 = 1.41421356237309515f;
+  const float q = u * INV_SQRT2;
+  return fmaf(fmaf(-q, SQRT2, u), INV_SQRT2, q);
+}
+
 __device__ __forceinline__ float gelu_erf(float u) {
-  const float z = u / 1.41421356237309515f;
+  const float z = div_sqrt2(u);
   return 0.5f * u * (1.0f + tanhf(z * erf_poly(z * z)));
 }
 
@@ -103,17 +113,12 @@ enum Epilogue {
   EPI_ADD_BF16 = 5,    // C bf16 = acc + aux (f32)
   EPI_DGELU_ERF = 6,   // du = acc * gelu'(aux bf16): C bf16 = du, C2 f32 = du when given
   EPI_DGELU_TANH = 7,
-  EPI_PARTIAL = 8,     // split-K partial: C f32 [blockIdx.z] = acc
+  EPI_PARTIAL = 8,     // split-K partial: C f32 [split] = acc
 };
 
-struct GemmEpi {
+struct GemmEpi {  // the wmma GEMM's output: C (f32 or bf16) with row stride ldc
   void* C;
   int ldc;
-  void* C2;  // may be null
-  int ldc2;
-  const void* aux;
-  int ld_aux;
-  int epi;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -130,25 +135,12 @@ __device__ __forceinline__ void cp_async_wait_1() {
 }
 
 template <int EPI>
-__device__ __forceinline__ void epilogue_store(const GemmEpi& e, int M, int gr, int gc, float acc) {
+__device__ __forceinline__ void epilogue_store(const GemmEpi& e, int gr, int gc, float acc) {
   const size_t o = (size_t)gr * e.ldc + gc;
-  if constexpr (EPI == EPI_PARTIAL) {
-    static_cast<float*>(e.C)[(size_t)blockIdx.z * M * e.ldc + o] = acc;
-  } else if constexpr (EPI == EPI_ADD_F32 || EPI == EPI_ADD_BF16) {
-    const float v = acc + static_cast<const float*>(e.aux)[(size_t)gr * e.ld_aux + gc];
-    if constexpr (EPI == EPI_ADD_F32)
-      static_cast<float*>(e.C)[o] = v;
-    else
-      static_cast<bf16*>(e.C)[o] = __float2bfloat16(v);
-  } else if constexpr (EPI == EPI_DGELU_ERF || EPI == EPI_DGELU_TANH) {
-    const float u = __bfloat162float(static_cast<const bf16*>(e.aux)[(size_t)gr * e.ld_aux + gc]);
-    const float du = acc * (EPI == EPI_DGELU_ERF ? gelu_erf_grad(u) : gelu_tanh_grad(u));
-    static_cast<bf16*>(e.C)[o] = __float2bfloat16(du);
-    if (e.C2) static_cast<float*>(e.C2)[(size_t)gr * e.ldc2 + gc] = du;
-  } else if constexpr (EPI == EPI_F32) {
+  if constexpr (EPI == EPI_F32) {
     static_cast<float*>(e.C)[o] = acc;
   } else {
-    static_assert(EPI == EPI_BF16, "the forward's epilogues live in layer_fwd.cu");
+    static_assert(EPI == EPI_BF16, "the wmma GEMM stores f32 or bf16");
     static_cast<bf16*>(e.C)[o] = __float2bfloat16(acc);
   }
 }
@@ -266,25 +258,21 @@ __device__ __forceinline__ void gemm_mainloop(bf16* smem, AccFrag (&acc)[FM][FN]
   __syncthreads();
 }
 
-// C[M, N] = epi(op(A) @ op(B)) over k in [blockIdx.z * kchunk, +kchunk) ∩ [0, K),
-// operands as gemm_mainloop. The epilogue is a template argument, so each
-// instantiation carries only its own; only the split-K partial product reads
-// kchunk. Two CTAs per SM: 128 registers a thread.
+// C[M, N] = epi(op(A) @ op(B)) over k in [0, K), operands as gemm_mainloop,
+// epilogue f32 or bf16. Two CTAs per SM: 128 registers a thread.
 template <bool A_T, bool B_T, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, GemmEpi e,
-            int M, int N, int K, int kchunk) {
+            int M, int N, int K) {
   static_assert(GemmTiles<A_T, B_T>::ELEMS * 2 >= GEMM_THREADS / 32 * 256 * 4, "epilogue scratch");
   __shared__ __align__(128) bf16 smem[GemmTiles<A_T, B_T>::ELEMS];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = EPI == EPI_PARTIAL ? blockIdx.z * kchunk : 0;
-  const int kend = EPI == EPI_PARTIAL ? min(K, kbeg + kchunk) : K;
 
   AccFrag acc[FM][FN];
-  gemm_mainloop<A_T, B_T>(smem, acc, A, lda, B, ldb, M, N, m0, n0, kbeg, kend);
+  gemm_mainloop<A_T, B_T>(smem, acc, A, lda, B, ldb, M, N, m0, n0, 0, K);
 
   // epilogue: one 16x16 fragment at a time through a per-warp f32 scratch
   // that reuses the operand tiles' shared memory
@@ -298,7 +286,7 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int
       const int rbase = m0 + wm * WM + i * 16, cbase = n0 + wn * WN + j * 16;
       for (int q = lane; q < 256; q += 32) {
         const int gr = rbase + q / 16, gc = cbase + q % 16;
-        if (gr < M && gc < N) epilogue_store<EPI>(e, M, gr, gc, cs[q]);
+        if (gr < M && gc < N) epilogue_store<EPI>(e, gr, gc, cs[q]);
       }
       __syncwarp();
     }
@@ -324,37 +312,10 @@ static __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int sp
 
 template <bool A_T, bool B_T, int EPI>
 inline void launch_gemm(const void* A, int lda, const void* B, int ldb, const GemmEpi& e, int M,
-                        int N, int K, int kchunk, int nz, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
+                        int N, int K, cudaStream_t st) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<A_T, B_T, EPI><<<grid, GEMM_THREADS, 0, st>>>(
-      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, e, M, N, K, kchunk);
-}
-
-// One GEMM on stream st whose epilogue e.epi is one of EPIS (the
-// instantiations a source needs); false for any other epilogue.
-template <bool A_T, bool B_T, int... EPIS>
-inline bool gemm(const void* A, int lda, const void* B, int ldb, const GemmEpi& e, int M, int N,
-                 int K, cudaStream_t st) {
-  return ((e.epi == EPIS && (launch_gemm<A_T, B_T, EPIS>(A, lda, B, ldb, e, M, N, K, K, 1, st),
-                             true)) ||
-          ...);
-}
-
-// A GEMM with its K range cut into `splits` chunks whose f32 partial
-// products go to ws (splits x M x N) and are then summed in a fixed order
-// into e.C (f32 for EPI_F32, bf16 for EPI_BF16). False for another epilogue.
-template <bool A_T, bool B_T>
-inline bool gemm_splitk(const void* A, int lda, const void* B, int ldb, const GemmEpi& e, int M,
-                        int N, int K, int splits, float* ws, cudaStream_t st) {
-  if (ws == nullptr || (e.epi != EPI_F32 && e.epi != EPI_BF16)) return false;
-  const int kchunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
-  const int nz = (K + kchunk - 1) / kchunk;
-  const GemmEpi p{ws, N, nullptr, 0, nullptr, 0, EPI_PARTIAL};
-  launch_gemm<A_T, B_T, EPI_PARTIAL>(A, lda, B, ldb, p, M, N, K, kchunk, nz, st);
-  const size_t total = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      ws, nz, M, N, e.C, e.ldc, e.epi == EPI_BF16);
-  return true;
+      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, e, M, N, K);
 }
 
 }  // namespace kvq

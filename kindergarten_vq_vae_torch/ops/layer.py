@@ -3,7 +3,9 @@
 Counterpart of ``kindergarten_vq_vae_tpu/ops/layer_pallas.py``
 (``fused_bert_layer`` l.1129, ``_layer_fwd_core`` l.374, ``_layer_bwd_kernel``
 l.552, ``_attn_bwd_tile`` l.304). The forward kernel is ``csrc/layer_fwd.cu``,
-the backward ``csrc/layer_bwd.cu``; :func:`layer_forward_reference`,
+the backward ``csrc/layer_bwd.cu``, and every projection of both goes
+through the layer GEMM of ``ops/gemm.py`` (``csrc/gemm_sm90.cuh``);
+:func:`layer_forward_reference`,
 :func:`layer_backward_reference` and :func:`attention_backward_reference`
 are the same functions in plain PyTorch, at the same rounding points:
 
@@ -55,13 +57,9 @@ from kindergarten_vq_vae_torch.ops.dropout import (
     keep_threshold,
     seed_u32,
 )
+from kindergarten_vq_vae_torch.ops.gemm import gelu, gelu_grad, gemm, gemm_plan, sm_count
 
 NEG_INF = -1e9
-SQRT_2 = math.sqrt(2.0)
-TANH_C = math.sqrt(2.0 / math.pi)
-_ERF_P = (1.1283797055e+00, 1.0276548145e-01, -1.8438367938e-04,
-          -6.2571958331e-04, 8.9712590414e-05, -5.9856910908e-06,
-          1.5896024415e-07)
 
 ENC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "w1", "b1", "w2", "b2", "g3", "be3")
@@ -112,6 +110,12 @@ def _names(geom: LayerGeom) -> tuple[str, ...]:
     return DEC_WEIGHTS if geom.has_cross else ENC_WEIGHTS
 
 
+def layer_gemms(geom: LayerGeom) -> tuple[int, int]:
+    """Launches of the layer GEMM (``ops/gemm.py``) in one forward and one
+    backward of the layer: 4 and 8, or with cross-attention 7 and 14."""
+    return (7, 14) if geom.has_cross else (4, 8)
+
+
 # residuals the forward keeps for the backward, by name, in this order
 def residual_names(geom: LayerGeom) -> tuple[str, ...]:
     cross = ("qc", "kvc", "ctx2", "x2") if geom.has_cross else ()
@@ -155,42 +159,6 @@ def _ln_bwd(gy, yhat, inv, gamma):
 def _recover_yhat(v, gamma, beta):
     """The normalised value behind a stored LayerNorm output (``_ln_recover_yhat`` l.542)."""
     return torch.where(gamma == 0.0, 0.0, (v.float() - beta) / gamma)
-
-
-def _erf_p(z2):
-    acc = torch.full_like(z2, _ERF_P[-1])
-    for c in _ERF_P[-2::-1]:
-        acc = acc * z2 + c
-    return acc
-
-
-def _erf_dp(z2):
-    """p'(z) as a polynomial in z^2 (``_erf_dp`` l.202)."""
-    acc = torch.full_like(z2, 13.0 * _ERF_P[-1])
-    for d, c in zip((11, 9, 7, 5, 3, 1), _ERF_P[-2::-1]):
-        acc = acc * z2 + d * c
-    return acc
-
-
-def gelu(u: torch.Tensor, exact: bool) -> torch.Tensor:
-    """f32 GELU as the kernel computes it (tanh-erf polynomial when exact)."""
-    if exact:
-        z = u / SQRT_2
-        return 0.5 * u * (1.0 + torch.tanh(z * _erf_p(z * z)))
-    w = TANH_C * (u + 0.044715 * u * u * u)
-    return 0.5 * u * (1.0 + torch.tanh(w))
-
-
-def gelu_grad(u: torch.Tensor, exact: bool) -> torch.Tensor:
-    """d gelu / du of the form :func:`gelu` computes (``_gelu_grad`` l.221)."""
-    if exact:
-        z = u * (1.0 / SQRT_2)
-        z2 = z * z
-        t = torch.tanh(z * _erf_p(z2))
-        return 0.5 * (1.0 + t) + (0.5 / SQRT_2) * u * (1.0 - t * t) * _erf_dp(z2)
-    w = TANH_C * (u + 0.044715 * u * u * u)
-    t = torch.tanh(w)
-    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * TANH_C * (1.0 + 3.0 * 0.044715 * u * u)
 
 
 def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
@@ -421,7 +389,7 @@ def layer_backward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, see
 
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP]
+_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP, _I, _VP]
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -498,6 +466,15 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
         if geom.has_cross:
             ctx2 = ws((M, H))
 
+    # the tile width of each product, in the C sequence's order: qkv, wo, wq,
+    # wkv (over the encoder's rows), wco, w1, w2
+    sms = sm_count(dev)
+    gelu_epi = "gelu_erf" if geom.gelu_exact else "gelu_tanh"
+    products = (((M, 3 * H, H), "bf16"), ((M, H, H), "f32"), ((M, H, H), "bf16"),
+                ((b * sk, 2 * H, H), "bf16"), ((M, H, H), "f32"), ((M, F, H), gelu_epi),
+                ((M, H, F), "f32"))
+    tile_n = (ctypes.c_int * 7)(*(gemm_plan(*shape, False, sms, epi).tile_n
+                                  for shape, epi in products))
     fn = _build.lib().kvq_bert_layer_fwd
     fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
@@ -510,9 +487,11 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
             b, s, sk, geom.num_heads, geom.head_dim, F,
             int(geom.causal), int(geom.has_cross), int(geom.gelu_exact), geom.eps,
             seed_u32(seed or 0), keep_threshold(geom.attn_rate), keep_scale(geom.attn_rate),
-            keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), _stream(dev),
+            keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), tile_n, sms, _stream(dev),
         )
     _build.check(code, "kvq_bert_layer_fwd")
+    gemm.launches += layer_gemms(geom)[0]
+    gemm.forward_launches += layer_gemms(geom)[0]
     fused_bert_layer.launches += 1
     fused_bert_layer.residual_launches += int(save)
     if not save:
@@ -594,10 +573,7 @@ attention_backward.launches = 0
 attention_backward.cross_launches = 0  # the cross-attention share of ``launches``
 
 # csrc/layer_bwd.cu entry points, with their ctypes signatures
-_EPI = {"f32": 0, "bf16": 1, "add_f32": 4, "add_bf16": 5, "dgelu_erf": 6, "dgelu_tanh": 7}
 _SIGS = {
-    "kvq_gemm": [_I, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _VP,
-                 _VP],
     "kvq_ln_bwd": [_VP, _I, _VP, _VP, _VP, _VP, _U, _U, _F, _U, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "kvq_colsum": [_VP, _I, _I, _I, _I, _VP, _VP, _VP],
 }
@@ -613,31 +589,11 @@ def _fn(name):
 
 
 class _Bwd:
-    """Launches of ``csrc/layer_bwd.cu`` on one device and stream."""
+    """Launches of ``csrc/layer_bwd.cu`` on one device and stream; the
+    products go through :func:`~kindergarten_vq_vae_torch.ops.gemm.gemm`."""
 
     def __init__(self, dev):
         self.dev, self.st = dev, _stream(dev)
-
-    def gemm(self, a, b, a_t: bool, b_t: bool, epi: str, out_dtype, aux=None, out2=False):
-        """C = op(A) @ op(B) with the named epilogue; A^T / B^T read in place.
-        Shapes: A (M, K) or, with a_t, (K, M); B (K, N) or, with b_t, (N, K)."""
-        M = a.shape[1] if a_t else a.shape[0]
-        K = a.shape[0] if a_t else a.shape[1]
-        N = b.shape[0] if b_t else b.shape[1]
-        c = torch.empty((M, N), dtype=out_dtype, device=self.dev)
-        c2 = torch.empty((M, N), dtype=torch.float32, device=self.dev) if out2 else None
-        splits, ws = 1, None
-        if a_t:  # weight gradient: K is all rows; split it so the few output tiles fill the card
-            tiles = -(-M // 128) * -(-N // 128)
-            splits = max(1, min(16, -(-264 // tiles), K // 1024))
-            if splits > 1:
-                ws = torch.empty((splits, M, N), dtype=torch.float32, device=self.dev)
-        code = _fn("kvq_gemm")(int(a_t), int(b_t), a.data_ptr(), a.shape[1], b.data_ptr(),
-                               b.shape[1], c.data_ptr(), N, _ptr(c2), N, _ptr(aux),
-                               0 if aux is None else aux.shape[1], M, N, K, _EPI[epi], splits,
-                               _ptr(ws), self.st)
-        _build.check(code, "kvq_gemm")
-        return (c, c2) if out2 else c
 
     def ln(self, g_up, v, inv, gamma, beta, seed, op, rate, want_dr: bool):
         """LayerNorm backward: (dr f32 or None, da in bf16, dgamma, dbeta, dbias)."""
@@ -687,15 +643,15 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
         dr3, dy_c, dW["g3"], dW["be3"], dW["b2"] = k.ln(gy.view(M, H), out.view(M, H), inv3,
                                                         W["g3"], W["be3"], seed, OP_MLP_OUT, hr,
                                                         True)
-        dW["w2"] = k.gemm(R["m"], dy_c, True, False, "bf16", bf)
-        du_c, du = k.gemm(dy_c, W["w2"], False, True,
-                          "dgelu_erf" if geom.gelu_exact else "dgelu_tanh", bf, aux=R["u"],
-                          out2=True)
+        dW["w2"] = gemm(R["m"], dy_c, a_t=True, epi="bf16")
+        du_c, du = gemm(dy_c, W["w2"], b_t=True,
+                         epi="dgelu_erf" if geom.gelu_exact else "dgelu_tanh", aux=R["u"],
+                         out2=True)
         dW["b1"] = k.colsum(du)
         del du
         xm = R["x2"] if geom.has_cross else R["x1"]
-        dW["w1"] = k.gemm(xm, du_c, True, False, "bf16", bf)
-        dxm = k.gemm(du_c, W["w1"], False, True, "add_f32", torch.float32, aux=dr3)
+        dW["w1"] = gemm(xm, du_c, a_t=True, epi="bf16")
+        dxm = gemm(du_c, W["w1"], b_t=True, epi="add_f32", aux=dr3)
         del du_c, dr3
         denc = None
         if geom.has_cross:
@@ -703,33 +659,32 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
             dr2, da2_c, dW["g2"], dW["be2"], dW["bco"] = k.ln(dxm, R["x2"], inv2, W["g2"],
                                                               W["be2"], seed, OP_CROSS_OUT, hr,
                                                               True)
-            dW["wco"] = k.gemm(R["ctx2"], da2_c, True, False, "bf16", bf)
-            dctx2 = k.gemm(da2_c, W["wco"], False, True, "bf16", bf)
+            dW["wco"] = gemm(R["ctx2"], da2_c, a_t=True, epi="bf16")
+            dctx2 = gemm(da2_c, W["wco"], b_t=True, epi="bf16")
             dqc, dkv = attention_backward(R["qc"].view(b, s, H), R["kvc"].view(b, sk, 2 * H),
                                           cmask, dctx2.view(b, s, H), nh, False, seed,
                                           cross_op(nh), geom.attn_rate)
             dqc, dkv = dqc.view(M, H), dkv.view(b * sk, 2 * H)
-            dW["wq"] = k.gemm(R["x1"], dqc, True, False, "bf16", bf)
+            dW["wq"] = gemm(R["x1"], dqc, a_t=True, epi="bf16")
             dW["bq"] = k.colsum(dqc)
-            dW["wkv"] = k.gemm(enc.view(b * sk, H), dkv, True, False, "bf16", bf)
+            dW["wkv"] = gemm(enc.view(b * sk, H), dkv, a_t=True, epi="bf16")
             dW["bkv"] = k.colsum(dkv)
-            enc_out = torch.float32 if enc_dtype == torch.float32 else bf
-            denc = k.gemm(dkv, W["wkv"], False, True, "f32" if enc_out == torch.float32 else "bf16",
-                          enc_out).view(b, sk, H)
-            dx1 = k.gemm(dqc, W["wq"], False, True, "add_f32", torch.float32, aux=dr2)
+            denc = gemm(dkv, W["wkv"], b_t=True,
+                        epi="f32" if enc_dtype == torch.float32 else "bf16").view(b, sk, H)
+            dx1 = gemm(dqc, W["wq"], b_t=True, epi="add_f32", aux=dr2)
             del dr2
         else:
             dx1 = dxm
         # self-attention block
         dr1, da1_c, dW["g1"], dW["be1"], dW["bo"] = k.ln(dx1, R["x1"], inv1, W["g1"], W["be1"],
                                                          seed, OP_ATTN_OUT, hr, True)
-        dW["wo"] = k.gemm(R["ctx"], da1_c, True, False, "bf16", bf)
-        dctx = k.gemm(da1_c, W["wo"], False, True, "bf16", bf)
+        dW["wo"] = gemm(R["ctx"], da1_c, a_t=True, epi="bf16")
+        dctx = gemm(da1_c, W["wo"], b_t=True, epi="bf16")
         dqkv = attention_backward(R["qkv"].view(b, s, 3 * H), None, smask, dctx.view(b, s, H),
                                   nh, geom.causal, seed, 0, geom.attn_rate).view(M, 3 * H)
-        dW["wqkv"] = k.gemm(x.view(M, H), dqkv, True, False, "bf16", bf)
+        dW["wqkv"] = gemm(x.view(M, H), dqkv, a_t=True, epi="bf16")
         dW["bqkv"] = k.colsum(dqkv)
-        dx = k.gemm(dqkv, W["wqkv"], False, True, "add_bf16", bf, aux=dr1).view(b, s, H)
+        dx = gemm(dqkv, W["wqkv"], b_t=True, epi="add_bf16", aux=dr1).view(b, s, H)
     layer_backward.launches += 1
     return dx, denc, tuple(dW[n] for n in _names(geom))
 

@@ -44,11 +44,14 @@ FAMILIES = (
     ("head_ce_bwd_kernel", "fused head + CE backward (#10: g, dbias partials)"),
     ("gemm_kernel<false, false", "fused head + CE backward (#10: dx GEMM, wmma)"),
     ("gemm_kernel<true, false, 0>", "fused head table gradient (wmma GEMM, f32 out)"),
-    ("gemm_bias_kernel", "layer GEMM, forward (wmma)"),
-    ("gemm_kernel<false, true", "layer GEMM, dgrad (wmma)"),
-    ("gemm_kernel<true, false, 8>", "layer GEMM, wgrad split-K partials (wmma)"),
-    ("gemm_kernel<true, false", "layer GEMM, wgrad (wmma)"),
+    ("sm90::gemm_kernel<128, false, true", "layer GEMM, forward (wgmma)"),
+    ("sm90::gemm_kernel<192, false, true", "layer GEMM, forward (wgmma)"),
+    ("sm90::gemm_kernel<128, false, false", "layer GEMM, dgrad (wgmma)"),
+    ("sm90::gemm_kernel<192, false, false", "layer GEMM, dgrad (wgmma)"),
+    ("sm90::gemm_kernel<192, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
+    ("sm90::gemm_kernel<256, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
     ("splitk_reduce", "split-K sums (layer wgrad; #10's dbias)"),
+    ("sm90::", "layer GEMM, other (wgmma)"),
     ("attention_bwd_kernel", "attention backward (in #2, or #12)"),
     ("attention_kernel", "attention forward (in #1, or #11)"),
     ("residual_layernorm", "residual + LayerNorm forward"),

@@ -29,6 +29,12 @@ the same logits; the table gradient within 1e-4 of its largest.
 SDPA (#11 / #12) and MHA (#13): outputs and gradients within 2e-2 of their
 largest magnitude (the attention backward's bar: the same device code), the
 attention keep masks exact.
+The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
+f32 output within 1e-4 of the largest magnitude of the plain version's (f32
+sums of up to 3,072 products in another order, and tanhf ulps in the GELU
+epilogues); a bf16 output within half a bf16 ulp of the plain version's f32
+value before its rounding, plus the same 1e-4; the weight gradients' split-K
+sums equal bit for bit from run to run.
 """
 
 import pytest
@@ -45,6 +51,7 @@ from kindergarten_vq_vae_torch.ops.ce import (
     ce_fwd_reference,
 )
 from kindergarten_vq_vae_torch.ops.dropout import attention_keep, cross_op
+from kindergarten_vq_vae_torch.ops.gemm import gelu, gelu_grad, gemm, gemm_plan, gemm_reference
 from kindergarten_vq_vae_torch.ops.head_ce import (
     head_ce_bwd,
     head_ce_bwd_reference,
@@ -480,3 +487,98 @@ def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
     qb, kb, vb = _views(gen, False, 2, 12, 12, 128)
     with pytest.raises(ValueError, match="strided"):  # k and v at two row strides
         sdpa_forward(qb, kb, vb.contiguous(), None, 0, 2)
+
+
+_GEMM_CASES = [("nn", e) for e in ("f32", "bf16", "gelu_erf", "gelu_tanh")] + \
+              [("nt", e) for e in ("f32", "bf16", "add_f32", "add_bf16", "dgelu_erf",
+                                   "dgelu_tanh")] + \
+              [("tn", e) for e in ("f32", "bf16")]
+
+
+def _gemm_case(gen, layout, epi, M, N, K):
+    a = torch.randn((K, M) if layout == "tn" else (M, K), device="cuda", generator=gen).bfloat16()
+    b = (torch.randn((N, K) if layout == "nt" else (K, N), device="cuda", generator=gen)
+         / K ** 0.5).bfloat16()
+    kw = dict(a_t=layout == "tn", b_t=layout == "nt", epi=epi)
+    if layout == "nn":
+        kw["bias"] = 0.1 * torch.randn(N, device="cuda", generator=gen)
+    if epi.startswith("add"):
+        kw["aux"] = torch.randn(M, N, device="cuda", generator=gen)
+    if epi.startswith("dgelu"):
+        kw["aux"] = (2.0 * torch.randn(M, N, device="cuda", generator=gen)).bfloat16()
+    return a, b, kw
+
+
+def _gemm_f32(a, b, kw):
+    """The plain version's value of each output before its last rounding."""
+    acc = gemm_reference(a, b, a_t=kw["a_t"], b_t=kw["b_t"], epi="f32", bias=kw.get("bias"))
+    epi = kw["epi"]
+    if epi.startswith("gelu"):
+        return gelu(acc, epi == "gelu_erf"), acc
+    if epi.startswith("add"):
+        return (acc + kw["aux"],)
+    if epi.startswith("dgelu"):
+        du = acc * gelu_grad(kw["aux"].float(), epi == "dgelu_erf")
+        return du, du
+    return (acc,)
+
+
+def _gemm_held(got, want, what):
+    tol = 1e-4 * want.abs().max().item() + torch.zeros_like(want)
+    if got.dtype == torch.bfloat16:
+        tol += torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 8)
+    excess = ((got.float() - want).abs() - tol).max().item()
+    assert got.shape == want.shape and excess <= 0, f"{what}: max excess {excess:.3e}"
+
+
+@pytest.mark.parametrize("N,K", [(576, 192), (1536, 3072)])
+@pytest.mark.parametrize("M", [1, 96, 2052])
+@pytest.mark.parametrize("layout,epi", _GEMM_CASES)
+def test_gemm_kernel_matches_plain(gen, layout, epi, M, N, K):
+    a, b, kw = _gemm_case(gen, layout, epi, M, N, K)
+    two = epi.startswith(("gelu", "dgelu"))
+    before = gemm.launches
+    if layout == "tn" and M % 8:  # A stored (K, M): rows of M elements, not a multiple of 8
+        with pytest.raises(ValueError, match="multiple of 8"):
+            gemm(a, b, **kw)
+        return
+    got = gemm(a, b, **kw, out2=two)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 1
+    got = got if two else (got,)
+    for i, (g, w) in enumerate(zip(got, _gemm_f32(a, b, kw))):
+        assert torch.isfinite(g).all()
+        _gemm_held(g, w, f"{layout} {epi} output {i}")
+
+
+def test_gemm_weight_gradient_is_deterministic(gen):
+    """A weight gradient over 24,576 rows: split-K partials summed in a fixed
+    order give the same bits in every run."""
+    x = torch.randn(24576, 768, device="cuda", generator=gen).bfloat16()
+    dy = (0.1 * torch.randn(24576, 768, device="cuda", generator=gen)).bfloat16()
+    assert gemm_plan(768, 768, 24576, True, torch.cuda.get_device_properties(0)
+                     .multi_processor_count).splits > 1
+    one, two = gemm(x, dy, a_t=True, epi="bf16"), gemm(x, dy, a_t=True, epi="bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _gemm_held(one, gemm_reference(x, dy, a_t=True), "wgrad")
+
+
+def test_gemm_kernel_rejects_what_it_does_not_take(gen):
+    a, b, kw = _gemm_case(gen, "nt", "add_f32", 96, 576, 192)
+    with pytest.raises(ValueError, match="no epilogue"):
+        gemm(a, b, a_t=True, b_t=True)
+    with pytest.raises(ValueError, match="no epilogue"):
+        gemm(a, b, b_t=True, epi="gelu_erf")
+    with pytest.raises(ValueError, match="needs aux"):
+        gemm(a, b, b_t=True, epi="add_f32")
+    with pytest.raises(TypeError, match="bfloat16"):
+        gemm(a.float(), b, b_t=True)
+    with pytest.raises(ValueError, match="out2"):
+        gemm(a, b, b_t=True, epi="bf16", out2=True)
+    shifted = torch.empty(a.numel() + 8, dtype=a.dtype, device=a.device)[8:].view(a.shape)
+    shifted.copy_(a)
+    gemm(shifted, b, b_t=True)  # 16 bytes in: taken
+    odd = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)[4:].view(a.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gemm(odd, b, b_t=True)
