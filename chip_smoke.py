@@ -28,6 +28,11 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    every keep mask visible (self and cross heads, the three hidden sites,
    forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
    forward, #8 backward) driven once through its autograd;
+4a. the attention forward inside #1 alone (the layer forward's
+   ``kvq_attention_fwd``) vs plain at the batch-2048 shapes (self causal,
+   self with a padded mask, cross with op ids from 13; dropout 0.1) and at
+   the bucket-256 serving shape, every keep bit held to the plain mask, with
+   its bound and ``F.scaled_dot_product_attention`` beside it;
 4b. fused head + CE kernels vs plain: #9 and #10, store and flash, at the
    step's head shapes (24,576 rows x 768 x 30,522, bf16) and at ragged rows
    with an odd vocabulary; the table gradient's GEMM; each one's time beside
@@ -175,18 +180,27 @@ def _require_checkout_and_card():
 
 
 def _time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one call, CUDA events around ``iters`` calls."""
+    """Mean device time of one call, CUDA events around ``iters`` calls.
+    Python's cyclic collector is paused meanwhile: a collection over this
+    process's heap stalls the host for milliseconds, which the device's
+    clock would count against a call of ~0.05 ms."""
+    import gc
+
     import torch
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / iters
 
 
@@ -211,6 +225,7 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
+        attention_forward,
         fused_bert_layer,
         layer_backward,
     )
@@ -218,7 +233,8 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
     return {"layer_fwd": fused_bert_layer, "layer_bwd": layer_backward,
-            "attn_bwd": attention_backward, "vq": vector_quantize_kernel,
+            "attn_fwd": attention_forward, "attn_bwd": attention_backward,
+            "vq": vector_quantize_kernel,
             "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
             "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update,
             "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward,
@@ -226,7 +242,7 @@ def _wrappers() -> dict:
 
 
 # wrappers whose launches are split into self- and cross-attention
-_SPLIT = ("attn_bwd", "sdpa_fwd", "sdpa_bwd")
+_SPLIT = ("attn_fwd", "attn_bwd", "sdpa_fwd", "sdpa_bwd")
 
 
 def _counters() -> dict:
@@ -254,16 +270,19 @@ def _reset_counters() -> None:
     w["gemm"].forward_launches = 0
 
 
-def _gemms(forwards: int, backwards: int = 0, encoder_forwards: int = 0) -> dict:
-    """The layer GEMM's launches in that many model forwards (12 encoder and
-    12 decoder layers), backwards and encoder-only forwards, as counted."""
+def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0) -> dict:
+    """The launches of the layer GEMM and of the attention forward made
+    inside the layer kernels in that many model forwards (12 encoder and 12
+    decoder layers), backwards and encoder-only forwards, as counted."""
     from kindergarten_vq_vae_torch.ops.layer import LayerGeom, layer_gemms
 
     geom = dict(num_heads=12, head_dim=64, intermediate=3072, eps=1e-12, gelu_exact=True)
     enc = layer_gemms(LayerGeom(causal=False, has_cross=False, **geom))
     dec = layer_gemms(LayerGeom(causal=True, has_cross=True, **geom))
     fwd = 12 * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
-    return {"gemm": fwd + 12 * backwards * (enc[1] + dec[1]), "gemm_in_fwd": fwd}
+    return {"gemm": fwd + 12 * backwards * (enc[1] + dec[1]), "gemm_in_fwd": fwd,
+            "attn_fwd_self": 12 * (2 * forwards + encoder_forwards),
+            "attn_fwd_cross": 12 * forwards}
 
 
 def _nbytes(*objs) -> int:
@@ -860,7 +879,7 @@ def phase_slice(names: tuple[str, str]) -> dict:
     # three full forwards (two /reconstruct, one /codes): 24 layers + 1 VQ
     # each; /encode runs the 12 encoder layers once; no training kernel
     want = {k: 0 for k in counts}
-    want.update(layer_fwd=3 * 24 + 12, vq=3, **_gemms(3, encoder_forwards=1))
+    want.update(layer_fwd=3 * 24 + 12, vq=3, **_inside_layers(3, encoder_forwards=1))
     print(f"slice: HTTP /health /reconstruct(3) /reconstruct(20) /codes(3) /encode(3) ok; "
           f"launches {counts} (expected {want})")
     if counts != want:
@@ -987,7 +1006,7 @@ def phase_serve_per_module(names: tuple[str, str]) -> dict:
     torch.cuda.synchronize()
     counts = _counters()
     want = {k: 0 for k in counts}
-    want.update(layer_fwd=12, vq=1, **_gemms(0, encoder_forwards=1))
+    want.update(layer_fwd=12, vq=1, **_inside_layers(0, encoder_forwards=1))
     tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
     ok = counts == want
     for key in ("decoder_attentions", "decoder_cross_attentions"):
@@ -1386,6 +1405,102 @@ def phase_train_kernels() -> dict:
     return out
 
 
+def phase_attention_fwd(names: tuple[str, str]) -> dict:
+    """The attention forward inside #1 alone (``kvq_attention_fwd``, the call
+    the layer forward makes) against its plain version: at the batch-2048
+    training shapes (self-attention causal and with a padded mask, both from
+    a packed qkv; cross-attention from q and a packed kv, op ids from
+    num_heads + 1; dropout 0.1) and at the bucket-256 serving shape (rate 0);
+    every keep bit held to the plain mask; its time beside the plain
+    version's, its byte bound and ``F.scaled_dot_product_attention``."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.dropout import attention_keep, cross_op
+    from kindergarten_vq_vae_torch.ops.layer import attention_forward, attention_forward_reference
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
+    lib_name = "F.scaled_dot_product_attention (rate 0, head transposes)"
+    res = {k: {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [], "library_ms": [],
+               "library": lib_name} for k in ("self", "cross", "serving")}
+    H = 768
+    for key, cross, causal, masked, rate, batch in (
+            ("self", False, True, False, 0.1, TRAIN_BATCH),
+            ("self", False, False, True, 0.1, TRAIN_BATCH),
+            ("cross", True, False, False, 0.1, TRAIN_BATCH),
+            ("serving", False, False, True, 0.0, BUCKET)):
+        if cross:
+            packed = torch.randn(batch, SEQ, H, device="cuda", generator=g).bfloat16()
+            kv = torch.randn(batch, SEQ, 2 * H, device="cuda", generator=g).bfloat16()
+            q, (k, v) = packed, kv.split(H, -1)
+        else:
+            packed = torch.randn(batch, SEQ, 3 * H, device="cuda", generator=g).bfloat16()
+            kv, (q, k, v) = None, packed.split(H, -1)
+        mask = _padded_mask(g, batch) if masked else None
+        args = (packed, kv, mask, 12, causal, seed, cross_op(12) if cross else 0, rate)
+        with torch.no_grad():
+            out = attention_forward(*args)
+            torch.cuda.synchronize()
+            want = attention_forward_reference(*args)
+            err = _rel_max(out, want)
+            what = (f"attention forward in #1, {key} ({batch},{SEQ},768) bf16, "
+                    f"{'causal, ' if causal else ''}{'padded mask' if masked else 'no mask'}, "
+                    f"dropout {rate}")
+            print(f"{what}: max rel {err:.3e} (tol {TRAIN_REL})")
+            if not (_finite(out) and err <= TRAIN_REL):
+                _fail(f"{what}: the kernel disagrees with its plain version")
+            kf, pf = _paired_ms(lambda: attention_forward(*args),
+                                lambda: attention_forward_reference(*args), 20)
+            lf = _time_ms(_library_sdpa(q, k, v, mask, causal)[0], 20)
+        bf = _bound(4 * batch * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, out), PEAK_BF16)
+        r = res[key]
+        r["max_abs_err"] = max(r["max_abs_err"], (out.float() - want.float()).abs().max().item())
+        r["ms"].append(kf)
+        r["plain_ms"].append(pf)
+        r["bound"].append(bf)
+        r["library_ms"].append(lf)
+        print(f"{what}: kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms ({bf[1]}), "
+              f"{lib_name} {lf:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
+        del packed, kv, q, k, v, out, want
+
+    # every keep bit visible: q = k = 0 makes p uniform over the keys, v the
+    # one-hot of the key position in each head, so the context shows p * keep
+    # per (query, key, head), for the self (op ids h) and cross (13 + h) heads
+    hd, B = 64, TRAIN_BATCH
+    tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
+    onehot = torch.zeros(B, SEQ, H, device="cuda")
+    for h in range(12):
+        onehot[:, torch.arange(SEQ), h * hd + torch.arange(SEQ)] = 1.0
+    onehot = onehot.bfloat16()
+    zero = torch.zeros_like(onehot)
+    kept = []
+    with torch.no_grad():
+        for cross, causal in ((False, True), (False, False), (True, False)):
+            op = cross_op(12) if cross else 0
+            if cross:
+                ctx = attention_forward(zero, torch.cat([zero, onehot], -1), None, 12, False,
+                                        seed, op, 0.1)
+            else:
+                ctx = attention_forward(torch.cat([zero, zero, onehot], -1), None, None, 12,
+                                        causal, seed, op, 0.1)
+            ctx = ctx.view(B, SEQ, 12, hd)[..., :SEQ]
+            for h in range(12):
+                keep = attention_keep(seed, op + h, B, SEQ, SEQ, 0.1, "cuda") > 0
+                if causal:
+                    keep &= tril
+                if not torch.equal(ctx[:, :, h] > 0, keep):
+                    _fail(f"attention forward in #1: keep mask of head {h} differs from the "
+                          f"plain mask ({'cross' if cross else 'self'}, causal {causal})")
+                kept.append(keep.sum().item() / (B * (int(tril.sum()) if causal else SEQ * SEQ)))
+    print(f"attention forward in #1: keep masks equal to the plain masks at batch {B} (self "
+          f"causal and full, cross with op ids 13..24); kept shares {min(kept):.4f}.."
+          f"{max(kept):.4f} (rate 0.1)")
+    del onehot, zero, ctx
+    torch.cuda.empty_cache()
+    return {k: {**v, "ms": statistics.mean(v["ms"]), "plain_ms": statistics.mean(v["plain_ms"]),
+                "library_ms": statistics.mean(v["library_ms"])} for k, v in res.items()}
+
+
 def _head_case(g, rows: int, vocab: int):
     """Operands of the fused head + CE at the bert-base width: x ~ N(0, 1) and
     a 0.05-scale table give logits of std ~1.4, as a trained head's spread."""
@@ -1543,11 +1658,15 @@ def _sdpa_case(g, batch: int, cross: bool, masked: bool):
         k, v = torch.randn(batch, SEQ, 2 * H, device="cuda", generator=g).bfloat16().split(H, -1)
     else:
         q, k, v = torch.randn(batch, SEQ, 3 * H, device="cuda", generator=g).bfloat16().split(H, -1)
-    mask = None
-    if masked:
-        lens = torch.randint(1, SEQ + 1, (batch,), device="cuda", generator=g)
-        mask = (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
-    return q, k, v, mask
+    return q, k, v, _padded_mask(g, batch) if masked else None
+
+
+def _padded_mask(g, batch: int):
+    """A (batch, SEQ) int32 key mask of random lengths 1..SEQ."""
+    import torch
+
+    lens = torch.randint(1, SEQ + 1, (batch,), device="cuda", generator=g)
+    return (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
 
 
 def _library_sdpa(q, k, v, mask, causal: bool):
@@ -1809,7 +1928,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         per_step.update(sdpa_fwd_self=24, sdpa_fwd_cross=12, sdpa_bwd_self=24, sdpa_bwd_cross=12)
     else:
         per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
-                        attn_bwd_cross=12, **_gemms(1, 1))
+                        attn_bwd_cross=12, **_inside_layers(1, 1))
     per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
     torch.cuda.synchronize()
@@ -1976,7 +2095,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         else:
             want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps,
                         layer_bwd=24 * steps, attn_bwd_self=24 * steps,
-                        attn_bwd_cross=12 * steps, **_gemms(steps + evals, steps))
+                        attn_bwd_cross=12 * steps, **_inside_layers(steps + evals, steps))
         if head_ce in HEAD_MODES:
             want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps)
         else:
@@ -2033,7 +2152,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         want_served = {k: 0 for k in served}
         want_served["vq"] = 2  # two forwards: /reconstruct and /codes
         want_served.update(dict(sdpa_fwd_self=48, sdpa_fwd_cross=24) if fused_layer == "off"
-                           else dict(layer_fwd=48, **_gemms(2)))
+                           else dict(layer_fwd=48, **_inside_layers(2)))
         if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
                 or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
                            for r in recon)
@@ -2065,6 +2184,7 @@ def main() -> None:
     lg = phase_layer_gemms(names)
     kern = phase_kernels()
     tk = phase_train_kernels()
+    af = phase_attention_fwd(names)
     hk = phase_head_kernels(names)
     adam = phase_adam(names)
     sl = phase_slice(names)
@@ -2123,6 +2243,8 @@ def main() -> None:
             n["layer_fwd"], tk["layer_fwd"]),
         row("layer_backward", "layer_bwd.cu", "layer_pallas.py:552", n["layer_bwd"],
             tk["layer_bwd"]),
+        *[row(f"attention_forward in layer_forward ({kind})", "attention.cuh",
+              "layer_pallas.py:244", n[f"attn_fwd_{kind}"], af[kind]) for kind in ("self", "cross")],
         row("attention_backward (self)", "layer_bwd.cu", "layer_pallas.py:696",
             n["attn_bwd_self"], tk["attn_bwd_self"]),
         row("attention_backward (cross)", "layer_bwd.cu", "layer_pallas.py:712",

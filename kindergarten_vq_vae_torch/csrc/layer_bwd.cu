@@ -14,7 +14,8 @@
 //                       (X^T @ dY over all rows, split-K, f32 sums rounded
 //                       once to bf16)
 //   kvq_attention_bwd   per-(sentence, head) attention backward with the
-//                       same keep mask on dv and dp as the forward
+//                       same keep mask on dv and dp as the forward, one
+//                       warp a head on mma.sync tiles (attention.cuh)
 //   kvq_colsum          f32 bias-gradient column sums
 //
 // What bounds it on the H100: the dgrad and wgrad GEMMs are twice the
@@ -184,9 +185,8 @@ int kvq_attention_bwd(const void* q, int q_ld, const void* k, const void* v, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
-  attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch, num_heads,
-                head_dim, s_q, s_k, causal, drop, op_base, st);
-  return static_cast<int>(cudaGetLastError());
+  return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
+                       num_heads, head_dim, s_q, s_k, causal, drop, op_base, st);
 }
 
 }  // extern "C"

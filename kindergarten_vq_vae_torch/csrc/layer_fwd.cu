@@ -24,10 +24,11 @@
 // fused into its epilogue, so no f32 intermediate of the wide MLP reaches
 // memory.
 // The TPU kernel's block-diagonal packing of sentences (`_attn_fwd_tile`)
-// existed to feed the 128x128 MXU; here one CTA computes one (sentence,
-// head) directly (attention.cuh), which gives the same values (off-block
-// scores were -1e9, exp() sent them to exactly 0). One C call launches the
-// layer's whole sequence on the caller's stream and returns cudaGetLastError().
+// existed to feed the 128x128 MXU; here one warp computes one (sentence,
+// head) directly on mma.sync tiles (attention.cuh), which gives the same
+// values (off-block scores were -1e9, exp() sent them to exactly 0). One C
+// call launches the layer's whole sequence on the caller's stream and
+// returns cudaGetLastError(); kvq_attention_fwd launches its attention alone.
 
 #include "attention.cuh"
 #include "dropout_hash.cuh"
@@ -139,8 +140,8 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
   // self-attention block
   KVQ_TRY(gemm_nn(x, H, wqkv, 3 * H, bqkv, qkv, 3 * H, M, 3 * H, H, EPI_BF16, tile_n[0], sms, st));
   const bf16* qkv_b = static_cast<const bf16*>(qkv);
-  attention(qkv_b, 3 * H, qkv_b + H, qkv_b + 2 * H, 3 * H, smask, ctx, H, batch, num_heads,
-            head_dim, s_q, s_q, causal, attn_drop, 0, st);
+  KVQ_TRY(attention(qkv_b, 3 * H, qkv_b + H, qkv_b + 2 * H, 3 * H, smask, ctx, H, batch,
+                    num_heads, head_dim, s_q, s_q, causal, attn_drop, 0, st));
   KVQ_TRY(gemm_nn(ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, tile_n[1], sms, st));
   residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, st);
 
@@ -151,8 +152,8 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
     KVQ_TRY(gemm_nn(enc, H, wkv, 2 * H, bkv, kvc, 2 * H, batch * s_k, 2 * H, H, EPI_BF16,
                     tile_n[3], sms, st));
     const bf16* kvc_b = static_cast<const bf16*>(kvc);
-    attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, c2, H, batch, num_heads, head_dim, s_q,
-              s_k, 0, attn_drop, num_heads + 1, st);
+    KVQ_TRY(attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, c2, H, batch, num_heads, head_dim,
+                      s_q, s_k, 0, attn_drop, num_heads + 1, st));
     KVQ_TRY(gemm_nn(c2, H, wco, H, bco, acc, H, M, H, H, EPI_F32, tile_n[4], sms, st));
     residual_layernorm(x1, acc, g2, be2, x2, inv ? inv + M : nullptr, M, H, eps, hid_drop,
                        OP_CROSS_OUT, st);
@@ -167,6 +168,21 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
   residual_layernorm(xm, acc, g3, be3, out, inv ? inv + 2 * M : nullptr, M, H, eps, hid_drop,
                      OP_MLP_OUT, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The attention of the layer forward alone, self or cross, as the call above
+// launches it: ctx (batch*s_q rows at ctx_ld) of q (rows at q_ld, head h at
+// column h*head_dim) over k / v (rows at kv_ld); key_mask (batch, s_k) int32
+// or null; head h drops with op id op_base + h (0 for self-attention,
+// num_heads + 1 for cross-attention).
+int kvq_attention_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
+                      const int* key_mask, void* ctx, int ctx_ld, int batch, int num_heads,
+                      int head_dim, int s_q, int s_k, int causal, unsigned seed, unsigned thresh,
+                      float scale, int op_base, void* stream) {
+  if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  return attention(q, q_ld, k, v, kv_ld, key_mask, ctx, ctx_ld, batch, num_heads, head_dim, s_q,
+                   s_k, causal, drop, op_base, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,11 +13,13 @@
 // q, k and v are read at their own row strides, so the split views of a
 // packed qkv (row 3H) or kv (row 2H) go in without a copy; the gradients are
 // written at their own strides too. The TPU kernels' sentence tile
-// (`block_b`) fed the MXU and has no counterpart: the grid is one CTA per
-// (sentence, head). What bounds them on the H100 is the bytes (attention.cuh);
-// the dropout hash is dropout_hash.cuh's, keyed on the absolute query row, the
-// key position within the sentence, the head and the seed, as
-// `_dropout_keep_scale` (sdpa_pallas.py:77) keys it.
+// (`block_b`) fed the MXU and has no counterpart: one warp computes one
+// (sentence, head) on mma.sync tiles, over a persistent grid, with 16-byte
+// staged loads and stores where the strides allow (attention.cuh). What
+// bounds them on the H100 is the bytes; the dropout hash is
+// dropout_hash.cuh's, keyed on the absolute query row, the key position
+// within the sentence, the head and the seed, as `_dropout_keep_scale`
+// (sdpa_pallas.py:77) keys it.
 
 #include "attention.cuh"
 #include "dropout_hash.cuh"
@@ -35,9 +37,8 @@ int kvq_sdpa_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_l
                  float scale, void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
-  attention<false>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads, head_dim, s_q,
-                   s_k, causal, drop, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return attention<false>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads,
+                          head_dim, s_q, s_k, causal, drop, 0, static_cast<cudaStream_t>(stream));
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of kvq_sdpa_fwd's output,
@@ -48,9 +49,9 @@ int kvq_sdpa_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_l
                  int causal, unsigned seed, unsigned thresh, float scale, void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
-  attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch, num_heads,
-                head_dim, s_q, s_k, causal, drop, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
+                       num_heads, head_dim, s_q, s_k, causal, drop, 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // out = the #13 attention of q over k / v (one sequence length s for both).
@@ -59,9 +60,8 @@ int kvq_mha_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld
                 int head_dim, int s, int causal, void* stream) {
   if (!attention_fits(s, s, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams off{0u, 0u, 1.0f, 0};
-  attention<true>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads, head_dim, s, s,
-                  causal, off, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return attention<true>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads, head_dim,
+                         s, s, causal, off, 0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

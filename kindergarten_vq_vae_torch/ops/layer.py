@@ -67,7 +67,9 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "wq", "bq", "wkv", "bkv", "wco", "bco", "g2", "be2",
                "w1", "b1", "w2", "b2", "g3", "be3")
 
-# limits of the attention kernels of csrc/attention.cuh (ATT_MAX_S, ATT_MAX_HD)
+# limits of the attention kernels of csrc/attention.cuh (ATT_MAX_S, ATT_MAX_HD:
+# a warp's q / k tiles of at most two m16 blocks, head_dim in at most eight
+# k16 steps; `attention_fits`)
 MAX_SEQ = 32
 MAX_HEAD_DIM = 128
 
@@ -266,18 +268,33 @@ def bert_layer_reference(geom: LayerGeom, x, enc, smask, cmask, weights, seed=0)
     return layer_forward_reference(geom, x, enc, smask, cmask, weights, seed)[0]
 
 
+def _split_qkv(qkv_or_q, kv):
+    """q, k, v views of a packed qkv (B, S, 3H) (``kv`` None) or of q (B, S, H)
+    and a packed kv (B, S_k, 2H)."""
+    if kv is None:
+        H = qkv_or_q.shape[-1] // 3
+        return qkv_or_q[..., :H], qkv_or_q[..., H:2 * H], qkv_or_q[..., 2 * H:]
+    H = qkv_or_q.shape[-1]
+    return qkv_or_q, kv[..., :H], kv[..., H:]
+
+
+def attention_forward_reference(qkv_or_q, kv, key_mask, num_heads: int, causal: bool, seed=0,
+                                op_base=0, rate=0.0) -> torch.Tensor:
+    """Plain version of the layer forward's attention (``_attn_fwd_tile``
+    l.244): the context (B, S, H) in the compute dtype. Self (``kv`` None):
+    qkv (B, S, 3H); cross: q (B, S, H), kv (B, S_k, 2H). Heads drop with op
+    ids ``op_base + h``."""
+    q, k, v = _split_qkv(qkv_or_q, kv)
+    return _attention(q, k, v, key_mask, causal, num_heads, seed, op_base, rate).to(q.dtype)
+
+
 def attention_backward_reference(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bool,
                                  seed=0, op_base=0, rate=0.0):
     """Plain version of the attention backward (``_attn_bwd_tile`` l.304),
     with the contract of ``_attn_bwd_call`` (l.730). Self (``kv`` None):
     qkv (B, S, 3H) -> dqkv (B, S, 3H). Cross: q (B, S, H), kv (B, S_k, 2H) ->
     (dq (B, S, H), dkv (B, S_k, 2H)). Outputs in the compute dtype."""
-    if kv is None:
-        H = qkv_or_q.shape[-1] // 3
-        q, k, v = qkv_or_q[..., :H], qkv_or_q[..., H:2 * H], qkv_or_q[..., 2 * H:]
-    else:
-        H = qkv_or_q.shape[-1]
-        q, k, v = qkv_or_q, kv[..., :H], kv[..., H:]
+    q, k, v = _split_qkv(qkv_or_q, kv)
     dq, dk, dv = attention_grads(q, k, v, key_mask, g_ctx, num_heads, causal, seed, op_base, rate)
     if kv is None:
         return torch.cat([dq, dk, dv], dim=-1)
@@ -492,6 +509,8 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
     _build.check(code, "kvq_bert_layer_fwd")
     gemm.launches += layer_gemms(geom)[0]
     gemm.forward_launches += layer_gemms(geom)[0]
+    attention_forward.launches += 1 + int(geom.has_cross)
+    attention_forward.cross_launches += int(geom.has_cross)
     fused_bert_layer.launches += 1
     fused_bert_layer.residual_launches += int(save)
     if not save:
@@ -514,6 +533,60 @@ def layer_forward(geom: LayerGeom, x, enc, smask, cmask, weights, seed):
     return _launch(geom, x, enc, smask, cmask, weights, seed, save=True)
 
 
+def _attention_args(qkv_or_q, kv, key_mask, num_heads: int, rate: float, what: str):
+    """Check an attention kernel call; returns (b, sq, sk, H)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    dev = qkv_or_q.device
+    cross = kv is not None
+    b, sq, w = qkv_or_q.shape
+    H = w if cross else w // 3
+    sk = kv.shape[1] if cross else sq
+    if H % num_heads or H // num_heads > MAX_HEAD_DIM or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
+        raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} and sequences of 1..{MAX_SEQ}")
+    _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), torch.bfloat16, dev)
+    if cross:
+        _build.check_tensor("kv", kv, (b, sk, 2 * H), torch.bfloat16, dev)
+    if key_mask is not None:
+        _build.check_tensor("key_mask", key_mask, (b, sk), torch.int32, dev)
+    return b, sq, sk, H
+
+
+def attention_forward(qkv_or_q, kv, key_mask, num_heads: int, causal: bool, seed=0, op_base=0,
+                      rate=0.0) -> torch.Tensor:
+    """The attention of the fused layer forward alone (``_attn_fwd_tile``,
+    ``layer_pallas.py:244``, inside ``_layer_fwd_kernel`` l.489), with the
+    contract of :func:`attention_forward_reference`. A CPU tensor takes the
+    plain version; a CUDA tensor launches ``kvq_attention_fwd`` of
+    ``csrc/layer_fwd.cu`` (bf16) or raises. ``attention_forward.launches``
+    counts these launches and those inside :func:`fused_bert_layer`'s forward
+    launches (one self-attention each, and one cross-attention in a
+    decoder layer, counted also in ``attention_forward.cross_launches``)."""
+    if qkv_or_q.device.type == "cpu":
+        return attention_forward_reference(qkv_or_q, kv, key_mask, num_heads, causal, seed,
+                                           op_base, rate)
+    if qkv_or_q.device.type != "cuda":
+        raise ValueError(f"attention_forward runs on CPU or CUDA tensors, got {qkv_or_q.device}")
+    b, sq, sk, H = _attention_args(qkv_or_q, kv, key_mask, num_heads, rate, "attention_forward")
+    cross = kv is not None
+    dev = qkv_or_q.device
+    ctx = torch.empty((b, sq, H), dtype=torch.bfloat16, device=dev)
+    q_ld, kv_ld = (H, 2 * H) if cross else (3 * H, 3 * H)
+    k_ptr = kv.data_ptr() if cross else qkv_or_q.data_ptr() + 2 * H  # bf16: 2 bytes an element
+    _build.launch("kvq_attention_fwd", _ATT_FWD_ARGS, qkv_or_q.data_ptr(), q_ld, k_ptr,
+                  k_ptr + 2 * H, kv_ld, _ptr(key_mask), ctx.data_ptr(), H, b, num_heads,
+                  H // num_heads, sq, sk, int(causal), seed_u32(seed), keep_threshold(rate),
+                  keep_scale(rate), op_base, device=dev)
+    attention_forward.launches += 1
+    attention_forward.cross_launches += int(cross)
+    return ctx
+
+
+attention_forward.launches = 0
+attention_forward.cross_launches = 0  # the cross-attention share of ``launches``
+_ATT_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
+
+
 def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bool,
                        seed=0, op_base=0, rate=0.0):
     """The attention backward of the fused layer, self and cross, with the
@@ -528,23 +601,11 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
                                             seed, op_base, rate)
     if qkv_or_q.device.type != "cuda":
         raise ValueError(f"attention_backward runs on CPU or CUDA tensors, got {qkv_or_q.device}")
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    b, sq, sk, H = _attention_args(qkv_or_q, kv, key_mask, num_heads, rate, "attention_backward")
     dev = qkv_or_q.device
     cross = kv is not None
-    b, sq, w = qkv_or_q.shape
-    H = w if cross else w // 3
     nh = num_heads
-    sk = kv.shape[1] if cross else sq
-    if H % nh or H // nh > MAX_HEAD_DIM or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
-        raise ValueError(f"attention_backward takes head_dim <= {MAX_HEAD_DIM} and "
-                         f"sequences of 1..{MAX_SEQ}")
-    _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), torch.bfloat16, dev)
     _build.check_tensor("g_ctx", g_ctx, (b, sq, H), torch.bfloat16, dev)
-    if cross:
-        _build.check_tensor("kv", kv, (b, sk, 2 * H), torch.bfloat16, dev)
-    if key_mask is not None:
-        _build.check_tensor("key_mask", key_mask, (b, sk), torch.int32, dev)
     if cross:
         dq = torch.empty((b, sq, H), dtype=torch.bfloat16, device=dev)
         dkv = torch.empty((b, sk, 2 * H), dtype=torch.bfloat16, device=dev)

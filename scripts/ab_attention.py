@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Device time of the port's attention kernels, for an A/B of two trees on one card.
+
+    python3 scripts/ab_attention.py [--root DIR] [--iters 50]
+
+Imports ``kindergarten_vq_vae_torch`` from ``--root`` (default: this
+checkout), so the same script times another commit unpacked beside it
+(``git archive <commit> | tar -x -C runs/<dir>``); run both trees in turns
+(parent, change, change, parent) in one call. Each entry is the mean device
+time of one call (CUDA events around ``--iters`` calls after a warm-up) at
+the bert-base shapes: batch 2048 x 12 tokens (dropout 0.1), H 768, 12 heads,
+and the bucket-256 serving forward (rate 0):
+
+- ``attn_fwd_*``: the attention forward inside #1 alone (``attention_forward``,
+  where the tree has it);
+- ``sdpa_fwd_*`` (#11; the same device code as #1's attention, op ids from
+  0), ``sdpa_bwd_*`` (#12), ``attn_bwd_*`` (#3 self from a packed qkv with a
+  padded mask, #4 cross from q and a packed kv, op ids from 13), ``mha``
+  (#13, padded mask);
+- ``library_*``: ``F.scaled_dot_product_attention`` and its autograd
+  backward at the same shapes (rate 0, head transposes), a yardstick;
+- ``serving_forward``: the median host time of 20 synchronized bucket-256
+  forwards of a seeded bert-base Shelgon3-VQ (fused layers, bf16,
+  inference mode), the path a served ``/reconstruct`` runs.
+
+The last line is one JSON object with the times, the card's name and
+``nvidia-smi``'s name and power limit. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEQ, H, NH, TRAIN_BATCH, BUCKET = 12, 768, 12, 2048, 256
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _library(q, k, v, mask, causal: bool):
+    """``F.scaled_dot_product_attention``'s forward call and its autograd
+    backward's call on the same inputs (rate 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, _ = q.shape
+    heads = [t.reshape(b, t.shape[1], NH, H // NH).transpose(1, 2) for t in (q, k, v)]
+    attn = None
+    if mask is not None or causal:
+        attn = torch.ones(b, 1, s, k.shape[1], dtype=torch.bool, device="cuda")
+        if mask is not None:
+            attn = attn & (mask[:, None, None, :] > 0)
+        if causal:
+            attn = attn & torch.ones(s, k.shape[1], dtype=torch.bool, device="cuda").tril()
+    with torch.enable_grad():
+        leaves = [t.detach().contiguous().requires_grad_() for t in heads]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn)
+    gh = torch.randn_like(out)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*heads, attn_mask=attn)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    return fwd, bwd
+
+
+def _serving_forward_ms(rounds: int = 20) -> float:
+    import torch
+
+    from kindergarten_vq_vae_torch.config import RunConfig
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+
+    cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16")
+    model = init_weights(build_model(cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(0)).eval()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(1, cfg.vocab_size, (BUCKET, SEQ), device="cuda", generator=g)
+    lens = torch.randint(1, SEQ + 1, (BUCKET,), device="cuda", generator=g)
+    mask = (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    times = []
+    with torch.inference_mode():
+        for i in range(rounds + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(ids, mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    del model
+    torch.cuda.empty_cache()
+    return statistics.median(times[2:])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("ab_attention.py needs a CUDA device")
+    from kindergarten_vq_vae_torch.ops import layer
+    from kindergarten_vq_vae_torch.ops.attention import mha_forward
+    from kindergarten_vq_vae_torch.ops.dropout import cross_op
+    from kindergarten_vq_vae_torch.ops.sdpa import sdpa_backward, sdpa_forward
+
+    if not os.path.abspath(layer.__file__).startswith(root + os.sep):
+        sys.exit(f"imported {layer.__file__}, not the tree at {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seed, it, ms = 12345, args.iters, {}
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    def mask(batch):
+        lens = torch.randint(1, SEQ + 1, (batch,), device="cuda", generator=g)
+        return (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
+
+    with torch.no_grad():
+        for kind, batch, rate in (("self", TRAIN_BATCH, 0.1), ("cross", TRAIN_BATCH, 0.1),
+                                  ("serving", BUCKET, 0.0)):
+            cross = kind == "cross"
+            if cross:
+                packed, kv = rand(batch, SEQ, H), rand(batch, SEQ, 2 * H)
+                q, (k, v) = packed, kv.split(H, -1)
+            else:
+                packed, kv = rand(batch, SEQ, 3 * H), None
+                q, k, v = packed.split(H, -1)
+            m = None if cross else mask(batch)
+            causal, op = False, cross_op(NH) if cross else 0
+            gr = rand(batch, SEQ, H)
+            if hasattr(layer, "attention_forward"):
+                ms[f"attn_fwd_{kind}"] = _time_ms(
+                    lambda: layer.attention_forward(packed, kv, m, NH, causal, seed, op, rate), it)
+            ms[f"sdpa_fwd_{kind}"] = _time_ms(
+                lambda: sdpa_forward(q, k, v, m, seed, NH, causal, rate, cross), it)
+            lib_fwd, lib_bwd = _library(q, k, v, m, causal)
+            ms[f"library_fwd_{kind}"] = _time_ms(lib_fwd, it)
+            if kind == "serving":
+                continue
+            ms[f"sdpa_bwd_{kind}"] = _time_ms(
+                lambda: sdpa_backward(q, k, v, m, seed, gr, NH, causal, rate, cross), it)
+            ms[f"attn_bwd_{kind}"] = _time_ms(
+                lambda: layer.attention_backward(packed, kv, m, gr, NH, causal, seed, op, rate), it)
+            with torch.enable_grad():
+                ms[f"library_bwd_{kind}"] = _time_ms(lib_bwd, it)
+            if kind == "self":
+                ms["mha"] = _time_ms(lambda: mha_forward(q, k, v, m, NH), it)
+    ms["serving_forward"] = _serving_forward_ms()
+    print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                      "iters": it, "ms": ms}))
+
+
+if __name__ == "__main__":
+    main()

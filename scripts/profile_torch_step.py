@@ -52,8 +52,9 @@ FAMILIES = (
     ("sm90::gemm_kernel<256, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
     ("splitk_reduce", "split-K sums (layer wgrad; #10's dbias)"),
     ("sm90::", "layer GEMM, other (wgmma)"),
-    ("attention_bwd_kernel", "attention backward (in #2, or #12)"),
-    ("attention_kernel", "attention forward (in #1, or #11)"),
+    # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
+    ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
+    ("attention_kernel", "attention forward (in #1, or #11 / #13)"),
     ("residual_layernorm", "residual + LayerNorm forward"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("parts_reduce", "column sums (LN / bias gradients)"),

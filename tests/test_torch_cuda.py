@@ -28,7 +28,12 @@ its largest, dx within 1e-2 of its largest, against the plain backward on
 the same logits; the table gradient within 1e-4 of its largest.
 SDPA (#11 / #12) and MHA (#13): outputs and gradients within 2e-2 of their
 largest magnitude (the attention backward's bar: the same device code), the
-attention keep masks exact.
+attention keep masks exact. The attention kernels (csrc/attention.cuh) at
+their tile edges: every entry (the layer's attention forward and backward,
+#11 / #12, #13) at s_q, s_k in {1, 7, 12, 16, 17, 32}, head_dim 64, 128, 40
+(padded to 48), 36 and 33 (element loads), a fully masked sentence and a
+part-filled last CTA, held to the same 2e-2; keep masks exact through split
+views of a packed qkv / kv at 17 and 32 rows.
 The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
 f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
@@ -66,6 +71,8 @@ from kindergarten_vq_vae_torch.ops.layer import (
     LayerGeom,
     attention_backward,
     attention_backward_reference,
+    attention_forward,
+    attention_forward_reference,
     bert_layer_reference,
     fused_bert_layer,
     layer_backward,
@@ -487,6 +494,93 @@ def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
     qb, kb, vb = _views(gen, False, 2, 12, 12, 128)
     with pytest.raises(ValueError, match="strided"):  # k and v at two row strides
         sdpa_forward(qb, kb, vb.contiguous(), None, 0, 2)
+
+
+# (s_q, s_k) across the attention kernel's 16- and 32-row tile edges
+_EDGE_SHAPES = [(s, s) for s in (1, 7, 12, 16, 17, 32)] + [
+    (1, 32), (7, 17), (12, 32), (16, 1), (17, 7), (32, 12)]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 40, 36, 33])
+@pytest.mark.parametrize("SQ,SK", _EDGE_SHAPES)
+def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd):
+    """Every attention entry at one shape: 37 sentences x 3 heads (111 warp
+    units: the last CTA part-filled), sentence 3 fully masked; head_dim 40
+    pads to 48, 36 and 33 take the element loads (rows not 16-byte aligned)."""
+    B, NH = 37, 3
+    H, cross = NH * hd, SQ != SK
+    if cross:
+        packed = torch.randn(B, SQ, H, device="cuda", generator=gen).bfloat16()
+        kv = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).bfloat16()
+        q, (k, v) = packed, kv.split(H, -1)
+    else:
+        packed, kv = torch.randn(B, SQ, 3 * H, device="cuda", generator=gen).bfloat16(), None
+        q, k, v = packed.split(H, -1)
+    lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
+    mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    mask[3] = 0
+    g = torch.randn(B, SQ, H, device="cuda", generator=gen).bfloat16()
+    op, causal = (cross_op(NH), False) if cross else (0, True)
+
+    def held(got, want):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            assert torch.isfinite(a).all() and _rel_max(a, b) <= 2e-2
+
+    layer_args = (packed, kv, mask, NH, causal, 41, op, 0.1)
+    held(attention_forward(*layer_args), attention_forward_reference(*layer_args))
+    bwd_args = (packed, kv, mask, g, NH, causal, 41, op, 0.1)
+    held(attention_backward(*bwd_args), attention_backward_reference(*bwd_args))
+    sdpa_args = (q, k, v, mask, -5)
+    held(sdpa_forward(*sdpa_args, NH, False, 0.1), sdpa_forward_reference(*sdpa_args, NH, False, 0.1))
+    held(sdpa_backward(*sdpa_args, g, NH, False, 0.1),
+         sdpa_backward_reference(*sdpa_args, g, NH, False, 0.1))
+    if not cross:
+        out = mha_forward(q, k, v, mask, NH, True)
+        held(out, mha_reference(q, k, v, mask, NH, True))
+        torch.cuda.synchronize()
+        # WHERE_MASK: the fully masked sentence is uniform over every key
+        assert _rel_max(out[3], v[3].float().mean(0).expand(SQ, H)) <= 2e-2
+
+
+@pytest.mark.parametrize("S", [17, 32])
+@pytest.mark.parametrize("cross", [False, True])
+def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S):
+    """q = k = 0, v and g one-hot in the key / query position, read through
+    split views of the packed qkv / kv: the context shows p * keep and dv
+    its transpose, per (query, key, head), equal to the plain masks."""
+    B, NH, hd = 9, 2, 64
+    H = NH * hd
+    onehot = torch.zeros(B, S, H, device="cuda")
+    for h in range(NH):
+        onehot[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
+    onehot = onehot.bfloat16()
+    zero = torch.zeros_like(onehot)
+    if cross:
+        packed, kv, op = zero, torch.cat([zero, onehot], -1), cross_op(NH)
+    else:
+        packed, kv, op = torch.cat([zero, zero, onehot], -1), None, 0
+    ctx = attention_forward(packed, kv, None, NH, False, 1234, op, 0.3)
+    grads = attention_backward(packed, kv, None, onehot, NH, False, 1234, op, 0.3)
+    dv = (grads[1][..., H:] if cross else grads[..., 2 * H:]).view(B, S, NH, hd)[..., :S]
+    ctx = ctx.view(B, S, NH, hd)[..., :S]
+    for h in range(NH):
+        keep = attention_keep(1234, op + h, B, S, S, 0.3, "cuda") > 0
+        assert torch.equal(ctx[:, :, h] > 0, keep)
+        assert torch.equal(dv[:, :, h].transpose(1, 2) > 0, keep)
+
+
+def test_layer_forward_counts_its_attention(gen):
+    """Each fused layer forward adds its attention launches (one self, and a
+    cross in a decoder layer) to ``attention_forward``'s counts."""
+    for decoder in (False, True):
+        geom, x, enc, smask, cmask, ws = _case(gen, decoder, 3, 12, 9, 128, 2, 256, decoder)
+        before = attention_forward.launches, attention_forward.cross_launches
+        with torch.no_grad():
+            fused_bert_layer(geom, x, enc, smask, cmask, ws)
+        assert (attention_forward.launches, attention_forward.cross_launches) == (
+            before[0] + 1 + int(decoder), before[1] + int(decoder))
 
 
 _GEMM_CASES = [("nn", e) for e in ("f32", "bf16", "gelu_erf", "gelu_tanh")] + \

@@ -7,7 +7,9 @@ dropout 0.1 / 0.1, are held against ``jax.vjp`` of the JAX ``fused_bert_layer``
 weight gradient, each to max|port - jax| / max|jax| <= 1e-4 (f32 on both
 sides; they differ in summation order, and the JAX backward recovers the
 LayerNorm's normalised values from its stored outputs). The attention
-backward is held against ``_attn_bwd_call`` to the same criterion.
+forward alone is held against ``_attn_fwd_tile`` and the attention backward
+against ``_attn_bwd_call`` to the same criterion, at 12 rows and at the card
+kernel's tile edges (17 and 32 rows, self and cross).
 """
 
 import jax
@@ -131,16 +133,52 @@ def test_dropout_is_on_and_seeded():
     assert not torch.equal(a, fused_bert_layer(off, *args, seed=5))
 
 
+B_ATT = 5
+# (S, S_k) of each case, self and cross: the step's 12 and the card kernel's
+# tile edges (17 rows: two m16 blocks; 32: the largest)
+_ATT_SHAPES = {False: {12: 12, 17: 17, 32: 32}, True: {12: 9, 17: 32, 32: 17}}
+
+
+def _attention_case(rng, cross, S, SK):
+    q = rng.normal(size=(B_ATT, S, H if cross else 3 * H)).astype(np.float32)
+    kv = rng.normal(size=(B_ATT, SK, 2 * H)).astype(np.float32) if cross else None
+    mask = (np.arange(SK)[None] < rng.integers(1, SK + 1, B_ATT)[:, None]).astype(np.int32)
+    return q, kv, mask
+
+
+@pytest.mark.parametrize("S", [12, 17, 32])
 @pytest.mark.parametrize("cross", [False, True])
-def test_attention_backward_matches_jax(cross):
+def test_attention_forward_matches_jax(cross, S):
+    """The layer forward's attention alone (the card's ``kvq_attention_fwd``;
+    its plain version here) against the JAX layer kernel's ``_attn_fwd_tile``
+    over the same packed rows, dropout 0.1 with the cross op ids."""
+    from kindergarten_vq_vae_tpu.ops.layer_pallas import _attn_fwd_tile
+    from kindergarten_vq_vae_torch.ops.layer import attention_forward
+
+    SK, seed, rate, hd = _ATT_SHAPES[cross][S], -77, 0.1, H // NH
+    q, kv, mask = _attention_case(np.random.default_rng(5), cross, S, SK)
+    op = cross_op(NH) if cross else 0
+    q2 = q.reshape(B_ATT * S, -1)
+    k2 = (kv if cross else q).reshape(B_ATT * SK, -1)
+    qh, kh, vh = (q2[:, :H], k2[:, :H], k2[:, H:2 * H]) if cross else \
+        (q2[:, :H], q2[:, H:2 * H], q2[:, 2 * H:])
+    want = _attn_fwd_tile(jnp.asarray(qh), jnp.asarray(kh), jnp.asarray(vh),
+                          jnp.asarray(mask.reshape(1, -1)), not cross, jnp.int32(seed),
+                          jnp.int32(0), op, NH, hd, B_ATT, S, SK, rate, jnp.float32, 0)
+    got = attention_forward(_t(q), _t(kv), _t(mask), NH, not cross, seed, op, rate)
+    assert got.shape == (B_ATT, S, H)
+    assert _rel(got.reshape(B_ATT * S, H), want) <= REL
+
+
+@pytest.mark.parametrize("S", [12, 17, 32])
+@pytest.mark.parametrize("cross", [False, True])
+def test_attention_backward_matches_jax(cross, S):
     rng = np.random.default_rng(4)
-    B, S, SK, seed, rate = 5, 12, 9 if cross else 12, 77, 0.1
+    B, SK, seed, rate = B_ATT, _ATT_SHAPES[cross][S], 77, 0.1
     geom = JaxGeom(num_heads=NH, head_dim=H // NH, s_q=S, s_k=SK, intermediate=F,
                    causal=not cross, has_cross=cross, attn_rate=rate, hid_rate=0.0, eps=1e-12,
                    gelu_exact=True, block_b_fwd=2, block_b_bwd=2)
-    q = rng.normal(size=(B, S, H if cross else 3 * H)).astype(np.float32)
-    kv = rng.normal(size=(B, SK, 2 * H)).astype(np.float32) if cross else None
-    mask = (np.arange(SK)[None] < rng.integers(1, SK + 1, B)[:, None]).astype(np.int32)
+    q, kv, mask = _attention_case(rng, cross, S, SK)
     g = rng.normal(size=(B, S, H)).astype(np.float32)
     want = _attn_bwd_call(geom, cross, jnp.asarray(q), None if kv is None else jnp.asarray(kv),
                           jnp.asarray(mask), jnp.asarray([seed], jnp.int32), jnp.asarray(g), True)

@@ -4,7 +4,8 @@ JAX package's ``fused_sdpa`` (ops/sdpa_pallas.py, interpret mode on the CPU).
 f32 on both sides, the same seeded numpy inputs: self-attention (causal and
 not) and cross-attention (S_q != S_k), padded key masks and ``None``, a batch
 that is not a multiple of the JAX sentence tile, dropout rate 0 and 0.1 with
-a fixed seed. The forward is held at atol 1e-5 and dq / dk / dv (from
+a fixed seed, and sequence lengths at the card kernel's tile edges (1, 16,
+17 and 32 rows). The forward is held at atol 1e-5 and dq / dk / dv (from
 ``jax.vjp`` against the port's autograd) at atol 2e-5, the bars of
 ``tests/test_sdpa_pallas.py``: the two sides differ only in f32 summation
 order and exp ulps. At rate 0.1 the keep masks are compared exactly, through
@@ -63,6 +64,12 @@ def _jax(q, k, v, mask, w, causal, rate):
     (12, 12, True, True, 0.1),
     (12, 12, False, False, 0.1),
     (7, 12, False, True, 0.1),
+    # the card kernel's tile edges: one row, 16 and 32 rows, one row past 16
+    (1, 1, False, True, 0.0),
+    (16, 16, True, True, 0.0),
+    (17, 17, False, True, 0.0),
+    (32, 32, True, False, 0.1),
+    (17, 32, False, True, 0.1),    # cross-attention over two key blocks
 ])
 def test_fused_sdpa_matches_jax(SQ, SK, causal, masked, rate):
     q, k, v, mask, w = _inputs(5, SQ, SK, masked)
