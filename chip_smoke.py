@@ -23,8 +23,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
    (self and cross) and the three CE kernels (#6, #7, #8) at the shapes of
    the batch-2048 bert-base training step, with ``nn.TransformerEncoderLayer``
-   / ``DecoderLayer`` in train mode (dropout 0) and the autograd backward of
-   ``F.scaled_dot_product_attention`` as yardsticks, and layers whose weights make
+   / ``DecoderLayer`` in train mode (dropout 0), the autograd backward of
+   ``F.scaled_dot_product_attention`` and, for #8, that of
+   ``F.cross_entropy(reduction="none")`` as yardsticks, and layers whose weights make
    every keep mask visible (self and cross heads, the three hidden sites,
    forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
    forward, #8 backward) driven once through its autograd;
@@ -35,8 +36,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    its bound and ``F.scaled_dot_product_attention`` beside it;
 4b. fused head + CE kernels vs plain: #9 and #10, store and flash, at the
    step's head shapes (24,576 rows x 768 x 30,522, bf16) and at ragged rows
-   with an odd vocabulary; the table gradient's GEMM; each one's time beside
-   the plain one's, its bound and its library yardstick (cuBLAS + PyTorch
+   with an odd vocabulary; the table gradient (the GEMM's TN split-K
+   product); each one's time, TFLOP/s and share of the bf16 peak beside the
+   plain one's time, its bound and its library yardstick (cuBLAS + PyTorch
    calls computing the same function, named as printed);
 5. AMSGrad (kernel #14) vs its plain version over the whole bert-base
    Shelgon3-VQ parameter list: 3 steps with weight decay, a milestone, a
@@ -55,8 +57,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    kernels: launch counts per step (kernel #14 once, the plain update never),
    finite and falling loss, median step time, sentences/s and peak memory;
    then 4 steps each with ``fused_head_ce`` "store" and "flash" from the
-   same weights and dropout (#9 and #10 once a step, #7 and #8 never), the
-   first step's loss held to the default path's;
+   same weights and dropout (#9, #10 and the table gradient once a step, #7
+   and #8 never), the first step's loss held to the default path's; the
+   three routes' step medians and peak memory side by side;
 9. gradients at batch 256: the kernel path's, the plain bf16 path's and the
    two fused-head kernel paths' gradients, each held against an f32 plain
    step on the same weights, dropout and batch;
@@ -132,7 +135,7 @@ PATH_SLACK, CODE_SLACK = 1.25, 0.01
 # (values ~15, f32 sums in another order), dlogits within 1e-2 of the
 # largest (one bf16 ulp).
 TRAIN_REL, CE_NLL_ABS, CE_GRAD_REL = 2e-2, 1e-4, 1e-2
-# fused head + CE (#9, #10) vs plain. The kernel's logits come from the wmma
+# fused head + CE (#9, #10) vs plain. The kernel's logits come from the wgmma
 # GEMM, the plain ones from cuBLAS: f32 sums in another order, so a bf16 logit
 # may sit one ulp away at each of its two roundings (x @ E^T, then + b), at
 # most 2 ulps at the top of the range. The kernel's NLL / lse / ids are held
@@ -222,7 +225,7 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.attention import mha_forward
     from kindergarten_vq_vae_torch.ops.ce import ce_bwd, ce_fwd, ce_fwd_ids
     from kindergarten_vq_vae_torch.ops.gemm import gemm
-    from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd
+    from kindergarten_vq_vae_torch.ops.head_ce import head_ce_bwd, head_ce_fwd, table_grad
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
         attention_forward,
@@ -236,7 +239,8 @@ def _wrappers() -> dict:
             "attn_fwd": attention_forward, "attn_bwd": attention_backward,
             "vq": vector_quantize_kernel,
             "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
-            "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "adam": amsgrad_update,
+            "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "table_grad": table_grad,
+            "adam": amsgrad_update,
             "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward,
             "gemm": gemm}
 
@@ -1371,10 +1375,19 @@ def phase_train_kernels() -> dict:
                                 lambda: ce_bwd_reference(logits, t, lse, scale), 10)
         # subtract, exp, one-hot subtract, scale, round per logit
         bound = _bound(5 * rows * VOCAB, _nbytes(logits, t, lse, scale, got), PEAK_F32)
-        res["ce_bwd"] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                         "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound]}
-        print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
+    # the same function in one PyTorch call: the autograd backward of
+    # F.cross_entropy(reduction="none") fed scale as its output gradient
+    with torch.enable_grad():
+        lib_in = logits.detach().requires_grad_()
+        lib_nll = F.cross_entropy(lib_in, t.long(), reduction="none")
+        lib_ms = _time_ms(lambda: torch.autograd.grad(lib_nll, lib_in, scale.to(lib_nll.dtype),
+                                                      retain_graph=True), 10)
+    del lib_in, lib_nll
+    res["ce_bwd"] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                     "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound], "library_ms": lib_ms,
+                     "library": "autograd backward of F.cross_entropy(reduction='none')"}
+    print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}), autograd backward of F.cross_entropy(reduction='none') {lib_ms:.4f} ms")
     del got, want
 
     # fused_ce_loss through its autograd: #6 forward, #8 backward (no model path
@@ -1601,9 +1614,14 @@ def phase_head_kernels(names: tuple[str, str]) -> dict:
                 lg = torch.matmul(x, table.t()) + bias_c
                 return F.cross_entropy(lg, t.long(), reduction="none"), lg.argmax(1)
 
+            logits_c = logits.contiguous()  # #8 reads unpadded rows
+
             def lib_bwd():
-                gg = ce_bwd(logits, t, lse, scale)
+                gg = ce_bwd(logits_c, t, lse, scale)
                 return torch.matmul(gg, table), gg.sum(0, dtype=torch.float32)
+
+            def rate(ms, f=flops):  # TFLOP/s and share of the bf16 peak
+                return f"{f / ms / 1e9:.1f} TFLOP/s ({f / ms / 1e9 / (PEAK_BF16 / 1e12):.1%})"
 
             lib_fwd_ms, lib_bwd_ms = _time_ms(lib_fwd, 10), _time_ms(lib_bwd, 10)
             for m in HEAD_MODES:
@@ -1615,9 +1633,9 @@ def phase_head_kernels(names: tuple[str, str]) -> dict:
                     "max_abs_err": max(own_err, nll_err), "ms": k_ms, "plain_ms": p_ms,
                     "bound": [bound], "library_ms": lib_fwd_ms,
                     "library": "cuBLAS head GEMM (torch.matmul) + bias + F.cross_entropy + argmax"}
-                print(f"head_ce_fwd {m}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                      f"{bound[0]:.4f} ms ({bound[1]}), cuBLAS head GEMM + F.cross_entropy + "
-                      f"argmax {lib_fwd_ms:.4f} ms")
+                print(f"head_ce_fwd {m}: kernel {k_ms:.4f} ms, {rate(k_ms)}, plain {p_ms:.4f} "
+                      f"ms, bound {bound[0]:.4f} ms ({bound[1]}), cuBLAS head GEMM + "
+                      f"F.cross_entropy + argmax {lib_fwd_ms:.4f} ms, {rate(lib_fwd_ms)}")
                 k_ms, p_ms = _paired_ms(
                     lambda m=m, saved=saved: head_ce_bwd(saved, table, bias, t, lse, scale, m),
                     lambda m=m, saved=saved: head_ce_bwd_reference(saved, table, bias, t, lse,
@@ -1628,19 +1646,21 @@ def phase_head_kernels(names: tuple[str, str]) -> dict:
                     "max_abs_err": bwd_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
                     "library_ms": lib_bwd_ms,
                     "library": "#8 + cuBLAS dgrad GEMM (torch.matmul) + column sum"}
-                print(f"head_ce_bwd {m}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                      f"{bound[0]:.4f} ms ({bound[1]}), #8 + cuBLAS dgrad GEMM + column sum "
-                      f"{lib_bwd_ms:.4f} ms")
+                bwd_flops = flops * (2 if m == "flash" else 1)
+                print(f"head_ce_bwd {m}: kernel {k_ms:.4f} ms, {rate(k_ms, bwd_flops)}, plain "
+                      f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), #8 + cuBLAS dgrad "
+                      f"GEMM + column sum {lib_bwd_ms:.4f} ms, {rate(lib_bwd_ms)}")
             k_ms, p_ms = _paired_ms(lambda: table_grad(gk, x), lambda: table_grad_reference(gk, x),
                                     10)
             wgrad_ms = _time_ms(lambda: torch.matmul(gk.t(), x), 10)
             bound = _bound(flops, _nbytes(gk, x, dt), PEAK_BF16)
             res["d_table"] = {"ms": k_ms, "plain_ms": p_ms, "bound": [bound],
                               "library_ms": wgrad_ms}
-            print(f"d_table (port wmma GEMM, f32 out): {k_ms:.4f} ms, plain (f32 torch.matmul) "
-                  f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), cuBLAS wgrad "
-                  f"torch.matmul(g.T, x) (bf16 out) {wgrad_ms:.4f} ms ({names[0]}; nvidia-smi: "
-                  f"{names[1]})")
+            del logits_c
+            print(f"d_table (the GEMM's TN split-K product, f32 out): {k_ms:.4f} ms, "
+                  f"{rate(k_ms)}, plain (f32 torch.matmul) {p_ms:.4f} ms, bound {bound[0]:.4f} "
+                  f"ms ({bound[1]}), cuBLAS wgrad torch.matmul(g.T, x) (bf16 out) "
+                  f"{wgrad_ms:.4f} ms, {rate(wgrad_ms)} ({names[0]}; nvidia-smi: {names[1]})")
         del fwd, bwd, logits, gk, dxk, dbk, dt, x, table
         torch.cuda.empty_cache()
     return res
@@ -1920,7 +1940,8 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     # per step: 24 layer forwards (keeping residuals) and backwards, with 24 self-
     # and 12 cross-attention backwards inside them, or on the per-module trunk
     # 24 self- and 12 cross-attention SDPA forwards and backwards; one VQ; the
-    # CE forward and backward (#7, #8) or, with the fused head, #9 and #10; one
+    # CE forward and backward (#7, #8) or, with the fused head, #9, #10 and the
+    # table gradient; one
     # AMSGrad update over every leaf
     per_step = {k: 0 for k in _counters()}
     per_step.update(vq=1, adam=1)
@@ -1929,7 +1950,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     else:
         per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
                         attn_bwd_cross=12, **_inside_layers(1, 1))
-    per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1} if fused
+    per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1, "table_grad": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2097,7 +2118,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
                         layer_bwd=24 * steps, attn_bwd_self=24 * steps,
                         attn_bwd_cross=12 * steps, **_inside_layers(steps + evals, steps))
         if head_ce in HEAD_MODES:
-            want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps)
+            want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps, table_grad=steps)
         else:
             want.update(ce_fwd_ids=steps + evals, ce_bwd=steps)
         print(f"engine: python -m kindergarten_vq_vae_torch.cli {' '.join(argv)}: {wall:.1f} s "
@@ -2199,6 +2220,9 @@ def main() -> None:
               f"{tr['auto']['peak_gib']:.2f} GiB ({names[0]}; nvidia-smi: {names[1]})")
         if rel > HEAD_LOSS_REL:
             _fail(f"the fused head ({mode}) changes the first step's loss")
+    print("train step by fused_head_ce route, batch 2048: " + "; ".join(
+        f"{m} median {tr[m]['median_ms']:.2f} ms, max_memory_allocated {tr[m]['peak_gib']:.2f} GiB"
+        for m in ("auto", *HEAD_MODES)) + f" ({names[0]}; nvidia-smi: {names[1]})")
     phase_grads()
     eng = phase_engine(names)
     eng_store = phase_engine(names, "store", 1)

@@ -1,7 +1,8 @@
-// Host side of the layer GEMM (gemm_sm90.cuh): the TMA descriptors, built
-// per call, the checks, the dispatch, the weight gradients' split-K
-// instantiations, and the C entry point kvq_gemm_sm90 behind
-// ops/gemm.py `gemm`. The forward (layer_fwd.cu) calls run_gemm directly.
+// Host side of the GEMM (gemm_sm90.cuh): the TMA descriptors, built per
+// call, the checks, the dispatch, the weight gradients' split-K
+// instantiations, and the C entry point kvq_gemm_sm90 behind ops/gemm.py
+// `gemm`. The layer forward (layer_fwd.cu) and the fused head + CE
+// (head_ce.cu) call run_gemm directly.
 
 #include "gemm_sm90.cuh"
 
@@ -33,9 +34,10 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 row-major (rows, cols) matrix with row stride ld, read in boxes of
-// box_rows x box_cols (box_cols = 64: one 128-byte swizzled row); elements
-// past the matrix read as zeros
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, int box_cols,
                 int box_rows) {
   const EncodeTiled encode = encoder();
@@ -49,10 +51,6 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, i
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-}  // namespace
 
 cudaError_t launch_tn(int tile_n, const CUtensorMap& a, const CUtensorMap& b, const Args& p,
                       int sms, cudaStream_t st) {

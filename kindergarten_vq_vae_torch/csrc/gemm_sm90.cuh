@@ -1,19 +1,23 @@
-// The layer GEMM for Hopper (sm_90a): C = epi(op(A) @ op(B)), bf16 operands,
-// f32 accumulation, every projection of the fused BertLayer forward and
-// backward.
+// The GEMM for Hopper (sm_90a): C = epi(op(A) @ op(B)), bf16 operands, f32
+// accumulation: every projection of the fused BertLayer forward and backward,
+// and every product of the fused MLM head + CE.
 //
 // Serves TPU kernels #1 (kindergarten_vq_vae_tpu/ops/layer_pallas.py
 // `_layer_fwd_kernel`, l.489: the forward's 4 / 7 projections, bias and GELU
-// fused) and #2 (`_layer_bwd_kernel`, l.552: the data gradients dY @ W^T with
+// fused), #2 (`_layer_bwd_kernel`, l.552: the data gradients dY @ W^T with
 // the residual add or the GELU gradient fused, and the weight gradients
-// X^T @ dY over all rows).
+// X^T @ dY over all rows), #9 (ops/head_ce_pallas.py `_fwd_kernel`, l.67:
+// x @ E^T with the CE reductions fused) and #10 (`_bwd_kernel`, l.179: the
+// logits recomputed with the CE gradient fused, then dx = g @ E), and the
+// table gradient g^T @ x beside #10 (l.365). The CE epilogues live in
+// head_ce.cu, the one source that instantiates them.
 //
 // What bounds it on the H100: at 2048 x 12 rows every projection is
-// compute-bound (K = 768 or 3072 against N >= 768: far above the card's ~295
-// operations per byte), so the bound is the 989 TFLOP/s of the bf16 tensor
-// cores, which only `wgmma` reaches. The wmma GEMM this replaces
-// (layer_common.cuh: mma.sync 16x16x16, two cp.async stages, an epilogue
-// through shared memory) ran at 11-15% of it.
+// compute-bound (K = 768 or 3072 against N >= 768; the head's 30,522-wide
+// vocabulary likewise: far above the card's ~295 operations per byte), so
+// the bound is the 989 TFLOP/s of the bf16 tensor cores, which only `wgmma`
+// reaches; `mma.sync` GEMMs (16 x 16 x 16 fragments, two cp.async
+// stages) ran at 11-15% of it on the same products.
 //
 // What the design does about it:
 // - one persistent CTA per SM walks a queue of 128 x BN output tiles (BN
@@ -30,17 +34,19 @@
 // - both operands are read from shared memory in the layout they have in
 //   device memory, K-major or MN-major through the descriptors' transpose
 //   bits, so NN (forward), NT (dgrad) and TN (wgrad) need no copy;
-// - the epilogue keeps the rounding points of the wmma epilogues it
-//   replaces. The weight gradients' f32 partial products over row chunks go
+// - the epilogue keeps the rounding points of the JAX package's kernels.
+//   The weight gradients' f32 partial products over row chunks go
 //   straight from the accumulators (each thread holds column pairs of rows r
 //   and r + 8), summed in a fixed order by splitk_reduce_kernel:
 //   deterministic, rounded once. Every other epilogue is staged: the
-//   consumers drop the f32 tile into shared memory and go on to the next
-//   tile, while one (BN 192) or two (BN 128, for the GELU, its gradient and
-//   the residual adds) epilogue warpgroups add the bias, read the aux, apply
-//   the GELU and store in coalesced rows, so that work overlaps the tensor
-//   cores. Measured on an H100 80GB HBM3 (PERF.md), the epilogue was what
-//   held the short (K = 768) products back, not the mainloop.
+//   consumers drop the f32 tile (bf16 for the CE epilogues, which round
+//   there) into shared memory and go on to the next tile, while one (BN
+//   192) or two (BN 128, for the GELU, its gradient, the residual adds and
+//   the CE epilogues) epilogue warpgroups add the bias, read the aux, apply
+//   the GELU or reduce the CE and store in coalesced rows, so that work
+//   overlaps the tensor cores. Measured on an
+//   H100 80GB HBM3 (PERF.md), the epilogue was what held the short (K =
+//   768) products back, not the mainloop.
 // The PTX wrappers are written here by hand; the build is the CUDA
 // toolkit's alone.
 #pragma once
@@ -86,8 +92,13 @@ struct Cfg {
                               128 * EPI_WGS * EPILOGUE_REGS;
   static constexpr int A_BYTES = TILE_M * TILE_K * 2;
   static constexpr int B_BYTES = BN * TILE_K * 2;
-  static constexpr int STG_LD = BN + 8;  // f32 staging row: 32-byte shift, no bank conflicts
-  static constexpr int STG_BYTES = STAGED ? TILE_M * STG_LD * 4 : 0;
+  // the CE epilogues (head_ce.cu) take the products rounded to bf16, where
+  // the logits round them; the others f32
+  static constexpr bool CE = EPI == EPI_CE_FWD || EPI == EPI_CE_BWD;
+  // a staging row: BN + 8 elements, a 32- (f32) or 16-byte (bf16) shift, so
+  // the consumers' stores meet no bank conflicts
+  static constexpr int STG_LD = BN + 8;
+  static constexpr int STG_BYTES = STAGED ? TILE_M * STG_LD * (CE ? 2 : 4) : 0;
   static constexpr int BAR_BYTES = 128;
   static constexpr int STAGES_FIT =
       (SMEM_MAX - 1024 - BAR_BYTES - STG_BYTES) / (A_BYTES + B_BYTES);
@@ -95,6 +106,16 @@ struct Cfg {
   // the ring, the staging tile, the 1024-byte alignment of the swizzled tiles, the barriers
   static constexpr int BYTES = STAGES * (A_BYTES + B_BYTES) + STG_BYTES + 1024 + BAR_BYTES;
   static_assert(STAGES >= 3 && 2 * STAGES + 2 <= BAR_BYTES / 8, "ring of 3 to 6 stages");
+};
+
+// The CE epilogues' operands (head_ce.cu; null elsewhere): per row the
+// target, and for EPI_CE_BWD the lse and the gradient's scale; the partials.
+struct CeArgs {
+  const int* targets;
+  const float* lse;
+  const float* scale;
+  float* part_f;          // EPI_CE_FWD: (3, vocab tiles, M) f32; EPI_CE_BWD: (row tiles, N)
+  int* part_i;            // EPI_CE_FWD: (vocab tiles, M) first argmax columns
 };
 
 // What one GEMM call needs besides its operands' tensor maps.
@@ -110,6 +131,7 @@ struct Args {
   const void* aux;        // f32 residual (EPI_ADD_*) or bf16 u (EPI_DGELU_*)
   int ld_aux;
   const float* bias;      // may be null
+  CeArgs ce;
 };
 
 // ------------------------------------------------------------------ PTX
@@ -309,9 +331,8 @@ struct Aux {
 
 // The staged epilogue of columns col and col + 1 of one row (col even, N
 // even: both inside): the products plus the bias where there is one; `a` the
-// epilogue's aux pair. The epilogues and their rounding points are those of the wmma
-// GEMM's (layer_common.cuh `epilogue_store` and the forward's bias / GELU
-// epilogue).
+// epilogue's aux pair. The rounding points are the JAX kernels' (bf16 out
+// after the f32 bias, GELU or residual add).
 template <int EPI>
 __device__ __forceinline__ void store_pair(const Args& p, int row, int col, float v0, float v1,
                                            typename Aux<EPI>::T a) {
@@ -365,6 +386,15 @@ __device__ __forceinline__ void prefetch_aux(const Args& p, int m0, int n0, int 
     }
   }
 }
+
+// The staged epilogue of one 128 x BN tile of the fused head + CE
+// (EPI_CE_FWD, EPI_CE_BWD), run by the WARPS epilogue warps (this thread:
+// warp ew, lane): it reads what it needs of its rows, waits on the `full`
+// barrier's phase `parity`, then reduces the products, rounded to bf16, in
+// `stg` (row stride ld). Defined in head_ce.cu, which alone instantiates it.
+template <int EPI, int BN, int WARPS>
+__device__ void ce_tile(const Args& p, bf16* stg, int ld, int m0, int n0, int ew, int lane,
+                        uint32_t full, uint32_t parity);
 
 // ---------------------------------------------------------------- kernel
 // A: A_MN false, (M, K) row-major, tensor map (rows M, cols K), box 64 x 128;
@@ -494,10 +524,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
 #pragma unroll
         for (int q = 0; q < BN / 8; ++q) {
           const int col = 8 * q + 2 * (lane % 4);
-          *reinterpret_cast<float2*>(stg + row * S::STG_LD + col) =
-              make_float2(acc[4 * q], acc[4 * q + 1]);
-          *reinterpret_cast<float2*>(stg + (row + 8) * S::STG_LD + col) =
-              make_float2(acc[4 * q + 2], acc[4 * q + 3]);
+          if constexpr (S::CE) {
+            bf16* s16 = reinterpret_cast<bf16*>(stg);
+            *reinterpret_cast<__nv_bfloat162*>(s16 + row * S::STG_LD + col) =
+                __floats2bfloat162_rn(acc[4 * q], acc[4 * q + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(s16 + (row + 8) * S::STG_LD + col) =
+                __floats2bfloat162_rn(acc[4 * q + 2], acc[4 * q + 3]);
+          } else {
+            *reinterpret_cast<float2*>(stg + row * S::STG_LD + col) =
+                make_float2(acc[4 * q], acc[4 * q + 1]);
+            *reinterpret_cast<float2*>(stg + (row + 8) * S::STG_LD + col) =
+                make_float2(acc[4 * q + 2], acc[4 * q + 3]);
+          }
         }
         mbar_arrive(staged_full);
         staged ^= 1;
@@ -527,46 +565,51 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
       uint32_t staged = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x, staged ^= 1) {
         const int m0 = (u / p.tiles_n) * TILE_M, n0 = (u % p.tiles_n) * BN;
-        prefetch_aux<EPI, BN>(p, m0, n0, e, 32 * WARPS);
-        float2 bias[J];
+        if constexpr (S::CE) {
+          ce_tile<EPI, BN, WARPS>(p, reinterpret_cast<bf16*>(stg), S::STG_LD, m0, n0, ew, lane,
+                                  staged_full, staged);
+        } else {
+          prefetch_aux<EPI, BN>(p, m0, n0, e, 32 * WARPS);
+          float2 bias[J];
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int col = n0 + 64 * j + 2 * lane;
-          bias[j] = has_bias && col < p.N ? make_float2(p.bias[col], p.bias[col + 1])
-                                          : make_float2(0.0f, 0.0f);
-        }
-        mbar_wait(staged_full, staged);
-        // rows ew, ew + WARPS, ...: a warp stores 64 consecutive column pairs
-        // of one row. A batch of RB rows loads its aux pairs and its products
-        // first, so that the RB x J epilogues have no memory between them and
-        // run side by side.
-        for (int r0 = ew; r0 < TILE_M; r0 += WARPS * RB) {
-          typename Aux<EPI>::T aux[RB][J] = {};
-          float2 v[RB][J];
+          for (int j = 0; j < J; ++j) {
+            const int col = n0 + 64 * j + 2 * lane;
+            bias[j] = has_bias && col < p.N ? make_float2(p.bias[col], p.bias[col + 1])
+                                            : make_float2(0.0f, 0.0f);
+          }
+          mbar_wait(staged_full, staged);
+          // rows ew, ew + WARPS, ...: a warp stores 64 consecutive column pairs
+          // of one row. A batch of RB rows loads its aux pairs and its products
+          // first, so that the RB x J epilogues have no memory between them and
+          // run side by side.
+          for (int r0 = ew; r0 < TILE_M; r0 += WARPS * RB) {
+            typename Aux<EPI>::T aux[RB][J] = {};
+            float2 v[RB][J];
 #pragma unroll
-          for (int b = 0; b < RB; ++b)
+            for (int b = 0; b < RB; ++b)
 #pragma unroll
-            for (int j = 0; j < J; ++j) {
-              const int row = m0 + r0 + WARPS * b, col = n0 + 64 * j + 2 * lane;
-              if constexpr (Aux<EPI>::BYTES > 0)
-                if (row < p.M && col < p.N) aux[b][j] = Aux<EPI>::load(p, row, col);
-              v[b][j] = *reinterpret_cast<const float2*>(stg + (r0 + WARPS * b) * S::STG_LD +
-                                                         64 * j + 2 * lane);
-            }
-#pragma unroll
-          for (int b = 0; b < RB; ++b)
-#pragma unroll
-            for (int j = 0; j < J; ++j) {
-              const int row = m0 + r0 + WARPS * b, col = n0 + 64 * j + 2 * lane;
-              if (row < p.M && col < p.N) {
-                float v0 = v[b][j].x, v1 = v[b][j].y;
-                if (has_bias) {
-                  v0 += bias[j].x;
-                  v1 += bias[j].y;
-                }
-                store_pair<EPI>(p, row, col, v0, v1, aux[b][j]);
+              for (int j = 0; j < J; ++j) {
+                const int row = m0 + r0 + WARPS * b, col = n0 + 64 * j + 2 * lane;
+                if constexpr (Aux<EPI>::BYTES > 0)
+                  if (row < p.M && col < p.N) aux[b][j] = Aux<EPI>::load(p, row, col);
+                v[b][j] = *reinterpret_cast<const float2*>(stg + (r0 + WARPS * b) * S::STG_LD +
+                                                           64 * j + 2 * lane);
               }
-            }
+#pragma unroll
+            for (int b = 0; b < RB; ++b)
+#pragma unroll
+              for (int j = 0; j < J; ++j) {
+                const int row = m0 + r0 + WARPS * b, col = n0 + 64 * j + 2 * lane;
+                if (row < p.M && col < p.N) {
+                  float v0 = v[b][j].x, v1 = v[b][j].y;
+                  if (has_bias) {
+                    v0 += bias[j].x;
+                    v1 += bias[j].y;
+                  }
+                  store_pair<EPI>(p, row, col, v0, v1, aux[b][j]);
+                }
+              }
+          }
         }
         mbar_arrive(staged_empty);
       }
@@ -614,13 +657,20 @@ cudaError_t launch_tile(int tile_n, const CUtensorMap& a, const CUtensorMap& b, 
 
 // The instantiations, one source each (compiled in parallel): the forward's
 // NN products, the data gradients' NT products, the weight gradients' TN
-// split-K partials. cudaErrorInvalidValue for an epilogue a layout lacks.
+// split-K partials (the CE epilogues: head_ce.cu). cudaErrorInvalidValue for
+// an epilogue a layout lacks.
 cudaError_t launch_nn(int tile_n, int epi, const CUtensorMap& a, const CUtensorMap& b,
                       const Args& p, int sms, cudaStream_t st);
 cudaError_t launch_nt(int tile_n, int epi, const CUtensorMap& a, const CUtensorMap& b,
                       const Args& p, int sms, cudaStream_t st);
 cudaError_t launch_tn(int tile_n, const CUtensorMap& a, const CUtensorMap& b, const Args& p,
                       int sms, cudaStream_t st);
+
+// A bf16 row-major (rows, cols) matrix with row stride ld (a multiple of 8)
+// as a TMA map read in boxes of box_rows x box_cols (box_cols = 64: one
+// 128-byte swizzled row); elements past the matrix read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, int box_cols,
+                int box_rows);
 
 // C (M, N) = epi(op(A) @ op(B) [+ bias]) on stream st, op(A) = A^T when
 // a_mn (A stored (K, M)), op(B) = B^T when !b_mn (B stored (N, K)). a_mn

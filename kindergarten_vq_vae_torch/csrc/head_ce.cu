@@ -8,7 +8,8 @@
 //   forward   l = bf16(bf16(x @ E^T) + bf16(b))   (l.85: where the logits path
 //             rounds its bf16 x @ W + b), nll[r] = logsumexp(l[r]) - l[r, t[r]],
 //             lse[r], ids[r] = the first argmax of l[r]; store mode also writes
-//             l (rows, V) bf16 for the backward, flash mode writes no logits
+//             l (rows, ldl) bf16 for the backward (ldl = V rounded up to 8, its
+//             pad columns 0), flash mode writes no logits
 //   backward  gm = (exp(l - lse[r]) - [c == t[r]]) * scale[r] in f32, columns
 //             past V masked, from the stored l (store) or from l recomputed by
 //             the same code, to the same bits (flash, l.212-214); g = bf16(gm)
@@ -16,58 +17,67 @@
 //             columns 0); dbias = the column sums of the f32 gm (l.224);
 //             dx = g @ E in bf16
 //
+// and the table's gradient g^T @ x in f32 (outside the TPU kernel: an XLA
+// matmul with f32 output, l.365-367).
+//
 // What bounds it on the H100: operations. x @ E^T is 2 * rows * V * H =
 // 1.15 TFLOP at 24,576 rows (1.17 ms at the bf16 tensor-core peak) against
-// 1.6 GB of bytes (0.5 ms) in store mode; the backward's dx = g @ E is as
-// large again, and flash mode adds the recompute. So the logits come from the
-// port's wmma GEMM (layer_common.cuh `gemm_mainloop`, E read transposed in
-// place: no transposed copy of the table, which JAX makes at l.335) and
-// everything else is fused into its epilogue: a CTA computes one 128 x 128
-// logits tile, rounds it into shared memory as bf16 and reduces it there.
-// The TPU kernel carried its row accumulators across a sequential vocab grid
-// in VMEM; blocks here run in no order, so the forward writes one partial
-// (max, sum of exp, target logit, first argmax) per (vocab tile, row) and a
-// second kernel merges each row's partials in vocab-tile order (the strict >
-// of l.115 keeps the first maximum), and the backward's dbias takes one f32
-// partial per (row tile, column), summed in a fixed order: the results do
-// not depend on the order in which CTAs run. dx is a second launch of the
-// wmma GEMM over the stored g, and the table's gradient g^T @ x (outside the
-// TPU kernel, an XLA matmul with f32 output at l.365) a third, with f32 out.
+// 1.6 GB of bytes (0.5 ms) in store mode; dx = g @ E and g^T @ x are as large
+// again, and flash mode adds the recompute. So every product runs on the
+// wgmma + TMA GEMM of gemm_sm90.cuh (E read transposed in place through the
+// descriptors: no transposed copy of the table, which JAX makes at l.335),
+// and the CE work rides in its staged epilogue: the consumers drop each
+// 128 x 128 f32 tile into shared memory and go on to the next tile's
+// products while two epilogue warpgroups round it to the logits and reduce
+// it (ce_tile below). The TPU kernel carried its row accumulators across a
+// sequential vocab grid in VMEM; tiles here finish in no order, so the
+// forward writes one partial (max, sum of exp, target logit, first argmax)
+// per (vocab tile, row), which a second kernel merges in vocab-tile order
+// (the strict > of l.115 keeps the first maximum), and the backward writes
+// one f32 dbias partial per (row tile, column), each a sum over the tile's
+// rows in row order, summed in a fixed order: the results do not depend on
+// the order in which tiles run. Store mode's backward reads the stored logits
+// in a memory-bound pass with 16-byte loads and stores that sums in the same
+// order, so both modes give the same bits. dx is the GEMM's NN product over
+// g (K = V, its ragged tail read as zeros), the table gradient its TN split-K
+// product.
 
-#include "layer_common.cuh"
-
+#include <climits>
 #include <cmath>
 
-using namespace kvq;
+#include "gemm_sm90.cuh"
 
-namespace {
+namespace kvq {
+namespace sm90 {
 
-constexpr int LT_LD = BN + 8;                    // a logits-tile row in smem: 272 bytes
-constexpr int LT_BYTES = BM * LT_LD * 2;         // the bf16 logits tile
-constexpr int SCRATCH_BYTES = GEMM_THREADS / 32 * 256 * 4;  // per-warp f32 fragment scratch
-constexpr int MAIN_BYTES = GemmTiles<false, true>::ELEMS * 2;
-constexpr int HEAD_SMEM =
-    MAIN_BYTES > LT_BYTES + SCRATCH_BYTES ? MAIN_BYTES : LT_BYTES + SCRATCH_BYTES;
-static_assert(HEAD_SMEM <= 48 * 1024, "static shared memory");
-static_assert(GEMM_THREADS == 2 * BM && GEMM_THREADS == 2 * BN, "two threads a row / column");
+// The CE epilogues' tile width, pinned: #9 and #10's flash recompute must
+// see the same tiles and K order to give the same logits.
+constexpr int HEAD_TILE_N = 128;
+constexpr int HEAD_WARPS = 4 * Cfg<HEAD_TILE_N, EPI_CE_FWD>::EPI_WGS;  // epilogue warps
+static_assert(HEAD_WARPS == 8 && Cfg<HEAD_TILE_N, EPI_CE_BWD>::EPI_WGS == 2, "8 epilogue warps");
+// The epilogues' lanes: a warp takes GROUP_ROWS rows a step, ROW_LANES lanes
+// a row; lane k of a row holds its columns 64 i + 8 k + j (i < CHUNKS, j <
+// 8), in increasing order of (i, j), read as 16-byte chunks of the bf16
+// staging tile. Each lane reduces 16 columns alone, so a row costs three
+// shuffle steps per reduction and every lane has 16 independent elements in
+// flight.
+constexpr int ROW_LANES = 8, GROUP_ROWS = 32 / ROW_LANES;
+constexpr int CHUNKS = HEAD_TILE_N / (8 * ROW_LANES);
+constexpr int STEPS = TILE_M / (GROUP_ROWS * HEAD_WARPS);  // steps a warp takes a tile
+static_assert(CHUNKS == 2 && STEPS * GROUP_ROWS <= 32, "a lane holds one row's operands");
 
-// One row's reduction over some columns: running max (also the argmax's
-// value), sum of exp(l - m), target logit, and the first column holding m.
+// the tile row of warp w's row group_row in step `step` (both #10 kernels
+// follow it, so they sum dbias in one order)
+__device__ __forceinline__ int tile_row(int w, int step, int group_row) {
+  return GROUP_ROWS * (w + HEAD_WARPS * step) + group_row;
+}
+
+// One row's reduction over some columns: max (also the argmax's value), sum
+// of exp(l - max), target logit, and the first column holding the max.
 struct Part {
   float m, s, t;
   int i;
 };
-
-__device__ __forceinline__ void consume(Part& p, float x, int c, int tgt) {
-  if (x > p.m) {  // strict: within a run of columns the first maximum stays
-    p.s = p.s * expf(p.m - x) + 1.0f;
-    p.m = x;
-    p.i = c;
-  } else {
-    p.s += expf(x - p.m);
-  }
-  if (c == tgt) p.t = x;
-}
 
 // a <- a merged with b; equal maxima keep the lower column
 __device__ __forceinline__ void merge(Part& a, const Part& b) {
@@ -78,84 +88,202 @@ __device__ __forceinline__ void merge(Part& a, const Part& b) {
   a.t += b.t;
 }
 
-// The logits tile l[m0 : m0 + BM, n0 : n0 + BN] into smem as bf16 (BM x
-// LT_LD); entries past rows or V hold bf16(b) or 0 and are masked by their
-// readers. Ends with a barrier.
-__device__ __forceinline__ void logits_tile(unsigned char* smem, const bf16* __restrict__ x,
-                                            const bf16* __restrict__ E,
-                                            const float* __restrict__ bias, int rows, int V, int H,
-                                            int m0, int n0) {
-  AccFrag acc[FM][FN];
-  gemm_mainloop<false, true>(reinterpret_cast<bf16*>(smem), acc, x, H, E, H, rows, V, m0, n0, 0,
-                             H);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  bf16* lt = reinterpret_cast<bf16*>(smem);
-  float* cs = reinterpret_cast<float*>(smem + LT_BYTES) + warp * 256;
+// The logits of a chunk: bf16(bf16(acc) + bf16(b)) from the staged bf16(acc)
+// (add.bf16x2 rounds the exact sum once, as f32 then bf16 would: two bf16
+// values sum exactly in f32 unless their exponents lie 16 or more apart, and
+// then both give the larger), in f32, columns at or past V at -inf.
+__device__ __forceinline__ void chunk_logits(const uint4& raw, const __nv_bfloat162 (&b2)[4],
+                                             int col, int V, float (&l)[8]) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int q = lane; q < 256; q += 32) {
-        const int r = wm * WM + i * 16 + q / 16, c = wn * WN + j * 16 + q % 16;
-        const float b = n0 + c < V ? bf16_round(bias[n0 + c]) : 0.0f;
-        lt[r * LT_LD + c] = __float2bfloat16(bf16_round(cs[q]) + b);
-      }
-      __syncwarp();
-    }
+  for (int jj = 0; jj < 4; ++jj) {
+    const float2 v = __bfloat1622float2(__hadd2(a[jj], b2[jj]));
+    l[2 * jj] = col + 2 * jj < V ? v.x : -INFINITY;
+    l[2 * jj + 1] = col + 2 * jj + 1 < V ? v.y : -INFINITY;
   }
-  __syncthreads();
 }
 
-// #9: one CTA per (vocab tile blockIdx.x, row tile blockIdx.y). Partials
-// (m, s, t, i) of row r and vocab tile j at [j * rows + r] of pf (3 planes
-// of f32, plane stride plane) and pi.
-template <bool STORE>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-head_ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E,
-                   const float* __restrict__ bias, const int* __restrict__ targets, int rows,
-                   int V, int H, bf16* __restrict__ logits, float* __restrict__ pf, size_t plane,
-                   int* __restrict__ pi) {
-  __shared__ __align__(128) unsigned char smem[HEAD_SMEM];
-  const int tid = threadIdx.x, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  logits_tile(smem, x, E, bias, rows, V, H, m0, n0);
-  const bf16* lt = reinterpret_cast<const bf16*>(smem);
-  if constexpr (STORE) {  // a warp writes 32 neighbouring columns of a row
-    for (int e = tid; e < BM * BN; e += GEMM_THREADS) {
-      const int r = e / BN, c = e % BN;
-      if (m0 + r < rows && n0 + c < V) logits[(size_t)(m0 + r) * V + n0 + c] = lt[r * LT_LD + c];
-    }
-  }
-  // thread tid reduces row tid % BM over columns [h * BN / 2, (h + 1) * BN / 2),
-  // h = tid / BM, in column order: a warp reads 32 rows, 16 bytes each, with
-  // no bank conflict (the row stride is 68 words)
-  const int r = tid % BM, h = tid / BM, gr = m0 + r;
-  const int tgt = gr < rows ? targets[gr] : -1;
-  Part p{-INFINITY, 0.0f, 0.0f, 0};
-  const int c0 = h * (BN / 2);
-  for (int c8 = 0; c8 < BN / 2; c8 += 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(lt + r * LT_LD + c0 + c8);
-    const bf16* e8 = reinterpret_cast<const bf16*>(&v);
+// one element of the f32 gradient. The _rn intrinsics keep the compiler from
+// fusing any step into a neighbour, so both #10 kernels round it alike.
+__device__ __forceinline__ float ce_grad(float l, float lse, bool target, float scale) {
+  return __fmul_rn(__fsub_rn(expf(__fsub_rn(l, lse)), target ? 1.0f : 0.0f), scale);
+}
+
+// reductions over a row's ROW_LANES lanes (butterflies: every lane of the
+// row ends with the same bits)
+__device__ __forceinline__ float row_max(float v) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int gc = n0 + c0 + c8 + k;
-      if (gc < V) consume(p, __bfloat162float(e8[k]), gc, tgt);
+  for (int o = ROW_LANES / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = ROW_LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ int row_min(int v) {
+#pragma unroll
+  for (int o = ROW_LANES / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// eight bf16 (16 bytes) from eight floats
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * jj], v[2 * jj + 1]);
+    w[jj] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The staged CE epilogue (gemm_sm90.cuh), lanes and rows as above.
+// EPI_CE_FWD: p.C the bf16 logits (row stride p.ldc, pad columns written 0)
+// or null; writes the tile's partials at [n0 / BN, row] of p.ce.part_f (3
+// planes of tiles_n x M) and p.ce.part_i. EPI_CE_BWD: p.C = g (row stride
+// p.ldc, pad columns 0), and into [m0 / TILE_M, n0 + c] of p.ce.part_f (row
+// tiles x N) the sum of column c over the tile's rows, in the order
+// head_ce_grad_kernel sums in: each lane over its rows in step order, the
+// four lanes of a column in a butterfly, then the warps in order.
+template <int EPI, int BN, int WARPS>
+__device__ void ce_tile(const Args& p, bf16* stg, int ld, int m0, int n0, int ew, int lane,
+                        uint32_t full, uint32_t parity) {
+  static_assert(BN == HEAD_TILE_N && WARPS == HEAD_WARPS, "the pinned CE tile");
+  const int rows = p.M, V = p.N;
+  const int rr = lane / ROW_LANES, k = lane % ROW_LANES;
+  // the per-row operands of this warp's rows: lane GROUP_ROWS s + rr holds
+  // those of step s's row rr
+  const int my_row = m0 + tile_row(ew, lane / GROUP_ROWS, lane % GROUP_ROWS);
+  const bool lane_row = lane < STEPS * GROUP_ROWS && my_row < rows;
+  const int tgt_l = lane_row ? p.ce.targets[my_row] : -1;
+  float lse_l = 0.0f, scale_l = 0.0f;
+  if constexpr (EPI == EPI_CE_BWD) {
+    lse_l = lane_row ? p.ce.lse[my_row] : 0.0f;
+    scale_l = lane_row ? p.ce.scale[my_row] : 0.0f;
+  }
+  __nv_bfloat162 b2[CHUNKS][4];  // bf16(b) of this lane's columns
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = n0 + 64 * i + 8 * k + 2 * jj;
+      b2[i][jj] = __floats2bfloat162_rn(col < V ? p.bias[col] : 0.0f,
+                                        col + 1 < V ? p.bias[col + 1] : 0.0f);
+    }
+  mbar_wait(full, parity);
+
+  bf16* out = static_cast<bf16*>(p.C);
+  float cs[CHUNKS][8] = {};  // EPI_CE_BWD: this lane's column sums over its rows
+#pragma unroll 1
+  for (int step = 0; step < STEPS; ++step) {
+    const int r = tile_row(ew, step, rr), row = m0 + r;
+    const bool live = row < rows;
+    const int src = GROUP_ROWS * step + rr;
+    const int tgt = __shfl_sync(0xffffffffu, tgt_l, src);
+    float l[CHUNKS][8];
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i)
+      chunk_logits(*reinterpret_cast<const uint4*>(stg + r * ld + 64 * i + 8 * k), b2[i],
+                   n0 + 64 * i + 8 * k, V, l[i]);
+    if constexpr (EPI == EPI_CE_FWD) {
+      float m8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m8[j] = fmaxf(l[0][j], l[1][j]);
+#pragma unroll
+      for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+        for (int j = 0; j < w; ++j) m8[j] = fmaxf(m8[j], m8[j + w]);
+      const float mx = row_max(m8[0]);
+      float e[CHUNKS][8];
+      int first = INT_MAX;
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          e[i][j] = expf(__fsub_rn(l[i][j], mx));  // 0 at the masked columns' -inf
+          if (l[i][j] == mx) first = min(first, n0 + 64 * i + 8 * k + j);
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[0][j] += e[1][j];
+#pragma unroll
+      for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+        for (int j = 0; j < w; ++j) e[0][j] += e[0][j + w];
+      const float sum = row_sum(e[0][0]);
+      first = row_min(first);
+      if (live && out != nullptr) {
+#pragma unroll
+        for (int i = 0; i < CHUNKS; ++i) {
+          const int col = n0 + 64 * i + 8 * k;
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = col + j < V ? l[i][j] : 0.0f;
+          if (col < p.ldc)  // 8 columns: all inside (p.ldc % 8 == 0); past V 0
+            *reinterpret_cast<uint4*>(out + (size_t)row * p.ldc + col) = pack8(v);
+        }
+      }
+      if (live && k == 0) {
+        float t = 0.0f;  // the target logit, where the target is in this tile
+        if (tgt >= n0 && tgt < n0 + BN && tgt < V)
+          t = __bfloat162float(__hadd(stg[r * ld + tgt - n0], __float2bfloat16(p.bias[tgt])));
+        const size_t plane = (size_t)p.tiles_n * rows, o = (size_t)(n0 / BN) * rows + row;
+        p.ce.part_f[o] = mx;
+        p.ce.part_f[plane + o] = sum;
+        p.ce.part_f[2 * plane + o] = t;
+        p.ce.part_i[o] = first;
+      }
+    } else {
+      static_assert(EPI == EPI_CE_BWD, "the CE epilogues");
+      const float lse = __shfl_sync(0xffffffffu, lse_l, src);
+      const float scale = __shfl_sync(0xffffffffu, scale_l, src);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < CHUNKS; ++i) {
+          const int col = n0 + 64 * i + 8 * k;
+          float gm[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            gm[j] = col + j < V ? ce_grad(l[i][j], lse, col + j == tgt, scale) : 0.0f;
+            cs[i][j] += gm[j];
+          }
+          if (col < p.ldc)
+            *reinterpret_cast<uint4*>(out + (size_t)row * p.ldc + col) = pack8(gm);
+        }
+      }
     }
   }
-  Part* upper = reinterpret_cast<Part*>(smem + LT_BYTES);  // the fragment scratch is free
-  if (h == 1) upper[r] = p;
-  __syncthreads();
-  if (h == 0 && gr < rows) {
-    merge(p, upper[r]);
-    const size_t o = (size_t)blockIdx.x * rows + gr;
-    pf[o] = p.m;
-    pf[plane + o] = p.s;
-    pf[2 * plane + o] = p.t;
-    pi[o] = p.i;
+  if constexpr (EPI == EPI_CE_BWD) {
+    // the four lanes of a column (rr), then the warps in order, each warp's
+    // sums parked in its own step-0 rows of the tile, which it has read
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs[i][j] += __shfl_xor_sync(0xffffffffu, cs[i][j], ROW_LANES);
+        cs[i][j] += __shfl_xor_sync(0xffffffffu, cs[i][j], 2 * ROW_LANES);
+      }
+    float* part = reinterpret_cast<float*>(stg + GROUP_ROWS * ew * ld);
+    if (rr == 0)
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; j += 4)
+          *reinterpret_cast<float4*>(part + 64 * i + 8 * k + j) =
+              make_float4(cs[i][j], cs[i][j + 1], cs[i][j + 2], cs[i][j + 3]);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * WARPS) : "memory");
+    const int c = 32 * ew + lane;
+    if (c < BN && n0 + c < V) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += reinterpret_cast<const float*>(stg + GROUP_ROWS * w * ld)[c];
+      p.ce.part_f[(size_t)(m0 / TILE_M) * V + n0 + c] = sum;
+    }
   }
 }
+
+namespace {
 
 // #9's second pass: each row's partials merged in vocab-tile order.
 __global__ void head_ce_merge_kernel(const float* __restrict__ pf, size_t plane,
@@ -175,139 +303,179 @@ __global__ void head_ce_merge_kernel(const float* __restrict__ pf, size_t plane,
   ids[r] = a.i;
 }
 
-// #10's elementwise part: g and the dbias partial of one (vocab tile, row
-// tile); dparts (row tiles, V) f32.
-template <bool FLASH>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-head_ce_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E,
-                   const float* __restrict__ bias, const bf16* __restrict__ logits,
-                   const int* __restrict__ targets, const float* __restrict__ lse,
-                   const float* __restrict__ scale, int rows, int V, int H, bf16* __restrict__ g,
-                   int ldg, float* __restrict__ dparts) {
-  __shared__ __align__(128) unsigned char smem[HEAD_SMEM];
-  const int tid = threadIdx.x, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  bf16* lt = reinterpret_cast<bf16*>(smem);
-  if constexpr (FLASH) {
-    logits_tile(smem, x, E, bias, rows, V, H, m0, n0);
-  } else {
-    for (int e = tid; e < BM * BN; e += GEMM_THREADS) {
-      const int r = e / BN, c = e % BN;
-      lt[r * LT_LD + c] = m0 + r < rows && n0 + c < V ? logits[(size_t)(m0 + r) * V + n0 + c]
-                                                      : __float2bfloat16(0.0f);
+constexpr int GRAD_COLS = 256;  // columns of one block of the store-mode pass: 8 a lane
+
+// #10 in store mode: g and the dbias partials from the stored logits (row
+// stride ldl, a multiple of 8), one block of HEAD_WARPS warps per (256
+// columns, 128 rows), 16 bytes a lane a row. Warp w takes the rows the flash
+// epilogue's warp w takes and sums each column over them in its order, and
+// the block adds the warps' sums in warp order, so both modes give the same
+// bits.
+__global__ void __launch_bounds__(32 * HEAD_WARPS)
+head_ce_grad_kernel(const bf16* __restrict__ logits, int ldl, const int* __restrict__ targets,
+                    const float* __restrict__ lse, const float* __restrict__ scale, int rows,
+                    int V, bf16* __restrict__ g, int ldg, float* __restrict__ dparts) {
+  __shared__ float colp[HEAD_WARPS][GRAD_COLS];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * TILE_M, c0 = blockIdx.x * GRAD_COLS + 8 * lane;
+  const int my_row = m0 + tile_row(w, lane / GROUP_ROWS, lane % GROUP_ROWS);
+  const bool lane_row = lane < STEPS * GROUP_ROWS && my_row < rows;
+  const int tgt_l = lane_row ? targets[my_row] : -1;
+  const float lse_l = lane_row ? lse[my_row] : 0.0f, scale_l = lane_row ? scale[my_row] : 0.0f;
+  float s[GROUP_ROWS][8] = {};
+#pragma unroll
+  for (int step = 0; step < STEPS; ++step)
+#pragma unroll
+    for (int rr = 0; rr < GROUP_ROWS; ++rr) {
+      const int src = GROUP_ROWS * step + rr, row = m0 + tile_row(w, step, rr);
+      const int tgt = __shfl_sync(0xffffffffu, tgt_l, src);
+      const float l_se = __shfl_sync(0xffffffffu, lse_l, src);
+      const float sc = __shfl_sync(0xffffffffu, scale_l, src);
+      if (row >= rows || c0 >= ldg) continue;
+      uint4 in = make_uint4(0, 0, 0, 0);
+      if (c0 < V) in = *reinterpret_cast<const uint4*>(logits + (size_t)row * ldl + c0);
+      const bf16* l8 = reinterpret_cast<const bf16*>(&in);
+      float gm[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        gm[k] = c0 + k < V ? ce_grad(__bfloat162float(l8[k]), l_se, c0 + k == tgt, sc) : 0.0f;
+        s[rr][k] += gm[k];
+      }
+      *reinterpret_cast<uint4*>(g + (size_t)row * ldg + c0) = pack8(gm);
     }
-  }
-  float* rl = reinterpret_cast<float*>(smem + LT_BYTES);  // per row: lse, scale, target
-  float* rs = rl + BM;
-  int* rt = reinterpret_cast<int*>(rs + BM);
-  float* colp = reinterpret_cast<float*>(rt + BM);  // (2, BN) column partials
-  if (tid < BM) {
-    const int gr = m0 + tid;
-    rl[tid] = gr < rows ? lse[gr] : 0.0f;
-    rs[tid] = gr < rows ? scale[gr] : 0.0f;
-    rt[tid] = gr < rows ? targets[gr] : -1;
-  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) colp[w][8 * lane + k] = (s[0][k] + s[1][k]) + (s[2][k] + s[3][k]);
   __syncthreads();
-  // thread tid: column tid % BN, rows [h * BM / 2, (h + 1) * BM / 2), h = tid / BN
-  const int c = tid % BN, h = tid / BN, gc = n0 + c;
-  const int rend = min(BM / 2 * (h + 1), rows - m0);
-  float sum = 0.0f;
-  for (int r = BM / 2 * h; r < rend; ++r) {
-    bf16* out = g + (size_t)(m0 + r) * ldg + gc;
-    if (gc < V) {
-      const float l = __bfloat162float(lt[r * LT_LD + c]);
-      const float gm = (expf(l - rl[r]) - (gc == rt[r] ? 1.0f : 0.0f)) * rs[r];
-      sum += gm;
-      *out = __float2bfloat16(gm);
-    } else if (gc < ldg) {
-      *out = __float2bfloat16(0.0f);
-    }
+  const int col = blockIdx.x * GRAD_COLS + threadIdx.x;
+  if (threadIdx.x < GRAD_COLS && col < V) {
+    float tot = 0.0f;
+#pragma unroll
+    for (int k = 0; k < HEAD_WARPS; ++k) tot += colp[k][threadIdx.x];
+    dparts[(size_t)blockIdx.y * V + col] = tot;
   }
-  colp[h * BN + c] = sum;
-  __syncthreads();
-  if (h == 0 && gc < V) dparts[(size_t)blockIdx.y * V + gc] = colp[c] + colp[BN + c];
 }
 
-inline int vocab_tiles(int V) { return (V + BN - 1) / BN; }
-inline int row_tiles(int rows) { return (rows + BM - 1) / BM; }
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+int row_tiles(int rows) { return (rows + TILE_M - 1) / TILE_M; }
+int vocab_tiles(int V) { return (V + HEAD_TILE_N - 1) / HEAD_TILE_N; }
+
+// the NT product x (rows, H) @ E^T with a CE epilogue: p's maps and sizes
+bool ce_product(Args& p, CUtensorMap* ma, CUtensorMap* mb, const void* x, const void* table,
+                int rows, int vocab, int hidden) {
+  p.M = rows;
+  p.N = vocab;
+  p.K = hidden;
+  p.kchunk = (hidden + TILE_K - 1) / TILE_K * TILE_K;
+  p.splits = 1;
+  p.tiles_m = row_tiles(rows);
+  p.tiles_n = vocab_tiles(vocab);
+  return aligned16(x) && aligned16(table) &&
+         tensor_map(ma, x, rows, hidden, hidden, 64, TILE_M) &&
+         tensor_map(mb, table, vocab, hidden, hidden, 64, HEAD_TILE_N);
+}
 
 }  // namespace
+}  // namespace sm90
+}  // namespace kvq
+
+using namespace kvq;
+using namespace kvq::sm90;
 
 extern "C" {
 
 // #9. x (rows, hidden) bf16, table (vocab, hidden) bf16, bias (vocab,) f32,
 // targets (rows,) int32, all row-major; hidden a multiple of 8, x and table
-// 16-byte aligned. logits (rows, vocab) bf16 is written when not null (store
-// mode). parts_f32 (3, ceil(vocab / 128), rows) and parts_i32
-// (ceil(vocab / 128), rows) scratch; nll, lse (rows,) f32 and ids (rows,)
-// int32 written.
+// 16-byte aligned; tile_n the pinned CE tile width (128). logits (rows, ldl)
+// bf16 (ldl a multiple of 8, >= vocab; pad columns written 0) when not null
+// (store mode). parts_f32 (3, ceil(vocab / tile_n), rows) and parts_i32
+// (ceil(vocab / tile_n), rows) scratch; nll, lse (rows,) f32 and ids (rows,)
+// int32 written. sms caps the persistent grid.
 int kvq_head_ce_fwd(const void* x, const void* table, const void* bias, const int* targets,
-                    int rows, int vocab, int hidden, void* logits, void* parts_f32,
-                    void* parts_i32, void* nll, void* lse, void* ids, void* stream) {
+                    int rows, int vocab, int hidden, void* logits, int ldl, int tile_n,
+                    void* parts_f32, void* parts_i32, void* nll, void* lse, void* ids, int sms,
+                    void* stream) {
   if (rows <= 0) return 0;
-  if (hidden % 8 != 0 || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden % 8 != 0 || vocab <= 0 || tile_n != HEAD_TILE_N || sms <= 0 ||
+      (logits != nullptr && (ldl % 8 != 0 || ldl < vocab || !aligned16(logits))))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nv = vocab_tiles(vocab);
-  const size_t plane = (size_t)nv * rows;
-  const dim3 grid(nv, row_tiles(rows));
-  const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(table);
-  const float* b = static_cast<const float*>(bias);
-  float* pf = static_cast<float*>(parts_f32);
-  int* pi = static_cast<int*>(parts_i32);
-  if (logits != nullptr)
-    head_ce_fwd_kernel<true><<<grid, GEMM_THREADS, 0, st>>>(
-        xb, eb, b, targets, rows, vocab, hidden, static_cast<bf16*>(logits), pf, plane, pi);
-  else
-    head_ce_fwd_kernel<false><<<grid, GEMM_THREADS, 0, st>>>(
-        xb, eb, b, targets, rows, vocab, hidden, nullptr, pf, plane, pi);
+  Args p{};
+  CUtensorMap ma, mb;
+  if (!ce_product(p, &ma, &mb, x, table, rows, vocab, hidden))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.C = logits;
+  p.ldc = ldl;
+  p.bias = static_cast<const float*>(bias);
+  p.ce.targets = targets;
+  p.ce.part_f = static_cast<float*>(parts_f32);
+  p.ce.part_i = static_cast<int*>(parts_i32);
+  cudaError_t e = launch<HEAD_TILE_N, false, false, EPI_CE_FWD>(ma, mb, p, sms, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   head_ce_merge_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
-      pf, plane, pi, nv, rows, static_cast<float*>(nll), static_cast<float*>(lse),
-      static_cast<int*>(ids));
+      p.ce.part_f, (size_t)p.tiles_n * rows, p.ce.part_i, p.tiles_n, rows,
+      static_cast<float*>(nll), static_cast<float*>(lse), static_cast<int*>(ids));
   return static_cast<int>(cudaGetLastError());
 }
 
-// #10. Store mode reads logits (rows, vocab) bf16; flash mode (logits null)
-// recomputes them from x, table and bias as kvq_head_ce_fwd does. lse, scale
-// (rows,) f32. Writes g (rows, ldg) bf16 (ldg a multiple of 8, >= vocab; pad
-// columns 0), dbias (vocab,) f32 through dparts (ceil(rows / 128), vocab) f32
-// scratch, and dx = g @ table (rows, hidden) bf16.
+// #10. Store mode reads logits (rows, vocab) bf16 with row stride ldl (a
+// multiple of 8, 16-byte aligned); flash mode (logits null) recomputes them
+// from x, table and bias as kvq_head_ce_fwd does (tile_n the same 128). lse,
+// scale (rows,) f32. Writes g (rows, ldg) bf16 (ldg a multiple of 8, >=
+// vocab; pad columns 0), dbias (vocab,) f32 through dparts (ceil(rows / 128),
+// vocab) f32 scratch, and dx = g @ table (rows, hidden) bf16 on the GEMM's NN
+// product with tile width dx_tile_n and K chunk dx_kchunk (ops/gemm.py
+// `gemm_plan`).
 int kvq_head_ce_bwd(const void* x, const void* table, const void* bias, const void* logits,
-                    const int* targets, const void* lse, const void* scale, int rows, int vocab,
-                    int hidden, void* g, int ldg, void* dparts, void* dbias, void* dx,
-                    void* stream) {
+                    int ldl, const int* targets, const void* lse, const void* scale, int rows,
+                    int vocab, int hidden, int tile_n, void* g, int ldg, void* dparts, void* dbias,
+                    void* dx, int dx_tile_n, int dx_kchunk, int sms, void* stream) {
   if (rows <= 0) return 0;
-  if (hidden % 8 != 0 || ldg % 8 != 0 || ldg < vocab || vocab <= 0)
+  if (hidden % 8 != 0 || ldg % 8 != 0 || ldg < vocab || vocab <= 0 || tile_n != HEAD_TILE_N ||
+      sms <= 0 || !aligned16(g) ||
+      (logits != nullptr && (ldl % 8 != 0 || ldl < vocab || !aligned16(logits))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nr = row_tiles(rows);
-  const dim3 grid(vocab_tiles(vocab), nr);
-  const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(table);
-  const float *b = static_cast<const float*>(bias), *l = static_cast<const float*>(lse),
-              *sc = static_cast<const float*>(scale);
-  bf16* gb = static_cast<bf16*>(g);
+  const int* tg = targets;
+  const float *l = static_cast<const float*>(lse), *sc = static_cast<const float*>(scale);
   float* dp = static_cast<float*>(dparts);
-  if (logits == nullptr)
-    head_ce_bwd_kernel<true><<<grid, GEMM_THREADS, 0, st>>>(
-        xb, eb, b, nullptr, targets, l, sc, rows, vocab, hidden, gb, ldg, dp);
-  else
-    head_ce_bwd_kernel<false><<<grid, GEMM_THREADS, 0, st>>>(
-        nullptr, eb, b, static_cast<const bf16*>(logits), targets, l, sc, rows, vocab, hidden,
-        gb, ldg, dp);
+  if (logits == nullptr) {
+    Args p{};
+    CUtensorMap ma, mb;
+    if (!ce_product(p, &ma, &mb, x, table, rows, vocab, hidden))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.C = g;
+    p.ldc = ldg;
+    p.bias = static_cast<const float*>(bias);
+    p.ce = CeArgs{tg, l, sc, dp, nullptr};
+    const cudaError_t e = launch<HEAD_TILE_N, false, false, EPI_CE_BWD>(ma, mb, p, sms, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    const dim3 grid((ldg + GRAD_COLS - 1) / GRAD_COLS, nr);
+    head_ce_grad_kernel<<<grid, 32 * HEAD_WARPS, 0, st>>>(static_cast<const bf16*>(logits), ldl,
+                                                           tg, l, sc, rows, vocab,
+                                                           static_cast<bf16*>(g), ldg, dp);
+  }
   splitk_reduce_kernel<<<(vocab + 255) / 256, 256, 0, st>>>(dp, nr, 1, vocab, dbias, vocab, 0);
-  const GemmEpi e{dx, hidden};
-  launch_gemm<false, false, EPI_BF16>(g, ldg, table, hidden, e, rows, hidden, vocab, st);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return run_gemm(0, 1, g, ldg, table, hidden, rows, hidden, vocab, EPI_BF16, dx_tile_n, 1,
+                  dx_kchunk, dx, hidden, nullptr, 0, nullptr, 0, nullptr, nullptr, sms, st);
 }
 
 // The table's gradient out (vocab, hidden) f32 = g^T @ x, g (rows, ldg) bf16
-// as kvq_head_ce_bwd writes it, x (rows, hidden) bf16.
+// as kvq_head_ce_bwd writes it, x (rows, hidden) bf16: the GEMM's TN product
+// in `splits` chunks of kchunk rows (tile width tile_n; ops/gemm.py
+// `gemm_plan`) whose f32 partials in ws (splits, vocab, hidden) are summed in
+// a fixed order.
 int kvq_head_ce_dtable(const void* g, int ldg, const void* x, int rows, int vocab, int hidden,
-                       void* out, void* stream) {
-  if (hidden % 8 != 0 || ldg % 8 != 0 || ldg < vocab || vocab <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const GemmEpi e{out, hidden};
-  launch_gemm<true, false, EPI_F32>(g, ldg, x, hidden, e, vocab, hidden, rows,
-                                    static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+                       void* out, int tile_n, int splits, int kchunk, void* ws, int sms,
+                       void* stream) {
+  if (ldg < vocab) return static_cast<int>(cudaErrorInvalidValue);
+  return run_gemm(1, 1, g, ldg, x, hidden, vocab, hidden, rows, EPI_F32, tile_n, splits, kchunk,
+                  out, hidden, nullptr, 0, nullptr, 0, nullptr, static_cast<float*>(ws), sms,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,25 +1,15 @@
 // Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu),
-// the layer GEMM (gemm_sm90.cuh) and the fused head + CE kernels
-// (head_ce.cu): the GELU of the JAX package (`_gelu_fwd` / `_gelu_grad`,
-// ops/layer_pallas.py:214/221), warp reductions, the epilogue codes, the
-// fixed-order split-K sum, cp.async, and a wmma GEMM.
-//
-// The wmma GEMM now serves head_ce.cu alone (#9's in-kernel mainloop, #10's
-// dx GEMM and the table gradient); the layer's products moved to the wgmma +
-// TMA GEMM of gemm_sm90.cuh. It is wmma 16x16x16 (bf16 operands, f32
-// accumulate) on a 128x128x32 block tile, 8 warps of 64x32, with a two-stage
-// cp.async pipeline and operands read transposed in place.
+// the GEMM (gemm_sm90.cuh), the attention (attention.cuh) and the fused head
+// + CE kernels (head_ce.cu): the GELU of the JAX package (`_gelu_fwd` /
+// `_gelu_grad`, ops/layer_pallas.py:214/221), warp reductions, the GEMM's
+// epilogue codes, the fixed-order split-K sum and cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 namespace kvq {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------- GELU
@@ -95,15 +85,7 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// ---------------------------------------------------------------- GEMM
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS_M = 2, WARPS_N = 4;  // 8 warps, 64 x 32 warp tile
-constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int STAGES = 2;
-constexpr int PAD = 8;  // padded smem rows: 16-byte aligned, fewer bank conflicts
-
+// ---------------------------------------------------- GEMM epilogues
 enum Epilogue {
   EPI_F32 = 0,         // C f32 = acc (+ bias in the forward)
   EPI_BF16 = 1,        // C bf16 = acc (+ bias in the forward)
@@ -114,11 +96,8 @@ enum Epilogue {
   EPI_DGELU_ERF = 6,   // du = acc * gelu'(aux bf16): C bf16 = du, C2 f32 = du when given
   EPI_DGELU_TANH = 7,
   EPI_PARTIAL = 8,     // split-K partial: C f32 [split] = acc
-};
-
-struct GemmEpi {  // the wmma GEMM's output: C (f32 or bf16) with row stride ldc
-  void* C;
-  int ldc;
+  EPI_CE_FWD = 9,      // fused head + CE forward (head_ce.cu): logits, per-tile CE partials
+  EPI_CE_BWD = 10,     // fused head + CE backward (head_ce.cu): g, dbias partials
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -126,171 +105,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const int n = pred ? 16 : 0;  // src-size 0 zero-fills the ragged edge
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-template <int EPI>
-__device__ __forceinline__ void epilogue_store(const GemmEpi& e, int gr, int gc, float acc) {
-  const size_t o = (size_t)gr * e.ldc + gc;
-  if constexpr (EPI == EPI_F32) {
-    static_cast<float*>(e.C)[o] = acc;
-  } else {
-    static_assert(EPI == EPI_BF16, "the wmma GEMM stores f32 or bf16");
-    static_cast<bf16*>(e.C)[o] = __float2bfloat16(acc);
-  }
-}
-
-// Shared-memory operand tiles of the mainloop below, in bf16 elements.
-template <bool A_T, bool B_T>
-struct GemmTiles {
-  static constexpr int A_LD = A_T ? BM + PAD : BK + PAD;
-  static constexpr int A_TILE = A_T ? BK * A_LD : BM * A_LD;
-  static constexpr int B_LD = B_T ? BK + PAD : BN + PAD;
-  static constexpr int B_TILE = B_T ? BN * B_LD : BK * B_LD;
-  static constexpr int ELEMS = STAGES * (A_TILE + B_TILE);
-};
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-
-// The GEMM's mainloop: acc = op(A)[m0 + BM rows] @ op(B)[n0 + BN columns]
-// over k in [kbeg, kend), each warp its WM x WN tile at (warp / WARPS_N,
-// warp % WARPS_N), through smem (GemmTiles<A_T, B_T>::ELEMS bf16).
-// A_T = false: A (M, K) row-major, element (m, k) at A[m * lda + k].
-// A_T = true:  A stored (K, M) row-major, element (m, k) at A[k * lda + m].
-// B_T = false: B (K, N) row-major;  B_T = true: B stored (N, K) row-major.
-// The contiguous dimension of each operand must be a multiple of 8 and its
-// rows 16-byte aligned (checked by the host); rows and columns past M, N
-// and kend load as zeros. Returns after a barrier that follows the last read
-// of smem, so the caller may reuse it.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void gemm_mainloop(bf16* smem, AccFrag (&acc)[FM][FN],
-                                              const bf16* __restrict__ A, int lda,
-                                              const bf16* __restrict__ B, int ldb, int M, int N,
-                                              int m0, int n0, int kbeg, int kend) {
-  typedef GemmTiles<A_T, B_T> T;
-  constexpr int A_LD = T::A_LD, A_TILE = T::A_TILE, B_LD = T::B_LD, B_TILE = T::B_TILE;
-  bf16* As = smem;
-  bf16* Bs = smem + STAGES * A_TILE;
-
-  typedef typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type ALayout;
-  typedef typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type BLayout;
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* as = As + stage * A_TILE;
-    bf16* bs = Bs + stage * B_TILE;
-    if (A_T) {  // rows of k, 128 contiguous m each
-      for (int c = tid; c < BK * BM / 8; c += GEMM_THREADS) {
-        const int r = c / (BM / 8), col = (c % (BM / 8)) * 8;
-        const int gk = k0 + r, gm = m0 + col;
-        const bool p = gk < kend && gm < M;
-        cp_async16(as + r * A_LD + col, p ? A + (size_t)gk * lda + gm : A, p);
-      }
-    } else {  // rows of m, 32 contiguous k each
-      for (int c = tid; c < BM * BK / 8; c += GEMM_THREADS) {
-        const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const int gm = m0 + r, gk = k0 + col;
-        const bool p = gm < M && gk < kend;
-        cp_async16(as + r * A_LD + col, p ? A + (size_t)gm * lda + gk : A, p);
-      }
-    }
-    if (B_T) {  // rows of n, 32 contiguous k each
-      for (int c = tid; c < BN * BK / 8; c += GEMM_THREADS) {
-        const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + col;
-        const bool p = gn < N && gk < kend;
-        cp_async16(bs + r * B_LD + col, p ? B + (size_t)gn * ldb + gk : B, p);
-      }
-    } else {  // rows of k, 128 contiguous n each
-      for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + col;
-        const bool p = gk < kend && gn < N;
-        cp_async16(bs + r * B_LD + col, p ? B + (size_t)gk * ldb + gn : B, p);
-      }
-    }
-  };
-
-  const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
-  if (nk > 0) load_tile(0, kbeg);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile((kt + 1) % STAGES, kbeg + (kt + 1) * BK);
-    cp_async_commit();  // possibly empty: keeps wait_group 1 meaning "tile kt has landed"
-    cp_async_wait_1();
-    __syncthreads();
-    const bf16* as = As + (kt % STAGES) * A_TILE;
-    const bf16* bs = Bs + (kt % STAGES) * B_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int mi = wm * WM + i * 16;
-        wmma::load_matrix_sync(af[i], A_T ? as + kk * A_LD + mi : as + mi * A_LD + kk, A_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int nj = wn * WN + j * 16;
-        wmma::load_matrix_sync(bfr[j], B_T ? bs + nj * B_LD + kk : bs + kk * B_LD + nj, B_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
-// C[M, N] = epi(op(A) @ op(B)) over k in [0, K), operands as gemm_mainloop,
-// epilogue f32 or bf16. Two CTAs per SM: 128 registers a thread.
-template <bool A_T, bool B_T, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, GemmEpi e,
-            int M, int N, int K) {
-  static_assert(GemmTiles<A_T, B_T>::ELEMS * 2 >= GEMM_THREADS / 32 * 256 * 4, "epilogue scratch");
-  __shared__ __align__(128) bf16 smem[GemmTiles<A_T, B_T>::ELEMS];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  AccFrag acc[FM][FN];
-  gemm_mainloop<A_T, B_T>(smem, acc, A, lda, B, ldb, M, N, m0, n0, 0, K);
-
-  // epilogue: one 16x16 fragment at a time through a per-warp f32 scratch
-  // that reuses the operand tiles' shared memory
-  float* cs = reinterpret_cast<float*>(smem) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int rbase = m0 + wm * WM + i * 16, cbase = n0 + wn * WN + j * 16;
-      for (int q = lane; q < 256; q += 32) {
-        const int gr = rbase + q / 16, gc = cbase + q % 16;
-        if (gr < M && gc < N) epilogue_store<EPI>(e, gr, gc, cs[q]);
-      }
-      __syncwarp();
-    }
-  }
 }
 
 // out[r, c] = sum over z of ws[z, r, c] (f32 or rounded to bf16) for a
@@ -308,14 +122,6 @@ static __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int sp
     static_cast<bf16*>(out)[r * ldc + c] = __float2bfloat16(s);
   else
     static_cast<float*>(out)[r * ldc + c] = s;
-}
-
-template <bool A_T, bool B_T, int EPI>
-inline void launch_gemm(const void* A, int lda, const void* B, int ldb, const GemmEpi& e, int M,
-                        int N, int K, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<A_T, B_T, EPI><<<grid, GEMM_THREADS, 0, st>>>(
-      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, e, M, N, K);
 }
 
 }  // namespace kvq

@@ -18,9 +18,14 @@ unless given, ``scale = g / denom * w``, and ``d_table = g^T @ x`` in f32
 outside the kernel (l.365-367: an XLA matmul with f32 output; here the
 port's own GEMM, ``kvq_head_ce_dtable``, on CUDA).
 
-On CUDA ``g`` is kept with a leading dimension rounded up to 8 (its pad
-columns zero), because the GEMMs that read it need 16-byte rows; the
-functions here hand it around as a (rows, V) view.
+On CUDA the store-mode logits and ``g`` are kept with a leading dimension
+rounded up to 8 (their pad columns zero), because the GEMMs and the 16-byte
+loads that read them need 16-byte rows; the functions here hand them around
+as (rows, V) views. Every product runs on the port's wgmma + TMA GEMM
+(``csrc/gemm_sm90.cuh``): #9 and #10's flash recompute with the CE work in
+its epilogue, at one pinned tile width (:data:`HEAD_TILE_N`) so that both
+see the same logits; ``dx`` and ``d_table`` as its NN and TN split-K
+products, planned by ``ops/gemm.py`` ``gemm_plan``.
 """
 
 from __future__ import annotations
@@ -35,11 +40,41 @@ from kindergarten_vq_vae_torch.ops.ce import (
     ce_grad_reference,
     target_logits,
 )
+from kindergarten_vq_vae_torch.ops.gemm import TILE_M, GemmPlan, gemm_plan, sm_count
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 MODES = ("store", "flash")
-TILE = 128  # the kernels' row and vocab tiles (csrc/layer_common.cuh BM, BN)
-LD_ALIGN = 8  # g's leading dimension: V rounded up to this
+# the CE epilogues' vocab tile (csrc/head_ce.cu HEAD_TILE_N), pinned: #9 and
+# #10's flash recompute must cut the logits alike
+HEAD_TILE_N = 128
+LD_ALIGN = 8  # the stored logits' and g's leading dimension: V rounded up to this
+
+
+def padded_ld(v: int) -> int:
+    """The leading dimension of the store-mode logits and of ``g``."""
+    return -(-v // LD_ALIGN) * LD_ALIGN
+
+
+def fwd_partials_shapes(rows: int, v: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """#9's per-(vocab tile, row) partials: f32 (max, sum of exp, target
+    logit) planes and the int32 first-argmax plane."""
+    tiles = -(-v // HEAD_TILE_N)
+    return (3, tiles, rows), (tiles, rows)
+
+
+def dbias_partials_shape(rows: int, v: int) -> tuple[int, int]:
+    """#10's per-(row tile, column) dbias partials."""
+    return -(-rows // TILE_M), v
+
+
+def dx_plan(rows: int, h: int, v: int, sms: int) -> GemmPlan:
+    """The plan of ``dx = g @ E`` (NN, K = V, bf16 out)."""
+    return gemm_plan(rows, h, v, False, sms, "bf16")
+
+
+def dtable_plan(v: int, h: int, rows: int, sms: int) -> GemmPlan:
+    """The plan of ``d_table = g^T @ x`` (TN, split-K over the rows, f32 out)."""
+    return gemm_plan(v, h, rows, True, sms)
 
 
 def _logits_reference(x2, table_c, bias):
@@ -87,12 +122,28 @@ def _check_head(table_c, bias, targets, rows, dev):
     return v, h
 
 
+def _check_logits(logits, rows, v, dev):
+    """Check the store-mode logits #10 reads: bf16 (rows, V) with unit column
+    stride and rows a multiple of 8 elements apart, 16-byte aligned."""
+    if logits.device != dev:
+        raise ValueError(f"logits is on {logits.device}, expected {dev}")
+    if logits.dtype != torch.bfloat16:
+        raise TypeError(f"logits has dtype {logits.dtype}, expected torch.bfloat16")
+    if tuple(logits.shape) != (rows, v):
+        raise ValueError(f"logits has shape {tuple(logits.shape)}, expected {(rows, v)}")
+    ld = logits.stride(0)
+    if logits.stride(1) != 1 or ld < v or ld % LD_ALIGN or logits.data_ptr() % 16:
+        raise ValueError("head_ce_bwd takes the logits as head_ce_fwd returns them: rows a "
+                         f"multiple of {LD_ALIGN} elements apart, 16-byte aligned")
+
+
 def head_ce_fwd(x2, table_c, bias, targets, mode: str):
     """#9: (nll, lse, ids, logits or None) of (rows, H) bf16 x, the (V, H)
     bf16 table, the (V,) f32 bias and (rows,) int32 targets. A CPU tensor
     takes :func:`head_ce_fwd_reference`; a CUDA tensor launches
     ``kvq_head_ce_fwd`` or raises, and each call adds one to
-    ``head_ce_fwd.launches``."""
+    ``head_ce_fwd.launches``. The store-mode logits are a (rows, V) view of
+    a buffer whose rows are :func:`padded_ld` wide."""
     _check_mode(mode)
     if x2.device.type == "cpu":
         return head_ce_fwd_reference(x2, table_c, bias, targets, mode)
@@ -100,19 +151,21 @@ def head_ce_fwd(x2, table_c, bias, targets, mode: str):
     v, h = _check_head(table_c, bias, targets, rows, dev)
     _build.check_tensor("x", x2, (rows, h), torch.bfloat16, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    ntiles = -(-v // TILE)
-    parts_f32 = torch.empty((3, ntiles, rows), **f32)
-    parts_i32 = torch.empty((ntiles, rows), dtype=torch.int32, device=dev)
-    logits = torch.empty((rows, v), dtype=torch.bfloat16, device=dev) if mode == "store" else None
+    pf_shape, pi_shape = fwd_partials_shapes(rows, v)
+    parts_f32 = torch.empty(pf_shape, **f32)
+    parts_i32 = torch.empty(pi_shape, dtype=torch.int32, device=dev)
+    ldl = padded_ld(v)
+    logits = (torch.empty((rows, ldl), dtype=torch.bfloat16, device=dev) if mode == "store"
+              else None)
     nll, lse = torch.empty((rows,), **f32), torch.empty((rows,), **f32)
     ids = torch.empty((rows,), dtype=torch.int32, device=dev)
-    _build.launch("kvq_head_ce_fwd", [_VP] * 4 + [_I] * 3 + [_VP] * 6, x2.data_ptr(),
-                  table_c.data_ptr(), bias.data_ptr(), targets.data_ptr(), rows, v, h,
-                  None if logits is None else logits.data_ptr(), parts_f32.data_ptr(),
-                  parts_i32.data_ptr(), nll.data_ptr(), lse.data_ptr(), ids.data_ptr(),
-                  device=dev)
+    _build.launch("kvq_head_ce_fwd", [_VP] * 4 + [_I] * 3 + [_VP, _I, _I] + [_VP] * 5 + [_I],
+                  x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(), targets.data_ptr(), rows, v,
+                  h, None if logits is None else logits.data_ptr(), ldl, HEAD_TILE_N,
+                  parts_f32.data_ptr(), parts_i32.data_ptr(), nll.data_ptr(), lse.data_ptr(),
+                  ids.data_ptr(), sm_count(dev), device=dev)
     head_ce_fwd.launches += 1
-    return nll, lse, ids, logits
+    return nll, lse, ids, None if logits is None else logits[:, :v]
 
 
 head_ce_fwd.launches = 0
@@ -123,8 +176,10 @@ def head_ce_bwd(saved, table_c, bias, targets, lse, scale, mode: str):
     stored logits (``"store"``) or x (``"flash"``). A CPU tensor takes the
     plain version; a CUDA tensor launches ``kvq_head_ce_bwd`` (g and the
     dbias partials, their sum, and the dx GEMM) or raises, and each call adds
-    one to ``head_ce_bwd.launches``. ``g`` is a (rows, V) view of a buffer
-    whose rows are V rounded up to 8 wide."""
+    one to ``head_ce_bwd.launches``. Store mode takes the logits as
+    :func:`head_ce_fwd` returns them (rows a multiple of 8 elements apart).
+    ``g`` is a (rows, V) view of a buffer whose rows are :func:`padded_ld`
+    wide."""
     _check_mode(mode)
     if saved.device.type == "cpu":
         return head_ce_bwd_reference(saved, table_c, bias, targets, lse, scale, mode)
@@ -134,20 +189,25 @@ def head_ce_bwd(saved, table_c, bias, targets, lse, scale, mode: str):
     logits = saved if mode == "store" else None
     if x2 is not None:
         _build.check_tensor("x", x2, (rows, h), torch.bfloat16, dev)
+        ldl = 0
     else:
-        _build.check_tensor("logits", logits, (rows, v), torch.bfloat16, dev)
+        _check_logits(logits, rows, v, dev)
+        ldl = logits.stride(0)
     for name, t in (("lse", lse), ("scale", scale)):
         _build.check_tensor(name, t, (rows,), torch.float32, dev)
-    ldg = -(-v // LD_ALIGN) * LD_ALIGN
+    ldg, sms = padded_ld(v), sm_count(dev)
+    plan = dx_plan(rows, h, v, sms)
     g = torch.empty((rows, ldg), dtype=torch.bfloat16, device=dev)
-    dparts = torch.empty((-(-rows // TILE), v), dtype=torch.float32, device=dev)
+    dparts = torch.empty(dbias_partials_shape(rows, v), dtype=torch.float32, device=dev)
     dbias = torch.empty((v,), dtype=torch.float32, device=dev)
     dx = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
-    _build.launch("kvq_head_ce_bwd", [_VP] * 7 + [_I] * 3 + [_VP, _I] + [_VP] * 3,
+    _build.launch("kvq_head_ce_bwd", [_VP] * 4 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP, _I]
+                  + [_VP] * 3 + [_I] * 3,
                   None if x2 is None else x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(),
-                  None if logits is None else logits.data_ptr(), targets.data_ptr(),
-                  lse.data_ptr(), scale.data_ptr(), rows, v, h, g.data_ptr(), ldg,
-                  dparts.data_ptr(), dbias.data_ptr(), dx.data_ptr(), device=dev)
+                  None if logits is None else logits.data_ptr(), ldl, targets.data_ptr(),
+                  lse.data_ptr(), scale.data_ptr(), rows, v, h, HEAD_TILE_N, g.data_ptr(), ldg,
+                  dparts.data_ptr(), dbias.data_ptr(), dx.data_ptr(), plan.tile_n, plan.kchunk,
+                  sms, device=dev)
     head_ce_bwd.launches += 1
     return g[:, :v], dx, dbias
 
@@ -157,8 +217,10 @@ head_ce_bwd.launches = 0
 
 def table_grad(g, x2) -> torch.Tensor:
     """``d_table = g^T @ x`` (V, H) in f32. A CPU tensor takes
-    :func:`table_grad_reference`; a CUDA tensor launches the port's wmma GEMM
-    (``kvq_head_ce_dtable``) over ``g`` as :func:`head_ce_bwd` returns it."""
+    :func:`table_grad_reference`; a CUDA tensor launches the GEMM's TN
+    split-K product (``kvq_head_ce_dtable``) over ``g`` as
+    :func:`head_ce_bwd` returns it, or raises, and each call adds one to
+    ``table_grad.launches``."""
     if g.device.type == "cpu":
         return table_grad_reference(g, x2)
     rows, v = g.shape
@@ -168,10 +230,18 @@ def table_grad(g, x2) -> torch.Tensor:
         raise ValueError("table_grad takes g as head_ce_bwd returns it: bf16 rows of a width "
                          "that is a multiple of 8, 16-byte aligned")
     _build.check_tensor("x", x2, (rows, h), torch.bfloat16, g.device)
+    sms = sm_count(g.device)
+    plan = dtable_plan(v, h, rows, sms)
     out = torch.empty((v, h), dtype=torch.float32, device=g.device)
-    _build.launch("kvq_head_ce_dtable", [_VP, _I, _VP, _I, _I, _I, _VP], g.data_ptr(), ldg,
-                  x2.data_ptr(), rows, v, h, out.data_ptr(), device=g.device)
+    ws = torch.empty((plan.splits, v, h), dtype=torch.float32, device=g.device)
+    _build.launch("kvq_head_ce_dtable", [_VP, _I, _VP] + [_I] * 3 + [_VP] + [_I] * 3 + [_VP, _I],
+                  g.data_ptr(), ldg, x2.data_ptr(), rows, v, h, out.data_ptr(), plan.tile_n,
+                  plan.splits, plan.kchunk, ws.data_ptr(), sms, device=g.device)
+    table_grad.launches += 1
     return out
+
+
+table_grad.launches = 0
 
 
 class FusedHeadCE(torch.autograd.Function):

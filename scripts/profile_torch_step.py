@@ -39,18 +39,17 @@ sys.path.insert(0, ROOT)
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("adam_amsgrad_kernel", "AMSGrad update (kernel #14)"),
-    ("head_ce_fwd_kernel", "fused head + CE forward (#9)"),
-    ("head_ce_merge_kernel", "fused head + CE forward (#9)"),
-    ("head_ce_bwd_kernel", "fused head + CE backward (#10: g, dbias partials)"),
-    ("gemm_kernel<false, false", "fused head + CE backward (#10: dx GEMM, wmma)"),
-    ("gemm_kernel<true, false, 0>", "fused head table gradient (wmma GEMM, f32 out)"),
+    ("gemm_kernel<128, false, false, 9>", "fused head + CE forward (#9: GEMM + CE epilogue)"),
+    ("head_ce_merge_kernel", "fused head + CE forward (#9: merge)"),
+    ("gemm_kernel<128, false, false, 10>", "fused head + CE backward (#10: g, dbias partials)"),
+    ("head_ce_grad_kernel", "fused head + CE backward (#10: g, dbias partials)"),
     ("sm90::gemm_kernel<128, false, true", "layer GEMM, forward (wgmma)"),
     ("sm90::gemm_kernel<192, false, true", "layer GEMM, forward (wgmma)"),
     ("sm90::gemm_kernel<128, false, false", "layer GEMM, dgrad (wgmma)"),
     ("sm90::gemm_kernel<192, false, false", "layer GEMM, dgrad (wgmma)"),
     ("sm90::gemm_kernel<192, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
     ("sm90::gemm_kernel<256, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
-    ("splitk_reduce", "split-K sums (layer wgrad; #10's dbias)"),
+    ("splitk_reduce", "split-K sums (layer wgrad)"),
     ("sm90::", "layer GEMM, other (wgmma)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
@@ -71,6 +70,17 @@ FAMILIES = (
 
 
 OTHER = "torch elementwise / reduction (casts, embeddings, VQ backward)"
+# #10's first kernel, then the kernels that follow it on the stream: the
+# fused head's products run on the layer GEMM's instantiations and are told
+# apart by their place (ops/head_ce.py FusedHeadCE.backward: head_ce_bwd,
+# then table_grad)
+HEAD_BWD_FIRST = ("gemm_kernel<128, false, false, 10>", "head_ce_grad_kernel")
+HEAD_BWD_NEXT = (
+    ("splitk_reduce", "fused head + CE backward (#10: dbias sum)"),
+    ("sm90::gemm_kernel<", "fused head + CE backward (#10: dx = g @ E, NN GEMM)"),
+    ("sm90::gemm_kernel<", "fused head table gradient (TN split-K partials)"),
+    ("splitk_reduce", "fused head table gradient (split-K sum)"),
+)
 
 
 def family(name: str) -> str:
@@ -142,14 +152,25 @@ def main() -> None:
         prof_wall = (time.perf_counter() - t0) * 1e3 / args.steps
     by_family, launches = collections.defaultdict(float), collections.Counter()
     other = collections.defaultdict(float)  # the catch-all family, by kernel name
-    for evt in prof.events():
-        dev = getattr(evt, "device_type", None)
-        if dev is not None and str(dev).endswith("CUDA") and evt.device_time_total > 0:
+    kernels = sorted((evt for evt in prof.events()
+                      if str(getattr(evt, "device_type", None)).endswith("CUDA")
+                      and evt.device_time_total > 0), key=lambda evt: evt.time_range.start)
+    after_head = []  # the families still expected after #10's first kernel
+    for evt in kernels:
+        if after_head and after_head[0][0] in evt.name:
+            fam = after_head.pop(0)[1]
+        else:
+            if after_head:
+                print(f"warning: {evt.name[:80]} where {after_head[0][1]} was expected; "
+                      "attributed by name")
+                after_head = []
             fam = family(evt.name)
-            by_family[fam] += evt.device_time_total / 1e3 / args.steps
-            launches[fam] += 1
-            if fam == OTHER:
-                other[evt.name[:120]] += evt.device_time_total / 1e3 / args.steps
+            if any(frag in evt.name for frag in HEAD_BWD_FIRST):
+                after_head = list(HEAD_BWD_NEXT)
+        by_family[fam] += evt.device_time_total / 1e3 / args.steps
+        launches[fam] += 1
+        if fam == OTHER:
+            other[evt.name[:120]] += evt.device_time_total / 1e3 / args.steps
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,

@@ -16,7 +16,8 @@ one ulp is 0.4%). CE: ids exact, NLL within 1e-4 absolute (values ~10,
 f32 sums in another order), dlogits within 1e-2 of the largest magnitude
 (one bf16 ulp). AMSGrad (#14): bit for bit, over leaves of ragged lengths,
 a leaf without a gradient, a misaligned leaf and a chunk boundary.
-Fused head + CE (#9, #10), both modes, ragged rows and odd vocabularies:
+Fused head + CE (#9, #10), both modes, ragged rows and odd vocabularies,
+and at the tile edges (rows 1, 128, 129; V 256, 129, 2053; H 64, 768):
 the kernel's logits within two bf16 ulps at the top of their range of the
 plain version's (cuBLAS sums in another order; one ulp at each of the two
 roundings); its NLL, lse and ids held to the plain CE over its own logits
@@ -25,7 +26,10 @@ largest logit difference dl, and ids equal wherever the plain top-2 logits
 are more than 2 dl apart (99% of rows in all); flash bit for bit equal
 to store; g within one bf16 ulp (1e-2 of the largest), dbias within 1e-3 of
 its largest, dx within 1e-2 of its largest, against the plain backward on
-the same logits; the table gradient within 1e-4 of its largest.
+the same logits; the table gradient within 1e-4 of its largest; the
+store-mode logits and g padded to rows of a multiple of 8, pad columns 0;
+through ``fused_head_ce_loss``, the saved logits keep that stride and the
+gradients sit within 1e-2 of the plain path's largest (bf16 g and dx).
 SDPA (#11 / #12) and MHA (#13): outputs and gradients within 2e-2 of their
 largest magnitude (the attention backward's bar: the same device code), the
 attention keep masks exact. The attention kernels (csrc/attention.cuh) at
@@ -61,6 +65,7 @@ from kindergarten_vq_vae_torch.ops.head_ce import (
     head_ce_bwd,
     head_ce_bwd_reference,
     head_ce_fwd,
+    fused_head_ce_loss,
     head_ce_fwd_reference,
     table_grad,
     table_grad_reference,
@@ -322,16 +327,20 @@ def _ulp_top(l):
     return 2.0 ** (torch.floor(torch.log2(l.float().abs().max())).item() - 7)
 
 
-@pytest.mark.parametrize("rows,V,H", [(300, 133, 64), (1000, 30522, 768), (129, 2053, 128)])
-def test_head_ce_kernels_match_plain(gen, rows, V, H):
+def _held_head_ce(gen, rows, V, H):
+    """#9 and #10 in both modes and the table gradient against their plain
+    versions, at the bars of the module docstring."""
     x, table, bias, t = _head_case(gen, rows, V, H)
-    before = head_ce_fwd.launches, head_ce_bwd.launches
+    before = head_ce_fwd.launches, head_ce_bwd.launches, table_grad.launches
     out = {m: head_ce_fwd(x, table, bias, t, m) for m in ("store", "flash")}
     torch.cuda.synchronize()
     nll, lse, ids, logits = out["store"]
     assert out["flash"][3] is None
     for a, b in zip(out["store"][:3], out["flash"][:3]):
         assert torch.equal(a, b)  # flash = store, bit for bit
+    ld = logits.stride(0)
+    assert logits.shape == (rows, V) and ld % 8 == 0 and V <= ld < V + 8
+    assert (logits.as_strided((rows, ld), (ld, 1))[:, V:] == 0).all()
     nll_p, lse_p, ids_p, logits_p = head_ce_fwd_reference(x, table, bias, t, "store")
     dl = (logits.float() - logits_p.float()).abs().max().item()
     assert dl <= 2 * _ulp_top(logits_p)  # at most one ulp at each of the two roundings
@@ -349,7 +358,6 @@ def test_head_ce_kernels_match_plain(gen, rows, V, H):
     g_s, dx_s, db_s = head_ce_bwd(logits, table, bias, t, lse, scale, "store")
     g_f, dx_f, db_f = head_ce_bwd(x, table, bias, t, lse, scale, "flash")
     torch.cuda.synchronize()
-    assert (head_ce_fwd.launches, head_ce_bwd.launches) == (before[0] + 2, before[1] + 2)
     assert g_s.shape == (rows, V) and g_s.stride(0) % 8 == 0 and g_s.dtype == torch.bfloat16
     assert torch.equal(g_s, g_f) and torch.equal(dx_s, dx_f) and torch.equal(db_s, db_f)
     assert (g_s.as_strided((rows, g_s.stride(0)), (g_s.stride(0), 1))[:, V:] == 0).all()
@@ -360,6 +368,50 @@ def test_head_ce_kernels_match_plain(gen, rows, V, H):
     torch.cuda.synchronize()
     assert dt.dtype == torch.float32 and dt.shape == (V, H)
     assert _rel_max(dt, table_grad_reference(g_s, x)) <= 1e-4
+    assert (head_ce_fwd.launches, head_ce_bwd.launches, table_grad.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
+
+
+@pytest.mark.parametrize("rows,V,H", [(300, 133, 64), (1000, 30522, 768), (129, 2053, 128)])
+def test_head_ce_kernels_match_plain(gen, rows, V, H):
+    _held_head_ce(gen, rows, V, H)
+
+
+@pytest.mark.parametrize("H", [64, 768])
+@pytest.mark.parametrize("V", [256, 129, 2053])
+@pytest.mark.parametrize("rows", [1, 128, 129])
+def test_head_ce_kernels_at_tile_edges(gen, rows, V, H):
+    """At the edges of the GEMM's 128-row tile and the CE epilogues' 128-wide
+    vocab tile: V a multiple of it, one past it, and V % 8 != 0; H one K tile
+    (64) and the model's 768."""
+    _held_head_ce(gen, rows, V, H)
+
+
+@pytest.mark.parametrize("mode", ["store", "flash"])
+def test_fused_head_ce_keeps_the_padded_logits_through_backward(gen, mode):
+    """fused_head_ce_loss saves the store-mode logits as #9 wrote them (a view
+    of rows padded to a multiple of 8) and #10 reads them so; its gradients
+    match the plain path's."""
+    B, S, V, H = 6, 5, 133, 64
+    x, table, bias, t = _head_case(gen, B * S, V, H)
+    valid = torch.ones(B, device="cuda")
+    grads = {}
+    for reference in (False, True):
+        h = x.view(B, S, H).clone().requires_grad_()
+        tab = table.float().requires_grad_()
+        b = bias.clone().requires_grad_()
+        loss, _ = fused_head_ce_loss(h, tab, b, t.view(B, S), valid, mode=mode,
+                                     reference=reference)
+        if not reference:
+            saved = loss.grad_fn.saved_tensors[0]
+            if mode == "store":
+                assert saved.shape == (B * S, V) and saved.stride() == (136, 1)
+            else:
+                assert saved.shape == (B * S, H)
+        loss.backward()
+        grads[reference] = (h.grad, tab.grad, b.grad)
+    for got, want in zip(grads[False], grads[True]):
+        assert _rel_max(got, want) <= 1e-2
 
 
 def test_head_ce_kernels_reject_what_they_do_not_take(gen):

@@ -14,6 +14,13 @@ ragged vocab edge) with a padded tail row, in both modes:
   ulp and flip a near-tie), the table gradient within 3e-2 of its largest
   magnitude.
 
+The same f32 comparison at the card kernel's edges (``csrc/head_ce.cu``: 128
+rows a GEMM tile, 128 vocab columns a CE tile, 16-byte rows of the stored
+logits and of ``g``): 129 rows (B, S = 43, 3, all valid) and V in {127,
+129, 193}, both modes, at the same bars. The wrappers' shape helpers (the
+partial planes of the pinned tile width, the padded leading dimension, the
+table gradient's split-K plan) are checked with hypothesis.
+
 ``make_loss_fn`` with ``fused_head_ce`` "store" / "flash" against "off" and
 against JAX's ``value_and_grad(make_loss_fn)``, for Shelgon3 and Bagon, from
 the same JAX initial weights: the stats to rel 1e-5, ids exactly, every
@@ -26,6 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from kindergarten_vq_vae_tpu.ops.head_ce_pallas import fused_head_ce_loss as jax_head_ce
 from kindergarten_vq_vae_tpu.train.config import DataConfig, ModelConfig, RunConfig
@@ -35,19 +44,30 @@ from kindergarten_vq_vae_tpu.train.variants import make_loss_fn as jax_make_loss
 from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
 from kindergarten_vq_vae_torch.config import RunConfig as TorchRunConfig
 from kindergarten_vq_vae_torch.models import build_model
-from kindergarten_vq_vae_torch.ops.head_ce import fused_head_ce_loss, head_ce_bwd, head_ce_fwd
+from kindergarten_vq_vae_torch.ops.head_ce import (
+    HEAD_TILE_N,
+    LD_ALIGN,
+    dbias_partials_shape,
+    dtable_plan,
+    dx_plan,
+    fused_head_ce_loss,
+    fwd_partials_shapes,
+    head_ce_bwd,
+    head_ce_fwd,
+    padded_ld,
+)
 from kindergarten_vq_vae_torch.train.variants import _resolve_head_ce, make_loss_fn
 
 B, S, H, V = 4, 6, 32, 133
 
 
-def _data():
+def _data(b=B, s=S, v=V, padded=True):
     rng = np.random.default_rng(0)
-    hidden = (0.5 * rng.normal(size=(B, S, H))).astype(np.float32)
-    table = (0.3 * rng.normal(size=(V, H))).astype(np.float32)
-    bias = (0.1 * rng.normal(size=(V,))).astype(np.float32)
-    tgt = rng.integers(0, V, (B, S)).astype(np.int32)
-    valid = (np.arange(B) < B - 1).astype(np.float32)  # a padded tail row
+    hidden = (0.5 * rng.normal(size=(b, s, H))).astype(np.float32)
+    table = (0.3 * rng.normal(size=(v, H))).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(v,))).astype(np.float32)
+    tgt = rng.integers(0, v, (b, s)).astype(np.int32)
+    valid = (np.arange(b) < b - 1 if padded else np.ones(b)).astype(np.float32)
     return hidden, table, bias, tgt, valid
 
 
@@ -86,6 +106,39 @@ def test_fused_head_ce_matches_jax_f32(mode):
     for name, a, b in zip(("hidden", "table", "bias"), gp, gj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=1e-6, err_msg=name)
     assert (gp[0][B - 1] == 0).all()  # the padded row takes no gradient
+
+
+@pytest.mark.parametrize("vocab", [127, 129, 193])
+@pytest.mark.parametrize("mode", ["store", "flash"])
+def test_fused_head_ce_matches_jax_at_tile_edges(mode, vocab):
+    """129 rows (one past a 128-row tile) and vocabularies around the 128-wide
+    CE tile, none a multiple of 8, every row valid."""
+    hidden, table, bias, tgt, valid = _data(43, 3, vocab, padded=False)
+    lj, ids_j, gj = _jax(mode, jnp.asarray(hidden), table, bias, tgt, valid)
+    lp, ids_p, gp = _port(mode, torch.from_numpy(hidden), table, bias, tgt, valid)
+    np.testing.assert_allclose(float(lp), float(lj), rtol=1e-5)
+    np.testing.assert_array_equal(ids_p.numpy(), np.asarray(ids_j))
+    for name, a, b in zip(("hidden", "table", "bias"), gp, gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=1e-6, err_msg=name)
+
+
+@settings(max_examples=60, deadline=None)
+@given(rows=st.integers(1, 70_000), v=st.integers(1, 70_000), h=st.sampled_from([64, 768, 1024]),
+       sms=st.integers(1, 200))
+def test_head_ce_shape_helpers(rows, v, h, sms):
+    ld = padded_ld(v)
+    assert ld % LD_ALIGN == 0 and v <= ld < v + LD_ALIGN
+    pf, pi = fwd_partials_shapes(rows, v)
+    tiles = pf[1]
+    assert pf == (3, tiles, rows) and pi == (tiles, rows)
+    assert (tiles - 1) * HEAD_TILE_N < v <= tiles * HEAD_TILE_N
+    nr, cols = dbias_partials_shape(rows, v)
+    assert cols == v and (nr - 1) * 128 < rows <= nr * 128
+    plan = dtable_plan(v, h, rows, sms)
+    assert plan.splits * plan.kchunk >= rows > (plan.splits - 1) * plan.kchunk
+    assert plan.kchunk % 64 == 0 and plan.tile_n in (192, 256)
+    plan = dx_plan(rows, h, v, sms)
+    assert plan.splits == 1 and plan.kchunk >= v and plan.kchunk % 64 == 0
 
 
 @pytest.mark.parametrize("mode", ["store", "flash"])
