@@ -13,6 +13,18 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    the forward at the bucket-256 serving rows, against its plain version,
    with its time, TFLOP/s and share of the bf16 peak beside ``torch.matmul``
    in bf16 at the same shape; one weight gradient twice, bit for bit;
+2c. the LayerNorm and column-sum kernels (``csrc/layernorm.cu``) alone at the
+   batch-2048 shapes (24,576 rows x 768; column sums 768 / 1,536 / 2,304
+   wide), in turns with their plain versions: the residual + LayerNorm
+   (dropout 0.1), the LayerNorm backward with a bf16 and an f32 upstream,
+   the bias column sums, each with its time, byte bound and share, the plain
+   time and its library yardstick (the add plus ``F.layer_norm``;
+   ``aten.native_layer_norm_backward`` on the f32 pre-LN rows, with no keep
+   mask and no da; ``src.sum(0, dtype=torch.float32)``); the GELU-gradient
+   GEMM with b1 summed in its epilogue (``colsum=True``) against the plain
+   f32 du's column sums, its time and TFLOP/s beside the form that writes
+   the f32 du (``out2=True``); dgamma / dbeta / dbias, the column sums and
+   b1 twice, bit for bit;
 3. kernels vs plain, serving: the layer forward and the VQ kernel against
    their plain PyTorch versions on the card at the shapes of a bucket-256
    bert-base forward (256 sentences x 12 tokens), with padded masks, and each
@@ -229,8 +241,11 @@ def _wrappers() -> dict:
     from kindergarten_vq_vae_torch.ops.layer import (
         attention_backward,
         attention_forward,
+        column_sums,
         fused_bert_layer,
         layer_backward,
+        layernorm_backward,
+        residual_layernorm,
     )
     from kindergarten_vq_vae_torch.ops.sdpa import sdpa_backward, sdpa_forward
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
@@ -242,7 +257,8 @@ def _wrappers() -> dict:
             "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "table_grad": table_grad,
             "adam": amsgrad_update,
             "sdpa_fwd": sdpa_forward, "sdpa_bwd": sdpa_backward, "mha": mha_forward,
-            "gemm": gemm}
+            "gemm": gemm, "ln_fwd": residual_layernorm, "ln_bwd": layernorm_backward,
+            "colsum": column_sums}
 
 
 # wrappers whose launches are split into self- and cross-attention
@@ -275,9 +291,13 @@ def _reset_counters() -> None:
 
 
 def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0) -> dict:
-    """The launches of the layer GEMM and of the attention forward made
-    inside the layer kernels in that many model forwards (12 encoder and 12
-    decoder layers), backwards and encoder-only forwards, as counted."""
+    """The launches of the layer GEMM, of the attention forward and of the
+    LayerNorm and column-sum kernels made inside the layer kernels in that
+    many model forwards (12 encoder and 12 decoder layers), backwards and
+    encoder-only forwards, as counted: a residual + LayerNorm after each
+    projection into the residual stream (2 an encoder layer, 3 a decoder
+    layer), a LayerNorm backward for each, and the column sums of bqkv (and
+    of a decoder's bq and bkv; b1 comes from a GEMM's epilogue)."""
     from kindergarten_vq_vae_torch.ops.layer import LayerGeom, layer_gemms
 
     geom = dict(num_heads=12, head_dim=64, intermediate=3072, eps=1e-12, gelu_exact=True)
@@ -286,7 +306,9 @@ def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0)
     fwd = 12 * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
     return {"gemm": fwd + 12 * backwards * (enc[1] + dec[1]), "gemm_in_fwd": fwd,
             "attn_fwd_self": 12 * (2 * forwards + encoder_forwards),
-            "attn_fwd_cross": 12 * forwards}
+            "attn_fwd_cross": 12 * forwards,
+            "ln_fwd": 12 * (5 * forwards + 2 * encoder_forwards), "ln_bwd": 12 * 5 * backwards,
+            "colsum": 12 * 4 * backwards}
 
 
 def _nbytes(*objs) -> int:
@@ -495,6 +517,155 @@ def phase_layer_gemms(names: tuple[str, str]) -> dict:
               f"{sum(r['ms']):.3f} ms ({r['flops'] / sum(r['ms']) / 1e9:.1f} TFLOP/s), "
               f"torch.matmul {sum(r['library_ms']):.3f} ms ({names[0]}; nvidia-smi: {names[1]})")
     return out
+
+
+# LayerNorm kernels vs plain (phase 2c; the bars of tests/test_torch_cuda.py):
+# bf16 outputs at the GEMM's bar around the plain f32 value (_gemm_excess:
+# means summed in another order move the f32 value by ~1e-7 and flip an
+# occasional rounding), f32 rows (rsqrt, dr) within LN_REL of their largest
+# magnitude; column sums over 24,576 rows within COLSUM_REL of theirs (f32
+# sums in another order; for b1 also the GEMM's GEMM_REL).
+LN_REL, COLSUM_REL = 1e-5, 1e-4
+
+
+def phase_layernorm(names: tuple[str, str]) -> dict:
+    """The LayerNorm and column-sum kernels of ``csrc/layernorm.cu`` alone
+    at the batch-2048 step's shapes, each held against its plain version and
+    timed in turns with it, beside its byte bound and library yardstick; the
+    GELU-gradient GEMM with b1 in its epilogue; the sums twice, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.dropout import OP_MLP_OUT, hidden_keep
+    from kindergarten_vq_vae_torch.ops.gemm import gelu_grad, gemm, gemm_reference
+    from kindergarten_vq_vae_torch.ops.layer import (
+        column_sums,
+        column_sums_reference,
+        layernorm_backward,
+        layernorm_backward_reference,
+        residual_layernorm,
+        residual_layernorm_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    M, H, F_, rate, eps, seed, dev = TRAIN_BATCH * SEQ, 768, 3072, 0.1, 1e-12, 1234, "cuda"
+    gamma = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
+    beta = 0.1 * torch.randn(H, device=dev, generator=g)
+    keep = hidden_keep(seed, OP_MLP_OUT, M, H, rate, dev)
+    res = {}
+
+    def report(key, what, err, k_ms, p_ms, bound, lib_ms, lib):
+        print(f"{what}: {k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, share "
+              f"{bound[0] / k_ms:.3f}), plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, max abs "
+              f"{err:.3e} ({names[0]}; nvidia-smi: {names[1]})")
+        r = res.setdefault(key, {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
+                                 "library_ms": [], "library": lib})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound", bound), ("library_ms", lib_ms)):
+            r[k].append(v)
+
+    # residual + LayerNorm: x bf16, a f32 (a projection's output), dropout 0.1
+    x = torch.randn(M, H, device=dev, generator=g).bfloat16()
+    a = 0.5 * torch.randn(M, H, device=dev, generator=g) + 0.2
+    out, inv = residual_layernorm(x, a, gamma, beta, eps, seed, OP_MLP_OUT, rate)
+    torch.cuda.synchronize()
+    r = x.float() + a * keep
+    mu = r.mean(-1, keepdim=True)
+    want_inv = torch.rsqrt(torch.clamp((r * r).mean(-1, keepdim=True) - mu * mu, min=0.0) + eps)
+    want = (r - mu) * want_inv * gamma + beta
+    excess = max(_gemm_excess(out, want), _rel_max(inv, want_inv[:, 0]) - LN_REL)
+    if not _finite(out) or excess > 0:
+        _fail(f"residual_layernorm disagrees with its plain version (excess {excess:.3e})")
+    k_ms, p_ms = _paired_ms(
+        lambda: residual_layernorm(x, a, gamma, beta, eps, seed, OP_MLP_OUT, rate),
+        lambda: residual_layernorm_reference(x, a, gamma, beta, eps,
+                                             hidden_keep(seed, OP_MLP_OUT, M, H, rate, dev)), 20)
+    lib_ms = _time_ms(lambda: F.layer_norm(x.float() + a, (H,), gamma, beta, eps), 20)
+    report("ln_fwd", f"residual_layernorm ({M},{H}) dropout {rate}",
+           (out.float() - want).abs().max().item(), k_ms, p_ms,
+           _bound(0.0, _nbytes(x, a, gamma, beta, out, inv), PEAK_F32), lib_ms,
+           "x + a then F.layer_norm (f32, no dropout)")
+    del x, a, out, inv, r, want
+
+    # LayerNorm backward, with a bf16 upstream (a layer's output gradient) and
+    # an f32 one (dxm, dx1)
+    v = torch.randn(M, H, device=dev, generator=g).bfloat16()
+    inv = 0.5 + 1.5 * torch.rand(M, device=dev, generator=g)
+    rows = torch.randn(M, H, device=dev, generator=g)  # f32 pre-LN rows for the yardstick
+    mean_r = rows.mean(-1, keepdim=True)
+    rstd_r = torch.rsqrt(rows.var(-1, unbiased=False, keepdim=True) + eps)
+    for gy_dtype in (torch.bfloat16, torch.float32):
+        gy = torch.randn(M, H, device=dev, generator=g).to(gy_dtype)
+        got = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+        torch.cuda.synchronize()
+        want = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
+        excess = max(_rel_max(got[0], want[0]) - LN_REL, _gemm_excess(got[1], want[1]),
+                     *(_rel_max(a_, b_) - COLSUM_REL for a_, b_ in zip(got[2:], want[2:])))
+        again = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got[2:], again[2:]))
+        if not all(_finite(t) for t in got) or excess > 0 or not same:
+            _fail(f"layernorm_backward ({gy_dtype}) disagrees with its plain version (excess "
+                  f"{excess:.3e}) or its sums differ from run to run ({same})")
+        err = max((a_.float() - b_).abs().max().item() for a_, b_ in zip(got, want))
+        k_ms, p_ms = _paired_ms(
+            lambda: layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate),
+            lambda: layernorm_backward_reference(gy, v, inv, gamma, beta,
+                                                 hidden_keep(seed, OP_MLP_OUT, M, H, rate, dev)),
+            20)
+        gy32 = gy.float()
+        lib_ms = _time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            gy32, rows, (H,), mean_r, rstd_r, gamma, beta, (True, True, True)), 20)
+        report("ln_bwd", f"layernorm_backward ({M},{H}) gy {str(gy_dtype)[6:]}, dropout {rate}, "
+               f"sums bit for bit twice {same}", err, k_ms, p_ms,
+               _bound(0.0, _nbytes(gy, v, inv, gamma, beta, got), PEAK_F32), lib_ms,
+               "aten.native_layer_norm_backward (f32 rows; no keep mask, no da)")
+        del gy, got, want, again, gy32
+    del v, inv, rows
+
+    # the bias column sums of the bf16 gradients: bq (768), bkv (1,536), bqkv (2,304)
+    for N in (768, 1536, 2304):
+        src = torch.randn(M, N, device=dev, generator=g).bfloat16()
+        got = column_sums(src)
+        torch.cuda.synchronize()
+        want = column_sums_reference(src)
+        same = torch.equal(got, column_sums(src))
+        if not _finite(got) or _rel_max(got, want) > COLSUM_REL or not same:
+            _fail(f"column_sums ({M},{N}) disagrees with its plain version or differs from run "
+                  "to run")
+        k_ms, p_ms = _paired_ms(lambda: column_sums(src), lambda: column_sums_reference(src), 20)
+        lib_ms = _time_ms(lambda: src.sum(0, dtype=torch.float32), 20)
+        report("colsum", f"column_sums ({M},{N}), bit for bit twice {same}",
+               (got - want).abs().max().item(), k_ms, p_ms,
+               _bound(0.0, _nbytes(src, got), PEAK_F32), lib_ms, "src.sum(0, dtype=torch.float32)")
+        del src, got, want
+
+    # the GELU-gradient GEMM: du = (dy @ w2^T) * gelu'(u) in bf16, b1 in its epilogue
+    dy = (0.1 * torch.randn(M, H, device=dev, generator=g)).bfloat16()
+    w2 = (torch.randn(F_, H, device=dev, generator=g) / H ** 0.5).bfloat16()
+    u = (2.0 * torch.randn(M, F_, device=dev, generator=g)).bfloat16()
+    kw = dict(b_t=True, epi="dgelu_erf", aux=u)
+    du, b1 = gemm(dy, w2, **kw, colsum=True)
+    torch.cuda.synchronize()
+    du_f32 = gemm_reference(dy, w2, b_t=True) * gelu_grad(u.float(), True)
+    rel = _rel_max(b1, du_f32.sum(0))
+    same = torch.equal(b1, gemm(dy, w2, **kw, colsum=True)[1])
+    excess = _gemm_excess(du, du_f32)
+    if excess > 0 or rel > COLSUM_REL or not same:
+        _fail(f"the GELU-gradient GEMM's b1 disagrees with the plain f32 du's column sums "
+              f"(rel {rel:.3e}, du excess {excess:.3e}) or differs from run to run ({same})")
+    new_ms = _time_ms(lambda: gemm(dy, w2, **kw, colsum=True), 10)
+    out2_ms = _time_ms(lambda: gemm(dy, w2, **kw, out2=True), 10)
+    flops = 2.0 * M * F_ * H
+    print(f"GELU-gradient GEMM ({M},{F_},{H}) with b1 in its epilogue: {new_ms:.4f} ms "
+          f"({flops / new_ms / 1e9:.1f} TFLOP/s), b1 rel {rel:.3e} of its largest, bit for bit "
+          f"twice {same}; writing the f32 du instead (out2=True): {out2_ms:.4f} ms "
+          f"({flops / out2_ms / 1e9:.1f} TFLOP/s) ({names[0]}; nvidia-smi: {names[1]})")
+    del dy, w2, u, du, b1, du_f32
+    torch.cuda.empty_cache()
+    return {key: {"max_abs_err": r["max_abs_err"], "ms": statistics.mean(r["ms"]),
+                  "plain_ms": statistics.mean(r["plain_ms"]), "bound": r["bound"],
+                  "library_ms": statistics.mean(r["library_ms"]), "library": r["library"]}
+            for key, r in res.items()}
 
 
 def phase_kernels() -> dict:
@@ -1890,21 +2061,24 @@ def _train_batch(batch: int) -> dict:
 
 class _plain_refused:
     """Within the block, the plain versions of the update (the single-pass
-    one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``) and of the
-    SDPA kernels raise: on the card the step's update is kernel #14 alone and
-    the per-module trunk's attention #11 / #12 alone."""
+    one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``), of the
+    SDPA kernels and of the layer's LayerNorm and column-sum kernels raise:
+    on the card the step's update is kernel #14 alone, the per-module
+    trunk's attention #11 / #12 alone, and the fused layers' LayerNorms
+    those of ``csrc/layernorm.cu``."""
 
     def _targets(self):
-        from kindergarten_vq_vae_torch.ops import adam, sdpa
+        from kindergarten_vq_vae_torch.ops import adam, layer, sdpa
         from kindergarten_vq_vae_torch.train import optim
 
         return ((optim, "adam_update_reference"), (adam, "adam_update_reference"),
                 (optim.Adam, "update"), (sdpa, "sdpa_forward_reference"),
-                (sdpa, "sdpa_backward_reference"))
+                (sdpa, "sdpa_backward_reference"), (layer, "residual_layernorm_reference"),
+                (layer, "layernorm_backward_reference"), (layer, "column_sums_reference"))
 
     def __enter__(self):
         def refuse(*args, **kwargs):
-            _fail("a plain version ran on a kernel path (the update or the SDPA)")
+            _fail("a plain version ran on a kernel path (the update, the SDPA or a LayerNorm)")
 
         self.saved = [(obj, name, getattr(obj, name)) for obj, name in self._targets()]
         for obj, name, _ in self.saved:
@@ -2203,6 +2377,7 @@ def main() -> None:
     names = phase_device()
     phase_build()
     lg = phase_layer_gemms(names)
+    ln = phase_layernorm(names)
     kern = phase_kernels()
     tk = phase_train_kernels()
     af = phase_attention_fwd(names)
@@ -2292,6 +2467,10 @@ def main() -> None:
             "layer_pallas.py:489", n["gemm_in_fwd"], lg["fwd"]),
         row("layer GEMM, gradient products (in layer_backward)", "gemm_sm90.cuh",
             "layer_pallas.py:552", n["gemm"] - n["gemm_in_fwd"], lg["grad"]),
+        row("residual_layernorm", "layernorm.cu", "layer_pallas.py:489", n["ln_fwd"], ln["ln_fwd"]),
+        row("layernorm_backward", "layernorm.cu", "layer_pallas.py:552", n["ln_bwd"],
+            ln["ln_bwd"]),
+        row("column_sums", "layernorm.cu", "layer_pallas.py:552", n["colsum"], ln["colsum"]),
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

@@ -5,6 +5,7 @@
 // (head_ce.cu) call run_gemm directly.
 
 #include "gemm_sm90.cuh"
+#include "layernorm.cuh"
 
 namespace kvq {
 namespace sm90 {
@@ -60,14 +61,19 @@ cudaError_t launch_tn(int tile_n, const CUtensorMap& a, const CUtensorMap& b, co
 int run_gemm(int a_mn, int b_mn, const void* A, int lda, const void* B, int ldb, int M, int N,
              int K, int epi, int tile_n, int splits, int kchunk, void* C, int ldc, void* C2,
              int ldc2, const void* aux, int ld_aux, const float* bias, float* ws, int sms,
-             cudaStream_t st) {
+             cudaStream_t st, float* colparts, float* colsum) {
   const bool shape_ok = M > 0 && N > 0 && K > 0 && sms > 0 && N % 8 == 0 && lda % 8 == 0 &&
                         ldb % 8 == 0 && tile_n > 0 && tile_n <= 256 && tile_n % 64 == 0 &&
                         splits >= 1 && kchunk > 0 && kchunk % TILE_K == 0 &&
                         (long long)splits * kchunk >= K && (long long)(splits - 1) * kchunk < K;
   const bool layout_ok = a_mn ? (b_mn && ws != nullptr && (epi == EPI_F32 || epi == EPI_BF16))
                               : splits == 1;
-  if (!shape_ok || !layout_ok || !aligned16(A) || !aligned16(B)) return cudaErrorInvalidValue;
+  const bool colsum_ok = colparts == nullptr
+                             ? colsum == nullptr
+                             : colsum != nullptr && !a_mn && !b_mn &&
+                                   (epi == EPI_DGELU_ERF || epi == EPI_DGELU_TANH);
+  if (!shape_ok || !layout_ok || !colsum_ok || !aligned16(A) || !aligned16(B))
+    return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   const bool maps = (a_mn ? tensor_map(&ma, A, K, M, lda, 64, 64)
                           : tensor_map(&ma, A, M, K, lda, 64, TILE_M)) &&
@@ -76,10 +82,12 @@ int run_gemm(int a_mn, int b_mn, const void* A, int lda, const void* B, int ldb,
   if (!maps) return cudaErrorInvalidValue;
   Args p{M, N, K, kchunk, splits, (M + TILE_M - 1) / TILE_M, (N + tile_n - 1) / tile_n,
          C, ldc, C2, ldc2, aux, ld_aux, bias};
+  p.colpart = colparts;
   if (!a_mn) {
     const cudaError_t e = b_mn ? launch_nn(tile_n, epi, ma, mb, p, sms, st)
                                : launch_nt(tile_n, epi, ma, mb, p, sms, st);
-    return static_cast<int>(e);
+    if (e != cudaSuccess || colparts == nullptr) return static_cast<int>(e);
+    return static_cast<int>(colparts_reduce(colparts, p.tiles_m, N, colsum, st));
   }
   // weight gradient: f32 partial products, then one fixed-order sum
   p.C = ws;
@@ -103,16 +111,19 @@ extern "C" {
 // transposed (the weight gradients X^T dY, epilogue f32 or bf16, through
 // `splits` f32 partials in ws); b_t, B stored (N, K) and read transposed
 // (the data gradients dY W^T); neither, the forward's A @ W. C2, aux and bias
-// may be null where the epilogue does not read them. tile_n, splits and
-// kchunk are ops/gemm.py `gemm_plan`'s; sms the grid's cap. Returns a
-// cudaError_t code.
+// may be null where the epilogue does not read them. colparts
+// (ceil(M / 128), N) f32 scratch and colsum (N,) f32, both or neither (NT
+// with a dgelu epilogue): colsum receives the f32 du's column sums. tile_n,
+// splits and kchunk are ops/gemm.py `gemm_plan`'s; sms the grid's cap.
+// Returns a cudaError_t code.
 int kvq_gemm_sm90(int a_t, int b_t, const void* A, int lda, const void* B, int ldb, int M, int N,
                   int K, int epi, int tile_n, int splits, int kchunk, void* C, int ldc, void* C2,
                   int ldc2, const void* aux, int ld_aux, const void* bias, void* ws, int sms,
-                  void* stream) {
+                  void* colparts, void* colsum, void* stream) {
   return kvq::sm90::run_gemm(a_t, !b_t, A, lda, B, ldb, M, N, K, epi, tile_n, splits, kchunk, C,
                              ldc, C2, ldc2, aux, ld_aux, static_cast<const float*>(bias),
-                             static_cast<float*>(ws), sms, static_cast<cudaStream_t>(stream));
+                             static_cast<float*>(ws), sms, static_cast<cudaStream_t>(stream),
+                             static_cast<float*>(colparts), static_cast<float*>(colsum));
 }
 
 }  // extern "C"

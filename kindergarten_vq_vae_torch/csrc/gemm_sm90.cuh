@@ -44,7 +44,9 @@
 //   192) or two (BN 128, for the GELU, its gradient, the residual adds and
 //   the CE epilogues) epilogue warpgroups add the bias, read the aux, apply
 //   the GELU or reduce the CE and store in coalesced rows, so that work
-//   overlaps the tensor cores. Measured on an
+//   overlaps the tensor cores. The GELU gradient's epilogue also sums its
+//   f32 du over each tile's rows in a fixed order (b1's column partials),
+//   so the du is stored only in bf16. Measured on an
 //   H100 80GB HBM3 (PERF.md), the epilogue was what held the short (K =
 //   768) products back, not the mainloop.
 // The PTX wrappers are written here by hand; the build is the CUDA
@@ -132,6 +134,7 @@ struct Args {
   int ld_aux;
   const float* bias;      // may be null
   CeArgs ce;
+  float* colpart;         // may be null: EPI_DGELU_*'s column partials of the f32 du, (tiles_m, N)
 };
 
 // ------------------------------------------------------------------ PTX
@@ -332,10 +335,11 @@ struct Aux {
 // The staged epilogue of columns col and col + 1 of one row (col even, N
 // even: both inside): the products plus the bias where there is one; `a` the
 // epilogue's aux pair. The rounding points are the JAX kernels' (bf16 out
-// after the f32 bias, GELU or residual add).
+// after the f32 bias, GELU or residual add). Returns EPI_DGELU_*'s f32 du
+// pair, before its rounding (the others: the products).
 template <int EPI>
-__device__ __forceinline__ void store_pair(const Args& p, int row, int col, float v0, float v1,
-                                           typename Aux<EPI>::T a) {
+__device__ __forceinline__ float2 store_pair(const Args& p, int row, int col, float v0, float v1,
+                                             typename Aux<EPI>::T a) {
   const size_t o = (size_t)row * p.ldc + col;
   if constexpr (EPI == EPI_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) = make_float2(v0, v1);
@@ -364,6 +368,30 @@ __device__ __forceinline__ void store_pair(const Args& p, int row, int col, floa
     if (p.C2 != nullptr)
       *reinterpret_cast<float2*>(static_cast<float*>(p.C2) + (size_t)row * p.ldc2 + col) =
           make_float2(d0, d1);
+    return make_float2(d0, d1);
+  }
+  return make_float2(v0, v1);
+}
+
+// EPI_DGELU_*'s column partials of one 128 x BN tile: cs, this lane's
+// columns 64 j + 2 lane (+1) summed over warp ew's rows of the tile in row
+// order, parked in the tile's staging row ew (which warp ew alone read, and
+// has read); then the warps' rows added in warp order, each column by one
+// thread, into colpart[m0 / TILE_M, n0 + c]. Whichever CTA runs the tile
+// writes the same bits.
+template <int BN, int WARPS, int J>
+__device__ __forceinline__ void store_colpart(const Args& p, float* stg, int ld, int m0, int n0,
+                                              int ew, int lane, const float2 (&cs)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) *reinterpret_cast<float2*>(stg + ew * ld + 64 * j + 2 * lane) = cs[j];
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * WARPS) : "memory");
+  for (int c = 32 * ew + lane; c < BN; c += 32 * WARPS) {
+    if (n0 + c < p.N) {
+      float sum = stg[c];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) sum += stg[w * ld + c];
+      p.colpart[(size_t)(m0 / TILE_M) * p.N + n0 + c] = sum;
+    }
   }
 }
 
@@ -570,6 +598,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                                   staged_full, staged);
         } else {
           prefetch_aux<EPI, BN>(p, m0, n0, e, 32 * WARPS);
+          // the GELU gradient's du summed over the tile's rows, for b1
+          constexpr bool COLSUM = EPI == EPI_DGELU_ERF || EPI == EPI_DGELU_TANH;
+          float2 cs[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j) cs[j] = make_float2(0.0f, 0.0f);
           float2 bias[J];
 #pragma unroll
           for (int j = 0; j < J; ++j) {
@@ -606,10 +639,17 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                     v0 += bias[j].x;
                     v1 += bias[j].y;
                   }
-                  store_pair<EPI>(p, row, col, v0, v1, aux[b][j]);
+                  const float2 d = store_pair<EPI>(p, row, col, v0, v1, aux[b][j]);
+                  if constexpr (COLSUM) {
+                    cs[j].x += d.x;
+                    cs[j].y += d.y;
+                  }
                 }
               }
           }
+          if constexpr (COLSUM)
+            if (p.colpart != nullptr)
+              store_colpart<BN, WARPS, J>(p, stg, S::STG_LD, m0, n0, ew, lane, cs);
         }
         mbar_arrive(staged_empty);
       }
@@ -676,13 +716,16 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, i
 // a_mn (A stored (K, M)), op(B) = B^T when !b_mn (B stored (N, K)). a_mn
 // (the weight gradients) takes EPI_F32 / EPI_BF16 through `splits` f32
 // partial products over K chunks of `kchunk` rows in ws (splits, M, N),
-// summed in a fixed order; the others take splits = 1. Leading dimensions
-// are multiples of 8 and every operand starts on 16 bytes. Returns a
-// cudaError_t code (cudaErrorInvalidValue for what it does not take).
+// summed in a fixed order; the others take splits = 1. colparts / colsum
+// (both or neither; NT with EPI_DGELU_* only): the f32 du's column sums
+// (N,) in colsum, through per-row-tile partials (ceil(M / TILE_M), N) in
+// colparts summed in a fixed order. Leading dimensions are multiples of 8
+// and every operand starts on 16 bytes. Returns a cudaError_t code
+// (cudaErrorInvalidValue for what it does not take).
 int run_gemm(int a_mn, int b_mn, const void* A, int lda, const void* B, int ldb, int M, int N,
              int K, int epi, int tile_n, int splits, int kchunk, void* C, int ldc, void* C2,
              int ldc2, const void* aux, int ld_aux, const float* bias, float* ws, int sms,
-             cudaStream_t st);
+             cudaStream_t st, float* colparts = nullptr, float* colsum = nullptr);
 
 }  // namespace sm90
 }  // namespace kvq

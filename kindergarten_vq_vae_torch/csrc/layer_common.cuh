@@ -93,7 +93,8 @@ enum Epilogue {
   EPI_GELU_TANH = 3,
   EPI_ADD_F32 = 4,     // C f32 = acc + aux (f32)
   EPI_ADD_BF16 = 5,    // C bf16 = acc + aux (f32)
-  EPI_DGELU_ERF = 6,   // du = acc * gelu'(aux bf16): C bf16 = du, C2 f32 = du when given
+  EPI_DGELU_ERF = 6,   // du = acc * gelu'(aux bf16): C bf16 = du, C2 f32 = du when given,
+                       // du's column partials when asked (Args::colpart)
   EPI_DGELU_TANH = 7,
   EPI_PARTIAL = 8,     // split-K partial: C f32 [split] = acc
   EPI_CE_FWD = 9,      // fused head + CE forward (head_ce.cu): logits, per-tile CE partials

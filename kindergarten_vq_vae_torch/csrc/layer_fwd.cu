@@ -26,7 +26,9 @@
 // The TPU kernel's block-diagonal packing of sentences (`_attn_fwd_tile`)
 // existed to feed the 128x128 MXU; here one warp computes one (sentence,
 // head) directly on mma.sync tiles (attention.cuh), which gives the same
-// values (off-block scores were -1e9, exp() sent them to exactly 0). One C
+// values (off-block scores were -1e9, exp() sent them to exactly 0). Each
+// residual + LayerNorm is layernorm.cu's one-pass kernel (a warp a row in
+// registers, 16-byte accesses). One C
 // call launches the layer's whole sequence on the caller's stream and
 // returns cudaGetLastError(); kvq_attention_fwd launches its attention alone.
 
@@ -34,46 +36,11 @@
 #include "dropout_hash.cuh"
 #include "gemm_sm90.cuh"
 #include "layer_common.cuh"
+#include "layernorm.cuh"
 
 using namespace kvq;
 
 namespace {
-
-// ------------------------------------------------- residual + LayerNorm
-constexpr int LN_THREADS = 256;
-
-// out = LN(float(x) + drop(a)) with flax's fast variance; one warp per row.
-// inv (M,) f32 receives each row's rsqrt when given.
-__global__ void __launch_bounds__(LN_THREADS)
-residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                          const float* __restrict__ gamma, const float* __restrict__ beta,
-                          bf16* __restrict__ out, float* __restrict__ inv_out, int M, int N,
-                          float eps, DropoutParams drop, uint32_t op) {
-  const int row = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const bf16* xr = x + (size_t)row * N;
-  const float* ar = a + (size_t)row * N;
-  const uint32_t rt = dropout_row_term(row, op, drop.seed);
-  float s = 0.0f, s2 = 0.0f;
-  for (int c = lane; c < N; c += 32) {
-    const float av = drop.on ? ar[c] * dropout_keep(rt, c, drop) : ar[c];
-    const float r = __bfloat162float(xr[c]) + av;
-    s += r;
-    s2 += r * r;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / N;
-  const float var = fmaxf(s2 / N - mu * mu, 0.0f);
-  const float inv = rsqrtf(var + eps);
-  if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
-  bf16* orow = out + (size_t)row * N;
-  for (int c = lane; c < N; c += 32) {
-    const float av = drop.on ? ar[c] * dropout_keep(rt, c, drop) : ar[c];
-    const float r = __bfloat162float(xr[c]) + av;
-    orow[c] = __float2bfloat16((r - mu) * inv * gamma[c] + beta[c]);
-  }
-}
 
 // C[M, N] = epi(A[M, K] @ B[K, N] + bias[N]) through the layer GEMM
 // (gemm_sm90.cuh) on a tile_n-wide tile; with a GELU epilogue, pre_gelu (may
@@ -84,15 +51,6 @@ int gemm_nn(const void* A, int lda, const void* B, int ldb, const void* bias, vo
   const int kchunk = (K + sm90::TILE_K - 1) / sm90::TILE_K * sm90::TILE_K;
   return sm90::run_gemm(0, 1, A, lda, B, ldb, M, N, K, epi, tile_n, 1, kchunk, C, ldc, pre_gelu,
                         ldc, nullptr, 0, static_cast<const float*>(bias), nullptr, sms, st);
-}
-
-void residual_layernorm(const void* x, const void* a, const void* g, const void* be, void* out,
-                        float* inv, int M, int N, float eps, DropoutParams drop, uint32_t op,
-                        cudaStream_t st) {
-  const int rows_per_block = LN_THREADS / 32;
-  residual_layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block, LN_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(g),
-      static_cast<const float*>(be), static_cast<bf16*>(out), inv, M, N, eps, drop, op);
 }
 
 }  // namespace
@@ -143,7 +101,7 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
   KVQ_TRY(attention(qkv_b, 3 * H, qkv_b + H, qkv_b + 2 * H, 3 * H, smask, ctx, H, batch,
                     num_heads, head_dim, s_q, s_q, causal, attn_drop, 0, st));
   KVQ_TRY(gemm_nn(ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, tile_n[1], sms, st));
-  residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, st);
+  KVQ_TRY(residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, st));
 
   const void* xm = x1;
   if (has_cross) {
@@ -155,8 +113,8 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
     KVQ_TRY(attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, c2, H, batch, num_heads, head_dim,
                       s_q, s_k, 0, attn_drop, num_heads + 1, st));
     KVQ_TRY(gemm_nn(c2, H, wco, H, bco, acc, H, M, H, H, EPI_F32, tile_n[4], sms, st));
-    residual_layernorm(x1, acc, g2, be2, x2, inv ? inv + M : nullptr, M, H, eps, hid_drop,
-                       OP_CROSS_OUT, st);
+    KVQ_TRY(residual_layernorm(x1, acc, g2, be2, x2, inv ? inv + M : nullptr, M, H, eps,
+                               hid_drop, OP_CROSS_OUT, st));
     xm = x2;
   }
 
@@ -164,9 +122,9 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
   KVQ_TRY(gemm_nn(xm, H, w1, F, b1, m, F, M, F, H, gelu_exact ? EPI_GELU_ERF : EPI_GELU_TANH,
                   tile_n[5], sms, st, u));
   KVQ_TRY(gemm_nn(m, F, w2, H, b2, acc, H, M, H, F, EPI_F32, tile_n[6], sms, st));
+  KVQ_TRY(residual_layernorm(xm, acc, g3, be3, out, inv ? inv + 2 * M : nullptr, M, H, eps,
+                             hid_drop, OP_MLP_OUT, st));
 #undef KVQ_TRY
-  residual_layernorm(xm, acc, g3, be3, out, inv ? inv + 2 * M : nullptr, M, H, eps, hid_drop,
-                     OP_MLP_OUT, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,434 @@
+// LayerNorm and column sums of the fused BertLayer for Hopper (sm_90a).
+//
+// Replaces, inside kindergarten_vq_vae_tpu/ops/layer_pallas.py
+// `_layer_fwd_kernel` (l.489), the residual + LayerNorm after each
+// projection (`_ln_fwd` l.164, with the hidden dropout of `_keep_2d` l.142)
+// and, inside `_layer_bwd_kernel` (l.552), the LayerNorm backward (`_ln_bwd`
+// l.175 from `_ln_recover_yhat` l.542) with its dgamma / dbeta / bias column
+// sums, and the other bias gradients' column sums. Entry points:
+//
+//   kvq_residual_layernorm   out = LN(x + drop(a)) and each row's rsqrt
+//   kvq_ln_bwd               dr, da = dr * keep, and the sums over rows of
+//                            gy * yhat, gy and da
+//   kvq_colsum               f32 column sums of a bf16 matrix
+//
+// and, for the other sources (layernorm.cuh), residual_layernorm (the layer
+// forward's C sequence) and colparts_reduce (also the b1 sum of the GEMM's
+// EPI_DGELU_* column partials).
+//
+// What bounds them on the H100: bytes. At 24,576 rows x 768 a LayerNorm
+// backward moves 189 or 227 MB (bf16 or f32 upstream), a residual +
+// LayerNorm 151 MB, against ~3 operations a byte (the f32 units' ~20 a byte
+// of memory rate). What the design does about it:
+// - one warp a row, each lane 16-byte chunks of 8 adjacent columns (lane,
+//   lane + 32, ...): the row is read once into registers and written once,
+//   with 16-byte loads and stores; mean and E[r^2] (or the backward's two
+//   row means) by shuffles;
+// - the hash's row term once a row, each keep drawn once;
+// - the backward's column sums over every row stay deterministic: each warp
+//   keeps its lanes' columns' sums in registers over its rows of the
+//   block's LNB_ROWS; the block's warps are added in shared memory in warp
+//   order and written as one partial a block; colparts_reduce adds the
+//   partials in a fixed order, spread over the card (strips of partials a
+//   warp, then the strips in order). The partials depend on M alone, so
+//   every card gives the same bits;
+// - yhat = (v - beta) / gamma by a true division (0 where gamma is 0), the
+//   rounding of `_ln_recover_yhat`.
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
+#include "dropout_hash.cuh"
+#include "layer_common.cuh"
+#include "layernorm.cuh"
+
+namespace kvq {
+
+namespace {
+
+constexpr int LN_THREADS = 256;              // forward: 8 rows a block, a warp a row
+constexpr int LNB_WARPS = 4, LNB_ROWS = 64;  // backward: 4 warps over a block's 64 rows
+constexpr int CS_WARPS = 8, CS_ROWS = 256;   // column sums: 8 warps over 256 rows x 256 columns
+constexpr int RED_WARPS = 8;                 // reduce: 8 strips of partials, 64 columns a block
+
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(h[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// ------------------------------------------------- residual + LayerNorm
+// out = LN(float(x) + drop(a)), one warp a row of N <= 256 CPL columns;
+// inv (M,) receives each row's rsqrt when given.
+template <int CPL>
+__global__ void __launch_bounds__(LN_THREADS)
+residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          bf16* __restrict__ out, float* __restrict__ inv_out, int M, int N,
+                          float eps, DropoutParams drop, uint32_t op) {
+  const int row = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const size_t base = (size_t)row * N;
+  float r[CPL][8], xv[CPL][8];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c0 = 8 * (lane + 32 * i);
+    if (c0 < N) {
+      load8(x + base + c0, xv[i]);
+      load8(a + base + c0, r[i]);
+    }
+  }
+  const uint32_t rt = dropout_row_term(row, op, drop.seed);
+  float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c0 = 8 * (lane + 32 * i);
+    if (c0 < N) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float av = drop.on ? r[i][k] * dropout_keep(rt, c0 + k, drop) : r[i][k];
+        r[i][k] = xv[i][k] + av;
+        s += r[i][k];
+        s2 += r[i][k] * r[i][k];
+      }
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / N;
+  const float var = fmaxf(s2 / N - mu * mu, 0.0f);
+  const float inv = rsqrtf(var + eps);
+  if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c0 = 8 * (lane + 32 * i);
+    if (c0 < N) {
+      float g[8], b[8];
+      load8(gamma + c0, g);
+      load8(beta + c0, b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) r[i][k] = (r[i][k] - mu) * inv * g[k] + b[k];
+      store8(out + base + c0, r[i]);
+    }
+  }
+}
+
+// ------------------------------------------------- LayerNorm backward
+// Rows [blockIdx.x * LNB_ROWS, +LNB_ROWS), warp w the rows w, w + LNB_WARPS,
+// ... of them. gy (M, N) f32 or bf16 upstream; v the stored LN output (M, N)
+// bf16, yhat = (v - beta) / gamma (0 where gamma is 0); inv (M,) the
+// forward's rsqrt. dr (M, N) f32 = inv * (dyhat - mean(dyhat) -
+// yhat * mean(dyhat * yhat)), dyhat = gy * gamma; da (M, N) bf16 = dr * keep.
+// parts (gridDim.x, 3, N): the block's column sums of gy * yhat, gy and
+// dr * keep (f32, before rounding). Dynamic shared memory: gamma, beta and
+// the block's sums, 5 N floats.
+template <int CPL, bool GY_F32>
+__global__ void __launch_bounds__(32 * LNB_WARPS, CPL <= 3 ? 3 : 2)
+ln_bwd_kernel(const void* __restrict__ gy_, const bf16* __restrict__ v,
+              const float* __restrict__ inv, const float* __restrict__ gamma,
+              const float* __restrict__ beta, DropoutParams drop, uint32_t op,
+              float* __restrict__ dr, bf16* __restrict__ da, float* __restrict__ parts, int M,
+              int N) {
+  extern __shared__ float4 ln_smem[];
+  float* gs = reinterpret_cast<float*>(ln_smem);
+  float* bs = gs + N;
+  float* sums = bs + N;
+  typedef typename std::conditional<GY_F32, float, bf16>::type GyT;
+  const GyT* gy = static_cast<const GyT*>(gy_);
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    gs[c] = gamma[c];
+    bs[c] = beta[c];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * LNB_ROWS;
+  float cg[CPL][8], cb[CPL][8], ca[CPL][8];  // this lane's columns' sums over the warp's rows
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cg[i][k] = cb[i][k] = ca[i][k] = 0.0f;
+
+  for (int rr = warp; rr < LNB_ROWS; rr += LNB_WARPS) {
+    const int row = r0 + rr;
+    if (row >= M) break;
+    const size_t base = (size_t)row * N;
+    float g[CPL][8], y[CPL][8];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      if (c0 < N) {
+        load8(gy + base + c0, g[i]);
+        load8(v + base + c0, y[i]);
+      }
+    }
+    const float iv = inv[row];
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      if (c0 < N) {
+        float gm[8], bt[8];
+        load8(gs + c0, gm);
+        load8(bs + c0, bt);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          y[i][k] = gm[k] == 0.0f ? 0.0f : __fdiv_rn(y[i][k] - bt[k], gm[k]);
+          const float dyh = g[i][k] * gm[k];
+          s1 += dyh;
+          s2 += dyh * y[i][k];
+        }
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float m1 = s1 / N, m2 = s2 / N;
+    const uint32_t rt = dropout_row_term(row, op, drop.seed);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      if (c0 < N) {
+        float gm[8], d[8], o[8];
+        load8(gs + c0, gm);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          d[k] = iv * (g[i][k] * gm[k] - m1 - y[i][k] * m2);
+          o[k] = drop.on ? d[k] * dropout_keep(rt, c0 + k, drop) : d[k];
+          cg[i][k] += g[i][k] * y[i][k];
+          cb[i][k] += g[i][k];
+          ca[i][k] += o[k];
+        }
+        store8(dr + base + c0, d);
+        store8(da + base + c0, o);
+      }
+    }
+  }
+
+  // the block's sums: the warps in order through shared memory, the last
+  // one straight to the block's partial
+  float* part = parts + (size_t)blockIdx.x * 3 * N;
+  for (int w = 0; w < LNB_WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c0 = 8 * (lane + 32 * i);
+        if (c0 >= N) continue;
+        auto add = [&](int q, const float (&mine)[8]) {
+          float t[8];
+          if (w > 0) {
+            load8(sums + q * N + c0, t);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t[k] += mine[k];
+          } else {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t[k] = mine[k];
+          }
+          store8((w + 1 < LNB_WARPS ? sums : part) + q * N + c0, t);
+        };
+        add(0, cg[i]);
+        add(1, cb[i]);
+        add(2, ca[i]);
+      }
+    }
+    if (w + 1 < LNB_WARPS) __syncthreads();
+  }
+}
+
+// ------------------------------------------------------ column sums
+// parts[blockIdx.y, c] = sum of src[r, c] over the block's CS_ROWS rows, for
+// the block's 256 columns: each lane 8 adjacent columns (16-byte loads),
+// warp w the rows w, w + CS_WARPS, ...; then the warps in order.
+__global__ void __launch_bounds__(32 * CS_WARPS)
+colsum_kernel(const bf16* __restrict__ src, int M, int N, float* __restrict__ parts) {
+  __shared__ __align__(16) float strip[CS_WARPS][256];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * 256 + 8 * lane;
+  const int r1 = min(M, (static_cast<int>(blockIdx.y) + 1) * CS_ROWS);
+  float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (c0 < N) {
+#pragma unroll 4
+    for (int r = static_cast<int>(blockIdx.y) * CS_ROWS + warp; r < r1; r += CS_WARPS) {
+      float f[8];
+      load8(src + (size_t)r * N + c0, f);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] += f[k];
+    }
+  }
+  store8(&strip[warp][8 * lane], s);
+  __syncthreads();
+  const int t = threadIdx.x, c = blockIdx.x * 256 + t;  // 256 threads: a column each
+  if (c < N) {
+    float sum = strip[0][t];
+#pragma unroll
+    for (int w = 1; w < CS_WARPS; ++w) sum += strip[w][t];
+    parts[(size_t)blockIdx.y * N + c] = sum;
+  }
+}
+
+// out[c] = sum over b of parts[b * width + c]: RED_WARPS strips of partials
+// (warp w: partials w, w + RED_WARPS, ...), a column pair a lane, then the
+// strips in order.
+__global__ void __launch_bounds__(32 * RED_WARPS)
+colparts_reduce_kernel(const float* __restrict__ parts, int nparts, int width,
+                       float* __restrict__ out) {
+  __shared__ float2 strip[RED_WARPS][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 64 + 2 * lane;
+  float2 s = make_float2(0.0f, 0.0f);
+  if (c < width) {
+#pragma unroll 4
+    for (int b = warp; b < nparts; b += RED_WARPS) {
+      const float2 t = *reinterpret_cast<const float2*>(parts + (size_t)b * width + c);
+      s.x += t.x;
+      s.y += t.y;
+    }
+  }
+  strip[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < width) {
+#pragma unroll
+    for (int w = 1; w < RED_WARPS; ++w) {
+      s.x += strip[w][lane].x;
+      s.y += strip[w][lane].y;
+    }
+    *reinterpret_cast<float2*>(out + c) = s;
+  }
+}
+
+template <bool GY_F32>
+void launch_ln_bwd(int cpl, int blocks, size_t smem, cudaStream_t st, const void* gy,
+                   const bf16* v, const float* inv, const float* g, const float* b,
+                   DropoutParams drop, uint32_t op, float* dr, bf16* da, float* parts, int M,
+                   int N) {
+#define KVQ_LNB(C)                                                                               \
+  ln_bwd_kernel<C, GY_F32><<<blocks, 32 * LNB_WARPS, smem, st>>>(gy, v, inv, g, b, drop, op, dr, \
+                                                                 da, parts, M, N)
+  switch (cpl) {
+    case 1: KVQ_LNB(1); break;
+    case 2: KVQ_LNB(2); break;
+    case 3: KVQ_LNB(3); break;
+    default: KVQ_LNB(4); break;
+  }
+#undef KVQ_LNB
+}
+
+}  // namespace
+
+cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
+                               void* out, float* inv, int M, int N, float eps, DropoutParams drop,
+                               uint32_t op, cudaStream_t st) {
+  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M < 0 || !aligned16(x) || !aligned16(a) ||
+      !aligned16(gamma) || !aligned16(beta) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  const int blocks = (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float *af = static_cast<const float*>(a), *g = static_cast<const float*>(gamma),
+              *b = static_cast<const float*>(beta);
+  bf16* o = static_cast<bf16*>(out);
+#define KVQ_LN(C) \
+  residual_layernorm_kernel<C><<<blocks, LN_THREADS, 0, st>>>(xb, af, g, b, o, inv, M, N, eps, drop, op)
+  switch ((N + 255) / 256) {
+    case 1: KVQ_LN(1); break;
+    case 2: KVQ_LN(2); break;
+    case 3: KVQ_LN(3); break;
+    default: KVQ_LN(4); break;
+  }
+#undef KVQ_LN
+  return cudaGetLastError();
+}
+
+cudaError_t colparts_reduce(const float* parts, int nparts, int width, float* out,
+                            cudaStream_t st) {
+  if (width <= 0 || width % 2 != 0 || nparts <= 0) return cudaErrorInvalidValue;
+  colparts_reduce_kernel<<<(width + 63) / 64, 32 * RED_WARPS, 0, st>>>(parts, nparts, width, out);
+  return cudaGetLastError();
+}
+
+}  // namespace kvq
+
+using namespace kvq;
+
+extern "C" {
+
+// Residual + LayerNorm of M rows of width N (see residual_layernorm); seed
+// the int32 seed's bits, thresh / scale the hidden dropout's (thresh 0: off),
+// op the site's id.
+int kvq_residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
+                           void* out, void* inv, int M, int N, float eps, unsigned seed,
+                           unsigned thresh, float scale, unsigned op, void* stream) {
+  const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  return static_cast<int>(residual_layernorm(x, a, gamma, beta, out, static_cast<float*>(inv), M,
+                                             N, eps, drop, op, static_cast<cudaStream_t>(stream)));
+}
+
+// LayerNorm backward of M rows of width N (see ln_bwd_kernel). parts
+// (ceil(M / 64), 3, N) f32 scratch; sums (3, N) f32 receives
+// [sum gy * yhat, sum gy, sum dr * keep].
+int kvq_ln_bwd(const void* gy, int gy_f32, const void* v, const void* inv, const void* gamma,
+               const void* beta, unsigned seed, unsigned thresh, float scale, unsigned op,
+               void* dr, void* da, void* parts, void* sums, int M, int N, void* stream) {
+  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M <= 0 || !aligned16(gy) || !aligned16(v) ||
+      dr == nullptr || !aligned16(dr) || !aligned16(da) || !aligned16(parts))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  const int blocks = (M + LNB_ROWS - 1) / LNB_ROWS, cpl = (N + 255) / 256;
+  const size_t smem = 5 * (size_t)N * sizeof(float);
+  auto* vb = static_cast<const bf16*>(v);
+  auto *iv = static_cast<const float*>(inv), *g = static_cast<const float*>(gamma),
+       *b = static_cast<const float*>(beta);
+  auto* drf = static_cast<float*>(dr);
+  auto* dab = static_cast<bf16*>(da);
+  auto* p = static_cast<float*>(parts);
+  if (gy_f32)
+    launch_ln_bwd<true>(cpl, blocks, smem, st, gy, vb, iv, g, b, drop, op, drf, dab, p, M, N);
+  else
+    launch_ln_bwd<false>(cpl, blocks, smem, st, gy, vb, iv, g, b, drop, op, drf, dab, p, M, N);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(colparts_reduce(p, blocks, 3 * N, static_cast<float*>(sums), st));
+}
+
+// out (N,) f32 = column sums of src (M, N) bf16, N a multiple of 8, src
+// 16-byte aligned. parts (ceil(M / 256), N) f32 scratch.
+int kvq_colsum(const void* src, int M, int N, void* parts, void* out, void* stream) {
+  if (N <= 0 || N % 8 != 0 || M <= 0 || !aligned16(src))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + 255) / 256, (M + CS_ROWS - 1) / CS_ROWS);
+  auto* p = static_cast<float*>(parts);
+  colsum_kernel<<<grid, 32 * CS_WARPS, 0, st>>>(static_cast<const bf16*>(src), M, N, p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(colparts_reduce(p, grid.y, N, static_cast<float*>(out), st));
+}
+
+}  // extern "C"

@@ -15,7 +15,10 @@ rounding points: bf16 operands, f32 products and sums, then the epilogue:
   ``out2`` the pre-GELU ``u`` in bf16;
 - ``add_f32`` / ``add_bf16``: ``sum + aux`` (aux f32);
 - ``dgelu_erf`` / ``dgelu_tanh``: ``du = sum * gelu'(aux)`` (aux the bf16
-  ``u``) in bf16, and with ``out2`` in f32.
+  ``u``) in bf16, with ``out2`` also in f32, and with ``colsum`` the f32
+  du's column sums (the layer's b1 gradient): the kernel sums each 128-row
+  tile's du in its epilogue, in a fixed order, and the tiles' partials in
+  another (so the f32 du need not be written).
 
 The weight gradients (``a_t``) sum over all rows in f32, in chunks of rows
 whose partial products are added in a fixed order, and round once.
@@ -163,10 +166,13 @@ def _shape(a, b, a_t: bool, b_t: bool) -> tuple[int, int, int]:
 
 
 def gemm_reference(a, b, *, a_t: bool = False, b_t: bool = False, epi: str = "f32", bias=None,
-                   aux=None, out2: bool = False):
+                   aux=None, out2: bool = False, colsum: bool = False):
     """Plain version of :func:`gemm`: A (M, K) or, with ``a_t``, (K, M); B
     (K, N) or, with ``b_t``, (N, K); f32 products and sums, then the epilogue
-    (module docstring). Returns C, or ``(C, C2)`` with ``out2``."""
+    (module docstring). Returns C, or the tuple of C, C2 (``out2``) and the
+    f32 du's column sums (``colsum``, dgelu epilogues only)."""
+    if colsum and not epi.startswith("dgelu"):
+        raise ValueError(f"colsum is the column sum of the f32 du; epilogue {epi!r} has none")
     M, N, K = _shape(a, b, a_t, b_t)
     acc = (a.float().T if a_t else a.float()) @ (b.float().T if b_t else b.float())
     if bias is not None:
@@ -180,7 +186,8 @@ def gemm_reference(a, b, *, a_t: bool = False, b_t: bool = False, epi: str = "f3
         return (acc + aux.float()).to(_OUT_DTYPE[epi])
     if epi.startswith("dgelu"):
         du = acc * gelu_grad(aux.float(), epi == "dgelu_erf")
-        return (du.to(torch.bfloat16), du) if out2 else du.to(torch.bfloat16)
+        outs = (du.to(torch.bfloat16),) + ((du,) if out2 else ()) + ((du.sum(0),) if colsum else ())
+        return outs if len(outs) > 1 else outs[0]
     raise ValueError(f"unknown epilogue {epi!r}")
 
 
@@ -191,28 +198,33 @@ def _check(name, t, shape, dtype, dev):
 
 
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+             + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
 
 
 def gemm(a, b, *, a_t: bool = False, b_t: bool = False, epi: str = "f32", bias=None, aux=None,
-         out2: bool = False):
+         out2: bool = False, colsum: bool = False):
     """C (M, N) = epi(op(A) @ op(B) [+ bias]), the contract of
     :func:`gemm_reference`. Layouts: NN (neither; epilogues f32, bf16,
     gelu_*, with an optional f32 bias (N,)), NT (``b_t``; f32, bf16, add_*,
-    dgelu_*) and TN (``a_t``, the weight gradients; f32, bf16). A CPU tensor
+    dgelu_*, these with ``colsum`` too) and TN (``a_t``, the weight
+    gradients; f32, bf16). A CPU tensor
     takes the plain version; a CUDA tensor launches ``csrc/gemm_sm90.cuh``
     (bf16 operands, contiguous, widths multiples of 8) or raises, and each
     call adds one to ``gemm.launches``. The layer forward's C sequence
     launches the same kernel for its products: ``ops/layer.py`` adds those
     to ``gemm.launches`` and to ``gemm.forward_launches``."""
     if a.device.type == "cpu":
-        return gemm_reference(a, b, a_t=a_t, b_t=b_t, epi=epi, bias=bias, aux=aux, out2=out2)
+        return gemm_reference(a, b, a_t=a_t, b_t=b_t, epi=epi, bias=bias, aux=aux, out2=out2,
+                              colsum=colsum)
     if a.device.type != "cuda":
         raise ValueError(f"gemm runs on CPU or CUDA tensors, got {a.device}")
     if epi not in _LAYOUT_EPIS.get((a_t, b_t), ()):
         raise ValueError(f"the GEMM kernel has no epilogue {epi!r} for a_t={a_t}, b_t={b_t}")
     if out2 and not epi.startswith(("gelu", "dgelu")):
         raise ValueError(f"out2 is the pre-GELU u or the f32 du; epilogue {epi!r} has none")
+    if colsum and not epi.startswith("dgelu"):
+        raise ValueError(f"colsum is the column sum of the f32 du; epilogue {epi!r} has none")
     if bias is not None and (a_t or b_t):
         raise ValueError("only the forward's layout (NN) adds a bias")
     dev = a.device
@@ -238,14 +250,21 @@ def gemm(a, b, *, a_t: bool = False, b_t: bool = False, epi: str = "f32", bias=N
         c2 = torch.empty((M, N), dtype=torch.bfloat16 if epi.startswith("gelu") else torch.float32,
                          device=dev)
     ws = torch.empty((plan.splits, M, N), dtype=torch.float32, device=dev) if a_t else None
+    parts = sums = None
+    if colsum:  # one partial row per 128-row tile
+        parts = torch.empty((_ceil(M, TILE_M), N), dtype=torch.float32, device=dev)
+        sums = torch.empty((N,), dtype=torch.float32, device=dev)
     _build.launch("kvq_gemm_sm90", _ARGTYPES, int(a_t), int(b_t), a.data_ptr(), a.shape[1],
                   b.data_ptr(), b.shape[1], M, N, K, _EPI[epi], plan.tile_n, plan.splits,
                   plan.kchunk, c.data_ptr(), N, None if c2 is None else c2.data_ptr(), N,
                   None if aux is None else aux.data_ptr(), N,
                   None if bias is None else bias.data_ptr(),
-                  None if ws is None else ws.data_ptr(), sm_count(dev), device=dev)
+                  None if ws is None else ws.data_ptr(), sm_count(dev),
+                  None if parts is None else parts.data_ptr(),
+                  None if sums is None else sums.data_ptr(), device=dev)
     gemm.launches += 1
-    return (c, c2) if out2 else c
+    outs = (c,) + ((c2,) if out2 else ()) + ((sums,) if colsum else ())
+    return outs if len(outs) > 1 else c
 
 
 gemm.launches = 0

@@ -3,8 +3,11 @@
 Counterpart of ``kindergarten_vq_vae_tpu/ops/layer_pallas.py``
 (``fused_bert_layer`` l.1129, ``_layer_fwd_core`` l.374, ``_layer_bwd_kernel``
 l.552, ``_attn_bwd_tile`` l.304). The forward kernel is ``csrc/layer_fwd.cu``,
-the backward ``csrc/layer_bwd.cu``, and every projection of both goes
-through the layer GEMM of ``ops/gemm.py`` (``csrc/gemm_sm90.cuh``);
+the backward ``csrc/layer_bwd.cu``, every projection of both goes
+through the layer GEMM of ``ops/gemm.py`` (``csrc/gemm_sm90.cuh``), and
+their LayerNorms and bias column sums through ``csrc/layernorm.cu``
+(:func:`residual_layernorm`, :func:`layernorm_backward`,
+:func:`column_sums`, each beside its plain version);
 :func:`layer_forward_reference`,
 :func:`layer_backward_reference` and :func:`attention_backward_reference`
 are the same functions in plain PyTorch, at the same rounding points:
@@ -72,6 +75,9 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
 # k16 steps; `attention_fits`)
 MAX_SEQ = 32
 MAX_HEAD_DIM = 128
+# the widest row of the LayerNorm kernels of csrc/layernorm.cu (LN_MAX_WIDTH:
+# a row in a warp's registers, at most four 16-byte chunks a lane)
+MAX_LN_WIDTH = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +169,35 @@ def _recover_yhat(v, gamma, beta):
     return torch.where(gamma == 0.0, 0.0, (v.float() - beta) / gamma)
 
 
+def residual_layernorm_reference(x, a, gamma, beta, eps: float, keep=None):
+    """Plain residual + post-LN of the layer forward (``_ln_fwd`` l.164):
+    ``(out, inv)``, out = LN(float(x) + a * keep) in x's dtype with flax's
+    fast variance, inv each row's rsqrt (f32). x (M, N); a (M, N) f32;
+    keep (M, N) the hidden site's keep/scale mask, or None."""
+    r = x.float() + (a if keep is None else a * keep)
+    out, inv = _ln(r, gamma, beta, eps)
+    return out.to(x.dtype), inv
+
+
+def layernorm_backward_reference(gy, v, inv, gamma, beta, keep=None):
+    """Plain LayerNorm backward from the stored output v and rsqrt inv
+    (``_ln_recover_yhat`` l.542, ``_ln_bwd`` l.175), with the column sums
+    ``_layer_backward_xla`` forms beside it (l.1047-1057): ``(dr, da,
+    dgamma, dbeta, dbias)``, all f32: dr the gradient at the LayerNorm's
+    input for the upstream gy, da = dr * keep (keep the hidden site's mask
+    or None), and the sums over rows of gy * yhat, gy and da."""
+    g = gy.float()
+    yhat = _recover_yhat(v, gamma, beta)
+    dr = _ln_bwd(g, yhat, inv, gamma)
+    da = dr if keep is None else dr * keep
+    return dr, da, (g * yhat).sum(0), g.sum(0), da.sum(0)
+
+
+def column_sums_reference(src):
+    """Plain f32 column sums of a (rows, N) matrix (a bias gradient)."""
+    return src.float().sum(0)
+
+
 def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
     """(B, S, H) -> f32 (B, nh, S, hd)."""
     b, s, h = t.shape
@@ -225,15 +260,15 @@ def layer_forward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, seed
     x2d = x.reshape(M, H)
     res = {}
 
+    def keep(op):
+        return _hidden_keep(geom, seed, op, M, dev) if geom.hid_rate > 0.0 else None
+
     qkv = (_mm(x2d, W["wqkv"]) + W["bqkv"]).to(cdtype)
     q3 = qkv.view(b, s, 3 * H)
     ctx = _attention(q3[..., :H], q3[..., H:2 * H], q3[..., 2 * H:], smask, geom.causal, nh,
                      seed, 0, geom.attn_rate).to(cdtype).reshape(M, H)
-    a1 = _mm(ctx, W["wo"]) + W["bo"]
-    if geom.hid_rate > 0.0:
-        a1 = a1 * _hidden_keep(geom, seed, OP_ATTN_OUT, M, dev)
-    x1f, inv1 = _ln(x2d.float() + a1, W["g1"], W["be1"], geom.eps)
-    x1 = x1f.to(cdtype)
+    x1, inv1 = residual_layernorm_reference(x2d, _mm(ctx, W["wo"]) + W["bo"], W["g1"], W["be1"],
+                                            geom.eps, keep(OP_ATTN_OUT))
     res.update(qkv=qkv, ctx=ctx, x1=x1)
     inv2 = torch.zeros_like(inv1)
     xm = x1
@@ -245,22 +280,17 @@ def layer_forward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, seed
         kv3 = kvc.view(b, sk, 2 * H)
         ctx2 = _attention(qc.view(b, s, H), kv3[..., :H], kv3[..., H:], cmask, False, nh,
                           seed, cross_op(nh), geom.attn_rate).to(cdtype).reshape(M, H)
-        a2 = _mm(ctx2, W["wco"]) + W["bco"]
-        if geom.hid_rate > 0.0:
-            a2 = a2 * _hidden_keep(geom, seed, OP_CROSS_OUT, M, dev)
-        x2f, inv2 = _ln(x1.float() + a2, W["g2"], W["be2"], geom.eps)
-        x2 = x2f.to(cdtype)
+        x2, inv2 = residual_layernorm_reference(x1, _mm(ctx2, W["wco"]) + W["bco"], W["g2"],
+                                                W["be2"], geom.eps, keep(OP_CROSS_OUT))
         res.update(qc=qc, kvc=kvc, ctx2=ctx2, x2=x2)
         xm = x2
 
     u = _mm(xm, W["w1"]) + W["b1"]
     m = gelu(u, geom.gelu_exact).to(cdtype)
-    y = _mm(m, W["w2"]) + W["b2"]
-    if geom.hid_rate > 0.0:
-        y = y * _hidden_keep(geom, seed, OP_MLP_OUT, M, dev)
-    outf, inv3 = _ln(xm.float() + y, W["g3"], W["be3"], geom.eps)
+    out, inv3 = residual_layernorm_reference(xm, _mm(m, W["w2"]) + W["b2"], W["g3"], W["be3"],
+                                             geom.eps, keep(OP_MLP_OUT))
     res.update(u=u.to(cdtype), m=m, invs=torch.stack([inv1, inv2, inv3]))
-    return outf.to(cdtype).view(b, s, H), tuple(res[n] for n in residual_names(geom))
+    return out.view(b, s, H), tuple(res[n] for n in residual_names(geom))
 
 
 def bert_layer_reference(geom: LayerGeom, x, enc, smask, cmask, weights, seed=0) -> torch.Tensor:
@@ -347,57 +377,51 @@ def layer_backward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, see
     def keep(op):
         return _hidden_keep(geom, seed, op, M, dev) if geom.hid_rate > 0.0 else None
 
-    def ln_block(g_up, v, inv, gname, bname, op):
-        yhat = _recover_yhat(v, W[gname], W[bname])
-        dW[gname] = (g_up * yhat).sum(0)
-        dW[bname] = g_up.sum(0)
-        dr = _ln_bwd(g_up, yhat, inv, W[gname])
-        k = keep(op)
-        return dr, dr if k is None else dr * k
+    def ln_block(g_up, v, inv, gname, bname, bias, op):
+        dr, da, dW[gname], dW[bname], dW[bias] = layernorm_backward_reference(
+            g_up, v, inv, W[gname], W[bname], keep(op))
+        return dr, da
 
     # MLP block
-    dr3, dy = ln_block(gy2, out.reshape(M, H), inv3, "g3", "be3", OP_MLP_OUT)
+    dr3, dy = ln_block(gy2, out.reshape(M, H), inv3, "g3", "be3", "b2", OP_MLP_OUT)
     dy_c = dy.to(cdtype)
     dW["w2"] = _mm_tn(R["m"], dy_c)
-    dW["b2"] = dy.sum(0)
     du = _mm_nt(dy_c, W["w2"]) * gelu_grad(R["u"].float(), geom.gelu_exact)
     du_c = du.to(cdtype)
     xm = R["x2"] if geom.has_cross else R["x1"]
     dW["w1"] = _mm_tn(xm, du_c)
-    dW["b1"] = du.sum(0)
+    dW["b1"] = column_sums_reference(du)
     dxm = dr3 + _mm_nt(du_c, W["w1"])
 
     denc = None
     if geom.has_cross:
         sk = enc.shape[1]
-        dr2, da2 = ln_block(dxm, R["x2"], inv2, "g2", "be2", OP_CROSS_OUT)
+        dr2, da2 = ln_block(dxm, R["x2"], inv2, "g2", "be2", "bco", OP_CROSS_OUT)
         da2_c = da2.to(cdtype)
         dW["wco"] = _mm_tn(R["ctx2"], da2_c)
-        dW["bco"] = da2.sum(0)
         dctx2 = _mm_nt(da2_c, W["wco"]).to(cdtype)
         dqc, dkv = attention_backward_reference(
             R["qc"].view(b, s, H), R["kvc"].view(b, sk, 2 * H), cmask, dctx2.view(b, s, H), nh,
             False, seed, cross_op(nh), geom.attn_rate)
         dqc, dkv = dqc.reshape(M, H), dkv.reshape(b * sk, 2 * H)
         dW["wq"] = _mm_tn(R["x1"], dqc)
-        dW["bq"] = dqc.float().sum(0)
+        dW["bq"] = column_sums_reference(dqc)
         dW["wkv"] = _mm_tn(enc.reshape(b * sk, H), dkv)
-        dW["bkv"] = dkv.float().sum(0)
+        dW["bkv"] = column_sums_reference(dkv)
         denc = _mm_nt(dkv, W["wkv"]).reshape(b, sk, H).to(enc_dtype or cdtype)
         dx1 = dr2 + _mm_nt(dqc, W["wq"])
     else:
         dx1 = dxm
 
-    dr1, da1 = ln_block(dx1, R["x1"], inv1, "g1", "be1", OP_ATTN_OUT)
+    dr1, da1 = ln_block(dx1, R["x1"], inv1, "g1", "be1", "bo", OP_ATTN_OUT)
     da1_c = da1.to(cdtype)
     dW["wo"] = _mm_tn(R["ctx"], da1_c)
-    dW["bo"] = da1.sum(0)
     dctx = _mm_nt(da1_c, W["wo"]).to(cdtype)
     dqkv = attention_backward_reference(R["qkv"].view(b, s, 3 * H), None, smask,
                                         dctx.view(b, s, H), nh, geom.causal, seed, 0,
                                         geom.attn_rate).reshape(M, 3 * H)
     dW["wqkv"] = _mm_tn(x2d, dqkv)
-    dW["bqkv"] = dqkv.float().sum(0)
+    dW["bqkv"] = column_sums_reference(dqkv)
     dx = (dr1 + _mm_nt(dqkv, W["wqkv"])).reshape(b, s, H).to(cdtype)
     return dx, denc, tuple(dW[n].to(W[n].dtype) for n in _names(geom))
 
@@ -433,16 +457,23 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
     b, s, H = x.shape
     if H != geom.hidden:
         raise ValueError(f"x width {H} != num_heads * head_dim = {geom.hidden}")
-    if geom.head_dim > MAX_HEAD_DIM or H % 8 or geom.intermediate % 8:
-        raise ValueError("the layer kernels need head_dim <= 128 and widths divisible by 8")
+    if geom.head_dim > MAX_HEAD_DIM or H % 8 or geom.intermediate % 8 or H > MAX_LN_WIDTH:
+        raise ValueError(f"the layer kernels need head_dim <= {MAX_HEAD_DIM}, a width of at most "
+                         f"{MAX_LN_WIDTH} and widths divisible by 8")
     _build.check_tensor("x", x, (b, s, H), torch.bfloat16, dev)
     names = _names(geom)
     if len(weights) != len(names):
         raise ValueError(f"expected {len(names)} weights ({names}), got {len(weights)}")
     W = dict(zip(names, weights))
     for n, shape in geom.weight_shapes().items():
-        # matmul kernels in bf16; biases and LayerNorm parameters stay f32
-        _build.check_tensor(n, W[n], shape, torch.bfloat16 if n.startswith("w") else torch.float32, dev)
+        # matmul kernels in bf16; biases and LayerNorm parameters stay f32, the
+        # LayerNorm's on 16 bytes (the LayerNorm kernels load them so)
+        if n.startswith("w"):
+            _build.check_tensor(n, W[n], shape, torch.bfloat16, dev)
+        elif n.startswith(("g", "be")):
+            _check_f32(n, W[n], shape, dev)
+        else:
+            _build.check_tensor(n, W[n], shape, torch.float32, dev)
     sk = s
     if geom.has_cross:
         if enc is None:
@@ -511,6 +542,7 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
     gemm.forward_launches += layer_gemms(geom)[0]
     attention_forward.launches += 1 + int(geom.has_cross)
     attention_forward.cross_launches += int(geom.has_cross)
+    residual_layernorm.launches += 2 + int(geom.has_cross)
     fused_bert_layer.launches += 1
     fused_bert_layer.residual_launches += int(save)
     if not save:
@@ -633,55 +665,141 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
 attention_backward.launches = 0
 attention_backward.cross_launches = 0  # the cross-attention share of ``launches``
 
-# csrc/layer_bwd.cu entry points, with their ctypes signatures
-_SIGS = {
-    "kvq_ln_bwd": [_VP, _I, _VP, _VP, _VP, _VP, _U, _U, _F, _U, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    "kvq_colsum": [_VP, _I, _I, _I, _I, _VP, _VP, _VP],
-}
-LN_BWD_ROWS = 32    # rows per block of csrc/layer_bwd.cu's LayerNorm backward (LNB_ROWS)
-COLSUM_ROWS = 256   # rows per block of its column sums (CS_ROWS)
+# csrc/layernorm.cu: rows per block of the LayerNorm backward's partials
+# (LNB_ROWS) and of the column sums' (CS_ROWS)
+LN_BWD_ROWS = 64
+COLSUM_ROWS = 256
+_RES_LN_ARGS = [_VP] * 6 + [_I, _I, _F, _U, _U, _F, _U]
+_LN_BWD_ARGS = [_VP, _I] + [_VP] * 4 + [_U, _U, _F, _U] + [_VP] * 4 + [_I, _I]
+_COLSUM_ARGS = [_VP, _I, _I, _VP, _VP]
 
 
-def _fn(name):
-    fn = getattr(_build.lib(), name)
-    fn.argtypes = _SIGS[name]
-    fn.restype = ctypes.c_int
-    return fn
+def _check_f32(name, t, shape, dev) -> None:
+    _build.check_tensor(name, t, shape, torch.float32, dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (16-byte loads)")
 
 
-class _Bwd:
-    """Launches of ``csrc/layer_bwd.cu`` on one device and stream; the
-    products go through :func:`~kindergarten_vq_vae_torch.ops.gemm.gemm`."""
+def _check_ln_width(N: int, what: str) -> None:
+    if N % 8 or not 0 < N <= MAX_LN_WIDTH:
+        raise ValueError(f"{what} takes rows of a multiple of 8 columns, at most {MAX_LN_WIDTH}; "
+                         f"got {N}")
 
-    def __init__(self, dev):
-        self.dev, self.st = dev, _stream(dev)
 
-    def ln(self, g_up, v, inv, gamma, beta, seed, op, rate, want_dr: bool):
-        """LayerNorm backward: (dr f32 or None, da in bf16, dgamma, dbeta, dbias)."""
-        M, N = v.shape
-        dr = torch.empty((M, N), dtype=torch.float32, device=self.dev) if want_dr else None
-        da = torch.empty((M, N), dtype=torch.bfloat16, device=self.dev)
-        nparts = -(-M // LN_BWD_ROWS)
-        parts = torch.empty((nparts, 3, N), dtype=torch.float32, device=self.dev)
-        sums = torch.empty((3, N), dtype=torch.float32, device=self.dev)
-        code = _fn("kvq_ln_bwd")(g_up.data_ptr(), int(g_up.dtype == torch.float32), v.data_ptr(),
-                                 inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                                 seed_u32(seed), keep_threshold(rate), keep_scale(rate), op,
-                                 _ptr(dr), da.data_ptr(), parts.data_ptr(), sums.data_ptr(),
-                                 M, N, self.st)
-        _build.check(code, "kvq_ln_bwd")
-        return dr, da, sums[0], sums[1], sums[2]
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
 
-    def colsum(self, src):
-        """f32 column sums of a (rows, N) bf16 or f32 matrix."""
-        M, N = src.shape
-        nparts = -(-M // COLSUM_ROWS)
-        parts = torch.empty((nparts, N), dtype=torch.float32, device=self.dev)
-        out = torch.empty((N,), dtype=torch.float32, device=self.dev)
-        code = _fn("kvq_colsum")(src.data_ptr(), int(src.dtype == torch.float32), N, M, N,
-                                 parts.data_ptr(), out.data_ptr(), self.st)
-        _build.check(code, "kvq_colsum")
-        return out
+
+def residual_layernorm(x, a, gamma, beta, eps: float, seed=0, op=OP_ATTN_OUT, rate=0.0):
+    """Residual + post-LN of the fused layer forward (``_ln_fwd`` l.164
+    inside ``_layer_fwd_kernel`` l.489): ``(out, inv)`` with the contract of
+    :func:`residual_layernorm_reference`, the keep mask that of the hidden
+    site ``op`` over rows 0..M-1 (``rate`` 0: none). A CPU tensor takes the
+    plain version; a CUDA tensor launches ``kvq_residual_layernorm`` of
+    ``csrc/layernorm.cu`` (x bf16 (M, N), a f32, N a multiple of 8 up to
+    :data:`MAX_LN_WIDTH`) or raises. ``residual_layernorm.launches`` counts
+    these launches and those inside the layer forward's C sequence (2 a
+    layer forward, 3 with cross-attention)."""
+    _check_rate(rate)
+    if x.device.type == "cpu":
+        keep = hidden_keep(seed, op, x.shape[0], x.shape[1], rate) if rate > 0.0 else None
+        return residual_layernorm_reference(x, a, gamma, beta, eps, keep)
+    if x.device.type != "cuda":
+        raise ValueError(f"residual_layernorm runs on CPU or CUDA tensors, got {x.device}")
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, N), got {tuple(x.shape)}")
+    M, N = x.shape
+    _check_ln_width(N, "residual_layernorm")
+    _build.check_tensor("x", x, (M, N), torch.bfloat16, dev)
+    _check_f32("a", a, (M, N), dev)
+    _check_f32("gamma", gamma, (N,), dev)
+    _check_f32("beta", beta, (N,), dev)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    inv = torch.empty((M,), dtype=torch.float32, device=dev)
+    _build.launch("kvq_residual_layernorm", _RES_LN_ARGS, x.data_ptr(), a.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), inv.data_ptr(), M, N, eps,
+                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, device=dev)
+    residual_layernorm.launches += 1
+    return out, inv
+
+
+residual_layernorm.launches = 0
+
+
+def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0):
+    """LayerNorm backward of the fused layer (``_ln_recover_yhat`` l.542 and
+    ``_ln_bwd`` l.175 inside ``_layer_bwd_kernel`` l.552) with its column
+    sums: ``(dr, da, dgamma, dbeta, dbias)`` with the contract of
+    :func:`layernorm_backward_reference`, dr f32, da in v's dtype, the sums
+    f32; the keep mask that of the hidden site ``op`` over rows 0..M-1. A
+    CPU tensor takes the plain version; a CUDA
+    tensor launches ``kvq_ln_bwd`` of ``csrc/layernorm.cu`` (v bf16 (M, N),
+    gy bf16 or f32, N a multiple of 8 up to :data:`MAX_LN_WIDTH`) or raises,
+    adding one to ``layernorm_backward.launches``. The sums are the same
+    bits in every run."""
+    _check_rate(rate)
+    if v.device.type == "cpu":
+        keep = hidden_keep(seed, op, v.shape[0], v.shape[1], rate) if rate > 0.0 else None
+        dr, da, *sums = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
+        return (dr, da.to(v.dtype), *sums)
+    if v.device.type != "cuda":
+        raise ValueError(f"layernorm_backward runs on CPU or CUDA tensors, got {v.device}")
+    dev = v.device
+    if v.dim() != 2:
+        raise ValueError(f"v must be (M, N), got {tuple(v.shape)}")
+    M, N = v.shape
+    _check_ln_width(N, "layernorm_backward")
+    _build.check_tensor("v", v, (M, N), torch.bfloat16, dev)
+    if gy.dtype == torch.float32:
+        _check_f32("gy", gy, (M, N), dev)
+    else:
+        _build.check_tensor("gy", gy, (M, N), torch.bfloat16, dev)
+    _build.check_tensor("inv", inv, (M,), torch.float32, dev)
+    _build.check_tensor("gamma", gamma, (N,), torch.float32, dev)
+    _build.check_tensor("beta", beta, (N,), torch.float32, dev)
+    dr = torch.empty((M, N), dtype=torch.float32, device=dev)
+    da = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    parts = torch.empty((-(-M // LN_BWD_ROWS), 3, N), dtype=torch.float32, device=dev)
+    sums = torch.empty((3, N), dtype=torch.float32, device=dev)
+    _build.launch("kvq_ln_bwd", _LN_BWD_ARGS, gy.data_ptr(), int(gy.dtype == torch.float32),
+                  v.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, dr.data_ptr(),
+                  da.data_ptr(), parts.data_ptr(), sums.data_ptr(), M, N, device=dev)
+    layernorm_backward.launches += 1
+    return dr, da, sums[0], sums[1], sums[2]
+
+
+layernorm_backward.launches = 0
+
+
+def column_sums(src):
+    """f32 column sums of a (rows, N) matrix, a bias gradient of the fused
+    layer backward (``_layer_bwd_kernel`` l.552), with the contract of
+    :func:`column_sums_reference`. A CPU tensor takes the plain version; a
+    CUDA tensor launches ``kvq_colsum`` of ``csrc/layernorm.cu`` (bf16, N a
+    multiple of 8) or raises, adding one to ``column_sums.launches``. The
+    sums are the same bits in every run."""
+    if src.device.type == "cpu":
+        return column_sums_reference(src)
+    if src.device.type != "cuda":
+        raise ValueError(f"column_sums runs on CPU or CUDA tensors, got {src.device}")
+    dev = src.device
+    if src.dim() != 2 or src.shape[0] == 0 or src.shape[1] % 8 or src.shape[1] == 0:
+        raise ValueError(f"column_sums takes (rows, N) with rows >= 1 and N a multiple of 8, got "
+                         f"{tuple(src.shape)}")
+    M, N = src.shape
+    _build.check_tensor("src", src, (M, N), torch.bfloat16, dev)
+    parts = torch.empty((-(-M // COLSUM_ROWS), N), dtype=torch.float32, device=dev)
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    _build.launch("kvq_colsum", _COLSUM_ARGS, src.data_ptr(), M, N, parts.data_ptr(),
+                  out.data_ptr(), device=dev)
+    column_sums.launches += 1
+    return out
+
+
+column_sums.launches = 0
 
 
 def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, out, gy,
@@ -699,17 +817,13 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
         raise TypeError(f"the layer's output gradient must be bf16 {tuple(x.shape)}")
     dW = {}
     with torch.cuda.device(dev):
-        k = _Bwd(dev)
         # MLP block
-        dr3, dy_c, dW["g3"], dW["be3"], dW["b2"] = k.ln(gy.view(M, H), out.view(M, H), inv3,
-                                                        W["g3"], W["be3"], seed, OP_MLP_OUT, hr,
-                                                        True)
+        dr3, dy_c, dW["g3"], dW["be3"], dW["b2"] = layernorm_backward(
+            gy.view(M, H), out.view(M, H), inv3, W["g3"], W["be3"], seed, OP_MLP_OUT, hr)
         dW["w2"] = gemm(R["m"], dy_c, a_t=True, epi="bf16")
-        du_c, du = gemm(dy_c, W["w2"], b_t=True,
-                         epi="dgelu_erf" if geom.gelu_exact else "dgelu_tanh", aux=R["u"],
-                         out2=True)
-        dW["b1"] = k.colsum(du)
-        del du
+        du_c, dW["b1"] = gemm(dy_c, W["w2"], b_t=True,
+                              epi="dgelu_erf" if geom.gelu_exact else "dgelu_tanh", aux=R["u"],
+                              colsum=True)
         xm = R["x2"] if geom.has_cross else R["x1"]
         dW["w1"] = gemm(xm, du_c, a_t=True, epi="bf16")
         dxm = gemm(du_c, W["w1"], b_t=True, epi="add_f32", aux=dr3)
@@ -717,9 +831,8 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
         denc = None
         if geom.has_cross:
             sk = enc.shape[1]
-            dr2, da2_c, dW["g2"], dW["be2"], dW["bco"] = k.ln(dxm, R["x2"], inv2, W["g2"],
-                                                              W["be2"], seed, OP_CROSS_OUT, hr,
-                                                              True)
+            dr2, da2_c, dW["g2"], dW["be2"], dW["bco"] = layernorm_backward(
+                dxm, R["x2"], inv2, W["g2"], W["be2"], seed, OP_CROSS_OUT, hr)
             dW["wco"] = gemm(R["ctx2"], da2_c, a_t=True, epi="bf16")
             dctx2 = gemm(da2_c, W["wco"], b_t=True, epi="bf16")
             dqc, dkv = attention_backward(R["qc"].view(b, s, H), R["kvc"].view(b, sk, 2 * H),
@@ -727,9 +840,9 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
                                           cross_op(nh), geom.attn_rate)
             dqc, dkv = dqc.view(M, H), dkv.view(b * sk, 2 * H)
             dW["wq"] = gemm(R["x1"], dqc, a_t=True, epi="bf16")
-            dW["bq"] = k.colsum(dqc)
+            dW["bq"] = column_sums(dqc)
             dW["wkv"] = gemm(enc.view(b * sk, H), dkv, a_t=True, epi="bf16")
-            dW["bkv"] = k.colsum(dkv)
+            dW["bkv"] = column_sums(dkv)
             denc = gemm(dkv, W["wkv"], b_t=True,
                         epi="f32" if enc_dtype == torch.float32 else "bf16").view(b, sk, H)
             dx1 = gemm(dqc, W["wq"], b_t=True, epi="add_f32", aux=dr2)
@@ -737,14 +850,14 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
         else:
             dx1 = dxm
         # self-attention block
-        dr1, da1_c, dW["g1"], dW["be1"], dW["bo"] = k.ln(dx1, R["x1"], inv1, W["g1"], W["be1"],
-                                                         seed, OP_ATTN_OUT, hr, True)
+        dr1, da1_c, dW["g1"], dW["be1"], dW["bo"] = layernorm_backward(
+            dx1, R["x1"], inv1, W["g1"], W["be1"], seed, OP_ATTN_OUT, hr)
         dW["wo"] = gemm(R["ctx"], da1_c, a_t=True, epi="bf16")
         dctx = gemm(da1_c, W["wo"], b_t=True, epi="bf16")
         dqkv = attention_backward(R["qkv"].view(b, s, 3 * H), None, smask, dctx.view(b, s, H),
                                   nh, geom.causal, seed, 0, geom.attn_rate).view(M, 3 * H)
         dW["wqkv"] = gemm(x.view(M, H), dqkv, a_t=True, epi="bf16")
-        dW["bqkv"] = k.colsum(dqkv)
+        dW["bqkv"] = column_sums(dqkv)
         dx = gemm(dqkv, W["wqkv"], b_t=True, epi="add_bf16", aux=dr1).view(b, s, H)
     layer_backward.launches += 1
     return dx, denc, tuple(dW[n] for n in _names(geom))

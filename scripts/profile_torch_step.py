@@ -54,10 +54,11 @@ FAMILIES = (
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
     ("attention_kernel", "attention forward (in #1, or #11 / #13)"),
-    ("residual_layernorm", "residual + LayerNorm forward"),
+    # csrc/layernorm.cu; its colparts_reduce_kernel goes to the family of the
+    # kernel before it (REDUCE_AFTER)
+    ("residual_layernorm_kernel", "residual + LayerNorm forward"),
     ("ln_bwd_kernel", "LayerNorm backward"),
-    ("parts_reduce", "column sums (LN / bias gradients)"),
-    ("colsum_kernel", "column sums (LN / bias gradients)"),
+    ("colsum_kernel", "column sums (bias gradients)"),
     ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
     ("vq_", "VQ forward"),
@@ -80,6 +81,20 @@ HEAD_BWD_NEXT = (
     ("sm90::gemm_kernel<", "fused head + CE backward (#10: dx = g @ E, NN GEMM)"),
     ("sm90::gemm_kernel<", "fused head table gradient (TN split-K partials)"),
     ("splitk_reduce", "fused head table gradient (split-K sum)"),
+)
+
+
+# the fixed-order sum of per-block column partials (csrc/layernorm.cu), by
+# the kernel that wrote the partials, first match wins: the LayerNorm
+# backward's dgamma / dbeta / dbias, the bias column sums, and b1 from the
+# GELU-gradient GEMM's epilogue (EPI_DGELU_ERF 6 / EPI_DGELU_TANH 7), which
+# the split-K sums (splitk_reduce) are not
+REDUCE = "colparts_reduce"
+REDUCE_AFTER = (
+    ("ln_bwd_kernel", "LayerNorm backward"),
+    ("colsum_kernel", "column sums (bias gradients)"),
+    ("gemm_kernel<128, false, false, 6>", "column sums (b1: the GELU-gradient GEMM's partials)"),
+    ("gemm_kernel<128, false, false, 7>", "column sums (b1: the GELU-gradient GEMM's partials)"),
 )
 
 
@@ -156,8 +171,12 @@ def main() -> None:
                       if str(getattr(evt, "device_type", None)).endswith("CUDA")
                       and evt.device_time_total > 0), key=lambda evt: evt.time_range.start)
     after_head = []  # the families still expected after #10's first kernel
+    prev = ""  # the kernel before this one on the stream
     for evt in kernels:
-        if after_head and after_head[0][0] in evt.name:
+        if REDUCE in evt.name:
+            fam = next((f for frag, f in REDUCE_AFTER if frag in prev),
+                       "column sums (partials of an unknown kernel)")
+        elif after_head and after_head[0][0] in evt.name:
             fam = after_head.pop(0)[1]
         else:
             if after_head:
@@ -167,6 +186,7 @@ def main() -> None:
             fam = family(evt.name)
             if any(frag in evt.name for frag in HEAD_BWD_FIRST):
                 after_head = list(HEAD_BWD_NEXT)
+        prev = evt.name
         by_family[fam] += evt.device_time_total / 1e3 / args.steps
         launches[fam] += 1
         if fam == OTHER:

@@ -44,6 +44,18 @@ sums of up to 3,072 products in another order, and tanhf ulps in the GELU
 epilogues); a bf16 output within half a bf16 ulp of the plain version's f32
 value before its rounding, plus the same 1e-4; the weight gradients' split-K
 sums equal bit for bit from run to run.
+LayerNorm and column sums (csrc/layernorm.cu) at rows 1, 31, 33, 97 (a
+warp's, a backward block's 64 and a GEMM tile's 128 rows crossed) and at the
+step's 24,576, widths 64, 768 and the widest, 1,024: the residual +
+LayerNorm's output and the LayerNorm backward's da, bf16, at the GEMM's bar
+around the plain f32 value (a mean and variance summed in another order
+move the f32 value by ~1e-7 and flip an occasional rounding); the rsqrt and
+the backward's dr within 1e-5 of their largest magnitude (the same
+division, the row means summed in another order); every column sum
+(dgamma, dbeta, dbias, the bias sums of bf16 matrices up to 3,072 wide, and
+b1 from the GELU-gradient GEMM's epilogue) within 1e-4 of its largest
+magnitude (f32 sums over up to 24,576 rows in another order; for b1 also
+the GEMM's own 1e-4), and the same bits from run to run.
 """
 
 import pytest
@@ -59,7 +71,13 @@ from kindergarten_vq_vae_torch.ops.ce import (
     ce_fwd_ids_reference,
     ce_fwd_reference,
 )
-from kindergarten_vq_vae_torch.ops.dropout import attention_keep, cross_op
+from kindergarten_vq_vae_torch.ops.dropout import (
+    OP_CROSS_OUT,
+    OP_MLP_OUT,
+    attention_keep,
+    cross_op,
+    hidden_keep,
+)
 from kindergarten_vq_vae_torch.ops.gemm import gelu, gelu_grad, gemm, gemm_plan, gemm_reference
 from kindergarten_vq_vae_torch.ops.head_ce import (
     head_ce_bwd,
@@ -79,11 +97,17 @@ from kindergarten_vq_vae_torch.ops.layer import (
     attention_forward,
     attention_forward_reference,
     bert_layer_reference,
+    column_sums,
+    column_sums_reference,
     fused_bert_layer,
     layer_backward,
     layer_backward_reference,
     layer_forward,
     layer_forward_reference,
+    layernorm_backward,
+    layernorm_backward_reference,
+    residual_layernorm,
+    residual_layernorm_reference,
     residual_names,
 )
 from kindergarten_vq_vae_torch.ops.sdpa import (
@@ -722,9 +746,146 @@ def test_gemm_kernel_rejects_what_it_does_not_take(gen):
         gemm(a.float(), b, b_t=True)
     with pytest.raises(ValueError, match="out2"):
         gemm(a, b, b_t=True, epi="bf16", out2=True)
+    with pytest.raises(ValueError, match="colsum"):
+        gemm(a, b, b_t=True, epi="add_f32", aux=kw["aux"], colsum=True)
     shifted = torch.empty(a.numel() + 8, dtype=a.dtype, device=a.device)[8:].view(a.shape)
     shifted.copy_(a)
     gemm(shifted, b, b_t=True)  # 16 bytes in: taken
     odd = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)[4:].view(a.shape)
     with pytest.raises(ValueError, match="16-byte"):
         gemm(odd, b, b_t=True)
+
+
+# ------------------------------------------------ LayerNorm and column sums
+_LN_ROWS = (1, 31, 33, 97, 24576)
+
+
+def _ln_params(gen, N):
+    gamma = 1.0 + 0.1 * torch.randn(N, device="cuda", generator=gen)
+    gamma[3] = 0.0
+    return gamma, 0.1 * torch.randn(N, device="cuda", generator=gen)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("N", [64, 768, 1024])
+@pytest.mark.parametrize("rows", _LN_ROWS)
+def test_residual_layernorm_kernel_matches_plain(gen, rows, N, rate):
+    x = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+    a = 0.5 * torch.randn(rows, N, device="cuda", generator=gen) + 0.2
+    gamma, beta = _ln_params(gen, N)
+    before = residual_layernorm.launches
+    out, inv = residual_layernorm(x, a, gamma, beta, 1e-12, -77, OP_CROSS_OUT, rate)
+    torch.cuda.synchronize()
+    assert residual_layernorm.launches == before + 1
+    keep = hidden_keep(-77, OP_CROSS_OUT, rows, N, rate, "cuda") if rate else None
+    r = x.float() + (a if keep is None else a * keep)
+    mu = r.mean(-1, keepdim=True)
+    want_inv = torch.rsqrt(torch.clamp((r * r).mean(-1, keepdim=True) - mu * mu, min=0.0) + 1e-12)
+    _gemm_held(out, (r - mu) * want_inv * gamma + beta, "out")
+    assert _rel_max(inv, want_inv[:, 0]) <= 1e-5
+    ref_out, ref_inv = residual_layernorm_reference(x, a, gamma, beta, 1e-12, keep)
+    assert ref_out.dtype == torch.bfloat16 and torch.equal(ref_inv, want_inv[:, 0])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("gy_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [64, 768, 1024])
+@pytest.mark.parametrize("rows", _LN_ROWS)
+def test_layernorm_backward_kernel_matches_plain(gen, rows, N, gy_dtype, rate):
+    gamma, beta = _ln_params(gen, N)
+    v = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+    inv = 0.5 + 1.5 * torch.rand(rows, device="cuda", generator=gen)
+    gy = torch.randn(rows, N, device="cuda", generator=gen).to(gy_dtype)
+    before = layernorm_backward.launches
+    got = layernorm_backward(gy, v, inv, gamma, beta, 5, OP_MLP_OUT, rate)
+    torch.cuda.synchronize()
+    assert layernorm_backward.launches == before + 1
+    keep = hidden_keep(5, OP_MLP_OUT, rows, N, rate, "cuda") if rate else None
+    want = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
+    assert got[0].dtype == torch.float32 and _rel_max(got[0], want[0]) <= 1e-5
+    _gemm_held(got[1], want[1], "da")
+    for name, g, w in zip(("dgamma", "dbeta", "dbias"), got[2:], want[2:]):
+        assert g.shape == (N,) and _rel_max(g, w) <= 1e-4, name
+    assert got[2][3].item() == 0.0
+    again = layernorm_backward(gy, v, inv, gamma, beta, 5, OP_MLP_OUT, rate)
+    for one, two in zip(got, again):
+        assert torch.equal(one, two)  # the same bits in every run
+
+
+@pytest.mark.parametrize("N", [768, 1536, 2304, 3072])
+@pytest.mark.parametrize("rows", (1, 31, 33, 97, 255, 257, 24576))
+def test_column_sums_kernel_matches_plain(gen, rows, N):
+    src = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+    before = column_sums.launches
+    got = column_sums(src)
+    torch.cuda.synchronize()
+    assert column_sums.launches == before + 1
+    assert got.dtype == torch.float32 and _rel_max(got, column_sums_reference(src)) <= 1e-4
+    assert torch.equal(got, column_sums(src))
+
+
+@pytest.mark.parametrize("N,K", [(768, 192), (3072, 768)])
+@pytest.mark.parametrize("M", (1, 31, 33, 97, 129, 24576))
+@pytest.mark.parametrize("epi", ["dgelu_erf", "dgelu_tanh"])
+def test_gemm_gelu_gradient_column_sums(gen, epi, M, N, K):
+    """b1 from the GELU-gradient GEMM's epilogue partials, against the plain
+    f32 du's column sums and against the sums of the kernel's own f32 du."""
+    dy, w2, kw = _gemm_case(gen, "nt", epi, M, N, K)
+    du, du_f32, b1 = gemm(dy, w2, **kw, out2=True, colsum=True)
+    torch.cuda.synchronize()
+    want = _gemm_f32(dy, w2, kw)[0]
+    _gemm_held(du, want, f"{epi} du")
+    assert b1.dtype == torch.float32 and b1.shape == (N,)
+    assert _rel_max(b1, want.sum(0)) <= 1e-4
+    assert _rel_max(b1, du_f32.sum(0)) <= 1e-5
+    du2, b1_again = gemm(dy, w2, **kw, colsum=True)
+    assert torch.equal(du2, du) and torch.equal(b1_again, b1)  # the same bits in every run
+
+
+def test_layernorm_kernels_reject_what_they_do_not_take(gen):
+    x = torch.randn(33, 64, device="cuda", generator=gen).bfloat16()
+    a = torch.randn(33, 64, device="cuda", generator=gen)
+    g, b = _ln_params(gen, 64)
+    inv = torch.ones(33, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        residual_layernorm(x.float(), a, g, b, 1e-12)
+    with pytest.raises(ValueError, match="shape"):
+        residual_layernorm(x, a[:32], g, b, 1e-12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        residual_layernorm(x[:, :60].contiguous(), a[:, :60].contiguous(), g[:60], b[:60], 1e-12)
+    with pytest.raises(ValueError, match="16-byte"):
+        odd = torch.empty(a.numel() + 1, device="cuda")[1:].view(a.shape)
+        residual_layernorm(x, odd, g, b, 1e-12)
+    with pytest.raises(TypeError, match="bfloat16"):
+        layernorm_backward(x, x.float(), inv, g, b)
+    with pytest.raises(ValueError, match="shape"):
+        layernorm_backward(x, x, inv[:32], g, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm_backward(x[:, :60].contiguous(), x[:, :60].contiguous(), inv, g[:60], b[:60])
+    with pytest.raises(ValueError, match="at most"):
+        wide = torch.zeros(2, 1032, device="cuda").bfloat16()
+        layernorm_backward(wide, wide, inv[:2], torch.ones(1032, device="cuda"),
+                           torch.zeros(1032, device="cuda"))
+    with pytest.raises(TypeError, match="bfloat16"):
+        column_sums(a)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        column_sums(x[:, :60].contiguous())
+
+
+@pytest.mark.parametrize("decoder", [False, True])
+def test_layer_training_step_counts_its_layernorm_kernels(gen, decoder):
+    """A layer's forward and backward under autograd launch the residual +
+    LayerNorm 2 / 3 times (encoder / decoder), the LayerNorm backward as
+    often, and the column sums for bqkv (and bq, bkv); b1 comes from the GELU
+    gradient's GEMM, one of its 8 / 14 backward products."""
+    geom, x, enc, smask, cmask, ws = _case(gen, decoder, 5, 12, 9, 128, 2, 256, decoder)
+    ws = [w.requires_grad_() for w in ws]
+    counters = (residual_layernorm, layernorm_backward, column_sums, gemm)
+    before = [f.launches for f in counters]
+    out = fused_bert_layer(geom, x, enc, smask, cmask, ws)
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    n = 3 if decoder else 2
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        n, n, 3 if decoder else 1, 21 if decoder else 12]
+    assert all(torch.isfinite(w.grad).all() for w in ws)
