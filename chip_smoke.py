@@ -30,14 +30,21 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    bert-base forward (256 sentences x 12 tokens), with padded masks, and each
    one's time beside the plain one's, its bound and, for the layer, the time
    of ``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` on the
-   same weights;
+   same weights; the VQ kernel (#5) timed alone (its raw launch in a CUDA
+   graph, beside the plain raw forward and straight-through expression) and
+   through its wrapper (``assemble`` included, beside ``vector_quantize``),
+   each with its share of the byte bound, and its sums the same bits in two
+   launches;
 4. kernels vs plain, training: the layer forward in training mode (dropout
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
    (self and cross) and the three CE kernels (#6, #7, #8) at the shapes of
    the batch-2048 bert-base training step, with ``nn.TransformerEncoderLayer``
    / ``DecoderLayer`` in train mode (dropout 0), the autograd backward of
    ``F.scaled_dot_product_attention`` and, for #8, that of
-   ``F.cross_entropy(reduction="none")`` as yardsticks, and layers whose weights make
+   ``F.cross_entropy(reduction="none")`` as yardsticks (for #7 the two calls
+   ``F.cross_entropy(reduction='none')`` + ``torch.argmax(x, 1)``, printed
+   only), the VQ kernel timed as in phase 3 at the step's 24,576 rows, and
+   layers whose weights make
    every keep mask visible (self and cross heads, the three hidden sites,
    forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
    forward, #8 backward) driven once through its autograd;
@@ -226,6 +233,26 @@ def _paired_ms(kernel_fn, plain_fn, iters: int = 50) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph and
+    the graph replayed between CUDA events, so no host time falls between
+    the kernels (where a call's host work outlasts its kernels, events around
+    many calls time the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay, reps) / calls
+
+
 def _rel_max(got, want) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
@@ -359,9 +386,14 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s ({_build.LIB_PATH})")
+    entry = spill = ""  # ptxas -v: each kernel's name, spills, then registers
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"  {entry[-72:]}: {line.split(':', 1)[-1].strip()}; {spill}")
 
 
 def _layer_case(decoder: bool, g, batch: int = BUCKET, rate: float = 0.0):
@@ -734,17 +766,46 @@ def phase_kernels() -> dict:
         if not torch.equal(vector_quantize_kernel(z_far, centers.float(), 0.69).indices.reshape(-1),
                            assign):
             _fail("VQ kernel misses the true assignments far from the origin")
-        k_ms, p_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
-                                lambda: vector_quantize(z, e, 0.69))
-        bound = _vq_bound(z, e, vector_quantize_kernel(z, e, 0.69))
-        print(f"vq: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
-        res["vq"] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound": [bound]}
+        res["vq"] = {"max_abs_err": max_err, **_vq_times(z, e, "serving")}
     layer = res["layer"]
     res["layer"] = {"max_abs_err": layer["max_abs_err"], "ms": statistics.mean(layer["ms"]),
                     "plain_ms": statistics.mean(layer["plain_ms"]), "bound": layer["bound"],
                     "library_ms": statistics.mean(layer["library_ms"])}
     return res
+
+
+def _vq_times(z, e, what: str) -> dict:
+    """#5 at ``z``'s rows: the raw launch alone (the kernel's z_q is the
+    straight-through value), its device time from a CUDA graph, in turns with
+    the plain raw forward and the same expression; then the wrapper
+    (``assemble`` included) in turns with the plain version, CUDA events
+    around many calls (what a caller waits, host included); each beside the
+    byte bound and its share of it; sum_z and diff the same bits in two
+    launches."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.vq import _core, vector_quantize, vq_raw
+    from kindergarten_vq_vae_torch.ops.vq_kernel import _launch, vector_quantize_kernel
+
+    z_flat = z.reshape(-1, z.shape[-1])
+    a, b = _launch(z_flat, e), _launch(z_flat, e)
+    if not (torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])):
+        _fail(f"VQ kernel: sum_z or diff differ between two launches ({what})")
+    p1 = _time_ms(lambda: _core(z_flat, e, vq_raw), 20)
+    k1 = _graph_ms(lambda: _launch(z_flat, e))
+    k2 = _graph_ms(lambda: _launch(z_flat, e))
+    p2 = _time_ms(lambda: _core(z_flat, e, vq_raw), 20)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    w_ms, pw_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
+                             lambda: vector_quantize(z, e, 0.69))
+    bound = _vq_bound(z, e, vector_quantize_kernel(z, e, 0.69))
+    print(f"vq {what} ({z_flat.shape[0]},{z_flat.shape[1]})x{e.shape[0]}: kernel alone "
+          f"{k_ms:.4f} ms (CUDA graph; {bound[0] / k_ms:.0%} of the {bound[1]} bound "
+          f"{bound[0]:.4f} ms), plain raw + straight-through {p_ms:.4f} ms; wrapper with "
+          f"assemble {w_ms:.4f} ms a call ({bound[0] / w_ms:.0%} of the bound), plain "
+          f"vector_quantize {pw_ms:.4f} ms a call")
+    return {"ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms, "plain_wrapper_ms": pw_ms,
+            "bound": [bound]}
 
 
 def _vq_bound(z, e, out) -> tuple[float, str]:
@@ -1479,14 +1540,10 @@ def phase_train_kernels() -> dict:
               f"(tol {VQ_REL})")
         if not exact or rel > VQ_REL:
             _fail("VQ kernel disagrees with its plain version at the training rows")
-        k_ms, p_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
-                                lambda: vector_quantize(z, e, 0.69), 10)
-        bound = _vq_bound(z, e, k)
+        times = _vq_times(z, e, "training")
         res["vq"] = {"max_abs_err": max((getattr(k, f) - getattr(p, f)).abs().max().item()
                                         for f in ("z_q", "sum_z", "loss", "perplexity")),
-                     "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound]}
-        print(f"vq at the training rows: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]})")
+                     **{key: [v] if key != "bound" else v for key, v in times.items()}}
     del z, k, p
 
     # streaming CE at the step's logits shape, with ties inside and across blocks
@@ -1509,10 +1566,13 @@ def phase_train_kernels() -> dict:
                                 lambda: ce_fwd_ids_reference(logits, t), 10)
         # max, subtract, exp, add per logit
         bound = _bound(4 * rows * VOCAB, _nbytes(logits, t, nll, ids), PEAK_F32)
+        two_ms = _time_ms(lambda: (F.cross_entropy(logits, t.long(), reduction="none"),
+                                   torch.argmax(logits, 1)), 10)
         res["ce_fwd_ids"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms],
-                             "bound": [bound]}
-        print(f"ce fwd ids: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
+                             "bound": [bound], "two_call_ms": two_ms}
+        print(f"ce fwd ids: kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the {bound[1]} bound "
+              f"{bound[0]:.4f} ms), plain {p_ms:.4f} ms; two-call yardstick "
+              f"F.cross_entropy(reduction='none') + torch.argmax(x, 1) {two_ms:.4f} ms")
 
         # #6: the NLL alone; one PyTorch call computes the same function
         nll6 = ce_fwd(logits, t)
@@ -1531,8 +1591,9 @@ def phase_train_kernels() -> dict:
         res["ce_fwd"] = {"max_abs_err": err6, "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound],
                          "library_ms": lib_ms,
                          "library": "F.cross_entropy(reduction='none')"}
-        print(f"ce fwd (#6): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}), F.cross_entropy(reduction='none') {lib_ms:.4f} ms")
+        print(f"ce fwd (#6): kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the {bound[1]} bound "
+              f"{bound[0]:.4f} ms), plain {p_ms:.4f} ms, F.cross_entropy(reduction='none') "
+              f"{lib_ms:.4f} ms")
         lse = nll_p + logits.float().gather(1, t.long()[:, None])[:, 0]
         scale = torch.full((rows,), 1.0 / rows, device="cuda")
         got = ce_bwd(logits, t, lse, scale)

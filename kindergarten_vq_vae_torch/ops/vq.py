@@ -62,9 +62,14 @@ RawFn = Callable[[torch.Tensor, torch.Tensor], tuple]
 
 
 def _core(z_flat, codebook, raw_fn: RawFn):
-    """``(z_q_ste, diff, indices, counts, sum_z)`` from a raw forward."""
+    """``(z_q_ste, diff, indices, counts, sum_z)`` from a raw forward. A raw
+    forward whose ``returns_ste`` attribute is true (the CUDA kernel's)
+    returns the straight-through value ``z + (z_q - z)`` itself; for the
+    others it is computed here."""
     zq, idx, counts, sumz, diff = raw_fn(z_flat, codebook)
-    return z_flat + (zq - z_flat), diff, idx, counts, sumz
+    if not getattr(raw_fn, "returns_ste", False):
+        zq = z_flat + (zq - z_flat)
+    return zq, diff, idx, counts, sumz
 
 
 class VQCore(torch.autograd.Function):

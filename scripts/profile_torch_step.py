@@ -86,11 +86,12 @@ HEAD_BWD_NEXT = (
 
 # the fixed-order sum of per-block column partials (csrc/layernorm.cu), by
 # the kernel that wrote the partials, first match wins: the LayerNorm
-# backward's dgamma / dbeta / dbias, the bias column sums, and b1 from the
+# backward's dgamma / dbeta / dbias, the bias column sums, b1 from the
 # GELU-gradient GEMM's epilogue (EPI_DGELU_ERF 6 / EPI_DGELU_TANH 7), which
-# the split-K sums (splitk_reduce) are not
+# the split-K sums (splitk_reduce) are not, and the VQ's per-code statistics
 REDUCE = "colparts_reduce"
 REDUCE_AFTER = (
+    ("vq_assign_kernel", "VQ forward"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("colsum_kernel", "column sums (bias gradients)"),
     ("gemm_kernel<128, false, false, 6>", "column sums (b1: the GELU-gradient GEMM's partials)"),

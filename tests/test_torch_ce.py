@@ -6,7 +6,11 @@ Vocab 523 (not a multiple of the 2048-wide TPU block nor of 128), f32 logits,
 a batch whose tail rows are invalid (``valid_row`` 0). Loss rtol 1e-5 and
 dlogits atol 1e-6 (f32 on both sides: the streaming sum-exp differs only in
 order), ids exactly, including rows with ties built across and within the
-TPU kernel's vocab blocks.
+TPU kernel's vocab blocks. The card kernel reads a row as 8-element chunks
+from its first 16-byte boundary: at the odd vocabularies 523, 1031, 9, 7
+and 1 the rows start at every 8-element phase, 8 puts them all on one, and
+each row of the first sentence has ties across an 8-wide chunk boundary,
+shifted by one column a row.
 """
 
 import jax
@@ -31,22 +35,28 @@ B, S, V = 6, 12, 523
 BLOCK_V = 128  # the JAX kernel's vocab block in this test: ties span blocks
 
 
-def _case(seed=0):
+def _case(seed=0, v=V):
     rng = np.random.default_rng(seed)
-    logits = rng.normal(scale=2.0, size=(B, S, V)).astype(np.float32)
-    # ties: equal maxima within one block (cols 5, 9) and across blocks (3, 300, 511)
-    logits[0, 0, [5, 9]] = 50.0
-    logits[0, 1, [300, 3, 511]] = 40.0
-    logits[1, 2, [200, 130]] = 30.0
+    logits = rng.normal(scale=2.0, size=(B, S, v)).astype(np.float32)
+    if v == V:
+        # ties: equal maxima within one block (cols 5, 9) and across blocks (3, 300, 511)
+        logits[0, 0, [5, 9]] = 50.0
+        logits[0, 1, [300, 3, 511]] = 40.0
+        logits[1, 2, [200, 130]] = 30.0
+    else:  # ties across an 8-wide chunk boundary, one column further a row
+        for s in range(S):
+            cols = [c for c in (7 + s, 8 + s, 16 + 2 * s) if c < v]
+            logits[0, s, cols] = 60.0
     logits[2, 3, :] = 0.5  # an all-equal row
-    targets = rng.integers(0, V, (B, S)).astype(np.int32)
+    targets = rng.integers(0, v, (B, S)).astype(np.int32)
     valid = np.array([1, 1, 1, 1, 0, 0], np.float32)
     g = np.float32(1.7)
     return logits, targets, valid, g
 
 
-def test_ce_matches_jax_loss_ids_and_grad():
-    logits, targets, valid, g = _case()
+@pytest.mark.parametrize("vocab", [V, 1031, 9, 8, 7, 1])
+def test_ce_matches_jax_loss_ids_and_grad(vocab):
+    logits, targets, valid, g = _case(v=vocab)
 
     def f(lg):
         loss, ids = jax_ce(lg, jnp.asarray(targets), jnp.asarray(valid), 64, BLOCK_V, True)
@@ -62,7 +72,11 @@ def test_ce_matches_jax_loss_ids_and_grad():
     assert (ce_fwd_ids.launches, ce_bwd.launches) == before
 
     np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_w))
-    assert ids[0, 0] == 5 and ids[0, 1] == 3 and ids[1, 2] == 130 and ids[2, 3] == 0
+    if vocab == V:
+        assert ids[0, 0] == 5 and ids[0, 1] == 3 and ids[1, 2] == 130
+    else:
+        assert all(ids[0, s] == 7 + s for s in range(S) if 7 + s < vocab)
+    assert ids[2, 3] == 0
     np.testing.assert_allclose(float(loss.detach()), float(loss_w), rtol=1e-5)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(dlogits_w), atol=1e-6, rtol=0)
     assert (x.grad[4:] == 0).all()  # invalid rows get no gradient

@@ -8,13 +8,25 @@ no JAX, so on a GPU machine without the JAX package it runs as
 Shapes here are the ragged ones chip_smoke.py does not reach: row counts
 that are not a multiple of the GEMM tile, s_k != s_q, explicit cross masks.
 Layer tolerance: bf16 outputs of O(1) magnitude, max abs 6e-2 (two bf16
-ulps at |y| ~ 8), mean abs 2e-3; VQ: indices, z_q and counts exact.
+ulps at |y| ~ 8), mean abs 2e-3; VQ: indices, the straight-through z_q and
+counts exact, at row counts around its blocks (1, 63-65, 3,072, 24,577),
+at 9 x 768, 16 x 1,024, 9 x 64, 9 x 66 (the element path) and the largest
+codebook it takes at D = 768, with two equal codes; sum_z, loss and
+perplexity within 1e-5 of their largest magnitude (f32 sums in another
+order), and sum_z and the loss the same bits in two launches. On random
+rows a code may differ from the plain version's only at an f32 near tie
+(the two nearest codes closer in f64 than 4 f32 ulps of the distances,
+where two summation orders may pick either); there the kernel picks one of
+the tied codes, and its z_q, counts and sums are held to its own codes.
 Backward and attention backward: every output within 2e-2 of its leaf's
 largest magnitude (kernel and plain share the bf16 rounding points; an f32
 sum in another order flips an occasional bf16 rounding of an intermediate,
 one ulp is 0.4%). CE: ids exact, NLL within 1e-4 absolute (values ~10,
 f32 sums in another order), dlogits within 1e-2 of the largest magnitude
-(one bf16 ulp). AMSGrad (#14): bit for bit, over leaves of ragged lengths,
+(one bf16 ulp); the forward kernels also at rows starting at every 16-byte
+phase, vocabularies 30,522, 30,521, 9, 8, 7 and 1, ties within and across
+8-wide chunks and lanes, and targets in a row's head, body and tail and
+outside the vocabulary. AMSGrad (#14): bit for bit, over leaves of ragged lengths,
 a leaf without a gradient, a misaligned leaf and a chunk boundary.
 Fused head + CE (#9, #10), both modes, ragged rows and odd vocabularies,
 and at the tile edges (rows 1, 128, 129; V 256, 129, 2053; H 64, 768):
@@ -118,7 +130,7 @@ from kindergarten_vq_vae_torch.ops.sdpa import (
     sdpa_forward_reference,
 )
 from kindergarten_vq_vae_torch.ops.vq import vector_quantize
-from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -208,6 +220,106 @@ def test_vq_kernel_matches_plain(gen, b, s, d, n_e):
 def _rel_max(got, want) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _vq_max_codes(d: int) -> int:
+    """The largest codebook the VQ kernel takes at width d."""
+    n_e = 1
+    while vq_plan(1, d, n_e + 1) is not None:
+        n_e += 1
+    return n_e
+
+
+_VQ_ROWS = (1, 63, 64, 65, 3072, 24577)
+
+
+def _vq_near_ties(z, e, idx):
+    """Rows whose two nearest codes are closer, in f64, than 4 f32 ulps of
+    the row's distances (where two f32 sums in different orders may pick
+    either), and whether ``idx`` picks one of the codes that close to the
+    f64 minimum."""
+    z64, e64 = z.reshape(-1, z.shape[-1]).double(), e.double()
+    c = e64.mean(0)
+    zc, ec = z64 - c, e64 - c
+    dist = (zc * zc).sum(1, keepdim=True) + (ec * ec).sum(1) - 2.0 * (zc @ ec.T)
+    bound = 4 * 2.0**-23 * ((zc * zc).sum(1) + (ec * ec).sum(1).max())
+    best = dist.min(1).values
+    gap = dist.topk(2, 1, largest=False).values[:, 1] - best if e.shape[0] > 1 else bound + 1
+    picked = dist.gather(1, idx.reshape(-1, 1))[:, 0] - best <= bound
+    return gap <= bound, picked
+
+
+@pytest.mark.parametrize("n_e,d", [(9, 768), (16, 1024), (9, 64), (9, 66), (None, 768), (3, 256),
+                                   (8, 128)])
+@pytest.mark.parametrize("rows", _VQ_ROWS)
+def test_vq_kernel_at_block_edges(gen, rows, n_e, d):
+    """Row counts around the kernel's blocks and a pair a warp, the widest
+    row, a width off the 16-byte path (66), the largest codebook it takes
+    at D = 768 (None), and small codebooks (3 and 8 codes, which the dot
+    products take as 12 with the rest masked). The straight-through z_q is exactly z + (e[k] - z) of
+    the kernel's own codes, the counts exactly their histogram, sum_z and
+    the loss within 1e-5 of the plain sums over the same codes, and sum_z
+    and the loss the same bits in two launches. The codes are the plain
+    version's (and so are z_q, counts, sum_z, loss and perplexity, as
+    above) on every row but an f32 near tie (see _vq_near_ties), where the
+    kernel picks one of the tied codes."""
+    if n_e is None:
+        n_e = _vq_max_codes(d)
+        assert n_e >= 37  # the codebooks the kernel before the 16-byte redesign took
+    z = torch.randn(1, rows, d, device="cuda", generator=gen)
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
+    with torch.inference_mode():
+        k = vector_quantize_kernel(z, e, 0.25)
+        k2 = vector_quantize_kernel(z, e, 0.25)
+        torch.cuda.synchronize()
+        p = vector_quantize(z, e, 0.25)
+    assert torch.equal(k.sum_z, k2.sum_z) and torch.equal(k.loss, k2.loss)
+    idx, z2 = k.indices.view(-1), z.view(-1, d)
+    assert torch.equal(k.z_q.view(-1, d), z2 + (e[idx] - z2))
+    assert torch.equal(k.counts, torch.bincount(idx, minlength=n_e).float())
+    one_hot = torch.nn.functional.one_hot(idx, n_e).float()
+    assert _rel_max(k.sum_z, one_hot.T @ z2) <= 1e-5
+    assert _rel_max(k.loss, ((e[idx] - z2) ** 2).sum() * 1.25 / z2.numel()) <= 1e-5
+    near, picked = _vq_near_ties(z, e, idx)
+    differ = idx != p.indices.view(-1)
+    assert bool(picked.all()) and not bool((differ & ~near).any()), (
+        f"{int(differ.sum())} codes differ, {int(near.sum())} near ties")
+    if not bool(differ.any()):
+        assert torch.equal(k.indices, p.indices) and torch.equal(k.z_q, p.z_q)
+        assert torch.equal(k.counts, p.counts)
+        for f in ("sum_z", "loss", "perplexity"):
+            assert _rel_max(getattr(k, f), getattr(p, f)) <= 1e-5, f
+
+
+def test_vq_kernel_first_minimum_on_equal_codes(gen):
+    """Code 5 is a copy of code 2 and rows sit near it: the kernel picks 2,
+    as the plain version's first minimum does, in every 16-code group."""
+    n_e, d = 37, 768  # three groups of up to 16 codes
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / 9
+    e[5], e[21], e[36] = e[2], e[18], e[18]
+    pick = torch.tensor([2, 18], device="cuda")[torch.randint(0, 2, (4096,), device="cuda",
+                                                              generator=gen)]
+    z = (e[pick] + 1e-3 * torch.randn(4096, d, device="cuda", generator=gen)).view(64, 64, d)
+    with torch.inference_mode():
+        k = vector_quantize_kernel(z, e, 0.25)
+        torch.cuda.synchronize()
+        p = vector_quantize(z, e, 0.25)
+    assert torch.equal(k.indices.view(-1), pick) and torch.equal(k.indices, p.indices)
+    assert torch.equal(k.z_q, p.z_q) and torch.equal(k.counts, p.counts)
+
+
+def test_vq_kernel_rejects_what_it_does_not_take(gen):
+    n_e = _vq_max_codes(768)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="shared memory"):
+            vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda"),
+                                   torch.randn(n_e + 1, 768, device="cuda"), 0.25)
+        with pytest.raises(ValueError, match="D <= 1024"):
+            vector_quantize_kernel(torch.randn(1, 4, 1025, device="cuda"),
+                                   torch.randn(9, 1025, device="cuda"), 0.25)
+        with pytest.raises(TypeError, match="float32"):
+            vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda").double(),
+                                   torch.randn(9, 768, device="cuda"), 0.25)
 
 
 @pytest.mark.parametrize("decoder,B,S,SK,H,NH,F", [
@@ -336,6 +448,48 @@ def test_ce_fwd_kernel_matches_plain(gen, vocab):
     assert ce_fwd.launches == before + 1 and nll.dtype == torch.float32
     assert (nll - ce_fwd_reference(x, t)).abs().max() <= 1e-4
     assert torch.equal(nll, ce_fwd_ids(x, t)[0])
+
+
+def _ce_edge_case(gen, rows, vocab, offset):
+    """(rows, vocab) bf16 logits starting ``offset`` elements into their
+    buffer, so the rows' first 16-byte boundaries fall at every phase, with
+    ties within an 8-wide chunk, across chunks and lanes, between the head
+    and the body and between the body and the tail (columns counted from
+    each row's head), an all-equal row, and targets in the head, the body,
+    the tail and outside the vocabulary."""
+    buf = (3.0 * torch.randn(rows * vocab + offset, device="cuda", generator=gen)).bfloat16()
+    x = buf[offset:].view(rows, vocab)
+    t = torch.randint(0, vocab, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    for r in range(rows):
+        h = min((16 - (x[r].data_ptr() % 16)) % 16 // 2, vocab)
+        body = (vocab - h) // 8
+        tail = h + 8 * body
+        ties = [(h + 1, h + 2), (h + 7, h + 8), (h + 3, h + 8 * 33 + 3), (0, h + 5),
+                (tail - 1, vocab - 1), (5, 9000, 30000)][r % 6]
+        cols = [c for c in ties if c < vocab]
+        if cols:
+            x[r, cols] = 40.0
+        t[r] = [0, h + 8, vocab - 1, vocab, -1, t[r]][r % 6] if r >= 6 else t[r]
+    x[rows - 1] = 0.5  # an all-equal row
+    return x, t
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("vocab", [30522, 30521, 9, 8, 7, 1])
+def test_ce_fwd_kernels_at_row_phases(gen, vocab, offset):
+    """#7 and #6 over rows at every 16-byte phase (30,522 bf16 rows start at
+    four; an offset of one element adds the odd ones), an odd vocabulary and
+    vocabularies under one chunk: ids exact, NLL within 1e-4, #6's NLL the
+    bits of #7's."""
+    x, t = _ce_edge_case(gen, 64, vocab, offset)
+    nll, ids = ce_fwd_ids(x, t)
+    nll6 = ce_fwd(x, t)
+    torch.cuda.synchronize()
+    nll_p, ids_p = ce_fwd_ids_reference(x, t)
+    assert torch.equal(ids, ids_p)
+    assert ids[-1] == 0
+    assert (nll - nll_p).abs().max() <= 1e-4
+    assert torch.equal(nll6, nll)
 
 
 def _head_case(gen, rows, V, H):

@@ -6,6 +6,11 @@ custom VJP of ``_fused_vq_core``) is held against ``jax.grad`` through
 ``fused_vector_quantize``: dz and dcodebook to rtol 1e-5, atol 1e-7, and the
 row of a code no row picks exactly 0.
 
+Row counts around the card kernel's blocks (a pair of rows a warp, 14 or 16
+rows a round) take the same bars. ``assemble`` given a raw forward that
+returns the straight-through value itself, as the card kernel does, gives
+the same bits as the ``vq_raw`` path, gradients included.
+
 The codebook's training extras given the same numpy inputs: the EMA update
 (``ema_codebook_update`` from ``init_ema_state``, three batches of counts
 and sums, one code never picked) to rtol 1e-6 (the same f32 expressions;
@@ -23,11 +28,13 @@ from kindergarten_vq_vae_tpu.ops import vq as jvq
 from kindergarten_vq_vae_tpu.ops.vq import vector_quantize as jax_vq
 from kindergarten_vq_vae_tpu.ops.vq_pallas import fused_vector_quantize as jax_fused_vq
 from kindergarten_vq_vae_torch.ops.vq import (
+    assemble,
     dead_code_reset,
     dead_code_reset_with,
     ema_codebook_update,
     init_ema_state,
     vector_quantize,
+    vq_raw,
 )
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
@@ -54,6 +61,14 @@ CASES = {
     "random": lambda: _random_case(3, 12, 64, 9, 0)[:2],
     "odd_rows": lambda: _random_case(3, 5, 128, 9, 1)[:2],
     "far_from_origin": lambda: _far_case()[:2],
+    # around the card kernel's blocks: a pair of rows a warp, 8 warps (16
+    # rows) at D = 64, 7 warps (14 rows) at the bert-base 9 x 768
+    "rows_1": lambda: _random_case(1, 1, 64, 9, 2)[:2],
+    "rows_15": lambda: _random_case(3, 5, 64, 9, 3)[:2],
+    "rows_16": lambda: _random_case(2, 8, 64, 9, 4)[:2],
+    "rows_17": lambda: _random_case(1, 17, 64, 9, 5)[:2],
+    "rows_14_wide": lambda: _random_case(2, 7, 768, 9, 6)[:2],
+    "rows_29_wide": lambda: _random_case(1, 29, 768, 9, 7)[:2],
 }
 
 
@@ -95,6 +110,43 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
     (out.loss + out.z_q.sum()).backward()
     assert zg.grad is not None and eg.grad is not None
     assert vector_quantize_kernel.launches == before
+
+
+def _ste_raw(z_flat, codebook):
+    """A raw forward shaped like the card kernel's: z_q already the
+    straight-through value (computed in numpy's f32, apart from torch), and
+    counts, sum_z and diff views of one stats buffer."""
+    zq, idx, counts, sum_z, diff = vq_raw(z_flat, codebook)
+    z_np = z_flat.detach().numpy()
+    ste = torch.from_numpy(z_np + (zq.numpy() - z_np))
+    n_e, d = codebook.shape
+    stats = torch.cat([sum_z.reshape(-1), counts, diff.reshape(1), torch.zeros(2)])
+    ned = n_e * d
+    return ste, idx, stats[ned:ned + n_e], stats[:ned].view(n_e, d), stats[ned + n_e]
+
+
+_ste_raw.returns_ste = True
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_assemble_keeps_a_raw_straight_through_value(grad):
+    """``assemble`` passes on the z_q of a raw forward marked
+    ``returns_ste`` and gives the bits of the ``vq_raw`` path, through the
+    custom VJP too."""
+    z, e = _random_case(3, 12, 64, 9, 8)
+    e[4] += 50.0
+    outs, grads = [], []
+    for raw in (vq_raw, _ste_raw):
+        zt, et = torch.from_numpy(z).requires_grad_(grad), torch.from_numpy(e).requires_grad_(grad)
+        out = assemble(zt, et, 0.69, raw)
+        outs.append(out)
+        if grad:
+            (out.loss * 3.0 + out.z_q.square().sum()).backward()
+            grads.append((zt.grad, et.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    if grad:
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 @pytest.mark.parametrize("use_kernel_wrapper", [False, True])
