@@ -103,7 +103,24 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    against an f32 per-module step, a ``fused_layer="off"`` run served
    through ``Reconstructor`` (36 SDPA forwards a forward) and timed beside
    the fused route, ``output_attentions`` at bucket 8, and a 1-epoch
-   ``--set fused_layer='off'`` CLI run, served.
+   ``--set fused_layer='off'`` CLI run, served;
+12. the research path (``kindergarten_vq_vae_torch/train/flagship.py`` and
+   ``analyses/``) on the same cut corpus, bert-base, bf16, batch 256: the
+   flagship pipeline's stages 1-4 as functions, one epoch each at
+   ``--lim-batches 0.1 --dec-perturb 0.5`` (each stage's wall time, its
+   steady-state sentences/s, its stats and its launches; stage 2's
+   diagnostics and whether each gate would fire); stage 2's k-means held,
+   Lloyd step by Lloyd step, against an f64 host Lloyd from the card's own
+   centroids on the downloaded ``z_flat`` and the same initial rows, its
+   chained steps equal to the ``.npy`` bit for bit; stage 3's codebook
+   before its first step equal to that ``.npy``; on the stage-3 run
+   (``analyses.common.load_run``) the disentanglement tables equal to those
+   built from ``Reconstructor.codes`` on the same sentences, the sentence
+   latents against ``Reconstructor.encode``, the attention maps' rows summing
+   to 1 and the cross maps apart from the self maps; Bagon arithmetic with
+   group A = group B on the stage-1 run (Δ = 0, shifted ids = base ids); and
+   ``scripts/eval_run_torch.py`` on the stage-3 run (finite stats over the
+   whole test split).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -111,6 +128,8 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -2428,6 +2447,347 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
     return counts
 
 
+# research path: the flagship pipeline's --lim-batches (train / val / test
+# batches kept per epoch), its --dec-perturb, and the k-means step checks:
+# a row's card assignment is held to the f64 one where the f64 margin
+# between its two nearest centroids exceeds KMEANS_TIE times
+# (|zc| + max |c - mean|)^2 (a bound on the bf16 error of the card's
+# distances: ~6 roundings of 2^-8 each, on either of two distances), and
+# each card centroid to the f64 mean of the rows the card assigned it within
+# KMEANS_REL of its largest element (sums, counts and quotient each rounded
+# to bf16: 3 x 2^-9), at the Lloyd steps KMEANS_HOST_STEPS (each host step
+# reads the 1.6 GB of f64 rows twice). Latents vs Reconstructor.encode
+# within one bf16 ulp at 1 (the pooler's tanh range). An attention map's
+# rows sum to 1 within 2^-8: each bf16 probability is rounded by at most
+# 2^-8 of itself, so a row of them sums to 1 within 2^-8 (measured 1.25e-3
+# on an H100 80GB HBM3 at 700 W, over 1,024 sentences).
+RESEARCH_LIM, RESEARCH_PERTURB = 0.1, 0.5
+KMEANS_TIE, KMEANS_REL, KMEANS_HOST_STEPS = 12 * 2.0 ** -8, 2.0 ** -6, (0, 1, 24)
+LATENT_ABS, ATTN_ROW_ABS = 2.0 ** -7, 2.0 ** -8
+
+
+def _run_counts(counts: dict, steps: int, evals: int, vq: bool) -> dict:
+    """The launches of ``steps`` training steps and ``evals`` eval batches of
+    the default route (fused layers, logits path, AMSGrad #14)."""
+    want = {k: 0 for k in counts}
+    want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps, layer_bwd=24 * steps,
+                attn_bwd_self=24 * steps, attn_bwd_cross=12 * steps,
+                **_inside_layers(steps + evals, steps), ce_fwd_ids=steps + evals, ce_bwd=steps,
+                adam=steps, vq=(steps + evals) if vq else 0)
+    return want
+
+
+def _expect(what: str, counts: dict, want: dict) -> None:
+    print(f"  {what}: launches {counts}")
+    if counts != want:
+        _fail(f"{what} did not go through the kernels as expected: {counts}, expected {want}")
+
+
+def _kmeans_against_host(z, init_idx, cb_file) -> None:
+    """The card's k-means on ``z`` (bf16, on the card) from ``init_idx``,
+    Lloyd step by Lloyd step (``ops.vq.lloyd_step``), the steps
+    ``KMEANS_HOST_STEPS`` held against the same step in f64 on the host from
+    the card's centroids; the 25 chained steps give the stage's ``.npy`` bit
+    for bit."""
+    import numpy as np
+
+    from kindergarten_vq_vae_torch.ops.vq import lloyd_step
+
+    t0 = time.perf_counter()
+    z64 = z.float().cpu().numpy().astype(np.float64)
+    mean64 = z64.mean(0)
+    zc64 = z64 - mean64
+    zsq = (zc64 * zc64).sum(1)
+    rows, n_e = len(z64), len(init_idx)
+    gmean = z.mean(0, keepdim=True)
+    zc = z - gmean
+    cent = z[init_idx.to(z.device)]
+    shares, worst = [], 0.0
+    for it in range(25):
+        new, assign = lloyd_step(z, zc, gmean, cent)
+        if it not in KMEANS_HOST_STEPS:
+            cent = new
+            continue
+        c64 = cent.double().cpu().numpy()
+        cc64 = c64 - mean64
+        d = zsq[:, None] + (cc64 * cc64).sum(1) - 2.0 * zc64 @ cc64.T
+        two = np.sort(d, 1)[:, :2]
+        bound = KMEANS_TIE * (np.sqrt(zsq) + np.sqrt((cc64 * cc64).sum(1)).max()) ** 2
+        far = two[:, 1] - two[:, 0] > bound
+        a = assign.cpu().numpy()
+        if (a[far] != d.argmin(1)[far]).any():
+            _fail(f"k-means step {it}: {(a[far] != d.argmin(1)[far]).sum()} card assignments "
+                  "differ from the f64 ones outside the near-tie band")
+        onehot = np.zeros((rows, n_e))
+        onehot[np.arange(rows), a] = 1.0
+        counts = onehot.sum(0)
+        host = np.where(counts[:, None] > 0, onehot.T @ z64 / np.maximum(counts, 1.0)[:, None], c64)
+        err = (np.abs(new.double().cpu().numpy() - host).max(1) / np.abs(host).max(1)).max()
+        worst = max(worst, float(err))
+        if err > KMEANS_REL:
+            _fail(f"k-means step {it}: a centroid differs from the f64 mean by {err:.3e} of its "
+                  f"largest element (tol {KMEANS_REL:.3e})")
+        shares.append(float(far.mean()))
+        cent = new
+    same = np.array_equal(cent.float().cpu().numpy(), cb_file)
+    print(f"  k-means vs f64 host Lloyd, {rows} rows x {z.shape[1]} bf16, {n_e} codes, 25 steps, "
+          f"steps {KMEANS_HOST_STEPS} on the host: assignments equal on "
+          f"{min(shares):.4f}-{max(shares):.4f} of the rows a step (the "
+          f"rest within the bf16 near-tie band), centroids within {worst:.3e} of their largest "
+          f"element (tol {KMEANS_REL:.3e}); chained steps equal the stage's .npy bit for bit "
+          f"{same} ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        _fail("the card's k-means is not the codebook stage 2 wrote")
+
+
+def phase_research(names: tuple[str, str]) -> dict:
+    """The research path at bert-base width on the cut corpus: the flagship
+    pipeline's stages 1-4 as functions (one epoch each, batch 256), the
+    k-means against an f64 host Lloyd, stage 3's starting codebook, the
+    analyses on the stage-3 and stage-1 runs and ``scripts/eval_run_torch.py``;
+    every step's launches checked. Returns the stages' wall times and rates."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch.analyses import arithmetic, cross_attention, disentanglement
+    from kindergarten_vq_vae_torch.analyses import latent_space
+    from kindergarten_vq_vae_torch.analyses.common import load_run
+    from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name
+    from kindergarten_vq_vae_torch.data.dataset import BatchIterator
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+    from kindergarten_vq_vae_torch.ops.vq import kmeans_init_indices
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+    from kindergarten_vq_vae_torch.train import codebook_init, flagship
+    from kindergarten_vq_vae_torch.train.engine import Engine
+    from kindergarten_vq_vae_torch.train.run import load_data
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_research_") as root:
+        data_dir, runs = os.path.join(root, "data"), os.path.join(root, "runs")
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        prepare_all(data_dir, max_length=SEQ)
+        args = flagship.build_parser().parse_args(
+            ["--bagon-epochs", "1", "--vq-epochs", "1", "--stage4-epochs", "1",
+             "--lim-batches", str(RESEARCH_LIM), "--dec-perturb", str(RESEARCH_PERTURB),
+             "--runs-dir", runs, "--data-dir", data_dir])
+        cfg = flagship.base_cfg(args, "shelgon3", 1)
+        splits, tok = load_data(cfg)
+        n = {k: len(v) for k, v in splits.items()}
+        b = args.batch
+
+        def batches(split, drop_last=False):
+            return len(BatchIterator(splits[split], b, drop_last=drop_last,
+                                     lim_batches_pct=RESEARCH_LIM))
+
+        steps, val, test = batches("train", True), batches("val"), batches("test")
+        print(f"research path: bert-base, bf16, batch {b}, --lim-batches {RESEARCH_LIM}, "
+              f"--dec-perturb {RESEARCH_PERTURB}, corpus {sum(n.values())} sentences {n}; "
+              f"{steps} train steps, {val} val and {test} test batches a stage")
+        summary: dict = {}
+
+        def stage(fn, *fn_args):
+            torch.cuda.empty_cache()
+            _reset_counters()
+            t0 = time.perf_counter()
+            res = fn(*fn_args)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, _counters()
+
+        def train_report(what, run_dir, wall):
+            with open(os.path.join(run_dir, "history.json")) as f:
+                hist = json.load(f)
+            tr = hist[0]["train"]
+            last = hist[-1]["test" if "test" in hist[-1] else "val"]
+            keys = [k for k in ("loss_recon", "loss_vq", "metric_acc", "metric_perp") if k in last]
+            if not all(math.isfinite(last[k]) for k in keys):
+                _fail(f"{what}: stats not finite: {last}")
+            print(f"  {what}: wall {wall:.3f} s, train {tr['sentences_per_sec']:.1f} sentences/s "
+                  f"(steady state, {tr['n_els']} sentences), last eval "
+                  f"{json.dumps({k: last[k] for k in keys})}")
+            out[what] = {"wall_s": wall, "train_sentences_per_sec": tr["sentences_per_sec"]}
+
+        with _plain_refused():
+            # 1. stages 1-4 as functions
+            bagon_dir, wall, counts = stage(flagship.stage1, args, summary)
+            _expect("stage 1 (Bagon)", counts, _run_counts(counts, steps, val, vq=False))
+            train_report("stage 1 (Bagon)", bagon_dir, wall)
+
+            diag, wall, counts = stage(flagship.stage2, args, bagon_dir, summary)
+            sweeps = -(-n["train"] // 2048)
+            want = {k: 0 for k in counts}
+            want.update(layer_fwd=12 * sweeps, **_inside_layers(0, encoder_forwards=sweeps))
+            # 2. stage 2's launches: one encoder forward a batch of 2048 in the sweep
+            _expect("stage 2 (k-means codebook init)", counts, want)
+            print(f"  stage 2: wall {wall:.3f} s ({n['train'] / wall:.1f} sentences/s over the "
+                  f"stage, {n['train']} train sentences, {sweeps} encoder batches of 2048); "
+                  f"diagnostics {json.dumps(diag)}; separation gate (< 0.1, exit 3) fires "
+                  f"{diag['separation_ratio'] < flagship.SEPARATION_FLOOR}, amplitude gate "
+                  f"(< 2^-7, exit 4) fires {diag['amplitude_ratio'] < flagship.AMPLITUDE_FLOOR}")
+            out["stage 2 (k-means codebook init)"] = {"wall_s": wall, "diagnostics": diag}
+            cb_path = summary["codebook_init"]["path"]
+            cb_file = np.load(cb_path)
+            bagon_ckpt = os.path.join(bagon_dir, best_ckpt_name("bagon", "loss_recon", "val"))
+            encoder = codebook_init.bagon_encoder(cfg, bagon_ckpt, device="cuda")
+            z = codebook_init.encode_rows(encoder, splits["train"].input_ids,
+                                          splits["train"].attention_mask)
+            del encoder
+            _kmeans_against_host(z, kmeans_init_indices(len(z), cfg.vq_n_e,
+                                                         torch.Generator().manual_seed(0)),
+                                 cb_file)
+            del z
+
+            # 3. stage 3 starts from the .npy: its model's codebook before the first step
+            first = {}
+            fit = Engine.fit
+
+            def fit_recording(self, *a, **k):
+                first.setdefault("codebook",
+                                 self.model.vector_quantizer.codebook.detach().cpu().numpy().copy())
+                return fit(self, *a, **k)
+
+            Engine.fit = fit_recording
+            try:
+                vq_dir, wall, counts = stage(flagship.stage3, args, bagon_dir, summary)
+            finally:
+                Engine.fit = fit
+            _expect("stage 3 (Shelgon3-VQ vq-ft)", counts, _run_counts(counts, steps, val, vq=True))
+            train_report("stage 3 (Shelgon3-VQ vq-ft)", vq_dir, wall)
+            print(f"  stage 3's codebook before its first step equals {cb_path} bit for bit: "
+                  f"{np.array_equal(first.get('codebook'), cb_file)}")
+            if not np.array_equal(first.get("codebook"), cb_file):
+                _fail("stage 3 did not start from the codebook stage 2 wrote")
+
+            _, wall, counts = stage(flagship.stage4, args, vq_dir, summary)
+            _expect("stage 4 (decoder adaptation)", counts,
+                    _run_counts(counts, steps, val + test, vq=True))
+            train_report("stage 4 (decoder adaptation)", summary["shelgon3_stage4"]["run_dir"],
+                         wall)
+
+            # 4. disentanglement on the stage-3 run, its codes those of Reconstructor
+            run_cfg, model = load_run(vq_dir, device="cuda")
+            res_dir = os.path.join(root, "disentanglement")
+            (seen, hist, code_words_got, metrics), wall, counts = stage(
+                disentanglement.unsupervised_vq_disentanglement, run_cfg, model, splits, tok,
+                res_dir)
+            per = {k: min(len(v), max(1, int(-(-len(v) // 512) * 0.1)) * 512)
+                   for k, v in splits.items()}
+            fwd = sum(-(-r // 512) for r in per.values())
+            want = {k: 0 for k in counts}
+            want.update(layer_fwd=24 * fwd, vq=fwd, **_inside_layers(fwd))
+            _expect(f"disentanglement ({per} rows, {fwd} forwards of 512)", counts, want)
+            rec = Reconstructor(vq_dir, device="cuda")
+            woi = {w: [] for w in disentanglement.WORDS_OF_INTEREST}
+            code_words, populated, cols = {k: set() for k in range(run_cfg.vq_n_e)}, set(), []
+            for split, rows in per.items():
+                ds = splits[split]
+                sents, ids = ds.sentences[:rows], ds.input_ids[:rows]
+                if not np.array_equal(rec._tokenize(sents)[0], ids):
+                    _fail("Reconstructor tokenizes the corpus into other ids")
+                codes = np.zeros(ids.shape, np.int64)  # padding positions: masked out below
+                for i, c in enumerate(rec.codes(sents)):
+                    codes[i, :len(c)] = c
+                disentanglement.tabulate_word_codes(codes, ids, sents, tok, woi, code_words,
+                                                    populated)
+                cols.append((codes, ds.attention_mask[:rows], ds.labels[:rows]))
+            want = (sorted(populated),
+                    {w: {k: v.count(k) for k in range(run_cfg.vq_n_e)} for w, v in woi.items()},
+                    {k: sorted(v) for k, v in code_words.items()},
+                    disentanglement.factor_code_metrics(
+                        *(np.concatenate(c) for c in zip(*cols)), run_cfg.vq_n_e))
+            same = ((seen, hist, code_words_got, metrics) == want
+                    and sorted(os.listdir(res_dir)) == sorted(
+                        ["dSentences_vq_vector_populated.txt", "dSentences_vq_factor_metrics.json",
+                         "dSentences_words_of_interest_histograms.json",
+                         "dSentences_vq_words_distrib.json"]))
+            print(f"  disentanglement: {wall:.3f} s, populated codes {seen}, factor nmi "
+                  f"{ {k: round(v['nmi'], 4) for k, v in metrics.items()} }; tables equal to "
+                  f"those of Reconstructor.codes on the same sentences {same}")
+            if not same:
+                _fail("the disentanglement's codes are not Reconstructor.codes'")
+
+            # 5. sentence latents vs Reconstructor.encode
+            test_split = splits["test"]
+            m = min(1024, len(test_split))
+            lat, wall, counts = stage(latent_space.compute_sentence_latents, model,
+                                      test_split.input_ids[:m], test_split.attention_mask[:m])
+            want = {k: 0 for k in counts}
+            fwd = -(-m // 512)
+            want.update(layer_fwd=12 * fwd, **_inside_layers(0, encoder_forwards=fwd))
+            _expect(f"sentence latents ({m} test sentences)", counts, want)
+            enc = rec.encode(test_split.sentences[:m])
+            err = float(np.abs(lat - enc).max())
+            print(f"  sentence latents {lat.shape} vs Reconstructor.encode: max abs {err:.3e} "
+                  f"(tol {LATENT_ABS:.3e}), {wall:.3f} s")
+            if lat.shape != enc.shape or not np.isfinite(lat).all() or err > LATENT_ABS:
+                _fail("compute_sentence_latents does not match Reconstructor.encode")
+
+            # 6. cross- and self-attention maps
+            maps, wall, counts = stage(cross_attention.extract_cross_attention,
+                                       model, test_split.input_ids[:m],
+                                       test_split.attention_mask[:m])
+            fwd = -(-m // 256)
+            want = {k: 0 for k in counts}
+            want.update(layer_fwd=12 * fwd, vq=fwd, **_inside_layers(0, encoder_forwards=fwd))
+            _expect(f"attention maps ({m} test sentences, {fwd} batches of 256)", counts, want)
+            rows_err = max(float(np.abs(maps[k].sum(-1) - 1.0).max()) for k in maps)
+            differ = float(np.abs(maps["cross_attns"] - maps["self_attns"]).max())
+            print(f"  attention maps {maps['cross_attns'].shape}: finite "
+                  f"{all(np.isfinite(v).all() for v in maps.values())}, rows sum to 1 within "
+                  f"{rows_err:.3e} (tol {ATTN_ROW_ABS}), cross vs self differ by up to "
+                  f"{differ:.3f}, {wall:.3f} s")
+            shaped = all(v.shape == (12, 12, SEQ, SEQ) and np.isfinite(v).all()
+                         for v in maps.values())
+            if not shaped or rows_err > ATTN_ROW_ABS or differ == 0.0:
+                _fail("the attention maps are not finite probabilities, or cross equals self")
+            del model, rec
+            torch.cuda.empty_cache()
+
+            # 7. Bagon arithmetic with group A = group B: delta 0, shifted = base ids
+            _, bagon = load_run(bagon_dir, device="cuda")
+            group, _ = arithmetic._factor_groups(splits["train"], "verb_tense", "present", "past",
+                                                 64)
+            targets, _ = arithmetic._factor_groups(splits["val"], "verb_tense", "past", "present",
+                                                   64)
+            ar, wall, counts = stage(arithmetic.latent_arithmetic_bagon, bagon,
+                                     group, group, targets, tok)
+            want = {k: 0 for k in counts}
+            want.update(layer_fwd=60, **_inside_layers(2, encoder_forwards=1))
+            _expect("Bagon arithmetic (3 encoder, 2 decoder forwards)", counts, want)
+            zero = not ar["delta"].any()
+            same = np.array_equal(ar["shifted_recon_ids"], ar["base_recon_ids"])
+            print(f"  Bagon arithmetic, A = B: delta zero {zero}, shifted ids = base ids {same}; "
+                  f"{ar['base_recon'][0]!r}")
+            if not (zero and same):
+                _fail("latent arithmetic with A = B moved the latents or the reconstructions")
+            del bagon
+            torch.cuda.empty_cache()
+
+            # 8. scripts/eval_run_torch.py on the stage-3 run
+            spec = importlib.util.spec_from_file_location(
+                "eval_run_torch", os.path.join(ROOT, "scripts", "eval_run_torch.py"))
+            eval_run = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(eval_run)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):  # its JSON line, indented below
+                stats, wall, counts = stage(eval_run.main, [vq_dir])
+            evals = -(-n["test"] // b)
+            want = {k: 0 for k in counts}
+            want.update(layer_fwd=24 * evals, vq=evals, ce_fwd_ids=evals,
+                        **_inside_layers(evals))
+            _expect(f"eval_run_torch.py ({evals} test batches)", counts, want)
+            if stats["n_els"] != n["test"] or not all(math.isfinite(v) for v in stats.values()):
+                _fail(f"eval_run_torch.py: {stats}")
+            print(f"  eval_run_torch.py on the stage-3 run: {wall:.3f} s, printed "
+                  f"{printed.getvalue().strip()}")
+    print(f"research path: {time.perf_counter() - t_phase:.1f} s; stages ({names[0]}; "
+          f"nvidia-smi: {names[1]}): {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -2473,6 +2833,7 @@ def main() -> None:
           f"vs {tr['auto']['losses'][0]['loss_full']:.6f} ({names[0]}; nvidia-smi: {names[1]})")
     serve_off = phase_serve_per_module(names)
     eng_off = phase_engine(names, epochs=1, fused_layer="off")
+    phase_research(names)
     n = tr["auto"]["counts"]
     off = tr["off"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"

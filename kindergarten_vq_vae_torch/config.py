@@ -202,13 +202,13 @@ def refuse_unported(cfg: RunConfig) -> None:
     port does not have yet."""
     refused = (
         (cfg.model_name in ("shelgon", "shelgon2"),
-         f"model {cfg.model_name!r}", "modules to port: item 7"),
+         f"model {cfg.model_name!r}", "modules to port: other variants"),
         (cfg.vq_mode != "VectorQuantizer",
-         f"vq_mode={cfg.vq_mode!r}", "modules to port: item 7, ops/gumbel.py"),
+         f"vq_mode={cfg.vq_mode!r}", "modules to port: other variants, ops/gumbel.py"),
         ("gpt" in cfg.decoder_model_name,
-         "the GPT-2 decoder", "modules to port: item 7, nn/gpt2.py"),
+         "the GPT-2 decoder", "modules to port: other variants, nn/gpt2.py"),
         (bool(cfg.mesh_shape),
-         f"mesh_shape={tuple(cfg.mesh_shape)}", "modules to port: item 10, multi-device"),
+         f"mesh_shape={tuple(cfg.mesh_shape)}", "modules to port: multi-device"),
     )
     for on, what, item in refused:
         if on:

@@ -7,8 +7,9 @@ batches are numpy slices of a fixed shape, the last partial one padded by
 repeating its first row and carrying the true count in ``n_valid``. Given a
 seed and an epoch, :class:`BatchIterator` yields the same batches in the same
 order as the JAX package's. The JAX package's memory-mapped lazy rows and
-multi-process sharding are not ported (``mmap`` loads in full; ROADMAP
-items 4 and 10).
+multi-process sharding are not ported (``mmap`` loads in full; ROADMAP: a
+recorded divergence of PR 3, and "multi-device"). :func:`padded_batches`
+cuts columns into fixed-size inference batches the same way.
 """
 
 from __future__ import annotations
@@ -110,3 +111,23 @@ class BatchIterator:
                 if col is not None:
                     batch[k] = col[idx]
             yield batch
+
+
+def padded_batches(arrays: dict, batch_size: int, n_batches: int | None = None):
+    """Yield ``(start, m, chunk)`` over the first ``n_batches`` (all by
+    default) batches of ``batch_size`` rows of equal-length ``arrays``: each
+    chunk holds every column's rows ``start:start + batch_size``, a short one
+    padded by repeating its first row (``m`` rows are real); empty batches
+    are skipped."""
+    n = len(next(iter(arrays.values())))
+    if n_batches is None:
+        n_batches = -(-n // batch_size)
+    for start in range(0, n_batches * batch_size, batch_size):
+        chunk = {k: v[start:start + batch_size] for k, v in arrays.items()}
+        m = len(next(iter(chunk.values())))
+        if m == 0:
+            continue
+        if m < batch_size:
+            chunk = {k: np.concatenate([v, np.repeat(v[:1], batch_size - m, axis=0)])
+                     for k, v in chunk.items()}
+        yield start, m, chunk

@@ -6,8 +6,8 @@ columns, the one-hot labels, the word vocabulary, the word-level tokenizer
 and the corpus tokenized once into ``(N, max_length)`` int32 ids and mask,
 written under the same file names. Tokenizing takes the Python path
 (``tokenize_corpus(use_native=False)`` in the JAX package, whose results are
-bit-identical to its C++ packer); the C++ packer ``data/native.py`` is not
-ported yet (ROADMAP item 4).
+bit-identical to its C++ packer); the C++ packer ``data/native.py`` is left
+out (a recorded divergence of the port, ROADMAP, PR 3).
 """
 
 from __future__ import annotations

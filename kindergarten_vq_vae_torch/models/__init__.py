@@ -37,7 +37,8 @@ def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, 
     einsum); ``remat`` is read and ignored (ROADMAP)."""
     if "gpt" in cfg.decoder_model_name:
         raise NotImplementedError(
-            "the GPT-2 decoder is not ported yet (ROADMAP, modules to port: item 7, nn/gpt2.py)")
+            "the GPT-2 decoder is not ported yet (ROADMAP, modules to port: other variants, "
+            "nn/gpt2.py)")
     common = dict(
         vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, intermediate_size=cfg.intermediate_size,
@@ -65,7 +66,7 @@ def build_model(cfg: RunConfig, device=None, fused_head: bool = False) -> nn.Mod
         return Shelgon3(enc, dec, vq_mode=cfg.vq_mode, vq_n_e=cfg.vq_n_e, vq_e_dim=cfg.vq_e_dim,
                         vq_beta=cfg.vq_beta, vq_ema_update=cfg.vq_ema_update, device=device)
     raise NotImplementedError(
-        f"model {cfg.model_name!r} is not ported yet (ROADMAP, modules to port: item 7)")
+        f"model {cfg.model_name!r} is not ported yet (ROADMAP, modules to port: other variants)")
 
 
 INIT_STD = 0.02  # bert-base initializer_range, as the JAX package's BertConfig

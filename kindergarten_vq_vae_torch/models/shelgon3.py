@@ -44,7 +44,7 @@ class Shelgon3(nn.Module):
         if vq_mode != "VectorQuantizer":
             raise NotImplementedError(
                 f"vq_mode={vq_mode!r} is not ported yet (ROADMAP, modules to port: "
-                "item 7, ops/gumbel.py and the GumbelQuantizer)")
+                "other variants, ops/gumbel.py and the GumbelQuantizer)")
         if enc_cfg.hidden_size != vq_e_dim:
             raise ValueError("embedding dim of encoder output must match e_dim")
         self.encoder = BertModel(enc_cfg, device)

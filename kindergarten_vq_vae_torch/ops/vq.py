@@ -15,9 +15,10 @@ The raw forward is :func:`vq_raw` here and the CUDA kernel in
 :mod:`kindergarten_vq_vae_torch.ops.vq_kernel`; everything else is shared.
 
 The codebook's training extras of ``ops/vq.py`` follow: the EMA codebook
-update (l.99-128) and dead-code revival (l.171-198), whose random draws
-come from a :class:`torch.Generator` and whose arithmetic given the draws
-is :func:`dead_code_reset_with`.
+update (l.99-128), the k-means codebook initialisation (l.131-168) and
+dead-code revival (l.171-198), whose random draws come from a
+:class:`torch.Generator` and whose arithmetic given the draws is
+:func:`kmeans_codebook_init_with` and :func:`dead_code_reset_with`.
 """
 
 from __future__ import annotations
@@ -148,6 +149,59 @@ def ema_codebook_update(codebook: torch.Tensor, state: EMAState, counts: torch.T
     n_e = codebook.shape[0]
     smoothed = (new_counts + eps) / (n + n_e * eps) * n
     return new_means / smoothed[:, None], EMAState(new_counts, new_means)
+
+
+def lloyd_step(z_flat: torch.Tensor, zc: torch.Tensor, gmean: torch.Tensor,
+               cent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Lloyd iteration of ``kmeans_codebook_init``'s body (``ops/vq.py``
+    l.153-166): ``(new centroids, assignments)``. Rows are assigned on the
+    data centred by the global mean ``gmean`` (``zc = z_flat - gmean``) to
+    the first nearest centroid; a centroid becomes the mean of its rows, by
+    one-hot products in ``z_flat``'s dtype, and an empty cluster keeps its
+    centroid."""
+    n_e = cent.shape[0]
+    cc = cent - gmean
+    dist = (zc * zc).sum(1, keepdim=True) + (cc * cc).sum(1) - (2.0 * zc) @ cc.T
+    assign = dist.argmin(1)  # first minimum on ties
+    oh = F.one_hot(assign, n_e).to(z_flat.dtype)
+    counts = oh.sum(0)
+    sums = oh.T @ z_flat
+    new_cent = sums / torch.clamp_min(counts[:, None], 1.0)
+    return torch.where(counts[:, None] > 0, new_cent, cent), assign
+
+
+def kmeans_codebook_init_with(z_flat: torch.Tensor, init_idx: torch.Tensor,
+                              n_iters: int = 25) -> torch.Tensor:
+    """K-means codebook of the (m, D) rows ``z_flat`` from the initial rows
+    ``init_idx`` (n_e distinct indices): ``n_iters`` Lloyd iterations
+    (:func:`lloyd_step`), everything in ``z_flat``'s dtype. The centring
+    matters: a trained encoder puts its rows on a tight shell far from the
+    origin, where the raw ``|z|^2 + |c|^2 - 2 z.c`` expansion cannot tell the
+    centroids apart (see ``vq_raw``)."""
+    cent = z_flat[init_idx.to(z_flat.device)]
+    gmean = z_flat.mean(0, keepdim=True)
+    zc = z_flat - gmean
+    for _ in range(n_iters):
+        cent, _ = lloyd_step(z_flat, zc, gmean, cent)
+    return cent
+
+
+def kmeans_init_indices(m: int, n_e: int, generator: torch.Generator) -> torch.Tensor:
+    """``n_e`` distinct row indices of ``m``, the first of a random
+    permutation drawn from ``generator``. JAX draws them with
+    ``jax.random.choice(key, m, (n_e,), replace=False)``, which torch cannot
+    reproduce (a recorded divergence); a CPU generator draws the same rows
+    whatever device the rows live on."""
+    return torch.randperm(m, generator=generator, device=generator.device)[:n_e]
+
+
+def kmeans_codebook_init(z_flat: torch.Tensor, n_e: int, generator: torch.Generator,
+                         n_iters: int = 25) -> torch.Tensor:
+    """K-means codebook initialisation over encoder outputs (the
+    reference's offline ``scipy.cluster.vq.kmeans2(..., minit='points')``):
+    distinct random rows, then :func:`kmeans_codebook_init_with`."""
+    return kmeans_codebook_init_with(z_flat, kmeans_init_indices(z_flat.shape[0], n_e, generator),
+                                     n_iters)
 
 
 def dead_code_reset_with(codebook, dead_steps, counts, z_rows, pick, noise, threshold: int = 100,

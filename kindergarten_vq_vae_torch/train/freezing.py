@@ -15,7 +15,8 @@ decision taken on the same path:
 - ``vq-ft``: the encoder and decoder frozen entirely.
 
 Parameters outside the encoder and decoder (the codebook) are trainable in
-every mode. The GPT-2 decoder's rules wait for that decoder (ROADMAP item 7).
+every mode. The GPT-2 decoder's rules wait for that decoder (ROADMAP,
+"other variants").
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ in ``[low, high)``; ``pct == 0`` returns the ids unchanged. JAX draws from a
 :class:`torch.Generator`, so the two streams differ and the tests hold
 :func:`replace_pct_rand_values_with`, the part after the draws, against
 JAX given the same ``ranks`` and ``noise``. ``replace_pct_rand_columns``
-waits for the Shelgon variant (ROADMAP item 7).
+waits for the Shelgon variant (ROADMAP, "other variants").
 """
 
 from __future__ import annotations

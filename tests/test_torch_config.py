@@ -52,8 +52,9 @@ def test_overrides_parse_like_the_jax_cli():
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"model_name": "shelgon"}, "item 7"), ({"decoder_model_name": "gpt2"}, "item 7"),
-    ({"vq_mode": "GumbelQuantizer"}, "item 7"), ({"mesh_shape": (4,)}, "item 10"),
+    ({"model_name": "shelgon"}, "other variants"),
+    ({"decoder_model_name": "gpt2"}, "other variants"),
+    ({"vq_mode": "GumbelQuantizer"}, "other variants"), ({"mesh_shape": (4,)}, "multi-device"),
 ])
 def test_refusals_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
