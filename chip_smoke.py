@@ -120,7 +120,19 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    to 1 and the cross maps apart from the self maps; Bagon arithmetic with
    group A = group B on the stage-1 run (Δ = 0, shifted ids = base ids); and
    ``scripts/eval_run_torch.py`` on the stage-3 run (finite stats over the
-   whole test split).
+   whole test split);
+13. the other variants (``VARIANTS``: Shelgon, Shelgon2 with
+   ``mask_pct_train=0.1``, Shelgon3-Gumbel) at the same width: each one's
+   batch-256 gradients through the kernels held against an f32 plain step
+   as in phase 9, its first batch-2048 step's loss against the plain
+   route's from the same weights and generator seed, 4 steps through the
+   kernels (24 #1, 24 #2, 24 + 12 #3 / #4, one #7, #8 and #14 a step, no
+   #5) with the median beside phase 8's Shelgon3-VQ step; Shelgon with both
+   masks None (the layers' null-mask branch) against all-ones masks; a
+   1-epoch ``python -m kindergarten_vq_vae_torch.cli shelgon2`` run on the
+   cut corpus (its label columns on the device), served through
+   ``Reconstructor`` (``reconstruct``, ``encode``); and
+   ``latent_traversals_shelgon`` on the Shelgon model.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -2788,6 +2800,264 @@ def phase_research(names: tuple[str, str]) -> dict:
     return out
 
 
+# phase 13, the other variants at bert-base width (12 + 12 layers, bf16,
+# dropout 0.1 / 0.1): the config changes from the Shelgon3-VQ cell, and the
+# training steps each takes at batch 2048 (the first held to the plain route)
+VARIANTS = (("shelgon", {"model_name": "shelgon"}),
+            ("shelgon2", {"model_name": "shelgon2", "mask_pct_train": 0.1}),
+            ("shelgon3-gumbel", {"model_name": "shelgon3", "vq_mode": "GumbelQuantizer"}))
+VARIANT_STEPS = 4
+
+
+def _variant_batch(batch: int) -> dict:
+    """``_train_batch`` with seeded 5- and 8-factor labels and their one-hots."""
+    import numpy as np
+    import torch
+
+    out = _train_batch(batch)
+    rng = np.random.default_rng(SEED + 1)
+    for k, n in (("labels", 5), ("labels8", 8)):
+        out[k] = torch.from_numpy(rng.integers(0, 3, (batch, n))).cuda()
+        out[k.replace("labels", "one_hot")] = torch.nn.functional.one_hot(out[k], 3)
+    return out
+
+
+def _variant_grads(cfg, model, batch) -> dict:
+    """Loss and gradients of the kernel route, the plain bf16 route and an
+    f32 plain route on ``model``'s weights, the same batch and generator
+    seed; the kernel route's gradients no further from the f32 ones than
+    ``PATH_SLACK`` times the plain route's (phase 9's bar), leaf by leaf
+    where the f32 gradient is more than rounding noise."""
+    import dataclasses
+
+    import torch
+
+    from kindergarten_vq_vae_torch.models import build_model
+    from kindergarten_vq_vae_torch.train.variants import make_loss_fn
+
+    def run(m, c, reference):
+        for p in m.parameters():
+            p.grad = None
+        loss, _ = make_loss_fn(c, "train", reference=reference)(
+            m, batch, torch.Generator(device="cuda").manual_seed(SEED + 2), False)
+        loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in m.named_parameters()
+                             if p.grad is not None}
+
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = build_model(f32_cfg, device="cuda")
+    f32.load_state_dict(model.state_dict())
+    _, ref = run(f32, f32_cfg, True)
+    del f32
+    # a leaf whose f32 gradient is rounding noise (Shelgon's proj_in_conv_bias:
+    # its exact gradient is 0) has no relative error to speak of
+    noise = 1e-6 * max(g.abs().max().item() for g in ref.values())
+    out = {}
+    for path, reference in (("plain", True), ("kernel", False)):
+        loss, got = run(model, cfg, reference)
+        if got.keys() != ref.keys():
+            _fail(f"{cfg.model_name} {path} route: gradients reach other leaves than f32")
+        num = sum(((got[n] - ref[n]) ** 2).sum().item() for n in ref)
+        den = sum((ref[n] ** 2).sum().item() for n in ref)
+        leaf = {n: ((got[n] - ref[n]).norm() / ref[n].norm()).item() for n in ref
+                if ref[n].abs().max() > noise}
+        out[path] = {"loss": loss, "global_rel_l2": (num / den) ** 0.5,
+                     "worst_leaf_rel_l2": max(leaf.values()),
+                     "finite": all(_finite(v) for v in got.values())}
+    for what in ("global_rel_l2", "worst_leaf_rel_l2"):
+        if (not out["kernel"]["finite"]
+                or out["kernel"][what] > PATH_SLACK * out["plain"][what]):
+            _fail(f"{cfg.model_name}: kernel-route gradients further from f32 than the plain "
+                  f"bf16 route's ({what}): {out}")
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def phase_variants(names: tuple[str, str], vq_step_ms: float) -> dict:
+    """Shelgon, Shelgon2 and Shelgon3-Gumbel at bert-base width: batch-256
+    gradients of the kernel route against the plain and f32 routes; the first
+    batch-2048 step's loss against the plain route's from the same weights and
+    generator seed; VARIANT_STEPS steps with their launches and median; Shelgon
+    with both masks None against all-ones masks; a Shelgon2 CLI run on the cut
+    corpus served through ``Reconstructor``; ``latent_traversals_shelgon``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch import cli
+    from kindergarten_vq_vae_torch.analyses.traversals import latent_traversals_shelgon
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+    from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
+    from kindergarten_vq_vae_torch.train.variants import STAT_KEYS, make_loss_fn
+
+    t_phase = time.perf_counter()
+    out, shelgon = {}, None
+    big, small = _variant_batch(TRAIN_BATCH), _variant_batch(GRAD_BATCH)
+    for name, over in VARIANTS:
+        cfg = dataclasses.replace(_train_cfg(), **over)
+        torch.cuda.empty_cache()
+        model = init_weights(build_model(cfg, device="cuda"),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        grads = _variant_grads(cfg, model, small)
+        with torch.no_grad():  # the first step's draws: a generator seeded as the step's
+            plain_loss = make_loss_fn(cfg, "train", reference=True)(
+                model, big, torch.Generator(device="cuda").manual_seed(SEED), False)[0].item()
+        state = init_train_state(cfg, model)
+        step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+        losses, times = [], []
+        torch.cuda.synchronize()
+        with _plain_refused():
+            _reset_counters()
+            for _ in range(VARIANT_STEPS):
+                t0 = time.perf_counter()
+                state, aux = step(state, big)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append({k: float(aux[k]) for k in STAT_KEYS[cfg.model_name]})
+            counts = _counters()
+        _expect(f"{name}: {VARIANT_STEPS} train steps", counts,
+                _run_counts(counts, VARIANT_STEPS, 0, vq=False))
+        med = statistics.median(times[1:])
+        first, full = losses[0]["loss_full"], [loss["loss_full"] for loss in losses]
+        rel = abs(first - plain_loss) / abs(plain_loss)
+        print(f"variant {name}: batch {TRAIN_BATCH} x {SEQ}, {VARIANT_STEPS} steps, median "
+              f"{med * 1e3:.2f} ms ({TRAIN_BATCH / med:.1f} sentences/s) vs Shelgon3-VQ "
+              f"{vq_step_ms:.2f} ms ({names[0]}; nvidia-smi: {names[1]}); launches a step "
+              f"{ {k: v // VARIANT_STEPS for k, v in counts.items() if v} }; first-step loss "
+              f"{first:.6f}, plain route {plain_loss:.6f}, rel {rel:.2e} (tol {HEAD_LOSS_REL}); "
+              f"batch-{GRAD_BATCH} gradients vs f32 {json.dumps(grads)}")
+        for i, (loss, dt) in enumerate(zip(losses, times)):
+            print(f"  step {i}: {json.dumps(loss)} {dt * 1e3:.1f} ms")
+        if rel > HEAD_LOSS_REL:
+            _fail(f"{name}: the first step's loss is not the plain route's")
+        if not all(math.isfinite(v) for loss in losses for v in loss.values()) \
+                or full[-1] >= full[0]:
+            _fail(f"{name}: train loss not finite or not falling: {full}")
+        out[name] = {"median_ms": med * 1e3, "first_loss_rel": rel, "grads": grads,
+                     "launches_per_step": {k: v // VARIANT_STEPS for k, v in counts.items()}}
+        del state, step, aux
+        if name == "shelgon":
+            shelgon = model
+        del model
+        torch.cuda.empty_cache()
+
+    # Shelgon with both masks None (use_mask_* off) against the all-ones masks
+    cfg = dataclasses.replace(_train_cfg(), model_name="shelgon")
+    res = {}
+    for what, c in (("all-ones masks", cfg),
+                    ("masks None", dataclasses.replace(cfg, use_mask_encoder=False,
+                                                       use_mask_decoder=False))):
+        for p in shelgon.parameters():
+            p.grad = None
+        with _plain_refused():
+            _reset_counters()
+            loss, _ = make_loss_fn(c, "train")(
+                shelgon, small, torch.Generator(device="cuda").manual_seed(SEED + 3), False)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = _counters()
+        _expect(f"shelgon step, {what}", counts,
+                _run_counts(counts, 1, 0, vq=False) | {"adam": 0})
+        res[what] = (loss.item(), {n: p.grad.float() for n, p in shelgon.named_parameters()
+                                   if p.grad is not None})
+    (l1, g1), (l0, g0) = res["all-ones masks"], res["masks None"]
+    num = sum(((g0[n] - g1[n]) ** 2).sum().item() for n in g1)
+    den = sum((g1[n] ** 2).sum().item() for n in g1)
+    rel, grel = abs(l0 - l1) / abs(l1), (num / den) ** 0.5
+    print(f"shelgon, batch {GRAD_BATCH}, masks None vs all-ones: loss {l0:.6f} vs {l1:.6f} "
+          f"(rel {rel:.2e}, tol {HEAD_LOSS_REL}), gradients global rel L2 {grel:.3e} "
+          f"(tol {TRAIN_REL})")
+    if g0.keys() != g1.keys() or rel > HEAD_LOSS_REL or grel > TRAIN_REL:
+        _fail("Shelgon with null masks does not agree with all-ones masks")
+    del res, g0, g1
+    for p in shelgon.parameters():
+        p.grad = None
+
+    # latent traversal on the Shelgon model: every class set to label 2
+    ids, mask = big["input_ids"][:8].cpu().numpy(), big["attention_mask"][:8].cpu().numpy()
+    override = np.zeros((cfg.num_latent_classes, cfg.num_labels_per_class), np.float32)
+    override[:, 2] = 1.0
+    _reset_counters()
+    trav = latent_traversals_shelgon(shelgon.eval(), ids, mask, override)
+    counts = _counters()
+    _expect("latent_traversals_shelgon (2 forwards)", counts,
+            {k: 0 for k in counts} | {"layer_fwd": 48, **_inside_layers(2)})
+    sums = np.abs(trav["original_latent_classes"].sum(-1) - 1.0).max()
+    print(f"latent_traversals_shelgon on 8 sentences: ids {trav['traversed_recon_ids'].shape}, "
+          f"latent classes {trav['original_latent_classes'].shape} sum to 1 within {sums:.2e}, "
+          f"{int((trav['traversed_recon_ids'] != trav['original_recon_ids']).sum())} tokens "
+          f"changed by the traversal")
+    if trav["traversed_recon_ids"].shape != (8, SEQ) or sums > 1e-5:
+        _fail("latent_traversals_shelgon gave no reconstructions or no class probabilities")
+    del shelgon
+    torch.cuda.empty_cache()
+
+    # a Shelgon2 CLI run on the cut corpus, served through Reconstructor
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_variants_") as root:
+        data_dir, runs_dir = os.path.join(root, "data"), os.path.join(root, "runs")
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        n = len(prepare_all(data_dir, max_length=SEQ)["sentences_clean"])
+        sets = {"n_epochs": 1, "batch_size": TRAIN_BATCH, "data_dir": data_dir,
+                "runs_dir": runs_dir, "tokenized_sentence_max_length": SEQ,
+                "lim_batches_train_pct": ENGINE_TRAIN_PCT, "ckpt_every_n_epochs": 0,
+                "ckpt_slots": ("loss_recon:val",), "seed": SEED, "mask_pct_train": 0.1}
+        argv = ["shelgon2", "--device", "cuda"]
+        for k, v in sets.items():
+            argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
+        n_train, n_val = int(n * 0.6), int(n * 0.2)
+        steps = int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
+        evals = -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
+        with _plain_refused():
+            _reset_counters()
+            t0 = time.perf_counter()
+            engine = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counters()
+        _expect(f"shelgon2 CLI ({steps} train steps, {evals} eval batches)", counts,
+                _run_counts(counts, steps, evals, vq=False))
+        with open(os.path.join(engine.run_path, "history.json")) as f:
+            history = json.load(f)
+        stats = [h[st] for h in history for st in ("train", "val", "test") if st in h]
+        if not all(math.isfinite(st[k]) for st in stats for k in STAT_KEYS["shelgon2"]):
+            _fail(f"the shelgon2 CLI run's stats are not finite: {history}")
+        print(f"shelgon2 CLI: {' '.join(argv[:3])} ...: {wall:.1f} s, {steps} train steps, "
+              f"{evals} eval batches; train {history[0]['train']['sentences_per_sec']:.1f} "
+              f"sentences/s; test " + json.dumps({k: round(history[-1]["test"][k], 4)
+                                                 for k in STAT_KEYS["shelgon2"]}))
+        rng = np.random.default_rng(SEED)
+        test_split = engine.splits["test"]
+        sentences = [test_split.sentences[i] for i in rng.choice(len(test_split), 5)]
+        run = engine.run_path
+        del engine
+        torch.cuda.empty_cache()
+        rec = Reconstructor(run, device="cuda")
+        _reset_counters()
+        recon = rec.reconstruct(sentences)
+        latents = rec.encode(sentences)
+        served = _counters()
+        want = {k: 0 for k in served} | {"layer_fwd": 36,
+                                         **_inside_layers(1, encoder_forwards=1)}
+        _expect("shelgon2 served (/reconstruct, /encode)", served, want)
+        if ([r["input"] for r in recon] != sentences or "codes" in recon[0]
+                or not all(0.0 <= r["token_acc"] <= 1.0 for r in recon)
+                or latents.shape != (5, 768) or not np.isfinite(latents).all()):
+            _fail(f"serving the shelgon2 run failed: {recon}")
+        print(f"shelgon2 run served through Reconstructor: {recon[0]}; latents {latents.shape}")
+        del rec
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"variants: {out['wall_s']:.1f} s; step medians at batch {TRAIN_BATCH} " + ", ".join(
+        f"{k} {v['median_ms']:.2f} ms" for k, v in out.items() if isinstance(v, dict))
+        + f", shelgon3-VQ {vq_step_ms:.2f} ms ({names[0]}; nvidia-smi: {names[1]})")
+    return out
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -2834,6 +3104,7 @@ def main() -> None:
     serve_off = phase_serve_per_module(names)
     eng_off = phase_engine(names, epochs=1, fused_layer="off")
     phase_research(names)
+    phase_variants(names, tr["auto"]["median_ms"])
     n = tr["auto"]["counts"]
     off = tr["off"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"

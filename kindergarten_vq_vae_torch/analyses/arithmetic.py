@@ -1,11 +1,17 @@
-"""Latent arithmetic on Bagon: a factor direction added to encoder outputs.
+"""Latent arithmetic: a factor direction added at one of three injection points.
 
-Counterpart of ``kindergarten_vq_vae_tpu/analyses/arithmetic.py``, mode
-``bagon`` (the reference's ``latent_arithmetics_Bagon.py:96,119``): encode
-two groups, Δ = mean(A) − mean(B) over their encoder outputs, add Δ to the
-encoder outputs of held-out targets and decode (on CUDA the layer
-kernels). The Shelgon modes ``conditioning`` and ``sentence`` wait for the
-Shelgon variant (ROADMAP, "other variants").
+Counterpart of ``kindergarten_vq_vae_tpu/analyses/arithmetic.py`` (the
+reference's ``analyses/latent_arithmetics/``): encode two groups, take
+Δ = mean(A) − mean(B), add Δ to the latents of held-out targets and decode
+(on CUDA the layer kernels). The three modes:
+
+- ``conditioning``: Δ in Shelgon's post-``proj_out`` conditioning space;
+- ``sentence``: Δ in Shelgon's raw encoder-output space, the shifted states
+  pushed through the bottleneck (``proj_in``, Gumbel softmax, ``proj_out``);
+- ``bagon``: Δ directly on Bagon's encoder outputs.
+
+Shelgon's Gumbel noise comes from a generator seeded 0 on each forward, the
+counterpart of JAX's ``key(0)``.
 """
 
 from __future__ import annotations
@@ -13,10 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kindergarten_vq_vae_torch.analyses.common import as_tensor, device_of
-
-_OTHER_VARIANTS = ("the {} mode needs the Shelgon variant, not ported yet (ROADMAP, modules to "
-                   "port: other variants)")
+from kindergarten_vq_vae_torch.analyses.common import as_tensor, device_of, to_numpy
 
 
 def _decode_ids(tokenizer, ids):
@@ -56,6 +59,62 @@ def _decoder_apply(decoder, ids, mask, hidden) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def _gumbel_generator(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def _shelgon_conditioning(model, input_ids, attention_mask):
+    """(conditioning, encoder_last_hidden_state) of a Shelgon forward."""
+    device = device_of(model)
+    ids, mask = as_tensor(np.asarray(input_ids), device), as_tensor(np.asarray(attention_mask),
+                                                                     device)
+    out = model(ids, mask, ids, mask, generator=_gumbel_generator(device))
+    return out["conditioning"], out["encoder_last_hidden_state"]
+
+
+def _result(model, delta, dec_ids, targets, base_hidden, shifted_hidden, tokenizer) -> dict:
+    """Δ and the decoder's ids over the base and the shifted memory."""
+    mask = targets["attention_mask"]
+    base = _decoder_apply(model.decoder, dec_ids, mask, base_hidden).cpu().numpy()
+    shifted = _decoder_apply(model.decoder, dec_ids, mask, shifted_hidden).cpu().numpy()
+    return {
+        "delta": to_numpy(delta),
+        "base_recon_ids": base,
+        "shifted_recon_ids": shifted,
+        "base_recon": _decode_ids(tokenizer, base),
+        "shifted_recon": _decode_ids(tokenizer, shifted),
+    }
+
+
+@torch.inference_mode()
+def latent_arithmetic_shelgon_conditioning(model, group_a, group_b, targets, tokenizer=None,
+                                           decoder_input_ids=None) -> dict:
+    """Δ in Shelgon's conditioning (post-``proj_out``) space. ``group_a`` /
+    ``group_b`` / ``targets`` hold ``input_ids`` and ``attention_mask``;
+    ``decoder_input_ids`` overrides the teacher-forced decoder inputs."""
+    cond_a, _ = _shelgon_conditioning(model, **group_a)
+    cond_b, _ = _shelgon_conditioning(model, **group_b)
+    delta = torch.mean(cond_a, dim=0) - torch.mean(cond_b, dim=0)
+    dec_ids = targets["input_ids"] if decoder_input_ids is None else decoder_input_ids
+    cond_t, _ = _shelgon_conditioning(model, **targets)
+    return _result(model, delta, dec_ids, targets, cond_t, cond_t + delta, tokenizer)
+
+
+@torch.inference_mode()
+def latent_arithmetic_shelgon_sentence(model, group_a, group_b, targets, tokenizer=None,
+                                       decoder_input_ids=None) -> dict:
+    """Δ in Shelgon's raw encoder-output space, pushed through the bottleneck."""
+    _, h_a = _shelgon_conditioning(model, **group_a)
+    _, h_b = _shelgon_conditioning(model, **group_b)
+    delta = torch.mean(h_a, dim=0) - torch.mean(h_b, dim=0)
+    dec_ids = targets["input_ids"] if decoder_input_ids is None else decoder_input_ids
+    _, h_t = _shelgon_conditioning(model, **targets)
+    device = h_t.device
+    cond_shift = model.bottleneck(h_t + delta, _gumbel_generator(device))[2]
+    cond_base = model.bottleneck(h_t, _gumbel_generator(device))[2]
+    return _result(model, delta, dec_ids, targets, cond_base, cond_shift, tokenizer)
+
+
 @torch.inference_mode()
 def latent_arithmetic_bagon(model, group_a, group_b, targets, tokenizer=None,
                             decoder_input_ids=None) -> dict:
@@ -73,16 +132,7 @@ def latent_arithmetic_bagon(model, group_a, group_b, targets, tokenizer=None,
     dec_ids = targets["input_ids"] if decoder_input_ids is None else decoder_input_ids
     h_a, h_b, h_t = encode(group_a), encode(group_b), encode(targets)
     delta = torch.mean(h_a, dim=0) - torch.mean(h_b, dim=0)
-    shifted = _decoder_apply(model.decoder, dec_ids, targets["attention_mask"], h_t + delta)
-    base = _decoder_apply(model.decoder, dec_ids, targets["attention_mask"], h_t)
-    base, shifted = base.cpu().numpy(), shifted.cpu().numpy()
-    return {
-        "delta": delta.float().cpu().numpy(),
-        "base_recon_ids": base,
-        "shifted_recon_ids": shifted,
-        "base_recon": _decode_ids(tokenizer, base),
-        "shifted_recon": _decode_ids(tokenizer, shifted),
-    }
+    return _result(model, delta, dec_ids, targets, h_t, h_t + delta, tokenizer)
 
 
 def _factor_groups(split, factor: str, value_a: str, value_b: str, n: int):
@@ -117,7 +167,7 @@ def _main(argv=None):
     p = argparse.ArgumentParser(description="latent arithmetic (conditioning | sentence | bagon)")
     p.add_argument("run_dir")
     p.add_argument("--mode", default="bagon", choices=("conditioning", "sentence", "bagon"),
-                   help="injection point; conditioning and sentence need the Shelgon variant")
+                   help="injection point; conditioning and sentence take a shelgon run")
     p.add_argument("--factor", default="verb_tense", help="explicit factor, e.g. verb_tense")
     p.add_argument("--a", default="present", help="factor value of group A")
     p.add_argument("--b", default="past", help="factor value of group B")
@@ -130,8 +180,6 @@ def _main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.mode != "bagon":
-        raise NotImplementedError(_OTHER_VARIANTS.format(args.mode))
     cfg, model = load_run(args.run_dir, device=args.device)
     splits, tokenizer = load_data(cfg)
     group_a, group_b = _factor_groups(splits["train"], args.factor, args.a, args.b, args.n)
@@ -144,7 +192,10 @@ def _main(argv=None):
     elif args.dec_input == "rand":
         dec_ids = randomized_decoder_inputs(tokenizer, targets["input_ids"],
                                             targets["attention_mask"], pct=args.dec_rand_pct)
-    res = latent_arithmetic_bagon(model, group_a, group_b, targets, tokenizer, decoder_input_ids=dec_ids)
+    fn = {"conditioning": latent_arithmetic_shelgon_conditioning,
+          "sentence": latent_arithmetic_shelgon_sentence,
+          "bagon": latent_arithmetic_bagon}[args.mode]
+    res = fn(model, group_a, group_b, targets, tokenizer, decoder_input_ids=dec_ids)
     for base, shifted in zip(res.get("base_recon") or [], res.get("shifted_recon") or []):
         print(f"base   : {base}\nshifted: {shifted}\n")
     out = args.out or os.path.join(args.run_dir, f"latent_arithmetic_{args.mode}.json")

@@ -5,7 +5,10 @@ reference's ``extract_model_cross_attention.py`` and
 ``plot_model_cross_attention.py``): the decoder runs with
 ``output_attentions=True`` (the per-module route, as in JAX) over batches;
 each batch's maps are averaged over its rows, then over the batches, for
-the cross- and the self-attention alike.
+the cross- and the self-attention alike. Every variant takes its own
+forward (JAX l.40-47); the Gumbel noise of Shelgon, Shelgon2 and
+Shelgon3-Gumbel comes from a generator seeded 0 on each batch, the
+counterpart of JAX's ``key(0)``.
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ def extract_cross_attention(model, input_ids: np.ndarray, attention_mask: np.nda
     n_batches = 0
     for _, _, chunk in padded_batches({"ids": input_ids, "mask": attention_mask}, batch_size):
         ids_t, mask_t = as_tensor(chunk["ids"], device), as_tensor(chunk["mask"], device)
-        if model_kind == "bagon":
-            out = model(ids_t, mask_t, ids_t, mask_t, output_attentions=True)
+        kw = dict(output_attentions=True, generator=torch.Generator(device=device).manual_seed(0))
+        if model_kind in ("bagon", "shelgon"):
+            out = model(ids_t, mask_t, ids_t, mask_t, **kw)
+        elif model_kind == "shelgon3":
+            out = model(ids_t, mask_t, is_training=False, **kw)
         else:
-            out = model(ids_t, mask_t, output_attentions=True)
+            out = model(ids_t, mask_t, **kw)
         # (layers, B, heads, S, S) -> mean over the batch -> (layers, heads, S, S)
         cross = torch.stack(out["decoder_cross_attentions"]).float().mean(1)
         self_ = torch.stack(out["decoder_attentions"]).float().mean(1)

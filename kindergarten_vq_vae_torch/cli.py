@@ -1,6 +1,8 @@
 """Training entry point of the port.
 
     python -m kindergarten_vq_vae_torch.cli shelgon3 --set n_epochs=2 --set batch_size=2048
+    python -m kindergarten_vq_vae_torch.cli shelgon3 --set vq_mode=GumbelQuantizer
+    python -m kindergarten_vq_vae_torch.cli shelgon2 --set mask_pct_train=0.1
     python -m kindergarten_vq_vae_torch.cli bagon --config run_conf.json --device cpu
     python -m kindergarten_vq_vae_torch.cli shelgon3 --resume runs/<run_id>
 
@@ -37,7 +39,7 @@ def apply_overrides(cfg: RunConfig, overrides: list[str]) -> RunConfig:
 
 def main(argv: list[str] | None = None):
     parser = argparse.ArgumentParser(description="Train a model on dSentences (PyTorch port)")
-    parser.add_argument("model_name", help="bagon | shelgon3")
+    parser.add_argument("model_name", help="bagon | shelgon | shelgon2 | shelgon3")
     parser.add_argument("--config", default=None, help="path to a run_conf.json-style config")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         help="override any config field (repeatable)")

@@ -15,9 +15,9 @@ TPU implementation rather than a function are read and ignored:
 ``vq_use_fused``, ``remat``, ``rng_impl`` and the tile sizes
 (``sdpa_block_b``, ``layer_block_b_*``, ``layer_attn_chunk*``,
 ``head_ce_block_*``). On CUDA the layers (on either route), the VQ and the
-CE always run as the port's kernels, in bf16 only. Fields of variants the port
-does not have yet (Shelgon, Shelgon2, the Gumbel quantizer) are carried so
-the schema stays whole; :func:`refuse_unported` raises on them.
+CE always run as the port's kernels, in bf16 only. Fields of what the port
+does not have yet (the GPT-2 decoder, a device mesh) are carried so the
+schema stays whole; :func:`refuse_unported` raises on them.
 """
 
 from __future__ import annotations
@@ -201,10 +201,6 @@ def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for what the
     port does not have yet."""
     refused = (
-        (cfg.model_name in ("shelgon", "shelgon2"),
-         f"model {cfg.model_name!r}", "modules to port: other variants"),
-        (cfg.vq_mode != "VectorQuantizer",
-         f"vq_mode={cfg.vq_mode!r}", "modules to port: other variants, ops/gumbel.py"),
         ("gpt" in cfg.decoder_model_name,
          "the GPT-2 decoder", "modules to port: other variants, nn/gpt2.py"),
         (bool(cfg.mesh_shape),

@@ -1,7 +1,8 @@
 """Model builders: a run config to a module, and seeded weights.
 
 Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` ``bert_configs``
-/ ``build_model`` / ``init_params`` for the models the port has.
+/ ``build_model`` / ``init_params`` for Bagon, Shelgon, Shelgon2 and
+Shelgon3 (either quantizer) with BERT decoders.
 """
 
 from __future__ import annotations
@@ -11,10 +12,13 @@ from torch import nn
 
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.models.bagon import Bagon
-from kindergarten_vq_vae_torch.models.shelgon3 import Shelgon3
+from kindergarten_vq_vae_torch.models.shelgon import Shelgon
+from kindergarten_vq_vae_torch.models.shelgon2 import Shelgon2
+from kindergarten_vq_vae_torch.models.shelgon3 import GumbelQuantizer, Shelgon3
 from kindergarten_vq_vae_torch.nn.bert import BertConfig
 
-__all__ = ["Bagon", "Shelgon3", "bert_configs", "build_model", "init_weights"]
+__all__ = ["Bagon", "Shelgon", "Shelgon2", "Shelgon3", "bert_configs", "build_model",
+           "init_weights"]
 
 
 def _route(value: str, name: str) -> bool:
@@ -58,15 +62,26 @@ def build_model(cfg: RunConfig, device=None, fused_head: bool = False) -> nn.Mod
     """The run's model with uninitialised parameters on ``device``. With
     ``fused_head`` its output carries the fused head + CE's inputs in place of
     the logits (the training and eval steps of a ``fused_head_ce`` run);
-    the parameters are the same either way."""
+    the parameters are the same either way. Shelgon2's ``mask_pct`` is the
+    loss's argument, not the model's: one model serves every stage."""
     enc, dec = bert_configs(cfg, fused_head)
-    if cfg.model_name == "bagon":
+    name, seq_len = cfg.model_name, cfg.tokenized_sentence_max_length
+    if name == "bagon":
         return Bagon(enc, dec, device)
-    if cfg.model_name == "shelgon3":
+    if name == "shelgon":
+        return Shelgon(enc, dec, emb_size=cfg.emb_size, seq_len=seq_len,
+                       num_latent_classes=cfg.num_latent_classes,
+                       num_labels_per_class=cfg.num_labels_per_class, device=device)
+    if name == "shelgon2":
+        return Shelgon2(enc, dec, word_emb_size=cfg.word_embedding_size, sentence_len=seq_len,
+                        num_latent_gen_factors=cfg.num_latent_gen_factors, device=device)
+    if name == "shelgon3":
         return Shelgon3(enc, dec, vq_mode=cfg.vq_mode, vq_n_e=cfg.vq_n_e, vq_e_dim=cfg.vq_e_dim,
-                        vq_beta=cfg.vq_beta, vq_ema_update=cfg.vq_ema_update, device=device)
-    raise NotImplementedError(
-        f"model {cfg.model_name!r} is not ported yet (ROADMAP, modules to port: other variants)")
+                        vq_beta=cfg.vq_beta, vq_temperature=cfg.vq_temperature,
+                        vq_kl_div_scale=cfg.vq_kl_div_scale,
+                        vq_straight_through=cfg.vq_straight_through,
+                        vq_ema_update=cfg.vq_ema_update, device=device)
+    raise ValueError(f"unknown model_name {name}")
 
 
 INIT_STD = 0.02  # bert-base initializer_range, as the JAX package's BertConfig
@@ -75,19 +90,25 @@ INIT_STD = 0.02  # bert-base initializer_range, as the JAX package's BertConfig
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation with the JAX package's distributions: normal(0.02)
-    kernels and embedding tables, zero biases, unit LayerNorm scales, and a
-    uniform(+-1/n_e) codebook. ``generator`` must live on the parameters' device."""
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("kernel", "embedding", "position_embeddings", "decoder_kernel"):
-            p.normal_(0.0, INIT_STD, generator=generator)
-        elif leaf in ("bias", "decoder_bias"):
-            p.zero_()
-        elif leaf == "scale":
-            p.fill_(1.0)
-        elif leaf == "codebook":
-            n_e = p.shape[0]
-            p.uniform_(-1.0 / n_e, 1.0 / n_e, generator=generator)
-        else:
-            raise KeyError(f"no initialiser for parameter {name}")
+    kernels (every leaf named ``kernel`` or ``*_kernel``) and embedding
+    tables, zero biases (``bias`` / ``*_bias``), unit LayerNorm scales, a
+    uniform(+-1/n_e) VQ codebook and a normal(0.02) Gumbel codebook (JAX
+    ``models/shelgon3.py:115``). ``generator`` must live on the parameters'
+    device."""
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            if leaf == "kernel" or leaf.endswith("_kernel") or leaf in (
+                    "embedding", "position_embeddings"):
+                p.normal_(0.0, INIT_STD, generator=generator)
+            elif leaf == "bias" or leaf.endswith("_bias"):
+                p.zero_()
+            elif leaf == "scale":
+                p.fill_(1.0)
+            elif leaf == "codebook" and isinstance(mod, GumbelQuantizer):
+                p.normal_(0.0, INIT_STD, generator=generator)
+            elif leaf == "codebook":
+                n_e = p.shape[0]
+                p.uniform_(-1.0 / n_e, 1.0 / n_e, generator=generator)
+            else:
+                raise KeyError(f"no initialiser for parameter {mod_name}.{leaf}")
     return model

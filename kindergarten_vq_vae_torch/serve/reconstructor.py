@@ -9,10 +9,15 @@ dropped from the results.
 - ``reconstruct``: sentences -> reconstructed sentences (+ token accuracy,
   + codes for shelgon3)
 - ``encode``: sentences -> sentence-level latents (encoder pooler output)
-- ``codes``: sentences -> VQ codebook indices (shelgon3)
+- ``codes``: sentences -> codebook indices (shelgon3, either quantizer)
 
-On CUDA every layer and the VQ bottleneck run as the package's kernels,
-which take bfloat16 activations only.
+Each variant takes its own forward (JAX l.59-71): Bagon and Shelgon the
+same ids and mask on both sides, Shelgon3 with ``is_training`` off (the
+Gumbel quantizer hard), Shelgon2 its two arguments. The Gumbel noise of
+Shelgon, Shelgon2 and Shelgon3-Gumbel comes from a generator seeded 0 on
+each forward, the counterpart of JAX's ``key(0)``. On CUDA every layer and
+the VQ bottleneck run as the package's kernels, which take bfloat16
+activations only.
 """
 
 from __future__ import annotations
@@ -52,11 +57,14 @@ class Reconstructor:
     # ------------------------------------------------------------------ core
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, reference: bool = False):
-        """(reconstruction ids, VQ codes or zeros), both (B, S), on the device."""
-        if self.model_name == "shelgon3":
-            out = self.model(ids, mask, reference=reference)
+        """(reconstruction ids, codes or zeros), both (B, S), on the device."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        if self.model_name in ("bagon", "shelgon"):
+            out = self.model(ids, mask, ids, mask, reference=reference, generator=gen)
+        elif self.model_name == "shelgon3":
+            out = self.model(ids, mask, reference=reference, is_training=False, generator=gen)
         else:
-            out = self.model(ids, mask, ids, mask, reference=reference)
+            out = self.model(ids, mask, reference=reference, generator=gen)
         recon_ids = torch.argmax(out["logits"], dim=-1)
         codes = out.get("min_encoding_indices")
         return recon_ids, (codes[..., 0] if codes is not None else torch.zeros_like(ids))
@@ -116,7 +124,7 @@ class Reconstructor:
         return np.concatenate(chunks)
 
     def codes(self, sentences: list[str]) -> list[list[int]]:
-        """VQ codebook indices per token (shelgon3)."""
+        """Codebook indices per token (shelgon3)."""
         if self.model_name != "shelgon3":
             raise ValueError("codes() requires a shelgon3 run")
         ids, mask = self._tokenize(sentences)

@@ -62,6 +62,7 @@ from kindergarten_vq_vae_torch.train.step import (
 from kindergarten_vq_vae_torch.train.variants import (
     BEST_MODES,
     CKPT_KEYS,
+    LABEL_KEYS,
     STAT_KEYS,
     _resolve_head_ce,
     load_codebook_init,
@@ -105,6 +106,7 @@ class Engine:
         # the training and eval steps share the model: built for the fused
         # head + CE when the run asks for it (a served run takes the logits)
         self._fused_head = _resolve_head_ce(cfg) is not None
+        self._batch_keys = _BATCH_KEYS + LABEL_KEYS.get(cfg.model_name, ())
         model = build_model(cfg, device=self.device, fused_head=self._fused_head)
         if params is not None:
             state = params_from_jax(params) if "encoder" in params else params
@@ -112,7 +114,8 @@ class Engine:
         else:
             init_weights(model, torch.Generator(device=self.device).manual_seed(cfg.seed))
             init_values = load_codebook_init(cfg)
-            if init_values is not None and cfg.model_name == "shelgon3":
+            if (init_values is not None and cfg.model_name == "shelgon3"
+                    and cfg.vq_mode == "VectorQuantizer"):
                 with torch.no_grad():
                     model.vector_quantizer.codebook.copy_(torch.as_tensor(init_values))
         if cfg.from_pretrained_bagon:
@@ -165,7 +168,7 @@ class Engine:
 
     def _put_batch(self, batch: dict) -> dict:
         out = {"n_valid": int(batch["n_valid"])}
-        for k in _BATCH_KEYS:
+        for k in self._batch_keys:
             if k in batch:
                 t = torch.from_numpy(np.asarray(batch[k], dtype=np.int64))
                 if self.device.type == "cuda":

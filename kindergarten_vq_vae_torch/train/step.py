@@ -62,9 +62,11 @@ def init_train_state(cfg: RunConfig, model: nn.Module) -> TrainState:
     device = next(model.parameters()).device
     state = TrainState(model, AdamState(0, [], [], None), mask=mask)
     state.opt_state = make_optimizer(cfg, device).init([p for _, p in state.trainable()])
-    if cfg.model_name == "shelgon3" and cfg.vq_ema_update:
+    # the codebook state exists only under the VQ (JAX engine.py:193-199)
+    vq = cfg.model_name == "shelgon3" and cfg.vq_mode == "VectorQuantizer"
+    if vq and cfg.vq_ema_update:
         state.ema = init_ema_state(model.vector_quantizer.codebook)
-    if cfg.model_name == "shelgon3" and cfg.vq_dead_code_threshold > 0:
+    if vq and cfg.vq_dead_code_threshold > 0:
         state.dead_steps = torch.zeros(cfg.vq_n_e, dtype=torch.int32, device=device)
     return state
 

@@ -2,9 +2,11 @@
 """Where the time of one training step of the PyTorch port goes, on one CUDA card.
 
     python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
-                                          [--fused-layer auto]
+                                          [--fused-layer auto] [--model shelgon3]
 
-Builds a seeded full-width bert-base Shelgon3-VQ (bf16, dropout 0.1 / 0.1,
+Builds a seeded full-width bert-base Shelgon3-VQ, or with ``--model`` Shelgon3
+with the Gumbel quantizer, Shelgon or Shelgon2 (``mask_pct_train`` 0.1; the
+batch carries seeded 5- and 8-factor labels) (bf16, dropout 0.1 / 0.1,
 AMSGrad lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
 fused head + CE, kernels #9 and #10, in place of the logits path;
 ``--fused-layer off``: the per-module trunk, cuBLAS projections around the
@@ -17,7 +19,11 @@ then reports for one batch of ``--batch`` x 12 tokens:
 - ``torch.profiler`` device time over ``--steps`` steps, grouped by kernel
   family and divided by the step count, the ten largest kernels of the
   catch-all PyTorch family, and the device idle share
-  ``1 - kernel time / wall``.
+  ``1 - kernel time / wall``;
+- the bottleneck alone (the VQ, the Gumbel quantizer, Shelgon's
+  ``bottleneck`` or Shelgon2's ``sentence_discretizer``):
+  ``torch.profiler`` device time and launches of its forward and backward
+  on the step's shapes (random bf16 encoder states), per call.
 
 The last line is one JSON object with the numbers. It imports nothing of JAX.
 """
@@ -106,12 +112,64 @@ def family(name: str) -> str:
     return OTHER
 
 
+# --model: the run-config fields that make each model from the defaults
+MODELS = {
+    "shelgon3": {"model_name": "shelgon3"},
+    "shelgon3-gumbel": {"model_name": "shelgon3", "vq_mode": "GumbelQuantizer"},
+    "shelgon": {"model_name": "shelgon"},
+    "shelgon2": {"model_name": "shelgon2", "mask_pct_train": 0.1},
+}
+
+
+def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
+    """Device ms and launches of one forward + backward of the model's
+    bottleneck alone, on random bf16 encoder states of the step's shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = (batch,) if cfg.model_name == "shelgon2" else (batch, 12)
+    h = torch.randn(*rows, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    h.requires_grad_()
+    if cfg.model_name == "shelgon":
+        def fn():
+            logits, classes, cond = model.bottleneck(h, gen)
+            return cond.sum() + logits.sum()
+    elif cfg.model_name == "shelgon2":
+        def fn():
+            disc, softs, _ = model.sentence_discretizer(h, None, gen)
+            return disc.sum() + softs.sum()
+    elif cfg.vq_mode == "GumbelQuantizer":
+        def fn():
+            out = model.gumbel_quantizer(h, True, gen)
+            return out.z_q.sum() + out.diff
+    else:
+        def fn():
+            out = model.vector_quantizer(h)
+            return out.z_q.sum() + out.loss
+    for _ in range(2):
+        fn().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn().backward()
+        torch.cuda.synchronize()
+    kernels = [evt for evt in prof.events()
+               if str(getattr(evt, "device_type", None)).endswith("CUDA")
+               and evt.device_time_total > 0]
+    names = collections.Counter(evt.name[:80] for evt in kernels)
+    return {"device_ms": sum(evt.device_time_total for evt in kernels) / 1e3 / calls,
+            "launches": len(kernels) / calls,
+            "kernels": {k: v / calls for k, v in names.most_common(12)}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fused-head-ce", choices=("off", "store", "flash"), default="off")
     ap.add_argument("--fused-layer", choices=("auto", "off"), default="auto")
+    ap.add_argument("--model", choices=tuple(MODELS), default="shelgon3")
     args = ap.parse_args()
 
     import numpy as np
@@ -125,15 +183,18 @@ def main() -> None:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16",
-                    fused_head_ce=args.fused_head_ce, fused_layer=args.fused_layer)
+    cfg = RunConfig(compute_dtype="bfloat16", fused_head_ce=args.fused_head_ce,
+                    fused_layer=args.fused_layer, **MODELS[args.model])
     model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(cfg, model)
-    ids = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (args.batch, 12)))
-    ids = ids.cuda()
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (args.batch, 12))).cuda()
     batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids, dtype=torch.int32),
              "n_valid": args.batch}
+    for k, n in (("labels", 5), ("labels8", 8)):
+        batch[k] = torch.from_numpy(rng.integers(0, 3, (args.batch, n))).cuda()
+        batch[k.replace("labels", "one_hot")] = torch.nn.functional.one_hot(batch[k], 3)
 
     events = []  # (phase, CUDA event) of the step being timed; None: not timing
 
@@ -195,6 +256,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
+        "model": args.model,
         "fused_head_ce": args.fused_head_ce, "fused_layer": args.fused_layer,
         "wall_ms_median": statistics.median(walls),
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
@@ -204,9 +266,12 @@ def main() -> None:
         "launches_per_step": {k: v / args.steps for k, v in launches.items()},
         "largest_other_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:10]),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "bottleneck": profile_bottleneck(model, cfg, args.batch, args.steps),
     }
     for k, v in out["by_family_ms"].items():
         print(f"{v:10.3f} ms  {out['launches_per_step'][k]:8.1f} launches  {k}")
+    print(f"bottleneck alone, forward + backward: {out['bottleneck']['device_ms']:.3f} ms, "
+          f"{out['bottleneck']['launches']:.1f} launches")
     print(json.dumps(out))
 
 

@@ -18,8 +18,17 @@ packages split it.
 - ``latent_arithmetic_bagon``: Δ within 1e-5 (measured 4.8e-7), the base and
   shifted reconstruction ids equal; ``masked_decoder_inputs`` equal;
   ``randomized_decoder_inputs`` keeps the padding and replaces exactly the
-  ``floor(pct * numel)`` positions its generator draws; the Shelgon modes
-  raise, naming ROADMAP's "other variants".
+  ``floor(pct * numel)`` positions its generator draws.
+- The Shelgon analyses, both sides fed the same Gumbel noise
+  (``test_torch_gumbel.NoiseFeed``, one array per shape):
+  ``latent_traversals_shelgon`` (the reconstruction ids equal, the latent
+  classes within 1e-5); ``latent_arithmetic_shelgon_conditioning`` /
+  ``_sentence`` (Δ within 1e-5 of the largest latent it is a difference
+  of means of, the ids equal; Δ = 0 and the base ids for A = B); the
+  attention maps of Shelgon, Shelgon2 and Shelgon3-Gumbel within 1e-5;
+  ``arithmetic._main`` in the ``conditioning`` and ``sentence`` modes on a
+  written Shelgon run directory (the JSON it writes holds the ids the
+  functions give on the same groups).
 - ``get_max_acc_sentences``: the same frame as JAX's from the same feather.
 - ``batched_apply``: the outputs (a dict and a tuple, padded tail trimmed)
   of JAX's, with and without ``lim_batches_pct``.
@@ -37,6 +46,7 @@ from kindergarten_vq_vae_tpu.analyses import arithmetic as jax_arith
 from kindergarten_vq_vae_tpu.analyses import cross_attention as jax_xattn
 from kindergarten_vq_vae_tpu.analyses import disentanglement as jax_dis
 from kindergarten_vq_vae_tpu.analyses import latent_space as jax_latent
+from kindergarten_vq_vae_tpu.analyses import traversals as jax_trav
 from kindergarten_vq_vae_tpu.analyses.max_acc import get_max_acc_sentences as jax_max_acc
 from kindergarten_vq_vae_tpu.data.dataset import DSentences as JaxDSentences
 from kindergarten_vq_vae_tpu.data.dataset import split_dataset as jax_split
@@ -44,13 +54,16 @@ from kindergarten_vq_vae_tpu.train.config import RunConfig as JaxRunConfig
 from kindergarten_vq_vae_tpu.train.variants import build_model as jax_build_model
 from kindergarten_vq_vae_tpu.train.variants import init_params
 from kindergarten_vq_vae_torch.analyses import arithmetic, cross_attention, disentanglement
-from kindergarten_vq_vae_torch.analyses import latent_space
+from kindergarten_vq_vae_torch.analyses import latent_space, traversals
+from kindergarten_vq_vae_torch.analyses.common import load_run
 from kindergarten_vq_vae_torch.analyses.max_acc import get_max_acc_sentences
 from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.data.dataset import DSentences, split_dataset
 from kindergarten_vq_vae_torch.data.tokenizer import WordTokenizer
 from kindergarten_vq_vae_torch.models import build_model
+from kindergarten_vq_vae_torch.train.run import load_data
+from test_torch_gumbel import NoiseFeed
 
 ATTN_ABS, LATENT_ABS, DELTA_ABS = 1e-5, 1e-5, 1e-5
 TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
@@ -203,10 +216,101 @@ def test_randomized_decoder_inputs_draw_exactly_their_share(data):
     np.testing.assert_array_equal(got[~drawn], ids[~drawn])
 
 
+def _factor_split(data, split, value, n=4):
+    return arithmetic._factor_groups(data["torch"][split], "verb_tense", value,
+                                     "past" if value == "present" else "present", n)[0]
+
+
+def test_traversal_matches_jax(data, monkeypatch):
+    _, model, _, jmodel, params = _models("shelgon")
+    NoiseFeed(monkeypatch, per_shape=True)
+    b = _batch(data["torch"]["test"], 0, 8)
+    override = np.zeros((5, 3), np.float32)
+    override[:, 2] = 1.0
+    dec_ids = arithmetic.masked_decoder_inputs(data["tok"], b["input_ids"], b["attention_mask"])
+    want = jax_trav.latent_traversals_shelgon(jmodel, params, b["input_ids"],
+                                              b["attention_mask"], override, data["jax_tok"],
+                                              decoder_input_ids=dec_ids)
+    got = traversals.latent_traversals_shelgon(model, b["input_ids"], b["attention_mask"],
+                                               override, data["tok"], decoder_input_ids=dec_ids)
+    for k in ("original_recon_ids", "traversed_recon_ids"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["original_latent_classes"].shape == (8, 5, 3)
+    assert np.abs(got["original_latent_classes"] - want["original_latent_classes"]).max() \
+        <= LATENT_ABS
+    assert got["traversed_recon"] == want["traversed_recon"]
+
+
 @pytest.mark.parametrize("mode", ["conditioning", "sentence"])
-def test_shelgon_arithmetic_modes_wait_for_other_variants(mode, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*other variants"):
-        arithmetic._main([str(tmp_path), "--mode", mode, "--device", "cpu"])
+def test_latent_arithmetic_shelgon_matches_jax(data, monkeypatch, mode):
+    _, model, _, jmodel, params = _models("shelgon", seed=2)
+    NoiseFeed(monkeypatch, per_shape=True)
+    monkeypatch.setattr(jax_arith, "_JIT_CACHE", {})
+    a, b = _factor_split(data, "train", "present"), _factor_split(data, "train", "past")
+    t = _factor_split(data, "val", "past")
+    want = getattr(jax_arith, f"latent_arithmetic_shelgon_{mode}")(jmodel, params, a, b, t)
+    fn = getattr(arithmetic, f"latent_arithmetic_shelgon_{mode}")
+    got = fn(model, a, b, t)
+    with torch.no_grad():  # Δ is a difference of means of these latents
+        latents = arithmetic._shelgon_conditioning(model, **a)[0 if mode == "conditioning" else 1]
+    assert got["delta"].shape == (12, 32)
+    assert np.abs(got["delta"] - want["delta"]).max() <= DELTA_ABS * latents.abs().max().item()
+    for k in ("base_recon_ids", "shifted_recon_ids"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    same = fn(model, a, a, t)
+    assert not same["delta"].any()
+    np.testing.assert_array_equal(same["shifted_recon_ids"], same["base_recon_ids"])
+
+
+@pytest.mark.parametrize("model_name, over", [
+    ("shelgon", {}), ("shelgon2", {}), ("shelgon3", {"vq_mode": "GumbelQuantizer"})])
+def test_variant_cross_attention_matches_jax(data, monkeypatch, model_name, over):
+    cfg = RunConfig(model_name=model_name, **{**TINY, **over})
+    jcfg = JaxRunConfig.from_flat_dict(cfg.get_config())
+    params = jax.tree_util.tree_map(np.asarray, init_params(jcfg, jax.random.key(0)))
+    model = build_model(cfg, device="cpu").eval()
+    model.load_state_dict(params_from_jax(params), strict=True)
+    NoiseFeed(monkeypatch, per_shape=True)
+    b = _batch(data["torch"]["train"], 0, 20)  # a full batch of 16 and a padded one
+    want = jax_xattn.extract_cross_attention(jax_build_model(jcfg, "test"), params,
+                                             b["input_ids"], b["attention_mask"], batch_size=16)
+    got = cross_attention.extract_cross_attention(model, b["input_ids"], b["attention_mask"],
+                                                  batch_size=16, model_kind=model_name)
+    for k in ("cross_attns", "self_attns"):
+        assert got[k].shape == (2, 2, 12, 12)
+        assert np.abs(got[k] - want[k]).max() <= ATTN_ABS, k
+
+
+@pytest.mark.parametrize("mode", ["conditioning", "sentence"])
+def test_shelgon_arithmetic_modes_wait_for_other_variants(mode, data, tmp_path):
+    """Once a refusal, now the ``_main`` of the Shelgon modes on a written run."""
+    from kindergarten_vq_vae_torch.ckpt.checkpoint import (
+        best_ckpt_name,
+        model_tree,
+        write_checkpoint,
+    )
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+
+    data_dir, run = tmp_path / "data", tmp_path / "run"
+    generate_dsentences(str(data_dir), num_verbs=2, num_objects=2)
+    prepare_all(str(data_dir), max_length=12)
+    cfg, model, *_ = _models("shelgon", seed=3)
+    run.mkdir()
+    RunConfig.from_flat_dict({**cfg.get_config(), "data_dir": str(data_dir)}).save(
+        str(run / "run_conf.json"))
+    write_checkpoint(str(run / best_ckpt_name("shelgon", "loss_recon", "val")), model_tree(model))
+    out = tmp_path / "out.json"
+    arithmetic._main([str(run), "--mode", mode, "--device", "cpu", "--n", "4",
+                      "--out", str(out)])
+    res = json.loads(out.read_text())
+    _, loaded = load_run(str(run), device="cpu")
+    splits, tok = load_data(RunConfig.load(str(run / "run_conf.json")))
+    a, b = arithmetic._factor_groups(splits["train"], "verb_tense", "present", "past", 4)
+    t, _ = arithmetic._factor_groups(splits["val"], "verb_tense", "past", "present", 4)
+    want = getattr(arithmetic, f"latent_arithmetic_shelgon_{mode}")(loaded, a, b, t, tok)
+    assert res["shifted_recon_ids"] == want["shifted_recon_ids"].tolist()
+    assert res["base_recon"] == want["base_recon"] and len(res["base_recon"]) == 4
 
 
 def test_max_acc_matches_jax(tmp_path):

@@ -68,11 +68,22 @@ division, the row means summed in another order); every column sum
 b1 from the GELU-gradient GEMM's epilogue) within 1e-4 of its largest
 magnitude (f32 sums over up to 24,576 rows in another order; for b1 also
 the GEMM's own 1e-4), and the same bits from run to run.
+The other variants (Shelgon, also with both masks None, Shelgon2 with
+``mask_pct_train``, Shelgon3-Gumbel) at a small bf16 size, one training
+loss and backward with dropout on: the kernel route's loss within 1e-3 of
+the plain route's from the same weights and generator seed, and its
+gradients no further (global and per-leaf relative L2) from an f32 plain
+step's than 1.25 times the plain bf16 route's, leaves whose f32 gradient is
+rounding noise aside (``chip_smoke.py``'s bars).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.ops.adam import AdamScalars, adam_update_reference, amsgrad_update
 from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
 from kindergarten_vq_vae_torch.ops.ce import (
@@ -131,6 +142,7 @@ from kindergarten_vq_vae_torch.ops.sdpa import (
 )
 from kindergarten_vq_vae_torch.ops.vq import vector_quantize
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
+from kindergarten_vq_vae_torch.train.variants import make_loss_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -1043,3 +1055,55 @@ def test_layer_training_step_counts_its_layernorm_kernels(gen, decoder):
     assert [f.launches - b for f, b in zip(counters, before)] == [
         n, n, 3 if decoder else 1, 21 if decoder else 12]
     assert all(torch.isfinite(w.grad).all() for w in ws)
+
+
+VARIANT_CASES = [("shelgon", {}),
+                 ("shelgon", {"use_mask_encoder": False, "use_mask_decoder": False}),
+                 ("shelgon2", {"mask_pct_train": 0.1}),
+                 ("shelgon3", {"vq_mode": "GumbelQuantizer"})]
+
+
+@pytest.mark.parametrize("model_name, over", VARIANT_CASES,
+                         ids=["shelgon", "shelgon-masks-none", "shelgon2", "shelgon3-gumbel"])
+def test_variant_kernel_route_matches_plain(gen, model_name, over):
+    cfg = RunConfig(model_name=model_name, vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, vq_e_dim=128, enc_out_size=128,
+                    emb_size=128, word_embedding_size=128, tokenized_sentence_max_length=12,
+                    compute_dtype="bfloat16", **over)
+    model = init_weights(build_model(cfg, device="cuda"), gen)
+    b = 48
+    ids = torch.randint(1, 512, (b, 12), generator=gen, device="cuda")
+    lens = torch.randint(3, 13, (b, 1), generator=gen, device="cuda")
+    mask = (torch.arange(12, device="cuda")[None] < lens).to(torch.int32)
+    labels = torch.randint(0, 3, (b, 5), generator=gen, device="cuda")
+    labels8 = torch.randint(0, 3, (b, 8), generator=gen, device="cuda")
+    batch = {"input_ids": ids * mask, "attention_mask": mask, "n_valid": b - 5,
+             "labels": labels, "one_hot": torch.nn.functional.one_hot(labels, 3),
+             "labels8": labels8, "one_hot8": torch.nn.functional.one_hot(labels8, 3)}
+
+    def run(m, c, reference):
+        for p in m.parameters():
+            p.grad = None
+        loss, _ = make_loss_fn(c, "train", reference=reference)(
+            m, batch, torch.Generator(device="cuda").manual_seed(7), False)
+        loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in m.named_parameters()
+                             if p.grad is not None}
+
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = build_model(f32_cfg, device="cuda")
+    f32.load_state_dict(model.state_dict())
+    _, ref = run(f32, f32_cfg, True)
+    noise = 1e-6 * max(g.abs().max().item() for g in ref.values())
+    dist = {}
+    for path, reference in (("plain", True), ("kernel", False)):
+        loss, got = run(model, cfg, reference)
+        assert got.keys() == ref.keys() and all(torch.isfinite(g).all() for g in got.values())
+        glob = (sum(((got[n] - ref[n]) ** 2).sum() for n in ref)
+                / sum((ref[n] ** 2).sum() for n in ref)).sqrt().item()
+        leaf = max(((got[n] - ref[n]).norm() / ref[n].norm()).item() for n in ref
+                   if ref[n].abs().max() > noise)
+        dist[path] = (loss, glob, leaf)
+    (lp, gp, wp), (lk, gk, wk) = dist["plain"], dist["kernel"]
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert gk <= 1.25 * gp and wk <= 1.25 * wp, dist

@@ -34,7 +34,7 @@ through the per-module trunk, once with ``fused_attn="on"`` (JAX: the Pallas
 SDPA kernels in interpret mode; the port: #11 / #12's plain versions) and
 once with ``"off"`` (the einsum route on both sides), under the same
 criteria. The last test lists what the step still refuses, each with its
-ROADMAP item.
+ROADMAP item, and takes one step of each variant ported since.
 """
 
 import jax
@@ -50,7 +50,7 @@ from kindergarten_vq_vae_tpu.train.variants import init_params, make_loss_fn
 from kindergarten_vq_vae_tpu.utils import metrics as jm
 from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
 from kindergarten_vq_vae_torch.config import RunConfig as TorchRunConfig
-from kindergarten_vq_vae_torch.models import build_model
+from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.train.optim import Adam
 from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
 from kindergarten_vq_vae_torch.utils.metrics import (
@@ -205,13 +205,28 @@ def test_metrics_match_jax():
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"model_name": "shelgon"}, "other variants"), ({"model_name": "shelgon2"}, "other variants"),
-    ({"vq_mode": "GumbelQuantizer"}, "other variants"),
+    ({"model_name": "shelgon"}, None), ({"model_name": "shelgon2"}, None),
+    ({"vq_mode": "GumbelQuantizer"}, None),
     ({"decoder_model_name": "gpt2"}, "other variants"), ({"mesh_shape": (2,)}, "multi-device"),
 ])
 def test_step_refuses_what_is_not_ported(override, item):
+    """The GPT-2 decoder and a mesh raise, naming their ROADMAP item; the
+    variants ported since (``item`` None) take a step with finite stats."""
     tcfg = TorchRunConfig(**{**dict(model_name="shelgon3", vocab_size=40, hidden_size=32,
                                     num_layers=1, num_heads=2, intermediate_size=64, vq_e_dim=32,
-                                    vq_n_e=5, compute_dtype="float32"), **override})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        make_train_step(tcfg, "cpu", torch.Generator())
+                                    emb_size=32, word_embedding_size=32, vq_n_e=5,
+                                    compute_dtype="float32"), **override})
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            make_train_step(tcfg, "cpu", torch.Generator())
+        return
+    step = make_train_step(tcfg, "cpu", torch.Generator().manual_seed(0))
+    model = init_weights(build_model(tcfg), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    labels, labels8 = rng.integers(0, 3, (B, 5)), rng.integers(0, 3, (B, 8))
+    batch = {"input_ids": torch.from_numpy(rng.integers(1, 40, (B, S))),
+             "attention_mask": torch.ones(B, S, dtype=torch.int32), "n_valid": B,
+             "labels": torch.from_numpy(labels), "one_hot": torch.eye(3)[labels],
+             "labels8": torch.from_numpy(labels8), "one_hot8": torch.eye(3)[labels8]}
+    state, aux = step(init_train_state(tcfg, model), batch)
+    assert state.step == 1 and torch.isfinite(aux["loss_full"])
