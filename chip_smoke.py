@@ -65,6 +65,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    its time beside the plain single-pass version's, the per-leaf update's,
    its bound and ``torch.optim.Adam(fused=True, amsgrad=True)`` on the same
    leaves (a same-bytes yardstick only: it maxes the raw second moment);
+   then the same over the whole parameter list of phase 14's Bagon with the
+   GPT-2-small decoder, as its step updates it (the tied ``wte`` of 50,257
+   rows, the bare ``wpe``, the blocks' cross-attention leaves);
 6. serving slice: a full-width bert-base Shelgon3-VQ run (12 + 12 layers,
    H 768, vocab 30522, 9 codes, bf16) with seeded weights, written as a
    flat-npy checkpoint and served over HTTP through the kernels; launch
@@ -132,7 +135,20 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    1-epoch ``python -m kindergarten_vq_vae_torch.cli shelgon2`` run on the
    cut corpus (its label columns on the device), served through
    ``Reconstructor`` (``reconstruct``, ``encode``); and
-   ``latent_traversals_shelgon`` on the Shelgon model.
+   ``latent_traversals_shelgon`` on the Shelgon model;
+14. the GPT-2 decoder (``GPT2_MODELS``: Bagon and Shelgon3-VQ with a
+   GPT-2-small decoder, 12 blocks at H 768, the published vocabulary of
+   50,257): #7 and #8 at the step's (24,576, 50,257) logits against their
+   plain versions (rows at all eight 16-byte phases; #8's element path),
+   timed in turns with their bounds and library calls; each model's
+   batch-256 gradients against an f32 plain step as in phase 9, its first
+   batch-2048 step's loss against the plain route's, 4 steps through the
+   kernels (12 #1, 12 #2 with 12 #3, one #7, #8 and #14 a step, #5 under
+   Shelgon3-VQ, no #4: the GPT-2 blocks are plain PyTorch, as they are XLA
+   in JAX) with the median and peak memory; a 1-epoch ``python -m
+   kindergarten_vq_vae_torch.cli bagon --set decoder_model_name='gpt2'``
+   run on the cut corpus (its BPE trained from the corpus), served through
+   ``Reconstructor``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -348,11 +364,12 @@ def _reset_counters() -> None:
     w["gemm"].forward_launches = 0
 
 
-def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0) -> dict:
+def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0,
+                   encoder_backwards: int = 0) -> dict:
     """The launches of the layer GEMM, of the attention forward and of the
     LayerNorm and column-sum kernels made inside the layer kernels in that
     many model forwards (12 encoder and 12 decoder layers), backwards and
-    encoder-only forwards, as counted: a residual + LayerNorm after each
+    encoder-only forwards and backwards, as counted: a residual + LayerNorm after each
     projection into the residual stream (2 an encoder layer, 3 a decoder
     layer), a LayerNorm backward for each, and the column sums of bqkv (and
     of a decoder's bq and bkv; b1 comes from a GEMM's epilogue)."""
@@ -362,11 +379,13 @@ def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0)
     enc = layer_gemms(LayerGeom(causal=False, has_cross=False, **geom))
     dec = layer_gemms(LayerGeom(causal=True, has_cross=True, **geom))
     fwd = 12 * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
-    return {"gemm": fwd + 12 * backwards * (enc[1] + dec[1]), "gemm_in_fwd": fwd,
+    bwd = 12 * (backwards * (enc[1] + dec[1]) + encoder_backwards * enc[1])
+    return {"gemm": fwd + bwd, "gemm_in_fwd": fwd,
             "attn_fwd_self": 12 * (2 * forwards + encoder_forwards),
             "attn_fwd_cross": 12 * forwards,
-            "ln_fwd": 12 * (5 * forwards + 2 * encoder_forwards), "ln_bwd": 12 * 5 * backwards,
-            "colsum": 12 * 4 * backwards}
+            "ln_fwd": 12 * (5 * forwards + 2 * encoder_forwards),
+            "ln_bwd": 12 * (5 * backwards + 2 * encoder_backwards),
+            "colsum": 12 * (4 * backwards + encoder_backwards)}
 
 
 def _nbytes(*objs) -> int:
@@ -922,8 +941,12 @@ def _ulps(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def phase_adam(names: tuple[str, str]) -> dict:
-    """Kernel #14 against its plain version over the bert-base parameter list."""
+def phase_adam(names: tuple[str, str], decoder: str = "bert") -> dict:
+    """Kernel #14 against its plain version over the parameter list of the
+    bert-base Shelgon3-VQ, or with ``decoder="gpt2"`` of the Bagon with the
+    GPT-2-small decoder of phase 14, whole, as its step updates it (395
+    leaves, 244 of them GPT-2's: the tied ``wte`` of 50,257 rows, the bare
+    ``wpe``, the blocks' cross-attention)."""
     import dataclasses
 
     import torch
@@ -932,16 +955,19 @@ def phase_adam(names: tuple[str, str]) -> dict:
     from kindergarten_vq_vae_torch.ops.adam import amsgrad_update
     from kindergarten_vq_vae_torch.train.optim import Adam, FusedAdam
 
-    cfg = dataclasses.replace(_train_cfg(), weight_decay=0.01, lr_scheduler="MultiStepLR",
+    base = _gpt2_cfg(model_name="bagon") if decoder == "gpt2" else _train_cfg()
+    cfg = dataclasses.replace(base, weight_decay=0.01, lr_scheduler="MultiStepLR",
                               milestones=(2,), gamma=0.5)
     model = build_model(cfg, device="cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
     named = [(n, p.detach()) for n, p in model.named_parameters()]
-    # a frozen subset (the encoder's embeddings) stays out of the table, as a
-    # model_mode mask leaves it, and must come out untouched (no stray write
-    # past a leaf); the pooler gets no gradient, as in the step
-    leaves = [(n, p) for n, p in named if not n.startswith("encoder.embeddings.")]
-    frozen = {n: p.clone() for n, p in named if n.startswith("encoder.embeddings.")}
+    # over bert-base, a frozen subset (the encoder's embeddings) stays out of
+    # the table, as a model_mode mask leaves it, and must come out untouched
+    # (no stray write past a leaf); over GPT-2 the table is the step's, every
+    # leaf; the pooler gets no gradient, as in the step
+    prefix = ("encoder.embeddings.",) if decoder == "bert" else ()
+    leaves = [(n, p) for n, p in named if not n.startswith(prefix)]
+    frozen = {n: p.clone() for n, p in named if n.startswith(prefix)}
     start = [p.clone() for _, p in leaves]
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     grads = [[None if n.startswith("encoder.pooler.")
@@ -969,12 +995,13 @@ def phase_adam(names: tuple[str, str]) -> dict:
     # g + wd * p is 0, so its moments and its step stay 0, as in optax)
     moved = all(not torch.equal(x, p) for x, p, gr in zip(pk, start, grads[0])
                 if gr is not None or bool(p.any()))
-    n_el = sum(p.numel() for _, p in leaves)
-    print(f"amsgrad ({len(leaves)} leaves, {n_el} elements, {sum(t.numel() for t in frozen.values())}"
+    n_leaves, n_el = len(leaves), sum(p.numel() for _, p in leaves)
+    print(f"amsgrad, {decoder} decoder ({n_leaves} leaves, {n_el} elements, "
+          f"{sum(t.numel() for t in frozen.values())}"
           f" frozen left out, pooler without gradient) x {ADAM_STEPS} steps, wd 0.01, milestone 2: "
           f"launches {launches}, kernel vs plain max {worst} ulps (tol 0), every leaf moved {moved}")
     if launches != ADAM_STEPS or worst != 0 or not moved:
-        _fail("the AMSGrad kernel disagrees with its plain version")
+        _fail(f"the AMSGrad kernel disagrees with its plain version ({decoder} decoder)")
     if any(not torch.equal(p, frozen[n]) for n, p in named if n in frozen):
         _fail("a frozen leaf moved")
 
@@ -991,15 +1018,16 @@ def phase_adam(names: tuple[str, str]) -> dict:
     torch_adam = torch.optim.Adam(yard, lr=cfg.lr, weight_decay=cfg.weight_decay, amsgrad=True,
                                   fused=True)
     yard_ms = _time_ms(torch_adam.step, 10)
-    print(f"amsgrad: kernel {k_ms:.4f} ms, plain single-pass {p_ms:.4f} ms, per-leaf update "
-          f"(fused_update='off') {per_leaf_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-          f"{nbytes} B); torch.optim.Adam(fused=True, amsgrad=True) on the same leaves "
+    print(f"amsgrad, {decoder} decoder: kernel {k_ms:.4f} ms, plain single-pass {p_ms:.4f} ms, "
+          f"per-leaf update (fused_update='off') {per_leaf_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {nbytes} B); torch.optim.Adam(fused=True, amsgrad=True) on the same leaves "
           f"{yard_ms:.4f} ms (same-bytes yardstick only: another function) "
           f"({names[0]}; nvidia-smi: {names[1]})")
     del model, named, leaves, start, grads, pk, st_k, yard, torch_adam
     torch.cuda.empty_cache()
     return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
-            "per_leaf_ms": per_leaf_ms, "yardstick_ms": yard_ms}
+            "per_leaf_ms": per_leaf_ms, "yardstick_ms": yard_ms, "leaves": n_leaves,
+            "elements": n_el}
 
 
 def _sentences(n: int, rng) -> list[str]:
@@ -1426,21 +1454,95 @@ def _check_keep_masks(seed: int) -> None:
     del out, resid, got, want
 
 
-def phase_train_kernels() -> dict:
-    """Each training kernel against its plain version at the shapes of the
-    batch-2048 bert-base step, and its time beside the plain one's."""
+def _ce_case(g, rows: int, vocab: int):
+    """(rows, vocab) bf16 logits of std 3 with ties far apart, side by side
+    and an all-equal row (rows 0-2), and uniform int32 targets."""
+    import torch
+
+    logits = (3.0 * torch.randn(rows, vocab, device="cuda", generator=g)).bfloat16()
+    logits[0, [5, 9000, vocab - 522]] = 40.0
+    logits[1, [7, 8]] = 40.0
+    logits[2] = 0.5
+    t = torch.randint(0, vocab, (rows,), device="cuda", generator=g, dtype=torch.int32)
+    return logits, t
+
+
+def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
+    """#7 and #8 on ``logits`` against their plain versions (ids exact, NLL
+    within CE_NLL_ABS, the gradient within CE_GRAD_REL of its largest), each
+    timed in turns with its plain version, with its bound and library
+    yardstick: (#7's row, #8's row, #7's NLL)."""
     import torch
     import torch.nn.functional as F
 
     from kindergarten_vq_vae_torch.ops.ce import (
         ce_bwd,
         ce_bwd_reference,
-        ce_fwd,
         ce_fwd_ids,
         ce_fwd_ids_reference,
-        ce_fwd_reference,
-        fused_ce_loss,
     )
+
+    rows, vocab = logits.shape
+    with torch.no_grad():
+        nll, ids = ce_fwd_ids(logits, t)
+        torch.cuda.synchronize()
+        nll_p, ids_p = ce_fwd_ids_reference(logits, t)
+        nll_err = (nll - nll_p).abs().max().item()
+        ids_ok = torch.equal(ids, ids_p) and ids[:3].tolist() == [5, 7, 0]
+        print(f"ce fwd ({rows},{vocab}) bf16: ids exact {ids_ok}, nll max abs {nll_err:.3e} "
+              f"(tol {CE_NLL_ABS})")
+        if not ids_ok or nll_err > CE_NLL_ABS:
+            _fail(f"CE forward kernel disagrees with its plain version at vocabulary {vocab}")
+        k_ms, p_ms = _paired_ms(lambda: ce_fwd_ids(logits, t),
+                                lambda: ce_fwd_ids_reference(logits, t), 10)
+        # max, subtract, exp, add per logit
+        bound = _bound(4 * rows * vocab, _nbytes(logits, t, nll, ids), PEAK_F32)
+        two_ms = _time_ms(lambda: (F.cross_entropy(logits, t.long(), reduction="none"),
+                                   torch.argmax(logits, 1)), 10)
+        fwd = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound],
+               "two_call_ms": two_ms}
+        print(f"ce fwd ids ({rows},{vocab}): kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the "
+              f"{bound[1]} bound {bound[0]:.4f} ms), plain {p_ms:.4f} ms; two-call yardstick "
+              f"F.cross_entropy(reduction='none') + torch.argmax(x, 1) {two_ms:.4f} ms")
+        lse = nll_p + logits.float().gather(1, t.long()[:, None])[:, 0]
+        scale = torch.full((rows,), 1.0 / rows, device="cuda")
+        got = ce_bwd(logits, t, lse, scale)
+        torch.cuda.synchronize()
+        want = ce_bwd_reference(logits, t, lse, scale)
+        rel = _rel_max(got, want)
+        print(f"ce bwd ({rows},{vocab}) bf16: max rel {rel:.3e} (tol {CE_GRAD_REL})")
+        if rel > CE_GRAD_REL:
+            _fail(f"CE backward kernel disagrees with its plain version at vocabulary {vocab}")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        k_ms, p_ms = _paired_ms(lambda: ce_bwd(logits, t, lse, scale),
+                                lambda: ce_bwd_reference(logits, t, lse, scale), 10)
+        # subtract, exp, one-hot subtract, scale, round per logit; bytes: the
+        # logits read and the gradient written once, plus the per-row vectors
+        bound = _bound(5 * rows * vocab, 2 * _nbytes(logits) + _nbytes(t, lse, scale), PEAK_F32)
+    # the same function in one PyTorch call: the autograd backward of
+    # F.cross_entropy(reduction="none") fed scale as its output gradient
+    with torch.enable_grad():
+        lib_in = logits.detach().requires_grad_()
+        lib_nll = F.cross_entropy(lib_in, t.long(), reduction="none")
+        lib_ms = _time_ms(lambda: torch.autograd.grad(lib_nll, lib_in, scale.to(lib_nll.dtype),
+                                                      retain_graph=True), 10)
+    del lib_in, lib_nll
+    bwd = {"max_abs_err": err, "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound],
+           "library_ms": lib_ms, "library": "autograd backward of F.cross_entropy(reduction='none')"}
+    print(f"ce bwd ({rows},{vocab}): kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the "
+          f"{bound[1]} bound {bound[0]:.4f} ms), plain {p_ms:.4f} ms, autograd backward of "
+          f"F.cross_entropy(reduction='none') {lib_ms:.4f} ms")
+    return fwd, bwd, nll
+
+
+def phase_train_kernels() -> dict:
+    """Each training kernel against its plain version at the shapes of the
+    batch-2048 bert-base step, and its time beside the plain one's."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.ce import ce_fwd, ce_fwd_reference, fused_ce_loss
     from kindergarten_vq_vae_torch.ops.dropout import cross_op
     from kindergarten_vq_vae_torch.ops.vq import vector_quantize
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
@@ -1578,33 +1680,9 @@ def phase_train_kernels() -> dict:
     del z, k, p
 
     # streaming CE at the step's logits shape, with ties inside and across blocks
-    logits = (3.0 * torch.randn(rows, VOCAB, device="cuda", generator=g)).bfloat16()
-    logits[0, [5, 9000, 30000]] = 40.0
-    logits[1, [7, 8]] = 40.0
-    logits[2] = 0.5
-    t = torch.randint(0, VOCAB, (rows,), device="cuda", generator=g, dtype=torch.int32)
+    logits, t = _ce_case(g, rows, VOCAB)
+    res["ce_fwd_ids"], res["ce_bwd"], nll = _ce_ids_and_grad(logits, t)
     with torch.no_grad():
-        nll, ids = ce_fwd_ids(logits, t)
-        torch.cuda.synchronize()
-        nll_p, ids_p = ce_fwd_ids_reference(logits, t)
-        nll_err = (nll - nll_p).abs().max().item()
-        ids_ok = torch.equal(ids, ids_p) and ids[:3].tolist() == [5, 7, 0]
-        print(f"ce fwd ({rows},{VOCAB}) bf16: ids exact {ids_ok}, nll max abs {nll_err:.3e} "
-              f"(tol {CE_NLL_ABS})")
-        if not ids_ok or nll_err > CE_NLL_ABS:
-            _fail("CE forward kernel disagrees with its plain version")
-        k_ms, p_ms = _paired_ms(lambda: ce_fwd_ids(logits, t),
-                                lambda: ce_fwd_ids_reference(logits, t), 10)
-        # max, subtract, exp, add per logit
-        bound = _bound(4 * rows * VOCAB, _nbytes(logits, t, nll, ids), PEAK_F32)
-        two_ms = _time_ms(lambda: (F.cross_entropy(logits, t.long(), reduction="none"),
-                                   torch.argmax(logits, 1)), 10)
-        res["ce_fwd_ids"] = {"max_abs_err": nll_err, "ms": [k_ms], "plain_ms": [p_ms],
-                             "bound": [bound], "two_call_ms": two_ms}
-        print(f"ce fwd ids: kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the {bound[1]} bound "
-              f"{bound[0]:.4f} ms), plain {p_ms:.4f} ms; two-call yardstick "
-              f"F.cross_entropy(reduction='none') + torch.argmax(x, 1) {two_ms:.4f} ms")
-
         # #6: the NLL alone; one PyTorch call computes the same function
         nll6 = ce_fwd(logits, t)
         torch.cuda.synchronize()
@@ -1625,33 +1703,6 @@ def phase_train_kernels() -> dict:
         print(f"ce fwd (#6): kernel {k_ms:.4f} ms ({bound[0] / k_ms:.0%} of the {bound[1]} bound "
               f"{bound[0]:.4f} ms), plain {p_ms:.4f} ms, F.cross_entropy(reduction='none') "
               f"{lib_ms:.4f} ms")
-        lse = nll_p + logits.float().gather(1, t.long()[:, None])[:, 0]
-        scale = torch.full((rows,), 1.0 / rows, device="cuda")
-        got = ce_bwd(logits, t, lse, scale)
-        torch.cuda.synchronize()
-        want = ce_bwd_reference(logits, t, lse, scale)
-        rel = _rel_max(got, want)
-        print(f"ce bwd ({rows},{VOCAB}) bf16: max rel {rel:.3e} (tol {CE_GRAD_REL})")
-        if rel > CE_GRAD_REL:
-            _fail("CE backward kernel disagrees with its plain version")
-        k_ms, p_ms = _paired_ms(lambda: ce_bwd(logits, t, lse, scale),
-                                lambda: ce_bwd_reference(logits, t, lse, scale), 10)
-        # subtract, exp, one-hot subtract, scale, round per logit
-        bound = _bound(5 * rows * VOCAB, _nbytes(logits, t, lse, scale, got), PEAK_F32)
-    # the same function in one PyTorch call: the autograd backward of
-    # F.cross_entropy(reduction="none") fed scale as its output gradient
-    with torch.enable_grad():
-        lib_in = logits.detach().requires_grad_()
-        lib_nll = F.cross_entropy(lib_in, t.long(), reduction="none")
-        lib_ms = _time_ms(lambda: torch.autograd.grad(lib_nll, lib_in, scale.to(lib_nll.dtype),
-                                                      retain_graph=True), 10)
-    del lib_in, lib_nll
-    res["ce_bwd"] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                     "ms": [k_ms], "plain_ms": [p_ms], "bound": [bound], "library_ms": lib_ms,
-                     "library": "autograd backward of F.cross_entropy(reduction='none')"}
-    print(f"ce bwd: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}), autograd backward of F.cross_entropy(reduction='none') {lib_ms:.4f} ms")
-    del got, want
 
     # fused_ce_loss through its autograd: #6 forward, #8 backward (no model path
     # calls it, in the JAX package or here: this run is its path)
@@ -3058,6 +3109,198 @@ def phase_variants(names: tuple[str, str], vq_step_ms: float) -> dict:
     return out
 
 
+# phase 14, the GPT-2 decoder: a bert-base encoder with a GPT-2-small decoder
+# (12 blocks, H 768, 12 heads, the published vocabulary of 50,257), bf16,
+# dropout 0.1 / 0.1, batch 2048; the models that take it, and the steps each
+# takes (the first held to the plain route)
+GPT2_VOCAB, GPT2_STEPS = 50257, 4
+GPT2_MODELS = (("bagon-gpt2", {"model_name": "bagon"}),
+               ("shelgon3-vq-gpt2", {"model_name": "shelgon3"}))
+
+
+def _gpt2_cfg(**over):
+    import dataclasses
+
+    return dataclasses.replace(_train_cfg(), decoder_model_name="gpt2",
+                               decoder_vocab_size=GPT2_VOCAB, **over)
+
+
+def _gpt2_batch(batch: int) -> dict:
+    """``_train_batch`` with seeded decoder ids in [1, 50,257) (the BPE side
+    of the dual tokenization, which Bagon's decoder reads)."""
+    import numpy as np
+    import torch
+
+    out = _train_batch(batch)
+    rng = np.random.default_rng(SEED + 4)
+    out["dec_input_ids"] = torch.from_numpy(rng.integers(1, GPT2_VOCAB, (batch, SEQ))).cuda()
+    out["dec_attention_mask"] = out["attention_mask"]
+    return out
+
+
+def _gpt2_counts(counts: dict, steps: int, evals: int, vq: bool) -> dict:
+    """The launches of ``steps`` training steps and ``evals`` eval batches of a
+    GPT-2-decoder model: the 12 encoder layers through #1 / #2 (with #3), the
+    CE through #7 / #8, the update #14, the VQ #5 under Shelgon3-VQ; the
+    decoder blocks are plain PyTorch, as they are XLA in JAX (no #4)."""
+    want = {k: 0 for k in counts}
+    want.update(layer_fwd=12 * (steps + evals), layer_fwd_resid=12 * steps,
+                layer_bwd=12 * steps, attn_bwd_self=12 * steps,
+                **_inside_layers(0, encoder_forwards=steps + evals, encoder_backwards=steps),
+                ce_fwd_ids=steps + evals, ce_bwd=steps, adam=steps,
+                vq=(steps + evals) if vq else 0)
+    return want
+
+
+def phase_gpt2(names: tuple[str, str], vq_step_ms: float) -> dict:
+    """The GPT-2 decoder at full width: #7 and #8 at (24,576, 50,257) against
+    their plain versions, timed; for Bagon and Shelgon3-VQ with it, batch-256
+    gradients of the kernel route against the plain and f32 routes, the first
+    batch-2048 step's loss against the plain route's, GPT2_STEPS steps with
+    their launches, median and peak memory; a ``bagon`` CLI run with
+    ``decoder_model_name='gpt2'`` on the cut corpus (the BPE trained from it),
+    served through ``Reconstructor``."""
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch import cli
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.nn.gpt2 import GPT2LMHeadModel
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+    from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
+    from kindergarten_vq_vae_torch.train.variants import STAT_KEYS, make_loss_fn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    logits, t = _ce_case(g, TRAIN_BATCH * SEQ, GPT2_VOCAB)
+    # the kernels line takes one time a row, as phase 4's rows give it
+    out = {"ce": {k: {**v, "ms": statistics.mean(v["ms"]),
+                      "plain_ms": statistics.mean(v["plain_ms"])}
+                  for k, v in zip(("ce_fwd_ids", "ce_bwd"), _ce_ids_and_grad(logits, t)[:2])}}
+    del logits, t
+    torch.cuda.empty_cache()
+
+    big, small = _gpt2_batch(TRAIN_BATCH), _gpt2_batch(GRAD_BATCH)
+    for name, over in GPT2_MODELS:
+        cfg = _gpt2_cfg(**over)
+        vq = cfg.model_name == "shelgon3"
+        model = init_weights(build_model(cfg, device="cuda"),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        if not isinstance(model.decoder, GPT2LMHeadModel):
+            _fail(f"{name}: the decoder is not GPT-2's")
+        n_params = sum(p.numel() for p in model.parameters())
+        grads = _variant_grads(cfg, model, small)
+        with torch.no_grad():  # the first step's draws: a generator seeded as the step's
+            plain_loss = make_loss_fn(cfg, "train", reference=True)(
+                model, big, torch.Generator(device="cuda").manual_seed(SEED), False)[0].item()
+        state = init_train_state(cfg, model)
+        step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _plain_refused():
+            _reset_counters()
+            for _ in range(GPT2_STEPS):
+                t0 = time.perf_counter()
+                state, aux = step(state, big)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append({k: float(aux[k]) for k in STAT_KEYS[cfg.model_name]})
+            counts = _counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _expect(f"{name}: {GPT2_STEPS} train steps", counts,
+                _gpt2_counts(counts, GPT2_STEPS, 0, vq=vq))
+        med = statistics.median(times[1:])
+        first, full = losses[0]["loss_full"], [loss["loss_full"] for loss in losses]
+        rel = abs(first - plain_loss) / abs(plain_loss)
+        print(f"gpt2 {name}: {n_params} parameters, batch {TRAIN_BATCH} x {SEQ}, decoder "
+              f"vocabulary {GPT2_VOCAB}, {GPT2_STEPS} steps, median {med * 1e3:.2f} ms "
+              f"({TRAIN_BATCH / med:.1f} sentences/s), max_memory_allocated {peak:.2f} GiB vs "
+              f"the BERT-decoder Shelgon3-VQ {vq_step_ms:.2f} ms ({names[0]}; nvidia-smi: "
+              f"{names[1]}); launches a step "
+              f"{ {k: v // GPT2_STEPS for k, v in counts.items() if v} }; first-step loss "
+              f"{first:.6f}, plain route {plain_loss:.6f}, rel {rel:.2e} (tol {HEAD_LOSS_REL}); "
+              f"batch-{GRAD_BATCH} gradients vs f32 {json.dumps(grads)}")
+        for i, (loss, dt) in enumerate(zip(losses, times)):
+            print(f"  step {i}: {json.dumps(loss)} {dt * 1e3:.1f} ms")
+        if rel > HEAD_LOSS_REL:
+            _fail(f"{name}: the first step's loss is not the plain route's")
+        if not all(math.isfinite(v) for loss in losses for v in loss.values()) \
+                or full[-1] >= full[0]:
+            _fail(f"{name}: train loss not finite or not falling: {full}")
+        out[name] = {"median_ms": med * 1e3, "peak_gib": peak, "first_loss_rel": rel,
+                     "grads": grads, "counts": counts, "n_params": n_params}
+        del state, step, aux, model
+        torch.cuda.empty_cache()
+
+    # a GPT-2 Bagon CLI run on the cut corpus: the BPE trained from the corpus
+    # and saved beside it, a few steps, val and test, served
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_gpt2_") as root:
+        data_dir, runs_dir = os.path.join(root, "data"), os.path.join(root, "runs")
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        n = len(prepare_all(data_dir, max_length=SEQ)["sentences_clean"])
+        sets = {"n_epochs": 1, "batch_size": TRAIN_BATCH, "data_dir": data_dir,
+                "runs_dir": runs_dir, "tokenized_sentence_max_length": SEQ,
+                "lim_batches_train_pct": ENGINE_TRAIN_PCT, "ckpt_every_n_epochs": 0,
+                "ckpt_slots": ("loss_recon:val",), "seed": SEED, "decoder_model_name": "gpt2",
+                "decoder_vocab_size": GPT2_VOCAB}
+        argv = ["bagon", "--device", "cuda"]
+        for k, v in sets.items():
+            argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
+        n_train, n_val = int(n * 0.6), int(n * 0.2)
+        steps = int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
+        evals = -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
+        with _plain_refused():
+            _reset_counters()
+            t0 = time.perf_counter()
+            engine = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counters()
+        _expect(f"bagon gpt2 CLI ({steps} train steps, {evals} eval batches)", counts,
+                _gpt2_counts(counts, steps, evals, vq=False))
+        with open(os.path.join(data_dir, "gpt2_vocab.json")) as f:
+            bpe_vocab = len(json.load(f))
+        with open(os.path.join(engine.run_path, "history.json")) as f:
+            history = json.load(f)
+        stats = [h[st] for h in history for st in ("train", "val", "test") if st in h]
+        if not all(math.isfinite(st[k]) for st in stats for k in STAT_KEYS["bagon"]) \
+                or not 257 <= bpe_vocab <= GPT2_VOCAB:
+            _fail(f"the gpt2 CLI run's stats are not finite or its BPE is amiss: {history}")
+        print(f"bagon gpt2 CLI: {' '.join(argv[:3])} ...: {wall:.1f} s (the BPE trained from "
+              f"the corpus: {bpe_vocab} entries), {steps} train steps, {evals} eval batches; "
+              f"train {history[0]['train']['sentences_per_sec']:.1f} sentences/s; test "
+              + json.dumps({k: round(history[-1]["test"][k], 4) for k in STAT_KEYS["bagon"]}))
+        rng = np.random.default_rng(SEED)
+        test_split = engine.splits["test"]
+        sentences = [test_split.sentences[i] for i in rng.choice(len(test_split), 5)]
+        run = engine.run_path
+        del engine
+        torch.cuda.empty_cache()
+        rec = Reconstructor(run, device="cuda")
+        _reset_counters()
+        recon = rec.reconstruct(sentences)
+        served = _counters()
+        want = {k: 0 for k in served} | {"layer_fwd": 12,
+                                         **_inside_layers(0, encoder_forwards=1)}
+        _expect("bagon gpt2 served (/reconstruct)", served, want)
+        if ([r["input"] for r in recon] != sentences
+                or not all(0.0 <= r["token_acc"] <= 1.0 for r in recon)):
+            _fail(f"serving the gpt2 run failed: {recon}")
+        print(f"bagon gpt2 run served through Reconstructor: {recon[0]}")
+        del rec
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"gpt2: {out['wall_s']:.1f} s; step medians at batch {TRAIN_BATCH} " + ", ".join(
+        f"{k} {out[k]['median_ms']:.2f} ms ({out[k]['peak_gib']:.2f} GiB)"
+        for k, _ in GPT2_MODELS) + f", BERT-decoder shelgon3-VQ {vq_step_ms:.2f} ms "
+        f"({names[0]}; nvidia-smi: {names[1]})")
+    return out
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -3074,6 +3317,7 @@ def main() -> None:
     af = phase_attention_fwd(names)
     hk = phase_head_kernels(names)
     adam = phase_adam(names)
+    adam_g2 = phase_adam(names, "gpt2")
     sl = phase_slice(names)
     tr = {"auto": phase_train(names)}
     for mode in HEAD_MODES:
@@ -3105,6 +3349,7 @@ def main() -> None:
     eng_off = phase_engine(names, epochs=1, fused_layer="off")
     phase_research(names)
     phase_variants(names, tr["auto"]["median_ms"])
+    g2 = phase_gpt2(names, tr["auto"]["median_ms"])
     n = tr["auto"]["counts"]
     off = tr["off"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"
@@ -3164,6 +3409,11 @@ def main() -> None:
         row("layernorm_backward", "layernorm.cu", "layer_pallas.py:552", n["ln_bwd"],
             ln["ln_bwd"]),
         row("column_sums", "layernorm.cu", "layer_pallas.py:552", n["colsum"], ln["colsum"]),
+        *[row(f"{k} (GPT-2 decoder, vocabulary {GPT2_VOCAB})", "ce.cu", f"ce_pallas.py:{line}",
+              g2["bagon-gpt2"]["counts"][k], g2["ce"][k])
+          for k, line in (("ce_fwd_ids", 63), ("ce_bwd", 104))],
+        row("amsgrad_update (GPT-2 decoder's parameter list)", "adam.cu", "adam_pallas.py:46",
+            g2["bagon-gpt2"]["counts"]["adam"], adam_g2),
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

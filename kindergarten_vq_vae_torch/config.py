@@ -15,9 +15,10 @@ TPU implementation rather than a function are read and ignored:
 ``vq_use_fused``, ``remat``, ``rng_impl`` and the tile sizes
 (``sdpa_block_b``, ``layer_block_b_*``, ``layer_attn_chunk*``,
 ``head_ce_block_*``). On CUDA the layers (on either route), the VQ and the
-CE always run as the port's kernels, in bf16 only. Fields of what the port
-does not have yet (the GPT-2 decoder, a device mesh) are carried so the
-schema stays whole; :func:`refuse_unported` raises on them.
+CE always run as the port's kernels, in bf16 only. A ``decoder_model_name``
+holding "gpt" selects the GPT-2 decoder (``nn/gpt2.py``). The fields of a
+device mesh, which the port does not have yet, are carried so the schema
+stays whole; :func:`refuse_unported` raises on them.
 """
 
 from __future__ import annotations
@@ -199,13 +200,7 @@ class RunConfig:
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for what the
-    port does not have yet."""
-    refused = (
-        ("gpt" in cfg.decoder_model_name,
-         "the GPT-2 decoder", "modules to port: other variants, nn/gpt2.py"),
-        (bool(cfg.mesh_shape),
-         f"mesh_shape={tuple(cfg.mesh_shape)}", "modules to port: multi-device"),
-    )
-    for on, what, item in refused:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP, {item})")
+    port does not have yet: a non-empty ``mesh_shape``."""
+    if cfg.mesh_shape:
+        raise NotImplementedError(f"mesh_shape={tuple(cfg.mesh_shape)} is not ported yet "
+                                  "(ROADMAP, modules to port: multi-device)")

@@ -36,7 +36,8 @@
 //   lower index;
 // - lane 0 reads x[row, target] once (0 outside the vocabulary, as
 //   `target_logits` does): no compare an element.
-// The backward streams a row per block with bf16 pairs. #6 and #7 are one
+// The backward streams a row per block with bf16 pairs (elements where the
+// vocabulary is odd or a buffer is not 4-byte aligned). #6 and #7 are one
 // template: the flag IDS drops the argmax state, so the two share every
 // other line and give the same NLL bits.
 
@@ -183,7 +184,13 @@ ce_bwd_kernel(const bf16* __restrict__ logits, int vocab, const int* __restrict_
   const size_t base = (size_t)row * vocab;
   const int tgt = targets[row];
   const float l = lse[row], sc = scale[row];
-  if ((vocab & 1) == 0) {
+  // bf16 pairs need 4-byte aligned rows: an even vocabulary and 4-byte
+  // aligned buffers (a view that starts at an odd element takes the element
+  // path)
+  const bool pairs = (vocab & 1) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(logits) | reinterpret_cast<uintptr_t>(out)) &
+                      3u) == 0;
+  if (pairs) {
     const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(logits + base);
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + base);
     for (int p = tid; p < vocab / 2; p += CE_THREADS) {

@@ -2,7 +2,7 @@
 
 Counterpart of ``kindergarten_vq_vae_tpu/train/variants.py`` ``bert_configs``
 / ``build_model`` / ``init_params`` for Bagon, Shelgon, Shelgon2 and
-Shelgon3 (either quantizer) with BERT decoders.
+Shelgon3 (either quantizer), each with a BERT or a GPT-2 decoder.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from kindergarten_vq_vae_torch.models.shelgon import Shelgon
 from kindergarten_vq_vae_torch.models.shelgon2 import Shelgon2
 from kindergarten_vq_vae_torch.models.shelgon3 import GumbelQuantizer, Shelgon3
 from kindergarten_vq_vae_torch.nn.bert import BertConfig
+from kindergarten_vq_vae_torch.nn.gpt2 import GPT2Config
 
 __all__ = ["Bagon", "Shelgon", "Shelgon2", "Shelgon3", "bert_configs", "build_model",
            "init_weights"]
@@ -33,16 +34,17 @@ def _route(value: str, name: str) -> bool:
     return value != "off"
 
 
-def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, BertConfig]:
-    """(encoder, decoder) BertConfigs of a run; ``fused_head``: the decoder
-    hands the fused head + CE its inputs instead of logits. ``fused_layer``
-    chooses the trunk (the whole-layer kernels or the per-module layers) and
-    ``fused_attn`` the per-module layers' attention core (#11 / #12 or
-    einsum); ``remat`` is read and ignored (ROADMAP)."""
-    if "gpt" in cfg.decoder_model_name:
-        raise NotImplementedError(
-            "the GPT-2 decoder is not ported yet (ROADMAP, modules to port: other variants, "
-            "nn/gpt2.py)")
+def bert_configs(cfg: RunConfig, fused_head: bool = False
+                 ) -> tuple[BertConfig, BertConfig | GPT2Config]:
+    """(encoder BertConfig, decoder BertConfig or GPT2Config) of a run; a
+    ``decoder_model_name`` holding "gpt" selects the GPT-2 decoder (JAX
+    l.126-139: the run's widths, its dropout, tied embeddings,
+    cross-attention, GPT-2's positions and LayerNorm eps).
+    ``fused_head``: the BERT decoder hands the fused head + CE its inputs
+    instead of logits. ``fused_layer`` chooses the trunk (the whole-layer
+    kernels or the per-module layers) and ``fused_attn`` the per-module
+    layers' attention core (#11 / #12 or einsum); ``remat`` is read and
+    ignored (ROADMAP)."""
     common = dict(
         vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, intermediate_size=cfg.intermediate_size,
@@ -52,9 +54,16 @@ def bert_configs(cfg: RunConfig, fused_head: bool = False) -> tuple[BertConfig, 
         fused_sdpa=_route(cfg.fused_attn, "fused_attn"),
     )
     enc = BertConfig(add_pooler=True, **common)
+    dec_vocab = cfg.decoder_vocab_size or cfg.vocab_size
+    if "gpt" in cfg.decoder_model_name:
+        return enc, GPT2Config(
+            vocab_size=dec_vocab, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
+            num_heads=cfg.num_heads, hidden_dropout=cfg.hidden_dropout,
+            attention_dropout=cfg.attention_dropout,
+            tie_word_embeddings=cfg.tie_word_embeddings, add_cross_attention=True,
+            dtype=cfg.dtype)
     dec = BertConfig(is_decoder=True, add_cross_attention=True, add_pooler=False,
-                     fused_head=fused_head,
-                     **{**common, "vocab_size": cfg.decoder_vocab_size or cfg.vocab_size})
+                     fused_head=fused_head, **{**common, "vocab_size": dec_vocab})
     return enc, dec
 
 
@@ -90,15 +99,16 @@ INIT_STD = 0.02  # bert-base initializer_range, as the JAX package's BertConfig
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation with the JAX package's distributions: normal(0.02)
-    kernels (every leaf named ``kernel`` or ``*_kernel``) and embedding
-    tables, zero biases (``bias`` / ``*_bias``), unit LayerNorm scales, a
-    uniform(+-1/n_e) VQ codebook and a normal(0.02) Gumbel codebook (JAX
+    kernels (every leaf named ``kernel`` or ``*_kernel``), embedding and
+    position tables (GPT-2's bare ``wpe`` too), zero biases (``bias`` /
+    ``*_bias``), unit LayerNorm scales, a uniform(+-1/n_e) VQ codebook and a
+    normal(0.02) Gumbel codebook (JAX
     ``models/shelgon3.py:115``). ``generator`` must live on the parameters'
     device."""
     for mod_name, mod in model.named_modules():
         for leaf, p in mod.named_parameters(recurse=False):
             if leaf == "kernel" or leaf.endswith("_kernel") or leaf in (
-                    "embedding", "position_embeddings"):
+                    "embedding", "position_embeddings", "wpe"):
                 p.normal_(0.0, INIT_STD, generator=generator)
             elif leaf == "bias" or leaf.endswith("_bias"):
                 p.zero_()

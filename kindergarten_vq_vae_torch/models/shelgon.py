@@ -23,13 +23,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions
-from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel, Dense, _f32
+from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions, make_decoder
+from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertModel, Dense, _f32
+from kindergarten_vq_vae_torch.nn.gpt2 import GPT2Config
 from kindergarten_vq_vae_torch.ops.gumbel import gumbel_softmax
 
 
 class Shelgon(nn.Module):
-    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, emb_size: int = 768,
+    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig | GPT2Config, emb_size: int = 768,
                  seq_len: int = 14, num_latent_classes: int = 5, num_labels_per_class: int = 3,
                  gumbel_tau: float = 1.0, device=None):
         super().__init__()
@@ -41,7 +42,7 @@ class Shelgon(nn.Module):
         self.proj_out_conv_kernel = _f32((seq_len, num_latent_classes), device)
         self.proj_out_conv_bias = _f32((seq_len,), device)
         self.proj_out_dense = Dense(num_labels_per_class, emb_size, device)
-        self.decoder = BertLMHeadModel(dec_cfg, device)
+        self.decoder = make_decoder(dec_cfg, device)
 
     def proj_in(self, h: torch.Tensor) -> torch.Tensor:
         """Encoder states (B, S, E) -> latent logits (B, C, L), in f32."""

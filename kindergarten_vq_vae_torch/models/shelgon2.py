@@ -26,8 +26,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions
-from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel, Dense, _f32
+from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions, make_decoder
+from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertModel, Dense, _f32
+from kindergarten_vq_vae_torch.nn.gpt2 import GPT2Config
 from kindergarten_vq_vae_torch.ops.gumbel import gumbel_softmax
 from kindergarten_vq_vae_torch.utils.tensor import replace_pct_rand_values
 
@@ -88,14 +89,15 @@ class SentenceDiscretizer(nn.Module):
 
 
 class Shelgon2(nn.Module):
-    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, word_emb_size: int = 768,
+    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig | GPT2Config,
+                 word_emb_size: int = 768,
                  sentence_len: int = 14, num_latent_gen_factors: int = 8, device=None):
         super().__init__()
         self.dec_vocab_size = dec_cfg.vocab_size
         self.encoder = BertModel(enc_cfg, device)
         self.sentence_discretizer = SentenceDiscretizer(word_emb_size, sentence_len,
                                                         num_latent_gen_factors, device)
-        self.decoder = BertLMHeadModel(dec_cfg, device)
+        self.decoder = make_decoder(dec_cfg, device)
 
     def forward(self, input_ids, attention_mask, reference: bool = False,
                 deterministic: bool = True, generator: torch.Generator | None = None,

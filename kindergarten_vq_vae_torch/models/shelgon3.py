@@ -1,4 +1,4 @@
-"""Shelgon3: BERT encoder, codebook bottleneck, BERT-LM-head decoder.
+"""Shelgon3: BERT encoder, codebook bottleneck, BERT-LM-head (or GPT-2) decoder.
 
 Counterpart of ``kindergarten_vq_vae_tpu/models/shelgon3.py`` l.62-228: the
 encoder output is quantized and the decoder cross-attends to ``z_q``.
@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions
-from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertLMHeadModel, BertModel, _f32
+from kindergarten_vq_vae_torch.models.bagon import HEAD_KEYS, decoder_attentions, make_decoder
+from kindergarten_vq_vae_torch.nn.bert import BertConfig, BertModel, _f32
+from kindergarten_vq_vae_torch.nn.gpt2 import GPT2Config
 from kindergarten_vq_vae_torch.ops.gumbel import (
     GumbelQuantizeOutput,
     gumbel_quantize,
@@ -68,7 +69,8 @@ class GumbelQuantizer(nn.Module):
 
 
 class Shelgon3(nn.Module):
-    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig, vq_mode: str = "VectorQuantizer",
+    def __init__(self, enc_cfg: BertConfig, dec_cfg: BertConfig | GPT2Config,
+                 vq_mode: str = "VectorQuantizer",
                  vq_n_e: int = 9, vq_e_dim: int = 768, vq_beta: float = 0.69,
                  vq_temperature: float = 1.0, vq_kl_div_scale: float = 5e-4,
                  vq_straight_through: bool = False, vq_ema_update: bool = False, device=None):
@@ -86,7 +88,7 @@ class Shelgon3(nn.Module):
                                                     vq_straight_through, device)
         else:
             raise ValueError(f"{vq_mode} vector quantizer mode NOT supported")
-        self.decoder = BertLMHeadModel(dec_cfg, device)
+        self.decoder = make_decoder(dec_cfg, device)
 
     def forward(self, input_ids, attention_mask, reference: bool = False,
                 deterministic: bool = True, is_training: bool = False,

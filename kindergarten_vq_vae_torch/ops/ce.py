@@ -48,9 +48,13 @@ def ce_fwd_reference(logits2d: torch.Tensor, targets: torch.Tensor) -> torch.Ten
 
 
 def ce_grad_reference(logits2d, targets, lse, scale) -> torch.Tensor:
-    """``(exp(x - lse) - one_hot) * scale`` in f32."""
+    """``(exp(x - lse) - one_hot) * scale`` in f32; a target outside the
+    vocabulary has no one-hot, as in the kernels' ``iota == target``."""
     g = torch.exp(logits2d.float() - lse[:, None])
-    g[torch.arange(g.shape[0], device=g.device), targets.long()] -= 1.0
+    t = targets.long()
+    v = g.shape[1]
+    inside = ((t >= 0) & (t < v)).float()
+    g[torch.arange(g.shape[0], device=g.device), t.clamp(0, v - 1)] -= inside
     return g * scale[:, None]
 
 

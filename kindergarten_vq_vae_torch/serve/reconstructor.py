@@ -18,6 +18,13 @@ Shelgon, Shelgon2 and Shelgon3-Gumbel comes from a generator seeded 0 on
 each forward, the counterpart of JAX's ``key(0)``. On CUDA every layer and
 the VQ bottleneck run as the package's kernels, which take bfloat16
 activations only.
+
+A run with the GPT-2 decoder is served as JAX serves it: the encoder's ids
+feed the decoder too, and the argmax is decoded with the run's encoder
+tokenizer (a fault of the reference, kept for parity: the decoder's ids are
+BPE ids). Where an encoder id is at or above the decoder's vocabulary, JAX's
+embedding gather fills NaN rows; here ``reconstruct`` and ``codes`` raise
+``ValueError`` naming both vocabularies.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ class Reconstructor:
         self.tokenizer = _BaseTokenizer.load(tok_path) if os.path.exists(tok_path) else None
         self.seq_len = self.cfg.tokenized_sentence_max_length
         self.buckets = tuple(sorted(batch_buckets))
+        self.decoder_vocab_size = self.cfg.decoder_vocab_size or self.cfg.vocab_size
 
     # ------------------------------------------------------------------ core
 
@@ -85,6 +93,15 @@ class Reconstructor:
 
     @torch.inference_mode()
     def _run_padded(self, ids: np.ndarray, mask: np.ndarray):
+        """Every model forward feeds the encoder's ids to the decoder too, so
+        an id outside the decoder's vocabulary raises."""
+        top = int(ids.max()) if ids.size else 0
+        if top >= self.decoder_vocab_size:
+            raise ValueError(
+                f"encoder id {top} is outside the decoder's vocabulary "
+                f"(decoder_vocab_size={self.decoder_vocab_size}, vocab_size="
+                f"{self.cfg.vocab_size}): the served forward feeds the encoder's ids to the "
+                "decoder")
         outs_r, outs_c = [], []
         for chunk, ids_t, mask_t in self._padded_chunks(ids, mask, self._bucket):
             r, c = self.forward(ids_t, mask_t)

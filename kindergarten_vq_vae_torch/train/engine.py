@@ -22,6 +22,11 @@ Counterpart of ``kindergarten_vq_vae_tpu/train/engine.py``:
   host before ``fit`` goes on, and only the disk write runs in the
   background (``ckpt_async``).
 
+The decode dump decodes the reconstruction ids with the run's encoder
+tokenizer, as JAX's engine does (l.438-441): with the GPT-2 decoder they are
+BPE ids, so the dumped reconstructions are not its text (a fault of the
+reference, kept for parity).
+
 ``profile_dir`` traces the first train epoch with :mod:`torch.profiler`
 (a Chrome trace in that directory). ``wandb_watch_model`` logs the global
 gradient norm and each leaf's gradient and parameter norms;

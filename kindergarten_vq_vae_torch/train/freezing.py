@@ -6,22 +6,29 @@ parameter names are the Flax paths joined by '.'
 decision taken on the same path:
 
 - ``full``: everything trainable;
-- ``dec-head-ft``: the encoder and decoder frozen except the decoder's MLM
-  head (``transform_dense``, ``decoder_kernel``, ``decoder_bias``; its
-  LayerNorm stays frozen), the word-embedding table when the head is tied to
-  it (in the reference the tied head's weight IS that table), and the
-  decoder's cross-attention when ``cross_attn_trainable``;
+- ``dec-head-ft``: the encoder and decoder frozen except the decoder's LM
+  head and cross-attention. A BERT decoder keeps its MLM head trainable
+  (``transform_dense``, ``decoder_kernel``, ``decoder_bias``; its LayerNorm
+  stays frozen), the word-embedding table when the head is tied to it (in
+  the reference the tied head's weight IS that table), and its
+  ``cross_attn`` when ``cross_attn_trainable``. A GPT-2 decoder (JAX
+  l.66-85) keeps ``lm_head_kernel``, ``wte`` when tied, and each block's
+  ``q_attn``, ``crossattention_c_attn``, ``crossattention_c_proj`` and
+  ``ln_cross_attn`` when ``cross_attn_trainable``; its ``wpe``, ``ln_f``,
+  self-attention and MLP stay frozen;
 - ``enc-head-ft-dec-head-ft``: that, plus the encoder's last layer and pooler;
 - ``vq-ft``: the encoder and decoder frozen entirely.
 
 Parameters outside the encoder and decoder (the codebook) are trainable in
-every mode. The GPT-2 decoder's rules wait for that decoder (ROADMAP,
-"other variants").
+every mode.
 """
 
 from __future__ import annotations
 
 from kindergarten_vq_vae_torch.utils.consts import SUPPORTED_MODEL_MODES
+
+# a GPT-2 block's cross-attention leaves
+_GPT2_CROSS = ("q_attn", "crossattention_c_attn", "crossattention_c_proj", "ln_cross_attn")
 
 
 def _num_encoder_layers(paths) -> int:
@@ -55,6 +62,12 @@ def trainable_mask(names, mode: str, cross_attn_trainable: bool = True,
                     trainable = True
                 if len(path) > 3 and path[3] == "cross_attn" and cross_attn_trainable:
                     trainable = True
+            elif path[1] == "lm_head_kernel":
+                trainable = True
+            elif path[1] == "wte":
+                trainable = tie_word_embeddings  # the tied lm_head IS wte
+            elif path[1].startswith("layer_") and len(path) > 2 and path[2] in _GPT2_CROSS:
+                trainable = cross_attn_trainable
         if mode == "enc-head-ft-dec-head-ft" and top == "encoder":
             if path[1] in (f"layer_{n_layers - 1}", "pooler"):
                 trainable = True

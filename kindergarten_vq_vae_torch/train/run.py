@@ -18,7 +18,7 @@ import numpy as np
 
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.data.dataset import DSentences, split_dataset
-from kindergarten_vq_vae_torch.data.tokenizer import _BaseTokenizer
+from kindergarten_vq_vae_torch.data.tokenizer import BPETokenizer, _BaseTokenizer
 from kindergarten_vq_vae_torch.train.engine import Engine
 from kindergarten_vq_vae_torch.utils.consts import RUN_ID_TIMESTAMP_FORMAT
 from kindergarten_vq_vae_torch.utils.params import params_summary_dict
@@ -27,7 +27,9 @@ from kindergarten_vq_vae_torch.utils.params import params_summary_dict
 def load_data(cfg: RunConfig):
     """``(splits, tokenizer)`` from the artifacts in ``cfg.data_dir``,
     generated and prepared first when they are missing and
-    ``generate_if_missing``."""
+    ``generate_if_missing``. A GPT-2 decoder's run also gets the
+    ``dec_input_ids`` / ``dec_attention_mask`` columns of its BPE
+    tokenization (:func:`_bpe_tokenize`)."""
     d = cfg.data_dir
 
     def path(name):
@@ -64,9 +66,13 @@ def load_data(cfg: RunConfig):
         pad = ((0, 0), (0, L - input_ids.shape[1]))
         input_ids, attention_mask = np.pad(input_ids, pad), np.pad(attention_mask, pad)
 
+    dec_input_ids = dec_attention_mask = None
+    if "gpt" in cfg.decoder_model_name:
+        dec_input_ids, dec_attention_mask = _bpe_tokenize(cfg, sentences, L)
     ds = DSentences(input_ids=input_ids.astype(np.int32),
-                    attention_mask=attention_mask.astype(np.int32), labels=labels,
-                    one_hot=one_hot, labels8=labels8, one_hot8=one_hot8, sentences=sentences)
+                    attention_mask=attention_mask.astype(np.int32), dec_input_ids=dec_input_ids,
+                    dec_attention_mask=dec_attention_mask, labels=labels, one_hot=one_hot,
+                    labels8=labels8, one_hot8=one_hot8, sentences=sentences)
     train, val, test = split_dataset(ds, cfg.train_split_pct, cfg.val_split_pct)
     tok_path = path(cfg.tokenizer_file)
     tokenizer = _BaseTokenizer.load(tok_path) if os.path.exists(tok_path) else None
@@ -77,6 +83,25 @@ def load_data(cfg: RunConfig):
             f"vocab_size >= {max_id + 1} (tokenizer vocab: "
             f"{tokenizer.vocab_size if tokenizer else 'unknown'})")
     return {"train": train, "val": val, "test": test}, tokenizer
+
+
+def _bpe_tokenize(cfg: RunConfig, sentences: list[str], max_length: int):
+    """The GPT-2 decoder's second tokenization of the corpus (JAX l.74-98):
+    ``gpt2_vocab.json`` / ``gpt2_merges.txt`` from ``data_dir``, or BPE
+    trained from the corpus to ``decoder_vocab_size`` (512 when unset) and
+    saved there; a trained vocabulary larger than ``decoder_vocab_size``
+    raises."""
+    vpath = os.path.join(cfg.data_dir, "gpt2_vocab.json")
+    mpath = os.path.join(cfg.data_dir, "gpt2_merges.txt")
+    if os.path.exists(vpath) and os.path.exists(mpath):
+        tok = BPETokenizer.from_files(vpath, mpath)
+    else:
+        tok = BPETokenizer.train(sentences, vocab_size=cfg.decoder_vocab_size or 512)
+        tok.save(vpath, mpath)
+    if cfg.decoder_vocab_size and tok.vocab_size > cfg.decoder_vocab_size:
+        raise ValueError(f"decoder_vocab_size={cfg.decoder_vocab_size} < trained BPE vocab "
+                         f"{tok.vocab_size}")
+    return tok.encode_batch(sentences, max_length=max_length)
 
 
 def make_run_dir(cfg: RunConfig) -> str:

@@ -9,7 +9,10 @@ default) or ``kl_recon_loss`` + argmax, ``_valid_row`` weighting by
 ``n_valid``, and the JAX package's ``aux`` keys. ``batch`` holds ``input_ids`` /
 ``attention_mask`` (B, S) tensors on the model's device and ``n_valid`` (an
 int), and for Shelgon the 5-factor ``labels`` / ``one_hot``, for Shelgon2
-the 8-factor ``labels8`` / ``one_hot8``. Each stage perturbs its inputs by
+the 8-factor ``labels8`` / ``one_hot8``; a GPT-2 decoder's run also holds
+its BPE ``dec_input_ids`` / ``dec_attention_mask``, which Bagon's and
+Shelgon's decoders read (Shelgon2 and Shelgon3 feed the encoder's ids to
+the decoder, as JAX does). Each stage perturbs its inputs by
 its own ``*_perturb_{stage}_pct``, drawn from ``generator``
 (:mod:`~kindergarten_vq_vae_torch.utils.tensor`): Bagon both sides, with
 the recon target the perturbed decoder ids unless

@@ -3,10 +3,13 @@
 
     python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
                                           [--fused-layer auto] [--model shelgon3]
+                                          [--decoder bert]
 
 Builds a seeded full-width bert-base Shelgon3-VQ, or with ``--model`` Shelgon3
-with the Gumbel quantizer, Shelgon or Shelgon2 (``mask_pct_train`` 0.1; the
-batch carries seeded 5- and 8-factor labels) (bf16, dropout 0.1 / 0.1,
+with the Gumbel quantizer, Shelgon, Shelgon2 (``mask_pct_train`` 0.1; the
+batch carries seeded 5- and 8-factor labels) or Bagon; with ``--decoder
+gpt2`` its decoder is GPT-2-small (12 blocks, vocabulary 50,257; the batch
+carries seeded decoder ids for Bagon and Shelgon) (bf16, dropout 0.1 / 0.1,
 AMSGrad lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
 fused head + CE, kernels #9 and #10, in place of the logits path;
 ``--fused-layer off``: the per-module trunk, cuBLAS projections around the
@@ -21,9 +24,12 @@ then reports for one batch of ``--batch`` x 12 tokens:
   catch-all PyTorch family, and the device idle share
   ``1 - kernel time / wall``;
 - the bottleneck alone (the VQ, the Gumbel quantizer, Shelgon's
-  ``bottleneck`` or Shelgon2's ``sentence_discretizer``):
+  ``bottleneck`` or Shelgon2's ``sentence_discretizer``; none for Bagon):
   ``torch.profiler`` device time and launches of its forward and backward
-  on the step's shapes (random bf16 encoder states), per call.
+  on the step's shapes (random bf16 encoder states), per call;
+- with ``--decoder gpt2``, the GPT-2 decoder alone the same way: its
+  forward (dropout on, the tied head's logits included) and backward on
+  random bf16 encoder states and seeded decoder ids.
 
 The last line is one JSON object with the numbers. It imports nothing of JAX.
 """
@@ -42,6 +48,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+CUBLAS = "cuBLAS (head, pooler, MLM transform; per-module and GPT-2 projections)"
 # kernel-name fragment -> family, first match wins
 FAMILIES = (
     ("adam_amsgrad_kernel", "AMSGrad update (kernel #14)"),
@@ -68,9 +75,9 @@ FAMILIES = (
     ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
     ("vq_", "VQ forward"),
-    ("nvjet", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
-    ("gemm", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
-    ("cutlass", "cuBLAS (head, pooler, MLM transform; per-module projections)"),
+    ("nvjet", CUBLAS),
+    ("gemm", CUBLAS),
+    ("cutlass", CUBLAS),
     ("Memset", "memset"),
     ("Memcpy", "memcpy"),
 )
@@ -118,15 +125,60 @@ MODELS = {
     "shelgon3-gumbel": {"model_name": "shelgon3", "vq_mode": "GumbelQuantizer"},
     "shelgon": {"model_name": "shelgon"},
     "shelgon2": {"model_name": "shelgon2", "mask_pct_train": 0.1},
+    "bagon": {"model_name": "bagon"},
 }
+# --decoder: the run-config fields of each decoder
+DECODERS = {"bert": {}, "gpt2": {"decoder_model_name": "gpt2", "decoder_vocab_size": 50257}}
+
+
+def _profiled(fn, calls: int) -> dict:
+    """Device ms and launches a call of ``fn`` (after two warm-up calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [evt for evt in prof.events()
+               if str(getattr(evt, "device_type", None)).endswith("CUDA")
+               and evt.device_time_total > 0]
+    names = collections.Counter(evt.name[:80] for evt in kernels)
+    return {"device_ms": sum(evt.device_time_total for evt in kernels) / 1e3 / calls,
+            "launches": len(kernels) / calls,
+            "kernels": {k: v / calls for k, v in names.most_common(12)}}
+
+
+def profile_gpt2_decoder(model, cfg, batch: dict, calls: int) -> dict:
+    """Device ms and launches of one forward + backward of the GPT-2 decoder
+    alone (dropout on, the tied head included) on random bf16 encoder states."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ids = batch["dec_input_ids"] if "dec_input_ids" in batch else batch["input_ids"]
+    h = torch.randn(*ids.shape, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    h.requires_grad_()
+
+    def fn():
+        for p in (h, *model.decoder.parameters()):
+            p.grad = None
+        out = model.decoder(ids, batch["attention_mask"], encoder_hidden_states=h,
+                            deterministic=False, generator=gen)
+        out["logits"].sum().backward()
+
+    return _profiled(fn, calls)
 
 
 def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
     """Device ms and launches of one forward + backward of the model's
     bottleneck alone, on random bf16 encoder states of the step's shape."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    if cfg.model_name == "bagon":
+        return None
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = (batch,) if cfg.model_name == "shelgon2" else (batch, 12)
     h = torch.randn(*rows, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
@@ -147,20 +199,7 @@ def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
         def fn():
             out = model.vector_quantizer(h)
             return out.z_q.sum() + out.loss
-    for _ in range(2):
-        fn().backward()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn().backward()
-        torch.cuda.synchronize()
-    kernels = [evt for evt in prof.events()
-               if str(getattr(evt, "device_type", None)).endswith("CUDA")
-               and evt.device_time_total > 0]
-    names = collections.Counter(evt.name[:80] for evt in kernels)
-    return {"device_ms": sum(evt.device_time_total for evt in kernels) / 1e3 / calls,
-            "launches": len(kernels) / calls,
-            "kernels": {k: v / calls for k, v in names.most_common(12)}}
+    return _profiled(lambda: fn().backward(), calls)
 
 
 def main() -> None:
@@ -170,6 +209,7 @@ def main() -> None:
     ap.add_argument("--fused-head-ce", choices=("off", "store", "flash"), default="off")
     ap.add_argument("--fused-layer", choices=("auto", "off"), default="auto")
     ap.add_argument("--model", choices=tuple(MODELS), default="shelgon3")
+    ap.add_argument("--decoder", choices=tuple(DECODERS), default="bert")
     args = ap.parse_args()
 
     import numpy as np
@@ -184,7 +224,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RunConfig(compute_dtype="bfloat16", fused_head_ce=args.fused_head_ce,
-                    fused_layer=args.fused_layer, **MODELS[args.model])
+                    fused_layer=args.fused_layer, **MODELS[args.model], **DECODERS[args.decoder])
     model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(cfg, model)
@@ -195,6 +235,10 @@ def main() -> None:
     for k, n in (("labels", 5), ("labels8", 8)):
         batch[k] = torch.from_numpy(rng.integers(0, 3, (args.batch, n))).cuda()
         batch[k.replace("labels", "one_hot")] = torch.nn.functional.one_hot(batch[k], 3)
+    if args.decoder == "gpt2":  # the BPE side of the dual tokenization (Bagon, Shelgon)
+        batch["dec_input_ids"] = torch.from_numpy(
+            rng.integers(1, cfg.decoder_vocab_size, (args.batch, 12))).cuda()
+        batch["dec_attention_mask"] = batch["attention_mask"]
 
     events = []  # (phase, CUDA event) of the step being timed; None: not timing
 
@@ -256,7 +300,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
-        "model": args.model,
+        "model": args.model, "decoder": args.decoder,
         "fused_head_ce": args.fused_head_ce, "fused_layer": args.fused_layer,
         "wall_ms_median": statistics.median(walls),
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
@@ -268,10 +312,14 @@ def main() -> None:
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "bottleneck": profile_bottleneck(model, cfg, args.batch, args.steps),
     }
+    if args.decoder == "gpt2":
+        out["gpt2_decoder"] = profile_gpt2_decoder(model, cfg, batch, args.steps)
     for k, v in out["by_family_ms"].items():
         print(f"{v:10.3f} ms  {out['launches_per_step'][k]:8.1f} launches  {k}")
-    print(f"bottleneck alone, forward + backward: {out['bottleneck']['device_ms']:.3f} ms, "
-          f"{out['bottleneck']['launches']:.1f} launches")
+    for what in ("bottleneck", "gpt2_decoder"):
+        if out.get(what):
+            print(f"{what} alone, forward + backward: {out[what]['device_ms']:.3f} ms, "
+                  f"{out[what]['launches']:.1f} launches")
     print(json.dumps(out))
 
 

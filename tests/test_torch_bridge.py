@@ -144,16 +144,12 @@ def test_package_imports_no_jax_and_builds_nothing():
     {"vq_mode": "GumbelQuantizer"}, {"decoder_model_name": "gpt2"}, {"model_name": "shelgon2"},
 ])
 def test_unported_configs_name_their_roadmap_item(override):
-    """The GPT-2 decoder is refused, naming ROADMAP; the Gumbel quantizer and
-    Shelgon2, ported since, load the JAX package's initial weights strictly."""
+    """The Gumbel quantizer, Shelgon2 and the GPT-2 decoder, ported since,
+    load the JAX package's initial weights strictly."""
     base = dict(model_name="shelgon3", vocab_size=40, hidden_size=32, num_layers=1, num_heads=2,
                 intermediate_size=64, vq_e_dim=32, enc_out_size=32, word_embedding_size=32,
                 vq_n_e=5, compute_dtype="float32")
     tcfg = TorchRunConfig(**{**base, **override})
-    if "gpt" in tcfg.decoder_model_name:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(tcfg)
-        return
     jcfg = RunConfig.from_flat_dict(tcfg.get_config())
     tree = jax.tree_util.tree_map(np.asarray, init_params(jcfg, jax.random.key(0)))
     build_model(tcfg).load_state_dict(params_from_jax(tree), strict=True)

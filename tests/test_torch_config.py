@@ -53,12 +53,13 @@ def test_overrides_parse_like_the_jax_cli():
 
 @pytest.mark.parametrize("override, item", [
     ({"model_name": "shelgon"}, None),
-    ({"decoder_model_name": "gpt2"}, "other variants"),
+    # the id it had while the GPT-2 decoder was refused under that ROADMAP item
+    pytest.param({"decoder_model_name": "gpt2"}, None, id="override1-other variants"),
     ({"vq_mode": "GumbelQuantizer"}, None), ({"mesh_shape": (4,)}, "multi-device"),
 ])
 def test_refusals_name_their_roadmap_item(override, item):
-    """The GPT-2 decoder and a mesh are refused, naming their ROADMAP item;
-    the variants ported since (``item`` None) are not."""
+    """A mesh is refused, naming its ROADMAP item; the variants and the GPT-2
+    decoder, ported since (``item`` None), are not."""
     if item is None:
         assert refuse_unported(RunConfig(**override)) is None
         return

@@ -68,6 +68,12 @@ division, the row means summed in another order); every column sum
 b1 from the GELU-gradient GEMM's epilogue) within 1e-4 of its largest
 magnitude (f32 sums over up to 24,576 rows in another order; for b1 also
 the GEMM's own 1e-4), and the same bits from run to run.
+CE at GPT-2's vocabulary (#7, #8): 50,257 (rows at all eight 16-byte
+phases; #8's element path) and 50,264 (its paired path), at the CE bars
+above, targets outside the vocabulary included. The GPT-2 decoder (plain
+PyTorch) in bf16 on the card, forward and backward, against the CPU's f32
+pass: no further from it than 1.25 times the CPU's bf16 pass, plus one bf16
+ulp of the largest magnitude.
 The other variants (Shelgon, also with both masks None, Shelgon2 with
 ``mask_pct_train``, Shelgon3-Gumbel) at a small bf16 size, one training
 loss and backward with dropout on: the kernel route's loss within 1e-3 of
@@ -93,6 +99,7 @@ from kindergarten_vq_vae_torch.ops.ce import (
     ce_fwd_ids,
     ce_fwd_ids_reference,
     ce_fwd_reference,
+    target_logits,
 )
 from kindergarten_vq_vae_torch.ops.dropout import (
     OP_CROSS_OUT,
@@ -1107,3 +1114,76 @@ def test_variant_kernel_route_matches_plain(gen, model_name, over):
     (lp, gp, wp), (lk, gk, wk) = dist["plain"], dist["kernel"]
     assert abs(lk - lp) <= 1e-3 * abs(lp)
     assert gk <= 1.25 * gp and wk <= 1.25 * wp, dist
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("vocab", [50257, 50264])
+def test_ce_kernels_at_the_gpt2_vocabulary(gen, vocab, offset):
+    """#7 and #8 at GPT-2's odd vocabulary (each row starts at another
+    16-byte phase: eight over 64 rows; #8 takes its element path) and at the
+    even 50,264 (#8's paired path), with ties, targets in a row's head, body
+    and tail and outside the vocabulary: ids exact, NLL within 1e-4,
+    dlogits within 1e-2 of the largest magnitude."""
+    x, t = _ce_edge_case(gen, 64, vocab, offset)
+    nll, ids = ce_fwd_ids(x, t)
+    torch.cuda.synchronize()
+    nll_p, ids_p = ce_fwd_ids_reference(x, t)
+    assert torch.equal(ids, ids_p) and ids[-1] == 0
+    assert (nll - nll_p).abs().max() <= 1e-4
+    assert len({x[r].data_ptr() % 16 for r in range(8)}) == (8 if vocab % 2 else 1)
+    lse = nll_p + target_logits(x, t)
+    scale = torch.rand(64, device="cuda", generator=gen) / 64
+    got = ce_bwd(x, t, lse, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= 1e-2
+
+
+def _gpt2_decoder_pass(model, ids, mask, enc, emask):
+    """Logits, last hidden state and cross-attention maps in f32 (CPU), and
+    every gradient of a fixed projection of the logits, with the encoder
+    states' gradient among them."""
+    enc = enc.detach().requires_grad_()
+    for p in model.parameters():
+        p.grad = None
+    out = model(ids, mask, enc, emask, output_attentions=True)
+    w = torch.linspace(-1.0, 1.0, out["logits"].shape[-1], device=ids.device)
+    (out["logits"].float() * w).sum().backward()
+    outs = {"logits": out["logits"], "last_hidden_state": out["last_hidden_state"],
+            **{f"cross_{i}": a for i, a in enumerate(out["cross_attentions"])}}
+    grads = {n: p.grad for n, p in model.named_parameters()} | {"encoder_states": enc.grad}
+    return ({k: v.detach().float().cpu() for k, v in outs.items()},
+            {k: v.float().cpu() for k, v in grads.items()})
+
+
+def test_gpt2_decoder_on_the_card_matches_the_cpu(gen):
+    """The GPT-2 decoder (2 blocks, H 128, 2 heads, vocabulary 50,257) in
+    bf16 on the card, forward and backward, held to the CPU's f32 pass on the
+    same weights: each output and the gradients (global relative L2) no
+    further from it than 1.25 times the CPU's bf16 pass, plus one bf16 ulp
+    (2^-8) of the output's largest magnitude."""
+    from kindergarten_vq_vae_torch.nn.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(vocab_size=50257, hidden_size=128, num_layers=2, num_heads=2)
+    ref = init_weights(GPT2LMHeadModel(cfg), torch.Generator().manual_seed(0))
+    cpu = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 50257, (6, 12), generator=cpu)
+    mask = (torch.arange(12)[None] < torch.randint(3, 13, (6, 1), generator=cpu)).int()
+    enc = torch.randn(6, 9, 128, generator=cpu)
+    emask = (torch.arange(9)[None] < torch.tensor([[9], [5], [2], [9], [7], [1]])).int()
+    passes = {}
+    for what, device, dtype in (("f32", "cpu", torch.float32), ("cpu_bf16", "cpu", torch.bfloat16),
+                                ("card_bf16", "cuda", torch.bfloat16)):
+        model = GPT2LMHeadModel(dataclasses.replace(cfg, dtype=dtype), device=device)
+        model.load_state_dict(ref.state_dict())
+        passes[what] = _gpt2_decoder_pass(model, *(a.to(device) for a in (ids, mask, enc, emask)))
+    (out32, g32), (outc, gc), (outk, gk) = passes["f32"], passes["cpu_bf16"], passes["card_bf16"]
+    for k, want in out32.items():
+        card, cpu_err = _rel_max(outk[k], want), _rel_max(outc[k], want)
+        assert card <= 1.25 * cpu_err + 2.0 ** -8, (k, card, cpu_err)
+
+    def dist(g):
+        num = sum(((g[n] - g32[n]) ** 2).sum() for n in g32)
+        return (num / sum((g32[n] ** 2).sum() for n in g32)).sqrt().item()
+
+    assert all(torch.isfinite(g).all() for g in gk.values())
+    assert dist(gk) <= 1.25 * dist(gc) + 2.0 ** -8, (dist(gk), dist(gc))
