@@ -148,7 +148,24 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    in JAX) with the median and peak memory; a 1-epoch ``python -m
    kindergarten_vq_vae_torch.cli bagon --set decoder_model_name='gpt2'``
    run on the cut corpus (its BPE trained from the corpus), served through
-   ``Reconstructor``.
+   ``Reconstructor``;
+15. f32 (``phase_f32``; JAX's parity dtype): each f32 instance alone at the
+   batch-2048 step's shapes against its f32 plain version, timed in turns
+   with it, with its bound (bytes or f32 FMA operations; the 3xTF32 GEMM's
+   three TF32 products printed beside) and its library call: the layer GEMM
+   at every product in each layout (``torch.matmul`` at "highest"), the
+   residual + LayerNorm, its backward and the column sums, the attention
+   forward (self causal, self padded, cross) and backward (self, cross),
+   #1 and #2 encoder and decoder, every keep mask, #7 / #8 (and #6) at
+   30,522 and 50,257 with rows at every 16-byte phase; the f32 bert-base
+   Shelgon3-VQ step at batch 2048 (24 #1, 24 #2, 24 + 12 #3 / #4, one #7,
+   #8, #5 and #14 a step, every one an f32 instance, no plain version),
+   its median and peak memory; an f32 CLI run trained, evaluated,
+   checkpointed and served through ``Reconstructor``, its reconstruction
+   ids and codes against the plain route's, and taken by
+   ``analyses.common.load_run`` and ``codebook_init``'s encoder; the batch-256 loss and
+   gradients of the kernel route against the plain route's; Bagon with the
+   GPT-2 decoder at a cut depth, the same, and one batch-2048 step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -231,6 +248,19 @@ ADAM_STEPS, ADAM_OPS = 3, 13
 # engine phase: corpus cut (8 verbs and 8 objects per pool: 36,864 clean
 # sentences), train batches per epoch kept by lim_batches_train_pct
 ENGINE_CUT, ENGINE_EPOCHS, ENGINE_TRAIN_PCT = dict(num_verbs=8, num_objects=8), 2, 0.3
+# f32 phase: the kernels' f32 instances (f32 is JAX's parity dtype) against
+# their f32 plain versions. A forward output within F32_FWD of its largest
+# magnitude, a gradient within F32_GRAD (f32 sums in another order; the
+# GEMM's 3xTF32 products sit within a few 1e-7 of f32 ones), the CE NLL
+# within F32_NLL_REL relative; an f32 step of the kernel route against the
+# plain route's from the same weights and dropout: the loss within
+# F32_LOSS_REL relative, the gradients within F32_GRAD global rel L2; a
+# served run's reconstruction ids and codes equal to the plain route's on
+# F32_SERVE_SAME of the tokens (an argmax near tie may go either way).
+# PEAK_TF32: the TF32 tensor cores' dense peak, which bounds the 3xTF32
+# GEMM's three products.
+F32_FWD, F32_GRAD, F32_NLL_REL, F32_LOSS_REL, F32_SERVE_SAME = 2e-5, 1e-4, 1e-5, 1e-5, 0.999
+PEAK_TF32, F32_STEPS, F32_GPT2_LAYERS = 494.7e12, 4, 2
 
 
 def _fail(msg: str) -> None:
@@ -351,6 +381,7 @@ def _counters() -> dict:
         counts.update({f"{k}_self": counts.pop(k) - cross, f"{k}_cross": cross})
     counts["layer_fwd_resid"] = w["layer_fwd"].residual_launches
     counts["gemm_in_fwd"] = w["gemm"].forward_launches
+    counts.update({f"{k}_f32": w[k].f32_launches for k in F32_KERNELS})
     return counts
 
 
@@ -362,6 +393,24 @@ def _reset_counters() -> None:
         w[k].cross_launches = 0
     w["layer_fwd"].residual_launches = 0
     w["gemm"].forward_launches = 0
+    for k in F32_KERNELS:
+        w[k].f32_launches = 0
+
+
+# wrappers with an f32 instance: ``_counters`` adds each one's f32 share as
+# ``<name>_f32``
+F32_KERNELS = ("layer_fwd", "layer_bwd", "attn_fwd", "attn_bwd", "ce_fwd_ids", "ce_fwd",
+               "ce_bwd", "gemm", "ln_fwd", "ln_bwd", "colsum")
+
+
+def _as_f32(want: dict) -> dict:
+    """Expected counts of an f32 run: ``want`` with every launch of a kernel
+    that has an f32 instance counted again as an f32 one."""
+    out = dict(want)
+    for k in F32_KERNELS:
+        out[f"{k}_f32"] = (want[f"{k}_self"] + want[f"{k}_cross"] if k in _SPLIT
+                           else want[k])
+    return out
 
 
 def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0,
@@ -446,7 +495,7 @@ def phase_build() -> None:
             print(f"  {entry[-72:]}: {line.split(':', 1)[-1].strip()}; {spill}")
 
 
-def _layer_case(decoder: bool, g, batch: int = BUCKET, rate: float = 0.0):
+def _layer_case(decoder: bool, g, batch: int = BUCKET, rate: float = 0.0, dtype=None):
     import torch
 
     from kindergarten_vq_vae_torch.ops.layer import DEC_WEIGHTS, ENC_WEIGHTS, LayerGeom
@@ -455,14 +504,15 @@ def _layer_case(decoder: bool, g, batch: int = BUCKET, rate: float = 0.0):
     H, NH, F = 768, 12, 3072
     geom = LayerGeom(num_heads=NH, head_dim=H // NH, intermediate=F, causal=decoder,
                      has_cross=decoder, eps=1e-12, gelu_exact=True, attn_rate=rate, hid_rate=rate)
-    x = torch.randn(batch, SEQ, H, device=dev, generator=g).bfloat16()
-    enc = torch.randn(batch, SEQ, H, device=dev, generator=g).bfloat16() if decoder else None
+    dtype = dtype or torch.bfloat16
+    x = torch.randn(batch, SEQ, H, device=dev, generator=g).to(dtype)
+    enc = torch.randn(batch, SEQ, H, device=dev, generator=g).to(dtype) if decoder else None
     lens = torch.randint(1, SEQ + 1, (batch,), device=dev, generator=g)
     smask = (torch.arange(SEQ, device=dev)[None] < lens[:, None]).to(torch.int32)
     shapes, ws = geom.weight_shapes(), []
     for n in DEC_WEIGHTS if decoder else ENC_WEIGHTS:
         r = torch.randn(shapes[n], device=dev, generator=g)
-        ws.append((0.02 * r).bfloat16() if n.startswith("w") else 1.0 + 0.1 * r if n.startswith("g")
+        ws.append((0.02 * r).to(dtype) if n.startswith("w") else 1.0 + 0.1 * r if n.startswith("g")
                   else 0.02 * r)
     return geom, x, enc, smask, ws
 
@@ -868,7 +918,7 @@ def _vq_bound(z, e, out) -> tuple[float, str]:
 
 def _library_layer(decoder: bool, x, enc, smask, ws, train: bool = False):
     """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
-    exact GELU, eps 1e-12, bf16) on the weights of a layer case; returns its
+    exact GELU, eps 1e-12, x's dtype) on the weights of a layer case; returns its
     call in eval mode, or with ``train`` (dropout 0: it has no hash dropout)
     its forward under autograd and a call of the autograd backward of one
     such forward given an output gradient (dx, denc, every weight). Timed as
@@ -882,7 +932,7 @@ def _library_layer(decoder: bool, x, enc, smask, ws, train: bool = False):
     cls = nn.TransformerDecoderLayer if decoder else nn.TransformerEncoderLayer
     mod = cls(d_model=768, nhead=12, dim_feedforward=3072, dropout=0.0, activation="gelu",
               layer_norm_eps=1e-12, batch_first=True, norm_first=False, device="cuda",
-              dtype=torch.bfloat16).train(train)
+              dtype=x.dtype).train(train)
 
     with torch.no_grad():
         mod.self_attn.in_proj_weight.copy_(W["wqkv"].t())
@@ -1336,7 +1386,7 @@ def _leaf_errors(got, want) -> float:
     return max(_rel_max(a, b) for a, b in pairs)
 
 
-def _visible_layer(decoder: bool, batch: int):
+def _visible_layer(decoder: bool, batch: int, dtype=None):
     """A bert-base layer (dropout 0.1 / 0.1) whose outputs show its keep masks.
     q = k = 0 gives every key the same probability and v is the one-hot of the
     key position (x, and enc for cross-attention), so a context entry is
@@ -1354,7 +1404,8 @@ def _visible_layer(decoder: bool, batch: int):
     onehot = torch.zeros(batch, SEQ, H, device="cuda")
     for h in range(12):
         onehot[:, torch.arange(SEQ), h * hd + torch.arange(SEQ)] = 1.0
-    onehot = onehot.bfloat16()
+    dtype = dtype or torch.bfloat16
+    onehot = onehot.to(dtype)
     shapes, ws = geom.weight_shapes(), []
     for n in DEC_WEIGHTS if decoder else ENC_WEIGHTS:
         w = torch.zeros(shapes[n], device="cuda")
@@ -1364,12 +1415,13 @@ def _visible_layer(decoder: bool, batch: int):
             w += 1.0
         if n in ("bo", "bco", "b2"):
             w += VISIBLE_BIAS
-        ws.append(w.bfloat16() if n.startswith("w") else w)
+        ws.append(w.to(dtype) if n.startswith("w") else w)
     return geom, onehot, (onehot if decoder else None), ws
 
 
-def _check_keep_masks(seed: int) -> None:
-    """Every keep mask of the training kernels, held to the plain mask.
+def _check_keep_masks(seed: int, dtype=None) -> None:
+    """Every keep mask of the training kernels (bf16, or ``dtype``'s
+    instances), held to the plain mask.
 
     Forward, batch 2048: the self-attention heads (op ids 0..11, causal in the
     decoder) through ctx, the cross-attention heads (``cross_op(12) + h``)
@@ -1401,7 +1453,7 @@ def _check_keep_masks(seed: int) -> None:
     rows, kept = TRAIN_BATCH * SEQ, []
     tril = torch.ones(SEQ, SEQ, dtype=torch.bool, device="cuda").tril()
     for decoder in (False, True):
-        geom, x, enc, ws = _visible_layer(decoder, TRAIN_BATCH)
+        geom, x, enc, ws = _visible_layer(decoder, TRAIN_BATCH, dtype)
         with torch.no_grad():
             out, resid = layer_forward(geom, x, enc, None, None, ws, seed)
         R = dict(zip(residual_names(geom), resid), out=out)
@@ -1427,15 +1479,15 @@ def _check_keep_masks(seed: int) -> None:
             kept.append(keep.float().mean().item())
         del out, resid, R
 
-    geom, x, enc, ws = _visible_layer(True, BUCKET)
+    geom, x, enc, ws = _visible_layer(True, BUCKET, dtype)
     M = BUCKET * SEQ
     with torch.no_grad():
         out, resid = layer_forward(geom, x, enc, None, None, ws, seed)
     names, resid = residual_names(geom), list(resid)
     for n, width in (("ctx", 768), ("ctx2", 768), ("m", 3072)):
-        resid[names.index(n)] = torch.eye(M, width, dtype=torch.bfloat16, device="cuda")
+        resid[names.index(n)] = torch.eye(M, width, dtype=x.dtype, device="cuda")
     gy = (0.1 * torch.randn(x.shape, device="cuda",
-                            generator=torch.Generator(device="cuda").manual_seed(SEED))).bfloat16()
+                            generator=torch.Generator(device="cuda").manual_seed(SEED))).to(x.dtype)
     args = (geom, x, enc, None, None, ws, seed, tuple(resid), out, gy)
     got = dict(zip(DEC_WEIGHTS, layer_backward(*args)[2]))
     want = dict(zip(DEC_WEIGHTS, layer_backward_reference(*args)[2]))
@@ -1447,19 +1499,21 @@ def _check_keep_masks(seed: int) -> None:
             _fail(f"hidden keep mask {op} of the backward differs from the plain mask "
                   f"(d{wname}: {int((g[~keep] != 0).sum())} dropped entries nonzero, "
                   f"{int(lost.sum())} kept entries zero)")
-    print(f"keep masks equal to the plain masks: forward at batch {TRAIN_BATCH} (self heads "
+    print(f"keep masks ({x.dtype}) equal to the plain masks: forward at batch {TRAIN_BATCH} "
+          f"(self heads "
           f"0..11, cross heads {cross_op(12)}..{cross_op(12) + 11}, hidden sites 1000/1001/1002 "
           f"through x1/x2/out), backward at batch {BUCKET} (sites 1000/1001/1002 through "
           f"dwo/dwco/dw2); kept shares {min(kept):.4f}..{max(kept):.4f} (rate 0.1)")
     del out, resid, got, want
 
 
-def _ce_case(g, rows: int, vocab: int):
-    """(rows, vocab) bf16 logits of std 3 with ties far apart, side by side
-    and an all-equal row (rows 0-2), and uniform int32 targets."""
+def _ce_case(g, rows: int, vocab: int, dtype=None):
+    """(rows, vocab) bf16 (or ``dtype``) logits of std 3 with ties far apart,
+    side by side and an all-equal row (rows 0-2), and uniform int32 targets."""
     import torch
 
-    logits = (3.0 * torch.randn(rows, vocab, device="cuda", generator=g)).bfloat16()
+    logits = (3.0 * torch.randn(rows, vocab, device="cuda", generator=g)).to(
+        dtype or torch.bfloat16)
     logits[0, [5, 9000, vocab - 522]] = 40.0
     logits[1, [7, 8]] = 40.0
     logits[2] = 0.5
@@ -1469,8 +1523,9 @@ def _ce_case(g, rows: int, vocab: int):
 
 def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
     """#7 and #8 on ``logits`` against their plain versions (ids exact, NLL
-    within CE_NLL_ABS, the gradient within CE_GRAD_REL of its largest), each
-    timed in turns with its plain version, with its bound and library
+    within CE_NLL_ABS, the gradient within CE_GRAD_REL of its largest; f32
+    logits: NLL within F32_NLL_REL relative, the gradient within F32_GRAD),
+    each timed in turns with its plain version, with its bound and library
     yardstick: (#7's row, #8's row, #7's NLL)."""
     import torch
     import torch.nn.functional as F
@@ -1483,15 +1538,19 @@ def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
     )
 
     rows, vocab = logits.shape
+    f32 = logits.dtype == torch.float32
+    nll_tol, grad_tol = (F32_NLL_REL, F32_GRAD) if f32 else (CE_NLL_ABS, CE_GRAD_REL)
+    dt = "f32" if f32 else "bf16"
     with torch.no_grad():
         nll, ids = ce_fwd_ids(logits, t)
         torch.cuda.synchronize()
         nll_p, ids_p = ce_fwd_ids_reference(logits, t)
         nll_err = (nll - nll_p).abs().max().item()
+        nll_off = ((nll - nll_p).abs() / nll_p.abs()).max().item() if f32 else nll_err
         ids_ok = torch.equal(ids, ids_p) and ids[:3].tolist() == [5, 7, 0]
-        print(f"ce fwd ({rows},{vocab}) bf16: ids exact {ids_ok}, nll max abs {nll_err:.3e} "
-              f"(tol {CE_NLL_ABS})")
-        if not ids_ok or nll_err > CE_NLL_ABS:
+        print(f"ce fwd ({rows},{vocab}) {dt}: ids exact {ids_ok}, nll max abs {nll_err:.3e}, "
+              f"{'max rel ' + format(nll_off, '.3e') + ' ' if f32 else ''}(tol {nll_tol})")
+        if not ids_ok or nll_off > nll_tol:
             _fail(f"CE forward kernel disagrees with its plain version at vocabulary {vocab}")
         k_ms, p_ms = _paired_ms(lambda: ce_fwd_ids(logits, t),
                                 lambda: ce_fwd_ids_reference(logits, t), 10)
@@ -1510,8 +1569,8 @@ def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
         torch.cuda.synchronize()
         want = ce_bwd_reference(logits, t, lse, scale)
         rel = _rel_max(got, want)
-        print(f"ce bwd ({rows},{vocab}) bf16: max rel {rel:.3e} (tol {CE_GRAD_REL})")
-        if rel > CE_GRAD_REL:
+        print(f"ce bwd ({rows},{vocab}) {dt}: max rel {rel:.3e} (tol {grad_tol})")
+        if rel > grad_tol:
             _fail(f"CE backward kernel disagrees with its plain version at vocabulary {vocab}")
         err = (got.float() - want.float()).abs().max().item()
         del got, want
@@ -2208,20 +2267,30 @@ class _plain_refused:
     SDPA kernels and of the layer's LayerNorm and column-sum kernels raise:
     on the card the step's update is kernel #14 alone, the per-module
     trunk's attention #11 / #12 alone, and the fused layers' LayerNorms
-    those of ``csrc/layernorm.cu``."""
+    those of ``csrc/layernorm.cu``. With ``default_route``, also those of the
+    layer GEMM, the layer forward and backward, the attention and the CE."""
+
+    def __init__(self, default_route: bool = False):
+        self.default_route = default_route
 
     def _targets(self):
-        from kindergarten_vq_vae_torch.ops import adam, layer, sdpa
+        from kindergarten_vq_vae_torch.ops import adam, ce, gemm, layer, sdpa
         from kindergarten_vq_vae_torch.train import optim
 
+        route = ((gemm, "gemm_reference"), (layer, "layer_forward_reference"),
+                 (layer, "layer_backward_reference"), (layer, "bert_layer_reference"),
+                 (layer, "attention_forward_reference"), (layer, "attention_backward_reference"),
+                 (ce, "ce_fwd_ids_reference"), (ce, "ce_fwd_reference"),
+                 (ce, "ce_bwd_reference")) if self.default_route else ()
         return ((optim, "adam_update_reference"), (adam, "adam_update_reference"),
                 (optim.Adam, "update"), (sdpa, "sdpa_forward_reference"),
                 (sdpa, "sdpa_backward_reference"), (layer, "residual_layernorm_reference"),
-                (layer, "layernorm_backward_reference"), (layer, "column_sums_reference"))
+                (layer, "layernorm_backward_reference"), (layer, "column_sums_reference"),
+                *route)
 
     def __enter__(self):
         def refuse(*args, **kwargs):
-            _fail("a plain version ran on a kernel path (the update, the SDPA or a LayerNorm)")
+            _fail("a plain version ran on a kernel path")
 
         self.saved = [(obj, name, getattr(obj, name)) for obj, name in self._targets()]
         for obj, name, _ in self.saved:
@@ -2234,10 +2303,11 @@ class _plain_refused:
 
 
 def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAIN_STEPS,
-                fused_layer: str = "auto") -> dict:
+                fused_layer: str = "auto", dtype: str = "bfloat16") -> dict:
     """The training slice (``head_ce``: its ``fused_head_ce``; ``fused_layer``
-    "off": the per-module trunk); returns the kernels' launch counts over its
-    steps and its losses."""
+    "off": the per-module trunk; ``dtype`` its compute dtype, "float32" the
+    f32 instances); returns the kernels' launch counts over its steps and
+    its losses."""
     import dataclasses
 
     import torch
@@ -2245,8 +2315,9 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     from kindergarten_vq_vae_torch.models import build_model, init_weights
     from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
 
-    cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce, fused_layer=fused_layer)
-    fused = head_ce in HEAD_MODES
+    cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce, fused_layer=fused_layer,
+                              compute_dtype=dtype)
+    fused, f32 = head_ce in HEAD_MODES, dtype == "float32"
     torch.cuda.empty_cache()
     model = build_model(cfg, device="cuda", fused_head=fused)
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
@@ -2269,10 +2340,12 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
                         attn_bwd_cross=12, **_inside_layers(1, 1))
     per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1, "table_grad": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
+    if f32:
+        per_step = _as_f32(per_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    with _plain_refused():
+    with _plain_refused(default_route=f32):
         _reset_counters()
         for i in range(steps):
             before = _counters()
@@ -2290,7 +2363,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         counts = _counters()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
-    what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}"
+    what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}, {dtype}"
     print(f"train slice ({what}): bert-base shelgon3-VQ, {n_params} parameters, "
           f"batch {TRAIN_BATCH} x {SEQ}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
           f"launches per step {per_step}, total {counts}")
@@ -2381,11 +2454,14 @@ def phase_grads() -> None:
 
 
 def phase_engine(names: tuple[str, str], head_ce: str = "auto",
-                 epochs: int = ENGINE_EPOCHS, fused_layer: str = "auto") -> dict:
+                 epochs: int = ENGINE_EPOCHS, fused_layer: str = "auto",
+                 dtype: str = "bfloat16") -> dict:
     """The training entry point: the CLI on a generated corpus (``--set
     fused_head_ce`` when ``head_ce`` is not "auto", ``--set fused_layer``
-    when ``fused_layer`` is not), its run directory, its launch counts, and
-    the run directory served (through the logits path, on the run's trunk)."""
+    when ``fused_layer`` is not, ``--set compute_dtype`` when ``dtype`` is
+    not "bfloat16"), its run directory, its launch counts, and the run
+    directory served (through the logits path, on the run's trunk); an f32
+    run's served outputs are also held to the plain route's."""
     import numpy as np
     import torch
 
@@ -2411,6 +2487,9 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
             sets["fused_head_ce"] = head_ce
         if fused_layer != "auto":
             sets["fused_layer"] = fused_layer
+        f32 = dtype == "float32"
+        if f32:
+            sets["compute_dtype"] = dtype
         argv = ["shelgon3", "--device", "cuda"]
         for k, v in sets.items():
             argv += ["--set", f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"]
@@ -2418,13 +2497,18 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         steps = epochs * int(n_train // TRAIN_BATCH * ENGINE_TRAIN_PCT)
         evals = epochs * -(-n_val // TRAIN_BATCH) + -(-(n - n_train - n_val) // TRAIN_BATCH)
         torch.cuda.empty_cache()
-        with _plain_refused():
+        torch.cuda.reset_peak_memory_stats()
+        with _plain_refused(default_route=f32):
             _reset_counters()
             t0 = time.perf_counter()
             engine = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _counters()
+            if f32 and (torch.get_float32_matmul_precision() != "highest"
+                        or torch.backends.cuda.matmul.allow_tf32):
+                _fail("the f32 run's PyTorch matrix products are not full f32")
+        peak = torch.cuda.max_memory_allocated() / 2**30
         want = {k: 0 for k in counts}
         want.update(vq=steps + evals, adam=steps)
         if fused_layer == "off":
@@ -2438,9 +2522,12 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
             want.update(head_ce_fwd=steps + evals, head_ce_bwd=steps, table_grad=steps)
         else:
             want.update(ce_fwd_ids=steps + evals, ce_bwd=steps)
+        if f32:
+            want = _as_f32(want)
         print(f"engine: python -m kindergarten_vq_vae_torch.cli {' '.join(argv)}: {wall:.1f} s "
               f"(corpus of {n} sentences made in {t_data:.1f} s); {steps} train steps, {evals} "
-              f"eval batches; launches {counts} (expected {want})")
+              f"eval batches; max_memory_allocated {peak:.2f} GiB; launches {counts} (expected "
+              f"{want})")
         if counts != want:
             _fail("the training entry point did not go through the kernels as expected")
 
@@ -2456,7 +2543,8 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         if not (conf["model_name"] == "shelgon3" and conf["hidden_size"] == 768
                 and conf["num_layers"] == 12 and conf["vocab_size"] == VOCAB
                 and conf["batch_size"] == TRAIN_BATCH and conf["run_id"] == os.path.basename(run)
-                and conf["fused_head_ce"] == head_ce and conf["fused_layer"] == fused_layer):
+                and conf["fused_head_ce"] == head_ce and conf["fused_layer"] == fused_layer
+                and conf["compute_dtype"] == dtype):
             _fail(f"run_conf.json does not describe the run: {conf}")
         if tree["vector_quantizer"]["codebook"].shape != (9, 768):
             _fail("the best-val slot does not hold the model")
@@ -2480,6 +2568,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
 
         rng = np.random.default_rng(SEED)
         sentences = [engine.splits["test"].sentences[i] for i in rng.choice(n - n_train - n_val, 5)]
+        bucket = engine.splits["test"].sentences[:BUCKET]
         del engine
         torch.cuda.empty_cache()
         rec = Reconstructor(run, device="cuda")
@@ -2491,14 +2580,50 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
         want_served["vq"] = 2  # two forwards: /reconstruct and /codes
         want_served.update(dict(sdpa_fwd_self=48, sdpa_fwd_cross=24) if fused_layer == "off"
                            else dict(layer_fwd=48, **_inside_layers(2)))
+        if f32:
+            want_served = _as_f32(want_served)
         if ([r["input"] for r in recon] != sentences or [r["codes"] for r in recon] != codes
                 or not all(0.0 <= r["token_acc"] <= 1.0 and all(0 <= c < 9 for c in r["codes"])
                            for r in recon)
                 or served != want_served or rec.model.decoder.mlm_head.cfg.fused_head):
             _fail(f"serving the trained run failed: {recon} {served}")
-        what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}"
+        what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}, {dtype}"
         print(f"engine run ({what}) served through Reconstructor (logits path, launches "
               f"{served}): {recon[0]}")
+        if f32:  # the served forward against the plain route's, at bucket 256
+            ids, mask = (torch.from_numpy(a).cuda()
+                         for a in rec.tokenizer.encode_batch(bucket, SEQ))
+            with torch.no_grad():
+                got, want = rec.forward(ids, mask), rec.forward(ids, mask, reference=True)
+            same = [(a == b).float().mean().item() for a, b in zip(got, want)]
+            print(f"engine run ({what}) served at bucket {BUCKET}: reconstruction ids and codes "
+                  f"equal to the plain route's on {same[0]:.5f} / {same[1]:.5f} of the tokens "
+                  f"(bar {F32_SERVE_SAME})")
+            if min(same) < F32_SERVE_SAME:
+                _fail("the f32 run served through the kernels disagrees with the plain route")
+            # the research path's entry points take the f32 run on the card
+            from kindergarten_vq_vae_torch.analyses.common import load_run
+            from kindergarten_vq_vae_torch.train import codebook_init
+
+            cfg_r, model_r = load_run(run, device="cuda")
+            ids_np, mask_np = (t.cpu().numpy() for t in (ids, mask))
+            with torch.no_grad():
+                logits = model_r(ids, mask, is_training=False,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))["logits"]
+            _reset_counters()
+            z = codebook_init.encode_rows(codebook_init.bagon_encoder(cfg_r, device="cuda"),
+                                          ids_np, mask_np)
+            torch.cuda.synchronize()
+            enc_counts = _counters()
+            print(f"f32 run through analyses.common.load_run: argmax equal to the served ids "
+                  f"{torch.equal(logits.argmax(-1), got[0])}; codebook_init.encode_rows over "
+                  f"{len(bucket)} sentences: {tuple(z.shape)} {z.dtype}, launches "
+                  f"{ {k: v for k, v in enc_counts.items() if v} }")
+            if not (torch.equal(logits.argmax(-1), got[0]) and z.dtype == torch.float32
+                    and _finite(z) and enc_counts["layer_fwd"] == 12
+                    and enc_counts == _as_f32(enc_counts)):
+                _fail("load_run or the codebook init's encoder failed on the f32 run")
+            del model_r, logits, z
         train = [h["train"] for h in history if "train" in h]
         print(f"engine ({what}): train "
               f"{statistics.mean(t['sentences_per_sec'] for t in train):.1f} "
@@ -2507,7 +2632,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
               f"{names[1]})")
     del rec
     torch.cuda.empty_cache()
-    return counts
+    return {**counts, "peak_gib": peak} if f32 else counts
 
 
 # research path: the flagship pipeline's --lim-batches (train / val / test
@@ -3301,6 +3426,360 @@ def phase_gpt2(names: tuple[str, str], vq_step_ms: float) -> dict:
     return out
 
 
+def phase_f32(names: tuple[str, str]) -> dict:
+    """The f32 instances of the default route's kernels: (a) each alone at
+    the batch-2048 step's shapes against its f32 plain version, timed in
+    turns with it, with its bound and library call (the layer GEMM at every
+    product in each layout, the LayerNorm trio, the attention forward and
+    backward, #1 and #2 encoder and decoder, the keep masks, #7 / #8 at
+    30,522 and 50,257 with #6); (b) the f32 bert-base Shelgon3-VQ step at
+    batch 2048 (launches, median, peak memory) and an f32 CLI run, trained,
+    evaluated, checkpointed and (d) served against the plain route; (c) the
+    batch-256 loss and gradients of the kernel route against the plain
+    route's; (e) one Bagon-GPT-2 step at a cut depth against the plain route."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.ops.ce import ce_fwd, ce_fwd_reference, fused_ce_loss
+    from kindergarten_vq_vae_torch.ops.dropout import OP_MLP_OUT, cross_op, hidden_keep
+    from kindergarten_vq_vae_torch.ops.gemm import gemm, gemm_f32_plan, gemm_reference, sm_count
+    from kindergarten_vq_vae_torch.ops.layer import (
+        attention_backward,
+        attention_backward_reference,
+        attention_forward,
+        attention_forward_reference,
+        column_sums,
+        column_sums_reference,
+        layer_backward,
+        layer_backward_reference,
+        layer_forward,
+        layer_forward_reference,
+        layernorm_backward,
+        layernorm_backward_reference,
+        residual_layernorm,
+        residual_layernorm_reference,
+    )
+    from kindergarten_vq_vae_torch.train.step import make_train_step, init_train_state
+    from kindergarten_vq_vae_torch.train.variants import make_loss_fn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    f32, rows, H, dev = torch.float32, TRAIN_BATCH * SEQ, 768, "cuda"
+    res = {}
+
+    def note(key, what, err, k_ms, p_ms, bound, lib_ms, lib, extra=""):
+        print(f"f32 {what}: {k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, share "
+              f"{bound[0] / k_ms:.3f}), plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, max abs "
+              f"{err:.3e}{extra} ({names[0]}; nvidia-smi: {names[1]})")
+        r = res.setdefault(key, {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
+                                 "library_ms": [], "library": lib})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound", bound), ("library_ms", lib_ms)):
+            r[k].append(v)
+
+    def held(what, got, want, tol):
+        rel = max(_rel_max(a, b) for a, b in zip(got, want))
+        if not all(_finite(a) and a.dtype == b.dtype for a, b in zip(got, want)) or rel > tol:
+            _fail(f"f32 {what}: the kernel disagrees with its f32 plain version (rel {rel:.3e}, "
+                  f"tol {tol})")
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)), rel
+
+    # (a) the layer GEMM at every product of the step, each layout
+    sms = sm_count(torch.device(dev))
+    to_f32 = {"bf16": "f32", "add_bf16": "add_f32"}  # the f32 instance's epilogues
+    for name, k_in, k_out, fwd_epi, dgrad_epi in LAYER_PRODUCTS:
+        x = torch.randn(rows, k_in, device=dev, generator=g)
+        w = torch.randn(k_in, k_out, device=dev, generator=g) / k_in ** 0.5
+        bias = 0.02 * torch.randn(k_out, device=dev, generator=g)
+        dy = 0.1 * torch.randn(rows, k_out, device=dev, generator=g)
+        de = to_f32.get(dgrad_epi, dgrad_epi)
+        aux = (2.0 if de.startswith("dgelu") else 1.0) * torch.randn(rows, k_in, device=dev,
+                                                                       generator=g)
+        for kind, ops, kw, lib, (M, N, K) in (
+                ("fwd", (x, w), dict(epi=to_f32.get(fwd_epi, fwd_epi), bias=bias),
+                 lambda: x @ w, (rows, k_out, k_in)),
+                ("dgrad", (dy, w), dict(b_t=True, epi=de, aux=aux if de != "f32" else None),
+                 lambda: dy @ w.t(), (rows, k_in, k_out)),
+                ("wgrad", (x, dy), dict(a_t=True, epi="f32"), lambda: x.t() @ dy,
+                 (k_in, k_out, rows))):
+            two = kw["epi"].startswith(("gelu", "dgelu"))
+            got = gemm(*ops, **kw, out2=two)
+            torch.cuda.synchronize()
+            want = gemm_reference(*ops, **kw, out2=two)
+            got, want = (got, want) if two else ((got,), (want,))
+            tol = F32_FWD if kind == "fwd" else F32_GRAD
+            err, rel = held(f"layer GEMM {name} {kind}", got, want, tol)
+            k_ms, p_ms = _paired_ms(lambda: gemm(*ops, **kw, out2=two),
+                                    lambda: gemm_reference(*ops, **kw, out2=two), 5)
+            flops = 2.0 * M * N * K
+            plan = gemm_f32_plan(M, N, K, sms) if kind == "wgrad" else None
+            note("gemm_fwd" if kind == "fwd" else "gemm_grad",
+                 f"layer GEMM {name:4s} {kind:5s} ({M},{N},{K}) {kw['epi']}"
+                 + (f" splits {plan.splits}" if plan else ""), err, k_ms, p_ms,
+                 _bound(flops, _nbytes(ops, kw.get("bias"), kw.get("aux"), got), PEAK_F32),
+                 _time_ms(lib, 5), "torch.matmul (f32, 'highest')",
+                 f", {flops / k_ms / 1e9:.1f} TFLOP/s, rel {rel:.2e} (tol {tol}), 3xTF32 "
+                 f"bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms")
+            del got, want
+        if name == "wo":
+            same = torch.equal(gemm(x, dy, a_t=True), gemm(x, dy, a_t=True))
+            print(f"f32 layer GEMM weight gradient ({k_in},{k_out}) over {rows} rows, twice: bit "
+                  f"for bit equal {same}")
+            if not same:
+                _fail("the f32 layer GEMM's weight gradient differs from run to run")
+        del x, w, bias, dy, aux
+    torch.cuda.empty_cache()
+
+    # the LayerNorm trio on f32 rows, dropout 0.1
+    eps, seed, rate = 1e-12, 4321, 0.1
+    gamma = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
+    beta = 0.1 * torch.randn(H, device=dev, generator=g)
+    keep = hidden_keep(seed, OP_MLP_OUT, rows, H, rate, dev)
+    x = torch.randn(rows, H, device=dev, generator=g)
+    a = 0.5 * torch.randn(rows, H, device=dev, generator=g) + 0.2
+    ln_args = (x, a, gamma, beta, eps, seed, OP_MLP_OUT, rate)
+    got = residual_layernorm(*ln_args)
+    torch.cuda.synchronize()
+    want = residual_layernorm_reference(x, a, gamma, beta, eps, keep)
+    err, _ = held("residual_layernorm", got, want, F32_FWD)
+    k_ms, p_ms = _paired_ms(lambda: residual_layernorm(*ln_args), lambda: (
+        residual_layernorm_reference(x, a, gamma, beta, eps,
+                                     hidden_keep(seed, OP_MLP_OUT, rows, H, rate, dev))), 20)
+    note("ln_fwd", f"residual_layernorm ({rows},{H}) dropout {rate}", err, k_ms, p_ms,
+         _bound(0.0, _nbytes(x, a, gamma, beta, got), PEAK_F32),
+         _time_ms(lambda: F.layer_norm(x + a, (H,), gamma, beta, eps), 20),
+         "x + a then F.layer_norm (no dropout)")
+    v, inv = got
+    gy = torch.randn(rows, H, device=dev, generator=g)
+    got = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+    torch.cuda.synchronize()
+    want = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
+    err, _ = held("layernorm_backward", got, want, F32_GRAD)
+    again = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+    if not all(torch.equal(p_, q_) for p_, q_ in zip(got[2:], again[2:])):
+        _fail("the f32 LayerNorm backward's sums differ from run to run")
+    k_ms, p_ms = _paired_ms(
+        lambda: layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate),
+        lambda: layernorm_backward_reference(gy, v, inv, gamma, beta,
+                                             hidden_keep(seed, OP_MLP_OUT, rows, H, rate, dev)),
+        20)
+    mean_r, rstd_r = x.mean(-1, keepdim=True), inv[:, None]
+    note("ln_bwd", f"layernorm_backward ({rows},{H}) dropout {rate}, sums bit for bit twice",
+         err, k_ms, p_ms, _bound(0.0, _nbytes(gy, v, inv, gamma, beta, got), PEAK_F32),
+         _time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+             gy, x, (H,), mean_r, rstd_r, gamma, beta, (True, True, True)), 20),
+         "aten.native_layer_norm_backward (no keep mask, no da)")
+    del x, a, v, inv, gy, got, want, again
+    for N in (768, 1536, 2304):
+        src = torch.randn(rows, N, device=dev, generator=g)
+        got = column_sums(src)
+        torch.cuda.synchronize()
+        err, _ = held(f"column_sums ({N})", (got,), (column_sums_reference(src),), F32_GRAD)
+        if not torch.equal(got, column_sums(src)):
+            _fail("the f32 column sums differ from run to run")
+        k_ms, p_ms = _paired_ms(lambda: column_sums(src), lambda: column_sums_reference(src), 20)
+        note("colsum", f"column_sums ({rows},{N}), bit for bit twice", err, k_ms, p_ms,
+             _bound(0.0, _nbytes(src, got), PEAK_F32), _time_ms(lambda: src.sum(0), 20),
+             "src.sum(0)")
+        del src, got
+
+    # the attention forward and backward (FFMA, a warp a head), dropout 0.1
+    lib_name = "F.scaled_dot_product_attention, f32 (rate 0, head transposes)"
+    for key, cross, causal, masked in (("self", False, True, False), ("self", False, False, True),
+                                       ("cross", True, False, False)):
+        packed = torch.randn(TRAIN_BATCH, SEQ, (1 if cross else 3) * H, device=dev, generator=g)
+        kv = torch.randn(TRAIN_BATCH, SEQ, 2 * H, device=dev, generator=g) if cross else None
+        q, k, v = (packed, *kv.split(H, -1)) if cross else packed.split(H, -1)
+        mask = _padded_mask(g, TRAIN_BATCH) if masked else None
+        args = (packed, kv, mask, 12, causal, seed, cross_op(12) if cross else 0, rate)
+        what = (f"attention forward in #1, {key} ({TRAIN_BATCH},{SEQ},{H}), "
+                f"{'causal, ' if causal else ''}{'padded mask, ' if masked else ''}dropout {rate}")
+        with torch.no_grad():
+            got = attention_forward(*args)
+            torch.cuda.synchronize()
+            err, rel = held(what, (got,), (attention_forward_reference(*args),), F32_FWD)
+            k_ms, p_ms = _paired_ms(lambda: attention_forward(*args),
+                                    lambda: attention_forward_reference(*args), 10)
+            lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
+            note(f"attn_fwd_{key}", what, err, k_ms, p_ms,
+                 _bound(4 * TRAIN_BATCH * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, got),
+                        PEAK_F32), _time_ms(lib_fwd, 10), lib_name, f", rel {rel:.2e}")
+            if not causal:  # the backward at the layer's shapes: self padded, cross
+                gctx = torch.randn(TRAIN_BATCH, SEQ, H, device=dev, generator=g)
+                b_args = args[:3] + (gctx,) + args[3:]
+                got = attention_backward(*b_args)
+                torch.cuda.synchronize()
+                want = attention_backward_reference(*b_args)
+                got, want = (got, want) if cross else ((got,), (want,))
+                err, rel = held(f"attention backward, {key}", got, want, F32_GRAD)
+                k_ms, p_ms = _paired_ms(lambda: attention_backward(*b_args),
+                                        lambda: attention_backward_reference(*b_args), 10)
+                note(f"attn_bwd_{key}", f"attention backward, {key} ({TRAIN_BATCH},{SEQ},{H}), "
+                     f"dropout {rate}", err, k_ms, p_ms,
+                     _bound(10 * TRAIN_BATCH * 12 * SEQ * SEQ * 64, _nbytes(b_args[:4], got),
+                            PEAK_F32), _time_ms(lib_bwd, 10), "autograd backward of " + lib_name,
+                     f", rel {rel:.2e}")
+        del packed, kv, q, k, v, got
+    torch.cuda.empty_cache()
+
+    # #1 and #2, encoder and decoder, training mode, dropout 0.1 / 0.1
+    layer_lib = "nn.Transformer{Encoder,Decoder}Layer, f32, train mode, dropout 0"
+    for decoder in (False, True):
+        what = "decoder" if decoder else "encoder"
+        geom, x, enc, smask, ws = _layer_case(decoder, g, TRAIN_BATCH, 0.1, f32)
+        with torch.no_grad():
+            out, resid = layer_forward(geom, x, enc, smask, None, ws, seed)
+            torch.cuda.synchronize()
+            out_p, res_p = layer_forward_reference(geom, x, enc, smask, None, ws, seed)
+            err, rel = held(f"layer forward {what}", (out, *resid), (out_p, *res_p), F32_FWD)
+            k_ms, p_ms = _paired_ms(lambda: layer_forward(geom, x, enc, smask, None, ws, seed),
+                                    lambda: layer_forward_reference(geom, x, enc, smask, None,
+                                                                    ws, seed), 3)
+            flops = _layer_flops(TRAIN_BATCH, SEQ, decoder)
+            lib_fwd, lib_bwd = _library_layer(decoder, x, enc, smask, ws, train=True)
+            note("layer_fwd", f"layer forward (#1) {what} ({TRAIN_BATCH},{SEQ},{H}), residuals",
+                 err, k_ms, p_ms, _bound(flops, _nbytes(x, enc, smask, ws, out, resid), PEAK_F32),
+                 _time_ms(lib_fwd, 3), layer_lib + ": forward under autograd",
+                 f", rel {rel:.2e}, 3xTF32 bound of its products "
+                 f"{3 * flops / PEAK_TF32 * 1e3:.4f} ms")
+            gy = 0.1 * torch.randn(x.shape, device=dev, generator=g)
+            b_args = (geom, x, enc, smask, None, ws, seed, res_p, out_p, gy,
+                      f32 if decoder else None)
+            got = layer_backward(*b_args)
+            torch.cuda.synchronize()
+            want = layer_backward_reference(*b_args)
+            flat = [t for t in (got[0], got[1], *got[2]) if t is not None]
+            err, rel = held(f"layer backward {what}", flat,
+                            [t for t in (want[0], want[1], *want[2]) if t is not None], F32_GRAD)
+            k_ms, p_ms = _paired_ms(lambda: layer_backward(*b_args),
+                                    lambda: layer_backward_reference(*b_args), 3)
+            note("layer_bwd", f"layer backward (#2) {what}", err, k_ms, p_ms,
+                 _bound(2 * flops, _nbytes(b_args[:-1], flat), PEAK_F32), _time_ms(lib_bwd, 3),
+                 layer_lib + ": its autograd backward", f", rel {rel:.2e}")
+        del geom, x, enc, smask, ws, out, resid, out_p, res_p, got, want, flat, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    _check_keep_masks(seed, f32)
+    torch.cuda.empty_cache()
+
+    # #7 / #8 (and #6) at 30,522 and GPT-2's 50,257, rows at every 16-byte phase
+    for vocab, suffix in ((VOCAB, ""), (GPT2_VOCAB, "_gpt2")):
+        logits, t = _ce_case(g, rows, vocab, f32)
+        phases = len({logits[r].data_ptr() % 16 for r in range(8)})
+        fwd, bwd, nll = _ce_ids_and_grad(logits, t)
+        res[f"ce_fwd_ids{suffix}"] = {**fwd, "library_ms": fwd.pop("two_call_ms"),
+                                      "library": "F.cross_entropy(reduction='none') + "
+                                                 "torch.argmax(x, 1)"}
+        res[f"ce_bwd{suffix}"] = bwd
+        print(f"f32 CE at ({rows},{vocab}): rows at {phases} 16-byte phases")
+        if not suffix:  # #6, the same template without the argmax
+            with torch.no_grad():
+                nll6 = ce_fwd(logits, t)
+                torch.cuda.synchronize()
+                same = torch.equal(nll6, nll)
+                err = (nll6 - ce_fwd_reference(logits, t)).abs().max().item()
+                k_ms, p_ms = _paired_ms(lambda: ce_fwd(logits, t),
+                                        lambda: ce_fwd_reference(logits, t), 10)
+                note("ce_fwd", f"ce_fwd (#6) ({rows},{vocab})", err, k_ms, p_ms,
+                     _bound(4 * rows * vocab, _nbytes(logits, t, nll6), PEAK_F32),
+                     _time_ms(lambda: F.cross_entropy(logits, t.long(), reduction="none"), 10),
+                     "F.cross_entropy(reduction='none')")
+            x3 = logits.view(TRAIN_BATCH, SEQ, vocab).detach().requires_grad_()
+            _reset_counters()
+            fused_ce_loss(x3, t.view(TRAIN_BATCH, SEQ), torch.ones(TRAIN_BATCH, device=dev)
+                          ).backward()
+            torch.cuda.synchronize()
+            counts = _counters()
+            want_counts = _as_f32({k: 0 for k in counts} | {"ce_fwd": 1, "ce_bwd": 1})
+            print(f"f32 #6: NLL equal to #7's {same}; fused_ce_loss launches {counts}")
+            if not same or counts != want_counts:
+                _fail("f32 #6 differs from #7's NLL or fused_ce_loss skipped its f32 kernels")
+            res["ce_loss_launches"] = counts
+            del x3, nll6
+        del logits, t, nll
+        torch.cuda.empty_cache()
+
+    # (b) the f32 step at batch 2048, then the f32 CLI run, (d) served
+    tr = phase_train(names, steps=F32_STEPS, dtype="float32")
+    eng = phase_engine(names, epochs=1, dtype="float32")
+
+    # (c) batch-256 loss and gradients, kernel route against plain route, f32
+    cfg = dataclasses.replace(_train_cfg(), compute_dtype="float32")
+    seeded = torch.Generator(device=dev).manual_seed(SEED)
+    model = init_weights(build_model(cfg, device=dev), seeded)
+    small = _train_batch(GRAD_BATCH)
+
+    def loss_and_grads(m, c, batch, reference):
+        for p_ in m.parameters():
+            p_.grad = None
+        loss, _ = make_loss_fn(c, "train", reference=reference)(
+            m, batch, torch.Generator(device=dev).manual_seed(SEED + 2), False)
+        loss.backward()
+        return loss.item(), {n_: p_.grad.clone() for n_, p_ in m.named_parameters()
+                             if p_.grad is not None}
+
+    def route_vs_plain(what, m, c, batch):
+        lp, ref = loss_and_grads(m, c, batch, True)
+        with _plain_refused(default_route=True):
+            _reset_counters()
+            lk, got = loss_and_grads(m, c, batch, False)
+            torch.cuda.synchronize()
+            counts = _counters()
+        glob = (sum(((got[n_] - ref[n_]) ** 2).sum().item() for n_ in ref)
+                / sum((ref[n_] ** 2).sum().item() for n_ in ref)) ** 0.5
+        loss_rel = abs(lk - lp) / abs(lp)
+        only_f32 = counts == _as_f32(counts)  # every launch an f32 instance's
+        print(f"f32 {what}: loss {lk:.7f}, plain route {lp:.7f}, rel {loss_rel:.3e} (tol "
+              f"{F32_LOSS_REL}); gradients global rel L2 {glob:.3e} (tol {F32_GRAD}) over "
+              f"{len(ref)} leaves; launches {counts}")
+        if (got.keys() != ref.keys() or not all(_finite(t_) for t_ in got.values())
+                or loss_rel > F32_LOSS_REL or glob > F32_GRAD or not only_f32
+                or counts["layer_fwd"] == 0 or counts["ce_fwd_ids"] != 1):
+            _fail(f"f32 {what}: the kernel route disagrees with the plain route or ran other "
+                  "than the f32 instances")
+        return {"loss_rel": loss_rel, "grad_global_rel_l2": glob, "counts": counts}
+
+    grads = route_vs_plain(f"Shelgon3-VQ at batch {GRAD_BATCH}", model, cfg, small)
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) Bagon with the GPT-2 decoder, full width at a cut depth, one step
+    cfg = _gpt2_cfg(model_name="bagon", compute_dtype="float32", num_layers=F32_GPT2_LAYERS)
+    model = init_weights(build_model(cfg, device=dev), seeded.manual_seed(SEED))
+    gpt2 = route_vs_plain(f"Bagon-GPT-2 ({F32_GPT2_LAYERS} + {F32_GPT2_LAYERS} layers, vocabulary "
+                          f"{GPT2_VOCAB}) at batch {GRAD_BATCH}", model, cfg,
+                          _gpt2_batch(GRAD_BATCH))
+    state = init_train_state(cfg, model)
+    step = make_train_step(cfg, dev, torch.Generator(device=dev).manual_seed(SEED))
+    with _plain_refused(default_route=True):
+        t0 = time.perf_counter()
+        state, aux = step(state, _gpt2_batch(TRAIN_BATCH))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    if not math.isfinite(float(aux["loss_full"])):
+        _fail("the f32 Bagon-GPT-2 step's loss is not finite")
+    print(f"f32 Bagon-GPT-2 step at batch {TRAIN_BATCH} (first, with its set-up): {dt * 1e3:.1f} "
+          f"ms, loss {float(aux['loss_full']):.5f}")
+    del model, state, step, aux
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_phase
+    print(f"f32: {wall:.1f} s; step median {tr['median_ms']:.2f} ms "
+          f"({TRAIN_BATCH * 1e3 / tr['median_ms']:.1f} sentences/s), max_memory_allocated "
+          f"{tr['peak_gib']:.2f} GiB (CLI run {eng['peak_gib']:.2f} GiB) ({names[0]}; nvidia-smi: "
+          f"{names[1]})")
+    def mean(v):
+        return statistics.mean(v) if isinstance(v, list) else v
+
+    out = {k: {**v, **{f: mean(v[f]) for f in ("ms", "plain_ms", "library_ms")}}
+           for k, v in res.items() if k != "ce_loss_launches"}
+    return {**out, "train": tr, "engine": eng, "grads": grads, "gpt2": gpt2,
+            "ce_loss_launches": res["ce_loss_launches"], "wall_s": wall}
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -3350,7 +3829,9 @@ def main() -> None:
     phase_research(names)
     phase_variants(names, tr["auto"]["median_ms"])
     g2 = phase_gpt2(names, tr["auto"]["median_ms"])
+    f32 = phase_f32(names)
     n = tr["auto"]["counts"]
+    n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]
     src, tpu = "kindergarten_vq_vae_torch/csrc/", "kindergarten_vq_vae_tpu/ops/"
 
@@ -3414,6 +3895,38 @@ def main() -> None:
           for k, line in (("ce_fwd_ids", 63), ("ce_bwd", 104))],
         row("amsgrad_update (GPT-2 decoder's parameter list)", "adam.cu", "adam_pallas.py:46",
             g2["bagon-gpt2"]["counts"]["adam"], adam_g2),
+        # the f32 instances: launches from the f32 step's run (F32_STEPS steps),
+        # #6's from its fused_ce_loss run, the GPT-2 vocabulary's from the
+        # Bagon-GPT-2 kernel-route loss
+        row("layer GEMM f32, forward products (in layer_forward)", "gemm_f32.cu",
+            "layer_pallas.py:489", n32["gemm_in_fwd"], f32["gemm_fwd"]),
+        row("layer GEMM f32, gradient products (in layer_backward)", "gemm_f32.cu",
+            "layer_pallas.py:552", n32["gemm_f32"] - n32["gemm_in_fwd"], f32["gemm_grad"]),
+        row("layer_forward f32 (training mode)", "layer_fwd.cu", "layer_pallas.py:489",
+            n32["layer_fwd_f32"], f32["layer_fwd"]),
+        row("layer_backward f32", "layer_bwd.cu", "layer_pallas.py:552", n32["layer_bwd_f32"],
+            f32["layer_bwd"]),
+        *[row(f"attention_forward f32 in layer_forward ({kind})", "attention_f32.cuh",
+              "layer_pallas.py:244", n32[f"attn_fwd_{kind}"], f32[f"attn_fwd_{kind}"])
+          for kind in ("self", "cross")],
+        row("attention_backward f32 (self)", "attention_f32.cuh", "layer_pallas.py:696",
+            n32["attn_bwd_self"], f32["attn_bwd_self"]),
+        row("attention_backward f32 (cross)", "attention_f32.cuh", "layer_pallas.py:712",
+            n32["attn_bwd_cross"], f32["attn_bwd_cross"]),
+        row("residual_layernorm f32", "layernorm.cu", "layer_pallas.py:489", n32["ln_fwd_f32"],
+            f32["ln_fwd"]),
+        row("layernorm_backward f32", "layernorm.cu", "layer_pallas.py:552", n32["ln_bwd_f32"],
+            f32["ln_bwd"]),
+        row("column_sums f32", "layernorm.cu", "layer_pallas.py:552", n32["colsum_f32"],
+            f32["colsum"]),
+        row("ce_fwd f32", "ce.cu", "ce_pallas.py:34", f32["ce_loss_launches"]["ce_fwd_f32"],
+            f32["ce_fwd"]),
+        row("ce_fwd_ids f32", "ce.cu", "ce_pallas.py:63", n32["ce_fwd_ids_f32"],
+            f32["ce_fwd_ids"]),
+        row("ce_bwd f32", "ce.cu", "ce_pallas.py:104", n32["ce_bwd_f32"], f32["ce_bwd"]),
+        *[row(f"{k} f32 (GPT-2 decoder, vocabulary {GPT2_VOCAB})", "ce.cu",
+              f"ce_pallas.py:{line}", f32["gpt2"]["counts"][f"{k}_f32"], f32[f"{k}_gpt2"])
+          for k, line in (("ce_fwd_ids", 63), ("ce_bwd", 104))],
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

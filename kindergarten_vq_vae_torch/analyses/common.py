@@ -18,7 +18,7 @@ import torch
 
 from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
 from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name, read_checkpoint
-from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported_route
 from kindergarten_vq_vae_torch.data.dataset import padded_batches
 from kindergarten_vq_vae_torch.models import build_model
 
@@ -27,12 +27,11 @@ def load_run(run_path: str, ckpt_name: str | None = None, device="cuda"):
     """``(cfg, model)`` of a run directory: the model built as
     ``Reconstructor`` builds it (logits head, eval mode) on ``device``, with
     the slot ``ckpt_name`` (the best-val ``loss_recon`` slot by default)
-    loaded strictly. On CUDA the kernels take bf16 runs only."""
+    loaded strictly. On CUDA an f32 run takes the default route only
+    (``refuse_unported_route``)."""
     cfg = RunConfig.load(os.path.join(run_path, "run_conf.json"))
     device = torch.device(device)
-    if device.type == "cuda" and cfg.dtype != torch.bfloat16:
-        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the CUDA kernels take bfloat16 "
-                         "only (ROADMAP, Open items: f32 on CUDA waits for a later kernel)")
+    refuse_unported_route(cfg, device)
     model = build_model(cfg, device=device).eval()
     if ckpt_name is None:
         ckpt_name = best_ckpt_name(cfg.model_name, "loss_recon", "val")

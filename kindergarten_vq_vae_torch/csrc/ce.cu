@@ -1,4 +1,4 @@
-// Streaming cross-entropy over bf16 logits for Hopper (sm_90a).
+// Streaming cross-entropy over bf16 or f32 logits for Hopper (sm_90a).
 //
 // Replaces kindergarten_vq_vae_tpu/ops/ce_pallas.py `_ce_fwd_kernel` (l.34),
 // `_ce_fwd_ids_kernel` (l.63) and `_ce_bwd_kernel` (l.104), the
@@ -40,6 +40,12 @@
 // vocabulary is odd or a buffer is not 4-byte aligned). #6 and #7 are one
 // template: the flag IDS drops the argmax state, so the two share every
 // other line and give the same NLL bits.
+//
+// f32 logits (an f32 run: JAX's parity dtype, in which its Pallas kernels
+// run too) take the same kernels instantiated on float: a 16-byte chunk is 4
+// f32, rows of 30,522 f32 (122,088 bytes, 8 mod 16) start at two 16-byte
+// phases and rows of GPT-2's 50,257 at four; the backward takes its element
+// path (4-byte accesses, whole 128-byte lines a warp).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,10 +92,8 @@ __device__ __forceinline__ void take1(Online& st, float x, int c) {
   if (st.m != -INFINITY) st.s += ex2(fmaf(x, LOG2E, -st.mL));
 }
 
-// eight elements at columns c0..c0+7 (a 16-byte chunk of the body)
-template <bool IDS>
-__device__ __forceinline__ void take8(Online& st, const uint4& u, int c0) {
-  float x[8];
+// the 16-byte chunk of the body at columns c0..: 8 bf16 or 4 f32
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -97,21 +101,34 @@ __device__ __forceinline__ void take8(Online& st, const uint4& u, int c0) {
     x[2 * k] = t.x;
     x[2 * k + 1] = t.y;
   }
-  const float cm = fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])),
-                         fmaxf(fmaxf(x[4], x[5]), fmaxf(x[6], x[7])));
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x), x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z), x[3] = __uint_as_float(u.w);
+}
+
+template <bool IDS, typename T>
+__device__ __forceinline__ void take_chunk(Online& st, const uint4& u, int c0) {
+  constexpr int E = 16 / sizeof(T);
+  float x[E];
+  unpack(u, x);
+  float cm = x[0];
+#pragma unroll
+  for (int k = 1; k < E; ++k) cm = fmaxf(cm, x[k]);
   if (cm > st.m) {
     raise_max(st, cm);
     if constexpr (IDS) {
-      int j = 7;
+      int j = E - 1;
 #pragma unroll
-      for (int k = 6; k >= 0; --k) j = x[k] == cm ? k : j;  // the chunk's first index of cm
+      for (int k = E - 2; k >= 0; --k) j = x[k] == cm ? k : j;  // the chunk's first index of cm
       st.bi = c0 + j;
     }
   }
   if (st.m == -INFINITY) return;  // nothing but -inf so far: no mass
   float a = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) a += ex2(fmaf(x[k], LOG2E, -st.mL));
+  for (int k = 0; k < E; ++k) a += ex2(fmaf(x[k], LOG2E, -st.mL));
   st.s += a;
 }
 
@@ -139,55 +156,63 @@ __device__ __forceinline__ void merge_xor(Online& a, int o) {
   }
 }
 
-// IDS: #7 (nll and ids); otherwise #6 (nll alone, ids unused).
-template <bool IDS>
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ void from_f32(bf16& o, float v) { o = __float2bfloat16(v); }
+__device__ __forceinline__ void from_f32(float& o, float v) { o = v; }
+
+// IDS: #7 (nll and ids); otherwise #6 (nll alone, ids unused). T: the
+// logits' type, bf16 or float.
+template <bool IDS, typename T>
 __global__ void __launch_bounds__(32 * CE_ROWS)
-ce_fwd_kernel(const bf16* __restrict__ logits, int rows, int vocab,
+ce_fwd_kernel(const T* __restrict__ logits, int rows, int vocab,
               const int* __restrict__ targets, float* __restrict__ nll, int* __restrict__ ids) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte chunk
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * CE_ROWS + threadIdx.x / 32;
   if (row >= rows) return;
-  const bf16* x = logits + (size_t)row * vocab;
+  const T* x = logits + (size_t)row * vocab;
   // the head: the elements before the row's first 16-byte boundary
-  int head = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(x) & 15u)) & 15u) >> 1);
+  int head = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(x) & 15u)) & 15u) / sizeof(T));
   head = head < vocab ? head : vocab;
-  const int body = (vocab - head) >> 3, tail = head + 8 * body;
+  const int body = (vocab - head) / E, tail = head + E * body;
   Online st{-INFINITY, -INFINITY, 0.0f, INT_MAX};
-  if (lane < head) take1<IDS>(st, __bfloat162float(x[lane]), lane);
+  if (lane < head) take1<IDS>(st, to_f32(x[lane]), lane);
   const uint4* xb = reinterpret_cast<const uint4*>(x + head);
   int c = lane;
   for (; c + 96 < body; c += 128) {
     const uint4 u0 = __ldg(xb + c), u1 = __ldg(xb + c + 32), u2 = __ldg(xb + c + 64),
                 u3 = __ldg(xb + c + 96);
-    take8<IDS>(st, u0, head + 8 * c);
-    take8<IDS>(st, u1, head + 8 * (c + 32));
-    take8<IDS>(st, u2, head + 8 * (c + 64));
-    take8<IDS>(st, u3, head + 8 * (c + 96));
+    take_chunk<IDS, T>(st, u0, head + E * c);
+    take_chunk<IDS, T>(st, u1, head + E * (c + 32));
+    take_chunk<IDS, T>(st, u2, head + E * (c + 64));
+    take_chunk<IDS, T>(st, u3, head + E * (c + 96));
   }
-  for (; c < body; c += 32) take8<IDS>(st, __ldg(xb + c), head + 8 * c);
-  if (tail + lane < vocab) take1<IDS>(st, __bfloat162float(x[tail + lane]), tail + lane);
+  for (; c < body; c += 32) take_chunk<IDS, T>(st, __ldg(xb + c), head + E * c);
+  if (tail + lane < vocab) take1<IDS>(st, to_f32(x[tail + lane]), tail + lane);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) merge_xor<IDS>(st, o);
   if (lane == 0) {
     const int tgt = targets[row];
-    const float t = tgt >= 0 && tgt < vocab ? __bfloat162float(x[tgt]) : 0.0f;
+    const float t = tgt >= 0 && tgt < vocab ? to_f32(x[tgt]) : 0.0f;
     nll[row] = fmaf(st.mL + log2f(st.s), LN2, -t);
     if constexpr (IDS) ids[row] = st.bi == INT_MAX ? 0 : st.bi;  // a row of -inf: index 0
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(CE_THREADS)
-ce_bwd_kernel(const bf16* __restrict__ logits, int vocab, const int* __restrict__ targets,
+ce_bwd_kernel(const T* __restrict__ logits, int vocab, const int* __restrict__ targets,
               const float* __restrict__ lse, const float* __restrict__ scale,
-              bf16* __restrict__ out) {
+              T* __restrict__ out) {
   const int row = blockIdx.x, tid = threadIdx.x;
   const size_t base = (size_t)row * vocab;
   const int tgt = targets[row];
   const float l = lse[row], sc = scale[row];
   // bf16 pairs need 4-byte aligned rows: an even vocabulary and 4-byte
   // aligned buffers (a view that starts at an odd element takes the element
-  // path)
-  const bool pairs = (vocab & 1) == 0 &&
+  // path); f32 takes the element path
+  const bool pairs = sizeof(T) == 2 && (vocab & 1) == 0 &&
                      ((reinterpret_cast<uintptr_t>(logits) | reinterpret_cast<uintptr_t>(out)) &
                       3u) == 0;
   if (pairs) {
@@ -201,47 +226,59 @@ ce_bwd_kernel(const bf16* __restrict__ logits, int vocab, const int* __restrict_
     }
   } else {
     for (int c = tid; c < vocab; c += CE_THREADS) {
-      const float v = __bfloat162float(logits[base + c]);
-      out[base + c] = __float2bfloat16((expf(v - l) - (c == tgt ? 1.0f : 0.0f)) * sc);
+      const float v = to_f32(logits[base + c]);
+      from_f32(out[base + c], (expf(v - l) - (c == tgt ? 1.0f : 0.0f)) * sc);
     }
   }
+}
+
+template <bool IDS, typename T>
+int launch_fwd(const void* logits, const int* targets, void* nll, void* ids, int rows, int vocab,
+               void* stream) {
+  ce_fwd_kernel<IDS, T><<<(rows + CE_ROWS - 1) / CE_ROWS, 32 * CE_ROWS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(logits), rows, vocab, targets, static_cast<float*>(nll),
+      static_cast<int*>(ids));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* logits, const int* targets, const void* lse, const void* scale,
+               void* out, int rows, int vocab, void* stream) {
+  ce_bwd_kernel<T><<<rows, CE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(logits), vocab, targets, static_cast<const float*>(lse),
+      static_cast<const float*>(scale), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// logits (rows, vocab) bf16 row-major; targets (rows,) int32; nll (rows,)
-// f32 and ids (rows,) int32 written.
+// logits (rows, vocab) row-major, f32 when f32, else bf16; targets (rows,)
+// int32; nll (rows,) f32 and ids (rows,) int32 written.
 int kvq_ce_fwd_ids(const void* logits, const int* targets, void* nll, void* ids, int rows,
-                   int vocab, void* stream) {
+                   int vocab, int f32, void* stream) {
   if (rows <= 0) return 0;
-  ce_fwd_kernel<true><<<(rows + CE_ROWS - 1) / CE_ROWS, 32 * CE_ROWS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(logits), rows, vocab, targets, static_cast<float*>(nll),
-      static_cast<int*>(ids));
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? launch_fwd<true, float>(logits, targets, nll, ids, rows, vocab, stream)
+             : launch_fwd<true, bf16>(logits, targets, nll, ids, rows, vocab, stream);
 }
 
 // As kvq_ce_fwd_ids without the argmax: nll (rows,) f32 written.
-int kvq_ce_fwd(const void* logits, const int* targets, void* nll, int rows, int vocab,
+int kvq_ce_fwd(const void* logits, const int* targets, void* nll, int rows, int vocab, int f32,
                void* stream) {
   if (rows <= 0) return 0;
-  ce_fwd_kernel<false><<<(rows + CE_ROWS - 1) / CE_ROWS, 32 * CE_ROWS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(logits), rows, vocab, targets, static_cast<float*>(nll), nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? launch_fwd<false, float>(logits, targets, nll, nullptr, rows, vocab, stream)
+             : launch_fwd<false, bf16>(logits, targets, nll, nullptr, rows, vocab, stream);
 }
 
-// out (rows, vocab) bf16 = (softmax(logits) - one_hot(targets)) * scale[:, None],
-// with softmax from the per-row lse (f32).
+// out (rows, vocab), the logits' type, = (softmax(logits) - one_hot(targets))
+// * scale[:, None], with softmax from the per-row lse (f32).
 int kvq_ce_bwd(const void* logits, const int* targets, const void* lse, const void* scale,
-               void* out, int rows, int vocab, void* stream) {
+               void* out, int rows, int vocab, int f32, void* stream) {
   if (rows <= 0) return 0;
-  ce_bwd_kernel<<<rows, CE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(logits), vocab, targets, static_cast<const float*>(lse),
-      static_cast<const float*>(scale), static_cast<bf16*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? launch_bwd<float>(logits, targets, lse, scale, out, rows, vocab, stream)
+             : launch_bwd<bf16>(logits, targets, lse, scale, out, rows, vocab, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,28 @@
+// The f32 instance of the layer GEMM (gemm_f32.cu): the host entry that the
+// layer forward's C sequence (layer_fwd.cu) calls for f32 operands.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace kvq {
+namespace f32gemm {
+
+// the CTA tile: 128 x 128 outputs over 32-deep slices of K
+constexpr int TILE_M = 128, TILE_N = 128, TILE_K = 32;
+
+// C (M, N) f32 = epi(op(A) @ op(B) [+ bias]) in 3xTF32: a_t, A stored (K, M)
+// (the weight gradients, EPI_F32 only, through `splits` f32 partials of
+// kchunk rows of K in ws, summed in a fixed order); b_t, B stored (N, K) (the
+// data gradients: EPI_F32, EPI_ADD_F32, EPI_DGELU_*); neither, the forward
+// (EPI_F32, EPI_GELU_*, with an optional bias). C2 receives the pre-GELU u or
+// the du of a dgelu epilogue when not null; colparts (ceil(M / 128), N) and
+// colsum (N,), both or neither (NT with a dgelu epilogue): colsum receives du's
+// column sums. Every row's contiguous extent and leading dimension a multiple
+// of 4, A and B 16-byte aligned, N and ldc even. Returns a cudaError_t code.
+int run_gemm(int a_t, int b_t, const float* A, int lda, const float* B, int ldb, int M, int N,
+             int K, int epi, int splits, int kchunk, float* C, int ldc, float* C2, int ldc2,
+             const float* aux, int ld_aux, const float* bias, float* ws, float* colparts,
+             float* colsum, cudaStream_t st);
+
+}  // namespace f32gemm
+}  // namespace kvq

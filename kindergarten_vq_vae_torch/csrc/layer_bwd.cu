@@ -20,6 +20,10 @@
 //                       warp a head on mma.sync tiles (attention.cuh)
 //   kvq_colsum          (layernorm.cu) f32 bias-gradient column sums
 //
+// In f32 (JAX's parity dtype) the same sequence runs the f32 instances:
+// kvq_gemm_f32 (gemm_f32.cu, 3xTF32, the weight gradients kept in f32), the
+// FFMA attention backward of attention_f32.cuh, and layernorm.cu's f32 rows.
+//
 // What bounds it on the H100: the dgrad and wgrad GEMMs are twice the
 // forward's FLOPs and compute-bound at 24576 rows (gemm_sm90.cuh says how
 // the GEMM meets that); the weight gradients have few output tiles (768 x
@@ -31,6 +35,7 @@
 // deterministic two-pass sum (per-block partials, then a fixed-order sum).
 
 #include "attention.cuh"
+#include "attention_f32.cuh"
 #include "dropout_hash.cuh"
 #include "layer_common.cuh"
 
@@ -41,15 +46,19 @@ extern "C" {
 // Attention backward for batch sentences x num_heads heads. q rows at
 // q + (b*s_q + i)*q_ld, k / v rows at k|v + (b*s_k + j)*kv_ld (head h at
 // column h*head_dim); g (batch*s_q, H) bf16; dq / dk / dv with the same
-// strides as q / k / v. key_mask (batch, s_k) int32 or null.
+// strides as q / k / v. key_mask (batch, s_k) int32 or null. All f32 when
+// f32, else bf16.
 int kvq_attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                       const int* key_mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,
                       int dkv_ld, int batch, int num_heads, int head_dim, int s_q, int s_k,
                       int causal, unsigned seed, unsigned thresh, float scale, int op_base,
-                      void* stream) {
+                      int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  if (f32)
+    return attention_f32_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
+                             num_heads, head_dim, s_q, s_k, causal, drop, op_base, st);
   return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
                        num_heads, head_dim, s_q, s_k, causal, drop, op_base, st);
 }

@@ -31,9 +31,16 @@
 // registers, 16-byte accesses). One C
 // call launches the layer's whole sequence on the caller's stream and
 // returns cudaGetLastError(); kvq_attention_fwd launches its attention alone.
+//
+// In f32 (JAX's parity dtype, in which the TPU kernel runs too) the same
+// sequence runs the f32 instances: the 3xTF32 GEMM of gemm_f32.cu, the FFMA
+// attention of attention_f32.cuh and layernorm.cu's f32 rows; every bf16
+// intermediate above is then f32, and the roundings to it are identities.
 
 #include "attention.cuh"
+#include "attention_f32.cuh"
 #include "dropout_hash.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "layer_common.cuh"
 #include "layernorm.cuh"
@@ -45,12 +52,30 @@ namespace {
 // C[M, N] = epi(A[M, K] @ B[K, N] + bias[N]) through the layer GEMM
 // (gemm_sm90.cuh) on a tile_n-wide tile; with a GELU epilogue, pre_gelu (may
 // be null) receives bf16(A @ B + bias), the training residual.
-int gemm_nn(const void* A, int lda, const void* B, int ldb, const void* bias, void* C, int ldc,
-            int M, int N, int K, int epi, int tile_n, int sms, cudaStream_t st,
+// In f32 the f32 GEMM, whose every output is f32 (EPI_BF16 becomes EPI_F32).
+int gemm_nn(bool f32, const void* A, int lda, const void* B, int ldb, const void* bias, void* C,
+            int ldc, int M, int N, int K, int epi, int tile_n, int sms, cudaStream_t st,
             void* pre_gelu = nullptr) {
+  if (f32)
+    return f32gemm::run_gemm(0, 0, static_cast<const float*>(A), lda,
+                             static_cast<const float*>(B), ldb, M, N, K,
+                             epi == EPI_BF16 ? EPI_F32 : epi, 1, K, static_cast<float*>(C), ldc,
+                             static_cast<float*>(pre_gelu), ldc, nullptr, 0,
+                             static_cast<const float*>(bias), nullptr, nullptr, nullptr, st);
   const int kchunk = (K + sm90::TILE_K - 1) / sm90::TILE_K * sm90::TILE_K;
   return sm90::run_gemm(0, 1, A, lda, B, ldb, M, N, K, epi, tile_n, 1, kchunk, C, ldc, pre_gelu,
                         ldc, nullptr, 0, static_cast<const float*>(bias), nullptr, sms, st);
+}
+
+// the attention of attention.cuh (bf16) or attention_f32.cuh (f32)
+int attend(bool f32, const void* q, int q_ld, const void* k, const void* v, int kv_ld,
+           const int* mask, void* ctx, int ctx_ld, int batch, int nh, int hd, int s_q, int s_k,
+           int causal, DropoutParams drop, int op_base, cudaStream_t st) {
+  if (f32)
+    return attention_f32(q, q_ld, k, v, kv_ld, mask, ctx, ctx_ld, batch, nh, hd, s_q, s_k,
+                         causal, drop, op_base, st);
+  return attention(q, q_ld, k, v, kv_ld, mask, ctx, ctx_ld, batch, nh, hd, s_q, s_k, causal, drop,
+                   op_base, st);
 }
 
 }  // namespace
@@ -61,18 +86,19 @@ const char* kvq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One post-LN BertLayer forward. x (batch*s_q, H) bf16; enc (batch*s_k, H)
-// bf16 or null; smask (batch, s_q) / cmask (batch, s_k) int32 or null.
-// Weights: w* bf16 (in, out); b*, g*, be* f32. Workspace (all written):
-// qkv (M, 3H), ctx (M, H), acc f32 (M, H), x1 (M, H), m (M, F); decoder also
-// qc (M, H), kvc (batch*s_k, 2H), x2 (M, H). ctx2 (M, H) receives the
-// cross-attention context when given (else it reuses ctx). Training
-// residuals, when given: u (M, F) bf16, invs (3, M) f32 (rows 0 / 1 / 2:
-// the LayerNorm rsqrt after self-attention / cross-attention / MLP).
-// out (M, H) bf16. Dropout: seed is the int32 seed's bits; a zero
-// threshold (rate 0) switches a site off. tile_n (7 ints): the GEMM tile
-// width of the products qkv, wo, wq, wkv, wco, w1, w2 (ops/gemm.py
-// `gemm_plan`); sms caps the GEMMs' persistent grids.
+// One post-LN BertLayer forward. x (batch*s_q, H) in the compute dtype (f32
+// when f32, else bf16); enc (batch*s_k, H) in it or null; smask (batch, s_q)
+// / cmask (batch, s_k) int32 or null. Weights: w* in the compute dtype (in,
+// out); b*, g*, be* f32. Workspace (all written, in the compute dtype but
+// acc): qkv (M, 3H), ctx (M, H), acc f32 (M, H), x1 (M, H), m (M, F);
+// decoder also qc (M, H), kvc (batch*s_k, 2H), x2 (M, H). ctx2 (M, H)
+// receives the cross-attention context when given (else it reuses ctx).
+// Training residuals, when given: u (M, F), invs (3, M) f32 (rows 0 / 1 /
+// 2: the LayerNorm rsqrt after self-attention / cross-attention / MLP).
+// out (M, H). Dropout: seed is the int32 seed's bits; a zero threshold
+// (rate 0) switches a site off. tile_n (7 ints): the bf16 GEMM's tile width
+// of the products qkv, wo, wq, wkv, wco, w1, w2 (ops/gemm.py `gemm_plan`;
+// the f32 GEMM's tile is fixed); sms caps the bf16 GEMMs' persistent grids.
 int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const int* cmask,
                        const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                        const void* g1, const void* be1, const void* wq, const void* bq,
@@ -84,46 +110,48 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
                        int s_k, int num_heads, int head_dim, int intermediate, int causal,
                        int has_cross, int gelu_exact, float eps, unsigned seed,
                        unsigned attn_thresh, float attn_scale, unsigned hid_thresh,
-                       float hid_scale, const int* tile_n, int sms, void* stream) {
+                       float hid_scale, const int* tile_n, int sms, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = num_heads * head_dim, F = intermediate, M = batch * s_q;
   const DropoutParams attn_drop{seed, attn_thresh, attn_scale, attn_thresh != 0u};
   const DropoutParams hid_drop{seed, hid_thresh, hid_scale, hid_thresh != 0u};
   float* inv = static_cast<float*>(invs);
+  const bool fp = f32 != 0;
+  const size_t es = fp ? 4 : 2;  // bytes an element of the compute dtype
+  auto at = [es](const void* p, int elems) { return static_cast<const char*>(p) + elems * es; };
 
   int e;
 #define KVQ_TRY(call) \
   if ((e = (call)) != 0) return e
 
   // self-attention block
-  KVQ_TRY(gemm_nn(x, H, wqkv, 3 * H, bqkv, qkv, 3 * H, M, 3 * H, H, EPI_BF16, tile_n[0], sms, st));
-  const bf16* qkv_b = static_cast<const bf16*>(qkv);
-  KVQ_TRY(attention(qkv_b, 3 * H, qkv_b + H, qkv_b + 2 * H, 3 * H, smask, ctx, H, batch,
-                    num_heads, head_dim, s_q, s_q, causal, attn_drop, 0, st));
-  KVQ_TRY(gemm_nn(ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, tile_n[1], sms, st));
-  KVQ_TRY(residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, st));
+  KVQ_TRY(gemm_nn(fp, x, H, wqkv, 3 * H, bqkv, qkv, 3 * H, M, 3 * H, H, EPI_BF16, tile_n[0], sms,
+                  st));
+  KVQ_TRY(attend(fp, qkv, 3 * H, at(qkv, H), at(qkv, 2 * H), 3 * H, smask, ctx, H, batch,
+                 num_heads, head_dim, s_q, s_q, causal, attn_drop, 0, st));
+  KVQ_TRY(gemm_nn(fp, ctx, H, wo, H, bo, acc, H, M, H, H, EPI_F32, tile_n[1], sms, st));
+  KVQ_TRY(residual_layernorm(x, acc, g1, be1, x1, inv, M, H, eps, hid_drop, OP_ATTN_OUT, fp, st));
 
   const void* xm = x1;
   if (has_cross) {
     void* c2 = ctx2 != nullptr ? ctx2 : ctx;
-    KVQ_TRY(gemm_nn(x1, H, wq, H, bq, qc, H, M, H, H, EPI_BF16, tile_n[2], sms, st));
-    KVQ_TRY(gemm_nn(enc, H, wkv, 2 * H, bkv, kvc, 2 * H, batch * s_k, 2 * H, H, EPI_BF16,
+    KVQ_TRY(gemm_nn(fp, x1, H, wq, H, bq, qc, H, M, H, H, EPI_BF16, tile_n[2], sms, st));
+    KVQ_TRY(gemm_nn(fp, enc, H, wkv, 2 * H, bkv, kvc, 2 * H, batch * s_k, 2 * H, H, EPI_BF16,
                     tile_n[3], sms, st));
-    const bf16* kvc_b = static_cast<const bf16*>(kvc);
-    KVQ_TRY(attention(qc, H, kvc_b, kvc_b + H, 2 * H, cmask, c2, H, batch, num_heads, head_dim,
-                      s_q, s_k, 0, attn_drop, num_heads + 1, st));
-    KVQ_TRY(gemm_nn(c2, H, wco, H, bco, acc, H, M, H, H, EPI_F32, tile_n[4], sms, st));
+    KVQ_TRY(attend(fp, qc, H, kvc, at(kvc, H), 2 * H, cmask, c2, H, batch, num_heads, head_dim,
+                   s_q, s_k, 0, attn_drop, num_heads + 1, st));
+    KVQ_TRY(gemm_nn(fp, c2, H, wco, H, bco, acc, H, M, H, H, EPI_F32, tile_n[4], sms, st));
     KVQ_TRY(residual_layernorm(x1, acc, g2, be2, x2, inv ? inv + M : nullptr, M, H, eps,
-                               hid_drop, OP_CROSS_OUT, st));
+                               hid_drop, OP_CROSS_OUT, fp, st));
     xm = x2;
   }
 
   // MLP block
-  KVQ_TRY(gemm_nn(xm, H, w1, F, b1, m, F, M, F, H, gelu_exact ? EPI_GELU_ERF : EPI_GELU_TANH,
+  KVQ_TRY(gemm_nn(fp, xm, H, w1, F, b1, m, F, M, F, H, gelu_exact ? EPI_GELU_ERF : EPI_GELU_TANH,
                   tile_n[5], sms, st, u));
-  KVQ_TRY(gemm_nn(m, F, w2, H, b2, acc, H, M, H, F, EPI_F32, tile_n[6], sms, st));
+  KVQ_TRY(gemm_nn(fp, m, F, w2, H, b2, acc, H, M, H, F, EPI_F32, tile_n[6], sms, st));
   KVQ_TRY(residual_layernorm(xm, acc, g3, be3, out, inv ? inv + 2 * M : nullptr, M, H, eps,
-                             hid_drop, OP_MLP_OUT, st));
+                             hid_drop, OP_MLP_OUT, fp, st));
 #undef KVQ_TRY
   return static_cast<int>(cudaGetLastError());
 }
@@ -132,15 +160,15 @@ int kvq_bert_layer_fwd(const void* x, const void* enc, const int* smask, const i
 // launches it: ctx (batch*s_q rows at ctx_ld) of q (rows at q_ld, head h at
 // column h*head_dim) over k / v (rows at kv_ld); key_mask (batch, s_k) int32
 // or null; head h drops with op id op_base + h (0 for self-attention,
-// num_heads + 1 for cross-attention).
+// num_heads + 1 for cross-attention). All f32 when f32, else bf16.
 int kvq_attention_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                       const int* key_mask, void* ctx, int ctx_ld, int batch, int num_heads,
                       int head_dim, int s_q, int s_k, int causal, unsigned seed, unsigned thresh,
-                      float scale, int op_base, void* stream) {
+                      float scale, int op_base, int f32, void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
-  return attention(q, q_ld, k, v, kv_ld, key_mask, ctx, ctx_ld, batch, num_heads, head_dim, s_q,
-                   s_k, causal, drop, op_base, static_cast<cudaStream_t>(stream));
+  return attend(f32 != 0, q, q_ld, k, v, kv_ld, key_mask, ctx, ctx_ld, batch, num_heads,
+                head_dim, s_q, s_k, causal, drop, op_base, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,7 +10,12 @@
 //   kvq_residual_layernorm   out = LN(x + drop(a)) and each row's rsqrt
 //   kvq_ln_bwd               dr, da = dr * keep, and the sums over rows of
 //                            gy * yhat, gy and da
-//   kvq_colsum               f32 column sums of a bf16 matrix
+//   kvq_colsum               f32 column sums of a bf16 or f32 matrix
+//
+// Each kernel is a template on the element type of the rows it reads and
+// writes (x, out, v, da, src): bf16, or f32 for an f32 run (JAX's parity
+// dtype, whose Pallas kernels run in the compute dtype); the f32 instances
+// do the same arithmetic, a lane's 8 columns as two 16-byte chunks.
 //
 // and, for the other sources (layernorm.cuh), residual_layernorm (the layer
 // forward's C sequence) and colparts_reduce (also the b1 sum of the GEMM's
@@ -20,7 +25,7 @@
 // backward moves 189 or 227 MB (bf16 or f32 upstream), a residual +
 // LayerNorm 151 MB, against ~3 operations a byte (the f32 units' ~20 a byte
 // of memory rate). What the design does about it:
-// - one warp a row, each lane 16-byte chunks of 8 adjacent columns (lane,
+// - one warp a row, each lane chunks of 8 adjacent columns (lane,
 //   lane + 32, ...): the row is read once into registers and written once,
 //   with 16-byte loads and stores; mean and E[r^2] (or the backward's two
 //   row means) by shuffles;
@@ -87,11 +92,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // ------------------------------------------------- residual + LayerNorm
 // out = LN(float(x) + drop(a)), one warp a row of N <= 256 CPL columns;
 // inv (M,) receives each row's rsqrt when given.
-template <int CPL>
+template <int CPL, typename T>
 __global__ void __launch_bounds__(LN_THREADS)
-residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+residual_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ a,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
-                          bf16* __restrict__ out, float* __restrict__ inv_out, int M, int N,
+                          T* __restrict__ out, float* __restrict__ inv_out, int M, int N,
                           float eps, DropoutParams drop, uint32_t op) {
   const int row = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
@@ -143,18 +148,18 @@ residual_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ 
 // ------------------------------------------------- LayerNorm backward
 // Rows [blockIdx.x * LNB_ROWS, +LNB_ROWS), warp w the rows w, w + LNB_WARPS,
 // ... of them. gy (M, N) f32 or bf16 upstream; v the stored LN output (M, N)
-// bf16, yhat = (v - beta) / gamma (0 where gamma is 0); inv (M,) the
+// in T, yhat = (v - beta) / gamma (0 where gamma is 0); inv (M,) the
 // forward's rsqrt. dr (M, N) f32 = inv * (dyhat - mean(dyhat) -
-// yhat * mean(dyhat * yhat)), dyhat = gy * gamma; da (M, N) bf16 = dr * keep.
+// yhat * mean(dyhat * yhat)), dyhat = gy * gamma; da (M, N) in T = dr * keep.
 // parts (gridDim.x, 3, N): the block's column sums of gy * yhat, gy and
 // dr * keep (f32, before rounding). Dynamic shared memory: gamma, beta and
 // the block's sums, 5 N floats.
-template <int CPL, bool GY_F32>
+template <int CPL, bool GY_F32, typename T>
 __global__ void __launch_bounds__(32 * LNB_WARPS, CPL <= 3 ? 3 : 2)
-ln_bwd_kernel(const void* __restrict__ gy_, const bf16* __restrict__ v,
+ln_bwd_kernel(const void* __restrict__ gy_, const T* __restrict__ v,
               const float* __restrict__ inv, const float* __restrict__ gamma,
               const float* __restrict__ beta, DropoutParams drop, uint32_t op,
-              float* __restrict__ dr, bf16* __restrict__ da, float* __restrict__ parts, int M,
+              float* __restrict__ dr, T* __restrict__ da, float* __restrict__ parts, int M,
               int N) {
   extern __shared__ float4 ln_smem[];
   float* gs = reinterpret_cast<float*>(ln_smem);
@@ -265,8 +270,9 @@ ln_bwd_kernel(const void* __restrict__ gy_, const bf16* __restrict__ v,
 // parts[blockIdx.y, c] = sum of src[r, c] over the block's CS_ROWS rows, for
 // the block's 256 columns: each lane 8 adjacent columns (16-byte loads),
 // warp w the rows w, w + CS_WARPS, ...; then the warps in order.
+template <typename T>
 __global__ void __launch_bounds__(32 * CS_WARPS)
-colsum_kernel(const bf16* __restrict__ src, int M, int N, float* __restrict__ parts) {
+colsum_kernel(const T* __restrict__ src, int M, int N, float* __restrict__ parts) {
   __shared__ __align__(16) float strip[CS_WARPS][256];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c0 = blockIdx.x * 256 + 8 * lane;
@@ -322,14 +328,16 @@ colparts_reduce_kernel(const float* __restrict__ parts, int nparts, int width,
   }
 }
 
-template <bool GY_F32>
+template <bool GY_F32, typename T>
 void launch_ln_bwd(int cpl, int blocks, size_t smem, cudaStream_t st, const void* gy,
-                   const bf16* v, const float* inv, const float* g, const float* b,
-                   DropoutParams drop, uint32_t op, float* dr, bf16* da, float* parts, int M,
+                   const void* v, const float* inv, const float* g, const float* b,
+                   DropoutParams drop, uint32_t op, float* dr, void* da, float* parts, int M,
                    int N) {
-#define KVQ_LNB(C)                                                                               \
-  ln_bwd_kernel<C, GY_F32><<<blocks, 32 * LNB_WARPS, smem, st>>>(gy, v, inv, g, b, drop, op, dr, \
-                                                                 da, parts, M, N)
+  const T* vt = static_cast<const T*>(v);
+  T* dat = static_cast<T*>(da);
+#define KVQ_LNB(C)                                                                     \
+  ln_bwd_kernel<C, GY_F32, T><<<blocks, 32 * LNB_WARPS, smem, st>>>(gy, vt, inv, g, b, drop, \
+                                                                    op, dr, dat, parts, M, N)
   switch (cpl) {
     case 1: KVQ_LNB(1); break;
     case 2: KVQ_LNB(2); break;
@@ -339,22 +347,15 @@ void launch_ln_bwd(int cpl, int blocks, size_t smem, cudaStream_t st, const void
 #undef KVQ_LNB
 }
 
-}  // namespace
-
-cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
-                               void* out, float* inv, int M, int N, float eps, DropoutParams drop,
-                               uint32_t op, cudaStream_t st) {
-  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M < 0 || !aligned16(x) || !aligned16(a) ||
-      !aligned16(gamma) || !aligned16(beta) || !aligned16(out))
-    return cudaErrorInvalidValue;
-  if (M == 0) return cudaSuccess;
-  const int blocks = (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const float *af = static_cast<const float*>(a), *g = static_cast<const float*>(gamma),
-              *b = static_cast<const float*>(beta);
-  bf16* o = static_cast<bf16*>(out);
-#define KVQ_LN(C) \
-  residual_layernorm_kernel<C><<<blocks, LN_THREADS, 0, st>>>(xb, af, g, b, o, inv, M, N, eps, drop, op)
+template <typename T>
+void launch_residual_layernorm(int blocks, cudaStream_t st, const void* x, const float* a,
+                               const float* g, const float* b, void* out, float* inv, int M,
+                               int N, float eps, DropoutParams drop, uint32_t op) {
+  const T* xt = static_cast<const T*>(x);
+  T* o = static_cast<T*>(out);
+#define KVQ_LN(C)                                                                           \
+  residual_layernorm_kernel<C, T><<<blocks, LN_THREADS, 0, st>>>(xt, a, g, b, o, inv, M, N, eps, \
+                                                                 drop, op)
   switch ((N + 255) / 256) {
     case 1: KVQ_LN(1); break;
     case 2: KVQ_LN(2); break;
@@ -362,6 +363,24 @@ cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, 
     default: KVQ_LN(4); break;
   }
 #undef KVQ_LN
+}
+
+}  // namespace
+
+cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
+                               void* out, float* inv, int M, int N, float eps, DropoutParams drop,
+                               uint32_t op, bool f32, cudaStream_t st) {
+  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M < 0 || !aligned16(x) || !aligned16(a) ||
+      !aligned16(gamma) || !aligned16(beta) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  const int blocks = (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
+  const float *af = static_cast<const float*>(a), *g = static_cast<const float*>(gamma),
+              *b = static_cast<const float*>(beta);
+  if (f32)
+    launch_residual_layernorm<float>(blocks, st, x, af, g, b, out, inv, M, N, eps, drop, op);
+  else
+    launch_residual_layernorm<bf16>(blocks, st, x, af, g, b, out, inv, M, N, eps, drop, op);
   return cudaGetLastError();
 }
 
@@ -378,54 +397,59 @@ using namespace kvq;
 
 extern "C" {
 
-// Residual + LayerNorm of M rows of width N (see residual_layernorm); seed
-// the int32 seed's bits, thresh / scale the hidden dropout's (thresh 0: off),
-// op the site's id.
+// Residual + LayerNorm of M rows of width N (see residual_layernorm); x and
+// out f32 when f32, else bf16; seed the int32 seed's bits, thresh / scale the
+// hidden dropout's (thresh 0: off), op the site's id.
 int kvq_residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
                            void* out, void* inv, int M, int N, float eps, unsigned seed,
-                           unsigned thresh, float scale, unsigned op, void* stream) {
+                           unsigned thresh, float scale, unsigned op, int f32, void* stream) {
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
   return static_cast<int>(residual_layernorm(x, a, gamma, beta, out, static_cast<float*>(inv), M,
-                                             N, eps, drop, op, static_cast<cudaStream_t>(stream)));
+                                             N, eps, drop, op, f32 != 0,
+                                             static_cast<cudaStream_t>(stream)));
 }
 
-// LayerNorm backward of M rows of width N (see ln_bwd_kernel). parts
-// (ceil(M / 64), 3, N) f32 scratch; sums (3, N) f32 receives
-// [sum gy * yhat, sum gy, sum dr * keep].
+// LayerNorm backward of M rows of width N (see ln_bwd_kernel): v and da f32
+// when f32 (gy then f32 too), else bf16. parts (ceil(M / 64), 3, N) f32
+// scratch; sums (3, N) f32 receives [sum gy * yhat, sum gy, sum dr * keep].
 int kvq_ln_bwd(const void* gy, int gy_f32, const void* v, const void* inv, const void* gamma,
                const void* beta, unsigned seed, unsigned thresh, float scale, unsigned op,
-               void* dr, void* da, void* parts, void* sums, int M, int N, void* stream) {
+               void* dr, void* da, void* parts, void* sums, int M, int N, int f32,
+               void* stream) {
   if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M <= 0 || !aligned16(gy) || !aligned16(v) ||
-      dr == nullptr || !aligned16(dr) || !aligned16(da) || !aligned16(parts))
+      dr == nullptr || !aligned16(dr) || !aligned16(da) || !aligned16(parts) || (f32 && !gy_f32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
   const int blocks = (M + LNB_ROWS - 1) / LNB_ROWS, cpl = (N + 255) / 256;
   const size_t smem = 5 * (size_t)N * sizeof(float);
-  auto* vb = static_cast<const bf16*>(v);
   auto *iv = static_cast<const float*>(inv), *g = static_cast<const float*>(gamma),
        *b = static_cast<const float*>(beta);
   auto* drf = static_cast<float*>(dr);
-  auto* dab = static_cast<bf16*>(da);
   auto* p = static_cast<float*>(parts);
-  if (gy_f32)
-    launch_ln_bwd<true>(cpl, blocks, smem, st, gy, vb, iv, g, b, drop, op, drf, dab, p, M, N);
+  if (f32)
+    launch_ln_bwd<true, float>(cpl, blocks, smem, st, gy, v, iv, g, b, drop, op, drf, da, p, M, N);
+  else if (gy_f32)
+    launch_ln_bwd<true, bf16>(cpl, blocks, smem, st, gy, v, iv, g, b, drop, op, drf, da, p, M, N);
   else
-    launch_ln_bwd<false>(cpl, blocks, smem, st, gy, vb, iv, g, b, drop, op, drf, dab, p, M, N);
+    launch_ln_bwd<false, bf16>(cpl, blocks, smem, st, gy, v, iv, g, b, drop, op, drf, da, p, M, N);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(colparts_reduce(p, blocks, 3 * N, static_cast<float*>(sums), st));
 }
 
-// out (N,) f32 = column sums of src (M, N) bf16, N a multiple of 8, src
-// 16-byte aligned. parts (ceil(M / 256), N) f32 scratch.
-int kvq_colsum(const void* src, int M, int N, void* parts, void* out, void* stream) {
+// out (N,) f32 = column sums of src (M, N), f32 when f32 else bf16, N a
+// multiple of 8, src 16-byte aligned. parts (ceil(M / 256), N) f32 scratch.
+int kvq_colsum(const void* src, int M, int N, void* parts, void* out, int f32, void* stream) {
   if (N <= 0 || N % 8 != 0 || M <= 0 || !aligned16(src))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + 255) / 256, (M + CS_ROWS - 1) / CS_ROWS);
   auto* p = static_cast<float*>(parts);
-  colsum_kernel<<<grid, 32 * CS_WARPS, 0, st>>>(static_cast<const bf16*>(src), M, N, p);
+  if (f32)
+    colsum_kernel<<<grid, 32 * CS_WARPS, 0, st>>>(static_cast<const float*>(src), M, N, p);
+  else
+    colsum_kernel<<<grid, 32 * CS_WARPS, 0, st>>>(static_cast<const bf16*>(src), M, N, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(colparts_reduce(p, grid.y, N, static_cast<float*>(out), st));

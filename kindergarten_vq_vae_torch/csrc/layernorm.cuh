@@ -16,13 +16,14 @@ namespace kvq {
 // kernels: a row lives in a warp's registers, 16-byte chunks, four a lane
 constexpr int LN_MAX_WIDTH = 1024;
 
-// out (M, N) bf16 = LN(float(x) + drop(a)) with flax's fast variance; x bf16
-// and a f32 (M, N), gamma / beta (N,) f32, every pointer but inv 16-byte
-// aligned; inv (M,) f32 receives each row's rsqrt when not null. Returns
-// cudaErrorInvalidValue for a width or alignment it does not take.
+// out (M, N) = LN(float(x) + drop(a)) with flax's fast variance; x and out
+// f32 when f32, else bf16; a f32 (M, N), gamma / beta (N,) f32, every
+// pointer but inv 16-byte aligned; inv (M,) f32 receives each row's rsqrt
+// when not null. Returns cudaErrorInvalidValue for a width or alignment it
+// does not take.
 cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
                                void* out, float* inv, int M, int N, float eps, DropoutParams drop,
-                               uint32_t op, cudaStream_t st);
+                               uint32_t op, bool f32, cudaStream_t st);
 
 // out[c] = sum over b < nparts of parts[b * width + c], c < width (even), in
 // a fixed order.

@@ -10,7 +10,9 @@ TPU kernel #6 ``_ce_fwd_kernel`` l.34, and ``kvq_ce_fwd_ids``, #7
 #8 ``_ce_bwd_kernel`` l.104, which ``fused_ce_loss`` shares as l.245 does)
 writes ``(softmax - one_hot) * scale`` in the logits' dtype. Around them, as
 l.263-283: ``lse = nll + x[target]``, ``denom = max(sum(valid), 1) * S``
-and ``scale = g / denom * valid``.
+and ``scale = g / denom * valid``. The logits are bf16 or f32 (an f32 run,
+JAX's parity dtype), each with its own instance of the kernels; each
+wrapper's ``f32_launches`` counts the f32 share of its ``launches``.
 """
 
 from __future__ import annotations
@@ -63,13 +65,16 @@ def ce_bwd_reference(logits2d, targets, lse, scale) -> torch.Tensor:
     return ce_grad_reference(logits2d, targets, lse, scale).to(logits2d.dtype)
 
 
-def _check(logits2d, targets, what):
-    if logits2d.dtype != torch.bfloat16 or logits2d.dim() != 2 or not logits2d.is_contiguous():
-        raise TypeError(f"{what} takes contiguous bf16 (rows, vocab) logits, got "
+def _check(logits2d, targets, what) -> int:
+    """Validate a kernel call; returns 1 for f32 logits, 0 for bf16."""
+    if (logits2d.dtype not in (torch.bfloat16, torch.float32) or logits2d.dim() != 2
+            or not logits2d.is_contiguous()):
+        raise TypeError(f"{what} takes contiguous bf16 or f32 (rows, vocab) logits, got "
                         f"{logits2d.dtype} {tuple(logits2d.shape)}")
     if (targets.dtype != torch.int32 or targets.shape != logits2d.shape[:1]
             or targets.device != logits2d.device or not targets.is_contiguous()):
         raise TypeError(f"{what} takes contiguous int32 (rows,) targets on the logits' device")
+    return int(logits2d.dtype == torch.float32)
 
 
 def ce_fwd(logits2d: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -78,16 +83,18 @@ def ce_fwd(logits2d: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     ``ce_fwd.launches``."""
     if logits2d.device.type == "cpu":
         return ce_fwd_reference(logits2d, targets)
-    _check(logits2d, targets, "ce_fwd")
+    f32 = _check(logits2d, targets, "ce_fwd")
     rows, vocab = logits2d.shape
     nll = torch.empty((rows,), dtype=torch.float32, device=logits2d.device)
-    _build.launch("kvq_ce_fwd", [_VP, _VP, _VP, _I, _I], logits2d.data_ptr(),
-                  targets.data_ptr(), nll.data_ptr(), rows, vocab, device=logits2d.device)
+    _build.launch("kvq_ce_fwd", [_VP, _VP, _VP, _I, _I, _I], logits2d.data_ptr(),
+                  targets.data_ptr(), nll.data_ptr(), rows, vocab, f32, device=logits2d.device)
     ce_fwd.launches += 1
+    ce_fwd.f32_launches += f32
     return nll
 
 
 ce_fwd.launches = 0
+ce_fwd.f32_launches = 0
 
 
 def ce_fwd_ids(logits2d: torch.Tensor, targets: torch.Tensor):
@@ -96,18 +103,21 @@ def ce_fwd_ids(logits2d: torch.Tensor, targets: torch.Tensor):
     or raises, and each launch adds one to ``ce_fwd_ids.launches``."""
     if logits2d.device.type == "cpu":
         return ce_fwd_ids_reference(logits2d, targets)
-    _check(logits2d, targets, "ce_fwd_ids")
+    f32 = _check(logits2d, targets, "ce_fwd_ids")
     rows, vocab = logits2d.shape
     dev = logits2d.device
     nll = torch.empty((rows,), dtype=torch.float32, device=dev)
     ids = torch.empty((rows,), dtype=torch.int32, device=dev)
-    _build.launch("kvq_ce_fwd_ids", [_VP, _VP, _VP, _VP, _I, _I], logits2d.data_ptr(),
-                  targets.data_ptr(), nll.data_ptr(), ids.data_ptr(), rows, vocab, device=dev)
+    _build.launch("kvq_ce_fwd_ids", [_VP, _VP, _VP, _VP, _I, _I, _I], logits2d.data_ptr(),
+                  targets.data_ptr(), nll.data_ptr(), ids.data_ptr(), rows, vocab, f32,
+                  device=dev)
     ce_fwd_ids.launches += 1
+    ce_fwd_ids.f32_launches += f32
     return nll, ids
 
 
 ce_fwd_ids.launches = 0
+ce_fwd_ids.f32_launches = 0
 
 
 def ce_bwd(logits2d, targets, lse, scale) -> torch.Tensor:
@@ -116,20 +126,22 @@ def ce_bwd(logits2d, targets, lse, scale) -> torch.Tensor:
     to ``ce_bwd.launches``."""
     if logits2d.device.type == "cpu":
         return ce_bwd_reference(logits2d, targets, lse, scale)
-    _check(logits2d, targets, "ce_bwd")
+    f32 = _check(logits2d, targets, "ce_bwd")
     rows, vocab = logits2d.shape
     for name, t in (("lse", lse), ("scale", scale)):
         if t.dtype != torch.float32 or t.shape != (rows,) or not t.is_contiguous():
             raise TypeError(f"ce_bwd takes contiguous f32 (rows,) {name}")
     out = torch.empty_like(logits2d)
-    _build.launch("kvq_ce_bwd", [_VP, _VP, _VP, _VP, _VP, _I, _I], logits2d.data_ptr(),
+    _build.launch("kvq_ce_bwd", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I], logits2d.data_ptr(),
                   targets.data_ptr(), lse.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
-                  vocab, device=logits2d.device)
+                  vocab, f32, device=logits2d.device)
     ce_bwd.launches += 1
+    ce_bwd.f32_launches += f32
     return out
 
 
 ce_bwd.launches = 0
+ce_bwd.f32_launches = 0
 
 
 class FusedCE(torch.autograd.Function):

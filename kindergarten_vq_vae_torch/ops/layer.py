@@ -37,6 +37,12 @@ Divergence from the TPU kernel: the TPU accumulated each weight gradient
 across 32-sentence tiles in bf16 (``_acc`` l.529); here the weight-gradient
 GEMMs sum over all rows in f32 and round once to the compute dtype, which is
 where the weight cast's VJP rounds.
+
+The compute dtype is bf16 or f32 (JAX's parity dtype, in which the TPU
+kernels run too). On CUDA each kernel has an f32 instance: the layer GEMM's
+3xTF32 ``csrc/gemm_f32.cu``, the FFMA attention of
+``csrc/attention_f32.cuh`` and the f32 rows of ``csrc/layernorm.cu``; every
+wrapper's ``f32_launches`` counts the f32 share of its ``launches``.
 """
 
 from __future__ import annotations
@@ -430,7 +436,8 @@ def layer_backward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, see
 
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP, _I, _VP]
+_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP, _I, _I, _VP]
+_DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes the kernels take
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -460,16 +467,20 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
     if geom.head_dim > MAX_HEAD_DIM or H % 8 or geom.intermediate % 8 or H > MAX_LN_WIDTH:
         raise ValueError(f"the layer kernels need head_dim <= {MAX_HEAD_DIM}, a width of at most "
                          f"{MAX_LN_WIDTH} and widths divisible by 8")
-    _build.check_tensor("x", x, (b, s, H), torch.bfloat16, dev)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x has dtype {x.dtype}; the layer kernels take torch.bfloat16 or "
+                        "torch.float32")
+    cdtype = x.dtype
+    _build.check_tensor("x", x, (b, s, H), cdtype, dev)
     names = _names(geom)
     if len(weights) != len(names):
         raise ValueError(f"expected {len(names)} weights ({names}), got {len(weights)}")
     W = dict(zip(names, weights))
     for n, shape in geom.weight_shapes().items():
-        # matmul kernels in bf16; biases and LayerNorm parameters stay f32, the
-        # LayerNorm's on 16 bytes (the LayerNorm kernels load them so)
+        # matmul kernels in the compute dtype; biases and LayerNorm parameters
+        # stay f32, the LayerNorm's on 16 bytes (the LayerNorm kernels load them so)
         if n.startswith("w"):
-            _build.check_tensor(n, W[n], shape, torch.bfloat16, dev)
+            _build.check_tensor(n, W[n], shape, cdtype, dev)
         elif n.startswith(("g", "be")):
             _check_f32(n, W[n], shape, dev)
         else:
@@ -479,7 +490,7 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
         if enc is None:
             raise ValueError("a decoder layer needs enc")
         sk = enc.shape[1]
-        _build.check_tensor("enc", enc, (b, sk, H), torch.bfloat16, dev)
+        _build.check_tensor("enc", enc, (b, sk, H), cdtype, dev)
     elif enc is not None:
         raise ValueError("enc given to a layer without cross-attention")
     if s > MAX_SEQ or sk > MAX_SEQ or s == 0 or b == 0:
@@ -500,8 +511,9 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
     b, s, H = x.shape
     M, F = b * s, geom.intermediate
     W = dict(zip(_names(geom), weights))
+    f32 = int(x.dtype == torch.float32)
 
-    def ws(shape, dtype=torch.bfloat16):
+    def ws(shape, dtype=x.dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     qkv, ctx, acc, x1, m, out = (ws((M, 3 * H)), ws((M, H)), ws((M, H), torch.float32),
@@ -535,16 +547,22 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
             b, s, sk, geom.num_heads, geom.head_dim, F,
             int(geom.causal), int(geom.has_cross), int(geom.gelu_exact), geom.eps,
             seed_u32(seed or 0), keep_threshold(geom.attn_rate), keep_scale(geom.attn_rate),
-            keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), tile_n, sms, _stream(dev),
+            keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), tile_n, sms, f32,
+            _stream(dev),
         )
     _build.check(code, "kvq_bert_layer_fwd")
-    gemm.launches += layer_gemms(geom)[0]
-    gemm.forward_launches += layer_gemms(geom)[0]
-    attention_forward.launches += 1 + int(geom.has_cross)
+    n_gemm, n_attn, n_ln = layer_gemms(geom)[0], 1 + int(geom.has_cross), 2 + int(geom.has_cross)
+    gemm.launches += n_gemm
+    gemm.forward_launches += n_gemm
+    gemm.f32_launches += f32 * n_gemm
+    attention_forward.launches += n_attn
     attention_forward.cross_launches += int(geom.has_cross)
-    residual_layernorm.launches += 2 + int(geom.has_cross)
+    attention_forward.f32_launches += f32 * n_attn
+    residual_layernorm.launches += n_ln
+    residual_layernorm.f32_launches += f32 * n_ln
     fused_bert_layer.launches += 1
     fused_bert_layer.residual_launches += int(save)
+    fused_bert_layer.f32_launches += f32
     if not save:
         return out, None
     res = dict(qkv=qkv, ctx=ctx, x1=x1, qc=qc, kvc=kvc, ctx2=ctx2, x2=x2, u=u, m=m, invs=invs)
@@ -555,7 +573,7 @@ def layer_forward(geom: LayerGeom, x, enc, smask, cmask, weights, seed):
     """Training forward of one layer: ``(out, residuals)``, the residuals in
     :func:`residual_names` order. A CPU tensor takes
     :func:`layer_forward_reference`; a CUDA tensor launches
-    ``csrc/layer_fwd.cu`` (bf16) or raises, adding one to
+    ``csrc/layer_fwd.cu`` (bf16 or f32) or raises, adding one to
     ``fused_bert_layer.launches``."""
     _check_call(geom, seed)
     if x.device.type == "cpu":
@@ -566,7 +584,7 @@ def layer_forward(geom: LayerGeom, x, enc, smask, cmask, weights, seed):
 
 
 def _attention_args(qkv_or_q, kv, key_mask, num_heads: int, rate: float, what: str):
-    """Check an attention kernel call; returns (b, sq, sk, H)."""
+    """Check an attention kernel call (bf16 or f32); returns (b, sq, sk, H)."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
     dev = qkv_or_q.device
@@ -576,9 +594,11 @@ def _attention_args(qkv_or_q, kv, key_mask, num_heads: int, rate: float, what: s
     sk = kv.shape[1] if cross else sq
     if H % num_heads or H // num_heads > MAX_HEAD_DIM or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
         raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} and sequences of 1..{MAX_SEQ}")
-    _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), torch.bfloat16, dev)
+    if qkv_or_q.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes torch.bfloat16 or torch.float32, got {qkv_or_q.dtype}")
+    _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), qkv_or_q.dtype, dev)
     if cross:
-        _build.check_tensor("kv", kv, (b, sk, 2 * H), torch.bfloat16, dev)
+        _build.check_tensor("kv", kv, (b, sk, 2 * H), qkv_or_q.dtype, dev)
     if key_mask is not None:
         _build.check_tensor("key_mask", key_mask, (b, sk), torch.int32, dev)
     return b, sq, sk, H
@@ -590,10 +610,11 @@ def attention_forward(qkv_or_q, kv, key_mask, num_heads: int, causal: bool, seed
     ``layer_pallas.py:244``, inside ``_layer_fwd_kernel`` l.489), with the
     contract of :func:`attention_forward_reference`. A CPU tensor takes the
     plain version; a CUDA tensor launches ``kvq_attention_fwd`` of
-    ``csrc/layer_fwd.cu`` (bf16) or raises. ``attention_forward.launches``
-    counts these launches and those inside :func:`fused_bert_layer`'s forward
-    launches (one self-attention each, and one cross-attention in a
-    decoder layer, counted also in ``attention_forward.cross_launches``)."""
+    ``csrc/layer_fwd.cu`` (bf16, or f32 through ``csrc/attention_f32.cuh``)
+    or raises. ``attention_forward.launches`` counts these launches and those
+    inside :func:`fused_bert_layer`'s forward launches (one self-attention
+    each, and one cross-attention in a decoder layer, counted also in
+    ``attention_forward.cross_launches``)."""
     if qkv_or_q.device.type == "cpu":
         return attention_forward_reference(qkv_or_q, kv, key_mask, num_heads, causal, seed,
                                            op_base, rate)
@@ -602,21 +623,24 @@ def attention_forward(qkv_or_q, kv, key_mask, num_heads: int, causal: bool, seed
     b, sq, sk, H = _attention_args(qkv_or_q, kv, key_mask, num_heads, rate, "attention_forward")
     cross = kv is not None
     dev = qkv_or_q.device
-    ctx = torch.empty((b, sq, H), dtype=torch.bfloat16, device=dev)
+    es, f32 = qkv_or_q.element_size(), int(qkv_or_q.dtype == torch.float32)
+    ctx = torch.empty((b, sq, H), dtype=qkv_or_q.dtype, device=dev)
     q_ld, kv_ld = (H, 2 * H) if cross else (3 * H, 3 * H)
-    k_ptr = kv.data_ptr() if cross else qkv_or_q.data_ptr() + 2 * H  # bf16: 2 bytes an element
+    k_ptr = kv.data_ptr() if cross else qkv_or_q.data_ptr() + es * H
     _build.launch("kvq_attention_fwd", _ATT_FWD_ARGS, qkv_or_q.data_ptr(), q_ld, k_ptr,
-                  k_ptr + 2 * H, kv_ld, _ptr(key_mask), ctx.data_ptr(), H, b, num_heads,
+                  k_ptr + es * H, kv_ld, _ptr(key_mask), ctx.data_ptr(), H, b, num_heads,
                   H // num_heads, sq, sk, int(causal), seed_u32(seed), keep_threshold(rate),
-                  keep_scale(rate), op_base, device=dev)
+                  keep_scale(rate), op_base, f32, device=dev)
     attention_forward.launches += 1
     attention_forward.cross_launches += int(cross)
+    attention_forward.f32_launches += f32
     return ctx
 
 
 attention_forward.launches = 0
 attention_forward.cross_launches = 0  # the cross-attention share of ``launches``
-_ATT_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
+attention_forward.f32_launches = 0  # the f32 share of ``launches``
+_ATT_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I, _I]
 
 
 def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bool,
@@ -625,9 +649,10 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
     contract of :func:`attention_backward_reference`. Replaces the TPU
     kernels ``_attn_bwd_self_kernel`` / ``_attn_bwd_cross_kernel``
     (``layer_pallas.py:696/712``). A CPU tensor takes the plain version; a
-    CUDA tensor launches ``csrc/layer_bwd.cu`` (bf16) or raises, and each
-    launch adds one to ``attention_backward.launches`` (and, for
-    cross-attention, to ``attention_backward.cross_launches``)."""
+    CUDA tensor launches ``csrc/layer_bwd.cu`` (bf16, or f32 through
+    ``csrc/attention_f32.cuh``) or raises, and each launch adds one to
+    ``attention_backward.launches`` (and, for cross-attention, to
+    ``attention_backward.cross_launches``; in f32 to its ``f32_launches``)."""
     if qkv_or_q.device.type == "cpu":
         return attention_backward_reference(qkv_or_q, kv, key_mask, g_ctx, num_heads, causal,
                                             seed, op_base, rate)
@@ -636,46 +661,56 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
     b, sq, sk, H = _attention_args(qkv_or_q, kv, key_mask, num_heads, rate, "attention_backward")
     dev = qkv_or_q.device
     cross = kv is not None
-    nh = num_heads
-    _build.check_tensor("g_ctx", g_ctx, (b, sq, H), torch.bfloat16, dev)
+    nh, dtype = num_heads, qkv_or_q.dtype
+    es, f32 = qkv_or_q.element_size(), int(dtype == torch.float32)
+    _build.check_tensor("g_ctx", g_ctx, (b, sq, H), dtype, dev)
     if cross:
-        dq = torch.empty((b, sq, H), dtype=torch.bfloat16, device=dev)
-        dkv = torch.empty((b, sk, 2 * H), dtype=torch.bfloat16, device=dev)
+        dq = torch.empty((b, sq, H), dtype=dtype, device=dev)
+        dkv = torch.empty((b, sk, 2 * H), dtype=dtype, device=dev)
         q, q_ld, k, kv_ld = qkv_or_q, H, kv, 2 * H
         dq_ptr, dq_ld, dk_ptr, dkv_ld = dq.data_ptr(), H, dkv.data_ptr(), 2 * H
     else:
-        dqkv = torch.empty((b, sq, 3 * H), dtype=torch.bfloat16, device=dev)
+        dqkv = torch.empty((b, sq, 3 * H), dtype=dtype, device=dev)
         q, q_ld, k, kv_ld = qkv_or_q, 3 * H, None, 3 * H
-        dq_ptr, dq_ld, dk_ptr, dkv_ld = dqkv.data_ptr(), 3 * H, dqkv.data_ptr() + 2 * H, 3 * H
-    k_ptr = k.data_ptr() if cross else q.data_ptr() + 2 * H  # bf16: 2 bytes per element
-    fn = _build.lib().kvq_attention_bwd
-    fn.argtypes = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I, _VP]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        code = fn(q.data_ptr(), q_ld, k_ptr, k_ptr + 2 * H, kv_ld, _ptr(key_mask),
-                  g_ctx.data_ptr(), dq_ptr, dq_ld, dk_ptr, dk_ptr + 2 * H, dkv_ld,
-                  b, nh, H // nh, sq, sk, int(causal),
-                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op_base, _stream(dev))
-    _build.check(code, "kvq_attention_bwd")
+        dq_ptr, dq_ld, dk_ptr, dkv_ld = dqkv.data_ptr(), 3 * H, dqkv.data_ptr() + es * H, 3 * H
+    k_ptr = k.data_ptr() if cross else q.data_ptr() + es * H
+    _build.launch("kvq_attention_bwd", _ATT_BWD_ARGS, q.data_ptr(), q_ld, k_ptr, k_ptr + es * H,
+                  kv_ld, _ptr(key_mask), g_ctx.data_ptr(), dq_ptr, dq_ld, dk_ptr,
+                  dk_ptr + es * H, dkv_ld, b, nh, H // nh, sq, sk, int(causal), seed_u32(seed),
+                  keep_threshold(rate), keep_scale(rate), op_base, f32, device=dev)
     attention_backward.launches += 1
     attention_backward.cross_launches += int(cross)
+    attention_backward.f32_launches += f32
     return (dq, dkv) if cross else dqkv
 
 
 attention_backward.launches = 0
 attention_backward.cross_launches = 0  # the cross-attention share of ``launches``
+attention_backward.f32_launches = 0  # the f32 share of ``launches``
+_ATT_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F,
+                                                                                     _I, _I]
 
 # csrc/layernorm.cu: rows per block of the LayerNorm backward's partials
 # (LNB_ROWS) and of the column sums' (CS_ROWS)
 LN_BWD_ROWS = 64
 COLSUM_ROWS = 256
-_RES_LN_ARGS = [_VP] * 6 + [_I, _I, _F, _U, _U, _F, _U]
-_LN_BWD_ARGS = [_VP, _I] + [_VP] * 4 + [_U, _U, _F, _U] + [_VP] * 4 + [_I, _I]
-_COLSUM_ARGS = [_VP, _I, _I, _VP, _VP]
+_RES_LN_ARGS = [_VP] * 6 + [_I, _I, _F, _U, _U, _F, _U, _I]
+_LN_BWD_ARGS = [_VP, _I] + [_VP] * 4 + [_U, _U, _F, _U] + [_VP] * 4 + [_I, _I, _I]
+_COLSUM_ARGS = [_VP, _I, _I, _VP, _VP, _I]
 
 
 def _check_f32(name, t, shape, dev) -> None:
     _build.check_tensor(name, t, shape, torch.float32, dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (16-byte loads)")
+
+
+def _check_rows(name, t, shape, dev) -> None:
+    """A bf16 or f32 (rows, N) operand of the LayerNorm and column-sum kernels."""
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name} has dtype {t.dtype}; the kernels take torch.bfloat16 or "
+                        "torch.float32")
+    _build.check_tensor(name, t, shape, t.dtype, dev)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (16-byte loads)")
 
@@ -697,10 +732,10 @@ def residual_layernorm(x, a, gamma, beta, eps: float, seed=0, op=OP_ATTN_OUT, ra
     :func:`residual_layernorm_reference`, the keep mask that of the hidden
     site ``op`` over rows 0..M-1 (``rate`` 0: none). A CPU tensor takes the
     plain version; a CUDA tensor launches ``kvq_residual_layernorm`` of
-    ``csrc/layernorm.cu`` (x bf16 (M, N), a f32, N a multiple of 8 up to
-    :data:`MAX_LN_WIDTH`) or raises. ``residual_layernorm.launches`` counts
-    these launches and those inside the layer forward's C sequence (2 a
-    layer forward, 3 with cross-attention)."""
+    ``csrc/layernorm.cu`` (x bf16 or f32 (M, N), a f32, N a multiple of 8 up
+    to :data:`MAX_LN_WIDTH`) or raises. ``residual_layernorm.launches``
+    counts these launches and those inside the layer forward's C sequence (2
+    a layer forward, 3 with cross-attention)."""
     _check_rate(rate)
     if x.device.type == "cpu":
         keep = hidden_keep(seed, op, x.shape[0], x.shape[1], rate) if rate > 0.0 else None
@@ -712,20 +747,23 @@ def residual_layernorm(x, a, gamma, beta, eps: float, seed=0, op=OP_ATTN_OUT, ra
         raise ValueError(f"x must be (M, N), got {tuple(x.shape)}")
     M, N = x.shape
     _check_ln_width(N, "residual_layernorm")
-    _build.check_tensor("x", x, (M, N), torch.bfloat16, dev)
+    _check_rows("x", x, (M, N), dev)
     _check_f32("a", a, (M, N), dev)
     _check_f32("gamma", gamma, (N,), dev)
     _check_f32("beta", beta, (N,), dev)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    f32 = int(x.dtype == torch.float32)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
     inv = torch.empty((M,), dtype=torch.float32, device=dev)
     _build.launch("kvq_residual_layernorm", _RES_LN_ARGS, x.data_ptr(), a.data_ptr(),
                   gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), inv.data_ptr(), M, N, eps,
-                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, device=dev)
+                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, f32, device=dev)
     residual_layernorm.launches += 1
+    residual_layernorm.f32_launches += f32
     return out, inv
 
 
 residual_layernorm.launches = 0
+residual_layernorm.f32_launches = 0
 
 
 def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0):
@@ -735,10 +773,11 @@ def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0
     :func:`layernorm_backward_reference`, dr f32, da in v's dtype, the sums
     f32; the keep mask that of the hidden site ``op`` over rows 0..M-1. A
     CPU tensor takes the plain version; a CUDA
-    tensor launches ``kvq_ln_bwd`` of ``csrc/layernorm.cu`` (v bf16 (M, N),
-    gy bf16 or f32, N a multiple of 8 up to :data:`MAX_LN_WIDTH`) or raises,
-    adding one to ``layernorm_backward.launches``. The sums are the same
-    bits in every run."""
+    tensor launches ``kvq_ln_bwd`` of ``csrc/layernorm.cu`` (v bf16 (M, N)
+    with gy bf16 or f32, or v and gy f32; N a multiple of 8 up to
+    :data:`MAX_LN_WIDTH`) or raises, adding one to
+    ``layernorm_backward.launches``. The sums are the same bits in every
+    run."""
     _check_rate(rate)
     if v.device.type == "cpu":
         keep = hidden_keep(seed, op, v.shape[0], v.shape[1], rate) if rate > 0.0 else None
@@ -751,36 +790,38 @@ def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0
         raise ValueError(f"v must be (M, N), got {tuple(v.shape)}")
     M, N = v.shape
     _check_ln_width(N, "layernorm_backward")
-    _build.check_tensor("v", v, (M, N), torch.bfloat16, dev)
-    if gy.dtype == torch.float32:
-        _check_f32("gy", gy, (M, N), dev)
-    else:
-        _build.check_tensor("gy", gy, (M, N), torch.bfloat16, dev)
+    _check_rows("v", v, (M, N), dev)
+    f32 = int(v.dtype == torch.float32)
+    if f32 and gy.dtype != torch.float32:
+        raise TypeError(f"an f32 v takes an f32 gy, got {gy.dtype}")
+    _check_rows("gy", gy, (M, N), dev)
     _build.check_tensor("inv", inv, (M,), torch.float32, dev)
     _build.check_tensor("gamma", gamma, (N,), torch.float32, dev)
     _build.check_tensor("beta", beta, (N,), torch.float32, dev)
     dr = torch.empty((M, N), dtype=torch.float32, device=dev)
-    da = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    da = torch.empty((M, N), dtype=v.dtype, device=dev)
     parts = torch.empty((-(-M // LN_BWD_ROWS), 3, N), dtype=torch.float32, device=dev)
     sums = torch.empty((3, N), dtype=torch.float32, device=dev)
     _build.launch("kvq_ln_bwd", _LN_BWD_ARGS, gy.data_ptr(), int(gy.dtype == torch.float32),
                   v.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                   seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, dr.data_ptr(),
-                  da.data_ptr(), parts.data_ptr(), sums.data_ptr(), M, N, device=dev)
+                  da.data_ptr(), parts.data_ptr(), sums.data_ptr(), M, N, f32, device=dev)
     layernorm_backward.launches += 1
+    layernorm_backward.f32_launches += f32
     return dr, da, sums[0], sums[1], sums[2]
 
 
 layernorm_backward.launches = 0
+layernorm_backward.f32_launches = 0
 
 
 def column_sums(src):
     """f32 column sums of a (rows, N) matrix, a bias gradient of the fused
     layer backward (``_layer_bwd_kernel`` l.552), with the contract of
     :func:`column_sums_reference`. A CPU tensor takes the plain version; a
-    CUDA tensor launches ``kvq_colsum`` of ``csrc/layernorm.cu`` (bf16, N a
-    multiple of 8) or raises, adding one to ``column_sums.launches``. The
-    sums are the same bits in every run."""
+    CUDA tensor launches ``kvq_colsum`` of ``csrc/layernorm.cu`` (bf16 or
+    f32, N a multiple of 8) or raises, adding one to
+    ``column_sums.launches``. The sums are the same bits in every run."""
     if src.device.type == "cpu":
         return column_sums_reference(src)
     if src.device.type != "cuda":
@@ -790,42 +831,49 @@ def column_sums(src):
         raise ValueError(f"column_sums takes (rows, N) with rows >= 1 and N a multiple of 8, got "
                          f"{tuple(src.shape)}")
     M, N = src.shape
-    _build.check_tensor("src", src, (M, N), torch.bfloat16, dev)
+    _check_rows("src", src, (M, N), dev)
+    f32 = int(src.dtype == torch.float32)
     parts = torch.empty((-(-M // COLSUM_ROWS), N), dtype=torch.float32, device=dev)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
     _build.launch("kvq_colsum", _COLSUM_ARGS, src.data_ptr(), M, N, parts.data_ptr(),
-                  out.data_ptr(), device=dev)
+                  out.data_ptr(), f32, device=dev)
     column_sums.launches += 1
+    column_sums.f32_launches += f32
     return out
 
 
 column_sums.launches = 0
+column_sums.f32_launches = 0
 
 
 def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, out, gy,
                      enc_dtype):
-    """The kernel backward: the same sequence as :func:`layer_backward_reference`."""
+    """The kernel backward: the same sequence as :func:`layer_backward_reference`.
+    In f32 every product's output is f32: the casts to the compute dtype
+    (``cast``, ``add_c``) are the f32 epilogues."""
     W = dict(zip(_names(geom), weights))
     R = dict(zip(residual_names(geom), res))
-    dev, bf = x.device, torch.bfloat16
+    dev, cdtype = x.device, x.dtype
     b, s, H = x.shape
     M, nh = b * s, geom.num_heads
     inv1, inv2, inv3 = R["invs"]
     seed, hr = seed or 0, geom.hid_rate
     gy = gy.contiguous()
-    if gy.dtype != bf or gy.shape != x.shape:
-        raise TypeError(f"the layer's output gradient must be bf16 {tuple(x.shape)}")
+    if gy.dtype != cdtype or gy.shape != x.shape:
+        raise TypeError(f"the layer's output gradient must be {cdtype} {tuple(x.shape)}")
+    f32 = cdtype == torch.float32
+    cast, add_c = ("f32", "add_f32") if f32 else ("bf16", "add_bf16")
     dW = {}
     with torch.cuda.device(dev):
         # MLP block
         dr3, dy_c, dW["g3"], dW["be3"], dW["b2"] = layernorm_backward(
             gy.view(M, H), out.view(M, H), inv3, W["g3"], W["be3"], seed, OP_MLP_OUT, hr)
-        dW["w2"] = gemm(R["m"], dy_c, a_t=True, epi="bf16")
+        dW["w2"] = gemm(R["m"], dy_c, a_t=True, epi=cast)
         du_c, dW["b1"] = gemm(dy_c, W["w2"], b_t=True,
                               epi="dgelu_erf" if geom.gelu_exact else "dgelu_tanh", aux=R["u"],
                               colsum=True)
         xm = R["x2"] if geom.has_cross else R["x1"]
-        dW["w1"] = gemm(xm, du_c, a_t=True, epi="bf16")
+        dW["w1"] = gemm(xm, du_c, a_t=True, epi=cast)
         dxm = gemm(du_c, W["w1"], b_t=True, epi="add_f32", aux=dr3)
         del du_c, dr3
         denc = None
@@ -833,18 +881,19 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
             sk = enc.shape[1]
             dr2, da2_c, dW["g2"], dW["be2"], dW["bco"] = layernorm_backward(
                 dxm, R["x2"], inv2, W["g2"], W["be2"], seed, OP_CROSS_OUT, hr)
-            dW["wco"] = gemm(R["ctx2"], da2_c, a_t=True, epi="bf16")
-            dctx2 = gemm(da2_c, W["wco"], b_t=True, epi="bf16")
+            dW["wco"] = gemm(R["ctx2"], da2_c, a_t=True, epi=cast)
+            dctx2 = gemm(da2_c, W["wco"], b_t=True, epi=cast)
             dqc, dkv = attention_backward(R["qc"].view(b, s, H), R["kvc"].view(b, sk, 2 * H),
                                           cmask, dctx2.view(b, s, H), nh, False, seed,
                                           cross_op(nh), geom.attn_rate)
             dqc, dkv = dqc.view(M, H), dkv.view(b * sk, 2 * H)
-            dW["wq"] = gemm(R["x1"], dqc, a_t=True, epi="bf16")
+            dW["wq"] = gemm(R["x1"], dqc, a_t=True, epi=cast)
             dW["bq"] = column_sums(dqc)
-            dW["wkv"] = gemm(enc.view(b * sk, H), dkv, a_t=True, epi="bf16")
+            dW["wkv"] = gemm(enc.view(b * sk, H), dkv, a_t=True, epi=cast)
             dW["bkv"] = column_sums(dkv)
-            denc = gemm(dkv, W["wkv"], b_t=True,
-                        epi="f32" if enc_dtype == torch.float32 else "bf16").view(b, sk, H)
+            denc_epi = "f32" if f32 or enc_dtype == torch.float32 else "bf16"
+            denc = gemm(dkv, W["wkv"], b_t=True, epi=denc_epi).view(b, sk, H).to(
+                enc_dtype or cdtype)
             dx1 = gemm(dqc, W["wq"], b_t=True, epi="add_f32", aux=dr2)
             del dr2
         else:
@@ -852,14 +901,15 @@ def _backward_launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, 
         # self-attention block
         dr1, da1_c, dW["g1"], dW["be1"], dW["bo"] = layernorm_backward(
             dx1, R["x1"], inv1, W["g1"], W["be1"], seed, OP_ATTN_OUT, hr)
-        dW["wo"] = gemm(R["ctx"], da1_c, a_t=True, epi="bf16")
-        dctx = gemm(da1_c, W["wo"], b_t=True, epi="bf16")
+        dW["wo"] = gemm(R["ctx"], da1_c, a_t=True, epi=cast)
+        dctx = gemm(da1_c, W["wo"], b_t=True, epi=cast)
         dqkv = attention_backward(R["qkv"].view(b, s, 3 * H), None, smask, dctx.view(b, s, H),
                                   nh, geom.causal, seed, 0, geom.attn_rate).view(M, 3 * H)
-        dW["wqkv"] = gemm(x.view(M, H), dqkv, a_t=True, epi="bf16")
+        dW["wqkv"] = gemm(x.view(M, H), dqkv, a_t=True, epi=cast)
         dW["bqkv"] = column_sums(dqkv)
-        dx = gemm(dqkv, W["wqkv"], b_t=True, epi="add_bf16", aux=dr1).view(b, s, H)
+        dx = gemm(dqkv, W["wqkv"], b_t=True, epi=add_c, aux=dr1).view(b, s, H)
     layer_backward.launches += 1
+    layer_backward.f32_launches += int(f32)
     return dx, denc, tuple(dW[n] for n in _names(geom))
 
 
@@ -869,7 +919,8 @@ def layer_backward(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, ou
     dweights)``. Replaces the TPU kernel ``_layer_bwd_kernel``
     (``layer_pallas.py:552``). A CPU tensor takes
     :func:`layer_backward_reference`; a CUDA tensor runs ``csrc/layer_bwd.cu``
-    (bf16) or raises, and each call adds one to ``layer_backward.launches``."""
+    (bf16 or f32) or raises, and each call adds one to
+    ``layer_backward.launches``."""
     if x.device.type == "cpu":
         return layer_backward_reference(geom, x, enc, smask, cmask, weights, seed, res, out, gy,
                                         enc_dtype)
@@ -880,6 +931,7 @@ def layer_backward(geom: LayerGeom, x, enc, smask, cmask, weights, seed, res, ou
 
 
 layer_backward.launches = 0
+layer_backward.f32_launches = 0  # the f32 share of ``launches``
 
 
 class FusedBertLayer(torch.autograd.Function):
@@ -921,7 +973,7 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
     When a gradient is needed the call runs :class:`FusedBertLayer`.
     Otherwise a CPU tensor, or ``reference=True``, goes through
     :func:`bert_layer_reference`, and a CUDA tensor launches
-    ``csrc/layer_fwd.cu`` (bf16 only) on the current stream, or raises; each
+    ``csrc/layer_fwd.cu`` (bf16 or f32) on the current stream, or raises; each
     forward launch adds one to ``fused_bert_layer.launches``, and each that
     keeps the residuals also to ``fused_bert_layer.residual_launches``."""
     weights = tuple(weights)
@@ -940,3 +992,4 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
 
 fused_bert_layer.launches = 0
 fused_bert_layer.residual_launches = 0  # of those, training launches that keep the residuals
+fused_bert_layer.f32_launches = 0  # the f32 share of ``launches``

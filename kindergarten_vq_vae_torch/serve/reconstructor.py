@@ -16,8 +16,8 @@ same ids and mask on both sides, Shelgon3 with ``is_training`` off (the
 Gumbel quantizer hard), Shelgon2 its two arguments. The Gumbel noise of
 Shelgon, Shelgon2 and Shelgon3-Gumbel comes from a generator seeded 0 on
 each forward, the counterpart of JAX's ``key(0)``. On CUDA every layer and
-the VQ bottleneck run as the package's kernels, which take bfloat16
-activations only.
+the VQ bottleneck run as the package's kernels, in bf16 or, on the default
+route, f32 (``config.refuse_unported_route``).
 
 A run with the GPT-2 decoder is served as JAX serves it: the encoder's ids
 feed the decoder too, and the argmax is decoded with the run's encoder
@@ -36,7 +36,7 @@ import torch
 
 from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
 from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name, read_checkpoint
-from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported_route
 from kindergarten_vq_vae_torch.data.tokenizer import _BaseTokenizer
 from kindergarten_vq_vae_torch.models import build_model
 
@@ -46,10 +46,7 @@ class Reconstructor:
                  batch_buckets: tuple = (8, 64, 256), device="cuda"):
         self.cfg = RunConfig.load(os.path.join(run_path, "run_conf.json"))
         self.device = torch.device(device)
-        if self.device.type == "cuda" and self.cfg.dtype != torch.bfloat16:
-            raise ValueError(
-                f"compute_dtype={self.cfg.compute_dtype!r}: the CUDA kernels take bfloat16 only "
-                "(ROADMAP, Open items: f32 on CUDA waits for a later kernel)")
+        refuse_unported_route(self.cfg, self.device)
         self.model_name = self.cfg.model_name
         self.model = build_model(self.cfg, device=self.device).eval()
         if ckpt_name is None:

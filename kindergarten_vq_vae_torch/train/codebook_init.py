@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from kindergarten_vq_vae_torch.ckpt.checkpoint import load_params
-from kindergarten_vq_vae_torch.config import RunConfig
+from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported_route
 from kindergarten_vq_vae_torch.data.dataset import padded_batches
 from kindergarten_vq_vae_torch.models import bert_configs, init_weights
 from kindergarten_vq_vae_torch.nn.bert import BertModel
@@ -41,9 +41,7 @@ def bagon_encoder(cfg: RunConfig, bagon_ckpt_path: str | None = None, seed: int 
     ``encoder`` leaves, or (without one) a Bagon encoder initialised from
     ``seed``."""
     device = torch.device(device)
-    if device.type == "cuda" and cfg.dtype != torch.bfloat16:
-        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the CUDA kernels take "
-                         "bfloat16 only (ROADMAP, Open items)")
+    refuse_unported_route(cfg, device)
     enc_cfg, _ = bert_configs(dataclasses.replace(cfg, model_name="bagon"))
     holder = nn.Module()  # parameter names under "encoder.", as in a Bagon bundle
     holder.encoder = BertModel(enc_cfg, device)

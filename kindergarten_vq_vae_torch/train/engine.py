@@ -55,7 +55,11 @@ from kindergarten_vq_vae_torch.ckpt.checkpoint import (
     save_checkpoint_multi,
     write_checkpoint,
 )
-from kindergarten_vq_vae_torch.config import RunConfig, refuse_unported
+from kindergarten_vq_vae_torch.config import (
+    RunConfig,
+    refuse_unported,
+    refuse_unported_route,
+)
 from kindergarten_vq_vae_torch.data.dataset import BatchIterator
 from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.ops.vq import EMAState
@@ -104,9 +108,7 @@ class Engine:
         self.cfg, self.splits, self.tokenizer, self.run_path = cfg, splits, tokenizer, run_path
         self.model_name = cfg.model_name
         self.device = torch.device(device)
-        if self.device.type == "cuda" and cfg.dtype != torch.bfloat16:
-            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the CUDA kernels take "
-                             "bfloat16 only (ROADMAP, Open items)")
+        refuse_unported_route(cfg, self.device)
 
         # the training and eval steps share the model: built for the fused
         # head + CE when the run asks for it (a served run takes the logits)

@@ -3,14 +3,15 @@
 
     python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
                                           [--fused-layer auto] [--model shelgon3]
-                                          [--decoder bert]
+                                          [--decoder bert] [--dtype bfloat16]
 
 Builds a seeded full-width bert-base Shelgon3-VQ, or with ``--model`` Shelgon3
 with the Gumbel quantizer, Shelgon, Shelgon2 (``mask_pct_train`` 0.1; the
 batch carries seeded 5- and 8-factor labels) or Bagon; with ``--decoder
 gpt2`` its decoder is GPT-2-small (12 blocks, vocabulary 50,257; the batch
-carries seeded decoder ids for Bagon and Shelgon) (bf16, dropout 0.1 / 0.1,
-AMSGrad lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
+carries seeded decoder ids for Bagon and Shelgon) (bf16, or with ``--dtype
+float32`` f32 through the kernels' f32 instances; dropout 0.1 / 0.1, AMSGrad
+lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
 fused head + CE, kernels #9 and #10, in place of the logits path;
 ``--fused-layer off``: the per-module trunk, cuBLAS projections around the
 SDPA kernels #11 / #12, in place of the fused layers), warms up,
@@ -26,7 +27,7 @@ then reports for one batch of ``--batch`` x 12 tokens:
 - the bottleneck alone (the VQ, the Gumbel quantizer, Shelgon's
   ``bottleneck`` or Shelgon2's ``sentence_discretizer``; none for Bagon):
   ``torch.profiler`` device time and launches of its forward and backward
-  on the step's shapes (random bf16 encoder states), per call;
+  on the step's shapes (random encoder states in the compute dtype), per call;
 - with ``--decoder gpt2``, the GPT-2 decoder alone the same way: its
   forward (dropout on, the tied head's logits included) and backward on
   random bf16 encoder states and seeded decoder ids.
@@ -64,6 +65,13 @@ FAMILIES = (
     ("sm90::gemm_kernel<256, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
     ("splitk_reduce", "split-K sums (layer wgrad)"),
     ("sm90::", "layer GEMM, other (wgmma)"),
+    # csrc/gemm_f32.cu: gemm_f32_kernel<A_T, B_T, EPI>
+    ("gemm_f32_kernel<false, false", "layer GEMM f32, forward (3xTF32)"),
+    ("gemm_f32_kernel<false, true", "layer GEMM f32, dgrad (3xTF32)"),
+    ("gemm_f32_kernel<true, false", "layer GEMM f32, wgrad split-K partials (3xTF32)"),
+    # csrc/attention_f32.cuh: attention_f32_kernel<BWD>
+    ("attention_f32_kernel<true>", "attention backward f32 (#3 / #4 in #2)"),
+    ("attention_f32_kernel<false>", "attention forward f32 (in #1)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
     ("attention_kernel", "attention forward (in #1, or #11 / #13)"),
@@ -109,6 +117,8 @@ REDUCE_AFTER = (
     ("colsum_kernel", "column sums (bias gradients)"),
     ("gemm_kernel<128, false, false, 6>", "column sums (b1: the GELU-gradient GEMM's partials)"),
     ("gemm_kernel<128, false, false, 7>", "column sums (b1: the GELU-gradient GEMM's partials)"),
+    ("gemm_f32_kernel<false, true, 6>", "column sums (b1: the GELU-gradient GEMM's partials)"),
+    ("gemm_f32_kernel<false, true, 7>", "column sums (b1: the GELU-gradient GEMM's partials)"),
 )
 
 
@@ -154,12 +164,12 @@ def _profiled(fn, calls: int) -> dict:
 
 def profile_gpt2_decoder(model, cfg, batch: dict, calls: int) -> dict:
     """Device ms and launches of one forward + backward of the GPT-2 decoder
-    alone (dropout on, the tied head included) on random bf16 encoder states."""
+    alone (dropout on, the tied head included) on random encoder states."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     ids = batch["dec_input_ids"] if "dec_input_ids" in batch else batch["input_ids"]
-    h = torch.randn(*ids.shape, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    h = torch.randn(*ids.shape, cfg.hidden_size, generator=gen, device="cuda").to(cfg.dtype)
     h.requires_grad_()
 
     def fn():
@@ -174,14 +184,14 @@ def profile_gpt2_decoder(model, cfg, batch: dict, calls: int) -> dict:
 
 def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
     """Device ms and launches of one forward + backward of the model's
-    bottleneck alone, on random bf16 encoder states of the step's shape."""
+    bottleneck alone, on random encoder states of the step's shape."""
     import torch
 
     if cfg.model_name == "bagon":
         return None
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = (batch,) if cfg.model_name == "shelgon2" else (batch, 12)
-    h = torch.randn(*rows, cfg.hidden_size, generator=gen, device="cuda").bfloat16()
+    h = torch.randn(*rows, cfg.hidden_size, generator=gen, device="cuda").to(cfg.dtype)
     h.requires_grad_()
     if cfg.model_name == "shelgon":
         def fn():
@@ -210,6 +220,7 @@ def main() -> None:
     ap.add_argument("--fused-layer", choices=("auto", "off"), default="auto")
     ap.add_argument("--model", choices=tuple(MODELS), default="shelgon3")
     ap.add_argument("--decoder", choices=tuple(DECODERS), default="bert")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
 
     import numpy as np
@@ -223,7 +234,7 @@ def main() -> None:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = RunConfig(compute_dtype="bfloat16", fused_head_ce=args.fused_head_ce,
+    cfg = RunConfig(compute_dtype=args.dtype, fused_head_ce=args.fused_head_ce,
                     fused_layer=args.fused_layer, **MODELS[args.model], **DECODERS[args.decoder])
     model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
@@ -300,7 +311,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
-        "model": args.model, "decoder": args.decoder,
+        "model": args.model, "decoder": args.decoder, "dtype": args.dtype,
         "fused_head_ce": args.fused_head_ce, "fused_layer": args.fused_layer,
         "wall_ms_median": statistics.median(walls),
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},

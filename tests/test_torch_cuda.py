@@ -74,6 +74,16 @@ above, targets outside the vocabulary included. The GPT-2 decoder (plain
 PyTorch) in bf16 on the card, forward and backward, against the CPU's f32
 pass: no further from it than 1.25 times the CPU's bf16 pass, plus one bf16
 ulp of the largest magnitude.
+f32 (JAX's parity dtype; the kernels' f32 instances) against the f32 plain
+versions, every kernel of the default route: forwards (the layer GEMM's NN
+products, the layer, the residual + LayerNorm, the attention context)
+within 2e-5 of the output's largest magnitude (f32 sums in another order;
+the GEMM's 3xTF32 products within a few 1e-7 of f32 ones); gradients (the
+GEMM's NT and TN products, the layer backward, the LayerNorm backward, the
+column sums, the attention backward) within 1e-4; CE NLL within 1e-5
+relative, ids exact, dlogits within 1e-4; keep masks bit for bit. An f32
+training step of the kernel route against the f32 plain route: the loss
+within 1e-5 relative, the gradients within 1e-4 global relative L2.
 The other variants (Shelgon, also with both masks None, Shelgon2 with
 ``mask_pct_train``, Shelgon3-Gumbel) at a small bf16 size, one training
 loss and backward with dropout on: the kernel route's loss within 1e-3 of
@@ -161,12 +171,12 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _case(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact=True):
+def _case(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact=True, dtype=torch.bfloat16):
     dev = torch.device("cuda")
     geom = LayerGeom(num_heads=NH, head_dim=H // NH, intermediate=F, causal=decoder,
                      has_cross=decoder, eps=1e-12, gelu_exact=gelu_exact)
-    x = torch.randn(B, S, H, device=dev, generator=gen).bfloat16()
-    enc = torch.randn(B, SK, H, device=dev, generator=gen).bfloat16() if decoder else None
+    x = torch.randn(B, S, H, device=dev, generator=gen).to(dtype)
+    enc = torch.randn(B, SK, H, device=dev, generator=gen).to(dtype) if decoder else None
     lens = torch.randint(1, S + 1, (B,), device=dev, generator=gen)
     smask = (torch.arange(S, device=dev)[None] < lens[:, None]).to(torch.int32)
     cmask = None
@@ -176,31 +186,45 @@ def _case(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact=True):
     shapes, ws = geom.weight_shapes(), []
     for n in DEC_WEIGHTS if decoder else ENC_WEIGHTS:
         r = torch.randn(shapes[n], device=dev, generator=gen)
-        ws.append((0.05 * r).bfloat16() if n.startswith("w") else 1.0 + 0.1 * r if n.startswith("g")
+        ws.append((0.05 * r).to(dtype) if n.startswith("w") else 1.0 + 0.1 * r if n.startswith("g")
                   else 0.05 * r)
     return geom, x, enc, smask, cmask, ws
 
 
-@pytest.mark.parametrize("decoder,B,S,SK,H,NH,F,with_cmask,gelu_exact", [
-    (False, 5, 12, 12, 128, 2, 256, False, True),
-    (True, 5, 12, 9, 128, 2, 256, True, True),
-    (True, 11, 7, 16, 192, 3, 384, False, True),
-    (False, 3, 32, 32, 256, 2, 512, False, True),
-    (True, 4, 12, 12, 128, 2, 256, False, False),
+# the f32 instances' bars against the f32 plain versions: a forward output
+# within F32_FWD of its largest magnitude, a gradient within F32_GRAD
+F32_FWD, F32_GRAD = 2e-5, 1e-4
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("decoder,B,S,SK,H,NH,F,with_cmask,gelu_exact,dtype", [
+    (False, 5, 12, 12, 128, 2, 256, False, True, BF),
+    (True, 5, 12, 9, 128, 2, 256, True, True, BF),
+    (True, 11, 7, 16, 192, 3, 384, False, True, BF),
+    (False, 3, 32, 32, 256, 2, 512, False, True, BF),
+    (True, 4, 12, 12, 128, 2, 256, False, False, BF),
+    (False, 5, 12, 12, 128, 2, 256, False, True, F32),
+    (True, 11, 7, 16, 192, 3, 384, True, True, F32),
+    (True, 4, 12, 12, 128, 2, 256, False, False, F32),
 ])
-def test_layer_kernel_matches_plain(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact):
+def test_layer_kernel_matches_plain(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact,
+                                    dtype):
     geom, x, enc, smask, cmask, ws = _case(gen, decoder, B, S, SK, H, NH, F, with_cmask,
-                                           gelu_exact)
-    before = fused_bert_layer.launches
+                                           gelu_exact, dtype)
+    before = fused_bert_layer.launches, fused_bert_layer.f32_launches
     with torch.inference_mode():
         out = fused_bert_layer(geom, x, enc, smask, cmask, ws)
         torch.cuda.synchronize()
         ref = bert_layer_reference(geom, x, enc, smask, cmask, ws)
-    assert fused_bert_layer.launches == before + 1
-    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert (fused_bert_layer.launches, fused_bert_layer.f32_launches) == (
+        before[0] + 1, before[1] + int(dtype == F32))
+    assert out.dtype == dtype and out.shape == x.shape
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out).all()
-    assert err.max().item() <= 6e-2 and err.mean().item() <= 2e-3
+    if dtype == F32:
+        assert _rel_max(out, ref) <= F32_FWD
+    else:
+        assert err.max().item() <= 6e-2 and err.mean().item() <= 2e-3
 
 
 def test_layer_kernel_rejects_what_it_does_not_take(gen):
@@ -341,18 +365,24 @@ def test_vq_kernel_rejects_what_it_does_not_take(gen):
                                    torch.randn(9, 768, device="cuda"), 0.25)
 
 
-@pytest.mark.parametrize("decoder,B,S,SK,H,NH,F", [
-    (False, 5, 12, 12, 128, 2, 256),
-    (True, 5, 12, 9, 128, 2, 256),
-    (True, 11, 7, 16, 192, 3, 384),
-    (False, 171, 12, 12, 128, 2, 256),   # 2052 rows: split-K weight gradients, uneven chunks
-    (True, 205, 10, 12, 192, 3, 384),    # 2050 rows
+@pytest.mark.parametrize("decoder,B,S,SK,H,NH,F,dtype", [
+    (False, 5, 12, 12, 128, 2, 256, BF),
+    (True, 5, 12, 9, 128, 2, 256, BF),
+    (True, 11, 7, 16, 192, 3, 384, BF),
+    (False, 171, 12, 12, 128, 2, 256, BF),   # 2052 rows: split-K weight gradients, uneven chunks
+    (True, 205, 10, 12, 192, 3, 384, BF),    # 2050 rows
+    (False, 5, 12, 12, 128, 2, 256, F32),
+    (True, 11, 7, 16, 192, 3, 384, F32),
+    (False, 171, 12, 12, 128, 2, 256, F32),
+    (True, 205, 10, 12, 192, 3, 384, F32),
 ])
-def test_training_layer_kernels_match_plain(gen, decoder, B, S, SK, H, NH, F):
+def test_training_layer_kernels_match_plain(gen, decoder, B, S, SK, H, NH, F, dtype):
     """Training forward (dropout 0.1 / 0.1, residuals kept) and the backward
     kernels, each against its plain version on the same inputs. Past 2048
     rows the weight gradients take the split-K path."""
-    geom, x, enc, smask, cmask, ws = _case(gen, decoder, B, S, SK, H, NH, F, decoder)
+    geom, x, enc, smask, cmask, ws = _case(gen, decoder, B, S, SK, H, NH, F, decoder, True,
+                                           dtype)
+    fwd_bar, grad_bar = (F32_FWD, F32_GRAD) if dtype == F32 else (2e-2, 2e-2)
     geom = LayerGeom(**{**geom.__dict__, "attn_rate": 0.1, "hid_rate": 0.1})
     seed = -1234567
     before = fused_bert_layer.launches
@@ -361,49 +391,56 @@ def test_training_layer_kernels_match_plain(gen, decoder, B, S, SK, H, NH, F):
     assert fused_bert_layer.launches == before + 1
     out_p, res_p = layer_forward_reference(geom, x, enc, smask, cmask, ws, seed)
     err = (out.float() - out_p.float()).abs()
-    assert torch.isfinite(out).all() and err.max() <= 6e-2 and err.mean() <= 2e-3
+    assert torch.isfinite(out).all()
+    if dtype == F32:
+        assert out.dtype == F32 and _rel_max(out, out_p) <= F32_FWD
+    else:
+        assert err.max() <= 6e-2 and err.mean() <= 2e-3
     for name, a, b in zip(residual_names(geom), res, res_p):
         assert a.dtype == b.dtype and a.shape == b.shape, name
-        assert _rel_max(a, b) <= 2e-2, name
+        assert _rel_max(a, b) <= fwd_bar, name
 
-    gy = (0.1 * torch.randn(x.shape, device="cuda", generator=gen)).bfloat16()
+    gy = (0.1 * torch.randn(x.shape, device="cuda", generator=gen)).to(dtype)
     before = layer_backward.launches
     got = layer_backward(geom, x, enc, smask, cmask, ws, seed, res_p, out_p, gy, torch.float32)
     torch.cuda.synchronize()
     assert layer_backward.launches == before + 1
     want = layer_backward_reference(geom, x, enc, smask, cmask, ws, seed, res_p, out_p, gy,
                                     torch.float32)
-    assert got[0].dtype == torch.bfloat16 and _rel_max(got[0], want[0]) <= 2e-2
+    assert got[0].dtype == dtype and _rel_max(got[0], want[0]) <= grad_bar
     if decoder:
-        assert got[1].dtype == torch.float32 and _rel_max(got[1], want[1]) <= 2e-2
+        assert got[1].dtype == torch.float32 and _rel_max(got[1], want[1]) <= grad_bar
     names = DEC_WEIGHTS if decoder else ENC_WEIGHTS
     for n, w, a, b in zip(names, ws, got[2], want[2]):
         assert a.dtype == w.dtype and a.shape == w.shape, n
-        assert torch.isfinite(a).all() and _rel_max(a, b) <= 2e-2, n
+        assert torch.isfinite(a).all() and _rel_max(a, b) <= grad_bar, n
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("cross", [False, True])
-def test_attention_backward_kernel_matches_plain(gen, cross):
+def test_attention_backward_kernel_matches_plain(gen, cross, dtype):
     B, S, SK, H, NH = 9, 12, 9 if cross else 12, 256, 4
-    q = torch.randn(B, S, H if cross else 3 * H, device="cuda", generator=gen).bfloat16()
-    kv = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).bfloat16() if cross else None
+    q = torch.randn(B, S, H if cross else 3 * H, device="cuda", generator=gen).to(dtype)
+    kv = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).to(dtype) if cross else None
     lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
     mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
-    g = torch.randn(B, S, H, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(B, S, H, device="cuda", generator=gen).to(dtype)
     op = cross_op(NH) if cross else 0
-    before = attention_backward.launches
+    before = attention_backward.launches, attention_backward.f32_launches
     before_cross = attention_backward.cross_launches
     got = attention_backward(q, kv, mask, g, NH, not cross, 77, op, 0.1)
     torch.cuda.synchronize()
-    assert attention_backward.launches == before + 1
+    assert (attention_backward.launches, attention_backward.f32_launches) == (
+        before[0] + 1, before[1] + int(dtype == F32))
     assert attention_backward.cross_launches == before_cross + int(cross)
     want = attention_backward_reference(q, kv, mask, g, NH, not cross, 77, op, 0.1)
     for a, b in zip(got if cross else (got,), want if cross else (want,)):
-        assert a.dtype == torch.bfloat16 and a.shape == b.shape
-        assert _rel_max(a, b) <= 2e-2
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_max(a, b) <= (F32_GRAD if dtype == F32 else 2e-2)
 
 
-def test_attention_keep_mask_is_visible_and_exact(gen):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_attention_keep_mask_is_visible_and_exact(gen, dtype):
     """With q = k = 0 every valid key gets the same probability, and with v
     the one-hot of the key position the context shows p * keep per (query,
     key, head): its nonzero pattern is the keep mask, exactly."""
@@ -414,7 +451,7 @@ def test_attention_keep_mask_is_visible_and_exact(gen):
     x = torch.zeros(B, S, H, device="cuda")
     for h in range(NH):
         x[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
-    x = x.bfloat16()
+    x = x.to(dtype)
     smask = torch.ones(B, S, dtype=torch.int32, device="cuda")
     shapes, ws = geom.weight_shapes(), []
     for n in ENC_WEIGHTS:
@@ -423,7 +460,7 @@ def test_attention_keep_mask_is_visible_and_exact(gen):
             w[:, 2 * H:] = torch.eye(H, device="cuda")
         if n.startswith("g"):
             w += 1.0
-        ws.append(w.bfloat16() if n.startswith("w") else w)
+        ws.append(w.to(dtype) if n.startswith("w") else w)
     _, res = layer_forward(geom, x, None, smask, None, ws, 99)
     ctx = res[residual_names(geom).index("ctx")].view(B, S, NH, hd)[..., :S]
     for h in range(NH):
@@ -431,25 +468,37 @@ def test_attention_keep_mask_is_visible_and_exact(gen):
         assert torch.equal(ctx[:, :, h] > 0, keep)
 
 
-def test_ce_kernels_match_plain(gen):
+def _nll_held(nll, nll_p, dtype):
+    """NLL within 1e-4 absolute (bf16 logits) or 1e-5 relative (f32)."""
+    if dtype == F32:
+        assert ((nll - nll_p).abs() / nll_p.abs().clamp_min(1e-30)).max() <= 1e-5
+    else:
+        assert (nll - nll_p).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_ce_kernels_match_plain(gen, dtype):
     rows, vocab = 1000, 30522
-    x = (3.0 * torch.randn(rows, vocab, device="cuda", generator=gen)).bfloat16()
+    x = (3.0 * torch.randn(rows, vocab, device="cuda", generator=gen)).to(dtype)
     x[0, [5, 9000, 30000]] = 40.0   # ties far apart
     x[1, [7, 8]] = 40.0             # ties side by side
     x[2] = 0.5                      # an all-equal row
     t = torch.randint(0, vocab, (rows,), device="cuda", generator=gen, dtype=torch.int32)
-    before = ce_fwd_ids.launches, ce_bwd.launches
+    before = ce_fwd_ids.launches, ce_bwd.launches, ce_fwd_ids.f32_launches, ce_bwd.f32_launches
     nll, ids = ce_fwd_ids(x, t)
     torch.cuda.synchronize()
     nll_p, ids_p = ce_fwd_ids_reference(x, t)
     assert torch.equal(ids, ids_p) and ids[0] == 5 and ids[1] == 7 and ids[2] == 0
-    assert (nll - nll_p).abs().max() <= 1e-4
+    _nll_held(nll, nll_p, dtype)
     lse = nll_p + x.float().gather(1, t.long()[:, None])[:, 0]
     scale = torch.rand(rows, device="cuda", generator=gen) / rows
     got = ce_bwd(x, t, lse, scale)
     torch.cuda.synchronize()
-    assert (ce_fwd_ids.launches, ce_bwd.launches) == (before[0] + 1, before[1] + 1)
-    assert got.dtype == torch.bfloat16 and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= 1e-2
+    f32 = int(dtype == F32)
+    assert (ce_fwd_ids.launches, ce_bwd.launches, ce_fwd_ids.f32_launches,
+            ce_bwd.f32_launches) == (before[0] + 1, before[1] + 1, before[2] + f32, before[3] + f32)
+    assert got.dtype == dtype and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= (
+        F32_GRAD if f32 else 1e-2)
     odd = x[:, :30521].contiguous()  # odd vocab: the scalar path
     assert torch.equal(ce_fwd_ids(odd, t.clamp(max=30520))[1],
                        ce_fwd_ids_reference(odd, t.clamp(max=30520))[1])
@@ -469,26 +518,28 @@ def test_ce_fwd_kernel_matches_plain(gen, vocab):
     assert torch.equal(nll, ce_fwd_ids(x, t)[0])
 
 
-def _ce_edge_case(gen, rows, vocab, offset):
-    """(rows, vocab) bf16 logits starting ``offset`` elements into their
-    buffer, so the rows' first 16-byte boundaries fall at every phase, with
-    ties within an 8-wide chunk, across chunks and lanes, between the head
-    and the body and between the body and the tail (columns counted from
-    each row's head), an all-equal row, and targets in the head, the body,
-    the tail and outside the vocabulary."""
-    buf = (3.0 * torch.randn(rows * vocab + offset, device="cuda", generator=gen)).bfloat16()
+def _ce_edge_case(gen, rows, vocab, offset, dtype=BF):
+    """(rows, vocab) bf16 or f32 logits starting ``offset`` elements into
+    their buffer, so the rows' first 16-byte boundaries fall at every phase,
+    with ties within a 16-byte chunk (8 bf16 or 4 f32), across chunks and
+    lanes, between the head and the body and between the body and the tail
+    (columns counted from each row's head), an all-equal row, and targets in
+    the head, the body, the tail and outside the vocabulary."""
+    buf = (3.0 * torch.randn(rows * vocab + offset, device="cuda", generator=gen)).to(dtype)
     x = buf[offset:].view(rows, vocab)
     t = torch.randint(0, vocab, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    es = x.element_size()
+    E = 16 // es
     for r in range(rows):
-        h = min((16 - (x[r].data_ptr() % 16)) % 16 // 2, vocab)
-        body = (vocab - h) // 8
-        tail = h + 8 * body
-        ties = [(h + 1, h + 2), (h + 7, h + 8), (h + 3, h + 8 * 33 + 3), (0, h + 5),
+        h = min((16 - (x[r].data_ptr() % 16)) % 16 // es, vocab)
+        body = (vocab - h) // E
+        tail = h + E * body
+        ties = [(h + 1, h + 2), (h + E - 1, h + E), (h + 3, h + E * 33 + 3), (0, h + 5),
                 (tail - 1, vocab - 1), (5, 9000, 30000)][r % 6]
         cols = [c for c in ties if c < vocab]
         if cols:
             x[r, cols] = 40.0
-        t[r] = [0, h + 8, vocab - 1, vocab, -1, t[r]][r % 6] if r >= 6 else t[r]
+        t[r] = [0, h + E, vocab - 1, vocab, -1, t[r]][r % 6] if r >= 6 else t[r]
     x[rows - 1] = 0.5  # an all-equal row
     return x, t
 
@@ -832,23 +883,26 @@ def test_layer_forward_counts_its_attention(gen):
             before[0] + 1 + int(decoder), before[1] + int(decoder))
 
 
-_GEMM_CASES = [("nn", e) for e in ("f32", "bf16", "gelu_erf", "gelu_tanh")] + \
-              [("nt", e) for e in ("f32", "bf16", "add_f32", "add_bf16", "dgelu_erf",
-                                   "dgelu_tanh")] + \
-              [("tn", e) for e in ("f32", "bf16")]
+_GEMM_CASES = [("nn", e, BF) for e in ("f32", "bf16", "gelu_erf", "gelu_tanh")] + \
+              [("nt", e, BF) for e in ("f32", "bf16", "add_f32", "add_bf16", "dgelu_erf",
+                                       "dgelu_tanh")] + \
+              [("tn", e, BF) for e in ("f32", "bf16")] + \
+              [("nn", e, F32) for e in ("f32", "gelu_erf", "gelu_tanh")] + \
+              [("nt", e, F32) for e in ("f32", "add_f32", "dgelu_erf", "dgelu_tanh")] + \
+              [("tn", "f32", F32)]
 
 
-def _gemm_case(gen, layout, epi, M, N, K):
-    a = torch.randn((K, M) if layout == "tn" else (M, K), device="cuda", generator=gen).bfloat16()
+def _gemm_case(gen, layout, epi, M, N, K, dtype=BF):
+    a = torch.randn((K, M) if layout == "tn" else (M, K), device="cuda", generator=gen).to(dtype)
     b = (torch.randn((N, K) if layout == "nt" else (K, N), device="cuda", generator=gen)
-         / K ** 0.5).bfloat16()
+         / K ** 0.5).to(dtype)
     kw = dict(a_t=layout == "tn", b_t=layout == "nt", epi=epi)
     if layout == "nn":
         kw["bias"] = 0.1 * torch.randn(N, device="cuda", generator=gen)
     if epi.startswith("add"):
         kw["aux"] = torch.randn(M, N, device="cuda", generator=gen)
     if epi.startswith("dgelu"):
-        kw["aux"] = (2.0 * torch.randn(M, N, device="cuda", generator=gen)).bfloat16()
+        kw["aux"] = (2.0 * torch.randn(M, N, device="cuda", generator=gen)).to(dtype)
     return a, b, kw
 
 
@@ -866,8 +920,8 @@ def _gemm_f32(a, b, kw):
     return (acc,)
 
 
-def _gemm_held(got, want, what):
-    tol = 1e-4 * want.abs().max().item() + torch.zeros_like(want)
+def _gemm_held(got, want, what, rel=1e-4):
+    tol = rel * want.abs().max().item() + torch.zeros_like(want)
     if got.dtype == torch.bfloat16:
         tol += torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 8)
     excess = ((got.float() - want).abs() - tol).max().item()
@@ -875,23 +929,27 @@ def _gemm_held(got, want, what):
 
 
 @pytest.mark.parametrize("N,K", [(576, 192), (1536, 3072)])
-@pytest.mark.parametrize("M", [1, 96, 2052])
-@pytest.mark.parametrize("layout,epi", _GEMM_CASES)
-def test_gemm_kernel_matches_plain(gen, layout, epi, M, N, K):
-    a, b, kw = _gemm_case(gen, layout, epi, M, N, K)
+@pytest.mark.parametrize("M", [1, 96, 2052, 127, 129])
+@pytest.mark.parametrize("layout,epi,dtype", _GEMM_CASES)
+def test_gemm_kernel_matches_plain(gen, layout, epi, dtype, M, N, K):
+    """Every layout and epilogue at ragged rows (M 127 / 129 about the
+    128-row tile); in f32 (3xTF32) the forward's (NN) outputs within 2e-5 of
+    their largest magnitude, the gradients' within 1e-4, also at K = 3,072."""
+    a, b, kw = _gemm_case(gen, layout, epi, M, N, K, dtype)
     two = epi.startswith(("gelu", "dgelu"))
-    before = gemm.launches
+    before = gemm.launches, gemm.f32_launches
     if layout == "tn" and M % 8:  # A stored (K, M): rows of M elements, not a multiple of 8
         with pytest.raises(ValueError, match="multiple of 8"):
             gemm(a, b, **kw)
         return
     got = gemm(a, b, **kw, out2=two)
     torch.cuda.synchronize()
-    assert gemm.launches == before + 1
+    assert (gemm.launches, gemm.f32_launches) == (before[0] + 1, before[1] + int(dtype == F32))
     got = got if two else (got,)
+    rel = 1e-4 if dtype == BF else F32_FWD if layout == "nn" else F32_GRAD
     for i, (g, w) in enumerate(zip(got, _gemm_f32(a, b, kw))):
-        assert torch.isfinite(g).all()
-        _gemm_held(g, w, f"{layout} {epi} output {i}")
+        assert torch.isfinite(g).all() and (dtype == BF or g.dtype == F32)
+        _gemm_held(g, w, f"{layout} {epi} {dtype} output {i}", rel)
 
 
 def test_gemm_weight_gradient_is_deterministic(gen):
@@ -939,34 +997,36 @@ def _ln_params(gen, N):
     return gamma, 0.1 * torch.randn(N, device="cuda", generator=gen)
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("N", [64, 768, 1024])
 @pytest.mark.parametrize("rows", _LN_ROWS)
-def test_residual_layernorm_kernel_matches_plain(gen, rows, N, rate):
-    x = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+def test_residual_layernorm_kernel_matches_plain(gen, rows, N, rate, dtype):
+    x = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
     a = 0.5 * torch.randn(rows, N, device="cuda", generator=gen) + 0.2
     gamma, beta = _ln_params(gen, N)
-    before = residual_layernorm.launches
+    before = residual_layernorm.launches, residual_layernorm.f32_launches
     out, inv = residual_layernorm(x, a, gamma, beta, 1e-12, -77, OP_CROSS_OUT, rate)
     torch.cuda.synchronize()
-    assert residual_layernorm.launches == before + 1
+    assert (residual_layernorm.launches, residual_layernorm.f32_launches) == (
+        before[0] + 1, before[1] + int(dtype == F32))
     keep = hidden_keep(-77, OP_CROSS_OUT, rows, N, rate, "cuda") if rate else None
     r = x.float() + (a if keep is None else a * keep)
     mu = r.mean(-1, keepdim=True)
     want_inv = torch.rsqrt(torch.clamp((r * r).mean(-1, keepdim=True) - mu * mu, min=0.0) + 1e-12)
-    _gemm_held(out, (r - mu) * want_inv * gamma + beta, "out")
-    assert _rel_max(inv, want_inv[:, 0]) <= 1e-5
+    _gemm_held(out, (r - mu) * want_inv * gamma + beta, "out", 1e-4 if dtype == BF else F32_FWD)
+    assert out.dtype == dtype and _rel_max(inv, want_inv[:, 0]) <= 1e-5
     ref_out, ref_inv = residual_layernorm_reference(x, a, gamma, beta, 1e-12, keep)
-    assert ref_out.dtype == torch.bfloat16 and torch.equal(ref_inv, want_inv[:, 0])
+    assert ref_out.dtype == dtype and torch.equal(ref_inv, want_inv[:, 0])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("gy_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("v_dtype,gy_dtype", [(BF, BF), (BF, F32), (F32, F32)])
 @pytest.mark.parametrize("N", [64, 768, 1024])
 @pytest.mark.parametrize("rows", _LN_ROWS)
-def test_layernorm_backward_kernel_matches_plain(gen, rows, N, gy_dtype, rate):
+def test_layernorm_backward_kernel_matches_plain(gen, rows, N, v_dtype, gy_dtype, rate):
     gamma, beta = _ln_params(gen, N)
-    v = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(rows, N, device="cuda", generator=gen).to(v_dtype)
     inv = 0.5 + 1.5 * torch.rand(rows, device="cuda", generator=gen)
     gy = torch.randn(rows, N, device="cuda", generator=gen).to(gy_dtype)
     before = layernorm_backward.launches
@@ -976,7 +1036,8 @@ def test_layernorm_backward_kernel_matches_plain(gen, rows, N, gy_dtype, rate):
     keep = hidden_keep(5, OP_MLP_OUT, rows, N, rate, "cuda") if rate else None
     want = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
     assert got[0].dtype == torch.float32 and _rel_max(got[0], want[0]) <= 1e-5
-    _gemm_held(got[1], want[1], "da")
+    assert got[1].dtype == v_dtype
+    _gemm_held(got[1], want[1], "da", 1e-4 if v_dtype == BF else F32_GRAD)
     for name, g, w in zip(("dgamma", "dbeta", "dbias"), got[2:], want[2:]):
         assert g.shape == (N,) and _rel_max(g, w) <= 1e-4, name
     assert got[2][3].item() == 0.0
@@ -985,10 +1046,11 @@ def test_layernorm_backward_kernel_matches_plain(gen, rows, N, gy_dtype, rate):
         assert torch.equal(one, two)  # the same bits in every run
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("N", [768, 1536, 2304, 3072])
 @pytest.mark.parametrize("rows", (1, 31, 33, 97, 255, 257, 24576))
-def test_column_sums_kernel_matches_plain(gen, rows, N):
-    src = torch.randn(rows, N, device="cuda", generator=gen).bfloat16()
+def test_column_sums_kernel_matches_plain(gen, rows, N, dtype):
+    src = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
     before = column_sums.launches
     got = column_sums(src)
     torch.cuda.synchronize()
@@ -1020,8 +1082,8 @@ def test_layernorm_kernels_reject_what_they_do_not_take(gen):
     a = torch.randn(33, 64, device="cuda", generator=gen)
     g, b = _ln_params(gen, 64)
     inv = torch.ones(33, device="cuda")
-    with pytest.raises(TypeError, match="bfloat16"):
-        residual_layernorm(x.float(), a, g, b, 1e-12)
+    with pytest.raises(TypeError, match="bfloat16"):  # f16: neither bf16 nor f32
+        residual_layernorm(x.half(), a, g, b, 1e-12)
     with pytest.raises(ValueError, match="shape"):
         residual_layernorm(x, a[:32], g, b, 1e-12)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -1040,7 +1102,7 @@ def test_layernorm_kernels_reject_what_they_do_not_take(gen):
         layernorm_backward(wide, wide, inv[:2], torch.ones(1032, device="cuda"),
                            torch.zeros(1032, device="cuda"))
     with pytest.raises(TypeError, match="bfloat16"):
-        column_sums(a)
+        column_sums(a.half())
     with pytest.raises(ValueError, match="multiple of 8"):
         column_sums(x[:, :60].contiguous())
 
@@ -1116,26 +1178,76 @@ def test_variant_kernel_route_matches_plain(gen, model_name, over):
     assert gk <= 1.25 * gp and wk <= 1.25 * wp, dist
 
 
+F32_ROUTE_CASES = [("shelgon3", {}), ("bagon", {"decoder_model_name": "gpt2",
+                                                "decoder_vocab_size": 300})]
+
+
+@pytest.mark.parametrize("model_name, over", F32_ROUTE_CASES, ids=["shelgon3-vq", "bagon-gpt2"])
+def test_f32_kernel_route_matches_plain(gen, model_name, over):
+    """One f32 training loss and backward (dropout 0.1 / 0.1) through the
+    kernels' f32 instances against the f32 plain route from the same weights
+    and generator seed: the loss within 1e-5 relative, the gradients within
+    1e-4 global relative L2; every kernel launched is an f32 instance."""
+    cfg = RunConfig(model_name=model_name, vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, vq_e_dim=128, enc_out_size=128,
+                    emb_size=128, word_embedding_size=128, tokenized_sentence_max_length=12,
+                    compute_dtype="float32", **over)
+    model = init_weights(build_model(cfg, device="cuda"), gen)
+    b = 48
+    ids = torch.randint(1, 300, (b, 12), generator=gen, device="cuda")
+    lens = torch.randint(3, 13, (b, 1), generator=gen, device="cuda")
+    mask = (torch.arange(12, device="cuda")[None] < lens).to(torch.int32)
+    batch = {"input_ids": ids * mask, "attention_mask": mask, "n_valid": b - 5}
+    if "gpt" in cfg.decoder_model_name:
+        batch.update(dec_input_ids=ids * mask, dec_attention_mask=mask)
+    counters = (fused_bert_layer, layer_backward, gemm, ce_fwd_ids, ce_bwd)
+
+    def run(reference):
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = make_loss_fn(cfg, "train", reference=reference)(
+            model, batch, torch.Generator(device="cuda").manual_seed(7), False)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    lp, ref = run(True)
+    before = [(f.launches, f.f32_launches) for f in counters]
+    lk, got = run(False)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.f32_launches) for f in counters]
+    for (n0, f0), (n1, f1) in zip(before, after):
+        assert n1 > n0 and n1 - n0 == f1 - f0  # launched, and f32 instances only
+    assert got.keys() == ref.keys() and all(torch.isfinite(g).all() for g in got.values())
+    glob = (sum(((got[n] - ref[n]) ** 2).sum() for n in ref)
+            / sum((ref[n] ** 2).sum() for n in ref)).sqrt().item()
+    assert abs(lk - lp) <= 1e-5 * abs(lp) and glob <= 1e-4, (lk, lp, glob)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("vocab", [50257, 50264])
-def test_ce_kernels_at_the_gpt2_vocabulary(gen, vocab, offset):
+def test_ce_kernels_at_the_gpt2_vocabulary(gen, vocab, offset, dtype):
     """#7 and #8 at GPT-2's odd vocabulary (each row starts at another
-    16-byte phase: eight over 64 rows; #8 takes its element path) and at the
-    even 50,264 (#8's paired path), with ties, targets in a row's head, body
-    and tail and outside the vocabulary: ids exact, NLL within 1e-4,
-    dlogits within 1e-2 of the largest magnitude."""
-    x, t = _ce_edge_case(gen, 64, vocab, offset)
+    16-byte phase: eight over 64 rows in bf16, four in f32; #8 takes its
+    element path) and at the even 50,264 (#8's paired path in bf16), with
+    ties, targets in a row's head, body and tail and outside the vocabulary:
+    ids exact, NLL within 1e-4 (bf16) or 1e-5 relative (f32), dlogits within
+    1e-2 (bf16) or 1e-4 (f32) of the largest magnitude."""
+    x, t = _ce_edge_case(gen, 64, vocab, offset, dtype)
     nll, ids = ce_fwd_ids(x, t)
     torch.cuda.synchronize()
     nll_p, ids_p = ce_fwd_ids_reference(x, t)
     assert torch.equal(ids, ids_p) and ids[-1] == 0
-    assert (nll - nll_p).abs().max() <= 1e-4
-    assert len({x[r].data_ptr() % 16 for r in range(8)}) == (8 if vocab % 2 else 1)
+    _nll_held(nll, nll_p, dtype)
+    phases = 16 // x.element_size() if vocab % 2 else 1
+    assert len({x[r].data_ptr() % 16 for r in range(8)}) == phases
     lse = nll_p + target_logits(x, t)
     scale = torch.rand(64, device="cuda", generator=gen) / 64
     got = ce_bwd(x, t, lse, scale)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= 1e-2
+    assert got.dtype == dtype and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= (
+        F32_GRAD if dtype == F32 else 1e-2)
 
 
 def _gpt2_decoder_pass(model, ids, mask, enc, emask):

@@ -180,8 +180,29 @@ def test_tokenizer_files_encode_as_in_jax(tmp_path, kind):
         assert [tok.decode(r) for r in got[0]] == [jtok.decode(r) for r in want[0]]
 
 
-def test_cuda_refuses_f32_runs(runs):
-    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+@pytest.mark.parametrize("field,value", [("fused_head_ce", "store"), ("fused_head_ce", "flash"),
+                                         ("fused_layer", "off")])
+def test_cuda_refuses_f32_runs(runs, tmp_path, monkeypatch, field, value):
+    """An f32 run on CUDA is served on the default route only: on a route
+    whose kernels have no f32 instance yet the reconstructor raises, naming
+    ROADMAP §2a, before it builds the model (before anything touches CUDA)."""
+    import shutil
 
-    with pytest.raises(ValueError, match="bfloat16"):
-        Reconstructor(runs["shelgon3"], device="cuda")
+    from kindergarten_vq_vae_torch.serve import reconstructor
+
+    run = str(tmp_path / "run")
+    shutil.copytree(runs["shelgon3"], run)
+    conf_path = os.path.join(run, "run_conf.json")
+    with open(conf_path) as f:
+        conf = json.load(f)
+    assert conf["compute_dtype"] == "float32"
+    conf[field] = value
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+
+    def no_model(*args, **kwargs):
+        raise AssertionError("the model was built before the route was checked")
+
+    monkeypatch.setattr(reconstructor, "build_model", no_model)
+    with pytest.raises(NotImplementedError, match="ROADMAP §2a"):
+        reconstructor.Reconstructor(run, device="cuda")
