@@ -165,7 +165,24 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    ids and codes against the plain route's, and taken by
    ``analyses.common.load_run`` and ``codebook_init``'s encoder; the batch-256 loss and
    gradients of the kernel route against the plain route's; Bagon with the
-   GPT-2 decoder at a cut depth, the same, and one batch-2048 step.
+   GPT-2 decoder at a cut depth, the same, and one batch-2048 step;
+15b. the f32 routes (``phase_f32_routes``): #9 and #10 (store, flash) and
+   the table gradient in f32 at the step's head shapes (24,576 rows x 768 x
+   30,522) against their f32 plain versions (flash = store bit for bit),
+   and #11 / #12 (keep masks exact) and #13 (a fully masked sentence, and
+   its autograd) in f32 as phase 11 runs them in bf16, each timed in turns
+   with its plain version, with its bound (f32 FMA operations, the 3xTF32
+   bound printed beside, or bytes) and library call (the cuBLAS f32 head +
+   ``F.cross_entropy`` + argmax and its autograd backward,
+   ``torch.matmul(g.T, x)``, ``F.scaled_dot_product_attention`` in f32);
+   4 f32 steps each with ``fused_head_ce`` store and flash (#9, #10 and the
+   table gradient once a step, #7 / #8 never; the first loss held to the
+   default f32 route's) and with ``fused_layer="off"`` (36 #11 and #12 a
+   step, no layer kernel; the first loss held to the plain per-module
+   route's), their medians and peak memory; each route's batch-256 loss and
+   gradients against the f32 plain route's; a 1-epoch f32 CLI run with
+   ``--set fused_head_ce='store'`` and one with ``--set fused_layer='off'``,
+   each served through ``Reconstructor`` against the plain route.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -400,7 +417,8 @@ def _reset_counters() -> None:
 # wrappers with an f32 instance: ``_counters`` adds each one's f32 share as
 # ``<name>_f32``
 F32_KERNELS = ("layer_fwd", "layer_bwd", "attn_fwd", "attn_bwd", "ce_fwd_ids", "ce_fwd",
-               "ce_bwd", "gemm", "ln_fwd", "ln_bwd", "colsum")
+               "ce_bwd", "gemm", "ln_fwd", "ln_bwd", "colsum", "head_ce_fwd", "head_ce_bwd",
+               "table_grad", "sdpa_fwd", "sdpa_bwd", "mha")
 
 
 def _as_f32(want: dict) -> dict:
@@ -2039,18 +2057,18 @@ def phase_head_kernels(names: tuple[str, str]) -> dict:
     return res
 
 
-def _sdpa_case(g, batch: int, cross: bool, masked: bool):
+def _sdpa_case(g, batch: int, cross: bool, masked: bool, dtype=None):
     """q, k, v at the bert-base width as the per-module trunk hands them
-    over: split views of a packed qkv (self) or of q and a packed kv (cross);
-    a padded key mask or None."""
+    over, in ``dtype`` (bf16 when None): split views of a packed qkv (self)
+    or of q and a packed kv (cross); a padded key mask or None."""
     import torch
 
-    H = 768
+    H, dtype = 768, dtype or torch.bfloat16
     if cross:
-        q = torch.randn(batch, SEQ, H, device="cuda", generator=g).bfloat16()
-        k, v = torch.randn(batch, SEQ, 2 * H, device="cuda", generator=g).bfloat16().split(H, -1)
+        q = torch.randn(batch, SEQ, H, device="cuda", generator=g).to(dtype)
+        k, v = torch.randn(batch, SEQ, 2 * H, device="cuda", generator=g).to(dtype).split(H, -1)
     else:
-        q, k, v = torch.randn(batch, SEQ, 3 * H, device="cuda", generator=g).bfloat16().split(H, -1)
+        q, k, v = torch.randn(batch, SEQ, 3 * H, device="cuda", generator=g).to(dtype).split(H, -1)
     return q, k, v, _padded_mask(g, batch) if masked else None
 
 
@@ -2095,12 +2113,14 @@ def _library_sdpa(q, k, v, mask, causal: bool):
     return fwd, bwd
 
 
-def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
+def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
     """#11 and #12 (self from qkv views, causal, padded masks; cross from kv
     views; dropout 0.1) and #13 against their plain versions at the
     batch-2048 training shapes, #11 at the bucket-256 serving shape (rate 0),
     the keep masks exact, and their times beside the plain versions', their
-    byte bounds and ``F.scaled_dot_product_attention``."""
+    byte bounds and ``F.scaled_dot_product_attention``. ``dtype`` f32: their
+    f32 instances against the f32 plain versions (F32_FWD, F32_GRAD), the
+    bounds at the f32 rate, the yardstick in f32; bf16 when None."""
     import torch
 
     from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
@@ -2112,14 +2132,18 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
         sdpa_forward_reference,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32 = dtype == torch.float32
+    dtype = dtype or torch.bfloat16
+    tag, peak = ("f32", PEAK_F32) if f32 else ("bf16", PEAK_BF16)
+    fwd_tol, bwd_tol = (F32_FWD, F32_GRAD) if f32 else (TRAIN_REL, TRAIN_REL)
+    g = torch.Generator(device="cuda").manual_seed(SEED + (13 if f32 else 5))
     seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
     res = {}
     products = TRAIN_BATCH * 12 * SEQ * SEQ * 64  # multiply-adds of one S x S x hd product a head
-    lib_name = "F.scaled_dot_product_attention (rate 0, head transposes)"
+    lib_name = f"F.scaled_dot_product_attention, {tag} (rate 0, head transposes)"
     for kind, cross, causal in (("self", False, True), ("cross", True, False)):
-        q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, cross, not cross)
-        gr = torch.randn(TRAIN_BATCH, SEQ, 768, device="cuda", generator=g).bfloat16()
+        q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, cross, not cross, dtype)
+        gr = torch.randn(TRAIN_BATCH, SEQ, 768, device="cuda", generator=g).to(dtype)
         args = (q, k, v, mask, seed)
         kw = dict(num_heads=12, causal=causal, rate=0.1)
         with torch.no_grad():
@@ -2129,12 +2153,13 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
             want_f = sdpa_forward_reference(*args, **kw)
             want_b = sdpa_backward_reference(*args, gr, **kw)
             f_err, b_err = _rel_max(out, want_f), _leaf_errors(grads, want_b)
-            print(f"sdpa {kind} ({TRAIN_BATCH},{SEQ},768) bf16, {'causal, ' if causal else ''}"
+            print(f"sdpa {kind} ({TRAIN_BATCH},{SEQ},768) {tag}, {'causal, ' if causal else ''}"
                   f"{'padded mask' if mask is not None else 'no mask'}, dropout 0.1: forward "
-                  f"max rel "
-                  f"{f_err:.3e}, dq/dk/dv max rel {b_err:.3e} (tol {TRAIN_REL})")
-            if not (_finite(out) and f_err <= TRAIN_REL and b_err <= TRAIN_REL):
-                _fail(f"SDPA kernels disagree with their plain versions ({kind})")
+                  f"max rel {f_err:.3e} (tol {fwd_tol}), dq/dk/dv max rel {b_err:.3e} (tol "
+                  f"{bwd_tol})")
+            if not (_finite(out) and out.dtype == dtype and f_err <= fwd_tol
+                    and b_err <= bwd_tol):
+                _fail(f"SDPA kernels disagree with their plain versions ({kind}, {tag})")
             lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
             kf, pf = _paired_ms(lambda: sdpa_forward(*args, cross=cross, **kw),
                                 lambda: sdpa_forward_reference(*args, **kw), 20)
@@ -2142,8 +2167,8 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
                                 lambda: sdpa_backward_reference(*args, gr, **kw), 20)
             lf = _time_ms(lib_fwd, 20)
         lb = _time_ms(lib_bwd, 20)
-        bf = _bound(4 * products, _nbytes(q, k, v, mask, out), PEAK_BF16)
-        bb = _bound(10 * products, _nbytes(q, k, v, mask, gr, grads), PEAK_BF16)
+        bf = _bound(4 * products, _nbytes(q, k, v, mask, out), peak)
+        bb = _bound(10 * products, _nbytes(q, k, v, mask, gr, grads), peak)
         res[f"fwd_{kind}"] = {"max_abs_err": (out.float() - want_f.float()).abs().max().item(),
                               "ms": kf, "plain_ms": pf, "bound": [bf], "library_ms": lf,
                               "library": lib_name}
@@ -2151,7 +2176,7 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
                                                  for a, b in zip(grads, want_b)),
                               "ms": kb, "plain_ms": pb, "bound": [bb], "library_ms": lb,
                               "library": "autograd backward of " + lib_name}
-        print(f"sdpa_forward {kind}: kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
+        print(f"sdpa_forward {tag} {kind}: kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
               f"({bf[1]}), {lib_name} {lf:.4f} ms; sdpa_backward {kind}: kernel {kb:.4f} ms, "
               f"plain {pb:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), its autograd backward "
               f"{lb:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
@@ -2165,7 +2190,7 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
     onehot = torch.zeros(B, SEQ, 768, device="cuda")
     for h in range(12):
         onehot[:, torch.arange(SEQ), h * hd + torch.arange(SEQ)] = 1.0
-    onehot = onehot.bfloat16()
+    onehot = onehot.to(dtype)
     zero = torch.zeros_like(onehot)
     kept = []
     with torch.no_grad():
@@ -2184,13 +2209,13 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
                           f"({'causal' if causal else 'full'})")
                 visible = B * (int(tril.sum()) if causal else SEQ * SEQ)
                 kept.append(keep.sum().item() / visible)
-    print(f"sdpa keep masks equal to the plain masks at batch {B} (heads 0..11, causal and full, "
-          f"forward through ctx and backward through dv); kept shares "
+    print(f"sdpa {tag} keep masks equal to the plain masks at batch {B} (heads 0..11, causal and "
+          f"full, forward through ctx and backward through dv); kept shares "
           f"{min(kept):.4f}..{max(kept):.4f} (rate 0.1)")
     del onehot, zero
 
     # #11 at the bucket-256 serving shape, rate 0 (an encoder layer's self-attention)
-    q, k, v, mask = _sdpa_case(g, BUCKET, False, True)
+    q, k, v, mask = _sdpa_case(g, BUCKET, False, True, dtype)
     with torch.no_grad():
         out = sdpa_forward(q, k, v, mask, None, 12)
         torch.cuda.synchronize()
@@ -2198,17 +2223,19 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
         kf, pf = _paired_ms(lambda: sdpa_forward(q, k, v, mask, None, 12),
                             lambda: sdpa_forward_reference(q, k, v, mask, None, 12))
         lf = _time_ms(_library_sdpa(q, k, v, mask, False)[0])
-    bf = _bound(4 * BUCKET * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, out), PEAK_BF16)
-    print(f"sdpa_forward serving ({BUCKET},{SEQ},768), rate 0: max rel {err:.3e} "
-          f"(tol {TRAIN_REL}); "
+    bf = _bound(4 * BUCKET * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, out), peak)
+    print(f"sdpa_forward {tag} serving ({BUCKET},{SEQ},768), rate 0: max rel {err:.3e} "
+          f"(tol {fwd_tol}); "
           f"kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms ({bf[1]}), {lib_name} "
           f"{lf:.4f} ms")
-    if err > TRAIN_REL:
-        _fail("SDPA forward kernel disagrees with its plain version at the serving shape")
+    if err > fwd_tol:
+        _fail(f"SDPA forward kernel disagrees with its plain version at the serving shape ({tag})")
     res["fwd_serving"] = {"ms": kf, "plain_ms": pf, "bound": [bf], "library_ms": lf}
 
-    # #13 at the training shapes (no caller in either package: this is its path)
-    q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, False, True)
+    # #13 at the training shapes (no caller in either package: this is its path),
+    # sentence 3 fully masked (uniform over every key)
+    q, k, v, mask = _sdpa_case(g, TRAIN_BATCH, False, True, dtype)
+    mask[3] = 0
     with torch.no_grad():
         out = mha_forward(q, k, v, mask, 12)
         torch.cuda.synchronize()
@@ -2217,12 +2244,12 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
         kf, pf = _paired_ms(lambda: mha_forward(q, k, v, mask, 12),
                             lambda: mha_reference(q, k, v, mask, 12), 20)
         lf = _time_ms(_library_sdpa(q, k, v, mask, False)[0], 20)
-    bf = _bound(4 * products, _nbytes(q, k, v, mask, out), PEAK_BF16)
-    print(f"mha_forward (#13) ({TRAIN_BATCH},{SEQ},768) bf16, padded mask: max rel {err:.3e} "
-          f"(tol {TRAIN_REL}); kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
-          f"({bf[1]}), {lib_name} {lf:.4f} ms")
-    if not _finite(out) or err > TRAIN_REL:
-        _fail("MHA kernel #13 disagrees with its plain version")
+    bf = _bound(4 * products, _nbytes(q, k, v, mask, out), peak)
+    print(f"mha_forward (#13) ({TRAIN_BATCH},{SEQ},768) {tag}, padded mask, a fully masked "
+          f"sentence: max rel {err:.3e} (tol {fwd_tol}); kernel {kf:.4f} ms, plain {pf:.4f} ms, "
+          f"bound {bf[0]:.4f} ms ({bf[1]}), {lib_name} {lf:.4f} ms")
+    if not _finite(out) or out.dtype != dtype or err > fwd_tol:
+        _fail(f"MHA kernel #13 disagrees with its plain version ({tag})")
     res["mha"] = {"max_abs_err": (out.float() - want.float()).abs().max().item(), "ms": kf,
                   "plain_ms": pf, "bound": [bf], "library_ms": lf, "library": lib_name}
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2232,9 +2259,11 @@ def phase_sdpa_kernels(names: tuple[str, str]) -> dict:
     counts = _counters()
     want_counts = {c: 0 for c in counts}
     want_counts["mha"] = 1
-    print(f"fused_mha through its autograd at ({TRAIN_BATCH},{SEQ},768): launches {counts}")
+    if f32:
+        want_counts = _as_f32(want_counts)
+    print(f"fused_mha {tag} through its autograd at ({TRAIN_BATCH},{SEQ},768): launches {counts}")
     if counts != want_counts or not all(_finite(t.grad) for t in leaves):
-        _fail(f"fused_mha did not run #13 once with finite gradients: {counts}")
+        _fail(f"fused_mha did not run #13 ({tag}) once with finite gradients: {counts}")
     res["mha_launches"] = counts["mha"]
     del q, k, v, out, want, leaves
     torch.cuda.empty_cache()
@@ -2267,21 +2296,24 @@ class _plain_refused:
     SDPA kernels and of the layer's LayerNorm and column-sum kernels raise:
     on the card the step's update is kernel #14 alone, the per-module
     trunk's attention #11 / #12 alone, and the fused layers' LayerNorms
-    those of ``csrc/layernorm.cu``. With ``default_route``, also those of the
-    layer GEMM, the layer forward and backward, the attention and the CE."""
+    those of ``csrc/layernorm.cu``. With ``default_route`` (an f32 run),
+    also those of the layer GEMM, the layer forward and backward, the
+    attention, the CE and the fused head + CE."""
 
     def __init__(self, default_route: bool = False):
         self.default_route = default_route
 
     def _targets(self):
-        from kindergarten_vq_vae_torch.ops import adam, ce, gemm, layer, sdpa
+        from kindergarten_vq_vae_torch.ops import adam, ce, gemm, head_ce, layer, sdpa
         from kindergarten_vq_vae_torch.train import optim
 
         route = ((gemm, "gemm_reference"), (layer, "layer_forward_reference"),
                  (layer, "layer_backward_reference"), (layer, "bert_layer_reference"),
                  (layer, "attention_forward_reference"), (layer, "attention_backward_reference"),
                  (ce, "ce_fwd_ids_reference"), (ce, "ce_fwd_reference"),
-                 (ce, "ce_bwd_reference")) if self.default_route else ()
+                 (ce, "ce_bwd_reference"), (head_ce, "head_ce_fwd_reference"),
+                 (head_ce, "head_ce_bwd_reference"), (head_ce, "table_grad_reference"),
+                 ) if self.default_route else ()
         return ((optim, "adam_update_reference"), (adam, "adam_update_reference"),
                 (optim.Adam, "update"), (sdpa, "sdpa_forward_reference"),
                 (sdpa, "sdpa_backward_reference"), (layer, "residual_layernorm_reference"),
@@ -2619,8 +2651,9 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
                   f"{torch.equal(logits.argmax(-1), got[0])}; codebook_init.encode_rows over "
                   f"{len(bucket)} sentences: {tuple(z.shape)} {z.dtype}, launches "
                   f"{ {k: v for k, v in enc_counts.items() if v} }")
+            encoder = "sdpa_fwd_self" if fused_layer == "off" else "layer_fwd"
             if not (torch.equal(logits.argmax(-1), got[0]) and z.dtype == torch.float32
-                    and _finite(z) and enc_counts["layer_fwd"] == 12
+                    and _finite(z) and enc_counts[encoder] == 12
                     and enc_counts == _as_f32(enc_counts)):
                 _fail("load_run or the codebook init's encoder failed on the f32 run")
             del model_r, logits, z
@@ -3463,7 +3496,6 @@ def phase_f32(names: tuple[str, str]) -> dict:
         residual_layernorm_reference,
     )
     from kindergarten_vq_vae_torch.train.step import make_train_step, init_train_state
-    from kindergarten_vq_vae_torch.train.variants import make_loss_fn
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3712,46 +3744,20 @@ def phase_f32(names: tuple[str, str]) -> dict:
     model = init_weights(build_model(cfg, device=dev), seeded)
     small = _train_batch(GRAD_BATCH)
 
-    def loss_and_grads(m, c, batch, reference):
-        for p_ in m.parameters():
-            p_.grad = None
-        loss, _ = make_loss_fn(c, "train", reference=reference)(
-            m, batch, torch.Generator(device=dev).manual_seed(SEED + 2), False)
-        loss.backward()
-        return loss.item(), {n_: p_.grad.clone() for n_, p_ in m.named_parameters()
-                             if p_.grad is not None}
+    def default_route(c):  # the fused layers and the logits path's CE
+        return c["layer_fwd"] > 0 and c["ce_fwd_ids"] == 1
 
-    def route_vs_plain(what, m, c, batch):
-        lp, ref = loss_and_grads(m, c, batch, True)
-        with _plain_refused(default_route=True):
-            _reset_counters()
-            lk, got = loss_and_grads(m, c, batch, False)
-            torch.cuda.synchronize()
-            counts = _counters()
-        glob = (sum(((got[n_] - ref[n_]) ** 2).sum().item() for n_ in ref)
-                / sum((ref[n_] ** 2).sum().item() for n_ in ref)) ** 0.5
-        loss_rel = abs(lk - lp) / abs(lp)
-        only_f32 = counts == _as_f32(counts)  # every launch an f32 instance's
-        print(f"f32 {what}: loss {lk:.7f}, plain route {lp:.7f}, rel {loss_rel:.3e} (tol "
-              f"{F32_LOSS_REL}); gradients global rel L2 {glob:.3e} (tol {F32_GRAD}) over "
-              f"{len(ref)} leaves; launches {counts}")
-        if (got.keys() != ref.keys() or not all(_finite(t_) for t_ in got.values())
-                or loss_rel > F32_LOSS_REL or glob > F32_GRAD or not only_f32
-                or counts["layer_fwd"] == 0 or counts["ce_fwd_ids"] != 1):
-            _fail(f"f32 {what}: the kernel route disagrees with the plain route or ran other "
-                  "than the f32 instances")
-        return {"loss_rel": loss_rel, "grad_global_rel_l2": glob, "counts": counts}
-
-    grads = route_vs_plain(f"Shelgon3-VQ at batch {GRAD_BATCH}", model, cfg, small)
+    grads = _f32_route_vs_plain(f"Shelgon3-VQ at batch {GRAD_BATCH}", model, cfg, small,
+                                default_route)
     del model
     torch.cuda.empty_cache()
 
     # (e) Bagon with the GPT-2 decoder, full width at a cut depth, one step
     cfg = _gpt2_cfg(model_name="bagon", compute_dtype="float32", num_layers=F32_GPT2_LAYERS)
     model = init_weights(build_model(cfg, device=dev), seeded.manual_seed(SEED))
-    gpt2 = route_vs_plain(f"Bagon-GPT-2 ({F32_GPT2_LAYERS} + {F32_GPT2_LAYERS} layers, vocabulary "
-                          f"{GPT2_VOCAB}) at batch {GRAD_BATCH}", model, cfg,
-                          _gpt2_batch(GRAD_BATCH))
+    gpt2 = _f32_route_vs_plain(f"Bagon-GPT-2 ({F32_GPT2_LAYERS} + {F32_GPT2_LAYERS} layers, "
+                               f"vocabulary {GPT2_VOCAB}) at batch {GRAD_BATCH}", model, cfg,
+                               _gpt2_batch(GRAD_BATCH), default_route)
     state = init_train_state(cfg, model)
     step = make_train_step(cfg, dev, torch.Generator(device=dev).manual_seed(SEED))
     with _plain_refused(default_route=True):
@@ -3778,6 +3784,258 @@ def phase_f32(names: tuple[str, str]) -> dict:
            for k, v in res.items() if k != "ce_loss_launches"}
     return {**out, "train": tr, "engine": eng, "grads": grads, "gpt2": gpt2,
             "ce_loss_launches": res["ce_loss_launches"], "wall_s": wall}
+
+
+def _f32_route_vs_plain(what: str, m, c, batch, ok) -> dict:
+    """One f32 loss and backward of ``m`` (config ``c``) through the kernels'
+    f32 instances against the plain route's (``reference=True``), from the
+    same weights and generator seed: the loss within F32_LOSS_REL relative,
+    the gradients within F32_GRAD global relative L2, every launch an f32
+    instance's, no plain version on the kernel route, and ``ok(counts)``."""
+    import torch
+
+    from kindergarten_vq_vae_torch.train.variants import make_loss_fn
+
+    def loss_and_grads(reference):
+        for p_ in m.parameters():
+            p_.grad = None
+        loss, _ = make_loss_fn(c, "train", reference=reference)(
+            m, batch, torch.Generator(device="cuda").manual_seed(SEED + 2), False)
+        loss.backward()
+        return loss.item(), {n_: p_.grad.clone() for n_, p_ in m.named_parameters()
+                             if p_.grad is not None}
+
+    lp, ref = loss_and_grads(True)
+    with _plain_refused(default_route=True):
+        _reset_counters()
+        lk, got = loss_and_grads(False)
+        torch.cuda.synchronize()
+        counts = _counters()
+    glob = (sum(((got[n_] - ref[n_]) ** 2).sum().item() for n_ in ref)
+            / sum((ref[n_] ** 2).sum().item() for n_ in ref)) ** 0.5
+    loss_rel = abs(lk - lp) / abs(lp)
+    only_f32 = counts == _as_f32(counts)  # every launch an f32 instance's
+    print(f"f32 {what}: loss {lk:.7f}, plain route {lp:.7f}, rel {loss_rel:.3e} (tol "
+          f"{F32_LOSS_REL}); gradients global rel L2 {glob:.3e} (tol {F32_GRAD}) over "
+          f"{len(ref)} leaves; launches { {k: v for k, v in counts.items() if v} }")
+    if (got.keys() != ref.keys() or not all(_finite(t_) for t_ in got.values())
+            or loss_rel > F32_LOSS_REL or glob > F32_GRAD or not only_f32 or not ok(counts)):
+        _fail(f"f32 {what}: the kernel route disagrees with the plain route or ran other "
+              "than the f32 instances")
+    return {"loss_rel": loss_rel, "grad_global_rel_l2": glob, "counts": counts}
+
+
+def phase_f32_head(names: tuple[str, str]) -> dict:
+    """#9 and #10 (store and flash) and the table gradient in f32 at the
+    step's head shapes (24,576 rows x 768 x 30,522) against their f32 plain
+    versions, timed in turns with them, with their bounds (f32 FMA
+    operations; the 3xTF32 bound printed beside) and library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.head_ce import (
+        head_ce_bwd,
+        head_ce_bwd_reference,
+        head_ce_fwd,
+        head_ce_fwd_reference,
+        table_grad,
+        table_grad_reference,
+    )
+
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows, H, V, dev = TRAIN_BATCH * SEQ, 768, VOCAB, "cuda"
+    x = torch.randn(rows, H, device=dev, generator=g)
+    table = 0.05 * torch.randn(V, H, device=dev, generator=g)
+    bias = 0.1 * torch.randn(V, device=dev, generator=g)
+    t = torch.randint(0, V, (rows,), device=dev, generator=g, dtype=torch.int32)
+    scale = torch.rand(rows, device=dev, generator=g) / rows
+    flops = 2.0 * rows * V * H
+    res = {}
+    with torch.no_grad():
+        fwd = {m: head_ce_fwd(x, table, bias, t, m) for m in HEAD_MODES}
+        torch.cuda.synchronize()
+        nll, lse, ids, logits = fwd["store"]
+        flash_same = all(torch.equal(a, b) for a, b in zip(fwd["store"][:3], fwd["flash"][:3]))
+        nll_p, lse_p, ids_p, logits_p = head_ce_fwd_reference(x, table, bias, t, "store")
+        l_rel, dl = _rel_max(logits, logits_p), (logits - logits_p).abs().max().item()
+        nll_rel = max(_rel_max(nll, nll_p), _rel_max(lse, lse_p))
+        fwd_abs = max((nll - nll_p).abs().max().item(), (lse - lse_p).abs().max().item())
+        top2 = logits_p.topk(2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * dl
+        ids_clear, ids_share = torch.equal(ids[clear], ids_p[clear]), (ids == ids_p).float().mean()
+        ld = logits.stride(0)
+        pad_zero = bool((logits.as_strided((rows, ld), (ld, 1))[:, V:] == 0).all())
+        del top2, logits_p
+        print(f"head_ce_fwd f32 ({rows},{H})x{V}: logits max rel {l_rel:.3e} (tol {F32_FWD}), "
+              f"nll / lse max rel {nll_rel:.3e} (tol {F32_NLL_REL}), ids equal where the plain "
+              f"top-2 gap > 2 dl ({int(clear.sum())} of {rows} rows) {ids_clear}, in all "
+              f"{ids_share.item():.6f}; flash = store bit for bit {flash_same}; logits' rows {ld} "
+              f"wide, pad columns 0 {pad_zero}")
+        if not (l_rel <= F32_FWD and nll_rel <= F32_NLL_REL and ids_clear and flash_same
+                and pad_zero and logits.dtype == torch.float32):
+            _fail("the f32 fused head + CE forward disagrees with its f32 plain version")
+
+        bwd = {m: head_ce_bwd(logits if m == "store" else x, table, bias, t, lse, scale, m)
+               for m in HEAD_MODES}
+        torch.cuda.synchronize()
+        gk, dxk, dbk = bwd["store"]
+        bflash_same = all(torch.equal(a, b) for a, b in zip(bwd["store"], bwd["flash"]))
+        gp, dxp, dbp = head_ce_bwd_reference(logits, table, bias, t, lse, scale, "store")
+        errs = {"g": _rel_max(gk, gp), "dx": _rel_max(dxk, dxp), "dbias": _rel_max(dbk, dbp)}
+        bwd_abs = max((a - b).abs().max().item() for a, b in ((gk, gp), (dxk, dxp), (dbk, dbp)))
+        del gp, dxp
+        ldg = gk.stride(0)
+        pad_zero = bool((gk.as_strided((rows, ldg), (ldg, 1))[:, V:] == 0).all())
+        dt = table_grad(gk, x)
+        torch.cuda.synchronize()
+        dtp = table_grad_reference(gk, x)
+        errs["d_table"], dt_abs = _rel_max(dt, dtp), (dt - dtp).abs().max().item()
+        del dtp
+        print(f"head_ce_bwd f32: rel to the largest, " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {F32_GRAD}); flash = store bit "
+            f"for bit (g, dx, dbias) {bflash_same}; g's rows {ldg} wide, pad columns 0 {pad_zero}")
+        if not (max(errs.values()) <= F32_GRAD and bflash_same and pad_zero
+                and all(a.dtype == torch.float32 for a in (gk, dxk, dbk, dt))):
+            _fail("the f32 fused head + CE backward or the table gradient disagrees with its f32 "
+                  "plain version")
+
+        def lib_fwd():
+            lg = torch.matmul(x, table.t()) + bias
+            return F.cross_entropy(lg, t.long(), reduction="none"), lg.argmax(1)
+
+        lib_fwd_ms = _time_ms(lib_fwd, 3)
+    with torch.enable_grad():  # the library backward: autograd of the same calls
+        xl, bl = x.detach().requires_grad_(), bias.detach().requires_grad_()
+        loss_l = (F.cross_entropy(torch.matmul(xl, table.t()) + bl, t.long(), reduction="none")
+                  * scale).sum()
+        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(loss_l, (xl, bl), retain_graph=True), 3)
+        del loss_l, xl, bl
+    torch.cuda.empty_cache()
+
+    def rate(ms, f=flops):
+        return f"{f / ms / 1e9:.1f} TFLOP/s"
+
+    tf32 = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32: three TF32 products
+    lib_f = "cuBLAS f32 head GEMM (torch.matmul, 'highest') + bias + F.cross_entropy + argmax"
+    with torch.no_grad():
+        for m in HEAD_MODES:
+            saved = logits if m == "store" else x
+            k_ms, p_ms = _paired_ms(lambda m=m: head_ce_fwd(x, table, bias, t, m),
+                                    lambda m=m: head_ce_fwd_reference(x, table, bias, t, m), 3)
+            bound = _bound(flops, _nbytes(x, table, bias, t, fwd[m]), PEAK_F32)
+            res[f"fwd_{m}"] = {"max_abs_err": fwd_abs, "ms": k_ms, "plain_ms": p_ms,
+                               "bound": [bound], "library_ms": lib_fwd_ms, "library": lib_f}
+            print(f"head_ce_fwd f32 {m}: kernel {k_ms:.4f} ms, {rate(k_ms)}, plain {p_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound {tf32:.4f} ms), {lib_f} "
+                  f"{lib_fwd_ms:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
+            n_prod = 2 if m == "flash" else 1
+            k_ms, p_ms = _paired_ms(
+                lambda m=m, saved=saved: head_ce_bwd(saved, table, bias, t, lse, scale, m),
+                lambda m=m, saved=saved: head_ce_bwd_reference(saved, table, bias, t, lse, scale,
+                                                               m), 3)
+            bound = _bound(n_prod * flops, _nbytes(saved, table, bias, t, lse, scale, bwd[m]),
+                           PEAK_F32)
+            res[f"bwd_{m}"] = {"max_abs_err": bwd_abs, "ms": k_ms, "plain_ms": p_ms,
+                               "bound": [bound], "library_ms": lib_bwd_ms,
+                               "library": "autograd backward (x, bias) of " + lib_f}
+            print(f"head_ce_bwd f32 {m}: kernel {k_ms:.4f} ms, {rate(k_ms, n_prod * flops)}, "
+                  f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound "
+                  f"{n_prod * tf32:.4f} ms), its autograd backward {lib_bwd_ms:.4f} ms")
+        k_ms, p_ms = _paired_ms(lambda: table_grad(gk, x), lambda: table_grad_reference(gk, x), 3)
+        lib_ms = _time_ms(lambda: torch.matmul(gk.t(), x), 3)
+        bound = _bound(flops, _nbytes(gk, x, dt), PEAK_F32)
+        res["d_table"] = {"max_abs_err": dt_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+                          "library_ms": lib_ms,
+                          "library": "torch.matmul(g.T, x), f32 'highest'"}
+        print(f"table_grad f32 (the f32 GEMM's TN split-K product): {k_ms:.4f} ms, {rate(k_ms)}, "
+              f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound "
+              f"{tf32:.4f} ms), torch.matmul(g.T, x) f32 {lib_ms:.4f} ms ({names[0]}; "
+              f"nvidia-smi: {names[1]})")
+    del fwd, bwd, logits, gk, dxk, dbk, dt, x, table
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_f32_routes(names: tuple[str, str], f32: dict) -> dict:
+    """The f32 routes that the fused head's and the per-module trunk's f32
+    instances open (phase 15b): (a) those kernels alone (phase_f32_head,
+    and phase_sdpa_kernels in f32: #11 / #12 with their keep masks, #13 and
+    its autograd); (b) F32_STEPS f32 steps each on the store, flash and
+    per-module routes from the default f32 step's weights and generator
+    seed (``f32``: phase_f32's result), the fused head's first loss held to
+    the default route's and the per-module trunk's to its plain route's
+    (its hidden dropout masks come from the generator, not the layers'
+    hash); (c) each route's batch-256 loss and gradients against the f32
+    plain route's; (d) a 1-epoch f32 CLI run with ``fused_head_ce='store'``
+    and one with ``fused_layer='off'``, each served against the plain route."""
+    import dataclasses
+
+    import torch
+
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.train.variants import make_loss_fn
+
+    t_phase = time.perf_counter()
+    res = {"head": phase_f32_head(names), "sdpa": phase_sdpa_kernels(names, torch.float32)}
+
+    # (b) the routes' f32 steps at batch 2048
+    cfg_off = dataclasses.replace(_train_cfg(), compute_dtype="float32", fused_layer="off")
+    model = init_weights(build_model(cfg_off, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(SEED))
+    with torch.no_grad():  # the first step's draws: a generator seeded as the step's
+        plain_off = make_loss_fn(cfg_off, "train", reference=True)(
+            model, _train_batch(TRAIN_BATCH), torch.Generator(device="cuda").manual_seed(SEED),
+            False)[0].item()
+    del model
+    torch.cuda.empty_cache()
+    want = {"store": f32["train"]["losses"][0]["loss_full"], "off": plain_off}
+    want["flash"] = want["store"]
+    tr = {}
+    for route, kw in (("store", dict(head_ce="store")), ("flash", dict(head_ce="flash")),
+                      ("off", dict(fused_layer="off"))):
+        tr[route] = phase_train(names, steps=F32_STEPS, dtype="float32", **kw)
+        first = tr[route]["losses"][0]["loss_full"]
+        rel = abs(first - want[route]) / abs(want[route])
+        print(f"f32 route {route}: first-step loss {first:.7f}, "
+              f"{'plain per-module route' if route == 'off' else 'default f32 route'} "
+              f"{want[route]:.7f}, rel {rel:.3e} (tol {F32_LOSS_REL})")
+        if rel > F32_LOSS_REL:
+            _fail(f"the f32 {route} route's first step is not the loss it should be")
+    print(f"f32 train step by route, batch {TRAIN_BATCH}: default median "
+          f"{f32['train']['median_ms']:.2f} ms, max_memory_allocated "
+          f"{f32['train']['peak_gib']:.2f} GiB; " + "; ".join(
+              f"{r} median {tr[r]['median_ms']:.2f} ms, max_memory_allocated "
+              f"{tr[r]['peak_gib']:.2f} GiB" for r in tr) + f" ({names[0]}; nvidia-smi: "
+          f"{names[1]})")
+
+    # (c) batch-256 loss and gradients against the plain route's
+    small = _train_batch(GRAD_BATCH)
+    grads = {}
+    for route, over, fused_head, ok in (
+            ("store", dict(fused_head_ce="store"), True,
+             lambda c: c["head_ce_fwd"] == c["head_ce_bwd"] == c["table_grad"] == 1
+             and c["ce_fwd_ids"] == 0 and c["layer_fwd"] > 0),
+            ("flash", dict(fused_head_ce="flash"), True,
+             lambda c: c["head_ce_fwd"] == c["head_ce_bwd"] == c["table_grad"] == 1
+             and c["ce_fwd_ids"] == 0 and c["layer_fwd"] > 0),
+            ("off", dict(fused_layer="off"), False,
+             lambda c: c["sdpa_fwd_self"] == c["sdpa_bwd_self"] == 24
+             and c["sdpa_fwd_cross"] == c["sdpa_bwd_cross"] == 12 and c["layer_fwd"] == 0)):
+        cfg = dataclasses.replace(_train_cfg(), compute_dtype="float32", **over)
+        model = init_weights(build_model(cfg, device="cuda", fused_head=fused_head),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        grads[route] = _f32_route_vs_plain(f"Shelgon3-VQ, route {route}, at batch {GRAD_BATCH}",
+                                           model, cfg, small, ok)
+        del model
+        torch.cuda.empty_cache()
+
+    # (d) the CLI runs, served
+    eng = {"store": phase_engine(names, "store", 1, dtype="float32"),
+           "off": phase_engine(names, epochs=1, fused_layer="off", dtype="float32")}
+    wall = time.perf_counter() - t_phase
+    print(f"f32 routes: {wall:.1f} s ({names[0]}; nvidia-smi: {names[1]})")
+    return {**res, "train": tr, "grads": grads, "engine": eng, "wall_s": wall}
 
 
 def main() -> None:
@@ -3830,6 +4088,7 @@ def main() -> None:
     phase_variants(names, tr["auto"]["median_ms"])
     g2 = phase_gpt2(names, tr["auto"]["median_ms"])
     f32 = phase_f32(names)
+    f32r = phase_f32_routes(names, f32)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]
@@ -3927,6 +4186,24 @@ def main() -> None:
         *[row(f"{k} f32 (GPT-2 decoder, vocabulary {GPT2_VOCAB})", "ce.cu",
               f"ce_pallas.py:{line}", f32["gpt2"]["counts"][f"{k}_f32"], f32[f"{k}_gpt2"])
           for k, line in (("ce_fwd_ids", 63), ("ce_bwd", 104))],
+        # the f32 routes: launches from each route's f32 step run (F32_STEPS
+        # steps), #13's from its own autograd run
+        *[row(f"head_ce_fwd f32 ({m})", "gemm_f32.cu", "head_ce_pallas.py:67",
+              f32r["train"][m]["counts"]["head_ce_fwd_f32"], f32r["head"][f"fwd_{m}"])
+          for m in HEAD_MODES],
+        *[row(f"head_ce_bwd f32 ({m})", "head_ce.cu" if m == "store" else "gemm_f32.cu",
+              "head_ce_pallas.py:179", f32r["train"][m]["counts"]["head_ce_bwd_f32"],
+              f32r["head"][f"bwd_{m}"]) for m in HEAD_MODES],
+        row("table_grad f32", "gemm_f32.cu", "head_ce_pallas.py:365",
+            f32r["train"]["store"]["counts"]["table_grad_f32"], f32r["head"]["d_table"]),
+        *[row(f"sdpa_forward f32 ({kind})", "attention_f32.cuh", "sdpa_pallas.py:103",
+              f32r["train"]["off"]["counts"][f"sdpa_fwd_{kind}"], f32r["sdpa"][f"fwd_{kind}"])
+          for kind in ("self", "cross")],
+        *[row(f"sdpa_backward f32 ({kind})", "attention_f32.cuh", "sdpa_pallas.py:142",
+              f32r["train"]["off"]["counts"][f"sdpa_bwd_{kind}"], f32r["sdpa"][f"bwd_{kind}"])
+          for kind in ("self", "cross")],
+        row("mha_forward f32", "attention_f32.cuh", "attention_pallas.py:65",
+            f32r["sdpa"]["mha_launches"], f32r["sdpa"]["mha"]),
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

@@ -27,7 +27,7 @@ def load_run(run_path: str, ckpt_name: str | None = None, device="cuda"):
     """``(cfg, model)`` of a run directory: the model built as
     ``Reconstructor`` builds it (logits head, eval mode) on ``device``, with
     the slot ``ckpt_name`` (the best-val ``loss_recon`` slot by default)
-    loaded strictly. On CUDA an f32 run takes the default route only
+    loaded strictly. On CUDA an f32 run needs full-f32 matrix products
     (``refuse_unported_route``)."""
     cfg = RunConfig.load(os.path.join(run_path, "run_conf.json"))
     device = torch.device(device)

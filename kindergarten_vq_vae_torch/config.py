@@ -15,8 +15,9 @@ TPU implementation rather than a function are read and ignored:
 ``vq_use_fused``, ``remat``, ``rng_impl`` and the tile sizes
 (``sdpa_block_b``, ``layer_block_b_*``, ``layer_attn_chunk*``,
 ``head_ce_block_*``). On CUDA the layers (on either route), the VQ and the
-CE always run as the port's kernels: in bf16 on every route, in f32 on the
-default route only (:func:`refuse_unported_route`). A ``decoder_model_name``
+CE always run as the port's kernels, in bf16 or f32 on every route; an f32
+run on CUDA needs PyTorch's f32 matrix products in full f32
+(:func:`refuse_unported_route`). A ``decoder_model_name``
 holding "gpt" selects the GPT-2 decoder (``nn/gpt2.py``). The fields of a
 device mesh, which the port does not have yet, are carried so the schema
 stays whole; :func:`refuse_unported` raises on them.
@@ -208,24 +209,14 @@ def refuse_unported(cfg: RunConfig) -> None:
 
 
 def refuse_unported_route(cfg: RunConfig, device) -> None:
-    """Raise ``NotImplementedError``, naming ROADMAP §2a, for an f32 run on
-    CUDA on a route whose kernels have no f32 instance yet: ``fused_layer``
-    "off" (the per-module trunk's SDPA kernels #11 / #12) or
-    ``fused_head_ce`` "store" / "flash" (the fused head + CE #9 / #10). The
-    default route (``fused_layer`` "auto" / "on", ``fused_head_ce`` "auto" /
-    "off", a BERT or a GPT-2 decoder) runs its kernels' f32 instances; bf16
-    and the CPU take every route. An f32 run on CUDA also needs PyTorch's f32
-    matrix products in full f32 (the tied head's; TF32 off): it raises
-    ``ValueError`` otherwise. Nothing here touches the device."""
+    """Raise ``ValueError`` for an f32 run on CUDA while PyTorch's f32 matrix
+    products are not full f32 (TF32 on): the products the port leaves to
+    PyTorch (the tied head's on the logits path, the per-module trunk's
+    projections) would then miss f32 parity. Every route's kernels have f32
+    instances, so an f32 run takes any ``fused_layer`` / ``fused_head_ce``,
+    as bf16 and the CPU do. Nothing here touches the device."""
     if torch.device(device).type != "cuda" or cfg.dtype != torch.float32:
         return
-    for field, value in (("fused_layer", "off"), ("fused_head_ce", "store"),
-                         ("fused_head_ce", "flash")):
-        if getattr(cfg, field) == value:
-            raise NotImplementedError(
-                f"compute_dtype='float32' with {field}={value!r} on CUDA: its kernels have no "
-                "f32 instance yet (ROADMAP §2a); f32 runs on CUDA take the default route "
-                "(fused_layer 'auto' or 'on', fused_head_ce 'auto' or 'off')")
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise ValueError("compute_dtype='float32' on CUDA needs f32 matrix products in full f32: "
                          "torch.backends.cuda.matmul.allow_tf32 False and "

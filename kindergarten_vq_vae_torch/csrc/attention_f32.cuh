@@ -1,11 +1,17 @@
 // Per-(sentence, head) attention in f32 for Hopper (sm_90a), forward and
 // backward: the f32 instance of attention.cuh, behind the f32 layer forward
-// (layer_fwd.cu, #1) and the f32 attention backward (layer_bwd.cu, #3 / #4
-// inside #2). It replaces, in f32 (JAX's parity dtype, in which its Pallas
-// kernels run), the attention of kindergarten_vq_vae_tpu/ops/:
+// (layer_fwd.cu, #1), the f32 attention backward (layer_bwd.cu, #3 / #4
+// inside #2) and sdpa.cu's f32 entries. It replaces, in f32 (JAX's parity
+// dtype, in which its Pallas kernels run), the attention of
+// kindergarten_vq_vae_tpu/ops/:
 //   layer_pallas.py:244 `_attn_fwd_tile`, inside `_layer_fwd_kernel` (l.489), #1
 //   layer_pallas.py:696 `_attn_bwd_self_kernel` (#3), l.712
 //     `_attn_bwd_cross_kernel` (#4)
+//   sdpa_pallas.py:103 `_sdpa_fwd_kernel` (#11), l.142 `_sdpa_bwd_kernel` (#12)
+//   attention_pallas.py:65 `_mha_kernel` (#13): WHERE_MASK, where a masked or
+//     causal score is replaced by NEG_INF (l.95-101) and p = e * (1 / z)
+//     (l.113-118), with no dropout (a fully masked row is uniform over its
+//     s_k keys)
 //
 // attention.cuh's products are mma.sync m16n8k16 on bf16 fragments, which
 // have no f32 form. The scores are at most 32 x 32 and head_dim at most 128:
@@ -91,7 +97,9 @@ __device__ __forceinline__ void attf_load(float* dst, const float* src, int src_
 }
 
 // p_ij for lane j = key j of query row i (0 past s_k), before dropout;
-// also its keep factor (1 without dropout)
+// also its keep factor (1 without dropout). WHERE_MASK: #13's masking and
+// p = e * (1 / z).
+template <bool WHERE_MASK>
 __device__ __forceinline__ float attf_prob(const AttF32Args& a, const float* qs, const float* ks,
                                            const int* msk, int b, int h, int i, int lane,
                                            float& kap) {
@@ -102,12 +110,16 @@ __device__ __forceinline__ float attf_prob(const AttF32Args& a, const float* qs,
     float acc = 0.0f;
     for (int d = 0; d < a.hd; ++d) acc = fmaf(qs[i * ld + d], ks[j * ld + d], acc);
     const bool ok = msk[j] > 0 && !(a.causal && j > i);
-    x = acc * a.scale + (ok ? 0.0f : ATTF_NEG_INF);
+    if constexpr (WHERE_MASK)
+      x = ok ? acc * a.scale : ATTF_NEG_INF;
+    else
+      x = acc * a.scale + (ok ? 0.0f : ATTF_NEG_INF);
   }
   const float mx = attf_warp_max(x);
   const float e = key ? expf(x - mx) : 0.0f;
   const float z = warp_sum(e);
   kap = 1.0f;
+  if constexpr (WHERE_MASK) return key ? e * (1.0f / z) : 0.0f;
   if (key && a.drop.on)
     kap = dropout_keep(dropout_row_term(b * a.s_q + i, a.op_base + h, a.drop.seed), j, a.drop);
   return key ? e / z : 0.0f;
@@ -129,7 +141,7 @@ __device__ __forceinline__ void attf_mix(float* out, int out_ld, int rows, const
     }
 }
 
-template <bool BWD>
+template <bool BWD, bool WHERE_MASK>
 __global__ void __launch_bounds__(32 * ATTF_WARPS) attention_f32_kernel(AttF32Args a) {
   extern __shared__ __align__(16) float attf_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -158,7 +170,7 @@ __global__ void __launch_bounds__(32 * ATTF_WARPS) attention_f32_kernel(AttF32Ar
   const int j = lane;
   for (int i = 0; i < a.s_q; ++i) {
     float kap;
-    const float p = attf_prob(a, qs, ks, msk, b, h, i, lane, kap);
+    const float p = attf_prob<WHERE_MASK>(a, qs, ks, msk, b, h, i, lane, kap);
     if constexpr (!BWD) {
       if (j < a.s_k) ps[i * ATTF_PLD + j] = p * kap;
     } else {
@@ -194,7 +206,7 @@ inline bool attention_f32_fits(int s_q, int s_k, int head_dim) {
          head_dim <= ATTF_MAX_HD;
 }
 
-template <bool BWD>
+template <bool BWD, bool WHERE_MASK = false>
 int attf_launch(const AttF32Args& a, cudaStream_t st) {
   const int total = a.batch * a.nh;
   if (total <= 0) return 0;
@@ -202,16 +214,19 @@ int attf_launch(const AttF32Args& a, cudaStream_t st) {
   const int bytes = attf_floats(a.s_q, a.s_k, a.hd, BWD) * 4;
   int nw = ATTF_SMEM_MAX / bytes;
   nw = nw < ATTF_WARPS ? nw : ATTF_WARPS;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_f32_kernel<BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, nw * bytes);
+  auto* kernel = attention_f32_kernel<BWD, WHERE_MASK>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nw * bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  attention_f32_kernel<BWD><<<(total + nw - 1) / nw, 32 * nw, nw * bytes, st>>>(a);
+  kernel<<<(total + nw - 1) / nw, 32 * nw, nw * bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ctx (batch*s_q rows at ctx_ld) = attention of q (rows at q_ld, head h at
 // column h*hd) over k / v (rows at kv_ld), all f32; mask (batch, s_k) int32
-// or null; head h drops with op id op_base + h. Returns a CUDA error code.
+// or null; head h drops with op id op_base + h (WHERE_MASK: #13, no
+// dropout). Returns a CUDA error code.
+template <bool WHERE_MASK = false>
 inline int attention_f32(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                          const int* mask, void* ctx, int ctx_ld, int batch, int nh, int hd,
                          int s_q, int s_k, int causal, DropoutParams drop, int op_base,
@@ -220,7 +235,7 @@ inline int attention_f32(const void* q, int q_ld, const void* k, const void* v, 
                      static_cast<const float*>(v), mask, nullptr, static_cast<float*>(ctx),
                      nullptr, nullptr, q_ld, kv_ld, ctx_ld, 0, batch, nh, hd, s_q, s_k, causal,
                      op_base, 1.0f / sqrtf(static_cast<float>(hd)), drop};
-  return attf_launch<false>(a, st);
+  return attf_launch<false, WHERE_MASK>(a, st);
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention_f32()'s output

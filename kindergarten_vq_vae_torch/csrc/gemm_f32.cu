@@ -9,6 +9,14 @@
 // in the run's compute dtype. Entry point kvq_gemm_f32 (ops/gemm.py `gemm`
 // on f32 tensors); the layer forward (layer_fwd.cu) calls run_gemm.
 //
+// It also carries the f32 instance of the fused MLM head + CE
+// (kindergarten_vq_vae_tpu/ops/head_ce_pallas.py `_fwd_kernel` l.67, #9, and
+// `_bwd_kernel` l.179, #10, in f32, where their casts to x's dtype are
+// identities): run_ce computes the NT product x @ E^T with a CE epilogue,
+// l = acc + b in f32 (l.85), and head_ce.cu's f32 entries add the partials'
+// merge, the store-mode gradient pass, dx = g @ E (NN, K = V) and the table
+// gradient g^T @ x (TN split-K) on run_gemm.
+//
 // Precision: f32 is the parity dtype, so single-pass TF32 (a 10-bit
 // mantissa, ~5e-4 relative a product) is not enough. Each operand is split
 // into a TF32 high part and the TF32 rounding of its remainder, x = big +
@@ -38,8 +46,27 @@
 //   with du's column sums per 128-row tile (rows in a fixed order, then the
 //   tile's two warps, then colparts_reduce over the tiles in order), or a
 //   split-K partial of a weight gradient, summed in a fixed order by
-//   splitk_reduce_kernel. Every sum is the same bits in every run.
+//   splitk_reduce_kernel. Every sum is the same bits in every run;
+// - the CE epilogues (EPI_CE_FWD / EPI_CE_BWD, on the NT product with the
+//   table as B, 128 x 128 tiles: HEAD_TILE_N) reduce each row of the tile
+//   over the thread's 8 columns, then the warp's 4 lanes of the row by
+//   butterflies, then the tile's 4 column warps in order through the spent
+//   stage buffers: per (vocab tile, row) partials (max, sum of exp, target
+//   logit, first argmax; head_ce.cu merges them in vocab-tile order), and
+//   store mode's f32 logits; or g = (exp(l - lse) - onehot) * scale and one
+//   dbias partial per (128-row tile, column), summed as the GELU-gradient
+//   column sums are (each thread's rows in order, a butterfly over g, the
+//   tile's two row warps), which head_ce.cu's store-mode pass repeats to the
+//   bit. Columns at or past V are -inf logits and 0 gradients, written 0 up
+//   to the padded leading dimension; V may be odd.
+//
+// Rows whose extent is not a multiple of 4 (the vocabulary's 30,522 as g's K
+// in dx, or as the table gradient's M) are read on to the next multiple of 4
+// inside their leading dimension: the caller keeps those pad elements zero
+// (g's pad columns are written 0), and the GEMM zero-fills B's rows past K,
+// so they add nothing.
 
+#include <climits>
 #include <cstdint>
 
 #include "gemm_f32.cuh"
@@ -70,6 +97,14 @@ struct Params {
   int ld_aux;
   const float* bias;
   float* colpart;  // (ceil(M / 128), N): du's column sums of each 128-row tile
+  // the CE epilogues: targets (M,); EPI_CE_BWD also lse and scale (M,);
+  // part_f the (3, tiles of N, M) partials (EPI_CE_FWD, with part_i (tiles of
+  // N, M)) or the (ceil(M / 128), N) dbias partials (EPI_CE_BWD)
+  const int* targets;
+  const float* lse;
+  const float* scale;
+  float* part_f;
+  int* part_i;
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -173,6 +208,144 @@ __device__ __forceinline__ void compute_stage(const float* s, float (&acc)[4][4]
   }
 }
 
+// The CE forward epilogue (#9) on the NT product x @ E^T: l = acc + b (N the
+// vocabulary; columns at or past it -inf), and each of the tile's rows
+// reduced to its partial (module comment); store mode (C not null) also
+// writes l at ldc, its pad columns 0.
+__device__ __forceinline__ void ce_fwd_epilogue(const Params& p, const float (&acc)[4][4][4],
+                                                float* smem, int m0, int n0, int wm, int wn,
+                                                int g, int t, int tid) {
+  float* red_f = smem;                                        // [4 wn][TILE_M][3]
+  int* red_i = reinterpret_cast<int*>(smem + 4 * TILE_M * 3);  // [4 wn][TILE_M]
+  float b[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = n0 + wn * 32 + nt * 8 + 2 * t + c;
+      b[nt][c] = col < p.N ? p.bias[col] : 0.0f;
+    }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm * 64 + mt * 16 + g + 8 * h, row = m0 + rl;
+      const bool live = row < p.M;
+      const int tgt = live ? p.targets[row] : -1;
+      float l[4][2], mx = -INFINITY, tv = 0.0f;
+      int first = INT_MAX;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {  // this thread's columns in increasing order
+          const int col = n0 + wn * 32 + nt * 8 + 2 * t + c;
+          l[nt][c] = col < p.N ? acc[mt][nt][2 * h + c] + b[nt][c] : -INFINITY;
+          if (l[nt][c] > mx) mx = l[nt][c], first = col;
+          if (col == tgt && col < p.N) tv = l[nt][c];
+        }
+      // the row's 32 columns of this warp: lanes t = 0..3
+      float wmx = mx;
+      wmx = fmaxf(wmx, __shfl_xor_sync(0xffffffffu, wmx, 1));
+      wmx = fmaxf(wmx, __shfl_xor_sync(0xffffffffu, wmx, 2));
+      int fi = mx == wmx ? first : INT_MAX;
+      fi = min(fi, __shfl_xor_sync(0xffffffffu, fi, 1));
+      fi = min(fi, __shfl_xor_sync(0xffffffffu, fi, 2));
+      float s = 0.0f;
+      if (wmx != -INFINITY)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) s += expf(l[nt][c] - wmx);  // 0 at the -inf columns
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      tv += __shfl_xor_sync(0xffffffffu, tv, 1);  // one lane holds it, or none
+      tv += __shfl_xor_sync(0xffffffffu, tv, 2);
+      if (t == 0) {
+        float* r = red_f + (wn * TILE_M + rl) * 3;
+        r[0] = wmx, r[1] = s, r[2] = tv;
+        red_i[wn * TILE_M + rl] = fi;
+      }
+      if (live && p.C != nullptr)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+          if (col < p.ldc)  // ldc even: both columns inside; past N 0
+            *reinterpret_cast<float2*>(p.C + (size_t)row * p.ldc + col) =
+                make_float2(col < p.N ? l[nt][0] : 0.0f, col + 1 < p.N ? l[nt][1] : 0.0f);
+        }
+    }
+  __syncthreads();
+  if (tid < TILE_M && m0 + tid < p.M) {  // the four column warps in order
+    Part a{red_f[tid * 3], red_f[tid * 3 + 1], red_f[tid * 3 + 2], red_i[tid]};
+#pragma unroll
+    for (int w = 1; w < 4; ++w) {
+      const float* r = red_f + (w * TILE_M + tid) * 3;
+      merge(a, Part{r[0], r[1], r[2], red_i[w * TILE_M + tid]});
+    }
+    const size_t plane = (size_t)gridDim.x * p.M, o = (size_t)blockIdx.x * p.M + m0 + tid;
+    p.part_f[o] = a.m;
+    p.part_f[plane + o] = a.s;
+    p.part_f[2 * plane + o] = a.t;
+    p.part_i[o] = a.i;
+  }
+}
+
+// The CE backward epilogue (#10, flash mode): l recomputed as
+// ce_fwd_epilogue computes it, g = (exp(l - lse) - onehot) * scale (0 at or
+// past N) written at ldc with its pad columns 0, and the tile's dbias partial
+// of each column: this thread's rows in (mt, h) order, the butterfly over g,
+// then the two row warps (head_ce.cu `head_ce_grad_f32_kernel` sums in this
+// order).
+__device__ __forceinline__ void ce_bwd_epilogue(const Params& p, const float (&acc)[4][4][4],
+                                                float* smem, int m0, int n0, int wm, int wn,
+                                                int g, int t, int tid) {
+  float b[4][2], cs[4][2] = {};
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = n0 + wn * 32 + nt * 8 + 2 * t + c;
+      b[nt][c] = col < p.N ? p.bias[col] : 0.0f;
+    }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 64 + mt * 16 + g + 8 * h;
+      if (row >= p.M) continue;
+      const int tgt = p.targets[row];
+      const float lse = p.lse[row], sc = p.scale[row];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+        float gm[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          gm[c] = col + c < p.N
+                      ? ce_grad(acc[mt][nt][2 * h + c] + b[nt][c], lse, col + c == tgt, sc)
+                      : 0.0f;
+          cs[nt][c] += gm[c];
+        }
+        if (col < p.ldc)
+          *reinterpret_cast<float2*>(p.C + (size_t)row * p.ldc + col) = make_float2(gm[0], gm[1]);
+      }
+    }
+  float* red = smem;  // [2][TILE_N]
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = cs[nt][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[wm * TILE_N + wn * 32 + nt * 8 + 2 * t + c] = v;
+    }
+  __syncthreads();
+  if (tid < TILE_N && n0 + tid < p.N)
+    p.part_f[(size_t)blockIdx.y * p.N + n0 + tid] = red[tid] + red[TILE_N + tid];
+}
+
 // grid (tiles of N, tiles of M, splits); blockIdx.z takes rows
 // [z * kchunk, (z + 1) * kchunk) of K.
 template <bool A_T, bool B_T, int EPI>
@@ -208,6 +381,13 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_f32_kernel(Params p) {
 
   // epilogue: thread (g, t) holds rows g, g + 8 of each m16 block, columns
   // 2t, 2t + 1 of each n8 block
+  if constexpr (EPI == EPI_CE_FWD) {
+    ce_fwd_epilogue(p, acc, smem, m0, n0, wm, wn, g, t, tid);
+    return;
+  } else if constexpr (EPI == EPI_CE_BWD) {
+    ce_bwd_epilogue(p, acc, smem, m0, n0, wm, wn, g, t, tid);
+    return;
+  }
   float* C = p.C + (EPI == EPI_PARTIAL ? (size_t)blockIdx.z * p.M * p.N : 0);
   float cs[4][2] = {};  // dgelu: du's sums over this thread's rows, by column
 #pragma unroll
@@ -281,15 +461,18 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
 
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
+int round4(int n) { return (n + 3) / 4 * 4; }
+
 }  // namespace
 
 int run_gemm(int a_t, int b_t, const float* A, int lda, const float* B, int ldb, int M, int N,
              int K, int epi, int splits, int kchunk, float* C, int ldc, float* C2, int ldc2,
              const float* aux, int ld_aux, const float* bias, float* ws, float* colparts,
              float* colsum, cudaStream_t st) {
-  // every 16-byte copy lies wholly inside its row or wholly outside it
+  // every 16-byte copy lies inside its row's leading dimension (past a row's
+  // extent on to the next multiple of 4: zero pads, module comment)
   const int a_row = a_t ? M : K, b_row = b_t ? K : N;
-  const bool shape_ok = M > 0 && N > 0 && K > 0 && a_row % 4 == 0 && b_row % 4 == 0 &&
+  const bool shape_ok = M > 0 && N > 0 && K > 0 && round4(a_row) <= lda && round4(b_row) <= ldb &&
                         lda % 4 == 0 && ldb % 4 == 0 && N % 2 == 0 && ldc % 2 == 0 &&
                         aligned(A, 16) && aligned(B, 16) && aligned(C, 8);
   const bool dgelu = epi == EPI_DGELU_ERF || epi == EPI_DGELU_TANH;
@@ -335,6 +518,23 @@ int run_gemm(int a_t, int b_t, const float* A, int lda, const float* B, int ldb,
   }
   if (e != cudaSuccess || colparts == nullptr) return static_cast<int>(e);
   return static_cast<int>(colparts_reduce(colparts, (M + TILE_M - 1) / TILE_M, N, colsum, st));
+}
+
+int run_ce(int epi, const float* x, const float* table, const float* bias, int rows, int vocab,
+           int hidden, float* C, int ldc, const int* targets, const float* lse, const float* scale,
+           float* part_f, int* part_i, cudaStream_t st) {
+  const bool fwd = epi == EPI_CE_FWD;
+  const bool ok = rows > 0 && vocab > 0 && hidden > 0 && hidden % 4 == 0 && aligned(x, 16) &&
+                  aligned(table, 16) && bias != nullptr && targets != nullptr &&
+                  part_f != nullptr && (fwd ? part_i != nullptr : epi == EPI_CE_BWD) &&
+                  (fwd || (C != nullptr && lse != nullptr && scale != nullptr)) &&
+                  (C == nullptr || (ldc >= vocab && ldc % 2 == 0 && aligned(C, 8)));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{x, table, hidden, hidden, rows, vocab, hidden, hidden, C, ldc, nullptr, 0, nullptr, 0,
+           bias, nullptr, targets, lse, scale, part_f, part_i};
+  const cudaError_t e = fwd ? launch<false, true, EPI_CE_FWD>(p, 1, st)
+                            : launch<false, true, EPI_CE_BWD>(p, 1, st);
+  return static_cast<int>(e);
 }
 
 }  // namespace f32gemm

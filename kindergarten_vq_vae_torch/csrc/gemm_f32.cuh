@@ -17,12 +17,26 @@ constexpr int TILE_M = 128, TILE_N = 128, TILE_K = 32;
 // (EPI_F32, EPI_GELU_*, with an optional bias). C2 receives the pre-GELU u or
 // the du of a dgelu epilogue when not null; colparts (ceil(M / 128), N) and
 // colsum (N,), both or neither (NT with a dgelu epilogue): colsum receives du's
-// column sums. Every row's contiguous extent and leading dimension a multiple
-// of 4, A and B 16-byte aligned, N and ldc even. Returns a cudaError_t code.
+// column sums. Every leading dimension a multiple of 4 and at least a row's
+// contiguous extent rounded up to 4 (the pad elements zero where they meet
+// K: gemm_f32.cu), A and B 16-byte aligned, N and ldc even. Returns a
+// cudaError_t code.
 int run_gemm(int a_t, int b_t, const float* A, int lda, const float* B, int ldb, int M, int N,
              int K, int epi, int splits, int kchunk, float* C, int ldc, float* C2, int ldc2,
              const float* aux, int ld_aux, const float* bias, float* ws, float* colparts,
              float* colsum, cudaStream_t st);
+
+// The fused head + CE's product x (rows, hidden) @ table (vocab, hidden)^T in
+// 3xTF32 with a CE epilogue (gemm_f32.cu), 128 x 128 tiles, any vocab:
+// EPI_CE_FWD writes the partials part_f (3, ceil(vocab / 128), rows) and
+// part_i (ceil(vocab / 128), rows), and, when C is not null, the logits
+// (rows, ldc) (pad columns 0); EPI_CE_BWD writes g = C (rows, ldc) from
+// lse and scale (rows,) and the dbias partials part_f (ceil(rows / 128),
+// vocab). hidden a multiple of 4, x and table 16-byte aligned, ldc even and
+// at least vocab. Returns a cudaError_t code.
+int run_ce(int epi, const float* x, const float* table, const float* bias, int rows, int vocab,
+           int hidden, float* C, int ldc, const int* targets, const float* lse, const float* scale,
+           float* part_f, int* part_i, cudaStream_t st);
 
 }  // namespace f32gemm
 }  // namespace kvq

@@ -41,10 +41,21 @@
 // order, so both modes give the same bits. dx is the GEMM's NN product over
 // g (K = V, its ragged tail read as zeros), the table gradient its TN split-K
 // product.
+//
+// In f32 (JAX's parity dtype: x, the table, the logits and g f32, l = x @ E^T
+// + b with no rounding between the product and the CE) the same functions
+// run on the f32 GEMM (gemm_f32.cu, 3xTF32 on mma.sync): #9 and #10's flash
+// recompute as its NT product with a CE epilogue (run_ce), whose partials
+// head_ce_merge_kernel merges as above; store mode's pass over the f32
+// logits is head_ce_grad_f32_kernel, which sums dbias in the f32 epilogue's
+// order, so flash equals store to the bit here too; dx = g @ E and the table
+// gradient are the f32 GEMM's NN and TN split-K products (run_gemm) over g's
+// padded rows (kvq_head_ce_*_f32 below).
 
 #include <climits>
 #include <cmath>
 
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace kvq {
@@ -72,22 +83,6 @@ __device__ __forceinline__ int tile_row(int w, int step, int group_row) {
   return GROUP_ROWS * (w + HEAD_WARPS * step) + group_row;
 }
 
-// One row's reduction over some columns: max (also the argmax's value), sum
-// of exp(l - max), target logit, and the first column holding the max.
-struct Part {
-  float m, s, t;
-  int i;
-};
-
-// a <- a merged with b; equal maxima keep the lower column
-__device__ __forceinline__ void merge(Part& a, const Part& b) {
-  const float m = fmaxf(a.m, b.m);
-  a.s = m == -INFINITY ? 0.0f : a.s * expf(a.m - m) + b.s * expf(b.m - m);
-  if (b.m > a.m || (b.m == a.m && b.i < a.i)) a.i = b.i;
-  a.m = m;
-  a.t += b.t;
-}
-
 // The logits of a chunk: bf16(bf16(acc) + bf16(b)) from the staged bf16(acc)
 // (add.bf16x2 rounds the exact sum once, as f32 then bf16 would: two bf16
 // values sum exactly in f32 unless their exponents lie 16 or more apart, and
@@ -101,12 +96,6 @@ __device__ __forceinline__ void chunk_logits(const uint4& raw, const __nv_bfloat
     l[2 * jj] = col + 2 * jj < V ? v.x : -INFINITY;
     l[2 * jj + 1] = col + 2 * jj + 1 < V ? v.y : -INFINITY;
   }
-}
-
-// one element of the f32 gradient. The _rn intrinsics keep the compiler from
-// fusing any step into a neighbour, so both #10 kernels round it alike.
-__device__ __forceinline__ float ce_grad(float l, float lse, bool target, float scale) {
-  return __fmul_rn(__fsub_rn(expf(__fsub_rn(l, lse)), target ? 1.0f : 0.0f), scale);
 }
 
 // reductions over a row's ROW_LANES lanes (butterflies: every lane of the
@@ -355,6 +344,70 @@ head_ce_grad_kernel(const bf16* __restrict__ logits, int ldl, const int* __restr
   }
 }
 
+// the f32 store-mode pass: a block a (128-row tile, GRAD_F32_COLS columns),
+// 4 columns (16 bytes) a thread
+constexpr int GRAD_F32_THREADS = 128, GRAD_F32_COLS = 4 * GRAD_F32_THREADS;
+
+// ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)): the sum of the f32 CE
+// epilogue's xor-butterfly over a warp's eight row groups, as lane g = 0 holds it
+__device__ __forceinline__ float butterfly8(const float (&s)[8]) {
+  return ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+}
+
+// #10 in store mode on f32 logits (row stride ldl, a multiple of 8): g (row
+// stride ldg, pad columns 0) and the dbias partials. A column's sum over the
+// tile's rows follows the f32 flash epilogue (gemm_f32.cu ce_bwd_epilogue) to
+// the bit: tile row r = 64 wm + 16 mt + 8 h + g is added to the sum of (wm,
+// g) in (mt, h) order, the eight sums of a wm combine as its butterfly does,
+// and the two wm halves are added last.
+__global__ void __launch_bounds__(GRAD_F32_THREADS)
+head_ce_grad_f32_kernel(const float* __restrict__ logits, int ldl, const int* __restrict__ targets,
+                        const float* __restrict__ lse, const float* __restrict__ scale, int rows,
+                        int V, float* __restrict__ g, int ldg, float* __restrict__ dparts) {
+  __shared__ int s_tgt[TILE_M];
+  __shared__ float s_lse[TILE_M], s_sc[TILE_M];
+  const int m0 = blockIdx.y * TILE_M, c0 = blockIdx.x * GRAD_F32_COLS + 4 * threadIdx.x;
+  for (int r = threadIdx.x; r < TILE_M; r += GRAD_F32_THREADS) {
+    const bool live = m0 + r < rows;
+    s_tgt[r] = live ? targets[m0 + r] : -1;
+    s_lse[r] = live ? lse[m0 + r] : 0.0f;
+    s_sc[r] = live ? scale[m0 + r] : 0.0f;
+  }
+  __syncthreads();
+  if (c0 >= ldg) return;
+  float s[2][8][4] = {};  // (wm, g, column)
+#pragma unroll
+  for (int wm = 0; wm < 2; ++wm)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int gg = 0; gg < 8; ++gg) {
+          const int r = wm * 64 + mt * 16 + 8 * h + gg, row = m0 + r;
+          if (row >= rows) continue;
+          float4 in = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (c0 < V) in = *reinterpret_cast<const float4*>(logits + (size_t)row * ldl + c0);
+          const float l4[4] = {in.x, in.y, in.z, in.w};
+          float gm[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            gm[k] = c0 + k < V ? ce_grad(l4[k], s_lse[r], c0 + k == s_tgt[r], s_sc[r]) : 0.0f;
+            s[wm][gg][k] += gm[k];
+          }
+          *reinterpret_cast<float4*>(g + (size_t)row * ldg + c0) =
+              make_float4(gm[0], gm[1], gm[2], gm[3]);
+        }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (c0 + k >= V) break;
+    float s0[8], s1[8];
+#pragma unroll
+    for (int gg = 0; gg < 8; ++gg) s0[gg] = s[0][gg][k], s1[gg] = s[1][gg][k];
+    dparts[(size_t)blockIdx.y * V + c0 + k] = butterfly8(s0) + butterfly8(s1);
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 int row_tiles(int rows) { return (rows + TILE_M - 1) / TILE_M; }
@@ -476,6 +529,87 @@ int kvq_head_ce_dtable(const void* g, int ldg, const void* x, int rows, int voca
   return run_gemm(1, 1, g, ldg, x, hidden, vocab, hidden, rows, EPI_F32, tile_n, splits, kchunk,
                   out, hidden, nullptr, 0, nullptr, 0, nullptr, static_cast<float*>(ws), sms,
                   static_cast<cudaStream_t>(stream));
+}
+
+// #9 in f32: x (rows, hidden), table (vocab, hidden), bias (vocab,) f32,
+// targets (rows,) int32; hidden a multiple of 4, x and table 16-byte
+// aligned; any vocab. logits (rows, ldl) f32 (ldl a multiple of 8, >=
+// vocab; pad columns written 0) when not null (store mode); parts_f32 (3,
+// ceil(vocab / 128), rows) and parts_i32 (ceil(vocab / 128), rows) scratch;
+// nll, lse (rows,) f32 and ids (rows,) int32 written.
+int kvq_head_ce_fwd_f32(const void* x, const void* table, const void* bias, const int* targets,
+                        int rows, int vocab, int hidden, void* logits, int ldl, void* parts_f32,
+                        void* parts_i32, void* nll, void* lse, void* ids, void* stream) {
+  if (rows <= 0) return 0;
+  if (vocab <= 0 || (logits != nullptr && (ldl % 8 != 0 || ldl < vocab || !aligned16(logits))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(parts_f32);
+  int* pi = static_cast<int*>(parts_i32);
+  const int e = f32gemm::run_ce(EPI_CE_FWD, static_cast<const float*>(x),
+                                static_cast<const float*>(table), static_cast<const float*>(bias),
+                                rows, vocab, hidden, static_cast<float*>(logits), ldl, targets,
+                                nullptr, nullptr, pf, pi, st);
+  if (e != 0) return e;
+  const int tiles = vocab_tiles(vocab);
+  head_ce_merge_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
+      pf, (size_t)tiles * rows, pi, tiles, rows, static_cast<float*>(nll),
+      static_cast<float*>(lse), static_cast<int*>(ids));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #10 in f32. Store mode reads logits (rows, vocab) f32 with row stride ldl
+// (a multiple of 8, 16-byte aligned, pad columns 0); flash mode (logits
+// null) recomputes them from x, table and bias as kvq_head_ce_fwd_f32 does.
+// lse, scale (rows,) f32. Writes g (rows, ldg) f32 (ldg a multiple of 8, >=
+// vocab; pad columns 0), dbias (vocab,) f32 through dparts (ceil(rows / 128),
+// vocab) f32 scratch, and dx = g @ table (rows, hidden) f32 on the f32 GEMM's
+// NN product (K = vocab, g's rows read up to ldg).
+int kvq_head_ce_bwd_f32(const void* x, const void* table, const void* bias, const void* logits,
+                        int ldl, const int* targets, const void* lse, const void* scale, int rows,
+                        int vocab, int hidden, void* g, int ldg, void* dparts, void* dbias,
+                        void* dx, void* stream) {
+  if (rows <= 0) return 0;
+  if (ldg % 8 != 0 || ldg < vocab || vocab <= 0 || !aligned16(g) ||
+      (logits != nullptr && (ldl % 8 != 0 || ldl < vocab || !aligned16(logits))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nr = row_tiles(rows);
+  const float *l = static_cast<const float*>(lse), *sc = static_cast<const float*>(scale);
+  float* dp = static_cast<float*>(dparts);
+  float* gf = static_cast<float*>(g);
+  if (logits == nullptr) {
+    const int e = f32gemm::run_ce(EPI_CE_BWD, static_cast<const float*>(x),
+                                  static_cast<const float*>(table),
+                                  static_cast<const float*>(bias), rows, vocab, hidden, gf, ldg,
+                                  targets, l, sc, dp, nullptr, st);
+    if (e != 0) return e;
+  } else {
+    const dim3 grid((ldg + GRAD_F32_COLS - 1) / GRAD_F32_COLS, nr);
+    head_ce_grad_f32_kernel<<<grid, GRAD_F32_THREADS, 0, st>>>(
+        static_cast<const float*>(logits), ldl, targets, l, sc, rows, vocab, gf, ldg, dp);
+  }
+  splitk_reduce_kernel<<<(vocab + 255) / 256, 256, 0, st>>>(dp, nr, 1, vocab, dbias, vocab, 0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return f32gemm::run_gemm(0, 0, gf, ldg, static_cast<const float*>(table), hidden, rows, hidden,
+                           vocab, EPI_F32, 1, vocab, static_cast<float*>(dx), hidden, nullptr, 0,
+                           nullptr, 0, nullptr, nullptr, nullptr, nullptr, st);
+}
+
+// The table's gradient out (vocab, hidden) f32 = g^T @ x in f32, g (rows,
+// ldg) f32 as kvq_head_ce_bwd_f32 writes it, x (rows, hidden) f32: the f32
+// GEMM's TN product in `splits` chunks of kchunk rows (ops/gemm.py
+// `gemm_f32_plan`) whose partials in ws (splits, vocab, hidden) are summed in
+// a fixed order.
+int kvq_head_ce_dtable_f32(const void* g, int ldg, const void* x, int rows, int vocab,
+                           int hidden, void* out, int splits, int kchunk, void* ws, void* stream) {
+  if (ldg < vocab) return static_cast<int>(cudaErrorInvalidValue);
+  return f32gemm::run_gemm(1, 0, static_cast<const float*>(g), ldg, static_cast<const float*>(x),
+                           hidden, vocab, hidden, rows, EPI_F32, splits, kchunk,
+                           static_cast<float*>(out), hidden, nullptr, 0, nullptr, 0, nullptr,
+                           static_cast<float*>(ws), nullptr, nullptr,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

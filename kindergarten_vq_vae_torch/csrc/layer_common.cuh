@@ -1,12 +1,16 @@
 // Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu),
-// the GEMM (gemm_sm90.cuh), the attention (attention.cuh) and the fused head
-// + CE kernels (head_ce.cu): the GELU of the JAX package (`_gelu_fwd` /
-// `_gelu_grad`, ops/layer_pallas.py:214/221), warp reductions, the GEMM's
-// epilogue codes, the fixed-order split-K sum and cp.async.
+// the GEMMs (gemm_sm90.cuh, gemm_f32.cu), the attention (attention.cuh) and
+// the fused head + CE kernels (head_ce.cu and the f32 GEMM's CE epilogues):
+// the GELU of the JAX package (`_gelu_fwd` / `_gelu_grad`,
+// ops/layer_pallas.py:214/221), warp reductions, the CE's row partials and
+// gradient element, the GEMM's epilogue codes, the fixed-order split-K sum
+// and cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace kvq {
 
@@ -85,6 +89,29 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// ------------------------------------------------ fused head + CE
+// One row's reduction over some columns: max (also the argmax's value), sum
+// of exp(l - max), target logit, and the first column holding the max.
+struct Part {
+  float m, s, t;
+  int i;
+};
+
+// a <- a merged with b; equal maxima keep the lower column
+__device__ __forceinline__ void merge(Part& a, const Part& b) {
+  const float m = fmaxf(a.m, b.m);
+  a.s = m == -INFINITY ? 0.0f : a.s * expf(a.m - m) + b.s * expf(b.m - m);
+  if (b.m > a.m || (b.m == a.m && b.i < a.i)) a.i = b.i;
+  a.m = m;
+  a.t += b.t;
+}
+
+// one element of the f32 gradient. The _rn intrinsics keep the compiler from
+// fusing any step into a neighbour, so every #10 kernel rounds it alike.
+__device__ __forceinline__ float ce_grad(float l, float lse, bool target, float scale) {
+  return __fmul_rn(__fsub_rn(expf(__fsub_rn(l, lse)), target ? 1.0f : 0.0f), scale);
+}
+
 // ---------------------------------------------------- GEMM epilogues
 enum Epilogue {
   EPI_F32 = 0,         // C f32 = acc (+ bias in the forward)
@@ -97,8 +124,9 @@ enum Epilogue {
                        // du's column partials when asked (Args::colpart)
   EPI_DGELU_TANH = 7,
   EPI_PARTIAL = 8,     // split-K partial: C f32 [split] = acc
-  EPI_CE_FWD = 9,      // fused head + CE forward (head_ce.cu): logits, per-tile CE partials
-  EPI_CE_BWD = 10,     // fused head + CE backward (head_ce.cu): g, dbias partials
+  EPI_CE_FWD = 9,      // fused head + CE forward (head_ce.cu, gemm_f32.cu): logits, per-tile
+                       // CE partials
+  EPI_CE_BWD = 10,     // fused head + CE backward (head_ce.cu, gemm_f32.cu): g, dbias partials
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {

@@ -20,8 +20,13 @@
 // dropout_hash.cuh's, keyed on the absolute query row, the key position
 // within the sentence, the head and the seed, as `_dropout_keep_scale`
 // (sdpa_pallas.py:77) keys it.
+//
+// With f32 set (JAX's parity dtype: every operand and output f32) each entry
+// runs attention_f32.cuh instead: FFMA, a warp a (sentence, head), the same
+// keep-mask ids (op base 0), and for #13 its WHERE_MASK instance.
 
 #include "attention.cuh"
+#include "attention_f32.cuh"
 #include "dropout_hash.cuh"
 
 using namespace kvq;
@@ -30,15 +35,20 @@ extern "C" {
 
 // out (batch*s_q rows at out_ld) = attention of q (rows at q_ld) over k / v
 // (rows at kv_ld); key_mask (batch, s_k) int32 or null; dropout from the
-// seed's bits, threshold and scale (a zero threshold switches it off).
+// seed's bits, threshold and scale (a zero threshold switches it off). All
+// f32 when f32, else bf16.
 int kvq_sdpa_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                  const int* key_mask, void* out, int out_ld, int batch, int num_heads,
                  int head_dim, int s_q, int s_k, int causal, unsigned seed, unsigned thresh,
-                 float scale, void* stream) {
+                 float scale, int f32, void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return attention_f32(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads, head_dim,
+                         s_q, s_k, causal, drop, 0, st);
   return attention<false>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads,
-                          head_dim, s_q, s_k, causal, drop, 0, static_cast<cudaStream_t>(stream));
+                          head_dim, s_q, s_k, causal, drop, 0, st);
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of kvq_sdpa_fwd's output,
@@ -46,22 +56,30 @@ int kvq_sdpa_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_l
 int kvq_sdpa_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                  const int* key_mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,
                  int dkv_ld, int batch, int num_heads, int head_dim, int s_q, int s_k,
-                 int causal, unsigned seed, unsigned thresh, float scale, void* stream) {
+                 int causal, unsigned seed, unsigned thresh, float scale, int f32,
+                 void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return attention_f32_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
+                             num_heads, head_dim, s_q, s_k, causal, drop, 0, st);
   return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
-                       num_heads, head_dim, s_q, s_k, causal, drop, 0,
-                       static_cast<cudaStream_t>(stream));
+                       num_heads, head_dim, s_q, s_k, causal, drop, 0, st);
 }
 
 // out = the #13 attention of q over k / v (one sequence length s for both).
 int kvq_mha_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                 const int* key_mask, void* out, int out_ld, int batch, int num_heads,
-                int head_dim, int s, int causal, void* stream) {
+                int head_dim, int s, int causal, int f32, void* stream) {
   if (!attention_fits(s, s, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams off{0u, 0u, 1.0f, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return attention_f32<true>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads,
+                               head_dim, s, s, causal, off, 0, st);
   return attention<true>(q, q_ld, k, v, kv_ld, key_mask, out, out_ld, batch, num_heads, head_dim,
-                         s, s, causal, off, 0, static_cast<cudaStream_t>(stream));
+                         s, s, causal, off, 0, st);
 }
 
 }  // extern "C"

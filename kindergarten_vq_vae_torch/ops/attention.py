@@ -8,7 +8,8 @@ key-validity mask or None and a causal flag. It differs from #11
 ``NEG_INF`` rather than having it added (so a fully masked row is uniform
 over every key), and ``p = e * (1 / z)``. The kernel is ``kvq_mha_fwd`` of
 ``csrc/sdpa.cu``, the WHERE_MASK instance of ``csrc/attention.cuh``'s
-attention kernel.
+attention kernel or, on f32 operands (JAX's parity dtype), of
+``csrc/attention_f32.cuh``'s.
 
 :func:`mha_reference` is ``_mha_reference`` with the kernel's rounding
 points: f32 scores, the softmax in f32, p rounded to q's dtype before
@@ -30,7 +31,7 @@ from kindergarten_vq_vae_torch.ops.layer import NEG_INF, _heads, _merge
 from kindergarten_vq_vae_torch.ops.sdpa import _check_kernel_inputs
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 5
+_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6
 
 
 def mha_reference(q, k, v, mask, num_heads: int, causal: bool = False) -> torch.Tensor:
@@ -50,7 +51,9 @@ def mha_reference(q, k, v, mask, num_heads: int, causal: bool = False) -> torch.
 def mha_forward(q, k, v, mask, num_heads: int, causal: bool = False) -> torch.Tensor:
     """#13, replacing ``_mha_kernel`` (``attention_pallas.py:65``). A CPU
     tensor takes :func:`mha_reference`; a CUDA tensor launches
-    ``kvq_mha_fwd`` (bf16) or raises, adding one to ``mha_forward.launches``."""
+    ``kvq_mha_fwd`` (bf16, or its f32 instance on f32 operands) or raises,
+    adding one to ``mha_forward.launches`` (and an f32 one to
+    ``mha_forward.f32_launches``)."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, mask, num_heads, causal)
     if q.device.type != "cuda":
@@ -60,15 +63,18 @@ def mha_forward(q, k, v, mask, num_heads: int, causal: bool = False) -> torch.Te
                          f"{k.shape[1]}")
     _check_kernel_inputs(q, k, v, mask, num_heads, "mha_forward")
     b, s, H = q.shape
-    out = torch.empty((b, s, H), dtype=torch.bfloat16, device=q.device)
+    f32 = q.dtype == torch.float32
+    out = torch.empty((b, s, H), dtype=q.dtype, device=q.device)
     _build.launch("kvq_mha_fwd", _ARGS, q.data_ptr(), q.stride(1), k.data_ptr(), v.data_ptr(),
                   k.stride(1), None if mask is None else mask.data_ptr(), out.data_ptr(), H, b,
-                  num_heads, H // num_heads, s, int(causal), device=q.device)
+                  num_heads, H // num_heads, s, int(causal), int(f32), device=q.device)
     mha_forward.launches += 1
+    mha_forward.f32_launches += int(f32)
     return out
 
 
 mha_forward.launches = 0
+mha_forward.f32_launches = 0  # the share of ``launches`` on f32 operands
 
 
 class FusedMha(torch.autograd.Function):

@@ -26,6 +26,16 @@ as (rows, V) views. Every product runs on the port's wgmma + TMA GEMM
 its epilogue, at one pinned tile width (:data:`HEAD_TILE_N`) so that both
 see the same logits; ``dx`` and ``d_table`` as its NN and TN split-K
 products, planned by ``ops/gemm.py`` ``gemm_plan``.
+
+f32 operands (JAX's parity dtype: x, the table, the logits and ``g`` f32,
+``l = x @ E^T + b`` with no rounding between the product and the CE) take
+the f32 instances (``kvq_head_ce_*_f32``), on the port's f32 GEMM
+(``csrc/gemm_f32.cu``, 3xTF32): #9 and #10's flash recompute as its NT
+product with a CE epilogue on 128 x 128 tiles, store mode's backward as a
+pass over the f32 logits that sums dbias in the epilogue's order (flash
+equals store to the bit), ``dx`` and ``d_table`` as its NN and TN split-K
+products (planned by ``gemm_f32_plan``) over g's padded rows. Each f32 call
+also adds one to its wrapper's ``f32_launches``.
 """
 
 from __future__ import annotations
@@ -40,7 +50,13 @@ from kindergarten_vq_vae_torch.ops.ce import (
     ce_grad_reference,
     target_logits,
 )
-from kindergarten_vq_vae_torch.ops.gemm import TILE_M, GemmPlan, gemm_plan, sm_count
+from kindergarten_vq_vae_torch.ops.gemm import (
+    TILE_M,
+    GemmPlan,
+    gemm_f32_plan,
+    gemm_plan,
+    sm_count,
+)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 MODES = ("store", "flash")
@@ -48,6 +64,7 @@ MODES = ("store", "flash")
 # #10's flash recompute must cut the logits alike
 HEAD_TILE_N = 128
 LD_ALIGN = 8  # the stored logits' and g's leading dimension: V rounded up to this
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def padded_ld(v: int) -> int:
@@ -72,9 +89,10 @@ def dx_plan(rows: int, h: int, v: int, sms: int) -> GemmPlan:
     return gemm_plan(rows, h, v, False, sms, "bf16")
 
 
-def dtable_plan(v: int, h: int, rows: int, sms: int) -> GemmPlan:
-    """The plan of ``d_table = g^T @ x`` (TN, split-K over the rows, f32 out)."""
-    return gemm_plan(v, h, rows, True, sms)
+def dtable_plan(v: int, h: int, rows: int, sms: int, f32: bool = False) -> GemmPlan:
+    """The plan of ``d_table = g^T @ x`` (TN, split-K over the rows, f32 out),
+    on the bf16 GEMM or, with ``f32``, on the f32 one."""
+    return gemm_f32_plan(v, h, rows, sms) if f32 else gemm_plan(v, h, rows, True, sms)
 
 
 def _logits_reference(x2, table_c, bias):
@@ -111,10 +129,17 @@ def _check_mode(mode):
         raise ValueError(f"fused head + CE mode {mode!r}: expected one of {MODES}")
 
 
-def _check_head(table_c, bias, targets, rows, dev):
+def _check_dtype(x2) -> torch.dtype:
+    """The compute dtype of the kernels' call: x's, bf16 or f32."""
+    if x2.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"x has dtype {x2.dtype}, expected torch.bfloat16 or torch.float32")
+    return x2.dtype
+
+
+def _check_head(table_c, bias, targets, rows, dev, dtype):
     """Check the operands both kernels take; return (V, H)."""
     v, h = table_c.shape
-    _build.check_tensor("table", table_c, (v, h), torch.bfloat16, dev)
+    _build.check_tensor("table", table_c, (v, h), dtype, dev)
     _build.check_tensor("bias", bias, (v,), torch.float32, dev)
     _build.check_tensor("targets", targets, (rows,), torch.int32, dev)
     if h % 8:
@@ -122,13 +147,13 @@ def _check_head(table_c, bias, targets, rows, dev):
     return v, h
 
 
-def _check_logits(logits, rows, v, dev):
-    """Check the store-mode logits #10 reads: bf16 (rows, V) with unit column
-    stride and rows a multiple of 8 elements apart, 16-byte aligned."""
+def _check_logits(logits, rows, v, dev, dtype):
+    """Check the store-mode logits #10 reads: ``dtype`` (rows, V) with unit
+    column stride and rows a multiple of 8 elements apart, 16-byte aligned."""
     if logits.device != dev:
         raise ValueError(f"logits is on {logits.device}, expected {dev}")
-    if logits.dtype != torch.bfloat16:
-        raise TypeError(f"logits has dtype {logits.dtype}, expected torch.bfloat16")
+    if logits.dtype != dtype:
+        raise TypeError(f"logits has dtype {logits.dtype}, expected {dtype}")
     if tuple(logits.shape) != (rows, v):
         raise ValueError(f"logits has shape {tuple(logits.shape)}, expected {(rows, v)}")
     ld = logits.stride(0)
@@ -138,110 +163,134 @@ def _check_logits(logits, rows, v, dev):
 
 
 def head_ce_fwd(x2, table_c, bias, targets, mode: str):
-    """#9: (nll, lse, ids, logits or None) of (rows, H) bf16 x, the (V, H)
-    bf16 table, the (V,) f32 bias and (rows,) int32 targets. A CPU tensor
-    takes :func:`head_ce_fwd_reference`; a CUDA tensor launches
-    ``kvq_head_ce_fwd`` or raises, and each call adds one to
-    ``head_ce_fwd.launches``. The store-mode logits are a (rows, V) view of
-    a buffer whose rows are :func:`padded_ld` wide."""
+    """#9: (nll, lse, ids, logits or None) of (rows, H) x, the (V, H) table
+    in x's dtype (bf16 or f32), the (V,) f32 bias and (rows,) int32 targets.
+    A CPU tensor takes :func:`head_ce_fwd_reference`; a CUDA tensor launches
+    ``kvq_head_ce_fwd`` (or ``kvq_head_ce_fwd_f32``) or raises, and each
+    call adds one to ``head_ce_fwd.launches`` (and an f32 one to
+    ``head_ce_fwd.f32_launches``). The store-mode logits, in x's dtype, are a
+    (rows, V) view of a buffer whose rows are :func:`padded_ld` wide."""
     _check_mode(mode)
     if x2.device.type == "cpu":
         return head_ce_fwd_reference(x2, table_c, bias, targets, mode)
-    rows, dev = x2.shape[0], x2.device
-    v, h = _check_head(table_c, bias, targets, rows, dev)
-    _build.check_tensor("x", x2, (rows, h), torch.bfloat16, dev)
+    rows, dev, dtype = x2.shape[0], x2.device, _check_dtype(x2)
+    v, h = _check_head(table_c, bias, targets, rows, dev, dtype)
+    _build.check_tensor("x", x2, (rows, h), dtype, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     pf_shape, pi_shape = fwd_partials_shapes(rows, v)
     parts_f32 = torch.empty(pf_shape, **f32)
     parts_i32 = torch.empty(pi_shape, dtype=torch.int32, device=dev)
     ldl = padded_ld(v)
-    logits = (torch.empty((rows, ldl), dtype=torch.bfloat16, device=dev) if mode == "store"
-              else None)
+    logits = torch.empty((rows, ldl), dtype=dtype, device=dev) if mode == "store" else None
     nll, lse = torch.empty((rows,), **f32), torch.empty((rows,), **f32)
     ids = torch.empty((rows,), dtype=torch.int32, device=dev)
-    _build.launch("kvq_head_ce_fwd", [_VP] * 4 + [_I] * 3 + [_VP, _I, _I] + [_VP] * 5 + [_I],
-                  x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(), targets.data_ptr(), rows, v,
-                  h, None if logits is None else logits.data_ptr(), ldl, HEAD_TILE_N,
-                  parts_f32.data_ptr(), parts_i32.data_ptr(), nll.data_ptr(), lse.data_ptr(),
-                  ids.data_ptr(), sm_count(dev), device=dev)
+    ptrs = (x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(), targets.data_ptr(), rows, v, h,
+            None if logits is None else logits.data_ptr(), ldl)
+    outs = (parts_f32.data_ptr(), parts_i32.data_ptr(), nll.data_ptr(), lse.data_ptr(),
+            ids.data_ptr())
+    if dtype == torch.float32:
+        _build.launch("kvq_head_ce_fwd_f32", [_VP] * 4 + [_I] * 3 + [_VP, _I] + [_VP] * 5,
+                      *ptrs, *outs, device=dev)
+        head_ce_fwd.f32_launches += 1
+    else:
+        _build.launch("kvq_head_ce_fwd", [_VP] * 4 + [_I] * 3 + [_VP, _I, _I] + [_VP] * 5 + [_I],
+                      *ptrs, HEAD_TILE_N, *outs, sm_count(dev), device=dev)
     head_ce_fwd.launches += 1
     return nll, lse, ids, None if logits is None else logits[:, :v]
 
 
 head_ce_fwd.launches = 0
+head_ce_fwd.f32_launches = 0  # the share of ``launches`` on f32 operands
 
 
 def head_ce_bwd(saved, table_c, bias, targets, lse, scale, mode: str):
     """#10: (g, dx, dbias) as :func:`head_ce_bwd_reference`; ``saved`` is the
-    stored logits (``"store"``) or x (``"flash"``). A CPU tensor takes the
-    plain version; a CUDA tensor launches ``kvq_head_ce_bwd`` (g and the
-    dbias partials, their sum, and the dx GEMM) or raises, and each call adds
-    one to ``head_ce_bwd.launches``. Store mode takes the logits as
+    stored logits (``"store"``) or x (``"flash"``), in the table's dtype (bf16
+    or f32). A CPU tensor takes the plain version; a CUDA tensor launches
+    ``kvq_head_ce_bwd`` or ``kvq_head_ce_bwd_f32`` (g and the dbias
+    partials, their sum, and the dx GEMM) or raises, and each call adds one
+    to ``head_ce_bwd.launches`` (and an f32 one to
+    ``head_ce_bwd.f32_launches``). Store mode takes the logits as
     :func:`head_ce_fwd` returns them (rows a multiple of 8 elements apart).
     ``g`` is a (rows, V) view of a buffer whose rows are :func:`padded_ld`
-    wide."""
+    wide, its pad columns 0."""
     _check_mode(mode)
     if saved.device.type == "cpu":
         return head_ce_bwd_reference(saved, table_c, bias, targets, lse, scale, mode)
-    rows, dev = saved.shape[0], saved.device
-    v, h = _check_head(table_c, bias, targets, rows, dev)
+    rows, dev, dtype = saved.shape[0], saved.device, _check_dtype(table_c)
+    v, h = _check_head(table_c, bias, targets, rows, dev, dtype)
     x2 = saved if mode == "flash" else None
     logits = saved if mode == "store" else None
     if x2 is not None:
-        _build.check_tensor("x", x2, (rows, h), torch.bfloat16, dev)
+        _build.check_tensor("x", x2, (rows, h), dtype, dev)
         ldl = 0
     else:
-        _check_logits(logits, rows, v, dev)
+        _check_logits(logits, rows, v, dev, dtype)
         ldl = logits.stride(0)
     for name, t in (("lse", lse), ("scale", scale)):
         _build.check_tensor(name, t, (rows,), torch.float32, dev)
     ldg, sms = padded_ld(v), sm_count(dev)
-    plan = dx_plan(rows, h, v, sms)
-    g = torch.empty((rows, ldg), dtype=torch.bfloat16, device=dev)
+    g = torch.empty((rows, ldg), dtype=dtype, device=dev)
     dparts = torch.empty(dbias_partials_shape(rows, v), dtype=torch.float32, device=dev)
     dbias = torch.empty((v,), dtype=torch.float32, device=dev)
-    dx = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
-    _build.launch("kvq_head_ce_bwd", [_VP] * 4 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP, _I]
-                  + [_VP] * 3 + [_I] * 3,
-                  None if x2 is None else x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(),
-                  None if logits is None else logits.data_ptr(), ldl, targets.data_ptr(),
-                  lse.data_ptr(), scale.data_ptr(), rows, v, h, HEAD_TILE_N, g.data_ptr(), ldg,
-                  dparts.data_ptr(), dbias.data_ptr(), dx.data_ptr(), plan.tile_n, plan.kchunk,
-                  sms, device=dev)
+    dx = torch.empty((rows, h), dtype=dtype, device=dev)
+    ptrs = (None if x2 is None else x2.data_ptr(), table_c.data_ptr(), bias.data_ptr(),
+            None if logits is None else logits.data_ptr(), ldl, targets.data_ptr(),
+            lse.data_ptr(), scale.data_ptr(), rows, v, h)
+    outs = (g.data_ptr(), ldg, dparts.data_ptr(), dbias.data_ptr(), dx.data_ptr())
+    if dtype == torch.float32:
+        _build.launch("kvq_head_ce_bwd_f32", [_VP] * 4 + [_I] + [_VP] * 3 + [_I] * 3 + [_VP, _I]
+                      + [_VP] * 3, *ptrs, *outs, device=dev)
+        head_ce_bwd.f32_launches += 1
+    else:
+        plan = dx_plan(rows, h, v, sms)
+        _build.launch("kvq_head_ce_bwd", [_VP] * 4 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP, _I]
+                      + [_VP] * 3 + [_I] * 3, *ptrs, HEAD_TILE_N, *outs, plan.tile_n,
+                      plan.kchunk, sms, device=dev)
     head_ce_bwd.launches += 1
     return g[:, :v], dx, dbias
 
 
 head_ce_bwd.launches = 0
+head_ce_bwd.f32_launches = 0
 
 
 def table_grad(g, x2) -> torch.Tensor:
     """``d_table = g^T @ x`` (V, H) in f32. A CPU tensor takes
     :func:`table_grad_reference`; a CUDA tensor launches the GEMM's TN
-    split-K product (``kvq_head_ce_dtable``) over ``g`` as
-    :func:`head_ce_bwd` returns it, or raises, and each call adds one to
-    ``table_grad.launches``."""
+    split-K product (``kvq_head_ce_dtable``, or ``kvq_head_ce_dtable_f32``
+    on f32 operands) over ``g`` as :func:`head_ce_bwd` returns it, or raises,
+    and each call adds one to ``table_grad.launches`` (and an f32 one to
+    ``table_grad.f32_launches``)."""
     if g.device.type == "cpu":
         return table_grad_reference(g, x2)
     rows, v = g.shape
     h = x2.shape[1]
     ldg = g.stride(0)
-    if (g.dtype != torch.bfloat16 or g.stride(1) != 1 or ldg % LD_ALIGN or g.data_ptr() % 16):
-        raise ValueError("table_grad takes g as head_ce_bwd returns it: bf16 rows of a width "
-                         "that is a multiple of 8, 16-byte aligned")
-    _build.check_tensor("x", x2, (rows, h), torch.bfloat16, g.device)
-    sms = sm_count(g.device)
-    plan = dtable_plan(v, h, rows, sms)
+    if (g.dtype not in KERNEL_DTYPES or g.stride(1) != 1 or ldg % LD_ALIGN or ldg < v
+            or g.data_ptr() % 16):
+        raise ValueError("table_grad takes g as head_ce_bwd returns it: bf16 or f32 rows of a "
+                         "width that is a multiple of 8, 16-byte aligned")
+    _build.check_tensor("x", x2, (rows, h), g.dtype, g.device)
+    f32, sms = g.dtype == torch.float32, sm_count(g.device)
+    plan = dtable_plan(v, h, rows, sms, f32)
     out = torch.empty((v, h), dtype=torch.float32, device=g.device)
     ws = torch.empty((plan.splits, v, h), dtype=torch.float32, device=g.device)
-    _build.launch("kvq_head_ce_dtable", [_VP, _I, _VP] + [_I] * 3 + [_VP] + [_I] * 3 + [_VP, _I],
-                  g.data_ptr(), ldg, x2.data_ptr(), rows, v, h, out.data_ptr(), plan.tile_n,
-                  plan.splits, plan.kchunk, ws.data_ptr(), sms, device=g.device)
+    if f32:
+        _build.launch("kvq_head_ce_dtable_f32", [_VP, _I, _VP] + [_I] * 3 + [_VP, _I, _I, _VP],
+                      g.data_ptr(), ldg, x2.data_ptr(), rows, v, h, out.data_ptr(), plan.splits,
+                      plan.kchunk, ws.data_ptr(), device=g.device)
+        table_grad.f32_launches += 1
+    else:
+        _build.launch("kvq_head_ce_dtable", [_VP, _I, _VP] + [_I] * 3 + [_VP] + [_I] * 3
+                      + [_VP, _I], g.data_ptr(), ldg, x2.data_ptr(), rows, v, h, out.data_ptr(),
+                      plan.tile_n, plan.splits, plan.kchunk, ws.data_ptr(), sms, device=g.device)
     table_grad.launches += 1
     return out
 
 
 table_grad.launches = 0
+table_grad.f32_launches = 0
 
 
 class FusedHeadCE(torch.autograd.Function):

@@ -7,7 +7,9 @@ H), k and v (B, S_k, H) to the context (B, S_q, H) in q's dtype, with a
 probabilities keyed on one int32 seed per call (op id = the head, as
 ``_dropout_keep_scale`` l.77 keys it). The kernels are ``kvq_sdpa_fwd`` /
 ``kvq_sdpa_bwd`` of ``csrc/sdpa.cu``, over the attention device code the
-fused layer uses (``csrc/attention.cuh``).
+fused layer uses (``csrc/attention.cuh``) in bf16 and, on f32 operands
+(JAX's parity dtype, in which ``_sdpa_fwd_kernel`` computes too), over its
+f32 instance (``csrc/attention_f32.cuh``: FFMA, the same keep masks).
 
 :func:`sdpa_forward_reference` and :func:`sdpa_backward_reference` are the
 same functions in plain PyTorch, at the kernels' rounding points (those of
@@ -34,8 +36,9 @@ from kindergarten_vq_vae_torch.ops.dropout import keep_scale, keep_threshold, se
 from kindergarten_vq_vae_torch.ops.layer import MAX_HEAD_DIM, MAX_SEQ, _attention, attention_grads
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F]
-_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F]
+_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
+_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def sdpa_forward_reference(q, k, v, mask, seed, num_heads: int, causal: bool = False,
@@ -64,7 +67,8 @@ def _rows_even(t: torch.Tensor) -> bool:
 
 
 def _check_kernel_inputs(q, k, v, mask, num_heads: int, what: str) -> None:
-    """Raise unless the kernels can read q, k, v and the mask as given."""
+    """Raise unless the kernels can read q, k, v and the mask as given: all
+    three bf16 or all three f32."""
     dev = q.device
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"{what}: q (B, S_q, H), k and v (B, S_k, H), got {tuple(q.shape)}, "
@@ -76,11 +80,13 @@ def _check_kernel_inputs(q, k, v, mask, num_heads: int, what: str) -> None:
     lengths_ok = 1 <= min(sq, sk) <= max(sq, sk) <= MAX_SEQ
     if H % num_heads or H // num_heads > MAX_HEAD_DIM or not lengths_ok:
         raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} and sequences of 1..{MAX_SEQ}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, expected torch.bfloat16 or torch.float32")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected torch.bfloat16")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected q's {q.dtype}")
     if mask is not None:
         _build.check_tensor("mask", mask, (b, sk), torch.int32, dev)
     # the kernels read rows at a stride, and k and v at one stride
@@ -93,8 +99,9 @@ def sdpa_forward(q, k, v, mask, seed, num_heads: int, causal: bool = False, rate
                  cross: bool = False) -> torch.Tensor:
     """#11, replacing ``_sdpa_fwd_kernel`` (``sdpa_pallas.py:103``). A CPU
     tensor takes :func:`sdpa_forward_reference`; a CUDA tensor launches
-    ``kvq_sdpa_fwd`` (bf16) or raises. Each launch adds one to
-    ``sdpa_forward.launches`` and, with ``cross`` (the trunk's
+    ``kvq_sdpa_fwd`` (bf16, or its f32 instance on f32 operands) or raises.
+    Each launch adds one to ``sdpa_forward.launches``, on f32 operands to
+    ``sdpa_forward.f32_launches`` and, with ``cross`` (the trunk's
     cross-attention: shapes cannot tell it apart), to
     ``sdpa_forward.cross_launches``."""
     _check_rate(rate, seed)
@@ -104,17 +111,21 @@ def sdpa_forward(q, k, v, mask, seed, num_heads: int, causal: bool = False, rate
         raise ValueError(f"sdpa_forward runs on CPU or CUDA tensors, got {q.device}")
     _check_kernel_inputs(q, k, v, mask, num_heads, "sdpa_forward")
     b, sq, H = q.shape
-    out = torch.empty((b, sq, H), dtype=torch.bfloat16, device=q.device)
+    f32 = q.dtype == torch.float32
+    out = torch.empty((b, sq, H), dtype=q.dtype, device=q.device)
     _build.launch("kvq_sdpa_fwd", _FWD_ARGS, q.data_ptr(), q.stride(1), k.data_ptr(),
                   v.data_ptr(), k.stride(1), None if mask is None else mask.data_ptr(),
                   out.data_ptr(), H, b, num_heads, H // num_heads, sq, k.shape[1], int(causal),
-                  seed_u32(seed or 0), keep_threshold(rate), keep_scale(rate), device=q.device)
+                  seed_u32(seed or 0), keep_threshold(rate), keep_scale(rate), int(f32),
+                  device=q.device)
     sdpa_forward.launches += 1
+    sdpa_forward.f32_launches += int(f32)
     sdpa_forward.cross_launches += int(cross)
     return out
 
 
 sdpa_forward.launches = 0
+sdpa_forward.f32_launches = 0  # the share of ``launches`` on f32 operands
 sdpa_forward.cross_launches = 0  # the cross-attention share of ``launches``
 
 
@@ -123,7 +134,8 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     """#12, replacing ``_sdpa_bwd_kernel`` (``sdpa_pallas.py:142``):
     (dq, dk, dv) in q's dtype. A CPU tensor takes
     :func:`sdpa_backward_reference`; a CUDA tensor launches ``kvq_sdpa_bwd``
-    (bf16) or raises, counted as :func:`sdpa_forward` counts."""
+    (bf16, or its f32 instance) or raises, counted as :func:`sdpa_forward`
+    counts."""
     _check_rate(rate, seed)
     if q.device.type == "cpu":
         return sdpa_backward_reference(q, k, v, mask, seed, g, num_heads, causal, rate)
@@ -133,20 +145,23 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     b, sq, H = q.shape
     sk = k.shape[1]
     g = g.contiguous()
-    _build.check_tensor("g", g, (b, sq, H), torch.bfloat16, q.device)
-    dq = torch.empty((b, sq, H), dtype=torch.bfloat16, device=q.device)
-    dk, dv = (torch.empty((b, sk, H), dtype=torch.bfloat16, device=q.device) for _ in range(2))
+    _build.check_tensor("g", g, (b, sq, H), q.dtype, q.device)
+    f32 = q.dtype == torch.float32
+    dq = torch.empty((b, sq, H), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, sk, H), dtype=q.dtype, device=q.device) for _ in range(2))
     _build.launch("kvq_sdpa_bwd", _BWD_ARGS, q.data_ptr(), q.stride(1), k.data_ptr(),
                   v.data_ptr(), k.stride(1), None if mask is None else mask.data_ptr(),
                   g.data_ptr(), dq.data_ptr(), H, dk.data_ptr(), dv.data_ptr(), H, b, num_heads,
                   H // num_heads, sq, sk, int(causal), seed_u32(seed or 0), keep_threshold(rate),
-                  keep_scale(rate), device=q.device)
+                  keep_scale(rate), int(f32), device=q.device)
     sdpa_backward.launches += 1
+    sdpa_backward.f32_launches += int(f32)
     sdpa_backward.cross_launches += int(cross)
     return dq, dk, dv
 
 
 sdpa_backward.launches = 0
+sdpa_backward.f32_launches = 0
 sdpa_backward.cross_launches = 0
 
 

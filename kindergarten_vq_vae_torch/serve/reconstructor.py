@@ -16,8 +16,9 @@ same ids and mask on both sides, Shelgon3 with ``is_training`` off (the
 Gumbel quantizer hard), Shelgon2 its two arguments. The Gumbel noise of
 Shelgon, Shelgon2 and Shelgon3-Gumbel comes from a generator seeded 0 on
 each forward, the counterpart of JAX's ``key(0)``. On CUDA every layer and
-the VQ bottleneck run as the package's kernels, in bf16 or, on the default
-route, f32 (``config.refuse_unported_route``).
+the VQ bottleneck run as the package's kernels, in bf16 or f32, on either
+trunk (an f32 run needs full-f32 matrix products:
+``config.refuse_unported_route``).
 
 A run with the GPT-2 decoder is served as JAX serves it: the encoder's ids
 feed the decoder too, and the argmax is decoded with the run's encoder

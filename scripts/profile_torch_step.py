@@ -57,6 +57,7 @@ FAMILIES = (
     ("head_ce_merge_kernel", "fused head + CE forward (#9: merge)"),
     ("gemm_kernel<128, false, false, 10>", "fused head + CE backward (#10: g, dbias partials)"),
     ("head_ce_grad_kernel", "fused head + CE backward (#10: g, dbias partials)"),
+    ("head_ce_grad_f32_kernel", "fused head + CE backward (#10: g, dbias partials)"),
     ("sm90::gemm_kernel<128, false, true", "layer GEMM, forward (wgmma)"),
     ("sm90::gemm_kernel<192, false, true", "layer GEMM, forward (wgmma)"),
     ("sm90::gemm_kernel<128, false, false", "layer GEMM, dgrad (wgmma)"),
@@ -65,13 +66,16 @@ FAMILIES = (
     ("sm90::gemm_kernel<256, true, true", "layer GEMM, wgrad split-K partials (wgmma)"),
     ("splitk_reduce", "split-K sums (layer wgrad)"),
     ("sm90::", "layer GEMM, other (wgmma)"),
-    # csrc/gemm_f32.cu: gemm_f32_kernel<A_T, B_T, EPI>
+    # csrc/gemm_f32.cu: gemm_f32_kernel<A_T, B_T, EPI>; the fused head's f32 CE
+    # epilogues (EPI_CE_FWD 9, EPI_CE_BWD 10)
+    ("gemm_f32_kernel<false, true, 9>", "fused head + CE forward (#9: GEMM + CE epilogue)"),
+    ("gemm_f32_kernel<false, true, 10>", "fused head + CE backward (#10: g, dbias partials)"),
     ("gemm_f32_kernel<false, false", "layer GEMM f32, forward (3xTF32)"),
     ("gemm_f32_kernel<false, true", "layer GEMM f32, dgrad (3xTF32)"),
     ("gemm_f32_kernel<true, false", "layer GEMM f32, wgrad split-K partials (3xTF32)"),
-    # csrc/attention_f32.cuh: attention_f32_kernel<BWD>
-    ("attention_f32_kernel<true>", "attention backward f32 (#3 / #4 in #2)"),
-    ("attention_f32_kernel<false>", "attention forward f32 (in #1)"),
+    # csrc/attention_f32.cuh: attention_f32_kernel<BWD, WHERE_MASK>
+    ("attention_f32_kernel<true", "attention backward f32 (#3 / #4 in #2, or #12)"),
+    ("attention_f32_kernel<false", "attention forward f32 (in #1, or #11 / #13)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
     ("attention_kernel", "attention forward (in #1, or #11 / #13)"),
@@ -93,16 +97,22 @@ FAMILIES = (
 
 OTHER = "torch elementwise / reduction (casts, embeddings, VQ backward)"
 # #10's first kernel, then the kernels that follow it on the stream: the
-# fused head's products run on the layer GEMM's instantiations and are told
-# apart by their place (ops/head_ce.py FusedHeadCE.backward: head_ce_bwd,
-# then table_grad)
-HEAD_BWD_FIRST = ("gemm_kernel<128, false, false, 10>", "head_ce_grad_kernel")
-HEAD_BWD_NEXT = (
-    ("splitk_reduce", "fused head + CE backward (#10: dbias sum)"),
-    ("sm90::gemm_kernel<", "fused head + CE backward (#10: dx = g @ E, NN GEMM)"),
-    ("sm90::gemm_kernel<", "fused head table gradient (TN split-K partials)"),
-    ("splitk_reduce", "fused head table gradient (split-K sum)"),
-)
+# fused head's products run on the layer GEMM's instantiations (bf16 or f32)
+# and are told apart by their place (ops/head_ce.py FusedHeadCE.backward:
+# head_ce_bwd, then table_grad)
+def _head_bwd_next(gemm: str, nn: str, tn: str) -> tuple:
+    return (("splitk_reduce", "fused head + CE backward (#10: dbias sum)"),
+            (gemm + nn, "fused head + CE backward (#10: dx = g @ E, NN GEMM)"),
+            (gemm + tn, "fused head table gradient (TN split-K partials)"),
+            ("splitk_reduce", "fused head table gradient (split-K sum)"))
+
+
+_BF16_NEXT = _head_bwd_next("sm90::gemm_kernel<", "", "")
+_F32_NEXT = _head_bwd_next("gemm_f32_kernel<", "false, false", "true, false")
+HEAD_BWD_FIRST = {"gemm_kernel<128, false, false, 10>": _BF16_NEXT,
+                  "head_ce_grad_kernel": _BF16_NEXT,
+                  "gemm_f32_kernel<false, true, 10>": _F32_NEXT,
+                  "head_ce_grad_f32_kernel": _F32_NEXT}
 
 
 # the fixed-order sum of per-block column partials (csrc/layernorm.cu), by
@@ -301,8 +311,8 @@ def main() -> None:
                       "attributed by name")
                 after_head = []
             fam = family(evt.name)
-            if any(frag in evt.name for frag in HEAD_BWD_FIRST):
-                after_head = list(HEAD_BWD_NEXT)
+            after_head = list(next((nxt for frag, nxt in HEAD_BWD_FIRST.items()
+                                    if frag in evt.name), ()))
         prev = evt.name
         by_family[fam] += evt.device_time_total / 1e3 / args.steps
         launches[fam] += 1

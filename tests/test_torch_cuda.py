@@ -83,7 +83,16 @@ GEMM's NT and TN products, the layer backward, the LayerNorm backward, the
 column sums, the attention backward) within 1e-4; CE NLL within 1e-5
 relative, ids exact, dlogits within 1e-4; keep masks bit for bit. An f32
 training step of the kernel route against the f32 plain route: the loss
-within 1e-5 relative, the gradients within 1e-4 global relative L2.
+within 1e-5 relative, the gradients within 1e-4 global relative L2. The f32
+instances of the fused head + CE (#9, #10 in both modes, the table
+gradient) at 129 rows x vocabularies 127, 129, 130 and at the step's 24,576
+x 30,522: the logits within 2e-5 of their largest magnitude, NLL and lse
+within 1e-5 relative, ids exact wherever the plain top two logits lie more
+than 2 dl apart (dl the logits' largest difference), g, dx, dbias and the
+table gradient within 1e-4, flash equal to store bit for bit (nll, lse,
+ids, g, dbias, dx), the pad columns 0; those of #11 / #12 (self causal,
+self padded, cross; dropout 0.1) within 2e-5 / 1e-4, their keep masks bit
+for bit; #13's with masked and fully masked rows within 2e-5.
 The other variants (Shelgon, also with both masks None, Shelgon2 with
 ``mask_pct_train``, Shelgon3-Gumbel) at a small bf16 size, one training
 loss and backward with dropout on: the kernel route's loss within 1e-3 of
@@ -674,6 +683,63 @@ def test_head_ce_kernels_reject_what_they_do_not_take(gen):
         head_ce_fwd(x[:, :60].contiguous(), table[:, :60].contiguous(), bias, t, "store")
 
 
+def _held_head_ce_f32(gen, rows, V, H):
+    """#9 / #10 (both modes) and the table gradient in f32 against their f32
+    plain versions, at the bars of the module docstring."""
+    x = torch.randn(rows, H, device="cuda", generator=gen)
+    table = 0.05 * torch.randn(V, H, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(V, device="cuda", generator=gen)
+    t = torch.randint(0, V, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    counters = (head_ce_fwd, head_ce_bwd, table_grad)
+    before = [(f.launches, f.f32_launches) for f in counters]
+    out = {m: head_ce_fwd(x, table, bias, t, m) for m in ("store", "flash")}
+    torch.cuda.synchronize()
+    nll, lse, ids, logits = out["store"]
+    assert out["flash"][3] is None and logits.dtype == F32
+    for a, b in zip(out["store"][:3], out["flash"][:3]):
+        assert torch.equal(a, b)  # flash = store, bit for bit
+    ld = logits.stride(0)
+    assert logits.shape == (rows, V) and ld % 8 == 0 and V <= ld < V + 8
+    assert (logits.as_strided((rows, ld), (ld, 1))[:, V:] == 0).all()
+    nll_p, lse_p, ids_p, logits_p = head_ce_fwd_reference(x, table, bias, t, "store")
+    assert _rel_max(logits, logits_p) <= F32_FWD
+    dl = (logits - logits_p).abs().max().item()
+    assert _rel_max(nll, nll_p) <= 1e-5 and _rel_max(lse, lse_p) <= 1e-5
+    top2 = logits_p.topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * dl
+    assert torch.equal(ids[clear], ids_p[clear])
+    del logits_p, top2
+
+    scale = torch.rand(rows, device="cuda", generator=gen) / rows
+    g_s, dx_s, db_s = head_ce_bwd(logits, table, bias, t, lse, scale, "store")
+    g_f, dx_f, db_f = head_ce_bwd(x, table, bias, t, lse, scale, "flash")
+    torch.cuda.synchronize()
+    assert g_s.shape == (rows, V) and g_s.stride(0) % 8 == 0 and g_s.dtype == F32
+    assert torch.equal(g_s, g_f) and torch.equal(dx_s, dx_f) and torch.equal(db_s, db_f)
+    assert (g_s.as_strided((rows, g_s.stride(0)), (g_s.stride(0), 1))[:, V:] == 0).all()
+    g_p, dx_p, db_p = head_ce_bwd_reference(logits, table, bias, t, lse, scale, "store")
+    assert dx_s.dtype == F32 and db_s.dtype == F32
+    assert max(_rel_max(g_s, g_p), _rel_max(dx_s, dx_p), _rel_max(db_s, db_p)) <= F32_GRAD
+    del g_p, dx_p
+    dt = table_grad(g_s, x)
+    torch.cuda.synchronize()
+    assert dt.dtype == F32 and dt.shape == (V, H)
+    assert _rel_max(dt, table_grad_reference(g_s, x)) <= F32_GRAD
+    after = [(f.launches, f.f32_launches) for f in counters]
+    assert after == [(b[0] + n, b[1] + n) for b, n in zip(before, (2, 2, 1))]
+
+
+@pytest.mark.parametrize("V", [127, 129, 130])
+def test_head_ce_f32_kernels_at_tile_edges(gen, V):
+    """129 rows (one past the 128-row tile); V odd (the CE epilogues' column
+    at a time) and 2 mod 4 (g's rows read on to a multiple of 4 in dx)."""
+    _held_head_ce_f32(gen, 129, V, 64)
+
+
+def test_head_ce_f32_kernels_at_the_step_shape(gen):
+    _held_head_ce_f32(gen, 2048 * 12, 30522, 768)
+
+
 def test_amsgrad_kernel_matches_plain_bit_for_bit(gen):
     sizes = [(65536 + 3,), (30522,), (7, 5), (1,), (128, 768)]
     leaves = [torch.randn(sz, device="cuda", generator=gen) for sz in sizes]
@@ -696,14 +762,14 @@ def test_amsgrad_kernel_matches_plain_bit_for_bit(gen):
         assert torch.equal(a, b)
 
 
-def _views(gen, cross, B, S, SK, H):
+def _views(gen, cross, B, S, SK, H, dtype=BF):
     """q, k, v as the per-module trunk hands them over: split views of a
     packed qkv (self) or of q and a packed kv (cross)."""
     if cross:
-        q = torch.randn(B, S, H, device="cuda", generator=gen).bfloat16()
-        k, v = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).bfloat16().split(H, -1)
+        q = torch.randn(B, S, H, device="cuda", generator=gen).to(dtype)
+        k, v = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).to(dtype).split(H, -1)
         return q, k, v
-    return torch.randn(B, S, 3 * H, device="cuda", generator=gen).bfloat16().split(H, -1)
+    return torch.randn(B, S, 3 * H, device="cuda", generator=gen).to(dtype).split(H, -1)
 
 
 @pytest.mark.parametrize("cross,causal,rate", [
@@ -782,10 +848,84 @@ def test_mha_kernel_matches_plain(gen, causal, masked):
         assert torch.equal(a.grad, b.grad)  # the backward is autograd through the plain version
 
 
+@pytest.mark.parametrize("cross,causal,masked", [
+    (False, True, False), (False, False, True), (True, False, True),
+])
+def test_sdpa_f32_kernels_match_plain(gen, cross, causal, masked):
+    """#11 / #12's f32 instances (dropout 0.1) against their f32 plain
+    versions; a sentence fully masked where masked."""
+    B, S, SK, H, NH = 37, 12, 9 if cross else 12, 256, 4
+    q, k, v = _views(gen, cross, B, S, SK, H, F32)
+    mask = None
+    if masked:
+        lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
+        mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
+        mask[3] = 0
+    g = torch.randn(B, S, H, device="cuda", generator=gen)
+    counters = (sdpa_forward, sdpa_backward)
+    before = [(f.launches, f.f32_launches, f.cross_launches) for f in counters]
+    out = sdpa_forward(q, k, v, mask, -77, NH, causal, 0.1, cross)
+    grads = sdpa_backward(q, k, v, mask, -77, g, NH, causal, 0.1, cross)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.f32_launches, f.cross_launches) for f in counters]
+    assert after == [(b[0] + 1, b[1] + 1, b[2] + int(cross)) for b in before]
+    want = sdpa_forward_reference(q, k, v, mask, -77, NH, causal, 0.1)
+    assert out.dtype == F32 and torch.isfinite(out).all() and _rel_max(out, want) <= F32_FWD
+    for a, b in zip(grads, sdpa_backward_reference(q, k, v, mask, -77, g, NH, causal, 0.1)):
+        assert a.dtype == F32 and a.shape == b.shape and _rel_max(a, b) <= F32_GRAD
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_f32_keep_masks_are_exact(gen, causal):
+    """As test_sdpa_keep_masks_are_exact, in f32, forward (the context) and
+    backward (dv)."""
+    B, S, H, NH = 9, 12, 128, 2
+    hd = H // NH
+    q = torch.zeros(B, S, H, device="cuda")
+    v = torch.zeros(B, S, H, device="cuda")
+    for h in range(NH):
+        v[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
+    ctx = sdpa_forward(q, q, v, None, 123, NH, causal, 0.3).view(B, S, NH, hd)[..., :S]
+    dv = sdpa_backward(q, q, v, None, 123, v, NH, causal, 0.3)[2].view(B, S, NH, hd)[..., :S]
+    tril = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    for h in range(NH):
+        keep = attention_keep(123, h, B, S, S, 0.3, "cuda") > 0
+        if causal:
+            keep &= tril
+        assert torch.equal(ctx[:, :, h] > 0, keep)
+        assert torch.equal(dv[:, :, h].transpose(1, 2) > 0, keep)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, True), (True, False), (True, True)])
+def test_mha_f32_kernel_matches_plain(gen, causal, masked):
+    """#13's f32 instance: masked rows and a fully masked sentence (uniform
+    over every key), through its wrapper and its autograd."""
+    B, S, H, NH = 21, 12, 256, 4
+    q, k, v = (t.detach().requires_grad_() for t in _views(gen, False, B, S, S, H, F32))
+    mask = None
+    if masked:
+        mask = torch.randint(0, 2, (B, S), device="cuda", generator=gen, dtype=torch.int32)
+        mask[:, 0] = 1
+        mask[3] = 0
+    before = mha_forward.launches, mha_forward.f32_launches
+    out = fused_mha(q, k, v, mask, NH, causal)
+    out.backward(torch.randn(B, S, H, device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    assert (mha_forward.launches, mha_forward.f32_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = mha_reference(q, k, v, mask, NH, causal)
+        assert out.dtype == F32 and _rel_max(out, want) <= F32_FWD
+        assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+        if masked:
+            assert _rel_max(out[3], v[3].mean(0).expand(S, H)) <= F32_FWD
+
+
 def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
-    q = torch.randn(2, 12, 128, device="cuda", generator=gen)
+    q = torch.randn(2, 12, 128, device="cuda", generator=gen).half()
     with pytest.raises(TypeError, match="bfloat16"):
         sdpa_forward(q, q, q, None, 0, 2)
+    with pytest.raises(TypeError, match="dtype"):  # bf16 q with f32 k and v
+        sdpa_forward(q.bfloat16(), q.float(), q.float(), None, 0, 2)
     long = torch.zeros(2, 33, 128, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="sequences"):
         sdpa_forward(long, long, long, None, 0, 2)

@@ -183,9 +183,11 @@ def test_tokenizer_files_encode_as_in_jax(tmp_path, kind):
 @pytest.mark.parametrize("field,value", [("fused_head_ce", "store"), ("fused_head_ce", "flash"),
                                          ("fused_layer", "off")])
 def test_cuda_refuses_f32_runs(runs, tmp_path, monkeypatch, field, value):
-    """An f32 run on CUDA is served on the default route only: on a route
-    whose kernels have no f32 instance yet the reconstructor raises, naming
-    ROADMAP §2a, before it builds the model (before anything touches CUDA)."""
+    """An f32 run on CUDA is served on every route, the fused head's and the
+    per-module trunk's included (each kernel has an f32 instance): the
+    reconstructor refuses it only while PyTorch's f32 products are not full
+    f32 (TF32 on), raising ``ValueError`` before it builds the model (before
+    anything touches CUDA); with full f32 it goes on to build the model."""
     import shutil
 
     from kindergarten_vq_vae_torch.serve import reconstructor
@@ -200,9 +202,19 @@ def test_cuda_refuses_f32_runs(runs, tmp_path, monkeypatch, field, value):
     with open(conf_path, "w") as f:
         json.dump(conf, f)
 
+    class Built(Exception):
+        pass
+
     def no_model(*args, **kwargs):
-        raise AssertionError("the model was built before the route was checked")
+        raise Built
 
     monkeypatch.setattr(reconstructor, "build_model", no_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP §2a"):
+    old = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")  # TF32 products
+        with pytest.raises(ValueError, match="full f32"):
+            reconstructor.Reconstructor(run, device="cuda")
+    finally:
+        torch.set_float32_matmul_precision(old)
+    with pytest.raises(Built):
         reconstructor.Reconstructor(run, device="cuda")
