@@ -151,8 +151,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    ``Reconstructor``;
 15. f32 (``phase_f32``; JAX's parity dtype): each f32 instance alone at the
    batch-2048 step's shapes against its f32 plain version, timed in turns
-   with it, with its bound (bytes or f32 FMA operations; the 3xTF32 GEMM's
-   three TF32 products printed beside) and its library call: the layer GEMM
+   with it, with its bound (bytes or operations: the layer GEMM's and #1 /
+   #2's at the 3xTF32 rate, their f32 FMA bound printed beside; the others'
+   at the f32 FMA rate) and its library call: the layer GEMM
    at every product in each layout (``torch.matmul`` at "highest"), the
    residual + LayerNorm, its backward and the column sums, the attention
    forward (self causal, self padded, cross) and backward (self, cross),
@@ -171,8 +172,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    30,522) against their f32 plain versions (flash = store bit for bit),
    and #11 / #12 (keep masks exact) and #13 (a fully masked sentence, and
    its autograd) in f32 as phase 11 runs them in bf16, each timed in turns
-   with its plain version, with its bound (f32 FMA operations, the 3xTF32
-   bound printed beside, or bytes) and library call (the cuBLAS f32 head +
+   with its plain version, with its bound (the GEMM's at the 3xTF32 rate,
+   the f32 FMA bound printed beside; the attention's f32 FMA operations or
+   bytes) and library call (the cuBLAS f32 head +
    ``F.cross_entropy`` + argmax and its autograd backward,
    ``torch.matmul(g.T, x)``, ``F.scaled_dot_product_attention`` in f32);
    4 f32 steps each with ``fused_head_ce`` store and flash (#9, #10 and the
@@ -274,10 +276,15 @@ ENGINE_CUT, ENGINE_EPOCHS, ENGINE_TRAIN_PCT = dict(num_verbs=8, num_objects=8), 
 # F32_LOSS_REL relative, the gradients within F32_GRAD global rel L2; a
 # served run's reconstruction ids and codes equal to the plain route's on
 # F32_SERVE_SAME of the tokens (an argmax near tie may go either way).
-# PEAK_TF32: the TF32 tensor cores' dense peak, which bounds the 3xTF32
-# GEMM's three products.
+# PEAK_TF32: the TF32 tensor cores' dense peak. An f32-accurate product on
+# the tensor cores costs three TF32 products (3xTF32; a six-product bf16
+# split gives the same 165 TFLOP/s), so PEAK_3XTF32 bounds every f32 GEMM
+# product (the layer's, #9, #10 and the table gradient); the f32 FMA bound
+# (PEAK_F32) is printed beside it; the f32 layer forward and backward (#1,
+# #2), whose products are most of their operations, take it too.
 F32_FWD, F32_GRAD, F32_NLL_REL, F32_LOSS_REL, F32_SERVE_SAME = 2e-5, 1e-4, 1e-5, 1e-5, 0.999
 PEAK_TF32, F32_STEPS, F32_GPT2_LAYERS = 494.7e12, 4, 2
+PEAK_3XTF32 = PEAK_TF32 / 3
 
 
 def _fail(msg: str) -> None:
@@ -3552,10 +3559,10 @@ def phase_f32(names: tuple[str, str]) -> dict:
             note("gemm_fwd" if kind == "fwd" else "gemm_grad",
                  f"layer GEMM {name:4s} {kind:5s} ({M},{N},{K}) {kw['epi']}"
                  + (f" splits {plan.splits}" if plan else ""), err, k_ms, p_ms,
-                 _bound(flops, _nbytes(ops, kw.get("bias"), kw.get("aux"), got), PEAK_F32),
+                 _bound(flops, _nbytes(ops, kw.get("bias"), kw.get("aux"), got), PEAK_3XTF32),
                  _time_ms(lib, 5), "torch.matmul (f32, 'highest')",
-                 f", {flops / k_ms / 1e9:.1f} TFLOP/s, rel {rel:.2e} (tol {tol}), 3xTF32 "
-                 f"bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms")
+                 f", {flops / k_ms / 1e9:.1f} TFLOP/s, rel {rel:.2e} (tol {tol}), f32 FMA "
+                 f"bound {flops / PEAK_F32 * 1e3:.4f} ms")
             del got, want
         if name == "wo":
             same = torch.equal(gemm(x, dy, a_t=True), gemm(x, dy, a_t=True))
@@ -3674,10 +3681,10 @@ def phase_f32(names: tuple[str, str]) -> dict:
             flops = _layer_flops(TRAIN_BATCH, SEQ, decoder)
             lib_fwd, lib_bwd = _library_layer(decoder, x, enc, smask, ws, train=True)
             note("layer_fwd", f"layer forward (#1) {what} ({TRAIN_BATCH},{SEQ},{H}), residuals",
-                 err, k_ms, p_ms, _bound(flops, _nbytes(x, enc, smask, ws, out, resid), PEAK_F32),
+                 err, k_ms, p_ms,
+                 _bound(flops, _nbytes(x, enc, smask, ws, out, resid), PEAK_3XTF32),
                  _time_ms(lib_fwd, 3), layer_lib + ": forward under autograd",
-                 f", rel {rel:.2e}, 3xTF32 bound of its products "
-                 f"{3 * flops / PEAK_TF32 * 1e3:.4f} ms")
+                 f", rel {rel:.2e}, f32 FMA bound {flops / PEAK_F32 * 1e3:.4f} ms")
             gy = 0.1 * torch.randn(x.shape, device=dev, generator=g)
             b_args = (geom, x, enc, smask, None, ws, seed, res_p, out_p, gy,
                       f32 if decoder else None)
@@ -3690,8 +3697,9 @@ def phase_f32(names: tuple[str, str]) -> dict:
             k_ms, p_ms = _paired_ms(lambda: layer_backward(*b_args),
                                     lambda: layer_backward_reference(*b_args), 3)
             note("layer_bwd", f"layer backward (#2) {what}", err, k_ms, p_ms,
-                 _bound(2 * flops, _nbytes(b_args[:-1], flat), PEAK_F32), _time_ms(lib_bwd, 3),
-                 layer_lib + ": its autograd backward", f", rel {rel:.2e}")
+                 _bound(2 * flops, _nbytes(b_args[:-1], flat), PEAK_3XTF32),
+                 _time_ms(lib_bwd, 3), layer_lib + ": its autograd backward",
+                 f", rel {rel:.2e}, f32 FMA bound {2 * flops / PEAK_F32 * 1e3:.4f} ms")
         del geom, x, enc, smask, ws, out, resid, out_p, res_p, got, want, flat, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
     _check_keep_masks(seed, f32)
@@ -3828,8 +3836,8 @@ def _f32_route_vs_plain(what: str, m, c, batch, ok) -> dict:
 def phase_f32_head(names: tuple[str, str]) -> dict:
     """#9 and #10 (store and flash) and the table gradient in f32 at the
     step's head shapes (24,576 rows x 768 x 30,522) against their f32 plain
-    versions, timed in turns with them, with their bounds (f32 FMA
-    operations; the 3xTF32 bound printed beside) and library calls."""
+    versions, timed in turns with them, with their bounds (3xTF32
+    operations; the f32 FMA bound printed beside) and library calls."""
     import torch
     import torch.nn.functional as F
 
@@ -3916,18 +3924,18 @@ def phase_f32_head(names: tuple[str, str]) -> dict:
     def rate(ms, f=flops):
         return f"{f / ms / 1e9:.1f} TFLOP/s"
 
-    tf32 = 3 * flops / PEAK_TF32 * 1e3  # 3xTF32: three TF32 products
+    fma = flops / PEAK_F32 * 1e3  # the f32 FMA units' bound of one product
     lib_f = "cuBLAS f32 head GEMM (torch.matmul, 'highest') + bias + F.cross_entropy + argmax"
     with torch.no_grad():
         for m in HEAD_MODES:
             saved = logits if m == "store" else x
             k_ms, p_ms = _paired_ms(lambda m=m: head_ce_fwd(x, table, bias, t, m),
                                     lambda m=m: head_ce_fwd_reference(x, table, bias, t, m), 3)
-            bound = _bound(flops, _nbytes(x, table, bias, t, fwd[m]), PEAK_F32)
+            bound = _bound(flops, _nbytes(x, table, bias, t, fwd[m]), PEAK_3XTF32)
             res[f"fwd_{m}"] = {"max_abs_err": fwd_abs, "ms": k_ms, "plain_ms": p_ms,
                                "bound": [bound], "library_ms": lib_fwd_ms, "library": lib_f}
             print(f"head_ce_fwd f32 {m}: kernel {k_ms:.4f} ms, {rate(k_ms)}, plain {p_ms:.4f} ms, "
-                  f"bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound {tf32:.4f} ms), {lib_f} "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}; f32 FMA bound {fma:.4f} ms), {lib_f} "
                   f"{lib_fwd_ms:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
             n_prod = 2 if m == "flash" else 1
             k_ms, p_ms = _paired_ms(
@@ -3935,22 +3943,22 @@ def phase_f32_head(names: tuple[str, str]) -> dict:
                 lambda m=m, saved=saved: head_ce_bwd_reference(saved, table, bias, t, lse, scale,
                                                                m), 3)
             bound = _bound(n_prod * flops, _nbytes(saved, table, bias, t, lse, scale, bwd[m]),
-                           PEAK_F32)
+                           PEAK_3XTF32)
             res[f"bwd_{m}"] = {"max_abs_err": bwd_abs, "ms": k_ms, "plain_ms": p_ms,
                                "bound": [bound], "library_ms": lib_bwd_ms,
                                "library": "autograd backward (x, bias) of " + lib_f}
             print(f"head_ce_bwd f32 {m}: kernel {k_ms:.4f} ms, {rate(k_ms, n_prod * flops)}, "
-                  f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound "
-                  f"{n_prod * tf32:.4f} ms), its autograd backward {lib_bwd_ms:.4f} ms")
+                  f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; f32 FMA bound "
+                  f"{n_prod * fma:.4f} ms), its autograd backward {lib_bwd_ms:.4f} ms")
         k_ms, p_ms = _paired_ms(lambda: table_grad(gk, x), lambda: table_grad_reference(gk, x), 3)
         lib_ms = _time_ms(lambda: torch.matmul(gk.t(), x), 3)
-        bound = _bound(flops, _nbytes(gk, x, dt), PEAK_F32)
+        bound = _bound(flops, _nbytes(gk, x, dt), PEAK_3XTF32)
         res["d_table"] = {"max_abs_err": dt_abs, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
                           "library_ms": lib_ms,
                           "library": "torch.matmul(g.T, x), f32 'highest'"}
         print(f"table_grad f32 (the f32 GEMM's TN split-K product): {k_ms:.4f} ms, {rate(k_ms)}, "
-              f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; 3xTF32 bound "
-              f"{tf32:.4f} ms), torch.matmul(g.T, x) f32 {lib_ms:.4f} ms ({names[0]}; "
+              f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; f32 FMA bound "
+              f"{fma:.4f} ms), torch.matmul(g.T, x) f32 {lib_ms:.4f} ms ({names[0]}; "
               f"nvidia-smi: {names[1]})")
     del fwd, bwd, logits, gk, dxk, dbk, dt, x, table
     torch.cuda.empty_cache()

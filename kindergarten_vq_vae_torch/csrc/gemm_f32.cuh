@@ -17,10 +17,10 @@ constexpr int TILE_M = 128, TILE_N = 128, TILE_K = 32;
 // (EPI_F32, EPI_GELU_*, with an optional bias). C2 receives the pre-GELU u or
 // the du of a dgelu epilogue when not null; colparts (ceil(M / 128), N) and
 // colsum (N,), both or neither (NT with a dgelu epilogue): colsum receives du's
-// column sums. Every leading dimension a multiple of 4 and at least a row's
-// contiguous extent rounded up to 4 (the pad elements zero where they meet
-// K: gemm_f32.cu), A and B 16-byte aligned, N and ldc even. Returns a
-// cudaError_t code.
+// column sums. Every leading dimension a multiple of 4 (TMA's 16-byte
+// strides) and at least a row's contiguous extent rounded up to 4 (what lies
+// past the extent is not read: gemm_f32.cu), A and B 16-byte aligned, N and
+// ldc even. Returns a cudaError_t code.
 int run_gemm(int a_t, int b_t, const float* A, int lda, const float* B, int ldb, int M, int N,
              int K, int epi, int splits, int kchunk, float* C, int ldc, float* C2, int ldc2,
              const float* aux, int ld_aux, const float* bias, float* ws, float* colparts,

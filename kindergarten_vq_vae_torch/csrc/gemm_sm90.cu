@@ -1,7 +1,7 @@
 // Host side of the GEMM (gemm_sm90.cuh): the TMA descriptors, built per
-// call, the checks, the dispatch, the weight gradients' split-K
-// instantiations, and the C entry point kvq_gemm_sm90 behind ops/gemm.py
-// `gemm`. The layer forward (layer_fwd.cu) and the fused head + CE
+// call (bf16 here, f32 for gemm_f32.cu), the checks, the dispatch, the
+// weight gradients' split-K instantiations, and the C entry point
+// kvq_gemm_sm90 behind ops/gemm.py `gemm`. The layer forward (layer_fwd.cu) and the fused head + CE
 // (head_ce.cu) call run_gemm directly.
 
 #include "gemm_sm90.cuh"
@@ -37,20 +37,34 @@ EncodeTiled encoder() {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// a row-major (rows, cols) matrix of elem_bytes elements, 128-byte swizzle,
+// elements past the matrix read as zeros
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+               int rows, int cols, int ld, int box_cols, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, int box_cols,
                 int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, ld, box_cols,
+                   box_rows);
+}
+
+bool tensor_map_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, int box_cols,
+                    int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, ld, box_cols,
+                   box_rows);
 }
 
 cudaError_t launch_tn(int tile_n, const CUtensorMap& a, const CUtensorMap& b, const Args& p,

@@ -44,7 +44,7 @@
 //
 // In f32 (JAX's parity dtype: x, the table, the logits and g f32, l = x @ E^T
 // + b with no rounding between the product and the CE) the same functions
-// run on the f32 GEMM (gemm_f32.cu, 3xTF32 on mma.sync): #9 and #10's flash
+// run on the f32 GEMM (gemm_f32.cu, 3xTF32 on wgmma): #9 and #10's flash
 // recompute as its NT product with a CE epilogue (run_ce), whose partials
 // head_ce_merge_kernel merges as above; store mode's pass over the f32
 // logits is head_ce_grad_f32_kernel, which sums dbias in the f32 epilogue's
@@ -356,10 +356,10 @@ __device__ __forceinline__ float butterfly8(const float (&s)[8]) {
 
 // #10 in store mode on f32 logits (row stride ldl, a multiple of 8): g (row
 // stride ldg, pad columns 0) and the dbias partials. A column's sum over the
-// tile's rows follows the f32 flash epilogue (gemm_f32.cu ce_bwd_epilogue) to
-// the bit: tile row r = 64 wm + 16 mt + 8 h + g is added to the sum of (wm,
-// g) in (mt, h) order, the eight sums of a wm combine as its butterfly does,
-// and the two wm halves are added last.
+// tile's rows follows the f32 flash epilogue (gemm_f32.cu tile_column_sums)
+// to the bit: tile row r = 16 w + 8 h + g (w the epilogue's warp, 0..7) is
+// added to the sum of (w, g) in h order, the eight sums of a w combine as
+// its butterfly does, and the warps' sums are added in w order.
 __global__ void __launch_bounds__(GRAD_F32_THREADS)
 head_ce_grad_f32_kernel(const float* __restrict__ logits, int ldl, const int* __restrict__ targets,
                         const float* __restrict__ lse, const float* __restrict__ scale, int rows,
@@ -375,36 +375,40 @@ head_ce_grad_f32_kernel(const float* __restrict__ logits, int ldl, const int* __
   }
   __syncthreads();
   if (c0 >= ldg) return;
-  float s[2][8][4] = {};  // (wm, g, column)
+  float tot[4] = {};
+  for (int w = 0; w < TILE_M / 16; ++w) {
+    float s[8][4] = {};  // (g, column)
 #pragma unroll
-  for (int wm = 0; wm < 2; ++wm)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+      for (int gg = 0; gg < 8; ++gg) {
+        const int r = 16 * w + 8 * h + gg, row = m0 + r;
+        if (row >= rows) continue;
+        float4 in = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (c0 < V) in = *reinterpret_cast<const float4*>(logits + (size_t)row * ldl + c0);
+        const float l4[4] = {in.x, in.y, in.z, in.w};
+        float gm[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int gg = 0; gg < 8; ++gg) {
-          const int r = wm * 64 + mt * 16 + 8 * h + gg, row = m0 + r;
-          if (row >= rows) continue;
-          float4 in = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (c0 < V) in = *reinterpret_cast<const float4*>(logits + (size_t)row * ldl + c0);
-          const float l4[4] = {in.x, in.y, in.z, in.w};
-          float gm[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            gm[k] = c0 + k < V ? ce_grad(l4[k], s_lse[r], c0 + k == s_tgt[r], s_sc[r]) : 0.0f;
-            s[wm][gg][k] += gm[k];
-          }
-          *reinterpret_cast<float4*>(g + (size_t)row * ldg + c0) =
-              make_float4(gm[0], gm[1], gm[2], gm[3]);
+        for (int k = 0; k < 4; ++k) {
+          gm[k] = c0 + k < V ? ce_grad(l4[k], s_lse[r], c0 + k == s_tgt[r], s_sc[r]) : 0.0f;
+          s[gg][k] += gm[k];
         }
+        *reinterpret_cast<float4*>(g + (size_t)row * ldg + c0) =
+            make_float4(gm[0], gm[1], gm[2], gm[3]);
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float sk[8];
+#pragma unroll
+      for (int gg = 0; gg < 8; ++gg) sk[gg] = s[gg][k];
+      const float b = butterfly8(sk);
+      tot[k] = w == 0 ? b : tot[k] + b;
+    }
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (c0 + k >= V) break;
-    float s0[8], s1[8];
-#pragma unroll
-    for (int gg = 0; gg < 8; ++gg) s0[gg] = s[0][gg][k], s1[gg] = s[1][gg][k];
-    dparts[(size_t)blockIdx.y * V + c0 + k] = butterfly8(s0) + butterfly8(s1);
+    dparts[(size_t)blockIdx.y * V + c0 + k] = tot[k];
   }
 }
 

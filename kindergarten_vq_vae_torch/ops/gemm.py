@@ -24,8 +24,8 @@ The weight gradients (``a_t``) sum over all rows in f32, in chunks of rows
 whose partial products are added in a fixed order, and round once.
 
 f32 operands (an f32 run: JAX's parity dtype, in which ``_mm`` and its
-kin run too) take the f32 instance, ``csrc/gemm_f32.cu``: 3xTF32 products
-(each operand split into a TF32 high part and its remainder, three TF32
+kin run too) take the f32 instance, ``csrc/gemm_f32.cu``: 3xTF32 products on
+wgmma (each operand split into a TF32 high part and its remainder, three TF32
 products summed in f32: within a few 1e-7 of an f32 product; single-pass
 TF32 would miss the f32 bars by far) with the same epilogues, every output
 f32 (``f32``, ``gelu_*`` with the f32 u, ``add_f32``, ``dgelu_*`` with
@@ -77,8 +77,9 @@ _F32_LAYOUT_EPIS = {(False, False): ("f32", "gelu_erf", "gelu_tanh"),
                     (False, True): ("f32", "add_f32", "dgelu_erf", "dgelu_tanh"),
                     (True, False): ("f32",)}
 # the f32 instance's tile (csrc/gemm_f32.cuh TILE_M, TILE_N, TILE_K), and its
-# model of the card: 3xTF32 runs three products at the TF32 tensor-core rate
-# (H100 SXM, dense) for one f32 product, two CTAs an SM
+# model of the card: one persistent CTA on each SM, whose 3xTF32 products run
+# three TF32 products at the TF32 tensor-core rate (H100 SXM, dense) for one
+# f32 product
 F32_TILE, F32_TILE_K = 128, 32
 _F32_SM_FLOPS = 494.7e12 / 3 / 132
 
@@ -170,9 +171,9 @@ def gemm_plan(M: int, N: int, K: int, split_k: bool, sms: int, epi: str = "f32")
 @functools.lru_cache(maxsize=1024)
 def gemm_f32_plan(M: int, N: int, K: int, sms: int) -> GemmPlan:
     """The split of K of an f32 weight gradient (TN) that the f32 instance's
-    grid of 128 x 128 tiles, two CTAs on each of ``sms`` SMs, finishes
-    soonest: whole waves of ``kchunk``-deep tiles at its 3xTF32 rate, plus
-    the f32 partials' write and read. Ties go to fewer splits."""
+    persistent grid (one CTA on each of ``sms`` SMs walking 128 x 128 tiles)
+    finishes soonest: whole waves of ``kchunk``-deep units at its 3xTF32
+    rate, plus the f32 partials' write and read. Ties go to fewer splits."""
     if min(M, N, K, sms) < 1:
         raise ValueError(f"gemm_f32_plan needs positive sizes, got M={M} N={N} K={K} sms={sms}")
     tiles = _ceil(M, F32_TILE) * _ceil(N, F32_TILE)
@@ -180,9 +181,9 @@ def gemm_f32_plan(M: int, N: int, K: int, sms: int) -> GemmPlan:
     for splits in range(1, MAX_SPLITS + 1):
         kchunk = _ceil(_ceil(K, splits), F32_TILE_K) * F32_TILE_K
         if _ceil(K, kchunk) != splits:
-            continue
-        t = (_ceil(tiles * splits, 2 * sms) * 2 * F32_TILE * F32_TILE * kchunk
-             / (_F32_SM_FLOPS / 2) + 2 * splits * M * N * 4 / _HBM_BYTES_PER_S)
+            continue  # the same chunks as fewer splits
+        t = (_ceil(tiles * splits, sms) * 2 * F32_TILE * F32_TILE * kchunk / _F32_SM_FLOPS
+             + 2 * splits * M * N * 4 / _HBM_BYTES_PER_S)
         if t < best_t:
             best, best_t = GemmPlan(F32_TILE, splits, kchunk), t
     return best

@@ -55,7 +55,13 @@ f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
 epilogues); a bf16 output within half a bf16 ulp of the plain version's f32
 value before its rounding, plus the same 1e-4; the weight gradients' split-K
-sums equal bit for bit from run to run.
+sums equal bit for bit from run to run (bf16 and f32). The f32 GEMM (3xTF32
+on wgmma) also at N = 200 / 8 and K = 200 / 40 (off its 128-wide tile and
+32-deep slice), with b1 from its GELU-gradient epilogue, and its largest
+error against torch.matmul in full f32 at K = 3,072 and over the weight and
+table gradients' 24,576 rows within the f32 bars (the promotion interval);
+cvt.rna.tf32, which splits its operands, with its 13 low bits zero and ties
+away from zero on 2^24 values.
 LayerNorm and column sums (csrc/layernorm.cu) at rows 1, 31, 33, 97 (a
 warp's, a backward block's 64 and a GEMM tile's 128 rows crossed) and at the
 step's 24,576, widths 64, 768 and the widest, 1,024: the residual +
@@ -85,8 +91,8 @@ relative, ids exact, dlogits within 1e-4; keep masks bit for bit. An f32
 training step of the kernel route against the f32 plain route: the loss
 within 1e-5 relative, the gradients within 1e-4 global relative L2. The f32
 instances of the fused head + CE (#9, #10 in both modes, the table
-gradient) at 129 rows x vocabularies 127, 129, 130 and at the step's 24,576
-x 30,522: the logits within 2e-5 of their largest magnitude, NLL and lse
+gradient) at 129 rows x vocabularies 127, 129, 130, at 300 rows x 2,053 x
+a hidden width of 200, and at the step's 24,576 x 30,522: the logits within 2e-5 of their largest magnitude, NLL and lse
 within 1e-5 relative, ids exact wherever the plain top two logits lie more
 than 2 dl apart (dl the logits' largest difference), g, dx, dbias and the
 table gradient within 1e-4, flash equal to store bit for bit (nll, lse,
@@ -127,7 +133,14 @@ from kindergarten_vq_vae_torch.ops.dropout import (
     cross_op,
     hidden_keep,
 )
-from kindergarten_vq_vae_torch.ops.gemm import gelu, gelu_grad, gemm, gemm_plan, gemm_reference
+from kindergarten_vq_vae_torch.ops.gemm import (
+    gelu,
+    gelu_grad,
+    gemm,
+    gemm_f32_plan,
+    gemm_plan,
+    gemm_reference,
+)
 from kindergarten_vq_vae_torch.ops.head_ce import (
     head_ce_bwd,
     head_ce_bwd_reference,
@@ -729,11 +742,13 @@ def _held_head_ce_f32(gen, rows, V, H):
     assert after == [(b[0] + n, b[1] + n) for b, n in zip(before, (2, 2, 1))]
 
 
-@pytest.mark.parametrize("V", [127, 129, 130])
-def test_head_ce_f32_kernels_at_tile_edges(gen, V):
-    """129 rows (one past the 128-row tile); V odd (the CE epilogues' column
-    at a time) and 2 mod 4 (g's rows read on to a multiple of 4 in dx)."""
-    _held_head_ce_f32(gen, 129, V, 64)
+@pytest.mark.parametrize("rows,V,H", [(129, 127, 64), (129, 129, 64), (129, 130, 64),
+                                      (300, 2053, 200)])
+def test_head_ce_f32_kernels_at_tile_edges(gen, rows, V, H):
+    """129 and 300 rows (past the 128-row tile); V odd (the CE epilogues'
+    column at a time) and 2 mod 4 (g's rows padded to a multiple of 4, K of
+    dx); a hidden width of 200, not a multiple of the 32-deep slice."""
+    _held_head_ce_f32(gen, rows, V, H)
 
 
 def test_head_ce_f32_kernels_at_the_step_shape(gen):
@@ -1068,13 +1083,19 @@ def _gemm_held(got, want, what, rel=1e-4):
     assert got.shape == want.shape and excess <= 0, f"{what}: max excess {excess:.3e}"
 
 
-@pytest.mark.parametrize("N,K", [(576, 192), (1536, 3072)])
-@pytest.mark.parametrize("M", [1, 96, 2052, 127, 129])
-@pytest.mark.parametrize("layout,epi,dtype", _GEMM_CASES)
+# (N, K) of every case; the f32 GEMM's also at N and K off its 128-wide tile
+# and 32-deep slice
+_GEMM_NK = {BF: [(576, 192), (1536, 3072)], F32: [(576, 192), (1536, 3072), (200, 200), (8, 40)]}
+
+
+@pytest.mark.parametrize("layout,epi,dtype,M,N,K", [
+    (*case, M, N, K) for case in _GEMM_CASES for M in (1, 96, 2052, 127, 129)
+    for N, K in _GEMM_NK[case[2]]])
 def test_gemm_kernel_matches_plain(gen, layout, epi, dtype, M, N, K):
     """Every layout and epilogue at ragged rows (M 127 / 129 about the
     128-row tile); in f32 (3xTF32) the forward's (NN) outputs within 2e-5 of
-    their largest magnitude, the gradients' within 1e-4, also at K = 3,072."""
+    their largest magnitude, the gradients' within 1e-4, also at K = 3,072
+    and at N and K that are not multiples of the f32 tile (200, 8 / 40)."""
     a, b, kw = _gemm_case(gen, layout, epi, M, N, K, dtype)
     two = epi.startswith(("gelu", "dgelu"))
     before = gemm.launches, gemm.f32_launches
@@ -1092,17 +1113,90 @@ def test_gemm_kernel_matches_plain(gen, layout, epi, dtype, M, N, K):
         _gemm_held(g, w, f"{layout} {epi} {dtype} output {i}", rel)
 
 
-def test_gemm_weight_gradient_is_deterministic(gen):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_gemm_weight_gradient_is_deterministic(gen, dtype):
     """A weight gradient over 24,576 rows: split-K partials summed in a fixed
     order give the same bits in every run."""
-    x = torch.randn(24576, 768, device="cuda", generator=gen).bfloat16()
-    dy = (0.1 * torch.randn(24576, 768, device="cuda", generator=gen)).bfloat16()
-    assert gemm_plan(768, 768, 24576, True, torch.cuda.get_device_properties(0)
-                     .multi_processor_count).splits > 1
-    one, two = gemm(x, dy, a_t=True, epi="bf16"), gemm(x, dy, a_t=True, epi="bf16")
+    x = torch.randn(24576, 768, device="cuda", generator=gen).to(dtype)
+    dy = (0.1 * torch.randn(24576, 768, device="cuda", generator=gen)).to(dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = gemm_plan(768, 768, 24576, True, sms) if dtype == BF else \
+        gemm_f32_plan(768, 768, 24576, sms)
+    assert plan.splits > 1
+    epi = "bf16" if dtype == BF else "f32"
+    one, two = gemm(x, dy, a_t=True, epi=epi), gemm(x, dy, a_t=True, epi=epi)
     torch.cuda.synchronize()
     assert torch.equal(one, two)
-    _gemm_held(one, gemm_reference(x, dy, a_t=True), "wgrad")
+    _gemm_held(one, gemm_reference(x, dy, a_t=True), "wgrad",
+               1e-4 if dtype == BF else F32_GRAD)
+
+
+_TF32_CHECK = r"""
+#include <cstdint>
+#include <cstdio>
+__global__ void check(const uint32_t* in, unsigned* bad, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(__uint_as_float(in[i])));
+  if (r & 0x1fffu) atomicAdd(bad, 1u);                                  // low bits set
+  if (r != ((in[i] + 0x1000u) & 0xffffe000u)) atomicAdd(bad + 1, 1u);  // not ties-away
+}
+int main() {
+  const int n = 1 << 24;
+  uint32_t* h = new uint32_t[n];
+  uint32_t s = 1;
+  for (int i = 0; i < n; ++i) {  // f32 below 2 in magnitude, of every exponent, both signs
+    s ^= s << 13, s ^= s >> 17, s ^= s << 5;
+    h[i] = s & 0xbfffffffu;
+  }
+  uint32_t* in;
+  unsigned* bad;
+  cudaMalloc(&in, 4ull * n);
+  cudaMalloc(&bad, 8);
+  cudaMemset(bad, 0, 8);
+  cudaMemcpy(in, h, 4ull * n, cudaMemcpyHostToDevice);
+  check<<<n / 256, 256>>>(in, bad, n);
+  unsigned r[2];
+  cudaMemcpy(r, bad, 8, cudaMemcpyDeviceToHost);
+  printf("%u %u\n", r[0], r[1]);
+  return cudaGetLastError() != cudaSuccess;
+}
+"""
+
+
+def test_tf32_conversion_zeroes_the_low_bits(gen, tmp_path):
+    """The f32 GEMM splits x into big = cvt.rna.tf32(x) and the TF32
+    rounding of x - big with no mask between: on the card, cvt.rna's result
+    has its 13 low bits zero and rounds to nearest, ties away from zero, over
+    2^24 f32 values."""
+    import subprocess
+
+    from kindergarten_vq_vae_torch import _build
+
+    src, exe = tmp_path / "check.cu", tmp_path / "check"
+    src.write_text(_TF32_CHECK)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(exe),
+                    str(src)], check=True, capture_output=True)
+    out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
+    assert out.split() == ["0", "0"], out
+
+
+@pytest.mark.parametrize("layout,M,N,K", [("nn", 2048, 768, 3072), ("tn", 768, 3072, 24576),
+                                          ("tn", 30528, 768, 24576)])
+def test_gemm_f32_error_over_a_long_k(gen, layout, M, N, K):
+    """The f32 GEMM adds each 32-deep slice's products, summed by the tensor
+    cores, to its f32 sums with one rounded add: its largest error against
+    torch.matmul in full f32 at K = 3,072 and over the weight gradients'
+    and the table gradient's K chunks stays within the f32 bars."""
+    a = torch.randn((K, M) if layout == "tn" else (M, K), device="cuda", generator=gen)
+    b = torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5
+    got = gemm(a, b, a_t=layout == "tn")
+    torch.cuda.synchronize()
+    want = (a.t() if layout == "tn" else a) @ b
+    rel = _rel_max(got, want)
+    print(f"f32 GEMM {layout} ({M},{N},{K}): largest error {rel:.3e} of the largest magnitude")
+    assert rel <= (F32_FWD if layout == "nn" else F32_GRAD)
 
 
 def test_gemm_kernel_rejects_what_it_does_not_take(gen):
@@ -1199,13 +1293,14 @@ def test_column_sums_kernel_matches_plain(gen, rows, N, dtype):
     assert torch.equal(got, column_sums(src))
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("N,K", [(768, 192), (3072, 768)])
 @pytest.mark.parametrize("M", (1, 31, 33, 97, 129, 24576))
 @pytest.mark.parametrize("epi", ["dgelu_erf", "dgelu_tanh"])
-def test_gemm_gelu_gradient_column_sums(gen, epi, M, N, K):
+def test_gemm_gelu_gradient_column_sums(gen, epi, M, N, K, dtype):
     """b1 from the GELU-gradient GEMM's epilogue partials, against the plain
     f32 du's column sums and against the sums of the kernel's own f32 du."""
-    dy, w2, kw = _gemm_case(gen, "nt", epi, M, N, K)
+    dy, w2, kw = _gemm_case(gen, "nt", epi, M, N, K, dtype)
     du, du_f32, b1 = gemm(dy, w2, **kw, out2=True, colsum=True)
     torch.cuda.synchronize()
     want = _gemm_f32(dy, w2, kw)[0]

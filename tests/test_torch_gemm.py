@@ -21,9 +21,12 @@ from hypothesis import strategies as st
 
 from kindergarten_vq_vae_tpu.ops.layer_pallas import _gelu_fwd, _gelu_grad, _mm, _mm_nt, _mm_tn
 from kindergarten_vq_vae_torch.ops.gemm import (
+    F32_TILE,
+    F32_TILE_K,
     MAX_SPLITS,
     TILE_K,
     gemm,
+    gemm_f32_plan,
     gemm_plan,
     gemm_reference,
     tile_widths,
@@ -114,6 +117,30 @@ def test_gemm_plan_fills_the_card_at_the_step_shapes():
         tiles = -(-M // 128) * -(-N // plan.tile_n)
         assert plan.splits > 1 and tiles * plan.splits >= 100
     assert gemm_plan(24576, 768, 768, False, 132).splits == 1
+
+
+@settings(max_examples=300, deadline=None)
+@given(M=st.integers(1, 40000), N=st.integers(1, 40000), K=st.integers(1, 200000),
+       sms=st.integers(1, 264))
+def test_gemm_f32_plan_cuts_k_into_whole_slices_once(M, N, K, sms):
+    plan = gemm_f32_plan(M, N, K, sms)
+    assert plan.tile_n == F32_TILE
+    assert plan.kchunk % F32_TILE_K == 0 and plan.kchunk > 0
+    assert 1 <= plan.splits <= MAX_SPLITS
+    assert (plan.splits - 1) * plan.kchunk < K <= plan.splits * plan.kchunk  # every chunk non-empty
+
+
+def test_gemm_f32_plan_fills_the_card_at_the_step_shapes():
+    """The f32 weight gradients of the batch-2048 step (24,576 rows) and the
+    table gradient (30,522 x 768) give every one of the H100's 132 SMs a
+    unit of work, and the units of the layer's fill their last wave to at
+    least 90%."""
+    for M, N in ((768, 2304), (768, 768), (768, 3072), (3072, 768), (30522, 768)):
+        plan = gemm_f32_plan(M, N, 24576, 132)
+        units = -(-M // F32_TILE) * -(-N // F32_TILE) * plan.splits
+        assert units >= 132, (M, N, plan)
+        if M <= 3072:
+            assert plan.splits > 1 and units / (132 * -(-units // 132)) >= 0.9, (M, N, plan)
 
 
 @pytest.mark.parametrize("layout,epi", [("nn", "gelu_erf"), ("nt", "dgelu_tanh"), ("tn", "bf16")])
