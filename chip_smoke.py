@@ -281,7 +281,9 @@ ENGINE_CUT, ENGINE_EPOCHS, ENGINE_TRAIN_PCT = dict(num_verbs=8, num_objects=8), 
 # split gives the same 165 TFLOP/s), so PEAK_3XTF32 bounds every f32 GEMM
 # product (the layer's, #9, #10 and the table gradient); the f32 FMA bound
 # (PEAK_F32) is printed beside it; the f32 layer forward and backward (#1,
-# #2), whose products are most of their operations, take it too.
+# #2), whose products are most of their operations, take it too, and so do
+# the f32 attention's products (3xTF32 on mma.sync), though bytes bound
+# them.
 F32_FWD, F32_GRAD, F32_NLL_REL, F32_LOSS_REL, F32_SERVE_SAME = 2e-5, 1e-4, 1e-5, 1e-5, 0.999
 PEAK_TF32, F32_STEPS, F32_GPT2_LAYERS = 494.7e12, 4, 2
 PEAK_3XTF32 = PEAK_TF32 / 3
@@ -2141,7 +2143,7 @@ def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
 
     f32 = dtype == torch.float32
     dtype = dtype or torch.bfloat16
-    tag, peak = ("f32", PEAK_F32) if f32 else ("bf16", PEAK_BF16)
+    tag, peak = ("f32", PEAK_3XTF32) if f32 else ("bf16", PEAK_BF16)
     fwd_tol, bwd_tol = (F32_FWD, F32_GRAD) if f32 else (TRAIN_REL, TRAIN_REL)
     g = torch.Generator(device="cuda").manual_seed(SEED + (13 if f32 else 5))
     seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
@@ -2184,9 +2186,10 @@ def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
                               "ms": kb, "plain_ms": pb, "bound": [bb], "library_ms": lb,
                               "library": "autograd backward of " + lib_name}
         print(f"sdpa_forward {tag} {kind}: kernel {kf:.4f} ms, plain {pf:.4f} ms, bound {bf[0]:.4f} ms "
-              f"({bf[1]}), {lib_name} {lf:.4f} ms; sdpa_backward {kind}: kernel {kb:.4f} ms, "
-              f"plain {pb:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), its autograd backward "
-              f"{lb:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
+              f"({bf[1]}, {bf[0] / kf:.1%} of it), {lib_name} {lf:.4f} ms; sdpa_backward {kind}: "
+              f"kernel {kb:.4f} ms, plain {pb:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}, "
+              f"{bb[0] / kb:.1%} of it), its autograd backward {lb:.4f} ms ({names[0]}; "
+              f"nvidia-smi: {names[1]})")
         del q, k, v, gr, out, grads, want_f, want_b, lib_fwd, lib_bwd
 
     # every keep bit visible: q = k = 0 makes p uniform over the valid keys, v
@@ -2254,7 +2257,7 @@ def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
     bf = _bound(4 * products, _nbytes(q, k, v, mask, out), peak)
     print(f"mha_forward (#13) ({TRAIN_BATCH},{SEQ},768) {tag}, padded mask, a fully masked "
           f"sentence: max rel {err:.3e} (tol {fwd_tol}); kernel {kf:.4f} ms, plain {pf:.4f} ms, "
-          f"bound {bf[0]:.4f} ms ({bf[1]}), {lib_name} {lf:.4f} ms")
+          f"bound {bf[0]:.4f} ms ({bf[1]}, {bf[0] / kf:.1%} of it), {lib_name} {lf:.4f} ms")
     if not _finite(out) or out.dtype != dtype or err > fwd_tol:
         _fail(f"MHA kernel #13 disagrees with its plain version ({tag})")
     res["mha"] = {"max_abs_err": (out.float() - want.float()).abs().max().item(), "ms": kf,
@@ -3626,8 +3629,14 @@ def phase_f32(names: tuple[str, str]) -> dict:
              "src.sum(0)")
         del src, got
 
-    # the attention forward and backward (FFMA, a warp a head), dropout 0.1
+    # the attention forward and backward (3xTF32 mma.sync, a warp a head),
+    # dropout 0.1, each with its share of its byte bound
     lib_name = "F.scaled_dot_product_attention, f32 (rate 0, head transposes)"
+
+    def byte_share(k_ms, *objs):
+        t = _nbytes(*objs) / HBM_BYTES_PER_S * 1e3
+        return f", byte bound {t:.4f} ms, {t / k_ms:.1%} of it"
+
     for key, cross, causal, masked in (("self", False, True, False), ("self", False, False, True),
                                        ("cross", True, False, False)):
         packed = torch.randn(TRAIN_BATCH, SEQ, (1 if cross else 3) * H, device=dev, generator=g)
@@ -3646,7 +3655,8 @@ def phase_f32(names: tuple[str, str]) -> dict:
             lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
             note(f"attn_fwd_{key}", what, err, k_ms, p_ms,
                  _bound(4 * TRAIN_BATCH * 12 * SEQ * SEQ * 64, _nbytes(q, k, v, mask, got),
-                        PEAK_F32), _time_ms(lib_fwd, 10), lib_name, f", rel {rel:.2e}")
+                        PEAK_3XTF32), _time_ms(lib_fwd, 10), lib_name,
+                 f", rel {rel:.2e}" + byte_share(k_ms, q, k, v, mask, got))
             if not causal:  # the backward at the layer's shapes: self padded, cross
                 gctx = torch.randn(TRAIN_BATCH, SEQ, H, device=dev, generator=g)
                 b_args = args[:3] + (gctx,) + args[3:]
@@ -3660,8 +3670,8 @@ def phase_f32(names: tuple[str, str]) -> dict:
                 note(f"attn_bwd_{key}", f"attention backward, {key} ({TRAIN_BATCH},{SEQ},{H}), "
                      f"dropout {rate}", err, k_ms, p_ms,
                      _bound(10 * TRAIN_BATCH * 12 * SEQ * SEQ * 64, _nbytes(b_args[:4], got),
-                            PEAK_F32), _time_ms(lib_bwd, 10), "autograd backward of " + lib_name,
-                     f", rel {rel:.2e}")
+                            PEAK_3XTF32), _time_ms(lib_bwd, 10), "autograd backward of " + lib_name,
+                     f", rel {rel:.2e}" + byte_share(k_ms, b_args[:4], got))
         del packed, kv, q, k, v, got
     torch.cuda.empty_cache()
 

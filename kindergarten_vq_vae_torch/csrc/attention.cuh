@@ -117,7 +117,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// (f32 tiles too: an 8 x 8 b16 matrix is 8 rows of 4 f32, lane l taking row
+// l / 4, word l % 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
@@ -276,8 +278,9 @@ __device__ __forceinline__ void att_c_to_a(uint32_t (&a)[4], const float (&c)[NT
 
 // The scores of row i (this thread's columns j = 8 nt + 2 (lane % 4) + c),
 // masked and scaled, in place; returns the row max over the real keys.
-template <bool WHERE_MASK, int NT>
-__device__ __forceinline__ float att_scores(float (&s)[NT][4], int r, int i, const AttArgs& a,
+// Args: AttArgs, or the f32 kernel's AttF32Args.
+template <bool WHERE_MASK, int NT, typename Args>
+__device__ __forceinline__ float att_scores(float (&s)[NT][4], int r, int i, const Args& a,
                                             const int* msk, int lane) {
   float mx = -INFINITY;
 #pragma unroll
@@ -581,24 +584,27 @@ inline bool attention_fits(int s_q, int s_k, int head_dim) {
 }
 
 // 16-byte loads and stores: every base pointer, row stride and head offset a
-// multiple of 16 bytes (8 bf16)
-inline bool att_vec(const AttArgs& a, bool bwd) {
+// multiple of 16 bytes (8 bf16, 4 f32; Args: AttArgs or AttF32Args)
+template <typename Args>
+inline bool att_vec(const Args& a, bool bwd) {
+  constexpr int E = 16 / static_cast<int>(sizeof(*a.q));
   auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  bool ok = a.hd % 8 == 0 && a.q_ld % 8 == 0 && a.kv_ld % 8 == 0 && a.out_ld % 8 == 0 &&
+  bool ok = a.hd % E == 0 && a.q_ld % E == 0 && a.kv_ld % E == 0 && a.out_ld % E == 0 &&
             al(a.q) && al(a.k) && al(a.v) && al(a.out);
-  if (bwd) ok = ok && a.dkv_ld % 8 == 0 && al(a.g) && al(a.dk) && al(a.dv);
+  if (bwd) ok = ok && a.dkv_ld % E == 0 && al(a.g) && al(a.dk) && al(a.dv);
   return ok;
 }
 
-// Launch geometry: the warps of a CTA and the CTAs the card holds at once
-// (the most resident warps an SM for this shared memory and these registers),
-// cached per kernel, device and per-warp bytes; the grid is that many CTAs
-// on every SM, or fewer when the units run out.
-template <void (*KERNEL)(AttArgs)>
-int att_launch(const AttArgs& a, bool bwd, cudaStream_t st) {
+// Launch geometry of a kernel whose warps each take `bytes` of shared
+// memory (the bf16 kernels here and the f32 ones of attention_f32.cuh, Args
+// their arguments): the warps of a CTA and the CTAs the card holds at once
+// (the most resident warps an SM for this shared memory and these
+// registers), cached per kernel, device and per-warp bytes; the grid is that
+// many CTAs on every SM, or fewer when the units run out.
+template <typename Args, void (*KERNEL)(Args)>
+int att_launch(const Args& a, int bytes, cudaStream_t st) {
   const int total = a.batch * a.nh;
   if (total <= 0 || a.s_q <= 0) return 0;
-  const AttPlan P = att_plan(a.s_q, a.s_k, a.hd, bwd);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -616,23 +622,23 @@ int att_launch(const AttArgs& a, bool bwd, cudaStream_t st) {
     attrs_set[slot].store(1, std::memory_order_release);
   }
   unsigned long long c = plan[slot].load(std::memory_order_relaxed);
-  if ((c >> 32) != static_cast<unsigned long long>(P.bytes)) {
+  if ((c >> 32) != static_cast<unsigned long long>(bytes)) {
     int best_nw = 1, best_per_sm = 0;
     for (int nw = ATT_WARPS; nw >= 1; --nw) {
-      if (nw * P.bytes > ATT_SMEM_MAX) continue;
+      if (nw * bytes > ATT_SMEM_MAX) continue;
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, 32 * nw, nw * P.bytes);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, 32 * nw, nw * bytes);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (per_sm * nw > best_per_sm * best_nw) best_nw = nw, best_per_sm = per_sm;
     }
     if (best_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    c = (static_cast<unsigned long long>(P.bytes) << 32) | (best_nw << 16) | best_per_sm;
+    c = (static_cast<unsigned long long>(bytes) << 32) | (best_nw << 16) | best_per_sm;
     plan[slot].store(c, std::memory_order_relaxed);
   }
   const int nw = static_cast<int>((c >> 16) & 0xffff), per_sm = static_cast<int>(c & 0xffff);
   const int ctas = (total + nw - 1) / nw;
   const int grid = ctas < sms * per_sm ? ctas : sms * per_sm;
-  KERNEL<<<grid, 32 * nw, nw * P.bytes, st>>>(a);
+  KERNEL<<<grid, 32 * nw, nw * bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -648,19 +654,20 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
                   nullptr, q_ld, kv_ld, ctx_ld, 0, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
   const int blocks = (s_q > 16) * 2 + (s_k > 16);  // the m16 blocks of queries and of keys
+  const int bytes = att_plan(s_q, s_k, hd, false).bytes;
   if (att_vec(a, false)) {
     switch (blocks) {
-      case 0: return att_launch<attention_kernel<WHERE_MASK, true, 1, 1>>(a, false, st);
-      case 1: return att_launch<attention_kernel<WHERE_MASK, true, 1, 2>>(a, false, st);
-      case 2: return att_launch<attention_kernel<WHERE_MASK, true, 2, 1>>(a, false, st);
-      default: return att_launch<attention_kernel<WHERE_MASK, true, 2, 2>>(a, false, st);
+      case 0: return att_launch<AttArgs, attention_kernel<WHERE_MASK, true, 1, 1>>(a, bytes, st);
+      case 1: return att_launch<AttArgs, attention_kernel<WHERE_MASK, true, 1, 2>>(a, bytes, st);
+      case 2: return att_launch<AttArgs, attention_kernel<WHERE_MASK, true, 2, 1>>(a, bytes, st);
+      default: return att_launch<AttArgs, attention_kernel<WHERE_MASK, true, 2, 2>>(a, bytes, st);
     }
   }
   switch (blocks) {
-    case 0: return att_launch<attention_kernel<WHERE_MASK, false, 1, 1>>(a, false, st);
-    case 1: return att_launch<attention_kernel<WHERE_MASK, false, 1, 2>>(a, false, st);
-    case 2: return att_launch<attention_kernel<WHERE_MASK, false, 2, 1>>(a, false, st);
-    default: return att_launch<attention_kernel<WHERE_MASK, false, 2, 2>>(a, false, st);
+    case 0: return att_launch<AttArgs, attention_kernel<WHERE_MASK, false, 1, 1>>(a, bytes, st);
+    case 1: return att_launch<AttArgs, attention_kernel<WHERE_MASK, false, 1, 2>>(a, bytes, st);
+    case 2: return att_launch<AttArgs, attention_kernel<WHERE_MASK, false, 2, 1>>(a, bytes, st);
+    default: return att_launch<AttArgs, attention_kernel<WHERE_MASK, false, 2, 2>>(a, bytes, st);
   }
 }
 
@@ -678,19 +685,20 @@ int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_
                   kv_ld, dq_ld, dkv_ld, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
   const int blocks = (s_q > 16) * 2 + (s_k > 16);
+  const int bytes = att_plan(s_q, s_k, hd, true).bytes;
   if (att_vec(a, true)) {
     switch (blocks) {
-      case 0: return att_launch<attention_bwd_kernel<true, 1, 1>>(a, true, st);
-      case 1: return att_launch<attention_bwd_kernel<true, 1, 2>>(a, true, st);
-      case 2: return att_launch<attention_bwd_kernel<true, 2, 1>>(a, true, st);
-      default: return att_launch<attention_bwd_kernel<true, 2, 2>>(a, true, st);
+      case 0: return att_launch<AttArgs, attention_bwd_kernel<true, 1, 1>>(a, bytes, st);
+      case 1: return att_launch<AttArgs, attention_bwd_kernel<true, 1, 2>>(a, bytes, st);
+      case 2: return att_launch<AttArgs, attention_bwd_kernel<true, 2, 1>>(a, bytes, st);
+      default: return att_launch<AttArgs, attention_bwd_kernel<true, 2, 2>>(a, bytes, st);
     }
   }
   switch (blocks) {
-    case 0: return att_launch<attention_bwd_kernel<false, 1, 1>>(a, true, st);
-    case 1: return att_launch<attention_bwd_kernel<false, 1, 2>>(a, true, st);
-    case 2: return att_launch<attention_bwd_kernel<false, 2, 1>>(a, true, st);
-    default: return att_launch<attention_bwd_kernel<false, 2, 2>>(a, true, st);
+    case 0: return att_launch<AttArgs, attention_bwd_kernel<false, 1, 1>>(a, bytes, st);
+    case 1: return att_launch<AttArgs, attention_bwd_kernel<false, 1, 2>>(a, bytes, st);
+    case 2: return att_launch<AttArgs, attention_bwd_kernel<false, 2, 1>>(a, bytes, st);
+    default: return att_launch<AttArgs, attention_bwd_kernel<false, 2, 2>>(a, bytes, st);
   }
 }
 

@@ -162,22 +162,6 @@ struct Params {
   int* part_i;
 };
 
-// the tf32 value of x, rounded to nearest with ties away from zero, as an
-// f32 bit pattern whose 13 low bits cvt.rna leaves zero (tests/
-// test_torch_cuda.py test_tf32_conversion_zeroes_the_low_bits checks it on
-// the card): no mask before x - big
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small: the TF32 rounding of x and that of its remainder
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
 // d = a (64 x 8 tf32, registers: a0 (row g, column t), a1 (g + 8, t), a2
 // (g, t + 4), a3 (g + 8, t + 4) of each warp's 16 rows) times b (8 x 64
 // tf32, K-major, 128-byte swizzle, in shared memory), d not read
@@ -562,10 +546,10 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       uint4 hb, hs;
-      split(v[0], hb.x, hs.x);
-      split(v[1], hb.y, hs.y);
-      split(v[2], hb.z, hs.z);
-      split(v[3], hb.w, hs.w);
+      split_tf32(v[0], hb.x, hs.x);
+      split_tf32(v[1], hb.y, hs.y);
+      split_tf32(v[2], hb.z, hs.z);
+      split_tf32(v[3], hb.w, hs.w);
       const int o = n * TILE_K + ((c ^ (n & 7)) << 2);
       *reinterpret_cast<uint4*>(big + o) = hb;
       *reinterpret_cast<uint4*>(small + o) = hs;
@@ -602,10 +586,10 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
       uint32_t ab[4][4], as[4][4];
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
-        split(va[0][2 * s], ab[s][0], as[s][0]);
-        split(va[1][2 * s], ab[s][1], as[s][1]);
-        split(va[0][2 * s + 1], ab[s][2], as[s][2]);
-        split(va[1][2 * s + 1], ab[s][3], as[s][3]);
+        split_tf32(va[0][2 * s], ab[s][0], as[s][0]);
+        split_tf32(va[1][2 * s], ab[s][1], as[s][1]);
+        split_tf32(va[0][2 * s + 1], ab[s][2], as[s][2]);
+        split_tf32(va[1][2 * s + 1], ab[s][3], as[s][3]);
       }
       mbar_wait(cvt_full(cs), (i / CVT_STAGES) & 1);
       // the slice's products in two 64-wide halves (B's rows 0-63 and

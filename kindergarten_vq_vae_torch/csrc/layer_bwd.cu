@@ -22,7 +22,7 @@
 //
 // In f32 (JAX's parity dtype) the same sequence runs the f32 instances:
 // kvq_gemm_f32 (gemm_f32.cu, 3xTF32, the weight gradients kept in f32), the
-// FFMA attention backward of attention_f32.cuh, and layernorm.cu's f32 rows.
+// 3xTF32 attention backward of attention_f32.cuh, and layernorm.cu's f32 rows.
 //
 // What bounds it on the H100: the dgrad and wgrad GEMMs are twice the
 // forward's FLOPs and compute-bound at 24576 rows (gemm_sm90.cuh says how

@@ -1,16 +1,17 @@
 // Building blocks shared by the layer kernels (layer_fwd.cu, layer_bwd.cu),
-// the GEMMs (gemm_sm90.cuh, gemm_f32.cu), the attention (attention.cuh) and
-// the fused head + CE kernels (head_ce.cu and the f32 GEMM's CE epilogues):
-// the GELU of the JAX package (`_gelu_fwd` / `_gelu_grad`,
-// ops/layer_pallas.py:214/221), warp reductions, the CE's row partials and
-// gradient element, the GEMM's epilogue codes, the fixed-order split-K sum
-// and cp.async.
+// the GEMMs (gemm_sm90.cuh, gemm_f32.cu), the attention (attention.cuh,
+// attention_f32.cuh) and the fused head + CE kernels (head_ce.cu and the f32
+// GEMM's CE epilogues): the GELU of the JAX package (`_gelu_fwd` /
+// `_gelu_grad`, ops/layer_pallas.py:214/221), warp reductions, the CE's row
+// partials and gradient element, the GEMM's epilogue codes, the TF32 split
+// of the 3xTF32 products, the fixed-order split-K sum and cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace kvq {
 
@@ -128,6 +129,41 @@ enum Epilogue {
                        // CE partials
   EPI_CE_BWD = 10,     // fused head + CE backward (head_ce.cu, gemm_f32.cu): g, dbias partials
 };
+
+// the tf32 value of x, rounded to nearest with ties away from zero, as an
+// f32 bit pattern whose 13 low bits cvt.rna leaves zero (tests/
+// test_torch_cuda.py test_tf32_conversion_zeroes_the_low_bits checks it on
+// the card): no mask before x - big
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// to_tf32's bits on two integer operations: the magnitude rounded half up at
+// bit 13, then the 13 low bits cleared. The same bits as cvt.rna for every x
+// that is not a NaN (test_torch_cuda.py test_tf32_conversion_zeroes_the_low_bits
+// checks all 2^32 patterns on the card); ptxas lowers the cvt to a longer
+// sequence that also quiets NaNs.
+__device__ __forceinline__ uint32_t to_tf32_int(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small: the TF32 rounding of x and that of its remainder, the
+// operands of a 3xTF32 product (small * big + big * small + big * big;
+// small * small, 2^-22 relative, dropped): the f32 GEMM (gemm_f32.cu) on
+// cvt.rna, the f32 attention (attention_f32.cuh, INT) on to_tf32_int, where
+// the split is a large share of the instructions
+template <bool INT = false>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (INT) {
+    big = to_tf32_int(x);
+    small = to_tf32_int(x - __uint_as_float(big));
+  } else {
+    big = to_tf32(x);
+    small = to_tf32(x - __uint_as_float(big));
+  }
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -33,7 +33,7 @@
 // returns cudaGetLastError(); kvq_attention_fwd launches its attention alone.
 //
 // In f32 (JAX's parity dtype, in which the TPU kernel runs too) the same
-// sequence runs the f32 instances: the 3xTF32 GEMM of gemm_f32.cu, the FFMA
+// sequence runs the f32 instances: the 3xTF32 GEMM of gemm_f32.cu, the 3xTF32
 // attention of attention_f32.cuh and layernorm.cu's f32 rows; every bf16
 // intermediate above is then f32, and the roundings to it are identities.
 

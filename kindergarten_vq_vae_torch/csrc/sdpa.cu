@@ -22,8 +22,8 @@
 // (sdpa_pallas.py:77) keys it.
 //
 // With f32 set (JAX's parity dtype: every operand and output f32) each entry
-// runs attention_f32.cuh instead: FFMA, a warp a (sentence, head), the same
-// keep-mask ids (op base 0), and for #13 its WHERE_MASK instance.
+// runs attention_f32.cuh instead: 3xTF32 mma.sync, a warp a (sentence,
+// head), the same keep-mask ids (op base 0), and for #13 its WHERE_MASK instance.
 
 #include "attention.cuh"
 #include "attention_f32.cuh"

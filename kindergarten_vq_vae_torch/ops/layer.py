@@ -40,7 +40,7 @@ where the weight cast's VJP rounds.
 
 The compute dtype is bf16 or f32 (JAX's parity dtype, in which the TPU
 kernels run too). On CUDA each kernel has an f32 instance: the layer GEMM's
-3xTF32 ``csrc/gemm_f32.cu``, the FFMA attention of
+3xTF32 ``csrc/gemm_f32.cu``, the 3xTF32 ``mma.sync`` attention of
 ``csrc/attention_f32.cuh`` and the f32 rows of ``csrc/layernorm.cu``; every
 wrapper's ``f32_launches`` counts the f32 share of its ``launches``.
 """

@@ -9,7 +9,8 @@ probabilities keyed on one int32 seed per call (op id = the head, as
 ``kvq_sdpa_bwd`` of ``csrc/sdpa.cu``, over the attention device code the
 fused layer uses (``csrc/attention.cuh``) in bf16 and, on f32 operands
 (JAX's parity dtype, in which ``_sdpa_fwd_kernel`` computes too), over its
-f32 instance (``csrc/attention_f32.cuh``: FFMA, the same keep masks).
+f32 instance (``csrc/attention_f32.cuh``: 3xTF32 ``mma.sync``, the same
+keep masks).
 
 :func:`sdpa_forward_reference` and :func:`sdpa_backward_reference` are the
 same functions in plain PyTorch, at the kernels' rounding points (those of

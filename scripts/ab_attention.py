@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the port's attention kernels, for an A/B of two trees on one card.
 
-    python3 scripts/ab_attention.py [--root DIR] [--iters 50]
+    python3 scripts/ab_attention.py [--root DIR] [--iters 50] [--dtype bfloat16|float32]
 
 Imports ``kindergarten_vq_vae_torch`` from ``--root`` (default: this
 checkout), so the same script times another commit unpacked beside it
@@ -9,7 +9,8 @@ checkout), so the same script times another commit unpacked beside it
 (parent, change, change, parent) in one call. Each entry is the mean device
 time of one call (CUDA events around ``--iters`` calls after a warm-up) at
 the bert-base shapes: batch 2048 x 12 tokens (dropout 0.1), H 768, 12 heads,
-and the bucket-256 serving forward (rate 0):
+and the bucket-256 serving forward (rate 0), in ``--dtype`` (bf16 by
+default; float32 times the f32 instances, csrc/attention_f32.cuh):
 
 - ``attn_fwd_*``: the attention forward inside #1 alone (``attention_forward``,
   where the tree has it);
@@ -20,7 +21,7 @@ and the bucket-256 serving forward (rate 0):
 - ``library_*``: ``F.scaled_dot_product_attention`` and its autograd
   backward at the same shapes (rate 0, head transposes), a yardstick;
 - ``serving_forward``: the median host time of 20 synchronized bucket-256
-  forwards of a seeded bert-base Shelgon3-VQ (fused layers, bf16,
+  forwards of a seeded bert-base Shelgon3-VQ (fused layers, ``--dtype``,
   inference mode), the path a served ``/reconstruct`` runs.
 
 The last line is one JSON object with the times, the card's name and
@@ -86,13 +87,13 @@ def _library(q, k, v, mask, causal: bool):
     return fwd, bwd
 
 
-def _serving_forward_ms(rounds: int = 20) -> float:
+def _serving_forward_ms(dtype: str, rounds: int = 20) -> float:
     import torch
 
     from kindergarten_vq_vae_torch.config import RunConfig
     from kindergarten_vq_vae_torch.models import build_model, init_weights
 
-    cfg = RunConfig(model_name="shelgon3", compute_dtype="bfloat16")
+    cfg = RunConfig(model_name="shelgon3", compute_dtype=dtype)
     model = init_weights(build_model(cfg, device="cuda"),
                          torch.Generator(device="cuda").manual_seed(0)).eval()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -116,6 +117,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -135,9 +137,10 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(0)
     seed, it, ms = 12345, args.iters, {}
+    dtype = getattr(torch, args.dtype)
 
     def rand(*shape):
-        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
     def mask(batch):
         lens = torch.randint(1, SEQ + 1, (batch,), device="cuda", generator=g)
@@ -173,9 +176,9 @@ def main() -> None:
                 ms[f"library_bwd_{kind}"] = _time_ms(lib_bwd, it)
             if kind == "self":
                 ms["mha"] = _time_ms(lambda: mha_forward(q, k, v, m, NH), it)
-    ms["serving_forward"] = _serving_forward_ms()
+    ms["serving_forward"] = _serving_forward_ms(args.dtype)
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "iters": it, "ms": ms}))
+                      "dtype": args.dtype, "iters": it, "ms": ms}))
 
 
 if __name__ == "__main__":

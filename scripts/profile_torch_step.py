@@ -73,7 +73,7 @@ FAMILIES = (
     ("gemm_f32_kernel<false, false", "layer GEMM f32, forward (3xTF32)"),
     ("gemm_f32_kernel<false, true", "layer GEMM f32, dgrad (3xTF32)"),
     ("gemm_f32_kernel<true, false", "layer GEMM f32, wgrad split-K partials (3xTF32)"),
-    # csrc/attention_f32.cuh: attention_f32_kernel<BWD, WHERE_MASK>
+    # csrc/attention_f32.cuh: attention_f32_kernel<BWD, WHERE_MASK, VEC, MT, KT>
     ("attention_f32_kernel<true", "attention backward f32 (#3 / #4 in #2, or #12)"),
     ("attention_f32_kernel<false", "attention forward f32 (in #1, or #11 / #13)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>

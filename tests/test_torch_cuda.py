@@ -44,12 +44,16 @@ through ``fused_head_ce_loss``, the saved logits keep that stride and the
 gradients sit within 1e-2 of the plain path's largest (bf16 g and dx).
 SDPA (#11 / #12) and MHA (#13): outputs and gradients within 2e-2 of their
 largest magnitude (the attention backward's bar: the same device code), the
-attention keep masks exact. The attention kernels (csrc/attention.cuh) at
-their tile edges: every entry (the layer's attention forward and backward,
-#11 / #12, #13) at s_q, s_k in {1, 7, 12, 16, 17, 32}, head_dim 64, 128, 40
-(padded to 48), 36 and 33 (element loads), a fully masked sentence and a
-part-filled last CTA, held to the same 2e-2; keep masks exact through split
-views of a packed qkv / kv at 17 and 32 rows.
+attention keep masks exact. The attention kernels (csrc/attention.cuh and
+its f32 instance csrc/attention_f32.cuh) at their tile edges: every entry
+(the layer's attention forward and backward, #11 / #12, #13) at s_q, s_k in
+{1, 7, 12, 16, 17, 32}, head_dim 64, 128, 40 (padded to 48 in bf16), 36 and
+33 (element loads), a fully masked sentence and a part-filled last CTA,
+held to the same 2e-2 in bf16 and to F32_FWD / F32_GRAD in f32; keep masks
+exact through split views of a packed qkv / kv at 17 and 32 rows, in both
+dtypes. The f32 attention forward and backward at the step's (2048, 12,
+768), self and cross, dropout 0.1, against their function in f64 (one f32
+accumulator a 3xTF32 product, up to 128 deep), at the same f32 bars.
 The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
 f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
@@ -956,52 +960,59 @@ _EDGE_SHAPES = [(s, s) for s in (1, 7, 12, 16, 17, 32)] + [
     (1, 32), (7, 17), (12, 32), (16, 1), (17, 7), (32, 12)]
 
 
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", [64, 128, 40, 36, 33])
 @pytest.mark.parametrize("SQ,SK", _EDGE_SHAPES)
-def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd):
+def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd, dtype):
     """Every attention entry at one shape: 37 sentences x 3 heads (111 warp
     units: the last CTA part-filled), sentence 3 fully masked; head_dim 40
-    pads to 48, 36 and 33 take the element loads (rows not 16-byte aligned)."""
+    pads to 48 in bf16 (40 in f32), 36 and 33 take the element loads in bf16
+    (rows not 16-byte aligned), 33 in f32. bf16 within 2e-2 of the largest
+    magnitude; f32 forwards within F32_FWD, gradients within F32_GRAD, all
+    outputs f32."""
     B, NH = 37, 3
     H, cross = NH * hd, SQ != SK
     if cross:
-        packed = torch.randn(B, SQ, H, device="cuda", generator=gen).bfloat16()
-        kv = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).bfloat16()
+        packed = torch.randn(B, SQ, H, device="cuda", generator=gen).to(dtype)
+        kv = torch.randn(B, SK, 2 * H, device="cuda", generator=gen).to(dtype)
         q, (k, v) = packed, kv.split(H, -1)
     else:
-        packed, kv = torch.randn(B, SQ, 3 * H, device="cuda", generator=gen).bfloat16(), None
+        packed, kv = torch.randn(B, SQ, 3 * H, device="cuda", generator=gen).to(dtype), None
         q, k, v = packed.split(H, -1)
     lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
     mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
     mask[3] = 0
-    g = torch.randn(B, SQ, H, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(B, SQ, H, device="cuda", generator=gen).to(dtype)
     op, causal = (cross_op(NH), False) if cross else (0, True)
+    fwd_bar, grad_bar = (F32_FWD, F32_GRAD) if dtype == F32 else (2e-2, 2e-2)
 
-    def held(got, want):
+    def held(got, want, bar=grad_bar):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         for a, b in zip(got, want):
-            assert a.dtype == torch.bfloat16 and a.shape == b.shape
-            assert torch.isfinite(a).all() and _rel_max(a, b) <= 2e-2
+            assert a.dtype == dtype and a.shape == b.shape
+            assert torch.isfinite(a).all() and _rel_max(a, b) <= bar
 
     layer_args = (packed, kv, mask, NH, causal, 41, op, 0.1)
-    held(attention_forward(*layer_args), attention_forward_reference(*layer_args))
+    held(attention_forward(*layer_args), attention_forward_reference(*layer_args), fwd_bar)
     bwd_args = (packed, kv, mask, g, NH, causal, 41, op, 0.1)
     held(attention_backward(*bwd_args), attention_backward_reference(*bwd_args))
     sdpa_args = (q, k, v, mask, -5)
-    held(sdpa_forward(*sdpa_args, NH, False, 0.1), sdpa_forward_reference(*sdpa_args, NH, False, 0.1))
+    held(sdpa_forward(*sdpa_args, NH, False, 0.1),
+         sdpa_forward_reference(*sdpa_args, NH, False, 0.1), fwd_bar)
     held(sdpa_backward(*sdpa_args, g, NH, False, 0.1),
          sdpa_backward_reference(*sdpa_args, g, NH, False, 0.1))
     if not cross:
         out = mha_forward(q, k, v, mask, NH, True)
-        held(out, mha_reference(q, k, v, mask, NH, True))
+        held(out, mha_reference(q, k, v, mask, NH, True), fwd_bar)
         torch.cuda.synchronize()
         # WHERE_MASK: the fully masked sentence is uniform over every key
-        assert _rel_max(out[3], v[3].float().mean(0).expand(SQ, H)) <= 2e-2
+        assert _rel_max(out[3], v[3].float().mean(0).expand(SQ, H)) <= fwd_bar
 
 
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("S", [17, 32])
 @pytest.mark.parametrize("cross", [False, True])
-def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S):
+def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S, dtype):
     """q = k = 0, v and g one-hot in the key / query position, read through
     split views of the packed qkv / kv: the context shows p * keep and dv
     its transpose, per (query, key, head), equal to the plain masks."""
@@ -1010,7 +1021,7 @@ def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S):
     onehot = torch.zeros(B, S, H, device="cuda")
     for h in range(NH):
         onehot[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
-    onehot = onehot.bfloat16()
+    onehot = onehot.to(dtype)
     zero = torch.zeros_like(onehot)
     if cross:
         packed, kv, op = zero, torch.cat([zero, onehot], -1), cross_op(NH)
@@ -1024,6 +1035,60 @@ def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S):
         keep = attention_keep(1234, op + h, B, S, S, 0.3, "cuda") > 0
         assert torch.equal(ctx[:, :, h] > 0, keep)
         assert torch.equal(dv[:, :, h].transpose(1, 2) > 0, keep)
+
+
+def _attention_f64(q, k, v, mask, g, nh, causal, seed, op_base, rate):
+    """The plain versions' function (ops/layer.py ``_attention`` and
+    ``attention_grads``: additive NEG_INF masks, p = softmax, the keep mask on
+    p) in f64, the gradients through autograd: (ctx, (dq, dk, dv))."""
+    b, sq, H = q.shape
+    sk, hd = k.shape[1], H // nh
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    qh, kh, vh = (t.reshape(b, t.shape[1], nh, hd).transpose(1, 2) for t in leaves)
+    ok = torch.ones(b, 1, sq, sk, dtype=torch.bool, device="cuda")
+    if mask is not None:
+        ok = ok & (mask[:, None, None, :] > 0)
+    if causal:
+        ok = ok & torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril()
+    s = qh @ kh.transpose(-1, -2) / hd ** 0.5 + torch.where(ok, 0.0, -1e9)
+    keep = torch.stack([attention_keep(seed, op_base + h, b, sq, sk, rate, "cuda")
+                        for h in range(nh)], 1).double()
+    ctx = ((torch.softmax(s, -1) * keep) @ vh).transpose(1, 2).reshape(b, sq, H)
+    return ctx.detach(), torch.autograd.grad(ctx, leaves, g.double())
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_attention_f32_accuracy_at_the_step_shape(gen, cross):
+    """The f32 attention forward and backward (3xTF32 products, one f32
+    accumulator each) at the batch-2048 step's shape, (2048, 12, 768), 12
+    heads, dropout 0.1 (self: a padded mask; cross: q and a packed kv),
+    against the plain versions' function in f64: each output within F32_FWD
+    (the context) or F32_GRAD (dq, dk, dv) of its largest magnitude. Prints
+    each output's largest relative error."""
+    B, S, H, NH, rate, seed = 2048, 12, 768, 12, 0.1, 2024
+    if cross:
+        packed = torch.randn(B, S, H, device="cuda", generator=gen)
+        kv = torch.randn(B, S, 2 * H, device="cuda", generator=gen)
+        (q, k, v), mask, op = (packed, *kv.split(H, -1)), None, cross_op(NH)
+    else:
+        packed, kv = torch.randn(B, S, 3 * H, device="cuda", generator=gen), None
+        q, k, v = packed.split(H, -1)
+        lens = torch.randint(1, S + 1, (B,), device="cuda", generator=gen)
+        mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).to(torch.int32)
+        op = 0
+    g = torch.randn(B, S, H, device="cuda", generator=gen)
+    ctx = attention_forward(packed, kv, mask, NH, False, seed, op, rate)
+    grads = attention_backward(packed, kv, mask, g, NH, False, seed, op, rate)
+    torch.cuda.synchronize()
+    want_ctx, want = _attention_f64(q, k, v, mask, g, NH, False, seed, op, rate)
+    got = (grads[0], *grads[1].split(H, -1)) if cross else grads.split(H, -1)
+    errs = {"ctx": _rel_max(ctx, want_ctx)}
+    errs.update({n: _rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)})
+    print(f"f32 attention at (2048, 12, 768), {'cross' if cross else 'self'}, largest relative "
+          f"error against f64: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    assert ctx.dtype == torch.float32 and all(a.dtype == torch.float32 for a in got)
+    assert errs["ctx"] <= F32_FWD
+    assert max(errs[n] for n in ("dq", "dk", "dv")) <= F32_GRAD
 
 
 def test_layer_forward_counts_its_attention(gen):
@@ -1134,29 +1199,22 @@ def test_gemm_weight_gradient_is_deterministic(gen, dtype):
 _TF32_CHECK = r"""
 #include <cstdint>
 #include <cstdio>
-__global__ void check(const uint32_t* in, unsigned* bad, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(__uint_as_float(in[i])));
-  if (r & 0x1fffu) atomicAdd(bad, 1u);                                  // low bits set
-  if (r != ((in[i] + 0x1000u) & 0xffffe000u)) atomicAdd(bad + 1, 1u);  // not ties-away
+__global__ void check(unsigned* bad) {  // every f32 bit pattern that is not a NaN
+  const uint64_t step = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < (1ull << 32); i += step) {
+    const uint32_t x = (uint32_t)i;
+    if ((x & 0x7fffffffu) > 0x7f800000u) continue;
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(__uint_as_float(x)));
+    if (r & 0x1fffu) atomicAdd(bad, 1u);                             // low bits set
+    if (r != ((x + 0x1000u) & 0xffffe000u)) atomicAdd(bad + 1, 1u);  // not ties-away
+  }
 }
 int main() {
-  const int n = 1 << 24;
-  uint32_t* h = new uint32_t[n];
-  uint32_t s = 1;
-  for (int i = 0; i < n; ++i) {  // f32 below 2 in magnitude, of every exponent, both signs
-    s ^= s << 13, s ^= s >> 17, s ^= s << 5;
-    h[i] = s & 0xbfffffffu;
-  }
-  uint32_t* in;
   unsigned* bad;
-  cudaMalloc(&in, 4ull * n);
   cudaMalloc(&bad, 8);
   cudaMemset(bad, 0, 8);
-  cudaMemcpy(in, h, 4ull * n, cudaMemcpyHostToDevice);
-  check<<<n / 256, 256>>>(in, bad, n);
+  check<<<132 * 16, 256>>>(bad);
   unsigned r[2];
   cudaMemcpy(r, bad, 8, cudaMemcpyDeviceToHost);
   printf("%u %u\n", r[0], r[1]);
@@ -1167,9 +1225,11 @@ int main() {
 
 def test_tf32_conversion_zeroes_the_low_bits(gen, tmp_path):
     """The f32 GEMM splits x into big = cvt.rna.tf32(x) and the TF32
-    rounding of x - big with no mask between: on the card, cvt.rna's result
-    has its 13 low bits zero and rounds to nearest, ties away from zero, over
-    2^24 f32 values."""
+    rounding of x - big with no mask between, and the f32 attention rounds
+    the same way on two integer operations (layer_common.cuh to_tf32_int):
+    on the card, cvt.rna's result has its 13 low bits zero and equals (bits
+    + 0x1000) & ~0x1fff, round to nearest with ties away from zero, for every
+    f32 bit pattern that is not a NaN."""
     import subprocess
 
     from kindergarten_vq_vae_torch import _build
