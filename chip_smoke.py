@@ -43,7 +43,9 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    ``F.scaled_dot_product_attention`` and, for #8, that of
    ``F.cross_entropy(reduction="none")`` as yardsticks (for #7 the two calls
    ``F.cross_entropy(reduction='none')`` + ``torch.argmax(x, 1)``, printed
-   only), the VQ kernel timed as in phase 3 at the step's 24,576 rows, and
+   only), #8 also on logits views at every element offset of a 16-byte
+   chunk (its output at the logits' phase), the VQ kernel timed as in
+   phase 3 at the step's 24,576 rows, and
    layers whose weights make
    every keep mask visible (self and cross heads, the three hidden sites,
    forward and backward; held to the plain masks); ``fused_ce_loss`` (#6
@@ -139,7 +141,7 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
 14. the GPT-2 decoder (``GPT2_MODELS``: Bagon and Shelgon3-VQ with a
    GPT-2-small decoder, 12 blocks at H 768, the published vocabulary of
    50,257): #7 and #8 at the step's (24,576, 50,257) logits against their
-   plain versions (rows at all eight 16-byte phases; #8's element path),
+   plain versions (rows at all eight 16-byte phases),
    timed in turns with their bounds and library calls; each model's
    batch-256 gradients against an f32 plain step as in phase 9, its first
    batch-2048 step's loss against the plain route's, 4 steps through the
@@ -1548,12 +1550,57 @@ def _ce_case(g, rows: int, vocab: int, dtype=None):
     return logits, t
 
 
+def _ce_bwd_at_phases(logits, t, grad_tol: float) -> float:
+    """#8 on 256 rows of ``logits`` copied into views at every element offset
+    of a 16-byte chunk (8 bf16 or 4 f32), so each row phase starts the first
+    row, with targets at -1 and V and a row of scale 0: the output at the
+    logits' 16-byte phase and within ``grad_tol`` of its largest magnitude
+    of the plain version's at each. Fails the run otherwise; returns the
+    largest relative difference."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.ce import (
+        ce_bwd,
+        ce_bwd_reference,
+        ce_fwd_ids_reference,
+        target_logits,
+    )
+
+    rows, vocab = 256, logits.shape[1]
+    tt = t[:rows].clone()
+    tt[3], tt[4] = -1, vocab
+    scale = torch.full((rows,), 1.0 / rows, device="cuda")
+    scale[5] = 0.0
+    worst = 0.0
+    for offset in range(16 // logits.element_size()):
+        buf = torch.empty(offset + rows * vocab, dtype=logits.dtype, device="cuda")
+        x = buf[offset:].view(rows, vocab)
+        x.copy_(logits[:rows])
+        lse = ce_fwd_ids_reference(x, tt)[0] + target_logits(x, tt)
+        got = ce_bwd(x, tt, lse, scale)
+        torch.cuda.synchronize()
+        rel = _rel_max(got, ce_bwd_reference(x, tt, lse, scale))
+        worst = max(worst, rel)
+        if (rel > grad_tol or got.data_ptr() % 16 != x.data_ptr() % 16
+                or bool((got[5] != 0).any())):
+            _fail(f"CE backward kernel disagrees with its plain version on a logits view at "
+                  f"element offset {offset}, vocabulary {vocab} {logits.dtype}: max rel {rel:.3e} "
+                  f"(tol {grad_tol}), output phase {got.data_ptr() % 16} against the logits' "
+                  f"{x.data_ptr() % 16}")
+        del buf, x, lse, got
+    print(f"ce bwd ({rows},{vocab}) {logits.dtype} at element offsets 0-"
+          f"{16 // logits.element_size() - 1}: max rel {worst:.3e} (tol {grad_tol}), output at "
+          f"the logits' 16-byte phase, the zero-scale row 0")
+    return worst
+
+
 def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
     """#7 and #8 on ``logits`` against their plain versions (ids exact, NLL
     within CE_NLL_ABS, the gradient within CE_GRAD_REL of its largest; f32
-    logits: NLL within F32_NLL_REL relative, the gradient within F32_GRAD),
-    each timed in turns with its plain version, with its bound and library
-    yardstick: (#7's row, #8's row, #7's NLL)."""
+    logits: NLL within F32_NLL_REL relative, the gradient within F32_GRAD;
+    #8 also at every row phase, :func:`_ce_bwd_at_phases`), each timed in
+    turns with its plain version, with its bound and library yardstick:
+    (#7's row, #8's row, #7's NLL)."""
     import torch
     import torch.nn.functional as F
 
@@ -1597,10 +1644,11 @@ def _ce_ids_and_grad(logits, t) -> tuple[dict, dict, object]:
         want = ce_bwd_reference(logits, t, lse, scale)
         rel = _rel_max(got, want)
         print(f"ce bwd ({rows},{vocab}) {dt}: max rel {rel:.3e} (tol {grad_tol})")
-        if rel > grad_tol:
+        if rel > grad_tol or got.data_ptr() % 16 != logits.data_ptr() % 16:
             _fail(f"CE backward kernel disagrees with its plain version at vocabulary {vocab}")
         err = (got.float() - want.float()).abs().max().item()
         del got, want
+        _ce_bwd_at_phases(logits, t, grad_tol)
         k_ms, p_ms = _paired_ms(lambda: ce_bwd(logits, t, lse, scale),
                                 lambda: ce_bwd_reference(logits, t, lse, scale), 10)
         # subtract, exp, one-hot subtract, scale, round per logit; bytes: the

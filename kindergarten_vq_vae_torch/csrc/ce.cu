@@ -10,42 +10,50 @@
 //             maxima (jnp.argmax / the TPU kernel's first-max rule across
 //             blocks); without ids (#6) the same NLL alone
 //   backward  dx[r, c] = (exp(x[r, c] - lse[r]) - [c == target[r]]) * scale[r]
-//             written in bf16
+//             written in the logits' type
 //
 // What bounds it on the H100: bytes. Each pass reads the 1.5 GB of logits
 // once (the backward also writes 1.5 GB), 0.448 ms at 3.35 TB/s for the
-// forward. A per-element online softmax (a branch, an expf on either path, an
-// argmax compare and a target compare: 15-20 instructions over 750 M
-// elements) costs as much issue time as the bytes take, so the forward
-// works on 16-byte chunks:
-// - one warp a row, 8 rows a block; a row is a scalar head up to its first
-//   16-byte boundary (rows of 30,522 bf16 start at four 16-byte phases), a
-//   body of 16-byte loads of 8 bf16, four in flight a lane, and a scalar
-//   tail, so every row phase and an odd vocabulary take the same path with
-//   no padded copy of the logits;
-// - per chunk, as the TPU kernel does per tile (ce_pallas.py:82-86): its
-//   max from 7 fmaxf, one rescale of the running sum when the max grows,
-//   then its 8 exps. The exps are `ex2.approx` of x * log2(e) - m * log2(e)
-//   (one FMA and one MUFU op an element; the scaled max is rounded once a
-//   new max, and lse = (m * log2(e) + log2(s)) * ln 2): the NLL stays within
-//   a few 1e-6 of the plain f32 version's at |x| ~ 40, against CE_NLL_ABS
-//   1e-4, where a libm expf costs some 20 instructions an element;
+// forward, 0.896 for the backward. A per-element online softmax (a branch,
+// an expf on either path, an argmax compare and a target compare: 15-20
+// instructions over 750 M elements) costs as much instruction time as the bytes
+// take, so both directions work on 16-byte chunks:
+// - a row is a scalar head up to its first 16-byte boundary (rows of
+//   30,522 bf16 start at four 16-byte phases, of GPT-2's 50,257 at all
+//   eight), a body of 16-byte loads of 8 bf16 or 4 f32, and a scalar tail,
+//   so every row phase, any vocabulary and either dtype take the same path
+//   with no padded copy of the logits; the forward takes a warp a row, 8
+//   rows a block, four loads in flight a lane; the backward a 256-thread
+//   block a row, eight loads in flight a thread to the row's end (of the
+//   probes on the H100, the fastest at 83-87% of its byte bound, where a
+//   device copy of the same bytes reaches 91%; a warp a row with four in
+//   flight took 2-4% longer, streaming stores gained nothing, PERF.md);
+// - the exps are `ex2.approx` of x * log2(e) - m * log2(e) (one FMA and one
+//   MUFU op an element, the scaled max or lse rounded once), within a few
+//   1e-6 relative of a libm expf, which costs some 20 instructions;
+// - forward, per chunk as the TPU kernel does per tile (ce_pallas.py:82-86):
+//   its max from 7 fmaxf, one rescale of the running sum when the max
+//   grows, then its exps; the scaled max is rounded once a new max, and lse
+//   = (m * log2(e) + log2(s)) * ln 2: the NLL stays within a few 1e-6 of
+//   the plain f32 version's at |x| ~ 40, against CE_NLL_ABS 1e-4;
 // - the argmax rides on the running max: a chunk whose max beats it
 //   (strict >) looks for its first index of that value, so a lane keeps its
 //   lowest index; lanes merge by the larger value and, on equal values, the
 //   lower index;
 // - lane 0 reads x[row, target] once (0 outside the vocabulary, as
-//   `target_logits` does): no compare an element.
-// The backward streams a row per block with bf16 pairs (elements where the
-// vocabulary is odd or a buffer is not 4-byte aligned). #6 and #7 are one
-// template: the flag IDS drops the argmax state, so the two share every
-// other line and give the same NLL bits.
+//   `target_logits` does): no compare an element;
+// - backward: the output row starts at the logits row's 16-byte phase (the
+//   wrapper allocates it so: a model's logits start at offset 0, and their
+//   gradient then does too, as cuBLAS's dgrad wants), so a body chunk is
+//   one 16-byte load and one 16-byte store; the target is tested once a
+//   chunk, and its element keeps the plain version's (p - 1) * scale.
+// #6 and #7 are one template: the flag IDS drops the argmax state, so the
+// two share every other line and give the same NLL bits.
 //
 // f32 logits (an f32 run: JAX's parity dtype, in which its Pallas kernels
 // run too) take the same kernels instantiated on float: a 16-byte chunk is 4
 // f32, rows of 30,522 f32 (122,088 bytes, 8 mod 16) start at two 16-byte
-// phases and rows of GPT-2's 50,257 at four; the backward takes its element
-// path (4-byte accesses, whole 128-byte lines a warp).
+// phases and rows of GPT-2's 50,257 at four.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,8 +65,9 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
-constexpr int CE_THREADS = 256;  // backward: a block a row
-constexpr int CE_ROWS = 8;       // forward: a warp a row, 8 rows a block
+constexpr int CE_ROWS = 8;       // the forward: a warp a row, 8 rows a block
+constexpr int CE_THREADS = 256;  // the backward: a block a row
+constexpr int BWD_DEPTH = 8;     // the backward: 16-byte loads in flight a thread
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float ex2(float v) {
@@ -200,36 +209,78 @@ ce_fwd_kernel(const T* __restrict__ logits, int rows, int vocab,
   }
 }
 
+// one element of the gradient: p = 2^(x log2(e) - lse log2(e)), the one-hot
+// subtracted at the target and the row's scale applied last, the plain
+// version's order
+__device__ __forceinline__ float grad1(float x, float lL, bool hit, float sc) {
+  const float p = ex2(fmaf(x, LOG2E, -lL));
+  return (hit ? p - 1.0f : p) * sc;
+}
+
+__device__ __forceinline__ uint4 pack(const float (&g)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(g[2 * k], g[2 * k + 1]);
+  return u;
+}
+
+__device__ __forceinline__ uint4 pack(const float (&g)[4]) {
+  return make_uint4(__float_as_uint(g[0]), __float_as_uint(g[1]), __float_as_uint(g[2]),
+                    __float_as_uint(g[3]));
+}
+
+// the gradient of a 16-byte chunk; kt is the target's place in it (outside
+// [0, E) when the chunk does not hold it), tested once a chunk
+template <typename T>
+__device__ __forceinline__ uint4 grad_chunk(const uint4& u, int kt, float lL, float sc) {
+  constexpr int E = 16 / sizeof(T);
+  float g[E];
+  unpack(u, g);
+#pragma unroll
+  for (int k = 0; k < E; ++k) g[k] = ex2(fmaf(g[k], LOG2E, -lL));
+  if (static_cast<unsigned>(kt) < E) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) g[k] = k == kt ? g[k] - 1.0f : g[k];
+  }
+#pragma unroll
+  for (int k = 0; k < E; ++k) g[k] *= sc;
+  return pack(g);
+}
+
+// #8: a block a row, the row cut as ce_fwd_kernel cuts it, each thread
+// keeping BWD_DEPTH 16-byte loads in flight to the row's end; out shares the
+// logits' 16-byte phase (kvq_ce_bwd checks it), so each body chunk is one
+// 16-byte load and one 16-byte store
 template <typename T>
 __global__ void __launch_bounds__(CE_THREADS)
 ce_bwd_kernel(const T* __restrict__ logits, int vocab, const int* __restrict__ targets,
               const float* __restrict__ lse, const float* __restrict__ scale,
               T* __restrict__ out) {
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const size_t base = (size_t)row * vocab;
+  constexpr int E = 16 / sizeof(T), L = CE_THREADS, D = BWD_DEPTH;
+  const int lane = threadIdx.x, row = blockIdx.x;
+  const T* x = logits + (size_t)row * vocab;
+  T* o = out + (size_t)row * vocab;
+  int head = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(x) & 15u)) & 15u) / sizeof(T));
+  head = head < vocab ? head : vocab;
+  const int body = (vocab - head) / E, tail = head + E * body;
   const int tgt = targets[row];
-  const float l = lse[row], sc = scale[row];
-  // bf16 pairs need 4-byte aligned rows: an even vocabulary and 4-byte
-  // aligned buffers (a view that starts at an odd element takes the element
-  // path); f32 takes the element path
-  const bool pairs = sizeof(T) == 2 && (vocab & 1) == 0 &&
-                     ((reinterpret_cast<uintptr_t>(logits) | reinterpret_cast<uintptr_t>(out)) &
-                      3u) == 0;
-  if (pairs) {
-    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(logits + base);
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + base);
-    for (int p = tid; p < vocab / 2; p += CE_THREADS) {
-      const float2 v = __bfloat1622float2(x2[p]);
-      const float g0 = (expf(v.x - l) - (2 * p == tgt ? 1.0f : 0.0f)) * sc;
-      const float g1 = (expf(v.y - l) - (2 * p + 1 == tgt ? 1.0f : 0.0f)) * sc;
-      o2[p] = __floats2bfloat162_rn(g0, g1);
-    }
-  } else {
-    for (int c = tid; c < vocab; c += CE_THREADS) {
-      const float v = to_f32(logits[base + c]);
-      from_f32(out[base + c], (expf(v - l) - (c == tgt ? 1.0f : 0.0f)) * sc);
-    }
+  const float lL = lse[row] * LOG2E, sc = scale[row];
+  if (lane < head) from_f32(o[lane], grad1(to_f32(x[lane]), lL, lane == tgt, sc));
+  const uint4* xb = reinterpret_cast<const uint4*>(x + head);
+  uint4* ob = reinterpret_cast<uint4*>(o + head);
+  const int kt = tgt - head;  // the target's column counted from the body
+  for (int c = lane; c < body; c += D * L) {
+    uint4 u[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      if (c + k * L < body) u[k] = __ldg(xb + c + k * L);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      if (c + k * L < body) ob[c + k * L] = grad_chunk<T>(u[k], kt - E * (c + k * L), lL, sc);
   }
+  const int ct = tail + lane;
+  if (ct < vocab) from_f32(o[ct], grad1(to_f32(x[ct]), lL, ct == tgt, sc));
 }
 
 template <bool IDS, typename T>
@@ -273,10 +324,13 @@ int kvq_ce_fwd(const void* logits, const int* targets, void* nll, int rows, int 
 }
 
 // out (rows, vocab), the logits' type, = (softmax(logits) - one_hot(targets))
-// * scale[:, None], with softmax from the per-row lse (f32).
+// * scale[:, None], with softmax from the per-row lse (f32). out starts at
+// the logits' 16-byte phase (cudaErrorInvalidValue otherwise).
 int kvq_ce_bwd(const void* logits, const int* targets, const void* lse, const void* scale,
                void* out, int rows, int vocab, int f32, void* stream) {
   if (rows <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(logits) ^ reinterpret_cast<uintptr_t>(out)) & 15u)
+    return static_cast<int>(cudaErrorInvalidValue);
   return f32 ? launch_bwd<float>(logits, targets, lse, scale, out, rows, vocab, stream)
              : launch_bwd<bf16>(logits, targets, lse, scale, out, rows, vocab, stream);
 }

@@ -8,7 +8,10 @@ TPU kernel #6 ``_ce_fwd_kernel`` l.34, and ``kvq_ce_fwd_ids``, #7
 ``_ce_fwd_ids_kernel`` l.63) return per-row f32 NLL and, for #7, int32 ids
 (the lowest index among equal maxima); the backward kernel (``kvq_ce_bwd``,
 #8 ``_ce_bwd_kernel`` l.104, which ``fused_ce_loss`` shares as l.245 does)
-writes ``(softmax - one_hot) * scale`` in the logits' dtype. Around them, as
+writes ``(softmax - one_hot) * scale`` in the logits' dtype into an output
+that starts at the logits' 16-byte phase (:func:`phase_matched_empty`), so
+every row, at any phase and vocabulary, is a scalar head, 16-byte chunks
+loaded and stored whole, and a scalar tail. Around them, as
 l.263-283: ``lse = nll + x[target]``, ``denom = max(sum(valid), 1) * S``
 and ``scale = g / denom * valid``. The logits are bf16 or f32 (an f32 run,
 JAX's parity dtype), each with its own instance of the kernels; each
@@ -120,10 +123,21 @@ ce_fwd_ids.launches = 0
 ce_fwd_ids.f32_launches = 0
 
 
+def phase_matched_empty(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor like ``t`` whose first element sits
+    at ``t``'s 16-byte phase: a view ``(t.data_ptr() % 16) // element_size``
+    elements into a fresh buffer (the allocators start buffers on 16-byte
+    boundaries), so for ``t`` at offset 0, as a model's logits are, it is a
+    buffer of its own."""
+    lead = t.data_ptr() % 16 // t.element_size()
+    flat = torch.empty(lead + t.numel(), dtype=t.dtype, device=t.device)
+    return flat[lead:].view(t.shape)
+
+
 def ce_bwd(logits2d, targets, lse, scale) -> torch.Tensor:
-    """The logits' gradient (#8). A CPU tensor takes :func:`ce_bwd_reference`;
-    a CUDA tensor launches ``kvq_ce_bwd`` or raises, and each launch adds one
-    to ``ce_bwd.launches``."""
+    """The logits' gradient (#8), at the logits' 16-byte phase. A CPU tensor
+    takes :func:`ce_bwd_reference`; a CUDA tensor launches ``kvq_ce_bwd`` or
+    raises, and each launch adds one to ``ce_bwd.launches``."""
     if logits2d.device.type == "cpu":
         return ce_bwd_reference(logits2d, targets, lse, scale)
     f32 = _check(logits2d, targets, "ce_bwd")
@@ -131,7 +145,7 @@ def ce_bwd(logits2d, targets, lse, scale) -> torch.Tensor:
     for name, t in (("lse", lse), ("scale", scale)):
         if t.dtype != torch.float32 or t.shape != (rows,) or not t.is_contiguous():
             raise TypeError(f"ce_bwd takes contiguous f32 (rows,) {name}")
-    out = torch.empty_like(logits2d)
+    out = phase_matched_empty(logits2d)
     _build.launch("kvq_ce_bwd", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I], logits2d.data_ptr(),
                   targets.data_ptr(), lse.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
                   vocab, f32, device=logits2d.device)

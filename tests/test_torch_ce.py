@@ -10,7 +10,11 @@ TPU kernel's vocab blocks. The card kernel reads a row as 8-element chunks
 from its first 16-byte boundary: at the odd vocabularies 523, 1031, 9, 7
 and 1 the rows start at every 8-element phase, 8 puts them all on one, and
 each row of the first sentence has ties across an 8-wide chunk boundary,
-shifted by one column a row.
+shifted by one column a row. The backward's plain version is also held
+directly to the TPU kernel #8 (``_ce_pallas_bwd``, interpret mode) given the
+same ``lse`` and ``scale``: targets at -1, V, V - 1 and 0 and a row whose
+scale is 0, atol 1e-6. The card kernel's output starts at the logits'
+16-byte phase, which ``phase_matched_empty`` gives at every element offset.
 """
 
 import jax
@@ -19,15 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from kindergarten_vq_vae_tpu.ops.ce_pallas import _ce_pallas_bwd
 from kindergarten_vq_vae_tpu.ops.ce_pallas import fused_ce_loss as jax_ce_loss
 from kindergarten_vq_vae_tpu.ops.ce_pallas import fused_ce_loss_ids as jax_ce
 from kindergarten_vq_vae_tpu.train.losses import kl_recon_loss as jax_kl
 from kindergarten_vq_vae_torch.ops.ce import (
     ce_bwd,
+    ce_bwd_reference,
     ce_fwd,
     ce_fwd_ids,
     fused_ce_loss,
     fused_ce_loss_ids,
+    phase_matched_empty,
 )
 from kindergarten_vq_vae_torch.train.losses import kl_recon_loss
 
@@ -99,6 +106,41 @@ def test_ce_loss_without_ids_matches_jax():
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(dlogits_w), atol=1e-6, rtol=0)
     ids_loss, _ = fused_ce_loss_ids(x.detach(), torch.from_numpy(targets), torch.from_numpy(valid))
     assert torch.equal(loss.detach(), ids_loss)  # the same NLL as #7's
+
+
+@pytest.mark.parametrize("vocab", [1, 7, 8, 9, V])
+def test_ce_bwd_reference_matches_the_tpu_kernel(vocab):
+    """#8's plain version against ``_ce_pallas_bwd`` on the same lse and
+    scale: targets outside the vocabulary (-1, V) get no one-hot, the first
+    and last columns do, and a row of scale 0 is all 0."""
+    rng = np.random.default_rng(4)
+    rows = 13
+    logits = rng.normal(scale=3.0, size=(rows, vocab)).astype(np.float32)
+    targets = rng.integers(0, vocab, rows).astype(np.int32)
+    targets[:4] = [-1, vocab, vocab - 1, 0]
+    lse = (np.log(np.exp(logits.astype(np.float64)).sum(1)) + rng.normal(0, 0.1, rows)
+           ).astype(np.float32)
+    scale = rng.uniform(0.1, 2.0, rows).astype(np.float32)
+    scale[5] = 0.0
+    want = _ce_pallas_bwd(jnp.asarray(logits), jnp.asarray(targets), jnp.asarray(lse),
+                          jnp.asarray(scale), 8, BLOCK_V, True)
+    got = ce_bwd_reference(*(torch.from_numpy(a) for a in (logits, targets, lse, scale)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    assert (got[5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype, offset", [(torch.bfloat16, o) for o in range(8)]
+                         + [(torch.float32, o) for o in range(4)])
+def test_phase_matched_empty_starts_at_the_logits_phase(dtype, offset):
+    """The backward's output at every element offset of a view: the same
+    16-byte phase and shape as the logits, contiguous, and at offset 0 a
+    buffer of its own (aligned, as cuBLAS's dgrad reads it)."""
+    buf = torch.zeros(offset + 3 * 37, dtype=dtype)
+    x = buf[offset:].view(3, 37)
+    out = phase_matched_empty(x)
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+    assert (out.storage_offset() == 0) == (x.data_ptr() % 16 == 0)
 
 
 @pytest.mark.parametrize("all_invalid", [False, True])

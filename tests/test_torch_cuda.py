@@ -26,8 +26,12 @@ f32 sums in another order), dlogits within 1e-2 of the largest magnitude
 (one bf16 ulp); the forward kernels also at rows starting at every 16-byte
 phase, vocabularies 30,522, 30,521, 9, 8, 7 and 1, ties within and across
 8-wide chunks and lanes, and targets in a row's head, body and tail and
-outside the vocabulary. AMSGrad (#14): bit for bit, over leaves of ragged lengths,
-a leaf without a gradient, a misaligned leaf and a chunk boundary.
+outside the vocabulary; the backward at logits views of every element
+offset of a 16-byte chunk, in bf16 and f32, at vocabularies 1, 7, 8, 9,
+30,522, 50,257 and 50,264, with targets on a chunk's first and last
+element and a row of scale 0, its output at the logits' 16-byte phase.
+AMSGrad (#14): bit for bit, over leaves of ragged lengths, a leaf without a
+gradient, a misaligned leaf and a chunk boundary.
 Fused head + CE (#9, #10), both modes, ragged rows and odd vocabularies,
 and at the tile edges (rows 1, 128, 129; V 256, 129, 2053; H 64, 768):
 the kernel's logits within two bf16 ulps at the top of their range of the
@@ -79,7 +83,7 @@ b1 from the GELU-gradient GEMM's epilogue) within 1e-4 of its largest
 magnitude (f32 sums over up to 24,576 rows in another order; for b1 also
 the GEMM's own 1e-4), and the same bits from run to run.
 CE at GPT-2's vocabulary (#7, #8): 50,257 (rows at all eight 16-byte
-phases; #8's element path) and 50,264 (its paired path), at the CE bars
+phases) and 50,264 (every row at the first row's phase), at the CE bars
 above, targets outside the vocabulary included. The GPT-2 decoder (plain
 PyTorch) in bf16 on the card, forward and backward, against the CPU's f32
 pass: no further from it than 1.25 times the CPU's bf16 pass, plus one bf16
@@ -516,16 +520,11 @@ def test_ce_kernels_match_plain(gen, dtype):
     nll_p, ids_p = ce_fwd_ids_reference(x, t)
     assert torch.equal(ids, ids_p) and ids[0] == 5 and ids[1] == 7 and ids[2] == 0
     _nll_held(nll, nll_p, dtype)
-    lse = nll_p + x.float().gather(1, t.long()[:, None])[:, 0]
-    scale = torch.rand(rows, device="cuda", generator=gen) / rows
-    got = ce_bwd(x, t, lse, scale)
-    torch.cuda.synchronize()
+    _held_ce_bwd(gen, x, t, nll_p + x.float().gather(1, t.long()[:, None])[:, 0])
     f32 = int(dtype == F32)
     assert (ce_fwd_ids.launches, ce_bwd.launches, ce_fwd_ids.f32_launches,
             ce_bwd.f32_launches) == (before[0] + 1, before[1] + 1, before[2] + f32, before[3] + f32)
-    assert got.dtype == dtype and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= (
-        F32_GRAD if f32 else 1e-2)
-    odd = x[:, :30521].contiguous()  # odd vocab: the scalar path
+    odd = x[:, :30521].contiguous()  # an odd vocabulary: rows at every 16-byte phase
     assert torch.equal(ce_fwd_ids(odd, t.clamp(max=30520))[1],
                        ce_fwd_ids_reference(odd, t.clamp(max=30520))[1])
 
@@ -570,6 +569,23 @@ def _ce_edge_case(gen, rows, vocab, offset, dtype=BF):
     return x, t
 
 
+def _held_ce_bwd(gen, x, t, lse):
+    """#8 on ``x`` against its plain version, with a random scale and a row
+    of scale 0: within 1e-2 (bf16) or F32_GRAD (f32) of the largest
+    magnitude, the zero row all 0, in the logits' dtype, and out at the
+    logits' 16-byte phase (so 16-byte aligned where the logits are)."""
+    rows = x.shape[0]
+    scale = torch.rand(rows, device="cuda", generator=gen) / rows
+    scale[rows // 2] = 0.0
+    got = ce_bwd(x, t, lse, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape and got.is_contiguous()
+    assert got.data_ptr() % 16 == x.data_ptr() % 16
+    assert _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= (
+        F32_GRAD if x.dtype == F32 else 1e-2)
+    assert (got[rows // 2] == 0).all()
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("vocab", [30522, 30521, 9, 8, 7, 1])
 def test_ce_fwd_kernels_at_row_phases(gen, vocab, offset):
@@ -586,6 +602,30 @@ def test_ce_fwd_kernels_at_row_phases(gen, vocab, offset):
     assert ids[-1] == 0
     assert (nll - nll_p).abs().max() <= 1e-4
     assert torch.equal(nll6, nll)
+
+
+@pytest.mark.parametrize("vocab", [1, 7, 8, 9, 30522, 50257, 50264])
+@pytest.mark.parametrize("dtype, offset", [(BF, o) for o in range(8)]
+                         + [(F32, o) for o in range(4)])
+def test_ce_bwd_kernel_at_row_phases(gen, vocab, dtype, offset):
+    """#8 over logits views at every element offset of a 16-byte chunk (8
+    bf16 or 4 f32), so the first row starts at every 16-byte phase (and
+    odd vocabularies put the rows at every phase besides), at vocabularies
+    under, at and over one chunk and the model's 30,522 / 50,257 / 50,264,
+    with targets at every place a row is cut (the head's first and last
+    column, a body chunk's first and last, the body's last, the tail's
+    first, the row's last, -1 and V) and a row of scale 0."""
+    x, t = _ce_edge_case(gen, 64, vocab, offset, dtype)
+    es = x.element_size()
+    for r in range(64):
+        h = min((16 - (x[r].data_ptr() % 16)) % 16 // es, vocab)
+        tail = h + 16 // es * ((vocab - h) // (16 // es))
+        t[r] = [0, h - 1, h, h + 16 // es - 1, h + 16 // es, tail - 1, tail, vocab - 1, vocab,
+                -1][r % 10]
+    lse = ce_fwd_ids_reference(x, t)[0] + target_logits(x, t)
+    before = ce_bwd.launches
+    _held_ce_bwd(gen, x, t, lse)
+    assert ce_bwd.launches == before + 1
 
 
 def _head_case(gen, rows, V, H):
@@ -1524,11 +1564,11 @@ def test_f32_kernel_route_matches_plain(gen, model_name, over):
 @pytest.mark.parametrize("vocab", [50257, 50264])
 def test_ce_kernels_at_the_gpt2_vocabulary(gen, vocab, offset, dtype):
     """#7 and #8 at GPT-2's odd vocabulary (each row starts at another
-    16-byte phase: eight over 64 rows in bf16, four in f32; #8 takes its
-    element path) and at the even 50,264 (#8's paired path in bf16), with
-    ties, targets in a row's head, body and tail and outside the vocabulary:
-    ids exact, NLL within 1e-4 (bf16) or 1e-5 relative (f32), dlogits within
-    1e-2 (bf16) or 1e-4 (f32) of the largest magnitude."""
+    16-byte phase: eight over 64 rows in bf16, four in f32) and at the even
+    50,264 (every row at the first row's phase), with ties, targets in a
+    row's head, body and tail and outside the vocabulary: ids exact, NLL
+    within 1e-4 (bf16) or 1e-5 relative (f32), dlogits within 1e-2 (bf16)
+    or 1e-4 (f32) of the largest magnitude, at the logits' phase."""
     x, t = _ce_edge_case(gen, 64, vocab, offset, dtype)
     nll, ids = ce_fwd_ids(x, t)
     torch.cuda.synchronize()
@@ -1537,12 +1577,7 @@ def test_ce_kernels_at_the_gpt2_vocabulary(gen, vocab, offset, dtype):
     _nll_held(nll, nll_p, dtype)
     phases = 16 // x.element_size() if vocab % 2 else 1
     assert len({x[r].data_ptr() % 16 for r in range(8)}) == phases
-    lse = nll_p + target_logits(x, t)
-    scale = torch.rand(64, device="cuda", generator=gen) / 64
-    got = ce_bwd(x, t, lse, scale)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and _rel_max(got, ce_bwd_reference(x, t, lse, scale)) <= (
-        F32_GRAD if dtype == F32 else 1e-2)
+    _held_ce_bwd(gen, x, t, nll_p + target_logits(x, t))
 
 
 def _gpt2_decoder_pass(model, ids, mask, enc, emask):
