@@ -186,7 +186,25 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    route's), their medians and peak memory; each route's batch-256 loss and
    gradients against the f32 plain route's; a 1-epoch f32 CLI run with
    ``--set fused_head_ce='store'`` and one with ``--set fused_layer='off'``,
-   each served through ``Reconstructor`` against the plain route.
+   each served through ``Reconstructor`` against the plain route;
+16. serving export and the last single-device modules (``phase_export``):
+   the serving slice's bert-base Shelgon3-VQ run exported at bucket 256
+   (``serve/export.py``: ``torch.export`` with the kernels as the custom ops
+   ``kvq::layer_fwd``, ``kvq::vq_fwd`` and ``kvq::sdpa_fwd``, the parameters
+   a call argument) on the default route in bf16, on the per-module route
+   (``fused_layer="off"``) and in f32: no launch in the export; the artifact
+   served over HTTP through ``http_server --artifact`` answering
+   ``/reconstruct`` and ``/codes`` exactly as the live kernel path does;
+   one artifact forward's launches (24 #1 and one #5, or 36 #11 and one #5;
+   no plain version) and its ids and codes equal to the live forward's bit
+   for bit; the ``.pt2`` size and the live and artifact bucket-256 medians in
+   turns beside ``utils/profiling.benchmark_fn``'s means; the bf16 run's
+   reference ``.pth`` bundle (``ckpt/export_torch.py``) converted back and
+   equal to the model's parameters bit for bit, and its key count; on phase
+   14's Shelgon3-VQ with the GPT-2-small decoder, the sentence latents and
+   the disentanglement through the kernels on the cut corpus, and the
+   refusals of the three arithmetic modes and of the attention maps before
+   any launch.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -914,15 +932,15 @@ def _vq_times(z, e, what: str) -> dict:
     import torch
 
     from kindergarten_vq_vae_torch.ops.vq import _core, vector_quantize, vq_raw
-    from kindergarten_vq_vae_torch.ops.vq_kernel import _launch, vector_quantize_kernel
+    from kindergarten_vq_vae_torch.ops.vq_kernel import _launch_packed, vector_quantize_kernel
 
     z_flat = z.reshape(-1, z.shape[-1])
-    a, b = _launch(z_flat, e), _launch(z_flat, e)
-    if not (torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])):
-        _fail(f"VQ kernel: sum_z or diff differ between two launches ({what})")
+    a, b = _launch_packed(z_flat, e), _launch_packed(z_flat, e)
+    if not torch.equal(a[2], b[2]):
+        _fail(f"VQ kernel: sum_z, counts or diff differ between two launches ({what})")
     p1 = _time_ms(lambda: _core(z_flat, e, vq_raw), 20)
-    k1 = _graph_ms(lambda: _launch(z_flat, e))
-    k2 = _graph_ms(lambda: _launch(z_flat, e))
+    k1 = _graph_ms(lambda: _launch_packed(z_flat, e))
+    k2 = _graph_ms(lambda: _launch_packed(z_flat, e))
     p2 = _time_ms(lambda: _core(z_flat, e, vq_raw), 20)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     w_ms, pw_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
@@ -1113,7 +1131,7 @@ def _sentences(n: int, rng) -> list[str]:
     return [" ".join(rng.choice(WORDS) for _ in range(rng.randint(1, SEQ - 2))) for _ in range(n)]
 
 
-def _write_run(root: str, fused_layer: str = "auto") -> str:
+def _write_run(root: str, fused_layer: str = "auto", dtype: str = "bfloat16") -> str:
     import dataclasses
 
     import torch
@@ -1128,7 +1146,7 @@ def _write_run(root: str, fused_layer: str = "auto") -> str:
     os.makedirs(data_dir)
     os.makedirs(run)
     cfg = RunConfig(model_name="shelgon3", vocab_size=30522, hidden_size=768, num_layers=12,
-                    num_heads=12, intermediate_size=3072, compute_dtype="bfloat16", vq_n_e=9,
+                    num_heads=12, intermediate_size=3072, compute_dtype=dtype, vq_n_e=9,
                     vq_e_dim=768, data_dir=data_dir, tokenized_sentence_max_length=SEQ,
                     fused_layer=fused_layer)
     with open(os.path.join(run, "run_conf.json"), "w") as f:
@@ -4104,6 +4122,263 @@ def phase_f32_routes(names: tuple[str, str], f32: dict) -> dict:
     return {**res, "train": tr, "grads": grads, "engine": eng, "wall_s": wall}
 
 
+# phase 16, serving export, the reference bundle and the GPT-2 analyses: the
+# serving slice's run exported at bucket 256 on each route (name, fused_layer,
+# compute dtype), served through ``http_server --artifact`` and held to the
+# live kernel path bit for bit; the timing rounds of the live and the
+# artifact forward, in turns
+EXPORT_CASES = (("bf16", "auto", "bfloat16"), ("per-module", "off", "bfloat16"),
+                ("f32", "auto", "float32"))
+EXPORT_ROUNDS = 10
+
+
+def _served_launches(fused_layer: str, dtype: str) -> dict:
+    """The launches of one Shelgon3-VQ serving forward on a route."""
+    want = ({"sdpa_fwd_self": 24, "sdpa_fwd_cross": 12, "vq": 1} if fused_layer == "off"
+            else {"layer_fwd": 24, "vq": 1, **_inside_layers(1)})
+    counts = {k: 0 for k in _counters()} | want
+    return _as_f32(counts) if dtype == "float32" else counts
+
+
+def _export_case(names, root: str, case: str, fused_layer: str, dtype: str, rng) -> dict:
+    """One route of phase 16 (a)-(c): export, serve over HTTP, hold to the
+    live path, count one artifact forward's launches, time both in turns."""
+    import torch
+
+    from kindergarten_vq_vae_torch.serve import http_server
+    from kindergarten_vq_vae_torch.serve.export import export_reconstructor
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+    from kindergarten_vq_vae_torch.utils.profiling import benchmark_fn
+
+    run = _write_run(os.path.join(root, case), fused_layer, dtype)
+    live = Reconstructor(run, batch_buckets=(BUCKET,), device="cuda")  # pads as the artifact
+    art = os.path.join(root, case, "art")
+    _reset_counters()
+    t0 = time.perf_counter()
+    art, meta = export_reconstructor(run, bucket=BUCKET, out_path=art)
+    export_s = time.perf_counter() - t0
+    if any(_counters().values()):
+        _fail(f"export ({case}): the trace launched a kernel: {_counters()}")
+    size = os.path.getsize(art + ".pt2")
+    param_bytes = sum(t.numel() * t.element_size() for t in live.model.state_dict().values())
+    if size * 10 > param_bytes:
+        _fail(f"export ({case}): the .pt2 ({size} bytes) is no graph alone: the parameters "
+              f"take {param_bytes}")
+    t0 = time.perf_counter()
+    server = http_server.make_server([run, "--artifact", art, "--port", "0", "--device", "cuda"])
+    load_s = time.perf_counter() - t0
+    rec = server.reconstructor
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    few, many = _sentences(3, rng), _sentences(BUCKET + 44, rng)
+    try:
+        got = {"few": _post(port, "/reconstruct", few)["results"],
+               "many": _post(port, "/reconstruct", many)["results"],
+               "codes": _post(port, "/codes", few)["codes"]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        _fail("HTTP server thread did not stop")
+    want = {"few": live.reconstruct(few), "many": live.reconstruct(many),
+            "codes": live.codes(few)}
+    if got != want or rec.buckets != (BUCKET,) or meta["device"] != "cuda":
+        _fail(f"export ({case}): the artifact served over HTTP is not the live kernel path")
+
+    ids_np, mask_np = live.tokenizer.encode_batch(_sentences(BUCKET, rng), SEQ)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    with torch.inference_mode(), _plain_refused(default_route=True):
+        want_t = live.forward(ids, mask)
+        torch.cuda.synchronize()
+        _reset_counters()
+        got_t = rec.forward(ids, mask)
+        torch.cuda.synchronize()
+        counts = _counters()
+    _expect(f"export ({case}): one artifact forward", counts, _served_launches(fused_layer, dtype))
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got_t, want_t)):
+        _fail(f"export ({case}): the artifact's ids or codes are not the live forward's")
+    med = _median_forwards({"live": live, "artifact": rec}, ids, mask, EXPORT_ROUNDS)
+    with torch.inference_mode():
+        bench = {k: benchmark_fn(r.forward, (ids, mask), n_steps=20, warmup=2)["mean_s"] * 1e3
+                 for k, r in (("live", live), ("artifact", rec))}
+    print(f"export ({case}): {meta['model_name']} {meta['compute_dtype']} fused_layer="
+          f"{fused_layer}, bucket {BUCKET}: exported in {export_s:.1f} s, .pt2 {size} bytes "
+          f"({size / 2**20:.2f} MiB), loaded and served over HTTP in {load_s:.1f} s; "
+          f"/reconstruct(3), /reconstruct({len(many)}), /codes(3) equal to the live kernel path; "
+          f"one bucket-{BUCKET} forward's launches {counts}; medians in turns: live "
+          f"{med['live']:.3f} ms, artifact {med['artifact']:.3f} ms; benchmark_fn means (20 "
+          f"calls, one sync): live {bench['live']:.3f} ms, artifact {bench['artifact']:.3f} ms "
+          f"({names[0]}; nvidia-smi: {names[1]})")
+    del live, rec, server
+    torch.cuda.empty_cache()
+    return {"pt2_bytes": size, "export_s": export_s, "forward_ms": med,
+            "benchmark_fn_ms": bench, "launches": counts, "run": run}
+
+
+def _bundle_check(names, run: str) -> int:
+    """(d) the reference bundle of a run, converted back by ``nn/convert_hf.py``,
+    equal to the model's parameters bit for bit; returns its key count."""
+    import torch
+
+    from kindergarten_vq_vae_torch.analyses.common import load_run
+    from kindergarten_vq_vae_torch.ckpt.export_torch import (
+        export_reference_bundle,
+        save_reference_bundle,
+    )
+    from kindergarten_vq_vae_torch.nn.convert_hf import (
+        convert_decoder_state_dict,
+        convert_encoder_state_dict,
+    )
+
+    cfg, model = load_run(run, device="cuda")
+    bundle = export_reference_bundle(cfg, model)
+    back = {"encoder": convert_encoder_state_dict(bundle["encoder_state_dict"],
+                                                  model.encoder.cfg),
+            "decoder": convert_decoder_state_dict(bundle["decoder_state_dict"],
+                                                  model.decoder.bert.cfg)}
+    ok = True
+    for part, sd in back.items():
+        own = getattr(model, part).state_dict()
+        ok &= sd.keys() == own.keys() and all(
+            torch.equal(sd[k], own[k].cpu()) for k in own)
+    msd = bundle["model_state_dict"]
+    ok &= torch.equal(torch.from_numpy(msd["vector_quantizer.embedding.weight"]),
+                      model.vector_quantizer.codebook.detach().cpu())
+    for part in ("encoder", "decoder"):
+        sd = bundle[f"{part}_state_dict"]
+        ok &= all(msd[f"{part}.{k}"] is v for k, v in sd.items())
+    path = os.path.join(os.path.dirname(run), "bundle.pth")
+    save_reference_bundle(bundle, path)
+    n = sum(len(sd) for sd in bundle.values())
+    print(f"export (d): the reference bundle of the bf16 run: {n} tensors "
+          f"({len(msd)} in model_state_dict), {os.path.getsize(path)} bytes; converted back, "
+          f"every tensor equal to the model's parameter bit for bit: {ok} ({names[0]}; "
+          f"nvidia-smi: {names[1]})")
+    if not ok:
+        _fail("the reference bundle does not hold the model's parameters")
+    del model
+    return n
+
+
+def _gpt2_analyses(names) -> dict:
+    """(e) phase 14's Shelgon3-VQ with the GPT-2 decoder: the sentence latents
+    and the disentanglement through the kernels on the cut corpus, and the
+    four refusals (arithmetic modes, attention maps) before any launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch.analyses import arithmetic, cross_attention
+    from kindergarten_vq_vae_torch.analyses.disentanglement import unsupervised_vq_disentanglement
+    from kindergarten_vq_vae_torch.analyses.latent_space import compute_sentence_latents
+    from kindergarten_vq_vae_torch.config import RunConfig
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.train.run import load_data
+
+    cfg = _gpt2_cfg(model_name="shelgon3")
+    model = init_weights(build_model(cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(SEED)).eval()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_gpt2_analyses_") as root:
+        data_dir = os.path.join(root, "data")
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        prepare_all(data_dir, max_length=SEQ)
+        # the encoder's WordPiece splits (the analyses read no decoder ids)
+        splits, tok = load_data(dataclasses.replace(
+            cfg, data_dir=data_dir, decoder_model_name=RunConfig().decoder_model_name))
+        test = splits["test"]
+        m = min(1024, len(test))
+        ids, mask = test.input_ids[:m], test.attention_mask[:m]
+        with _plain_refused(default_route=True):
+            _reset_counters()
+            t0 = time.perf_counter()
+            lat = compute_sentence_latents(model, ids, mask, batch_size=256)
+            wall = time.perf_counter() - t0
+            counts = _counters()
+        fwd = -(-m // 256)
+        want = {k: 0 for k in counts} | {"layer_fwd": 12 * fwd,
+                                         **_inside_layers(0, encoder_forwards=fwd)}
+        _expect(f"gpt2 analyses: sentence latents ({m} sentences)", counts, want)
+        with torch.inference_mode():
+            first = model.encoder(torch.from_numpy(ids[:256]).cuda(),
+                                  torch.from_numpy(mask[:256]).cuda())["pooler_output"]
+        same = np.array_equal(lat[:256], first.float().cpu().numpy())
+        if lat.shape != (m, 768) or not np.isfinite(lat).all() or not same:
+            _fail("gpt2 analyses: the sentence latents are not the encoder's pooler outputs")
+        out["latents_s"] = wall
+
+        with _plain_refused(default_route=True):
+            _reset_counters()
+            t0 = time.perf_counter()
+            seen, hist, code_words, metrics = unsupervised_vq_disentanglement(
+                cfg, model, splits, tok, results_dir=os.path.join(root, "dis"),
+                batch_size=512)
+            wall = time.perf_counter() - t0
+            counts = _counters()
+        fwd = sum(max(1, int(-(-len(v) // 512) * 0.1)) for v in splits.values())
+        want = {k: 0 for k in counts} | {"layer_fwd": 12 * fwd, "vq": fwd,
+                                         **_inside_layers(0, encoder_forwards=fwd)}
+        _expect(f"gpt2 analyses: disentanglement ({fwd} forwards of 512)", counts, want)
+        if not seen or not all(math.isfinite(v["nmi"]) for v in metrics.values()):
+            _fail(f"gpt2 analyses: disentanglement gave no codes or no metrics: {seen}")
+        out["disentanglement_s"] = wall
+
+        group = {"input_ids": ids[:8], "attention_mask": mask[:8]}
+        refused = []
+        _reset_counters()
+        for what, fn in (("bagon", arithmetic.latent_arithmetic_bagon),
+                         ("conditioning", arithmetic.latent_arithmetic_shelgon_conditioning),
+                         ("sentence", arithmetic.latent_arithmetic_shelgon_sentence)):
+            try:
+                fn(model, group, group, group, tok)
+            except ValueError as e:
+                refused.append(what if "GPT-2 decoder" in str(e) else f"{what}: {e}")
+        try:
+            cross_attention.extract_cross_attention(model, ids[:8], mask[:8])
+        except ValueError as e:
+            refused.append("attention maps" if "GPT-2 decoder" in str(e) else str(e))
+        counts = {k: v for k, v in _counters().items() if v}
+        if refused != ["bagon", "conditioning", "sentence", "attention maps"] or counts:
+            _fail(f"gpt2 analyses: the refusals are amiss: {refused}, launches {counts}")
+    print(f"export (e) gpt2 analyses on shelgon3-VQ with the GPT-2-small decoder: latents "
+          f"{lat.shape} in {out['latents_s']:.2f} s (the first batch the encoder's pooler "
+          f"outputs bit for bit), disentanglement in {out['disentanglement_s']:.2f} s, populated "
+          f"codes {seen}, factor nmi { {k: round(v['nmi'], 4) for k, v in metrics.items()} }; "
+          f"refused before any launch: {refused} ({names[0]}; nvidia-smi: {names[1]})")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(names: tuple[str, str]) -> dict:
+    """Phase 16: (a)-(c) serving export on each route of ``EXPORT_CASES``,
+    (d) the reference bundle, (e) the GPT-2 analyses; (f) the timings of
+    ``utils/profiling.benchmark_fn`` beside the medians."""
+    import random
+
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED + 16)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_export_") as root:
+        for case, fused_layer, dtype in EXPORT_CASES:
+            out[case] = _export_case(names, root, case, fused_layer, dtype, rng)
+        out["bundle_keys"] = _bundle_check(names, out["bf16"]["run"])
+    out["gpt2"] = _gpt2_analyses(names)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"export: {out['wall_s']:.1f} s; .pt2 sizes "
+          + ", ".join(f"{c} {out[c]['pt2_bytes']} bytes" for c, _, _ in EXPORT_CASES)
+          + "; bucket-256 medians live / artifact "
+          + ", ".join(f"{c} {out[c]['forward_ms']['live']:.3f} / "
+                      f"{out[c]['forward_ms']['artifact']:.3f} ms" for c, _, _ in EXPORT_CASES)
+          + f" ({names[0]}; nvidia-smi: {names[1]})")
+    return out
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -4155,6 +4430,7 @@ def main() -> None:
     g2 = phase_gpt2(names, tr["auto"]["median_ms"])
     f32 = phase_f32(names)
     f32r = phase_f32_routes(names, f32)
+    phase_export(names)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]

@@ -12,6 +12,13 @@ reference's ``analyses/latent_arithmetics/``): encode two groups, take
 
 Shelgon's Gumbel noise comes from a generator seeded 0 on each forward, the
 counterpart of JAX's ``key(0)``.
+
+Each mode raises ``ValueError`` before any forward on a run with the GPT-2
+decoder: JAX decodes the shifted latents through ``BertLMHeadModel(dec_cfg)``
+(l.94-105), which cannot take a ``GPT2Config``, so no mode runs there (a
+recorded divergence in the exception only). The decoder inputs of
+:func:`masked_decoder_inputs` and :func:`randomized_decoder_inputs` feed
+only these modes.
 """
 
 from __future__ import annotations
@@ -19,7 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kindergarten_vq_vae_torch.analyses.common import as_tensor, device_of, to_numpy
+from kindergarten_vq_vae_torch.analyses.common import (
+    as_tensor,
+    device_of,
+    refuse_gpt2_decoder,
+    to_numpy,
+)
 
 
 def _decode_ids(tokenizer, ids):
@@ -59,6 +71,11 @@ def _decoder_apply(decoder, ids, mask, hidden) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def _refuse_gpt2(model) -> None:
+    refuse_gpt2_decoder(model, "latent arithmetic",
+                        "it decodes through a BERT LM head, as the JAX package's does")
+
+
 def _gumbel_generator(device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
@@ -92,6 +109,7 @@ def latent_arithmetic_shelgon_conditioning(model, group_a, group_b, targets, tok
     """Δ in Shelgon's conditioning (post-``proj_out``) space. ``group_a`` /
     ``group_b`` / ``targets`` hold ``input_ids`` and ``attention_mask``;
     ``decoder_input_ids`` overrides the teacher-forced decoder inputs."""
+    _refuse_gpt2(model)
     cond_a, _ = _shelgon_conditioning(model, **group_a)
     cond_b, _ = _shelgon_conditioning(model, **group_b)
     delta = torch.mean(cond_a, dim=0) - torch.mean(cond_b, dim=0)
@@ -104,6 +122,7 @@ def latent_arithmetic_shelgon_conditioning(model, group_a, group_b, targets, tok
 def latent_arithmetic_shelgon_sentence(model, group_a, group_b, targets, tokenizer=None,
                                        decoder_input_ids=None) -> dict:
     """Δ in Shelgon's raw encoder-output space, pushed through the bottleneck."""
+    _refuse_gpt2(model)
     _, h_a = _shelgon_conditioning(model, **group_a)
     _, h_b = _shelgon_conditioning(model, **group_b)
     delta = torch.mean(h_a, dim=0) - torch.mean(h_b, dim=0)
@@ -122,6 +141,7 @@ def latent_arithmetic_bagon(model, group_a, group_b, targets, tokenizer=None,
     ``targets`` hold ``input_ids`` and ``attention_mask``;
     ``decoder_input_ids`` overrides the teacher-forced decoder inputs (see
     :func:`masked_decoder_inputs`)."""
+    _refuse_gpt2(model)
     device = device_of(model)
 
     def encode(d):

@@ -63,6 +63,17 @@ def _tree_concat(trees: list):
     return np.concatenate(trees)
 
 
+def refuse_gpt2_decoder(model: torch.nn.Module, what: str, why: str) -> None:
+    """Raise ``ValueError`` up front when ``model``'s decoder is GPT-2: the
+    JAX package cannot run ``what`` on such a run either (it fails inside
+    the forward), and the port does not go further than the reference."""
+    from kindergarten_vq_vae_torch.nn.gpt2 import GPT2LMHeadModel
+
+    if isinstance(getattr(model, "decoder", None), GPT2LMHeadModel):
+        raise ValueError(f"{what} does not take a run with the GPT-2 decoder "
+                         f"(decoder_model_name='gpt2'): {why}")
+
+
 def device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 

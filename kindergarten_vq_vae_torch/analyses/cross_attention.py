@@ -9,6 +9,11 @@ the cross- and the self-attention alike. Every variant takes its own
 forward (JAX l.40-47); the Gumbel noise of Shelgon, Shelgon2 and
 Shelgon3-Gumbel comes from a generator seeded 0 on each batch, the
 counterpart of JAX's ``key(0)``.
+
+A run with the GPT-2 decoder raises ``ValueError`` before any forward: that
+decoder returns no self-attention maps (``attentions = ()``, JAX
+``nn/gpt2.py:164``), so JAX's ``jnp.stack`` of them fails (l.51); the port
+says why instead (a recorded divergence in the exception only).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from kindergarten_vq_vae_torch.analyses.common import as_tensor, device_of
+from kindergarten_vq_vae_torch.analyses.common import as_tensor, device_of, refuse_gpt2_decoder
 from kindergarten_vq_vae_torch.data.dataset import padded_batches
 
 
@@ -31,6 +36,8 @@ def extract_cross_attention(model, input_ids: np.ndarray, attention_mask: np.nda
     ``out_path`` when given. The means are taken in f32 (a recorded
     divergence: JAX keeps them in the compute dtype, where rounding each
     bf16 mean moves a row's sum off 1 by up to ~6e-3)."""
+    refuse_gpt2_decoder(model, "extract_cross_attention",
+                        "the GPT-2 decoder returns no self-attention maps")
     if model_kind == "auto":
         model_kind = type(model).__name__.lower()
     device = device_of(model)

@@ -30,11 +30,39 @@ from typing import NamedTuple
 import torch
 
 
-def sample_gumbels(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+class GumbelFeed:
+    """Gumbel noise handed in where a generator is expected: each
+    :func:`sample_gumbels` call takes the next tensor of ``noise``, which
+    must have the draw's shape and dtype. With ``noise=None`` the feed
+    records each draw's ``(shape, dtype)`` in ``specs`` and hands out zeros.
+    The exported serving program (``serve/export.py``) takes its noise as
+    inputs so, since a trace cannot carry a generator."""
+
+    def __init__(self, noise=None):
+        self.noise = None if noise is None else list(noise)
+        self.specs: list[tuple[tuple[int, ...], torch.dtype]] = []
+
+    def take(self, like: torch.Tensor) -> torch.Tensor:
+        spec = (tuple(like.shape), like.dtype)
+        i = len(self.specs)
+        self.specs.append(spec)
+        if self.noise is None:
+            return torch.zeros(like.shape, dtype=like.dtype, device=like.device)
+        if i >= len(self.noise):
+            raise ValueError(f"the forward asks for Gumbel draw {i + 1}; {len(self.noise)} fed")
+        g = self.noise[i]
+        if (tuple(g.shape), g.dtype) != spec:
+            raise ValueError(f"Gumbel draw {i + 1} is {spec}; fed {(tuple(g.shape), g.dtype)}")
+        return g
+
+
+def sample_gumbels(like: torch.Tensor, generator: torch.Generator | GumbelFeed) -> torch.Tensor:
     """Standard Gumbel noise of ``like``'s shape, dtype and device, drawn from
-    ``generator`` (on that device)."""
+    ``generator`` (on that device), or the next tensor of a :class:`GumbelFeed`."""
     if generator is None:
         raise ValueError("Gumbel noise needs a torch.Generator")
+    if isinstance(generator, GumbelFeed):
+        return generator.take(like)
     e = torch.empty(like.shape, dtype=like.dtype, device=like.device)
     return -e.exponential_(generator=generator).log()
 

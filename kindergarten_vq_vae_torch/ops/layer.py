@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -122,6 +123,14 @@ class LayerGeom:
 
 def _names(geom: LayerGeom) -> tuple[str, ...]:
     return DEC_WEIGHTS if geom.has_cross else ENC_WEIGHTS
+
+
+@functools.lru_cache(maxsize=64)
+def _weight_specs(geom: LayerGeom) -> tuple:
+    """(name, shape, matmul kernel?, LayerNorm parameter?) of each weight, in call order."""
+    shapes = geom.weight_shapes()
+    return tuple((n, torch.Size(shapes[n]), n.startswith("w"), n.startswith(("g", "be")))
+                 for n in _names(geom))
 
 
 def layer_gemms(geom: LayerGeom) -> tuple[int, int]:
@@ -436,16 +445,30 @@ def layer_backward_reference(geom: LayerGeom, x, enc, smask, cmask, weights, see
 
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP, _I, _I, _VP]
+_FWD_ARGTYPES = [_VP] * 36 + [_I] * 9 + [_F, _U, _U, _F, _U, _F, _VP, _I, _I]
 _DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes the kernels take
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(geom: LayerGeom) -> tuple[int, ...]:
+    """Each weight's place in DEC_WEIGHTS."""
+    return tuple(DEC_WEIGHTS.index(n) for n in _names(geom))
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_n(M: int, Mk: int, H: int, F: int, gelu_exact: bool, sms: int):
+    """The tile width of each product of the forward, in the C sequence's
+    order: qkv, wo, wq, wkv (over the encoder's ``Mk`` rows), wco, w1, w2."""
+    gelu_epi = "gelu_erf" if gelu_exact else "gelu_tanh"
+    products = (((M, 3 * H, H), "bf16"), ((M, H, H), "f32"), ((M, H, H), "bf16"),
+                ((Mk, 2 * H, H), "bf16"), ((M, H, H), "f32"), ((M, F, H), gelu_epi),
+                ((M, H, F), "f32"))
+    return (ctypes.c_int * 7)(*(gemm_plan(*shape, False, sms, epi).tile_n
+                                for shape, epi in products))
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_call(geom: LayerGeom, seed) -> None:
@@ -472,19 +495,23 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
                         "torch.float32")
     cdtype = x.dtype
     _build.check_tensor("x", x, (b, s, H), cdtype, dev)
-    names = _names(geom)
-    if len(weights) != len(names):
-        raise ValueError(f"expected {len(names)} weights ({names}), got {len(weights)}")
-    W = dict(zip(names, weights))
-    for n, shape in geom.weight_shapes().items():
-        # matmul kernels in the compute dtype; biases and LayerNorm parameters
-        # stay f32, the LayerNorm's on 16 bytes (the LayerNorm kernels load them so)
-        if n.startswith("w"):
-            _build.check_tensor(n, W[n], shape, cdtype, dev)
-        elif n.startswith(("g", "be")):
-            _check_f32(n, W[n], shape, dev)
-        else:
-            _build.check_tensor(n, W[n], shape, torch.float32, dev)
+    specs = _weight_specs(geom)
+    if len(weights) != len(specs):
+        raise ValueError(f"expected {len(specs)} weights ({_names(geom)}), got {len(weights)}")
+    f32 = torch.float32
+    for (n, shape, kernel, ln), w in zip(specs, weights):
+        # matmul kernels in the compute dtype (on 16 bytes in bf16); biases and
+        # LayerNorm parameters stay f32, the LayerNorm's on 16 bytes (the
+        # LayerNorm kernels load them so). The named checks below raise with
+        # the reason; this test only decides whether to run them.
+        dtype = cdtype if kernel else f32
+        if (w.dtype is not dtype or w.shape != shape or w.device != dev
+                or not w.is_contiguous()
+                or ((ln or (kernel and dtype is torch.bfloat16)) and w.data_ptr() % 16)):
+            if ln:
+                _check_f32(n, w, shape, dev)
+            else:
+                _build.check_tensor(n, w, shape, dtype, dev)
     sk = s
     if geom.has_cross:
         if enc is None:
@@ -510,7 +537,9 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
     dev = x.device
     b, s, H = x.shape
     M, F = b * s, geom.intermediate
-    W = dict(zip(_names(geom), weights))
+    wptr = [None] * len(DEC_WEIGHTS)  # the C sequence takes DEC_WEIGHTS, unused ones null
+    for i, w in zip(_slots(geom), weights):
+        wptr[i] = w.data_ptr()
     f32 = int(x.dtype == torch.float32)
 
     def ws(shape, dtype=x.dtype):
@@ -526,31 +555,20 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
         if geom.has_cross:
             ctx2 = ws((M, H))
 
-    # the tile width of each product, in the C sequence's order: qkv, wo, wq,
-    # wkv (over the encoder's rows), wco, w1, w2
     sms = sm_count(dev)
-    gelu_epi = "gelu_erf" if geom.gelu_exact else "gelu_tanh"
-    products = (((M, 3 * H, H), "bf16"), ((M, H, H), "f32"), ((M, H, H), "bf16"),
-                ((b * sk, 2 * H, H), "bf16"), ((M, H, H), "f32"), ((M, F, H), gelu_epi),
-                ((M, H, F), "f32"))
-    tile_n = (ctypes.c_int * 7)(*(gemm_plan(*shape, False, sms, epi).tile_n
-                                  for shape, epi in products))
-    fn = _build.lib().kvq_bert_layer_fwd
-    fn.argtypes = _FWD_ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):  # the library's runtime launches on the current device
-        code = fn(
-            _ptr(x), _ptr(enc), _ptr(smask), _ptr(cmask),
-            *(_ptr(W.get(n)) for n in DEC_WEIGHTS),
-            _ptr(qkv), _ptr(ctx), _ptr(ctx2), _ptr(acc), _ptr(x1), _ptr(qc), _ptr(kvc), _ptr(x2),
-            _ptr(m), _ptr(u), _ptr(invs), _ptr(out),
-            b, s, sk, geom.num_heads, geom.head_dim, F,
-            int(geom.causal), int(geom.has_cross), int(geom.gelu_exact), geom.eps,
-            seed_u32(seed or 0), keep_threshold(geom.attn_rate), keep_scale(geom.attn_rate),
-            keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), tile_n, sms, f32,
-            _stream(dev),
-        )
-    _build.check(code, "kvq_bert_layer_fwd")
+    tile_n = _tile_n(M, b * sk, H, F, geom.gelu_exact, sms)
+    _build.launch(
+        "kvq_bert_layer_fwd", _FWD_ARGTYPES,
+        _ptr(x), _ptr(enc), _ptr(smask), _ptr(cmask),
+        *wptr,
+        _ptr(qkv), _ptr(ctx), _ptr(ctx2), _ptr(acc), _ptr(x1), _ptr(qc), _ptr(kvc), _ptr(x2),
+        _ptr(m), _ptr(u), _ptr(invs), _ptr(out),
+        b, s, sk, geom.num_heads, geom.head_dim, F,
+        int(geom.causal), int(geom.has_cross), int(geom.gelu_exact), geom.eps,
+        seed_u32(seed or 0), keep_threshold(geom.attn_rate), keep_scale(geom.attn_rate),
+        keep_threshold(geom.hid_rate), keep_scale(geom.hid_rate), tile_n, sms, f32,
+        device=dev,
+    )
     n_gemm, n_attn, n_ln = layer_gemms(geom)[0], 1 + int(geom.has_cross), 2 + int(geom.has_cross)
     gemm.launches += n_gemm
     gemm.forward_launches += n_gemm
@@ -971,8 +989,9 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
     rate in ``geom`` is above 0.
 
     When a gradient is needed the call runs :class:`FusedBertLayer`.
-    Otherwise a CPU tensor, or ``reference=True``, goes through
-    :func:`bert_layer_reference`, and a CUDA tensor launches
+    Otherwise ``reference=True`` goes through :func:`bert_layer_reference`,
+    and every other call through the custom op ``kvq::layer_fwd``: a CPU
+    tensor takes the plain version, a CUDA tensor launches
     ``csrc/layer_fwd.cu`` (bf16 or f32) on the current stream, or raises; each
     forward launch adds one to ``fused_bert_layer.launches``, and each that
     keeps the residuals also to ``fused_bert_layer.residual_launches``."""
@@ -985,11 +1004,43 @@ def fused_bert_layer(geom: LayerGeom, x, enc, smask, cmask, weights, seed=None,
         return FusedBertLayer.apply(geom, reference, seed or 0, x, enc, smask, cmask, *weights)
     if enc is not None and enc.dtype != x.dtype:
         enc = enc.to(x.dtype)
-    if reference or x.device.type == "cpu":
+    if reference:
         return bert_layer_reference(geom, x, enc, smask, cmask, weights, seed or 0)
-    return _launch(geom, x, enc, smask, cmask, weights, seed, save=False)[0]
+    return torch.ops.kvq.layer_fwd(x, enc, smask, cmask, weights, *_geom_args(geom), seed or 0)
 
 
 fused_bert_layer.launches = 0
 fused_bert_layer.residual_launches = 0  # of those, training launches that keep the residuals
 fused_bert_layer.f32_launches = 0  # the f32 share of ``launches``
+
+
+# The inference forward as the custom op ``kvq::layer_fwd``, which
+# ``torch.export`` keeps as one node: on CPU tensors the plain version, on
+# CUDA tensors ``csrc/layer_fwd.cu``; its fake implementation gives the
+# output's shape and dtype and touches no memory. The geometry goes in as
+# LayerGeom's fields, in their order.
+_OPS = torch.library.Library("kvq", "FRAGMENT")
+_OPS.define("layer_fwd(Tensor x, Tensor? enc, Tensor? smask, Tensor? cmask, Tensor[] weights, "
+            "int num_heads, int head_dim, int intermediate, bool causal, bool has_cross, "
+            "float eps, bool gelu_exact, float attn_rate, float hid_rate, int seed) -> Tensor")
+_op_geom = functools.lru_cache(maxsize=64)(LayerGeom)
+
+
+def _geom_args(geom: LayerGeom) -> tuple:
+    return (geom.num_heads, geom.head_dim, geom.intermediate, geom.causal, geom.has_cross,
+            geom.eps, geom.gelu_exact, geom.attn_rate, geom.hid_rate)
+
+
+def _layer_fwd_cpu(x, enc, smask, cmask, weights, *geom_seed):
+    return bert_layer_reference(_op_geom(*geom_seed[:-1]), x, enc, smask, cmask, weights,
+                                geom_seed[-1])
+
+
+def _layer_fwd_cuda(x, enc, smask, cmask, weights, *geom_seed):
+    return _launch(_op_geom(*geom_seed[:-1]), x, enc, smask, cmask, weights, geom_seed[-1],
+                   save=False)[0]
+
+
+_OPS.impl("layer_fwd", _layer_fwd_cpu, "CPU")
+_OPS.impl("layer_fwd", _layer_fwd_cuda, "CUDA")
+torch.library.register_fake("kvq::layer_fwd", lambda x, *_: x.new_empty(x.shape), lib=_OPS)

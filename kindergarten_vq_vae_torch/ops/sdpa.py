@@ -200,11 +200,23 @@ def fused_sdpa(q, k, v, mask, seed, num_heads: int, causal: bool = False, rate: 
     ``mask``: (B, S_k) int32 key validity or None (all valid); ``seed``: the
     int32 of the attention dropout (ignored at rate 0); ``cross``: count the
     launches as cross-attention. When a gradient is needed the call runs
-    :class:`FusedSdpa`; otherwise :func:`sdpa_forward`, or its plain version
-    with ``reference``."""
+    :class:`FusedSdpa`; otherwise the custom op ``kvq::sdpa_fwd``
+    (:func:`sdpa_forward`), or the plain version with ``reference``."""
     _check_rate(rate, seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FusedSdpa.apply(num_heads, causal, rate, seed, reference, cross, mask, q, k, v)
     if reference:
         return sdpa_forward_reference(q, k, v, mask, seed, num_heads, causal, rate)
-    return sdpa_forward(q, k, v, mask, seed, num_heads, causal, rate, cross)
+    return torch.ops.kvq.sdpa_fwd(q, k, v, mask, seed or 0, num_heads, causal, rate, cross)
+
+
+# #11 as the custom op ``kvq::sdpa_fwd`` (``torch.export`` keeps it as one
+# node): on CPU tensors the plain version, on CUDA tensors the kernel; the
+# fake implementation gives the context's shape and dtype.
+_OPS = torch.library.Library("kvq", "FRAGMENT")
+_OPS.define("sdpa_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, int seed, int num_heads, "
+            "bool causal, float rate, bool cross) -> Tensor")
+_OPS.impl("sdpa_fwd", lambda q, k, v, mask, seed, nh, causal, rate, cross:
+          sdpa_forward_reference(q, k, v, mask, seed, nh, causal, rate), "CPU")
+_OPS.impl("sdpa_fwd", sdpa_forward, "CUDA")
+torch.library.register_fake("kvq::sdpa_fwd", lambda q, *_: q.new_empty(q.shape), lib=_OPS)

@@ -45,21 +45,37 @@ def vector_quantize_kernel(z: torch.Tensor, codebook: torch.Tensor, beta: float)
 
     A CPU tensor takes the plain raw forward. A CUDA tensor launches
     ``csrc/vq_fwd.cu`` on the current stream, or raises; each launch adds one
-    to ``vector_quantize_kernel.launches``."""
-    if z.device.type == "cpu":
-        return assemble(z, codebook, beta, vq_raw)
-    if z.device.type != "cuda":
+    to ``vector_quantize_kernel.launches``. The raw forward is the custom op
+    ``kvq::vq_fwd`` on either device, with or without a gradient (the
+    gradient is ``VQCore``'s, around it)."""
+    if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"vector_quantize_kernel runs on CPU or CUDA tensors, got {z.device}")
-    return assemble(z, codebook, beta, _launch)
+    return assemble(z, codebook, beta, _raw_op)
 
 
 vector_quantize_kernel.launches = 0
 
 
-def _launch(z: torch.Tensor, codebook: torch.Tensor):
-    """Raw forward of (rows, D) ``z`` on the card: ``(z_q, indices, counts,
-    sum_z, diff)``, ``z_q`` already the straight-through value; ``counts``,
-    ``sum_z`` and ``diff`` are views of one stats buffer."""
+def _split(zq, idx, stats, n_e: int, d: int):
+    """``(z_q, indices, counts, sum_z, diff)`` with the last three views of ``stats``."""
+    ned = n_e * d
+    return zq, idx, stats[ned:ned + n_e], stats[:ned].view(n_e, d), stats[ned + n_e]
+
+
+def _raw_op(z: torch.Tensor, codebook: torch.Tensor):
+    """Raw forward of (rows, D) ``z`` through the custom op ``kvq::vq_fwd``:
+    ``(z_q, indices, counts, sum_z, diff)``, ``z_q`` already the
+    straight-through value; ``counts``, ``sum_z`` and ``diff`` are views of
+    one stats buffer."""
+    return _split(*torch.ops.kvq.vq_fwd(z, codebook), *codebook.shape)
+
+
+_raw_op.returns_ste = True  # z_q is z + (z_q - z) already
+
+
+def _launch_packed(z: torch.Tensor, codebook: torch.Tensor):
+    """``(z_q, indices, stats)``: ``stats`` holds ``sum_z`` (n_e * D), the
+    counts (n_e) and ``diff`` (1), in that order."""
     if z.dim() != 2 or codebook.dim() != 2 or z.shape[-1] != codebook.shape[1]:
         raise ValueError(f"z (rows, D) and codebook (n_e, D) expected, got "
                          f"{tuple(z.shape)} and {tuple(codebook.shape)}")
@@ -88,8 +104,24 @@ def _launch(z: torch.Tensor, codebook: torch.Tensor):
                   zq.data_ptr(), idx.data_ptr(), ws.data_ptr(), stats.data_ptr(), m, d, n_e,
                   device=dev)
     vector_quantize_kernel.launches += 1
-    ned = n_e * d
-    return zq, idx, stats[ned:ned + n_e], stats[:ned].view(n_e, d), stats[ned + n_e]
+    return zq, idx, stats[:n_e * d + n_e + 1]
 
 
-_launch.returns_ste = True  # z_q is z + (z_q - z) already: assemble adds nothing
+def _vq_fwd_cpu(z, codebook):
+    zq, idx, counts, sum_z, diff = vq_raw(z, codebook)
+    return z + (zq - z), idx, torch.cat([sum_z.reshape(-1), counts, diff.reshape(1)])
+
+
+# The raw forward as the custom op ``kvq::vq_fwd`` (``torch.export`` keeps
+# it as one node; ``assemble``'s eager ops stay around it): on CPU tensors
+# the plain version with the straight-through value, on CUDA tensors the
+# kernel; the fake implementation gives the shapes and dtypes.
+_OPS = torch.library.Library("kvq", "FRAGMENT")
+_OPS.define("vq_fwd(Tensor z, Tensor codebook) -> (Tensor, Tensor, Tensor)")
+_OPS.impl("vq_fwd", _vq_fwd_cpu, "CPU")
+_OPS.impl("vq_fwd", _launch_packed, "CUDA")
+torch.library.register_fake(
+    "kvq::vq_fwd",
+    lambda z, cb: (z.new_empty(z.shape), z.new_empty(z.shape[:1], dtype=torch.int64),
+                   z.new_empty((cb.shape[0] * (cb.shape[1] + 1) + 1,))),
+    lib=_OPS)

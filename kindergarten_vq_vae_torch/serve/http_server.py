@@ -1,6 +1,7 @@
 """Minimal stdlib HTTP front-end for the PyTorch reconstructor.
 
-    python -m kindergarten_vq_vae_torch.serve.http_server <run_dir> [--port 8000] [--device cuda]
+    python -m kindergarten_vq_vae_torch.serve.http_server <run_dir> [--port 8000] [--device cuda] \
+        [--artifact <path>]
 
 Endpoints (JSON in/out), as ``kindergarten_vq_vae_tpu/serve/http_server.py``:
 - POST /reconstruct  {"sentences": [...]}  -> reconstructions + token acc (+codes)
@@ -62,10 +63,15 @@ def make_handler(reconstructor):
 
 
 def serve_http(reconstructor, port: int = 8000, host: str = "127.0.0.1") -> HTTPServer:
-    return HTTPServer((host, port), make_handler(reconstructor))
+    """A server of ``reconstructor`` (its ``reconstructor`` attribute), not yet serving."""
+    server = HTTPServer((host, port), make_handler(reconstructor))
+    server.reconstructor = reconstructor
+    return server
 
 
-def main():
+def make_server(argv=None) -> HTTPServer:
+    """The server the command line asks for, not yet serving (``--port 0``:
+    a free port, ``server.server_address[1]``)."""
     import argparse
 
     from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
@@ -75,12 +81,21 @@ def main():
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--device", default="cuda")
-    args = p.parse_args()
+    p.add_argument("--artifact", default=None,
+                   help="serve an exported program (serve/export.py, the path without its "
+                        "suffix) instead of the live forward")
+    args = p.parse_args(argv)
 
-    rec = Reconstructor(args.run_dir, args.ckpt, device=args.device)
+    rec = Reconstructor(args.run_dir, args.ckpt, device=args.device, artifact=args.artifact)
     server = serve_http(rec, args.port)
-    print(f"serving {rec.model_name} from {args.run_dir} on :{args.port} ({args.device})")
-    server.serve_forever()
+    what = f"artifact {args.artifact}" if args.artifact else "the live forward"
+    print(f"serving {rec.model_name} from {args.run_dir} on :{server.server_address[1]} "
+          f"({args.device}, {what})")
+    return server
+
+
+def main(argv=None):
+    make_server(argv).serve_forever()
 
 
 if __name__ == "__main__":

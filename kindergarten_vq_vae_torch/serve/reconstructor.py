@@ -42,9 +42,32 @@ from kindergarten_vq_vae_torch.data.tokenizer import _BaseTokenizer
 from kindergarten_vq_vae_torch.models import build_model
 
 
+def model_inputs(model_name: str, ids: torch.Tensor, mask: torch.Tensor) -> tuple[tuple, dict]:
+    """The served forward's model arguments (JAX l.59-71): Bagon and Shelgon
+    the same ids and mask on both sides, Shelgon3 with ``is_training`` off."""
+    if model_name in ("bagon", "shelgon"):
+        return (ids, mask, ids, mask), {}
+    if model_name == "shelgon3":
+        return (ids, mask), {"is_training": False}
+    return (ids, mask), {}
+
+
+def served_outputs(out: dict, ids: torch.Tensor):
+    """(reconstruction ids, codes or zeros), both (B, S), from the model's output."""
+    recon_ids = torch.argmax(out["logits"], dim=-1)
+    codes = out.get("min_encoding_indices")
+    return recon_ids, (codes[..., 0] if codes is not None else torch.zeros_like(ids))
+
+
 class Reconstructor:
+    """``artifact``: serve an exported program (``serve/export.py``, JAX
+    l.26-50) at its one bucket instead of the live forward; the run's
+    parameters go in as its argument, and a run of another model or
+    ``seq_len`` than the artifact's raises ``ValueError``."""
+
     def __init__(self, run_path: str, ckpt_name: str | None = None,
-                 batch_buckets: tuple = (8, 64, 256), device="cuda"):
+                 batch_buckets: tuple = (8, 64, 256), device="cuda",
+                 artifact: str | None = None):
         self.cfg = RunConfig.load(os.path.join(run_path, "run_conf.json"))
         self.device = torch.device(device)
         refuse_unported_route(self.cfg, self.device)
@@ -59,21 +82,31 @@ class Reconstructor:
         self.seq_len = self.cfg.tokenized_sentence_max_length
         self.buckets = tuple(sorted(batch_buckets))
         self.decoder_vocab_size = self.cfg.decoder_vocab_size or self.cfg.vocab_size
+        self.exported = None  # the artifact's call, when the reconstructor serves one
+        if artifact is not None:
+            from kindergarten_vq_vae_torch.serve.export import load_exported
+
+            call, meta = load_exported(artifact, device=self.device)
+            if meta["model_name"] != self.model_name or meta["seq_len"] != self.seq_len:
+                raise ValueError(
+                    f"artifact {artifact} was exported for {meta['model_name']}/seq"
+                    f"{meta['seq_len']}, run is {self.model_name}/seq{self.seq_len}")
+            self.buckets = (int(meta["bucket"]),)
+            self.exported = call
+            self._params = {k: v.detach() for k, v in self.model.state_dict().items()}
 
     # ------------------------------------------------------------------ core
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, reference: bool = False):
-        """(reconstruction ids, codes or zeros), both (B, S), on the device."""
+        """(reconstruction ids, codes or zeros), both (B, S), on the device:
+        the live forward, or the artifact's when the reconstructor serves one
+        (``reference`` takes the live forward's plain versions)."""
+        if self.exported is not None and not reference:
+            return self.exported(self._params, ids, mask)
+        args, kwargs = model_inputs(self.model_name, ids, mask)
         gen = torch.Generator(device=self.device).manual_seed(0)
-        if self.model_name in ("bagon", "shelgon"):
-            out = self.model(ids, mask, ids, mask, reference=reference, generator=gen)
-        elif self.model_name == "shelgon3":
-            out = self.model(ids, mask, reference=reference, is_training=False, generator=gen)
-        else:
-            out = self.model(ids, mask, reference=reference, generator=gen)
-        recon_ids = torch.argmax(out["logits"], dim=-1)
-        codes = out.get("min_encoding_indices")
-        return recon_ids, (codes[..., 0] if codes is not None else torch.zeros_like(ids))
+        out = self.model(*args, reference=reference, generator=gen, **kwargs)
+        return served_outputs(out, ids)
 
     def _bucket(self, n: int) -> int:
         return next((b for b in self.buckets if b >= n), self.buckets[-1])

@@ -258,16 +258,10 @@ class Engine:
     def _train_stage(self, iterator, epoch: int, decode: bool) -> dict:
         if not (self.cfg.profile_dir and epoch == 1):
             return self._run_stage("train", iterator, epoch, decode)
-        from torch.profiler import ProfilerActivity, profile
+        from kindergarten_vq_vae_torch.utils.profiling import trace
 
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            stats = self._run_stage("train", iterator, epoch, decode)
-        os.makedirs(self.cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.cfg.profile_dir, "train_epoch_1.json"))
-        return stats
+        with trace(self.cfg.profile_dir, self.device, "train_epoch_1.json"):
+            return self._run_stage("train", iterator, epoch, decode)
 
     # ------------------------------------------------------------------ state
 

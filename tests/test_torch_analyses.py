@@ -29,6 +29,15 @@ packages split it.
   ``arithmetic._main`` in the ``conditioning`` and ``sentence`` modes on a
   written Shelgon run directory (the JSON it writes holds the ids the
   functions give on the same groups).
+- A run with the GPT-2 decoder (``decoder_model_name="gpt2"``, a BPE
+  vocabulary of 300 over the corpus's 128 ids): the three arithmetic modes
+  and ``extract_cross_attention`` raise ``ValueError`` naming the GPT-2
+  decoder before any forward (no module's forward is entered), where JAX's
+  fail inside theirs; ``compute_sentence_latents`` (Bagon-GPT-2) within 1e-5
+  of the largest latent of JAX's, ``unsupervised_vq_disentanglement``
+  (Shelgon3-VQ-GPT-2) with the same codes, tables and files as JAX's, and
+  ``latent_traversals_shelgon`` (Shelgon-GPT-2, the same Gumbel noise) with
+  the same reconstruction ids and its latent classes within 1e-5.
 - ``get_max_acc_sentences``: the same frame as JAX's from the same feather.
 - ``batched_apply``: the outputs (a dict and a tuple, padded tail trimmed)
   of JAX's, with and without ``lim_batches_pct``.
@@ -57,11 +66,11 @@ from kindergarten_vq_vae_torch.analyses import arithmetic, cross_attention, dise
 from kindergarten_vq_vae_torch.analyses import latent_space, traversals
 from kindergarten_vq_vae_torch.analyses.common import load_run
 from kindergarten_vq_vae_torch.analyses.max_acc import get_max_acc_sentences
-from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax
+from kindergarten_vq_vae_torch.ckpt.bridge import params_from_jax, params_to_jax
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.data.dataset import DSentences, split_dataset
 from kindergarten_vq_vae_torch.data.tokenizer import WordTokenizer
-from kindergarten_vq_vae_torch.models import build_model
+from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.train.run import load_data
 from test_torch_gumbel import NoiseFeed
 
@@ -91,6 +100,9 @@ def data(tiny_corpus):
             "jax_tok": tiny_corpus["tokenizer"], "tok": WordTokenizer(tiny_corpus["vocab"])}
 
 
+GPT2 = dict(decoder_model_name="gpt2", decoder_vocab_size=300)
+
+
 def _models(model_name: str, seed: int = 0):
     """(torch cfg, port model, JAX cfg, JAX model, JAX params) with the same weights."""
     cfg = RunConfig(model_name=model_name, **TINY)
@@ -99,6 +111,16 @@ def _models(model_name: str, seed: int = 0):
     model = build_model(cfg, device="cpu").eval()
     model.load_state_dict(params_from_jax(params), strict=True)
     return cfg, model, jcfg, jax_build_model(jcfg, "test"), params
+
+
+def _gpt2_models(model_name: str, seed: int):
+    """:func:`_models`' tuple for a run with the GPT-2 decoder, the weights
+    drawn by the port's initialiser (JAX's initialises op by op, seconds a
+    model) and handed to JAX through ``ckpt/bridge.py``."""
+    cfg = RunConfig(model_name=model_name, **{**TINY, **GPT2})
+    jcfg = JaxRunConfig.from_flat_dict(cfg.get_config())
+    model = init_weights(build_model(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+    return cfg, model.eval(), jcfg, jax_build_model(jcfg, "test"), params_to_jax(model)
 
 
 def _batch(split, lo, hi):
@@ -311,6 +333,79 @@ def test_shelgon_arithmetic_modes_wait_for_other_variants(mode, data, tmp_path):
     want = getattr(arithmetic, f"latent_arithmetic_shelgon_{mode}")(loaded, a, b, t, tok)
     assert res["shifted_recon_ids"] == want["shifted_recon_ids"].tolist()
     assert res["base_recon"] == want["base_recon"] and len(res["base_recon"]) == 4
+
+
+@pytest.mark.parametrize("mode", ["bagon", "conditioning", "sentence", "cross_attention"])
+def test_gpt2_run_refusals(data, mode):
+    """Each raises before any forward; JAX's Bagon arithmetic and attention
+    maps fail inside theirs (JAX's Shelgon modes need a jitted Shelgon
+    forward first: not run here)."""
+    _, model, _, jmodel, params = _gpt2_models(
+        "bagon" if mode in ("bagon", "cross_attention") else "shelgon", seed=4)
+    entered = []
+    for m in model.modules():
+        m.register_forward_pre_hook(lambda mod, args: entered.append(type(mod).__name__))
+    a, b = _factor_split(data, "train", "present"), _factor_split(data, "train", "past")
+    t = _factor_split(data, "val", "past")
+    if mode == "cross_attention":
+        call = lambda: cross_attention.extract_cross_attention(  # noqa: E731
+            model, t["input_ids"], t["attention_mask"], batch_size=4)
+        jax_call = lambda: jax_xattn.extract_cross_attention(  # noqa: E731
+            jmodel, params, t["input_ids"], t["attention_mask"], batch_size=4)
+        why = "self-attention maps"
+    else:
+        name = "bagon" if mode == "bagon" else f"shelgon_{mode}"
+        call = lambda: getattr(arithmetic, f"latent_arithmetic_{name}")(model, a, b, t)  # noqa
+        jax_call = lambda: jax_arith.latent_arithmetic_bagon(jmodel, params, a, b, t)  # noqa
+        why = "BERT LM head"
+    with pytest.raises(ValueError, match=f"GPT-2 decoder.*{why}"):
+        call()
+    assert entered == []
+    if mode in ("bagon", "cross_attention"):
+        with pytest.raises(Exception):
+            jax_call()
+
+
+def test_gpt2_latents_match_jax(data):
+    _, model, _, jmodel, params = _gpt2_models("bagon", seed=5)
+    split = data["torch"]["test"]
+    ids, mask = split.input_ids[:40], split.attention_mask[:40]
+    want = jax_latent.compute_sentence_latents(jmodel, params, ids, mask, batch_size=32)
+    got = latent_space.compute_sentence_latents(model, ids, mask, batch_size=32)
+    assert got.shape == (40, 32) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= LATENT_ABS * np.abs(want).max()
+
+
+def test_gpt2_disentanglement_matches_jax(data, tmp_path):
+    cfg, model, jcfg, jmodel, params = _gpt2_models("shelgon3", seed=6)
+    want = jax_dis.unsupervised_vq_disentanglement(
+        jcfg, jmodel, params, data["jax"], data["jax_tok"], results_dir=str(tmp_path / "jax"),
+        lim_batches_pct=0.2, batch_size=32)
+    got = disentanglement.unsupervised_vq_disentanglement(
+        cfg, model, data["torch"], data["tok"], results_dir=str(tmp_path / "torch"),
+        lim_batches_pct=0.2, batch_size=32)
+    assert len(got[0]) >= 2
+    for g, w in zip(got, want):
+        assert g == w
+    for name in RESULT_FILES:
+        with open(tmp_path / "torch" / name) as f, open(tmp_path / "jax" / name) as g:
+            assert f.read() == g.read(), name
+
+
+def test_gpt2_traversal_matches_jax(data, monkeypatch):
+    _, model, _, jmodel, params = _gpt2_models("shelgon", seed=7)
+    NoiseFeed(monkeypatch, per_shape=True)
+    b = _batch(data["torch"]["test"], 0, 8)
+    override = np.zeros((5, 3), np.float32)
+    override[:, 1] = 1.0
+    want = jax_trav.latent_traversals_shelgon(jmodel, params, b["input_ids"],
+                                              b["attention_mask"], override)
+    got = traversals.latent_traversals_shelgon(model, b["input_ids"], b["attention_mask"],
+                                               override)
+    for k in ("original_recon_ids", "traversed_recon_ids"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert np.abs(got["original_latent_classes"] - want["original_latent_classes"]).max() \
+        <= LATENT_ABS
 
 
 def test_max_acc_matches_jax(tmp_path):

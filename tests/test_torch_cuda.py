@@ -114,9 +114,16 @@ the plain route's from the same weights and generator seed, and its
 gradients no further (global and per-leaf relative L2) from an f32 plain
 step's than 1.25 times the plain bf16 route's, leaves whose f32 gradient is
 rounding noise aside (``chip_smoke.py``'s bars).
+The serving ops and artifacts: ``kvq::layer_fwd``, ``kvq::vq_fwd`` and
+``kvq::sdpa_fwd`` equal to their wrappers' direct launches bit for bit, in
+bf16 and f32; an artifact exported on the card (``serve/export.py``, H 128,
+2 + 2 layers, bucket 16: Shelgon3-VQ in bf16 and f32, Shelgon with its
+Gumbel noise, a ``fused_layer="off"`` run) equal to the live kernel forward
+bit for bit, with its launches, and refusing the CPU.
 """
 
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -1629,3 +1636,106 @@ def test_gpt2_decoder_on_the_card_matches_the_cpu(gen):
 
     assert all(torch.isfinite(g).all() for g in gk.values())
     assert dist(gk) <= 1.25 * dist(gc) + 2.0 ** -8, (dist(gk), dist(gc))
+
+
+# ---------------------------------------------------------------- the serving ops and artifacts
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_custom_ops_equal_their_wrappers(gen, dtype):
+    """``kvq::layer_fwd``, ``kvq::vq_fwd`` and ``kvq::sdpa_fwd`` on the card
+    give their wrappers' direct launches bit for bit, one launch a call."""
+    from kindergarten_vq_vae_torch.ops import layer as layer_ops
+    from kindergarten_vq_vae_torch.ops import vq_kernel
+
+    for decoder in (False, True):
+        geom, x, enc, smask, cmask, ws = _case(gen, decoder, 5, 12, 9, 128, 2, 256, decoder,
+                                               dtype=dtype)
+        before = fused_bert_layer.launches
+        with torch.inference_mode():
+            got = torch.ops.kvq.layer_fwd(x, enc, smask, cmask, ws, *layer_ops._geom_args(geom),
+                                          0)
+            want = layer_ops._launch(geom, x, enc, smask, cmask, ws, 0, save=False)[0]
+        assert fused_bert_layer.launches == before + 2
+        assert got.dtype == dtype and torch.equal(got, want)
+
+    z = torch.randn(7 * 12, 768, device="cuda", generator=gen)
+    cb = torch.randn(9, 768, device="cuda", generator=gen)
+    before = vector_quantize_kernel.launches
+    got, want = torch.ops.kvq.vq_fwd(z, cb), vq_kernel._launch_packed(z, cb)
+    assert vector_quantize_kernel.launches == before + 2
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+    qkv = torch.randn(6, 12, 3 * 128, device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv.split(128, dim=-1)
+    mask = (torch.arange(12, device="cuda")[None] < torch.tensor(
+        [[12], [3], [7], [1], [12], [9]], device="cuda")).int()
+    for causal, rate in ((True, 0.0), (False, 0.1)):
+        before = sdpa_forward.launches
+        got = torch.ops.kvq.sdpa_fwd(q, k, v, mask, 17, 2, causal, rate, False)
+        want = sdpa_forward(q, k, v, mask, 17, 2, causal, rate)
+        assert sdpa_forward.launches == before + 2
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def _tiny_run(root: str, name: str, model_name: str, dtype: str, **over) -> str:
+    """A run directory of seeded weights at a width the kernels take."""
+    from kindergarten_vq_vae_torch.ckpt.bridge import params_to_jax
+    from kindergarten_vq_vae_torch.ckpt.checkpoint import best_ckpt_name, write_checkpoint
+    from kindergarten_vq_vae_torch.config import RunConfig
+    from kindergarten_vq_vae_torch.data.tokenizer import WordTokenizer
+
+    data_dir, run = os.path.join(root, "data"), os.path.join(root, name)
+    os.makedirs(data_dir, exist_ok=True)
+    os.makedirs(run)
+    cfg = RunConfig(model_name=model_name, vocab_size=64, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, compute_dtype=dtype, emb_size=128,
+                    vq_n_e=9, vq_e_dim=128, data_dir=data_dir,
+                    tokenized_sentence_max_length=12, **over)
+    cfg.save(os.path.join(run, "run_conf.json"))
+    WordTokenizer("i you he she eat buy the a apple car red big".split()).save(
+        os.path.join(data_dir, cfg.tokenizer_file))
+    model = init_weights(build_model(cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(0))
+    write_checkpoint(os.path.join(run, best_ckpt_name(model_name, "loss_recon", "val")),
+                     params_to_jax(model))
+    return run
+
+
+@pytest.mark.parametrize("name, model_name, dtype, over, launches", [
+    ("vq_bf16", "shelgon3", "bfloat16", {}, (4, 0, 1)),
+    ("vq_f32", "shelgon3", "float32", {}, (4, 0, 1)),
+    ("shelgon_bf16", "shelgon", "bfloat16", {}, (4, 0, 0)),
+    ("off_bf16", "shelgon3", "bfloat16", {"fused_layer": "off"}, (0, 6, 1)),
+])
+def test_artifact_exported_on_the_card_equals_the_live_forward(gen, tmp_path, name, model_name,
+                                                               dtype, over, launches):
+    """An artifact exported on the card gives the live kernel forward's ids
+    and codes bit for bit, with the live forward's launches (layer, SDPA, VQ)
+    and no launch in its export; it refuses the CPU."""
+    from kindergarten_vq_vae_torch.serve.export import export_reconstructor, load_exported
+    from kindergarten_vq_vae_torch.serve.reconstructor import Reconstructor
+
+    run = _tiny_run(str(tmp_path), name, model_name, dtype, **over)
+
+    def counts():
+        return (fused_bert_layer.launches, sdpa_forward.launches,
+                vector_quantize_kernel.launches)
+
+    before = counts()
+    out, meta = export_reconstructor(run, bucket=16, out_path=str(tmp_path / "art"))
+    assert counts() == before and meta["device"] == "cuda"
+    live = Reconstructor(run, batch_buckets=(16,))
+    served = Reconstructor(run, artifact=out)
+    ids = torch.randint(1, 64, (16, 12), device="cuda", generator=gen, dtype=torch.int32)
+    mask = (torch.arange(12, device="cuda")[None] < torch.randint(
+        1, 13, (16, 1), device="cuda", generator=gen)).int()
+    with torch.inference_mode():
+        want = live.forward(ids, mask)
+        before = counts()
+        got = served.forward(ids, mask)
+        torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == launches
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="exported for cuda"):
+        load_exported(out, device="cpu")
