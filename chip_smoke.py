@@ -204,7 +204,38 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    14's Shelgon3-VQ with the GPT-2-small decoder, the sentence latents and
    the disentanglement through the kernels on the cut corpus, and the
    refusals of the three arithmetic modes and of the attention maps before
-   any launch.
+   any launch;
+17. multi-device (``phase_mesh``; ``kindergarten_vq_vae_torch/parallel/``):
+   (a) one rank over NCCL (a world of this process, one NCCL all-reduce
+   checked): the bert-base Shelgon3-VQ at batch 2048 x 12, bf16, dropout
+   0.1, 3 steps on the meshes ``(1,)`` ``("dp",)`` and ``(1, 1)`` ``("dp",
+   "tp")`` (the mesh path's head: "auto" is "store" under a mesh) against
+   the unmeshed step with ``fused_head_ce="store"`` from the same weights
+   and generator seed, all under ``torch.use_deterministic_algorithms``
+   (the codebook gradient's ``index_add_`` otherwise accumulates with
+   atomics): the losses and the parameters after 3 steps the unmeshed
+   step's bits (at world 1 every collective is the identity and the seed
+   fold adds 0), #1, #2, #5, #9, #10, the table gradient and #14 launched
+   in each run, the step medians side by side; (b) two ranks sharing the
+   card over gloo (``parallel.dryrun.launch``, ``_mesh_gloo_worker``, under
+   deterministic algorithms), full bert-base width and depth, the logits
+   route (#7 / #8), global batch 512, dropout 0: the mesh ``(2,)`` for 2
+   steps in bf16 and one in f32; the first step's bf16 gradients the bits
+   of a witness: each rank runs its 256 rows alone through the unmeshed
+   step (normalised by its own rows, so its gradient is twice its share,
+   exactly), the two witnesses are summed in f32 as the gradient all-reduce
+   sums the shares and halved; a control (one rank's witness left out)
+   must not give those bits; the first loss within ``MESH_LOSS_REL`` of
+   rank 0's one-process step on the whole batch (f32: ``F32_LOSS_REL``),
+   the f32 gradients within ``F32_GRAD`` of each leaf's largest of the
+   one-process f32 step's; then the tp mesh ``(1, 2)`` for one step: its
+   loss and its parameters after the step the one-process step's bits (the
+   tp ranks' gradients are the same, so the reduce-scatter's mean is
+   exact); #1, #2, #5, #7, #8 and #14 launched on each rank in
+   each run; each step's time and the collectives' times (gloo's gradient
+   all-reduce, the stats' all-reduce, tp all-gather and reduce-scatter,
+   each bracketed by device syncs) and their share of the step; the
+   phase's wall time.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -307,6 +338,15 @@ ENGINE_CUT, ENGINE_EPOCHS, ENGINE_TRAIN_PCT = dict(num_verbs=8, num_objects=8), 
 F32_FWD, F32_GRAD, F32_NLL_REL, F32_LOSS_REL, F32_SERVE_SAME = 2e-5, 1e-4, 1e-5, 1e-5, 0.999
 PEAK_TF32, F32_STEPS, F32_GPT2_LAYERS = 494.7e12, 4, 2
 PEAK_3XTF32 = PEAK_TF32 / 3
+# multi-device phase: steps of the one-rank NCCL meshes at TRAIN_BATCH; the
+# two gloo ranks' global batch and steps; their first loss held to the
+# one-process step's within MESH_LOSS_REL (bf16 CE over the whole batch in
+# another row split)
+MESH_STEPS, MESH_BATCH, MESH_GLOO_STEPS = 3, 512, 2
+MESH_LOSS_REL = 1e-3
+MESH_KERNELS = ("layer_fwd", "layer_bwd", "vq", "head_ce_fwd", "head_ce_bwd", "table_grad",
+                "adam")
+MESH_GLOO_KERNELS = ("layer_fwd", "layer_bwd", "vq", "ce_fwd_ids", "ce_bwd", "adam")
 
 
 def _fail(msg: str) -> None:
@@ -4379,6 +4419,258 @@ def phase_export(names: tuple[str, str]) -> dict:
     return out
 
 
+def _mesh_one_rank(names: tuple[str, str]) -> dict:
+    """Phase 17 (a): one NCCL rank, the meshes (1,) and (1, 1) against the
+    unmeshed step, bit for bit."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.parallel.mesh import free_port, init_distributed, make_mesh
+    from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
+
+    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, backend="nccl", device="cuda",
+                     timeout=300.0)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out, ref = {}, None
+    try:
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        if dist.get_backend() != "nccl" or float(one) != 1.0:
+            _fail(f"the NCCL world of one: backend {dist.get_backend()}, all-reduce {one}")
+        batch = _train_batch(TRAIN_BATCH)
+        for what, shape, axes in (("unmeshed", None, None), ("(1,)", (1,), ("dp",)),
+                                  ("(1, 1)", (1, 1), ("dp", "tp"))):
+            mesh = make_mesh(shape, axes, "cuda") if shape else None
+            cfg = dataclasses.replace(_train_cfg(), fused_head_ce="auto" if mesh else "store")
+            torch.cuda.empty_cache()
+            model = build_model(cfg, device="cuda", fused_head=True)
+            init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+            state = init_train_state(cfg, model, mesh)
+            step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED),
+                                   mesh=mesh)
+            losses, times = [], []
+            with _plain_refused():
+                _reset_counters()
+                for _ in range(MESH_STEPS):
+                    t0 = time.perf_counter()
+                    state, aux = step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(aux["loss_full"]))
+                counts = _counters()
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            del state, model, step, aux
+            missing = [k for k in MESH_KERNELS if counts[k] == 0]
+            if missing:
+                _fail(f"mesh {what}: no launch of {missing} ({counts})")
+            med = statistics.median(times[1:]) * 1e3
+            run = {"losses": losses, "median_ms": med,
+                   "launches": {k: counts[k] for k in MESH_KERNELS}}
+            if ref is None:
+                ref = (losses, params)
+            run["differing_leaves"] = [n for n in params if not torch.equal(params[n], ref[1][n])]
+            out[what] = run
+            print(f"mesh {what} (one NCCL rank): bert-base shelgon3-VQ, batch {TRAIN_BATCH} x "
+                  f"{SEQ}, bf16, dropout 0.1, the store head, {MESH_STEPS} steps, deterministic "
+                  f"algorithms: losses {losses} (the unmeshed bits: {losses == ref[0]}), leaves "
+                  f"not the unmeshed bits after the steps {run['differing_leaves'][:8]} "
+                  f"({len(run['differing_leaves'])}), median step {med:.2f} ms, launches "
+                  f"{run['launches']} ({names[0]}; nvidia-smi: {names[1]})")
+            if losses != ref[0] or run["differing_leaves"]:
+                _fail(f"mesh {what} is off the unmeshed step's bits")
+            del params
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gloo_worker() -> None:
+    """One of phase 17 (b)'s two gloo ranks on the one card; prints its JSON
+    result as its last line."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from kindergarten_vq_vae_torch.models import build_model, init_weights
+    from kindergarten_vq_vae_torch.parallel.mesh import (
+        init_distributed,
+        local_device,
+        make_mesh,
+        shard_batch,
+    )
+    from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
+
+    rank, _ = init_distributed(backend="gloo", device="cuda", timeout=300.0)
+    dev = local_device("cuda")
+    torch.cuda.set_device(dev)
+    # the codebook's index_add_ and the embeddings' gradients without atomics
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    base = dataclasses.replace(_train_cfg(), fused_head_ce="off")  # the logits route: #7 / #8
+    batch = _train_batch(MESH_BATCH)
+    half = MESH_BATCH // 2
+
+    def run(shape, axes, steps, dtype="bfloat16", rows=None):
+        """``(results, first step's gradients, parameters after the steps)``;
+        ``rows``: the rows of the global batch an unmeshed run takes alone."""
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        mesh = make_mesh(shape, axes, dev) if shape else None
+        model = build_model(cfg, device=dev)
+        init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+        state = init_train_state(cfg, model, mesh)
+        step = make_train_step(cfg, dev, torch.Generator(device=dev).manual_seed(SEED),
+                               deterministic=True, mesh=mesh)
+        if mesh is not None:
+            local = shard_batch(mesh, batch)
+        elif rows is not None:
+            local = {k: v[rows] for k, v in batch.items() if k != "n_valid"}
+            local["n_valid"] = rows.stop - rows.start
+        else:
+            local = batch
+        res = {"losses": [], "ms": [], "comm_ms": []}
+        grads = None
+        with _plain_refused(default_route=dtype == "float32"):
+            _reset_counters()
+            for i in range(steps):
+                if mesh is not None:
+                    mesh.timed = True
+                    mesh.comm_ms.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, aux = step(state, local)
+                torch.cuda.synchronize()
+                res["ms"].append((time.perf_counter() - t0) * 1e3)
+                res["comm_ms"].append(dict(mesh.comm_ms) if mesh else {})
+                res["losses"].append(float(aux["loss_full"]))
+                if i == 0:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+            counts = _counters()
+        res["launches"] = {k: counts[k] for k in MESH_GLOO_KERNELS}
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del state, model, step
+        torch.cuda.empty_cache()
+        return res, grads, params
+
+    def worst(got: dict, want: dict) -> tuple[float, list]:
+        rel = sorted(((_rel_max(got[n], g), n) for n, g in want.items()), reverse=True)
+        return statistics.median(r for r, _ in rel), [[n, r] for r, n in rel[:4]]
+
+    out = {"rank": rank}
+    out["dp"], dp_grads, _ = run((2,), ("dp",), MESH_GLOO_STEPS)
+    # the witness: this rank's rows alone through the unmeshed step (its loss
+    # over its own rows: twice its share of the global mean, exactly), summed
+    # with the other rank's in f32 as the gradient all-reduce sums the shares,
+    # then halved; the control leaves the other rank's out
+    witness_run, own, _ = run(None, None, 1, rows=slice(rank * half, (rank + 1) * half))
+    out["witness_ms"] = witness_run["ms"][0]
+    leaves = sorted(own)
+    flat = torch.cat([own[n].float().reshape(-1) for n in leaves])
+    dist.all_reduce(flat)
+    flat.mul_(0.5)
+    out["witness_same_leaves"] = sorted(dp_grads) == leaves
+    out["witness_differing"], out["control_equal"], off = [], [], 0
+    for n in leaves:
+        w = flat[off:off + own[n].numel()].view(own[n].shape).to(own[n].dtype)
+        off += own[n].numel()
+        if not torch.equal(dp_grads[n], w):
+            out["witness_differing"].append([n, _rel_max(dp_grads[n], w)])
+        if torch.equal(dp_grads[n], own[n] * 0.5):
+            out["control_equal"].append(n)
+    out["n_leaves"] = len(leaves)
+    del own, flat
+    out["dp_f32"], dp32_grads, _ = run((2,), ("dp",), 1, "float32")
+    if rank == 0:
+        ref, _, ref_params = run(None, None, 1)
+        f32, f32_grads, _ = run(None, None, 1, "float32")
+        out["one_process"] = {"losses": ref["losses"], "ms": ref["ms"]}
+        out["one_process_f32"] = {"losses": f32["losses"], "ms": f32["ms"]}
+        out["same_leaves"] = sorted(dp32_grads) == sorted(f32_grads)
+        out["f32_grad_rel_median"], out["f32_grad_rel_worst"] = worst(dp32_grads, f32_grads)
+        del f32_grads
+    del dp_grads, dp32_grads
+    dist.barrier()
+    out["tp"], _, tp_params = run((1, 2), ("dp", "tp"), 1)
+    if rank == 0:
+        out["tp_differing_leaves"] = [n for n in tp_params if not torch.equal(tp_params[n],
+                                                                              ref_params[n])]
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+
+
+def phase_mesh(names: tuple[str, str]) -> dict:
+    """Phase 17: the multi-device path on the one card."""
+    import torch
+
+    from kindergarten_vq_vae_torch.parallel.dryrun import launch
+
+    t_phase = time.perf_counter()
+    one = _mesh_one_rank(names)
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
+            "c._mesh_gloo_worker()")
+    t0 = time.perf_counter()
+    outs = launch(2, ["-c", code], timeout=900.0)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    r0 = ranks[0]
+    ref_loss, dp_loss = r0["one_process"]["losses"][0], r0["dp"]["losses"][0]
+    loss_rel = abs(dp_loss - ref_loss) / abs(ref_loss)
+    for r in ranks:
+        for mesh in ("dp", "dp_f32", "tp"):
+            missing = [k for k in MESH_GLOO_KERNELS if r[mesh]["launches"][k] == 0]
+            if missing:
+                _fail(f"gloo rank {r['rank']}, mesh {mesh}: no launch of {missing}")
+            if not all(math.isfinite(v) for v in r[mesh]["losses"]):
+                _fail(f"gloo rank {r['rank']}, mesh {mesh}: losses {r[mesh]['losses']}")
+    for r in ranks:
+        for mesh, shape in (("dp", "(2,)"), ("dp_f32", "(2,) f32"), ("tp", "(1, 2)")):
+            for i, (ms, comm) in enumerate(zip(r[mesh]["ms"], r[mesh]["comm_ms"])):
+                share = sum(comm.values()) / ms
+                print(f"mesh {shape} over gloo, rank {r['rank']} step {i}: "
+                      f"{ms:.1f} ms, loss {r[mesh]['losses'][i]:.6f}, collectives "
+                      f"{json.dumps({k: round(v, 3) for k, v in comm.items()})} ms "
+                      f"({share:.1%} of the step), launches {r[mesh]['launches']} "
+                      f"({names[0]}; nvidia-smi: {names[1]})")
+        print(f"mesh (2,) over gloo, rank {r['rank']}: bf16 first-step gradients against the "
+              f"witness (its 256 rows alone, {r['witness_ms']:.1f} ms, summed with the other "
+              f"rank's and halved): {r['n_leaves'] - len(r['witness_differing'])} of "
+              f"{r['n_leaves']} leaves the same bits, differing {r['witness_differing'][:6]}; "
+              f"the control (the other rank's witness left out) gives the bits of "
+              f"{len(r['control_equal'])} leaves {r['control_equal'][:6]} "
+              f"({names[0]}; nvidia-smi: {names[1]})")
+    f32_rel = abs(r0["dp_f32"]["losses"][0] - r0["one_process_f32"]["losses"][0]) / abs(
+        r0["one_process_f32"]["losses"][0])
+    print(f"mesh (2,) over gloo: first loss {dp_loss:.6f} vs one process {ref_loss:.6f} "
+          f"(rel {loss_rel:.3e}, tol {MESH_LOSS_REL}); f32: {r0['dp_f32']['losses'][0]:.6f} vs "
+          f"{r0['one_process_f32']['losses'][0]:.6f} (rel {f32_rel:.3e}, tol {F32_LOSS_REL}); "
+          f"f32 gradients against the one-process f32 step's, rel of each leaf's largest: median "
+          f"{r0['f32_grad_rel_median']:.3e}, worst {r0['f32_grad_rel_worst']} (tol {F32_GRAD}); "
+          f"one-process step {r0['one_process']['ms'][0]:.1f} ms (f32 "
+          f"{r0['one_process_f32']['ms'][0]:.1f}); mesh (1, 2): loss "
+          f"{r0['tp']['losses'][0]:.6f}, leaves not the one-process step's bits after the "
+          f"step {r0['tp_differing_leaves']}; two-rank launch {wall:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({names[0]}; nvidia-smi: {names[1]})")
+    for r in ranks:
+        if not r["witness_same_leaves"] or r["witness_differing"]:
+            _fail(f"gloo rank {r['rank']}: the mesh's bf16 gradients are not the witness's bits")
+        if len(r["control_equal"]) == r["n_leaves"]:
+            _fail(f"gloo rank {r['rank']}: the control gives the witness's bits")
+    if (loss_rel > MESH_LOSS_REL or f32_rel > F32_LOSS_REL or not r0["same_leaves"]
+            or r0["f32_grad_rel_worst"][0][1] > F32_GRAD):
+        _fail("the two-rank mesh step is off the one-process step")
+    if r0["tp"]["losses"][0] != ref_loss or r0["tp_differing_leaves"]:
+        _fail("the tp mesh step is off the one-process step")
+    torch.cuda.empty_cache()
+    return {"one_rank": one, "gloo": ranks}
+
+
 def main() -> None:
     _require_checkout_and_card()
     import torch
@@ -4431,6 +4723,7 @@ def main() -> None:
     f32 = phase_f32(names)
     f32r = phase_f32_routes(names, f32)
     phase_export(names)
+    phase_mesh(names)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]

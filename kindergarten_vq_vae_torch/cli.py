@@ -5,6 +5,8 @@
     python -m kindergarten_vq_vae_torch.cli shelgon2 --set mask_pct_train=0.1
     python -m kindergarten_vq_vae_torch.cli bagon --config run_conf.json --device cpu
     python -m kindergarten_vq_vae_torch.cli shelgon3 --resume runs/<run_id>
+    torchrun --nproc-per-node 4 -m kindergarten_vq_vae_torch.cli shelgon3 \
+        --set "mesh_shape=(2, 2)" --set "mesh_axis_names=('dp', 'tp')"
 
 Counterpart of ``models/_cli.py`` (and the ``models/<variant>/main.py``
 entry points over it): the config is a ``run_conf.json``-style file
@@ -12,7 +14,10 @@ entry points over it): the config is a ``run_conf.json``-style file
 field can be overridden with ``--set key=value`` (a Python literal, else a
 string), and ``--resume RUN_DIR`` continues a run from its resume bundle.
 The run trains on the card (``--device cuda``, bf16 through the kernels)
-unless ``--device cpu`` asks for the plain versions on the CPU.
+unless ``--device cpu`` asks for the plain versions on the CPU. With a
+``mesh_shape``, every rank of a ``torchrun`` world runs this entry point
+(one process a card over NCCL, or CPU ranks over gloo with ``--device
+cpu``).
 """
 
 from __future__ import annotations
@@ -59,9 +64,16 @@ def main(argv: list[str] | None = None):
     cfg = RunConfig.from_flat_dict({**cfg.get_config(), "model_name": args.model_name})
     cfg = apply_overrides(cfg, args.set)
 
+    import torch.distributed as dist
+
     from kindergarten_vq_vae_torch.train.run import run_training
 
-    return run_training(cfg, resume_from=args.resume, device=args.device)
+    joined = dist.is_initialized()
+    try:
+        return run_training(cfg, resume_from=args.resume, device=args.device)
+    finally:
+        if dist.is_initialized() and not joined:  # the group run_training joined
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

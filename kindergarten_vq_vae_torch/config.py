@@ -18,9 +18,10 @@ TPU implementation rather than a function are read and ignored:
 CE always run as the port's kernels, in bf16 or f32 on every route; an f32
 run on CUDA needs PyTorch's f32 matrix products in full f32
 (:func:`refuse_unported_route`). A ``decoder_model_name``
-holding "gpt" selects the GPT-2 decoder (``nn/gpt2.py``). The fields of a
-device mesh, which the port does not have yet, are carried so the schema
-stays whole; :func:`refuse_unported` raises on them.
+holding "gpt" selects the GPT-2 decoder (``nn/gpt2.py``). ``mesh_shape`` /
+``mesh_axis_names`` lay the world's ranks out as a device mesh
+(:mod:`~kindergarten_vq_vae_torch.parallel.mesh`); :func:`refuse_unported`
+checks them against each other and the world size.
 """
 
 from __future__ import annotations
@@ -201,11 +202,15 @@ class RunConfig:
 
 
 def refuse_unported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP item, for what the
-    port does not have yet: a non-empty ``mesh_shape``."""
-    if cfg.mesh_shape:
-        raise NotImplementedError(f"mesh_shape={tuple(cfg.mesh_shape)} is not ported yet "
-                                  "(ROADMAP, modules to port: multi-device)")
+    """Raise ``ValueError`` for a device mesh that cannot run in this world:
+    ``mesh_shape`` and ``mesh_axis_names`` that do not pair up, or a mesh
+    whose size is not the world's (one rank a device:
+    ``torch.distributed``'s world size, 1 in a process that has not joined
+    a process group). Nothing else of the schema is refused."""
+    if cfg.mesh_shape or cfg.mesh_axis_names:
+        from kindergarten_vq_vae_torch.parallel.mesh import check_mesh_shape
+
+        check_mesh_shape(cfg.mesh_shape, cfg.mesh_axis_names)
 
 
 def refuse_unported_route(cfg: RunConfig, device) -> None:

@@ -6,9 +6,10 @@ the corpus is held as fixed-shape int32 arrays made once by
 batches are numpy slices of a fixed shape, the last partial one padded by
 repeating its first row and carrying the true count in ``n_valid``. Given a
 seed and an epoch, :class:`BatchIterator` yields the same batches in the same
-order as the JAX package's. The JAX package's memory-mapped lazy rows and
-multi-process sharding are not ported (``mmap`` loads in full; ROADMAP: a
-recorded divergence of PR 3, and "multi-device"). :func:`padded_batches`
+order as the JAX package's; with ``process_count`` > 1 each process takes
+its contiguous slice of every global batch (JAX l.175-212). The JAX
+package's memory-mapped lazy rows are not ported (``mmap`` loads in full; a
+recorded divergence). :func:`padded_batches`
 cuts columns into fixed-size inference batches the same way.
 """
 
@@ -72,7 +73,11 @@ class BatchIterator:
     """Static-shape batches of ``batch_size`` rows (numpy dicts with
     ``n_valid`` and the row ``index``), shuffled per epoch by ``(seed,
     epoch)`` when ``shuffle``; ``lim_batches_pct`` keeps the first share of
-    the batches, never fewer than one."""
+    the batches, never fewer than one. With ``process_count`` > 1 every
+    process computes the same global order and yields only its
+    ``process_index``'s contiguous ``batch_size / process_count`` rows of
+    each global batch (``batch_size`` stays global, ``n_valid`` the global
+    count)."""
 
     ds: DSentences
     batch_size: int
@@ -80,6 +85,8 @@ class BatchIterator:
     seed: int = 0
     lim_batches_pct: float = 1.0
     drop_last: bool = False
+    process_index: int = 0
+    process_count: int = 1
     _epoch: int = field(default=0, init=False)
 
     def __len__(self) -> int:
@@ -103,6 +110,12 @@ class BatchIterator:
             n_valid = len(idx)
             if n_valid < bs:
                 idx = np.concatenate([idx, np.full(bs - n_valid, idx[0] if n_valid else 0)])
+            if self.process_count > 1:
+                if bs % self.process_count:
+                    raise ValueError(f"batch_size {bs} must divide process_count "
+                                     f"{self.process_count}")
+                local = bs // self.process_count
+                idx = idx[self.process_index * local:(self.process_index + 1) * local]
             batch = {"input_ids": self.ds.input_ids[idx],
                      "attention_mask": self.ds.attention_mask[idx],
                      "n_valid": np.int32(n_valid), "index": idx}

@@ -15,6 +15,12 @@ encoder output is quantized and the decoder cross-attends to ``z_q``.
   (hard outside training); the perplexity is the count of distinct codes
   and ``ema_stats`` is None.
 
+Under a device mesh with dp ranks (a loss function's
+:func:`~kindergarten_vq_vae_torch.parallel.mesh.use_mesh`) the batch is the
+rank's rows: the VQ takes its data-parallel form (the statistics summed
+over dp, :func:`~kindergarten_vq_vae_torch.ops.vq.assemble`; JAX l.86-98),
+and the Gumbel regulariser and code count are the global batch's.
+
 ``deterministic`` and ``is_training`` mean what they mean in the JAX module.
 """
 
@@ -33,6 +39,7 @@ from kindergarten_vq_vae_torch.ops.gumbel import (
 )
 from kindergarten_vq_vae_torch.ops.vq import VQOutput, vector_quantize
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+from kindergarten_vq_vae_torch.parallel.mesh import dp_mean
 
 
 class VectorQuantizer(nn.Module):
@@ -110,7 +117,8 @@ class Shelgon3(nn.Module):
             ema_stats = {"counts": vq.counts, "sum_z": vq.sum_z}
         else:
             gq = self.gumbel_quantizer(embeds, is_training, generator)
-            z_q, vq_loss, indices, ema_stats = gq.z_q, gq.diff, gq.indices[..., None], None
+            (diff,) = dp_mean(gq.diff)
+            z_q, vq_loss, indices, ema_stats = gq.z_q, diff, gq.indices[..., None], None
             perplexity = unique_count_perplexity(gq.indices, self.vq_n_e)
         dec_ids = input_ids if decoder_input_ids is None else decoder_input_ids
         dec = self.decoder(dec_ids, attention_mask, encoder_hidden_states=z_q,

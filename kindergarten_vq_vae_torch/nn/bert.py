@@ -26,7 +26,14 @@ l.398-408 and ``_sdpa_seed`` l.143-152 draw them from the flax RNG;
 ``deterministic=True`` gives zero seeds and zero rates. The other dropout
 sites (the embeddings l.125, the per-module layers' hidden sites and the
 einsum route's probabilities) are flax-RNG dropout in JAX and cannot be
-reproduced; the port draws their masks from the same generator. Gradients
+reproduced; the port draws their masks from the same generator. Under a
+device mesh (a loss function's
+:func:`~kindergarten_vq_vae_torch.parallel.mesh.use_mesh`) the trunk runs on
+the rank's rows with whole weights: the seeds are drawn as above and then
+folded with the dp index, as JAX's ``_fused_trunk_sharded`` folds the fused
+trunk's (l.513-519); JAX's per-module route runs on global rows under GSPMD
+and folds nothing, a recorded divergence; the masks are the rank's rows of
+a draw at the global shape. Gradients
 reach the embeddings, the MLM head and the tied table through autograd, the
 fused layers through
 :class:`~kindergarten_vq_vae_torch.ops.layer.FusedBertLayer` and the SDPA
@@ -56,6 +63,7 @@ from kindergarten_vq_vae_torch.ops.layer import (
     fused_bert_layer,
 )
 from kindergarten_vq_vae_torch.ops.sdpa import fused_sdpa
+from kindergarten_vq_vae_torch.parallel.mesh import fold_active, global_draw
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 NEG_INF = -1e9  # finite mask value, as the JAX package's
@@ -95,8 +103,11 @@ class BertConfig:
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
-    divided by it, in x's dtype; the mask is drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    divided by it, in x's dtype; the mask is drawn from ``generator`` (at the
+    global batch's shape under a mesh:
+    :func:`~kindergarten_vq_vae_torch.parallel.mesh.global_draw`)."""
+    keep = global_draw(x.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -303,9 +314,11 @@ class BertLayer(nn.Module):
 
 
 def _seeds(n: int, generator: torch.Generator) -> list[int]:
-    """``n`` int32 seeds in one draw and one host copy."""
-    return torch.randint(INT32_MIN, INT32_MAX, (n,), generator=generator, device=generator.device,
-                         dtype=torch.int64).tolist()
+    """``n`` int32 seeds in one draw and one host copy; under a mesh with dp
+    ranks folded with the dp index (``_fused_trunk_sharded`` l.513-519: the
+    kernels hash local row ids, which repeat on every rank)."""
+    return fold_active(torch.randint(INT32_MIN, INT32_MAX, (n,), generator=generator,
+                                     device=generator.device, dtype=torch.int64).tolist())
 
 
 class BertModel(nn.Module):

@@ -163,7 +163,7 @@ class FusedCE(torch.autograd.Function):
     ``fused_ce_loss`` (``ids=False``, l.224-246) with their custom VJP."""
 
     @staticmethod
-    def forward(ctx, logits, target_ids, valid_row, reference, ids):
+    def forward(ctx, logits, target_ids, valid_row, reference, ids, denom=None):
         b, s, v = logits.shape
         logits2d = logits.reshape(b * s, v)
         targets = target_ids.reshape(-1).to(torch.int32).contiguous()
@@ -172,7 +172,9 @@ class FusedCE(torch.autograd.Function):
         else:
             nll = (ce_fwd_reference if reference else ce_fwd)(logits2d, targets)
         w = valid_row.float().repeat_interleave(s)
-        denom = torch.clamp(valid_row.float().sum(), min=1.0) * s
+        if denom is None:
+            denom = torch.clamp(valid_row.float().sum(), min=1.0) * s
+        denom = torch.as_tensor(denom, dtype=torch.float32, device=logits.device)
         loss = (nll * w).sum() / denom
         lse = nll + target_logits(logits2d, targets)
         ctx.save_for_backward(logits2d, targets, lse, w, denom)
@@ -187,14 +189,16 @@ class FusedCE(torch.autograd.Function):
         logits2d, targets, lse, w, denom = ctx.saved_tensors
         scale = ((g / denom) * w).contiguous()
         bwd = ce_bwd_reference if ctx.reference else ce_bwd
-        return bwd(logits2d, targets, lse, scale).reshape(ctx.shape), None, None, None, None
+        return bwd(logits2d, targets, lse, scale).reshape(ctx.shape), None, None, None, None, None
 
 
-def fused_ce_loss_ids(logits, target_ids, valid_row, reference: bool = False):
+def fused_ce_loss_ids(logits, target_ids, valid_row, reference: bool = False, denom=None):
     """(B, S, V) logits, (B, S) targets, (B,) 1/0 valid rows -> (scalar mean
     NLL over the valid rows, (B, S) int32 argmax ids). ``reference=True``
-    takes the plain versions on any device."""
-    return FusedCE.apply(logits, target_ids, valid_row, reference, True)
+    takes the plain versions on any device. ``denom``: the normaliser,
+    ``max(sum(valid_row), 1) * S`` when None (a data-parallel loss passes
+    the global one, so that its rank's loss is a share of the global mean)."""
+    return FusedCE.apply(logits, target_ids, valid_row, reference, True, denom)
 
 
 def fused_ce_loss(logits, target_ids, valid_row, reference: bool = False):

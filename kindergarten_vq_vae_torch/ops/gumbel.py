@@ -16,7 +16,9 @@ Counterpart of ``kindergarten_vq_vae_tpu/ops/gumbel.py``:
 JAX draws the noise with ``jax.random.gumbel`` in the logits' dtype; the
 port draws it in :func:`sample_gumbels` from a :class:`torch.Generator`
 (``-log`` of a unit exponential, as ``torch.nn.functional.gumbel_softmax``
-does), so the two streams differ while the distribution is the same. The
+does), so the two streams differ while the distribution is the same; under
+a device mesh the noise is the rank's rows of a draw at the global batch's
+shape. The
 arithmetic after the draw takes the noise as an argument, which is how the
 tests hold it against JAX given JAX's noise. None of these functions is a
 Pallas kernel in JAX; the models run them in f32, as the JAX modules'
@@ -28,6 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from kindergarten_vq_vae_torch.parallel.mesh import dp_sum, global_draw
 
 
 class GumbelFeed:
@@ -63,8 +67,8 @@ def sample_gumbels(like: torch.Tensor, generator: torch.Generator | GumbelFeed) 
         raise ValueError("Gumbel noise needs a torch.Generator")
     if isinstance(generator, GumbelFeed):
         return generator.take(like)
-    e = torch.empty(like.shape, dtype=like.dtype, device=like.device)
-    return -e.exponential_(generator=generator).log()
+    return global_draw(like.shape, lambda shape: -torch.empty(
+        shape, dtype=like.dtype, device=like.device).exponential_(generator=generator).log())
 
 
 def gumbel_softmax_with(logits: torch.Tensor, gumbels: torch.Tensor, tau: float = 1.0,
@@ -110,8 +114,10 @@ def gumbel_quantize(z: torch.Tensor, proj_kernel: torch.Tensor, proj_bias: torch
 
 def unique_count_perplexity(indices: torch.Tensor, n_embed: int) -> torch.Tensor:
     """The number of distinct codes in ``indices``, as an f32 scalar (the
-    reference's Gumbel "perplexity" proxy), with no host sync."""
+    reference's Gumbel "perplexity" proxy), with no host sync; under a
+    device mesh the codes of every dp rank's rows."""
     flat = indices.reshape(-1)
-    counts = torch.zeros(n_embed, dtype=torch.int32, device=indices.device)
-    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    counts = torch.zeros(n_embed, dtype=torch.float32, device=indices.device)
+    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    (counts,) = dp_sum(counts)
     return torch.sum(counts > 0).float()

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from kindergarten_vq_vae_torch.parallel.mesh import active_mesh, dp_sum
 from kindergarten_vq_vae_torch.utils.metrics import perplexity_from_counts
 
 
@@ -101,7 +102,15 @@ class VQCore(torch.autograd.Function):
 
 
 def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn) -> VQOutput:
-    """The bottleneck's outputs from a raw forward (``fused_vector_quantize`` l.203-228)."""
+    """The bottleneck's outputs from a raw forward (``fused_vector_quantize``
+    l.203-228). Under a mesh with dp ranks
+    (:func:`~kindergarten_vq_vae_torch.parallel.mesh.active_mesh`), ``z`` is
+    this rank's rows (``fused_vector_quantize_sharded`` l.231-290): ``d1``,
+    ``d2``, the counts and ``sum_z`` are summed over dp in one all-reduce,
+    the loss divides by the global element count and the perplexity comes
+    from the global counts; the loss's gradient is the local share's
+    (:func:`~kindergarten_vq_vae_torch.parallel.mesh.dp_sum`), and ``z_q``,
+    ``one_hot`` and ``indices`` stay local."""
     batch, seq_len, d = z.shape
     n_e = codebook.shape[0]
     z_flat = z.reshape(-1, d)
@@ -110,10 +119,15 @@ def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn
     else:  # serving: no autograd bookkeeping
         z_q, d1, idx, counts, sumz = _core(z_flat, codebook, raw_fn)
         d2 = d1
+    numel, rows = z_flat.numel(), z_flat.shape[0]
+    mesh = active_mesh()
+    if mesh is not None and mesh.dp_group is not None:
+        d1, d2, counts, sumz = dp_sum(d1, d2, counts, sumz)
+        numel, rows = numel * mesh.dp_size, rows * mesh.dp_size
     return VQOutput(
-        loss=(d1 + beta * d2) / z_flat.numel(),
+        loss=(d1 + beta * d2) / numel,
         z_q=z_q.reshape(z.shape),
-        perplexity=perplexity_from_counts(counts, z_flat.shape[0]),
+        perplexity=perplexity_from_counts(counts, rows),
         one_hot=F.one_hot(idx, n_e).to(z.dtype),
         indices=idx.reshape(batch, seq_len, 1),
         counts=counts,

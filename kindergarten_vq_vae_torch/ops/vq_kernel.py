@@ -7,7 +7,10 @@ plain version's eager expression), indices, per-code counts and sums, and
 the sum of ``(z_q - z)^2``; the loss, perplexity, :class:`VQOutput` and the
 gradient (:class:`~kindergarten_vq_vae_torch.ops.vq.VQCore`, plain PyTorch
 as in JAX) are shared with the plain version
-:func:`kindergarten_vq_vae_torch.ops.vq.vector_quantize`.
+:func:`kindergarten_vq_vae_torch.ops.vq.vector_quantize`. Under a device mesh
+with dp ranks both take the data-parallel form of ``assemble``
+(``fused_vector_quantize_sharded``): ``z`` is the rank's rows and the
+statistics are summed over dp.
 """
 
 from __future__ import annotations

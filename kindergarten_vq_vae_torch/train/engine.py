@@ -27,12 +27,27 @@ tokenizer, as JAX's engine does (l.438-441): with the GPT-2 decoder they are
 BPE ids, so the dumped reconstructions are not its text (a fault of the
 reference, kept for parity).
 
+Under a device mesh (``mesh_shape``, :mod:`~kindergarten_vq_vae_torch.parallel.mesh`;
+one process a rank, as ``torchrun`` starts them) every rank runs this
+engine: it joins the process group when the caller has not (NCCL on CUDA,
+gloo on the CPU), takes ``cuda:LOCAL_RANK``, iterates its dp index's rows
+of every global batch (``BatchIterator(process_index, process_count)``) and
+steps with the mesh; the stats of a step are the global batch's on every
+rank (the loss functions sum them over dp), so the stage sums need no
+collective. Rank 0 alone prints, logs, and writes the checkpoints, the
+resume bundle and the decode dump (whose rows it gathers from the dp
+ranks); the tp-sharded optimizer moments are gathered for it first, so a
+mesh run writes the format of an unmeshed one, and a resumed rank takes its
+shards from the whole leaves. Every rank reads what rank 0 wrote after a
+barrier.
+
 ``profile_dir`` traces the first train epoch with :mod:`torch.profiler`
 (a Chrome trace in that directory). ``wandb_watch_model`` logs the global
 gradient norm and each leaf's gradient and parameter norms;
 ``wandb_watch_histograms`` logs 64-bin histograms of each leaf's values and
 of its gradient instead, the gradient recomputed on the epoch's last train
-batch with that step's draws.
+batch with that step's draws (under a mesh by every rank, reduced as the
+step reduces it, and logged by rank 0).
 """
 
 from __future__ import annotations
@@ -63,10 +78,12 @@ from kindergarten_vq_vae_torch.config import (
 from kindergarten_vq_vae_torch.data.dataset import BatchIterator
 from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.ops.vq import EMAState
+from kindergarten_vq_vae_torch.parallel.mesh import init_distributed, local_device, make_mesh
 from kindergarten_vq_vae_torch.train.step import (
     init_train_state,
     make_eval_step,
     make_train_step,
+    train_gradients,
 )
 from kindergarten_vq_vae_torch.train.variants import (
     BEST_MODES,
@@ -75,7 +92,6 @@ from kindergarten_vq_vae_torch.train.variants import (
     STAT_KEYS,
     _resolve_head_ce,
     load_codebook_init,
-    make_loss_fn,
 )
 from kindergarten_vq_vae_torch.utils import console
 from kindergarten_vq_vae_torch.utils.consts import EXPLICIT_FACTOR_VALUES
@@ -104,10 +120,16 @@ class Engine:
                  params=None, device="cuda"):
         """``params``: initial weights as a Flax tree or a state dict (the
         seeded initialisation of ``cfg.seed`` when None)."""
+        self.device = torch.device(device)
+        if cfg.mesh_shape:
+            init_distributed(device=self.device)
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = local_device("cuda")
         refuse_unported(cfg)
+        self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names, self.device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.cfg, self.splits, self.tokenizer, self.run_path = cfg, splits, tokenizer, run_path
         self.model_name = cfg.model_name
-        self.device = torch.device(device)
         refuse_unported_route(cfg, self.device)
 
         # the training and eval steps share the model: built for the fused
@@ -129,11 +151,12 @@ class Engine:
             load_bagon_into_model(model, cfg.from_pretrained_bagon)
         if cfg.init_from_ckpt:
             load_params(model, cfg.init_from_ckpt)
-        self.state = init_train_state(cfg, model)
+        self.state = init_train_state(cfg, model, self.mesh)
 
         self._gen = torch.Generator(device=self.device)
-        self._train_step = make_train_step(cfg, self.device, self._gen)
-        self._eval_steps = {stage: make_eval_step(cfg, stage) for stage in ("val", "test")}
+        self._train_step = make_train_step(cfg, self.device, self._gen, mesh=self.mesh)
+        self._eval_steps = {stage: make_eval_step(cfg, stage, mesh=self.mesh)
+                            for stage in ("val", "test")}
         self._last_train_batch: tuple[dict, int] | None = None  # for the gradient histograms
         self.decoded_sentences: list[dict] = []
         self.history: list[dict] = []
@@ -151,13 +174,15 @@ class Engine:
 
     def _iterators(self) -> dict:
         c = self.cfg
+        dp = {} if self.mesh is None else {"process_index": self.mesh.dp_index,
+                                           "process_count": self.mesh.dp_size}
         return {
             "train": BatchIterator(self.splits["train"], c.batch_size, shuffle=True, seed=c.seed,
-                                   lim_batches_pct=c.lim_batches_train_pct, drop_last=True),
+                                   lim_batches_pct=c.lim_batches_train_pct, drop_last=True, **dp),
             "val": BatchIterator(self.splits["val"], c.batch_size,
-                                 lim_batches_pct=c.lim_batches_val_pct),
+                                 lim_batches_pct=c.lim_batches_val_pct, **dp),
             "test": BatchIterator(self.splits["test"], c.batch_size,
-                                  lim_batches_pct=c.lim_batches_test_pct),
+                                  lim_batches_pct=c.lim_batches_test_pct, **dp),
         }
 
     def _init_best(self) -> dict:
@@ -244,10 +269,18 @@ class Engine:
     def _decode_batch(self, batch, aux, epoch: int, stage: str) -> None:
         if self.tokenizer is None:
             return
-        input_dec = self.tokenizer.batch_decode(np.asarray(batch["input_ids"]))
-        recon_dec = self.tokenizer.batch_decode(aux["recon_ids"].cpu().numpy())
-        accs = aux["acc_per_sentence"].cpu().numpy()
-        labels = batch.get("labels")
+        rows = {"input_ids": torch.as_tensor(np.asarray(batch["input_ids"]), device=self.device),
+                "recon_ids": aux["recon_ids"], "acc": aux["acc_per_sentence"]}
+        if batch.get("labels") is not None:
+            rows["labels"] = torch.as_tensor(np.asarray(batch["labels"]), device=self.device)
+        if self.mesh is not None:  # the global batch's rows, in dp order
+            rows = {k: self.mesh.gather_rows_dp(v) for k, v in rows.items()}
+        if not self.is_main:
+            return
+        input_dec = self.tokenizer.batch_decode(rows["input_ids"].cpu().numpy())
+        recon_dec = self.tokenizer.batch_decode(rows["recon_ids"].cpu().numpy())
+        accs = rows["acc"].cpu().numpy()
+        labels = rows["labels"].cpu().numpy() if "labels" in rows else None
         for j in range(int(batch["n_valid"])):
             row = {"epoch": epoch, "stage": stage, "input_sentence": input_dec[j],
                    "recon_sentence": recon_dec[j], "sentence_acc": float(accs[j])}
@@ -256,7 +289,7 @@ class Engine:
             self.decoded_sentences.append(row)
 
     def _train_stage(self, iterator, epoch: int, decode: bool) -> dict:
-        if not (self.cfg.profile_dir and epoch == 1):
+        if not (self.cfg.profile_dir and epoch == 1 and self.is_main):
             return self._run_stage("train", iterator, epoch, decode)
         from kindergarten_vq_vae_torch.utils.profiling import trace
 
@@ -266,14 +299,23 @@ class Engine:
     # ------------------------------------------------------------------ state
 
     def _state_tree(self) -> dict:
+        """The resume bundle's tree; under tp sharding every rank gathers the
+        optimizer moments' shards (a collective), whole as an unmeshed run's."""
         st = self.state
         opt = st.opt_state
         names = [n for n, _ in st.trainable()]
+
+        def whole(moments):
+            out = dict(zip(names, moments))
+            if st.shards:
+                out.update(st.shards.gather({n: out[n] for n in names if n in st.shards}))
+            return out
+
         tree = {"params": model_tree(self.model), "step": np.int64(st.step),
-                "opt_state": {"count": np.int64(opt.count), "mu": dict(zip(names, opt.mu)),
-                              "nu": dict(zip(names, opt.nu))}}
+                "opt_state": {"count": np.int64(opt.count), "mu": whole(opt.mu),
+                              "nu": whole(opt.nu)}}
         if opt.nu_max is not None:
-            tree["opt_state"]["nu_max"] = dict(zip(names, opt.nu_max))
+            tree["opt_state"]["nu_max"] = whole(opt.nu_max)
         if st.ema is not None:
             tree["ema_counts"], tree["ema_means"] = st.ema.counts, st.ema.means
         if st.dead_steps is not None:
@@ -284,11 +326,14 @@ class Engine:
         """The resume bundle: params, optimizer state, step (EMA and dead-code
         state where present). ``use_writer`` sends the disk write through the
         async writer; ``after`` runs once the bundle is durable."""
+        tree = self._state_tree()
+        if not self.is_main:
+            return
         writer = self._writer() if use_writer else None
         if writer is not None:
-            writer.save(path, self._state_tree(), after=after)
+            writer.save(path, tree, after=after)
             return
-        write_checkpoint(path, self._state_tree())
+        write_checkpoint(path, tree)
         if after is not None:
             after()
 
@@ -307,10 +352,14 @@ class Engine:
         loaded = params_from_jax(tree["params"])
         for name, p in self.model.named_parameters():
             put(p, loaded[name])
+        if st.shards:
+            for name, leaf in st.shards.leaves.items():
+                put(leaf.shard, st.shards.shard_of(name, torch.as_tensor(loaded[name])))
         opt, names = st.opt_state, [n for n, _ in st.trainable()]
         for key, leaves in (("mu", opt.mu), ("nu", opt.nu), ("nu_max", opt.nu_max)):
             for name, t in zip(names, leaves or ()):
-                put(t, tree["opt_state"][key][name])
+                src = torch.as_tensor(tree["opt_state"][key][name])
+                put(t, st.shards.shard_of(name, src) if st.shards and name in st.shards else src)
         opt.count = int(tree["opt_state"]["count"])
         st.step = int(tree["step"])
         if st.ema is not None:
@@ -345,6 +394,7 @@ class Engine:
     def restore_resume(self, run_dir: str | None = None) -> int:
         """Restore a run saved by :meth:`save_resume`; returns the next epoch."""
         run_dir = run_dir or self.run_path
+        self.barrier()
         self.restore_state(os.path.join(run_dir, "resume_state"))
         with open(os.path.join(run_dir, "resume_meta.json")) as f:
             meta = json.load(f)
@@ -361,7 +411,7 @@ class Engine:
         best_train = self._best_train or self._init_best()
         best_val = self._best_val or self._init_best()
         progress = None
-        if console_print:
+        if console_print and self.is_main:
             progress = console.ProgressLine(f"epochs ({self.model_name})",
                                             cfg.n_epochs - self._start_epoch + 1)
         for epoch in range(self._start_epoch, cfg.n_epochs + 1):
@@ -386,12 +436,14 @@ class Engine:
         if progress is not None:
             progress.clear()
         self.drain_checkpoints()
+        self.barrier()
         return self.history
 
     def test(self, wandb_run=None, console_print: bool = True, reload_best: bool = True) -> dict:
         """Run the test split on the best-val ``loss_recon`` slot (the current
         parameters when there is none)."""
         model = None
+        self.barrier()
         if reload_best and self.run_path and self.cfg.export_checkpoint:
             path = os.path.join(self.run_path,
                                 best_ckpt_name(self.model_name, "loss_recon", "val"))
@@ -407,8 +459,8 @@ class Engine:
 
     def dump_decoded_sentences(self) -> str | None:
         """``decoded_sentences.feather`` when pandas and pyarrow are present,
-        else ``decoded_sentences.jsonl``."""
-        if not self.run_path:
+        else ``decoded_sentences.jsonl`` (rank 0 alone under a mesh)."""
+        if not (self.run_path and self.is_main):
             return None
         try:
             import pandas as pd
@@ -429,7 +481,7 @@ class Engine:
         """Best slots of every stat that improved, written as one bundle plus
         hardlinks; ``ckpt_every_n_epochs`` > 1 owes them to its cadence epoch
         and the last, 0 to the last epoch only."""
-        if not (self.run_path and self.cfg.export_checkpoint):
+        if not (self.run_path and self.cfg.export_checkpoint and self.is_main):
             return
         allowed = {tuple(s.split(":", 1)) for s in self.cfg.ckpt_slots} or None
         for stat in CKPT_KEYS[self.model_name]:
@@ -463,8 +515,22 @@ class Engine:
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()
 
+    def barrier(self) -> None:
+        """Under a mesh: rank 0's writes durable, then every rank waits for all."""
+        if self.mesh is not None and self.mesh.size > 1:
+            self.drain_checkpoints()
+            torch.distributed.barrier()
+
     def _log_epoch(self, epoch, stage, stats, flags, wandb_run, console_print) -> None:
         keys = STAT_KEYS[self.model_name]
+        hists = None
+        if (self.cfg.wandb_watch_histograms and stage == "train"
+                and self._last_train_batch is not None
+                and (wandb_run is not None or self.mesh is not None)):
+            # under a mesh a collective: every rank recomputes, rank 0 logs
+            hists = self._watch_histograms()
+        if not self.is_main:
+            return
         if console_print:
             strs, best = [], []
             for k in keys:
@@ -497,9 +563,8 @@ class Engine:
                                       for p in self.model.parameters()]).tolist()
             for n, v in zip(names, pnorms):
                 log[f"parameters/{n}"] = v
-        if (self.cfg.wandb_watch_histograms and stage == "train"
-                and self._last_train_batch is not None):
-            self._log_watch_histograms(log)
+        if hists is not None:
+            log.update(hists)
         for k in keys:
             if k == "padding_tokens_pct":
                 log[f"padding_tokens_pct/{stage}"] = stats[k]
@@ -510,25 +575,25 @@ class Engine:
         wandb_run.log(log)
 
 
-    def _log_watch_histograms(self, log: dict) -> None:
+    def _watch_histograms(self) -> dict:
         """64-bin histograms of every leaf's values and of its gradient on the
         epoch's last train batch (recomputed with that step's draws from the
-        current parameters), under ``parameters/<name>`` and
-        ``gradients/<name>``; a leaf the loss does not reach has a zero
-        gradient, as in JAX."""
+        current parameters, :func:`~kindergarten_vq_vae_torch.train.step.train_gradients`),
+        under ``parameters/<name>`` and ``gradients/<name>``; a leaf the loss
+        does not reach has a zero gradient, as in JAX."""
         batch, seed = self._last_train_batch
-        named = list(self.model.named_parameters())
-        for _, p in named:
-            p.grad = None
         self._gen.manual_seed(seed)
-        loss, _ = make_loss_fn(self.cfg, "train")(self.model, batch, self._gen, False)
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for _, p in named]
+        grads = train_gradients(self.cfg, self.state, batch, self._gen, self.mesh)
+        if not self.is_main:
+            return {}
+        named = list(self.model.named_parameters())
         pc, pr = stacked_hists([p for _, p in named])
         gc, gr = stacked_hists(grads)
+        log = {}
         for i, (name, _) in enumerate(named):
             log[f"parameters/{name}"] = _hist_payload(pc[i], pr[i, 0], pr[i, 1])
             log[f"gradients/{name}"] = _hist_payload(gc[i], gr[i, 0], gr[i, 1])
+        return log
 
 
 @torch.no_grad()

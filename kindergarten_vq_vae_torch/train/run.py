@@ -6,6 +6,13 @@ and prepare) the corpus, split it, make the run directory and its
 the test split (``Engine.test``), dump the decoded sentences and write
 ``history.json``. The run directory is what
 :class:`~kindergarten_vq_vae_torch.serve.reconstructor.Reconstructor` serves.
+
+Under a device mesh (``mesh_shape``; one process a rank, e.g. ``torchrun
+--nproc-per-node N -m kindergarten_vq_vae_torch.cli shelgon3 --set
+mesh_shape=(N,) --set mesh_axis_names=('dp',)``) every rank runs this:
+rank 0 prepares a missing corpus and makes the run directory before the
+others read them, and alone writes ``run_conf.json``, ``history.json`` and
+the wandb run.
 """
 
 from __future__ import annotations
@@ -15,10 +22,12 @@ import os
 from datetime import datetime
 
 import numpy as np
+import torch.distributed as dist
 
 from kindergarten_vq_vae_torch.config import RunConfig
 from kindergarten_vq_vae_torch.data.dataset import DSentences, split_dataset
 from kindergarten_vq_vae_torch.data.tokenizer import BPETokenizer, _BaseTokenizer
+from kindergarten_vq_vae_torch.parallel.mesh import init_distributed
 from kindergarten_vq_vae_torch.train.engine import Engine
 from kindergarten_vq_vae_torch.utils.consts import RUN_ID_TIMESTAMP_FORMAT
 from kindergarten_vq_vae_torch.utils.params import params_summary_dict
@@ -125,15 +134,37 @@ def init_wandb(cfg: RunConfig, run_conf: dict):
                       job_type=cfg.wandb_job_type, config=run_conf, mode=cfg.wandb_mode)
 
 
+def _rank_zero_first(fn, main: bool, meshed: bool):
+    """``fn()`` on rank 0, then on the other ranks once rank 0 is done."""
+    if main:
+        out = fn()
+    if meshed:
+        dist.barrier()
+    return out if main else fn()
+
+
 def run_training(cfg: RunConfig, console_print: bool = True, resume_from: str | None = None,
                  device="cuda") -> Engine:
     """The whole run; returns the Engine. ``resume_from``: a run directory
     holding ``resume_state`` and ``resume_meta.json`` (written when
     ``resume_save_every_n_epochs`` > 0); training continues in it from the
-    saved epoch, on the same trajectory."""
-    splits, tokenizer = load_data(cfg)
-    run_path = resume_from or make_run_dir(cfg)
+    saved epoch, on the same trajectory. Under a mesh the process group is
+    joined here unless the caller has joined one (NCCL on CUDA, gloo on the
+    CPU)."""
+    meshed = bool(cfg.mesh_shape)
+    main = True
+    if meshed:
+        rank, _ = init_distributed(device=device)
+        main = rank == 0
+    splits, tokenizer = _rank_zero_first(lambda: load_data(cfg), main, meshed)
+    run_path = resume_from
+    if run_path is None:
+        made = [make_run_dir(cfg) if main else None]
+        if meshed:
+            dist.broadcast_object_list(made, src=0)
+        run_path = made[0]
     engine = Engine(cfg, splits, tokenizer=tokenizer, run_path=run_path, device=device)
+    console_print = console_print and main
     if resume_from:
         start = engine.restore_resume(resume_from)
         if console_print:
@@ -142,11 +173,11 @@ def run_training(cfg: RunConfig, console_print: bool = True, resume_from: str | 
     run_conf = cfg.get_config()
     run_conf["run_id"] = os.path.basename(os.path.normpath(run_path))
     run_conf["n_params"] = params_summary_dict(engine.model)
-    if not resume_from:
+    if not resume_from and main:
         cfg.save(os.path.join(run_path, "run_conf.json"),
                  extra={"run_id": run_conf["run_id"], "n_params": run_conf["n_params"]})
 
-    wandb_run = init_wandb(cfg, run_conf)
+    wandb_run = init_wandb(cfg, run_conf) if main else None
     if wandb_run is not None and cfg.wandb_log_code:
         wandb_run.log_code(".")
     engine.fit(wandb_run=wandb_run, console_print=console_print)
@@ -154,8 +185,9 @@ def run_training(cfg: RunConfig, console_print: bool = True, resume_from: str | 
         engine.test(wandb_run=wandb_run, console_print=console_print)
     if cfg.decode_dump:
         engine.dump_decoded_sentences()
-    with open(os.path.join(run_path, "history.json"), "w") as f:
-        json.dump(engine.history, f, default=float)
+    if main:
+        with open(os.path.join(run_path, "history.json"), "w") as f:
+            json.dump(engine.history, f, default=float)
     if wandb_run is not None:
         wandb_run.finish()
     return engine

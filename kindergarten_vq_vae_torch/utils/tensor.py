@@ -10,6 +10,10 @@ a ``jax.random`` key; the port draws the same kinds of numbers from a
 :class:`torch.Generator`, so the two streams differ and the tests hold
 :func:`replace_pct_rand_values_with` and :func:`replace_pct_rand_columns_with`,
 the parts after the draws, against JAX given the same ``ranks`` and ``noise``.
+Under a device mesh (:func:`~kindergarten_vq_vae_torch.parallel.mesh.use_mesh`)
+``ids`` are the rank's rows: the draws are made at the global batch's shape
+and the share counts the global batch's elements, so each rank takes its
+rows of what one process would draw.
 """
 
 from __future__ import annotations
@@ -18,13 +22,16 @@ import math
 
 import torch
 
+from kindergarten_vq_vae_torch.parallel.mesh import global_draw, global_numel
+
 
 def replace_pct_rand_values_with(ids: torch.Tensor, pct: float, ranks: torch.Tensor,
-                                 noise: torch.Tensor) -> torch.Tensor:
+                                 noise: torch.Tensor, numel: int | None = None) -> torch.Tensor:
     """``ids`` with the positions whose ``ranks`` (a permutation of
     ``0..numel-1`` in ``ids``' shape) fall below ``floor(pct * numel)``
-    replaced by ``noise``."""
-    num_corrupt = int(ids.numel() * pct)
+    replaced by ``noise``; ``numel`` is ``ids``' unless given (the global
+    batch's, for a rank's rows)."""
+    num_corrupt = int((ids.numel() if numel is None else numel) * pct)
     return torch.where(ranks < num_corrupt, noise.to(ids.dtype), ids)
 
 
@@ -32,12 +39,14 @@ def replace_pct_rand_values(ids: torch.Tensor, pct: float, low: int, high: int,
                             generator: torch.Generator) -> torch.Tensor:
     """Replace exactly ``floor(pct * numel)`` elements of ``ids`` with uniform
     ints in ``[low, high)``, drawn from ``generator`` (on ``ids``' device)."""
-    if math.isclose(pct, 0.0) or int(ids.numel() * pct) == 0:
+    numel = global_numel(ids)
+    if math.isclose(pct, 0.0) or int(numel * pct) == 0:
         return ids
-    ranks = torch.randperm(ids.numel(), generator=generator, device=ids.device).reshape(ids.shape)
-    noise = torch.randint(low, high, ids.shape, generator=generator, device=ids.device,
-                          dtype=ids.dtype)
-    return replace_pct_rand_values_with(ids, pct, ranks, noise)
+    ranks = global_draw(ids.shape, lambda shape: torch.randperm(
+        numel, generator=generator, device=ids.device).reshape(shape))
+    noise = global_draw(ids.shape, lambda shape: torch.randint(
+        low, high, shape, generator=generator, device=ids.device, dtype=ids.dtype))
+    return replace_pct_rand_values_with(ids, pct, ranks, noise, numel)
 
 
 def replace_pct_rand_columns_with(ids: torch.Tensor, pct: float, ranks: torch.Tensor,
@@ -61,6 +70,6 @@ def replace_pct_rand_columns(ids: torch.Tensor, pct: float, low: int, high: int,
     if math.isclose(pct, 0.0) or int(dim * pct) == 0:
         return ids
     ranks = torch.randperm(dim, generator=generator, device=ids.device)
-    noise = torch.randint(low, high, ids.shape, generator=generator, device=ids.device,
-                          dtype=ids.dtype)
+    noise = global_draw(ids.shape, lambda shape: torch.randint(
+        low, high, shape, generator=generator, device=ids.device, dtype=ids.dtype))
     return replace_pct_rand_columns_with(ids, pct, ranks, noise, axis)

@@ -55,13 +55,20 @@ def test_overrides_parse_like_the_jax_cli():
     ({"model_name": "shelgon"}, None),
     # the id it had while the GPT-2 decoder was refused under that ROADMAP item
     pytest.param({"decoder_model_name": "gpt2"}, None, id="override1-other variants"),
-    ({"vq_mode": "GumbelQuantizer"}, None), ({"mesh_shape": (4,)}, "multi-device"),
+    ({"vq_mode": "GumbelQuantizer"}, None),
+    # the id it had while a mesh was refused under the ROADMAP item "multi-device"
+    pytest.param({"mesh_shape": (1,), "mesh_axis_names": ("dp",)}, "world",
+                 id="override3-multi-device"),
 ])
 def test_refusals_name_their_roadmap_item(override, item):
-    """A mesh is refused, naming its ROADMAP item; the variants and the GPT-2
-    decoder, ported since (``item`` None), are not."""
+    """Nothing is refused any more: the variants, the GPT-2 decoder and a
+    mesh whose size is the world's (this process alone: 1) pass; a mesh of
+    another size (``item`` "world"), or whose axis names do not pair up with
+    its shape, raises ``ValueError`` naming both."""
+    assert refuse_unported(RunConfig(**override)) is None
     if item is None:
-        assert refuse_unported(RunConfig(**override)) is None
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        refuse_unported(RunConfig(**override))
+    with pytest.raises(ValueError, match=r"mesh_shape \(4,\) holds 4 ranks, the world has 1"):
+        refuse_unported(RunConfig(**{**override, "mesh_shape": (4,)}))
+    with pytest.raises(ValueError, match="must pair up"):
+        refuse_unported(RunConfig(mesh_shape=(1, 1), mesh_axis_names=("dp",)))

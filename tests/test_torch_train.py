@@ -33,9 +33,11 @@ under the same criteria, and Shelgon3 three more with
 through the per-module trunk, once with ``fused_attn="on"`` (JAX: the Pallas
 SDPA kernels in interpret mode; the port: #11 / #12's plain versions) and
 once with ``"off"`` (the einsum route on both sides), under the same
-criteria. The last test lists what the step still refuses, each with its
-ROADMAP item, and takes one step of each variant ported since.
+criteria. The last test takes one step of each variant ported since it was
+refused, and of a one-rank mesh, beside a mesh of another size refused.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +55,7 @@ from kindergarten_vq_vae_torch.config import RunConfig as TorchRunConfig
 from kindergarten_vq_vae_torch.models import build_model, init_weights
 from kindergarten_vq_vae_torch.train.optim import Adam
 from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
+from kindergarten_vq_vae_torch.train.variants import _resolve_head_ce
 from kindergarten_vq_vae_torch.utils.metrics import (
     padding_tokens_pct,
     perplexity_from_counts,
@@ -209,21 +212,25 @@ def test_metrics_match_jax():
     ({"vq_mode": "GumbelQuantizer"}, None),
     # the id it had while the GPT-2 decoder was refused under that ROADMAP item
     pytest.param({"decoder_model_name": "gpt2"}, None, id="override3-other variants"),
-    ({"mesh_shape": (2,)}, "multi-device"),
+    # the id it had while a mesh was refused under the ROADMAP item "multi-device"
+    pytest.param({"mesh_shape": (1,), "mesh_axis_names": ("dp",)}, "world",
+                 id="override4-multi-device"),
 ])
 def test_step_refuses_what_is_not_ported(override, item):
-    """A mesh raises, naming its ROADMAP item; the variants and the GPT-2
-    decoder, ported since (``item`` None), take a step with finite stats."""
+    """The variants, the GPT-2 decoder and a mesh, ported since, take a step
+    with finite stats; a mesh whose size is not the world's (``item``
+    "world": this process alone, so a mesh of 2) raises ``ValueError``
+    naming both sizes, and one of 1 takes its step on the mesh path."""
     tcfg = TorchRunConfig(**{**dict(model_name="shelgon3", vocab_size=40, hidden_size=32,
                                     num_layers=1, num_heads=2, intermediate_size=64, vq_e_dim=32,
                                     emb_size=32, word_embedding_size=32, vq_n_e=5,
                                     compute_dtype="float32"), **override})
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            make_train_step(tcfg, "cpu", torch.Generator())
-        return
+    if item == "world":
+        with pytest.raises(ValueError, match=r"mesh_shape \(2,\) holds 2 ranks, the world has 1"):
+            make_train_step(dataclasses.replace(tcfg, mesh_shape=(2,)), "cpu", torch.Generator())
     step = make_train_step(tcfg, "cpu", torch.Generator().manual_seed(0))
-    model = init_weights(build_model(tcfg), torch.Generator().manual_seed(0))
+    model = init_weights(build_model(tcfg, fused_head=_resolve_head_ce(tcfg) is not None),
+                         torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     labels, labels8 = rng.integers(0, 3, (B, 5)), rng.integers(0, 3, (B, 8))
     batch = {"input_ids": torch.from_numpy(rng.integers(1, 40, (B, S))),
