@@ -34,7 +34,12 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    graph, beside the plain raw forward and straight-through expression) and
    through its wrapper (``assemble`` included, beside ``vector_quantize``),
    each with its share of the byte bound, and its sums the same bits in two
-   launches;
+   launches; the codebook gradient (``csrc/vq_bwd.cu``, row 5+,
+   ``phase_codebook_grad``) at the step's 24,576 rows x 768 with 9 and 37
+   codes: kernel and plain ``index_add_`` each within ``CB_REL`` of an f64
+   sum, two launches the same bits, an unpicked code exactly 0, its time
+   (CUDA graph) beside the plain version's, its byte bound and
+   ``index_put_(accumulate=True)``;
 4. kernels vs plain, training: the layer forward in training mode (dropout
    0.1 / 0.1, residuals kept), the layer backward, the attention backward
    (self and cross) and the three CE kernels (#6, #7, #8) at the shapes of
@@ -208,17 +213,18 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
 17. multi-device (``phase_mesh``; ``kindergarten_vq_vae_torch/parallel/``):
    (a) one rank over NCCL (a world of this process, one NCCL all-reduce
    checked): the bert-base Shelgon3-VQ at batch 2048 x 12, bf16, dropout
-   0.1, 3 steps on the meshes ``(1,)`` ``("dp",)`` and ``(1, 1)`` ``("dp",
-   "tp")`` (the mesh path's head: "auto" is "store" under a mesh) against
-   the unmeshed step with ``fused_head_ce="store"`` from the same weights
-   and generator seed, all under ``torch.use_deterministic_algorithms``
-   (the codebook gradient's ``index_add_`` otherwise accumulates with
-   atomics): the losses and the parameters after 3 steps the unmeshed
-   step's bits (at world 1 every collective is the identity and the seed
-   fold adds 0), #1, #2, #5, #9, #10, the table gradient and #14 launched
-   in each run, the step medians side by side; (b) two ranks sharing the
-   card over gloo (``parallel.dryrun.launch``, ``_mesh_gloo_worker``, under
-   deterministic algorithms), full bert-base width and depth, the logits
+   0.1, 3 steps unmeshed twice and on the meshes ``(1,)`` ``("dp",)`` and
+   ``(1, 1)`` ``("dp", "tp")`` (the mesh path's head: "auto" is "store"
+   under a mesh) against the first unmeshed run with
+   ``fused_head_ce="store"`` from the same weights and generator seed, all
+   under PyTorch's default algorithms (the codebook gradient is summed in a
+   fixed order by ``csrc/vq_bwd.cu``): the losses and the parameters after
+   3 steps the first unmeshed run's bits (at world 1 every collective is the
+   identity and the seed fold adds 0), #1, #2, #5, the codebook gradient,
+   #9, #10, the table gradient and #14 launched in each run, the step
+   medians side by side; (b) two ranks sharing the card over gloo
+   (``parallel.dryrun.launch``, ``_mesh_gloo_worker``, default
+   algorithms), full bert-base width and depth, the logits
    route (#7 / #8), global batch 512, dropout 0: the mesh ``(2,)`` for 2
    steps in bf16 and one in f32; the first step's bf16 gradients the bits
    of a witness: each rank runs its 256 rows alone through the unmeshed
@@ -228,14 +234,31 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    must not give those bits; the first loss within ``MESH_LOSS_REL`` of
    rank 0's one-process step on the whole batch (f32: ``F32_LOSS_REL``),
    the f32 gradients within ``F32_GRAD`` of each leaf's largest of the
-   one-process f32 step's; then the tp mesh ``(1, 2)`` for one step: its
-   loss and its parameters after the step the one-process step's bits (the
-   tp ranks' gradients are the same, so the reduce-scatter's mean is
-   exact); #1, #2, #5, #7, #8 and #14 launched on each rank in
-   each run; each step's time and the collectives' times (gloo's gradient
-   all-reduce, the stats' all-reduce, tp all-gather and reduce-scatter,
-   each bracketed by device syncs) and their share of the step; the
-   phase's wall time.
+   one-process f32 step's; then the tp mesh ``(1, 2)`` for ``MESH_STEPS``
+   steps: its losses and its parameters after the steps the one-process
+   steps' bits (the tp ranks' gradients are the same, so the
+   reduce-scatter's mean is exact), and every replicated leaf (no tp rank
+   shards it; each rank updates its own copy) the same bits on both ranks;
+   #1, #2, #5, the codebook gradient, #7, #8 and #14 launched on each rank
+   in each run; each step's time and the collectives' times (gloo's
+   gradient all-reduce, the stats' all-reduce, tp all-gather and
+   reduce-scatter, each bracketed by device syncs) and their share of the
+   step; the phase's wall time;
+18. the data path (``phase_data``): the C++ corpus packer
+   (``kindergarten_vq_vae_torch/csrc/corpus_tokenizer.cpp``, built with g++
+   at first use) taken, bit for bit with the Python path on the engine's
+   corpus; ``python -m kindergarten_vq_vae_torch.data.prepare --generate``
+   in a subprocess (the whole corpus, 241,920 sentences); a one-epoch CLI
+   run with ``--set mmap=True`` (memory-mapped columns, lazy splits) and one
+   without: the same history losses bit for bit; the engine's train
+   ``sentences_per_sec`` (batches double-buffered) against the bare step's
+   on the same corpus and the bare step's host synchronisations
+   (``scripts/ab_engine.py``'s in-tree half); the phase's wall time;
+19. the parity twin (``phase_twin``): ``scripts/parity_harness_torch.py``
+   ``train_ours``, the port's f32 Bagon at the harness's size, 2 epochs on
+   the card through the kernels (plain versions refused; #1, #2, #7, #8 and
+   #14 launched as counted) and on the CPU: the card's val token accuracy
+   no more than ``TWIN_GAP`` below the CPU's; both and their wall times.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -274,6 +297,10 @@ WORDS = ("i you he she we they it eat eats buy buys fix fixes paint paints see s
 # another order -> rel 1e-5.
 LAYER_MAX_ABS, LAYER_MEAN_ABS = 6e-2, 2e-3
 VQ_REL = 1e-5
+# the codebook gradient (kernel and plain index_add_) against an f64 sum of
+# the same f32 terms, relative to the largest sum of the terms' magnitudes:
+# f32 sums of up to 24,576 terms in another order
+CB_REL = 1e-5
 # whole slice: after 24 bf16 layers the two bf16 paths sit about one bf16
 # ulp apart on average (rounding flips compound: 6.8e-3 mean abs on the
 # encoder output, measured on an H100 80GB HBM3 at 700 W), so they are not
@@ -344,9 +371,13 @@ PEAK_3XTF32 = PEAK_TF32 / 3
 # another row split)
 MESH_STEPS, MESH_BATCH, MESH_GLOO_STEPS = 3, 512, 2
 MESH_LOSS_REL = 1e-3
-MESH_KERNELS = ("layer_fwd", "layer_bwd", "vq", "head_ce_fwd", "head_ce_bwd", "table_grad",
-                "adam")
-MESH_GLOO_KERNELS = ("layer_fwd", "layer_bwd", "vq", "ce_fwd_ids", "ce_bwd", "adam")
+# twin phase: epochs of the parity harness's Bagon, and how far below the
+# CPU's val token accuracy the card's may sit (the harness's own bar)
+TWIN_EPOCHS, TWIN_GAP = 2, 0.02
+MESH_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "head_ce_fwd", "head_ce_bwd",
+                "table_grad", "adam")
+MESH_GLOO_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "ce_fwd_ids", "ce_bwd",
+                     "adam")
 
 
 def _fail(msg: str) -> None:
@@ -438,11 +469,12 @@ def _wrappers() -> dict:
         residual_layernorm,
     )
     from kindergarten_vq_vae_torch.ops.sdpa import sdpa_backward, sdpa_forward
+    from kindergarten_vq_vae_torch.ops.vq import codebook_grad
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
     return {"layer_fwd": fused_bert_layer, "layer_bwd": layer_backward,
             "attn_fwd": attention_forward, "attn_bwd": attention_backward,
-            "vq": vector_quantize_kernel,
+            "vq": vector_quantize_kernel, "codebook_grad": codebook_grad,
             "ce_fwd_ids": ce_fwd_ids, "ce_fwd": ce_fwd, "ce_bwd": ce_bwd,
             "head_ce_fwd": head_ce_fwd, "head_ce_bwd": head_ce_bwd, "table_grad": table_grad,
             "adam": amsgrad_update,
@@ -993,6 +1025,69 @@ def _vq_times(z, e, what: str) -> dict:
           f"vector_quantize {pw_ms:.4f} ms a call")
     return {"ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms, "plain_wrapper_ms": pw_ms,
             "bound": [bound]}
+
+
+def phase_codebook_grad(names: tuple[str, str]) -> dict:
+    """Phase 3's codebook gradient (``ops/vq.py`` ``codebook_grad``,
+    ``csrc/vq_bwd.cu``) at the step's 24,576 rows x 768 with 9 codes and
+    with 37, its codes from #5 on the same rows: against an f64 sum of the
+    same f32 terms and against its plain version (``index_add_``), each
+    within ``CB_REL`` of the largest sum of the terms' magnitudes; two
+    launches the same bits; a code no row picks exactly 0; its device time
+    (a CUDA graph of its launches) in turns with the plain version's, its
+    byte bound and the library call ``index_put_(accumulate=True)`` on the
+    same terms (PyTorch's sort-based deterministic route). The kernel line
+    takes the step's 9 codes."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.vq import codebook_grad, codebook_grad_reference
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, d = TRAIN_BATCH * SEQ, 768
+    res = {}
+    for n_e in (37, 9):
+        z = torch.randn(rows, d, device="cuda", generator=g)
+        e = (torch.rand(n_e, d, device="cuda", generator=g) * 2 - 1) / n_e
+        e[n_e - 1] += 50.0  # far from every row: no row picks it
+        with torch.no_grad():
+            idx = vector_quantize_kernel(z.view(1, rows, d), e, 0.25).indices.view(-1)
+        gd2 = torch.tensor(1.25 / z.numel(), device="cuda")
+        got, again = codebook_grad(z, idx, e, gd2), codebook_grad(z, idx, e, gd2)
+        torch.cuda.synchronize()
+        plain = codebook_grad_reference(z, idx, e, gd2)
+        terms = gd2 * 2.0 * (e[idx] - z)
+        exact = torch.zeros(e.shape, dtype=torch.float64, device="cuda").index_add_(
+            0, idx, terms.double())
+        scale = torch.zeros_like(exact).index_add_(0, idx, terms.double().abs()).max()
+        err = ((got.double() - exact).abs().max() / scale).item()
+        plain_err = ((plain.double() - exact).abs().max() / scale).item()
+        same, zero = torch.equal(got, again), bool((got[n_e - 1] == 0).all())
+        used = int((torch.bincount(idx, minlength=n_e) > 0).sum())
+        print(f"codebook gradient ({rows},{d})x{n_e} f32 ({used} codes picked): kernel {err:.3e} "
+              f"and plain index_add_ {plain_err:.3e} from the f64 sum, of the largest sum of "
+              f"|terms| (tol {CB_REL}); two launches the same bits {same}; the unpicked code "
+              f"exactly 0 {zero}")
+        if not (same and zero and err <= CB_REL and plain_err <= CB_REL):
+            _fail(f"the codebook-gradient kernel disagrees with its plain version ({n_e} codes)")
+        p1 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
+        k1 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
+        k2 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
+        p2 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
+        lib = _time_ms(lambda: torch.zeros_like(e).index_put_(
+            (idx,), gd2 * 2.0 * (e[idx] - z), accumulate=True), 20)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound = _bound(3 * rows * d, _nbytes(z, idx, got), PEAK_F32)
+        print(f"row 5+ codebook gradient ({rows},{d})x{n_e}: kernel {k_ms:.4f} ms (CUDA graph; "
+              f"{bound[0] / k_ms:.0%} of the {bound[1]} bound {bound[0]:.4f} ms), plain "
+              f"index_add_ {p_ms:.4f} ms, index_put_(accumulate=True) {lib:.4f} ms "
+              f"({names[0]}; nvidia-smi: {names[1]})")
+        res = {"max_abs_err": (got - plain).abs().max().item(), "ms": k_ms, "plain_ms": p_ms,
+               "bound": [bound], "library_ms": lib,
+               "library": "torch.zeros_like(e).index_put_((idx,), g * 2 * (e[idx] - z), "
+                          "accumulate=True)"}
+        del z, e, idx, got, again, plain, terms, exact
+    return res
 
 
 def _vq_bound(z, e, out) -> tuple[float, str]:
@@ -2409,10 +2504,11 @@ def _train_batch(batch: int) -> dict:
 class _plain_refused:
     """Within the block, the plain versions of the update (the single-pass
     one of ``ops/adam.py`` and the per-leaf ``train/optim.Adam``), of the
-    SDPA kernels and of the layer's LayerNorm and column-sum kernels raise:
-    on the card the step's update is kernel #14 alone, the per-module
-    trunk's attention #11 / #12 alone, and the fused layers' LayerNorms
-    those of ``csrc/layernorm.cu``. With ``default_route`` (an f32 run),
+    SDPA kernels, of the layer's LayerNorm and column-sum kernels and of the
+    codebook gradient raise: on the card the step's update is kernel #14
+    alone, the per-module trunk's attention #11 / #12 alone, the fused
+    layers' LayerNorms those of ``csrc/layernorm.cu`` and the codebook's
+    gradient ``csrc/vq_bwd.cu``'s. With ``default_route`` (an f32 run),
     also those of the layer GEMM, the layer forward and backward, the
     attention, the CE and the fused head + CE."""
 
@@ -2420,7 +2516,7 @@ class _plain_refused:
         self.default_route = default_route
 
     def _targets(self):
-        from kindergarten_vq_vae_torch.ops import adam, ce, gemm, head_ce, layer, sdpa
+        from kindergarten_vq_vae_torch.ops import adam, ce, gemm, head_ce, layer, sdpa, vq
         from kindergarten_vq_vae_torch.train import optim
 
         route = ((gemm, "gemm_reference"), (layer, "layer_forward_reference"),
@@ -2434,7 +2530,7 @@ class _plain_refused:
                 (optim.Adam, "update"), (sdpa, "sdpa_forward_reference"),
                 (sdpa, "sdpa_backward_reference"), (layer, "residual_layernorm_reference"),
                 (layer, "layernorm_backward_reference"), (layer, "column_sums_reference"),
-                *route)
+                (vq, "codebook_grad_reference"), *route)
 
     def __enter__(self):
         def refuse(*args, **kwargs):
@@ -2480,7 +2576,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     # table gradient; one
     # AMSGrad update over every leaf
     per_step = {k: 0 for k in _counters()}
-    per_step.update(vq=1, adam=1)
+    per_step.update(vq=1, codebook_grad=1, adam=1)
     if fused_layer == "off":
         per_step.update(sdpa_fwd_self=24, sdpa_fwd_cross=12, sdpa_bwd_self=24, sdpa_bwd_cross=12)
     else:
@@ -2658,7 +2754,7 @@ def phase_engine(names: tuple[str, str], head_ce: str = "auto",
                 _fail("the f32 run's PyTorch matrix products are not full f32")
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = {k: 0 for k in counts}
-        want.update(vq=steps + evals, adam=steps)
+        want.update(vq=steps + evals, codebook_grad=steps, adam=steps)
         if fused_layer == "off":
             want.update(sdpa_fwd_self=24 * (steps + evals), sdpa_fwd_cross=12 * (steps + evals),
                         sdpa_bwd_self=24 * steps, sdpa_bwd_cross=12 * steps)
@@ -2810,7 +2906,7 @@ def _run_counts(counts: dict, steps: int, evals: int, vq: bool) -> dict:
     want.update(layer_fwd=24 * (steps + evals), layer_fwd_resid=24 * steps, layer_bwd=24 * steps,
                 attn_bwd_self=24 * steps, attn_bwd_cross=12 * steps,
                 **_inside_layers(steps + evals, steps), ce_fwd_ids=steps + evals, ce_bwd=steps,
-                adam=steps, vq=(steps + evals) if vq else 0)
+                adam=steps, vq=(steps + evals) if vq else 0, codebook_grad=steps if vq else 0)
     return want
 
 
@@ -3422,7 +3518,7 @@ def _gpt2_counts(counts: dict, steps: int, evals: int, vq: bool) -> dict:
                 layer_bwd=12 * steps, attn_bwd_self=12 * steps,
                 **_inside_layers(0, encoder_forwards=steps + evals, encoder_backwards=steps),
                 ce_fwd_ids=steps + evals, ce_bwd=steps, adam=steps,
-                vq=(steps + evals) if vq else 0)
+                vq=(steps + evals) if vq else 0, codebook_grad=steps if vq else 0)
     return want
 
 
@@ -4420,8 +4516,10 @@ def phase_export(names: tuple[str, str]) -> dict:
 
 
 def _mesh_one_rank(names: tuple[str, str]) -> dict:
-    """Phase 17 (a): one NCCL rank, the meshes (1,) and (1, 1) against the
-    unmeshed step, bit for bit."""
+    """Phase 17 (a): one NCCL rank, under PyTorch's default algorithms: the
+    unmeshed step run twice from the same weights, batch and seeds, and the
+    meshes (1,) and (1, 1), each against the first unmeshed run, bit for
+    bit. Every run is made and printed before any check fails."""
     import dataclasses
 
     import torch
@@ -4433,17 +4531,15 @@ def _mesh_one_rank(names: tuple[str, str]) -> dict:
 
     init_distributed(f"tcp://localhost:{free_port()}", 1, 0, backend="nccl", device="cuda",
                      timeout=300.0)
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    out, ref = {}, None
+    out, ref, faults = {}, None, []
     try:
         one = torch.ones(1, device="cuda")
         dist.all_reduce(one)
         if dist.get_backend() != "nccl" or float(one) != 1.0:
             _fail(f"the NCCL world of one: backend {dist.get_backend()}, all-reduce {one}")
         batch = _train_batch(TRAIN_BATCH)
-        for what, shape, axes in (("unmeshed", None, None), ("(1,)", (1,), ("dp",)),
-                                  ("(1, 1)", (1, 1), ("dp", "tp"))):
+        for what, shape, axes in (("unmeshed", None, None), ("unmeshed again", None, None),
+                                  ("(1,)", (1,), ("dp",)), ("(1, 1)", (1, 1), ("dp", "tp"))):
             mesh = make_mesh(shape, axes, "cuda") if shape else None
             cfg = dataclasses.replace(_train_cfg(), fused_head_ce="auto" if mesh else "store")
             torch.cuda.empty_cache()
@@ -4466,27 +4562,31 @@ def _mesh_one_rank(names: tuple[str, str]) -> dict:
             del state, model, step, aux
             missing = [k for k in MESH_KERNELS if counts[k] == 0]
             if missing:
-                _fail(f"mesh {what}: no launch of {missing} ({counts})")
+                faults.append(f"mesh {what}: no launch of {missing} ({counts})")
             med = statistics.median(times[1:]) * 1e3
             run = {"losses": losses, "median_ms": med,
                    "launches": {k: counts[k] for k in MESH_KERNELS}}
             if ref is None:
                 ref = (losses, params)
-            run["differing_leaves"] = [n for n in params if not torch.equal(params[n], ref[1][n])]
+            differing = {n: (params[n] - ref[1][n]).abs().max().item() for n in params
+                         if not torch.equal(params[n], ref[1][n])}
+            run["differing_leaves"] = sorted(differing)
             out[what] = run
             print(f"mesh {what} (one NCCL rank): bert-base shelgon3-VQ, batch {TRAIN_BATCH} x "
-                  f"{SEQ}, bf16, dropout 0.1, the store head, {MESH_STEPS} steps, deterministic "
-                  f"algorithms: losses {losses} (the unmeshed bits: {losses == ref[0]}), leaves "
-                  f"not the unmeshed bits after the steps {run['differing_leaves'][:8]} "
-                  f"({len(run['differing_leaves'])}), median step {med:.2f} ms, launches "
-                  f"{run['launches']} ({names[0]}; nvidia-smi: {names[1]})")
-            if losses != ref[0] or run["differing_leaves"]:
-                _fail(f"mesh {what} is off the unmeshed step's bits")
+                  f"{SEQ}, bf16, dropout 0.1, the store head, {MESH_STEPS} steps, default "
+                  f"algorithms: losses {losses} (the first unmeshed run's bits: "
+                  f"{losses == ref[0]}), leaves not its bits after the steps (max abs "
+                  f"difference) {dict(list(differing.items())[:8])} ({len(differing)} of "
+                  f"{len(params)}), median step {med:.2f} ms, launches {run['launches']} "
+                  f"({names[0]}; nvidia-smi: {names[1]})")
+            if losses != ref[0] or differing:
+                faults.append(f"mesh {what} is off the unmeshed step's bits")
             del params
     finally:
-        torch.use_deterministic_algorithms(deterministic)
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    if faults:
+        _fail("; ".join(faults))
     return out
 
 
@@ -4510,15 +4610,14 @@ def _mesh_gloo_worker() -> None:
     rank, _ = init_distributed(backend="gloo", device="cuda", timeout=300.0)
     dev = local_device("cuda")
     torch.cuda.set_device(dev)
-    # the codebook's index_add_ and the embeddings' gradients without atomics
-    torch.use_deterministic_algorithms(True, warn_only=True)
     base = dataclasses.replace(_train_cfg(), fused_head_ce="off")  # the logits route: #7 / #8
     batch = _train_batch(MESH_BATCH)
     half = MESH_BATCH // 2
 
     def run(shape, axes, steps, dtype="bfloat16", rows=None):
         """``(results, first step's gradients, parameters after the steps)``;
-        ``rows``: the rows of the global batch an unmeshed run takes alone."""
+        ``rows``: the rows of the global batch an unmeshed run takes alone;
+        ``results["replicated"]``: the leaves no tp rank shards."""
         cfg = dataclasses.replace(base, compute_dtype=dtype)
         mesh = make_mesh(shape, axes, dev) if shape else None
         model = build_model(cfg, device=dev)
@@ -4553,6 +4652,8 @@ def _mesh_gloo_worker() -> None:
                              if p.grad is not None}
             counts = _counters()
         res["launches"] = {k: counts[k] for k in MESH_GLOO_KERNELS}
+        res["replicated"] = [n for n, _ in model.named_parameters()
+                             if not (state.shards and n in state.shards)]
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         del state, model, step
         torch.cuda.empty_cache()
@@ -4587,7 +4688,7 @@ def _mesh_gloo_worker() -> None:
     del own, flat
     out["dp_f32"], dp32_grads, _ = run((2,), ("dp",), 1, "float32")
     if rank == 0:
-        ref, _, ref_params = run(None, None, 1)
+        ref, _, ref_params = run(None, None, MESH_STEPS)
         f32, f32_grads, _ = run(None, None, 1, "float32")
         out["one_process"] = {"losses": ref["losses"], "ms": ref["ms"]}
         out["one_process_f32"] = {"losses": f32["losses"], "ms": f32["ms"]}
@@ -4596,10 +4697,21 @@ def _mesh_gloo_worker() -> None:
         del f32_grads
     del dp_grads, dp32_grads
     dist.barrier()
-    out["tp"], _, tp_params = run((1, 2), ("dp", "tp"), 1)
+    out["tp"], _, tp_params = run((1, 2), ("dp", "tp"), MESH_STEPS)
     if rank == 0:
+        out["one_process_losses"] = ref["losses"]
         out["tp_differing_leaves"] = [n for n in tp_params if not torch.equal(tp_params[n],
                                                                               ref_params[n])]
+    # every replicated leaf's bits on both tp ranks: rank 0's copy sent to rank 1,
+    # which compares it with its own
+    out["tp_ranks_differing"] = []
+    for n in out["tp"]["replicated"]:
+        mine = tp_params[n].cpu()
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)
+        if not torch.equal(mine, theirs):
+            out["tp_ranks_differing"].append([n, (mine - theirs).abs().max().item()])
+    out["n_replicated"] = len(out["tp"].pop("replicated"))
     dist.barrier()
     dist.destroy_process_group()
     print(json.dumps(out))
@@ -4653,9 +4765,12 @@ def phase_mesh(names: tuple[str, str]) -> dict:
           f"f32 gradients against the one-process f32 step's, rel of each leaf's largest: median "
           f"{r0['f32_grad_rel_median']:.3e}, worst {r0['f32_grad_rel_worst']} (tol {F32_GRAD}); "
           f"one-process step {r0['one_process']['ms'][0]:.1f} ms (f32 "
-          f"{r0['one_process_f32']['ms'][0]:.1f}); mesh (1, 2): loss "
-          f"{r0['tp']['losses'][0]:.6f}, leaves not the one-process step's bits after the "
-          f"step {r0['tp_differing_leaves']}; two-rank launch {wall:.1f} s, phase "
+          f"{r0['one_process_f32']['ms'][0]:.1f}); mesh (1, 2), {MESH_STEPS} steps, default "
+          f"algorithms: losses {r0['tp']['losses']} (the one-process step's "
+          f"{r0['one_process_losses']}), leaves not the one-process step's bits after the "
+          f"steps {r0['tp_differing_leaves']}; replicated leaves whose bits differ between the "
+          f"two tp ranks (max abs difference): {ranks[1]['tp_ranks_differing']} of "
+          f"{ranks[1]['n_replicated']}; two-rank launch {wall:.1f} s, phase "
           f"{time.perf_counter() - t_phase:.1f} s ({names[0]}; nvidia-smi: {names[1]})")
     for r in ranks:
         if not r["witness_same_leaves"] or r["witness_differing"]:
@@ -4665,10 +4780,144 @@ def phase_mesh(names: tuple[str, str]) -> dict:
     if (loss_rel > MESH_LOSS_REL or f32_rel > F32_LOSS_REL or not r0["same_leaves"]
             or r0["f32_grad_rel_worst"][0][1] > F32_GRAD):
         _fail("the two-rank mesh step is off the one-process step")
-    if r0["tp"]["losses"][0] != ref_loss or r0["tp_differing_leaves"]:
-        _fail("the tp mesh step is off the one-process step")
+    if r0["tp"]["losses"] != r0["one_process_losses"] or r0["tp_differing_leaves"]:
+        _fail("the tp mesh steps are off the one-process steps")
+    if any(r["tp_ranks_differing"] for r in ranks):
+        _fail("the tp ranks hold replicated leaves with different bits")
     torch.cuda.empty_cache()
     return {"one_rank": one, "gloo": ranks}
+
+
+def _script(name: str):
+    """``scripts/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_data(names: tuple[str, str]) -> dict:
+    """Phase 18: the data path on the card's machine. The C++ packer
+    (``data/native.py``, built with g++ into ``kindergarten_vq_vae_torch/build/``
+    at first use) taken, its ids and mask the Python path's bits on the
+    engine's corpus; ``python -m kindergarten_vq_vae_torch.data.prepare
+    --generate`` in a subprocess (the whole corpus); ``scripts/ab_engine.py``'s
+    in-tree half on the engine's corpus: a CLI run, one epoch of 10 train
+    steps and its val stage, its steady-state ``sentences_per_sec`` (its
+    batches double-buffered: ``_prefetch``) against the bare step's on the
+    same corpus, and the bare step's host synchronisations; then the same
+    run with ``--set mmap=True`` (the columns memory-mapped, the splits
+    lazy): the same history losses, bit for bit."""
+    import numpy as np
+    import torch
+
+    from kindergarten_vq_vae_torch.data import native
+    from kindergarten_vq_vae_torch.data.dataset import _LazyRows
+    from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+    from kindergarten_vq_vae_torch.data.prepare import prepare_all, tokenize_corpus
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kvq_chip_data_") as root:
+        data_dir = os.path.join(root, "data")
+        generate_dsentences(data_dir, **ENGINE_CUT)
+        art = prepare_all(data_dir, max_length=SEQ)
+        sents, tok = art["sentences_clean"], art["tokenizer"]
+        t0 = time.perf_counter()
+        packed = native.tokenize_corpus_native(sents, tok, SEQ)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = tokenize_corpus(sents, tok, SEQ, use_native=False)
+        t_python = time.perf_counter() - t0
+        same = packed is not None and all(np.array_equal(a, b) for a, b in zip(packed, plain))
+        print(f"data: the C++ packer taken {native.available()} ({native.LIB_PATH}), "
+              f"{len(sents)} sentences in {t_native * 1e3:.1f} ms against the Python path's "
+              f"{t_python * 1e3:.1f} ms, the same ids and mask {same}")
+        if not (native.available() and same):
+            _fail("the C++ packer is not taken or is off the Python path's bits")
+
+        full = os.path.join(root, "full")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "kindergarten_vq_vae_torch.data.prepare",
+                              "--generate", "--raw-dir", full, "--max-length", str(SEQ)],
+                             cwd=ROOT, capture_output=True, text=True)
+        t_prep = time.perf_counter() - t0
+        line = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+        print(f"data: python -m kindergarten_vq_vae_torch.data.prepare --generate: rc "
+              f"{out.returncode}, {t_prep:.1f} s: {line!r}")
+        ids = np.load(os.path.join(full, "dSentences_input_ids.npy"), mmap_mode="r")
+        if (out.returncode != 0 or line != f"prepared 241920 unique sentences, vocab 262, "
+                                             f"max_length {SEQ}" or ids.shape != (241920, SEQ)):
+            _fail(f"the prepare entry point failed: {out.stderr[-2000:]}")
+        del ids
+
+        ab = _script("ab_engine")
+        torch.cuda.empty_cache()
+        res = ab.worker(ROOT, data_dir, 6)
+        torch.cuda.empty_cache()
+        engine, history = ab.cli_run(data_dir, os.path.join(root, "runs_mmap"), mmap=True)
+        lazy = isinstance(engine.splits["train"].input_ids, _LazyRows)
+        del engine
+
+        def losses(h):
+            return [{stage: {k: v for k, v in e[stage].items()
+                             if k not in ("sentences_per_sec", "stage_wall_s")}
+                     for stage in ("train", "val")} for e in h]
+
+        same = losses(history) == losses(res["history"])
+        print(f"data: the engine (batches double-buffered) at "
+              f"{res['engine_sentences_per_sec']:.1f} train sentences/s against the bare step's {res['bare_sentences_per_sec']:.1f} on "
+              f"the same corpus ({res['engine_over_bare']:.4f}); host synchronisations in two bare "
+              f"steps {res['syncs_in_two_steps']} at {res['sync_calls']}; a run with mmap=True "
+              f"(train split lazy {lazy}): history losses the mmap-off run's bits {same} (train "
+              f"{history[0]['train']['loss_full']:.6f}, val {history[0]['val']['loss_full']:.6f}), "
+              f"{history[0]['train']['sentences_per_sec']:.1f} sentences/s; phase "
+              f"{time.perf_counter() - t_phase:.1f} s ({names[0]}; nvidia-smi: {names[1]})")
+        if not (lazy and same):
+            _fail("the mmap run is not lazy or its history differs from the in-memory run's")
+    torch.cuda.empty_cache()
+    return {k: v for k, v in res.items() if k != "history"}
+
+
+def phase_twin(names: tuple[str, str]) -> dict:
+    """Phase 19: ``scripts/parity_harness_torch.py``'s ``train_ours`` (the
+    port's f32 Bagon, hidden 128, 2 + 2 layers, batch 64, 2 epochs on the
+    harness's corpus) on the card through the kernels (the plain versions
+    refused; #1, #2, #7, #8 and #14 launched, their f32 instances) and on
+    the CPU: the card's val token accuracy no more than ``TWIN_GAP`` below
+    the CPU's (other dropout draws and f32 sums in other orders)."""
+    import torch
+
+    h = _script("parity_harness_torch")
+    train, val, vocab = h._data()
+    out = {}
+    with _plain_refused(default_route=True):
+        _reset_counters()
+        t0 = time.perf_counter()
+        out["cuda"] = h.train_ours(train, val, vocab, TWIN_EPOCHS, "cuda")
+        torch.cuda.synchronize()
+        wall_cuda = time.perf_counter() - t0
+        counts = _counters()
+    t0 = time.perf_counter()
+    out["cpu"] = h.train_ours(train, val, vocab, TWIN_EPOCHS, "cpu")
+    wall_cpu = time.perf_counter() - t0
+    steps, evals = TWIN_EPOCHS * (len(train) // h.BATCH), len(val) // h.BATCH
+    launched = {k: counts[k] for k in ("layer_fwd_f32", "layer_bwd_f32", "ce_fwd_ids_f32",
+                                       "ce_bwd_f32", "adam")}
+    print(f"twin (scripts/parity_harness_torch.py train_ours, f32 Bagon H {h.HIDDEN}, "
+          f"{h.LAYERS} + {h.LAYERS} layers, vocabulary {vocab}, {steps} steps of {h.BATCH}, "
+          f"{evals} val batches): val token accuracy on the card {out['cuda']:.4f} in "
+          f"{wall_cuda:.1f} s, on the CPU {out['cpu']:.4f} in {wall_cpu:.1f} s (gap "
+          f"{out['cuda'] - out['cpu']:+.4f}, tol -{TWIN_GAP}); launches {launched} "
+          f"({names[0]}; nvidia-smi: {names[1]})")
+    want = {"layer_fwd_f32": 2 * h.LAYERS * (steps + evals), "layer_bwd_f32": 2 * h.LAYERS * steps,
+            "ce_fwd_ids_f32": steps + evals, "ce_bwd_f32": steps, "adam": steps}
+    if launched != want:
+        _fail(f"the twin did not go through the kernels as expected: {launched}, expected {want}")
+    if out["cuda"] < out["cpu"] - TWIN_GAP:
+        _fail("the twin on the card is below the CPU's accuracy")
+    return {**out, "wall_cuda_s": wall_cuda, "wall_cpu_s": wall_cpu}
 
 
 def main() -> None:
@@ -4683,6 +4932,7 @@ def main() -> None:
     lg = phase_layer_gemms(names)
     ln = phase_layernorm(names)
     kern = phase_kernels()
+    cbg = phase_codebook_grad(names)
     tk = phase_train_kernels()
     af = phase_attention_fwd(names)
     hk = phase_head_kernels(names)
@@ -4724,6 +4974,8 @@ def main() -> None:
     f32r = phase_f32_routes(names, f32)
     phase_export(names)
     phase_mesh(names)
+    phase_data(names)
+    phase_twin(names)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]
@@ -4763,6 +5015,7 @@ def main() -> None:
             n["attn_bwd_cross"], tk["attn_bwd_cross"]),
         row("vector_quantize_kernel (training)", "vq_fwd.cu", "vq_pallas.py:41", n["vq"],
             tk["vq"]),
+        row("codebook_grad", "vq_bwd.cu", "vq_pallas.py:178", n["codebook_grad"], cbg),
         row("ce_fwd", "ce.cu", "ce_pallas.py:34", tk["ce_loss_launches"]["ce_fwd"], tk["ce_fwd"]),
         row("ce_fwd_ids", "ce.cu", "ce_pallas.py:63", n["ce_fwd_ids"], tk["ce_fwd_ids"]),
         row("ce_bwd", "ce.cu", "ce_pallas.py:104", n["ce_bwd"], tk["ce_bwd"]),

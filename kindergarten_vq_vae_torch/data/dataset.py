@@ -7,10 +7,12 @@ batches are numpy slices of a fixed shape, the last partial one padded by
 repeating its first row and carrying the true count in ``n_valid``. Given a
 seed and an epoch, :class:`BatchIterator` yields the same batches in the same
 order as the JAX package's; with ``process_count`` > 1 each process takes
-its contiguous slice of every global batch (JAX l.175-212). The JAX
-package's memory-mapped lazy rows are not ported (``mmap`` loads in full; a
-recorded divergence). :func:`padded_batches`
-cuts columns into fixed-size inference batches the same way.
+its contiguous slice of every global batch (JAX l.175-212). Memory-mapped
+columns (``mmap``, ``train/run.py``) stay on disk: :meth:`DSentences.select`
+and :func:`split_dataset` keep index indirection over them
+(:class:`_LazyRows`, JAX l.27-52), so a batch reads only its rows.
+:func:`padded_batches` cuts columns into fixed-size inference batches the
+same way.
 """
 
 from __future__ import annotations
@@ -20,6 +22,33 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from kindergarten_vq_vae_torch.utils.consts import DS_GEN_SEED
+
+
+class _LazyRows:
+    """Rows ``idx`` of a column ``base`` (often an ``np.memmap``), never
+    materialised: ``col[key]`` reads only the rows ``idx[key]`` from
+    ``base``; ``np.asarray(col)`` reads them all."""
+
+    def __init__(self, base, idx: np.ndarray):
+        self.base, self.idx = base, idx
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+    @property
+    def shape(self):
+        return (len(self.idx),) + tuple(np.shape(self.base)[1:])
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    def __getitem__(self, key):
+        return self.base[self.idx[key]]
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.base[self.idx], dtype=dtype)
+
 
 _COLUMNS = ("input_ids", "attention_mask", "dec_input_ids", "dec_attention_mask", "labels",
             "one_hot", "labels8", "one_hot8")
@@ -52,15 +81,30 @@ class DSentences:
     def __len__(self) -> int:
         return len(self.input_ids)
 
-    def select(self, idx: np.ndarray) -> "DSentences":
-        cols = {k: None if getattr(self, k) is None else getattr(self, k)[idx] for k in _COLUMNS}
+    def select(self, idx: np.ndarray, lazy: bool | None = None) -> "DSentences":
+        """Rows ``idx``. ``lazy`` (by default: when ``input_ids`` is memory-
+        mapped or already lazy) keeps index indirection over array columns;
+        otherwise the rows are copied."""
+        if lazy is None:
+            lazy = isinstance(self.input_ids, (np.memmap, _LazyRows))
+
+        def sel(col):
+            if col is None:
+                return None
+            if lazy and isinstance(col, _LazyRows):
+                return _LazyRows(col.base, col.idx[idx])
+            if lazy and isinstance(col, np.ndarray):
+                return _LazyRows(col, np.asarray(idx))
+            return col[idx]
+
         sentences = None if self.sentences is None else [self.sentences[i] for i in idx]
-        return DSentences(**cols, sentences=sentences)
+        return DSentences(**{k: sel(getattr(self, k)) for k in _COLUMNS}, sentences=sentences)
 
 
 def split_dataset(ds: DSentences, train_pct: float = 0.6, val_pct: float = 0.2,
                   seed: int = DS_GEN_SEED):
-    """Deterministic (train, val, test) split by a seeded permutation."""
+    """Deterministic (train, val, test) split by a seeded permutation;
+    memory-mapped columns stay lazy (:meth:`DSentences.select`)."""
     n = len(ds)
     n_train, n_val = int(n * train_pct), int(n * val_pct)
     perm = np.random.default_rng(seed).permutation(n)

@@ -213,3 +213,11 @@ def generate_dsentences(
         np.save(os.path.join(out_dir, "dSentences_latent_classes_labels.npy"), labels_arr)
 
     return sentences, labels_arr
+
+
+if __name__ == "__main__":
+    import sys
+
+    out = sys.argv[1] if len(sys.argv) > 1 else "./data/dSentences"
+    s, _ = generate_dsentences(out)
+    print(f"generated {len(s)} sentences ({len(set(s))} unique) -> {out}")

@@ -4,10 +4,15 @@ The port's copy of ``kindergarten_vq_vae_tpu/data/prepare.py`` (numpy only;
 that package cannot be imported without jax): dedup and the clean label
 columns, the one-hot labels, the word vocabulary, the word-level tokenizer
 and the corpus tokenized once into ``(N, max_length)`` int32 ids and mask,
-written under the same file names. Tokenizing takes the Python path
-(``tokenize_corpus(use_native=False)`` in the JAX package, whose results are
-bit-identical to its C++ packer); the C++ packer ``data/native.py`` is left
-out (a recorded divergence of the port, ROADMAP, PR 3).
+written under the same file names. Tokenizing takes the C++ packer
+(``data/native.py``) where ``g++`` is found, else the bit-identical Python
+path, as the JAX package does.
+
+    python -m kindergarten_vq_vae_torch.data.prepare [--generate] \
+        [--raw-dir ./data/dSentences] [--out-dir DIR] [--max-length N]
+
+writes the same files, with the same bits, as ``python -m
+kindergarten_vq_vae_tpu.data.prepare`` with the same arguments.
 """
 
 from __future__ import annotations
@@ -73,9 +78,18 @@ def find_max_encoded_length(sentences: list[str], tokenizer, add_special_tokens:
 
 
 def tokenize_corpus(sentences: list[str], tokenizer, max_length: int,
-                    add_special_tokens: bool = True) -> tuple[np.ndarray, np.ndarray]:
+                    add_special_tokens: bool = True,
+                    use_native: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """The whole corpus as (N, max_length) int32 ids and mask, truncated and
-    zero-padded."""
+    zero-padded: through the C++ packer when ``use_native`` and it is
+    available for the tokenizer, else the tokenizer's ``encode_batch`` (the
+    same bits)."""
+    if use_native:
+        from kindergarten_vq_vae_torch.data.native import tokenize_corpus_native
+
+        out = tokenize_corpus_native(sentences, tokenizer, max_length, add_special_tokens)
+        if out is not None:
+            return out
     return tokenizer.encode_batch(sentences, max_length, add_special_tokens)
 
 
@@ -132,3 +146,27 @@ def prepare_all(raw_dir: str, out_dir: str | None = None, max_length: int | None
         json.dump(word_map, f)
     tokenizer.save(os.path.join(out_dir, "dSentences_tokenizer.json"))
     return artifacts
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """The offline preprocessing command (JAX ``prepare.py:207-224``)."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="dSentences offline preprocessing")
+    p.add_argument("--raw-dir", default="./data/dSentences")
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--max-length", type=int, default=None)
+    p.add_argument("--generate", action="store_true", help="generate the synthetic corpus first")
+    args = p.parse_args(argv)
+    if args.generate:
+        from kindergarten_vq_vae_torch.data.generate import generate_dsentences
+
+        generate_dsentences(args.raw_dir)
+    art = prepare_all(args.raw_dir, args.out_dir, args.max_length)
+    print(f"prepared {len(art['sentences_clean'])} unique sentences, "
+          f"vocab {len(art['vocab'])}, max_length {art['max_length']}")
+    return art
+
+
+if __name__ == "__main__":
+    main()

@@ -10,9 +10,11 @@ straight-through value ``z + (z_q - z)`` and the codebook perplexity.
 The gradient is :class:`VQCore`, the JAX package's custom VJP
 (``vq_pallas.py:149-184``): the loss's two terms are the same value with two
 gradient paths, ``d1 ~ sum((sg[z_q] - z)^2)`` and ``d2 ~ sum((z_q - sg[z])^2)``,
-so ``dz = g_zq + 2 g_d1 (z - z_q)`` and ``dE = index_add(2 g_d2 (z_q - z))``.
+so ``dz = g_zq + 2 g_d1 (z - z_q)`` and ``dE = segment_sum(2 g_d2 (z_q - z))``.
 The raw forward is :func:`vq_raw` here and the CUDA kernel in
-:mod:`kindergarten_vq_vae_torch.ops.vq_kernel`; everything else is shared.
+:mod:`kindergarten_vq_vae_torch.ops.vq_kernel`; the codebook gradient is
+:func:`codebook_grad` (``csrc/vq_bwd.cu`` on the card, summed in a fixed
+order; ``index_add_`` on the CPU); everything else is shared.
 
 The codebook's training extras of ``ops/vq.py`` follow: the EMA codebook
 update (l.99-128), the k-means codebook initialisation (l.131-168) and
@@ -23,13 +25,17 @@ dead-code revival (l.171-198), whose random draws come from a
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from kindergarten_vq_vae_torch import _build
 from kindergarten_vq_vae_torch.parallel.mesh import active_mesh, dp_sum
 from kindergarten_vq_vae_torch.utils.metrics import perplexity_from_counts
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class VQOutput(NamedTuple):
@@ -88,17 +94,69 @@ class VQCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_zq, g_d1, g_d2, _g_idx, _g_counts, _g_sumz):
         z_flat, codebook, idx = ctx.saved_tensors
-        zq = codebook[idx]
         dz = dE = None
         if ctx.needs_input_grad[0]:
             dz = torch.zeros_like(z_flat) if g_zq is None else g_zq
             if g_d1 is not None:
-                dz = dz + g_d1 * 2.0 * (z_flat - zq)
+                dz = dz + g_d1 * 2.0 * (z_flat - codebook[idx])
         if ctx.needs_input_grad[1]:
-            dE = torch.zeros_like(codebook)
-            if g_d2 is not None:
-                dE.index_add_(0, idx, g_d2 * 2.0 * (zq - z_flat))
+            dE = (torch.zeros_like(codebook) if g_d2 is None
+                  else codebook_grad(z_flat, idx, codebook, g_d2))
         return dz, dE, None
+
+
+def codebook_grad_reference(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tensor,
+                            g_d2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`codebook_grad`: ``index_add_`` of the terms,
+    in row order on the CPU (with atomics in any order on the card)."""
+    return torch.zeros_like(codebook).index_add_(0, idx, g_d2 * 2.0 * (codebook[idx] - z_flat))
+
+
+def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tensor,
+                  g_d2: torch.Tensor) -> torch.Tensor:
+    """The codebook's gradient ``dE[k] = sum_{i: idx[i] = k} 2 g_d2 (E[k] -
+    z[i])`` of (rows, D) f32 ``z_flat``, (rows,) int64 ``idx`` and (n_e, D)
+    f32 ``codebook``; ``g_d2`` a one-element f32 tensor (read on the device:
+    no host sync). JAX's ``jax.ops.segment_sum`` in ``_fused_vq_core_bwd``
+    (``vq_pallas.py:173-181``).
+
+    CPU tensors take :func:`codebook_grad_reference`. CUDA tensors launch
+    ``csrc/vq_bwd.cu``, which sums each code's terms in a fixed order (the
+    same bits in every launch), or raise; each launch adds one to
+    ``codebook_grad.launches``."""
+    if z_flat.device.type == "cpu":
+        return codebook_grad_reference(z_flat, idx, codebook, g_d2)
+    if z_flat.device.type != "cuda":
+        raise ValueError(f"codebook_grad runs on CPU or CUDA tensors, got {z_flat.device}")
+    m, d = z_flat.shape
+    n_e = codebook.shape[0]
+    dev = z_flat.device
+    g = g_d2.reshape(1)
+    for name, t, shape, dtype in (("z_flat", z_flat, (m, d), torch.float32),
+                                  ("idx", idx, (m,), torch.int64),
+                                  ("codebook", codebook, (n_e, d), torch.float32),
+                                  ("g_d2", g, (1,), torch.float32)):
+        _build.check_tensor(name, t, shape, dtype, dev)
+    if m == 0:
+        return torch.zeros_like(codebook)
+    fn = _build.lib().kvq_vq_codebook_grad_plan
+    fn.argtypes = [_I, _I, _I, _VP, _VP, ctypes.POINTER(_I)]
+    fn.restype = _I
+    plan = (_I * 2)()
+    if fn(m, d, n_e, z_flat.data_ptr(), codebook.data_ptr(), plan) != 0:
+        raise ValueError(f"the codebook-gradient kernel takes D <= 1024 and a codebook whose "
+                         f"per-code sums fit in shared memory; got D={d}, n_e={n_e}")
+    row_blocks, width = plan
+    ws = torch.empty((row_blocks * width,), dtype=torch.float32, device=dev)
+    out = torch.empty((width,), dtype=torch.float32, device=dev)
+    _build.launch("kvq_vq_codebook_grad", [_VP] * 6 + [_I] * 3, z_flat.data_ptr(),
+                  idx.data_ptr(), codebook.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                  out.data_ptr(), m, d, n_e, device=dev)
+    codebook_grad.launches += 1
+    return out[:n_e * d].view(n_e, d)
+
+
+codebook_grad.launches = 0
 
 
 def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn) -> VQOutput:

@@ -13,6 +13,10 @@ Counterpart of ``kindergarten_vq_vae_tpu/train/engine.py``:
   and read with one host sync per stage; step 0 and the decode dump are
   timed out of ``sentences_per_sec`` (``torch.cuda.synchronize`` where JAX
   blocks on the result);
+- the host-to-device copies are double-buffered (:func:`_prefetch`, depth
+  2, JAX l.112-122): while step i runs, batch i + 1's copy is in flight on
+  a side stream from pinned memory, and the step's stream waits on that
+  copy's event before it reads the batch (:meth:`Engine._take_batch`);
 - randomness is keyed, as JAX keys it by ``fold_in(base, epoch * 1_000_003
   + i * 3 + stage)``: before every step the stage's generator is re-seeded
   from ``(seed + 1, epoch * 1_000_003 + i * 3 + stage)``, and the train
@@ -52,6 +56,7 @@ step reduces it, and logged by rank 0).
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -109,6 +114,20 @@ def explicit_latent_classes_labels(labels5) -> dict:
     return out
 
 
+def _prefetch(iterator, put_fn, depth: int = 2):
+    """Yield ``(batch, put_fn(batch))`` in the iterator's order, with
+    ``put_fn`` called ``depth - 1`` batches ahead of the consumer (JAX
+    ``train/engine.py:112-122``): batch i + 1's transfer is issued before
+    step i runs."""
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append((batch, put_fn(batch)))
+        if len(queue) >= depth:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+
+
 def step_seed(seed: int, epoch: int, i: int, stage: str) -> int:
     """The generator seed of step ``i`` of ``stage`` in ``epoch``."""
     n = epoch * 1_000_003 + i * 3 + STAGE_IDS[stage]
@@ -154,6 +173,7 @@ class Engine:
         self.state = init_train_state(cfg, model, self.mesh)
 
         self._gen = torch.Generator(device=self.device)
+        self._copy_stream = None  # the side stream of the batch copies (CUDA)
         self._train_step = make_train_step(cfg, self.device, self._gen, mesh=self.mesh)
         self._eval_steps = {stage: make_eval_step(cfg, stage, mesh=self.mesh)
                             for stage in ("val", "test")}
@@ -198,15 +218,35 @@ class Engine:
                 best[k] = stats[k]
         return flags
 
-    def _put_batch(self, batch: dict) -> dict:
+    def _put_batch(self, batch: dict):
+        """``(device batch, the copy's event)``: on CUDA the columns go from
+        pinned memory on the copy stream, which the caller's stream has not
+        waited on yet (:meth:`_take_batch`); elsewhere the event is None."""
         out = {"n_valid": int(batch["n_valid"])}
-        for k in self._batch_keys:
-            if k in batch:
-                t = torch.from_numpy(np.asarray(batch[k], dtype=np.int64))
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
-        return out
+        host = {k: torch.from_numpy(np.asarray(batch[k], dtype=np.int64))
+                for k in self._batch_keys if k in batch}
+        if self.device.type != "cuda":
+            return out | host, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            for k, t in host.items():
+                out[k] = t.pin_memory().to(self.device, non_blocking=True)
+            return out, self._copy_stream.record_event()
+
+    def _take_batch(self, put) -> dict:
+        """The device batch of a :meth:`_put_batch`, ready for the current
+        stream: it waits on the copy's event, and each column is recorded on
+        it so the caching allocator keeps its memory until the step's reads
+        are done."""
+        dbatch, event = put
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for k in self._batch_keys:
+                if k in dbatch:
+                    dbatch[k].record_stream(stream)
+        return dbatch
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -218,9 +258,9 @@ class Engine:
         n_els = n_steps = els_first = 0
         t_first = t_decode = 0.0
         t0 = time.perf_counter()
-        for i, batch in enumerate(iterator):
+        for i, (batch, put) in enumerate(_prefetch(iterator, self._put_batch)):
             n_valid = int(batch["n_valid"])
-            dbatch = self._put_batch(batch)
+            dbatch = self._take_batch(put)
             seed = step_seed(self.cfg.seed, epoch, i, stage)
             self._gen.manual_seed(seed)
             if stage == "train":

@@ -56,10 +56,13 @@ def load_data(cfg: RunConfig):
         prepare_all(d, max_length=cfg.tokenized_sentence_max_length,
                     add_special_tokens=cfg.tokenizer_add_special_tokens)
 
-    input_ids = np.load(path(cfg.input_ids_file))
-    attention_mask = np.load(path(cfg.attention_mask_file))
-    labels = np.load(path(cfg.labels_file))
-    one_hot = np.load(path(cfg.one_hot_file))
+    # memory-mapped reads (``mmap``): the columns stay on disk, the splits
+    # keep index indirection and a batch reads only its rows
+    mmap = "r" if cfg.mmap else None
+    input_ids = np.load(path(cfg.input_ids_file), mmap_mode=mmap)
+    attention_mask = np.load(path(cfg.attention_mask_file), mmap_mode=mmap)
+    labels = np.load(path(cfg.labels_file), mmap_mode=mmap)
+    one_hot = np.load(path(cfg.one_hot_file), mmap_mode=mmap)
     sentences = [s.decode() if isinstance(s, bytes) else str(s)
                  for s in np.load(path(cfg.sentences_file))]
     labels8 = one_hot8 = None
@@ -78,8 +81,8 @@ def load_data(cfg: RunConfig):
     dec_input_ids = dec_attention_mask = None
     if "gpt" in cfg.decoder_model_name:
         dec_input_ids, dec_attention_mask = _bpe_tokenize(cfg, sentences, L)
-    ds = DSentences(input_ids=input_ids.astype(np.int32),
-                    attention_mask=attention_mask.astype(np.int32), dec_input_ids=dec_input_ids,
+    ds = DSentences(input_ids=_int32(input_ids), attention_mask=_int32(attention_mask),
+                    dec_input_ids=dec_input_ids,
                     dec_attention_mask=dec_attention_mask, labels=labels, one_hot=one_hot,
                     labels8=labels8, one_hot8=one_hot8, sentences=sentences)
     train, val, test = split_dataset(ds, cfg.train_split_pct, cfg.val_split_pct)
@@ -92,6 +95,12 @@ def load_data(cfg: RunConfig):
             f"vocab_size >= {max_id + 1} (tokenizer vocab: "
             f"{tokenizer.vocab_size if tokenizer else 'unknown'})")
     return {"train": train, "val": val, "test": test}, tokenizer
+
+
+def _int32(col: np.ndarray) -> np.ndarray:
+    """``col`` as int32: a memory-mapped int32 column (what ``prepare``
+    writes) stays mapped; any other is converted, as JAX converts it."""
+    return col if col.dtype == np.int32 else col.astype(np.int32)
 
 
 def _bpe_tokenize(cfg: RunConfig, sentences: list[str], max_length: int):

@@ -120,6 +120,13 @@ bf16 and f32; an artifact exported on the card (``serve/export.py``, H 128,
 2 + 2 layers, bucket 16: Shelgon3-VQ in bf16 and f32, Shelgon with its
 Gumbel noise, a ``fused_layer="off"`` run) equal to the live kernel forward
 bit for bit, with its launches, and refusing the CPU.
+The codebook gradient (``csrc/vq_bwd.cu``) at rows around its blocks (1,
+31, 33, 97, 3,072, 24,577), D 64 / 66 (the element path) / 768 / 1,024, 9
+/ 16 / 37 codes, skewed counts and rows near their codes (where the
+shortcut n_k E_k - sum z would cancel): the kernel and the plain
+``index_add_`` each within 1e-5 of an f64 sum of the same f32 terms,
+relative to the largest sum of the terms' magnitudes (f32 sums in other
+orders), the same bits in two launches, and a code no row picks exactly 0.
 """
 
 import dataclasses
@@ -194,7 +201,11 @@ from kindergarten_vq_vae_torch.ops.sdpa import (
     sdpa_forward,
     sdpa_forward_reference,
 )
-from kindergarten_vq_vae_torch.ops.vq import vector_quantize
+from kindergarten_vq_vae_torch.ops.vq import (
+    codebook_grad,
+    codebook_grad_reference,
+    vector_quantize,
+)
 from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
 from kindergarten_vq_vae_torch.train.variants import make_loss_fn
 
@@ -400,6 +411,51 @@ def test_vq_kernel_rejects_what_it_does_not_take(gen):
         with pytest.raises(TypeError, match="float32"):
             vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda").double(),
                                    torch.randn(9, 768, device="cuda"), 0.25)
+
+
+@pytest.mark.parametrize("rows,d,n_e,near", [
+    (1, 768, 9, False), (31, 768, 9, False), (33, 64, 9, False), (97, 66, 9, False),
+    (3072, 768, 9, False), (24577, 768, 9, False), (24576, 768, 37, False),
+    (4096, 1024, 16, False), (24576, 768, 9, True), (333, 66, 16, True),
+])
+def test_codebook_grad_kernel_matches_plain(gen, rows, d, n_e, near):
+    """Codes drawn with skewed shares, the last code never (a zero row);
+    ``near``: each row 1e-4 from its code."""
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
+    share = torch.arange(n_e, 0, -1, device="cuda", dtype=torch.float32) ** 2
+    share[-1] = 0.0
+    idx = torch.multinomial(share, rows, replacement=True, generator=gen)
+    z = (e[idx] + 1e-4 * torch.randn(rows, d, device="cuda", generator=gen) if near
+         else torch.randn(rows, d, device="cuda", generator=gen))
+    g = torch.tensor(0.37 / rows, device="cuda")
+    before = codebook_grad.launches
+    got, again = codebook_grad(z, idx, e, g), codebook_grad(z, idx, e, g)
+    torch.cuda.synchronize()
+    assert codebook_grad.launches == before + 2
+    assert torch.equal(got, again)
+    assert got.shape == e.shape and bool((got[-1] == 0).all())
+    terms = g * 2.0 * (e[idx] - z)
+    exact = torch.zeros(e.shape, dtype=torch.float64, device="cuda").index_add_(
+        0, idx, terms.double())
+    scale = torch.zeros_like(exact).index_add_(0, idx, terms.double().abs()).max()
+    plain = codebook_grad_reference(z, idx, e, g)
+    assert ((got.double() - exact).abs().max() / scale).item() <= 1e-5
+    assert ((plain.double() - exact).abs().max() / scale).item() <= 1e-5
+
+
+def test_codebook_grad_kernel_through_the_vq_gradient(gen):
+    """``VQCore``'s backward on the card launches the kernel once and gives
+    the plain path's dz bits and dE within the bar above."""
+    z = torch.randn(8, 12, 768, device="cuda", generator=gen, requires_grad=True)
+    e = ((torch.rand(9, 768, device="cuda", generator=gen) * 2 - 1) / 9).requires_grad_()
+    before = codebook_grad.launches
+    out = vector_quantize(z, e, 0.25)
+    (out.loss * 3.0 + out.z_q.square().sum()).backward()
+    assert codebook_grad.launches == before + 1
+    idx = out.indices.view(-1)
+    g = torch.tensor(3.0 * 0.25 / z.numel(), device="cuda")
+    want = codebook_grad_reference(z.detach().view(-1, 768), idx, e.detach(), g)
+    assert _rel_max(e.grad, want) <= 1e-5
 
 
 @pytest.mark.parametrize("decoder,B,S,SK,H,NH,F,dtype", [

@@ -39,6 +39,10 @@ with 6 train and 8 val batches each.
 - A ``fused_head_ce="store"`` CLI run (in process) has the history of the
   same run on the logits path at the parity bars above, and its run
   directory is served through the logits path.
+- ``_prefetch`` (the engine's depth-2 host-to-device double buffer, which
+  every run above goes through) yields every batch once, in order, with
+  each batch's put issued one batch ahead of the consumer, and drains the
+  queue at the end; at depth 1 it puts each batch just before its step.
 """
 
 import dataclasses
@@ -264,3 +268,22 @@ def test_watch_histograms_match_jax(corpus):
             h = train_log[key]
             assert len(h["values"]) == 64 and len(h["bins"]) == 65, key
             assert sum(h["values"]) == dict(eng.model.named_parameters())[name].numel()
+
+
+@pytest.mark.parametrize("depth, n", [(2, 5), (2, 1), (2, 0), (1, 3), (3, 4)])
+def test_prefetch_order_depth_and_drain(depth, n):
+    from kindergarten_vq_vae_torch.train.engine import _prefetch
+
+    log = []
+
+    def put(b):
+        log.append(("put", b))
+        return b * 10
+
+    for batch, dev in _prefetch(iter(range(n)), put, depth):
+        log.append(("step", batch, dev))
+    assert [e[1] for e in log if e[0] == "step"] == list(range(n))
+    assert all(dev == b * 10 for _, b, dev in (e for e in log if e[0] == "step"))
+    for i in range(n):  # batch i's step comes after the puts of batches up to i + depth - 1
+        at = log.index(("step", i, i * 10))
+        assert {b for kind, b, *_ in log[:at] if kind == "put"} == set(range(min(n, i + depth)))

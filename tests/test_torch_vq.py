@@ -11,6 +11,12 @@ rows a round) take the same bars. ``assemble`` given a raw forward that
 returns the straight-through value itself, as the card kernel does, gives
 the same bits as the ``vq_raw`` path, gradients included.
 
+The codebook gradient alone (``codebook_grad``, on the CPU its plain
+version ``index_add_``) against JAX's ``_fused_vq_core_bwd`` (``jax.grad``
+of the loss through ``fused_vector_quantize``) at rows 1 / 31 / 33 / 97,
+with uneven counts and a code no row picks (exactly 0), at rtol 1e-5, atol
+1e-7.
+
 The codebook's training extras given the same numpy inputs: the EMA update
 (``ema_codebook_update`` from ``init_ema_state``, three batches of counts
 and sums, one code never picked) to rtol 1e-6 (the same f32 expressions;
@@ -29,6 +35,7 @@ from kindergarten_vq_vae_tpu.ops.vq import vector_quantize as jax_vq
 from kindergarten_vq_vae_tpu.ops.vq_pallas import fused_vector_quantize as jax_fused_vq
 from kindergarten_vq_vae_torch.ops.vq import (
     assemble,
+    codebook_grad,
     dead_code_reset,
     dead_code_reset_with,
     ema_codebook_update,
@@ -172,6 +179,31 @@ def test_vq_gradient_matches_jax(use_kernel_wrapper):
     np.testing.assert_allclose(zt.grad.numpy(), np.asarray(dz_want), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(et.grad.numpy(), np.asarray(de_want), rtol=1e-5, atol=1e-7)
     assert (et.grad[4] == 0).all()
+
+
+@pytest.mark.parametrize("rows", [1, 31, 33, 97])
+def test_codebook_grad_matches_jax(rows):
+    """dE of ``loss * a`` alone: JAX's segment sum against ``codebook_grad``
+    given JAX's own codes and ``g_d2 = a * beta / numel``. The rows sit
+    near codes 0-3 with skewed shares (code 0 takes about half), code 4 is
+    far from every row, so no row picks it."""
+    n_e, d, beta, a = 9, 64, 0.69, 3.0
+    rng = np.random.default_rng(rows)
+    e = rng.uniform(-1.0 / n_e, 1.0 / n_e, size=(n_e, d)).astype(np.float32)
+    e[4] += 50.0
+    near = rng.choice(4, size=rows, p=[0.5, 0.25, 0.15, 0.1])
+    z = (e[near] + 0.05 * rng.normal(size=(rows, d))).astype(np.float32).reshape(1, rows, d)
+
+    de_want = jax.grad(lambda e_: jax_fused_vq(jnp.asarray(z), e_, beta).loss * a)(jnp.asarray(e))
+    idx = np.array(jax_fused_vq(jnp.asarray(z), jnp.asarray(e), beta).indices).reshape(-1)
+    assert 4 not in idx
+    g_d2 = torch.tensor(a * beta / z.size, dtype=torch.float32)
+    got = codebook_grad(torch.from_numpy(z.reshape(rows, d)), torch.from_numpy(idx).long(),
+                        torch.from_numpy(e), g_d2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(de_want), rtol=1e-5, atol=1e-7)
+    assert (got[4] == 0).all()
+    counts = np.bincount(idx, minlength=n_e)
+    assert rows == 1 or len(set(counts[:4])) > 1  # uneven
 
 
 def test_ema_codebook_update_matches_jax():
