@@ -258,7 +258,25 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    ``train_ours``, the port's f32 Bagon at the harness's size, 2 epochs on
    the card through the kernels (plain versions refused; #1, #2, #7, #8 and
    #14 launched as counted) and on the CPU: the card's val token accuracy
-   no more than ``TWIN_GAP`` below the CPU's; both and their wall times.
+   no more than ``TWIN_GAP`` below the CPU's; both and their wall times;
+20. the configurations past the one-pass kernels (``phase_long``): the VQ's
+   general path (#5: the codebook streamed through shared memory) at
+   24,576 rows x 768 x 512 codes and x 1,280 x 1,024 codes against its plain
+   version (codes equal but at f32 near ties, judged in f64; z_q, counts,
+   sum_z and the loss held to its own codes; two launches the same bits),
+   timed with its bound; the codebook gradient (5+) in code chunks at 512
+   and 1,024 codes, against an f64 sum, two launches the same bits, timed
+   beside ``index_put_(accumulate=True)``; the attention past 32 tokens
+   (``csrc/attention_long.cuh``) in bf16 and f32 through the layer's
+   attention forward and backward, #11 / #12 and #13 at 64 tokens x 256
+   sentences (self causal padded, cross over padded keys, dropout 0.1),
+   timed in turns with the plain versions, with the bound and
+   ``F.scaled_dot_product_attention``, and at 512 tokens, the keep masks
+   exact at 64 tokens; then bert-base Shelgon3-VQ training steps through
+   the default route, dropout on, every plain version of the route
+   refused: at ``vq_n_e`` 512 (batch 2048 x 12), at 64 tokens (batch 256,
+   bf16) and at 64 tokens in f32 (batch 64), each step's launches as
+   counted (#1, #2, #5, 5+, #7, #8, #14).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -374,6 +392,14 @@ MESH_LOSS_REL = 1e-3
 # twin phase: epochs of the parity harness's Bagon, and how far below the
 # CPU's val token accuracy the card's may sit (the harness's own bar)
 TWIN_EPOCHS, TWIN_GAP = 2, 0.02
+# long phase: the general paths past the one-pass kernels' limits. The VQ
+# (#5) at LONG_CODES and 1,024 codes (D 768 and 1,280) and the codebook
+# gradient (5+) in code chunks, at the step's 24,576 rows; the attention past
+# 32 tokens (csrc/attention_long.cuh) at LONG_SEQ tokens x LONG_BATCH
+# sentences, the 64-token step's shape, timed, and at 512 tokens; the
+# training steps at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ
+# tokens (batch LONG_BATCH; in f32 at LONG_F32_BATCH), LONG_STEPS each
+LONG_CODES, LONG_SEQ, LONG_BATCH, LONG_F32_BATCH, LONG_STEPS = 512, 64, 256, 64, 4
 MESH_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "head_ce_fwd", "head_ce_bwd",
                 "table_grad", "adam")
 MESH_GLOO_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "ce_fwd_ids", "ce_bwd",
@@ -1030,71 +1056,137 @@ def _vq_times(z, e, what: str) -> dict:
 def phase_codebook_grad(names: tuple[str, str]) -> dict:
     """Phase 3's codebook gradient (``ops/vq.py`` ``codebook_grad``,
     ``csrc/vq_bwd.cu``) at the step's 24,576 rows x 768 with 9 codes and
-    with 37, its codes from #5 on the same rows: against an f64 sum of the
-    same f32 terms and against its plain version (``index_add_``), each
-    within ``CB_REL`` of the largest sum of the terms' magnitudes; two
-    launches the same bits; a code no row picks exactly 0; its device time
-    (a CUDA graph of its launches) in turns with the plain version's, its
-    byte bound and the library call ``index_put_(accumulate=True)`` on the
-    same terms (PyTorch's sort-based deterministic route). The kernel line
-    takes the step's 9 codes."""
+    with 37 (``_codebook_grad_case``). The kernel line takes the step's 9
+    codes."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    res = {}
+    for n_e in (37, 9):
+        res = _codebook_grad_case(names, g, TRAIN_BATCH * SEQ, 768, n_e)
+    return res
+
+
+def _codebook_grad_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) -> dict:
+    """The codebook gradient at (rows, d) x n_e, its codes from #5 on the
+    same rows: against an f64 sum of the same f32 terms and against its
+    plain version (``index_add_``), each within ``CB_REL`` of the largest
+    sum of the terms' magnitudes; two launches the same bits; a code no row
+    picks exactly 0; its device time (a CUDA graph of its launches) in turns
+    with the plain version's, its byte bound and the library call
+    ``index_put_(accumulate=True)`` on the same terms (PyTorch's sort-based
+    deterministic route)."""
     import torch
 
     from kindergarten_vq_vae_torch.ops.vq import codebook_grad, codebook_grad_reference
     from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    rows, d = TRAIN_BATCH * SEQ, 768
-    res = {}
-    for n_e in (37, 9):
-        z = torch.randn(rows, d, device="cuda", generator=g)
-        e = (torch.rand(n_e, d, device="cuda", generator=g) * 2 - 1) / n_e
-        e[n_e - 1] += 50.0  # far from every row: no row picks it
-        with torch.no_grad():
-            idx = vector_quantize_kernel(z.view(1, rows, d), e, 0.25).indices.view(-1)
-        gd2 = torch.tensor(1.25 / z.numel(), device="cuda")
-        got, again = codebook_grad(z, idx, e, gd2), codebook_grad(z, idx, e, gd2)
-        torch.cuda.synchronize()
-        plain = codebook_grad_reference(z, idx, e, gd2)
-        terms = gd2 * 2.0 * (e[idx] - z)
-        exact = torch.zeros(e.shape, dtype=torch.float64, device="cuda").index_add_(
-            0, idx, terms.double())
-        scale = torch.zeros_like(exact).index_add_(0, idx, terms.double().abs()).max()
-        err = ((got.double() - exact).abs().max() / scale).item()
-        plain_err = ((plain.double() - exact).abs().max() / scale).item()
-        same, zero = torch.equal(got, again), bool((got[n_e - 1] == 0).all())
-        used = int((torch.bincount(idx, minlength=n_e) > 0).sum())
-        print(f"codebook gradient ({rows},{d})x{n_e} f32 ({used} codes picked): kernel {err:.3e} "
-              f"and plain index_add_ {plain_err:.3e} from the f64 sum, of the largest sum of "
-              f"|terms| (tol {CB_REL}); two launches the same bits {same}; the unpicked code "
-              f"exactly 0 {zero}")
-        if not (same and zero and err <= CB_REL and plain_err <= CB_REL):
-            _fail(f"the codebook-gradient kernel disagrees with its plain version ({n_e} codes)")
-        p1 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
-        k1 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
-        k2 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
-        p2 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
-        lib = _time_ms(lambda: torch.zeros_like(e).index_put_(
-            (idx,), gd2 * 2.0 * (e[idx] - z), accumulate=True), 20)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        bound = _bound(3 * rows * d, _nbytes(z, idx, got), PEAK_F32)
-        print(f"row 5+ codebook gradient ({rows},{d})x{n_e}: kernel {k_ms:.4f} ms (CUDA graph; "
-              f"{bound[0] / k_ms:.0%} of the {bound[1]} bound {bound[0]:.4f} ms), plain "
-              f"index_add_ {p_ms:.4f} ms, index_put_(accumulate=True) {lib:.4f} ms "
-              f"({names[0]}; nvidia-smi: {names[1]})")
-        res = {"max_abs_err": (got - plain).abs().max().item(), "ms": k_ms, "plain_ms": p_ms,
-               "bound": [bound], "library_ms": lib,
-               "library": "torch.zeros_like(e).index_put_((idx,), g * 2 * (e[idx] - z), "
-                          "accumulate=True)"}
-        del z, e, idx, got, again, plain, terms, exact
+    z = torch.randn(rows, d, device="cuda", generator=g)
+    e = (torch.rand(n_e, d, device="cuda", generator=g) * 2 - 1) / n_e
+    e[n_e - 1] += 50.0  # far from every row: no row picks it
+    with torch.no_grad():
+        idx = vector_quantize_kernel(z.view(1, rows, d), e, 0.25).indices.view(-1)
+    gd2 = torch.tensor(1.25 / z.numel(), device="cuda")
+    got, again = codebook_grad(z, idx, e, gd2), codebook_grad(z, idx, e, gd2)
+    torch.cuda.synchronize()
+    plain = codebook_grad_reference(z, idx, e, gd2)
+    terms = gd2 * 2.0 * (e[idx] - z)
+    exact = torch.zeros(e.shape, dtype=torch.float64, device="cuda").index_add_(
+        0, idx, terms.double())
+    scale = torch.zeros_like(exact).index_add_(0, idx, terms.double().abs()).max()
+    err = ((got.double() - exact).abs().max() / scale).item()
+    plain_err = ((plain.double() - exact).abs().max() / scale).item()
+    same, zero = torch.equal(got, again), bool((got[n_e - 1] == 0).all())
+    used = int((torch.bincount(idx, minlength=n_e) > 0).sum())
+    print(f"codebook gradient ({rows},{d})x{n_e} f32 ({used} codes picked): kernel {err:.3e} "
+          f"and plain index_add_ {plain_err:.3e} from the f64 sum, of the largest sum of "
+          f"|terms| (tol {CB_REL}); two launches the same bits {same}; the unpicked code "
+          f"exactly 0 {zero}")
+    if not (same and zero and err <= CB_REL and plain_err <= CB_REL):
+        _fail(f"the codebook-gradient kernel disagrees with its plain version ({n_e} codes)")
+    p1 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
+    k1 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
+    k2 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
+    p2 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
+    lib = _time_ms(lambda: torch.zeros_like(e).index_put_(
+        (idx,), gd2 * 2.0 * (e[idx] - z), accumulate=True), 20)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bound = _bound(3 * rows * d, _nbytes(z, idx, got), PEAK_F32)
+    print(f"row 5+ codebook gradient ({rows},{d})x{n_e}: kernel {k_ms:.4f} ms (CUDA graph; "
+          f"{bound[0] / k_ms:.0%} of the {bound[1]} bound {bound[0]:.4f} ms), plain "
+          f"index_add_ {p_ms:.4f} ms, index_put_(accumulate=True) {lib:.4f} ms "
+          f"({names[0]}; nvidia-smi: {names[1]})")
+    res = {"max_abs_err": (got - plain).abs().max().item(), "ms": k_ms, "plain_ms": p_ms,
+           "bound": [bound], "library_ms": lib,
+           "library": "torch.zeros_like(e).index_put_((idx,), g * 2 * (e[idx] - z), "
+                      "accumulate=True)"}
+    del z, e, idx, got, again, plain, terms, exact
+    torch.cuda.empty_cache()
     return res
+
+
+def _vq_general_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) -> dict:
+    """#5's general path (a codebook or a width past the one-pass kernel) at
+    (rows, d) x n_e against the plain version: the codes equal but at f32
+    near ties (the two nearest codes closer in f64 than 4 f32 ulps of the
+    row's distances, where two summation orders may pick either), where the
+    kernel picks one of the tied codes; z_q exactly z + (e[k] - z) of its
+    codes, the counts exactly their histogram, sum_z and the loss within
+    VQ_REL of the plain sums over its codes; then ``_vq_times`` (two
+    launches the same bits, the times and the bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.vq import vector_quantize
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
+
+    if vq_plan(rows, d, n_e)[0] != 0:
+        _fail(f"VQ ({rows},{d})x{n_e}: expected the general path")
+    z = torch.randn(1, rows, d, device="cuda", generator=g)
+    e = (torch.rand(n_e, d, device="cuda", generator=g) * 2 - 1) / n_e
+    with torch.no_grad():
+        k = vector_quantize_kernel(z, e, 0.25)
+        torch.cuda.synchronize()
+        p = vector_quantize(z, e, 0.25)
+    idx, z2 = k.indices.view(-1), z.view(-1, d)
+    z64, e64 = z2.double(), e.double()
+    c = e64.mean(0)
+    zc, ec = z64 - c, e64 - c
+    dist = (zc * zc).sum(1, keepdim=True) + (ec * ec).sum(1) - 2.0 * (zc @ ec.T)
+    tol = 4 * 2.0**-23 * ((zc * zc).sum(1) + (ec * ec).sum(1).max())
+    best = dist.min(1).values
+    near = dist.topk(2, 1, largest=False).values[:, 1] - best <= tol
+    picked = bool((dist.gather(1, idx.view(-1, 1))[:, 0] - best <= tol).all())
+    differ = idx != p.indices.view(-1)
+    sums = F.one_hot(idx, n_e).float().T @ z2
+    zq_ok = torch.equal(k.z_q.view(-1, d), z2 + (e[idx] - z2))
+    counts_ok = torch.equal(k.counts, torch.bincount(idx, minlength=n_e).float())
+    sum_err = _rel_max(k.sum_z, sums)
+    loss_err = _rel_max(k.loss, ((e[idx] - z2) ** 2).sum() * 1.25 / z2.numel())
+    used = int((k.counts > 0).sum())
+    print(f"vq general path ({rows},{d})x{n_e} ({used} codes picked): {int(differ.sum())} codes "
+          f"differ from the plain version's, {int(near.sum())} f32 near ties, every code one of "
+          f"the nearest within the tie bar {picked}; z_q exact {zq_ok}, counts exact "
+          f"{counts_ok}; sum_z max rel {sum_err:.3e}, loss rel {loss_err:.3e} (tol {VQ_REL})")
+    if (not picked or bool((differ & ~near).any()) or not zq_ok or not counts_ok
+            or sum_err > VQ_REL or loss_err > VQ_REL):
+        _fail(f"the VQ general path disagrees with its plain version ({n_e} codes, D {d})")
+    err = (k.sum_z - sums).abs().max().item()
+    del dist, zc, ec, z64, e64, sums, k, p
+    times = _vq_times(z, e, f"general path, {n_e} codes")
+    print(f"  ({names[0]}; nvidia-smi: {names[1]})")
+    del z, e
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound": times["bound"], "library_ms": None}
 
 
 def _vq_bound(z, e, out) -> tuple[float, str]:
     """Reads z and the codebook, writes z_q, the codes, the counts and the
-    per-code sums; 3 f32 operations per (row, code, dim) for the distances."""
+    per-code sums; one f32 FMA (2 operations) per (row, code, dim) for the
+    distances, as both paths of ``csrc/vq_fwd.cu`` do."""
     rows, d = z.numel() // z.shape[-1], z.shape[-1]
-    return _bound(3 * rows * e.shape[0] * d,
+    return _bound(2 * rows * e.shape[0] * d,
                   _nbytes(z, e, out.z_q, out.indices, out.counts, out.sum_z), PEAK_F32)
 
 
@@ -2481,6 +2573,201 @@ def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
     return res
 
 
+def _long_attention(names: tuple[str, str], g, dtype) -> dict:
+    """The attention past 32 tokens (csrc/attention_long.cuh; ``dtype`` bf16
+    or f32) through every entry: the layer's attention forward and backward
+    (#1a, #3 / #4), #11 / #12 and #13, against their plain versions, at
+    LONG_SEQ tokens x LONG_BATCH sentences (self causal with a padded mask,
+    cross over padded keys; dropout 0.1), timed in turns with the plain
+    versions, beside the bound and ``F.scaled_dot_product_attention``; at
+    512 tokens (self) and 33 queries over 512 keys (cross), 8 sentences, held
+    only; the keep masks exact at LONG_SEQ through the layer's forward (the
+    context) and backward (dv); #11 / #12 and #13 once through their
+    autograd (their launch counts)."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
+    from kindergarten_vq_vae_torch.ops.dropout import attention_keep, cross_op
+    from kindergarten_vq_vae_torch.ops.layer import (
+        attention_backward,
+        attention_backward_reference,
+        attention_forward,
+        attention_forward_reference,
+    )
+    from kindergarten_vq_vae_torch.ops.sdpa import (
+        fused_sdpa,
+        sdpa_backward,
+        sdpa_backward_reference,
+        sdpa_forward,
+        sdpa_forward_reference,
+    )
+
+    f32 = dtype == torch.float32
+    tag, peak = ("f32", PEAK_3XTF32) if f32 else ("bf16", PEAK_BF16)
+    fwd_tol, bwd_tol = (F32_FWD, F32_GRAD) if f32 else (TRAIN_REL, TRAIN_REL)
+    seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
+    H, NH, hd = 768, 12, 64
+    lib_name = f"F.scaled_dot_product_attention, {tag} (rate 0, head transposes)"
+    res = {}
+
+    def held(what, got, want, tol):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(_rel_max(a, b) for a, b in zip(got, want))
+        ok = all(_finite(a) and a.dtype == dtype and a.shape == b.shape
+                 for a, b in zip(got, want))
+        print(f"  {what}: max rel {err:.3e} (tol {tol})")
+        if not ok or err > tol:
+            _fail(f"long attention ({tag}): {what} disagrees with its plain version")
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+    for batch, sq, sk, cross in ((LONG_BATCH, LONG_SEQ, LONG_SEQ, False),
+                                 (LONG_BATCH, LONG_SEQ, LONG_SEQ, True),
+                                 (8, 512, 512, False), (8, 33, 512, True)):
+        kind, causal = ("cross", False) if cross else ("self", True)
+        op = cross_op(NH) if cross else 0
+        if cross:
+            packed = torch.randn(batch, sq, H, device="cuda", generator=g).to(dtype)
+            kv = torch.randn(batch, sk, 2 * H, device="cuda", generator=g).to(dtype)
+            q, (k, v) = packed, kv.split(H, -1)
+        else:
+            packed, kv = torch.randn(batch, sq, 3 * H, device="cuda", generator=g).to(dtype), None
+            q, k, v = packed.split(H, -1)
+        lens = torch.randint(1, sk + 1, (batch,), device="cuda", generator=g)
+        mask = (torch.arange(sk, device="cuda")[None] < lens[:, None]).to(torch.int32)
+        gr = torch.randn(batch, sq, H, device="cuda", generator=g).to(dtype)
+        la = (packed, kv, mask, NH, causal, seed, op, 0.1)
+        lb = (packed, kv, mask, gr, NH, causal, seed, op, 0.1)
+        sa, skw = (q, k, v, mask, seed), dict(num_heads=NH, causal=causal, rate=0.1)
+        print(f"long attention {tag} {kind} ({batch},{sq},768) over {sk} keys, "
+              f"{'causal, ' if causal else ''}padded keys, dropout 0.1:")
+        with torch.no_grad():
+            errs = {
+                "fwd": held("attention_forward (#1a)", attention_forward(*la),
+                            attention_forward_reference(*la), fwd_tol),
+                "bwd": held("attention_backward (#3 / #4)", attention_backward(*lb),
+                            attention_backward_reference(*lb), bwd_tol),
+                "sdpa_fwd": held("sdpa_forward (#11)", sdpa_forward(*sa, cross=cross, **skw),
+                                 sdpa_forward_reference(*sa, **skw), fwd_tol),
+                "sdpa_bwd": held("sdpa_backward (#12)",
+                                 sdpa_backward(*sa, gr, cross=cross, **skw),
+                                 sdpa_backward_reference(*sa, gr, **skw), bwd_tol)}
+            if not cross:
+                errs["mha"] = held("mha_forward (#13)", mha_forward(q, k, v, mask, NH, causal),
+                                   mha_reference(q, k, v, mask, NH, causal), fwd_tol)
+        if batch == LONG_BATCH:
+            products = batch * NH * sq * sk * hd
+            lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
+            with torch.no_grad():
+                lf = _time_ms(lib_fwd, 10)
+                timed = {
+                    "fwd": _paired_ms(lambda: attention_forward(*la),
+                                      lambda: attention_forward_reference(*la), 10),
+                    "bwd": _paired_ms(lambda: attention_backward(*lb),
+                                      lambda: attention_backward_reference(*lb), 10),
+                    "sdpa_fwd": _paired_ms(lambda: sdpa_forward(*sa, cross=cross, **skw),
+                                           lambda: sdpa_forward_reference(*sa, **skw), 10),
+                    "sdpa_bwd": _paired_ms(lambda: sdpa_backward(*sa, gr, cross=cross, **skw),
+                                           lambda: sdpa_backward_reference(*sa, gr, **skw), 10)}
+                if not cross:
+                    timed["mha"] = _paired_ms(lambda: mha_forward(q, k, v, mask, NH, causal),
+                                              lambda: mha_reference(q, k, v, mask, NH, causal), 10)
+            lb_ms = _time_ms(lib_bwd, 10)
+            # bytes: q, k, v and the mask read, the context written (gr's
+            # shape); the backward also reads g and writes dq, dk, dv
+            bf = _bound(4 * products, _nbytes(q, k, v, mask, gr), peak)
+            bb = _bound(10 * products, _nbytes(q, k, v, mask, gr, q, k, v), peak)
+            for key, (k_ms, p_ms) in timed.items():
+                b_ = bb if key.endswith("bwd") else bf
+                res[f"{key}_{kind}"] = {
+                    "max_abs_err": errs[key], "ms": k_ms, "plain_ms": p_ms, "bound": [b_],
+                    "library_ms": lb_ms if key.endswith("bwd") else lf,
+                    "library": ("autograd backward of " if key.endswith("bwd") else "") + lib_name}
+                print(f"  {key} {tag} {kind}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{b_[0]:.4f} ms ({b_[1]}, {b_[0] / k_ms:.1%} of it), "
+                      f"{'its autograd backward ' if key.endswith('bwd') else lib_name + ' '}"
+                      f"{lb_ms if key.endswith('bwd') else lf:.4f} ms ({names[0]}; nvidia-smi: "
+                      f"{names[1]})")
+            del lib_fwd, lib_bwd
+        del packed, kv, q, k, v, gr
+
+    # every keep bit visible at LONG_SEQ tokens: q = k = 0, v and g one-hot in
+    # the key / query position of each head (LONG_SEQ <= head_dim)
+    B, S = 16, LONG_SEQ
+    onehot = torch.zeros(B, S, H, device="cuda")
+    for h in range(NH):
+        onehot[:, torch.arange(S), h * hd + torch.arange(S)] = 1.0
+    onehot = onehot.to(dtype)
+    zero = torch.zeros_like(onehot)
+    with torch.no_grad():
+        for cross in (False, True):
+            if cross:
+                packed, kv, op = zero, torch.cat([zero, onehot], -1), cross_op(NH)
+            else:
+                packed, kv, op = torch.cat([zero, zero, onehot], -1), None, 0
+            ctx = attention_forward(packed, kv, None, NH, False, seed, op, 0.1)
+            grads = attention_backward(packed, kv, None, onehot, NH, False, seed, op, 0.1)
+            dv = (grads[1][..., H:] if cross else grads[..., 2 * H:]).view(B, S, NH, hd)[..., :S]
+            ctx = ctx.view(B, S, NH, hd)[..., :S]
+            for h in range(NH):
+                keep = attention_keep(seed, op + h, B, S, S, 0.1, "cuda") > 0
+                if not (torch.equal(ctx[:, :, h] > 0, keep)
+                        and torch.equal(dv[:, :, h].transpose(1, 2) > 0, keep)):
+                    _fail(f"long attention ({tag}): keep mask of head {h} differs from the "
+                          f"plain mask ({'cross' if cross else 'self'})")
+    print(f"long attention {tag}: keep masks equal to the plain masks at {S} tokens (self op ids "
+          f"0..11, cross 13..24; the context and dv)")
+    del onehot, zero, ctx, grads, dv
+
+    # #11 / #12 (self causal, then cross) and #13 through their autograd at
+    # LONG_SEQ: their launches
+    leaves = [torch.randn(8, LONG_SEQ, H, device="cuda", generator=g).to(dtype).requires_grad_()
+              for _ in range(3)]
+    _reset_counters()
+    fused_sdpa(*leaves, None, seed, NH, True, 0.1).float().sum().backward()
+    fused_sdpa(*leaves, None, seed, NH, False, 0.1, cross=True).float().sum().backward()
+    fused_mha(*leaves, None, NH, True).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = _counters()
+    sdpa_keys = [f"sdpa_{d}_{kind}" for d in ("fwd", "bwd") for kind in ("self", "cross")]
+    res["sdpa_launches"] = {k_: counts[k_] for k_ in sdpa_keys}
+    res["mha_launches"] = counts["mha"]
+    print(f"long attention {tag}: fused_sdpa (self, cross) and fused_mha through their "
+          f"autograd at (8,{LONG_SEQ},768): launches {res['sdpa_launches']}, mha "
+          f"{res['mha_launches']}")
+    if res["sdpa_launches"] != dict.fromkeys(sdpa_keys, 1) or counts["mha"] != 1:
+        _fail(f"long attention ({tag}): the autograd runs did not launch the kernels once")
+    del leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_long(names: tuple[str, str]) -> dict:
+    """The configurations past the one-pass kernels (phase 20): the VQ's
+    general path (#5) at LONG_CODES codes x 768 and 1,024 x 1,280, the
+    codebook gradient's code chunks (5+) at LONG_CODES and 1,024 codes, the
+    long attention in bf16 and f32 (``_long_attention``); then the bert-base
+    Shelgon3-VQ training steps through the default ("auto") route, dropout
+    on: at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ tokens (batch
+    LONG_BATCH, bf16; batch LONG_F32_BATCH, f32), each with every launch
+    count of the step (#1, #2, #5, 5+ and #7 among them) and every plain
+    version of the route refused."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rows = TRAIN_BATCH * SEQ
+    res = {"vq": _vq_general_case(names, g, rows, 768, LONG_CODES)}
+    _vq_general_case(names, g, rows, 1280, 1024)
+    res["codebook_grad"] = _codebook_grad_case(names, g, rows, 768, LONG_CODES)
+    _codebook_grad_case(names, g, rows, 1280, 1024)
+    res["attn"] = _long_attention(names, g, torch.bfloat16)
+    res["attn_f32"] = _long_attention(names, g, torch.float32)
+    res["train_codes"] = phase_train(names, steps=LONG_STEPS, over={"vq_n_e": LONG_CODES})
+    res["train_seq"] = phase_train(names, steps=LONG_STEPS, batch=LONG_BATCH, seq=LONG_SEQ)
+    res["train_seq_f32"] = phase_train(names, steps=LONG_STEPS, batch=LONG_F32_BATCH,
+                                       seq=LONG_SEQ, dtype="float32")
+    return res
+
+
 def _train_cfg():
     from kindergarten_vq_vae_torch.config import RunConfig
 
@@ -2490,13 +2777,13 @@ def _train_cfg():
                      vq_e_dim=768, tokenized_sentence_max_length=SEQ)
 
 
-def _train_batch(batch: int) -> dict:
+def _train_batch(batch: int, seq: int = SEQ) -> dict:
     """bench.py's batch: uniform ids in [1, vocab), no padding, from the seed."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(SEED)
-    ids = torch.from_numpy(rng.integers(1, VOCAB, (batch, SEQ))).cuda()
+    ids = torch.from_numpy(rng.integers(1, VOCAB, (batch, seq))).cuda()
     return {"input_ids": ids, "attention_mask": torch.ones_like(ids, dtype=torch.int32),
             "n_valid": batch}
 
@@ -2508,8 +2795,8 @@ class _plain_refused:
     codebook gradient raise: on the card the step's update is kernel #14
     alone, the per-module trunk's attention #11 / #12 alone, the fused
     layers' LayerNorms those of ``csrc/layernorm.cu`` and the codebook's
-    gradient ``csrc/vq_bwd.cu``'s. With ``default_route`` (an f32 run),
-    also those of the layer GEMM, the layer forward and backward, the
+    gradient ``csrc/vq_bwd.cu``'s. With ``default_route`` (every training
+    step, the f32 runs), also those of the layer GEMM, the layer forward and backward, the
     attention, the CE and the fused head + CE."""
 
     def __init__(self, default_route: bool = False):
@@ -2547,11 +2834,13 @@ class _plain_refused:
 
 
 def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAIN_STEPS,
-                fused_layer: str = "auto", dtype: str = "bfloat16") -> dict:
+                fused_layer: str = "auto", dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
+                seq: int = SEQ, over: dict | None = None) -> dict:
     """The training slice (``head_ce``: its ``fused_head_ce``; ``fused_layer``
     "off": the per-module trunk; ``dtype`` its compute dtype, "float32" the
-    f32 instances); returns the kernels' launch counts over its steps and
-    its losses."""
+    f32 instances; ``batch`` sentences of ``seq`` tokens; ``over``: other
+    run-config fields), with every plain version of the route refused;
+    returns the kernels' launch counts over its steps and its losses."""
     import dataclasses
 
     import torch
@@ -2560,14 +2849,15 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     from kindergarten_vq_vae_torch.train.step import init_train_state, make_train_step
 
     cfg = dataclasses.replace(_train_cfg(), fused_head_ce=head_ce, fused_layer=fused_layer,
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, tokenized_sentence_max_length=seq,
+                              **(over or {}))
     fused, f32 = head_ce in HEAD_MODES, dtype == "float32"
     torch.cuda.empty_cache()
     model = build_model(cfg, device="cuda", fused_head=fused)
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
     state = init_train_state(cfg, model)
     step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
-    batch = _train_batch(TRAIN_BATCH)
+    sents, batch = batch, _train_batch(batch, seq)
     n_params = sum(p.numel() for p in model.parameters())
     # per step: 24 layer forwards (keeping residuals) and backwards, with 24 self-
     # and 12 cross-attention backwards inside them, or on the per-module trunk
@@ -2589,7 +2879,7 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    with _plain_refused(default_route=f32):
+    with _plain_refused(default_route=True):
         _reset_counters()
         for i in range(steps):
             before = _counters()
@@ -2607,9 +2897,10 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         counts = _counters()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
-    what = f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}, {dtype}"
+    what = (f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}, {dtype}"
+            + "".join(f", {k} {v}" for k, v in (over or {}).items()))
     print(f"train slice ({what}): bert-base shelgon3-VQ, {n_params} parameters, "
-          f"batch {TRAIN_BATCH} x {SEQ}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
+          f"batch {sents} x {seq}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
           f"launches per step {per_step}, total {counts}")
     for i, (loss, dt) in enumerate(zip(losses, times)):
         print(f"  step {i}: {json.dumps(loss)} {dt * 1e3:.1f} ms")
@@ -2618,8 +2909,8 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
         _fail(f"train loss not finite or not falling: {full}")
     if state.step != steps:
         _fail(f"train state counted {state.step} steps")
-    print(f"train step ({what}): median {med * 1e3:.1f} ms over steps "
-          f"1-{steps - 1}, {TRAIN_BATCH / med:.1f} sentences/s, max_memory_allocated "
+    print(f"train step ({what}, batch {sents} x {seq}): median {med * 1e3:.1f} ms over steps "
+          f"1-{steps - 1}, {sents / med:.1f} sentences/s, max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({names[0]}; nvidia-smi: {names[1]})")
     del state, model, step, aux
     torch.cuda.empty_cache()
@@ -4976,6 +5267,7 @@ def main() -> None:
     phase_mesh(names)
     phase_data(names)
     phase_twin(names)
+    lo = phase_long(names)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]
@@ -5092,6 +5384,32 @@ def main() -> None:
           for kind in ("self", "cross")],
         row("mha_forward f32", "attention_f32.cuh", "attention_pallas.py:65",
             f32r["sdpa"]["mha_launches"], f32r["sdpa"]["mha"]),
+        # the general paths (phase 20): the VQ's and the codebook gradient's
+        # launches from the vq_n_e 512 step's run, the layer attention's from
+        # the 64-token steps' runs (bf16, f32), #11 / #12 / #13's from their
+        # own autograd runs at 64 tokens
+        row(f"vector_quantize_kernel (general path, {LONG_CODES} codes, training)", "vq_fwd.cu",
+            "vq_pallas.py:41", lo["train_codes"]["counts"]["vq"], lo["vq"]),
+        row(f"codebook_grad (code chunks, {LONG_CODES} codes)", "vq_bwd.cu", "vq_pallas.py:178",
+            lo["train_codes"]["counts"]["codebook_grad"], lo["codebook_grad"]),
+        *[row(f"attention_forward{f} in layer_forward, {LONG_SEQ} tokens ({kind})",
+              "attention_long.cuh", "layer_pallas.py:244",
+              lo[tr_key]["counts"][f"attn_fwd_{kind}"], lo[a_key][f"fwd_{kind}"])
+          for f, tr_key, a_key in (("", "train_seq", "attn"), (" f32", "train_seq_f32", "attn_f32"))
+          for kind in ("self", "cross")],
+        *[row(f"attention_backward{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cuh",
+              f"layer_pallas.py:{line}", lo[tr_key]["counts"][f"attn_bwd_{kind}"],
+              lo[a_key][f"bwd_{kind}"])
+          for f, tr_key, a_key in (("", "train_seq", "attn"), (" f32", "train_seq_f32", "attn_f32"))
+          for kind, line in (("self", 696), ("cross", 712))],
+        *[row(f"sdpa_{d}{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cuh",
+              f"sdpa_pallas.py:{line}", lo[a_key]["sdpa_launches"][f"sdpa_{d}_{kind}"],
+              lo[a_key][f"sdpa_{d}_{kind}"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))
+          for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
+        *[row(f"mha_forward{f}, {LONG_SEQ} tokens", "attention_long.cuh",
+              "attention_pallas.py:65", lo[a_key]["mha_launches"], lo[a_key]["mha_self"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "
           f"serving forward ms {serve_off['forward_ms']}")

@@ -9,6 +9,9 @@
 //   sdpa_pallas.py:103 `_sdpa_fwd_kernel` (#11), l.142 `_sdpa_bwd_kernel` (#12)
 //   attention_pallas.py:65 `_mha_kernel` (#13)
 //
+// This file's kernels take up to 32 queries and keys; the entry points below
+// hand longer sentences (up to 512) to attention_long.cuh.
+//
 // The TPU kernels packed a tile of sentences into (rows, H) and computed
 // dense block-diagonal (rows x rows) scores per head, because the 128x128 MXU
 // wants large products; off-block scores were -1e9 and exp() sent them to
@@ -57,6 +60,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "attention_long.cuh"
 #include "dropout_hash.cuh"
 #include "layer_common.cuh"
 
@@ -66,25 +70,12 @@ namespace {
 
 using namespace kvq;
 
+// this file's kernels: up to 32 queries and keys (attention_long.cuh beyond)
 constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128;
 constexpr int ATT_WARPS = 4;                 // the most warps of a CTA
 constexpr int ATT_SMEM_MAX = 227 * 1024;     // the most dynamic shared memory of a CTA
-constexpr float NEG_INF = -1e9f;             // finite, as sdpa_pallas.py NEG_INF
 
-struct AttArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const int* key_mask;  // (batch, s_k) int32 or null (all keys valid)
-  const bf16* g;        // backward: the context gradient, rows of nh * hd
-  bf16* out;            // forward: ctx; backward: dq
-  bf16* dk;
-  bf16* dv;
-  int q_ld, kv_ld, out_ld, dkv_ld;
-  int batch, nh, hd, s_q, s_k, causal, op_base;
-  float scale;
-  DropoutParams drop;
-};
+using AttArgs = AttnArgs<bf16>;  // attention_long.cuh
 
 // One warp's shared memory, in bf16 elements: q, k, v (and g), then in the
 // backward the copies of P kappa and dS ((sqp, skp) at row stride tld) and
@@ -99,7 +90,7 @@ struct AttPlan {
 
 __host__ __device__ inline AttPlan att_plan(int s_q, int s_k, int hd, bool bwd) {
   AttPlan p;
-  p.sqp = s_q > 16 ? 32 : 16;  // MT / KT m16 blocks (attention_fits: s <= 32)
+  p.sqp = s_q > 16 ? 32 : 16;  // MT / KT m16 blocks (attention_short: s <= 32)
   p.skp = s_k > 16 ? 32 : 16;
   p.hdp = (hd + 15) & ~15;
   p.ld = p.hdp + 8;
@@ -579,9 +570,9 @@ __global__ void __launch_bounds__(32 * ATT_WARPS) attention_bwd_kernel(AttArgs a
   att_walk<true, false, VEC, MT, KT>(a, att_smem);
 }
 
-inline bool attention_fits(int s_q, int s_k, int head_dim) {
-  return s_q <= ATT_MAX_S && s_k <= ATT_MAX_S && head_dim <= ATT_MAX_HD;
-}
+// whether this file's kernels take the call (attention_long.cuh's
+// attention_fits says what the entry points take)
+inline bool attention_short(int s_q, int s_k) { return s_q <= ATT_MAX_S && s_k <= ATT_MAX_S; }
 
 // 16-byte loads and stores: every base pointer, row stride and head offset a
 // multiple of 16 bytes (8 bf16, 4 f32; Args: AttArgs or AttF32Args)
@@ -653,6 +644,7 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
                   static_cast<const bf16*>(v), mask, nullptr, static_cast<bf16*>(ctx), nullptr,
                   nullptr, q_ld, kv_ld, ctx_ld, 0, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
+  if (!attention_short(s_q, s_k)) return attention_long_fwd<bf16, WHERE_MASK>(a, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);  // the m16 blocks of queries and of keys
   const int bytes = att_plan(s_q, s_k, hd, false).bytes;
   if (att_vec(a, false)) {
@@ -684,6 +676,7 @@ int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_ld,
                   kv_ld, dq_ld, dkv_ld, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
+  if (!attention_short(s_q, s_k)) return attention_long_bwd<bf16>(a, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);
   const int bytes = att_plan(s_q, s_k, hd, true).bytes;
   if (att_vec(a, true)) {

@@ -13,6 +13,9 @@
 //     (l.113-118), with no dropout (a fully masked row is uniform over its
 //     s_k keys)
 //
+// Up to 32 queries and keys; attf_launch hands longer sentences (up to 512)
+// to attention_long.cuh.
+//
 // What bounds it on the H100: the bytes. A 12 x 12 x 64 head moves ~9 KB in
 // the forward (~21 KB in and out in the backward) for ~37 (~110) KFLOP; at
 // batch 2048 x 12 heads that is a 0.090 (0.158) ms byte bound against
@@ -86,20 +89,7 @@ using namespace kvq;
 
 constexpr int ATTF_MAX_S = 32, ATTF_MAX_HD = 128;
 
-struct AttF32Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const int* key_mask;  // (batch, s_k) int32 or null (all keys valid)
-  const float* g;       // backward: the context gradient, rows of nh * hd
-  float* out;           // forward: ctx; backward: dq
-  float* dk;
-  float* dv;
-  int q_ld, kv_ld, out_ld, dkv_ld;
-  int batch, nh, hd, s_q, s_k, causal, op_base;
-  float scale;
-  DropoutParams drop;
-};
+using AttF32Args = AttnArgs<float>;  // attention_long.cuh
 
 // One warp's shared memory, in floats: the q, k, v (and g) tiles, then in
 // the backward the P kappa and dS tiles ((sqp, skp) at row stride tld), then
@@ -528,6 +518,12 @@ int attf_launch_for(const AttF32Args& a, cudaStream_t st) {
 
 template <bool BWD, bool WHERE_MASK = false>
 int attf_launch(const AttF32Args& a, cudaStream_t st) {
+  if (!attention_short(a.s_q, a.s_k)) {  // beyond 32 queries or keys
+    if constexpr (BWD)
+      return attention_long_bwd<float>(a, st);
+    else
+      return attention_long_fwd<float, WHERE_MASK>(a, st);
+  }
   if (!attention_f32_fits(a.s_q, a.s_k, a.hd)) return static_cast<int>(cudaErrorInvalidValue);
   return att_vec(a, BWD) ? attf_launch_for<BWD, WHERE_MASK, true>(a, st)
                          : attf_launch_for<BWD, WHERE_MASK, false>(a, st);

@@ -17,7 +17,9 @@
 //                       rounded once to bf16)
 //   kvq_attention_bwd   per-(sentence, head) attention backward with the
 //                       same keep mask on dv and dp as the forward, one
-//                       warp a head on mma.sync tiles (attention.cuh)
+//                       warp a head on mma.sync tiles (attention.cuh); past
+//                       32 tokens, up to 512, a block a head over 64-row
+//                       tiles (attention_long.cuh)
 //   kvq_colsum          (layernorm.cu) f32 bias-gradient column sums
 //
 // In f32 (JAX's parity dtype) the same sequence runs the f32 instances:

@@ -15,7 +15,8 @@
 // written at their own strides too. The TPU kernels' sentence tile
 // (`block_b`) fed the MXU and has no counterpart: one warp computes one
 // (sentence, head) on mma.sync tiles, over a persistent grid, with 16-byte
-// staged loads and stores where the strides allow (attention.cuh). What
+// staged loads and stores where the strides allow (attention.cuh); past 32
+// tokens, up to 512, 64-row tiles of queries and keys (attention_long.cuh). What
 // bounds them on the H100 is the bytes; the dropout hash is
 // dropout_hash.cuh's, keyed on the absolute query row, the key position
 // within the sentence, the head and the seed, as `_dropout_keep_scale`

@@ -49,12 +49,41 @@
 // for bert-base's 9, the masks, the reductions, the address arithmetic),
 // issued by only 7 warps an SM, and the gather of the chosen code rows from
 // L1 / L2 after the argmin.
+//
+// The general path: a codebook whose per-code slabs do not fit in shared
+// memory beside it (above ~37 codes at D = 768), or D above 1,024. There the
+// distances are a product of z's rows and the codebook, which at 512 codes
+// x 768 x 24,576 rows is 19.3 GFLOP of f32 FMA (0.29 ms at 67 TFLOP/s)
+// against 0.045 ms of bytes: the operations bound it. What it does:
+// - vq_center_kernel and vq_esq_kernel prepare c, ec and ||ec||^2 as
+//   vq_prep_kernel does (c summed in code order; ||ec||^2 lane-strided,
+//   then the butterfly), over any D and any codebook;
+// - vq_dist_kernel: a block takes 64 rows and streams the centred codebook
+//   through shared memory, 64 codes x 32 columns at a time, beside the
+//   same 32 columns of its rows' z - c; each of 256 threads sums 4 rows x 4
+//   codes over D in order with FMAs (f32 on the CUDA cores: a TF32 or
+//   tensor-core distance would move the argmin off JAX's), forms the
+//   centred distance ||zc||^2 + ||ec||^2 - 2 zc.ec and keeps its first
+//   minimum with a strict < in code order; the 16 threads of a row then
+//   take the smaller distance, on equal distances the lower code: the first
+//   minimum over the codebook. The block then writes z_q = z + (e[k] - z)
+//   and each row's sum of (z_q - z)^2, a warp a row;
+// - kvq::vq_sums (vq_bwd.cu) forms the per-code sums of z, the counts and
+//   the sum of the rows' (z_q - z)^2 in a fixed order, by code chunks, and
+//   colparts_reduce sums its partials: two launches give the same bits.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "layernorm.cuh"
+
+namespace kvq {
+// vq_bwd.cu: the fixed-order per-code statistics of the general path
+int vq_sums_row_blocks(int m, int d, int n_e);
+cudaError_t vq_sums(const float* z, const int64_t* idx, const float* rowdiff, float* parts,
+                    float* out, int m, int d, int n_e, cudaStream_t st);
+}  // namespace kvq
 
 namespace {
 
@@ -95,11 +124,19 @@ struct Plan {
   int warps, rows_per_block, blocks, part_width, prep_floats;
 };
 
-// 0 when the shape is refused (D > 1024, or no slab fits beside the codebook)
+// 0 when the shape is refused (no rows, columns or codes). warps 0: the
+// general path, whose blocks are kvq::vq_sums's partials and whose prep
+// buffer ends with the rows' (z_q - z)^2 (round4(m) floats).
 int make_plan(int m, int d, int n_e, Plan* p) {
-  if (m <= 0 || d <= 0 || d > VQ_MAX_DIM || n_e <= 0) return 0;
-  p->warps = warps_for(d, n_e);
-  if (p->warps == 0) return 0;
+  if (m <= 0 || d <= 0 || n_e <= 0) return 0;
+  p->warps = d <= VQ_MAX_DIM ? warps_for(d, n_e) : 0;
+  if (p->warps == 0) {
+    p->rows_per_block = 0;
+    p->blocks = kvq::vq_sums_row_blocks(m, d, n_e);
+    p->part_width = round4(n_e * d + n_e + 1);
+    p->prep_floats = round4(n_e * d) + round4(d) + round4(n_e) + round4(m);
+    return 1;
+  }
   const int per_block = 2 * p->warps;  // a pair of rows a warp at a time
   const int pairs = (m + per_block * VQ_TARGET_BLOCKS - 1) / (per_block * VQ_TARGET_BLOCKS);
   p->rows_per_block = per_block * pairs;
@@ -479,15 +516,158 @@ cudaError_t launch_assign(const Plan& p, size_t smem, cudaStream_t st, const flo
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ the general path
+
+constexpr int VQD_ROWS = 64, VQD_CODES = 64, VQD_COLS = 32;  // a block's tile
+constexpr int VQD_THREADS = 256;  // 16 x 16: rows ty + 16 i, codes tx + 16 j
+
+// c (the codebook's mean, summed in code order) and ec = e - c into prep;
+// a thread a column.
+__global__ void __launch_bounds__(256)
+vq_center_kernel(const float* __restrict__ e, float* __restrict__ prep, int d, int n_e) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_e; ++k) s += e[(size_t)k * d + c];
+  const float cs = s / n_e;
+  prep[round4(n_e * d) + c] = cs;
+  for (int k = 0; k < n_e; ++k) prep[(size_t)k * d + c] = e[(size_t)k * d + c] - cs;
+}
+
+// ||ec||^2 of each code, a warp a code (as vq_prep_kernel sums it)
+__global__ void __launch_bounds__(256) vq_esq_kernel(float* __restrict__ prep, int d, int n_e) {
+  const int k = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (k >= n_e) return;
+  float s = 0.0f;
+  for (int c = lane; c < d; c += 32) {
+    const float t = prep[(size_t)k * d + c];
+    s = fmaf(t, t, s);
+  }
+  s = warp_sum(s);
+  if (lane == 0) prep[round4(n_e * d) + round4(d) + k] = s;
+}
+
+// Block: rows [64 b, +64). idx, z_q (the straight-through value) and each
+// row's sum of (z_q - z)^2 into rowdiff.
+__global__ void __launch_bounds__(VQD_THREADS)
+vq_dist_kernel(const float* __restrict__ z, const float* __restrict__ codebook,
+               const float* __restrict__ prep, float* __restrict__ zq, int64_t* __restrict__ idx,
+               float* __restrict__ rowdiff, int m, int d, int n_e) {
+  __shared__ float zs[VQD_ROWS][VQD_COLS + 1];   // z - c
+  __shared__ float es[VQD_CODES][VQD_COLS + 1];  // ec
+  __shared__ float sa_s[VQD_ROWS];               // ||z - c||^2
+  __shared__ int k_s[VQD_ROWS];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * VQD_ROWS;
+  const float* ec = prep;
+  const float* cen = prep + round4(n_e * d);
+  const float* esq = cen + round4(d);
+
+  float bd[4], sa = 0.0f;  // sa: row tid's ||z - c||^2 (tid < 64)
+  int bk[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) bd[i] = __int_as_float(0x7f800000), bk[i] = 0;
+  for (int k0 = 0; k0 < n_e; k0 += VQD_CODES) {
+    float acc[4][4] = {};
+    for (int c0 = 0; c0 < d; c0 += VQD_COLS) {
+      __syncthreads();
+      for (int e = tid; e < VQD_ROWS * VQD_COLS; e += VQD_THREADS) {
+        const int r = e / VQD_COLS, c = e % VQD_COLS, col = c0 + c;
+        const int row = row0 + r, code = k0 + r;
+        zs[r][c] = row < m && col < d ? z[(size_t)row * d + col] - cen[col] : 0.0f;
+        es[r][c] = code < n_e && col < d ? ec[(size_t)code * d + col] : 0.0f;
+      }
+      __syncthreads();
+      if (k0 == 0 && tid < VQD_ROWS)
+        for (int c = 0; c < VQD_COLS; ++c) sa = fmaf(zs[tid][c], zs[tid][c], sa);
+#pragma unroll 8
+      for (int c = 0; c < VQD_COLS; ++c) {
+        float x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = zs[ty + 16 * i][c], y[i] = es[tx + 16 * i][c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+      }
+    }
+    if (k0 == 0) {
+      if (tid < VQD_ROWS) sa_s[tid] = sa;
+      __syncthreads();
+    }
+    // this thread's codes in increasing order: strict <, the first minimum
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float s = sa_s[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + tx + 16 * j;
+        if (k < n_e) {
+          const float dist = s + esq[k] - 2.0f * acc[i][j];
+          if (dist < bd[i]) bd[i] = dist, bk[i] = k;
+        }
+      }
+    }
+  }
+  // over the 16 threads of a row: the smaller distance, on equal ones the lower code
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd[i], o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk[i], o);
+      if (od < bd[i] || (od == bd[i] && ok < bk[i])) bd[i] = od, bk[i] = ok;
+    }
+    if (tx == 0) {
+      const int r = ty + 16 * i;
+      k_s[r] = bk[i];
+      if (row0 + r < m) idx[row0 + r] = bk[i];
+    }
+  }
+  __syncthreads();
+
+  // z_q = z + (e[k] - z) and the row's sum of (z_q - z)^2, a warp a row
+  for (int r = warp; r < VQD_ROWS; r += VQD_THREADS / 32) {
+    const int row = row0 + r;
+    if (row >= m) break;
+    const float* q = codebook + (size_t)k_s[r] * d;
+    float df = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      const float zz = z[(size_t)row * d + c], ea = q[c] - zz;
+      zq[(size_t)row * d + c] = zz + ea;
+      df = fmaf(ea, ea, df);
+    }
+    df = warp_sum(df);
+    if (lane == 0) rowdiff[row] = df;
+  }
+}
+
+cudaError_t vq_general(const Plan& p, cudaStream_t st, const float* z, const float* codebook,
+                       float* zq, int64_t* idx, float* ws, float* stats, int m, int d, int n_e) {
+  float* prep = ws;
+  float* rowdiff = ws + round4(n_e * d) + round4(d) + round4(n_e);
+  float* parts = ws + p.prep_floats;
+  vq_center_kernel<<<(d + 255) / 256, 256, 0, st>>>(codebook, prep, d, n_e);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  vq_esq_kernel<<<(n_e + 7) / 8, 256, 0, st>>>(prep, d, n_e);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  vq_dist_kernel<<<(m + VQD_ROWS - 1) / VQD_ROWS, VQD_THREADS, 0, st>>>(z, codebook, prep, zq,
+                                                                       idx, rowdiff, m, d, n_e);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return kvq::vq_sums(z, idx, rowdiff, parts, stats, m, d, n_e, st);
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// plan (5 ints): warps a block, rows a block, blocks, the width of a partial
-// and of the stats (floats), the prep buffer's floats. Returns 0, or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// plan (5 ints): warps a block (0: the general path), rows a block, blocks
+// (partials), the width of a partial and of the stats (floats), the prep
+// buffer's floats. Returns 0, or cudaErrorInvalidValue for an empty shape.
 int kvq_vq_plan(int m, int d, int n_e, int* plan) {
   Plan p;
   if (!make_plan(m, d, n_e, &p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -505,6 +685,8 @@ int kvq_vq_fwd(const float* z, const float* codebook, float* zq, int64_t* idx, f
   Plan p;
   if (!make_plan(m, d, n_e, &p) || !aligned16(ws)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.warps == 0)
+    return static_cast<int>(vq_general(p, st, z, codebook, zq, idx, ws, stats, m, d, n_e));
   float* prep = ws;
   float* parts = ws + p.prep_floats;
   vq_prep_kernel<<<1, PREP_THREADS, 0, st>>>(codebook, prep, d, n_e);

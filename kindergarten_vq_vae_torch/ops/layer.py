@@ -42,7 +42,9 @@ The compute dtype is bf16 or f32 (JAX's parity dtype, in which the TPU
 kernels run too). On CUDA each kernel has an f32 instance: the layer GEMM's
 3xTF32 ``csrc/gemm_f32.cu``, the 3xTF32 ``mma.sync`` attention of
 ``csrc/attention_f32.cuh`` and the f32 rows of ``csrc/layernorm.cu``; every
-wrapper's ``f32_launches`` counts the f32 share of its ``launches``.
+wrapper's ``f32_launches`` counts the f32 share of its ``launches``. Past 32
+queries or keys (up to ``MAX_SEQ``), the attention in either dtype takes the
+64-row tiles of ``csrc/attention_long.cuh``.
 """
 
 from __future__ import annotations
@@ -77,10 +79,11 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "wq", "bq", "wkv", "bkv", "wco", "bco", "g2", "be2",
                "w1", "b1", "w2", "b2", "g3", "be3")
 
-# limits of the attention kernels of csrc/attention.cuh (ATT_MAX_S, ATT_MAX_HD:
-# a warp's q / k tiles of at most two m16 blocks, head_dim in at most eight
-# k16 steps; `attention_fits`)
-MAX_SEQ = 32
+# limits of the attention kernels (`attention_fits`): csrc/attention.cuh's
+# one warp a (sentence, head) up to 32 queries and keys (ATT_MAX_S), and
+# csrc/attention_long.cuh's 64-row tiles beyond, up to 512 (ATL_MAX_S, BERT's
+# max_position_embeddings); head_dim up to 128 (ATT_MAX_HD)
+MAX_SEQ = 512
 MAX_HEAD_DIM = 128
 # the widest row of the LayerNorm kernels of csrc/layernorm.cu (LN_MAX_WIDTH:
 # a row in a warp's registers, at most four 16-byte chunks a lane)

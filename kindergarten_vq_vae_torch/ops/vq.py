@@ -122,8 +122,9 @@ def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tenso
 
     CPU tensors take :func:`codebook_grad_reference`. CUDA tensors launch
     ``csrc/vq_bwd.cu``, which sums each code's terms in a fixed order (the
-    same bits in every launch), or raise; each launch adds one to
-    ``codebook_grad.launches``."""
+    same bits in every launch) over any D and codebook (one beyond what
+    shared memory holds at once in code chunks), or raise; each launch adds
+    one to ``codebook_grad.launches``."""
     if z_flat.device.type == "cpu":
         return codebook_grad_reference(z_flat, idx, codebook, g_d2)
     if z_flat.device.type != "cuda":
@@ -139,13 +140,10 @@ def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tenso
         _build.check_tensor(name, t, shape, dtype, dev)
     if m == 0:
         return torch.zeros_like(codebook)
-    fn = _build.lib().kvq_vq_codebook_grad_plan
-    fn.argtypes = [_I, _I, _I, _VP, _VP, ctypes.POINTER(_I)]
-    fn.restype = _I
-    plan = (_I * 2)()
-    if fn(m, d, n_e, z_flat.data_ptr(), codebook.data_ptr(), plan) != 0:
-        raise ValueError(f"the codebook-gradient kernel takes D <= 1024 and a codebook whose "
-                         f"per-code sums fit in shared memory; got D={d}, n_e={n_e}")
+    plan = codebook_grad_plan(z_flat, codebook)
+    if plan is None:
+        raise ValueError(f"the codebook-gradient kernel takes at least one column and code; "
+                         f"got D={d}, n_e={n_e}")
     row_blocks, width = plan
     ws = torch.empty((row_blocks * width,), dtype=torch.float32, device=dev)
     out = torch.empty((width,), dtype=torch.float32, device=dev)
@@ -157,6 +155,22 @@ def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tenso
 
 
 codebook_grad.launches = 0
+
+
+def codebook_grad_plan(z_flat: torch.Tensor, codebook: torch.Tensor) -> tuple[int, int] | None:
+    """The codebook-gradient kernel's plan for CUDA tensors ``z_flat`` (m, D)
+    and ``codebook`` (n_e, D), from ``kvq_vq_codebook_grad_plan``: (row
+    blocks, the floats of a partial and of the output), or None for a shape
+    it refuses. Its partials hold at most 2^22 floats of n_e x D sums, or one
+    partial where that is larger (``csrc/vq_bwd.cu``)."""
+    fn = _build.lib().kvq_vq_codebook_grad_plan
+    fn.argtypes = [_I, _I, _I, _VP, _VP, ctypes.POINTER(_I)]
+    fn.restype = _I
+    plan = (_I * 2)()
+    (m, d), n_e = z_flat.shape, codebook.shape[0]
+    if fn(m, d, n_e, z_flat.data_ptr(), codebook.data_ptr(), plan) != 0:
+        return None
+    return plan[0], plan[1]
 
 
 def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn) -> VQOutput:

@@ -22,8 +22,6 @@ import torch
 from kindergarten_vq_vae_torch import _build
 from kindergarten_vq_vae_torch.ops.vq import VQOutput, assemble, vq_raw
 
-MAX_DIM = 1024          # csrc/vq_fwd.cu holds a row in 32 registers a lane
-
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _plans: dict[tuple[int, int, int], tuple[int, ...] | None] = {}
 
@@ -31,8 +29,11 @@ _plans: dict[tuple[int, int, int], tuple[int, ...] | None] = {}
 def vq_plan(rows: int, d: int, n_e: int) -> tuple[int, ...] | None:
     """The kernel's launch plan for a shape, from ``kvq_vq_plan`` (cached):
     ``(warps a block, rows a block, blocks, partial width, prep floats)``, or
-    None for a shape it does not take (``D > 1024``, or a codebook whose
-    per-code sums do not fit in shared memory beside it)."""
+    None for an empty shape. ``warps`` is 0 on the general path, which takes
+    a codebook whose per-code sums do not fit in shared memory beside it
+    (above ~37 codes at D = 768) or ``D > 1024``: the codebook streamed
+    through shared memory in chunks, the per-code sums in a fixed order by
+    code chunks (``csrc/vq_fwd.cu``)."""
     key = (rows, d, n_e)
     if key not in _plans:
         fn = _build.lib().kvq_vq_plan
@@ -93,9 +94,8 @@ def _launch_packed(z: torch.Tensor, codebook: torch.Tensor):
     n_e = codebook.shape[0]
     plan = vq_plan(m, d, n_e) if m > 0 and n_e > 0 else None
     if plan is None:
-        raise ValueError(f"the VQ kernel takes 1 <= rows, D <= {MAX_DIM} and a codebook whose "
-                         f"per-code sums fit in shared memory beside it; got rows={m}, D={d}, "
-                         f"n_e={n_e}")
+        raise ValueError(f"the VQ kernel takes at least one row, column and code; got rows={m}, "
+                         f"D={d}, n_e={n_e}")
     _, _, blocks, width, prep = plan
 
     dev = z.device

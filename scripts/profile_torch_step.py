@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_step.py [--batch 2048] [--steps 3] [--fused-head-ce off]
                                           [--fused-layer auto] [--model shelgon3]
                                           [--decoder bert] [--dtype bfloat16]
+                                          [--seq 12] [--vq-n-e N]
 
 Builds a seeded full-width bert-base Shelgon3-VQ, or with ``--model`` Shelgon3
 with the Gumbel quantizer, Shelgon, Shelgon2 (``mask_pct_train`` 0.1; the
@@ -14,8 +15,11 @@ float32`` f32 through the kernels' f32 instances; dropout 0.1 / 0.1, AMSGrad
 lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
 fused head + CE, kernels #9 and #10, in place of the logits path;
 ``--fused-layer off``: the per-module trunk, cuBLAS projections around the
-SDPA kernels #11 / #12, in place of the fused layers), warms up,
-then reports for one batch of ``--batch`` x 12 tokens:
+SDPA kernels #11 / #12, in place of the fused layers; ``--seq``: the
+sentence length, past 32 the long attention of ``csrc/attention_long.cuh``;
+``--vq-n-e``: the codebook size, past ~37 codes at D 768 the VQ's general
+path), warms up, then reports for one batch of ``--batch`` x ``--seq``
+tokens:
 
 - the wall time of a step (host clock around a synchronized step);
 - device time of forward, backward and optimizer update (CUDA events at the
@@ -76,6 +80,9 @@ FAMILIES = (
     # csrc/attention_f32.cuh: attention_f32_kernel<BWD, WHERE_MASK, VEC, MT, KT>
     ("attention_f32_kernel<true", "attention backward f32 (#3 / #4 in #2, or #12)"),
     ("attention_f32_kernel<false", "attention forward f32 (in #1, or #11 / #13)"),
+    # csrc/attention_long.cuh: past 32 tokens, bf16 and f32
+    ("attention_long_bwd_kernel", "attention backward past 32 tokens (#3 / #4 in #2, or #12)"),
+    ("attention_long_kernel", "attention forward past 32 tokens (in #1, or #11 / #13)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),
     ("attention_kernel", "attention forward (in #1, or #11 / #13)"),
@@ -86,6 +93,10 @@ FAMILIES = (
     ("colsum_kernel", "column sums (bias gradients)"),
     ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
+    # csrc/vq_bwd.cu: vq_codebook_grad_kernel<VEC, SUMZ>; with SUMZ the VQ
+    # forward's per-code sums on its general path
+    ("vq_codebook_grad_kernel<true, false>", "VQ codebook gradient (5+)"),
+    ("vq_codebook_grad_kernel<false, false>", "VQ codebook gradient (5+)"),
     ("vq_", "VQ forward"),
     ("nvjet", CUBLAS),
     ("gemm", CUBLAS),
@@ -123,6 +134,9 @@ HEAD_BWD_FIRST = {"gemm_kernel<128, false, false, 10>": _BF16_NEXT,
 REDUCE = "colparts_reduce"
 REDUCE_AFTER = (
     ("vq_assign_kernel", "VQ forward"),
+    ("vq_codebook_grad_kernel<true, true>", "VQ forward"),
+    ("vq_codebook_grad_kernel<false, true>", "VQ forward"),
+    ("vq_codebook_grad_kernel", "VQ codebook gradient (5+)"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("colsum_kernel", "column sums (bias gradients)"),
     ("gemm_kernel<128, false, false, 6>", "column sums (b1: the GELU-gradient GEMM's partials)"),
@@ -192,7 +206,7 @@ def profile_gpt2_decoder(model, cfg, batch: dict, calls: int) -> dict:
     return _profiled(fn, calls)
 
 
-def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
+def profile_bottleneck(model, cfg, batch: int, seq: int, calls: int) -> dict:
     """Device ms and launches of one forward + backward of the model's
     bottleneck alone, on random encoder states of the step's shape."""
     import torch
@@ -200,7 +214,7 @@ def profile_bottleneck(model, cfg, batch: int, calls: int) -> dict:
     if cfg.model_name == "bagon":
         return None
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = (batch,) if cfg.model_name == "shelgon2" else (batch, 12)
+    rows = (batch,) if cfg.model_name == "shelgon2" else (batch, seq)
     h = torch.randn(*rows, cfg.hidden_size, generator=gen, device="cuda").to(cfg.dtype)
     h.requires_grad_()
     if cfg.model_name == "shelgon":
@@ -231,6 +245,8 @@ def main() -> None:
     ap.add_argument("--model", choices=tuple(MODELS), default="shelgon3")
     ap.add_argument("--decoder", choices=tuple(DECODERS), default="bert")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--seq", type=int, default=12)
+    ap.add_argument("--vq-n-e", type=int, default=None)
     args = ap.parse_args()
 
     import numpy as np
@@ -245,12 +261,14 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RunConfig(compute_dtype=args.dtype, fused_head_ce=args.fused_head_ce,
-                    fused_layer=args.fused_layer, **MODELS[args.model], **DECODERS[args.decoder])
+                    fused_layer=args.fused_layer, tokenized_sentence_max_length=args.seq,
+                    **({} if args.vq_n_e is None else {"vq_n_e": args.vq_n_e}),
+                    **MODELS[args.model], **DECODERS[args.decoder])
     model = init_weights(build_model(cfg, device="cuda", fused_head=args.fused_head_ce != "off"),
                          torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(cfg, model)
     rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (args.batch, 12))).cuda()
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (args.batch, args.seq))).cuda()
     batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids, dtype=torch.int32),
              "n_valid": args.batch}
     for k, n in (("labels", 5), ("labels8", 8)):
@@ -258,7 +276,7 @@ def main() -> None:
         batch[k.replace("labels", "one_hot")] = torch.nn.functional.one_hot(batch[k], 3)
     if args.decoder == "gpt2":  # the BPE side of the dual tokenization (Bagon, Shelgon)
         batch["dec_input_ids"] = torch.from_numpy(
-            rng.integers(1, cfg.decoder_vocab_size, (args.batch, 12))).cuda()
+            rng.integers(1, cfg.decoder_vocab_size, (args.batch, args.seq))).cuda()
         batch["dec_attention_mask"] = batch["attention_mask"]
 
     events = []  # (phase, CUDA event) of the step being timed; None: not timing
@@ -321,6 +339,7 @@ def main() -> None:
     kernels_ms = sum(by_family.values())
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": args.batch,
+        "seq": args.seq, "vq_n_e": cfg.vq_n_e,
         "model": args.model, "decoder": args.decoder, "dtype": args.dtype,
         "fused_head_ce": args.fused_head_ce, "fused_layer": args.fused_layer,
         "wall_ms_median": statistics.median(walls),
@@ -331,7 +350,7 @@ def main() -> None:
         "launches_per_step": {k: v / args.steps for k, v in launches.items()},
         "largest_other_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:10]),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "bottleneck": profile_bottleneck(model, cfg, args.batch, args.steps),
+        "bottleneck": profile_bottleneck(model, cfg, args.batch, args.seq, args.steps),
     }
     if args.decoder == "gpt2":
         out["gpt2_decoder"] = profile_gpt2_decoder(model, cfg, batch, args.steps)

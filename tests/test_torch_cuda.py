@@ -58,6 +58,15 @@ exact through split views of a packed qkv / kv at 17 and 32 rows, in both
 dtypes. The f32 attention forward and backward at the step's (2048, 12,
 768), self and cross, dropout 0.1, against their function in f64 (one f32
 accumulator a 3xTF32 product, up to 128 deep), at the same f32 bars.
+Past the one-pass kernels: the VQ's general path at 38, 64, 512 and 1,024
+codes x D 768 and 1,280 at the rows above (the same bars), two equal codes
+across its 64-code tiles; the codebook gradient in code chunks (512 and
+1,024 codes); the attention past 32 tokens (csrc/attention_long.cuh) at
+(s_q, s_k) in {33, 64, 65, 512} and across, head_dim 64, 128 and 33, bf16
+and f32, every entry, at the same bars, and its keep masks at 33 and 64
+rows; the shapes the kernels refused before now agree with the plain
+versions, and 513 tokens, head_dim 129, a dtype, a layout or an empty
+shape are still refused with their reason.
 The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
 f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
@@ -203,6 +212,7 @@ from kindergarten_vq_vae_torch.ops.sdpa import (
 )
 from kindergarten_vq_vae_torch.ops.vq import (
     codebook_grad,
+    codebook_grad_plan,
     codebook_grad_reference,
     vector_quantize,
 )
@@ -254,6 +264,8 @@ BF, F32 = torch.bfloat16, torch.float32
     (False, 5, 12, 12, 128, 2, 256, False, True, F32),
     (True, 11, 7, 16, 192, 3, 384, True, True, F32),
     (True, 4, 12, 12, 128, 2, 256, False, False, F32),
+    (True, 3, 40, 45, 128, 2, 256, True, True, BF),     # past 32 tokens: the long attention
+    (False, 3, 64, 64, 128, 2, 256, False, True, F32),
 ])
 def test_layer_kernel_matches_plain(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact,
                                     dtype):
@@ -288,6 +300,9 @@ def test_layer_kernel_rejects_what_it_does_not_take(gen):
         shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
         with pytest.raises(ValueError, match="16-byte"):
             fused_bert_layer(geom, shifted, None, smask, None, ws)
+        beyond = torch.zeros(2, 513, 128, dtype=x.dtype, device=x.device)
+        with pytest.raises(ValueError, match="sequence lengths"):
+            fused_bert_layer(geom, beyond, None, None, None, ws)
 
 
 @pytest.mark.parametrize("b,s,d,n_e", [(3, 5, 128, 9), (7, 12, 768, 9), (1, 33, 1024, 16)])
@@ -314,9 +329,10 @@ def _rel_max(got, want) -> float:
 
 
 def _vq_max_codes(d: int) -> int:
-    """The largest codebook the VQ kernel takes at width d."""
+    """The largest codebook the one-pass VQ kernel takes at width d (its
+    plan's warps; 0 is the general path)."""
     n_e = 1
-    while vq_plan(1, d, n_e + 1) is not None:
+    while vq_plan(1, d, n_e + 1)[0] > 0:
         n_e += 1
     return n_e
 
@@ -341,13 +357,16 @@ def _vq_near_ties(z, e, idx):
 
 
 @pytest.mark.parametrize("n_e,d", [(9, 768), (16, 1024), (9, 64), (9, 66), (None, 768), (3, 256),
-                                   (8, 128)])
+                                   (8, 128), *[(n, d) for d in (768, 1280)
+                                               for n in (38, 64, 512, 1024)]])
 @pytest.mark.parametrize("rows", _VQ_ROWS)
 def test_vq_kernel_at_block_edges(gen, rows, n_e, d):
     """Row counts around the kernel's blocks and a pair a warp, the widest
-    row, a width off the 16-byte path (66), the largest codebook it takes
-    at D = 768 (None), and small codebooks (3 and 8 codes, which the dot
-    products take as 12 with the rest masked). The straight-through z_q is exactly z + (e[k] - z) of
+    row, a width off the 16-byte path (66), the largest codebook the
+    one-pass kernel takes at D = 768 (None), and small codebooks (3 and 8
+    codes, which the dot products take as 12 with the rest masked); the
+    general path at 38, 64, 512 and 1,024 codes, at D 768 and 1,280 (past the
+    one-pass kernel's 1,024). The straight-through z_q is exactly z + (e[k] - z) of
     the kernel's own codes, the counts exactly their histogram, sum_z and
     the loss within 1e-5 of the plain sums over the same codes, and sum_z
     and the loss the same bits in two launches. The codes are the plain
@@ -399,17 +418,47 @@ def test_vq_kernel_first_minimum_on_equal_codes(gen):
     assert torch.equal(k.z_q, p.z_q) and torch.equal(k.counts, p.counts)
 
 
-def test_vq_kernel_rejects_what_it_does_not_take(gen):
-    n_e = _vq_max_codes(768)
+def test_vq_kernel_general_path_first_minimum_on_equal_codes(gen):
+    """The general path (100 codes at D 768: two 64-code chunks of its
+    distance tiles): code 5 is a copy of code 2 and codes 70 and 99 of code
+    66, across the chunks; rows near them take 2 and 66, as the plain
+    version's first minimum does."""
+    n_e, d = 100, 768
+    assert vq_plan(4096, d, n_e)[0] == 0
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / 9
+    e[5], e[70], e[99] = e[2], e[66], e[66]
+    pick = torch.tensor([2, 66], device="cuda")[torch.randint(0, 2, (4096,), device="cuda",
+                                                              generator=gen)]
+    z = (e[pick] + 1e-3 * torch.randn(4096, d, device="cuda", generator=gen)).view(64, 64, d)
     with torch.inference_mode():
-        with pytest.raises(ValueError, match="shared memory"):
-            vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda"),
-                                   torch.randn(n_e + 1, 768, device="cuda"), 0.25)
-        with pytest.raises(ValueError, match="D <= 1024"):
-            vector_quantize_kernel(torch.randn(1, 4, 1025, device="cuda"),
-                                   torch.randn(9, 1025, device="cuda"), 0.25)
+        k = vector_quantize_kernel(z, e, 0.25)
+        torch.cuda.synchronize()
+        p = vector_quantize(z, e, 0.25)
+    assert torch.equal(k.indices.view(-1), pick) and torch.equal(k.indices, p.indices)
+    assert torch.equal(k.z_q, p.z_q) and torch.equal(k.counts, p.counts)
+
+
+def test_vq_kernel_rejects_what_it_does_not_take(gen):
+    """The codebooks and widths the one-pass kernel refused take the general
+    path and agree with the plain version; the dtype, layout and empty
+    shapes are still refused."""
+    n_e = _vq_max_codes(768)
+    for codes, d in ((n_e + 1, 768), (9, 1025)):
+        z = torch.randn(1, 4, d, device="cuda", generator=gen)
+        e = (torch.rand(codes, d, device="cuda", generator=gen) * 2 - 1) / codes
+        with torch.inference_mode():
+            k, p = vector_quantize_kernel(z, e, 0.25), vector_quantize(z, e, 0.25)
+        assert torch.equal(k.indices, p.indices) and torch.equal(k.z_q, p.z_q)
+        assert _rel_max(k.sum_z, p.sum_z) <= 1e-5 and _rel_max(k.loss, p.loss) <= 1e-5
+    with torch.inference_mode():
         with pytest.raises(TypeError, match="float32"):
             vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda").double(),
+                                   torch.randn(9, 768, device="cuda"), 0.25)
+        with pytest.raises(ValueError, match="contiguous"):
+            vector_quantize_kernel(torch.randn(1, 4, 768, device="cuda"),
+                                   torch.randn(768, 9, device="cuda").T, 0.25)
+        with pytest.raises(ValueError, match="at least one row"):
+            vector_quantize_kernel(torch.randn(1, 0, 768, device="cuda"),
                                    torch.randn(9, 768, device="cuda"), 0.25)
 
 
@@ -417,10 +466,13 @@ def test_vq_kernel_rejects_what_it_does_not_take(gen):
     (1, 768, 9, False), (31, 768, 9, False), (33, 64, 9, False), (97, 66, 9, False),
     (3072, 768, 9, False), (24577, 768, 9, False), (24576, 768, 37, False),
     (4096, 1024, 16, False), (24576, 768, 9, True), (333, 66, 16, True),
+    (24576, 768, 512, False), (24576, 768, 1024, False), (4096, 1280, 512, True),
+    (24577, 1280, 1024, False), (333, 66, 1024, True),
 ])
 def test_codebook_grad_kernel_matches_plain(gen, rows, d, n_e, near):
     """Codes drawn with skewed shares, the last code never (a zero row);
-    ``near``: each row 1e-4 from its code."""
+    ``near``: each row 1e-4 from its code. 512 and 1,024 codes at D 768 and
+    1,280: past ~450 codes the kernel takes code chunks."""
     e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
     share = torch.arange(n_e, 0, -1, device="cuda", dtype=torch.float32) ** 2
     share[-1] = 0.0
@@ -441,6 +493,26 @@ def test_codebook_grad_kernel_matches_plain(gen, rows, d, n_e, near):
     plain = codebook_grad_reference(z, idx, e, g)
     assert ((got.double() - exact).abs().max() / scale).item() <= 1e-5
     assert ((plain.double() - exact).abs().max() / scale).item() <= 1e-5
+
+
+@pytest.mark.parametrize("rows,d,n_e", [
+    (24576, 768, 9), (24576, 768, 37), (24576, 768, 512), (24577, 1280, 1024),
+    (24576, 1024, 8192),
+])
+def test_vq_scratch_stays_bounded(gen, rows, d, n_e):
+    """The codebook gradient's partials, and those of the VQ general path's
+    per-code sums, hold at most 2^22 floats of n_e x D sums, or one partial
+    where that is larger; the step's 9 codes keep their 128 partials."""
+    z = torch.empty(rows, d, device="cuda")
+    e = torch.empty(n_e, d, device="cuda")
+    row_blocks, width = codebook_grad_plan(z, e)
+    assert width >= n_e * d
+    assert row_blocks * n_e * d <= max(1 << 22, n_e * d)
+    if n_e == 9:
+        assert row_blocks == 128
+    warps, _, blocks, part_width, _ = vq_plan(rows, d, n_e)
+    if warps == 0:
+        assert blocks == row_blocks and part_width >= n_e * d + n_e + 1
 
 
 def test_codebook_grad_kernel_through_the_vq_gradient(gen):
@@ -468,6 +540,8 @@ def test_codebook_grad_kernel_through_the_vq_gradient(gen):
     (True, 11, 7, 16, 192, 3, 384, F32),
     (False, 171, 12, 12, 128, 2, 256, F32),
     (True, 205, 10, 12, 192, 3, 384, F32),
+    (True, 5, 40, 45, 128, 2, 256, BF),       # past 32 tokens: the long attention
+    (False, 5, 64, 64, 128, 2, 256, F32),
 ])
 def test_training_layer_kernels_match_plain(gen, decoder, B, S, SK, H, NH, F, dtype):
     """Training forward (dropout 0.1 / 0.1, residuals kept) and the backward
@@ -1043,14 +1117,26 @@ def test_mha_f32_kernel_matches_plain(gen, causal, masked):
 
 
 def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
+    """33 tokens, refused before the long path, now agree with the plain
+    versions; the dtype, length, head_dim and stride refusals stay."""
     q = torch.randn(2, 12, 128, device="cuda", generator=gen).half()
     with pytest.raises(TypeError, match="bfloat16"):
         sdpa_forward(q, q, q, None, 0, 2)
     with pytest.raises(TypeError, match="dtype"):  # bf16 q with f32 k and v
         sdpa_forward(q.bfloat16(), q.float(), q.float(), None, 0, 2)
-    long = torch.zeros(2, 33, 128, device="cuda", dtype=torch.bfloat16)
+    long = torch.randn(2, 33, 128, device="cuda", generator=gen).bfloat16()
+    assert _rel_max(sdpa_forward(long, long, long, None, 0, 2),
+                    sdpa_forward_reference(long, long, long, None, 0, 2)) <= 2e-2
+    assert _rel_max(mha_forward(long, long, long, None, 2),
+                    mha_reference(long, long, long, None, 2)) <= 2e-2
+    beyond = torch.zeros(2, 513, 128, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="sequences"):
-        sdpa_forward(long, long, long, None, 0, 2)
+        sdpa_forward(beyond, beyond, beyond, None, 0, 2)
+    with pytest.raises(ValueError, match="sequences"):
+        sdpa_forward(long, beyond, beyond, None, 0, 2)
+    wide = torch.zeros(2, 12, 258, device="cuda", dtype=torch.bfloat16)  # head_dim 129
+    with pytest.raises(ValueError, match="head_dim"):
+        sdpa_forward(wide, wide, wide, None, 0, 2)
     with pytest.raises(ValueError, match="one sequence length"):
         mha_forward(q.bfloat16(), long[:, :9], long[:, :9], None, 2)
     qb, kb, vb = _views(gen, False, 2, 12, 12, 128)
@@ -1063,6 +1149,12 @@ _EDGE_SHAPES = [(s, s) for s in (1, 7, 12, 16, 17, 32)] + [
     (1, 32), (7, 17), (12, 32), (16, 1), (17, 7), (32, 12)]
 
 
+# (s_q, s_k) of the long path (csrc/attention_long.cuh): past 32 rows, around
+# its 64-row tiles, up to 512; self where equal (causal), else cross
+_LONG_SHAPES = [(33, 33), (64, 64), (65, 65), (512, 512), (33, 64), (64, 12), (12, 512),
+                (512, 33)]
+
+
 @pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", [64, 128, 40, 36, 33])
 @pytest.mark.parametrize("SQ,SK", _EDGE_SHAPES)
@@ -1073,6 +1165,23 @@ def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd, dtype):
     (rows not 16-byte aligned), 33 in f32. bf16 within 2e-2 of the largest
     magnitude; f32 forwards within F32_FWD, gradients within F32_GRAD, all
     outputs f32."""
+    _held_attention_entries(gen, SQ, SK, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [64, 128, 33])
+@pytest.mark.parametrize("SQ,SK", _LONG_SHAPES)
+def test_attention_long_path_matches_plain(gen, SQ, SK, hd, dtype):
+    """The same entries and bars past 32 rows (the 64-row tiles of
+    csrc/attention_long.cuh, 33 to 512 queries and keys): self causal with
+    a padded mask, cross over padded keys, a fully masked sentence, dropout
+    0.1; head_dim 64, 128 and 33 (odd rows)."""
+    _held_attention_entries(gen, SQ, SK, hd, dtype)
+
+
+def _held_attention_entries(gen, SQ, SK, hd, dtype):
+    """The layer's attention forward and backward, #11 / #12 and #13 at one
+    shape against their plain versions (self where SQ == SK)."""
     B, NH = 37, 3
     H, cross = NH * hd, SQ != SK
     if cross:
@@ -1113,7 +1222,7 @@ def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("S", [17, 32])
+@pytest.mark.parametrize("S", [17, 32, 33, 64])
 @pytest.mark.parametrize("cross", [False, True])
 def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S, dtype):
     """q = k = 0, v and g one-hot in the key / query position, read through

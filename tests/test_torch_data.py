@@ -11,6 +11,11 @@ a padded last batch.
 The C++ packer (``data/native.py``, built with g++ where the tests run) against the port's
 Python path and the JAX package's packer, bit for bit (word-level,
 WordPiece, truncation without special tokens, as ``tests/test_native.py``).
+The JAX package's packer runs from a private build (``jax_packer``): its
+bridge compiles onto one shared path at first use and latches "unavailable"
+for the life of a process whose load failed, which test workers racing to
+build a fresh tree hit; a case latches the bridge so and shows the fixture
+still gives the JAX packer's arrays.
 The entry points ``python -m kindergarten_vq_vae_torch.data.generate`` and
 ``... .data.prepare`` in a subprocess give the JAX package's files byte for
 byte. The memory-mapped lazy rows: lazy and eager ``select`` the same
@@ -31,7 +36,7 @@ import pytest
 from kindergarten_vq_vae_tpu.data import dataset as jds
 from kindergarten_vq_vae_tpu.data import prepare as jprep
 from kindergarten_vq_vae_tpu.data.generate import generate_dsentences as jax_generate
-from kindergarten_vq_vae_tpu.data.native import tokenize_corpus_native as jax_native
+from kindergarten_vq_vae_tpu.data import native as jnative
 from kindergarten_vq_vae_tpu.data.tokenizer import WordPieceTokenizer as JaxWordPiece
 from kindergarten_vq_vae_torch.data import dataset as tds
 from kindergarten_vq_vae_torch.data import native
@@ -123,12 +128,41 @@ def _same_files(got_dir, want_dir):
             assert a.read() == b.read(), name
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's packer library, built from ``native/corpus_tokenizer.cpp``
+    with its bridge's flags into a private directory, written beside its
+    name and renamed into place (no reader sees a partial file)."""
+    lib = str(tmp_path_factory.mktemp("jax_native") / "libcorpus_tokenizer.so")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+                    os.path.abspath(jnative._SRC), "-o", lib + ".tmp"],
+                   check=True, capture_output=True)
+    os.replace(lib + ".tmp", lib)
+    return lib
+
+
+@pytest.fixture
+def jax_packer(jax_native_lib, monkeypatch):
+    """``tokenize_corpus_native`` of the JAX package on the private build,
+    whatever this process's bridge has latched: each call points ``_LIB`` at
+    the build and resets ``_lib`` / ``_tried``; all three are restored after
+    the test."""
+    monkeypatch.setattr(jnative, "_LIB", jax_native_lib)
+
+    def pack(*args):
+        monkeypatch.setattr(jnative, "_lib", None)
+        monkeypatch.setattr(jnative, "_tried", False)
+        return jnative.tokenize_corpus_native(*args)
+
+    return pack
+
+
 WORDPIECE = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
              "eat", "##ing", "##s", "the", "apple", "he", "she", "was"]
 
 
 @pytest.mark.parametrize("case", ["word", "wordpiece", "truncated, no specials"])
-def test_native_packer_matches_python_and_jax(prepared, case):
+def test_native_packer_matches_python_and_jax(prepared, jax_packer, case):
     """The packer is built and taken wherever g++ is on the path."""
     _, art, _ = prepared["torch"]
     if case == "wordpiece":
@@ -143,10 +177,27 @@ def test_native_packer_matches_python_and_jax(prepared, case):
     got = native.tokenize_corpus_native(sents, tok, L, special)
     assert got is not None
     want_py = tokenize_corpus(sents, tok, L, special, use_native=False)
-    want_jax = jax_native(sents, jtok, L, special)
+    want_jax = jax_packer(sents, jtok, L, special)
+    assert want_jax is not None, "the JAX package's packer did not load from its private build"
     for g, p, j in zip(got, want_py, want_jax):
         assert g.dtype == p.dtype == np.int32
         np.testing.assert_array_equal(g, p)
+        np.testing.assert_array_equal(g, j)
+
+
+def test_jax_packer_survives_a_latched_bridge(prepared, jax_packer, monkeypatch):
+    """A worker whose first load of the shared library failed (a racing
+    build left it half written) keeps the JAX bridge "unavailable"; the
+    fixture still runs the JAX package's packer, which gives the port's
+    arrays."""
+    _, art, _ = prepared["torch"]
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert not jnative.available()
+    sents = art["sentences_clean"]
+    want = jax_packer(sents, prepared["jax"][1]["tokenizer"], 12, True)
+    assert want is not None
+    for g, j in zip(tokenize_corpus(sents, art["tokenizer"], 12, True, use_native=False), want):
         np.testing.assert_array_equal(g, j)
 
 
