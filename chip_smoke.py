@@ -267,13 +267,15 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    timed with its bound; the codebook gradient (5+) in code chunks at 512
    and 1,024 codes, against an f64 sum, two launches the same bits, timed
    beside ``index_put_(accumulate=True)``; the attention past 32 tokens
-   (``csrc/attention_long.cuh``) in bf16 and f32 through the layer's
+   (``csrc/attention_long.cu``) in bf16 and f32 through the layer's
    attention forward and backward, #11 / #12 and #13 at 64 tokens x 256
    sentences (self causal padded, cross over padded keys, dropout 0.1),
    timed in turns with the plain versions, with the bound and
-   ``F.scaled_dot_product_attention``, and at 512 tokens, the keep masks
-   exact at 64 tokens; then bert-base Shelgon3-VQ training steps through
-   the default route, dropout on, every plain version of the route
+   ``F.scaled_dot_product_attention`` (backend pinned: flash in bf16,
+   memory-efficient in f32), and at 512 tokens, two launches the same bits
+   at each shape, the keep masks exact at 64 tokens; then bert-base
+   Shelgon3-VQ training steps through the default route, dropout on, every
+   plain version of the route
    refused: at ``vq_n_e`` 512 (batch 2048 x 12), at 64 tokens (batch 256,
    bf16) and at 64 tokens in f32 (batch 64), each step's launches as
    counted (#1, #2, #5, 5+, #7, #8, #14).
@@ -395,7 +397,7 @@ TWIN_EPOCHS, TWIN_GAP = 2, 0.02
 # long phase: the general paths past the one-pass kernels' limits. The VQ
 # (#5) at LONG_CODES and 1,024 codes (D 768 and 1,280) and the codebook
 # gradient (5+) in code chunks, at the step's 24,576 rows; the attention past
-# 32 tokens (csrc/attention_long.cuh) at LONG_SEQ tokens x LONG_BATCH
+# 32 tokens (csrc/attention_long.cu) at LONG_SEQ tokens x LONG_BATCH
 # sentences, the 64-token step's shape, timed, and at 512 tokens; the
 # training steps at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ
 # tokens (batch LONG_BATCH; in f32 at LONG_F32_BATCH), LONG_STEPS each
@@ -2382,37 +2384,56 @@ def _padded_mask(g, batch: int):
     return (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
 
 
-def _library_sdpa(q, k, v, mask, causal: bool):
+def _library_sdpa(q, k, v, mask, causal: bool, pin: bool = False):
     """``F.scaled_dot_product_attention`` at rate 0 on the same inputs, with
     the head transposes: its forward call, and the call of its autograd
-    backward given g (a yardstick only: the port never calls it)."""
+    backward given g (a yardstick only: the port never calls it). ``pin``:
+    its backend pinned with ``torch.nn.attention.sdpa_kernel``, flash in bf16
+    (which takes no mask: ``is_causal`` alone, the padded keys unmasked) and
+    memory-efficient in f32 (with the mask), and a third value, the
+    backend's name; else PyTorch picks its own kernel."""
+    import contextlib
+
     import torch
     import torch.nn.functional as F
 
     b, s, H = q.shape
     heads = [t.reshape(b, t.shape[1], 12, H // 12).transpose(1, 2) for t in (q, k, v)]
+    flash = pin and q.dtype == torch.bfloat16
     attn = None
-    if mask is not None or causal:
+    if not flash and (mask is not None or causal):
         attn = torch.ones(b, 1, s, k.shape[1], dtype=torch.bool, device="cuda")
         if mask is not None:
             attn = attn & (mask[:, None, None, :] > 0)
         if causal:
             attn = attn & torch.ones(s, k.shape[1], dtype=torch.bool, device="cuda").tril()
+    kw = {"is_causal": causal} if flash else {"attn_mask": attn}
+    backend, pinned = None, contextlib.nullcontext
+    if pin:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        backend = SDPBackend.FLASH_ATTENTION if flash else SDPBackend.EFFICIENT_ATTENTION
+        pinned = lambda: sdpa_kernel([backend])  # noqa: E731
 
     def fwd():
-        out = F.scaled_dot_product_attention(*heads, attn_mask=attn)
+        with pinned():
+            out = F.scaled_dot_product_attention(*heads, **kw)
         return out.transpose(1, 2).reshape(b, s, H)
 
-    with torch.enable_grad():
+    with torch.enable_grad(), pinned():
         leaves = [t.detach().contiguous().requires_grad_() for t in heads]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn)
+        out = F.scaled_dot_product_attention(*leaves, **kw)
     gh = torch.randn_like(out)
 
     def bwd():
-        with torch.enable_grad():
+        with torch.enable_grad(), pinned():
             return torch.autograd.grad(out, leaves, gh, retain_graph=True)
 
-    return fwd, bwd
+    if not pin:
+        return fwd, bwd
+    notes = [n for n, on in (("is_causal", flash and causal),
+                             ("keys unmasked", flash and mask is not None)) if on]
+    return fwd, bwd, ", ".join([backend.name, *notes])
 
 
 def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
@@ -2574,14 +2595,16 @@ def phase_sdpa_kernels(names: tuple[str, str], dtype=None) -> dict:
 
 
 def _long_attention(names: tuple[str, str], g, dtype) -> dict:
-    """The attention past 32 tokens (csrc/attention_long.cuh; ``dtype`` bf16
+    """The attention past 32 tokens (csrc/attention_long.cu; ``dtype`` bf16
     or f32) through every entry: the layer's attention forward and backward
     (#1a, #3 / #4), #11 / #12 and #13, against their plain versions, at
     LONG_SEQ tokens x LONG_BATCH sentences (self causal with a padded mask,
     cross over padded keys; dropout 0.1), timed in turns with the plain
-    versions, beside the bound and ``F.scaled_dot_product_attention``; at
-    512 tokens (self) and 33 queries over 512 keys (cross), 8 sentences, held
-    only; the keep masks exact at LONG_SEQ through the layer's forward (the
+    versions, beside the bound and ``F.scaled_dot_product_attention`` with
+    its backend pinned (flash in bf16, memory-efficient in f32); at 512
+    tokens (self) and 33 queries over 512 keys (cross), 8 sentences, held
+    only; at each shape two launches of the forward and the backward give
+    the same bits; the keep masks exact at LONG_SEQ through the layer's forward (the
     context) and backward (dv); #11 / #12 and #13 once through their
     autograd (their launch counts)."""
     import torch
@@ -2607,8 +2630,14 @@ def _long_attention(names: tuple[str, str], g, dtype) -> dict:
     fwd_tol, bwd_tol = (F32_FWD, F32_GRAD) if f32 else (TRAIN_REL, TRAIN_REL)
     seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
     H, NH, hd = 768, 12, 64
-    lib_name = f"F.scaled_dot_product_attention, {tag} (rate 0, head transposes)"
     res = {}
+
+    def repeats(what, call):
+        """Two launches of ``call`` give the same bits (fixed-order sums)."""
+        a, b = call(), call()
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            _fail(f"long attention ({tag}): two launches of {what} differ")
 
     def held(what, got, want, tol):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -2654,9 +2683,16 @@ def _long_attention(names: tuple[str, str], g, dtype) -> dict:
             if not cross:
                 errs["mha"] = held("mha_forward (#13)", mha_forward(q, k, v, mask, NH, causal),
                                    mha_reference(q, k, v, mask, NH, causal), fwd_tol)
+            repeats("attention_forward", lambda: attention_forward(*la))
+            repeats("attention_backward", lambda: attention_backward(*lb))
+            repeats("sdpa_backward", lambda: sdpa_backward(*sa, gr, cross=cross, **skw))
+        print("  two launches of attention_forward, attention_backward and sdpa_backward: "
+              "the same bits")
         if batch == LONG_BATCH:
             products = batch * NH * sq * sk * hd
-            lib_fwd, lib_bwd = _library_sdpa(q, k, v, mask, causal)
+            lib_fwd, lib_bwd, backend = _library_sdpa(q, k, v, mask, causal, pin=True)
+            lib_name = (f"F.scaled_dot_product_attention, {tag}, backend {backend} (rate 0, "
+                        f"head transposes)")
             with torch.no_grad():
                 lf = _time_ms(lib_fwd, 10)
                 timed = {
@@ -5393,21 +5429,21 @@ def main() -> None:
         row(f"codebook_grad (code chunks, {LONG_CODES} codes)", "vq_bwd.cu", "vq_pallas.py:178",
             lo["train_codes"]["counts"]["codebook_grad"], lo["codebook_grad"]),
         *[row(f"attention_forward{f} in layer_forward, {LONG_SEQ} tokens ({kind})",
-              "attention_long.cuh", "layer_pallas.py:244",
+              "attention_long.cu", "layer_pallas.py:244",
               lo[tr_key]["counts"][f"attn_fwd_{kind}"], lo[a_key][f"fwd_{kind}"])
           for f, tr_key, a_key in (("", "train_seq", "attn"), (" f32", "train_seq_f32", "attn_f32"))
           for kind in ("self", "cross")],
-        *[row(f"attention_backward{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cuh",
+        *[row(f"attention_backward{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cu",
               f"layer_pallas.py:{line}", lo[tr_key]["counts"][f"attn_bwd_{kind}"],
               lo[a_key][f"bwd_{kind}"])
           for f, tr_key, a_key in (("", "train_seq", "attn"), (" f32", "train_seq_f32", "attn_f32"))
           for kind, line in (("self", 696), ("cross", 712))],
-        *[row(f"sdpa_{d}{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cuh",
+        *[row(f"sdpa_{d}{f}, {LONG_SEQ} tokens ({kind})", "attention_long.cu",
               f"sdpa_pallas.py:{line}", lo[a_key]["sdpa_launches"][f"sdpa_{d}_{kind}"],
               lo[a_key][f"sdpa_{d}_{kind}"])
           for f, a_key in (("", "attn"), (" f32", "attn_f32"))
           for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
-        *[row(f"mha_forward{f}, {LONG_SEQ} tokens", "attention_long.cuh",
+        *[row(f"mha_forward{f}, {LONG_SEQ} tokens", "attention_long.cu",
               "attention_pallas.py:65", lo[a_key]["mha_launches"], lo[a_key]["mha_self"])
           for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
     ]}

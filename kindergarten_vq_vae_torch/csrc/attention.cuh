@@ -10,7 +10,7 @@
 //   attention_pallas.py:65 `_mha_kernel` (#13)
 //
 // This file's kernels take up to 32 queries and keys; the entry points below
-// hand longer sentences (up to 512) to attention_long.cuh.
+// hand longer sentences (up to 512) to attention_long.cu (attention_long.cuh).
 //
 // The TPU kernels packed a tile of sentences into (rows, H) and computed
 // dense block-diagonal (rows x rows) scores per head, because the 128x128 MXU
@@ -644,7 +644,7 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
                   static_cast<const bf16*>(v), mask, nullptr, static_cast<bf16*>(ctx), nullptr,
                   nullptr, q_ld, kv_ld, ctx_ld, 0, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
-  if (!attention_short(s_q, s_k)) return attention_long_fwd<bf16, WHERE_MASK>(a, st);
+  if (!attention_short(s_q, s_k)) return attention_long_fwd(a, WHERE_MASK, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);  // the m16 blocks of queries and of keys
   const int bytes = att_plan(s_q, s_k, hd, false).bytes;
   if (att_vec(a, false)) {
@@ -664,19 +664,20 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention()'s output,
-// given its gradient g (batch*s_q contiguous rows of nh*hd). A template, so
-// that a file that does not launch it compiles none of it.
+// given its gradient g (batch*s_q contiguous rows of nh*hd); stats: the long
+// path's scratch (AttnArgs::stats; null up to 32 queries and keys). A
+// template, so that a file that does not launch it compiles none of it.
 template <int UNUSED = 0>
 int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                   const int* mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,
                   int dkv_ld, int batch, int nh, int hd, int s_q, int s_k, int causal,
-                  DropoutParams drop, int op_base, cudaStream_t st) {
+                  DropoutParams drop, int op_base, float* stats, cudaStream_t st) {
   const AttArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), mask, static_cast<const bf16*>(g),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_ld,
                   kv_ld, dq_ld, dkv_ld, batch, nh, hd, s_q, s_k, causal, op_base,
-                  1.0f / sqrtf(static_cast<float>(hd)), drop};
-  if (!attention_short(s_q, s_k)) return attention_long_bwd<bf16>(a, st);
+                  1.0f / sqrtf(static_cast<float>(hd)), drop, stats};
+  if (!attention_short(s_q, s_k)) return attention_long_bwd(a, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);
   const int bytes = att_plan(s_q, s_k, hd, true).bytes;
   if (att_vec(a, true)) {

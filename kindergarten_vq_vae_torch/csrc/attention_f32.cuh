@@ -14,7 +14,7 @@
 //     s_k keys)
 //
 // Up to 32 queries and keys; attf_launch hands longer sentences (up to 512)
-// to attention_long.cuh.
+// to attention_long.cu (attention_long.cuh).
 //
 // What bounds it on the H100: the bytes. A 12 x 12 x 64 head moves ~9 KB in
 // the forward (~21 KB in and out in the backward) for ~37 (~110) KFLOP; at
@@ -520,9 +520,9 @@ template <bool BWD, bool WHERE_MASK = false>
 int attf_launch(const AttF32Args& a, cudaStream_t st) {
   if (!attention_short(a.s_q, a.s_k)) {  // beyond 32 queries or keys
     if constexpr (BWD)
-      return attention_long_bwd<float>(a, st);
+      return attention_long_bwd(a, st);
     else
-      return attention_long_fwd<float, WHERE_MASK>(a, st);
+      return attention_long_fwd(a, WHERE_MASK, st);
   }
   if (!attention_f32_fits(a.s_q, a.s_k, a.hd)) return static_cast<int>(cudaErrorInvalidValue);
   return att_vec(a, BWD) ? attf_launch_for<BWD, WHERE_MASK, true>(a, st)
@@ -546,18 +546,20 @@ inline int attention_f32(const void* q, int q_ld, const void* k, const void* v, 
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention_f32()'s output
-// given its gradient g (batch*s_q contiguous rows of nh*hd), all f32. A
-// template, so that a file that does not launch it compiles none of it.
+// given its gradient g (batch*s_q contiguous rows of nh*hd), all f32; stats:
+// the long path's scratch (null up to 32 queries and keys). A template, so
+// that a file that does not launch it compiles none of it.
 template <int UNUSED = 0>
 inline int attention_f32_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                              const int* mask, const void* g, void* dq, int dq_ld, void* dk,
                              void* dv, int dkv_ld, int batch, int nh, int hd, int s_q, int s_k,
-                             int causal, DropoutParams drop, int op_base, cudaStream_t st) {
+                             int causal, DropoutParams drop, int op_base, float* stats,
+                             cudaStream_t st) {
   const AttF32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), mask, static_cast<const float*>(g),
                      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
                      q_ld, kv_ld, dq_ld, dkv_ld, batch, nh, hd, s_q, s_k, causal, op_base,
-                     1.0f / sqrtf(static_cast<float>(hd)), drop};
+                     1.0f / sqrtf(static_cast<float>(hd)), drop, stats};
   return attf_launch<true>(a, st);
 }
 

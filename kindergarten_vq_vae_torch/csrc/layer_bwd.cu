@@ -18,8 +18,10 @@
 //   kvq_attention_bwd   per-(sentence, head) attention backward with the
 //                       same keep mask on dv and dp as the forward, one
 //                       warp a head on mma.sync tiles (attention.cuh); past
-//                       32 tokens, up to 512, a block a head over 64-row
-//                       tiles (attention_long.cuh)
+//                       32 tokens, up to 512, 64-row tiles on mma.sync
+//                       (attention_long.cu): a launch a block a query tile
+//                       for dq and the rows' statistics, then a launch a
+//                       block a key tile for dk and dv
 //   kvq_colsum          (layernorm.cu) f32 bias-gradient column sums
 //
 // In f32 (JAX's parity dtype) the same sequence runs the f32 instances:
@@ -48,21 +50,23 @@ extern "C" {
 // Attention backward for batch sentences x num_heads heads. q rows at
 // q + (b*s_q + i)*q_ld, k / v rows at k|v + (b*s_k + j)*kv_ld (head h at
 // column h*head_dim); g (batch*s_q, H) bf16; dq / dk / dv with the same
-// strides as q / k / v. key_mask (batch, s_k) int32 or null. All f32 when
-// f32, else bf16.
+// strides as q / k / v. key_mask (batch, s_k) int32 or null. stats: past 32
+// queries or keys, an f32 scratch of batch * num_heads * s_q * 4 (each query
+// row's max, sum of exp z, 1 / z and t, from the dq launch to the dk / dv
+// launch); else null. All f32 when f32, else bf16.
 int kvq_attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                       const int* key_mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,
-                      int dkv_ld, int batch, int num_heads, int head_dim, int s_q, int s_k,
-                      int causal, unsigned seed, unsigned thresh, float scale, int op_base,
-                      int f32, void* stream) {
+                      int dkv_ld, float* stats, int batch, int num_heads, int head_dim, int s_q,
+                      int s_k, int causal, unsigned seed, unsigned thresh, float scale,
+                      int op_base, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
   if (f32)
     return attention_f32_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
-                             num_heads, head_dim, s_q, s_k, causal, drop, op_base, st);
+                             num_heads, head_dim, s_q, s_k, causal, drop, op_base, stats, st);
   return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
-                       num_heads, head_dim, s_q, s_k, causal, drop, op_base, st);
+                       num_heads, head_dim, s_q, s_k, causal, drop, op_base, stats, st);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@
 // GEMM's CE epilogues): the GELU of the JAX package (`_gelu_fwd` /
 // `_gelu_grad`, ops/layer_pallas.py:214/221), warp reductions, the CE's row
 // partials and gradient element, the GEMM's epilogue codes, the TF32 split
-// of the 3xTF32 products, the fixed-order split-K sum and cp.async.
+// of the 3xTF32 products, the fixed-order split-K sum, cp.async, and the
+// division's correctly rounded forms without its slow-path call (the long
+// attention, attention_long.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +56,31 @@ __device__ __forceinline__ float div_sqrt2(float u) {
   constexpr float SQRT2 = 1.41421356237309515f;
   const float q = u * INV_SQRT2;
   return fmaf(fmaf(-q, SQRT2, u), INV_SQRT2, q);
+}
+
+// RN(1 / z) for a normal z, as the division gives it, but without its
+// slow-path call (around which ptxas spills registers): three Newton steps
+// in f64 from rcp.approx (a relative error of a few 2^-53), then one
+// rounding to f32, which gives RN(1 / z) because 1 / z lies at least 2^-49
+// (relative) from every midpoint of two floats. tests/test_torch_cuda.py
+// test_division_without_its_slow_path checks it on the card for every z in
+// [1, 512].
+__device__ __forceinline__ float rcp_rn(float z) {
+  const double d = z;
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;\n" : "=d"(y) : "d"(d));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) y = fma(y, fma(-d, y, 1.0), y);
+  return static_cast<float>(y);
+}
+
+// e / z correctly rounded, as the division gives it, for a quotient in the
+// normal range (below it, within a subnormal ulp), without its slow-path
+// call: q = e rz within an ulp (rz = rcp_rn(z)), then Markstein's residual
+// step, as div_sqrt2 above
+__device__ __forceinline__ float div_rn(float e, float z, float rz) {
+  const float q = e * rz;
+  return fmaf(fmaf(-q, z, e), rz, q);
 }
 
 __device__ __forceinline__ float gelu_erf(float u) {

@@ -16,7 +16,8 @@
 // (`block_b`) fed the MXU and has no counterpart: one warp computes one
 // (sentence, head) on mma.sync tiles, over a persistent grid, with 16-byte
 // staged loads and stores where the strides allow (attention.cuh); past 32
-// tokens, up to 512, 64-row tiles of queries and keys (attention_long.cuh). What
+// tokens, up to 512, 64-row tiles of queries and keys on mma.sync, a block a
+// tile, the backward in two launches (attention_long.cu). What
 // bounds them on the H100 is the bytes; the dropout hash is
 // dropout_hash.cuh's, keyed on the absolute query row, the key position
 // within the sentence, the head and the seed, as `_dropout_keep_scale`
@@ -53,20 +54,22 @@ int kvq_sdpa_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_l
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of kvq_sdpa_fwd's output,
-// given its gradient g (batch*s_q contiguous rows of num_heads*head_dim).
+// given its gradient g (batch*s_q contiguous rows of num_heads*head_dim);
+// stats: past 32 queries or keys the f32 scratch of kvq_attention_bwd
+// (layer_bwd.cu), else null.
 int kvq_sdpa_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                  const int* key_mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,
-                 int dkv_ld, int batch, int num_heads, int head_dim, int s_q, int s_k,
-                 int causal, unsigned seed, unsigned thresh, float scale, int f32,
+                 int dkv_ld, float* stats, int batch, int num_heads, int head_dim, int s_q,
+                 int s_k, int causal, unsigned seed, unsigned thresh, float scale, int f32,
                  void* stream) {
   if (!attention_fits(s_q, s_k, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32)
     return attention_f32_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
-                             num_heads, head_dim, s_q, s_k, causal, drop, 0, st);
+                             num_heads, head_dim, s_q, s_k, causal, drop, 0, stats, st);
   return attention_bwd(q, q_ld, k, v, kv_ld, key_mask, g, dq, dq_ld, dk, dv, dkv_ld, batch,
-                       num_heads, head_dim, s_q, s_k, causal, drop, 0, st);
+                       num_heads, head_dim, s_q, s_k, causal, drop, 0, stats, st);
 }
 
 // out = the #13 attention of q over k / v (one sequence length s for both).

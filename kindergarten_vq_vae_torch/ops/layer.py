@@ -44,7 +44,8 @@ kernels run too). On CUDA each kernel has an f32 instance: the layer GEMM's
 ``csrc/attention_f32.cuh`` and the f32 rows of ``csrc/layernorm.cu``; every
 wrapper's ``f32_launches`` counts the f32 share of its ``launches``. Past 32
 queries or keys (up to ``MAX_SEQ``), the attention in either dtype takes the
-64-row tiles of ``csrc/attention_long.cuh``.
+64-row tiles of ``csrc/attention_long.cu`` (its backward with an f32 scratch
+of the rows' statistics, :func:`long_stats`).
 """
 
 from __future__ import annotations
@@ -81,10 +82,11 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
 
 # limits of the attention kernels (`attention_fits`): csrc/attention.cuh's
 # one warp a (sentence, head) up to 32 queries and keys (ATT_MAX_S), and
-# csrc/attention_long.cuh's 64-row tiles beyond, up to 512 (ATL_MAX_S, BERT's
+# csrc/attention_long.cu's 64-row tiles beyond, up to 512 (ATL_MAX_S, BERT's
 # max_position_embeddings); head_dim up to 128 (ATT_MAX_HD)
 MAX_SEQ = 512
 MAX_HEAD_DIM = 128
+SHORT_SEQ = 32  # ATT_MAX_S: past it, on either side, the long path
 # the widest row of the LayerNorm kernels of csrc/layernorm.cu (LN_MAX_WIDTH:
 # a row in a warp's registers, at most four 16-byte chunks a lane)
 MAX_LN_WIDTH = 1024
@@ -695,10 +697,12 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
         q, q_ld, k, kv_ld = qkv_or_q, 3 * H, None, 3 * H
         dq_ptr, dq_ld, dk_ptr, dkv_ld = dqkv.data_ptr(), 3 * H, dqkv.data_ptr() + es * H, 3 * H
     k_ptr = k.data_ptr() if cross else q.data_ptr() + es * H
+    stats = long_stats(b, nh, sq, sk, dev)
     _build.launch("kvq_attention_bwd", _ATT_BWD_ARGS, q.data_ptr(), q_ld, k_ptr, k_ptr + es * H,
                   kv_ld, _ptr(key_mask), g_ctx.data_ptr(), dq_ptr, dq_ld, dk_ptr,
-                  dk_ptr + es * H, dkv_ld, b, nh, H // nh, sq, sk, int(causal), seed_u32(seed),
-                  keep_threshold(rate), keep_scale(rate), op_base, f32, device=dev)
+                  dk_ptr + es * H, dkv_ld, _ptr(stats), b, nh, H // nh, sq, sk, int(causal),
+                  seed_u32(seed), keep_threshold(rate), keep_scale(rate), op_base, f32,
+                  device=dev)
     attention_backward.launches += 1
     attention_backward.cross_launches += int(cross)
     attention_backward.f32_launches += f32
@@ -708,8 +712,18 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
 attention_backward.launches = 0
 attention_backward.cross_launches = 0  # the cross-attention share of ``launches``
 attention_backward.f32_launches = 0  # the f32 share of ``launches``
-_ATT_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F,
-                                                                                     _I, _I]
+_ATT_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP] + [_I] * 6 + [
+    _U, _U, _F, _I, _I]
+
+
+def long_stats(batch: int, num_heads: int, sq: int, sk: int, device):
+    """The long attention backward's f32 scratch (``AttnArgs::stats`` of
+    ``csrc/attention_long.cuh``: each query row's max, sum of exp z, 1 / z
+    and t, written by its dq launch for its dk / dv launch) past
+    ``SHORT_SEQ`` queries or keys; None up to it."""
+    if sq <= SHORT_SEQ and sk <= SHORT_SEQ:
+        return None
+    return torch.empty(batch * num_heads * sq * 4, dtype=torch.float32, device=device)
 
 # csrc/layernorm.cu: rows per block of the LayerNorm backward's partials
 # (LNB_ROWS) and of the column sums' (CS_ROWS)

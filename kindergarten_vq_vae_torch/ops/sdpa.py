@@ -34,11 +34,18 @@ from torch.autograd.function import once_differentiable
 
 from kindergarten_vq_vae_torch import _build
 from kindergarten_vq_vae_torch.ops.dropout import keep_scale, keep_threshold, seed_u32
-from kindergarten_vq_vae_torch.ops.layer import MAX_HEAD_DIM, MAX_SEQ, _attention, attention_grads
+from kindergarten_vq_vae_torch.ops.layer import (
+    MAX_HEAD_DIM,
+    MAX_SEQ,
+    _attention,
+    attention_grads,
+    long_stats,
+)
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
-_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I]
+_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP] + [_I] * 6 + [_U, _U, _F,
+                                                                                     _I]
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -150,11 +157,13 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     f32 = q.dtype == torch.float32
     dq = torch.empty((b, sq, H), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, sk, H), dtype=q.dtype, device=q.device) for _ in range(2))
+    stats = long_stats(b, num_heads, sq, sk, q.device)
     _build.launch("kvq_sdpa_bwd", _BWD_ARGS, q.data_ptr(), q.stride(1), k.data_ptr(),
                   v.data_ptr(), k.stride(1), None if mask is None else mask.data_ptr(),
-                  g.data_ptr(), dq.data_ptr(), H, dk.data_ptr(), dv.data_ptr(), H, b, num_heads,
-                  H // num_heads, sq, sk, int(causal), seed_u32(seed or 0), keep_threshold(rate),
-                  keep_scale(rate), int(f32), device=q.device)
+                  g.data_ptr(), dq.data_ptr(), H, dk.data_ptr(), dv.data_ptr(), H,
+                  None if stats is None else stats.data_ptr(), b, num_heads, H // num_heads, sq,
+                  sk, int(causal), seed_u32(seed or 0), keep_threshold(rate), keep_scale(rate),
+                  int(f32), device=q.device)
     sdpa_backward.launches += 1
     sdpa_backward.f32_launches += int(f32)
     sdpa_backward.cross_launches += int(cross)

@@ -16,7 +16,7 @@ lr 1e-4; ``--fused-head-ce store`` or ``flash``: the loss through the
 fused head + CE, kernels #9 and #10, in place of the logits path;
 ``--fused-layer off``: the per-module trunk, cuBLAS projections around the
 SDPA kernels #11 / #12, in place of the fused layers; ``--seq``: the
-sentence length, past 32 the long attention of ``csrc/attention_long.cuh``;
+sentence length, past 32 the long attention of ``csrc/attention_long.cu``;
 ``--vq-n-e``: the codebook size, past ~37 codes at D 768 the VQ's general
 path), warms up, then reports for one batch of ``--batch`` x ``--seq``
 tokens:
@@ -80,8 +80,9 @@ FAMILIES = (
     # csrc/attention_f32.cuh: attention_f32_kernel<BWD, WHERE_MASK, VEC, MT, KT>
     ("attention_f32_kernel<true", "attention backward f32 (#3 / #4 in #2, or #12)"),
     ("attention_f32_kernel<false", "attention forward f32 (in #1, or #11 / #13)"),
-    # csrc/attention_long.cuh: past 32 tokens, bf16 and f32
-    ("attention_long_bwd_kernel", "attention backward past 32 tokens (#3 / #4 in #2, or #12)"),
+    # csrc/attention_long.cu: past 32 tokens, bf16 and f32; the backward's
+    # attention_long_dq_kernel and attention_long_dkv_kernel
+    ("attention_long_d", "attention backward past 32 tokens (#3 / #4 in #2, or #12)"),
     ("attention_long_kernel", "attention forward past 32 tokens (in #1, or #11 / #13)"),
     # csrc/attention.cuh: attention_bwd_kernel<VEC>, attention_kernel<WHERE_MASK, VEC>
     ("attention_bwd_kernel", "attention backward (#3 / #4 in #2, or #12)"),

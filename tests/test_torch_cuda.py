@@ -61,12 +61,14 @@ accumulator a 3xTF32 product, up to 128 deep), at the same f32 bars.
 Past the one-pass kernels: the VQ's general path at 38, 64, 512 and 1,024
 codes x D 768 and 1,280 at the rows above (the same bars), two equal codes
 across its 64-code tiles; the codebook gradient in code chunks (512 and
-1,024 codes); the attention past 32 tokens (csrc/attention_long.cuh) at
-(s_q, s_k) in {33, 64, 65, 512} and across, head_dim 64, 128 and 33, bf16
-and f32, every entry, at the same bars, and its keep masks at 33 and 64
-rows; the shapes the kernels refused before now agree with the plain
-versions, and 513 tokens, head_dim 129, a dtype, a layout or an empty
-shape are still refused with their reason.
+1,024 codes); the attention past 32 tokens (csrc/attention_long.cu) at
+(s_q, s_k) in {33, 64, 65, 512} and across and at 8 sentences x 512,
+head_dim 64, 128 and 33, bf16 and f32, every entry, at the same bars, each
+entry's two launches the same bits, and its keep masks at 33 and 64 rows;
+its division without the slow path (layer_common.cuh div_rn / rcp_rn)
+bit for bit; the shapes the kernels refused before now agree with the
+plain versions, and 513 tokens, head_dim 129, a dtype, a layout or an
+empty shape are still refused with their reason.
 The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
 f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
@@ -1149,7 +1151,7 @@ _EDGE_SHAPES = [(s, s) for s in (1, 7, 12, 16, 17, 32)] + [
     (1, 32), (7, 17), (12, 32), (16, 1), (17, 7), (32, 12)]
 
 
-# (s_q, s_k) of the long path (csrc/attention_long.cuh): past 32 rows, around
+# (s_q, s_k) of the long path (csrc/attention_long.cu): past 32 rows, around
 # its 64-row tiles, up to 512; self where equal (causal), else cross
 _LONG_SHAPES = [(33, 33), (64, 64), (65, 65), (512, 512), (33, 64), (64, 12), (12, 512),
                 (512, 33)]
@@ -1170,19 +1172,22 @@ def test_attention_kernels_at_tile_edges(gen, SQ, SK, hd, dtype):
 
 @pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", [64, 128, 33])
-@pytest.mark.parametrize("SQ,SK", _LONG_SHAPES)
-def test_attention_long_path_matches_plain(gen, SQ, SK, hd, dtype):
+@pytest.mark.parametrize("SQ,SK,B", [(sq, sk, 37) for sq, sk in _LONG_SHAPES] + [(512, 512, 8)],
+                         ids=[f"{sq}-{sk}" for sq, sk in _LONG_SHAPES] + ["512-512-b8"])
+def test_attention_long_path_matches_plain(gen, SQ, SK, B, hd, dtype):
     """The same entries and bars past 32 rows (the 64-row tiles of
-    csrc/attention_long.cuh, 33 to 512 queries and keys): self causal with
-    a padded mask, cross over padded keys, a fully masked sentence, dropout
-    0.1; head_dim 64, 128 and 33 (odd rows)."""
-    _held_attention_entries(gen, SQ, SK, hd, dtype)
+    csrc/attention_long.cu, 33 to 512 queries and keys), and 8 sentences of
+    512: self causal with a padded mask, cross over padded keys, a fully
+    masked sentence, dropout 0.1; head_dim 64, 128 and 33 (odd rows); two
+    launches of each forward and backward give the same bits."""
+    _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True)
 
 
-def _held_attention_entries(gen, SQ, SK, hd, dtype):
+def _held_attention_entries(gen, SQ, SK, hd, dtype, B=37, repeat=False):
     """The layer's attention forward and backward, #11 / #12 and #13 at one
-    shape against their plain versions (self where SQ == SK)."""
-    B, NH = 37, 3
+    shape against their plain versions (self where SQ == SK); ``repeat``:
+    each kernel entry launched twice, the same bits."""
+    NH = 3
     H, cross = NH * hd, SQ != SK
     if cross:
         packed = torch.randn(B, SQ, H, device="cuda", generator=gen).to(dtype)
@@ -1198,24 +1203,33 @@ def _held_attention_entries(gen, SQ, SK, hd, dtype):
     op, causal = (cross_op(NH), False) if cross else (0, True)
     fwd_bar, grad_bar = (F32_FWD, F32_GRAD) if dtype == F32 else (2e-2, 2e-2)
 
-    def held(got, want, bar=grad_bar):
+    def held(got, want, bar=grad_bar, again=None):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         for a, b in zip(got, want):
             assert a.dtype == dtype and a.shape == b.shape
             assert torch.isfinite(a).all() and _rel_max(a, b) <= bar
+        if repeat:
+            more = again()
+            more = more if isinstance(more, tuple) else (more,)
+            assert all(torch.equal(a, c) for a, c in zip(got, more))
 
     layer_args = (packed, kv, mask, NH, causal, 41, op, 0.1)
-    held(attention_forward(*layer_args), attention_forward_reference(*layer_args), fwd_bar)
+    held(attention_forward(*layer_args), attention_forward_reference(*layer_args), fwd_bar,
+         lambda: attention_forward(*layer_args))
     bwd_args = (packed, kv, mask, g, NH, causal, 41, op, 0.1)
-    held(attention_backward(*bwd_args), attention_backward_reference(*bwd_args))
+    held(attention_backward(*bwd_args), attention_backward_reference(*bwd_args),
+         again=lambda: attention_backward(*bwd_args))
     sdpa_args = (q, k, v, mask, -5)
     held(sdpa_forward(*sdpa_args, NH, False, 0.1),
-         sdpa_forward_reference(*sdpa_args, NH, False, 0.1), fwd_bar)
+         sdpa_forward_reference(*sdpa_args, NH, False, 0.1), fwd_bar,
+         lambda: sdpa_forward(*sdpa_args, NH, False, 0.1))
     held(sdpa_backward(*sdpa_args, g, NH, False, 0.1),
-         sdpa_backward_reference(*sdpa_args, g, NH, False, 0.1))
+         sdpa_backward_reference(*sdpa_args, g, NH, False, 0.1),
+         again=lambda: sdpa_backward(*sdpa_args, g, NH, False, 0.1))
     if not cross:
         out = mha_forward(q, k, v, mask, NH, True)
-        held(out, mha_reference(q, k, v, mask, NH, True), fwd_bar)
+        held(out, mha_reference(q, k, v, mask, NH, True), fwd_bar,
+             lambda: mha_forward(q, k, v, mask, NH, True))
         torch.cuda.synchronize()
         # WHERE_MASK: the fully masked sentence is uniform over every key
         assert _rel_max(out[3], v[3].float().mean(0).expand(SQ, H)) <= fwd_bar
@@ -1450,6 +1464,56 @@ def test_tf32_conversion_zeroes_the_low_bits(gen, tmp_path):
     src.write_text(_TF32_CHECK)
     subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(exe),
                     str(src)], check=True, capture_output=True)
+    out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
+    assert out.split() == ["0", "0"], out
+
+
+_DIV_CHECK = r"""
+#include <cstdint>
+#include <cstdio>
+#include "layer_common.cuh"
+using namespace kvq;
+__global__ void check(unsigned* bad) {
+  const uint64_t step = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < (1ull << 32); i += step) {
+    const uint32_t x = (uint32_t)i;
+    if (x < 9u << 23) {  // every z in [1, 512): its reciprocal
+      const float z = __uint_as_float(0x3f800000u + x);
+      if (__float_as_uint(rcp_rn(z)) != __float_as_uint(1.0f / z)) atomicAdd(bad, 1u);
+    }
+    // z on 1,024 points of [1, 512), e on 2^22 points of [2^-32, 1): e / z
+    const float z = __uint_as_float(0x3f800000u + (x >> 22) * 0x12000u);
+    const float e = __uint_as_float(0x2f800000u + (x & 0x3fffffu) * 0x40u);
+    if (__float_as_uint(div_rn(e, z, rcp_rn(z))) != __float_as_uint(e / z)) atomicAdd(bad + 1, 1u);
+  }
+}
+int main() {
+  unsigned* bad;
+  cudaMalloc(&bad, 8);
+  cudaMemset(bad, 0, 8);
+  check<<<132 * 16, 256>>>(bad);
+  unsigned r[2];
+  cudaMemcpy(r, bad, 8, cudaMemcpyDeviceToHost);
+  printf("%u %u\n", r[0], r[1]);
+  return cudaGetLastError() != cudaSuccess;
+}
+"""
+
+
+def test_division_without_its_slow_path(gen, tmp_path):
+    """The long attention takes p = e / z and t = tau / z as layer_common.cuh
+    div_rn(e, z, rcp_rn(z)), with no call to the division's slow path: on
+    the card rcp_rn(z) has the bits of 1.0f / z for every z in [1, 512) (a
+    sum of exps of up to 512 keys, the largest 1), and div_rn the bits of e
+    / z over 2^32 pairs, e in [2^-32, 1)."""
+    import subprocess
+
+    from kindergarten_vq_vae_torch import _build
+
+    src, exe = tmp_path / "div.cu", tmp_path / "div"
+    src.write_text(_DIV_CHECK)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-I",
+                    _build.CSRC_DIR, "-o", str(exe), str(src)], check=True, capture_output=True)
     out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
     assert out.split() == ["0", "0"], out
 

@@ -4,7 +4,7 @@ kernels' one-pass limits, vs the JAX package on the CPU, in f32.
 On the card these shapes take the general paths: the VQ forward's streamed
 codebook and the codebook gradient's code chunks (``csrc/vq_fwd.cu``,
 ``csrc/vq_bwd.cu``) above ~37 codes at D 768, and the 64-row attention
-tiles of ``csrc/attention_long.cuh`` above 32 tokens. Here every wrapper
+tiles of ``csrc/attention_long.cu`` above 32 tokens. Here every wrapper
 takes its plain version (CPU tensors), held against JAX's Pallas kernels in
 interpret mode on the same seeded numpy inputs:
 
@@ -17,7 +17,10 @@ interpret mode on the same seeded numpy inputs:
 - ``fused_sdpa`` (#11 / #12) at S 40 (self causal and padded, cross over 45
   padded keys, dropout 0.1) against ``sdpa_pallas.fused_sdpa``: the
   forward at atol 1e-5, dq / dk / dv at atol 2e-5; ``fused_mha`` (#13) at S
-  40, masked and causal, the same bars (``tests/test_torch_sdpa.py``);
+  40, masked and causal, the same bars (``tests/test_torch_sdpa.py``), and
+  at 64 tokens, causal, with a fully masked sentence and one whose first
+  keys are masked: the rows that the card's causal tile skip must leave
+  near uniform over every key;
 - one fused decoder layer at S 40 (its attention #1a forward and #3 / #4
   backward: causal padded self-attention, padded cross-attention over 45
   rows; dropout 0.1 on the probabilities and the hidden sites) against
@@ -31,9 +34,9 @@ interpret mode on the same seeded numpy inputs:
   to rtol 1e-5, the VQ codes and ``recon_ids`` exactly, every gradient leaf
   to rel 1e-4 (the bars of ``tests/test_torch_train.py``).
 
-One worker: ~57 s (``--durations``), the two-layer step ~25 s of it and
-``fused_mha`` and the decoder layer ~7 s each, most of it JAX compiling
-its interpret-mode kernels.
+One worker: ~67 s (``--durations``), the two-layer step ~25 s of it,
+``fused_mha`` at 64 tokens ~10 s, at 40 tokens and the decoder layer ~7 s
+each, most of it JAX compiling its interpret-mode kernels.
 """
 
 import jax
@@ -178,6 +181,29 @@ def test_fused_mha_long_matches_jax():
     got = fused_mha(tq, tk, tv, _t(mask), NH, causal)
     (got * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    for name, t, g in zip("qkv", (tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=2e-5, err_msg=f"d{name}")
+
+
+def test_fused_mha_at_64_tokens_with_masked_rows_matches_jax():
+    """#13 at 64 tokens (one full 64-row tile: the card's causal tile skip
+    is bounded by it), causal, with a fully masked sentence (every row near
+    uniform over all 64 keys, j > i included) and one whose first three keys
+    are masked (its rows 0-2 see no key at or before them)."""
+    rng = np.random.default_rng(7)
+    b, s = 3, 64
+    q, k, v, w = (rng.normal(size=(b, s, H)).astype(np.float32) for _ in range(4))
+    mask = _padded(rng, b, s, low=8)
+    mask[1] = 0
+    mask[2, :3] = 0
+    want, want_grads = _jax_vjp(lambda q_, k_, v_: jax_mha(q_, k_, v_, jnp.asarray(mask), NH,
+                                                         True, 2), q, k, v, w)
+    tq, tk, tv = (_t(a, True) for a in (q, k, v))
+    got = fused_mha(tq, tk, tv, _t(mask), NH, True)
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(got[1].detach().numpy(), np.broadcast_to(v[1].mean(0), (s, H)),
+                               atol=1e-5)
     for name, t, g in zip("qkv", (tq, tk, tv), want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=2e-5, err_msg=f"d{name}")
 
