@@ -260,13 +260,21 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    #14 launched as counted) and on the CPU: the card's val token accuracy
    no more than ``TWIN_GAP`` below the CPU's; both and their wall times;
 20. the configurations past the one-pass kernels (``phase_long``): the VQ's
-   general path (#5: the codebook streamed through shared memory) at
-   24,576 rows x 768 x 512 codes and x 1,280 x 1,024 codes against its plain
-   version (codes equal but at f32 near ties, judged in f64; z_q, counts,
-   sum_z and the loss held to its own codes; two launches the same bits),
-   timed with its bound; the codebook gradient (5+) in code chunks at 512
-   and 1,024 codes, against an f64 sum, two launches the same bits, timed
-   beside ``index_put_(accumulate=True)``; the attention past 32 tokens
+   general path (#5: the distances' products on the 3xTF32 GEMM, an exact
+   screen and recheck of the codes that may be the minimum in f32 sums, the
+   per-code sums over the rows grouped by code) at 24,576 rows x 768 x 512
+   codes and x 1,280 x 1,024 codes and on an adversarial codebook (a shell
+   far from the origin, duplicates across tiles) against its plain version
+   (codes equal but at f32 near ties, judged in f64; z_q, counts, sum_z and
+   the loss held to its own codes; the screen's products within kappa / 2 of
+   the f64 product, the rows that recheck more than one code; sum_z the
+   plain grouped sum's bits; two launches the same bits), timed with its
+   3xTF32 bound (the row's ``bound_ms``), the f32 FMA bound beside it and
+   the yardstick torch.matmul + argmin;
+   the codebook gradient (5+) over the grouped rows at 512 and 1,024 codes,
+   against an f64 sum and the plain grouped sum's bits, two launches the same
+   bits, timed alone and from the forward's grouping beside
+   ``index_put_(accumulate=True)``; the attention past 32 tokens
    (``csrc/attention_long.cu``) in bf16 and f32 through the layer's
    attention forward and backward, #11 / #12 and #13 at 64 tokens x 256
    sentences (self causal padded, cross over padded keys, dropout 0.1),
@@ -395,8 +403,9 @@ MESH_LOSS_REL = 1e-3
 # CPU's val token accuracy the card's may sit (the harness's own bar)
 TWIN_EPOCHS, TWIN_GAP = 2, 0.02
 # long phase: the general paths past the one-pass kernels' limits. The VQ
-# (#5) at LONG_CODES and 1,024 codes (D 768 and 1,280) and the codebook
-# gradient (5+) in code chunks, at the step's 24,576 rows; the attention past
+# (#5) at LONG_CODES and 1,024 codes (D 768 and 1,280), and on an
+# adversarial codebook, and the codebook gradient (5+) over the grouped
+# rows, at the step's 24,576 rows; the attention past
 # 32 tokens (csrc/attention_long.cu) at LONG_SEQ tokens x LONG_BATCH
 # sentences, the 64-token step's shape, timed, and at 512 tokens; the
 # training steps at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ
@@ -1021,14 +1030,14 @@ def phase_kernels() -> dict:
     return res
 
 
-def _vq_times(z, e, what: str) -> dict:
+def _vq_times(z, e, what: str, general: bool = False) -> dict:
     """#5 at ``z``'s rows: the raw launch alone (the kernel's z_q is the
     straight-through value), its device time from a CUDA graph, in turns with
     the plain raw forward and the same expression; then the wrapper
     (``assemble`` included) in turns with the plain version, CUDA events
     around many calls (what a caller waits, host included); each beside the
-    byte bound and its share of it; sum_z and diff the same bits in two
-    launches."""
+    bound (``_vq_bound``; ``general``: the general path's) and its share of
+    it; sum_z and diff the same bits in two launches."""
     import torch
 
     from kindergarten_vq_vae_torch.ops.vq import _core, vector_quantize, vq_raw
@@ -1045,7 +1054,7 @@ def _vq_times(z, e, what: str) -> dict:
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     w_ms, pw_ms = _paired_ms(lambda: vector_quantize_kernel(z, e, 0.69),
                              lambda: vector_quantize(z, e, 0.69))
-    bound = _vq_bound(z, e, vector_quantize_kernel(z, e, 0.69))
+    bound = _vq_bound(z, e, vector_quantize_kernel(z, e, 0.69), general)
     print(f"vq {what} ({z_flat.shape[0]},{z_flat.shape[1]})x{e.shape[0]}: kernel alone "
           f"{k_ms:.4f} ms (CUDA graph; {bound[0] / k_ms:.0%} of the {bound[1]} bound "
           f"{bound[0]:.4f} ms), plain raw + straight-through {p_ms:.4f} ms; wrapper with "
@@ -1073,15 +1082,23 @@ def _codebook_grad_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) 
     """The codebook gradient at (rows, d) x n_e, its codes from #5 on the
     same rows: against an f64 sum of the same f32 terms and against its
     plain version (``index_add_``), each within ``CB_REL`` of the largest
-    sum of the terms' magnitudes; two launches the same bits; a code no row
-    picks exactly 0; its device time (a CUDA graph of its launches) in turns
-    with the plain version's, its byte bound and the library call
-    ``index_put_(accumulate=True)`` on the same terms (PyTorch's sort-based
-    deterministic route)."""
+    sum of the terms' magnitudes; the bits of the plain grouped sum (the
+    kernels' fixed order, ``grouped_sum_reference``); two launches the same
+    bits; a code no row picks exactly 0; its device time (a CUDA graph of its
+    launches) in turns with the plain version's, its byte bound and the
+    library call ``index_put_(accumulate=True)`` on the same terms
+    (PyTorch's sort-based deterministic route); past the one-pass VQ kernel
+    also from the grouping the VQ forward leaves (the training step's route),
+    the same bits, and its time."""
     import torch
 
-    from kindergarten_vq_vae_torch.ops.vq import codebook_grad, codebook_grad_reference
-    from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+    from kindergarten_vq_vae_torch.ops.vq import (
+        codebook_grad,
+        codebook_grad_reference,
+        grouped_order,
+        grouped_sum_reference,
+    )
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
 
     z = torch.randn(rows, d, device="cuda", generator=g)
     e = (torch.rand(n_e, d, device="cuda", generator=g) * 2 - 1) / n_e
@@ -1100,12 +1117,23 @@ def _codebook_grad_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) 
     plain_err = ((plain.double() - exact).abs().max() / scale).item()
     same, zero = torch.equal(got, again), bool((got[n_e - 1] == 0).all())
     used = int((torch.bincount(idx, minlength=n_e) > 0).sum())
+    rpb, slots = grouped_order(rows, d, n_e, d % 4 == 0)
+    bits = torch.equal(got, grouped_sum_reference(terms, idx, n_e, rpb, slots))
     print(f"codebook gradient ({rows},{d})x{n_e} f32 ({used} codes picked): kernel {err:.3e} "
           f"and plain index_add_ {plain_err:.3e} from the f64 sum, of the largest sum of "
           f"|terms| (tol {CB_REL}); two launches the same bits {same}; the unpicked code "
-          f"exactly 0 {zero}")
-    if not (same and zero and err <= CB_REL and plain_err <= CB_REL):
+          f"exactly 0 {zero}; the plain grouped sum's bits {bits} ({rpb} rows a row block, "
+          f"{slots} slots)")
+    if not (same and zero and bits and err <= CB_REL and plain_err <= CB_REL):
         _fail(f"the codebook-gradient kernel disagrees with its plain version ({n_e} codes)")
+    handed = None
+    if vq_plan(rows, d, n_e)[0] == 0:  # the VQ forward's general path leaves its grouping
+        from kindergarten_vq_vae_torch.ops.vq_kernel import _launch_packed
+
+        group = _launch_packed(z, e)[3]
+        if group.numel() == 0 or not torch.equal(codebook_grad(z, idx, e, gd2, group), got):
+            _fail(f"the codebook gradient from the forward's grouping differs ({n_e} codes)")
+        handed = _graph_ms(lambda: codebook_grad(z, idx, e, gd2, group))
     p1 = _time_ms(lambda: codebook_grad_reference(z, idx, e, gd2), 20)
     k1 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
     k2 = _graph_ms(lambda: codebook_grad(z, idx, e, gd2))
@@ -1114,12 +1142,14 @@ def _codebook_grad_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) 
         (idx,), gd2 * 2.0 * (e[idx] - z), accumulate=True), 20)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     bound = _bound(3 * rows * d, _nbytes(z, idx, got), PEAK_F32)
+    also = ("" if handed is None else
+            f"; from the forward's grouping {handed:.4f} ms ({bound[0] / handed:.0%})")
     print(f"row 5+ codebook gradient ({rows},{d})x{n_e}: kernel {k_ms:.4f} ms (CUDA graph; "
-          f"{bound[0] / k_ms:.0%} of the {bound[1]} bound {bound[0]:.4f} ms), plain "
+          f"{bound[0] / k_ms:.0%} of the {bound[1]} bound {bound[0]:.4f} ms){also}, plain "
           f"index_add_ {p_ms:.4f} ms, index_put_(accumulate=True) {lib:.4f} ms "
           f"({names[0]}; nvidia-smi: {names[1]})")
     res = {"max_abs_err": (got - plain).abs().max().item(), "ms": k_ms, "plain_ms": p_ms,
-           "bound": [bound], "library_ms": lib,
+           "bound": [bound], "library_ms": lib, "handed_ms": handed,
            "library": "torch.zeros_like(e).index_put_((idx,), g * 2 * (e[idx] - z), "
                       "accumulate=True)"}
     del z, e, idx, got, again, plain, terms, exact
@@ -1175,21 +1205,134 @@ def _vq_general_case(names: tuple[str, str], g, rows: int, d: int, n_e: int) -> 
         _fail(f"the VQ general path disagrees with its plain version ({n_e} codes, D {d})")
     err = (k.sum_z - sums).abs().max().item()
     del dist, zc, ec, z64, e64, sums, k, p
-    times = _vq_times(z, e, f"general path, {n_e} codes")
-    print(f"  ({names[0]}; nvidia-smi: {names[1]})")
-    del z, e
+    screen = _vq_screen_check(z.view(-1, d), e, f"{n_e} codes x {d}")
+    times = _vq_times(z, e, f"general path, {n_e} codes", general=True)
+    fma = 2 * rows * n_e * d / PEAK_F32 * 1e3
+    zc32 = z.view(-1, d) - e.mean(0)
+    ec32 = e - e.mean(0)
+    lib = _time_ms(lambda: ((zc32 * zc32).sum(1, keepdim=True) + (ec32 * ec32).sum(1)
+                            - 2.0 * torch.matmul(zc32, ec32.T)).argmin(1), 10)
+    print(f"  the f32 FMA bound of the products {fma:.4f} ms ({fma / times['ms']:.0%} of it); "
+          f"yardstick torch.matmul(zc, ec.T) in f32 ('highest') + the expansion's argmin "
+          f"{lib:.4f} ms ({names[0]}; nvidia-smi: {names[1]})")
+    del z, e, zc32, ec32
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
-            "bound": times["bound"], "library_ms": None}
+            "bound": times["bound"], "library_ms": None, "fma_bound_ms": fma,
+            "matmul_argmin_ms": lib, **screen}
 
 
-def _vq_bound(z, e, out) -> tuple[float, str]:
+def _kernel_centre(e):
+    """The general path's centre c: the codes summed in code order, then
+    divided by n_e (``csrc/vq_fwd.cu`` ``vq_centre_kernel``, the same bits)."""
+    import torch
+
+    c = torch.zeros(e.shape[1], device=e.device)
+    for k in range(e.shape[0]):
+        c += e[k]
+    return c / e.shape[0]
+
+
+def _vq_screen_check(z2, e, what: str) -> dict:
+    """The general path's screen (``vq_general_screen``) on (rows, D) ``z2``:
+    its tensor-core products against the f64 product of the same f32
+    operands (the kernel's own centre), as a share of ||z - c|| ||e_k - c||,
+    held below kappa / 2 (the screen's margin is 2 kappa); the share of rows
+    that rechecked more than one code and those that rechecked every code;
+    sum_z the plain grouped sum's bits (``grouped_sum_reference``, the order
+    of the kernel before the grouping); two launches the same bits."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.vq import grouped_order, grouped_sum_reference
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vq_general_screen, vq_screen_kappa
+
+    rows, d = z2.shape
+    n_e = e.shape[0]
+    _, idx, stats, cross, rechecked = vq_general_screen(z2, e)
+    _, idx2, stats2, _, _ = vq_general_screen(z2, e)
+    torch.cuda.synchronize()
+    same = torch.equal(idx, idx2) and torch.equal(stats, stats2)
+    c = _kernel_centre(e)
+    x, y = (z2 - c).double(), (e - c).double()
+    err = ((cross.double() - x @ y.T).abs()
+           / (x.norm(dim=1, keepdim=True) * y.norm(dim=1))).max().item()
+    del x, y, cross
+    kappa = vq_screen_kappa(d)
+    more = (rechecked > 1).float().mean().item()
+    every = int((rechecked == n_e).sum())
+    rpb, slots = grouped_order(rows, d, n_e, d % 4 == 0)
+    bits = torch.equal(stats[:n_e * d].view(n_e, d),
+                       grouped_sum_reference(z2, idx, n_e, rpb, slots))
+    print(f"  screen ({what}): max |cross' - cross| / (|z - c| |e - c|) {err:.3e} (kappa "
+          f"{kappa:.3e}; held below kappa / 2); rows rechecking more than one code {more:.4f}, "
+          f"mean {rechecked.float().mean().item():.3f}, every code {every}; sum_z the plain "
+          f"grouped sum's bits {bits} ({rpb} rows a row block, {slots} slots); two launches the "
+          f"same bits {same}")
+    if not (same and bits and err <= kappa / 2):
+        _fail(f"the VQ general path's screen or grouped sums disagree ({what})")
+    return {"screen_err": err, "kappa": kappa, "rechecked_more": more, "rechecked_every": every}
+
+
+def _vq_adversarial_case(names: tuple[str, str], g, rows: int) -> dict:
+    """The general path on a codebook far from the origin (512 codes x 768
+    on a shell of norm 27.6, ~0.06 apart, the trained encoder the JAX
+    kernel's comment measured) with duplicate codes across its 128-code
+    tiles (2 = 5 = 200, 130 = 300 = 511, 128 = 129), the rows near random
+    codes: the duplicates' rows take the lowest copy, the codes are the
+    plain version's but at f32 near ties (where they are one of the tied
+    codes), and the screen's checks (``_vq_screen_check``)."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.vq import vector_quantize
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel
+
+    d, n_e = 768, LONG_CODES
+    base = torch.randn(d, device="cuda", generator=g)
+    base *= 27.6 / base.norm()
+    e = base + 0.06 / 2**0.5 * torch.randn(n_e, d, device="cuda", generator=g) / d**0.5
+    for a, b in ((5, 2), (200, 2), (300, 130), (511, 130), (129, 128)):
+        e[a] = e[b]
+    pick = torch.randint(0, n_e, (rows,), device="cuda", generator=g)
+    z = e[pick] + 0.02 / d**0.5 * torch.randn(rows, d, device="cuda", generator=g)
+    with torch.no_grad():
+        k = vector_quantize_kernel(z.view(1, rows, d), e, 0.25)
+        torch.cuda.synchronize()
+        p = vector_quantize(z.view(1, rows, d), e, 0.25)
+    idx = k.indices.view(-1)
+    copies = bool(torch.isin(idx, torch.tensor([5, 200, 300, 511, 129], device="cuda")).any())
+    z64, e64 = z.double(), e.double()
+    c = e64.mean(0)
+    zc, ec = z64 - c, e64 - c
+    dist = (zc * zc).sum(1, keepdim=True) + (ec * ec).sum(1) - 2.0 * (zc @ ec.T)
+    tol = 4 * 2.0**-23 * ((zc * zc).sum(1) + (ec * ec).sum(1).max())
+    best = dist.min(1).values
+    near = dist.topk(2, 1, largest=False).values[:, 1] - best <= tol
+    picked = bool((dist.gather(1, idx.view(-1, 1))[:, 0] - best <= tol).all())
+    differ = idx != p.indices.view(-1)
+    del z64, e64, zc, ec, dist
+    print(f"vq general path, adversarial ({rows},{d})x{n_e} (a shell of norm 27.6, codes ~0.06 "
+          f"apart, duplicates across tiles): a later copy picked {copies}; {int(differ.sum())} "
+          f"codes differ from the plain version's, {int(near.sum())} f32 near ties, every code "
+          f"one of the nearest within the tie bar {picked} ({names[0]})")
+    if copies or not picked or bool((differ & ~near).any()):
+        _fail("the VQ general path disagrees with its plain version on the adversarial case")
+    res = _vq_screen_check(z, e, "adversarial")
+    del z, e
+    torch.cuda.empty_cache()
+    return res
+
+
+def _vq_bound(z, e, out, general: bool = False) -> tuple[float, str]:
     """Reads z and the codebook, writes z_q, the codes, the counts and the
-    per-code sums; one f32 FMA (2 operations) per (row, code, dim) for the
-    distances, as both paths of ``csrc/vq_fwd.cu`` do."""
+    per-code sums; one product (2 operations) per (row, code, dim) for the
+    distances: on the f32 FMA units, as the one-pass kernel of
+    ``csrc/vq_fwd.cu`` does them, or (``general``) at the 3xTF32 tensor
+    cores' rate (three TF32 products each, PEAK_3XTF32), as its general
+    path does."""
     rows, d = z.numel() // z.shape[-1], z.shape[-1]
     return _bound(2 * rows * e.shape[0] * d,
-                  _nbytes(z, e, out.z_q, out.indices, out.counts, out.sum_z), PEAK_F32)
+                  _nbytes(z, e, out.z_q, out.indices, out.counts, out.sum_z),
+                  PEAK_3XTF32 if general else PEAK_F32)
 
 
 def _library_layer(decoder: bool, x, enc, smask, ws, train: bool = False):
@@ -2779,8 +2922,9 @@ def _long_attention(names: tuple[str, str], g, dtype) -> dict:
 
 def phase_long(names: tuple[str, str]) -> dict:
     """The configurations past the one-pass kernels (phase 20): the VQ's
-    general path (#5) at LONG_CODES codes x 768 and 1,024 x 1,280, the
-    codebook gradient's code chunks (5+) at LONG_CODES and 1,024 codes, the
+    general path (#5) at LONG_CODES codes x 768 and 1,024 x 1,280 and on an
+    adversarial codebook, the codebook gradient over the grouped rows (5+)
+    at LONG_CODES and 1,024 codes, the
     long attention in bf16 and f32 (``_long_attention``); then the bert-base
     Shelgon3-VQ training steps through the default ("auto") route, dropout
     on: at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ tokens (batch
@@ -2792,9 +2936,10 @@ def phase_long(names: tuple[str, str]) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
     rows = TRAIN_BATCH * SEQ
     res = {"vq": _vq_general_case(names, g, rows, 768, LONG_CODES)}
-    _vq_general_case(names, g, rows, 1280, 1024)
+    res["vq_1024"] = _vq_general_case(names, g, rows, 1280, 1024)
+    res["vq_adversarial"] = _vq_adversarial_case(names, g, rows)
     res["codebook_grad"] = _codebook_grad_case(names, g, rows, 768, LONG_CODES)
-    _codebook_grad_case(names, g, rows, 1280, 1024)
+    res["codebook_grad_1024"] = _codebook_grad_case(names, g, rows, 1280, 1024)
     res["attn"] = _long_attention(names, g, torch.bfloat16)
     res["attn_f32"] = _long_attention(names, g, torch.float32)
     res["train_codes"] = phase_train(names, steps=LONG_STEPS, over={"vq_n_e": LONG_CODES})
@@ -5424,9 +5569,11 @@ def main() -> None:
         # launches from the vq_n_e 512 step's run, the layer attention's from
         # the 64-token steps' runs (bf16, f32), #11 / #12 / #13's from their
         # own autograd runs at 64 tokens
-        row(f"vector_quantize_kernel (general path, {LONG_CODES} codes, training)", "vq_fwd.cu",
-            "vq_pallas.py:41", lo["train_codes"]["counts"]["vq"], lo["vq"]),
-        row(f"codebook_grad (code chunks, {LONG_CODES} codes)", "vq_bwd.cu", "vq_pallas.py:178",
+        row(f"vector_quantize_kernel (general path: 3xTF32 screen on gemm_f32_kernel, "
+            f"vq_pick_kernel recheck, vq_grouped_sum_kernel sums; {LONG_CODES} codes, training)",
+            "vq_fwd.cu", "vq_pallas.py:41", lo["train_codes"]["counts"]["vq"], lo["vq"]),
+        row(f"codebook_grad (grouped sums: vq_group_scatter_kernel, vq_grouped_sum_kernel; "
+            f"{LONG_CODES} codes)", "vq_bwd.cu", "vq_pallas.py:178",
             lo["train_codes"]["counts"]["codebook_grad"], lo["codebook_grad"]),
         *[row(f"attention_forward{f} in layer_forward, {LONG_SEQ} tokens ({kind})",
               "attention_long.cu", "layer_pallas.py:244",

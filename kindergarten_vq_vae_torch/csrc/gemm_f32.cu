@@ -17,6 +17,11 @@
 // merge, the store-mode gradient pass, dx = g @ E (NN, K = V) and the table
 // gradient g^T @ x (TN split-K) on run_gemm.
 //
+// It also computes the VQ general path's distance products (vq_fwd.cu,
+// run_vq_cross, EPI_VQ_CROSS): the NT product (z - c) @ (e - c)^T, each
+// element of z centred by one f32 subtraction as the consumer reads it for
+// its split, the products stored as with EPI_F32.
+//
 // Precision: f32 is the parity dtype, so single-pass TF32 (a 10-bit
 // mantissa, ~5e-4 relative a product) is not enough. Each operand is split
 // into a TF32 high part and the TF32 rounding of its remainder, x = big +
@@ -403,7 +408,7 @@ __device__ __forceinline__ void store_epilogue(const Params& p, const float (&ac
       if (col >= p.N) continue;  // N even: both columns or neither
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
       float2* c = reinterpret_cast<float2*>(C + (size_t)row * p.ldc + col);
-      if constexpr (EPI == EPI_F32 || EPI == EPI_PARTIAL) {
+      if constexpr (EPI == EPI_F32 || EPI == EPI_PARTIAL || EPI == EPI_VQ_CROSS) {
         if (p.bias != nullptr) v0 += bias[j].x, v1 += bias[j].y;
         *c = make_float2(v0, v1);
       } else if constexpr (EPI == EPI_GELU_ERF || EPI == EPI_GELU_TANH) {
@@ -572,7 +577,10 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
       // takes k = 8 s + t (a0, a1) and 8 s + t + 4 (a2, a3)
       mbar_wait(raw_full(rs), (i / RAW_STAGES) & 1);
       const float* ra = reinterpret_cast<const float*>(gbase + rs * STAGE_BYTES);
-      float va[2][8];
+      float va[2][8], cen[8];
+      if constexpr (EPI == EPI_VQ_CROSS)  // the centre of this thread's k (0 past K)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cen[j] = __ldg(p.aux + k + t + 4 * j);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -581,6 +589,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
           va[h][j] = A_T ? ra[(m / BOX) * BOX_FLOATS + kk * BOX +
                               ((((m % BOX) >> 2) ^ (kk & 7)) << 2) + (m & 3)]
                          : ra[m * TILE_K + ((j ^ g) << 2) + t];  // m % 8 = g
+          if constexpr (EPI == EPI_VQ_CROSS) va[h][j] = __fsub_rn(va[h][j], cen[j]);
         }
       mbar_arrive(raw_empty(rs));  // its B part was read by convert(i)
       uint32_t ab[4][4], as[4][4];
@@ -761,6 +770,16 @@ int run_ce(int epi, const float* x, const float* table, const float* bias, int r
   const cudaError_t e = fwd ? launch<false, true, EPI_CE_FWD>(p, x, hidden, table, hidden, 1, st)
                             : launch<false, true, EPI_CE_BWD>(p, x, hidden, table, hidden, 1, st);
   return static_cast<int>(e);
+}
+
+int run_vq_cross(const float* z, int ldz, const float* center, const float* ec, int ldk, int M,
+                 int N, int K, float* C, cudaStream_t st) {
+  const bool ok = M > 0 && N > 0 && K > 0 && round4(K) <= ldz && round4(K) <= ldk &&
+                  ldz % 4 == 0 && ldk % 4 == 0 && N % 2 == 0 && aligned(z, 16) &&
+                  aligned(ec, 16) && aligned(C, 8) && center != nullptr;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{M, N, K, K, 0, 0, 0, C, N, nullptr, 0, center, 0, nullptr, nullptr};
+  return static_cast<int>(launch<false, true, EPI_VQ_CROSS>(p, z, ldz, ec, ldk, 1, st));
 }
 
 }  // namespace f32gemm

@@ -38,5 +38,17 @@ int run_ce(int epi, const float* x, const float* table, const float* bias, int r
            int hidden, float* C, int ldc, const int* targets, const float* lse, const float* scale,
            float* part_f, int* part_i, cudaStream_t st);
 
+// The VQ's distances (vq_fwd.cu's general path): C (M, N) f32 = (z - center)
+// @ ec^T in 3xTF32, z (M, K) at ldz, ec (N, K) at ldk, C at N. Each element
+// of z is centred by one f32 subtraction, z - center[k], as it is read for
+// its split (the same value as the subtraction on the CUDA cores); center
+// holds round32(K) floats, 0 past K. ldz and ldk multiples of 4 and at least
+// round4(K), z and ec 16-byte aligned, N even. Every 32-deep slice of K sums
+// its 96 products in a fresh accumulator that one rounded FADD adds to the
+// tile's sum (vq_fwd.cu bounds the error on that). Returns a cudaError_t
+// code.
+int run_vq_cross(const float* z, int ldz, const float* center, const float* ec, int ldk, int M,
+                 int N, int K, float* C, cudaStream_t st);
+
 }  // namespace f32gemm
 }  // namespace kvq

@@ -155,6 +155,8 @@ enum Epilogue {
   EPI_CE_FWD = 9,      // fused head + CE forward (head_ce.cu, gemm_f32.cu): logits, per-tile
                        // CE partials
   EPI_CE_BWD = 10,     // fused head + CE backward (head_ce.cu, gemm_f32.cu): g, dbias partials
+  EPI_VQ_CROSS = 11,   // the VQ's distances (vq_fwd.cu, gemm_f32.cu): C f32 = (A - aux) B^T, A's
+                       // rows centred by aux (K,) as they are split
 };
 
 // the tf32 value of x, rounded to nearest with ties away from zero, as an

@@ -52,38 +52,73 @@
 //
 // The general path: a codebook whose per-code slabs do not fit in shared
 // memory beside it (above ~37 codes at D = 768), or D above 1,024. There the
-// distances are a product of z's rows and the codebook, which at 512 codes
-// x 768 x 24,576 rows is 19.3 GFLOP of f32 FMA (0.29 ms at 67 TFLOP/s)
-// against 0.045 ms of bytes: the operations bound it. What it does:
-// - vq_center_kernel and vq_esq_kernel prepare c, ec and ||ec||^2 as
-//   vq_prep_kernel does (c summed in code order; ||ec||^2 lane-strided,
-//   then the butterfly), over any D and any codebook;
-// - vq_dist_kernel: a block takes 64 rows and streams the centred codebook
-//   through shared memory, 64 codes x 32 columns at a time, beside the
-//   same 32 columns of its rows' z - c; each of 256 threads sums 4 rows x 4
-//   codes over D in order with FMAs (f32 on the CUDA cores: a TF32 or
-//   tensor-core distance would move the argmin off JAX's), forms the
-//   centred distance ||zc||^2 + ||ec||^2 - 2 zc.ec and keeps its first
-//   minimum with a strict < in code order; the 16 threads of a row then
-//   take the smaller distance, on equal distances the lower code: the first
-//   minimum over the codebook. The block then writes z_q = z + (e[k] - z)
-//   and each row's sum of (z_q - z)^2, a warp a row;
-// - kvq::vq_sums (vq_bwd.cu) forms the per-code sums of z, the counts and
-//   the sum of the rows' (z_q - z)^2 in a fixed order, by code chunks, and
-//   colparts_reduce sums its partials: two launches give the same bits.
+// distances are a product of z's rows and the codebook, 19.3 GFLOP at 512
+// codes x 768 x 24,576 rows: 0.29 ms at the f32 FMA peak (67 TFLOP/s), 0.117
+// ms as 3xTF32 on the tensor cores (3 x 19.3 GFLOP at 495 TFLOP/s), against
+// 0.045 ms of bytes; the operations bound it. The codes must be those of
+// the in-order f32 sums of the CUDA-core kernel this path replaced
+// (vq_dist_kernel: each distance s + q - 2 cross, s =
+// ||z - c||^2 and cross = (z - c) . (e_k - c) summed over D in column order
+// with fmaf, q = ||e_k - c||^2 lane-strided, then the butterfly; the first
+// minimum, on equal distances the lower code), so the tensor cores only
+// screen out the codes that cannot be the minimum:
+// - vq_centre_kernel sums c in code order and vq_ec_kernel forms ec = e - c
+//   and q as that kernel did (the same bits), ec at a stride of round4(D);
+// - the distances' products cross' = (z - c) . ec on the f32 GEMM
+//   (gemm_f32.cu, EPI_VQ_CROSS: wgmma with TMA, 3xTF32, each element of z
+//   centred by the same f32 subtraction as it is split, so z is read from
+//   HBM once and no centred copy is written), into a scratch of 2^22
+//   floats (8,192 rows at 512 codes): the GEMM and the pick kernel below
+//   take the rows a chunk at a time, in turns;
+// - vq_pick_kernel, 16 rows a block (8 past D 790; four blocks an SM),
+//   stages its rows of z in shared memory; a warp a row reads its row of
+//   cross' (prefetched into L2, one batch of loads), forms t'_k = q_k
+//   - 2 cross'_k and the bound M_k below, U = min_k (t'_k + M_k) (rounded up)
+//   and keeps the codes with t'_k - M_k <= U (rounded down), in code order;
+//   then one thread a sum recomputes, in the old kernel's exact order, s for
+//   each row and cross for each kept code, and each row takes the first
+//   minimum of s + q_k - 2 cross_k over them. A row that keeps more than 16
+//   codes, or whose bound is not finite, rechecks every code the same way.
+//   Then z_q = z + (e[k] - z) with 16-byte stores, each row's sum of (z_q -
+//   z)^2 in the old kernel's lane order, and the row's code counted for the
+//   grouping below;
+// - the per-code sums of z, the counts and the sum of the rows' (z_q - z)^2
+//   are the grouped sums of vq_bwd.cu (vq_group.cuh) in the order of the
+//   kernels before them: two launches give the same bits, the same as the
+//   CUDA-core path's; the grouping is left to the codebook gradient.
+//
+// Why the screen is exact (the bound). For a row x = z - c and a code y =
+// e_k - c (both f32, the same values on both sides), with S = sum_j |x_j
+// y_j| <= ||x|| ||y|| and u = 2^-24:
+// - the TF32 split (cvt.rna twice: x = big + small + r, |r| <= 2^-22 |x|)
+//   drops small*small and the remainders' products: <= 2^-20 S;
+// - the tensor cores add a 32-deep slice's 96 products into a fresh
+//   accumulator in an order and with a rounding NVIDIA does not document:
+//   taking each of at most 128 adds a slice as losing one ulp of a value no
+//   larger than the slice's sum of |terms| (at most (1 + 2^-9) S), <= 2^-16
+//   (1 + 2^-9) S over all slices; one rounded FADD a slice adds
+//   ceil(D / 32) u (1 + 2^-9) S;
+// - the old kernel's own D fmaf roundings: <= D u S.
+// So |cross' - cross| <= kappa0 ||x|| ||y||, kappa0 = 2^-20 + (1 + 2^-9)
+// (2^-16 + ceil(D / 32) u) + D u (6.35e-5 at D = 768). The distances share
+// s within a row; the old kernel's s + q - 2 cross and t' round at most
+// 3 u (||x|| + ||y||)^2 apart beyond 2 |cross' - cross|. With a safety factor
+// of 2 on both (kappa = 2 kappa0, 1.27e-4 at D = 768):
+//   M_k = 2 kappa ||x|| ||y|| + 2^-21 (||x|| + ||y||)^2
+// bounds |(dist_k - s) - t'_k| (||x|| from a warp sum, ||y|| from q: their
+// few ulps lie inside the factor 2). A code left out has dist_k - s >= t'_k -
+// M_k > U >= min_k (dist_k - s), so it is not a minimum; every minimum is
+// kept. The codes are the old kernel's bit for bit on every row: duplicate
+// codes, rows far from the origin near close codes, near ties. On random
+// rows at 512 codes most rows recheck one code.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gemm_f32.cuh"
 #include "layernorm.cuh"
-
-namespace kvq {
-// vq_bwd.cu: the fixed-order per-code statistics of the general path
-int vq_sums_row_blocks(int m, int d, int n_e);
-cudaError_t vq_sums(const float* z, const int64_t* idx, const float* rowdiff, float* parts,
-                    float* out, int m, int d, int n_e, cudaStream_t st);
-}  // namespace kvq
+#include "vq_group.cuh"
 
 namespace {
 
@@ -124,26 +159,93 @@ struct Plan {
   int warps, rows_per_block, blocks, part_width, prep_floats;
 };
 
-// 0 when the shape is refused (no rows, columns or codes). warps 0: the
-// general path, whose blocks are kvq::vq_sums's partials and whose prep
-// buffer ends with the rows' (z_q - z)^2 (round4(m) floats).
+// ------------------------------------------------ the general path's plan
+
+constexpr int GP_THREADS = 128;                   // the pick kernel: 4 warps
+constexpr int GP_CAP = 16;                        // codes a row keeps before it rechecks them all
+constexpr int GP_SMEM = 55 * 1024;                // the pick kernel's shared memory: four blocks an SM
+constexpr int GP_BATCH = 16;                      // loads a lane issues at once
+constexpr int GP_OUT = 8;                         // z_q's 16-byte chunks a lane takes at once
+constexpr long long GP_CROSS_FLOATS = 1LL << 22;  // the products of a chunk of rows (16 MiB)
+
+__host__ __device__ constexpr int round32(int n) { return (n + 31) & ~31; }
+
+// The pick kernel's shared memory (words): R staged rows of z at ldz and
+// the centre (ldk), then a row's s, candidates, code and task offset, and
+// its kept codes and their sums
+size_t pick_words(int R, bool staged, int ldz, int ldk) {
+  return (staged ? (size_t)R * ldz + ldk : 0) + 4 * (size_t)R + 4 + 2 * (size_t)R * GP_CAP;
+}
+
+// The general path's plan and its scratch, in floats of ws: ec (n_pad x
+// ldk), the centre (round32(d), 0 past d), q (n_pad), the rows' (z_q - z)^2
+// (m), the products of a chunk of rows (chunk x n_pad), z at a stride of ldk
+// where d % 4 != 0 (the GEMM's 16-byte rows), then the grouping's ints.
+struct General {
+  int ldk, n_pad, cenlen, chunk, R, ldz;
+  bool staged, zpad;
+  size_t ec, cen, esq, rowdiff, cross, zp, group, floats;
+};
+
+General general_plan(int m, int d, int n_e) {
+  General P{};
+  P.ldk = round4(d), P.n_pad = round4(n_e), P.cenlen = round32(d);
+  long long chunk = GP_CROSS_FLOATS / P.n_pad / 128 * 128;
+  P.chunk = (int)(chunk < 128 ? 128 : chunk > m ? m : chunk);
+  P.zpad = d % 4 != 0;
+  P.ldz = P.ldk + 4;  // a row 4 banks on from the one before
+  P.R = 4, P.staged = false;
+  for (int R = 16; R >= 4; R /= 2)
+    if (pick_words(R, true, P.ldz, P.ldk) * sizeof(float) <= (size_t)GP_SMEM) {
+      P.R = R, P.staged = true;
+      break;
+    }
+  size_t o = 0;
+  auto take = [&o](size_t n) {
+    const size_t at = o;
+    o += (n + 3) & ~size_t(3);  // 16-byte aligned segments
+    return at;
+  };
+  P.ec = take((size_t)P.n_pad * P.ldk);
+  P.cen = take(P.cenlen);
+  P.esq = take(P.n_pad);
+  P.rowdiff = take(m);
+  P.cross = take((size_t)P.chunk * P.n_pad);
+  P.zp = take(P.zpad ? (size_t)m * P.ldk : 0);
+  P.group = take(kvq::vq_group_plan(m, d, n_e, true).ints);
+  P.floats = o;
+  return P;
+}
+
+// 0 when the shape is refused (no rows, columns or codes, or a general
+// path's scratch past 2^31 floats). warps 0: the general path, whose prep
+// buffer is its whole scratch (no partials).
 int make_plan(int m, int d, int n_e, Plan* p) {
   if (m <= 0 || d <= 0 || n_e <= 0) return 0;
   p->warps = d <= VQ_MAX_DIM ? warps_for(d, n_e) : 0;
+  p->part_width = round4(n_e * d + n_e + 1);  // sum_z | counts | diff | 0 pad
   if (p->warps == 0) {
+    const size_t floats = general_plan(m, d, n_e).floats;
+    if (floats > 0x7fffffff) return 0;
     p->rows_per_block = 0;
-    p->blocks = kvq::vq_sums_row_blocks(m, d, n_e);
-    p->part_width = round4(n_e * d + n_e + 1);
-    p->prep_floats = round4(n_e * d) + round4(d) + round4(n_e) + round4(m);
+    p->blocks = 0;
+    p->prep_floats = static_cast<int>(floats);
     return 1;
   }
   const int per_block = 2 * p->warps;  // a pair of rows a warp at a time
   const int pairs = (m + per_block * VQ_TARGET_BLOCKS - 1) / (per_block * VQ_TARGET_BLOCKS);
   p->rows_per_block = per_block * pairs;
   p->blocks = (m + p->rows_per_block - 1) / p->rows_per_block;
-  p->part_width = round4(n_e * d + n_e + 1);  // sum_z | counts | diff | 0 pad
   p->prep_floats = round4(n_e * d) + round4(d) + round4(n_e);
   return 1;
+}
+
+// kappa of the screen (module comment): twice the bound on |cross' - cross|
+// over ||x|| ||y|| at width d
+float screen_kappa(int d) {
+  const double u = 0x1p-24, grow = 1.0 + 0x1p-9;
+  const double k0 = 0x1p-20 + grow * (0x1p-16 + ((d + 31) / 32) * u) + d * u;
+  return static_cast<float>(2.0 * k0 * (1.0 + 0x1p-20));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -518,156 +620,419 @@ cudaError_t launch_assign(const Plan& p, size_t smem, cudaStream_t st, const flo
 
 // ------------------------------------------------ the general path
 
-constexpr int VQD_ROWS = 64, VQD_CODES = 64, VQD_COLS = 32;  // a block's tile
-constexpr int VQD_THREADS = 256;  // 16 x 16: rows ty + 16 i, codes tx + 16 j
-
-// c (the codebook's mean, summed in code order) and ec = e - c into prep;
-// a thread a column.
+// c (the codebook's mean, summed in code order: the old kernel's bits) into
+// cen (cenlen floats, 0 past d); a thread a column, 32 codes' loads at once
 __global__ void __launch_bounds__(256)
-vq_center_kernel(const float* __restrict__ e, float* __restrict__ prep, int d, int n_e) {
+vq_centre_kernel(const float* __restrict__ e, float* __restrict__ cen, int d, int n_e,
+                 int cenlen) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
+  if (c >= cenlen) return;
+  if (c >= d) {
+    cen[c] = 0.0f;
+    return;
+  }
   float s = 0.0f;
-  for (int k = 0; k < n_e; ++k) s += e[(size_t)k * d + c];
-  const float cs = s / n_e;
-  prep[round4(n_e * d) + c] = cs;
-  for (int k = 0; k < n_e; ++k) prep[(size_t)k * d + c] = e[(size_t)k * d + c] - cs;
+  int k = 0;
+  for (; k + 32 <= n_e; k += 32) {
+    float v[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) v[u] = __ldg(e + (size_t)(k + u) * d + c);
+#pragma unroll
+    for (int u = 0; u < 32; ++u) s += v[u];
+  }
+  for (; k < n_e; ++k) s += __ldg(e + (size_t)k * d + c);
+  cen[c] = s / n_e;
 }
 
-// ||ec||^2 of each code, a warp a code (as vq_prep_kernel sums it)
-__global__ void __launch_bounds__(256) vq_esq_kernel(float* __restrict__ prep, int d, int n_e) {
+// ec = e - c at a stride of ldk (0 past d and past n_e) and q = ||ec||^2
+// (lane-strided fmaf, then the butterfly: the old kernel's bits); a warp a
+// code of n_pad
+__global__ void __launch_bounds__(256)
+vq_ec_kernel(const float* __restrict__ e, const float* __restrict__ cen, float* __restrict__ ec,
+             float* __restrict__ esq, int d, int n_e, int n_pad, int ldk) {
   const int k = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (k >= n_e) return;
+  if (k >= n_pad) return;
   float s = 0.0f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = prep[(size_t)k * d + c];
-    s = fmaf(t, t, s);
+  for (int c = lane; c < ldk; c += 32) {
+    const float t = k < n_e && c < d ? __fsub_rn(e[(size_t)k * d + c], cen[c]) : 0.0f;
+    ec[(size_t)k * ldk + c] = t;
+    if (c < d) s = fmaf(t, t, s);
   }
   s = warp_sum(s);
-  if (lane == 0) prep[round4(n_e * d) + round4(d) + k] = s;
+  if (lane == 0) esq[k] = s;
 }
 
-// Block: rows [64 b, +64). idx, z_q (the straight-through value) and each
-// row's sum of (z_q - z)^2 into rowdiff.
-__global__ void __launch_bounds__(VQD_THREADS)
-vq_dist_kernel(const float* __restrict__ z, const float* __restrict__ codebook,
-               const float* __restrict__ prep, float* __restrict__ zq, int64_t* __restrict__ idx,
-               float* __restrict__ rowdiff, int m, int d, int n_e) {
-  __shared__ float zs[VQD_ROWS][VQD_COLS + 1];   // z - c
-  __shared__ float es[VQD_CODES][VQD_COLS + 1];  // ec
-  __shared__ float sa_s[VQD_ROWS];               // ||z - c||^2
-  __shared__ int k_s[VQD_ROWS];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * VQD_ROWS;
-  const float* ec = prep;
-  const float* cen = prep + round4(n_e * d);
-  const float* esq = cen + round4(d);
+// z (m, d) at a stride of ldk, 0 past d: the GEMM's rows are 16-byte strided
+__global__ void __launch_bounds__(256)
+vq_pad_rows_kernel(const float* __restrict__ z, float* __restrict__ zp, int m, int d, int ldk) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)m * ldk) return;
+  const int r = static_cast<int>(i / ldk), c = static_cast<int>(i % ldk);
+  zp[i] = c < d ? z[(size_t)r * d + c] : 0.0f;
+}
 
-  float bd[4], sa = 0.0f;  // sa: row tid's ||z - c||^2 (tid < 64)
-  int bk[4];
+// sum over c < d, in column order, of fmaf(x_c, y_c, .) from 0, x_c = z_c -
+// cen_c, y_c = y[c] (or x_c where y is null): the old kernel's s and cross
+__device__ __forceinline__ float exact_sum(const float* zr, const float* cs,
+                                          const float* __restrict__ y, int d, bool vec4) {
+  float acc = 0.0f;
+  int c = 0;
+  if (vec4) {
+    for (; c + 4 * GP_BATCH <= d; c += 4 * GP_BATCH) {  // the chunks' loads first
+      float4 yv[GP_BATCH];
+      if (y != nullptr)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) bd[i] = __int_as_float(0x7f800000), bk[i] = 0;
-  for (int k0 = 0; k0 < n_e; k0 += VQD_CODES) {
-    float acc[4][4] = {};
-    for (int c0 = 0; c0 < d; c0 += VQD_COLS) {
-      __syncthreads();
-      for (int e = tid; e < VQD_ROWS * VQD_COLS; e += VQD_THREADS) {
-        const int r = e / VQD_COLS, c = e % VQD_COLS, col = c0 + c;
-        const int row = row0 + r, code = k0 + r;
-        zs[r][c] = row < m && col < d ? z[(size_t)row * d + col] - cen[col] : 0.0f;
-        es[r][c] = code < n_e && col < d ? ec[(size_t)code * d + col] : 0.0f;
-      }
-      __syncthreads();
-      if (k0 == 0 && tid < VQD_ROWS)
-        for (int c = 0; c < VQD_COLS; ++c) sa = fmaf(zs[tid][c], zs[tid][c], sa);
-#pragma unroll 8
-      for (int c = 0; c < VQD_COLS; ++c) {
-        float x[4], y[4];
+        for (int b = 0; b < GP_BATCH; ++b) yv[b] = __ldg(reinterpret_cast<const float4*>(y + c) + b);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = zs[ty + 16 * i][c], y[i] = es[tx + 16 * i][c];
+      for (int b = 0; b < GP_BATCH; ++b) {
+        const float4 zv = *reinterpret_cast<const float4*>(zr + c + 4 * b);
+        const float4 cv = *reinterpret_cast<const float4*>(cs + c + 4 * b);
+        const float x[4] = {__fsub_rn(zv.x, cv.x), __fsub_rn(zv.y, cv.y), __fsub_rn(zv.z, cv.z),
+                            __fsub_rn(zv.w, cv.w)};
+        const float w[4] = {y != nullptr ? yv[b].x : x[0], y != nullptr ? yv[b].y : x[1],
+                            y != nullptr ? yv[b].z : x[2], y != nullptr ? yv[b].w : x[3]};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc = fmaf(x[j], w[j], acc);
       }
     }
-    if (k0 == 0) {
-      if (tid < VQD_ROWS) sa_s[tid] = sa;
-      __syncthreads();
-    }
-    // this thread's codes in increasing order: strict <, the first minimum
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float s = sa_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + tx + 16 * j;
-        if (k < n_e) {
-          const float dist = s + esq[k] - 2.0f * acc[i][j];
-          if (dist < bd[i]) bd[i] = dist, bk[i] = k;
-        }
+    for (; c + 4 <= d; c += 4) {
+      const float4 zv = *reinterpret_cast<const float4*>(zr + c);
+      const float4 cv = *reinterpret_cast<const float4*>(cs + c);
+      const float x[4] = {__fsub_rn(zv.x, cv.x), __fsub_rn(zv.y, cv.y), __fsub_rn(zv.z, cv.z),
+                          __fsub_rn(zv.w, cv.w)};
+      float w[4] = {x[0], x[1], x[2], x[3]};
+      if (y != nullptr) {
+        const float4 yv = __ldg(reinterpret_cast<const float4*>(y + c));
+        w[0] = yv.x, w[1] = yv.y, w[2] = yv.z, w[3] = yv.w;
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc = fmaf(x[j], w[j], acc);
     }
   }
-  // over the 16 threads of a row: the smaller distance, on equal ones the lower code
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd[i], o);
-      const int ok = __shfl_xor_sync(0xffffffffu, bk[i], o);
-      if (od < bd[i] || (od == bd[i] && ok < bk[i])) bd[i] = od, bk[i] = ok;
-    }
-    if (tx == 0) {
-      const int r = ty + 16 * i;
-      k_s[r] = bk[i];
-      if (row0 + r < m) idx[row0 + r] = bk[i];
+  for (; c < d; ++c) {
+    const float x = __fsub_rn(zr[c], cs[c]);
+    acc = fmaf(x, y != nullptr ? __ldg(y + c) : x, acc);
+  }
+  return acc;
+}
+
+struct PickArgs {
+  const float* z;         // (m, d)
+  const float* codebook;  // (n_e, d)
+  const float* ec;        // (n_pad, ldk)
+  const float* cen;       // (cenlen,)
+  const float* esq;       // (n_pad,)
+  const float* cross;     // the chunk's products, (r1 - r0, n_pad)
+  int64_t* idx;
+  float* zq;
+  float* rowdiff;
+  int* hist;              // the grouping's unit counts (vq_group.cuh)
+  int* rechecked;         // null, or each row's codes rechecked exactly (n_e: every code)
+  int d, n_e, n_pad, ldk, ldz, R, staged, r0, r1;
+  float kappa;
+  kvq::VqGroup G;
+};
+
+__device__ __forceinline__ float screen_margin(float nx, float ny, float kappa) {
+  const float s = nx + ny;
+  return fmaf(2.0f * kappa * nx, ny, 0x1p-21f * s * s);
+}
+
+// Rows [r0 + R b, +R) of the chunk [r0, r1): the screen, the exact recheck,
+// the first minimum, then z_q, the row's (z_q - z)^2 and its count (module
+// comment). VEC: z, the codebook and zq 16-byte aligned and d % 4 == 0.
+template <bool VEC>
+__global__ void __launch_bounds__(GP_THREADS, 4) vq_pick_kernel(const PickArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red_d[GP_THREADS / 32];
+  __shared__ int red_k[GP_THREADS / 32];
+  const int R = a.R, d = a.d, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool staged = a.staged != 0, vec4 = staged || VEC;
+  float* zs = sm;                                          // R x ldz: the rows of z
+  float* cs_s = sm + (staged ? (size_t)R * a.ldz : 0);     // ldk: the centre
+  float* sa = cs_s + (staged ? a.ldk : 0);                 // R: s
+  int* cnt = reinterpret_cast<int*>(sa + R);               // R: codes kept (-1: every code)
+  int* kpick = cnt + R;                                    // R
+  int* off = kpick + R;                                    // R + 4: the rows' first task
+  int* kept = off + R + 4;                                 // R x GP_CAP
+  float* kval = reinterpret_cast<float*>(kept + R * GP_CAP);  // R x GP_CAP: their cross
+  const float* cs = staged ? cs_s : a.cen;
+  const int row0 = a.r0 + blockIdx.x * R, rows = min(R, a.r1 - row0);
+  auto zrow = [&](int r) -> const float* {
+    return staged ? zs + (size_t)r * a.ldz : a.z + (size_t)(row0 + r) * d;
+  };
+
+  if (staged) {
+    for (int i = tid; i < a.ldk; i += GP_THREADS) cs_s[i] = a.cen[i];
+    if (VEC) {
+      const int c4 = d / 4;
+      for (int i = tid; i < rows * c4; i += GP_THREADS) {
+        const int r = i / c4, c = 4 * (i % c4);
+        float4 v;
+        asm("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+            : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+            : "l"(a.z + (size_t)(row0 + r) * d + c));
+        *reinterpret_cast<float4*>(zs + (size_t)r * a.ldz + c) = v;
+      }
+    } else {
+      for (int i = tid; i < rows * a.ldk; i += GP_THREADS) {
+        const int r = i / a.ldk, c = i % a.ldk;
+        zs[(size_t)r * a.ldz + c] = c < d ? a.z[(size_t)(row0 + r) * d + c] : 0.0f;
+      }
     }
   }
   __syncthreads();
 
-  // z_q = z + (e[k] - z) and the row's sum of (z_q - z)^2, a warp a row
-  for (int r = warp; r < VQD_ROWS; r += VQD_THREADS / 32) {
-    const int row = row0 + r;
-    if (row >= m) break;
-    const float* q = codebook + (size_t)k_s[r] * d;
+  // the screen, a warp a row; its rows' products on their way to L2 first
+  for (int r = warp; r < rows; r += GP_THREADS / 32)
+    for (int k = 32 * lane; k < a.n_e; k += 32 * 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(a.cross + (size_t)(row0 + r - a.r0) * a.n_pad + k));
+  for (int r = warp; r < rows; r += GP_THREADS / 32) {
+    const float* zr = zrow(r);
+    float ss = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      const float x = __fsub_rn(zr[c], cs[c]);
+      ss = fmaf(x, x, ss);
+    }
+    const float nx = sqrtf(warp_sum(ss));
+    const float* crow = a.cross + (size_t)(row0 + r - a.r0) * a.n_pad;
+    // t' and M of GP_BATCH codes a lane (k0 + lane + 32 b), their loads first
+    auto screen_batch = [&](int k0, float (&t)[GP_BATCH], float (&mg)[GP_BATCH]) {
+      float cr[GP_BATCH], q[GP_BATCH];
+#pragma unroll
+      for (int b = 0; b < GP_BATCH; ++b) {
+        const int k = k0 + lane + 32 * b;
+        cr[b] = k < a.n_e ? crow[k] : 0.0f;
+        q[b] = k < a.n_e ? __ldg(a.esq + k) : 0.0f;
+      }
+#pragma unroll
+      for (int b = 0; b < GP_BATCH; ++b) {
+        t[b] = __fsub_rn(q[b], 2.0f * cr[b]);
+        mg[b] = screen_margin(nx, sqrtf(q[b]), a.kappa);
+      }
+    };
+    float U = __int_as_float(0x7f800000);
+    bool finite = true;
+    float t0[GP_BATCH], mg0[GP_BATCH];  // the first batch, kept for the second pass
+    for (int k0 = 0; k0 < a.n_e; k0 += 32 * GP_BATCH) {
+      float t[GP_BATCH], mg[GP_BATCH];
+      screen_batch(k0, t, mg);
+      if (k0 == 0)
+#pragma unroll
+        for (int b = 0; b < GP_BATCH; ++b) t0[b] = t[b], mg0[b] = mg[b];
+#pragma unroll
+      for (int b = 0; b < GP_BATCH; ++b) {
+        if (k0 + lane + 32 * b >= a.n_e) continue;
+        const float up = __fadd_ru(t[b], mg[b]);
+        finite = finite && isfinite(up);
+        U = fminf(U, up);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) U = fminf(U, __shfl_xor_sync(0xffffffffu, U, o));
+    bool every = !__all_sync(0xffffffffu, finite) || !isfinite(U);
+    int count = 0;
+    if (!every) {
+      for (int k0 = 0; k0 < a.n_e; k0 += 32 * GP_BATCH) {
+        float t[GP_BATCH], mg[GP_BATCH];
+        if (k0 == 0) {
+#pragma unroll
+          for (int b = 0; b < GP_BATCH; ++b) t[b] = t0[b], mg[b] = mg0[b];
+        } else {
+          screen_batch(k0, t, mg);
+        }
+#pragma unroll
+        for (int b = 0; b < GP_BATCH; ++b) {  // codes in order: b, then the lanes
+          const int k = k0 + lane + 32 * b;
+          const bool hit = k < a.n_e && __fsub_rd(t[b], mg[b]) <= U;
+          const unsigned bits = __ballot_sync(0xffffffffu, hit);
+          const int at = count + __popc(bits & ((1u << lane) - 1u));
+          if (hit && at < GP_CAP) kept[r * GP_CAP + at] = k;
+          count += __popc(bits);
+        }
+      }
+      every = count > GP_CAP;
+    }
+    if (lane == 0) cnt[r] = every ? -1 : count;
+  }
+  __syncthreads();
+
+  // the exact sums: a row's s, then its kept codes' cross, a thread each
+  if (tid == 0) {
+    int o = 0;
+    for (int r = 0; r < rows; ++r) off[r] = o, o += 1 + max(cnt[r], 0);
+    off[rows] = o;
+  }
+  __syncthreads();
+  for (int task = tid; task < off[rows]; task += GP_THREADS) {
+    int r = 0;
+    while (off[r + 1] <= task) ++r;
+    const int j = task - off[r];
+    if (j == 0)
+      sa[r] = exact_sum(zrow(r), cs, nullptr, d, vec4);
+    else
+      kval[r * GP_CAP + j - 1] =
+          exact_sum(zrow(r), cs, a.ec + (size_t)kept[r * GP_CAP + j - 1] * a.ldk, d, vec4);
+  }
+  __syncthreads();
+
+  // the first minimum of s + q - 2 cross (strict <, codes in order)
+  if (tid < rows && cnt[tid] >= 0) {
+    float best = __int_as_float(0x7f800000);
+    int bk = 0;
+    for (int j = 0; j < cnt[tid]; ++j) {
+      const int k = kept[tid * GP_CAP + j];
+      const float dist = sa[tid] + __ldg(a.esq + k) - 2.0f * kval[tid * GP_CAP + j];
+      if (dist < best) best = dist, bk = k;
+    }
+    kpick[tid] = bk;
+  }
+  for (int r = 0; r < rows; ++r) {  // a row that rechecks every code: the block's threads
+    if (cnt[r] >= 0) continue;
+    float best = __int_as_float(0x7f800000);
+    int bk = 0;
+    for (int k = tid; k < a.n_e; k += GP_THREADS) {
+      const float dist = sa[r] + __ldg(a.esq + k) -
+                         2.0f * exact_sum(zrow(r), cs, a.ec + (size_t)k * a.ldk, d, vec4);
+      if (dist < best) best = dist, bk = k;
+    }
+    // the smaller distance, on equal distances the lower code
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, best, o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+      if (od < best || (od == best && ok < bk)) best = od, bk = ok;
+    }
+    if (lane == 0) red_d[warp] = best, red_k[warp] = bk;
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < GP_THREADS / 32; ++w)
+        if (red_d[w] < best || (red_d[w] == best && red_k[w] < bk)) best = red_d[w], bk = red_k[w];
+      kpick[r] = bk;
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+
+  // z_q = z + (e[k] - z) (16-byte stores on VEC), the row's sum of (z_q -
+  // z)^2 (lanes over columns c = lane + 32 j in order, the butterfly) and
+  // the row's count
+  for (int r = warp; r < rows; r += GP_THREADS / 32) {
+    const int row = row0 + r, k = kpick[r];
+    const float* zr = zrow(r);
+    const float* q = a.codebook + (size_t)k * d;
+    if (VEC) {
+      for (int c0 = 4 * lane; c0 < d; c0 += 128 * GP_OUT) {  // GP_OUT chunks' loads at once
+        float4 qv[GP_OUT];
+#pragma unroll
+        for (int b = 0; b < GP_OUT; ++b)
+          if (c0 + 128 * b < d) qv[b] = __ldg(reinterpret_cast<const float4*>(q + c0 + 128 * b));
+#pragma unroll
+        for (int b = 0; b < GP_OUT; ++b) {
+          const int c = c0 + 128 * b;
+          if (c >= d) break;
+          const float4 zv = *reinterpret_cast<const float4*>(zr + c);
+          *reinterpret_cast<float4*>(a.zq + (size_t)row * d + c) =
+              make_float4(zv.x + (qv[b].x - zv.x), zv.y + (qv[b].y - zv.y),
+                          zv.z + (qv[b].z - zv.z), zv.w + (qv[b].w - zv.w));
+        }
+      }
+    }
     float df = 0.0f;
     for (int c = lane; c < d; c += 32) {
-      const float zz = z[(size_t)row * d + c], ea = q[c] - zz;
-      zq[(size_t)row * d + c] = zz + ea;
+      const float zz = zr[c], ea = __ldg(q + c) - zz;
+      if (!VEC) a.zq[(size_t)row * d + c] = zz + ea;
       df = fmaf(ea, ea, df);
     }
     df = warp_sum(df);
-    if (lane == 0) rowdiff[row] = df;
+    if (lane == 0) {
+      a.idx[row] = k;
+      a.rowdiff[row] = df;
+      atomicAdd(a.hist + (size_t)a.G.unit_of(row) * a.n_e + k, 1);
+      if (a.rechecked != nullptr) a.rechecked[row] = cnt[r] < 0 ? a.n_e : cnt[r];
+    }
   }
 }
 
-cudaError_t vq_general(const Plan& p, cudaStream_t st, const float* z, const float* codebook,
-                       float* zq, int64_t* idx, float* ws, float* stats, int m, int d, int n_e) {
-  float* prep = ws;
-  float* rowdiff = ws + round4(n_e * d) + round4(d) + round4(n_e);
-  float* parts = ws + p.prep_floats;
-  vq_center_kernel<<<(d + 255) / 256, 256, 0, st>>>(codebook, prep, d, n_e);
-  cudaError_t e = cudaGetLastError();
+template <bool VEC>
+cudaError_t launch_pick(const PickArgs& args, int blocks, size_t smem, cudaStream_t st) {
+  auto* kernel = vq_pick_kernel<VEC>;
+  static unsigned configured = 0;  // a bit per device whose limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  vq_esq_kernel<<<(n_e + 7) / 8, 256, 0, st>>>(prep, d, n_e);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  vq_dist_kernel<<<(m + VQD_ROWS - 1) / VQD_ROWS, VQD_THREADS, 0, st>>>(z, codebook, prep, zq,
-                                                                       idx, rowdiff, m, d, n_e);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return kvq::vq_sums(z, idx, rowdiff, parts, stats, m, d, n_e, st);
+  if (dev >= 32 || !(configured >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) configured |= 1u << dev;
+  }
+  kernel<<<blocks, GP_THREADS, smem, st>>>(args);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+
+// group: null, or kvq_vq_group_ints ints that receive the grouping in
+// place of the scratch (for the codebook gradient); cross_out: null, or (m,
+// n_pad) floats that receive the products in place of the scratch;
+// rechecked: null, or (m,) ints (PickArgs)
+cudaError_t vq_general(const Plan& p, cudaStream_t st, const float* z, const float* codebook,
+                       float* zq, int64_t* idx, float* ws, float* stats, int* group, int m, int d,
+                       int n_e, float* cross_out, int* rechecked) {
+  const General P = general_plan(m, d, n_e);
+  if (!P.zpad && !aligned16(z)) return cudaErrorInvalidValue;  // the GEMM's rows
+  const bool vec_sums = d % 4 == 0 && aligned16(z);
+  const kvq::VqGroup G = kvq::vq_group_plan(m, d, n_e, vec_sums);
+  int* gws = group != nullptr ? group : reinterpret_cast<int*>(ws + P.group);
+  float* cen = ws + P.cen;
+  float* ec = ws + P.ec;
+  float* esq = ws + P.esq;
+  vq_centre_kernel<<<(P.cenlen + 255) / 256, 256, 0, st>>>(codebook, cen, d, n_e, P.cenlen);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  vq_ec_kernel<<<(P.n_pad + 7) / 8, 256, 0, st>>>(codebook, cen, ec, esq, d, n_e, P.n_pad, P.ldk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const float* za = z;
+  int lda = d;
+  if (P.zpad) {
+    float* zp = ws + P.zp;
+    const size_t n = (size_t)m * P.ldk;
+    vq_pad_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(z, zp, m, d, P.ldk);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    za = zp, lda = P.ldk;
+  }
+  if ((e = cudaMemsetAsync(gws + G.hist, 0, (size_t)G.units * n_e * sizeof(int), st)) !=
+      cudaSuccess)
+    return e;
+  PickArgs args{z, codebook, ec, cen, esq, nullptr, idx, zq, ws + P.rowdiff, gws + G.hist,
+                rechecked, d, n_e, P.n_pad, P.ldk, P.ldz, P.R, P.staged ? 1 : 0, 0, 0,
+                screen_kappa(d), G};
+  const bool vec = d % 4 == 0 && aligned16(z) && aligned16(codebook) && aligned16(zq);
+  const size_t smem = pick_words(P.R, P.staged, P.ldz, P.ldk) * sizeof(float);
+  for (int r0 = 0; r0 < m; r0 += P.chunk) {
+    const int rows = m - r0 < P.chunk ? m - r0 : P.chunk;
+    float* cross = cross_out != nullptr ? cross_out + (size_t)r0 * P.n_pad : ws + P.cross;
+    e = static_cast<cudaError_t>(kvq::f32gemm::run_vq_cross(
+        za + (size_t)r0 * lda, lda, cen, ec, P.ldk, rows, P.n_pad, d, cross, st));
+    if (e != cudaSuccess) return e;
+    args.cross = cross, args.r0 = r0, args.r1 = r0 + rows;
+    const int blocks = (rows + P.R - 1) / P.R;
+    e = vec ? launch_pick<true>(args, blocks, smem, st) : launch_pick<false>(args, blocks, smem, st);
+    if (e != cudaSuccess) return e;
+  }
+  return kvq::vq_grouped_sum(G, true, z, idx, nullptr, nullptr, ws + P.rowdiff, gws, stats,
+                             p.part_width, true, false, vec_sums, st);
+}
+
 
 }  // namespace
 
 extern "C" {
 
 // plan (5 ints): warps a block (0: the general path), rows a block, blocks
-// (partials), the width of a partial and of the stats (floats), the prep
-// buffer's floats. Returns 0, or cudaErrorInvalidValue for an empty shape.
+// (partials; 0 on the general path), the width of a partial and of the
+// stats (floats), the prep buffer's floats (on the general path its whole
+// scratch). Returns 0, or cudaErrorInvalidValue for an empty shape.
 int kvq_vq_plan(int m, int d, int n_e, int* plan) {
   Plan p;
   if (!make_plan(m, d, n_e, &p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -676,17 +1041,38 @@ int kvq_vq_plan(int m, int d, int n_e, int* plan) {
   return 0;
 }
 
+// The screen's kappa at width d (vq_fwd.cu's module comment)
+float kvq_vq_screen_kappa(int d) { return screen_kappa(d); }
+
+// The general path as kvq_vq_fwd, and what its screen saw: cross (m,
+// round4(n_e)) f32 receives the tensor-core products (z - c) . (e_k - c),
+// rechecked (m,) int32 the codes each row summed exactly (n_e: every code).
+// cudaErrorInvalidValue where the shape takes the one-pass kernel.
+int kvq_vq_fwd_screen(const float* z, const float* codebook, float* zq, int64_t* idx, float* ws,
+                      float* stats, float* cross, int* rechecked, int m, int d, int n_e,
+                      void* stream) {
+  Plan p;
+  if (!make_plan(m, d, n_e, &p) || p.warps != 0 || !aligned16(ws) || cross == nullptr ||
+      rechecked == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(vq_general(p, static_cast<cudaStream_t>(stream), z, codebook, zq, idx,
+                                     ws, stats, nullptr, m, d, n_e, cross, rechecked));
+}
+
 // z (m, d) f32, codebook (n_e, d) f32 -> zq (m, d) f32, the straight-through
 // value z + (codebook[idx] - z); idx (m,) int64; stats (part_width,) f32:
 // sum_z (n_e, d) | counts (n_e) | diff (1) | 0 pad. ws: prep_floats +
-// blocks * part_width floats of scratch, 16-byte aligned.
+// blocks * part_width floats of scratch, 16-byte aligned. group: null, or
+// on the general path kvq_vq_group_ints ints that receive the rows'
+// grouping by code (for kvq_vq_codebook_grad).
 int kvq_vq_fwd(const float* z, const float* codebook, float* zq, int64_t* idx, float* ws,
-               float* stats, int m, int d, int n_e, void* stream) {
+               float* stats, int* group, int m, int d, int n_e, void* stream) {
   Plan p;
   if (!make_plan(m, d, n_e, &p) || !aligned16(ws)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.warps == 0)
-    return static_cast<int>(vq_general(p, st, z, codebook, zq, idx, ws, stats, m, d, n_e));
+    return static_cast<int>(
+        vq_general(p, st, z, codebook, zq, idx, ws, stats, group, m, d, n_e, nullptr, nullptr));
   float* prep = ws;
   float* parts = ws + p.prep_floats;
   vq_prep_kernel<<<1, PREP_THREADS, 0, st>>>(codebook, prep, d, n_e);

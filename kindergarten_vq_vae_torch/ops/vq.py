@@ -16,6 +16,12 @@ The raw forward is :func:`vq_raw` here and the CUDA kernel in
 :func:`codebook_grad` (``csrc/vq_bwd.cu`` on the card, summed in a fixed
 order; ``index_add_`` on the CPU); everything else is shared.
 
+Beside them, the plain versions of what the card's general path does in
+other arithmetic: :func:`vq_screen_reference` (the tensor-core screen, its
+TF32 split emulated, and the recheck of the codes it keeps) and
+:func:`grouped_sum_reference` (the per-code sums over the rows grouped by
+code, in the kernels' fixed order, to the bit).
+
 The codebook's training extras of ``ops/vq.py`` follow: the EMA codebook
 update (l.99-128), the k-means codebook initialisation (l.131-168) and
 dead-code revival (l.171-198), whose random draws come from a
@@ -70,23 +76,28 @@ RawFn = Callable[[torch.Tensor, torch.Tensor], tuple]
 
 
 def _core(z_flat, codebook, raw_fn: RawFn):
-    """``(z_q_ste, diff, indices, counts, sum_z)`` from a raw forward. A raw
-    forward whose ``returns_ste`` attribute is true (the CUDA kernel's)
-    returns the straight-through value ``z + (z_q - z)`` itself; for the
-    others it is computed here."""
-    zq, idx, counts, sumz, diff = raw_fn(z_flat, codebook)
+    """``(z_q_ste, diff, indices, counts, sum_z, group)`` from a raw forward.
+    A raw forward whose ``returns_ste`` attribute is true (the CUDA
+    kernel's) returns the straight-through value ``z + (z_q - z)`` itself;
+    for the others it is computed here. A raw forward may return a sixth
+    element, the kernel's grouping of the rows by code (int32; None where it
+    left none), which the codebook gradient then takes as it is; ``group``
+    is None for the others."""
+    zq, idx, counts, sumz, diff, *group = raw_fn(z_flat, codebook)
     if not getattr(raw_fn, "returns_ste", False):
         zq = z_flat + (zq - z_flat)
-    return zq, diff, idx, counts, sumz
+    return zq, diff, idx, counts, sumz, group[0] if group else None
 
 
 class VQCore(torch.autograd.Function):
     """``(z_q_ste, diff1, diff2, indices, counts, sum_z)`` of ``z_flat``
-    against ``codebook`` with the custom VJP of ``_fused_vq_core``."""
+    against ``codebook`` with the custom VJP of ``_fused_vq_core``; the raw
+    forward's grouping of the rows by code waits on ``ctx`` for the
+    backward's codebook gradient."""
 
     @staticmethod
     def forward(ctx, z_flat, codebook, raw_fn: RawFn):
-        z_q, diff, idx, counts, sumz = _core(z_flat, codebook, raw_fn)
+        z_q, diff, idx, counts, sumz, ctx.group = _core(z_flat, codebook, raw_fn)
         ctx.save_for_backward(z_flat, codebook, idx)
         ctx.mark_non_differentiable(idx, counts, sumz)
         return z_q, diff, diff.clone(), idx, counts, sumz
@@ -101,7 +112,7 @@ class VQCore(torch.autograd.Function):
                 dz = dz + g_d1 * 2.0 * (z_flat - codebook[idx])
         if ctx.needs_input_grad[1]:
             dE = (torch.zeros_like(codebook) if g_d2 is None
-                  else codebook_grad(z_flat, idx, codebook, g_d2))
+                  else codebook_grad(z_flat, idx, codebook, g_d2, ctx.group))
         return dz, dE, None
 
 
@@ -113,7 +124,7 @@ def codebook_grad_reference(z_flat: torch.Tensor, idx: torch.Tensor, codebook: t
 
 
 def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tensor,
-                  g_d2: torch.Tensor) -> torch.Tensor:
+                  g_d2: torch.Tensor, group: torch.Tensor | None = None) -> torch.Tensor:
     """The codebook's gradient ``dE[k] = sum_{i: idx[i] = k} 2 g_d2 (E[k] -
     z[i])`` of (rows, D) f32 ``z_flat``, (rows,) int64 ``idx`` and (n_e, D)
     f32 ``codebook``; ``g_d2`` a one-element f32 tensor (read on the device:
@@ -122,9 +133,12 @@ def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tenso
 
     CPU tensors take :func:`codebook_grad_reference`. CUDA tensors launch
     ``csrc/vq_bwd.cu``, which sums each code's terms in a fixed order (the
-    same bits in every launch) over any D and codebook (one beyond what
-    shared memory holds at once in code chunks), or raise; each launch adds
-    one to ``codebook_grad.launches``."""
+    same bits in every launch; :func:`grouped_sum_reference` repeats it)
+    over any D and codebook (past ~113 codes at D 768 over the rows grouped
+    by code), or raise; each launch adds one to ``codebook_grad.launches``.
+    ``group``: the grouping of these rows that the VQ forward's general path
+    returned (the raw forward's sixth element, on ``VQCore``'s ``ctx``),
+    which the grouped sums then take as it is."""
     if z_flat.device.type == "cpu":
         return codebook_grad_reference(z_flat, idx, codebook, g_d2)
     if z_flat.device.type != "cuda":
@@ -144,12 +158,15 @@ def codebook_grad(z_flat: torch.Tensor, idx: torch.Tensor, codebook: torch.Tenso
     if plan is None:
         raise ValueError(f"the codebook-gradient kernel takes at least one column and code; "
                          f"got D={d}, n_e={n_e}")
-    row_blocks, width = plan
-    ws = torch.empty((row_blocks * width,), dtype=torch.float32, device=dev)
+    scratch, width = plan
+    ws = torch.empty((scratch,), dtype=torch.float32, device=dev)
     out = torch.empty((width,), dtype=torch.float32, device=dev)
-    _build.launch("kvq_vq_codebook_grad", [_VP] * 6 + [_I] * 3, z_flat.data_ptr(),
+    if group is not None:
+        _build.check_tensor("group", group, group.shape, torch.int32, dev)
+    _build.launch("kvq_vq_codebook_grad", [_VP] * 7 + [_I] * 3, z_flat.data_ptr(),
                   idx.data_ptr(), codebook.data_ptr(), g.data_ptr(), ws.data_ptr(),
-                  out.data_ptr(), m, d, n_e, device=dev)
+                  out.data_ptr(), None if group is None else group.data_ptr(), m, d, n_e,
+                  device=dev)
     codebook_grad.launches += 1
     return out[:n_e * d].view(n_e, d)
 
@@ -159,10 +176,11 @@ codebook_grad.launches = 0
 
 def codebook_grad_plan(z_flat: torch.Tensor, codebook: torch.Tensor) -> tuple[int, int] | None:
     """The codebook-gradient kernel's plan for CUDA tensors ``z_flat`` (m, D)
-    and ``codebook`` (n_e, D), from ``kvq_vq_codebook_grad_plan``: (row
-    blocks, the floats of a partial and of the output), or None for a shape
-    it refuses. Its partials hold at most 2^22 floats of n_e x D sums, or one
-    partial where that is larger (``csrc/vq_bwd.cu``)."""
+    and ``codebook`` (n_e, D), from ``kvq_vq_codebook_grad_plan``: (the
+    floats of its scratch, the floats of the output), or None for a shape it
+    refuses. The one-pass kernel's partials hold at most 2^22 floats of n_e
+    x D sums, or one partial where that is larger; the grouped sums' scratch
+    is the grouping, a few ints a row and a code (``csrc/vq_bwd.cu``)."""
     fn = _build.lib().kvq_vq_codebook_grad_plan
     fn.argtypes = [_I, _I, _I, _VP, _VP, ctypes.POINTER(_I)]
     fn.restype = _I
@@ -171,6 +189,107 @@ def codebook_grad_plan(z_flat: torch.Tensor, codebook: torch.Tensor) -> tuple[in
     if fn(m, d, n_e, z_flat.data_ptr(), codebook.data_ptr(), plan) != 0:
         return None
     return plan[0], plan[1]
+
+
+def screen_kappa(d: int) -> float:
+    """The screen's kappa at width ``d``: twice the bound on |cross' - cross|
+    over ||z - c|| ||e_k - c||, cross' the 3xTF32 product and cross the
+    in-order f32 sum (``csrc/vq_fwd.cu``'s module comment derives it)."""
+    u = 2.0**-24
+    return 2.0 * (2.0**-20 + (1 + 2.0**-9) * (2.0**-16 + -(-d // 32) * u) + d * u) * (1 + 2.0**-20)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` f32 with x = big + small + r: big the TF32 rounding of
+    x (10 mantissa bits, half away from zero: ``cvt.rna``), small that of
+    x - big, |r| <= 2^-22 |x|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+        return (mag | (bits & -0x80000000)).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def vq_screen_reference(z_flat: torch.Tensor, codebook: torch.Tensor,
+                        kappa: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the card's screen and recheck (``csrc/vq_fwd.cu``'s
+    general path), f32 (rows, D) ``z_flat`` against (n_e, D) ``codebook``:
+    ``(kept, indices)``. The products cross' = (z - c) . (e_k - c) come from
+    the TF32 split (:func:`tf32_split`, small * small dropped, the rest
+    summed in f64 and rounded to f32); t'_k = q_k - 2 cross'_k with q_k =
+    ||e_k - c||^2, the margin M_k = 2 kappa ||z - c|| ||e_k - c|| + 2^-21
+    (||z - c|| + ||e_k - c||)^2, U = min_k (t'_k + M_k), and ``kept`` (rows,
+    n_e) the codes with t'_k - M_k <= U. ``indices``: the first minimum of
+    the plain distances (:func:`vq_raw`'s arithmetic) over the kept codes."""
+    center = codebook.mean(0)
+    zc, ec = z_flat - center, codebook - center
+    q = (ec * ec).sum(1)
+    s = (zc * zc).sum(1, keepdim=True)
+    zb, zs = (t.double() for t in tf32_split(zc))
+    eb, es = (t.double() for t in tf32_split(ec))
+    cross = (zs @ eb.T + zb @ es.T + zb @ eb.T).float()
+    t = q - 2.0 * cross
+    nx, ny = s.double().sqrt(), q.double().sqrt()
+    k = screen_kappa(z_flat.shape[1]) if kappa is None else kappa
+    margin = 2.0 * k * nx * ny + 2.0**-21 * (nx + ny) ** 2
+    upper = t.double() + margin
+    kept = t.double() - margin <= upper.min(1, keepdim=True).values
+    dist = s + q - 2.0 * (zc @ ec.T)
+    return kept, dist.masked_fill(~kept, float("inf")).argmin(1)
+
+
+def grouped_order(rows: int, d: int, n_e: int, vec: bool = True) -> tuple[int, int]:
+    """``(rows_per_block, slots)`` of the card's per-code sums at (rows, D) x
+    n_e (``csrc/vq_bwd.cu`` ``row_plan`` and ``order_warps``): as many row
+    blocks, at most 128, as 2^22 floats hold n_e x D sums, each a multiple of
+    16 rows; 4 slots, or 2 or 1 where the one-pass kernel's four per-warp
+    slabs of 128 columns (32 off the 16-byte path, ``vec``) do not fit in
+    232,448 bytes of shared memory but fewer do."""
+    fit = (1 << 22) // (n_e * d)
+    per = -(-rows // max(1, min(fit, 128)))
+    cw = min(d, 128 if vec else 32)
+    slots = next((w for w in (4, 2, 1) if (w * cw + 1) * n_e * 4 <= 232448), 4)
+    return -(-per // 16) * 16, slots
+
+
+def grouped_sum_reference(terms: torch.Tensor, idx: torch.Tensor, n_e: int,
+                          rows_per_block: int, slots: int) -> torch.Tensor:
+    """Plain version of the card's per-code sums (``csrc/vq_bwd.cu``), to the
+    bit: out[k] sums the (rows, D) f32 ``terms`` of the rows with idx = k,
+    in the kernels' fixed order. The rows are grouped by a stable sort on
+    (code, row block, slot); in each row block of ``rows_per_block`` rows, slot w (w <
+    ``slots``) adds its rows row0 + w + j slots in order from 0; a block's
+    partial is its slots in order; strip s adds the partials of row blocks
+    s, s + 8, ... in order from 0; out is strip 0 + ... + strip 7. Every add
+    is one f32 add of whole rows (each term as the caller rounded it); a code
+    no row picks is exactly 0."""
+    rows, d = terms.shape
+    n_blocks = -(-rows // rows_per_block)
+    every = torch.arange(rows, device=idx.device)
+    # the rows grouped by (code, block, slot), each group's rows ascending,
+    # and a row's rank in its group
+    key = (idx * n_blocks + every // rows_per_block) * slots + every % slots
+    row = torch.sort(key, stable=True).indices
+    code, block, slot, key = idx[row], row // rows_per_block, row % slots, key[row]
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    rank = every - torch.cummax(torch.where(first, every, 0), 0).values
+    acc = torch.zeros(n_e, n_blocks, slots, d, dtype=terms.dtype, device=terms.device)
+    for r in range(int(rank.max()) + 1 if rows else 0):
+        at = rank == r
+        acc[code[at], block[at], slot[at]] += terms[row[at]]
+    strips = torch.zeros(8, n_e, d, dtype=terms.dtype, device=terms.device)
+    for b in range(n_blocks):
+        part = acc[:, b, 0].clone()
+        for w in range(1, slots):
+            part += acc[:, b, w]
+        strips[b % 8] += part
+    out = strips[0].clone()
+    for w in range(1, 8):
+        out += strips[w]
+    return out
 
 
 def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn) -> VQOutput:
@@ -189,7 +308,7 @@ def assemble(z: torch.Tensor, codebook: torch.Tensor, beta: float, raw_fn: RawFn
     if torch.is_grad_enabled() and (z.requires_grad or codebook.requires_grad):
         z_q, d1, d2, idx, counts, sumz = VQCore.apply(z_flat, codebook, raw_fn)
     else:  # serving: no autograd bookkeeping
-        z_q, d1, idx, counts, sumz = _core(z_flat, codebook, raw_fn)
+        z_q, d1, idx, counts, sumz, _ = _core(z_flat, codebook, raw_fn)
         d2 = d1
     numel, rows = z_flat.numel(), z_flat.shape[0]
     mesh = active_mesh()

@@ -74,6 +74,8 @@ FAMILIES = (
     # epilogues (EPI_CE_FWD 9, EPI_CE_BWD 10)
     ("gemm_f32_kernel<false, true, 9>", "fused head + CE forward (#9: GEMM + CE epilogue)"),
     ("gemm_f32_kernel<false, true, 10>", "fused head + CE backward (#10: g, dbias partials)"),
+    # the VQ general path's distance products (EPI_VQ_CROSS 11)
+    ("gemm_f32_kernel<false, true, 11>", "VQ forward"),
     ("gemm_f32_kernel<false, false", "layer GEMM f32, forward (3xTF32)"),
     ("gemm_f32_kernel<false, true", "layer GEMM f32, dgrad (3xTF32)"),
     ("gemm_f32_kernel<true, false", "layer GEMM f32, wgrad split-K partials (3xTF32)"),
@@ -94,10 +96,17 @@ FAMILIES = (
     ("colsum_kernel", "column sums (bias gradients)"),
     ("ce_fwd_kernel", "CE forward"),
     ("ce_bwd", "CE backward"),
-    # csrc/vq_bwd.cu: vq_codebook_grad_kernel<VEC, SUMZ>; with SUMZ the VQ
-    # forward's per-code sums on its general path
-    ("vq_codebook_grad_kernel<true, false>", "VQ codebook gradient (5+)"),
-    ("vq_codebook_grad_kernel<false, false>", "VQ codebook gradient (5+)"),
+    # csrc/vq_bwd.cu: the one-pass vq_codebook_grad_kernel<VEC>; the grouped
+    # sums' kernels <V, SUMZ>, SUMZ the VQ forward's per-code statistics on
+    # its general path (the grouping's count, scan and scatter run in the
+    # forward, which hands the grouping to the codebook gradient)
+    ("vq_codebook_grad_kernel", "VQ codebook gradient (5+)"),
+    ("vq_grouped_sum_kernel<4, false>", "VQ codebook gradient (5+)"),
+    ("vq_grouped_sum_kernel<1, false>", "VQ codebook gradient (5+)"),
+    ("vq_grouped_piece_kernel<4, false>", "VQ codebook gradient (5+)"),
+    ("vq_grouped_piece_kernel<1, false>", "VQ codebook gradient (5+)"),
+    ("vq_grouped_fold_kernel<4, false>", "VQ codebook gradient (5+)"),
+    ("vq_grouped_fold_kernel<1, false>", "VQ codebook gradient (5+)"),
     ("vq_", "VQ forward"),
     ("nvjet", CUBLAS),
     ("gemm", CUBLAS),
@@ -135,8 +144,6 @@ HEAD_BWD_FIRST = {"gemm_kernel<128, false, false, 10>": _BF16_NEXT,
 REDUCE = "colparts_reduce"
 REDUCE_AFTER = (
     ("vq_assign_kernel", "VQ forward"),
-    ("vq_codebook_grad_kernel<true, true>", "VQ forward"),
-    ("vq_codebook_grad_kernel<false, true>", "VQ forward"),
     ("vq_codebook_grad_kernel", "VQ codebook gradient (5+)"),
     ("ln_bwd_kernel", "LayerNorm backward"),
     ("colsum_kernel", "column sums (bias gradients)"),

@@ -60,8 +60,15 @@ dtypes. The f32 attention forward and backward at the step's (2048, 12,
 accumulator a 3xTF32 product, up to 128 deep), at the same f32 bars.
 Past the one-pass kernels: the VQ's general path at 38, 64, 512 and 1,024
 codes x D 768 and 1,280 at the rows above (the same bars), two equal codes
-across its 64-code tiles; the codebook gradient in code chunks (512 and
-1,024 codes); the attention past 32 tokens (csrc/attention_long.cu) at
+across its 128-code tiles; its screen (the tensor-core products within
+kappa / 2 of the f64 product of the same f32 operands, every row rechecking
+at least its own code) and its per-code sums the bits of the plain grouped
+sum, at 512 x 768, 1,024 x 1,280, 300 x 66 (an element row, z copied to a
+16-byte stride) and 9 x 1,025; a codebook far from the origin with
+duplicates across tiles; the codebook gradient over the grouped rows the
+bits of the plain grouped sum at 512 and 1,024 codes, 200 and 300 codes
+(2 and 1 slots), skewed codes (long codes) and the element path; the
+attention past 32 tokens (csrc/attention_long.cu) at
 (s_q, s_k) in {33, 64, 65, 512} and across and at 8 sentences x 512,
 head_dim 64, 128 and 33, bf16 and f32, every entry, at the same bars, each
 entry's two launches the same bits, and its keep masks at 33 and 64 rows;
@@ -216,9 +223,17 @@ from kindergarten_vq_vae_torch.ops.vq import (
     codebook_grad,
     codebook_grad_plan,
     codebook_grad_reference,
+    grouped_order,
+    grouped_sum_reference,
+    screen_kappa,
     vector_quantize,
 )
-from kindergarten_vq_vae_torch.ops.vq_kernel import vector_quantize_kernel, vq_plan
+from kindergarten_vq_vae_torch.ops.vq_kernel import (
+    vector_quantize_kernel,
+    vq_general_screen,
+    vq_plan,
+    vq_screen_kappa,
+)
 from kindergarten_vq_vae_torch.train.variants import make_loss_fn
 
 pytestmark = pytest.mark.cuda
@@ -421,10 +436,10 @@ def test_vq_kernel_first_minimum_on_equal_codes(gen):
 
 
 def test_vq_kernel_general_path_first_minimum_on_equal_codes(gen):
-    """The general path (100 codes at D 768: two 64-code chunks of its
-    distance tiles): code 5 is a copy of code 2 and codes 70 and 99 of code
-    66, across the chunks; rows near them take 2 and 66, as the plain
-    version's first minimum does."""
+    """The general path (100 codes at D 768): code 5 is a copy of code 2 and
+    codes 70 and 99 of code 66; the screen keeps every copy and the recheck
+    gives the copies the same distance, so rows near them take 2 and 66, as
+    the plain version's first minimum does."""
     n_e, d = 100, 768
     assert vq_plan(4096, d, n_e)[0] == 0
     e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / 9
@@ -474,7 +489,7 @@ def test_vq_kernel_rejects_what_it_does_not_take(gen):
 def test_codebook_grad_kernel_matches_plain(gen, rows, d, n_e, near):
     """Codes drawn with skewed shares, the last code never (a zero row);
     ``near``: each row 1e-4 from its code. 512 and 1,024 codes at D 768 and
-    1,280: past ~450 codes the kernel takes code chunks."""
+    1,280: past ~113 codes (D 768) the sums over the rows grouped by code."""
     e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
     share = torch.arange(n_e, 0, -1, device="cuda", dtype=torch.float32) ** 2
     share[-1] = 0.0
@@ -502,19 +517,34 @@ def test_codebook_grad_kernel_matches_plain(gen, rows, d, n_e, near):
     (24576, 1024, 8192),
 ])
 def test_vq_scratch_stays_bounded(gen, rows, d, n_e):
-    """The codebook gradient's partials, and those of the VQ general path's
-    per-code sums, hold at most 2^22 floats of n_e x D sums, or one partial
-    where that is larger; the step's 9 codes keep their 128 partials."""
+    """The codebook gradient's scratch: the one-pass kernel's partials hold
+    at most 2^22 floats of n_e x D sums (the step's 9 codes keep their 128
+    partials); the grouped sums' is the grouping, a few ints a row and a
+    (unit, code), and the long codes' partials (a (row block, slot) piece's
+    columns: at most 4 n_e D row blocks, so at most 4 x 2^22 floats). The VQ
+    general path's: the centred codebook, the products of a chunk of rows
+    (at most 2^22 floats, or 128 rows where a row's products are more), the
+    rows' (z_q - z)^2 and the grouping; no partials."""
     z = torch.empty(rows, d, device="cuda")
     e = torch.empty(n_e, d, device="cuda")
-    row_blocks, width = codebook_grad_plan(z, e)
+    scratch, width = codebook_grad_plan(z, e)
     assert width >= n_e * d
-    assert row_blocks * n_e * d <= max(1 << 22, n_e * d)
-    if n_e == 9:
-        assert row_blocks == 128
-    warps, _, blocks, part_width, _ = vq_plan(rows, d, n_e)
+    rpb, _ = grouped_order(rows, d, n_e)
+    n_rb, units = -(-rows // rpb), -(-rows // rpb) * -(-rpb // 1024)
+    long_max = min(n_e, rows // 161)
+    grouping = (units * n_e + rows + 8 * n_e + (long_max + 1) * (n_rb + 2) + 64
+                + long_max * n_rb * 4 * (-(-d // 128) * 128))
+    if n_e <= 37:
+        assert scratch // width * n_e * d <= max(1 << 22, n_e * d)
+        if n_e == 9:
+            assert scratch == 128 * width
+    else:
+        assert scratch <= grouping
+    warps, _, blocks, part_width, prep = vq_plan(rows, d, n_e)
     if warps == 0:
-        assert blocks == row_blocks and part_width >= n_e * d + n_e + 1
+        n_pad, ldk = -(-n_e // 4) * 4, -(-d // 4) * 4
+        assert blocks == 0 and part_width >= n_e * d + n_e + 1
+        assert prep <= n_pad * ldk + 2 * ldk + 32 + n_pad + rows + max(1 << 22, 128 * n_pad) + grouping
 
 
 def test_codebook_grad_kernel_through_the_vq_gradient(gen):
@@ -530,6 +560,160 @@ def test_codebook_grad_kernel_through_the_vq_gradient(gen):
     g = torch.tensor(3.0 * 0.25 / z.numel(), device="cuda")
     want = codebook_grad_reference(z.detach().view(-1, 768), idx, e.detach(), g)
     assert _rel_max(e.grad, want) <= 1e-5
+
+
+def _kernel_centre(e):
+    """The general path's centre: the codes summed in order, then / n_e."""
+    c = torch.zeros(e.shape[1], device=e.device)
+    for k in range(e.shape[0]):
+        c += e[k]
+    return c / e.shape[0]
+
+
+@pytest.mark.parametrize("rows,d,n_e", [(4096, 768, 512), (3000, 1280, 1024), (777, 66, 600),
+                                        (4099, 1025, 9)])
+def test_vq_general_path_screen_and_recheck(gen, rows, d, n_e):
+    """The screen's tensor-core products within kappa / 2 of the f64 product
+    of the same f32 operands (the kernel's own centre); every row rechecks at
+    least one code and none every code; the codes the f64 argmin's off near
+    ties; sum_z the plain grouped sum's bits; two launches the same bits."""
+    assert vq_plan(rows, d, n_e)[0] == 0
+    z = torch.randn(rows, d, device="cuda", generator=gen)
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
+    zq, idx, stats, cross, rechecked = vq_general_screen(z, e)
+    _, idx2, stats2, _, _ = vq_general_screen(z, e)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx2) and torch.equal(stats, stats2)
+    c = _kernel_centre(e)
+    x, y = (z - c).double(), (e - c).double()
+    scale = x.norm(dim=1, keepdim=True) * y.norm(dim=1)
+    kappa = vq_screen_kappa(d)
+    assert abs(kappa - screen_kappa(d)) <= 1e-6 * kappa
+    assert ((cross.double() - x @ y.T).abs() / scale).max().item() <= kappa / 2
+    assert bool((rechecked >= 1).all()) and bool((rechecked < n_e).all())
+    near, picked = _vq_near_ties(z, e, idx)
+    assert bool(picked.all())
+    assert torch.equal(zq, z + (e[idx] - z))
+    rpb, slots = grouped_order(rows, d, n_e, d % 4 == 0)
+    assert torch.equal(stats[:n_e * d].view(n_e, d), grouped_sum_reference(z, idx, n_e, rpb, slots))
+    assert torch.equal(stats[n_e * d:n_e * d + n_e], torch.bincount(idx, minlength=n_e).float())
+
+
+def test_vq_general_path_far_from_origin_with_duplicates(gen):
+    """512 codes on a shell of norm 27.6, ~0.06 apart, codes 5 and 200 copies
+    of 2 and 300, 511 of 130 (across 128-code tiles), rows near random codes:
+    the copies' rows take the lowest copy, every code is the f64 argmin's
+    or within its near-tie bar, and the plain version's off near ties."""
+    d, n_e, rows = 768, 512, 8192
+    base = torch.randn(d, device="cuda", generator=gen)
+    base *= 27.6 / base.norm()
+    e = base + 0.06 / 2**0.5 * torch.randn(n_e, d, device="cuda", generator=gen) / d**0.5
+    for a, b in ((5, 2), (200, 2), (300, 130), (511, 130)):
+        e[a] = e[b]
+    pick = torch.randint(0, n_e, (rows,), device="cuda", generator=gen)
+    z = e[pick] + 0.02 / d**0.5 * torch.randn(rows, d, device="cuda", generator=gen)
+    with torch.inference_mode():
+        k = vector_quantize_kernel(z.view(1, rows, d), e, 0.25)
+        p = vector_quantize(z.view(1, rows, d), e, 0.25)
+    idx = k.indices.view(-1)
+    assert not bool(torch.isin(idx, torch.tensor([5, 200, 300, 511], device="cuda")).any())
+    near, picked = _vq_near_ties(z, e, idx)
+    assert bool(picked.all())
+    assert not bool(((idx != p.indices.view(-1)) & ~near).any())
+
+
+def test_vq_hands_its_grouping_to_the_codebook_gradient(gen):
+    """Through ``VQCore`` at 512 codes (the general path): the forward's
+    grouping reaches the backward's node, and dE has the bits of a launch
+    that groups the rows itself."""
+    z = torch.randn(64, 48, 768, device="cuda", generator=gen, requires_grad=True)
+    e = ((torch.rand(512, 768, device="cuda", generator=gen) * 2 - 1) / 512).requires_grad_()
+    out = vector_quantize_kernel(z, e, 0.25)
+    nodes, todo = [], [out.loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and node not in nodes:
+            nodes.append(node)
+            todo += [f for f, _ in node.next_functions]
+    core = [n for n in nodes if "VQCore" in type(n).__name__]
+    assert core and getattr(core[0], "group", None) is not None
+    out.loss.backward()
+    g = torch.tensor(0.25 / z.numel(), device="cuda")
+    want = codebook_grad(z.detach().view(-1, 768), out.indices.view(-1), e.detach(), g)
+    assert torch.equal(e.grad, want)
+
+
+@pytest.mark.parametrize("d,n_e", [(66, 600), (1030, 600)])
+def test_vq_long_codes_stay_in_their_scratch(gen, d, n_e):
+    """150 of the grouping's at most 152 long codes hold 163 rows each (of
+    24,576; the other rows spread over the other codes), on the element path
+    (D % 4 != 0, whose slots differ from the 16-byte path's: 2 against 1 at D
+    66). The forward writes nothing past its scratch or the grouping it
+    returns, nor does the codebook gradient past that grouping (guard tails
+    keep their values); the forward's codes are the rows' own and its sum_z
+    the plain grouped sum's bits; dE has the plain grouped sum's bits from
+    the handed grouping and through ``VQCore``'s backward."""
+    import ctypes
+
+    from kindergarten_vq_vae_torch import _build
+    from kindergarten_vq_vae_torch.ops.vq_kernel import vq_group_ints
+
+    rows, n_long, per = 24576, 150, 163
+    e = torch.randn(n_e, d, device="cuda", generator=gen)
+    rest = n_long + torch.randint(0, n_e - n_long, (rows - n_long * per,), device="cuda",
+                                  generator=gen)
+    assign = torch.cat([torch.arange(n_long, device="cuda").repeat_interleave(per), rest])
+    assign = assign[torch.randperm(rows, device="cuda", generator=gen)]
+    z = e[assign] + 0.01 * torch.randn(rows, d, device="cuda", generator=gen)
+    warps, _, _, width, prep = vq_plan(rows, d, n_e)
+    ints = vq_group_ints(rows, d, n_e)
+    assert warps == 0 and ints > 0
+    ws = torch.full((2 * prep,), 7.0, device="cuda")
+    group = torch.full((2 * ints,), -7, dtype=torch.int32, device="cuda")
+    zq, stats = torch.empty_like(z), torch.empty((width,), device="cuda")
+    idx = torch.empty((rows,), dtype=torch.int64, device="cuda")
+    _build.launch("kvq_vq_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3, z.data_ptr(),
+                  e.data_ptr(), zq.data_ptr(), idx.data_ptr(), ws.data_ptr(), stats.data_ptr(),
+                  group.data_ptr(), rows, d, n_e, device=z.device)
+    torch.cuda.synchronize()
+    assert bool((ws[prep:] == 7.0).all()) and bool((group[ints:] == -7).all())
+    assert torch.equal(idx, assign)
+    rpb, slots = grouped_order(rows, d, n_e, False)
+    assert torch.equal(stats[:n_e * d].view(n_e, d),
+                       grouped_sum_reference(z, idx, n_e, rpb, slots))
+    gd = torch.tensor(0.25 / z.numel(), device="cuda")
+    want = grouped_sum_reference(gd * 2.0 * (e[idx] - z), idx, n_e, rpb, slots)
+    got = codebook_grad(z, idx, e, gd, group[:ints])
+    torch.cuda.synchronize()
+    assert bool((group[ints:] == -7).all()) and torch.equal(got, want)
+    zr, er = z.clone().requires_grad_(), e.clone().requires_grad_()
+    out = vector_quantize_kernel(zr.view(1, rows, d), er, 0.25)
+    out.loss.backward()
+    assert torch.equal(out.indices.view(-1), assign) and torch.equal(er.grad, want)
+
+
+@pytest.mark.parametrize("rows,d,n_e,skew", [
+    (24576, 768, 512, 0), (24576, 768, 512, 4), (24576, 768, 512, 60), (5000, 768, 200, 0),
+    (5000, 768, 300, 0), (4096, 1280, 1024, 0), (333, 66, 1024, 0), (24577, 1280, 1024, 4),
+    (3001, 66, 600, 60),
+])
+def test_codebook_grad_grouped_sums_bits(gen, rows, d, n_e, skew):
+    """The codebook gradient over the rows grouped by code has the plain
+    grouped sum's bits (the one-pass order: 4, 2 or 1 slots, 128-row-block
+    strips), with skewed codes (shares ~ (n_e - k)^skew: at 4 the first codes
+    take hundreds of rows, at 60 a few codes take every row: the long codes'
+    pieces and fold), the element path (D 66) and a code no row picks."""
+    e = (torch.rand(n_e, d, device="cuda", generator=gen) * 2 - 1) / n_e
+    share = (torch.arange(n_e, 0, -1, device="cuda", dtype=torch.float64) / n_e) ** skew
+    share[-1] = 0.0
+    idx = torch.multinomial(share, rows, replacement=True, generator=gen)
+    z = torch.randn(rows, d, device="cuda", generator=gen)
+    g = torch.tensor(0.37 / rows, device="cuda")
+    got = codebook_grad(z, idx, e, g)
+    torch.cuda.synchronize()
+    rpb, slots = grouped_order(rows, d, n_e, d % 4 == 0)
+    assert torch.equal(got, grouped_sum_reference(g * 2.0 * (e[idx] - z), idx, n_e, rpb, slots))
+    assert bool((got[-1] == 0).all())
 
 
 @pytest.mark.parametrize("decoder,B,S,SK,H,NH,F,dtype", [
