@@ -286,7 +286,32 @@ Phases (each raises on failure, so the exit code is 0 only if all pass):
    plain version of the route
    refused: at ``vq_n_e`` 512 (batch 2048 x 12), at 64 tokens (batch 256,
    bf16) and at 64 tokens in f32 (batch 64), each step's launches as
-   counted (#1, #2, #5, 5+, #7, #8, #14).
+   counted (#1, #2, #5, 5+, #7, #8, #14);
+21. every hidden width and head size the JAX package runs (``phase_wide``):
+   the LayerNorm kernels' rows past 1,024 columns (``csrc/layernorm.cu``'s
+   block-a-row kernels) alone at 3,072 and 24,576 rows x 1,032, 1,280,
+   1,600, 4,096 and 8,200 columns, the residual + LayerNorm (x bf16 and f32)
+   and the backward (gy bf16 and f32 over bf16 rows, f32 rows), dropout 0.1,
+   against their plain versions (every keep bit of da the plain mask's, the
+   sums the same bits twice), timed in turns with them, with the byte bound,
+   ``F.layer_norm`` after the add and ``aten.native_layer_norm_backward``;
+   the attention past head_dim 128 (``csrc/attention_long.cu``'s 128-column
+   chunks) at head_dim 136, 192, 256, 384 and 768 x 12, 33, 64 and 512
+   tokens, bf16 and f32, through every entry (self causal padded, cross over
+   padded keys, #13 with a fully masked sentence; dropout 0.1) against the
+   plain versions, the backward's bits twice, the layer's attention timed in
+   turns with the plain version beside the bound and
+   ``F.scaled_dot_product_attention`` (flash in bf16 up to head_dim 256,
+   memory-efficient otherwise), every entry at head_dim 192 x (2048, 12);
+   then training steps through the default route, dropout on, every plain
+   version refused, every launch counted with its wide share: the
+   Shelgon3-VQ with a GPT-2 decoder at gpt2-large's published widths (n_embd
+   1,280, 20 heads, 36 blocks, n_inner 5,120, vocabulary 50,257) and the
+   BERT encoder at that width and depth (36 fused layers on the wide
+   LayerNorm), bf16 at batch 256 x 12; its BERT-decoder twin, 4 + 4 layers,
+   bf16 at batch 256 and f32 at batch 64; bert-base with 4 heads (head_dim
+   192) in bf16 at batch 2048 x 12 and 256 x 64 tokens and in f32 at batch
+   64 x 12.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -411,6 +436,22 @@ TWIN_EPOCHS, TWIN_GAP = 2, 0.02
 # training steps at vq_n_e LONG_CODES (batch 2048 x 12) and at LONG_SEQ
 # tokens (batch LONG_BATCH; in f32 at LONG_F32_BATCH), LONG_STEPS each
 LONG_CODES, LONG_SEQ, LONG_BATCH, LONG_F32_BATCH, LONG_STEPS = 512, 64, 256, 64, 4
+# wide phase: the hidden widths and head sizes past the first kernels'
+# limits. The LayerNorm kernels alone at WIDE_LN_ROWS x WIDE_LN_WIDTHS (the
+# kernels line's rows at WIDE_LN_TABLE, the gpt2-large step's 3,072 rows);
+# the attention at WIDE_HEADS x WIDE_SEQS ((tokens, sentences); the line's
+# rows at WIDE_ATTN_TABLE, the head_dim-192 step's shape); the training
+# steps, WIDE_STEPS each, at batch WIDE_BATCH (f32: WIDE_F32_BATCH) at the
+# widths of GPT2_LARGE: Hugging Face's gpt2-large config (n_embd 1,280,
+# n_head 20, n_layer 36, n_inner 5,120; its vocabulary GPT2_VOCAB and 1,024
+# positions are the GPT-2 decoder's own), the encoder and VQ at that width
+WIDE_LN_ROWS, WIDE_LN_WIDTHS, WIDE_LN_TABLE = (3072, 24576), (1032, 1280, 1600, 4096, 8200), (
+    3072, 1280)
+WIDE_HEADS, WIDE_ATTN_TABLE = (136, 192, 256, 384, 768), (192, 12)
+WIDE_SEQS = ((12, 2048), (33, 256), (64, 256), (512, 16))
+WIDE_BATCH, WIDE_F32_BATCH, WIDE_STEPS = 256, 64, 4
+GPT2_LARGE = dict(hidden_size=1280, num_heads=20, num_layers=36, intermediate_size=5120,
+                  vq_e_dim=1280)
 MESH_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "head_ce_fwd", "head_ce_bwd",
                 "table_grad", "adam")
 MESH_GLOO_KERNELS = ("layer_fwd", "layer_bwd", "vq", "codebook_grad", "ce_fwd_ids", "ce_bwd",
@@ -484,6 +525,14 @@ def _graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
     return _time_ms(graph.replay, reps) / calls
 
 
+def _paired_graph_ms(kernel_fn, plain_fn, iters: int = 10) -> tuple[float, float]:
+    """``_paired_ms`` with the kernel timed as a CUDA graph (``_graph_ms``):
+    for calls whose host work outlasts their kernels."""
+    p1, k1 = _time_ms(plain_fn, iters), _graph_ms(kernel_fn)
+    k2, p2 = _graph_ms(kernel_fn), _time_ms(plain_fn, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def _rel_max(got, want) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
@@ -537,6 +586,7 @@ def _counters() -> dict:
     counts["layer_fwd_resid"] = w["layer_fwd"].residual_launches
     counts["gemm_in_fwd"] = w["gemm"].forward_launches
     counts.update({f"{k}_f32": w[k].f32_launches for k in F32_KERNELS})
+    counts.update({f"{k}_wide": w[k].wide_launches for k in WIDE_KERNELS})
     return counts
 
 
@@ -550,6 +600,8 @@ def _reset_counters() -> None:
     w["gemm"].forward_launches = 0
     for k in F32_KERNELS:
         w[k].f32_launches = 0
+    for k in WIDE_KERNELS:
+        w[k].wide_launches = 0
 
 
 # wrappers with an f32 instance: ``_counters`` adds each one's f32 share as
@@ -557,6 +609,24 @@ def _reset_counters() -> None:
 F32_KERNELS = ("layer_fwd", "layer_bwd", "attn_fwd", "attn_bwd", "ce_fwd_ids", "ce_fwd",
                "ce_bwd", "gemm", "ln_fwd", "ln_bwd", "colsum", "head_ce_fwd", "head_ce_bwd",
                "table_grad", "sdpa_fwd", "sdpa_bwd", "mha")
+
+
+# wrappers whose kernels have a wide path: the LayerNorm's rows past 1,024
+# (a block a row) and the attention's heads past 128 columns (the long
+# path's chunks); ``_counters`` adds each one's wide share as ``<name>_wide``
+WIDE_KERNELS = ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd", "sdpa_fwd", "sdpa_bwd", "mha")
+
+
+def _as_wide(want: dict, rows: bool, heads: bool) -> dict:
+    """Expected counts of a run whose LayerNorm rows (``rows``) or heads
+    (``heads``) take the wide paths: ``want`` with those launches counted
+    again as wide ones."""
+    out = dict(want)
+    for k, on in (("ln_fwd", rows), ("ln_bwd", rows), ("attn_fwd", heads), ("attn_bwd", heads),
+                  ("sdpa_fwd", heads), ("sdpa_bwd", heads), ("mha", heads)):
+        out[f"{k}_wide"] = (want[f"{k}_self"] + want[f"{k}_cross"] if k in _SPLIT
+                            else want[k]) if on else 0
+    return out
 
 
 def _as_f32(want: dict) -> dict:
@@ -570,11 +640,12 @@ def _as_f32(want: dict) -> dict:
 
 
 def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0,
-                   encoder_backwards: int = 0) -> dict:
+                   encoder_backwards: int = 0, layers: int = 12) -> dict:
     """The launches of the layer GEMM, of the attention forward and of the
     LayerNorm and column-sum kernels made inside the layer kernels in that
-    many model forwards (12 encoder and 12 decoder layers), backwards and
-    encoder-only forwards and backwards, as counted: a residual + LayerNorm after each
+    many model forwards (``layers`` encoder and as many decoder layers),
+    backwards and encoder-only forwards and backwards, as counted: a
+    residual + LayerNorm after each
     projection into the residual stream (2 an encoder layer, 3 a decoder
     layer), a LayerNorm backward for each, and the column sums of bqkv (and
     of a decoder's bq and bkv; b1 comes from a GEMM's epilogue)."""
@@ -583,14 +654,15 @@ def _inside_layers(forwards: int, backwards: int = 0, encoder_forwards: int = 0,
     geom = dict(num_heads=12, head_dim=64, intermediate=3072, eps=1e-12, gelu_exact=True)
     enc = layer_gemms(LayerGeom(causal=False, has_cross=False, **geom))
     dec = layer_gemms(LayerGeom(causal=True, has_cross=True, **geom))
-    fwd = 12 * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
-    bwd = 12 * (backwards * (enc[1] + dec[1]) + encoder_backwards * enc[1])
+    L = layers
+    fwd = L * (forwards * (enc[0] + dec[0]) + encoder_forwards * enc[0])
+    bwd = L * (backwards * (enc[1] + dec[1]) + encoder_backwards * enc[1])
     return {"gemm": fwd + bwd, "gemm_in_fwd": fwd,
-            "attn_fwd_self": 12 * (2 * forwards + encoder_forwards),
-            "attn_fwd_cross": 12 * forwards,
-            "ln_fwd": 12 * (5 * forwards + 2 * encoder_forwards),
-            "ln_bwd": 12 * (5 * backwards + 2 * encoder_backwards),
-            "colsum": 12 * (4 * backwards + encoder_backwards)}
+            "attn_fwd_self": L * (2 * forwards + encoder_forwards),
+            "attn_fwd_cross": L * forwards,
+            "ln_fwd": L * (5 * forwards + 2 * encoder_forwards),
+            "ln_bwd": L * (5 * backwards + 2 * encoder_backwards),
+            "colsum": L * (4 * backwards + encoder_backwards)}
 
 
 def _nbytes(*objs) -> int:
@@ -2527,22 +2599,22 @@ def _padded_mask(g, batch: int):
     return (torch.arange(SEQ, device="cuda")[None] < lens[:, None]).to(torch.int32)
 
 
-def _library_sdpa(q, k, v, mask, causal: bool, pin: bool = False):
-    """``F.scaled_dot_product_attention`` at rate 0 on the same inputs, with
-    the head transposes: its forward call, and the call of its autograd
-    backward given g (a yardstick only: the port never calls it). ``pin``:
-    its backend pinned with ``torch.nn.attention.sdpa_kernel``, flash in bf16
-    (which takes no mask: ``is_causal`` alone, the padded keys unmasked) and
-    memory-efficient in f32 (with the mask), and a third value, the
-    backend's name; else PyTorch picks its own kernel."""
+def _library_sdpa(q, k, v, mask, causal: bool, pin: bool = False, nh: int = 12):
+    """``F.scaled_dot_product_attention`` at rate 0 on the same inputs (``nh``
+    heads), with the head transposes: its forward call, and the call of its
+    autograd backward given g (a yardstick only: the port never calls it).
+    ``pin``: its backend pinned with ``torch.nn.attention.sdpa_kernel``, flash
+    in bf16 up to head_dim 256 (which takes no mask: ``is_causal`` alone, the
+    padded keys unmasked) and memory-efficient otherwise (with the mask), and
+    a third value, the backend's name; else PyTorch picks its own kernel."""
     import contextlib
 
     import torch
     import torch.nn.functional as F
 
     b, s, H = q.shape
-    heads = [t.reshape(b, t.shape[1], 12, H // 12).transpose(1, 2) for t in (q, k, v)]
-    flash = pin and q.dtype == torch.bfloat16
+    heads = [t.reshape(b, t.shape[1], nh, H // nh).transpose(1, 2) for t in (q, k, v)]
+    flash = pin and q.dtype == torch.bfloat16 and H // nh <= 256
     attn = None
     if not flash and (mask is not None or causal):
         attn = torch.ones(b, 1, s, k.shape[1], dtype=torch.bool, device="cuda")
@@ -2949,6 +3021,334 @@ def phase_long(names: tuple[str, str]) -> dict:
     return res
 
 
+def _wide_layernorm(names: tuple[str, str], g) -> dict:
+    """The LayerNorm kernels' rows past 1,024 columns (``csrc/layernorm.cu``'s
+    block-a-row kernels) alone at WIDE_LN_ROWS x WIDE_LN_WIDTHS: the residual
+    + LayerNorm (x bf16 or f32) and the backward (v bf16 with gy bf16 or f32;
+    v and gy f32), dropout 0.1, each held to its plain version at phase 2c's
+    bars, every keep bit of da equal to the plain mask's, the backward's sums
+    the same bits in two launches; each timed in turns with its plain
+    version, beside its byte bound and library call; at 3,072 rows, where a
+    call's host work outlasts its kernels, the kernel and the library call
+    as CUDA graphs (``_graph_ms``). Returns the rows of the kernels line:
+    (3,072, 1,280), the gpt2-large step's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from kindergarten_vq_vae_torch.ops.dropout import OP_MLP_OUT, hidden_keep
+    from kindergarten_vq_vae_torch.ops.layer import (
+        layernorm_backward,
+        layernorm_backward_reference,
+        residual_layernorm,
+        residual_layernorm_reference,
+    )
+
+    rate, eps, seed, dev = 0.1, 1e-12, 4321, "cuda"
+    res = {}
+    for M in WIDE_LN_ROWS:
+        for N in WIDE_LN_WIDTHS:
+            iters = 10 if M * N <= 2**23 else 3
+            paired, lib_timer = ((_paired_graph_ms, lambda fn, _: _graph_ms(fn)) if M <= 4096
+                                 else (_paired_ms, _time_ms))
+            how = ", kernel and library as CUDA graphs" if M <= 4096 else ""
+            gamma = 1.0 + 0.1 * torch.randn(N, device=dev, generator=g)
+            gamma[N - 5] = 0.0  # a dead column: yhat 0, no dgamma
+            beta = 0.1 * torch.randn(N, device=dev, generator=g)
+            keep = hidden_keep(seed, OP_MLP_OUT, M, N, rate, dev)
+            a = 0.5 * torch.randn(M, N, device=dev, generator=g) + 0.2
+            for dtype in (torch.bfloat16, torch.float32):
+                tag = "bf16" if dtype == torch.bfloat16 else "f32"
+                x = torch.randn(M, N, device=dev, generator=g).to(dtype)
+                out, inv = residual_layernorm(x, a, gamma, beta, eps, seed, OP_MLP_OUT, rate)
+                torch.cuda.synchronize()
+                want_out, want_inv = residual_layernorm_reference(x, a, gamma, beta, eps, keep)
+                r = x.float() + a * keep
+                mu = r.mean(-1, keepdim=True)
+                f32_out = (r - mu) * want_inv[:, None] * gamma + beta
+                excess = max(_gemm_excess(out, f32_out), _rel_max(inv, want_inv) - LN_REL)
+                if not _finite(out) or excess > 0:
+                    _fail(f"wide residual_layernorm ({M},{N}) {tag} disagrees with its plain "
+                          f"version (excess {excess:.3e})")
+                k_ms, p_ms = paired(
+                    lambda: residual_layernorm(x, a, gamma, beta, eps, seed, OP_MLP_OUT, rate),
+                    lambda: residual_layernorm_reference(
+                        x, a, gamma, beta, eps, hidden_keep(seed, OP_MLP_OUT, M, N, rate, dev)),
+                    iters)
+                lib_ms = lib_timer(lambda: F.layer_norm(x.float() + a, (N,), gamma, beta, eps),
+                                   iters)
+                bound = _bound(0.0, _nbytes(x, a, gamma, beta, out, inv), PEAK_F32)
+                err = (out.float() - want_out.float()).abs().max().item()
+                print(f"wide residual_layernorm ({M},{N}) x {tag}, dropout {rate}{how}: "
+                      f"{k_ms:.4f} ms, "
+                      f"bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / k_ms:.1%} of it), plain "
+                      f"{p_ms:.4f} ms, x + a then F.layer_norm {lib_ms:.4f} ms, max abs {err:.3e}"
+                      f" ({names[0]}; nvidia-smi: {names[1]})")
+                if (M, N) == WIDE_LN_TABLE:
+                    res[f"ln_fwd_{tag}"] = {
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+                        "library_ms": lib_ms, "library": "x + a then F.layer_norm (no dropout)"}
+                del x, out, inv, want_out, want_inv, r, f32_out
+            v16 = torch.randn(M, N, device=dev, generator=g).bfloat16()
+            inv = 0.5 + 1.5 * torch.rand(M, device=dev, generator=g)
+            rows = torch.randn(M, N, device=dev, generator=g)  # f32 pre-LN rows, the yardstick's
+            mean_r = rows.mean(-1, keepdim=True)
+            rstd_r = torch.rsqrt(rows.var(-1, unbiased=False, keepdim=True) + eps)
+            for tag, v, gy_dtype in (("gy bf16", v16, torch.bfloat16),
+                                     ("gy f32", v16, torch.float32),
+                                     ("f32", v16.float(), torch.float32)):
+                gy = torch.randn(M, N, device=dev, generator=g).to(gy_dtype)
+                got = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+                torch.cuda.synchronize()
+                want = layernorm_backward_reference(gy, v, inv, gamma, beta, keep)
+                excess = max(_rel_max(got[0], want[0]) - LN_REL, _gemm_excess(got[1], want[1]),
+                             *(_rel_max(a_, b_) - COLSUM_REL for a_, b_ in zip(got[2:], want[2:])))
+                kept = torch.equal(got[1] != 0, keep != 0)  # dr is never 0 on these rows
+                again = layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate)
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(got[2:], again[2:]))
+                if not all(_finite(t) for t in got) or excess > 0 or not same or not kept \
+                        or got[2][N - 5].item() != 0.0:
+                    _fail(f"wide layernorm_backward ({M},{N}) {tag} disagrees with its plain "
+                          f"version (excess {excess:.3e}, keep bits {kept}) or its sums differ "
+                          f"from run to run ({same})")
+                err = max((a_.float() - b_.float()).abs().max().item() for a_, b_ in zip(got, want))
+                k_ms, p_ms = paired(
+                    lambda: layernorm_backward(gy, v, inv, gamma, beta, seed, OP_MLP_OUT, rate),
+                    lambda: layernorm_backward_reference(
+                        gy, v, inv, gamma, beta, hidden_keep(seed, OP_MLP_OUT, M, N, rate, dev)),
+                    iters)
+                gy32 = gy.float()
+                lib_ms = lib_timer(lambda: torch.ops.aten.native_layer_norm_backward(
+                    gy32, rows, (N,), mean_r, rstd_r, gamma, beta, (True, True, True)), iters)
+                bound = _bound(0.0, _nbytes(gy, v, inv, gamma, beta, got), PEAK_F32)
+                print(f"wide layernorm_backward ({M},{N}) v {str(v.dtype)[6:]}, {tag}, dropout "
+                      f"{rate}{how}: {k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+                      f"{bound[0] / k_ms:.1%} of it), plain {p_ms:.4f} ms, "
+                      f"aten.native_layer_norm_backward {lib_ms:.4f} ms, max abs {err:.3e}, keep "
+                      f"bits exact, sums bit for bit twice ({names[0]}; nvidia-smi: {names[1]})")
+                if (M, N) == WIDE_LN_TABLE:
+                    res[f"ln_bwd_{tag.replace(' ', '_')}"] = {
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": [bound],
+                        "library_ms": lib_ms,
+                        "library": "aten.native_layer_norm_backward (f32 rows; no keep mask, "
+                                   "no da)"}
+                del gy, got, want, again, gy32
+            del v16, inv, rows, mean_r, rstd_r, a, keep
+            torch.cuda.empty_cache()
+    return res
+
+
+def _wide_attention(names: tuple[str, str], g, dtype) -> dict:
+    """The attention past head_dim 128 (``csrc/attention_long.cu``'s
+    128-column chunks; ``dtype`` bf16 or f32) through every entry at
+    WIDE_HEADS x WIDE_SEQS (768 // head_dim heads, at least one): the layer's
+    forward and backward (#1a, #3 / #4) self causal with a padded mask and
+    cross over padded keys, #11 / #12 (the same), #13 causal with a padded
+    mask and a fully masked sentence (its rows uniform over every key);
+    dropout 0.1; each held to its plain version, the backward's two launches
+    the same bits; the layer's self forward and backward timed in turns with
+    their plain versions at every shape, beside the bound and
+    ``F.scaled_dot_product_attention`` (flash in bf16 up to head_dim 256,
+    memory-efficient otherwise), and every entry so at WIDE_ATTN_TABLE, the
+    head_dim-192 step's shape (the rows of the kernels line); then #11 / #12
+    (self, cross) and #13 once through their autograd (their launches)."""
+    import torch
+
+    from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
+    from kindergarten_vq_vae_torch.ops.dropout import cross_op
+    from kindergarten_vq_vae_torch.ops.layer import (
+        attention_backward,
+        attention_backward_reference,
+        attention_forward,
+        attention_forward_reference,
+    )
+    from kindergarten_vq_vae_torch.ops.sdpa import (
+        fused_sdpa,
+        sdpa_backward,
+        sdpa_backward_reference,
+        sdpa_forward,
+        sdpa_forward_reference,
+    )
+
+    f32 = dtype == torch.float32
+    tag, peak = ("f32", PEAK_3XTF32) if f32 else ("bf16", PEAK_BF16)
+    fwd_tol, bwd_tol = (F32_FWD, F32_GRAD) if f32 else (TRAIN_REL, TRAIN_REL)
+    seed = int(torch.randint(-2**31, 2**31 - 1, (1,), generator=g, device="cuda"))
+    res = {}
+
+    def held(what, got, want, tol):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(_rel_max(a, b) for a, b in zip(got, want))
+        if err > tol or not all(_finite(a) and a.dtype == dtype and a.shape == b.shape
+                                for a, b in zip(got, want)):
+            _fail(f"wide attention ({tag}): {what} disagrees with its plain version "
+                  f"(max rel {err:.3e}, tol {tol})")
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+    for hd in WIDE_HEADS:
+        NH = max(1, 768 // hd)
+        H = NH * hd
+        for S, B in WIDE_SEQS:
+            table = (hd, S) == WIDE_ATTN_TABLE
+            line = []
+            for cross in (False, True):
+                kind, causal = ("cross", False) if cross else ("self", True)
+                op = cross_op(NH) if cross else 0
+                if cross:
+                    packed = torch.randn(B, S, H, device="cuda", generator=g).to(dtype)
+                    kv = torch.randn(B, S, 2 * H, device="cuda", generator=g).to(dtype)
+                    q, (k, v) = packed, kv.split(H, -1)
+                else:
+                    packed = torch.randn(B, S, 3 * H, device="cuda", generator=g).to(dtype)
+                    kv = None
+                    q, k, v = packed.split(H, -1)
+                lens = torch.randint(1, S + 1, (B,), device="cuda", generator=g)
+                mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).to(torch.int32)
+                mask[1] = 0  # a fully masked sentence
+                gr = torch.randn(B, S, H, device="cuda", generator=g).to(dtype)
+                la = (packed, kv, mask, NH, causal, seed, op, 0.1)
+                lb = (packed, kv, mask, gr, NH, causal, seed, op, 0.1)
+                sa, skw = (q, k, v, mask, seed), dict(num_heads=NH, causal=causal, rate=0.1)
+                with torch.no_grad():
+                    errs = {
+                        "fwd": held(f"attention_forward {kind} hd {hd} at {S}",
+                                    attention_forward(*la), attention_forward_reference(*la),
+                                    fwd_tol),
+                        "bwd": held(f"attention_backward {kind} hd {hd} at {S}",
+                                    attention_backward(*lb), attention_backward_reference(*lb),
+                                    bwd_tol),
+                        "sdpa_fwd": held(f"sdpa_forward {kind} hd {hd} at {S}",
+                                         sdpa_forward(*sa, cross=cross, **skw),
+                                         sdpa_forward_reference(*sa, **skw), fwd_tol),
+                        "sdpa_bwd": held(f"sdpa_backward {kind} hd {hd} at {S}",
+                                         sdpa_backward(*sa, gr, cross=cross, **skw),
+                                         sdpa_backward_reference(*sa, gr, **skw), bwd_tol)}
+                    if not cross:
+                        out = mha_forward(q, k, v, mask, NH, causal)
+                        errs["mha"] = held(f"mha_forward hd {hd} at {S}", out,
+                                           mha_reference(q, k, v, mask, NH, causal), fwd_tol)
+                        uniform = _rel_max(out[1], v[1].float().mean(0).expand(S, H))
+                        if uniform > fwd_tol:
+                            _fail(f"wide attention ({tag}): #13's fully masked sentence is not "
+                                  f"uniform over its keys (hd {hd} at {S}: {uniform:.3e})")
+                    one, two = attention_backward(*lb), attention_backward(*lb)
+                    one, two = (one, two) if cross else ((one,), (two,))
+                    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+                        _fail(f"wide attention ({tag}): two launches of attention_backward "
+                              f"{kind} hd {hd} at {S} differ")
+                    del one, two
+                timed = ("fwd", "bwd") if not cross or table else ()
+                if table:
+                    timed += ("sdpa_fwd", "sdpa_bwd") + (() if cross else ("mha",))
+                if timed:
+                    iters = 10 if table else 3
+                    calls = {
+                        "fwd": (lambda: attention_forward(*la),
+                                lambda: attention_forward_reference(*la)),
+                        "bwd": (lambda: attention_backward(*lb),
+                                lambda: attention_backward_reference(*lb)),
+                        "sdpa_fwd": (lambda: sdpa_forward(*sa, cross=cross, **skw),
+                                     lambda: sdpa_forward_reference(*sa, **skw)),
+                        "sdpa_bwd": (lambda: sdpa_backward(*sa, gr, cross=cross, **skw),
+                                     lambda: sdpa_backward_reference(*sa, gr, **skw)),
+                        "mha": (lambda: mha_forward(q, k, v, mask, NH, causal),
+                                lambda: mha_reference(q, k, v, mask, NH, causal))}
+                    lib_fwd, lib_bwd, backend = _library_sdpa(q, k, v, mask, causal, pin=True,
+                                                              nh=NH)
+                    products = B * NH * S * S * hd
+                    bf = _bound(4 * products, _nbytes(q, k, v, mask, gr), peak)
+                    bb = _bound(10 * products, _nbytes(q, k, v, mask, gr, q, k, v), peak)
+                    with torch.no_grad():
+                        lf = _time_ms(lib_fwd, iters)
+                        ms = {key: _paired_ms(*calls[key], iters) for key in timed}
+                    lb_ms = _time_ms(lib_bwd, iters)
+                    for key, (k_ms, p_ms) in ms.items():
+                        bwd = key.endswith("bwd")
+                        b_ = bb if bwd else bf
+                        line.append(f"{key} {kind} {k_ms:.4f} ms (plain {p_ms:.4f}, bound "
+                                    f"{b_[0]:.4f} {b_[1]}, {b_[0] / k_ms:.1%})")
+                        if table:
+                            res[f"{key}_{kind}"] = {
+                                "max_abs_err": errs[key], "ms": k_ms, "plain_ms": p_ms,
+                                "bound": [b_], "library_ms": lb_ms if bwd else lf,
+                                "library": ("autograd backward of " if bwd else "")
+                                + f"F.scaled_dot_product_attention, {tag}, backend {backend} "
+                                  "(rate 0, head transposes)"}
+                    line.append(f"SDPA {backend} {kind} fwd {lf:.4f} / bwd {lb_ms:.4f} ms")
+                    del lib_fwd, lib_bwd
+                del packed, kv, q, k, v, gr, mask
+            print(f"wide attention {tag} hd {hd} x {NH} heads, ({B},{S}) self causal padded / "
+                  f"cross over padded keys, dropout 0.1: every entry held, backward bits twice; "
+                  + "; ".join(line) + f" ({names[0]}; nvidia-smi: {names[1]})")
+            torch.cuda.empty_cache()
+
+    # #11 / #12 (self causal, then cross) and #13 through their autograd at
+    # the table's head_dim: their launches, each a wide one
+    hd, S = WIDE_ATTN_TABLE
+    NH = 768 // hd
+    leaves = [torch.randn(8, S, NH * hd, device="cuda", generator=g).to(dtype).requires_grad_()
+              for _ in range(3)]
+    _reset_counters()
+    fused_sdpa(*leaves, None, seed, NH, True, 0.1).float().sum().backward()
+    fused_sdpa(*leaves, None, seed, NH, False, 0.1, cross=True).float().sum().backward()
+    fused_mha(*leaves, None, NH, True).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = _counters()
+    sdpa_keys = [f"sdpa_{d}_{kind}" for d in ("fwd", "bwd") for kind in ("self", "cross")]
+    res["sdpa_launches"] = {k_: counts[k_] for k_ in sdpa_keys}
+    res["mha_launches"] = counts["mha"]
+    wide = {k_: counts[f"{k_}_wide"] for k_ in ("sdpa_fwd", "sdpa_bwd", "mha")}
+    print(f"wide attention {tag}: fused_sdpa (self, cross) and fused_mha through their autograd "
+          f"at (8,{S},{NH * hd}), head_dim {hd}: launches {res['sdpa_launches']}, mha "
+          f"{res['mha_launches']}, wide {wide}")
+    if res["sdpa_launches"] != dict.fromkeys(sdpa_keys, 1) or counts["mha"] != 1 \
+            or wide != {"sdpa_fwd": 2, "sdpa_bwd": 2, "mha": 1}:
+        _fail(f"wide attention ({tag}): the autograd runs did not launch the wide kernels once")
+    del leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_wide(names: tuple[str, str]) -> dict:
+    """Every hidden width and head size the JAX package runs (phase 21): the
+    wide LayerNorm kernels and the wide-head attention alone
+    (``_wide_layernorm``, ``_wide_attention`` in bf16 and f32); then the
+    training steps through the default ("auto") route, dropout 0.1 / 0.1,
+    seeded weights, WIDE_STEPS steps each, every plain version of the route
+    refused and every launch counted (the wide shares among them): the
+    Shelgon3-VQ with the GPT-2 decoder at gpt2-large's published widths and
+    the BERT encoder at the same width and depth (bf16, batch WIDE_BATCH x
+    12); the BERT-decoder twin at those widths, 4 + 4 layers (bf16 at batch
+    WIDE_BATCH, f32 at WIDE_F32_BATCH); bert-base with 4 heads (head_dim
+    192): bf16 at batch 2048 x 12, bf16 at WIDE_BATCH x 64 tokens, f32 at
+    WIDE_F32_BATCH x 12."""
+    import torch
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    res = {"ln": _wide_layernorm(names, g)}
+    res["attn"] = _wide_attention(names, g, torch.bfloat16)
+    res["attn_f32"] = _wide_attention(names, g, torch.float32)
+    t1 = time.perf_counter()
+    large = dict(GPT2_LARGE, decoder_model_name="gpt2", decoder_vocab_size=GPT2_VOCAB)
+    res["train_large"] = phase_train(names, steps=WIDE_STEPS, batch=WIDE_BATCH, over=large)
+    twin = dict(GPT2_LARGE, num_layers=4)
+    res["train_twin"] = phase_train(names, steps=WIDE_STEPS, batch=WIDE_BATCH, over=twin)
+    res["train_twin_f32"] = phase_train(names, steps=WIDE_STEPS, batch=WIDE_F32_BATCH,
+                                        dtype="float32", over=twin)
+    heads = {"num_heads": 4}
+    res["train_hd"] = phase_train(names, steps=WIDE_STEPS, over=heads)
+    res["train_hd_seq"] = phase_train(names, steps=WIDE_STEPS, batch=WIDE_BATCH, seq=LONG_SEQ,
+                                      over=heads)
+    res["train_hd_f32"] = phase_train(names, steps=WIDE_STEPS, batch=WIDE_F32_BATCH,
+                                      dtype="float32", over=heads)
+    t2 = time.perf_counter()
+    print(f"wide: kernels alone {t1 - t0:.1f} s, steps {t2 - t1:.1f} s; step medians: "
+          + ", ".join(f"{k} {res[k]['median_ms']:.2f} ms ({res[k]['peak_gib']:.2f} GiB)"
+                      for k in res if k.startswith("train"))
+          + f" ({names[0]}; nvidia-smi: {names[1]})")
+    return res
+
+
 def _train_cfg():
     from kindergarten_vq_vae_torch.config import RunConfig
 
@@ -3033,28 +3433,36 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
                               compute_dtype=dtype, tokenized_sentence_max_length=seq,
                               **(over or {}))
     fused, f32 = head_ce in HEAD_MODES, dtype == "float32"
+    gpt2, L = "gpt" in cfg.decoder_model_name, cfg.num_layers
     torch.cuda.empty_cache()
     model = build_model(cfg, device="cuda", fused_head=fused)
     init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
     state = init_train_state(cfg, model)
     step = make_train_step(cfg, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
-    sents, batch = batch, _train_batch(batch, seq)
+    sents, batch = batch, _gpt2_batch(batch, seq) if gpt2 else _train_batch(batch, seq)
     n_params = sum(p.numel() for p in model.parameters())
-    # per step: 24 layer forwards (keeping residuals) and backwards, with 24 self-
-    # and 12 cross-attention backwards inside them, or on the per-module trunk
-    # 24 self- and 12 cross-attention SDPA forwards and backwards; one VQ; the
-    # CE forward and backward (#7, #8) or, with the fused head, #9, #10 and the
-    # table gradient; one
-    # AMSGrad update over every leaf
+    # per step (L layers each side): 2 L layer forwards (keeping residuals) and
+    # backwards, with 2 L self- and L cross-attention backwards inside them, or
+    # on the per-module trunk 2 L self- and L cross-attention SDPA forwards and
+    # backwards (with the GPT-2 decoder, plain PyTorch as XLA in JAX, the
+    # encoder's L alone); one VQ; the CE forward and backward (#7, #8) or, with
+    # the fused head, #9, #10 and the table gradient; one AMSGrad update over
+    # every leaf
     per_step = {k: 0 for k in _counters()}
     per_step.update(vq=1, codebook_grad=1, adam=1)
     if fused_layer == "off":
-        per_step.update(sdpa_fwd_self=24, sdpa_fwd_cross=12, sdpa_bwd_self=24, sdpa_bwd_cross=12)
+        per_step.update(sdpa_fwd_self=2 * L, sdpa_fwd_cross=L, sdpa_bwd_self=2 * L,
+                        sdpa_bwd_cross=L)
+    elif gpt2:
+        per_step.update(layer_fwd=L, layer_fwd_resid=L, layer_bwd=L, attn_bwd_self=L,
+                        **_inside_layers(0, encoder_forwards=1, encoder_backwards=1, layers=L))
     else:
-        per_step.update(layer_fwd=24, layer_fwd_resid=24, layer_bwd=24, attn_bwd_self=24,
-                        attn_bwd_cross=12, **_inside_layers(1, 1))
+        per_step.update(layer_fwd=2 * L, layer_fwd_resid=2 * L, layer_bwd=2 * L,
+                        attn_bwd_self=2 * L, attn_bwd_cross=L, **_inside_layers(1, 1, layers=L))
     per_step.update({"head_ce_fwd": 1, "head_ce_bwd": 1, "table_grad": 1} if fused
                     else {"ce_fwd_ids": 1, "ce_bwd": 1})
+    per_step = _as_wide(per_step, cfg.hidden_size > 1024,
+                        cfg.hidden_size // cfg.num_heads > 128)
     if f32:
         per_step = _as_f32(per_step)
     torch.cuda.synchronize()
@@ -3080,7 +3488,9 @@ def phase_train(names: tuple[str, str], head_ce: str = "auto", steps: int = TRAI
     med = statistics.median(times[1:])
     what = (f"fused_head_ce {head_ce!r}, fused_layer {fused_layer!r}, {dtype}"
             + "".join(f", {k} {v}" for k, v in (over or {}).items()))
-    print(f"train slice ({what}): bert-base shelgon3-VQ, {n_params} parameters, "
+    width = (f"H {cfg.hidden_size}, {cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}, "
+             f"{L} + {L} layers, {'GPT-2' if gpt2 else 'BERT'} decoder")
+    print(f"train slice ({what}): shelgon3-VQ ({width}), {n_params} parameters, "
           f"batch {sents} x {seq}, dropout 0.1/0.1, AMSGrad lr 1e-4, {steps} steps; "
           f"launches per step {per_step}, total {counts}")
     for i, (loss, dt) in enumerate(zip(losses, times)):
@@ -3967,15 +4377,15 @@ def _gpt2_cfg(**over):
                                decoder_vocab_size=GPT2_VOCAB, **over)
 
 
-def _gpt2_batch(batch: int) -> dict:
+def _gpt2_batch(batch: int, seq: int = SEQ) -> dict:
     """``_train_batch`` with seeded decoder ids in [1, 50,257) (the BPE side
-    of the dual tokenization, which Bagon's decoder reads)."""
+    of the dual tokenization, which the GPT-2 decoder reads)."""
     import numpy as np
     import torch
 
-    out = _train_batch(batch)
+    out = _train_batch(batch, seq)
     rng = np.random.default_rng(SEED + 4)
-    out["dec_input_ids"] = torch.from_numpy(rng.integers(1, GPT2_VOCAB, (batch, SEQ))).cuda()
+    out["dec_input_ids"] = torch.from_numpy(rng.integers(1, GPT2_VOCAB, (batch, seq))).cuda()
     out["dec_attention_mask"] = out["attention_mask"]
     return out
 
@@ -5449,6 +5859,7 @@ def main() -> None:
     phase_data(names)
     phase_twin(names)
     lo = phase_long(names)
+    wd = phase_wide(names)
     n = tr["auto"]["counts"]
     n32 = f32["train"]["counts"]
     off = tr["off"]["counts"]
@@ -5592,6 +6003,39 @@ def main() -> None:
           for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
         *[row(f"mha_forward{f}, {LONG_SEQ} tokens", "attention_long.cu",
               "attention_pallas.py:65", lo[a_key]["mha_launches"], lo[a_key]["mha_self"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
+        # the wide paths (phase 21): the LayerNorm's rows past 1,024 at (3,072,
+        # 1,280), launches from the gpt2-large step's run (bf16) and its
+        # BERT-decoder twin's (f32); the attention's heads past 128 at head_dim
+        # 192 x (2048, 12), launches from the head_dim-192 steps' runs (bf16,
+        # f32), #11 / #12 / #13's from their own autograd runs
+        *[row(f"residual_layernorm{f}, rows of {WIDE_LN_TABLE[1]} (a block a row)",
+              "layernorm.cu", "layer_pallas.py:164", wd[t_key]["counts"]["ln_fwd_wide"],
+              wd["ln"][f"ln_fwd_{d}"])
+          for f, d, t_key in (("", "bf16", "train_large"), (" f32", "f32", "train_twin_f32"))],
+        *[row(f"layernorm_backward{f}, rows of {WIDE_LN_TABLE[1]} (a block a row)",
+              "layernorm.cu", "layer_pallas.py:175", wd[t_key]["counts"]["ln_bwd_wide"],
+              wd["ln"][f"ln_bwd_{d}"])
+          for f, d, t_key in ((" (gy bf16)", "gy_bf16", "train_large"),
+                              (" (gy f32)", "gy_f32", "train_large"),
+                              (" f32", "f32", "train_twin_f32"))],
+        *[row(f"attention_forward{f} in layer_forward, head_dim {WIDE_ATTN_TABLE[0]} ({kind})",
+              "attention_long.cu", "layer_pallas.py:244",
+              wd[t_key]["counts"][f"attn_fwd_{kind}"], wd[a_key][f"fwd_{kind}"])
+          for f, t_key, a_key in (("", "train_hd", "attn"), (" f32", "train_hd_f32", "attn_f32"))
+          for kind in ("self", "cross")],
+        *[row(f"attention_backward{f}, head_dim {WIDE_ATTN_TABLE[0]} ({kind})",
+              "attention_long.cu", f"layer_pallas.py:{line}",
+              wd[t_key]["counts"][f"attn_bwd_{kind}"], wd[a_key][f"bwd_{kind}"])
+          for f, t_key, a_key in (("", "train_hd", "attn"), (" f32", "train_hd_f32", "attn_f32"))
+          for kind, line in (("self", 696), ("cross", 712))],
+        *[row(f"sdpa_{d}{f}, head_dim {WIDE_ATTN_TABLE[0]} ({kind})", "attention_long.cu",
+              f"sdpa_pallas.py:{line}", wd[a_key]["sdpa_launches"][f"sdpa_{d}_{kind}"],
+              wd[a_key][f"sdpa_{d}_{kind}"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))
+          for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
+        *[row(f"mha_forward{f}, head_dim {WIDE_ATTN_TABLE[0]}", "attention_long.cu",
+              "attention_pallas.py:65", wd[a_key]["mha_launches"], wd[a_key]["mha_self"])
           for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "

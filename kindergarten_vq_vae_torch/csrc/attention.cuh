@@ -70,7 +70,8 @@ namespace {
 
 using namespace kvq;
 
-// this file's kernels: up to 32 queries and keys (attention_long.cuh beyond)
+// this file's kernels: up to 32 queries and keys and head_dim 128
+// (attention_long.cuh beyond either)
 constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128;
 constexpr int ATT_WARPS = 4;                 // the most warps of a CTA
 constexpr int ATT_SMEM_MAX = 227 * 1024;     // the most dynamic shared memory of a CTA
@@ -644,7 +645,8 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
                   static_cast<const bf16*>(v), mask, nullptr, static_cast<bf16*>(ctx), nullptr,
                   nullptr, q_ld, kv_ld, ctx_ld, 0, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop};
-  if (!attention_short(s_q, s_k)) return attention_long_fwd(a, WHERE_MASK, st);
+  if (!attention_short(s_q, s_k) || hd > ATT_MAX_HD)
+    return attention_long_fwd(a, WHERE_MASK, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);  // the m16 blocks of queries and of keys
   const int bytes = att_plan(s_q, s_k, hd, false).bytes;
   if (att_vec(a, false)) {
@@ -665,7 +667,8 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention()'s output,
 // given its gradient g (batch*s_q contiguous rows of nh*hd); stats: the long
-// path's scratch (AttnArgs::stats; null up to 32 queries and keys). A
+// path's scratch (AttnArgs::stats; null up to 32 queries and keys and
+// head_dim 128). A
 // template, so that a file that does not launch it compiles none of it.
 template <int UNUSED = 0>
 int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
@@ -677,7 +680,7 @@ int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_ld,
                   kv_ld, dq_ld, dkv_ld, batch, nh, hd, s_q, s_k, causal, op_base,
                   1.0f / sqrtf(static_cast<float>(hd)), drop, stats};
-  if (!attention_short(s_q, s_k)) return attention_long_bwd(a, st);
+  if (!attention_short(s_q, s_k) || hd > ATT_MAX_HD) return attention_long_bwd(a, st);
   const int blocks = (s_q > 16) * 2 + (s_k > 16);
   const int bytes = att_plan(s_q, s_k, hd, true).bytes;
   if (att_vec(a, true)) {

@@ -518,7 +518,7 @@ int attf_launch_for(const AttF32Args& a, cudaStream_t st) {
 
 template <bool BWD, bool WHERE_MASK = false>
 int attf_launch(const AttF32Args& a, cudaStream_t st) {
-  if (!attention_short(a.s_q, a.s_k)) {  // beyond 32 queries or keys
+  if (!attention_short(a.s_q, a.s_k) || a.hd > ATTF_MAX_HD) {  // past 32 tokens or 128 columns
     if constexpr (BWD)
       return attention_long_bwd(a, st);
     else
@@ -547,7 +547,8 @@ inline int attention_f32(const void* q, int q_ld, const void* k, const void* v, 
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention_f32()'s output
 // given its gradient g (batch*s_q contiguous rows of nh*hd), all f32; stats:
-// the long path's scratch (null up to 32 queries and keys). A template, so
+// the long path's scratch (null up to 32 queries and keys and head_dim
+// 128). A template, so
 // that a file that does not launch it compiles none of it.
 template <int UNUSED = 0>
 inline int attention_f32_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,

@@ -1,8 +1,9 @@
 // Attention of sentences longer than 32 tokens (up to 512 queries and 512
-// keys, head_dim <= 128), forward and backward, in bf16 and in f32, for
-// Hopper (sm_90a): the kernels behind attention_long.cuh's entries, which
-// attention.cuh (bf16) and attention_f32.cuh (f32) call past their
-// one-warp-per-(sentence, head) kernels, so every attention entry reaches
+// keys), and of heads wider than 128 columns at any length, forward and
+// backward, in bf16 and in f32, for Hopper (sm_90a): the kernels behind
+// attention_long.cuh's entries, which attention.cuh (bf16) and
+// attention_f32.cuh (f32) call past their one-warp-per-(sentence, head)
+// kernels, so every attention entry reaches
 // them (the layer kernels #1, #3 / #4 inside #2; sdpa.cu #11, #12, #13). They
 // replace, at these lengths, the same TPU attention as attention.cuh
 // (kindergarten_vq_vae_tpu/ops/): layer_pallas.py:244 `_attn_fwd_tile`
@@ -56,7 +57,12 @@
 //   (m, z, 1 / z, t) and adds (p kappa)^T G into dv and ds^T Q into dk, the
 //   scores computed as K Q^T (key rows), so that both come from the
 //   accumulators as A fragments. Every sum runs in a fixed order: two
-//   launches give the same bits.
+//   launches give the same bits;
+// - head_dim past 128 (attention_wide_kernel, attention_wide_dq_kernel,
+//   attention_wide_dkv_kernel, below), at every length: 128-column chunks,
+//   the scores summed over the chunks; up to 64 keys (queries) a block
+//   keeps them in registers for every output chunk, past that a block
+//   takes one output chunk and recomputes them in the two sweeps.
 // What bounds it: the bytes. At 64 tokens x 64 head_dim a (sentence, head)
 // moves ~32 KB in the forward (q, k, v read, ctx written, bf16) for ~1.6
 // MFLOP of products (3 of 64 x 64 x 64), ~50 FLOP a byte, far below the 295
@@ -68,6 +74,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_f32.cuh"  // attention.cuh's and attention_f32.cuh's fragments
 #include "attention_long.cuh"
@@ -818,6 +825,536 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_long_dkv_kernel(AttnArg
   atl_store<T, LD>(a.dv + kv_off, a.dkv_ld, vw, j0 + warp * 16, a.s_k, a.hd, vec, lane);
 }
 
+// ---------------------------------------------------- head_dim past 128
+// A head wider than ATW_D (128) columns is cut into 128-column chunks: a
+// 64 x 64 tile of q k^T (and of g v^T) is summed chunk by chunk in the
+// accumulator registers, each chunk of both operands staged through shared
+// memory, and p (ds, p kappa) is then mixed with one chunk of v (of k; of q
+// or g) at a time. Two grids:
+// - up to 64 keys (forward, dq) or 64 queries (dk / dv) one tile holds the
+//   whole sweep (ATW_ONE): a block takes every output chunk of its tile,
+//   its scores computed once and kept in registers, the next chunk of the
+//   mixed operand loading behind this chunk's products;
+// - past that a block takes one output chunk (of ctx; of dq; of dk or of
+//   dv) and recomputes the scores: the two sweeps of the long kernels
+//   above, over whole 64-key tiles.
+// The function and its rounding points are the long kernels' (attention_long.cuh).
+
+constexpr int ATW_D = 128;
+constexpr int ATW_ONE = 4;  // the kernels' flag: one tile holds the sweep
+
+__host__ __device__ constexpr int atw_chunks(int hd) { return (hd + ATW_D - 1) / ATW_D; }
+
+template <typename T>
+constexpr int atw_bytes() {  // three 64 x 128 tiles and the key mask
+  return 3 * atl_tile_bytes<T, ATW_D>() + ATL_MASK_BYTES;
+}
+
+// rows row0 .. row0 + 63, columns [c0, c0 + 128) of src (hd columns at row
+// stride ld) into a tile at row stride LD: zero past `rows` and past hd
+template <typename T, int LD>
+__device__ __forceinline__ void atw_tile(T* dst, const T* src, int ld, int row0, int rows, int c0,
+                                         int hd, bool vec) {
+  const int wc = min(ATW_D, hd - c0);
+  if (vec) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = ATW_D / E;
+    for (int c = threadIdx.x; c < ATL_TILE * CPR; c += ATL_THREADS) {
+      const int r = c / CPR, col = (c - r * CPR) * E, row = row0 + r;
+      const bool in = row < rows && col < wc;
+      cp_async16(dst + r * LD + col, in ? src + (size_t)row * ld + c0 + col : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ATL_TILE * ATW_D; e += ATL_THREADS) {
+      const int r = e / ATW_D, col = e - r * ATW_D, row = row0 + r;
+      dst[r * LD + col] =
+          row < rows && col < wc ? src[(size_t)row * ld + c0 + col] : static_cast<T>(0.0f);
+    }
+  }
+}
+
+// fn(NT) for the n8 tiles that hold `rows` real rows of a 64-row tile (2,
+// 4, 6 or 8: whole 16-row pairs): the products skip the tile's zero rows
+template <typename Fn>
+__device__ __forceinline__ void atw_by_rows(int rows, Fn&& fn) {
+  switch ((min(rows, ATL_TILE) + 15) / 16) {
+    case 1: fn(std::integral_constant<int, 2>()); break;
+    case 2: fn(std::integral_constant<int, 4>()); break;
+    case 3: fn(std::integral_constant<int, 6>()); break;
+    default: fn(std::integral_constant<int, 8>()); break;
+  }
+}
+
+// acc += the warp's 16 rows of A (rows a0.. of a) times rows b0 .. b0 + 63
+// of b, transposed, over all hd columns: chunk by chunk through the tiles
+// as and bs; a warp whose rows are all past a_rows, and the n8 tiles of b's
+// rows past b_rows, skip their products (their scores stay 0). Ends with a
+// barrier; waits for every cp.async group in flight.
+template <typename T>
+__device__ __forceinline__ void atw_scores(float (&acc)[ATL_TILE / 8][4], T* as, T* bs,
+                                           const T* a, int a_ld, int a0, int a_rows, const T* b,
+                                           int b_ld, int b0, int b_rows, int hd, bool vec,
+                                           int warp, int lane) {
+  using M = Atl<T, ATW_D>;
+  const bool active = a0 + warp * 16 < a_rows;
+  for (int c0 = 0; c0 < hd; c0 += ATW_D) {
+    atw_tile<T, M::LD>(as, a, a_ld, a0, a_rows, c0, hd, vec);
+    atw_tile<T, M::LD>(bs, b, b_ld, b0, b_rows, c0, hd, vec);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    if (active)
+      atw_by_rows(b_rows - b0, [&](auto nt) {
+        constexpr int NT = decltype(nt)::value;
+        M::template abt<NT>(reinterpret_cast<float (&)[NT][4]>(acc), as + warp * 16 * M::LD, bs,
+                            lane);
+      });
+    __syncthreads();
+  }
+}
+
+// o += p X over X's first `rows` rows (the rest of p is 0)
+template <typename T>
+__device__ __forceinline__ void atw_mix(float (&o)[ATW_D / 8][4],
+                                        const float (&p)[ATL_TILE / 8][4], const T* X, int rows,
+                                        int lane) {
+  atw_by_rows(rows, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    Atl<T, ATW_D>::template mix<NT>(o, reinterpret_cast<const float (&)[NT][4]>(p), X, lane);
+  });
+}
+
+// A warp's 16 rows of one output chunk (the accumulators o) out through its
+// own 16 rows of `rows` (row stride LD) to rows row0.. of dst (row stride
+// ld), its wc columns, those below `n_rows`
+template <typename T>
+__device__ __forceinline__ void atw_put(T* dst, int ld, T* rows,
+                                        const float (&o)[ATW_D / 8][4], int row0, int n_rows,
+                                        int wc, bool vec, int lane) {
+  atl_stage<T, ATW_D>(rows, o, lane);
+  __syncwarp();
+  atl_store<T, Atl<T, ATW_D>::LD>(dst, ld, rows, row0, n_rows, wc, vec, lane);
+  __syncwarp();
+}
+
+// The mix of every output chunk in [oc0, oc1) with p (the A operand, in
+// registers): chunk oc of src (its rows x0.. of x_rows) staged in turns in
+// the tiles b0 (holding chunk oc0 already, or loading it) and b1, the next
+// loading behind this one's products; each chunk's 16 rows a warp out
+// through its own rows of `rows` to dst's chunk oc.
+template <typename T>
+__device__ __forceinline__ void atw_mix_chunks(const float (&p)[ATL_TILE / 8][4], T* b0, T* b1,
+                                               T* rows, const T* src, int src_ld, int x0,
+                                               int x_rows, T* dst, int dst_ld, int row0,
+                                               int n_rows, int oc0, int oc1, int hd, bool vec,
+                                               int lane) {
+  using M = Atl<T, ATW_D>;
+  for (int oc = oc0; oc < oc1; ++oc) {
+    T* buf = (oc - oc0) & 1 ? b1 : b0;
+    if (oc + 1 < oc1)
+      atw_tile<T, M::LD>((oc - oc0) & 1 ? b0 : b1, src, src_ld, x0, x_rows, (oc + 1) * ATW_D, hd,
+                         vec);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (row0 < n_rows) {  // the warp has a real row
+      float o[ATW_D / 8][4] = {};
+      atw_mix(o, p, buf, x_rows - x0, lane);
+      atw_put(dst + oc * ATW_D, dst_ld, rows, o, row0, n_rows, min(ATW_D, hd - oc * ATW_D), vec,
+              lane);
+    }
+    __syncthreads();  // buf is free for chunk oc + 2
+  }
+}
+
+// Forward: block (sentence, head, query tile[, output chunk]).
+template <typename T>
+__global__ void __launch_bounds__(ATL_THREADS) attention_wide_kernel(AttnArgs<T> a, int flags) {
+  using M = Atl<T, ATW_D>;
+  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+  extern __shared__ __align__(16) unsigned char atl_smem[];
+  const bool vec = flags & ATL_VEC, wm = flags & ATL_WHERE_MASK, one = flags & ATW_ONE;
+  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : nc;
+  T* qs = reinterpret_cast<T*>(atl_smem);
+  T* ks = qs + TILE;
+  T* vs = ks + TILE;
+  int* msk = reinterpret_cast<int*>(vs + TILE);
+  const int oc0 = blockIdx.x % gc, rest = blockIdx.x / gc, oc1 = one ? nc : oc0 + 1;
+  const int bh = rest / nqt, i0 = (rest - bh * nqt) * ATL_TILE;
+  const int b = bh / a.nh, h = bh - b * a.nh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const size_t col = (size_t)h * a.hd;
+  const T* qb = a.q + (size_t)b * a.s_q * a.q_ld + col;
+  const T* kb = a.k + (size_t)b * a.s_k * a.kv_ld + col;
+  const T* vb = a.v + (size_t)b * a.s_k * a.kv_ld + col;
+  T* ob = a.out + (size_t)b * a.s_q * a.out_ld + col;
+  const int n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
+  const int iw = i0 + warp * 16 + g8;  // the warp's rows iw and iw + 8
+  T* qw = qs + warp * 16 * LD;         // its q rows, then its output rows
+  const uint32_t op = a.op_base + h;
+  if (n == 1) {
+    // one key tile: its scores once, in registers, then every output chunk
+    atw_tile<T, LD>(vs, vb, a.kv_ld, 0, a.s_k, oc0 * ATW_D, a.hd, vec);
+    cp_commit();
+    float sc[NT][4] = {};
+    atw_scores(sc, qs, ks, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) atl_probs(sc, r, iw + 8 * r, a, msk, wm, b, op, t4);
+    atw_mix_chunks(sc, vs, ks, qw, vb, a.kv_ld, 0, a.s_k, ob, a.out_ld, i0 + warp * 16, a.s_q, oc0,
+                   oc1, a.hd, vec, lane);
+    return;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.0f, 0.0f};
+  float o[ATW_D / 8][4] = {};
+  // step s < n: key tile s for the max and sum; s >= n: key tile s - n for p V
+  for (int s = 0; s < 2 * n; ++s) {
+    const int j0 = (s % n) * ATL_TILE;
+    if (s >= n) {  // v's chunk oc0 of the tile, loading with the first chunk of the scores
+      atw_tile<T, LD>(vs, vb, a.kv_ld, j0, a.s_k, oc0 * ATW_D, a.hd, vec);
+      cp_commit();
+    }
+    float sc[NT][4] = {};
+    atw_scores(sc, qs, ks, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + 8 * r;
+      if (s < n) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + nt * 8 + 2 * t4 + c;
+            float x = -INFINITY;
+            if (j < a.s_k) {
+              x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, wm);
+              mx = fmaxf(mx, x);
+            }
+            sc[nt][2 * r + c] = x;
+          }
+        const float mn = fmaxf(m[r], quad_max(mx));  // finite: the tile has a real key
+        float e = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) e += expf(sc[nt][2 * r + c] - mn);  // 0 past s_k
+        z[r] = z[r] * expf(m[r] - mn) + quad_sum(e);
+        m[r] = mn;
+      } else {
+        const float inv_z = rcp_rn(z[r]);
+        const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + nt * 8 + 2 * t4 + c;
+            float p = 0.0f;
+            if (j < a.s_k) {
+              const bool ok = msk[j] > 0 && !(a.causal && j > i);
+              const float e = expf(atl_x(sc[nt][2 * r + c], ok, a.scale, wm) - m[r]);
+              if (wm) {
+                p = e * inv_z;
+              } else {
+                p = div_rn(e, z[r], inv_z);
+                if (a.drop.on) p *= dropout_keep(rt, j, a.drop);
+              }
+            }
+            sc[nt][2 * r + c] = p;
+          }
+      }
+    }
+    if (s >= n && i0 + warp * 16 < a.s_q) atw_mix(o, sc, vs, a.s_k - j0, lane);
+    __syncthreads();  // vs is free for the next tile's v
+  }
+  atw_put(ob + oc0 * ATW_D, a.out_ld, qw, o, i0 + warp * 16, a.s_q,
+          min(ATW_D, a.hd - oc0 * ATW_D), vec, lane);
+}
+
+// Backward, dq: block (sentence, head, query tile[, dq chunk]). The blocks
+// of chunk 0 write each query row's (max, sum of exp z, 1 / z, t) to
+// a.stats for attention_wide_dkv_kernel.
+template <typename T>
+__global__ void __launch_bounds__(ATL_THREADS) attention_wide_dq_kernel(AttnArgs<T> a,
+                                                                          int flags) {
+  using M = Atl<T, ATW_D>;
+  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+  extern __shared__ __align__(16) unsigned char atl_smem[];
+  const bool vec = flags & ATL_VEC, one = flags & ATW_ONE;
+  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : nc;
+  T* as = reinterpret_cast<T*>(atl_smem);
+  T* bs = as + TILE;
+  T* xs = bs + TILE;
+  int* msk = reinterpret_cast<int*>(xs + TILE);
+  const int oc0 = blockIdx.x % gc, rest = blockIdx.x / gc, oc1 = one ? nc : oc0 + 1;
+  const int bh = rest / nqt, i0 = (rest - bh * nqt) * ATL_TILE;
+  const int b = bh / a.nh, h = bh - b * a.nh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const size_t col = (size_t)h * a.hd;
+  const T* qb = a.q + (size_t)b * a.s_q * a.q_ld + col;
+  const T* kb = a.k + (size_t)b * a.s_k * a.kv_ld + col;
+  const T* vb = a.v + (size_t)b * a.s_k * a.kv_ld + col;
+  const int H = a.nh * a.hd;
+  const T* gb = a.g + (size_t)b * a.s_q * H + col;
+  T* dqb = a.out + (size_t)b * a.s_q * a.out_ld + col;
+  const int n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
+  const int iw = i0 + warp * 16 + g8;
+  T* aw = as + warp * 16 * LD;  // the warp's rows of the A tile, then its output rows
+  const uint32_t op = a.op_base + h;
+  auto keep_stats = [&](int i, float m, float z, float rz, float t) {
+    if (oc0 == 0 && t4 == 0 && i < a.s_q)
+      *reinterpret_cast<float4*>(a.stats + ((size_t)bh * a.s_q + i) * 4) = make_float4(m, z, rz, t);
+  };
+  if (n == 1) {
+    // one key tile: s and dp once, in registers; ds = p (dp kappa - t) *
+    // scale, rounded at the mix; then ds K, chunk by chunk
+    atw_tile<T, LD>(xs, kb, a.kv_ld, 0, a.s_k, oc0 * ATW_D, a.hd, vec);
+    cp_commit();
+    float sc[NT][4] = {}, dp[NT][4] = {};
+    atw_scores(sc, as, bs, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
+    atw_scores(dp, as, bs, gb, H, i0, a.s_q, vb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + 8 * r;
+      const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = nt * 8 + 2 * t4 + c;
+          float x = -INFINITY;
+          if (j < a.s_k) {
+            x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, false);
+            mx = fmaxf(mx, x);
+          }
+          sc[nt][2 * r + c] = x;
+        }
+      mx = quad_max(mx);
+      float se = 0.0f, sd = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = nt * 8 + 2 * t4 + c;
+          float e = 0.0f, d = 0.0f;
+          if (j < a.s_k) {
+            e = expf(sc[nt][2 * r + c] - mx);
+            d = dp[nt][2 * r + c];
+            if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
+          }
+          se += e;
+          sd += e * d;
+          sc[nt][2 * r + c] = e;
+          dp[nt][2 * r + c] = d;
+        }
+      const float z = quad_sum(se), rz = rcp_rn(z), t = div_rn(quad_sum(sd), z, rz);
+      keep_stats(i, mx, z, rz, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = nt * 8 + 2 * t4 + c;
+          const float p = div_rn(sc[nt][2 * r + c], z, rz);
+          sc[nt][2 * r + c] =
+              i < a.s_q && j < a.s_k ? p * (dp[nt][2 * r + c] - t) * a.scale : 0.0f;
+        }
+    }
+    atw_mix_chunks(sc, xs, bs, aw, kb, a.kv_ld, 0, a.s_k, dqb, a.out_ld, i0 + warp * 16, a.s_q,
+                   oc0, oc1, a.hd, vec, lane);
+    return;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.0f, 0.0f}, tau[2] = {0.0f, 0.0f};
+  float t[2] = {0.0f, 0.0f}, rz[2] = {0.0f, 0.0f};
+  float dq[ATW_D / 8][4] = {};
+  for (int s = 0; s < 2 * n; ++s) {
+    const int j0 = (s % n) * ATL_TILE;
+    if (s >= n) {  // k's chunk oc0 of the tile, for ds K
+      atw_tile<T, LD>(xs, kb, a.kv_ld, j0, a.s_k, oc0 * ATW_D, a.hd, vec);
+      cp_commit();
+    }
+    float sc[NT][4] = {}, dp[NT][4] = {};
+    atw_scores(sc, as, bs, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
+    atw_scores(dp, as, bs, gb, H, i0, a.s_q, vb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + 8 * r;
+      const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+      if (s < n) {
+        // max, sum of exp and the sum of e * dp * kappa, online
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + nt * 8 + 2 * t4 + c;
+            float x = -INFINITY;
+            if (j < a.s_k) {
+              x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, false);
+              mx = fmaxf(mx, x);
+            }
+            sc[nt][2 * r + c] = x;
+          }
+        const float mn = fmaxf(m[r], quad_max(mx));
+        float se = 0.0f, sd = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + nt * 8 + 2 * t4 + c;
+            if (j < a.s_k) {
+              const float e = expf(sc[nt][2 * r + c] - mn);
+              float d = dp[nt][2 * r + c];
+              if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
+              se += e;
+              sd += e * d;
+            }
+          }
+        const float al = expf(m[r] - mn);
+        z[r] = z[r] * al + quad_sum(se);
+        tau[r] = tau[r] * al + quad_sum(sd);
+        m[r] = mn;
+        if (s == n - 1) {
+          rz[r] = rcp_rn(z[r]);
+          t[r] = div_rn(tau[r], z[r], rz[r]);
+          keep_stats(i, m[r], z[r], rz[r], t[r]);
+        }
+      } else {
+        // ds = p (dp kappa - t) * scale, rounded at the mix
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = j0 + nt * 8 + 2 * t4 + c;
+            float ds = 0.0f;
+            if (i < a.s_q && j < a.s_k) {
+              const bool ok = msk[j] > 0 && !(a.causal && j > i);
+              const float p =
+                  div_rn(expf(atl_x(sc[nt][2 * r + c], ok, a.scale, false) - m[r]), z[r], rz[r]);
+              float d = dp[nt][2 * r + c];
+              if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
+              ds = p * (d - t[r]) * a.scale;
+            }
+            sc[nt][2 * r + c] = ds;
+          }
+      }
+    }
+    if (s >= n && i0 + warp * 16 < a.s_q) atw_mix(dq, sc, xs, a.s_k - j0, lane);
+    __syncthreads();  // xs is free for the next tile's k
+  }
+  atw_put(dqb + oc0 * ATW_D, a.out_ld, aw, dq, i0 + warp * 16, a.s_q,
+          min(ATW_D, a.hd - oc0 * ATW_D), vec, lane);
+}
+
+// Backward, dk and dv: block (sentence, head, key tile, x), from the query
+// rows' statistics that attention_wide_dq_kernel wrote, the scores as K Q^T
+// (key rows). With ATW_ONE (one query tile) x < 2: every chunk of dv (x 0)
+// or of dk (x 1); else x < 2 nc: chunk x of dv, or x - nc of dk.
+template <typename T>
+__global__ void __launch_bounds__(ATL_THREADS) attention_wide_dkv_kernel(AttnArgs<T> a,
+                                                                           int flags) {
+  using M = Atl<T, ATW_D>;
+  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+  extern __shared__ __align__(16) unsigned char atl_smem[];
+  const bool vec = flags & ATL_VEC, one = flags & ATW_ONE;
+  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), nkt = atl_tiles(a.s_k);
+  const int gc = one ? 2 : 2 * nc;
+  T* as = reinterpret_cast<T*>(atl_smem);
+  T* bs = as + TILE;
+  T* xs = bs + TILE;
+  int* msk = reinterpret_cast<int*>(xs + TILE);
+  const int x2 = blockIdx.x % gc, rest = blockIdx.x / gc;
+  const bool want_dk = one ? x2 == 1 : x2 >= nc;
+  const int oc = one ? 0 : want_dk ? x2 - nc : x2, oc1 = one ? nc : oc + 1;
+  const int bh = rest / nkt, j0 = (rest - bh * nkt) * ATL_TILE;
+  const int b = bh / a.nh, h = bh - b * a.nh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const size_t col = (size_t)h * a.hd;
+  const int H = a.nh * a.hd;
+  const T* qb = a.q + (size_t)b * a.s_q * a.q_ld + col;
+  const T* gb = a.g + (size_t)b * a.s_q * H + col;
+  const T* kb = a.k + (size_t)b * a.s_k * a.kv_ld + col;
+  const T* vb = a.v + (size_t)b * a.s_k * a.kv_ld + col;
+  const size_t kv_off = (size_t)b * a.s_k * a.dkv_ld + col;
+  const float* stb = a.stats + (size_t)bh * a.s_q * 4;
+  const int first = atl_mask(msk, a, b);
+  // under the causal mask the query tiles [lo, lo + skip) give this key tile
+  // nothing (attention_long_dkv_kernel)
+  int lo = nqt, skip = 0;
+  if (a.causal && first < a.s_k) {
+    lo = (first + ATL_TILE - 1) / ATL_TILE;
+    skip = max(0, min(nqt, j0 / ATL_TILE) - lo);
+  }
+  const int jw = j0 + warp * 16 + g8;  // the warp's keys jw and jw + 8
+  T* aw = as + warp * 16 * LD;         // its rows of the A tile, then its output rows
+  bool valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) valid[r] = jw + 8 * r < a.s_k && msk[jw + 8 * r] > 0;
+  const uint32_t op = a.op_base + h;
+  float acc[ATW_D / 8][4] = {};
+  for (int s = 0; s < nqt - skip; ++s) {
+    const int i0 = (s < lo ? s : s + skip) * ATL_TILE;
+    // the first mixed chunk: g's chunk oc for dv, q's for dk
+    atw_tile<T, LD>(xs, want_dk ? qb : gb, want_dk ? a.q_ld : H, i0, a.s_q, oc * ATW_D, a.hd,
+                    vec);
+    cp_commit();
+    float pt[NT][4] = {}, dpt[NT][4] = {};
+    atw_scores(pt, as, bs, kb, a.kv_ld, j0, a.s_k, qb, a.q_ld, i0, a.s_q, a.hd, vec, warp, lane);
+    if (want_dk)
+      atw_scores(dpt, as, bs, vb, a.kv_ld, j0, a.s_k, gb, H, i0, a.s_q, a.hd, vec, warp, lane);
+    // pt <- p kappa (dv's A operand), dpt <- ds (dk's)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = i0 + nt * 8 + 2 * t4 + c;
+        if (i >= a.s_q) {
+          pt[nt][c] = pt[nt][2 + c] = dpt[nt][c] = dpt[nt][2 + c] = 0.0f;
+          continue;
+        }
+        const float4 sr = *reinterpret_cast<const float4*>(stb + (size_t)i * 4);  // m, z, 1/z, t
+        const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = jw + 8 * r;
+          float pk = 0.0f, ds = 0.0f;
+          if (j < a.s_k) {
+            const bool ok = valid[r] && !(a.causal && j > i);
+            const float p =
+                div_rn(expf(atl_x(pt[nt][2 * r + c], ok, a.scale, false) - sr.x), sr.y, sr.z);
+            float d = dpt[nt][2 * r + c], kap = 1.0f;
+            if (a.drop.on) {
+              kap = dropout_keep(rt, j, a.drop);
+              d *= kap;
+            }
+            pk = a.drop.on ? p * kap : p;
+            ds = p * (d - sr.w) * a.scale;
+          }
+          pt[nt][2 * r + c] = pk;
+          dpt[nt][2 * r + c] = ds;
+        }
+      }
+    if (one) {  // the only query tile: every chunk of dk, or of dv
+      if (want_dk)
+        atw_mix_chunks(dpt, xs, bs, aw, qb, a.q_ld, i0, a.s_q, a.dk + kv_off, a.dkv_ld,
+                       j0 + warp * 16, a.s_k, 0, nc, a.hd, vec, lane);
+      else
+        atw_mix_chunks(pt, xs, bs, aw, gb, H, i0, a.s_q, a.dv + kv_off, a.dkv_ld, j0 + warp * 16,
+                       a.s_k, 0, nc, a.hd, vec, lane);
+      return;
+    }
+    if (j0 + warp * 16 < a.s_k) {
+      if (want_dk)
+        atw_mix(acc, dpt, xs, a.s_q - i0, lane);
+      else
+        atw_mix(acc, pt, xs, a.s_q - i0, lane);
+    }
+    __syncthreads();  // xs is free for the next tile
+  }
+  // (with ATW_ONE here only when no query tile reaches this key tile: zeros)
+  for (int c = oc; c < oc1; ++c)
+    atw_put((want_dk ? a.dk : a.dv) + kv_off + c * ATW_D, a.dkv_ld, aw, acc, j0 + warp * 16,
+            a.s_k, min(ATW_D, a.hd - c * ATW_D), vec, lane);
+}
+
 // Launches KERNEL on grid blocks with `bytes` of shared memory, raising the
 // kernel's limit once per device.
 template <typename T, void (*KERNEL)(AttnArgs<T>, int)>
@@ -855,11 +1392,35 @@ int atl_bwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
       (2 + 2 * qslots) * tb + qslots * ATL_TILE * 4 * 4 + ATL_MASK_BYTES, st);
 }
 
+// head_dim past 128: up to 64 keys (queries for dk / dv) a block a tile
+// (ATW_ONE), else a block a tile and output chunk
+template <typename T>
+int atw_fwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
+  const bool one = a.s_k <= ATL_TILE;
+  const int grid = a.batch * a.nh * atl_tiles(a.s_q) * (one ? 1 : atw_chunks(a.hd));
+  return atl_launch<T, attention_wide_kernel<T>>(a, flags | (one ? ATW_ONE : 0), grid,
+                                                 atw_bytes<T>(), st);
+}
+
+template <typename T>
+int atw_bwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
+  const int nc = atw_chunks(a.hd);
+  const bool one_k = a.s_k <= ATL_TILE, one_q = a.s_q <= ATL_TILE;
+  const int e = atl_launch<T, attention_wide_dq_kernel<T>>(
+      a, flags | (one_k ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_q) * (one_k ? 1 : nc),
+      atw_bytes<T>(), st);
+  if (e != 0) return e;
+  return atl_launch<T, attention_wide_dkv_kernel<T>>(
+      a, flags | (one_q ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_k) * (one_q ? 2 : 2 * nc),
+      atw_bytes<T>(), st);
+}
+
 template <typename T>
 int atl_fwd(const AttnArgs<T>& a, bool where_mask, cudaStream_t st) {
   if (!attention_fits(a.s_q, a.s_k, a.hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.batch * a.nh <= 0) return 0;
   const int flags = (att_vec(a, false) ? ATL_VEC : 0) | (where_mask ? ATL_WHERE_MASK : 0);
+  if (a.hd > ATW_D) return atw_fwd_run(a, flags, st);
   return a.hd <= 64 ? atl_fwd_run<T, 64>(a, flags, st) : atl_fwd_run<T, 128>(a, flags, st);
 }
 
@@ -869,6 +1430,7 @@ int atl_bwd(const AttnArgs<T>& a, cudaStream_t st) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.batch * a.nh <= 0) return 0;
   const int flags = att_vec(a, true) ? ATL_VEC : 0;
+  if (a.hd > ATW_D) return atw_bwd_run(a, flags, st);
   return a.hd <= 64 ? atl_bwd_run<T, 64>(a, flags, st) : atl_bwd_run<T, 128>(a, flags, st);
 }
 

@@ -1,9 +1,10 @@
 // What every attention entry shares, and the interface of the attention of
-// sentences longer than 32 tokens (up to 512 queries and 512 keys, head_dim
-// <= 128), forward and backward, in bf16 and in f32: the path that
-// attention.cuh (bf16) and attention_f32.cuh (f32) take where their
-// one-warp-per-(sentence, head) kernels, which hold at most two m16 blocks of
-// queries and of keys, do not reach. Every caller of those two goes through
+// sentences longer than 32 tokens (up to 512 queries and 512 keys) and of
+// heads wider than 128 columns (any head_dim, any length up to 512), forward
+// and backward, in bf16 and in f32: the path that attention.cuh (bf16) and
+// attention_f32.cuh (f32) take where their one-warp-per-(sentence, head)
+// kernels, which hold at most two m16 blocks of queries and of keys and 128
+// columns, do not reach. Every caller of those two goes through
 // it: the layer kernels (layer_fwd.cu #1; layer_bwd.cu #3 / #4 inside #2) and
 // the standalone attention (sdpa.cu #11, #12, #13). The kernels are in
 // attention_long.cu, built once into the library (not once for each file
@@ -45,12 +46,13 @@ struct AttnArgs {
   int batch, nh, hd, s_q, s_k, causal, op_base;
   float scale;
   DropoutParams drop;
-  float* stats;  // long backward: (batch * nh * s_q, 4) f32 scratch, each query row's max,
-                 // sum of exp z, 1 / z and t
+  float* stats;  // long backward (past 32 tokens or head_dim 128): (batch * nh * s_q, 4) f32
+                 // scratch, each query row's max, sum of exp z, 1 / z and t
 };
 
 // The forward (attention_long.cu) of a (batch, nh) call with s_q or s_k
-// above 32; where_mask: #13's masks. Returns a CUDA error code.
+// above 32 or hd above 128; where_mask: #13's masks. Returns a CUDA error
+// code.
 int attention_long_fwd(const AttnArgs<bf16>& a, bool where_mask, cudaStream_t st);
 int attention_long_fwd(const AttnArgs<float>& a, bool where_mask, cudaStream_t st);
 // The backward: two launches, dq by query tiles (writing a.stats), then dk
@@ -66,13 +68,12 @@ namespace {
 
 constexpr float NEG_INF = -1e9f;        // finite, as sdpa_pallas.py NEG_INF
 constexpr int ATL_MAX_S = 512;          // BERT's max_position_embeddings
-constexpr int ATL_MAX_HD = 128;
 
 // what every attention entry takes: attention.cuh's and attention_f32.cuh's
-// kernels up to 32 queries and keys, attention_long.cu's beyond, up to 512
+// kernels up to 32 queries and keys and head_dim 128, attention_long.cu's
+// beyond, up to 512 queries and keys and any head_dim
 inline bool attention_fits(int s_q, int s_k, int hd) {
-  return s_q >= 1 && s_k >= 1 && s_q <= ATL_MAX_S && s_k <= ATL_MAX_S && hd >= 1 &&
-         hd <= ATL_MAX_HD;
+  return s_q >= 1 && s_k >= 1 && s_q <= ATL_MAX_S && s_k <= ATL_MAX_S && hd >= 1;
 }
 
 }  // namespace

@@ -39,6 +39,15 @@
 //   every card gives the same bits;
 // - yhat = (v - beta) / gamma by a true division (0 where gamma is 0), the
 //   rounding of `_ln_recover_yhat`.
+// Rows wider than LN_WARP_WIDTH (1,024: four 16-byte chunks a lane) take
+// block-a-row kernels that hold no row in registers and so take any width
+// (a multiple of 8): the residual + LayerNorm reads its row twice (sums,
+// then the output; the second read mostly from L2) with the row's sums
+// reduced through shared memory in warp order; the backward is a launch a
+// block a row for each row's two means, then a launch over (64-row block,
+// 256-column strip) tiles that writes dr and da and the column partials
+// (the same (blocks, 3, N) layout, the same fixed-order reduce), so it reads
+// gy and v twice.
 
 #include <cuda_bf16.h>
 
@@ -56,6 +65,7 @@ constexpr int LN_THREADS = 256;              // forward: 8 rows a block, a warp 
 constexpr int LNB_WARPS = 4, LNB_ROWS = 64;  // backward: 4 warps over a block's 64 rows
 constexpr int CS_WARPS = 8, CS_ROWS = 256;   // column sums: 8 warps over 256 rows x 256 columns
 constexpr int RED_WARPS = 8;                 // reduce: 8 strips of partials, 64 columns a block
+constexpr int LNW_THREADS = 128;             // rows past LN_WARP_WIDTH: a block of 4 warps a row
 
 __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -266,6 +276,176 @@ ln_bwd_kernel(const void* __restrict__ gy_, const T* __restrict__ v,
   }
 }
 
+// ------------------------------------------- rows past LN_WARP_WIDTH
+// A block of LNW_THREADS a row: thread t takes the 8-column chunks t, t +
+// LNW_THREADS, ... of it. The sums: each thread's chunks in order, a warp's
+// lanes by shuffles, then the warps in order through shared memory.
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = red[0];
+#pragma unroll
+  for (int w = 1; w < LNW_THREADS / 32; ++w) s += red[w];
+  __syncthreads();  // red is free again
+  return s;
+}
+
+// r = float(x) + drop(a) for one chunk, with the rounding written out (no
+// FMA), so that both passes of the wide forward give the same bits
+template <typename T>
+__device__ __forceinline__ void residual_chunk(const T* x, const float* a, uint32_t rt, int c0,
+                                               const DropoutParams& drop, float (&r)[8]) {
+  float xv[8];
+  load8(x, xv);
+  load8(a, r);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r[k] = __fadd_rn(xv[k], drop.on ? __fmul_rn(r[k], dropout_keep(rt, c0 + k, drop)) : r[k]);
+}
+
+// out = LN(float(x) + drop(a)) of row blockIdx.x, any width N (a multiple of 8)
+template <typename T>
+__global__ void __launch_bounds__(LNW_THREADS)
+residual_layernorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                               const float* __restrict__ gamma, const float* __restrict__ beta,
+                               T* __restrict__ out, float* __restrict__ inv_out, int N, float eps,
+                               DropoutParams drop, uint32_t op) {
+  __shared__ float red[LNW_THREADS / 32];
+  const int row = blockIdx.x;
+  const size_t base = (size_t)row * N;
+  const uint32_t rt = dropout_row_term(row, op, drop.seed);
+  float s = 0.0f, s2 = 0.0f;
+  for (int c0 = 8 * threadIdx.x; c0 < N; c0 += 8 * LNW_THREADS) {
+    float r[8];
+    residual_chunk(x + base + c0, a + base + c0, rt, c0, drop, r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s += r[k];
+      s2 += r[k] * r[k];
+    }
+  }
+  s = block_sum(s, red);
+  s2 = block_sum(s2, red);
+  const float mu = s / N;
+  const float var = fmaxf(s2 / N - mu * mu, 0.0f);
+  const float inv = rsqrtf(var + eps);
+  if (inv_out != nullptr && threadIdx.x == 0) inv_out[row] = inv;
+  for (int c0 = 8 * threadIdx.x; c0 < N; c0 += 8 * LNW_THREADS) {
+    float r[8], g[8], b[8];
+    residual_chunk(x + base + c0, a + base + c0, rt, c0, drop, r);
+    load8(gamma + c0, g);
+    load8(beta + c0, b);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = (r[k] - mu) * inv * g[k] + b[k];
+    store8(out + base + c0, r);
+  }
+}
+
+// yhat of one element: (v - beta) / gamma, 0 where gamma is 0
+__device__ __forceinline__ float ln_yhat(float v, float b, float g) {
+  return g == 0.0f ? 0.0f : __fdiv_rn(v - b, g);
+}
+
+// The wide backward's first launch: m (M, 2) receives row blockIdx.x's
+// mean(dyhat) and mean(dyhat * yhat), dyhat = gy * gamma.
+template <bool GY_F32, typename T>
+__global__ void __launch_bounds__(LNW_THREADS)
+ln_bwd_wide_means_kernel(const void* __restrict__ gy_, const T* __restrict__ v,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         float* __restrict__ m, int N) {
+  __shared__ float red[LNW_THREADS / 32];
+  typedef typename std::conditional<GY_F32, float, bf16>::type GyT;
+  const GyT* gy = static_cast<const GyT*>(gy_);
+  const size_t base = (size_t)blockIdx.x * N;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int c0 = 8 * threadIdx.x; c0 < N; c0 += 8 * LNW_THREADS) {
+    float g[8], y[8];
+    load8(gy + base + c0, g);
+    load8(v + base + c0, y);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float gm = gamma[c0 + k], dyh = g[k] * gm;  // gamma, beta: any alignment
+      s1 += dyh;
+      s2 += dyh * ln_yhat(y[k], beta[c0 + k], gm);
+    }
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  if (threadIdx.x == 0) {
+    m[2 * blockIdx.x] = s1 / N;
+    m[2 * blockIdx.x + 1] = s2 / N;
+  }
+}
+
+// The wide backward's second launch: block (256-column strip blockIdx.x,
+// rows [blockIdx.y * LNB_ROWS, +LNB_ROWS)), warp w the rows w, w +
+// LNB_WARPS, ... of them, each lane 8 adjacent columns. dr, da as
+// ln_bwd_kernel, from the row means m; parts (gridDim.y, 3, N): the block's
+// column sums of gy * yhat, gy and dr * keep, the warps added in order.
+template <bool GY_F32, typename T>
+__global__ void __launch_bounds__(32 * LNB_WARPS)
+ln_bwd_wide_kernel(const void* __restrict__ gy_, const T* __restrict__ v,
+                   const float* __restrict__ inv, const float* __restrict__ m,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   DropoutParams drop, uint32_t op, float* __restrict__ dr, T* __restrict__ da,
+                   float* __restrict__ parts, int M, int N) {
+  __shared__ __align__(16) float sums[3][256];
+  typedef typename std::conditional<GY_F32, float, bf16>::type GyT;
+  const GyT* gy = static_cast<const GyT*>(gy_);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * 256 + 8 * lane, r0 = blockIdx.y * LNB_ROWS;
+  const bool in = c0 < N;
+  float gm[8], bt[8], cg[8], cb[8], ca[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cg[k] = cb[k] = ca[k] = 0.0f;
+  if (in) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) gm[k] = gamma[c0 + k], bt[k] = beta[c0 + k];
+    for (int rr = warp; rr < LNB_ROWS; rr += LNB_WARPS) {
+      const int row = r0 + rr;
+      if (row >= M) break;
+      const size_t at = (size_t)row * N + c0;
+      float g[8], y[8], d[8], o[8];
+      load8(gy + at, g);
+      load8(v + at, y);
+      const float iv = inv[row], m1 = m[2 * row], m2 = m[2 * row + 1];
+      const uint32_t rt = dropout_row_term(row, op, drop.seed);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        y[k] = ln_yhat(y[k], bt[k], gm[k]);
+        d[k] = iv * (g[k] * gm[k] - m1 - y[k] * m2);
+        o[k] = drop.on ? d[k] * dropout_keep(rt, c0 + k, drop) : d[k];
+        cg[k] += g[k] * y[k];
+        cb[k] += g[k];
+        ca[k] += o[k];
+      }
+      store8(dr + at, d);
+      store8(da + at, o);
+    }
+  }
+  float* part = parts + (size_t)blockIdx.y * 3 * N;
+  for (int w = 0; w < LNB_WARPS; ++w) {
+    if (warp == w && in) {
+      auto add = [&](int q, const float (&mine)[8]) {
+        float t[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) t[k] = (w > 0 ? sums[q][8 * lane + k] : 0.0f) + mine[k];
+        if (w + 1 < LNB_WARPS)
+          store8(&sums[q][8 * lane], t);
+        else
+          store8(part + q * N + c0, t);
+      };
+      add(0, cg);
+      add(1, cb);
+      add(2, ca);
+    }
+    if (w + 1 < LNB_WARPS) __syncthreads();
+  }
+}
+
 // ------------------------------------------------------ column sums
 // parts[blockIdx.y, c] = sum of src[r, c] over the block's CS_ROWS rows, for
 // the block's 256 columns: each lane 8 adjacent columns (16-byte loads),
@@ -370,14 +550,21 @@ void launch_residual_layernorm(int blocks, cudaStream_t st, const void* x, const
 cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
                                void* out, float* inv, int M, int N, float eps, DropoutParams drop,
                                uint32_t op, bool f32, cudaStream_t st) {
-  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M < 0 || !aligned16(x) || !aligned16(a) ||
-      !aligned16(gamma) || !aligned16(beta) || !aligned16(out))
+  if (N <= 0 || N % 8 != 0 || M < 0 || !aligned16(x) || !aligned16(a) || !aligned16(gamma) ||
+      !aligned16(beta) || !aligned16(out))
     return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
   const int blocks = (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
   const float *af = static_cast<const float*>(a), *g = static_cast<const float*>(gamma),
               *b = static_cast<const float*>(beta);
-  if (f32)
+  if (N > LN_WARP_WIDTH) {
+    if (f32)
+      residual_layernorm_wide_kernel<<<M, LNW_THREADS, 0, st>>>(
+          static_cast<const float*>(x), af, g, b, static_cast<float*>(out), inv, N, eps, drop, op);
+    else
+      residual_layernorm_wide_kernel<<<M, LNW_THREADS, 0, st>>>(
+          static_cast<const bf16*>(x), af, g, b, static_cast<bf16*>(out), inv, N, eps, drop, op);
+  } else if (f32)
     launch_residual_layernorm<float>(blocks, st, x, af, g, b, out, inv, M, N, eps, drop, op);
   else
     launch_residual_layernorm<bf16>(blocks, st, x, af, g, b, out, inv, M, N, eps, drop, op);
@@ -409,15 +596,16 @@ int kvq_residual_layernorm(const void* x, const void* a, const void* gamma, cons
                                              static_cast<cudaStream_t>(stream)));
 }
 
-// LayerNorm backward of M rows of width N (see ln_bwd_kernel): v and da f32
-// when f32 (gy then f32 too), else bf16. parts (ceil(M / 64), 3, N) f32
-// scratch; sums (3, N) f32 receives [sum gy * yhat, sum gy, sum dr * keep].
+// LayerNorm backward of M rows of width N (see ln_bwd_kernel; any multiple
+// of 8): v and da f32 when f32 (gy then f32 too), else bf16. parts f32
+// scratch: (ceil(M / 64), 3, N), then 2 M floats (the wide rows' means);
+// sums (3, N) f32 receives [sum gy * yhat, sum gy, sum dr * keep].
 int kvq_ln_bwd(const void* gy, int gy_f32, const void* v, const void* inv, const void* gamma,
                const void* beta, unsigned seed, unsigned thresh, float scale, unsigned op,
                void* dr, void* da, void* parts, void* sums, int M, int N, int f32,
                void* stream) {
-  if (N <= 0 || N % 8 != 0 || N > LN_MAX_WIDTH || M <= 0 || !aligned16(gy) || !aligned16(v) ||
-      dr == nullptr || !aligned16(dr) || !aligned16(da) || !aligned16(parts) || (f32 && !gy_f32))
+  if (N <= 0 || N % 8 != 0 || M <= 0 || !aligned16(gy) || !aligned16(v) || dr == nullptr ||
+      !aligned16(dr) || !aligned16(da) || !aligned16(parts) || (f32 && !gy_f32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutParams drop{seed, thresh, scale, thresh != 0u};
@@ -427,7 +615,23 @@ int kvq_ln_bwd(const void* gy, int gy_f32, const void* v, const void* inv, const
        *b = static_cast<const float*>(beta);
   auto* drf = static_cast<float*>(dr);
   auto* p = static_cast<float*>(parts);
-  if (f32)
+  if (N > LN_WARP_WIDTH) {
+    float* means = p + (size_t)blocks * 3 * N;
+    const dim3 grid(cpl, blocks);
+#define KVQ_LNW(GF, T)                                                                        \
+  ln_bwd_wide_means_kernel<GF, T><<<M, LNW_THREADS, 0, st>>>(gy, static_cast<const T*>(v), g, b, \
+                                                            means, N);                         \
+  ln_bwd_wide_kernel<GF, T><<<grid, 32 * LNB_WARPS, 0, st>>>(                                  \
+      gy, static_cast<const T*>(v), iv, means, g, b, drop, op, drf, static_cast<T*>(da), p, M, N)
+    if (f32) {
+      KVQ_LNW(true, float);
+    } else if (gy_f32) {
+      KVQ_LNW(true, bf16);
+    } else {
+      KVQ_LNW(false, bf16);
+    }
+#undef KVQ_LNW
+  } else if (f32)
     launch_ln_bwd<true, float>(cpl, blocks, smem, st, gy, v, iv, g, b, drop, op, drf, da, p, M, N);
   else if (gy_f32)
     launch_ln_bwd<true, bf16>(cpl, blocks, smem, st, gy, v, iv, g, b, drop, op, drf, da, p, M, N);

@@ -12,15 +12,16 @@
 
 namespace kvq {
 
-// rows of at most this many columns (a multiple of 8) take the LayerNorm
-// kernels: a row lives in a warp's registers, 16-byte chunks, four a lane
-constexpr int LN_MAX_WIDTH = 1024;
+// rows of at most this many columns (a multiple of 8) take the warp-a-row
+// LayerNorm kernels (a row in a warp's registers, 16-byte chunks, four a
+// lane); wider rows the block-a-row kernels, which take any width
+constexpr int LN_WARP_WIDTH = 1024;
 
 // out (M, N) = LN(float(x) + drop(a)) with flax's fast variance; x and out
 // f32 when f32, else bf16; a f32 (M, N), gamma / beta (N,) f32, every
 // pointer but inv 16-byte aligned; inv (M,) f32 receives each row's rsqrt
-// when not null. Returns cudaErrorInvalidValue for a width or alignment it
-// does not take.
+// when not null. N any multiple of 8. Returns cudaErrorInvalidValue for a
+// width or alignment it does not take.
 cudaError_t residual_layernorm(const void* x, const void* a, const void* gamma, const void* beta,
                                void* out, float* inv, int M, int N, float eps, DropoutParams drop,
                                uint32_t op, bool f32, cudaStream_t st);

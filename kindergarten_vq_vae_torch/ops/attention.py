@@ -27,7 +27,7 @@ import math
 import torch
 
 from kindergarten_vq_vae_torch import _build
-from kindergarten_vq_vae_torch.ops.layer import NEG_INF, _heads, _merge
+from kindergarten_vq_vae_torch.ops.layer import NEG_INF, SHORT_HEAD_DIM, _heads, _merge
 from kindergarten_vq_vae_torch.ops.sdpa import _check_kernel_inputs
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -70,11 +70,13 @@ def mha_forward(q, k, v, mask, num_heads: int, causal: bool = False) -> torch.Te
                   num_heads, H // num_heads, s, int(causal), int(f32), device=q.device)
     mha_forward.launches += 1
     mha_forward.f32_launches += int(f32)
+    mha_forward.wide_launches += int(H // num_heads > SHORT_HEAD_DIM)
     return out
 
 
 mha_forward.launches = 0
 mha_forward.f32_launches = 0  # the share of ``launches`` on f32 operands
+mha_forward.wide_launches = 0  # the share with head_dim past SHORT_HEAD_DIM
 
 
 class FusedMha(torch.autograd.Function):

@@ -81,15 +81,13 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "w1", "b1", "w2", "b2", "g3", "be3")
 
 # limits of the attention kernels (`attention_fits`): csrc/attention.cuh's
-# one warp a (sentence, head) up to 32 queries and keys (ATT_MAX_S), and
-# csrc/attention_long.cu's 64-row tiles beyond, up to 512 (ATL_MAX_S, BERT's
-# max_position_embeddings); head_dim up to 128 (ATT_MAX_HD)
+# one warp a (sentence, head) up to 32 queries and keys (ATT_MAX_S) and
+# head_dim 128 (ATT_MAX_HD), and csrc/attention_long.cu's 64-row tiles
+# beyond either, up to 512 (ATL_MAX_S, BERT's max_position_embeddings) and
+# any head_dim (past 128 in 128-column chunks)
 MAX_SEQ = 512
-MAX_HEAD_DIM = 128
 SHORT_SEQ = 32  # ATT_MAX_S: past it, on either side, the long path
-# the widest row of the LayerNorm kernels of csrc/layernorm.cu (LN_MAX_WIDTH:
-# a row in a warp's registers, at most four 16-byte chunks a lane)
-MAX_LN_WIDTH = 1024
+SHORT_HEAD_DIM = 128  # ATT_MAX_HD: past it, the long path's head_dim chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,9 +490,8 @@ def _check_layer_inputs(geom: LayerGeom, x, enc, smask, cmask, weights) -> int:
     b, s, H = x.shape
     if H != geom.hidden:
         raise ValueError(f"x width {H} != num_heads * head_dim = {geom.hidden}")
-    if geom.head_dim > MAX_HEAD_DIM or H % 8 or geom.intermediate % 8 or H > MAX_LN_WIDTH:
-        raise ValueError(f"the layer kernels need head_dim <= {MAX_HEAD_DIM}, a width of at most "
-                         f"{MAX_LN_WIDTH} and widths divisible by 8")
+    if H % 8 or geom.intermediate % 8:
+        raise ValueError("the layer kernels need widths divisible by 8")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x has dtype {x.dtype}; the layer kernels take torch.bfloat16 or "
                         "torch.float32")
@@ -581,8 +578,10 @@ def _launch(geom: LayerGeom, x, enc, smask, cmask, weights, seed, save: bool):
     attention_forward.launches += n_attn
     attention_forward.cross_launches += int(geom.has_cross)
     attention_forward.f32_launches += f32 * n_attn
+    attention_forward.wide_launches += n_attn * int(geom.head_dim > SHORT_HEAD_DIM)
     residual_layernorm.launches += n_ln
     residual_layernorm.f32_launches += f32 * n_ln
+    residual_layernorm.wide_launches += n_ln * int(H > LN_WARP_WIDTH)
     fused_bert_layer.launches += 1
     fused_bert_layer.residual_launches += int(save)
     fused_bert_layer.f32_launches += f32
@@ -615,8 +614,8 @@ def _attention_args(qkv_or_q, kv, key_mask, num_heads: int, rate: float, what: s
     b, sq, w = qkv_or_q.shape
     H = w if cross else w // 3
     sk = kv.shape[1] if cross else sq
-    if H % num_heads or H // num_heads > MAX_HEAD_DIM or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
-        raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} and sequences of 1..{MAX_SEQ}")
+    if H % num_heads or sq > MAX_SEQ or sk > MAX_SEQ or b == 0:
+        raise ValueError(f"{what} takes hidden % num_heads == 0 and sequences of 1..{MAX_SEQ}")
     if qkv_or_q.dtype not in _DTYPES:
         raise TypeError(f"{what} takes torch.bfloat16 or torch.float32, got {qkv_or_q.dtype}")
     _build.check_tensor("qkv_or_q", qkv_or_q, (b, sq, w), qkv_or_q.dtype, dev)
@@ -657,12 +656,14 @@ def attention_forward(qkv_or_q, kv, key_mask, num_heads: int, causal: bool, seed
     attention_forward.launches += 1
     attention_forward.cross_launches += int(cross)
     attention_forward.f32_launches += f32
+    attention_forward.wide_launches += int(H // num_heads > SHORT_HEAD_DIM)
     return ctx
 
 
 attention_forward.launches = 0
 attention_forward.cross_launches = 0  # the cross-attention share of ``launches``
 attention_forward.f32_launches = 0  # the f32 share of ``launches``
+attention_forward.wide_launches = 0  # the share with head_dim past SHORT_HEAD_DIM
 _ATT_FWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _I] + [_I] * 6 + [_U, _U, _F, _I, _I]
 
 
@@ -697,7 +698,7 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
         q, q_ld, k, kv_ld = qkv_or_q, 3 * H, None, 3 * H
         dq_ptr, dq_ld, dk_ptr, dkv_ld = dqkv.data_ptr(), 3 * H, dqkv.data_ptr() + es * H, 3 * H
     k_ptr = k.data_ptr() if cross else q.data_ptr() + es * H
-    stats = long_stats(b, nh, sq, sk, dev)
+    stats = long_stats(b, nh, sq, sk, H // nh, dev)
     _build.launch("kvq_attention_bwd", _ATT_BWD_ARGS, q.data_ptr(), q_ld, k_ptr, k_ptr + es * H,
                   kv_ld, _ptr(key_mask), g_ctx.data_ptr(), dq_ptr, dq_ld, dk_ptr,
                   dk_ptr + es * H, dkv_ld, _ptr(stats), b, nh, H // nh, sq, sk, int(causal),
@@ -706,28 +707,33 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
     attention_backward.launches += 1
     attention_backward.cross_launches += int(cross)
     attention_backward.f32_launches += f32
+    attention_backward.wide_launches += int(H // nh > SHORT_HEAD_DIM)
     return (dq, dkv) if cross else dqkv
 
 
 attention_backward.launches = 0
 attention_backward.cross_launches = 0  # the cross-attention share of ``launches``
 attention_backward.f32_launches = 0  # the f32 share of ``launches``
+attention_backward.wide_launches = 0  # the share with head_dim past SHORT_HEAD_DIM
 _ATT_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP] + [_I] * 6 + [
     _U, _U, _F, _I, _I]
 
 
-def long_stats(batch: int, num_heads: int, sq: int, sk: int, device):
+def long_stats(batch: int, num_heads: int, sq: int, sk: int, head_dim: int, device):
     """The long attention backward's f32 scratch (``AttnArgs::stats`` of
     ``csrc/attention_long.cuh``: each query row's max, sum of exp z, 1 / z
     and t, written by its dq launch for its dk / dv launch) past
-    ``SHORT_SEQ`` queries or keys; None up to it."""
-    if sq <= SHORT_SEQ and sk <= SHORT_SEQ:
+    ``SHORT_SEQ`` queries or keys or past ``SHORT_HEAD_DIM``; None up to
+    them (the short kernels)."""
+    if sq <= SHORT_SEQ and sk <= SHORT_SEQ and head_dim <= SHORT_HEAD_DIM:
         return None
     return torch.empty(batch * num_heads * sq * 4, dtype=torch.float32, device=device)
 
 # csrc/layernorm.cu: rows per block of the LayerNorm backward's partials
-# (LNB_ROWS) and of the column sums' (CS_ROWS)
+# (LNB_ROWS) and of the column sums' (CS_ROWS); rows wider than
+# LN_WARP_WIDTH take its block-a-row kernels
 LN_BWD_ROWS = 64
+LN_WARP_WIDTH = 1024
 COLSUM_ROWS = 256
 _RES_LN_ARGS = [_VP] * 6 + [_I, _I, _F, _U, _U, _F, _U, _I]
 _LN_BWD_ARGS = [_VP, _I] + [_VP] * 4 + [_U, _U, _F, _U] + [_VP] * 4 + [_I, _I, _I]
@@ -751,9 +757,8 @@ def _check_rows(name, t, shape, dev) -> None:
 
 
 def _check_ln_width(N: int, what: str) -> None:
-    if N % 8 or not 0 < N <= MAX_LN_WIDTH:
-        raise ValueError(f"{what} takes rows of a multiple of 8 columns, at most {MAX_LN_WIDTH}; "
-                         f"got {N}")
+    if N % 8 or N <= 0:
+        raise ValueError(f"{what} takes rows of a positive multiple of 8 columns; got {N}")
 
 
 def _check_rate(rate: float) -> None:
@@ -767,9 +772,9 @@ def residual_layernorm(x, a, gamma, beta, eps: float, seed=0, op=OP_ATTN_OUT, ra
     :func:`residual_layernorm_reference`, the keep mask that of the hidden
     site ``op`` over rows 0..M-1 (``rate`` 0: none). A CPU tensor takes the
     plain version; a CUDA tensor launches ``kvq_residual_layernorm`` of
-    ``csrc/layernorm.cu`` (x bf16 or f32 (M, N), a f32, N a multiple of 8 up
-    to :data:`MAX_LN_WIDTH`) or raises. ``residual_layernorm.launches``
-    counts these launches and those inside the layer forward's C sequence (2
+    ``csrc/layernorm.cu`` (x bf16 or f32 (M, N), a f32, N a multiple of 8;
+    past ``LN_WARP_WIDTH`` its block-a-row kernel) or raises.
+    ``residual_layernorm.launches`` counts these launches and those inside the layer forward's C sequence (2
     a layer forward, 3 with cross-attention)."""
     _check_rate(rate)
     if x.device.type == "cpu":
@@ -794,11 +799,13 @@ def residual_layernorm(x, a, gamma, beta, eps: float, seed=0, op=OP_ATTN_OUT, ra
                   seed_u32(seed), keep_threshold(rate), keep_scale(rate), op, f32, device=dev)
     residual_layernorm.launches += 1
     residual_layernorm.f32_launches += f32
+    residual_layernorm.wide_launches += int(N > LN_WARP_WIDTH)
     return out, inv
 
 
 residual_layernorm.launches = 0
 residual_layernorm.f32_launches = 0
+residual_layernorm.wide_launches = 0  # the share of rows past LN_WARP_WIDTH (a block a row)
 
 
 def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0):
@@ -809,8 +816,8 @@ def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0
     f32; the keep mask that of the hidden site ``op`` over rows 0..M-1. A
     CPU tensor takes the plain version; a CUDA
     tensor launches ``kvq_ln_bwd`` of ``csrc/layernorm.cu`` (v bf16 (M, N)
-    with gy bf16 or f32, or v and gy f32; N a multiple of 8 up to
-    :data:`MAX_LN_WIDTH`) or raises, adding one to
+    with gy bf16 or f32, or v and gy f32; N a multiple of 8; past
+    ``LN_WARP_WIDTH`` its block-a-row kernels) or raises, adding one to
     ``layernorm_backward.launches``. The sums are the same bits in every
     run."""
     _check_rate(rate)
@@ -835,7 +842,8 @@ def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0
     _build.check_tensor("beta", beta, (N,), torch.float32, dev)
     dr = torch.empty((M, N), dtype=torch.float32, device=dev)
     da = torch.empty((M, N), dtype=v.dtype, device=dev)
-    parts = torch.empty((-(-M // LN_BWD_ROWS), 3, N), dtype=torch.float32, device=dev)
+    # the blocks' column partials, then the wide kernels' row means
+    parts = torch.empty(-(-M // LN_BWD_ROWS) * 3 * N + 2 * M, dtype=torch.float32, device=dev)
     sums = torch.empty((3, N), dtype=torch.float32, device=dev)
     _build.launch("kvq_ln_bwd", _LN_BWD_ARGS, gy.data_ptr(), int(gy.dtype == torch.float32),
                   v.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
@@ -843,11 +851,13 @@ def layernorm_backward(gy, v, inv, gamma, beta, seed=0, op=OP_ATTN_OUT, rate=0.0
                   da.data_ptr(), parts.data_ptr(), sums.data_ptr(), M, N, f32, device=dev)
     layernorm_backward.launches += 1
     layernorm_backward.f32_launches += f32
+    layernorm_backward.wide_launches += int(N > LN_WARP_WIDTH)
     return dr, da, sums[0], sums[1], sums[2]
 
 
 layernorm_backward.launches = 0
 layernorm_backward.f32_launches = 0
+layernorm_backward.wide_launches = 0  # the share of rows past LN_WARP_WIDTH
 
 
 def column_sums(src):

@@ -35,8 +35,8 @@ from torch.autograd.function import once_differentiable
 from kindergarten_vq_vae_torch import _build
 from kindergarten_vq_vae_torch.ops.dropout import keep_scale, keep_threshold, seed_u32
 from kindergarten_vq_vae_torch.ops.layer import (
-    MAX_HEAD_DIM,
     MAX_SEQ,
+    SHORT_HEAD_DIM,
     _attention,
     attention_grads,
     long_stats,
@@ -86,8 +86,8 @@ def _check_kernel_inputs(q, k, v, mask, num_heads: int, what: str) -> None:
     if k.shape[0] != b or k.shape[2] != H or b == 0:
         raise ValueError(f"{what}: q {tuple(q.shape)} and k {tuple(k.shape)} do not pair")
     lengths_ok = 1 <= min(sq, sk) <= max(sq, sk) <= MAX_SEQ
-    if H % num_heads or H // num_heads > MAX_HEAD_DIM or not lengths_ok:
-        raise ValueError(f"{what} takes head_dim <= {MAX_HEAD_DIM} and sequences of 1..{MAX_SEQ}")
+    if H % num_heads or not lengths_ok:
+        raise ValueError(f"{what} takes hidden % num_heads == 0 and sequences of 1..{MAX_SEQ}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, expected torch.bfloat16 or torch.float32")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -129,12 +129,14 @@ def sdpa_forward(q, k, v, mask, seed, num_heads: int, causal: bool = False, rate
     sdpa_forward.launches += 1
     sdpa_forward.f32_launches += int(f32)
     sdpa_forward.cross_launches += int(cross)
+    sdpa_forward.wide_launches += int(H // num_heads > SHORT_HEAD_DIM)
     return out
 
 
 sdpa_forward.launches = 0
 sdpa_forward.f32_launches = 0  # the share of ``launches`` on f32 operands
 sdpa_forward.cross_launches = 0  # the cross-attention share of ``launches``
+sdpa_forward.wide_launches = 0  # the share with head_dim past SHORT_HEAD_DIM
 
 
 def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
@@ -157,7 +159,7 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     f32 = q.dtype == torch.float32
     dq = torch.empty((b, sq, H), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, sk, H), dtype=q.dtype, device=q.device) for _ in range(2))
-    stats = long_stats(b, num_heads, sq, sk, q.device)
+    stats = long_stats(b, num_heads, sq, sk, H // num_heads, q.device)
     _build.launch("kvq_sdpa_bwd", _BWD_ARGS, q.data_ptr(), q.stride(1), k.data_ptr(),
                   v.data_ptr(), k.stride(1), None if mask is None else mask.data_ptr(),
                   g.data_ptr(), dq.data_ptr(), H, dk.data_ptr(), dv.data_ptr(), H,
@@ -167,12 +169,14 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     sdpa_backward.launches += 1
     sdpa_backward.f32_launches += int(f32)
     sdpa_backward.cross_launches += int(cross)
+    sdpa_backward.wide_launches += int(H // num_heads > SHORT_HEAD_DIM)
     return dq, dk, dv
 
 
 sdpa_backward.launches = 0
 sdpa_backward.f32_launches = 0
 sdpa_backward.cross_launches = 0
+sdpa_backward.wide_launches = 0
 
 
 class FusedSdpa(torch.autograd.Function):

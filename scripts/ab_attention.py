@@ -2,7 +2,7 @@
 """Device time of the port's attention kernels, for an A/B of two trees on one card.
 
     python3 scripts/ab_attention.py [--root DIR] [--iters 50] [--dtype bfloat16|float32]
-                                    [--batch 2048] [--seq 12]
+                                    [--batch 2048] [--seq 12] [--heads 12]
 
 Imports ``kindergarten_vq_vae_torch`` from ``--root`` (default: this
 checkout), so the same script times another commit unpacked beside it
@@ -11,8 +11,9 @@ checkout), so the same script times another commit unpacked beside it
 time of one call (CUDA events around ``--iters`` calls after a warm-up) at
 the bert-base widths: ``--batch`` sentences x ``--seq`` tokens (dropout 0.1;
 2048 x 12 by default, the step's shape; past 32 tokens, e.g. ``--batch 256
---seq 64``, the long kernels of csrc/attention_long.cu), H 768, 12 heads,
-and the bucket-256 serving forward at ``--seq`` tokens (rate 0), in
+--seq 64``, the long kernels of csrc/attention_long.cu), H 768, ``--heads``
+heads (12; 4 or fewer: head_dim past 128, the long kernels' 128-column
+chunks), and the bucket-256 serving forward at ``--seq`` tokens (rate 0), in
 ``--dtype`` (bf16 by default; float32 times the f32 instances,
 csrc/attention_f32.cuh):
 
@@ -26,7 +27,7 @@ csrc/attention_f32.cuh):
   backward at the same shapes (rate 0, head transposes), a yardstick, its
   backend pinned with ``torch.nn.attention.sdpa_kernel`` (``backends`` in
   the output): flash in bf16 (which takes no mask: the padded keys stay
-  unmasked), memory-efficient in f32 (with the mask);
+  unmasked; up to head_dim 256), memory-efficient otherwise (with the mask);
 - ``serving_forward``: the median host time of 20 synchronized bucket-256
   forwards of a seeded bert-base Shelgon3-VQ (fused layers, ``--dtype``,
   inference mode), the path a served ``/reconstruct`` runs.
@@ -46,7 +47,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEQ, H, NH, TRAIN_BATCH, BUCKET = 12, 768, 12, 2048, 256
+SEQ, H, TRAIN_BATCH, BUCKET = 12, 768, 2048, 256
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -64,17 +65,18 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _library(q, k, v, mask, causal: bool):
+def _library(q, k, v, mask, causal: bool, nh: int):
     """``F.scaled_dot_product_attention``'s forward call and its autograd
-    backward's call on the same inputs (rate 0), its backend pinned (flash in
-    bf16, without the mask; memory-efficient in f32), and that backend's name."""
+    backward's call on the same inputs (rate 0, ``nh`` heads), its backend
+    pinned (flash in bf16 up to head_dim 256, without the mask;
+    memory-efficient otherwise), and that backend's name."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     b, s, _ = q.shape
-    heads = [t.reshape(b, t.shape[1], NH, H // NH).transpose(1, 2) for t in (q, k, v)]
-    flash = q.dtype == torch.bfloat16
+    heads = [t.reshape(b, t.shape[1], nh, H // nh).transpose(1, 2) for t in (q, k, v)]
+    flash = q.dtype == torch.bfloat16 and H // nh <= 256
     backend = SDPBackend.FLASH_ATTENTION if flash else SDPBackend.EFFICIENT_ATTENTION
     attn = None
     if not flash and (mask is not None or causal):
@@ -100,13 +102,13 @@ def _library(q, k, v, mask, causal: bool):
     return fwd, bwd, backend.name + (" (keys unmasked)" if flash and mask is not None else "")
 
 
-def _serving_forward_ms(dtype: str, seq: int, rounds: int = 20) -> float:
+def _serving_forward_ms(dtype: str, seq: int, nh: int, rounds: int = 20) -> float:
     import torch
 
     from kindergarten_vq_vae_torch.config import RunConfig
     from kindergarten_vq_vae_torch.models import build_model, init_weights
 
-    cfg = RunConfig(model_name="shelgon3", compute_dtype=dtype)
+    cfg = RunConfig(model_name="shelgon3", compute_dtype=dtype, num_heads=nh)
     model = init_weights(build_model(cfg, device="cuda"),
                          torch.Generator(device="cuda").manual_seed(0)).eval()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -133,6 +135,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
+    ap.add_argument("--heads", type=int, default=12)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -152,7 +155,7 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(0)
     seed, it, ms, backends = 12345, args.iters, {}, {}
-    dtype, S = getattr(torch, args.dtype), args.seq
+    dtype, S, NH = getattr(torch, args.dtype), args.seq, args.heads
 
     def rand(*shape):
         return torch.randn(*shape, device="cuda", generator=g).to(dtype)
@@ -179,7 +182,7 @@ def main() -> None:
                     lambda: layer.attention_forward(packed, kv, m, NH, causal, seed, op, rate), it)
             ms[f"sdpa_fwd_{kind}"] = _time_ms(
                 lambda: sdpa_forward(q, k, v, m, seed, NH, causal, rate, cross), it)
-            lib_fwd, lib_bwd, backends[kind] = _library(q, k, v, m, causal)
+            lib_fwd, lib_bwd, backends[kind] = _library(q, k, v, m, causal, NH)
             ms[f"library_fwd_{kind}"] = _time_ms(lib_fwd, it)
             if kind == "serving":
                 continue
@@ -191,9 +194,10 @@ def main() -> None:
                 ms[f"library_bwd_{kind}"] = _time_ms(lib_bwd, it)
             if kind == "self":
                 ms["mha"] = _time_ms(lambda: mha_forward(q, k, v, m, NH), it)
-    ms["serving_forward"] = _serving_forward_ms(args.dtype, S)
+    ms["serving_forward"] = _serving_forward_ms(args.dtype, S, NH)
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "dtype": args.dtype, "batch": args.batch, "seq": S, "iters": it,
+                      "dtype": args.dtype, "batch": args.batch, "seq": S, "heads": NH,
+                      "iters": it,
                       "backends": backends, "ms": ms}))
 
 

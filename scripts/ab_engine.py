@@ -15,7 +15,8 @@ engine phase):
 - the bare step: ``train/step.py``'s step on one batch already on the card,
   ``--steps`` steps, each timed on the host clock to a synchronisation; the
   median over all but the first, as sentences/s (``chip_smoke.py`` phase
-  8's number);
+  8's number); each step's ``loss_full`` (as ``float.hex``), held to the
+  first tree's first run bit for bit;
 - the engine: ``python -m kindergarten_vq_vae_torch.cli shelgon3`` in
   process, one epoch of 10 train steps on a generated corpus (8 verbs and 8
   objects a pool: 36,864 sentences; made once, in the first process) with
@@ -104,13 +105,14 @@ def worker(root: str, data_dir: str, steps: int) -> dict:
     batch = {k: torch.as_tensor(np.asarray(getattr(split, k)[rows], dtype=np.int64),
                                 device="cuda") for k in ("input_ids", "attention_mask")}
     batch["n_valid"] = BATCH
-    times = []
+    times, losses = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
+        state, aux = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        losses.append(float(aux["loss_full"]).hex())
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -124,7 +126,7 @@ def worker(root: str, data_dir: str, steps: int) -> dict:
              if "synchroniz" in str(w.message)]
     bare = BATCH / statistics.median(times[1:])
     return {"root": root, "build_s": build_s, "bare_sentences_per_sec": bare,
-            "bare_step_ms": [t * 1e3 for t in times],
+            "bare_step_ms": [t * 1e3 for t in times], "bare_losses": losses,
             "engine_sentences_per_sec": train["sentences_per_sec"],
             "engine_over_bare": train["sentences_per_sec"] / bare,
             "engine_stage_wall_s": train["stage_wall_s"], "train_steps": train["n_els"] // BATCH,
@@ -161,7 +163,9 @@ def main() -> None:
                 sys.exit(f"the worker on {r} failed:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
             res = json.loads(out.stdout.strip().splitlines()[-1])
             runs[r].append(res)
-            print(f"{r}: bare step {res['bare_sentences_per_sec']:.1f} sentences/s, engine "
+            same = res["bare_losses"] == runs[roots[0]][0]["bare_losses"]
+            print(f"{r}: bare step {res['bare_sentences_per_sec']:.1f} sentences/s, its "
+                  f"losses the first tree's bits {same}, engine "
                   f"{res['engine_sentences_per_sec']:.1f} sentences/s "
                   f"({res['engine_over_bare']:.4f} of the bare step; {res['train_steps']} "
                   f"train steps), host synchronisations in two bare steps "

@@ -73,9 +73,15 @@ attention past 32 tokens (csrc/attention_long.cu) at
 head_dim 64, 128 and 33, bf16 and f32, every entry, at the same bars, each
 entry's two launches the same bits, and its keep masks at 33 and 64 rows;
 its division without the slow path (layer_common.cuh div_rn / rcp_rn)
-bit for bit; the shapes the kernels refused before now agree with the
-plain versions, and 513 tokens, head_dim 129, a dtype, a layout or an
-empty shape are still refused with their reason.
+bit for bit; head_dim past 128 (the long path's 128-column chunks) at 130,
+136, 192, 256, 384 and 768 over 12 to 512 tokens, every entry, bf16 and
+f32, at the same bars and with the same repeat bits, and its keep masks at
+head_dim 192; the shapes the kernels refused before (33 tokens, head_dim
+129, LayerNorm rows of 1,032) now agree with the plain versions, and 513
+tokens, a dtype, a layout or an empty shape are still refused with their
+reason. The fused layer forward and training pair also at H 1,280 / 1,088
+(LayerNorm rows past 1,024), 1,040 x 8 heads and 384 x 2 heads (head_dim
+130 and 192).
 The layer GEMM (wgmma + TMA), every layout and epilogue at ragged rows: an
 f32 output within 1e-4 of the largest magnitude of the plain version's (f32
 sums of up to 3,072 products in another order, and tanhf ulps in the GELU
@@ -89,8 +95,9 @@ table gradients' 24,576 rows within the f32 bars (the promotion interval);
 cvt.rna.tf32, which splits its operands, with its 13 low bits zero and ties
 away from zero on 2^24 values.
 LayerNorm and column sums (csrc/layernorm.cu) at rows 1, 31, 33, 97 (a
-warp's, a backward block's 64 and a GEMM tile's 128 rows crossed) and at the
-step's 24,576, widths 64, 768 and the widest, 1,024: the residual +
+warp's, a backward block's 64 and a GEMM tile's 128 rows crossed) and at
+3,072 and the step's 24,576, widths 64, 768 and 1,024 (a warp a row) and
+1,032, 1,280, 1,600, 4,096 and 8,200 (a block a row): the residual +
 LayerNorm's output and the LayerNorm backward's da, bf16, at the GEMM's bar
 around the plain f32 value (a mean and variance summed in another order
 move the f32 value by ~1e-7 and flip an occasional rounding); the rsqrt and
@@ -283,6 +290,10 @@ BF, F32 = torch.bfloat16, torch.float32
     (True, 4, 12, 12, 128, 2, 256, False, False, F32),
     (True, 3, 40, 45, 128, 2, 256, True, True, BF),     # past 32 tokens: the long attention
     (False, 3, 64, 64, 128, 2, 256, False, True, F32),
+    (False, 5, 12, 12, 1280, 20, 512, False, True, BF),  # past 1,024: the wide LayerNorm
+    (True, 5, 12, 9, 1088, 17, 256, True, True, F32),
+    (True, 5, 12, 9, 384, 2, 256, True, True, BF),       # head_dim 192: the wide heads
+    (False, 3, 40, 40, 384, 2, 256, False, True, F32),
 ])
 def test_layer_kernel_matches_plain(gen, decoder, B, S, SK, H, NH, F, with_cmask, gelu_exact,
                                     dtype):
@@ -728,6 +739,11 @@ def test_codebook_grad_grouped_sums_bits(gen, rows, d, n_e, skew):
     (True, 205, 10, 12, 192, 3, 384, F32),
     (True, 5, 40, 45, 128, 2, 256, BF),       # past 32 tokens: the long attention
     (False, 5, 64, 64, 128, 2, 256, F32),
+    (False, 171, 12, 12, 1280, 20, 512, BF),  # past 1,024: the wide LayerNorm
+    (True, 5, 12, 9, 1088, 17, 256, F32),
+    (True, 5, 12, 9, 1040, 8, 256, BF),       # both: width 1,040, head_dim 130
+    (True, 5, 12, 9, 384, 2, 256, BF),        # head_dim 192: the wide heads
+    (False, 5, 40, 40, 384, 2, 256, F32),
 ])
 def test_training_layer_kernels_match_plain(gen, decoder, B, S, SK, H, NH, F, dtype):
     """Training forward (dropout 0.1 / 0.1, residuals kept) and the backward
@@ -1303,8 +1319,8 @@ def test_mha_f32_kernel_matches_plain(gen, causal, masked):
 
 
 def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
-    """33 tokens, refused before the long path, now agree with the plain
-    versions; the dtype, length, head_dim and stride refusals stay."""
+    """33 tokens and head_dim 129, refused before the long path, now agree
+    with the plain versions; the dtype, length and stride refusals stay."""
     q = torch.randn(2, 12, 128, device="cuda", generator=gen).half()
     with pytest.raises(TypeError, match="bfloat16"):
         sdpa_forward(q, q, q, None, 0, 2)
@@ -1320,9 +1336,9 @@ def test_sdpa_and_mha_reject_what_they_do_not_take(gen):
         sdpa_forward(beyond, beyond, beyond, None, 0, 2)
     with pytest.raises(ValueError, match="sequences"):
         sdpa_forward(long, beyond, beyond, None, 0, 2)
-    wide = torch.zeros(2, 12, 258, device="cuda", dtype=torch.bfloat16)  # head_dim 129
-    with pytest.raises(ValueError, match="head_dim"):
-        sdpa_forward(wide, wide, wide, None, 0, 2)
+    wide = torch.randn(2, 12, 258, device="cuda", generator=gen).bfloat16()  # head_dim 129
+    assert _rel_max(sdpa_forward(wide, wide, wide, None, 0, 2),
+                    sdpa_forward_reference(wide, wide, wide, None, 0, 2)) <= 2e-2
     with pytest.raises(ValueError, match="one sequence length"):
         mha_forward(q.bfloat16(), long[:, :9], long[:, :9], None, 2)
     qb, kb, vb = _views(gen, False, 2, 12, 12, 128)
@@ -1365,6 +1381,34 @@ def test_attention_long_path_matches_plain(gen, SQ, SK, B, hd, dtype):
     masked sentence, dropout 0.1; head_dim 64, 128 and 33 (odd rows); two
     launches of each forward and backward give the same bits."""
     _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True)
+
+
+# head_dim past 128 (csrc/attention_long.cu's 128-column chunks) at every
+# length: 130 (a 2-column last chunk, element loads in bf16), 136, 192, 256,
+# 384 and 768 (six chunks)
+_WIDE_HEADS = [130, 136, 192, 256, 384, 768]
+
+
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", _WIDE_HEADS)
+@pytest.mark.parametrize("SQ,SK,B", [(12, 12, 37), (33, 33, 37), (64, 64, 37), (12, 33, 37),
+                                     (64, 12, 37), (512, 512, 4)],
+                         ids=["12", "33", "64", "12-33", "64-12", "512-b4"])
+def test_attention_wide_head_matches_plain(gen, SQ, SK, B, hd, dtype):
+    """Every attention entry and its bars at a head_dim past 128: self
+    causal with a padded mask, cross over padded keys, a fully masked
+    sentence, dropout 0.1; two launches of each forward and backward give
+    the same bits."""
+    _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [12, 64])
+@pytest.mark.parametrize("cross", [False, True])
+def test_wide_head_keep_masks_exact(gen, cross, S, dtype):
+    """The keep masks of the wide heads (head_dim 192, two chunks; the
+    one-hot columns in the first), as test_attention_keep_masks_exact_at_tile_edges."""
+    _keep_masks_exact(gen, cross, S, dtype, 192)
 
 
 def _held_attention_entries(gen, SQ, SK, hd, dtype, B=37, repeat=False):
@@ -1426,7 +1470,11 @@ def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S, dtype):
     """q = k = 0, v and g one-hot in the key / query position, read through
     split views of the packed qkv / kv: the context shows p * keep and dv
     its transpose, per (query, key, head), equal to the plain masks."""
-    B, NH, hd = 9, 2, 64
+    _keep_masks_exact(gen, cross, S, dtype, 64)
+
+
+def _keep_masks_exact(gen, cross, S, dtype, hd):
+    B, NH = 9, 2
     H = NH * hd
     onehot = torch.zeros(B, S, H, device="cuda")
     for h in range(NH):
@@ -1742,7 +1790,9 @@ def test_gemm_kernel_rejects_what_it_does_not_take(gen):
 
 
 # ------------------------------------------------ LayerNorm and column sums
-_LN_ROWS = (1, 31, 33, 97, 24576)
+_LN_ROWS = (1, 31, 33, 97, 3072, 24576)
+# up to 1,024 a warp a row in registers; past it the block-a-row kernels
+_LN_WIDTHS = (64, 768, 1024, 1032, 1280, 1600, 4096, 8200)
 
 
 def _ln_params(gen, N):
@@ -1753,7 +1803,7 @@ def _ln_params(gen, N):
 
 @pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("N", [64, 768, 1024])
+@pytest.mark.parametrize("N", _LN_WIDTHS)
 @pytest.mark.parametrize("rows", _LN_ROWS)
 def test_residual_layernorm_kernel_matches_plain(gen, rows, N, rate, dtype):
     x = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
@@ -1776,7 +1826,7 @@ def test_residual_layernorm_kernel_matches_plain(gen, rows, N, rate, dtype):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("v_dtype,gy_dtype", [(BF, BF), (BF, F32), (F32, F32)])
-@pytest.mark.parametrize("N", [64, 768, 1024])
+@pytest.mark.parametrize("N", _LN_WIDTHS)
 @pytest.mark.parametrize("rows", _LN_ROWS)
 def test_layernorm_backward_kernel_matches_plain(gen, rows, N, v_dtype, gy_dtype, rate):
     gamma, beta = _ln_params(gen, N)
@@ -1852,10 +1902,12 @@ def test_layernorm_kernels_reject_what_they_do_not_take(gen):
         layernorm_backward(x, x, inv[:32], g, b)
     with pytest.raises(ValueError, match="multiple of 8"):
         layernorm_backward(x[:, :60].contiguous(), x[:, :60].contiguous(), inv, g[:60], b[:60])
-    with pytest.raises(ValueError, match="at most"):
-        wide = torch.zeros(2, 1032, device="cuda").bfloat16()
-        layernorm_backward(wide, wide, inv[:2], torch.ones(1032, device="cuda"),
-                           torch.zeros(1032, device="cuda"))
+    wide = torch.randn(2, 1032, device="cuda", generator=gen).bfloat16()  # refused before
+    got = layernorm_backward(wide, wide, inv[:2], torch.ones(1032, device="cuda"),
+                             torch.zeros(1032, device="cuda"))
+    want = layernorm_backward_reference(wide, wide, inv[:2], torch.ones(1032, device="cuda"),
+                                        torch.zeros(1032, device="cuda"))
+    assert got[1].shape == (2, 1032) and _rel_max(got[0], want[0]) <= 1e-5
     with pytest.raises(TypeError, match="bfloat16"):
         column_sums(a.half())
     with pytest.raises(ValueError, match="multiple of 8"):
