@@ -440,14 +440,15 @@ LONG_CODES, LONG_SEQ, LONG_BATCH, LONG_F32_BATCH, LONG_STEPS = 512, 64, 256, 64,
 # limits. The LayerNorm kernels alone at WIDE_LN_ROWS x WIDE_LN_WIDTHS (the
 # kernels line's rows at WIDE_LN_TABLE, the gpt2-large step's 3,072 rows);
 # the attention at WIDE_HEADS x WIDE_SEQS ((tokens, sentences); the line's
-# rows at WIDE_ATTN_TABLE, the head_dim-192 step's shape); the training
+# rows at WIDE_ATTN_TABLE, the head_dim-192 step's shape, and WIDE_ATTN_LONG,
+# the same heads at 512 tokens, #11-#13's rows there); the training
 # steps, WIDE_STEPS each, at batch WIDE_BATCH (f32: WIDE_F32_BATCH) at the
 # widths of GPT2_LARGE: Hugging Face's gpt2-large config (n_embd 1,280,
 # n_head 20, n_layer 36, n_inner 5,120; its vocabulary GPT2_VOCAB and 1,024
 # positions are the GPT-2 decoder's own), the encoder and VQ at that width
 WIDE_LN_ROWS, WIDE_LN_WIDTHS, WIDE_LN_TABLE = (3072, 24576), (1032, 1280, 1600, 4096, 8200), (
     3072, 1280)
-WIDE_HEADS, WIDE_ATTN_TABLE = (136, 192, 256, 384, 768), (192, 12)
+WIDE_HEADS, WIDE_ATTN_TABLE, WIDE_ATTN_LONG = (136, 192, 256, 384, 768), (192, 12), (192, 512)
 WIDE_SEQS = ((12, 2048), (33, 256), (64, 256), (512, 16))
 WIDE_BATCH, WIDE_F32_BATCH, WIDE_STEPS = 256, 64, 4
 GPT2_LARGE = dict(hidden_size=1280, num_heads=20, num_layers=36, intermediate_size=5120,
@@ -3149,8 +3150,9 @@ def _wide_attention(names: tuple[str, str], g, dtype) -> dict:
     their plain versions at every shape, beside the bound and
     ``F.scaled_dot_product_attention`` (flash in bf16 up to head_dim 256,
     memory-efficient otherwise), and every entry so at WIDE_ATTN_TABLE, the
-    head_dim-192 step's shape (the rows of the kernels line); then #11 / #12
-    (self, cross) and #13 once through their autograd (their launches)."""
+    head_dim-192 step's shape, and at WIDE_ATTN_LONG (512 tokens); then #11 /
+    #12 (self, cross) and #13 once through their autograd at both (their
+    launches; with the times, the rows of the kernels line)."""
     import torch
 
     from kindergarten_vq_vae_torch.ops.attention import fused_mha, mha_forward, mha_reference
@@ -3188,7 +3190,8 @@ def _wide_attention(names: tuple[str, str], g, dtype) -> dict:
         NH = max(1, 768 // hd)
         H = NH * hd
         for S, B in WIDE_SEQS:
-            table = (hd, S) == WIDE_ATTN_TABLE
+            sfx = {WIDE_ATTN_TABLE: "", WIDE_ATTN_LONG: "_512"}.get((hd, S))
+            table = sfx is not None
             line = []
             for cross in (False, True):
                 kind, causal = ("cross", False) if cross else ("self", True)
@@ -3267,7 +3270,7 @@ def _wide_attention(names: tuple[str, str], g, dtype) -> dict:
                         line.append(f"{key} {kind} {k_ms:.4f} ms (plain {p_ms:.4f}, bound "
                                     f"{b_[0]:.4f} {b_[1]}, {b_[0] / k_ms:.1%})")
                         if table:
-                            res[f"{key}_{kind}"] = {
+                            res[f"{key}_{kind}{sfx}"] = {
                                 "max_abs_err": errs[key], "ms": k_ms, "plain_ms": p_ms,
                                 "bound": [b_], "library_ms": lb_ms if bwd else lf,
                                 "library": ("autograd backward of " if bwd else "")
@@ -3282,29 +3285,31 @@ def _wide_attention(names: tuple[str, str], g, dtype) -> dict:
             torch.cuda.empty_cache()
 
     # #11 / #12 (self causal, then cross) and #13 through their autograd at
-    # the table's head_dim: their launches, each a wide one
-    hd, S = WIDE_ATTN_TABLE
-    NH = 768 // hd
-    leaves = [torch.randn(8, S, NH * hd, device="cuda", generator=g).to(dtype).requires_grad_()
-              for _ in range(3)]
-    _reset_counters()
-    fused_sdpa(*leaves, None, seed, NH, True, 0.1).float().sum().backward()
-    fused_sdpa(*leaves, None, seed, NH, False, 0.1, cross=True).float().sum().backward()
-    fused_mha(*leaves, None, NH, True).float().sum().backward()
-    torch.cuda.synchronize()
-    counts = _counters()
-    sdpa_keys = [f"sdpa_{d}_{kind}" for d in ("fwd", "bwd") for kind in ("self", "cross")]
-    res["sdpa_launches"] = {k_: counts[k_] for k_ in sdpa_keys}
-    res["mha_launches"] = counts["mha"]
-    wide = {k_: counts[f"{k_}_wide"] for k_ in ("sdpa_fwd", "sdpa_bwd", "mha")}
-    print(f"wide attention {tag}: fused_sdpa (self, cross) and fused_mha through their autograd "
-          f"at (8,{S},{NH * hd}), head_dim {hd}: launches {res['sdpa_launches']}, mha "
-          f"{res['mha_launches']}, wide {wide}")
-    if res["sdpa_launches"] != dict.fromkeys(sdpa_keys, 1) or counts["mha"] != 1 \
-            or wide != {"sdpa_fwd": 2, "sdpa_bwd": 2, "mha": 1}:
-        _fail(f"wide attention ({tag}): the autograd runs did not launch the wide kernels once")
-    del leaves
-    torch.cuda.empty_cache()
+    # the table's head_dim, at 12 and at 512 tokens: their launches, each a
+    # wide one
+    for (hd, S), B, sfx in ((WIDE_ATTN_TABLE, 8, ""), (WIDE_ATTN_LONG, 2, "_512")):
+        NH = 768 // hd
+        leaves = [torch.randn(B, S, NH * hd, device="cuda", generator=g).to(dtype)
+                  .requires_grad_() for _ in range(3)]
+        _reset_counters()
+        fused_sdpa(*leaves, None, seed, NH, True, 0.1).float().sum().backward()
+        fused_sdpa(*leaves, None, seed, NH, False, 0.1, cross=True).float().sum().backward()
+        fused_mha(*leaves, None, NH, True).float().sum().backward()
+        torch.cuda.synchronize()
+        counts = _counters()
+        sdpa_keys = [f"sdpa_{d}_{kind}" for d in ("fwd", "bwd") for kind in ("self", "cross")]
+        res[f"sdpa_launches{sfx}"] = {k_: counts[k_] for k_ in sdpa_keys}
+        res[f"mha_launches{sfx}"] = counts["mha"]
+        wide = {k_: counts[f"{k_}_wide"] for k_ in ("sdpa_fwd", "sdpa_bwd", "mha")}
+        print(f"wide attention {tag}: fused_sdpa (self, cross) and fused_mha through their "
+              f"autograd at ({B},{S},{NH * hd}), head_dim {hd}: launches "
+              f"{res[f'sdpa_launches{sfx}']}, mha {counts['mha']}, wide {wide}")
+        if res[f"sdpa_launches{sfx}"] != dict.fromkeys(sdpa_keys, 1) or counts["mha"] != 1 \
+                or wide != {"sdpa_fwd": 2, "sdpa_bwd": 2, "mha": 1}:
+            _fail(f"wide attention ({tag}): the autograd runs at {S} tokens did not launch the "
+                  "wide kernels once")
+        del leaves
+        torch.cuda.empty_cache()
     return res
 
 
@@ -6036,6 +6041,17 @@ def main() -> None:
           for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
         *[row(f"mha_forward{f}, head_dim {WIDE_ATTN_TABLE[0]}", "attention_long.cu",
               "attention_pallas.py:65", wd[a_key]["mha_launches"], wd[a_key]["mha_self"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
+        # the same heads at 512 tokens (WIDE_ATTN_LONG): #11 / #12 / #13, their
+        # launches from their own autograd runs there
+        *[row(f"sdpa_{d}{f}, head_dim {WIDE_ATTN_LONG[0]}, {WIDE_ATTN_LONG[1]} tokens ({kind})",
+              "attention_long.cu", f"sdpa_pallas.py:{line}",
+              wd[a_key]["sdpa_launches_512"][f"sdpa_{d}_{kind}"], wd[a_key][f"sdpa_{d}_{kind}_512"])
+          for f, a_key in (("", "attn"), (" f32", "attn_f32"))
+          for d, line in (("fwd", 103), ("bwd", 142)) for kind in ("self", "cross")],
+        *[row(f"mha_forward{f}, head_dim {WIDE_ATTN_LONG[0]}, {WIDE_ATTN_LONG[1]} tokens",
+              "attention_long.cu", "attention_pallas.py:65", wd[a_key]["mha_launches_512"],
+              wd[a_key]["mha_self_512"])
           for f, a_key in (("", "attn"), (" f32", "attn_f32"))],
     ]}
     print(f"engine launches, default run {eng}, store run {eng_store}, per-module run {eng_off}; "

@@ -9,8 +9,11 @@
 //   sdpa_pallas.py:103 `_sdpa_fwd_kernel` (#11), l.142 `_sdpa_bwd_kernel` (#12)
 //   attention_pallas.py:65 `_mha_kernel` (#13)
 //
-// This file's kernels take up to 32 queries and keys; the entry points below
-// hand longer sentences (up to 512) to attention_long.cu (attention_long.cuh).
+// This file's kernels take up to 32 queries and keys and head_dim 128; the
+// entry points below hand the rest to attention_long.cu (attention_long.cuh),
+// which takes a head wider than 128 columns by length: up to 32 queries and
+// keys a warp a (sentence, head) as here, over 64-column chunks
+// (attention_wide_short_kernel), past that 64-row tiles (up to 512 tokens).
 //
 // The TPU kernels packed a tile of sentences into (rows, H) and computed
 // dense block-diagonal (rows x rows) scores per head, because the 128x128 MXU
@@ -70,8 +73,10 @@ namespace {
 
 using namespace kvq;
 
-// this file's kernels: up to 32 queries and keys and head_dim 128
-// (attention_long.cuh beyond either)
+// this file's kernels: up to 32 queries and keys and head_dim 128. Past
+// ATT_MAX_HD the entries dispatch to attention_long.cu's wide kernels, which
+// take any head_dim (ATT_MAX_S still picks their design); past ATT_MAX_S to
+// its 64-row tiles.
 constexpr int ATT_MAX_S = 32, ATT_MAX_HD = 128;
 constexpr int ATT_WARPS = 4;                 // the most warps of a CTA
 constexpr int ATT_SMEM_MAX = 227 * 1024;     // the most dynamic shared memory of a CTA
@@ -588,13 +593,14 @@ inline bool att_vec(const Args& a, bool bwd) {
 }
 
 // Launch geometry of a kernel whose warps each take `bytes` of shared
-// memory (the bf16 kernels here and the f32 ones of attention_f32.cuh, Args
-// their arguments): the warps of a CTA and the CTAs the card holds at once
-// (the most resident warps an SM for this shared memory and these
+// memory (the bf16 kernels here, the f32 ones of attention_f32.cuh and the
+// wide-head ones of attention_long.cu; Args their arguments, `extra` any
+// arguments after them): the warps of a CTA and the CTAs the card holds at
+// once (the most resident warps an SM for this shared memory and these
 // registers), cached per kernel, device and per-warp bytes; the grid is that
 // many CTAs on every SM, or fewer when the units run out.
-template <typename Args, void (*KERNEL)(Args)>
-int att_launch(const Args& a, int bytes, cudaStream_t st) {
+template <typename Args, auto KERNEL, typename... Extra>
+int att_launch(const Args& a, int bytes, cudaStream_t st, Extra... extra) {
   const int total = a.batch * a.nh;
   if (total <= 0 || a.s_q <= 0) return 0;
   int dev = 0, sms = 0;
@@ -630,7 +636,7 @@ int att_launch(const Args& a, int bytes, cudaStream_t st) {
   const int nw = static_cast<int>((c >> 16) & 0xffff), per_sm = static_cast<int>(c & 0xffff);
   const int ctas = (total + nw - 1) / nw;
   const int grid = ctas < sms * per_sm ? ctas : sms * per_sm;
-  KERNEL<<<grid, 32 * nw, nw * bytes, st>>>(a);
+  KERNEL<<<grid, 32 * nw, nw * bytes, st>>>(a, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -666,10 +672,10 @@ int attention(const void* q, int q_ld, const void* k, const void* v, int kv_ld, 
 }
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention()'s output,
-// given its gradient g (batch*s_q contiguous rows of nh*hd); stats: the long
-// path's scratch (AttnArgs::stats; null up to 32 queries and keys and
-// head_dim 128). A
-// template, so that a file that does not launch it compiles none of it.
+// given its gradient g (batch*s_q contiguous rows of nh*hd); stats: the
+// 64-row tiles' scratch (AttnArgs::stats; null up to 32 queries and keys, at
+// any head_dim). A template, so that a file that does not launch it compiles
+// none of it.
 template <int UNUSED = 0>
 int attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                   const int* mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,

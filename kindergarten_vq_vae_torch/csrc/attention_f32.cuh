@@ -13,8 +13,11 @@
 //     (l.113-118), with no dropout (a fully masked row is uniform over its
 //     s_k keys)
 //
-// Up to 32 queries and keys; attf_launch hands longer sentences (up to 512)
-// to attention_long.cu (attention_long.cuh).
+// Up to 32 queries and keys and head_dim 128; attf_launch hands longer
+// sentences (up to 512) and wider heads to attention_long.cu
+// (attention_long.cuh): past head_dim 128 its short wide kernels up to 32
+// tokens (a warp a (sentence, head) over 64-column chunks), its 64-row tiles
+// beyond.
 //
 // What bounds it on the H100: the bytes. A 12 x 12 x 64 head moves ~9 KB in
 // the forward (~21 KB in and out in the backward) for ~37 (~110) KFLOP; at
@@ -547,9 +550,9 @@ inline int attention_f32(const void* q, int q_ld, const void* k, const void* v, 
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of attention_f32()'s output
 // given its gradient g (batch*s_q contiguous rows of nh*hd), all f32; stats:
-// the long path's scratch (null up to 32 queries and keys and head_dim
-// 128). A template, so
-// that a file that does not launch it compiles none of it.
+// the 64-row tiles' scratch (null up to 32 queries and keys, at any
+// head_dim). A template, so that a file that does not launch it compiles
+// none of it.
 template <int UNUSED = 0>
 inline int attention_f32_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                              const int* mask, const void* g, void* dq, int dq_ld, void* dk,

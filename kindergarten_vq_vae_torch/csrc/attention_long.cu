@@ -58,11 +58,11 @@
 //   scores computed as K Q^T (key rows), so that both come from the
 //   accumulators as A fragments. Every sum runs in a fixed order: two
 //   launches give the same bits;
-// - head_dim past 128 (attention_wide_kernel, attention_wide_dq_kernel,
-//   attention_wide_dkv_kernel, below), at every length: 128-column chunks,
-//   the scores summed over the chunks; up to 64 keys (queries) a block
-//   keeps them in registers for every output chunk, past that a block
-//   takes one output chunk and recomputes them in the two sweeps.
+// - head_dim past 128 at every length (below): 64-column chunks in a
+//   cp.async ring, the scores summed over the chunks and computed
+//   once for every output chunk a warp or block holds; up to 32 queries and
+//   keys a warp a (sentence, head) (attention_wide_short_kernel, _bwd_kernel),
+//   past that 64-row tiles (attention_wide_kernel, _dq_kernel, _dkv_kernel).
 // What bounds it: the bytes. At 64 tokens x 64 head_dim a (sentence, head)
 // moves ~32 KB in the forward (q, k, v read, ctx written, bf16) for ~1.6
 // MFLOP of products (3 of 64 x 64 x 64), ~50 FLOP a byte, far below the 295
@@ -74,7 +74,6 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "attention_f32.cuh"  // attention.cuh's and attention_f32.cuh's fragments
 #include "attention_long.cuh"
@@ -826,159 +825,445 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_long_dkv_kernel(AttnArg
 }
 
 // ---------------------------------------------------- head_dim past 128
-// A head wider than ATW_D (128) columns is cut into 128-column chunks: a
-// 64 x 64 tile of q k^T (and of g v^T) is summed chunk by chunk in the
-// accumulator registers, each chunk of both operands staged through shared
-// memory, and p (ds, p kappa) is then mixed with one chunk of v (of k; of q
-// or g) at a time. Two grids:
-// - up to 64 keys (forward, dq) or 64 queries (dk / dv) one tile holds the
-//   whole sweep (ATW_ONE): a block takes every output chunk of its tile,
-//   its scores computed once and kept in registers, the next chunk of the
-//   mixed operand loading behind this chunk's products;
-// - past that a block takes one output chunk (of ctx; of dq; of dk or of
-//   dv) and recomputes the scores: the two sweeps of the long kernels
-//   above, over whole 64-key tiles.
-// The function and its rounding points are the long kernels' (attention_long.cuh).
+// A head wider than ATT_MAX_HD (128) columns is cut into AW_C (64)-column
+// chunks that stream through shared memory in a cp.async ring (two slots a
+// warp in the short kernels, AW_STAGES a block in the long ones): each step
+// issues the loads of a step ahead, then waits for its own. The score
+// products (Q K^T, G V^T) accumulate over every chunk in f32 accumulator
+// registers (Atl<T, 64>: bf16 m16n8k16 16 deep, f32 3xTF32 m16n8k8 8 deep),
+// and every output goes out a chunk at a time, so no register array grows
+// with head_dim. Two designs, by length:
+// - up to 32 queries and keys (dSentences' 12-14 tokens, the serving
+//   buckets): attention_wide_short_kernel / _bwd_kernel, a warp a
+//   (sentence, head) as in attention.cuh: m16 row blocks padded to 16 or
+//   32, a persistent grid from the occupancy of the warp's shared memory
+//   (att_launch: the ring's two slots, the backward's P kappa / dS copies
+//   and staging tile, the key mask), the next unit's first loads behind this
+//   unit's last chunk, 16-byte stores through the staging rows. The
+//   backward computes S and dP once for dq, dk and dv (attention_bwd_kernel's
+//   arithmetic), so it needs no statistics scratch; its output steps read
+//   q, k and g a second time, chunk by chunk;
+// - past that: attention_wide_kernel / _dq_kernel / _dkv_kernel, a block of
+//   4 warps a 64-row tile of queries (of keys for dk / dv) and a group of
+//   output chunks (AW_G_*), with the two sweeps of the long kernels above
+//   (the rows' max and sum, then p): each sweep computes a key (query)
+//   tile's scores once over every chunk and mixes them into every output
+//   chunk the block holds, in accumulator registers; the dk / dv block
+//   computes P and dS once for both. Up to 64 keys (queries) a block holds
+//   every output chunk (ATW_ONE): the scores are final after one tile and
+//   each chunk goes out as it is mixed.
+// The function and its rounding points are the long kernels'
+// (attention_long.cuh). What bounds it: the bytes, as above; the design
+// keeps each warp's or block's next loads in flight behind its products and
+// computes each score tile once for every output chunk it feeds.
 
-constexpr int ATW_D = 128;
-constexpr int ATW_ONE = 4;  // the kernels' flag: one tile holds the sweep
+constexpr int AW_C = 64;    // columns of a head_dim chunk
+constexpr int ATW_ONE = 4;  // the kernels' flag: one tile holds the sweep, a block every chunk
+// output chunks a long block accumulates over its sweep: ctx, dq, dk with
+// dv. On an H100 at 512 tokens x head_dim 192 the forward's 4 spilled and
+// ran 9% slower than 3; the backward's 2 / 1 ran 44% slower than 3 / 2,
+// whose spills cost less than computing the scores again in each group.
+constexpr int AW_G_FWD = 3, AW_G_DQ = 3, AW_G_DKV = 2;
+// the long blocks' ring slots: on an H100 a third measured no faster than
+// two, and a fourth up to 66% slower in f32 (fewer blocks an SM)
+constexpr int AW_STAGES = 2;
 
-__host__ __device__ constexpr int atw_chunks(int hd) { return (hd + ATW_D - 1) / ATW_D; }
+__host__ __device__ constexpr int aw_chunks(int hd) { return (hd + AW_C - 1) / AW_C; }
 
 template <typename T>
-constexpr int atw_bytes() {  // three 64 x 128 tiles and the key mask
-  return 3 * atl_tile_bytes<T, ATW_D>() + ATL_MASK_BYTES;
-}
+using Aw = Atl<T, AW_C>;
 
-// rows row0 .. row0 + 63, columns [c0, c0 + 128) of src (hd columns at row
-// stride ld) into a tile at row stride LD: zero past `rows` and past hd
-template <typename T, int LD>
-__device__ __forceinline__ void atw_tile(T* dst, const T* src, int ld, int row0, int rows, int c0,
-                                         int hd, bool vec) {
-  const int wc = min(ATW_D, hd - c0);
+// rows row0 .. row0 + n - 1 of src (row stride ld; those at or past `rows`
+// zero), columns [c0, c0 + AW_C) (zero at or past hd) into dst at row
+// stride Aw<T>::LD; thread tid of nt
+template <typename T>
+__device__ __forceinline__ void aw_load(T* dst, const T* src, int ld, int row0, int n, int rows,
+                                        int c0, int hd, bool vec, int tid, int nt) {
+  constexpr int LD = Aw<T>::LD;
+  const int wc = min(AW_C, hd - c0);
   if (vec) {
-    constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = ATW_D / E;
-    for (int c = threadIdx.x; c < ATL_TILE * CPR; c += ATL_THREADS) {
+    constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = AW_C / E;
+    for (int c = tid; c < n * CPR; c += nt) {
       const int r = c / CPR, col = (c - r * CPR) * E, row = row0 + r;
       const bool in = row < rows && col < wc;
       cp_async16(dst + r * LD + col, in ? src + (size_t)row * ld + c0 + col : src, in);
     }
   } else {
-    for (int e = threadIdx.x; e < ATL_TILE * ATW_D; e += ATL_THREADS) {
-      const int r = e / ATW_D, col = e - r * ATW_D, row = row0 + r;
+    for (int e = tid; e < n * AW_C; e += nt) {
+      const int r = e / AW_C, col = e - r * AW_C, row = row0 + r;
       dst[r * LD + col] =
           row < rows && col < wc ? src[(size_t)row * ld + c0 + col] : static_cast<T>(0.0f);
     }
   }
 }
 
-// fn(NT) for the n8 tiles that hold `rows` real rows of a 64-row tile (2,
-// 4, 6 or 8: whole 16-row pairs): the products skip the tile's zero rows
-template <typename Fn>
-__device__ __forceinline__ void atw_by_rows(int rows, Fn&& fn) {
-  switch ((min(rows, ATL_TILE) + 15) / 16) {
-    case 1: fn(std::integral_constant<int, 2>()); break;
-    case 2: fn(std::integral_constant<int, 4>()); break;
-    case 3: fn(std::integral_constant<int, 6>()); break;
-    default: fn(std::integral_constant<int, 8>()); break;
+// ------------------------------------------- up to 32 queries and keys
+
+// One warp's shared memory in the short wide kernels, in elements of T: two
+// ring slots (the forward: a q tile, then a k or v tile; the backward: q,
+// k, g, v), the backward's P kappa and dS copies and staging tile, then the
+// key mask (ATT_MAX_S ints)
+struct AwsPlan {
+  int sqp, skp;   // rows padded to 16 or 32
+  int tq, tk;     // elements of a q (or g) and of a k (or v) chunk tile
+  int slot, tld;  // elements of a ring slot; row stride of the copies (skp + 16 bytes)
+  int bytes;      // a warp's bytes, a multiple of 16
+};
+
+template <typename T>
+__host__ __device__ inline AwsPlan aws_plan(int s_q, int s_k, bool bwd) {
+  constexpr int LD = Aw<T>::LD, PAD = 16 / static_cast<int>(sizeof(T));
+  AwsPlan p;
+  p.sqp = s_q > 16 ? 32 : 16;
+  p.skp = s_k > 16 ? 32 : 16;
+  p.tq = p.sqp * LD;
+  p.tk = p.skp * LD;
+  p.slot = bwd ? 2 * (p.tq + p.tk) : p.tq + p.tk;
+  p.tld = p.skp + PAD;
+  const int extra = bwd ? 2 * p.sqp * p.tld + (p.sqp > p.skp ? p.tq : p.tk) : 0;
+  p.bytes = (2 * p.slot + extra) * static_cast<int>(sizeof(T)) + ATT_MAX_S * 4;
+  return p;
+}
+
+// Zero the warp's shared memory and, for a call without a key mask, mark
+// every key valid. Loads write only the sentence's rows, so the padding
+// stays finite: zero, or in the forward's q tile the staged outputs of its
+// padded rows (scores of padded query rows, which no output keeps).
+__device__ __forceinline__ void aws_init(unsigned char* mine, int bytes, int* msk, bool no_mask,
+                                         int lane) {
+  att_zero(mine, bytes, lane);
+  __syncwarp();
+  if (no_mask) msk[lane] = 1;  // ATT_MAX_S == 32
+  __syncwarp();
+}
+
+// rows [0, n) x wc columns of the staging rows st (row stride LD) out to
+// dst (row stride ld), 16 rows at a time
+template <typename T>
+__device__ __forceinline__ void aws_store(T* dst, int ld, const T* st, int n, int wc, bool vec,
+                                          int lane) {
+  for (int m0 = 0; m0 < n; m0 += 16)
+    atl_store<T, Aw<T>::LD>(dst, ld, st + m0 * Aw<T>::LD, m0, n, wc, vec, lane);
+}
+
+// o += the transpose of the (query, key) copy C (row stride tld; its first
+// 16 KB query rows, the 16 key columns from m0) times X's (query, AW_C)
+// chunk tile: dk = dS^T Q and dv = (P kappa)^T G, A through ldmatrix.trans
+template <int KB>
+__device__ __forceinline__ void aws_mix_t(float (&o)[AW_C / 8][4], const bf16* C, int tld, int m0,
+                                          const bf16* X, int lane) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    uint32_t at[4];
+    att_a_trans(at, C, tld, kb * 16, m0, lane);
+#pragma unroll
+    for (int d0 = 0; d0 < AW_C; d0 += 16) {
+      uint32_t bx[4];
+      att_b_trans(bx, X, Aw<bf16>::LD, kb * 16, d0, lane);
+      mma_bf16(o[d0 / 8], at, bx[0], bx[1]);
+      mma_bf16(o[d0 / 8 + 1], at, bx[2], bx[3]);
+    }
   }
 }
 
-// acc += the warp's 16 rows of A (rows a0.. of a) times rows b0 .. b0 + 63
-// of b, transposed, over all hd columns: chunk by chunk through the tiles
-// as and bs; a warp whose rows are all past a_rows, and the n8 tiles of b's
-// rows past b_rows, skip their products (their scores stay 0). Ends with a
-// barrier; waits for every cp.async group in flight.
-template <typename T>
-__device__ __forceinline__ void atw_scores(float (&acc)[ATL_TILE / 8][4], T* as, T* bs,
-                                           const T* a, int a_ld, int a0, int a_rows, const T* b,
-                                           int b_ld, int b0, int b_rows, int hd, bool vec,
-                                           int warp, int lane) {
-  using M = Atl<T, ATW_D>;
-  const bool active = a0 + warp * 16 < a_rows;
-  for (int c0 = 0; c0 < hd; c0 += ATW_D) {
-    atw_tile<T, M::LD>(as, a, a_ld, a0, a_rows, c0, hd, vec);
-    atw_tile<T, M::LD>(bs, b, b_ld, b0, b_rows, c0, hd, vec);
+// the same in f32: 3xTF32 k8 steps, A and B in attf_b_pairs' slot order
+template <int KB>
+__device__ __forceinline__ void aws_mix_t(float (&o)[AW_C / 8][4], const float* C, int tld,
+                                          int m0, const float* X, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 2 * KB; ++ks) {
+    FragA at;
+    attf_a_pairs(at, C, tld, ks * 8, m0, lane);
+#pragma unroll
+    for (int n = 0; n < AW_C / 8; ++n) {
+      FragB bx;
+      attf_b_pairs(bx, X, Aw<float>::LD, ks * 8, n * 8, lane);
+      mma3(o[n], at, bx);
+    }
+  }
+}
+
+// Forward up to 32 queries and keys: a warp a (sentence, head), MT / KT m16
+// blocks of queries / keys. Step s of a unit loads chunk s of q and k (s <
+// nc; the key mask with step 0) or chunk s - nc of v into ring slot s % 2,
+// 2 nc steps a unit.
+template <typename T, int MT, int KT>
+__global__ void __launch_bounds__(32 * ATT_WARPS)
+    attention_wide_short_kernel(AttnArgs<T> a, int flags) {
+  using M = Aw<T>;
+  constexpr int LD = M::LD, NT = 2 * KT;
+  extern __shared__ __align__(16) unsigned char aws_smem[];
+  const bool vec = flags & ATL_VEC, wm = flags & ATL_WHERE_MASK;
+  const AwsPlan P = aws_plan<T>(a.s_q, a.s_k, false);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  unsigned char* mine = aws_smem + (size_t)warp * P.bytes;
+  T* ring = reinterpret_cast<T*>(mine);
+  int* msk = reinterpret_cast<int*>(mine + P.bytes) - ATT_MAX_S;
+  aws_init(mine, P.bytes, msk, a.key_mask == nullptr, lane);
+  const int nc = aw_chunks(a.hd), total = a.batch * a.nh, stride = gridDim.x * nw;
+  auto issue = [&](int u, int s) {
+    if (u < total) {
+      const int b = u / a.nh, h = u - b * a.nh, c0 = (s < nc ? s : s - nc) * AW_C;
+      const size_t col = (size_t)h * a.hd;
+      T* sl = ring + (s & 1) * P.slot;
+      if (s < nc)
+        aw_load(sl, a.q + (size_t)b * a.s_q * a.q_ld + col, a.q_ld, 0, a.s_q, a.s_q, c0, a.hd, vec,
+                lane, 32);
+      aw_load(sl + P.tq, (s < nc ? a.k : a.v) + (size_t)b * a.s_k * a.kv_ld + col, a.kv_ld, 0,
+              a.s_k, a.s_k, c0, a.hd, vec, lane, 32);
+      if (s == 0 && a.key_mask != nullptr && lane < a.s_k)
+        cp_async4(msk + lane, a.key_mask + b * a.s_k + lane);
+    }
     cp_commit();
-    cp_wait<0>();
-    __syncthreads();
-    if (active)
-      atw_by_rows(b_rows - b0, [&](auto nt) {
-        constexpr int NT = decltype(nt)::value;
-        M::template abt<NT>(reinterpret_cast<float (&)[NT][4]>(acc), as + warp * 16 * M::LD, bs,
-                            lane);
-      });
-    __syncthreads();
+  };
+  int u = blockIdx.x * nw + warp;
+  issue(u, 0);
+  for (; u < total; u += stride) {
+    const int b = u / a.nh, h = u - b * a.nh;
+    float sc[MT][NT][4] = {};
+    for (int s = 0; s < nc; ++s) {
+      issue(u, s + 1);  // s + 1 == nc: v's chunk 0
+      cp_wait<1>();
+      __syncwarp();
+      const T* sl = ring + (s & 1) * P.slot;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        M::template abt<NT>(sc[mt], sl + mt * 16 * LD, sl + P.tq, lane);
+      __syncwarp();
+    }
+    const uint32_t op = a.op_base + h;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        atl_probs(sc[mt], r, mt * 16 + (lane >> 2) + 8 * r, a, msk, wm, b, op, lane & 3);
+    T* out = a.out + (size_t)b * a.s_q * a.out_ld + (size_t)h * a.hd;
+    for (int c = 0; c < nc; ++c) {
+      const int s = nc + c;
+      if (c + 1 < nc)
+        issue(u, s + 1);
+      else
+        issue(u + stride, 0);
+      cp_wait<1>();
+      __syncwarp();
+      T* sl = ring + (s & 1) * P.slot;  // v's chunk c in the k tile; ctx staged in the spent q tile
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float o[AW_C / 8][4] = {};
+        M::template mix<NT>(o, sc[mt], sl + P.tq, lane);
+        atl_stage<T, AW_C>(sl + mt * 16 * LD, o, lane);
+      }
+      __syncwarp();
+      aws_store(out + c * AW_C, a.out_ld, sl, a.s_q, min(AW_C, a.hd - c * AW_C), vec, lane);
+      __syncwarp();
+    }
   }
 }
 
-// o += p X over X's first `rows` rows (the rest of p is 0)
+// Backward up to 32 queries and keys: a warp a (sentence, head); S and dP
+// once for dq, dk and dv. Step s < nc loads chunk s of q, k, g and v (the
+// key mask with step 0); step nc + c chunk c of q, k and g, for dq = dS K, dk
+// = dS^T Q and dv = (P kappa)^T G.
+template <typename T, int MT, int KT>
+__global__ void __launch_bounds__(32 * ATT_WARPS)
+    attention_wide_short_bwd_kernel(AttnArgs<T> a, int flags) {
+  using M = Aw<T>;
+  constexpr int LD = M::LD, NT = 2 * KT;
+  extern __shared__ __align__(16) unsigned char aws_smem[];
+  const bool vec = flags & ATL_VEC;
+  const AwsPlan P = aws_plan<T>(a.s_q, a.s_k, true);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  unsigned char* mine = aws_smem + (size_t)warp * P.bytes;
+  T* ring = reinterpret_cast<T*>(mine);  // a slot: q, k at tq, g at tq + tk, v at 2 tq + tk
+  T* pk = ring + 2 * P.slot;             // P kappa, (query, key) rows at tld
+  T* dsc = pk + P.sqp * P.tld;           // dS, the same
+  T* stage = dsc + P.sqp * P.tld;
+  int* msk = reinterpret_cast<int*>(mine + P.bytes) - ATT_MAX_S;
+  aws_init(mine, P.bytes, msk, a.key_mask == nullptr, lane);
+  const int nc = aw_chunks(a.hd), total = a.batch * a.nh, stride = gridDim.x * nw;
+  const int H = a.nh * a.hd;
+  auto issue = [&](int u, int s) {
+    if (u < total) {
+      const int b = u / a.nh, h = u - b * a.nh, c0 = (s < nc ? s : s - nc) * AW_C;
+      const size_t col = (size_t)h * a.hd;
+      T* sl = ring + (s & 1) * P.slot;
+      aw_load(sl, a.q + (size_t)b * a.s_q * a.q_ld + col, a.q_ld, 0, a.s_q, a.s_q, c0, a.hd, vec,
+              lane, 32);
+      aw_load(sl + P.tq, a.k + (size_t)b * a.s_k * a.kv_ld + col, a.kv_ld, 0, a.s_k, a.s_k, c0,
+              a.hd, vec, lane, 32);
+      aw_load(sl + P.tq + P.tk, a.g + (size_t)b * a.s_q * H + col, H, 0, a.s_q, a.s_q, c0, a.hd,
+              vec, lane, 32);
+      if (s < nc) {
+        aw_load(sl + 2 * P.tq + P.tk, a.v + (size_t)b * a.s_k * a.kv_ld + col, a.kv_ld, 0, a.s_k,
+                a.s_k, c0, a.hd, vec, lane, 32);
+        if (s == 0 && a.key_mask != nullptr && lane < a.s_k)
+          cp_async4(msk + lane, a.key_mask + b * a.s_k + lane);
+      }
+    }
+    cp_commit();
+  };
+  int u = blockIdx.x * nw + warp;
+  issue(u, 0);
+  for (; u < total; u += stride) {
+    const int b = u / a.nh, h = u - b * a.nh;
+    float sc[MT][NT][4] = {}, dp[MT][NT][4] = {};
+    for (int s = 0; s < nc; ++s) {
+      issue(u, s + 1);
+      cp_wait<1>();
+      __syncwarp();
+      const T* sl = ring + (s & 1) * P.slot;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        M::template abt<NT>(sc[mt], sl + mt * 16 * LD, sl + P.tq, lane);
+        M::template abt<NT>(dp[mt], sl + P.tq + P.tk + mt * 16 * LD, sl + 2 * P.tq + P.tk, lane);
+      }
+      __syncwarp();
+    }
+
+    // per query row: p, dp kappa, P kappa into pk, t, then dS (in dp and dsc)
+    const uint32_t op = a.op_base + h;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = mt * 16 + g8 + 8 * r;
+        const bool row = i < a.s_q;
+        const float mx = att_scores<false>(sc[mt], r, i, a, msk, lane);
+        const float z = att_exp(sc[mt], r, mx, a.s_k, lane);
+        const float rz = rcp_rn(z);
+        const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+        float t = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float pd[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = nt * 8 + 2 * t4 + c;
+            float p = 0.0f, d = 0.0f, kap = 1.0f;
+            if (row && j < a.s_k) {
+              p = div_rn(sc[mt][nt][2 * r + c], z, rz);
+              d = dp[mt][nt][2 * r + c];
+              if (a.drop.on) {
+                kap = dropout_keep(rt, j, a.drop);
+                d *= kap;
+              }
+              t += d * p;
+            }
+            sc[mt][nt][2 * r + c] = p;
+            dp[mt][nt][2 * r + c] = d;
+            pd[c] = a.drop.on ? p * kap : p;
+          }
+          M::put(pk + i * P.tld + nt * 8 + 2 * t4, pd[0], pd[1]);
+        }
+        t = quad_sum(t);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            dp[mt][nt][2 * r + c] = sc[mt][nt][2 * r + c] * (dp[mt][nt][2 * r + c] - t) * a.scale;
+          M::put(dsc + i * P.tld + nt * 8 + 2 * t4, dp[mt][nt][2 * r], dp[mt][nt][2 * r + 1]);
+        }
+      }
+    __syncwarp();
+
+    T* dqb = a.out + (size_t)b * a.s_q * a.out_ld + (size_t)h * a.hd;
+    const size_t kv_off = (size_t)b * a.s_k * a.dkv_ld + (size_t)h * a.hd;
+    for (int c = 0; c < nc; ++c) {
+      const int s = nc + c;
+      if (c + 1 < nc)
+        issue(u, s + 1);
+      else
+        issue(u + stride, 0);
+      cp_wait<1>();
+      __syncwarp();
+      const T* sl = ring + (s & 1) * P.slot;
+      const int wc = min(AW_C, a.hd - c * AW_C);
+      // dq = dS K, dS (rounded to T) from the registers
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float o[AW_C / 8][4] = {};
+        M::template mix<NT>(o, dp[mt], sl + P.tq, lane);
+        atl_stage<T, AW_C>(stage + mt * 16 * LD, o, lane);
+      }
+      __syncwarp();
+      aws_store(dqb + c * AW_C, a.out_ld, stage, a.s_q, wc, vec, lane);
+      __syncwarp();
+      // dk = dS^T Q and dv = (P kappa)^T G: key rows, the sums over the queries
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const T* cpy = which == 0 ? dsc : pk;
+        const T* X = which == 0 ? sl : sl + P.tq + P.tk;
+#pragma unroll
+        for (int mk = 0; mk < KT; ++mk) {
+          float o[AW_C / 8][4] = {};
+          aws_mix_t<MT>(o, cpy, P.tld, mk * 16, X, lane);
+          atl_stage<T, AW_C>(stage + mk * 16 * LD, o, lane);
+        }
+        __syncwarp();
+        aws_store((which == 0 ? a.dk : a.dv) + kv_off + c * AW_C, a.dkv_ld, stage, a.s_k, wc, vec,
+                  lane);
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ past 32 tokens
+
 template <typename T>
-__device__ __forceinline__ void atw_mix(float (&o)[ATW_D / 8][4],
-                                        const float (&p)[ATL_TILE / 8][4], const T* X, int rows,
-                                        int lane) {
-  atw_by_rows(rows, [&](auto nt) {
-    constexpr int NT = decltype(nt)::value;
-    Atl<T, ATW_D>::template mix<NT>(o, reinterpret_cast<const float (&)[NT][4]>(p), X, lane);
-  });
+constexpr int aw_bytes() {  // the ring's slots of two 64-row chunk tiles, the key mask
+  return 2 * AW_STAGES * ATL_TILE * Aw<T>::LD * static_cast<int>(sizeof(T)) + ATL_MASK_BYTES;
+}
+
+// a 64-row chunk tile (rows row0.. of src, zero past `rows`), by the block
+template <typename T>
+__device__ __forceinline__ void aw_tile(T* dst, const T* src, int ld, int row0, int rows, int c0,
+                                        int hd, bool vec) {
+  aw_load(dst, src, ld, row0, ATL_TILE, rows, c0, hd, vec, threadIdx.x, ATL_THREADS);
+}
+
+// acc += the warp's 16 rows of A times B's 64 rows, transposed, over one
+// chunk (a ragged tile's zero rows give scores that the masks drop)
+template <typename T>
+__device__ __forceinline__ void aw_abt(float (&acc)[ATL_TILE / 8][4], const T* A, const T* B,
+                                       int lane) {
+  Aw<T>::template abt<ATL_TILE / 8>(acc, A, B, lane);
+}
+
+// o += p X over X's 64 rows (p is 0 past the real ones, X's rows there 0)
+template <typename T>
+__device__ __forceinline__ void aw_mix(float (&o)[AW_C / 8][4], const float (&p)[ATL_TILE / 8][4],
+                                       const T* X, int lane) {
+  Aw<T>::template mix<ATL_TILE / 8>(o, p, X, lane);
 }
 
 // A warp's 16 rows of one output chunk (the accumulators o) out through its
 // own 16 rows of `rows` (row stride LD) to rows row0.. of dst (row stride
-// ld), its wc columns, those below `n_rows`
+// ld), its wc columns, those below n_rows
 template <typename T>
-__device__ __forceinline__ void atw_put(T* dst, int ld, T* rows,
-                                        const float (&o)[ATW_D / 8][4], int row0, int n_rows,
-                                        int wc, bool vec, int lane) {
-  atl_stage<T, ATW_D>(rows, o, lane);
+__device__ __forceinline__ void aw_put(T* dst, int ld, T* rows, const float (&o)[AW_C / 8][4],
+                                       int row0, int n_rows, int wc, bool vec, int lane) {
+  atl_stage<T, AW_C>(rows, o, lane);
   __syncwarp();
-  atl_store<T, Atl<T, ATW_D>::LD>(dst, ld, rows, row0, n_rows, wc, vec, lane);
+  atl_store<T, Aw<T>::LD>(dst, ld, rows, row0, n_rows, wc, vec, lane);
   __syncwarp();
 }
 
-// The mix of every output chunk in [oc0, oc1) with p (the A operand, in
-// registers): chunk oc of src (its rows x0.. of x_rows) staged in turns in
-// the tiles b0 (holding chunk oc0 already, or loading it) and b1, the next
-// loading behind this one's products; each chunk's 16 rows a warp out
-// through its own rows of `rows` to dst's chunk oc.
-template <typename T>
-__device__ __forceinline__ void atw_mix_chunks(const float (&p)[ATL_TILE / 8][4], T* b0, T* b1,
-                                               T* rows, const T* src, int src_ld, int x0,
-                                               int x_rows, T* dst, int dst_ld, int row0,
-                                               int n_rows, int oc0, int oc1, int hd, bool vec,
-                                               int lane) {
-  using M = Atl<T, ATW_D>;
-  for (int oc = oc0; oc < oc1; ++oc) {
-    T* buf = (oc - oc0) & 1 ? b1 : b0;
-    if (oc + 1 < oc1)
-      atw_tile<T, M::LD>((oc - oc0) & 1 ? b0 : b1, src, src_ld, x0, x_rows, (oc + 1) * ATW_D, hd,
-                         vec);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    if (row0 < n_rows) {  // the warp has a real row
-      float o[ATW_D / 8][4] = {};
-      atw_mix(o, p, buf, x_rows - x0, lane);
-      atw_put(dst + oc * ATW_D, dst_ld, rows, o, row0, n_rows, min(ATW_D, hd - oc * ATW_D), vec,
-              lane);
-    }
-    __syncthreads();  // buf is free for chunk oc + 2
-  }
-}
-
-// Forward: block (sentence, head, query tile[, output chunk]).
-template <typename T>
+// Forward: block (sentence, head, query tile, output group). Steps: with
+// more than one key tile, sweep 1's nc score steps a key tile (chunk c of q
+// and of the key tile's k: the rows' max and sum); then, a key tile at a
+// time, nc score steps and a step a held chunk of its v (p V).
+template <typename T, int G>
 __global__ void __launch_bounds__(ATL_THREADS) attention_wide_kernel(AttnArgs<T> a, int flags) {
-  using M = Atl<T, ATW_D>;
-  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+  constexpr int LD = Aw<T>::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
   extern __shared__ __align__(16) unsigned char atl_smem[];
   const bool vec = flags & ATL_VEC, wm = flags & ATL_WHERE_MASK, one = flags & ATW_ONE;
-  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : nc;
-  T* qs = reinterpret_cast<T*>(atl_smem);
-  T* ks = qs + TILE;
-  T* vs = ks + TILE;
-  int* msk = reinterpret_cast<int*>(vs + TILE);
-  const int oc0 = blockIdx.x % gc, rest = blockIdx.x / gc, oc1 = one ? nc : oc0 + 1;
+  const int nc = aw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : (nc + G - 1) / G;
+  T* ring = reinterpret_cast<T*>(atl_smem);  // slot x: A at ring + 2 x TILE, B after it
+  int* msk = reinterpret_cast<int*>(ring + 2 * AW_STAGES * TILE);
+  const int oc0 = (blockIdx.x % gc) * G, rest = blockIdx.x / gc;
+  const int ng = one ? nc : min(G, nc - oc0);
   const int bh = rest / nqt, i0 = (rest - bh * nqt) * ATL_TILE;
   const int b = bh / a.nh, h = bh - b * a.nh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -987,130 +1272,234 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_wide_kernel(AttnArgs<T>
   const T* kb = a.k + (size_t)b * a.s_k * a.kv_ld + col;
   const T* vb = a.v + (size_t)b * a.s_k * a.kv_ld + col;
   T* ob = a.out + (size_t)b * a.s_q * a.out_ld + col;
-  const int n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
-  const int iw = i0 + warp * 16 + g8;  // the warp's rows iw and iw + 8
-  T* qw = qs + warp * 16 * LD;         // its q rows, then its output rows
-  const uint32_t op = a.op_base + h;
-  if (n == 1) {
-    // one key tile: its scores once, in registers, then every output chunk
-    atw_tile<T, LD>(vs, vb, a.kv_ld, 0, a.s_k, oc0 * ATW_D, a.hd, vec);
+  int n = 1;  // key tiles, from the mask (step 0 is the same for any n)
+  auto issue = [&](int k) {
+    const int pre = n > 1 ? n * nc : 0, per = nc + ng;
+    if (k < pre + n * per) {
+      T* sl = ring + 2 * (k % AW_STAGES) * TILE;
+      const int span = k < pre ? nc : per;
+      int c = k < pre ? k : k - pre;
+      const int t = c / span;
+      c -= t * span;
+      if (c < nc) {
+        aw_tile(sl, qb, a.q_ld, i0, a.s_q, c * AW_C, a.hd, vec);
+        aw_tile(sl + TILE, kb, a.kv_ld, t * ATL_TILE, a.s_k, c * AW_C, a.hd, vec);
+      } else {
+        aw_tile(sl + TILE, vb, a.kv_ld, t * ATL_TILE, a.s_k, (oc0 + c - nc) * AW_C, a.hd, vec);
+      }
+    }
     cp_commit();
+  };
+  for (int k0 = 0; k0 < AW_STAGES - 1; ++k0) issue(k0);  // the same steps for any n
+  n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
+  int k = 0;
+  auto begin = [&]() {  // step k's tiles, the next steps' loads in flight
+    issue(k + AW_STAGES - 1);
+    cp_wait<AW_STAGES - 1>();
+    __syncthreads();
+    return ring + 2 * (k % AW_STAGES) * TILE;
+  };
+  auto end = [&]() {  // the slot is free for step k + AW_STAGES
+    __syncthreads();
+    ++k;
+  };
+  const int iw = i0 + warp * 16 + g8;  // the warp's rows iw and iw + 8
+  const bool live = i0 + warp * 16 < a.s_q;
+  const uint32_t op = a.op_base + h;
+  auto score_tile = [&](int j0, float (&sc)[NT][4]) {  // q k^T over every chunk
+    for (int c = 0; c < nc; ++c) {
+      const T* sl = begin();
+      if (live) aw_abt(sc, sl + warp * 16 * LD, sl + TILE, lane);
+      end();
+    }
+  };
+  auto put = [&](int oc, T* rows, const float (&o)[AW_C / 8][4]) {
+    aw_put(ob + oc * AW_C, a.out_ld, rows, o, i0 + warp * 16, a.s_q, min(AW_C, a.hd - oc * AW_C),
+           vec, lane);
+  };
+
+  if (n == 1) {
+    // one key tile: its scores once, then every held chunk goes out as it is
+    // mixed, staged in the warp's rows of the slot's spent q tile
     float sc[NT][4] = {};
-    atw_scores(sc, qs, ks, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
+    score_tile(0, sc);
 #pragma unroll
     for (int r = 0; r < 2; ++r) atl_probs(sc, r, iw + 8 * r, a, msk, wm, b, op, t4);
-    atw_mix_chunks(sc, vs, ks, qw, vb, a.kv_ld, 0, a.s_k, ob, a.out_ld, i0 + warp * 16, a.s_q, oc0,
-                   oc1, a.hd, vec, lane);
+    for (int c = 0; c < ng; ++c) {
+      T* sl = begin();
+      if (live) {
+        float o[AW_C / 8][4] = {};
+        aw_mix(o, sc, sl + TILE, lane);
+        put(oc0 + c, sl + warp * 16 * LD, o);
+      }
+      end();
+    }
     return;
   }
+
+  // sweep 1: each row's max and sum of exp over the real keys, online
   float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.0f, 0.0f};
-  float o[ATW_D / 8][4] = {};
-  // step s < n: key tile s for the max and sum; s >= n: key tile s - n for p V
-  for (int s = 0; s < 2 * n; ++s) {
-    const int j0 = (s % n) * ATL_TILE;
-    if (s >= n) {  // v's chunk oc0 of the tile, loading with the first chunk of the scores
-      atw_tile<T, LD>(vs, vb, a.kv_ld, j0, a.s_k, oc0 * ATW_D, a.hd, vec);
-      cp_commit();
-    }
+  for (int t = 0; t < n; ++t) {
+    const int j0 = t * ATL_TILE;
     float sc[NT][4] = {};
-    atw_scores(sc, qs, ks, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
+    score_tile(j0, sc);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = iw + 8 * r;
-      if (s < n) {
-        float mx = -INFINITY;
+      float mx = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + nt * 8 + 2 * t4 + c;
-            float x = -INFINITY;
-            if (j < a.s_k) {
-              x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, wm);
-              mx = fmaxf(mx, x);
-            }
-            sc[nt][2 * r + c] = x;
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + nt * 8 + 2 * t4 + c;
+          float x = -INFINITY;
+          if (j < a.s_k) {
+            x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, wm);
+            mx = fmaxf(mx, x);
           }
-        const float mn = fmaxf(m[r], quad_max(mx));  // finite: the tile has a real key
-        float e = 0.0f;
+          sc[nt][2 * r + c] = x;
+        }
+      const float mn = fmaxf(m[r], quad_max(mx));  // finite: the tile has a real key
+      float e = 0.0f;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) e += expf(sc[nt][2 * r + c] - mn);  // 0 past s_k
-        z[r] = z[r] * expf(m[r] - mn) + quad_sum(e);
-        m[r] = mn;
-      } else {
-        const float inv_z = rcp_rn(z[r]);
-        const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + nt * 8 + 2 * t4 + c;
-            float p = 0.0f;
-            if (j < a.s_k) {
-              const bool ok = msk[j] > 0 && !(a.causal && j > i);
-              const float e = expf(atl_x(sc[nt][2 * r + c], ok, a.scale, wm) - m[r]);
-              if (wm) {
-                p = e * inv_z;
-              } else {
-                p = div_rn(e, z[r], inv_z);
-                if (a.drop.on) p *= dropout_keep(rt, j, a.drop);
-              }
-            }
-            sc[nt][2 * r + c] = p;
-          }
-      }
+        for (int c = 0; c < 2; ++c) e += expf(sc[nt][2 * r + c] - mn);  // 0 past s_k
+      z[r] = z[r] * expf(m[r] - mn) + quad_sum(e);
+      m[r] = mn;
     }
-    if (s >= n && i0 + warp * 16 < a.s_q) atw_mix(o, sc, vs, a.s_k - j0, lane);
-    __syncthreads();  // vs is free for the next tile's v
   }
-  atw_put(ob + oc0 * ATW_D, a.out_ld, qw, o, i0 + warp * 16, a.s_q,
-          min(ATW_D, a.hd - oc0 * ATW_D), vec, lane);
+  // sweep 2: p = e / z (#13: e * (1 / z)) with the final max and sum, times
+  // the keep mask, into every held chunk
+  float o[G][AW_C / 8][4] = {};
+  for (int t = 0; t < n; ++t) {
+    const int j0 = t * ATL_TILE;
+    float sc[NT][4] = {};
+    score_tile(j0, sc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + 8 * r;
+      const float inv_z = rcp_rn(z[r]);
+      const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + nt * 8 + 2 * t4 + c;
+          float p = 0.0f;
+          if (j < a.s_k) {
+            const bool ok = msk[j] > 0 && !(a.causal && j > i);
+            const float e = expf(atl_x(sc[nt][2 * r + c], ok, a.scale, wm) - m[r]);
+            if (wm) {
+              p = e * inv_z;
+            } else {
+              p = div_rn(e, z[r], inv_z);
+              if (a.drop.on) p *= dropout_keep(rt, j, a.drop);
+            }
+          }
+          sc[nt][2 * r + c] = p;
+        }
+    }
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) {
+        const T* sl = begin();
+        if (live) aw_mix(o[gg], sc, sl + TILE, lane);
+        end();
+      }
+  }
+  if (live) {  // every load is done and the ring idle
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) put(oc0 + gg, ring + warp * 16 * LD, o[gg]);
+  }
 }
 
-// Backward, dq: block (sentence, head, query tile[, dq chunk]). The blocks
-// of chunk 0 write each query row's (max, sum of exp z, 1 / z, t) to
-// a.stats for attention_wide_dkv_kernel.
-template <typename T>
-__global__ void __launch_bounds__(ATL_THREADS) attention_wide_dq_kernel(AttnArgs<T> a,
-                                                                          int flags) {
-  using M = Atl<T, ATW_D>;
-  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+// Backward, dq: block (sentence, head, query tile, dq group). Score steps
+// come in pairs, chunk c of q and of the key tile's k (S), then of g and of
+// its v (dP); sweep 2 adds a step a held chunk of the key tile's k (dS K).
+// The blocks of the first group write each query row's (max, sum of exp z,
+// 1 / z, t) to a.stats for attention_wide_dkv_kernel.
+template <typename T, int G>
+__global__ void __launch_bounds__(ATL_THREADS) attention_wide_dq_kernel(AttnArgs<T> a, int flags) {
+  constexpr int LD = Aw<T>::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
   extern __shared__ __align__(16) unsigned char atl_smem[];
   const bool vec = flags & ATL_VEC, one = flags & ATW_ONE;
-  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : nc;
-  T* as = reinterpret_cast<T*>(atl_smem);
-  T* bs = as + TILE;
-  T* xs = bs + TILE;
-  int* msk = reinterpret_cast<int*>(xs + TILE);
-  const int oc0 = blockIdx.x % gc, rest = blockIdx.x / gc, oc1 = one ? nc : oc0 + 1;
+  const int nc = aw_chunks(a.hd), nqt = atl_tiles(a.s_q), gc = one ? 1 : (nc + G - 1) / G;
+  T* ring = reinterpret_cast<T*>(atl_smem);
+  int* msk = reinterpret_cast<int*>(ring + 2 * AW_STAGES * TILE);
+  const int oc0 = (blockIdx.x % gc) * G, rest = blockIdx.x / gc;
+  const int ng = one ? nc : min(G, nc - oc0);
   const int bh = rest / nqt, i0 = (rest - bh * nqt) * ATL_TILE;
   const int b = bh / a.nh, h = bh - b * a.nh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
   const size_t col = (size_t)h * a.hd;
+  const int H = a.nh * a.hd;
   const T* qb = a.q + (size_t)b * a.s_q * a.q_ld + col;
   const T* kb = a.k + (size_t)b * a.s_k * a.kv_ld + col;
   const T* vb = a.v + (size_t)b * a.s_k * a.kv_ld + col;
-  const int H = a.nh * a.hd;
   const T* gb = a.g + (size_t)b * a.s_q * H + col;
   T* dqb = a.out + (size_t)b * a.s_q * a.out_ld + col;
-  const int n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
+  int n = 1;
+  auto issue = [&](int k) {
+    const int sc2 = 2 * nc, pre = n > 1 ? n * sc2 : 0, per = sc2 + ng;
+    if (k < pre + n * per) {
+      T* sl = ring + 2 * (k % AW_STAGES) * TILE;
+      const int span = k < pre ? sc2 : per;
+      int c = k < pre ? k : k - pre;
+      const int t = c / span;
+      c -= t * span;
+      const int j0 = t * ATL_TILE;
+      if (c < sc2) {
+        const int c0 = (c >> 1) * AW_C;
+        aw_tile(sl, c & 1 ? gb : qb, c & 1 ? H : a.q_ld, i0, a.s_q, c0, a.hd, vec);
+        aw_tile(sl + TILE, c & 1 ? vb : kb, a.kv_ld, j0, a.s_k, c0, a.hd, vec);
+      } else {
+        aw_tile(sl + TILE, kb, a.kv_ld, j0, a.s_k, (oc0 + c - sc2) * AW_C, a.hd, vec);
+      }
+    }
+    cp_commit();
+  };
+  for (int k0 = 0; k0 < AW_STAGES - 1; ++k0) issue(k0);  // the same steps for any n
+  n = atl_key_tiles(a, i0, atl_mask(msk, a, b));
+  int k = 0;
+  auto begin = [&]() {
+    issue(k + AW_STAGES - 1);
+    cp_wait<AW_STAGES - 1>();
+    __syncthreads();
+    return ring + 2 * (k % AW_STAGES) * TILE;
+  };
+  auto end = [&]() {
+    __syncthreads();
+    ++k;
+  };
   const int iw = i0 + warp * 16 + g8;
-  T* aw = as + warp * 16 * LD;  // the warp's rows of the A tile, then its output rows
+  const bool live = i0 + warp * 16 < a.s_q;
   const uint32_t op = a.op_base + h;
   auto keep_stats = [&](int i, float m, float z, float rz, float t) {
     if (oc0 == 0 && t4 == 0 && i < a.s_q)
       *reinterpret_cast<float4*>(a.stats + ((size_t)bh * a.s_q + i) * 4) = make_float4(m, z, rz, t);
   };
+  auto score_tile = [&](int j0, float (&sc)[NT][4], float (&dp)[NT][4]) {  // S and dP
+    for (int c = 0; c < nc; ++c) {
+      const T* sl = begin();
+      if (live) aw_abt(sc, sl + warp * 16 * LD, sl + TILE, lane);
+      end();
+      sl = begin();
+      if (live) aw_abt(dp, sl + warp * 16 * LD, sl + TILE, lane);
+      end();
+    }
+  };
+  auto put = [&](int oc, T* rows, const float (&o)[AW_C / 8][4]) {
+    aw_put(dqb + oc * AW_C, a.out_ld, rows, o, i0 + warp * 16, a.s_q, min(AW_C, a.hd - oc * AW_C),
+           vec, lane);
+  };
+
   if (n == 1) {
-    // one key tile: s and dp once, in registers; ds = p (dp kappa - t) *
-    // scale, rounded at the mix; then ds K, chunk by chunk
-    atw_tile<T, LD>(xs, kb, a.kv_ld, 0, a.s_k, oc0 * ATW_D, a.hd, vec);
-    cp_commit();
+    // one key tile: s and dp once; ds = p (dp kappa - t) * scale, rounded at
+    // the mix; then ds K, every held chunk out as it is mixed
     float sc[NT][4] = {}, dp[NT][4] = {};
-    atw_scores(sc, as, bs, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
-    atw_scores(dp, as, bs, gb, H, i0, a.s_q, vb, a.kv_ld, 0, a.s_k, a.hd, vec, warp, lane);
+    score_tile(0, sc, dp);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = iw + 8 * r;
@@ -1154,116 +1543,133 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_wide_dq_kernel(AttnArgs
         for (int c = 0; c < 2; ++c) {
           const int j = nt * 8 + 2 * t4 + c;
           const float p = div_rn(sc[nt][2 * r + c], z, rz);
-          sc[nt][2 * r + c] =
-              i < a.s_q && j < a.s_k ? p * (dp[nt][2 * r + c] - t) * a.scale : 0.0f;
+          sc[nt][2 * r + c] = i < a.s_q && j < a.s_k ? p * (dp[nt][2 * r + c] - t) * a.scale : 0.0f;
         }
     }
-    atw_mix_chunks(sc, xs, bs, aw, kb, a.kv_ld, 0, a.s_k, dqb, a.out_ld, i0 + warp * 16, a.s_q,
-                   oc0, oc1, a.hd, vec, lane);
+    for (int c = 0; c < ng; ++c) {
+      T* sl = begin();
+      if (live) {
+        float o[AW_C / 8][4] = {};
+        aw_mix(o, sc, sl + TILE, lane);
+        put(oc0 + c, sl + warp * 16 * LD, o);
+      }
+      end();
+    }
     return;
   }
+
+  // sweep 1: max, sum of exp and the sum of e * dp * kappa, online
   float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.0f, 0.0f}, tau[2] = {0.0f, 0.0f};
-  float t[2] = {0.0f, 0.0f}, rz[2] = {0.0f, 0.0f};
-  float dq[ATW_D / 8][4] = {};
-  for (int s = 0; s < 2 * n; ++s) {
-    const int j0 = (s % n) * ATL_TILE;
-    if (s >= n) {  // k's chunk oc0 of the tile, for ds K
-      atw_tile<T, LD>(xs, kb, a.kv_ld, j0, a.s_k, oc0 * ATW_D, a.hd, vec);
-      cp_commit();
-    }
+  for (int t = 0; t < n; ++t) {
+    const int j0 = t * ATL_TILE;
     float sc[NT][4] = {}, dp[NT][4] = {};
-    atw_scores(sc, as, bs, qb, a.q_ld, i0, a.s_q, kb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
-    atw_scores(dp, as, bs, gb, H, i0, a.s_q, vb, a.kv_ld, j0, a.s_k, a.hd, vec, warp, lane);
+    score_tile(j0, sc, dp);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = iw + 8 * r;
       const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
-      if (s < n) {
-        // max, sum of exp and the sum of e * dp * kappa, online
-        float mx = -INFINITY;
+      float mx = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + nt * 8 + 2 * t4 + c;
-            float x = -INFINITY;
-            if (j < a.s_k) {
-              x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, false);
-              mx = fmaxf(mx, x);
-            }
-            sc[nt][2 * r + c] = x;
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + nt * 8 + 2 * t4 + c;
+          float x = -INFINITY;
+          if (j < a.s_k) {
+            x = atl_x(sc[nt][2 * r + c], msk[j] > 0 && !(a.causal && j > i), a.scale, false);
+            mx = fmaxf(mx, x);
           }
-        const float mn = fmaxf(m[r], quad_max(mx));
-        float se = 0.0f, sd = 0.0f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + nt * 8 + 2 * t4 + c;
-            if (j < a.s_k) {
-              const float e = expf(sc[nt][2 * r + c] - mn);
-              float d = dp[nt][2 * r + c];
-              if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
-              se += e;
-              sd += e * d;
-            }
-          }
-        const float al = expf(m[r] - mn);
-        z[r] = z[r] * al + quad_sum(se);
-        tau[r] = tau[r] * al + quad_sum(sd);
-        m[r] = mn;
-        if (s == n - 1) {
-          rz[r] = rcp_rn(z[r]);
-          t[r] = div_rn(tau[r], z[r], rz[r]);
-          keep_stats(i, m[r], z[r], rz[r], t[r]);
+          sc[nt][2 * r + c] = x;
         }
-      } else {
-        // ds = p (dp kappa - t) * scale, rounded at the mix
+      const float mn = fmaxf(m[r], quad_max(mx));
+      float se = 0.0f, sd = 0.0f;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + nt * 8 + 2 * t4 + c;
-            float ds = 0.0f;
-            if (i < a.s_q && j < a.s_k) {
-              const bool ok = msk[j] > 0 && !(a.causal && j > i);
-              const float p =
-                  div_rn(expf(atl_x(sc[nt][2 * r + c], ok, a.scale, false) - m[r]), z[r], rz[r]);
-              float d = dp[nt][2 * r + c];
-              if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
-              ds = p * (d - t[r]) * a.scale;
-            }
-            sc[nt][2 * r + c] = ds;
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + nt * 8 + 2 * t4 + c;
+          if (j < a.s_k) {
+            const float e = expf(sc[nt][2 * r + c] - mn);
+            float d = dp[nt][2 * r + c];
+            if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
+            se += e;
+            sd += e * d;
           }
-      }
+        }
+      const float al = expf(m[r] - mn);
+      z[r] = z[r] * al + quad_sum(se);
+      tau[r] = tau[r] * al + quad_sum(sd);
+      m[r] = mn;
     }
-    if (s >= n && i0 + warp * 16 < a.s_q) atw_mix(dq, sc, xs, a.s_k - j0, lane);
-    __syncthreads();  // xs is free for the next tile's k
   }
-  atw_put(dqb + oc0 * ATW_D, a.out_ld, aw, dq, i0 + warp * 16, a.s_q,
-          min(ATW_D, a.hd - oc0 * ATW_D), vec, lane);
+  float tt[2], rz[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rz[r] = rcp_rn(z[r]);
+    tt[r] = div_rn(tau[r], z[r], rz[r]);
+    keep_stats(iw + 8 * r, m[r], z[r], rz[r], tt[r]);
+  }
+
+  // sweep 2: ds = p (dp kappa - t) * scale, rounded at the mix; dq += ds K
+  float dq[G][AW_C / 8][4] = {};
+  for (int t = 0; t < n; ++t) {
+    const int j0 = t * ATL_TILE;
+    float sc[NT][4] = {}, dp[NT][4] = {};
+    score_tile(j0, sc, dp);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + 8 * r;
+      const uint32_t rt = dropout_row_term(b * a.s_q + i, op, a.drop.seed);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + nt * 8 + 2 * t4 + c;
+          float ds = 0.0f;
+          if (i < a.s_q && j < a.s_k) {
+            const bool ok = msk[j] > 0 && !(a.causal && j > i);
+            const float p =
+                div_rn(expf(atl_x(sc[nt][2 * r + c], ok, a.scale, false) - m[r]), z[r], rz[r]);
+            float d = dp[nt][2 * r + c];
+            if (a.drop.on) d *= dropout_keep(rt, j, a.drop);
+            ds = p * (d - tt[r]) * a.scale;
+          }
+          sc[nt][2 * r + c] = ds;
+        }
+    }
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) {
+        const T* sl = begin();
+        if (live) aw_mix(dq[gg], sc, sl + TILE, lane);
+        end();
+      }
+  }
+  if (live) {
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) put(oc0 + gg, ring + warp * 16 * LD, dq[gg]);
+  }
 }
 
-// Backward, dk and dv: block (sentence, head, key tile, x), from the query
-// rows' statistics that attention_wide_dq_kernel wrote, the scores as K Q^T
-// (key rows). With ATW_ONE (one query tile) x < 2: every chunk of dv (x 0)
-// or of dk (x 1); else x < 2 nc: chunk x of dv, or x - nc of dk.
-template <typename T>
+// Backward, dk and dv: block (sentence, head, key tile, group of chunks of
+// both), from the query rows' statistics that attention_wide_dq_kernel
+// wrote, the scores as K Q^T (key rows). For each query tile, score steps
+// in pairs (chunk c of the key tile's k and of the query tile's q: P^T,
+// then of v and g: dP^T), then a step a held chunk (g and q: dv += (P
+// kappa)^T G and dk += dS^T Q).
+template <typename T, int G>
 __global__ void __launch_bounds__(ATL_THREADS) attention_wide_dkv_kernel(AttnArgs<T> a,
                                                                            int flags) {
-  using M = Atl<T, ATW_D>;
-  constexpr int LD = M::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
+  constexpr int LD = Aw<T>::LD, TILE = ATL_TILE * LD, NT = ATL_TILE / 8;
   extern __shared__ __align__(16) unsigned char atl_smem[];
   const bool vec = flags & ATL_VEC, one = flags & ATW_ONE;
-  const int nc = atw_chunks(a.hd), nqt = atl_tiles(a.s_q), nkt = atl_tiles(a.s_k);
-  const int gc = one ? 2 : 2 * nc;
-  T* as = reinterpret_cast<T*>(atl_smem);
-  T* bs = as + TILE;
-  T* xs = bs + TILE;
-  int* msk = reinterpret_cast<int*>(xs + TILE);
-  const int x2 = blockIdx.x % gc, rest = blockIdx.x / gc;
-  const bool want_dk = one ? x2 == 1 : x2 >= nc;
-  const int oc = one ? 0 : want_dk ? x2 - nc : x2, oc1 = one ? nc : oc + 1;
+  const int nc = aw_chunks(a.hd), nqt = atl_tiles(a.s_q), nkt = atl_tiles(a.s_k);
+  const int gc = one ? 1 : (nc + G - 1) / G;
+  T* ring = reinterpret_cast<T*>(atl_smem);
+  int* msk = reinterpret_cast<int*>(ring + 2 * AW_STAGES * TILE);
+  const int oc0 = (blockIdx.x % gc) * G, rest = blockIdx.x / gc;
+  const int ng = one ? nc : min(G, nc - oc0);
   const int bh = rest / nkt, j0 = (rest - bh * nkt) * ATL_TILE;
   const int b = bh / a.nh, h = bh - b * a.nh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -1283,24 +1689,56 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_wide_dkv_kernel(AttnArg
     lo = (first + ATL_TILE - 1) / ATL_TILE;
     skip = max(0, min(nqt, j0 / ATL_TILE) - lo);
   }
+  const int steps = nqt - skip, sc2 = 2 * nc, per = sc2 + ng;
+  auto tile0 = [&](int s) { return (s < lo ? s : s + skip) * ATL_TILE; };
+  auto issue = [&](int k) {
+    if (k < steps * per) {
+      T* sl = ring + 2 * (k % AW_STAGES) * TILE;
+      const int s = k / per, c = k - s * per, i0 = tile0(s);
+      if (c < sc2) {
+        const int c0 = (c >> 1) * AW_C;
+        aw_tile(sl, c & 1 ? vb : kb, a.kv_ld, j0, a.s_k, c0, a.hd, vec);
+        aw_tile(sl + TILE, c & 1 ? gb : qb, c & 1 ? H : a.q_ld, i0, a.s_q, c0, a.hd, vec);
+      } else {
+        const int c0 = (oc0 + c - sc2) * AW_C;
+        aw_tile(sl, gb, H, i0, a.s_q, c0, a.hd, vec);
+        aw_tile(sl + TILE, qb, a.q_ld, i0, a.s_q, c0, a.hd, vec);
+      }
+    }
+    cp_commit();
+  };
+  for (int k0 = 0; k0 < AW_STAGES - 1; ++k0) issue(k0);
+  int k = 0;
+  auto begin = [&]() {
+    issue(k + AW_STAGES - 1);
+    cp_wait<AW_STAGES - 1>();
+    __syncthreads();
+    return ring + 2 * (k % AW_STAGES) * TILE;
+  };
+  auto end = [&]() {
+    __syncthreads();
+    ++k;
+  };
   const int jw = j0 + warp * 16 + g8;  // the warp's keys jw and jw + 8
-  T* aw = as + warp * 16 * LD;         // its rows of the A tile, then its output rows
+  const bool live = j0 + warp * 16 < a.s_k;
   bool valid[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) valid[r] = jw + 8 * r < a.s_k && msk[jw + 8 * r] > 0;
   const uint32_t op = a.op_base + h;
-  float acc[ATW_D / 8][4] = {};
-  for (int s = 0; s < nqt - skip; ++s) {
-    const int i0 = (s < lo ? s : s + skip) * ATL_TILE;
-    // the first mixed chunk: g's chunk oc for dv, q's for dk
-    atw_tile<T, LD>(xs, want_dk ? qb : gb, want_dk ? a.q_ld : H, i0, a.s_q, oc * ATW_D, a.hd,
-                    vec);
-    cp_commit();
-    float pt[NT][4] = {}, dpt[NT][4] = {};
-    atw_scores(pt, as, bs, kb, a.kv_ld, j0, a.s_k, qb, a.q_ld, i0, a.s_q, a.hd, vec, warp, lane);
-    if (want_dk)
-      atw_scores(dpt, as, bs, vb, a.kv_ld, j0, a.s_k, gb, H, i0, a.s_q, a.hd, vec, warp, lane);
-    // pt <- p kappa (dv's A operand), dpt <- ds (dk's)
+  auto put = [&](T* out, int oc, T* rows, const float (&o)[AW_C / 8][4]) {
+    aw_put(out + kv_off + oc * AW_C, a.dkv_ld, rows, o, j0 + warp * 16, a.s_k,
+           min(AW_C, a.hd - oc * AW_C), vec, lane);
+  };
+  // query tile s's P kappa (in pt, dv's A operand) and dS (in dpt, dk's)
+  auto score_tile = [&](int i0, float (&pt)[NT][4], float (&dpt)[NT][4]) {
+    for (int c = 0; c < nc; ++c) {
+      const T* sl = begin();
+      if (live) aw_abt(pt, sl + warp * 16 * LD, sl + TILE, lane);
+      end();
+      sl = begin();
+      if (live) aw_abt(dpt, sl + warp * 16 * LD, sl + TILE, lane);
+      end();
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1332,27 +1770,57 @@ __global__ void __launch_bounds__(ATL_THREADS) attention_wide_dkv_kernel(AttnArg
           dpt[nt][2 * r + c] = ds;
         }
       }
-    if (one) {  // the only query tile: every chunk of dk, or of dv
-      if (want_dk)
-        atw_mix_chunks(dpt, xs, bs, aw, qb, a.q_ld, i0, a.s_q, a.dk + kv_off, a.dkv_ld,
-                       j0 + warp * 16, a.s_k, 0, nc, a.hd, vec, lane);
-      else
-        atw_mix_chunks(pt, xs, bs, aw, gb, H, i0, a.s_q, a.dv + kv_off, a.dkv_ld, j0 + warp * 16,
-                       a.s_k, 0, nc, a.hd, vec, lane);
-      return;
+  };
+
+  if (steps <= 1) {
+    // one query tile reaches this key tile (or none: zeros): every held
+    // chunk of dv and dk goes out as it is mixed, staged in the warp's rows
+    // of the slot once every warp has read it
+    float pt[NT][4] = {}, dpt[NT][4] = {};
+    if (steps == 1) score_tile(tile0(0), pt, dpt);
+    const int i0 = tile0(0);
+    for (int c = 0; c < ng; ++c) {
+      T* sl = steps == 1 ? begin() : ring;
+      float ov[AW_C / 8][4] = {}, ok[AW_C / 8][4] = {};
+      if (live && steps == 1) {
+        aw_mix(ov, pt, sl, lane);
+        aw_mix(ok, dpt, sl + TILE, lane);
+      }
+      __syncthreads();
+      if (live) {
+        put(a.dv, oc0 + c, sl + warp * 16 * LD, ov);
+        put(a.dk, oc0 + c, sl + TILE + warp * 16 * LD, ok);
+      }
+      if (steps == 1) end();
+      else __syncthreads();
     }
-    if (j0 + warp * 16 < a.s_k) {
-      if (want_dk)
-        atw_mix(acc, dpt, xs, a.s_q - i0, lane);
-      else
-        atw_mix(acc, pt, xs, a.s_q - i0, lane);
-    }
-    __syncthreads();  // xs is free for the next tile
+    return;
   }
-  // (with ATW_ONE here only when no query tile reaches this key tile: zeros)
-  for (int c = oc; c < oc1; ++c)
-    atw_put((want_dk ? a.dk : a.dv) + kv_off + c * ATW_D, a.dkv_ld, aw, acc, j0 + warp * 16,
-            a.s_k, min(ATW_D, a.hd - c * ATW_D), vec, lane);
+
+  float dk[G][AW_C / 8][4] = {}, dv[G][AW_C / 8][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    const int i0 = tile0(s);
+    float pt[NT][4] = {}, dpt[NT][4] = {};
+    score_tile(i0, pt, dpt);
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) {
+        const T* sl = begin();
+        if (live) {
+          aw_mix(dv[gg], pt, sl, lane);
+          aw_mix(dk[gg], dpt, sl + TILE, lane);
+        }
+        end();
+      }
+  }
+  if (live) {
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg)
+      if (gg < ng) {
+        put(a.dv, oc0 + gg, ring + warp * 16 * LD, dv[gg]);
+        put(a.dk, oc0 + gg, ring + warp * 16 * LD, dk[gg]);
+      }
+  }
 }
 
 // Launches KERNEL on grid blocks with `bytes` of shared memory, raising the
@@ -1392,27 +1860,54 @@ int atl_bwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
       (2 + 2 * qslots) * tb + qslots * ATL_TILE * 4 * 4 + ATL_MASK_BYTES, st);
 }
 
-// head_dim past 128: up to 64 keys (queries for dk / dv) a block a tile
-// (ATW_ONE), else a block a tile and output chunk
+// head_dim past 128, up to 32 queries and keys: the short wide kernel for
+// the call's m16 blocks of queries and keys, on att_launch's persistent grid
+template <typename T, bool BWD, int MT, int KT>
+int aws_launch(const AttnArgs<T>& a, int flags, cudaStream_t st) {
+  const int bytes = aws_plan<T>(a.s_q, a.s_k, BWD).bytes;
+  if constexpr (BWD)
+    return att_launch<AttnArgs<T>, attention_wide_short_bwd_kernel<T, MT, KT>>(a, bytes, st, flags);
+  else
+    return att_launch<AttnArgs<T>, attention_wide_short_kernel<T, MT, KT>>(a, bytes, st, flags);
+}
+
+template <typename T, bool BWD>
+int aws_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
+  switch ((a.s_q > 16) * 2 + (a.s_k > 16)) {
+    case 0: return aws_launch<T, BWD, 1, 1>(a, flags, st);
+    case 1: return aws_launch<T, BWD, 1, 2>(a, flags, st);
+    case 2: return aws_launch<T, BWD, 2, 1>(a, flags, st);
+    default: return aws_launch<T, BWD, 2, 2>(a, flags, st);
+  }
+}
+
+// head_dim past 128: up to 32 queries and keys a warp a (sentence, head);
+// past that a block a tile and a group of output chunks, every chunk up to
+// 64 keys (queries for dk / dv: ATW_ONE)
 template <typename T>
 int atw_fwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
+  if (attention_short(a.s_q, a.s_k)) return aws_run<T, false>(a, flags, st);
   const bool one = a.s_k <= ATL_TILE;
-  const int grid = a.batch * a.nh * atl_tiles(a.s_q) * (one ? 1 : atw_chunks(a.hd));
-  return atl_launch<T, attention_wide_kernel<T>>(a, flags | (one ? ATW_ONE : 0), grid,
-                                                 atw_bytes<T>(), st);
+  const int groups = one ? 1 : (aw_chunks(a.hd) + AW_G_FWD - 1) / AW_G_FWD;
+  return atl_launch<T, attention_wide_kernel<T, AW_G_FWD>>(
+      a, flags | (one ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_q) * groups, aw_bytes<T>(),
+      st);
 }
 
 template <typename T>
 int atw_bwd_run(const AttnArgs<T>& a, int flags, cudaStream_t st) {
-  const int nc = atw_chunks(a.hd);
+  if (attention_short(a.s_q, a.s_k)) return aws_run<T, true>(a, flags, st);
+  if (a.stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = aw_chunks(a.hd);
   const bool one_k = a.s_k <= ATL_TILE, one_q = a.s_q <= ATL_TILE;
-  const int e = atl_launch<T, attention_wide_dq_kernel<T>>(
-      a, flags | (one_k ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_q) * (one_k ? 1 : nc),
-      atw_bytes<T>(), st);
+  const int gq = one_k ? 1 : (nc + AW_G_DQ - 1) / AW_G_DQ;
+  const int gkv = one_q ? 1 : (nc + AW_G_DKV - 1) / AW_G_DKV;
+  const int e = atl_launch<T, attention_wide_dq_kernel<T, AW_G_DQ>>(
+      a, flags | (one_k ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_q) * gq, aw_bytes<T>(), st);
   if (e != 0) return e;
-  return atl_launch<T, attention_wide_dkv_kernel<T>>(
-      a, flags | (one_q ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_k) * (one_q ? 2 : 2 * nc),
-      atw_bytes<T>(), st);
+  return atl_launch<T, attention_wide_dkv_kernel<T, AW_G_DKV>>(
+      a, flags | (one_q ? ATW_ONE : 0), a.batch * a.nh * atl_tiles(a.s_k) * gkv, aw_bytes<T>(),
+      st);
 }
 
 template <typename T>
@@ -1420,17 +1915,17 @@ int atl_fwd(const AttnArgs<T>& a, bool where_mask, cudaStream_t st) {
   if (!attention_fits(a.s_q, a.s_k, a.hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.batch * a.nh <= 0) return 0;
   const int flags = (att_vec(a, false) ? ATL_VEC : 0) | (where_mask ? ATL_WHERE_MASK : 0);
-  if (a.hd > ATW_D) return atw_fwd_run(a, flags, st);
+  if (a.hd > ATT_MAX_HD) return atw_fwd_run(a, flags, st);
   return a.hd <= 64 ? atl_fwd_run<T, 64>(a, flags, st) : atl_fwd_run<T, 128>(a, flags, st);
 }
 
 template <typename T>
 int atl_bwd(const AttnArgs<T>& a, cudaStream_t st) {
-  if (!attention_fits(a.s_q, a.s_k, a.hd) || a.stats == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!attention_fits(a.s_q, a.s_k, a.hd)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.batch * a.nh <= 0) return 0;
   const int flags = att_vec(a, true) ? ATL_VEC : 0;
-  if (a.hd > ATW_D) return atw_bwd_run(a, flags, st);
+  if (a.hd > ATT_MAX_HD) return atw_bwd_run(a, flags, st);
+  if (a.stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return a.hd <= 64 ? atl_bwd_run<T, 64>(a, flags, st) : atl_bwd_run<T, 128>(a, flags, st);
 }
 

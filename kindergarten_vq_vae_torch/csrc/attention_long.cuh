@@ -46,8 +46,8 @@ struct AttnArgs {
   int batch, nh, hd, s_q, s_k, causal, op_base;
   float scale;
   DropoutParams drop;
-  float* stats;  // long backward (past 32 tokens or head_dim 128): (batch * nh * s_q, 4) f32
-                 // scratch, each query row's max, sum of exp z, 1 / z and t
+  float* stats;  // the 64-row tiles' backward (past 32 queries or keys): (batch * nh * s_q, 4)
+                 // f32 scratch, each query row's max, sum of exp z, 1 / z and t
 };
 
 // The forward (attention_long.cu) of a (batch, nh) call with s_q or s_k
@@ -55,8 +55,9 @@ struct AttnArgs {
 // code.
 int attention_long_fwd(const AttnArgs<bf16>& a, bool where_mask, cudaStream_t st);
 int attention_long_fwd(const AttnArgs<float>& a, bool where_mask, cudaStream_t st);
-// The backward: two launches, dq by query tiles (writing a.stats), then dk
-// and dv by key tiles (reading it).
+// The backward: up to 32 queries and keys (head_dim past 128) one launch;
+// past that two, dq by query tiles (writing a.stats), then dk and dv by key
+// tiles (reading it).
 int attention_long_bwd(const AttnArgs<bf16>& a, cudaStream_t st);
 int attention_long_bwd(const AttnArgs<float>& a, cudaStream_t st);
 
@@ -71,7 +72,7 @@ constexpr int ATL_MAX_S = 512;          // BERT's max_position_embeddings
 
 // what every attention entry takes: attention.cuh's and attention_f32.cuh's
 // kernels up to 32 queries and keys and head_dim 128, attention_long.cu's
-// beyond, up to 512 queries and keys and any head_dim
+// beyond either, up to 512 queries and keys and any head_dim
 inline bool attention_fits(int s_q, int s_k, int hd) {
   return s_q >= 1 && s_k >= 1 && s_q <= ATL_MAX_S && s_k <= ATL_MAX_S && hd >= 1;
 }

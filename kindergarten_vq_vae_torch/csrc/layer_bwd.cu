@@ -17,11 +17,12 @@
 //                       rounded once to bf16)
 //   kvq_attention_bwd   per-(sentence, head) attention backward with the
 //                       same keep mask on dv and dp as the forward, one
-//                       warp a head on mma.sync tiles (attention.cuh); past
-//                       32 tokens, up to 512, or head_dim 128, 64-row tiles
-//                       on mma.sync (attention_long.cu): a launch a block a
-//                       query tile for dq and the rows' statistics, then a
-//                       launch a block a key tile for dk and dv
+//                       warp a head on mma.sync tiles (attention.cuh; past
+//                       head_dim 128 attention_long.cu's 64-column chunks);
+//                       past 32 tokens, up to 512, 64-row tiles on mma.sync
+//                       (attention_long.cu): a launch a block a query tile
+//                       for dq and the rows' statistics, then a launch a
+//                       block a key tile for dk and dv
 //   kvq_colsum          (layernorm.cu) f32 bias-gradient column sums
 //
 // In f32 (JAX's parity dtype) the same sequence runs the f32 instances:
@@ -51,7 +52,7 @@ extern "C" {
 // q + (b*s_q + i)*q_ld, k / v rows at k|v + (b*s_k + j)*kv_ld (head h at
 // column h*head_dim); g (batch*s_q, H) bf16; dq / dk / dv with the same
 // strides as q / k / v. key_mask (batch, s_k) int32 or null. stats: past 32
-// queries or keys or past head_dim 128, an f32 scratch of batch * num_heads *
+// queries or keys (at any head_dim), an f32 scratch of batch * num_heads *
 // s_q * 4 (each query row's max, sum of exp z, 1 / z and t, from the dq
 // launch to the dk / dv launch); else null. All f32 when f32, else bf16.
 int kvq_attention_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,

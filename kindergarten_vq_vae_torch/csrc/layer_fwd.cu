@@ -26,9 +26,10 @@
 // The TPU kernel's block-diagonal packing of sentences (`_attn_fwd_tile`)
 // existed to feed the 128x128 MXU; here one warp computes one (sentence,
 // head) directly on mma.sync tiles (attention.cuh), which gives the same
-// values (off-block scores were -1e9, exp() sent them to exactly 0); past
-// 32 tokens, up to 512, or past head_dim 128, a block takes 64 query rows of
-// a (sentence, head) on mma.sync tiles (attention_long.cu). Each
+// values (off-block scores were -1e9, exp() sent them to exactly 0; past
+// head_dim 128 over attention_long.cu's 64-column chunks); past 32 tokens,
+// up to 512, a block takes 64 query rows of a (sentence, head) on mma.sync
+// tiles (attention_long.cu). Each
 // residual + LayerNorm is layernorm.cu's one-pass kernel (a warp a row in
 // registers, 16-byte accesses; past 1,024 columns a block a row). One C
 // call launches the layer's whole sequence on the caller's stream and

@@ -15,9 +15,10 @@
 // written at their own strides too. The TPU kernels' sentence tile
 // (`block_b`) fed the MXU and has no counterpart: one warp computes one
 // (sentence, head) on mma.sync tiles, over a persistent grid, with 16-byte
-// staged loads and stores where the strides allow (attention.cuh); past 32
-// tokens, up to 512, or head_dim 128, 64-row tiles of queries and keys on
-// mma.sync, a block a tile, the backward in two launches (attention_long.cu). What
+// staged loads and stores where the strides allow (attention.cuh; past
+// head_dim 128 attention_long.cu's 64-column chunks); past 32 tokens, up to
+// 512, 64-row tiles of queries and keys on mma.sync, a block a tile, the
+// backward in two launches (attention_long.cu). What
 // bounds them on the H100 is the bytes; the dropout hash is
 // dropout_hash.cuh's, keyed on the absolute query row, the key position
 // within the sentence, the head and the seed, as `_dropout_keep_scale`
@@ -55,7 +56,7 @@ int kvq_sdpa_fwd(const void* q, int q_ld, const void* k, const void* v, int kv_l
 
 // dq (rows at dq_ld), dk and dv (rows at dkv_ld) of kvq_sdpa_fwd's output,
 // given its gradient g (batch*s_q contiguous rows of num_heads*head_dim);
-// stats: past 32 queries or keys or head_dim 128 the f32 scratch of
+// stats: past 32 queries or keys (at any head_dim) the f32 scratch of
 // kvq_attention_bwd (layer_bwd.cu), else null.
 int kvq_sdpa_bwd(const void* q, int q_ld, const void* k, const void* v, int kv_ld,
                  const int* key_mask, const void* g, void* dq, int dq_ld, void* dk, void* dv,

@@ -80,14 +80,14 @@ DEC_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "g1", "be1",
                "wq", "bq", "wkv", "bkv", "wco", "bco", "g2", "be2",
                "w1", "b1", "w2", "b2", "g3", "be3")
 
-# limits of the attention kernels (`attention_fits`): csrc/attention.cuh's
-# one warp a (sentence, head) up to 32 queries and keys (ATT_MAX_S) and
-# head_dim 128 (ATT_MAX_HD), and csrc/attention_long.cu's 64-row tiles
-# beyond either, up to 512 (ATL_MAX_S, BERT's max_position_embeddings) and
-# any head_dim (past 128 in 128-column chunks)
+# limits of the attention kernels (`attention_fits`): up to 32 queries and
+# keys (ATT_MAX_S) one warp a (sentence, head) (csrc/attention.cuh; past
+# head_dim 128, ATT_MAX_HD, attention_long.cu's short wide kernels), beyond
+# either side attention_long.cu's 64-row tiles, up to 512 (ATL_MAX_S, BERT's
+# max_position_embeddings); any head_dim (past 128 in 64-column chunks)
 MAX_SEQ = 512
-SHORT_SEQ = 32  # ATT_MAX_S: past it, on either side, the long path
-SHORT_HEAD_DIM = 128  # ATT_MAX_HD: past it, the long path's head_dim chunks
+SHORT_SEQ = 32  # ATT_MAX_S: past it, on either side, the 64-row tiles
+SHORT_HEAD_DIM = 128  # ATT_MAX_HD: past it, the wide kernels' head_dim chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -698,7 +698,7 @@ def attention_backward(qkv_or_q, kv, key_mask, g_ctx, num_heads: int, causal: bo
         q, q_ld, k, kv_ld = qkv_or_q, 3 * H, None, 3 * H
         dq_ptr, dq_ld, dk_ptr, dkv_ld = dqkv.data_ptr(), 3 * H, dqkv.data_ptr() + es * H, 3 * H
     k_ptr = k.data_ptr() if cross else q.data_ptr() + es * H
-    stats = long_stats(b, nh, sq, sk, H // nh, dev)
+    stats = long_stats(b, nh, sq, sk, dev)
     _build.launch("kvq_attention_bwd", _ATT_BWD_ARGS, q.data_ptr(), q_ld, k_ptr, k_ptr + es * H,
                   kv_ld, _ptr(key_mask), g_ctx.data_ptr(), dq_ptr, dq_ld, dk_ptr,
                   dk_ptr + es * H, dkv_ld, _ptr(stats), b, nh, H // nh, sq, sk, int(causal),
@@ -719,13 +719,13 @@ _ATT_BWD_ARGS = [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP] + 
     _U, _U, _F, _I, _I]
 
 
-def long_stats(batch: int, num_heads: int, sq: int, sk: int, head_dim: int, device):
+def long_stats(batch: int, num_heads: int, sq: int, sk: int, device):
     """The long attention backward's f32 scratch (``AttnArgs::stats`` of
     ``csrc/attention_long.cuh``: each query row's max, sum of exp z, 1 / z
     and t, written by its dq launch for its dk / dv launch) past
-    ``SHORT_SEQ`` queries or keys or past ``SHORT_HEAD_DIM``; None up to
-    them (the short kernels)."""
-    if sq <= SHORT_SEQ and sk <= SHORT_SEQ and head_dim <= SHORT_HEAD_DIM:
+    ``SHORT_SEQ`` queries or keys; None up to them, at any head_dim (the
+    warp-a-(sentence, head) kernels compute dq, dk and dv in one launch)."""
+    if sq <= SHORT_SEQ and sk <= SHORT_SEQ:
         return None
     return torch.empty(batch * num_heads * sq * 4, dtype=torch.float32, device=device)
 

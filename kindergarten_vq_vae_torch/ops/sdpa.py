@@ -159,7 +159,7 @@ def sdpa_backward(q, k, v, mask, seed, g, num_heads: int, causal: bool = False,
     f32 = q.dtype == torch.float32
     dq = torch.empty((b, sq, H), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, sk, H), dtype=q.dtype, device=q.device) for _ in range(2))
-    stats = long_stats(b, num_heads, sq, sk, H // num_heads, q.device)
+    stats = long_stats(b, num_heads, sq, sk, q.device)
     _build.launch("kvq_sdpa_bwd", _BWD_ARGS, q.data_ptr(), q.stride(1), k.data_ptr(),
                   v.data_ptr(), k.stride(1), None if mask is None else mask.data_ptr(),
                   g.data_ptr(), dq.data_ptr(), H, dk.data_ptr(), dv.data_ptr(), H,

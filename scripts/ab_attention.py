@@ -12,8 +12,10 @@ time of one call (CUDA events around ``--iters`` calls after a warm-up) at
 the bert-base widths: ``--batch`` sentences x ``--seq`` tokens (dropout 0.1;
 2048 x 12 by default, the step's shape; past 32 tokens, e.g. ``--batch 256
 --seq 64``, the long kernels of csrc/attention_long.cu), H 768, ``--heads``
-heads (12; 4 or fewer: head_dim past 128, the long kernels' 128-column
-chunks), and the bucket-256 serving forward at ``--seq`` tokens (rate 0), in
+heads (12; 4 or fewer: head_dim past 128, attention_long.cu's wide kernels
+in 64-column chunks: ``--heads 4`` at ``--seq`` 12, 64 and 512 with
+``--batch`` 2048, 256 and 16 times the head_dim-192 rows of PERF.md), and the
+bucket-256 serving forward at ``--seq`` tokens (rate 0), in
 ``--dtype`` (bf16 by default; float32 times the f32 instances,
 csrc/attention_f32.cuh):
 

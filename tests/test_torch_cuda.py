@@ -1383,38 +1383,54 @@ def test_attention_long_path_matches_plain(gen, SQ, SK, B, hd, dtype):
     _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True)
 
 
-# head_dim past 128 (csrc/attention_long.cu's 128-column chunks) at every
-# length: 130 (a 2-column last chunk, element loads in bf16), 136, 192, 256,
-# 384 and 768 (six chunks)
+# head_dim past 128 (csrc/attention_long.cu's wide kernels, 64-column
+# chunks) at every length: 130 (a 2-column last chunk, element loads in
+# bf16), 136, 192, 256, 384 and 768 (twelve chunks)
 _WIDE_HEADS = [130, 136, 192, 256, 384, 768]
 
 
 @pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", _WIDE_HEADS)
-@pytest.mark.parametrize("SQ,SK,B", [(12, 12, 37), (33, 33, 37), (64, 64, 37), (12, 33, 37),
-                                     (64, 12, 37), (512, 512, 4)],
-                         ids=["12", "33", "64", "12-33", "64-12", "512-b4"])
-def test_attention_wide_head_matches_plain(gen, SQ, SK, B, hd, dtype):
+@pytest.mark.parametrize("SQ,SK,B,late", [
+    (12, 12, 37, False), (33, 33, 37, False), (64, 64, 37, False), (12, 33, 37, False),
+    (64, 12, 37, False), (512, 512, 4, False), (12, 12, 2048, False), (32, 32, 37, False),
+    (32, 33, 37, False), (65, 65, 37, False), (65, 65, 37, True), (512, 512, 4, True)],
+    ids=["12", "33", "64", "12-33", "64-12", "512-b4", "12-b2048", "32", "32-33", "65",
+         "65-late", "512-late"])
+def test_attention_wide_head_matches_plain(gen, SQ, SK, B, late, hd, dtype):
     """Every attention entry and its bars at a head_dim past 128: self
     causal with a padded mask, cross over padded keys, a fully masked
     sentence, dropout 0.1; two launches of each forward and backward give
-    the same bits."""
-    _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True)
+    the same bits. Across the routes' edges (32 / 33 tokens: a warp a
+    (sentence, head) or 64-row tiles; 64 / 65: one key tile or two sweeps),
+    at more (sentence, head) units than the persistent grid holds at once
+    (2048 x 3 at 12 tokens: its stride wraps), and ``late``: under the
+    causal mask a sentence whose first real key lies past the first 64-key
+    tile (its earlier rows near uniform over every key)."""
+    _held_attention_entries(gen, SQ, SK, hd, dtype, B, repeat=True, late=late)
 
 
 @pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("S", [12, 64])
+@pytest.mark.parametrize("S,hd,B", [(12, 192, 9), (64, 192, 9), (12, 192, 2048), (32, 192, 9),
+                                    (33, 192, 9), (65, 192, 9), (12, 130, 9), (130, 130, 9),
+                                    (12, 768, 9), (512, 768, 2)],
+                         ids=["12", "64", "12-b2048", "32", "33", "65", "12-hd130", "130-hd130",
+                              "12-hd768", "512-hd768"])
 @pytest.mark.parametrize("cross", [False, True])
-def test_wide_head_keep_masks_exact(gen, cross, S, dtype):
-    """The keep masks of the wide heads (head_dim 192, two chunks; the
-    one-hot columns in the first), as test_attention_keep_masks_exact_at_tile_edges."""
-    _keep_masks_exact(gen, cross, S, dtype, 192)
+def test_wide_head_keep_masks_exact(gen, cross, S, hd, B, dtype):
+    """The keep masks of the wide heads (the one-hot columns in the first
+    chunks), as test_attention_keep_masks_exact_at_tile_edges: head_dim 192
+    across the routes' edges and at 2048 sentences (the persistent grid's
+    stride wraps), 130 (element loads in bf16; at most 130 tokens, one
+    one-hot column a key) and 768 (twelve chunks) at 12 and 512 tokens."""
+    _keep_masks_exact(gen, cross, S, dtype, hd, B)
 
 
-def _held_attention_entries(gen, SQ, SK, hd, dtype, B=37, repeat=False):
+def _held_attention_entries(gen, SQ, SK, hd, dtype, B=37, repeat=False, late=False):
     """The layer's attention forward and backward, #11 / #12 and #13 at one
     shape against their plain versions (self where SQ == SK); ``repeat``:
-    each kernel entry launched twice, the same bits."""
+    each kernel entry launched twice, the same bits; ``late``: sentence 2's
+    first real key at min(70, SK - 1)."""
     NH = 3
     H, cross = NH * hd, SQ != SK
     if cross:
@@ -1427,6 +1443,8 @@ def _held_attention_entries(gen, SQ, SK, hd, dtype, B=37, repeat=False):
     lens = torch.randint(1, SK + 1, (B,), device="cuda", generator=gen)
     mask = (torch.arange(SK, device="cuda")[None] < lens[:, None]).to(torch.int32)
     mask[3] = 0
+    if late:
+        mask[2] = (torch.arange(SK, device="cuda") >= min(70, SK - 1)).to(torch.int32)
     g = torch.randn(B, SQ, H, device="cuda", generator=gen).to(dtype)
     op, causal = (cross_op(NH), False) if cross else (0, True)
     fwd_bar, grad_bar = (F32_FWD, F32_GRAD) if dtype == F32 else (2e-2, 2e-2)
@@ -1473,8 +1491,8 @@ def test_attention_keep_masks_exact_at_tile_edges(gen, cross, S, dtype):
     _keep_masks_exact(gen, cross, S, dtype, 64)
 
 
-def _keep_masks_exact(gen, cross, S, dtype, hd):
-    B, NH = 9, 2
+def _keep_masks_exact(gen, cross, S, dtype, hd, B=9):
+    NH = 2
     H = NH * hd
     onehot = torch.zeros(B, S, H, device="cuda")
     for h in range(NH):

@@ -3,8 +3,8 @@ limits, vs the JAX package on the CPU, in f32.
 
 On the card these shapes take the wide paths: rows of more than 1,024
 columns the block-a-row LayerNorm kernels of ``csrc/layernorm.cu``, and
-heads of more than 128 columns the 128-column chunks of
-``csrc/attention_long.cu``, at every sequence length. Here every wrapper
+heads of more than 128 columns the 64-column chunks of
+``csrc/attention_long.cu``'s wide kernels, at every sequence length. Here every wrapper
 takes its plain version (CPU tensors), held against JAX's Pallas kernels in
 interpret mode (or its plain LayerNorm functions) on the same seeded numpy
 inputs:
@@ -32,8 +32,10 @@ inputs:
   rtol 1e-5, the codes and ``recon_ids`` exactly, every gradient leaf
   within ``REL``;
 - the card wrappers' guards, which run on any device before a launch, take
-  H 1,032 / 1,600 and head_dim 130 / 192 / 768, and the long path's scratch
-  is allocated for a wide head at a short length;
+  H 1,032 / 1,600 and head_dim 130 / 192 / 768, and the backward's
+  statistics scratch is allocated past 32 queries or keys only, at any
+  head_dim; #11 / #12 on either side of the routes' boundaries (32 / 33
+  tokens, head_dim 128 / 129);
 - the weight bridge (``ckpt/bridge.py``) and the run config at gpt2-large's
   widths (GPT-2 decoder) and at head_dim 192 (BERT decoder): JAX's
   parameter tree loads into the port's model strictly and comes back bit
@@ -157,6 +159,23 @@ def _jax_vjp(f, q, k, v, w):
 @pytest.mark.parametrize("sq,sk,causal", [(7, 7, True), (6, 9, False)], ids=["self", "cross"])
 @pytest.mark.parametrize("hd", [192, 384])
 def test_fused_sdpa_wide_head_matches_jax(hd, sq, sk, causal):
+    _sdpa_matches_jax(hd, sq, sk, causal)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(32, 32, True), (33, 33, True), (32, 33, False)],
+                         ids=["32", "33", "32-33"])
+@pytest.mark.parametrize("hd", [128, 129])
+def test_fused_sdpa_at_route_boundaries_matches_jax(hd, sq, sk, causal):
+    """#11 / #12 on either side of the card's routes (32 / 33 tokens: a warp
+    a (sentence, head) or 64-row tiles; head_dim 128 / 129: the 128-column
+    kernels or the wide ones' 64-column chunks), and the backward's
+    statistics scratch, which exists past 32 queries or keys whatever the
+    head_dim."""
+    assert (long_stats(3, 2, sq, sk, "cpu") is None) == (max(sq, sk) <= 32)
+    _sdpa_matches_jax(hd, sq, sk, causal)
+
+
+def _sdpa_matches_jax(hd, sq, sk, causal):
     rng = np.random.default_rng(hd + sk)
     b, nh = 3, 2
     H = nh * hd
@@ -312,10 +331,9 @@ def test_guards_take_wide_rows_and_heads(H, NH):
     assert _attention_args(torch.zeros(b, s, 3 * H), None, None, NH, 0.1, "attention") == (
         b, s, s, H)
     _check_kernel_inputs(x, x, x, None, NH, "sdpa_forward")
-    stats = long_stats(b, NH, s, s, H // NH, "cpu")
-    assert (stats is None) == (H // NH <= 128)
-    if stats is not None:
-        assert stats.shape == (b * NH * s * 4,) and stats.dtype == torch.float32
+    assert long_stats(b, NH, s, s, "cpu") is None  # up to 32 tokens at any head_dim
+    stats = long_stats(b, NH, s, 33, "cpu")
+    assert stats.shape == (b * NH * s * 4,) and stats.dtype == torch.float32
     with pytest.raises(ValueError, match="multiple of 8"):
         _check_ln_width(H + 4, "residual_layernorm")
     with pytest.raises(ValueError, match="sequences"):
